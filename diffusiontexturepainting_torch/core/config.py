@@ -1,13 +1,15 @@
 """Configuration of the models and the serving pipeline the port runs.
 
 The same values, under the same names, as the JAX package's core/config.py
-(tests/test_torch_port_serving.py holds every field here equal to its
-counterpart there), without the TPU execution switches: the port always
-runs the exact DDIM path through its own kernels.
+(tests/test_torch_port_wire.py holds every field here equal to its
+counterpart there). The fused execution switches are kept, with the JAX
+package's defaults, except the head-slotted attention (off by default
+there); the port runs the exact DDIM path only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -30,6 +32,13 @@ class UNetConfig:
     time_embed_dim_mult: int = 4
     freq_shift: int = 0
     flip_sin_to_cos: bool = True
+    # Serving-only fused execution (same parameters): resnets as chained
+    # GroupNorm-prologue / statistics-epilogue convs (kernel K1), the
+    # transformer feed-forward as one kernel (K3), and each Transformer2D's
+    # GroupNorm folded into proj_in from the resnet's statistics.
+    fused_resnet: bool = False
+    fused_ff: bool = False
+    fused_norm: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -88,6 +97,24 @@ class PipelineConfig:
     texture_guidance_steps: int = 20
     context_pad: int = 150
     seed: int = 42
+    # Fused execution, the default as in the JAX package: the VAE as chained
+    # GroupNorm-conv kernels (K5, K6), the UNet's resnets (K1), feed-forwards
+    # (K3) and folded Transformer2D norms. All False is the "safe twin":
+    # module legs only, the same parameters.
+    fused_vae_encoder: bool = True
+    fused_vae_decoder: bool = True
+    fused_unet_resnet: bool = True
+    fused_unet_ff: bool = True
+    fused_unet_norm: bool = True
+
+
+def safe_twin_config(config: PipelineConfig = PipelineConfig()
+                     ) -> PipelineConfig:
+    """`config` with every fused switch off: the module legs only, over the
+    same parameters."""
+    return dataclasses.replace(config, **{
+        f.name: False for f in dataclasses.fields(config)
+        if f.name.startswith("fused")})
 
 
 # CLIP image normalization

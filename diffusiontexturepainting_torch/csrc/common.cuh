@@ -47,7 +47,7 @@ __device__ __forceinline__ void load_chunk(T* dst, const T* src, int nvalid,
   }
 }
 
-inline bool aligned16(const void* p) {
+__host__ __device__ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 

@@ -1,11 +1,18 @@
-// 3x3 stride-1 SAME convolution and the fused nearest-x2 upsample + 3x3
-// convolution, NHWC, as implicit GEMMs.
+// The 3x3 convolution family, NHWC, as implicit GEMMs: the plain 3x3 SAME
+// conv, the fused nearest-x2 upsample + 3x3 conv, and their fused-GroupNorm
+// modes with residual and statistics epilogues.
 //
-// Replaces (TPU):
-//   dtp_conv3x3              <- diffusiontexturepainting_tpu/ops/conv3x3.py
-//                               _conv3x3_pallas / _conv_kernel
-//   dtp_upsample2x_conv3x3   <- diffusiontexturepainting_tpu/ops/conv3x3.py
-//                               _upconv_pallas / _upconv_kernel_padded
+// Replaces (TPU, diffusiontexturepainting_tpu/ops/):
+//   dtp_conv3x3              <- conv3x3.py _conv3x3_pallas / _conv_kernel (K7)
+//   dtp_upsample2x_conv3x3   <- conv3x3.py _upconv_pallas /
+//                               _upconv_kernel_padded (K4)
+//   dtp_gn_conv3x3           <- conv3x3.py _gn_conv_resident_pallas /
+//                               _gn_res_kernel (K1) and gn_conv_stream.py
+//                               _stream_fused_pallas / _kernel (K5): one
+//                               function, resident or streamed on the TPU
+//   dtp_upsample2x_conv3x3_stats
+//                            <- gn_conv_stream.py _upconv_stream_pallas /
+//                               _upconv_stream_kernel (K6)
 //
 // What they compute:
 //   conv:  out[b,y,x,n] = bias[n] + sum_{di,dj,c} x[b,y+di-1,x+dj-1,c]
@@ -19,10 +26,16 @@
 //          GEMM per plane with M = B*H*W, N = Cout, K = 4*Cin; the plane's
 //          results are written straight into the interleaved (B,2H,2W,Cout)
 //          output, so no plane tensor and no transpose exist.
-// The SAME border is a load predicate (out-of-image taps load zeros); no
-// padded copy of the input is made. fp32 accumulation, the bias (stored in
-// the activation type) added in fp32, one rounding to the activation type
-// at the end.
+//   gn conv (K1/K5): the conv of v = silu(x*a[b,c] + c[b,c]) with a, c the
+//          folded GroupNorm affine (in the activation type); then
+//          y = round(acc + bias), y = round(y + residual), and optionally
+//          fp32 (sum, sumsq) of the final y per (b, n).
+//   upconv stats (K6): the upconv, with fp32 (sum, sumsq) per (b, n) of the
+//          fp32 output BEFORE its rounding (the TPU kernel's order; K1/K5
+//          take theirs after rounding and residual).
+// The SAME border is a load predicate: out-of-image taps load zeros, and in
+// the GroupNorm mode they skip the prologue, since silu(0*a + c) != 0. No
+// padded copy of the input is made. fp32 accumulation.
 //
 // What bounds it on the H100: at the UNet's shapes (M = 48..3072 pixels,
 // K up to 9*2560) it is tensor-core work on small M, so tile occupancy and
@@ -32,147 +45,72 @@
 // block with bf16 WMMA (mma.sync) on 8 warps and an fp32 FMA twin. Where
 // the output tiles alone would leave most of the 132 SMs idle (the UNet's
 // small levels), the K loop is split across blocks into an fp32 workspace
-// and reduced in a fixed order by finish_kernel. The TMA + wgmma pipelined
-// version is later work.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// and reduced in a fixed order by a finish kernel.
+//
+// The statistics are deterministic (no float atomics: a replayed stamp is
+// bit-identical, and the statistics feed every next GroupNorm). With
+// statistics the conv writes its fp32 sums to the workspace, and
+// finish_stats_kernel runs the whole epilogue: each thread owns one output
+// channel of a chunk of rows, walks the rows in order (bias, rounding,
+// residual, store) and keeps per-image partial sums, since one chunk may
+// span several images at the UNet's 4x4 and 8x8 levels; stats_reduce_kernel
+// then adds each image's chunk partials in chunk order. The price is one
+// fp32 round trip of the output through device memory per conv with
+// statistics; folding the walk into the conv's own epilogue, and TMA +
+// wgmma pipelining, are later work.
+#include "gemm_tile.cuh"
 
 namespace dtp {
 namespace {
 
-constexpr int kThreads = 256;
-
+// Everything one launch of conv_kernel reads.
 template <typename T>
-struct Tile;
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int BM = 128, BN = 128, BK = 32;
-  static constexpr int LDA = BK + 8, LDB = BN + 8;
-};
-template <>
-struct Tile<float> {
-  static constexpr int BM = 64, BN = 64, BK = 16;
-  static constexpr int LDA = BK + 4, LDB = BN + 4;
-};
-
-// bf16: 8 warps as 4 (M) x 2 (N), each warp a 32x64 sub-tile of 2x4 WMMA
-// 16x16x16 fragments.
-struct MathBF16 {
-  using TL = Tile<__nv_bfloat16>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  }
-
-  __device__ void step(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
-                       int tid) {
-    const int warp = tid >> 5, wm = warp & 3, wn = warp >> 2;
-#pragma unroll
-    for (int kk = 0; kk < TL::BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * TL::LDA + kk,
-                               TL::LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * TL::LDB + wn * 64 + j * 16,
-                               TL::LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-
-  // `scratch`: 8 warps x 256 floats of shared memory, free by now.
-  template <class Store>
-  __device__ void epilogue(float* scratch, int tid, Store store) {
-    const int warp = tid >> 5, lane = tid & 31, wm = warp & 3, wn = warp >> 2;
-    float* scr = scratch + warp * 256;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(scr, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int idx = lane * 8 + e;
-          store(wm * 32 + i * 16 + (idx >> 4), wn * 64 + j * 16 + (idx & 15),
-                scr[idx]);
-        }
-        __syncwarp();
-      }
-    }
-  }
+struct ConvArgs {
+  const T* x;
+  const T* w;         // taps w_tap elements apart, each (Cin, Cout)
+  const T* bias;      // (Cout,) or null
+  const T* gn_a;      // (B, Cin) GroupNorm prologue scale, or null: none
+  const T* gn_c;      // (B, Cin) GroupNorm prologue shift
+  const T* residual;  // the output's shape, or null (in-kernel epilogue)
+  T* out;
+  float* partial;  // fp32 sums, splits x output elements, when to_ws
+  long long w_tap;
+  int B, H, W, Cin, Cout, splits;
+  bool vec_a, vec_b, to_ws;
 };
 
-// fp32: 16x16 threads, each a 4x4 register tile of the 64x64 block tile.
-struct MathF32 {
-  using TL = Tile<float>;
-  float acc[4][4];
-
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-
-  __device__ void step(const float* As, const float* Bs, int tid) {
-    const int tm = tid >> 4, tn = tid & 15;
-#pragma unroll
-    for (int k = 0; k < TL::BK; ++k) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[(tm * 4 + i) * TL::LDA + k];
-      const float4 b = *reinterpret_cast<const float4*>(
-          Bs + k * TL::LDB + tn * 4);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-  }
-
-  template <class Store>
-  __device__ void epilogue(float*, int tid, Store store) {
-    const int tm = tid >> 4, tn = tid & 15;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) store(tm * 4 + i, tn * 4 + j, acc[i][j]);
-  }
-};
-
+// One 16-byte A chunk through the GroupNorm prologue: silu(x*a + c) in
+// fp32, the affine result and the SiLU each rounded to T as the plain
+// version rounds them. Elements at index >= nvalid are zero.
 template <typename T>
-struct MathFor;
-template <>
-struct MathFor<__nv_bfloat16> { using type = MathBF16; };
-template <>
-struct MathFor<float> { using type = MathF32; };
+__device__ __forceinline__ void load_chunk_gn(T* dst, const T* src,
+                                              const T* a, const T* c,
+                                              int nvalid, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  alignas(16) T v[V];
+  if (vec && nvalid >= V) {
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      v[e] = (e < nvalid) ? src[e] : from_float<T>(0.0f);
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    if (e < nvalid) {
+      float t = to_float(v[e]) * to_float(a[e]) + to_float(c[e]);
+      t = to_float(from_float<T>(t));
+      v[e] = from_float<T>(t / (1.0f + __expf(-t)));
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
 
 // UP = false: 3x3 SAME conv. UP = true: blockIdx.z is the parity plane of
 // the x2-upsampled output and w holds the 16 folded 2x2 taps.
 template <typename T, bool UP>
 __global__ void __launch_bounds__(kThreads)
-conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-            const T* __restrict__ bias, T* __restrict__ out, int B, int H,
-            int W, int Cin, int Cout, bool vec_a, bool vec_b, int splits,
-            float* __restrict__ partial) {
+conv_kernel(const ConvArgs<T> p) {
   using TL = Tile<T>;
   constexpr int V = 16 / sizeof(T);
   constexpr int A_CPR = TL::BK / V;  // 16-byte chunks per A-tile row
@@ -185,6 +123,8 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   __shared__ __align__(128) T As[TL::BM * TL::LDA];
   __shared__ __align__(128) T Bs[TL::BK * TL::LDB];
 
+  const int B = p.B, H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const int splits = p.splits;
   const int tid = threadIdx.x;
   const int HW = H * W;
   const int M = B * HW;
@@ -229,11 +169,11 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (UP) {
       dy = ry + (tap >> 1) - 1;
       dx = rx + (tap & 1) - 1;
-      wt = w + (size_t)(plane * 4 + tap) * Cin * Cout;
+      wt = p.w + (size_t)(plane * 4 + tap) * p.w_tap;
     } else {
       dy = tap / 3 - 1;
       dx = tap % 3 - 1;
-      wt = w + (size_t)tap * Cin * Cout;
+      wt = p.w + (size_t)tap * p.w_tap;
     }
 #pragma unroll
     for (int i = 0; i < A_CHUNKS; ++i) {
@@ -241,9 +181,14 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int ci = ci0 + a_col[i];
       const bool inb = a_ok[i] && yy >= 0 && yy < H && xx >= 0 && xx < W;
       const T* src =
-          inb ? x + (((size_t)a_b[i] * H + yy) * W + xx) * Cin + ci : x;
-      load_chunk(As + a_row[i] * TL::LDA + a_col[i], src,
-                 inb ? Cin - ci : 0, vec_a);
+          inb ? p.x + (((size_t)a_b[i] * H + yy) * W + xx) * Cin + ci : p.x;
+      T* dst = As + a_row[i] * TL::LDA + a_col[i];
+      if (p.gn_a != nullptr && inb) {
+        const size_t g = (size_t)a_b[i] * Cin + ci;
+        load_chunk_gn(dst, src, p.gn_a + g, p.gn_c + g, Cin - ci, p.vec_a);
+      } else {
+        load_chunk(dst, src, inb ? Cin - ci : 0, p.vec_a);
+      }
     }
 #pragma unroll
     for (int i = 0; i < B_CHUNKS; ++i) {
@@ -252,7 +197,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int k = ci0 + r, n = n0 + col;
       const bool ok = k < Cin;
       const T* src = ok ? wt + (size_t)k * Cout + n : wt;
-      load_chunk(Bs + r * TL::LDB + col, src, ok ? Cout - n : 0, vec_b);
+      load_chunk(Bs + r * TL::LDB + col, src, ok ? Cout - n : 0, p.vec_b);
     }
     __syncthreads();
     math.step(As, Bs, tid);
@@ -271,19 +216,23 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     } else {
       o = (size_t)m * Cout + n;
     }
-    if (splits > 1) {
-      partial[split * total + o] = v;  // bias and rounding in finish_kernel
-    } else {
-      out[o] = from_float<T>(v + to_float(bias[n]));
+    if (p.to_ws) {
+      p.partial[split * total + o] = v;  // epilogue in a finish kernel
+      return;
     }
+    if (p.bias != nullptr) v += to_float(p.bias[n]);
+    T y = from_float<T>(v);
+    if (p.residual != nullptr)
+      y = from_float<T>(to_float(y) + to_float(p.residual[o]));
+    p.out[o] = y;
   };
   // The K loop ended on a barrier, so the A tile is free as the bf16
   // epilogue's per-warp staging area (8 x 256 floats fit in it).
   math.epilogue(reinterpret_cast<float*>(As), tid, store);
 }
 
-// Split-K reduction: out = round(sum over splits of the partials + bias),
-// summed in a fixed order, so results do not vary from run to run.
+// Split-K reduction of K7/K4: out = round(sum over splits of the partials
+// + bias), summed in a fixed order, so results do not vary from run to run.
 template <typename T>
 __global__ void finish_kernel(const float* __restrict__ partial,
                               const T* __restrict__ bias,
@@ -297,7 +246,105 @@ __global__ void finish_kernel(const float* __restrict__ partial,
   }
 }
 
+constexpr int kStatCols = 128;  // output channels per finish_stats block
+
+// The epilogue of the fused modes, run after the conv: thread n of block
+// (chunk, column block) walks the chunk's `chunk` rows of the image-major
+// output (B images of `hw` rows) in order, sums the splits, adds the bias,
+// rounds, adds the residual in T, stores, and keeps (sum, sumsq) per image
+// of the chunk in ws[chunk][image - first image of the chunk][0|1][n].
+// PRE: the statistics of the fp32 value before rounding (K6); otherwise of
+// the stored value (K1/K5).
+template <typename T, bool PRE>
+__global__ void __launch_bounds__(kStatCols)
+finish_stats_kernel(const float* __restrict__ partial,
+                    const T* __restrict__ bias,
+                    const T* __restrict__ residual, T* __restrict__ out,
+                    float* __restrict__ ws, int rows, int hw, int Cout,
+                    int splits, int chunk, int slots, bool want_stats) {
+  const int n = blockIdx.y * kStatCols + threadIdx.x;
+  if (n >= Cout) return;
+  const int r0 = blockIdx.x * chunk;
+  const int r1 = min(r0 + chunk, rows);
+  const size_t total = (size_t)rows * Cout;
+  const float bv = bias != nullptr ? to_float(bias[n]) : 0.0f;
+  const int b0 = r0 / hw;
+  float* wsn = ws + (size_t)blockIdx.x * slots * 2 * Cout + n;
+  int b = b0, next = (b0 + 1) * hw;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int r = r0; r < r1; ++r) {
+    if (r == next) {
+      if (want_stats) {
+        wsn[(size_t)(b - b0) * 2 * Cout] = s1;
+        wsn[(size_t)(b - b0) * 2 * Cout + Cout] = s2;
+      }
+      ++b;
+      next += hw;
+      s1 = s2 = 0.0f;
+    }
+    const size_t o = (size_t)r * Cout + n;
+    float v = 0.0f;
+    for (int s = 0; s < splits; ++s) v += partial[s * total + o];
+    v += bv;
+    if (PRE) {
+      s1 += v;
+      s2 += v * v;
+    }
+    T y = from_float<T>(v);
+    if (residual != nullptr)
+      y = from_float<T>(to_float(y) + to_float(residual[o]));
+    out[o] = y;
+    if (!PRE) {
+      const float f = to_float(y);
+      s1 += f;
+      s2 += f * f;
+    }
+  }
+  if (want_stats) {
+    wsn[(size_t)(b - b0) * 2 * Cout] = s1;
+    wsn[(size_t)(b - b0) * 2 * Cout + Cout] = s2;
+  }
+}
+
+// stats[b][0|1][n]: the chunk partials of image b, added in chunk order.
+__global__ void stats_reduce_kernel(const float* __restrict__ ws,
+                                    float* __restrict__ stats, int B, int hw,
+                                    int Cout, int chunk, int slots) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * Cout;
+       i += gridDim.x * blockDim.x) {
+    const int b = i / Cout, n = i - b * Cout;
+    const long long first = (long long)b * hw, last = first + hw - 1;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (long long c = first / chunk; c <= last / chunk; ++c) {
+      const int slot = b - (int)(c * chunk / hw);
+      const float* p = ws + ((size_t)c * slots + slot) * 2 * Cout + n;
+      s1 += p[0];
+      s2 += p[Cout];
+    }
+    stats[(size_t)b * 2 * Cout + n] = s1;
+    stats[(size_t)b * 2 * Cout + Cout + n] = s2;
+  }
+}
+
 constexpr int kSMs = 132;  // H100 SXM
+
+// Rows per finish_stats chunk: 128, halved down to 8 until the chunks times
+// the column blocks give about two blocks per SM (the UNet's 4x4 level has
+// 48 output rows).
+int plan_chunk(int rows, int Cout) {
+  const int col_blocks = (Cout + kStatCols - 1) / kStatCols;
+  int chunk = 128;
+  while (chunk > 8 &&
+         (long long)((rows + chunk - 1) / chunk) * col_blocks < 2 * kSMs)
+    chunk /= 2;
+  return chunk;
+}
+
+// Image slots per chunk: the most images `chunk` consecutive rows touch.
+int plan_slots(int chunk, int hw, int B) {
+  const int s = (chunk - 1) / hw + 2;
+  return s < B ? s : B;
+}
 
 // K splits for one call: 1 when the output tiles alone fill the card;
 // otherwise enough splits for about two waves of blocks, each keeping at
@@ -317,26 +364,40 @@ int plan_splits(int B, int H, int W, int Cin, int Cout) {
 }
 
 template <typename T, bool UP>
+cudaError_t launch_conv(ConvArgs<T> p, cudaStream_t stream) {
+  using TL = Tile<T>;
+  constexpr int V = 16 / sizeof(T);
+  if (p.splits < 1 || (p.to_ws && p.partial == nullptr) ||
+      (p.gn_a == nullptr) != (p.gn_c == nullptr))
+    return cudaErrorInvalidValue;
+  const long long M = (long long)p.B * p.H * p.W;
+  dim3 grid((unsigned)((M + TL::BM - 1) / TL::BM),
+            (unsigned)((p.Cout + TL::BN - 1) / TL::BN),
+            (unsigned)((UP ? 4 : 1) * p.splits));
+  p.vec_a = p.Cin % V == 0 && aligned16(p.x);
+  p.vec_b = p.Cout % V == 0 && p.w_tap % V == 0 && aligned16(p.w);
+  conv_kernel<T, UP><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// K7 / K4: conv + bias, split-K reduced by finish_kernel.
+template <typename T, bool UP>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
                    void* partial, int B, int H, int W, int Cin, int Cout,
                    int splits, cudaStream_t stream) {
-  using TL = Tile<T>;
-  constexpr int V = 16 / sizeof(T);
-  if (splits < 1 || (splits > 1 && partial == nullptr))
-    return cudaErrorInvalidValue;
-  const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + TL::BM - 1) / TL::BM),
-            (unsigned)((Cout + TL::BN - 1) / TL::BN),
-            (unsigned)((UP ? 4 : 1) * splits));
-  const bool vec_a = Cin % V == 0 && aligned16(x);
-  const bool vec_b = Cout % V == 0 && aligned16(w);
-  conv_kernel<T, UP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(bias), static_cast<T*>(out), B, H, W, Cin,
-      Cout, vec_a, vec_b, splits, static_cast<float*>(partial));
-  cudaError_t err = cudaGetLastError();
+  ConvArgs<T> p{};
+  p.x = static_cast<const T*>(x);
+  p.w = static_cast<const T*>(w);
+  p.bias = static_cast<const T*>(bias);
+  p.out = static_cast<T*>(out);
+  p.partial = static_cast<float*>(partial);
+  p.w_tap = (long long)Cin * Cout;
+  p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.splits = splits;
+  p.to_ws = splits > 1;
+  if (bias == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = launch_conv<T, UP>(p, stream);
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t total = (size_t)M * Cout * (UP ? 4 : 1);
+  const size_t total = (size_t)B * H * W * Cout * (UP ? 4 : 1);
   const unsigned fin_blocks =
       (unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
   finish_kernel<T><<<fin_blocks, 256, 0, stream>>>(
@@ -345,9 +406,59 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
   return cudaGetLastError();
 }
 
+// The fused modes (K1/K5 with UP = false, K6 with UP = true). Without
+// statistics and split-K the whole epilogue runs in the conv kernel;
+// otherwise the conv writes fp32 sums to `partial` and finish_stats_kernel
+// (+ stats_reduce_kernel) finishes.
+template <typename T, bool UP>
+cudaError_t launch_fused(const void* x, const void* a, const void* c,
+                         const void* w, const void* bias,
+                         const void* residual, void* out, void* partial,
+                         void* ws, void* stats, int B, int H, int W, int Cin,
+                         int Cout, long long w_tap, int splits,
+                         bool want_stats, cudaStream_t stream) {
+  ConvArgs<T> p{};
+  p.x = static_cast<const T*>(x);
+  p.w = static_cast<const T*>(w);
+  p.bias = static_cast<const T*>(bias);
+  p.gn_a = static_cast<const T*>(a);
+  p.gn_c = static_cast<const T*>(c);
+  p.residual = static_cast<const T*>(residual);
+  p.out = static_cast<T*>(out);
+  p.partial = static_cast<float*>(partial);
+  p.w_tap = w_tap;
+  p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.splits = splits;
+  p.to_ws = splits > 1 || want_stats;
+  if (w_tap < (long long)Cin * Cout) return cudaErrorInvalidValue;
+  if (want_stats && (ws == nullptr || stats == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_conv<T, UP>(p, stream);
+  if (err != cudaSuccess || !p.to_ws) return err;
+  const int rows = B * H * W * (UP ? 4 : 1);
+  const int hw = H * W * (UP ? 4 : 1);
+  const int chunk = plan_chunk(rows, Cout);
+  const int slots = plan_slots(chunk, hw, B);
+  dim3 grid((unsigned)((rows + chunk - 1) / chunk),
+            (unsigned)((Cout + kStatCols - 1) / kStatCols));
+  finish_stats_kernel<T, UP><<<grid, kStatCols, 0, stream>>>(
+      p.partial, p.bias, p.residual, p.out, static_cast<float*>(ws), rows,
+      hw, Cout, splits, chunk, slots, want_stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !want_stats) return err;
+  const int n = B * Cout;
+  stats_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<float*>(stats), B, hw, Cout,
+      chunk, slots);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int H, int W, int Cin, int Cout) {
+  return B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0;
+}
+
 template <bool UP>
 int splits_for(int B, int H, int W, int Cin, int Cout, int is_bf16) {
-  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0) return 1;
+  if (bad_shape(B, H, W, Cin, Cout)) return 1;
   return is_bf16 ? plan_splits<__nv_bfloat16, UP>(B, H, W, Cin, Cout)
                  : plan_splits<float, UP>(B, H, W, Cin, Cout);
 }
@@ -356,14 +467,32 @@ template <bool UP>
 cudaError_t dispatch(const void* x, const void* w, const void* bias,
                      void* out, void* partial, int B, int H, int W, int Cin,
                      int Cout, int splits, int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
-    return cudaErrorInvalidValue;
+  if (bad_shape(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16, UP>(x, w, bias, out, partial, B, H, W, Cin,
                                      Cout, splits, s);
   return launch<float, UP>(x, w, bias, out, partial, B, H, W, Cin, Cout,
                            splits, s);
+}
+
+template <bool UP>
+cudaError_t dispatch_fused(const void* x, const void* a, const void* c,
+                           const void* w, const void* bias,
+                           const void* residual, void* out, void* partial,
+                           void* ws, void* stats, int B, int H, int W,
+                           int Cin, int Cout, long long w_tap, int splits,
+                           int want_stats, int is_bf16, void* stream) {
+  if (bad_shape(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_fused<__nv_bfloat16, UP>(x, a, c, w, bias, residual, out,
+                                           partial, ws, stats, B, H, W, Cin,
+                                           Cout, w_tap, splits,
+                                           want_stats != 0, s);
+  return launch_fused<float, UP>(x, a, c, w, bias, residual, out, partial,
+                                 ws, stats, B, H, W, Cin, Cout, w_tap,
+                                 splits, want_stats != 0, s);
 }
 
 }  // namespace
@@ -379,6 +508,16 @@ extern "C" int dtp_conv3x3_splits(int B, int H, int W, int Cin, int Cout,
 extern "C" int dtp_upsample2x_conv3x3_splits(int B, int H, int W, int Cin,
                                              int Cout, int is_bf16) {
   return dtp::splits_for<true>(B, H, W, Cin, Cout, is_bf16);
+}
+
+// Floats of the statistics workspace of a fused call whose output has
+// B images of `hw` rows of Cout channels.
+extern "C" int dtp_stats_workspace_floats(int B, int hw, int Cout) {
+  if (B <= 0 || hw <= 0 || Cout <= 0) return 0;
+  const int rows = B * hw;
+  const int chunk = dtp::plan_chunk(rows, Cout);
+  return ((rows + chunk - 1) / chunk) * dtp::plan_slots(chunk, hw, B) * 2 *
+         Cout;
 }
 
 // x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,), out (B,H,W,Cout), all of
@@ -402,4 +541,38 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3(const void* x, const void* w16,
                                               void* stream) {
   return dtp::dispatch<true>(x, w16, bias, out, partial, B, H, W, Cin, Cout,
                              splits, is_bf16, stream);
+}
+
+// K1/K5: x (B,H,W,Cin); a, c (B,Cin) folded GroupNorm affine, or both null
+// for no prologue; w (3,3,Cin,Cout) with its 9 taps w_tap elements apart
+// (Cin*Cout, or more for a slice of a wider weight's input channels);
+// bias (Cout,) or null; residual
+// (B,H,W,Cout) or null; out (B,H,W,Cout); all of one type. partial:
+// splits * B*H*W*Cout floats when splits > 1 or want_stats; ws:
+// dtp_stats_workspace_floats(B, H*W, Cout) floats and stats (B,2,Cout)
+// fp32 when want_stats.
+extern "C" cudaError_t dtp_gn_conv3x3(const void* x, const void* a,
+                                      const void* c, const void* w,
+                                      const void* bias, const void* residual,
+                                      void* out, void* partial, void* ws,
+                                      void* stats, int B, int H, int W,
+                                      int Cin, int Cout, int w_tap,
+                                      int splits, int want_stats,
+                                      int is_bf16, void* stream) {
+  return dtp::dispatch_fused<false>(x, a, c, w, bias, residual, out, partial,
+                                    ws, stats, B, H, W, Cin, Cout, w_tap,
+                                    splits, want_stats, is_bf16, stream);
+}
+
+// K6: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,) or null,
+// out (B,2H,2W,Cout); workspaces as for dtp_gn_conv3x3 with the output's
+// 4*H*W rows per image.
+extern "C" cudaError_t dtp_upsample2x_conv3x3_stats(
+    const void* x, const void* w16, const void* bias, void* out,
+    void* partial, void* ws, void* stats, int B, int H, int W, int Cin,
+    int Cout, int splits, int want_stats, int is_bf16, void* stream) {
+  return dtp::dispatch_fused<true>(x, nullptr, nullptr, w16, bias, nullptr,
+                                   out, partial, ws, stats, B, H, W, Cin,
+                                   Cout, (long long)Cin * Cout, splits,
+                                   want_stats, is_bf16, stream);
 }

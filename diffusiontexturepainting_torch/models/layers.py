@@ -1,10 +1,12 @@
 """Shared building blocks of the diffusion models, NHWC.
 
-Port of diffusiontexturepainting_tpu/models/layers.py, module legs only
-(the TPU's fused resnet / feed-forward / folded-norm / slotted-attention
-paths are not part of this port yet). Parameter names follow diffusers;
-conv weights keep the JAX package's (kH, kW, Cin, Cout) layout, which the
-conv kernels read, and linear weights PyTorch's (out, in).
+Port of diffusiontexturepainting_tpu/models/layers.py: the module legs and
+the serving-only fused legs (ResnetBlock(fused=True), FeedForward(fused=True),
+Transformer2D(gn_folded=True)); the head-slotted attention is not ported.
+A fused leg runs the same parameters as its module leg. Parameter names
+follow diffusers; conv weights keep the JAX package's (kH, kW, Cin, Cout)
+layout, which the conv kernels read, and linear weights PyTorch's (out, in),
+which the feed-forward kernel reads.
 
 Precision policy, as in the JAX package: parameters and activations share
 one dtype (bf16 when serving); normalization statistics and softmax run in
@@ -21,6 +23,13 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.conv3x3 import conv3x3, fold_upsample_weights, upsample2x_conv3x3
+from ..ops.ff_geglu import ff_geglu
+from ..ops.gn_conv import (
+    gn_affine_from_stats,
+    gn_conv_resident,
+    shift_stats_for_temb,
+    stats_of,
+)
 
 
 def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
@@ -173,9 +182,13 @@ class GELUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU (UNet) or plain GELU (patch encoder) feed-forward; the
-    parameterless net.1 keeps diffusers' net.0 / net.2 names."""
+    parameterless net.1 keeps diffusers' net.0 / net.2 names. With
+    `fused` (GEGLU, given the residual) the whole feed-forward and the
+    residual add run as one kernel (ops.ff_geglu, K3 on CUDA) over the
+    modules' own weights."""
 
-    def __init__(self, dim: int, mult: int = 4, activation: str = "geglu"):
+    def __init__(self, dim: int, mult: int = 4, activation: str = "geglu",
+                 fused: bool = False):
         super().__init__()
         inner = dim * mult
         if activation == "geglu":
@@ -184,10 +197,18 @@ class FeedForward(nn.Module):
             act = GELUProj(dim, inner)
         else:
             raise ValueError(activation)
+        self.fused = fused and activation == "geglu"
         self.net = nn.ModuleList([act, nn.Identity(), nn.Linear(inner, dim)])
 
-    def forward(self, x):
-        return self.net[2](self.net[0](x))
+    def forward(self, x, residual=None):
+        if self.fused and residual is not None:
+            c = residual.shape[-1]
+            proj, out = self.net[0].proj, self.net[2]
+            y = ff_geglu(x.reshape(-1, c), proj.weight, proj.bias, out.weight,
+                         out.bias, residual.reshape(-1, c))
+            return y.reshape(residual.shape)
+        y = self.net[2](self.net[0](x))
+        return y if residual is None else residual + y
 
 
 class BasicTransformerBlock(nn.Module):
@@ -196,7 +217,7 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  kv_dim: int | None = None, qkv_bias: bool = False,
-                 ff_activation: str = "geglu"):
+                 ff_activation: str = "geglu", ff_fused: bool = False):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
         self.attn1 = Attention(dim, num_heads, head_dim, qkv_bias=qkv_bias)
@@ -204,21 +225,32 @@ class BasicTransformerBlock(nn.Module):
         self.attn2 = Attention(dim, num_heads, head_dim, kv_dim=kv_dim,
                                qkv_bias=qkv_bias)
         self.norm3 = LayerNorm32(dim)
-        self.ff = FeedForward(dim, activation=ff_activation)
+        self.ff = FeedForward(dim, activation=ff_activation, fused=ff_fused)
 
     def forward(self, x, context=None):
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        return self.ff(self.norm3(x), residual=x)
 
 
 class ResnetBlock(nn.Module):
     """GN -> SiLU -> 3x3 conv, twice, with optional time conditioning; eps
-    is 1e-5 in the UNet and 1e-6 in the VAE."""
+    is 1e-5 in the UNet and 1e-6 in the VAE.
+
+    `fused` (the UNet's serving leg, kernel K1 on CUDA): each GroupNorm +
+    SiLU folds into its conv's prologue, with the affine derived from the
+    previous conv's statistics epilogue; the time embedding folds into
+    GN2's statistics and affine (shift_stats_for_temb, c + t*a). An up-path
+    `skip` stays un-concatenated: its GroupNorm statistics are the parts'
+    statistics side by side, conv1 runs as two chained calls over the two
+    halves of its weight (the second adds onto the first through its
+    residual), and the 1x1 shortcut as two matmuls."""
 
     def __init__(self, cin: int, cout: int, num_groups: int = 32,
-                 temb_dim: int | None = None, eps: float = 1e-5):
+                 temb_dim: int | None = None, eps: float = 1e-5,
+                 fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.norm1 = GroupNorm32(num_groups, cin, eps)
         self.conv1 = Conv3x3(cin, cout)
         self.time_emb_proj = (nn.Linear(temb_dim, cout)
@@ -227,7 +259,12 @@ class ResnetBlock(nn.Module):
         self.conv2 = Conv3x3(cout, cout)
         self.conv_shortcut = Conv1x1(cin, cout) if cin != cout else None
 
-    def forward(self, x, temb=None, skip=None):
+    def forward(self, x, temb=None, skip=None, return_stats=False):
+        """return_stats: (out, statistics of out) on the fused leg, for a
+        following Transformer2D's folded GroupNorm; (out, None) on the
+        module leg."""
+        if self.fused:
+            return self._forward_fused(x, temb, skip, return_stats)
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
         h = self.conv1(F.silu(self.norm1(x)))
@@ -236,7 +273,44 @@ class ResnetBlock(nn.Module):
         h = self.conv2(F.silu(self.norm2(h)))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
-        return x + h
+        return (x + h, None) if return_stats else x + h
+
+    def _forward_fused(self, x, temb, skip, return_stats):
+        _, H, W, ca = x.shape
+        n_sp = H * W
+        g, eps = self.norm1.num_groups, self.norm1.eps
+        w1, b1 = self.conv1.weight, self.conv1.bias
+        if skip is None:
+            a1, c1 = gn_affine_from_stats(stats_of(x), self.norm1.weight,
+                                          self.norm1.bias, g, n_sp, eps)
+            h, st = gn_conv_resident(x, a1, c1, w1, b1, None, True)
+        else:
+            st_in = torch.cat([stats_of(x), stats_of(skip)], dim=-1)
+            a1, c1 = gn_affine_from_stats(st_in, self.norm1.weight,
+                                          self.norm1.bias, g, n_sp, eps)
+            h1, _ = gn_conv_resident(x, a1[:, :ca], c1[:, :ca],
+                                     w1[:, :, :ca], b1, None, False)
+            h, st = gn_conv_resident(skip, a1[:, ca:], c1[:, ca:],
+                                     w1[:, :, ca:], None, h1, True)
+        t = None
+        if self.time_emb_proj is not None and temb is not None:
+            t = self.time_emb_proj(F.silu(temb))
+            st = shift_stats_for_temb(st, t, n_sp)
+        a2, c2 = gn_affine_from_stats(st, self.norm2.weight, self.norm2.bias,
+                                      g, n_sp, eps)
+        if t is not None:
+            c2 = c2 + t.float() * a2
+        sc = self.conv_shortcut
+        if skip is not None and sc is not None:
+            w00 = sc.weight[0, 0]
+            res = x @ w00[:ca] + skip @ w00[ca:] + sc.bias
+        elif skip is not None:
+            res = torch.cat([x, skip], dim=-1)
+        else:
+            res = sc(x) if sc is not None else x
+        out, st = gn_conv_resident(h, a2, c2, self.conv2.weight,
+                                   self.conv2.bias, res, return_stats)
+        return (out, st) if return_stats else out
 
 
 class Downsample(nn.Module):
@@ -281,22 +355,41 @@ class Upsample(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GN -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out, residual."""
+    """GN -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out, residual.
+
+    `gn_folded` (serving leg): the GroupNorm folds into proj_in,
+    (x*a + c) @ W = (x*a) @ W + c @ W, with (a, c) from `in_stats` (the
+    preceding fused resnet's statistics epilogue) or from one statistics
+    pass over x. `ff_fused`: the blocks' feed-forwards run as kernel K3."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int,
                  depth: int = 1, kv_dim: int | None = None,
-                 num_groups: int = 32):
+                 num_groups: int = 32, ff_fused: bool = False,
+                 gn_folded: bool = False):
         super().__init__()
+        self.gn_folded = gn_folded
         self.norm = GroupNorm32(num_groups, channels, eps=1e-6)
         self.proj_in = Conv1x1(channels, channels)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, num_heads, head_dim, kv_dim=kv_dim)
+            BasicTransformerBlock(channels, num_heads, head_dim, kv_dim=kv_dim,
+                                  ff_fused=ff_fused)
             for _ in range(depth)])
         self.proj_out = Conv1x1(channels, channels)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, in_stats=None):
         b, h, w, c = x.shape
-        hidden = self.proj_in(self.norm(x)).reshape(b, h * w, c)
+        if self.gn_folded:
+            st = in_stats if in_stats is not None else stats_of(x)
+            a, cc = gn_affine_from_stats(st, self.norm.weight, self.norm.bias,
+                                         self.norm.num_groups, h * w,
+                                         self.norm.eps)
+            w00 = self.proj_in.weight[0, 0]
+            hidden = (x * a[:, None, None, :].to(x.dtype)) @ w00
+            shift = cc @ w00.float() + self.proj_in.bias.float()
+            hidden = (hidden + shift[:, None, None, :].to(x.dtype)).reshape(
+                b, h * w, c)
+        else:
+            hidden = self.proj_in(self.norm(x)).reshape(b, h * w, c)
         for block in self.transformer_blocks:
             hidden = block(hidden, context)
         return self.proj_out(hidden.reshape(b, h, w, c)) + x

@@ -3,7 +3,9 @@
 Port of diffusiontexturepainting_tpu/models/unet.py (`__call__` only; the
 DeepCache forwards come later). Submodule names follow diffusers'
 UNet2DConditionModel, so the state_dict converts with
-weights/convert.py convert_unet.
+weights/convert.py convert_unet. UNetConfig's fused_resnet / fused_ff /
+fused_norm choose the serving legs of the resnets and transformers; the
+parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -61,11 +63,13 @@ class UNet2DCondition(nn.Module):
         self.time_embedding = _TimestepEmbedding(ch0, tdim)
 
         def resnet(cin, cout):
-            return ResnetBlock(cin, cout, groups, temb_dim=tdim)
+            return ResnetBlock(cin, cout, groups, temb_dim=tdim,
+                               fused=cfg.fused_resnet)
 
         def transformer(ch):
             return Transformer2D(ch, heads, ch // heads, kv_dim=kv,
-                                 num_groups=groups)
+                                 num_groups=groups, ff_fused=cfg.fused_ff,
+                                 gn_folded=cfg.fused_norm)
 
         n_levels = len(cfg.block_out_channels)
         skip_ch = [ch0]
@@ -106,6 +110,16 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm32(groups, ch0)
         self.conv_out = ConvNHWC(ch0, cfg.out_channels, 3, padding=1)
 
+    def _res_attn(self, resnet, attn, h, temb, ctx, skip=None):
+        """resnet [-> transformer]; with fused_norm the resnet's statistics
+        epilogue feeds the transformer's folded GroupNorm. `skip` goes to
+        the resnet un-concatenated."""
+        if attn is not None and self.cfg.fused_norm:
+            h, st = resnet(h, temb, skip=skip, return_stats=True)
+            return attn(h, ctx, in_stats=st)
+        h = resnet(h, temb, skip=skip)
+        return attn(h, ctx) if attn is not None else h
+
     def forward(self, sample, timestep, encoder_hidden_states):
         """(B, H, W, 9), t (scalar or (B,)), (B, L, D) -> (B, H, W, 4)
         predicted noise in fp32."""
@@ -124,25 +138,26 @@ class UNet2DCondition(nn.Module):
         skips = [h]
         for level in self.down_blocks:
             for j, res in enumerate(level.resnets):
-                h = res(h, temb)
-                if level.attentions is not None:
-                    h = level.attentions[j](h, ctx)
+                h = self._res_attn(res, _attn(level, j), h, temb, ctx)
                 skips.append(h)
             if hasattr(level, "downsamplers"):
                 h = level.downsamplers[0](h)
                 skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, ctx)
-        h = self.mid_block.resnets[1](h, temb)
+        mid = self.mid_block
+        h = self._res_attn(mid.resnets[0], mid.attentions[0], h, temb, ctx)
+        h = mid.resnets[1](h, temb)
 
         for level in self.up_blocks:
             for j, res in enumerate(level.resnets):
-                h = res(h, temb, skip=skips.pop())
-                if level.attentions is not None:
-                    h = level.attentions[j](h, ctx)
+                h = self._res_attn(res, _attn(level, j), h, temb, ctx,
+                                   skip=skips.pop())
             if hasattr(level, "upsamplers"):
                 h = level.upsamplers[0](h)
 
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
         return h.float()
+
+
+def _attn(level, j):
+    return level.attentions[j] if level.attentions is not None else None

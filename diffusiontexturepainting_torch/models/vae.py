@@ -1,9 +1,12 @@
 """SD AutoencoderKL encoder and decoder, NHWC.
 
-Port of diffusiontexturepainting_tpu/models/vae.py (the module path; the
-TPU's fused streaming encode/decode comes later). Names follow diffusers'
-AutoencoderKL (encoder.*, quant_conv, post_quant_conv, decoder.*), so the
-state_dicts convert with weights/convert.py.
+Port of diffusiontexturepainting_tpu/models/vae.py: the module path and
+the fused serving path (fused_encode / fused_decode: every resnet conv and
+both output heads as chained GroupNorm-prologue / statistics-epilogue convs,
+kernel K5; the decoder's upsamples with statistics, K6), chosen by
+`fused` on VAEEncoder / VAEDecoder over the same parameters. Names follow
+diffusers' AutoencoderKL (encoder.*, quant_conv, post_quant_conv,
+decoder.*), so the state_dicts convert with weights/convert.py.
 """
 
 from __future__ import annotations
@@ -13,6 +16,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.config import VAEConfig
+from ..ops.gn_conv import (
+    gn_affine_from_stats,
+    gn_conv_stream,
+    stats_of,
+    upconv_stream,
+)
 from .layers import (
     Attention,
     Conv1x1,
@@ -118,32 +127,39 @@ class _Decoder(nn.Module):
 
 
 class VAEEncoder(nn.Module):
-    """images (B,H,W,3) in [-1,1] -> moments (B,H/8,W/8,2*latent) fp32."""
+    """images (B,H,W,3) in [-1,1] -> moments (B,H/8,W/8,2*latent) fp32;
+    `fused` runs fused_encode."""
 
-    def __init__(self, cfg: VAEConfig = VAEConfig()):
+    def __init__(self, cfg: VAEConfig = VAEConfig(), fused: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.fused = fused
         self.encoder = _Encoder(cfg)
         self.quant_conv = Conv1x1(2 * cfg.latent_channels,
                                   2 * cfg.latent_channels)
 
     def forward(self, x):
+        if self.fused:
+            return fused_encode(self, x)
         x = x.to(self.quant_conv.weight.dtype)
         return self.quant_conv(self.encoder(x)).float()
 
 
 class VAEDecoder(nn.Module):
     """latents (B,h,w,4), already divided by the scaling factor -> images
-    (B,8h,8w,3) in about [-1,1], fp32."""
+    (B,8h,8w,3) in about [-1,1], fp32; `fused` runs fused_decode."""
 
-    def __init__(self, cfg: VAEConfig = VAEConfig()):
+    def __init__(self, cfg: VAEConfig = VAEConfig(), fused: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.fused = fused
         self.post_quant_conv = Conv1x1(cfg.latent_channels,
                                        cfg.latent_channels)
         self.decoder = _Decoder(cfg)
 
     def forward(self, z):
+        if self.fused:
+            return fused_decode(self, z)
         z = z.to(self.post_quant_conv.weight.dtype)
         return self.decoder(self.post_quant_conv(z)).float()
 
@@ -158,3 +174,115 @@ def sample_latents(moments, noise):
 
 def latent_mode(moments):
     return moments.chunk(2, dim=-1)[0]
+
+
+# --- the fused serving path ---
+#
+# The same modules' parameters executed as a chain of fused convs: every
+# conv emits the (sum, sumsq) statistics of its output, and the next
+# GroupNorm folds into a per-(B, C) affine applied in the next conv's
+# prologue, so no GroupNorm makes a pass of its own over a large tensor.
+# The RGB stem, the stride-2 downsamples and the 1x1 convs stay plain
+# PyTorch, as the JAX package leaves them to XLA.
+
+
+def _bias_round(y, bias, dt):
+    """y + bias in fp32, rounded to dt (the JAX path's bias epilogue)."""
+    return (y.float() + bias.float()).to(dt)
+
+
+def _conv(x, conv, stride=1, padding=1):
+    """A plain conv (ConvNHWC's weight) in x's dtype, bias added in fp32."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.permute(3, 2, 0, 1),
+                 None, stride, padding)
+    return _bias_round(y.permute(0, 2, 3, 1), conv.bias, x.dtype)
+
+
+def _conv_in_im2col(x, conv):
+    """The RGB stem (3x3 SAME, Cin 3) as one (B*H*W, 9*Cin) matmul."""
+    b, h, w, cin = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    panel = torch.cat([xp[:, di:di + h, dj:dj + w] for di in range(3)
+                       for dj in range(3)], dim=-1)
+    kmat = conv.weight.reshape(9 * cin, -1)
+    return _bias_round(panel @ kmat, conv.bias, x.dtype)
+
+
+def _dense1x1(x, conv):
+    return _bias_round(x @ conv.weight[0, 0], conv.bias, x.dtype)
+
+
+def _fused_resnet(res, h, stats):
+    """One ResnetBlock (no time embedding) as two fused convs; returns
+    (out, statistics of out)."""
+    n_sp = h.shape[1] * h.shape[2]
+    g, eps = res.norm1.num_groups, res.norm1.eps
+    a1, c1 = gn_affine_from_stats(stats, res.norm1.weight, res.norm1.bias, g,
+                                  n_sp, eps)
+    h1, s1 = gn_conv_stream(h, a1, c1, res.conv1.weight, res.conv1.bias,
+                            None, True)
+    a2, c2 = gn_affine_from_stats(s1, res.norm2.weight, res.norm2.bias, g,
+                                  n_sp, eps)
+    residual = (_dense1x1(h, res.conv_shortcut)
+                if res.conv_shortcut is not None else h)
+    return gn_conv_stream(h1, a2, c2, res.conv2.weight, res.conv2.bias,
+                          residual, True)
+
+
+def _fused_mid(mid, h, stats):
+    h, stats = _fused_resnet(mid.resnets[0], h, stats)
+    b, hh, ww, c = h.shape
+    attn = mid.attentions[0]
+    gn = attn.group_norm
+    a, cc = gn_affine_from_stats(stats, gn.weight, gn.bias, gn.num_groups,
+                                 hh * ww, gn.eps)
+    hn = (h.float() * a[:, None, None, :] + cc[:, None, None, :]).to(h.dtype)
+    out = attn(hn.reshape(b, hh * ww, c))
+    h = h + out.reshape(b, hh, ww, c)
+    return _fused_resnet(mid.resnets[1], h, stats_of(h))
+
+
+def _fused_norm_silu_conv(norm, conv, h, stats):
+    """conv_norm_out -> SiLU -> conv_out head, one fused conv."""
+    a, c = gn_affine_from_stats(stats, norm.weight, norm.bias,
+                                norm.num_groups, h.shape[1] * h.shape[2],
+                                norm.eps)
+    out, _ = gn_conv_stream(h, a, c, conv.weight, conv.bias, None, False)
+    return out
+
+
+def fused_encode(vae: VAEEncoder, images):
+    """The fused equivalent of VAEEncoder's module path (same parameters,
+    same output)."""
+    enc = vae.encoder
+    h = _conv_in_im2col(images.to(vae.quant_conv.weight.dtype), enc.conv_in)
+    stats = stats_of(h)
+    for level in enc.down_blocks:
+        for res in level.resnets:
+            h, stats = _fused_resnet(res, h, stats)
+        if hasattr(level, "downsamplers"):
+            # the SD encoder's asymmetric (0, 1) padding
+            h = _conv(F.pad(h, (0, 0, 0, 1, 0, 1)),
+                      level.downsamplers[0].conv, stride=2, padding=0)
+            stats = stats_of(h)
+    h, stats = _fused_mid(enc.mid_block, h, stats)
+    h = _fused_norm_silu_conv(enc.conv_norm_out, enc.conv_out, h, stats)
+    return _dense1x1(h, vae.quant_conv).float()
+
+
+def fused_decode(vae: VAEDecoder, latents):
+    """The fused equivalent of VAEDecoder's module path."""
+    dec = vae.decoder
+    z = _dense1x1(latents.to(vae.post_quant_conv.weight.dtype),
+                  vae.post_quant_conv)
+    h = _conv(z, dec.conv_in)
+    h, stats = _fused_mid(dec.mid_block, h, stats_of(h))
+    for level in dec.up_blocks:
+        for res in level.resnets:
+            h, stats = _fused_resnet(res, h, stats)
+        if hasattr(level, "upsamplers"):
+            up = level.upsamplers[0]
+            h, stats = upconv_stream(h, up.conv.weight, up.conv.bias, up.taps,
+                                     True)
+    h = _fused_norm_silu_conv(dec.conv_norm_out, dec.conv_out, h, stats)
+    return h.float()

@@ -8,6 +8,11 @@ wire-settings parsing, so it answers the port's own request handler
 (`serving/run.py create_server(model=...)`) alike. Stroke sessions are not
 ported yet: their methods raise.
 
+The configuration's fused_* switches (all True by default, as in the JAX
+package) choose the UNet's and the VAE's serving legs: the fused kernels
+(K1, K3, K5, K6) or, with all of them False, the module legs ("safe
+twin"). Both take the same state_dict.
+
 Random draws: request n (the model's request counter) draws its VAE
 posterior noise and initial latents from a torch.Generator seeded with
 (config.seed, n), so a request is reproducible from its counter.
@@ -15,6 +20,7 @@ posterior noise and initial latents from a torch.Generator seeded with
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 
@@ -45,8 +51,10 @@ logger = logging.getLogger(__name__)
 class TorchConditionalInpainter:
     def __init__(self, resolution: int = 256,
                  config: PipelineConfig | None = None,
-                 device: str | torch.device = "cuda", tiny: bool = False):
-        """Seeded random weights (no checkpoint loading yet), built on
+                 device: str | torch.device = "cuda", tiny: bool = False,
+                 weights: dict | None = None):
+        """Seeded random weights (no checkpoint loading yet), or `weights`
+        (a state_dict per component, as state_dicts() returns), built on
         `device` and cast once to bf16 on CUDA (fp32 on the CPU, as the JAX
         package serves bf16 on a TPU only). `tiny` uses the JAX package's
         tiny_*_config() models."""
@@ -60,8 +68,15 @@ class TorchConditionalInpainter:
                     tiny_patch_encoder_config())
         else:
             cfgs = (UNetConfig(), VAEConfig(), PatchEncoderConfig())
+        c = self.config
+        ucfg = dataclasses.replace(cfgs[0], fused_resnet=c.fused_unet_resnet,
+                                   fused_ff=c.fused_unet_ff,
+                                   fused_norm=c.fused_unet_norm)
         tic = time.perf_counter()
-        models = init_pipeline(*cfgs, device=self.device, dtype=self.dtype)
+        models = init_pipeline(
+            ucfg, *cfgs[1:], device=self.device, dtype=self.dtype,
+            fused_vae=(c.fused_vae_encoder, c.fused_vae_decoder),
+            weights=weights)
         self.init_seconds = time.perf_counter() - tic
         self.unet = models["unet"]
         self.vae_encoder = models["vae_encoder"]
@@ -72,6 +87,12 @@ class TorchConditionalInpainter:
         # neutral brush, so a stamp before set_brush is served
         self.set_brush(np.full((self._resolution, self._resolution, 3), 0.5,
                                np.float32))
+
+    def state_dicts(self) -> dict:
+        """Each component's state_dict, for another model's `weights`."""
+        return {name: getattr(self, name).state_dict()
+                for name in ("unet", "vae_encoder", "vae_decoder",
+                             "patch_encoder")}
 
     # --- the serving model contract ---
 

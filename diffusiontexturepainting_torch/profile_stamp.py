@@ -1,14 +1,17 @@
 """Where one stamp's time goes on the GPU.
 
-    python -m diffusiontexturepainting_torch.profile_stamp [--stamps 10]
+    python -m diffusiontexturepainting_torch.profile_stamp \
+        [--config default|safe_twin] [--stamps 10]
 
-Builds the full-width serving model (seeded random weights, bf16) and
-prints, each beside the card's name and power limit:
+Builds the full-width serving model (seeded random weights, bf16) in the
+default configuration (every fused switch on) or the safe twin (module legs
+only) and prints, each beside the card's name and power limit:
   - the wall time of `--stamps` unprofiled stamps (after two warm-up
     stamps): median, quartiles, min and max;
   - CUDA-event times of one UNet eval (the CFG batch of 3), one VAE encode
     (batch 2) and one VAE decode at the stamp's shapes;
-  - the host time to enqueue one UNet eval against its time to finish;
+  - the host time to enqueue one UNet eval against its time to finish, and
+    the top-level PyTorch operations that eval issues;
   - one stamp under torch.profiler: its device kernel time, the device's
     busy share of that stamp's wall, and the kernels that took the most
     device time.
@@ -23,7 +26,10 @@ import time
 import numpy as np
 import torch
 
+from .core.config import PipelineConfig, safe_twin_config
 from .pipeline.torch_model import TorchConditionalInpainter
+
+CONFIGS = {"default": PipelineConfig(), "safe_twin": safe_twin_config()}
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -41,6 +47,8 @@ def cuda_ms(fn, iters: int = 5) -> float:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", choices=sorted(CONFIGS),
+                        default="default")
     parser.add_argument("--resolution", type=int, default=256)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--stamps", type=int, default=10)
@@ -52,7 +60,9 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    model = TorchConditionalInpainter(res, device="cuda")
+    print(f"config: {args.config}")
+    model = TorchConditionalInpainter(res, config=CONFIGS[args.config],
+                                      device="cuda")
     rng = np.random.default_rng(0)
     model.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
     canvas = np.zeros((res, res, 4), np.uint8)
@@ -102,6 +112,14 @@ def main(argv=None) -> None:
               f"done after {(t2 - t0) * 1e3:.2f} ms")
 
     from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        model.unet(sample, t, ctx)
+        torch.cuda.synchronize()
+    top = [e for e in prof.events() if e.cpu_parent is None
+           and e.name.startswith("aten::")]
+    print(f"unet eval: {len(top)} top-level PyTorch operations issued")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

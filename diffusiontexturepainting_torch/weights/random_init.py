@@ -50,18 +50,22 @@ def random_state_dict(module: nn.Module, generator: torch.Generator) -> dict:
 
 def init_pipeline(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
                   patch_cfg: PatchEncoderConfig, device, dtype,
-                  seed: int = 0) -> dict:
+                  seed: int = 0, fused_vae: tuple = (False, False),
+                  weights: dict | None = None) -> dict:
     """Build the four components on `device` in `dtype`, then load seeded
-    random weights into them (load_state_dict casts them to `dtype`)."""
+    random weights into them (load_state_dict casts them to `dtype`), or
+    `weights`, a state_dict per component. fused_vae: the (encoder,
+    decoder) execution legs; the parameters are the same either way."""
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
         models = {
             "unet": UNet2DCondition(unet_cfg),
-            "vae_encoder": VAEEncoder(vae_cfg),
-            "vae_decoder": VAEDecoder(vae_cfg),
+            "vae_encoder": VAEEncoder(vae_cfg, fused=fused_vae[0]),
+            "vae_decoder": VAEDecoder(vae_cfg, fused=fused_vae[1]),
             "patch_encoder": ConditionPatchEncoder(patch_cfg),
         }
-    for m in models.values():
+    for name, m in models.items():
         m.to(dtype).eval().requires_grad_(False)
-        m.load_state_dict(random_state_dict(m, gen))
+        m.load_state_dict(weights[name] if weights is not None
+                          else random_state_dict(m, gen))
     return models

@@ -88,8 +88,9 @@ def test_image_helpers_match_model_base(shape, width, dtype):
                                   "tiny_patch_encoder_config"])
 def test_config_matches_jax_package(name):
     """Every field of the port's configuration has the JAX package's value;
-    the fields the port leaves out are the TPU execution switches and the
-    schedulers it does not run."""
+    the fields the port leaves out are the head-slotted attention switch
+    (off by default in the JAX package) and the schedulers and operating
+    points it does not run."""
     got, want = getattr(t_config, name)(), getattr(j_config, name)()
     fields = {f.name for f in dataclasses.fields(got)}
     for f in fields:
@@ -98,8 +99,9 @@ def test_config_matches_jax_package(name):
             g, w = dataclasses.asdict(g), dataclasses.asdict(w)
         assert g == w, f
     left_out = {f.name for f in dataclasses.fields(want)} - fields
-    assert all(f.startswith("fused") or f in (
-        "scheduler", "deep_cache_interval", "deep_cache_min_steps",
-        "f32_final_step", "vae_scaling") for f in left_out), left_out
+    assert all(f in (
+        "fused_attn", "fused_unet_attn", "scheduler", "deep_cache_interval",
+        "deep_cache_min_steps", "f32_final_step", "vae_scaling")
+        for f in left_out), left_out
     assert t_config.CLIP_IMAGE_MEAN == j_config.CLIP_IMAGE_MEAN
     assert t_config.CLIP_IMAGE_STD == j_config.CLIP_IMAGE_STD
