@@ -4,44 +4,67 @@
     python3 chip_smoke.py          # from the repository root
 
 Phases, each printed on its own lines; any failure raises (nonzero exit):
-  1. device   the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds every kernel from csrc/, in parallel, seconds
-              printed;
-  3. probe    each kernel against its plain version at a few shapes;
-  4. default  the served configuration (PipelineConfig(): every fused
-              switch on): full-width SD-1.5 (seeded random weights, bf16)
-              at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
-              NEW_STAMP requests as wire bytes through the port's request
-              handler (serving/wire.py), plus a replay of the first stamp
-              that must be bit-identical, each reply checked; then each
-              kernel's launches in that run against the count derived from
-              the configuration;
-  5. twin     the same for the "safe twin" (every fused switch off, module
-              legs only), built from the default model's state_dict, at
-              4 DDIM steps; then the first stamps of the two
-              configurations at equal steps, compared in u8;
-  6. kernels  each kernel against its plain version at every shape the
-              two paths launched it at, in bf16 and fp32 (TF32 off),
-              statistics included, with CUDA-event times;
-  7. no jax   the run imported neither JAX nor the JAX package.
+  1. device    the card's name and power limit (nvidia-smi);
+  2. build     nvcc builds every kernel from csrc/, in parallel, seconds
+               printed;
+  3. probe     each kernel against its plain version at a few shapes,
+               the 16384-token streaming attentions (K8) and the slotted
+               attentions of 256^2 and 512^2 (K13) among them;
+  4. default   the served configuration (PipelineConfig(): every fused
+               switch on): full-width SD-1.5 (seeded random weights, bf16)
+               at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
+               NEW_STAMP requests as wire bytes through the port's request
+               handler (serving/wire.py), plus a replay of the first stamp
+               that must be bit-identical, each reply checked; then each
+               kernel's launches in that run against the count derived from
+               the configuration;
+  5. twin      the same for the "safe twin" (every fused switch off, module
+               legs only), built from the default model's state_dict, at
+               4 DDIM steps; then the first stamps of the two
+               configurations at equal steps, compared in u8;
+  6. server    the port's server (serving/server.py) on loopback around
+               the default model: GET /health, then a NEW_BRUSH_IMAGE and a
+               NEW_STAMP over a websocket, each reply byte-equal to the
+               request handler's at the same request counter;
+  7. envelope  the default configuration at 1024^2 / 4 DDIM steps (the
+               engine envelope: 16384-token attention through K8), as
+               phase 4, with its peak device memory;
+  8. slotted   slotted_config() (head-slotted self-attention, K13) at
+               512^2 / 4 steps, as phase 4; its first stamp against the
+               default configuration's at 512^2 / 4, compared in u8;
+  9. kernels   each kernel against its plain version at every shape any
+               path launched it at, in bf16 and fp32 (TF32 off),
+               statistics included; CUDA-event times of the kernel, its
+               plain version and the one PyTorch call that computes the
+               same function where there is one, at the shapes of the path
+               it is reported for, beside its bound;
+ 10. no jax    the run imported neither JAX nor the JAX package.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
+import threading
 import time
+from collections import Counter
 
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 RES, STEPS, TWIN_STEPS = 256, 20, 4
+ENVELOPE_RES, SLOTTED_RES, FEW_STEPS = 1024, 512, 4
+# Published peaks of one H100 SXM (dense): the bounds of the kernels' work
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
-def settings(steps):
-    return dict(steps=steps, width=RES, cfg_weight=2.0, tg_weight=1.0,
+def settings(steps, res=RES):
+    return dict(steps=steps, width=res, cfg_weight=2.0, tg_weight=1.0,
                 tg_steps=steps, context_pad=150)
 
 
@@ -54,11 +77,11 @@ def settings(steps):
 # of the sum of |y| (row 0) or of y^2 (row 1) over the pixels, the scale
 # that bounds their rounding error.
 TOL = {"bfloat16": 2.0**-5, "float32": 1e-4}
-# The first stamps of the default and the safe-twin configurations at
-# equal steps: the same math with other rounding points in bf16 (fused
-# epilogues round once where the module legs round twice), amplified
-# through the DDIM steps of a random-weight UNet: at most MAX_MEAN_DIFF u8
-# levels apart on average over the pixels.
+# The first stamps of two configurations at equal steps: the same math
+# with other rounding points in bf16 (fused epilogues round once where the
+# module legs round twice; the slotted softmax rounds its logits to bf16),
+# amplified through the DDIM steps of a random-weight UNet: at most
+# MAX_MEAN_DIFF u8 levels apart on average over the pixels.
 MAX_MEAN_DIFF = 8.0
 
 SOURCES = {
@@ -69,6 +92,8 @@ SOURCES = {
     "gn_conv_stream": "csrc/conv3x3.cu",
     "upconv_stream": "csrc/conv3x3.cu",
     "ff_geglu": "csrc/ff_geglu.cu",
+    "flash_attention_streaming": "csrc/flash_attention.cu",
+    "flash_attention_slotted": "csrc/flash_attention.cu",
 }
 REPLACES = {
     "conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:162",
@@ -78,7 +103,15 @@ REPLACES = {
     "gn_conv_stream": "diffusiontexturepainting_tpu/ops/gn_conv_stream.py:173",
     "upconv_stream": "diffusiontexturepainting_tpu/ops/gn_conv_stream.py:739",
     "ff_geglu": "diffusiontexturepainting_tpu/ops/ff_geglu.py:68",
+    "flash_attention_streaming":
+        "diffusiontexturepainting_tpu/ops/flash_attention.py:311",
+    "flash_attention_slotted":
+        "diffusiontexturepainting_tpu/ops/flash_attention.py:240",
 }
+# The path each kernel's times are reported for; any other kernel: the
+# default path.
+REPORTED_ON = {"conv3x3": "twin", "flash_attention_streaming": "envelope",
+               "flash_attention_slotted": "slotted"}
 
 
 def log(*parts):
@@ -96,14 +129,17 @@ def counters():
     return [conv3x3.conv3x3_launches, conv3x3.upsample_launches,
             attention.flash_launches, gn_conv.gn_conv_resident_launches,
             gn_conv.gn_conv_stream_launches, gn_conv.upconv_stream_launches,
-            ff_geglu.ff_geglu_launches]
+            ff_geglu.ff_geglu_launches, attention.flash_streaming_launches,
+            attention.flash_slotted_launches]
 
 
 def kernel_case(kind, shape_key, dtype, gen):
     """Seeded inputs at `shape_key`; returns zero-argument callables
-    (kernel, plain) over the same inputs. The fused convs return
-    (out, statistics or None)."""
+    (kernel, plain, library) over the same inputs, library being the one
+    PyTorch call that computes the same function, or None. The fused convs
+    return (out, statistics or None)."""
     import torch
+    import torch.nn.functional as F
 
     from diffusiontexturepainting_torch.ops import (
         attention,
@@ -116,34 +152,65 @@ def kernel_case(kind, shape_key, dtype, gen):
         return (torch.randn(shape, generator=gen, device="cuda") * std
                 + mean).to(dt)
 
-    if kind == "flash_attention":
+    def sdpa(q, k, v, heads, hd=None):
+        """SDPA on (B, heads, L, hd) views of the (B, L, heads*slot)
+        tensors."""
+        def view(t):
+            b, l, d = t.shape
+            return t.view(b, l, heads, d // heads)[..., :hd].transpose(1, 2)
+        qh, kh, vh = view(q), view(k), view(v)
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh)
+
+    if kind in ("flash_attention", "flash_attention_streaming"):
         q_shape, k_shape, heads = shape_key
         q, k, v = rnd(*q_shape), rnd(*k_shape), rnd(*k_shape)
-        return (lambda: attention.flash_attention(q, k, v, heads),
-                lambda: attention.plain_attention(q, k, v, heads))
+        if kind == "flash_attention":
+            pair = (lambda: attention.flash_attention(q, k, v, heads),
+                    lambda: attention.plain_attention(q, k, v, heads))
+        else:
+            pair = (lambda: attention.flash_attention_streaming(q, k, v,
+                                                                heads),
+                    lambda: attention.plain_attention_streaming(q, k, v,
+                                                                heads))
+        return pair + (sdpa(q, k, v, heads),)
+    if kind == "flash_attention_slotted":
+        (B, L, D), heads, hd = shape_key
+        # one fused projection's output, zero pad lanes, split into views
+        qkv = torch.zeros((B, L, 3, heads, attention.SLOT), dtype=dtype,
+                          device="cuda")
+        qkv[..., :hd] = rnd(B, L, 3, heads, hd)
+        q, k, v = qkv.reshape(B, L, 3 * D).chunk(3, dim=-1)
+        return (lambda: attention.flash_attention_slotted(q, k, v, heads, hd),
+                lambda: attention.plain_attention_slotted(q, k, v, heads, hd),
+                sdpa(q, k, v, heads, hd))
     if kind == "ff_geglu":
         n, c, inner = shape_key
         x, res = rnd(n, c), rnd(n, c)
         w0, b0 = rnd(2 * inner, c, std=c**-0.5), rnd(2 * inner, std=0.1)
         w2, b2 = rnd(c, inner, std=inner**-0.5), rnd(c, std=0.1)
         return (lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b2, res),
-                lambda: ff_geglu.ff_geglu_plain(x, w0, b0, w2, b2, res))
+                lambda: ff_geglu.ff_geglu_plain(x, w0, b0, w2, b2, res),
+                None)
     x_shape, w_shape = shape_key[:2]
     x = rnd(*x_shape)
     w = rnd(*w_shape, std=(9 * w_shape[2]) ** -0.5)
     b = rnd(w_shape[3], std=0.1)
     if kind == "conv3x3":
+        xc = x.permute(0, 3, 1, 2)  # channels-last memory, NCHW view
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
         return (lambda: conv3x3.conv3x3(x, w, b),
-                lambda: conv3x3.conv3x3_plain(x, w, b))
+                lambda: conv3x3.conv3x3_plain(x, w, b),
+                lambda: F.conv2d(xc, wc, b, padding=1))
     # the modules fold the upsample weights once at load: outside the call
     taps = conv3x3.fold_upsample_weights(w)
     if kind == "upsample2x_conv3x3":
         return (lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps),
-                lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b))
+                lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b), None)
     if kind == "upconv_stream":
         stats = shape_key[2]
         return (lambda: gn_conv.upconv_stream(x, w, b, taps, stats),
-                lambda: gn_conv.upconv_stream_plain(x, w, b, stats))
+                lambda: gn_conv.upconv_stream_plain(x, w, b, stats), None)
     has_bias, has_res, stats, apply_gn = shape_key[2:]
     B, cin = x_shape[0], x_shape[3]
     a = rnd(B, cin, std=0.2, mean=1.0, dt=torch.float32)
@@ -153,14 +220,63 @@ def kernel_case(kind, shape_key, dtype, gen):
     op = getattr(gn_conv, kind)
     return (lambda: op(x, a, c, w, b, r, stats, apply_gn),
             lambda: gn_conv.gn_conv3x3_plain(x, a, c, w, b, r, stats,
-                                             apply_gn))
+                                             apply_gn), None)
 
 
-def cuda_ms(fn, iters=20):
+def work(kind, key, itemsize):
+    """(operations, bytes) of one call: each input read once, each output
+    written once; the operations of the function (multiply-adds as two).
+    The upsample conv's operations are counted in the exact folded 4-tap
+    form, its weight bytes as the 9-tap 3x3 kernel that the function
+    needs (the folded 16-tap copy is the module's choice, not the work)."""
+    if kind in ("flash_attention", "flash_attention_streaming"):
+        (B, Lq, D), (_, Lk, _), _ = key
+        return 4 * B * Lq * Lk * D, itemsize * 2 * B * (Lq + Lk) * D
+    if kind == "flash_attention_slotted":
+        (B, L, D), heads, hd = key
+        return 4 * B * L * L * heads * hd, itemsize * 4 * B * L * D
+    if kind == "ff_geglu":
+        t, c, inner = key
+        return (6 * t * c * inner,
+                itemsize * (3 * t * c + 3 * c * inner + 2 * inner + c))
+    x_shape, (_, _, cin, cout) = key[:2]
+    pixels = math.prod(x_shape[:3])
+    if kind in ("upsample2x_conv3x3", "upconv_stream"):
+        flops = 2 * 4 * pixels * 4 * cin * cout
+        bytes_ = itemsize * (pixels * cin + 9 * cin * cout + cout
+                             + 4 * pixels * cout)
+        if kind == "upconv_stream" and key[2]:
+            bytes_ += 4 * 2 * x_shape[0] * cout
+        return flops, bytes_
+    flops = 2 * pixels * 9 * cin * cout
+    bytes_ = itemsize * (pixels * cin + 9 * cin * cout + pixels * cout)
+    if kind == "conv3x3":
+        return flops, bytes_ + itemsize * cout
+    has_bias, has_res, stats, apply_gn = key[2:]
+    bytes_ += itemsize * (has_bias * cout + has_res * pixels * cout
+                          + apply_gn * 2 * x_shape[0] * cin)
+    return flops, bytes_ + stats * 4 * 2 * x_shape[0] * cout
+
+
+def bound_s(kind, key, dtype_name):
+    """(seconds, "operations" or "bytes"): the least time of one call."""
+    flops, bytes_ = work(kind, key, 2 if dtype_name == "bfloat16" else 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], bytes_ / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def cuda_ms(fn, budget_s=0.3, max_iters=20):
+    """CUDA-event mean of one call, after a warm-up: up to `max_iters`
+    calls, fewer when one call takes long."""
     import torch
 
-    for _ in range(3):
-        fn()
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - tic
+    iters = int(min(max_iters, max(2, budget_s / max(one, 1e-6))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -174,10 +290,11 @@ def cuda_ms(fn, iters=20):
 def compare(kind, shape_key, dtype, gen, timed=False):
     """Kernel vs plain version on the same inputs; returns a dict of
     max_abs_err, tol, peak (max|plain|), err_over_tol (the worst of the
-    output's and the statistics'), and kernel_ms / plain_ms when `timed`."""
+    output's and the statistics'), and kernel_ms / plain_ms / library_ms
+    (None where no PyTorch call computes the function) when `timed`."""
     import torch
 
-    kernel, plain = kernel_case(kind, shape_key, dtype, gen)
+    kernel, plain, library = kernel_case(kind, shape_key, dtype, gen)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got_st = want_st = None
@@ -199,6 +316,11 @@ def compare(kind, shape_key, dtype, gen, timed=False):
                              f"{tol:.3e}")
     out = {"max_abs_err": err, "tol": tol, "peak": peak,
            "err_over_tol": err / tol}
+    if kind == "flash_attention_slotted":
+        D = shape_key[0][2]
+        pad = got.reshape(*got.shape[:2], D // 128, 128)[..., shape_key[2]:]
+        if pad.any():
+            raise AssertionError(f"{name}: nonzero pad lanes")
     if (got_st is None) != (want_st is None):
         raise AssertionError(f"{name}: statistics returned by one side only")
     if want_st is not None:
@@ -215,65 +337,92 @@ def compare(kind, shape_key, dtype, gen, timed=False):
                                      f"{e:.3e} > tol {rel * scale:.3e}")
             out["err_over_tol"] = max(out["err_over_tol"], e / (rel * scale))
         out["stats_checked"] = True
+    del got, want, got_st, want_st
     if timed:
         # plain, kernel, kernel, plain: drift hits both sides alike
         p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
         out["kernel_ms"], out["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+        out["library_ms"] = None if library is None else cuda_ms(library)
+    return out
+
+
+def attention_launches(model, res, steps):
+    """Launches of K2, K8 and K13 in one stamp of `model` at `res`, from its
+    configuration and the routing rules: the UNet's self-attentions per
+    eval and level, and the VAE's two mid-block attentions (encoder and
+    decoder, at the latent size). Cross-attention (14 tokens) is plain."""
+    from diffusiontexturepainting_torch.ops.attention import (
+        attention_route,
+        slotted_self_attention_fits,
+    )
+
+    u, v = model.unet.cfg, model.vae_encoder.cfg
+    lat = res // 8
+    kernel = {"flash": "flash_attention",
+              "streaming": "flash_attention_streaming", "plain": None}
+    out = Counter()
+
+    def site(length, channels, heads, calls, slotted):
+        hd = channels // heads
+        if slotted and slotted_self_attention_fits(length, length, hd):
+            out["flash_attention_slotted"] += calls
+            return
+        name = kernel[attention_route(length, length, hd, model.dtype)]
+        if name:
+            out[name] += calls
+    heads, L = u.num_attention_heads, u.layers_per_block
+    for i, ch in enumerate(u.block_out_channels):
+        if u.attn_down[i]:
+            site((lat >> i) ** 2, ch, heads, steps * (2 * L + 1),
+                 u.fused_attn)
+    n = len(u.block_out_channels) - 1
+    site((lat >> n) ** 2, u.block_out_channels[-1], heads, steps,
+         u.fused_attn)
+    site(lat * lat, v.block_out_channels[-1], 1, 2, False)
     return out
 
 
 def expected_per_stamp(model, res, steps):
     """Launches of each kernel in one stamp of `model`, from its
     configuration."""
-    from diffusiontexturepainting_torch.ops.attention import uses_flash
-
     c = model.config
     u, v = model.unet.cfg, model.vae_encoder.cfg
-    lat = res // 8
     n_u, n_v = len(u.block_out_channels), len(v.block_out_channels)
     L, Lv = u.layers_per_block, v.layers_per_block
     plain_resnets = n_u * L + 2          # down path and mid: no skip
     skip_resnets = n_u * (L + 1)         # up path: skip un-concatenated
     transformers = sum(u.attn_down) * (2 * L + 1) + 1
-    flash_unet = 0
-    for i, ch in enumerate(u.block_out_channels):
-        length = (lat >> i) ** 2
-        if uses_flash(length, length, ch // u.num_attention_heads):
-            flash_unet += u.attn_down[i] * (2 * L + 1)
-    mid_len = (lat >> (n_u - 1)) ** 2
-    if uses_flash(mid_len, mid_len,
-                  u.block_out_channels[-1] // u.num_attention_heads):
-        flash_unet += 1
     enc_resnets, dec_resnets = n_v * Lv + 2, n_v * (Lv + 1) + 2
-    # the VAE's mid block, encoder and decoder, runs at the latent size
-    flash_vae = 2 * uses_flash(lat * lat, lat * lat, v.block_out_channels[-1])
     fused_unet, fused_enc, fused_dec = (c.fused_unet_resnet,
                                         c.fused_vae_encoder,
                                         c.fused_vae_decoder)
     unet_convs = 2 * (plain_resnets + skip_resnets)
+    attn = attention_launches(model, res, steps)
     return {
         "conv3x3": (0 if fused_unet else steps * unet_convs)
         + (0 if fused_enc else 2 * enc_resnets)
         + (0 if fused_dec else 2 * dec_resnets),
         "upsample2x_conv3x3": steps * (n_u - 1)
         + (0 if fused_dec else n_v - 1),
-        "flash_attention": steps * flash_unet + flash_vae,
+        "flash_attention": attn["flash_attention"],
         "gn_conv_resident": steps * (2 * plain_resnets + 3 * skip_resnets)
         if fused_unet else 0,
         "ff_geglu": steps * transformers if c.fused_unet_ff else 0,
         "gn_conv_stream": (2 * enc_resnets + 1 if fused_enc else 0)
         + (2 * dec_resnets + 1 if fused_dec else 0),
         "upconv_stream": n_v - 1 if fused_dec else 0,
+        "flash_attention_streaming": attn["flash_attention_streaming"],
+        "flash_attention_slotted": attn["flash_attention_slotted"],
     }
 
 
-def check_reply(reply, want_type, canvas=None):
+def check_reply(reply, want_type, res=RES, canvas=None):
     import numpy as np
 
     from diffusiontexturepainting_torch.serving import wire
 
     kind, img = wire.decode_response(reply)
-    if kind != want_type or img.shape != (RES, RES, 3) \
+    if kind != want_type or img.shape != (res, res, 3) \
             or img.dtype != np.uint8:
         raise AssertionError(f"reply type {kind} shape {img.shape} "
                              f"{img.dtype}")
@@ -288,18 +437,18 @@ def check_reply(reply, want_type, canvas=None):
     return img
 
 
-def requests():
+def requests(res=RES):
     import numpy as np
 
     rng = np.random.default_rng(0)
     brush = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
-    canvas = np.zeros((RES, RES, 4), np.uint8)
-    canvas[:64, :, 3] = 255
-    canvas[:64, :, :3] = 64
+    canvas = np.zeros((res, res, 4), np.uint8)
+    canvas[:res // 4, :, 3] = 255
+    canvas[:res // 4, :, :3] = 64
     return brush, canvas
 
 
-def run_path(label, model, steps):
+def run_path(label, model, steps, res=RES):
     """One brush + preview, three stamps and a replay of the first, as wire
     bytes through the request handler. The kernels' counts are set to 0
     just before and read just after. Returns (first stamp, launches,
@@ -310,23 +459,25 @@ def run_path(label, model, steps):
     from diffusiontexturepainting_torch.serving import wire
 
     R, handle = wire.RequestType, wire.handle_request_bytes
-    brush, canvas = requests()
-    stamp_req = wire.encode_request(R.NEW_STAMP, canvas, **settings(steps))
+    brush, canvas = requests(res)
+    stamp_req = wire.encode_request(R.NEW_STAMP, canvas,
+                                    **settings(steps, res))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for c in counters():
         c.reset()
-    torch.cuda.synchronize()
     times = []
     tic = time.perf_counter()
     check_reply(handle(model, wire.encode_request(R.NEW_BRUSH_IMAGE, brush,
-                                                  **settings(steps))),
-                R.RETURN_PREVIEW)
+                                                  **settings(steps, res))),
+                R.RETURN_PREVIEW, res)
     times.append(("brush+preview", time.perf_counter() - tic))
     replies = []
     for k in range(3):
         tic = time.perf_counter()
         reply = handle(model, stamp_req)
         times.append((f"stamp {k + 1}", time.perf_counter() - tic))
-        replies.append(check_reply(reply, R.RETURN_STAMP, canvas))
+        replies.append(check_reply(reply, R.RETURN_STAMP, res, canvas))
     if all(np.array_equal(replies[0], r) for r in replies[1:]):
         raise AssertionError("stamps with different counters are identical")
     # replay request 2 (the first NEW_STAMP) with its own counter
@@ -334,7 +485,7 @@ def run_path(label, model, steps):
     tic = time.perf_counter()
     again = handle(model, stamp_req)
     times.append(("stamp 1 replayed", time.perf_counter() - tic))
-    if not np.array_equal(check_reply(again, R.RETURN_STAMP, canvas),
+    if not np.array_equal(check_reply(again, R.RETURN_STAMP, res, canvas),
                           replies[0]):
         raise AssertionError(f"{label}: replayed stamp differs from the "
                              "original")
@@ -342,16 +493,16 @@ def run_path(label, model, steps):
     launches = {c.name: c.launches for c in counters()}
     shapes = {c.name: dict(c.shapes) for c in counters()}
     for name, secs in times:
-        log(f"{label}: {name}: {secs * 1e3:.1f} ms wall ({RES}^2, {steps} "
+        log(f"{label}: {name}: {secs * 1e3:.1f} ms wall ({res}^2, {steps} "
             f"steps, {model.dtype})")
     log(f"{label}: replayed stamp bit-identical; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return replies[0], launches, shapes, 5  # preview + 3 stamps + replay
 
 
-def check_counts(label, model, steps, launches, n_stamps):
+def check_counts(label, model, steps, launches, n_stamps, res=RES):
     want = {k: n_stamps * v
-            for k, v in expected_per_stamp(model, RES, steps).items()}
+            for k, v in expected_per_stamp(model, res, steps).items()}
     for name in want:
         log(f"{label} counts: {name}: {launches[name]} launches in "
             f"{n_stamps} stamps, expected {want[name]} "
@@ -361,30 +512,178 @@ def check_counts(label, model, steps, launches, n_stamps):
                                  f"launches, expected {want[name]}")
 
 
-def first_stamp_at(model, steps):
+def first_stamp_at(model, steps, res=RES):
     """The first NEW_STAMP of run_path (request counter 2) at `steps`."""
     from diffusiontexturepainting_torch.serving import wire
 
     R = wire.RequestType
-    _, canvas = requests()
+    _, canvas = requests(res)
     model.request_counter = 1
     reply = wire.handle_request_bytes(
-        model, wire.encode_request(R.NEW_STAMP, canvas, **settings(steps)))
-    return check_reply(reply, R.RETURN_STAMP, canvas)
+        model, wire.encode_request(R.NEW_STAMP, canvas,
+                                   **settings(steps, res)))
+    return check_reply(reply, R.RETURN_STAMP, res, canvas)
+
+
+def compare_stamps(label, ours, theirs, what):
+    diff = abs(ours.astype(int) - theirs.astype(int))
+    log(f"{label}: first stamps of {what}: mean |diff| {diff.mean():.3f} u8 "
+        f"levels, max {diff.max()}, {(diff == 0).mean():.4f} exact, "
+        f"{(diff <= 4).mean():.4f} within 4, {(diff <= 16).mean():.4f} "
+        "within 16")
+    if not diff.mean() <= MAX_MEAN_DIFF:
+        raise AssertionError(f"{label}: {what} differ by {diff.mean():.3f} "
+                             "levels on average")
+
+
+def serve_phase(model):
+    """The port's server on loopback around `model`: /health, then a brush
+    and a stamp over a websocket, each reply byte-equal to the request
+    handler's at the same request counter."""
+    import urllib.request
+
+    from websockets.sync.client import connect
+
+    from diffusiontexturepainting_torch.serving import wire
+    from diffusiontexturepainting_torch.serving.server import create_server
+
+    R = wire.RequestType
+    server = create_server(model, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.socket.getsockname()[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                    timeout=60) as resp:
+            health = json.loads(resp.read())
+        if health.get("status") != "ok":
+            raise AssertionError(f"server: /health said {health}")
+        log(f"server: GET /health -> {health}")
+        brush, canvas = requests()
+        with connect(f"ws://127.0.0.1:{port}/websocket/", max_size=None,
+                     open_timeout=60) as ws:
+            for kind, image, want in (
+                    (R.NEW_BRUSH_IMAGE, brush, R.RETURN_PREVIEW),
+                    (R.NEW_STAMP, canvas, R.RETURN_STAMP)):
+                req = wire.encode_request(kind, image,
+                                          **settings(TWIN_STEPS))
+                counter = model.request_counter
+                tic = time.perf_counter()
+                ws.send(req)
+                reply = ws.recv(timeout=600)
+                secs = time.perf_counter() - tic
+                check_reply(reply, want)
+                model.request_counter = counter
+                direct = wire.handle_request_bytes(model, req)
+                if reply != direct:
+                    raise AssertionError(f"server: {kind.name} reply "
+                                         "differs from the handler's")
+                log(f"server: {kind.name} over the websocket: "
+                    f"{len(reply)} reply bytes in {secs * 1e3:.1f} ms, "
+                    "byte-equal to wire.handle_request_bytes at the same "
+                    "request counter")
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+
+
+def release():
+    """Returns the memory of the models the caller dropped to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernels_phase(gen, paths):
+    """Every kernel at every shape of every path, both dtypes; timed at the
+    shapes of the path it is reported for. Returns the JSON records."""
+    import torch
+
+    record = []
+    for name in SOURCES:
+        path = REPORTED_ON.get(name, "default")
+        run = paths[path]
+        if not run["launches"][name]:
+            raise AssertionError(f"kernels: {name} was not launched on the "
+                                 f"{path} path")
+        counts = run["shapes"][name]
+        keys = sorted(set().union(*(paths[p]["shapes"][name]
+                                    for p in paths)), key=str)
+        worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        totals = Counter()
+        lib_missing = False
+        for key in keys:
+            count = counts.get(key, 0)
+            for dt in errs:
+                r = compare(name, key, dt, gen,
+                            timed=dt == torch.bfloat16 and count > 0)
+                errs[dt] = max(errs[dt], r["max_abs_err"])
+                worst[dt] = max(worst[dt], r["err_over_tol"])
+                msg = (f"kernels: {name} {key} {str(dt)[6:]}: max_abs_err "
+                       f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, "
+                       f"max|plain| {r['peak']:.3e}); err/tol "
+                       f"{r['err_over_tol']:.3f}"
+                       + (" (output and statistics)"
+                          if r.get("stats_checked") else ""))
+                if "kernel_ms" in r:
+                    b_s, by = bound_s(name, key, "bfloat16")
+                    totals["kernel"] += count * r["kernel_ms"]
+                    totals["plain"] += count * r["plain_ms"]
+                    totals["bound"] += count * b_s * 1e3
+                    totals[by] += count * b_s * 1e3
+                    if r["library_ms"] is None:
+                        lib_missing = True
+                    else:
+                        totals["library"] += count * r["library_ms"]
+                    lib = ("none" if r["library_ms"] is None
+                           else f"{r['library_ms']:.4f} ms")
+                    msg += (f"; {r['kernel_ms']:.4f} ms kernel, "
+                            f"{r['plain_ms']:.4f} ms plain, library {lib}, "
+                            f"bound {b_s * 1e3:.4f} ms ({by}), "
+                            f"x{count // run['stamps']} per stamp")
+                log(msg)
+                torch.cuda.empty_cache()
+        n = run["stamps"]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "diffusiontexturepainting_torch/" + SOURCES[name],
+            "replaces": REPLACES[name], "path": path,
+            "launches": run["launches"][name],
+            "launches_by_path": {p: paths[p]["launches"][name]
+                                 for p in paths},
+            "max_abs_err": errs[torch.bfloat16],
+            "max_abs_err_fp32": errs[torch.float32],
+            "max_err_over_tol": worst[torch.bfloat16],
+            "max_err_over_tol_fp32": worst[torch.float32],
+            "ms": totals["kernel"] / n, "plain_ms": totals["plain"] / n,
+            "bound_ms": totals["bound"] / n,
+            "bound_by": ("operations"
+                         if totals["operations"] >= totals["bytes"]
+                         else "bytes"),
+            "library_ms": None if lib_missing else totals["library"] / n,
+            "ms_is": f"bf16 kernel time per stamp of the {path} path "
+                     f"({run['res']}^2, {run['steps']} steps), summed over "
+                     "its shapes"})
+    return record
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from diffusiontexturepainting_torch import _cuda
-    from diffusiontexturepainting_torch.core.config import safe_twin_config
+    from diffusiontexturepainting_torch.core.config import (
+        safe_twin_config,
+        slotted_config,
+    )
     from diffusiontexturepainting_torch.pipeline.torch_model import (
         TorchConditionalInpainter)
 
+    t_start = time.perf_counter()
     card = subprocess.run(CARD_QUERY, capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     log(card)
@@ -424,6 +723,17 @@ def main() -> int:
         ("upconv_stream", ((1, 6, 5, 48), (3, 3, 48, 40), True)),
         ("ff_geglu", (100, 96, 384)),
         ("ff_geglu", (48, 1280, 5120)),
+        # the 1024^2 envelope's 16384-token attentions (UNet level 0, VAE
+        # mid block), and a ragged length
+        ("flash_attention_streaming",
+         ((3, 16384, 320), (3, 16384, 320), 8)),
+        ("flash_attention_streaming",
+         ((1, 16384, 512), (1, 16384, 512), 1)),
+        ("flash_attention_streaming", ((2, 1100, 640), (2, 1100, 640), 4)),
+        # the slotted self-attentions of 256^2 and 512^2 (levels 0 and 1)
+        ("flash_attention_slotted", ((3, 1024, 1024), 8, 40)),
+        ("flash_attention_slotted", ((3, 256, 1024), 8, 80)),
+        ("flash_attention_slotted", ((3, 4096, 1024), 8, 40)),
     ]
     for kind, key in probes:
         for dt in (torch.bfloat16, torch.float32):
@@ -431,6 +741,16 @@ def main() -> int:
             log(f"probe: {kind} {key} {str(dt)[6:]}: max_abs_err "
                 f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, max|plain| "
                 f"{r['peak']:.3e}); err/tol {r['err_over_tol']:.3f}")
+    torch.cuda.empty_cache()
+
+    paths = {}
+
+    def drive(label, model, steps, res):
+        first, launches, shapes, n = run_path(label, model, steps, res)
+        check_counts(label, model, steps, launches, n, res)
+        paths[label] = dict(launches=launches, shapes=shapes, stamps=n,
+                            steps=steps, res=res)
+        return first
 
     log("default: requests routed through diffusiontexturepainting_torch."
         "serving.wire.handle_request_bytes")
@@ -439,80 +759,58 @@ def main() -> int:
         f"width, random weights, {model.dtype}, {model.config}); unet "
         f"{sum(p.numel() for p in model.unet.parameters()) / 1e6:.1f}M "
         "params")
-    _, launches, shapes, n_stamps = run_path("default", model, STEPS)
-    check_counts("default", model, STEPS, launches, n_stamps)
+    drive("default", model, STEPS, RES)
+    weights = model.state_dicts()
 
     twin = TorchConditionalInpainter(resolution=RES, config=safe_twin_config(),
-                                     device="cuda",
-                                     weights=model.state_dicts())
+                                     device="cuda", weights=weights)
     log(f"twin: built from the default model's state_dict in "
         f"{twin.init_seconds:.1f} s")
-    twin_first, twin_launches, twin_shapes, _ = run_path("twin", twin,
-                                                         TWIN_STEPS)
-    check_counts("twin", twin, TWIN_STEPS, twin_launches, n_stamps)
-    ours = first_stamp_at(model, TWIN_STEPS).astype(int)
-    diff = np.abs(ours - twin_first.astype(int))
-    log(f"twin: first stamps of the two configurations at {TWIN_STEPS} "
-        f"steps: mean |diff| {diff.mean():.3f} u8 levels, max {diff.max()}, "
-        f"{(diff == 0).mean():.4f} exact, {(diff <= 4).mean():.4f} within "
-        f"4, {(diff <= 16).mean():.4f} within 16")
-    if not diff.mean() <= MAX_MEAN_DIFF:
-        raise AssertionError(f"default and safe twin differ by "
-                             f"{diff.mean():.3f} levels on average")
+    twin_first = drive("twin", twin, TWIN_STEPS, RES)
+    compare_stamps("twin", first_stamp_at(model, TWIN_STEPS), twin_first,
+                   f"the default and the safe twin at {TWIN_STEPS} steps")
     del twin
+    release()
 
-    record = []
-    for name in launches:
-        # every shape of either path is checked; the times are weighted by
-        # the launches of the path that runs the kernel (the default path,
-        # or for K7 the safe twin)
-        path = "default" if launches[name] else "safe_twin"
-        counts = shapes[name] if launches[name] else twin_shapes[name]
-        keys = sorted(set(shapes[name]) | set(twin_shapes[name]), key=str)
-        worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-        errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
-        k_total = p_total = 0.0
-        for key in keys:
-            count = counts.get(key, 0)
-            for dt in errs:
-                r = compare(name, key, dt, gen,
-                            timed=dt == torch.bfloat16 and count > 0)
-                errs[dt] = max(errs[dt], r["max_abs_err"])
-                worst[dt] = max(worst[dt], r["err_over_tol"])
-                msg = (f"kernels: {name} {key} {str(dt)[6:]}: max_abs_err "
-                       f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, "
-                       f"max|plain| {r['peak']:.3e}); err/tol "
-                       f"{r['err_over_tol']:.3f}"
-                       + (" (output and statistics)"
-                          if r.get("stats_checked") else ""))
-                if "kernel_ms" in r:
-                    k_total += count * r["kernel_ms"]
-                    p_total += count * r["plain_ms"]
-                    msg += (f"; {r['kernel_ms']:.4f} ms kernel, "
-                            f"{r['plain_ms']:.4f} ms plain, "
-                            f"x{count // n_stamps} per stamp")
-                log(msg)
-        record.append({
-            "name": name, "route": "cuda",
-            "source": "diffusiontexturepainting_torch/" + SOURCES[name],
-            "replaces": REPLACES[name], "path": path,
-            "launches": launches[name] or twin_launches[name],
-            "launches_safe_twin": twin_launches[name],
-            "max_abs_err": errs[torch.bfloat16],
-            "max_abs_err_fp32": errs[torch.float32],
-            "max_err_over_tol": worst[torch.bfloat16],
-            "max_err_over_tol_fp32": worst[torch.float32],
-            "ms": k_total / n_stamps, "plain_ms": p_total / n_stamps,
-            "ms_is": f"bf16 kernel time per stamp of the {path} path "
-                     f"({STEPS if launches[name] else TWIN_STEPS} steps), "
-                     "summed over its shapes"})
+    serve_phase(model)
+    del model
+    release()
+
+    envelope = TorchConditionalInpainter(resolution=ENVELOPE_RES,
+                                         device="cuda", weights=weights)
+    log(f"envelope: default configuration at {ENVELOPE_RES}^2 built from "
+        f"the same state_dict in {envelope.init_seconds:.1f} s")
+    drive("envelope", envelope, FEW_STEPS, ENVELOPE_RES)
+    del envelope
+    release()
+
+    slotted = TorchConditionalInpainter(resolution=SLOTTED_RES,
+                                        config=slotted_config(),
+                                        device="cuda", weights=weights)
+    log(f"slotted: {slotted.config} at {SLOTTED_RES}^2 built from the same "
+        f"state_dict in {slotted.init_seconds:.1f} s")
+    slotted_first = drive("slotted", slotted, FEW_STEPS, SLOTTED_RES)
+    del slotted
+    release()
+    default512 = TorchConditionalInpainter(resolution=SLOTTED_RES,
+                                           device="cuda", weights=weights)
+    default512.set_brush(requests()[0])
+    compare_stamps("slotted", first_stamp_at(default512, FEW_STEPS,
+                                             SLOTTED_RES), slotted_first,
+                   f"the default and the slotted configuration at "
+                   f"{SLOTTED_RES}^2 / {FEW_STEPS} steps")
+    del default512, weights
+    release()
+
+    record = kernels_phase(gen, paths)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
-                    in ("jax", "diffusiontexturepainting_tpu"))
+                    in ("jax", "diffusiontexturepainting_tpu", "tornado"))
     if loaded:
         raise AssertionError(f"the run imported {loaded}")
-    log("no jax: neither jax nor diffusiontexturepainting_tpu in "
-        "sys.modules")
+    log("no jax: neither jax, nor diffusiontexturepainting_tpu, nor tornado "
+        "in sys.modules")
+    log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

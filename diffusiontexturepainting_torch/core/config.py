@@ -3,8 +3,7 @@
 The same values, under the same names, as the JAX package's core/config.py
 (tests/test_torch_port_wire.py holds every field here equal to its
 counterpart there). The fused execution switches are kept, with the JAX
-package's defaults, except the head-slotted attention (off by default
-there); the port runs the exact DDIM path only.
+package's defaults; the port runs the exact DDIM path only.
 """
 
 from __future__ import annotations
@@ -39,6 +38,9 @@ class UNetConfig:
     fused_resnet: bool = False
     fused_ff: bool = False
     fused_norm: bool = False
+    # Head-slotted self-attention: the q/k/v projection emits the
+    # (B, L, heads*128) layout kernel K13 reads in place.
+    fused_attn: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -106,6 +108,9 @@ class PipelineConfig:
     fused_unet_resnet: bool = True
     fused_unet_ff: bool = True
     fused_unet_norm: bool = True
+    # Head-slotted UNet self-attention (kernel K13), off by default as in
+    # the JAX package.
+    fused_unet_attn: bool = False
 
 
 def safe_twin_config(config: PipelineConfig = PipelineConfig()
@@ -115,6 +120,22 @@ def safe_twin_config(config: PipelineConfig = PipelineConfig()
     return dataclasses.replace(config, **{
         f.name: False for f in dataclasses.fields(config)
         if f.name.startswith("fused")})
+
+
+def slotted_config(config: PipelineConfig = PipelineConfig()
+                   ) -> PipelineConfig:
+    """`config` with the head-slotted self-attention on, over the same
+    parameters."""
+    return dataclasses.replace(config, fused_unet_attn=True)
+
+
+CONFIG_NAMES = ("default", "safe_twin", "slotted")
+
+
+def pipeline_config(name: str) -> PipelineConfig:
+    """The serving configuration called `name` (one of CONFIG_NAMES)."""
+    return {"default": PipelineConfig, "safe_twin": safe_twin_config,
+            "slotted": slotted_config}[name]()
 
 
 # CLIP image normalization

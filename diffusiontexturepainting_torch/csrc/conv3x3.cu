@@ -58,6 +58,12 @@
 // fp32 round trip of the output through device memory per conv with
 // statistics; folding the walk into the conv's own epilogue, and TMA +
 // wgmma pipelining, are later work.
+//
+// Sizes: element offsets and the workspace's splits x outputs are size_t;
+// pixel and row counts are int, which holds the 1024^2 envelope's largest
+// call (the VAE encoder's (2,1024,1024,128) x 128: 2^21 rows, 2^28 outputs,
+// a 1 GiB fp32 workspace) with room; the grids stay within their limits
+// there (x: 2^14 row tiles or statistics chunks, z: 4 x splits).
 #include "gemm_tile.cuh"
 
 namespace dtp {

@@ -2,7 +2,7 @@
 
 Port of diffusiontexturepainting_tpu/models/layers.py: the module legs and
 the serving-only fused legs (ResnetBlock(fused=True), FeedForward(fused=True),
-Transformer2D(gn_folded=True)); the head-slotted attention is not ported.
+Transformer2D(gn_folded=True), Attention(slotted=True)).
 A fused leg runs the same parameters as its module leg. Parameter names
 follow diffusers; conv weights keep the JAX package's (kH, kW, Cin, Cout)
 layout, which the conv kernels read, and linear weights PyTorch's (out, in),
@@ -21,7 +21,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import attention
+from ..ops.attention import (
+    SLOT,
+    attention,
+    flash_attention_slotted,
+    slotted_self_attention_fits,
+)
 from ..ops.conv3x3 import conv3x3, fold_upsample_weights, upsample2x_conv3x3
 from ..ops.ff_geglu import ff_geglu
 from ..ops.gn_conv import (
@@ -136,27 +141,93 @@ class Conv3x3(nn.Module):
         return conv3x3(x, self.weight, self.bias)
 
 
+def _slot_columns(w, num_heads: int, head_dim: int):
+    """nn.Linear weight (h*hd, Din) -> (Din, h*128) head-slotted matrix:
+    head h's hd output columns at lane h*128, zeros after, so x @ it is the
+    slotted layout of the projection, exactly."""
+    w3 = w.t().reshape(w.shape[1], num_heads, head_dim)
+    return F.pad(w3, (0, SLOT - head_dim)).reshape(w.shape[1], -1)
+
+
+def _slot_rows(w, num_heads: int, head_dim: int):
+    """nn.Linear weight (Dout, h*hd) -> (h*128, Dout) with zero pad rows, so
+    a slotted activation @ it equals the unslotted activation @ w.t()."""
+    w3 = w.t().reshape(num_heads, head_dim, w.shape[0])
+    return F.pad(w3, (0, 0, 0, SLOT - head_dim)).reshape(-1, w.shape[0])
+
+
+def _slot_bias(b, num_heads: int, head_dim: int):
+    return F.pad(b.reshape(num_heads, head_dim),
+                 (0, SLOT - head_dim)).reshape(-1)
+
+
 class Attention(nn.Module):
-    """Multi-head attention with linear projections (diffusers names)."""
+    """Multi-head attention with linear projections (diffusers names).
+
+    `slotted` (the serving leg of the UNet's self-attention): the q/k/v
+    projections run as one matmul against head-slotted weights (each head's
+    columns zero-padded to a 128-lane slot), kernel K13 reads that layout in
+    place, and the output projection takes it through zero pad rows: no
+    head split or merge pass exists. The slotted weights are non-persistent
+    buffers, built from the projections at construction and after every
+    load_state_dict, so the state_dict is that of the plain leg. The leg
+    applies to self-attention on (B, L, C) input whose length the kernel
+    takes (slotted_self_attention_fits); other calls run the plain leg."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  kv_dim: int | None = None, qkv_bias: bool = False,
-                 out_bias: bool = True):
+                 out_bias: bool = True, slotted: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         kv_dim = kv_dim or query_dim
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, head_dim
         self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
         self.to_k = nn.Linear(kv_dim, inner, bias=qkv_bias)
         self.to_v = nn.Linear(kv_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim,
                                                bias=out_bias)])
+        self.slotted = slotted and head_dim <= SLOT
+        if self.slotted:
+            for name, t in self._slot_weights().items():
+                self.register_buffer(name, t, persistent=False)
+            self.register_load_state_dict_post_hook(Attention._reslot)
+
+    @torch.no_grad()
+    def _slot_weights(self) -> dict:
+        h, hd = self.num_heads, self.head_dim
+        projs = (self.to_q, self.to_k, self.to_v)
+        out = {"qkv_slotted": torch.cat([_slot_columns(p.weight, h, hd)
+                                         for p in projs], dim=1),
+               "out_slotted": _slot_rows(self.to_out[0].weight, h, hd)}
+        if self.to_q.bias is not None:
+            out["qkv_bias_slotted"] = torch.cat([_slot_bias(p.bias, h, hd)
+                                                 for p in projs])
+        return out
+
+    @staticmethod
+    def _reslot(module, incompatible_keys):
+        for name, t in module._slot_weights().items():
+            setattr(module, name, t)
 
     def forward(self, x, context=None):
+        if (self.slotted and context is None and x.dim() == 3
+                and slotted_self_attention_fits(x.shape[1], x.shape[1],
+                                                self.head_dim)):
+            return self._forward_slotted(x)
         ctx = x if context is None else context
         out = attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx),
                         self.num_heads)
         return self.to_out[0](out)
+
+    def _forward_slotted(self, x):
+        qkv = x @ self.qkv_slotted
+        if self.to_q.bias is not None:
+            qkv = qkv + self.qkv_bias_slotted
+        q, k, v = qkv.chunk(3, dim=-1)
+        out = flash_attention_slotted(q, k, v, self.num_heads, self.head_dim)
+        y = out @ self.out_slotted
+        bo = self.to_out[0].bias
+        return y if bo is None else y + bo
 
 
 class GEGLU(nn.Module):
@@ -213,14 +284,17 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn -> LN -> cross-attn -> LN -> FF, all residual. With
-    no context, attn2 is self-attention again (the patch encoder)."""
+    no context, attn2 is self-attention again (the patch encoder).
+    `attn_slotted`: attn1 takes its slotted leg."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  kv_dim: int | None = None, qkv_bias: bool = False,
-                 ff_activation: str = "geglu", ff_fused: bool = False):
+                 ff_activation: str = "geglu", ff_fused: bool = False,
+                 attn_slotted: bool = False):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
-        self.attn1 = Attention(dim, num_heads, head_dim, qkv_bias=qkv_bias)
+        self.attn1 = Attention(dim, num_heads, head_dim, qkv_bias=qkv_bias,
+                               slotted=attn_slotted)
         self.norm2 = LayerNorm32(dim)
         self.attn2 = Attention(dim, num_heads, head_dim, kv_dim=kv_dim,
                                qkv_bias=qkv_bias)
@@ -360,19 +434,21 @@ class Transformer2D(nn.Module):
     `gn_folded` (serving leg): the GroupNorm folds into proj_in,
     (x*a + c) @ W = (x*a) @ W + c @ W, with (a, c) from `in_stats` (the
     preceding fused resnet's statistics epilogue) or from one statistics
-    pass over x. `ff_fused`: the blocks' feed-forwards run as kernel K3."""
+    pass over x. `ff_fused`: the blocks' feed-forwards run as kernel K3.
+    `attn_slotted`: their self-attentions take the slotted leg (K13)."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int,
                  depth: int = 1, kv_dim: int | None = None,
                  num_groups: int = 32, ff_fused: bool = False,
-                 gn_folded: bool = False):
+                 gn_folded: bool = False, attn_slotted: bool = False):
         super().__init__()
         self.gn_folded = gn_folded
         self.norm = GroupNorm32(num_groups, channels, eps=1e-6)
         self.proj_in = Conv1x1(channels, channels)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, num_heads, head_dim, kv_dim=kv_dim,
-                                  ff_fused=ff_fused)
+                                  ff_fused=ff_fused,
+                                  attn_slotted=attn_slotted)
             for _ in range(depth)])
         self.proj_out = Conv1x1(channels, channels)
 

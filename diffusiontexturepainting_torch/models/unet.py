@@ -4,8 +4,8 @@ Port of diffusiontexturepainting_tpu/models/unet.py (`__call__` only; the
 DeepCache forwards come later). Submodule names follow diffusers'
 UNet2DConditionModel, so the state_dict converts with
 weights/convert.py convert_unet. UNetConfig's fused_resnet / fused_ff /
-fused_norm choose the serving legs of the resnets and transformers; the
-parameters are the same either way.
+fused_norm / fused_attn choose the serving legs of the resnets and
+transformers; the parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -69,7 +69,8 @@ class UNet2DCondition(nn.Module):
         def transformer(ch):
             return Transformer2D(ch, heads, ch // heads, kv_dim=kv,
                                  num_groups=groups, ff_fused=cfg.fused_ff,
-                                 gn_folded=cfg.fused_norm)
+                                 gn_folded=cfg.fused_norm,
+                                 attn_slotted=cfg.fused_attn)
 
         n_levels = len(cfg.block_out_channels)
         skip_ch = [ch0]

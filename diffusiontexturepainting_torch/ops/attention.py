@@ -1,15 +1,27 @@
 """Attention compute paths: (B, L, heads*hd) projections in and out.
 
 Port of diffusiontexturepainting_tpu/ops/attention.py and
-ops/flash_attention.py. `attention` keeps the JAX package's dispatch rule:
-self-attention with Lq == Lk >= 1024 and head dim <= 512 goes to the fused
-kernel (K2, csrc/flash_attention.cu, replacing flash_attention /
-_attn_kernel); all other attention (the 14-token cross-attention, CLIP's 50
+ops/flash_attention.py. `attention` keeps the JAX package's dispatch rule
+(`attention_route`): self-attention with Lq == Lk >= 1024 and head dim
+<= 512 goes to a fused kernel, the resident one (K2, replacing
+flash_attention / _attn_kernel) where its K/V panel and score block fit the
+TPU kernel's 11 MiB budget, else the streaming one (K8, replacing
+flash_attention_streaming / _stream_kernel: the 16384 tokens of the 1024^2
+point); all other attention (the 14-token cross-attention, CLIP's 50
 tokens, the UNet's shorter levels) is plain matmul -> fp32 softmax ->
-matmul, as the JAX package's xla_attention.
+matmul, as the JAX package's xla_attention. The budget is the TPU's; it is
+kept so that each counter here maps to exactly one TPU kernel.
 
-The TPU kernel used a static-shift softmax; this port computes the exact
-row-max softmax in both its kernel and its plain version.
+`flash_attention_slotted` (K13, replacing flash_attention_slotted) reads
+and writes the head-slotted (B, L, heads*128) layout that models/layers.py
+Attention's slotted leg produces.
+
+Kernels live in csrc/flash_attention.cu. A wrapper takes its plain version
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises. The TPU's K2 used a static-shift softmax; K2 here and its plain
+version compute the exact row-max softmax. K8's and K13's plain versions
+round where the TPU kernels round: q pre-scaled by scale*log2(e) and
+rounded to its dtype before Q K^T, and for K13 exp2 of bf16 logits.
 """
 
 from __future__ import annotations
@@ -22,11 +34,22 @@ from .. import _cuda
 
 FLASH_MIN_Q_LEN = 1024
 MAX_FLASH_HEAD_DIM = 512
+# VMEM budget of the TPU's resident kernels (K2, K13)
+RESIDENT_BUDGET = 11 * 1024 * 1024
+SLOT = 128  # lanes of one head in the slotted layout
+_LOG2E = 1.4426950408889634
 
 flash_launches = _cuda.LaunchCounter("flash_attention")
+flash_streaming_launches = _cuda.LaunchCounter("flash_attention_streaming")
+flash_slotted_launches = _cuda.LaunchCounter("flash_attention_slotted")
 
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_STREAM_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_SLOT_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                  + (ctypes.c_longlong,) * 4
+                  + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def _split_heads(x, num_heads):
@@ -37,6 +60,51 @@ def _split_heads(x, num_heads):
 def _merge_heads(x):
     b, h, l, hd = x.shape
     return x.transpose(1, 2).reshape(b, l, h * hd)
+
+
+# --- routing (the JAX package's ops/attention.py:74-111) ---
+
+
+def uses_flash(lq: int, lk: int, head_dim: int) -> bool:
+    """Whether a fused kernel takes the call (ops/attention.py:95-101)."""
+    return (lq >= FLASH_MIN_Q_LEN and lq == lk
+            and head_dim <= MAX_FLASH_HEAD_DIM)
+
+
+def resident_fits(lk: int, head_dim: int, dtype) -> bool:
+    """The resident kernel's K/V panel (head dim padded to 128 lanes) plus
+    its (q_block, Lk) fp32 score block within the budget."""
+    hd_pad = (head_dim + 127) // 128 * 128
+    itemsize = dtype.itemsize
+    qb = 512 if hd_pad <= 128 else 128
+    if itemsize > 2:
+        qb = min(qb, 256)
+    kv_bytes = 2 * lk * hd_pad * itemsize
+    score_bytes = qb * lk * 4
+    return kv_bytes + score_bytes <= RESIDENT_BUDGET
+
+
+def attention_route(lq: int, lk: int, head_dim: int, dtype) -> str:
+    """'flash' (K2), 'streaming' (K8) or 'plain' for one attention call."""
+    if not uses_flash(lq, lk, head_dim):
+        return "plain"
+    return "flash" if resident_fits(lk, head_dim, dtype) else "streaming"
+
+
+def slotted_self_attention_fits(lq: int, lk: int, head_dim: int,
+                                q_block: int = 512) -> bool:
+    """Whether the slotted kernel takes a self-attention: the JAX rule
+    (one head slot's (Lk, 128) bf16 K/V panel plus a (q_block, Lk) fp32
+    score block within the budget, lengths in whole 128-row blocks)."""
+    if head_dim > SLOT or lq % 128 or lk % 128:
+        return False
+    bq = min(q_block, lq)
+    if lq % bq:
+        return False
+    return 2 * lk * SLOT * 2 + bq * lk * 4 <= RESIDENT_BUDGET
+
+
+# --- plain versions ---
 
 
 def plain_attention(q, k, v, num_heads: int, scale: float | None = None):
@@ -52,26 +120,101 @@ def plain_attention(q, k, v, num_heads: int, scale: float | None = None):
     return _merge_heads(out)
 
 
+def _prescaled(qh, scale):
+    """q * scale * log2(e), rounded to q's dtype: base-2 logits follow
+    from Q K^T directly."""
+    return (qh.float() * (scale * _LOG2E)).to(qh.dtype)
+
+
+def _softmax_pv(qs, kh, vh, exp2_bf16: bool, block_bytes: int):
+    """(B, H, Lq, hd) pre-scaled q against (B, H, Lk, hd) k, v -> fp32
+    (B, H, Lq, hd), in query blocks of at most `block_bytes` of fp32
+    scores. Row-max softmax in base 2; probabilities rounded to v's dtype
+    (to bf16 first with exp2_bf16) for P V, the row sum in fp32 and the
+    division after P V, as the TPU kernels order them."""
+    B, H, Lq, _ = qs.shape
+    Lk = kh.shape[2]
+    kt, vf = kh.float().transpose(-1, -2), vh.float()
+    rows = max(1, block_bytes // (4 * B * H * Lk))
+    out = torch.empty(qs.shape, dtype=torch.float32, device=qs.device)
+    for i in range(0, Lq, rows):
+        s = torch.matmul(qs[:, :, i:i + rows].float(), kt)
+        d = s - s.amax(-1, keepdim=True)
+        e = torch.exp2(d.to(torch.bfloat16)) if exp2_bf16 else torch.exp2(d)
+        l = e.float().sum(-1, keepdim=True)
+        o = torch.matmul(e.to(vh.dtype).float(), vf)
+        out[:, :, i:i + rows] = o / l
+    return out
+
+
+def plain_attention_streaming(q, k, v, num_heads: int,
+                              scale: float | None = None,
+                              block_bytes: int = 1 << 30):
+    """K8's function, (B, Lq, D) x (B, Lk, D) -> (B, Lq, D), in query
+    blocks so that no call materializes more than `block_bytes` of fp32
+    scores (a 16384-token level-0 call would need 24 GiB at once)."""
+    hd = q.shape[-1] // num_heads
+    if scale is None:
+        scale = hd**-0.5
+    qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
+    out = _softmax_pv(_prescaled(qh, scale), kh, vh, False, block_bytes)
+    return _merge_heads(out.to(q.dtype))
+
+
+def _unslot(x, num_heads, head_dim):
+    b, l, _ = x.shape
+    return x.reshape(b, l, num_heads, SLOT)[..., :head_dim].transpose(1, 2)
+
+
+def plain_attention_slotted(q, k, v, num_heads: int, head_dim: int,
+                            scale: float | None = None,
+                            block_bytes: int = 1 << 30):
+    """K13's function over head-slotted (B, L, num_heads*128) tensors,
+    each head's head_dim features first in its 128-lane slot: exp2 on bf16
+    logits against the row max, bf16 probabilities. Returns the same
+    layout with zero pad lanes."""
+    if scale is None:
+        scale = head_dim**-0.5
+    qh, kh, vh = (_unslot(t, num_heads, head_dim) for t in (q, k, v))
+    o = _softmax_pv(_prescaled(qh, scale), kh, vh, True, block_bytes)
+    b, l = q.shape[:2]
+    out = torch.zeros((b, l, num_heads, SLOT), dtype=q.dtype,
+                      device=q.device)
+    out[..., :head_dim] = o.transpose(1, 2).to(q.dtype)
+    return out.reshape(b, l, num_heads * SLOT)
+
+
+# --- kernels ---
+
+
+def _check_qkv(name, q, k, v, num_heads):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on CPU or CUDA, got "
+                         f"{q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != q.dtype or t.device != q.device for t in (k, v)):
+        raise TypeError(f"{name}: q, k, v must share bf16 or fp32 and one "
+                        "device")
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"{name}: q, k, v must be (B, L, D)")
+    B, _, D = q.shape
+    Lk = k.shape[1]
+    if (D % num_heads or D // num_heads > MAX_FLASH_HEAD_DIM
+            or k.shape != (B, Lk, D) or v.shape != k.shape):
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"{num_heads} heads")
+
+
 def flash_attention(q, k, v, num_heads: int, scale: float | None = None):
-    """Fused attention, (B, Lq, D) x (B, Lk, D) -> (B, Lq, D): kernel K2 on
-    CUDA, plain_attention on CPU."""
+    """Resident fused attention, (B, Lq, D) x (B, Lk, D) -> (B, Lq, D):
+    kernel K2 on CUDA, plain_attention on CPU."""
     if q.device.type == "cpu":
         return plain_attention(q, k, v, num_heads, scale)
+    _check_qkv("flash_attention", q, k, v, num_heads)
     B, Lq, D = q.shape
     Lk = k.shape[1]
     hd = D // num_heads
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: tensors must be on CPU or CUDA, "
-                         f"got {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or any(
-            t.dtype != q.dtype or t.device != q.device for t in (k, v)):
-        raise TypeError("flash_attention: q, k, v must share bf16 or fp32 "
-                        "and one device")
-    if (D % num_heads or hd > MAX_FLASH_HEAD_DIM or k.shape != (B, Lk, D)
-            or v.shape != k.shape):
-        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
-                         f"{num_heads} heads")
     if scale is None:
         scale = hd**-0.5
 
@@ -90,14 +233,73 @@ def flash_attention(q, k, v, num_heads: int, scale: float | None = None):
     return _merge_heads(out.reshape(B, num_heads, Lq, hd))
 
 
-def uses_flash(lq: int, lk: int, head_dim: int) -> bool:
-    """The JAX package's dispatch rule (ops/attention.py:95-101)."""
-    return (lq >= FLASH_MIN_Q_LEN and lq == lk
-            and head_dim <= MAX_FLASH_HEAD_DIM)
+def flash_attention_streaming(q, k, v, num_heads: int,
+                              scale: float | None = None):
+    """Streaming fused attention for long sequences, (B, Lq, D) x
+    (B, Lk, D) -> (B, Lq, D): kernel K8 on CUDA, reading and writing the
+    projections in place; plain_attention_streaming on CPU."""
+    if q.device.type == "cpu":
+        return plain_attention_streaming(q, k, v, num_heads, scale)
+    _check_qkv("flash_attention_streaming", q, k, v, num_heads)
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention_streaming: q, k, v must be "
+                         "contiguous")
+    B, Lq, D = q.shape
+    hd = D // num_heads
+    if scale is None:
+        scale = hd**-0.5
+    out = torch.empty_like(q)
+    fn = _cuda.function("flash_attention", "dtp_flash_attention_streaming",
+                        _STREAM_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              num_heads, Lq, k.shape[1], hd, float(scale * _LOG2E),
+              int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+    _cuda.check("flash_attention", "dtp_flash_attention_streaming", code)
+    flash_streaming_launches.record((tuple(q.shape), tuple(k.shape),
+                                     num_heads))
+    return out
+
+
+def flash_attention_slotted(q, k, v, num_heads: int, head_dim: int,
+                            scale: float | None = None):
+    """Self-attention over head-slotted (B, L, num_heads*128) tensors,
+    which may be views of one fused projection (rows any stride apart; k
+    and v with equal strides). Returns (B, L, num_heads*128) with zero pad
+    lanes. `head_dim` is the real head dim (the scale's and the lanes
+    read). Kernel K13 on CUDA, plain_attention_slotted on CPU."""
+    if q.device.type == "cpu":
+        return plain_attention_slotted(q, k, v, num_heads, head_dim, scale)
+    name = "flash_attention_slotted"
+    _check_qkv(name, q, k, v, num_heads)
+    B, L, D = q.shape
+    if D != num_heads * SLOT or not 0 < head_dim <= SLOT or k.shape[1] != L:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is not {num_heads} "
+                         f"slots of {SLOT} lanes for head dim {head_dim}, "
+                         f"or k {tuple(k.shape)} is not self-attention")
+    if (any(t.stride(-1) != 1 for t in (q, k, v))
+            or k.stride() != v.stride()):
+        raise ValueError(f"{name}: lanes must be contiguous and k, v share "
+                         "strides")
+    if scale is None:
+        scale = head_dim**-0.5
+    out = torch.empty((B, L, D), dtype=q.dtype, device=q.device)
+    fn = _cuda.function("flash_attention", "dtp_flash_attention_slotted",
+                        _SLOT_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              num_heads, L, head_dim, SLOT, q.stride(1), q.stride(0),
+              k.stride(1), k.stride(0), float(scale * _LOG2E),
+              int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+    _cuda.check("flash_attention", "dtp_flash_attention_slotted", code)
+    flash_slotted_launches.record((tuple(q.shape), num_heads, head_dim))
+    return out
 
 
 def attention(q, k, v, num_heads: int, scale: float | None = None):
     """Dispatching attention entry point used by all models."""
-    if uses_flash(q.shape[1], k.shape[1], q.shape[-1] // num_heads):
+    route = attention_route(q.shape[1], k.shape[1], q.shape[-1] // num_heads,
+                            q.dtype)
+    if route == "flash":
         return flash_attention(q, k, v, num_heads, scale)
+    if route == "streaming":
+        return flash_attention_streaming(q, k, v, num_heads, scale)
     return plain_attention(q, k, v, num_heads, scale)

@@ -3,15 +3,16 @@
 Port of diffusiontexturepainting_tpu/pipeline/tpu_model.py for the exact
 DDIM stamp path: `resolution`, `set_brush`, `generate_raw`, `generate`,
 `generate_u8` and `create_preview_brush_context`, with the same
-wire-settings parsing, so it answers the port's own request handler
-(serving/wire.py) and the JAX package's framework-free server
-(`serving/run.py create_server(model=...)`) alike. Stroke sessions are not
-ported yet: their methods raise.
+wire-settings parsing, so it answers the port's request handler
+(serving/wire.py) and its server (serving/server.py). A stamp runs at its
+canvas's size (256, 512 or 1024 px). Stroke sessions are not ported yet:
+their methods raise.
 
-The configuration's fused_* switches (all True by default, as in the JAX
-package) choose the UNet's and the VAE's serving legs: the fused kernels
-(K1, K3, K5, K6) or, with all of them False, the module legs ("safe
-twin"). Both take the same state_dict.
+The configuration's fused_* switches choose the UNet's and the VAE's
+serving legs: by default, as in the JAX package, the fused kernels (K1,
+K3, K5, K6) with plain-layout attention; fused_unet_attn adds the
+head-slotted self-attention (K13, slotted_config()); with all of them
+False, the module legs ("safe twin"). All take the same state_dict.
 
 Random draws: request n (the model's request counter) draws its VAE
 posterior noise and initial latents from a torch.Generator seeded with
@@ -71,7 +72,8 @@ class TorchConditionalInpainter:
         c = self.config
         ucfg = dataclasses.replace(cfgs[0], fused_resnet=c.fused_unet_resnet,
                                    fused_ff=c.fused_unet_ff,
-                                   fused_norm=c.fused_unet_norm)
+                                   fused_norm=c.fused_unet_norm,
+                                   fused_attn=c.fused_unet_attn)
         tic = time.perf_counter()
         models = init_pipeline(
             ucfg, *cfgs[1:], device=self.device, dtype=self.dtype,

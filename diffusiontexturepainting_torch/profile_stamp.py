@@ -1,11 +1,13 @@
 """Where one stamp's time goes on the GPU.
 
     python -m diffusiontexturepainting_torch.profile_stamp \
-        [--config default|safe_twin] [--stamps 10]
+        [--config default|safe_twin|slotted] [--resolution 256|512|1024]
+        [--steps 20] [--stamps 10]
 
 Builds the full-width serving model (seeded random weights, bf16) in the
-default configuration (every fused switch on) or the safe twin (module legs
-only) and prints, each beside the card's name and power limit:
+default configuration (every fused switch on), the safe twin (module legs
+only) or the slotted one (default plus the head-slotted self-attention)
+and prints, each beside the card's name and power limit:
   - the wall time of `--stamps` unprofiled stamps (after two warm-up
     stamps): median, quartiles, min and max;
   - CUDA-event times of one UNet eval (the CFG batch of 3), one VAE encode
@@ -26,10 +28,8 @@ import time
 import numpy as np
 import torch
 
-from .core.config import PipelineConfig, safe_twin_config
+from .core.config import CONFIG_NAMES, pipeline_config
 from .pipeline.torch_model import TorchConditionalInpainter
-
-CONFIGS = {"default": PipelineConfig(), "safe_twin": safe_twin_config()}
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -47,9 +47,9 @@ def cuda_ms(fn, iters: int = 5) -> float:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", choices=sorted(CONFIGS),
-                        default="default")
-    parser.add_argument("--resolution", type=int, default=256)
+    parser.add_argument("--config", choices=CONFIG_NAMES, default="default")
+    parser.add_argument("--resolution", type=int, default=256,
+                        choices=(256, 512, 1024))
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--stamps", type=int, default=10)
     parser.add_argument("--top", type=int, default=25,
@@ -61,8 +61,8 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     print(f"config: {args.config}")
-    model = TorchConditionalInpainter(res, config=CONFIGS[args.config],
-                                      device="cuda")
+    model = TorchConditionalInpainter(
+        res, config=pipeline_config(args.config), device="cuda")
     rng = np.random.default_rng(0)
     model.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
     canvas = np.zeros((res, res, 4), np.uint8)

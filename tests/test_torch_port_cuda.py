@@ -22,6 +22,9 @@ CASES = {
                        False),
     "upconv_stream": ((2, 3, 5, 32), (3, 3, 32, 24), True),
     "ff_geglu": (37, 64, 256),
+    "flash_attention_streaming": ((2, 1100, 320), (2, 1100, 320), 8),
+    # views of one fused projection, hd off the 16-lane tiles
+    "flash_attention_slotted": ((2, 384, 512), 4, 36),
 }
 
 

@@ -109,9 +109,12 @@ def test_one_state_dict_serves_both_configurations():
     (strict: the parameter names are the same), and their stamps agree
     (fp32 on the CPU: u8 within 1 level, at least 99% exact)."""
     fused = TorchConditionalInpainter(64, device="cpu", tiny=True)
+    # every fused switch on, but the head-slotted attention (off by
+    # default, as in the JAX package)
     assert all(getattr(fused.config, f.name) for f in
                dataclasses.fields(PipelineConfig) if f.name.startswith(
-                   "fused"))
+                   "fused") and f.name != "fused_unet_attn")
+    assert not fused.config.fused_unet_attn
     assert fused.unet.cfg.fused_resnet and fused.vae_decoder.fused
     twin = TorchConditionalInpainter(64, config=safe_twin_config(),
                                      device="cpu",

@@ -1,22 +1,28 @@
-"""The port's serving model behind the JAX package's framework-free server
-and behind the port's own request handler, and the rule that the port
-imports neither JAX nor the JAX package."""
+"""The port's serving model behind its own server and request handler
+(answering as the JAX package's handler does), and the rule that the port
+imports neither JAX, nor the JAX package, nor tornado."""
 
 import json
 import subprocess
 import sys
 import threading
+import urllib.error
 import urllib.request
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from websockets.sync.client import connect
 
 from diffusiontexturepainting_torch.pipeline.inpaint import preview_canvas_u8
 from diffusiontexturepainting_torch.pipeline.torch_model import (
     TorchConditionalInpainter)
 from diffusiontexturepainting_torch.serving import wire
+from diffusiontexturepainting_torch.serving.server import (
+    MAX_MESSAGE_BYTES,
+    create_server,
+)
 from diffusiontexturepainting_tpu.serving import server_io
 from diffusiontexturepainting_tpu.serving.handler import handle_request_bytes
 from diffusiontexturepainting_tpu.serving.model_base import (
@@ -39,8 +45,10 @@ def test_port_imports_without_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'diffusiontexturepainting_tpu')]\n"
-        "print(len(sys.modules)); assert not bad, bad\n")
+        "       ('jax', 'diffusiontexturepainting_tpu', 'tornado')]\n"
+        "assert not bad, bad\n"
+        "for m in ('serving.server', 'serving.run'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)
 
@@ -58,34 +66,30 @@ def model():
     return TorchConditionalInpainter(RES, device="cpu", tiny=True)
 
 
+def test_server_entry_point_imports_without_tornado():
+    """The card's machine has no tornado: the server and its entry point
+    import with tornado made unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['tornado'] = None\n"
+        "import diffusiontexturepainting_torch.serving.run as r\n"
+        "import diffusiontexturepainting_torch.serving.server\n"
+        "r.run_main(['--help'])\n")
+    proc = subprocess.run([sys.executable, "-c", code], timeout=300,
+                          cwd=PKG.parent, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    for flag in ("--resolution", "--config", "--port"):
+        assert flag in proc.stdout
+
+
 @pytest.fixture(scope="module")
 def server(model):
-    """create_server(model=...) on a localhost port in its own IOLoop."""
-    import asyncio
-
-    import tornado.httpserver
-    import tornado.ioloop
-    import tornado.netutil
-
-    from diffusiontexturepainting_tpu.serving.run import create_server
-
-    holder, started = {}, threading.Event()
-
-    def run():
-        asyncio.set_event_loop(asyncio.new_event_loop())
-        loop = tornado.ioloop.IOLoop.current()
-        sockets = tornado.netutil.bind_sockets(0, "127.0.0.1")
-        tornado.httpserver.HTTPServer(create_server(model=model)) \
-            .add_sockets(sockets)
-        holder.update(loop=loop, port=sockets[0].getsockname()[1])
-        started.set()
-        loop.start()
-
-    thread = threading.Thread(target=run, daemon=True)
+    """The port's create_server on a free localhost port, in a thread."""
+    srv = create_server(model, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
-    assert started.wait(timeout=30)
-    yield holder["port"]
-    holder["loop"].add_callback(holder["loop"].stop)
+    yield srv.socket.getsockname()[1]
+    srv.shutdown()
     thread.join(timeout=30)
     assert not thread.is_alive()
 
@@ -96,41 +100,58 @@ def _request(kind, image):
             + server_io.image_to_binary(image))
 
 
-def _post(port, body):
-    req = urllib.request.Request(f"http://127.0.0.1:{port}/inpaint",
-                                 data=body, method="POST")
-    with urllib.request.urlopen(req, timeout=300) as resp:
-        return resp.read()
-
-
 def test_served_brush_and_stamp(model, server):
+    """/health, then a brush and a stamp over the websocket, each reply the
+    JAX package's handler's bytes at the same request counter; a bad frame
+    is dropped and the connection stays open."""
     R = server_io.RequestType
     with urllib.request.urlopen(f"http://127.0.0.1:{server}/health",
                                 timeout=30) as resp:
-        assert json.loads(resp.read())["model"] == "TorchConditionalInpainter"
+        assert json.loads(resp.read()) == {
+            "status": "ok", "model": "TorchConditionalInpainter"}
     rng = np.random.default_rng(0)
     brush = rng.integers(0, 256, (90, 120, 3), dtype=np.uint8)
-    preview = server_io.decode_response(_post(server,
-                                              _request(R.NEW_BRUSH_IMAGE,
-                                                       brush)))
-    assert preview["type"] == R.RETURN_PREVIEW.value
-    assert np.asarray(preview["image"]).shape == (RES, RES, 3)
-
     canvas = np.zeros((RES, RES, 4), np.uint8)
     canvas[:16, :, 3] = 255
     canvas[:16, :, :3] = 64
-    stamp_req = _request(R.NEW_STAMP, canvas)
-    first = model.request_counter + 1
-    reply = server_io.decode_response(_post(server, stamp_req))
-    img = np.asarray(reply["image"])
-    assert reply["type"] == R.RETURN_STAMP.value
-    assert img.shape == (RES, RES, 3) and img.dtype == np.uint8
-    assert np.abs(img[:16].astype(int) - 64).max() <= 1
-    assert img[16:].std() > 1.0
-    # the same request counter gives the same bytes, through the handler
-    model.request_counter = first - 1
-    again = server_io.decode_response(handle_request_bytes(model, stamp_req))
-    np.testing.assert_array_equal(np.asarray(again["image"]), img)
+    with connect(f"ws://127.0.0.1:{server}/websocket/", max_size=None,
+                 open_timeout=30) as ws:
+        for kind, image, want_type in (
+                (R.NEW_BRUSH_IMAGE, brush, R.RETURN_PREVIEW),
+                (R.NEW_STAMP, canvas, R.RETURN_STAMP)):
+            req = _request(kind, image)
+            counter = model.request_counter
+            ws.send(req)
+            raw = ws.recv(timeout=300)
+            reply = server_io.decode_response(raw)
+            assert reply["type"] == want_type.value
+            assert np.asarray(reply["image"]).shape == (RES, RES, 3)
+            after = model.request_counter
+            model.request_counter = counter
+            assert handle_request_bytes(model, req) == raw, kind
+            model.request_counter = after
+        img = np.asarray(reply["image"])
+        assert np.abs(img[:16].astype(int) - 64).max() <= 1
+        assert img[16:].std() > 1.0
+        ws.send(b"\xff")  # an unknown request type: logged, no reply
+        ws.send("{}")  # a text frame: logged, no reply
+        ws.send(req)
+        assert server_io.decode_response(ws.recv(timeout=300))["type"] \
+            == R.RETURN_STAMP.value
+
+
+def test_server_routes(server):
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(f"http://127.0.0.1:{server}/inpaint",
+                               timeout=30)
+    assert err.value.code == 404
+
+
+def test_frame_limit_takes_a_1024_canvas():
+    """A 1024^2 RGBA NEW_STAMP request fits the server's message limit."""
+    req = wire.encode_request(wire.RequestType.NEW_STAMP,
+                              np.zeros((1024, 1024, 4), np.uint8))
+    assert len(req) <= MAX_MESSAGE_BYTES
 
 
 def test_preview_canvas_matches_model_base(model):
