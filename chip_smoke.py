@@ -8,8 +8,10 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   2. build     nvcc builds every kernel from csrc/, in parallel, seconds
                printed;
   3. probe     each kernel against its plain version at a few shapes,
-               the 16384-token streaming attentions (K8) and the slotted
-               attentions of 256^2 and 512^2 (K13) among them;
+               the 16384-token streaming attentions (K8), the slotted
+               attentions of 256^2 and 512^2 (K13), and ragged and odd
+               shapes of the stride-2 downsample (K9) and the spatial
+               moments (K14) among them;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -26,6 +28,19 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                the default model: GET /health, then a NEW_BRUSH_IMAGE and a
                NEW_STAMP over a websocket, each reply byte-equal to the
                request handler's at the same request counter;
+  6b. session  a stroke session on the default model at 256^2 / 4 steps
+               through the request handler: BEGIN_SESSION on a 512^2
+               canvas, four STAMP_ATs that return no pixels (one
+               overpainting, one clamped; enqueued with host syncs made an
+               error, their acknowledgement times beside the stroke's
+               synchronized wall), one that returns its pixels, ERASE_AT,
+               FETCH_CANVAS, END_SESSION; the kernels' launches against the
+               configuration; the fetched canvas byte-equal to the host
+               oracle (each stamp's crop replayed through generate_u8 at its
+               request counter, host_stamp_update and the erase rule); then
+               the same bytes over the server's websocket, every reply
+               byte-equal, with RETURN_ERROR for a STAMP_AT before
+               BEGIN_SESSION and for a second connection's BEGIN_SESSION;
   7. envelope  the default configuration at 1024^2 / 4 DDIM steps (the
                engine envelope: 16384-token attention through K8), as
                phase 4, with its peak device memory;
@@ -38,7 +53,8 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                plain version and the one PyTorch call that computes the
                same function where there is one, at the shapes of the path
                it is reported for, beside its bound;
- 10. no jax    the run imported neither JAX nor the JAX package.
+ 10. no jax    the run imported neither JAX, nor the JAX package, nor
+               tornado, nor PIL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -76,7 +92,7 @@ def settings(steps, res=RES):
 # magnitude. fp32: accumulation order only. Statistics: the same fraction
 # of the sum of |y| (row 0) or of y^2 (row 1) over the pixels, the scale
 # that bounds their rounding error.
-TOL = {"bfloat16": 2.0**-5, "float32": 1e-4}
+TOL = {"bfloat16": 2.0**-5, "float16": 2.0**-5, "float32": 1e-4}
 # The first stamps of two configurations at equal steps: the same math
 # with other rounding points in bf16 (fused epilogues round once where the
 # module legs round twice; the slotted softmax rounds its logits to bf16),
@@ -94,6 +110,8 @@ SOURCES = {
     "ff_geglu": "csrc/ff_geglu.cu",
     "flash_attention_streaming": "csrc/flash_attention.cu",
     "flash_attention_slotted": "csrc/flash_attention.cu",
+    "downsample_conv3x3_stats": "csrc/conv3x3.cu",
+    "spatial_moments": "csrc/moments.cu",
 }
 REPLACES = {
     "conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:162",
@@ -107,6 +125,18 @@ REPLACES = {
         "diffusiontexturepainting_tpu/ops/flash_attention.py:311",
     "flash_attention_slotted":
         "diffusiontexturepainting_tpu/ops/flash_attention.py:240",
+    "downsample_conv3x3_stats":
+        "diffusiontexturepainting_tpu/ops/gn_conv_stream.py:1007",
+    "spatial_moments": "diffusiontexturepainting_tpu/ops/groupnorm.py:42",
+}
+# What the library yardstick of a kernel computes, where it is not the
+# kernel's whole function.
+LIBRARY_IS = {
+    "downsample_conv3x3_stats":
+        "F.conv2d, channels-last, stride 2 on the input padded beforehand; "
+        "no statistics",
+    "spatial_moments": "torch.var_mean over H and W (correction 0), the "
+                       "nearest one-call equivalent",
 }
 # The path each kernel's times are reported for; any other kernel: the
 # default path.
@@ -124,13 +154,16 @@ def counters():
         conv3x3,
         ff_geglu,
         gn_conv,
+        groupnorm,
     )
 
     return [conv3x3.conv3x3_launches, conv3x3.upsample_launches,
             attention.flash_launches, gn_conv.gn_conv_resident_launches,
             gn_conv.gn_conv_stream_launches, gn_conv.upconv_stream_launches,
             ff_geglu.ff_geglu_launches, attention.flash_streaming_launches,
-            attention.flash_slotted_launches]
+            attention.flash_slotted_launches,
+            gn_conv.downconv_stream_launches,
+            groupnorm.spatial_moments_launches]
 
 
 def kernel_case(kind, shape_key, dtype, gen):
@@ -146,6 +179,7 @@ def kernel_case(kind, shape_key, dtype, gen):
         conv3x3,
         ff_geglu,
         gn_conv,
+        groupnorm,
     )
 
     def rnd(*shape, std=1.0, mean=0.0, dt=dtype):
@@ -191,10 +225,25 @@ def kernel_case(kind, shape_key, dtype, gen):
         return (lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b2, res),
                 lambda: ff_geglu.ff_geglu_plain(x, w0, b0, w2, b2, res),
                 None)
+    if kind == "spatial_moments":
+        # (x, moments): compare holds the moments as statistics of x
+        x = rnd(*shape_key[0], mean=0.5)
+        return (lambda: (x, groupnorm.spatial_moments(x)),
+                lambda: (x, groupnorm.spatial_moments_plain(x)),
+                lambda: torch.var_mean(x, dim=(1, 2), correction=0))
     x_shape, w_shape = shape_key[:2]
     x = rnd(*x_shape)
     w = rnd(*w_shape, std=(9 * w_shape[2]) ** -0.5)
     b = rnd(w_shape[3], std=0.1)
+    if kind == "downsample_conv3x3_stats":
+        stats = shape_key[2]
+        # the yardstick pads outside the timed call
+        xp = F.pad(x, (0, 0, 0, 1, 0, 1)).permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return (lambda: gn_conv.downconv_stream(x, w, b, stats),
+                lambda: gn_conv.downconv_stream_plain(x, w, b, stats),
+                lambda: F.conv2d(xp, wc, b, stride=2))
     if kind == "conv3x3":
         xc = x.permute(0, 3, 1, 2)  # channels-last memory, NCHW view
         wc = w.permute(3, 2, 0, 1).contiguous(
@@ -239,8 +288,17 @@ def work(kind, key, itemsize):
         t, c, inner = key
         return (6 * t * c * inner,
                 itemsize * (3 * t * c + 3 * c * inner + 2 * inner + c))
+    if kind == "spatial_moments":
+        (B, H, W, C), = key
+        return 3 * B * H * W * C, itemsize * B * H * W * C + 4 * 2 * B * C
     x_shape, (_, _, cin, cout) = key[:2]
     pixels = math.prod(x_shape[:3])
+    if kind == "downsample_conv3x3_stats":
+        out_pixels = x_shape[0] * (x_shape[1] // 2) * (x_shape[2] // 2)
+        return (2 * out_pixels * 9 * cin * cout,
+                itemsize * (pixels * cin + 9 * cin * cout + cout
+                            + out_pixels * cout)
+                + key[2] * 4 * 2 * x_shape[0] * cout)
     if kind in ("upsample2x_conv3x3", "upconv_stream"):
         flops = 2 * 4 * pixels * 4 * cin * cout
         bytes_ = itemsize * (pixels * cin + 9 * cin * cout + cout
@@ -336,6 +394,8 @@ def compare(kind, shape_key, dtype, gen, timed=False):
                 raise AssertionError(f"{name}: statistics row {row} error "
                                      f"{e:.3e} > tol {rel * scale:.3e}")
             out["err_over_tol"] = max(out["err_over_tol"], e / (rel * scale))
+            if kind == "spatial_moments":  # the moments are the output
+                out["max_abs_err"] = max(out["max_abs_err"], e)
         out["stats_checked"] = True
     del got, want, got_st, want_st
     if timed:
@@ -398,6 +458,13 @@ def expected_per_stamp(model, res, steps):
                                         c.fused_vae_decoder)
     unet_convs = 2 * (plain_resnets + skip_resnets)
     attn = attention_launches(model, res, steps)
+    # statistics passes (stats_of) per UNet eval: each fused resnet's input,
+    # both parts of an up-path resnet's un-concatenated input, and, where
+    # the transformers fold their GroupNorm but the resnets do not hand
+    # them statistics, each transformer's input; per VAE: the encoder's
+    # stem and mid block, the decoder's conv_in and mid block
+    unet_moments = ((plain_resnets + 2 * skip_resnets) if fused_unet
+                    else transformers if c.fused_unet_norm else 0)
     return {
         "conv3x3": (0 if fused_unet else steps * unet_convs)
         + (0 if fused_enc else 2 * enc_resnets)
@@ -413,6 +480,9 @@ def expected_per_stamp(model, res, steps):
         "upconv_stream": n_v - 1 if fused_dec else 0,
         "flash_attention_streaming": attn["flash_attention_streaming"],
         "flash_attention_slotted": attn["flash_attention_slotted"],
+        "downsample_conv3x3_stats": n_v - 1 if fused_enc else 0,
+        "spatial_moments": steps * unet_moments + 2 * fused_enc
+        + 2 * fused_dec,
     }
 
 
@@ -587,6 +657,181 @@ def serve_phase(model):
         thread.join(timeout=60)
 
 
+# The session phase's stroke on a 512^2 canvas: (x0, y0, return_pixels,
+# overpaint) of its stamps (four without pixels, the second overpainting
+# the first's window, the fourth clamped to (256, 0); then one with
+# pixels) and its erase (clamped to (256, 256)).
+SESSION_CANVAS = 512
+SESSION_STAMPS = [(0, 0, False, False), (96, 40, False, True),
+                  (200, 180, False, False), (480, -30, False, False),
+                  (128, 128, True, False)]
+SESSION_ERASE = (300, 260, True)
+
+
+def session_requests():
+    """(canvas, the session's requests as wire bytes)."""
+    import numpy as np
+
+    from diffusiontexturepainting_torch.serving import wire
+
+    rng = np.random.default_rng(1)
+    n = SESSION_CANVAS
+    canvas = np.zeros((n, n, 4), np.uint8)
+    canvas[:n // 4, :, :3] = rng.integers(0, 256, (n // 4, n, 3))
+    canvas[:n // 4, :, 3] = 255
+    s = settings(FEW_STEPS)
+    return canvas, ([wire.encode_begin_session(canvas, **s)]
+                    + [wire.encode_stamp_at(x, y, px, op, **s)
+                       for x, y, px, op in SESSION_STAMPS]
+                    + [wire.encode_erase_at(*SESSION_ERASE),
+                       wire.encode_fetch_canvas(),
+                       wire.encode_end_session()])
+
+
+def session_oracle(model, canvas, first_counter):
+    """The session's canvas, the pixel-returning stamp's crop and the
+    erase's crop on the host: each stamp's crop (centre cleared for
+    overpaint) through generate_u8 at the stamp's request counter, written
+    with host_stamp_update; then host_erase_update."""
+    from diffusiontexturepainting_torch.pipeline import session
+
+    n, res = canvas.shape[0], model.resolution()
+    crop = None
+    for k, (x0, y0, px, op) in enumerate(SESSION_STAMPS):
+        x, y = session.clamped_corner(x0, y0, res, n, n)
+        window = canvas[y:y + res, x:x + res].copy()
+        if op:
+            m = session.overpaint_margin(res)
+            window[m:res - m, m:res - m] = 0
+        model.request_counter = first_counter + k - 1
+        comp = model.generate_u8(window, **settings(FEW_STEPS))
+        canvas = session.host_stamp_update(canvas, comp, x0, y0)
+        if px:
+            crop = comp
+    x0, y0, _ = SESSION_ERASE
+    canvas = session.host_erase_update(canvas, res, x0, y0)
+    x, y = session.clamped_corner(x0, y0, res, n, n)
+    return canvas, crop, canvas[y:y + res, x:x + res, :3]
+
+
+def session_phase(model):
+    """A stroke session through the request handler, then over the
+    server's websocket; returns (launches, shapes, stamps) of the handler's
+    run."""
+    import numpy as np
+    import torch
+    from websockets.sync.client import connect
+
+    from diffusiontexturepainting_torch.serving import wire
+    from diffusiontexturepainting_torch.serving.server import create_server
+
+    t_phase = time.perf_counter()
+    R, handle = wire.RequestType, wire.handle_request_bytes
+    canvas, reqs = session_requests()
+    n_free = sum(not px for _, _, px, _ in SESSION_STAMPS)
+    counter = model.request_counter
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    replies = [handle(model, reqs[0])]
+    torch.cuda.synchronize()
+    acks, busy = [], []
+    stream = torch.cuda.current_stream()
+    tic = time.perf_counter()
+    for raw in reqs[1:1 + n_free]:
+        t0 = time.perf_counter()
+        # a stamp without pixels must not wait for the device: any
+        # synchronizing CUDA call while it is enqueued raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replies.append(handle(model, raw))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        acks.append(time.perf_counter() - t0)
+        busy.append(not stream.query())  # its kernels still queued
+    enqueued = time.perf_counter() - tic
+    model.sync_session()
+    wall = time.perf_counter() - tic
+    for raw in reqs[1 + n_free:]:
+        replies.append(handle(model, raw))
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches for c in counters()}
+    shapes = {c.name: dict(c.shapes) for c in counters()}
+    log(f"session: {n_free} STAMP_ATs without pixels acknowledged in "
+        + ", ".join(f"{a * 1e3:.1f}" for a in acks)
+        + f" ms (all enqueued {enqueued * 1e3:.1f} ms after the first was "
+        f"sent; the device still busy at each ack: {busy}); the stroke "
+        f"synchronized {wall * 1e3:.1f} ms after it ({RES}^2 stamps, "
+        f"{FEW_STEPS} steps, {SESSION_CANVAS}^2 canvas)")
+    kinds = [r[0] for r in replies]
+    want_kinds = ([R.RETURN_ACK] * (1 + n_free)
+                  + [R.RETURN_STAMP, R.RETURN_STAMP, R.RETURN_CANVAS,
+                     R.RETURN_ACK])
+    if kinds != want_kinds:
+        raise AssertionError(f"session: reply types {kinds}")
+    seqs = [wire.decode_ack(r)[1] for r in replies if r[0] == R.RETURN_ACK]
+    if seqs != list(range(len(seqs))):
+        raise AssertionError(f"session: ack sequence {seqs}")
+    fetched = wire.decode_response(replies[-2])[1]
+    stamp_crop = wire.decode_response(replies[1 + n_free])[1]
+    erase_crop = wire.decode_response(replies[2 + n_free])[1]
+    want, want_crop, want_erase = session_oracle(model, canvas, counter + 1)
+    model.request_counter = counter + len(SESSION_STAMPS)
+    for what, got, exp in (("canvas", fetched, want),
+                           ("stamp crop", stamp_crop, want_crop),
+                           ("erase crop", erase_crop, want_erase)):
+        if not np.array_equal(got, exp):
+            raise AssertionError(
+                f"session: fetched {what} differs from the host oracle in "
+                f"{int((got != exp).sum())} bytes")
+    log(f"session: fetched {canvas.shape} canvas, the stamp's and the "
+        "erase's crops byte-equal to the host oracle (per-request stamps "
+        "at the same request counters)")
+
+    server = create_server(model, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"ws://127.0.0.1:{server.socket.getsockname()[1]}/websocket/"
+        with connect(url, max_size=None, open_timeout=60) as ws:
+            ws.send(reqs[1])
+            kind, message = wire.decode_error(ws.recv(timeout=60))
+            if kind != R.RETURN_ERROR:
+                raise AssertionError(f"session: STAMP_AT before "
+                                     f"BEGIN_SESSION replied type {kind}")
+            log(f"session: STAMP_AT before BEGIN_SESSION -> RETURN_ERROR "
+                f"{message!r}")
+            model.request_counter = counter
+            ws.send(reqs[0])
+            served = [ws.recv(timeout=60)]
+            with connect(url, max_size=None, open_timeout=60) as other:
+                other.send(reqs[0])
+                kind, message = wire.decode_error(other.recv(timeout=60))
+            if kind != R.RETURN_ERROR:
+                raise AssertionError(f"session: a second connection's "
+                                     f"BEGIN_SESSION replied type {kind}")
+            log(f"session: a second connection's BEGIN_SESSION -> "
+                f"RETURN_ERROR {message!r}")
+            ws_acks = []
+            for raw in reqs[1:]:
+                t0 = time.perf_counter()
+                ws.send(raw)
+                served.append(ws.recv(timeout=600))
+                ws_acks.append(time.perf_counter() - t0)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    if served != replies:
+        raise AssertionError("session: websocket replies differ from the "
+                             "request handler's")
+    log("session: over the websocket, STAMP_ATs without pixels "
+        "acknowledged in " + ", ".join(f"{a * 1e3:.1f}"
+                                       for a in ws_acks[:n_free])
+        + " ms; every reply byte-equal to wire.handle_request_bytes")
+    log(f"session: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes, len(SESSION_STAMPS)
+
+
 def release():
     """Returns the memory of the models the caller dropped to the card."""
     import torch
@@ -665,7 +910,9 @@ def kernels_phase(gen, paths):
             "library_ms": None if lib_missing else totals["library"] / n,
             "ms_is": f"bf16 kernel time per stamp of the {path} path "
                      f"({run['res']}^2, {run['steps']} steps), summed over "
-                     "its shapes"})
+                     "its shapes",
+            **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
+               else {})})
     return record
 
 
@@ -734,9 +981,26 @@ def main() -> int:
         ("flash_attention_slotted", ((3, 1024, 1024), 8, 40)),
         ("flash_attention_slotted", ((3, 256, 1024), 8, 80)),
         ("flash_attention_slotted", ((3, 4096, 1024), 8, 40)),
+        # the stride-2 downsample: odd sizes (the last row and column
+        # dropped), ragged channels, a single row band, no statistics
+        ("downsample_conv3x3_stats", ((1, 18, 34, 48), (3, 3, 48, 40),
+                                      True)),
+        ("downsample_conv3x3_stats", ((2, 7, 9, 24), (3, 3, 24, 136),
+                                      True)),
+        ("downsample_conv3x3_stats", ((2, 2, 2, 16), (3, 3, 16, 8), True)),
+        ("downsample_conv3x3_stats", ((1, 32, 32, 256), (3, 3, 256, 256),
+                                      False)),
+        # the moments: the UNet's 4x4 level, channels off the 16-byte
+        # groups (scalar path), two channel slices, one row
+        ("spatial_moments", ((3, 4, 4, 1280),)),
+        ("spatial_moments", ((2, 9, 7, 40),)),
+        ("spatial_moments", ((1, 32, 32, 2560),)),
+        ("spatial_moments", ((2, 1, 1, 8),)),
     ]
     for kind, key in probes:
-        for dt in (torch.bfloat16, torch.float32):
+        dtypes = (torch.bfloat16, torch.float32) + (
+            (torch.float16,) if kind == "spatial_moments" else ())
+        for dt in dtypes:
             r = compare(kind, key, dt, gen)
             log(f"probe: {kind} {key} {str(dt)[6:]}: max_abs_err "
                 f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, max|plain| "
@@ -773,6 +1037,10 @@ def main() -> int:
     release()
 
     serve_phase(model)
+    launches, shapes, n = session_phase(model)
+    check_counts("session", model, FEW_STEPS, launches, n)
+    paths["session"] = dict(launches=launches, shapes=shapes, stamps=n,
+                            steps=FEW_STEPS, res=RES)
     del model
     release()
 
@@ -805,11 +1073,12 @@ def main() -> int:
     record = kernels_phase(gen, paths)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
-                    in ("jax", "diffusiontexturepainting_tpu", "tornado"))
+                    in ("jax", "diffusiontexturepainting_tpu", "tornado",
+                        "PIL"))
     if loaded:
         raise AssertionError(f"the run imported {loaded}")
-    log("no jax: neither jax, nor diffusiontexturepainting_tpu, nor tornado "
-        "in sys.modules")
+    log("no jax: neither jax, nor diffusiontexturepainting_tpu, nor tornado, "
+        "nor PIL in sys.modules")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {

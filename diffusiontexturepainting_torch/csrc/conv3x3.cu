@@ -1,6 +1,7 @@
 // The 3x3 convolution family, NHWC, as implicit GEMMs: the plain 3x3 SAME
-// conv, the fused nearest-x2 upsample + 3x3 conv, and their fused-GroupNorm
-// modes with residual and statistics epilogues.
+// conv, the fused nearest-x2 upsample + 3x3 conv, the stride-2 downsample
+// conv, and their fused modes with GroupNorm prologue, residual and
+// statistics epilogues.
 //
 // Replaces (TPU, diffusiontexturepainting_tpu/ops/):
 //   dtp_conv3x3              <- conv3x3.py _conv3x3_pallas / _conv_kernel (K7)
@@ -13,6 +14,9 @@
 //   dtp_upsample2x_conv3x3_stats
 //                            <- gn_conv_stream.py _upconv_stream_pallas /
 //                               _upconv_stream_kernel (K6)
+//   dtp_downsample_conv3x3_stats
+//                            <- gn_conv_stream.py _downconv_stream_pallas /
+//                               _downconv_kernel (K9)
 //
 // What they compute:
 //   conv:  out[b,y,x,n] = bias[n] + sum_{di,dj,c} x[b,y+di-1,x+dj-1,c]
@@ -33,9 +37,22 @@
 //   upconv stats (K6): the upconv, with fp32 (sum, sumsq) per (b, n) of the
 //          fp32 output BEFORE its rounding (the TPU kernel's order; K1/K5
 //          take theirs after rounding and residual).
-// The SAME border is a load predicate: out-of-image taps load zeros, and in
-// the GroupNorm mode they skip the prologue, since silu(0*a + c) != 0. No
-// padded copy of the input is made. fp32 accumulation.
+//   downconv stats (K9): the VAE encoder's level transition, a stride-2
+//          3x3 conv over x padded by one zero row below and one zero column
+//          to the right (diffusers' Downsample2D, pad (0,1),(0,1)):
+//          out[b,i,j,n] = bias[n] + sum_{di,dj,c} x[b,2i+di,2j+dj,c]
+//                                                 * w[di,dj,c,n]
+//          for i < H/2, j < W/2 (the VALID conv's output size), with K6's
+//          pre-rounding statistics. GEMM with M = B*(H/2)*(W/2), K = 9*Cin.
+// Borders are load predicates: out-of-image taps load zeros, and in the
+// GroupNorm mode they skip the prologue, since silu(0*a + c) != 0. SAME
+// and UP read row y+di-1 (zero for -1 and H); DOWN reads row 2i+di, which
+// is never negative and reads zero only at H (the pad row) - no -1 offset.
+// No padded copy of the input is made. fp32 accumulation.
+//
+// K9 at the 256^2 stamp's encoder (M = 32768..2048 output pixels, K =
+// 9*128..9*512) is tensor-core work in the same tile; it is the DOWN mode
+// of the same kernel and shares its limits.
 //
 // What bounds it on the H100: at the UNet's shapes (M = 48..3072 pixels,
 // K up to 9*2560) it is tensor-core work on small M, so tile occupancy and
@@ -68,6 +85,18 @@
 
 namespace dtp {
 namespace {
+
+// The family's modes: the output pixel's taps and the output's layout.
+enum Mode : int {
+  kSame = 0,  // 3x3 SAME conv
+  kUp = 1,    // nearest x2 + 3x3 conv, as four parity planes of 2x2 taps
+  kDown = 2,  // stride-2 3x3 conv, pad (0,1),(0,1)
+};
+
+// Output pixels per image of a mode (per parity plane for kUp).
+__host__ __device__ inline int out_rows(int mode, int H) {
+  return mode == kDown ? H / 2 : H;
+}
 
 // Everything one launch of conv_kernel reads.
 template <typename T>
@@ -112,11 +141,13 @@ __device__ __forceinline__ void load_chunk_gn(T* dst, const T* src,
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
 }
 
-// UP = false: 3x3 SAME conv. UP = true: blockIdx.z is the parity plane of
-// the x2-upsampled output and w holds the 16 folded 2x2 taps.
-template <typename T, bool UP>
+// kSame: 3x3 SAME conv. kUp: blockIdx.z is the parity plane of the
+// x2-upsampled output and w holds the 16 folded 2x2 taps. kDown: stride-2
+// taps over the (0,1)-padded input. H, W are the input's.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const ConvArgs<T> p) {
+  constexpr bool UP = MODE == kUp;
   using TL = Tile<T>;
   constexpr int V = 16 / sizeof(T);
   constexpr int A_CPR = TL::BK / V;  // 16-byte chunks per A-tile row
@@ -132,7 +163,8 @@ conv_kernel(const ConvArgs<T> p) {
   const int B = p.B, H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
   const int splits = p.splits;
   const int tid = threadIdx.x;
-  const int HW = H * W;
+  const int OW = out_rows(MODE, W);
+  const int HW = out_rows(MODE, H) * OW;  // output pixels per image (plane)
   const int M = B * HW;
   const int m0 = blockIdx.x * TL::BM;
   const int n0 = blockIdx.y * TL::BN;
@@ -140,6 +172,7 @@ conv_kernel(const ConvArgs<T> p) {
   const int split = blockIdx.z % splits;
   const int ry = plane >> 1, rx = plane & 1;
   constexpr int kTaps = UP ? 4 : 9;
+  constexpr int kStride = MODE == kDown ? 2 : 1;
   // K steps are (tap, channel block) pairs; split s takes [k_begin, k_end)
   const int steps_per_tap = (Cin + TL::BK - 1) / TL::BK;
   const int k_steps = kTaps * steps_per_tap;
@@ -160,8 +193,8 @@ conv_kernel(const ConvArgs<T> p) {
     const int mm = a_ok[i] ? m : 0;
     a_b[i] = mm / HW;
     const int rem = mm - a_b[i] * HW;
-    a_y[i] = rem / W;
-    a_x[i] = rem - a_y[i] * W;
+    a_y[i] = rem / OW;
+    a_x[i] = rem - a_y[i] * OW;
   }
 
   typename MathFor<T>::type math;
@@ -176,6 +209,10 @@ conv_kernel(const ConvArgs<T> p) {
       dy = ry + (tap >> 1) - 1;
       dx = rx + (tap & 1) - 1;
       wt = p.w + (size_t)(plane * 4 + tap) * p.w_tap;
+    } else if (MODE == kDown) {
+      dy = tap / 3;
+      dx = tap % 3;
+      wt = p.w + (size_t)tap * p.w_tap;
     } else {
       dy = tap / 3 - 1;
       dx = tap % 3 - 1;
@@ -183,7 +220,7 @@ conv_kernel(const ConvArgs<T> p) {
     }
 #pragma unroll
     for (int i = 0; i < A_CHUNKS; ++i) {
-      const int yy = a_y[i] + dy, xx = a_x[i] + dx;
+      const int yy = kStride * a_y[i] + dy, xx = kStride * a_x[i] + dx;
       const int ci = ci0 + a_col[i];
       const bool inb = a_ok[i] && yy >= 0 && yy < H && xx >= 0 && xx < W;
       const T* src =
@@ -356,10 +393,12 @@ int plan_slots(int chunk, int hw, int B) {
 // otherwise enough splits for about two waves of blocks, each keeping at
 // least 8 K steps. The UNet's 4x4 to 16x16 levels (M = 48..768 pixels,
 // K up to 9*2560) would otherwise run 10-60 blocks on 132 SMs.
-template <typename T, bool UP>
+template <typename T, int MODE>
 int plan_splits(int B, int H, int W, int Cin, int Cout) {
   using TL = Tile<T>;
-  const long long M = (long long)B * H * W;
+  constexpr bool UP = MODE == kUp;
+  const long long M =
+      (long long)B * out_rows(MODE, H) * out_rows(MODE, W);
   const long long blocks = ((M + TL::BM - 1) / TL::BM) *
                            ((Cout + TL::BN - 1) / TL::BN) * (UP ? 4 : 1);
   if (blocks >= kSMs) return 1;
@@ -369,25 +408,27 @@ int plan_splits(int B, int H, int W, int Cin, int Cout) {
   return s > 1 ? (int)s : 1;
 }
 
-template <typename T, bool UP>
+template <typename T, int MODE>
 cudaError_t launch_conv(ConvArgs<T> p, cudaStream_t stream) {
   using TL = Tile<T>;
   constexpr int V = 16 / sizeof(T);
+  constexpr bool UP = MODE == kUp;
   if (p.splits < 1 || (p.to_ws && p.partial == nullptr) ||
       (p.gn_a == nullptr) != (p.gn_c == nullptr))
     return cudaErrorInvalidValue;
-  const long long M = (long long)p.B * p.H * p.W;
+  const long long M =
+      (long long)p.B * out_rows(MODE, p.H) * out_rows(MODE, p.W);
   dim3 grid((unsigned)((M + TL::BM - 1) / TL::BM),
             (unsigned)((p.Cout + TL::BN - 1) / TL::BN),
             (unsigned)((UP ? 4 : 1) * p.splits));
   p.vec_a = p.Cin % V == 0 && aligned16(p.x);
   p.vec_b = p.Cout % V == 0 && p.w_tap % V == 0 && aligned16(p.w);
-  conv_kernel<T, UP><<<grid, kThreads, 0, stream>>>(p);
+  conv_kernel<T, MODE><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 // K7 / K4: conv + bias, split-K reduced by finish_kernel.
-template <typename T, bool UP>
+template <typename T, int MODE>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
                    void* partial, int B, int H, int W, int Cin, int Cout,
                    int splits, cudaStream_t stream) {
@@ -401,9 +442,9 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
   p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.splits = splits;
   p.to_ws = splits > 1;
   if (bias == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = launch_conv<T, UP>(p, stream);
+  cudaError_t err = launch_conv<T, MODE>(p, stream);
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t total = (size_t)B * H * W * Cout * (UP ? 4 : 1);
+  const size_t total = (size_t)B * H * W * Cout * (MODE == kUp ? 4 : 1);
   const unsigned fin_blocks =
       (unsigned)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
   finish_kernel<T><<<fin_blocks, 256, 0, stream>>>(
@@ -412,11 +453,12 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
   return cudaGetLastError();
 }
 
-// The fused modes (K1/K5 with UP = false, K6 with UP = true). Without
+// The fused modes (K1/K5 with kSame, K6 with kUp, K9 with kDown). Without
 // statistics and split-K the whole epilogue runs in the conv kernel;
 // otherwise the conv writes fp32 sums to `partial` and finish_stats_kernel
-// (+ stats_reduce_kernel) finishes.
-template <typename T, bool UP>
+// (+ stats_reduce_kernel) finishes; K6 and K9 take their statistics before
+// rounding.
+template <typename T, int MODE>
 cudaError_t launch_fused(const void* x, const void* a, const void* c,
                          const void* w, const void* bias,
                          const void* residual, void* out, void* partial,
@@ -438,15 +480,16 @@ cudaError_t launch_fused(const void* x, const void* a, const void* c,
   if (w_tap < (long long)Cin * Cout) return cudaErrorInvalidValue;
   if (want_stats && (ws == nullptr || stats == nullptr))
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_conv<T, UP>(p, stream);
+  cudaError_t err = launch_conv<T, MODE>(p, stream);
   if (err != cudaSuccess || !p.to_ws) return err;
-  const int rows = B * H * W * (UP ? 4 : 1);
-  const int hw = H * W * (UP ? 4 : 1);
+  const int hw =
+      out_rows(MODE, H) * out_rows(MODE, W) * (MODE == kUp ? 4 : 1);
+  const int rows = B * hw;
   const int chunk = plan_chunk(rows, Cout);
   const int slots = plan_slots(chunk, hw, B);
   dim3 grid((unsigned)((rows + chunk - 1) / chunk),
             (unsigned)((Cout + kStatCols - 1) / kStatCols));
-  finish_stats_kernel<T, UP><<<grid, kStatCols, 0, stream>>>(
+  finish_stats_kernel<T, MODE != kSame><<<grid, kStatCols, 0, stream>>>(
       p.partial, p.bias, p.residual, p.out, static_cast<float*>(ws), rows,
       hw, Cout, splits, chunk, slots, want_stats);
   err = cudaGetLastError();
@@ -458,47 +501,49 @@ cudaError_t launch_fused(const void* x, const void* a, const void* c,
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int H, int W, int Cin, int Cout) {
-  return B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0;
+// An empty output is refused too: kDown needs two input rows and columns.
+bool bad_shape(int mode, int B, int H, int W, int Cin, int Cout) {
+  return B <= 0 || out_rows(mode, H) <= 0 || out_rows(mode, W) <= 0 ||
+         Cin <= 0 || Cout <= 0;
 }
 
-template <bool UP>
+template <int MODE>
 int splits_for(int B, int H, int W, int Cin, int Cout, int is_bf16) {
-  if (bad_shape(B, H, W, Cin, Cout)) return 1;
-  return is_bf16 ? plan_splits<__nv_bfloat16, UP>(B, H, W, Cin, Cout)
-                 : plan_splits<float, UP>(B, H, W, Cin, Cout);
+  if (bad_shape(MODE, B, H, W, Cin, Cout)) return 1;
+  return is_bf16 ? plan_splits<__nv_bfloat16, MODE>(B, H, W, Cin, Cout)
+                 : plan_splits<float, MODE>(B, H, W, Cin, Cout);
 }
 
-template <bool UP>
+template <int MODE>
 cudaError_t dispatch(const void* x, const void* w, const void* bias,
                      void* out, void* partial, int B, int H, int W, int Cin,
                      int Cout, int splits, int is_bf16, void* stream) {
-  if (bad_shape(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
+  if (bad_shape(MODE, B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, UP>(x, w, bias, out, partial, B, H, W, Cin,
-                                     Cout, splits, s);
-  return launch<float, UP>(x, w, bias, out, partial, B, H, W, Cin, Cout,
-                           splits, s);
+    return launch<__nv_bfloat16, MODE>(x, w, bias, out, partial, B, H, W,
+                                       Cin, Cout, splits, s);
+  return launch<float, MODE>(x, w, bias, out, partial, B, H, W, Cin, Cout,
+                             splits, s);
 }
 
-template <bool UP>
+template <int MODE>
 cudaError_t dispatch_fused(const void* x, const void* a, const void* c,
                            const void* w, const void* bias,
                            const void* residual, void* out, void* partial,
                            void* ws, void* stats, int B, int H, int W,
                            int Cin, int Cout, long long w_tap, int splits,
                            int want_stats, int is_bf16, void* stream) {
-  if (bad_shape(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
+  if (bad_shape(MODE, B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_fused<__nv_bfloat16, UP>(x, a, c, w, bias, residual, out,
-                                           partial, ws, stats, B, H, W, Cin,
-                                           Cout, w_tap, splits,
-                                           want_stats != 0, s);
-  return launch_fused<float, UP>(x, a, c, w, bias, residual, out, partial,
-                                 ws, stats, B, H, W, Cin, Cout, w_tap,
-                                 splits, want_stats != 0, s);
+    return launch_fused<__nv_bfloat16, MODE>(x, a, c, w, bias, residual, out,
+                                             partial, ws, stats, B, H, W,
+                                             Cin, Cout, w_tap, splits,
+                                             want_stats != 0, s);
+  return launch_fused<float, MODE>(x, a, c, w, bias, residual, out, partial,
+                                   ws, stats, B, H, W, Cin, Cout, w_tap,
+                                   splits, want_stats != 0, s);
 }
 
 }  // namespace
@@ -508,12 +553,17 @@ cudaError_t dispatch_fused(const void* x, const void* a, const void* c,
 // workspace of splits * (output elements) floats.
 extern "C" int dtp_conv3x3_splits(int B, int H, int W, int Cin, int Cout,
                                   int is_bf16) {
-  return dtp::splits_for<false>(B, H, W, Cin, Cout, is_bf16);
+  return dtp::splits_for<dtp::kSame>(B, H, W, Cin, Cout, is_bf16);
 }
 
 extern "C" int dtp_upsample2x_conv3x3_splits(int B, int H, int W, int Cin,
                                              int Cout, int is_bf16) {
-  return dtp::splits_for<true>(B, H, W, Cin, Cout, is_bf16);
+  return dtp::splits_for<dtp::kUp>(B, H, W, Cin, Cout, is_bf16);
+}
+
+extern "C" int dtp_downsample_conv3x3_splits(int B, int H, int W, int Cin,
+                                             int Cout, int is_bf16) {
+  return dtp::splits_for<dtp::kDown>(B, H, W, Cin, Cout, is_bf16);
 }
 
 // Floats of the statistics workspace of a fused call whose output has
@@ -533,8 +583,8 @@ extern "C" cudaError_t dtp_conv3x3(const void* x, const void* w,
                                    void* partial, int B, int H, int W,
                                    int Cin, int Cout, int splits,
                                    int is_bf16, void* stream) {
-  return dtp::dispatch<false>(x, w, bias, out, partial, B, H, W, Cin, Cout,
-                              splits, is_bf16, stream);
+  return dtp::dispatch<dtp::kSame>(x, w, bias, out, partial, B, H, W, Cin,
+                                   Cout, splits, is_bf16, stream);
 }
 
 // x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,),
@@ -545,8 +595,8 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3(const void* x, const void* w16,
                                               int W, int Cin, int Cout,
                                               int splits, int is_bf16,
                                               void* stream) {
-  return dtp::dispatch<true>(x, w16, bias, out, partial, B, H, W, Cin, Cout,
-                             splits, is_bf16, stream);
+  return dtp::dispatch<dtp::kUp>(x, w16, bias, out, partial, B, H, W, Cin,
+                                 Cout, splits, is_bf16, stream);
 }
 
 // K1/K5: x (B,H,W,Cin); a, c (B,Cin) folded GroupNorm affine, or both null
@@ -565,9 +615,10 @@ extern "C" cudaError_t dtp_gn_conv3x3(const void* x, const void* a,
                                       int Cin, int Cout, int w_tap,
                                       int splits, int want_stats,
                                       int is_bf16, void* stream) {
-  return dtp::dispatch_fused<false>(x, a, c, w, bias, residual, out, partial,
-                                    ws, stats, B, H, W, Cin, Cout, w_tap,
-                                    splits, want_stats, is_bf16, stream);
+  return dtp::dispatch_fused<dtp::kSame>(x, a, c, w, bias, residual, out,
+                                         partial, ws, stats, B, H, W, Cin,
+                                         Cout, w_tap, splits, want_stats,
+                                         is_bf16, stream);
 }
 
 // K6: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,) or null,
@@ -577,8 +628,23 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3_stats(
     const void* x, const void* w16, const void* bias, void* out,
     void* partial, void* ws, void* stats, int B, int H, int W, int Cin,
     int Cout, int splits, int want_stats, int is_bf16, void* stream) {
-  return dtp::dispatch_fused<true>(x, nullptr, nullptr, w16, bias, nullptr,
-                                   out, partial, ws, stats, B, H, W, Cin,
-                                   Cout, (long long)Cin * Cout, splits,
-                                   want_stats, is_bf16, stream);
+  return dtp::dispatch_fused<dtp::kUp>(x, nullptr, nullptr, w16, bias,
+                                       nullptr, out, partial, ws, stats, B,
+                                       H, W, Cin, Cout,
+                                       (long long)Cin * Cout, splits,
+                                       want_stats, is_bf16, stream);
+}
+
+// K9: x (B,H,W,Cin) with H, W >= 2, w (3,3,Cin,Cout), bias (Cout,) or null,
+// out (B,H/2,W/2,Cout); workspaces as for dtp_gn_conv3x3 with the output's
+// (H/2)*(W/2) rows per image.
+extern "C" cudaError_t dtp_downsample_conv3x3_stats(
+    const void* x, const void* w, const void* bias, void* out,
+    void* partial, void* ws, void* stats, int B, int H, int W, int Cin,
+    int Cout, int splits, int want_stats, int is_bf16, void* stream) {
+  return dtp::dispatch_fused<dtp::kDown>(x, nullptr, nullptr, w, bias,
+                                         nullptr, out, partial, ws, stats,
+                                         B, H, W, Cin, Cout,
+                                         (long long)Cin * Cout, splits,
+                                         want_stats, is_bf16, stream);
 }

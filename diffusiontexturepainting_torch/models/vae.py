@@ -3,7 +3,9 @@
 Port of diffusiontexturepainting_tpu/models/vae.py: the module path and
 the fused serving path (fused_encode / fused_decode: every resnet conv and
 both output heads as chained GroupNorm-prologue / statistics-epilogue convs,
-kernel K5; the decoder's upsamples with statistics, K6), chosen by
+kernel K5; the encoder's stride-2 downsamples with statistics, K9; the
+decoder's upsamples with statistics, K6; the other GroupNorm statistics,
+K14), chosen by
 `fused` on VAEEncoder / VAEDecoder over the same parameters. Names follow
 diffusers' AutoencoderKL (encoder.*, quant_conv, post_quant_conv,
 decoder.*), so the state_dicts convert with weights/convert.py.
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 
 from ..core.config import VAEConfig
 from ..ops.gn_conv import (
+    downconv_stream,
     gn_affine_from_stats,
     gn_conv_stream,
     stats_of,
@@ -181,9 +184,11 @@ def latent_mode(moments):
 # The same modules' parameters executed as a chain of fused convs: every
 # conv emits the (sum, sumsq) statistics of its output, and the next
 # GroupNorm folds into a per-(B, C) affine applied in the next conv's
-# prologue, so no GroupNorm makes a pass of its own over a large tensor.
-# The RGB stem, the stride-2 downsamples and the 1x1 convs stay plain
-# PyTorch, as the JAX package leaves them to XLA.
+# prologue. The encoder's stride-2 downsamples are fused convs too (K9,
+# whose TPU kernel Mosaic could not lower), so every level hands the next
+# its statistics; only the stem's and the mid blocks' inputs take a
+# statistics pass (K14). The RGB stem, the decoder's conv_in and the 1x1
+# convs stay plain PyTorch, as the JAX package leaves them to XLA.
 
 
 def _bias_round(y, bias, dt):
@@ -191,10 +196,11 @@ def _bias_round(y, bias, dt):
     return (y.float() + bias.float()).to(dt)
 
 
-def _conv(x, conv, stride=1, padding=1):
-    """A plain conv (ConvNHWC's weight) in x's dtype, bias added in fp32."""
+def _conv(x, conv):
+    """A plain 3x3 SAME conv (ConvNHWC's weight) in x's dtype, bias added
+    in fp32."""
     y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.permute(3, 2, 0, 1),
-                 None, stride, padding)
+                 None, 1, 1)
     return _bias_round(y.permute(0, 2, 3, 1), conv.bias, x.dtype)
 
 
@@ -261,10 +267,9 @@ def fused_encode(vae: VAEEncoder, images):
         for res in level.resnets:
             h, stats = _fused_resnet(res, h, stats)
         if hasattr(level, "downsamplers"):
-            # the SD encoder's asymmetric (0, 1) padding
-            h = _conv(F.pad(h, (0, 0, 0, 1, 0, 1)),
-                      level.downsamplers[0].conv, stride=2, padding=0)
-            stats = stats_of(h)
+            # the SD encoder's asymmetric (0, 1) padding, in the kernel
+            conv = level.downsamplers[0].conv
+            h, stats = downconv_stream(h, conv.weight, conv.bias, True)
     h, stats = _fused_mid(enc.mid_block, h, stats)
     h = _fused_norm_silu_conv(enc.conv_norm_out, enc.conv_out, h, stats)
     return _dense1x1(h, vae.quant_conv).float()

@@ -1,5 +1,6 @@
 """Chained GroupNorm -> SiLU -> 3x3 conv with residual and statistics
-epilogues, and the x2-upsample conv with statistics, NHWC.
+epilogues, and the x2-upsample and stride-2 downsample convs with
+statistics, NHWC.
 
 Port of diffusiontexturepainting_tpu/ops/gn_conv_stream.py (and of
 ops/conv3x3.py gn_conv_resident, which computes the same function). Each
@@ -21,25 +22,33 @@ launches the kernel or raises:
                     heads; the same CUDA mode as K1, counted apart
   upconv_stream     kernel K6 (replaces gn_conv_stream.py
                     _upconv_stream_pallas / _upconv_stream_kernel)
+  downconv_stream   kernel K9 (replaces gn_conv_stream.py
+                    _downconv_stream_pallas / _downconv_kernel), the VAE
+                    encoder's level transitions; the conv family's stride-2
+                    mode
 
 Statistics are (B, 2, C) fp32: row 0 the sum, row 1 the sum of squares over
 the spatial axes (the TPU's 8-row padding is a sublane minimum and is not
-kept).
+kept). stats_of takes them of a tensor no conv produced, through kernel K14
+(ops/groupnorm.py) on CUDA.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _cuda
 from .conv3x3 import _KERNEL_DTYPES, _SPLIT_ARGTYPES, conv3x3_plain
+from .groupnorm import spatial_moments, spatial_moments_plain
 
 gn_conv_resident_launches = _cuda.LaunchCounter("gn_conv_resident")
 gn_conv_stream_launches = _cuda.LaunchCounter("gn_conv_stream")
 upconv_stream_launches = _cuda.LaunchCounter("upconv_stream")
+downconv_stream_launches = _cuda.LaunchCounter("downsample_conv3x3_stats")
 
 _GN_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9
                 + (ctypes.c_void_p,))
@@ -50,10 +59,14 @@ _UP_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
 # --- GroupNorm statistics algebra (fp32) ---
 
 
+@functools.cache
 def group_matrix(channels: int, num_groups: int, device=None):
-    """(C, G) one-hot channel -> group matrix, fp32."""
-    return torch.repeat_interleave(
-        torch.eye(num_groups, device=device), channels // num_groups, dim=0)
+    """(C, G) one-hot channel -> group matrix, fp32: a constant, built once
+    per (C, G, device), so a GroupNorm fold issues no operation for it."""
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return torch.repeat_interleave(
+            torch.eye(num_groups, device=device), channels // num_groups,
+            dim=0)
 
 
 def gn_affine_from_stats(stats, scale, bias, num_groups: int,
@@ -73,10 +86,9 @@ def gn_affine_from_stats(stats, scale, bias, num_groups: int,
 
 def stats_of(x):
     """(B, 2, C) fp32 (sum, sumsq) over the spatial axes of an NHWC tensor,
-    for a layer input that did not come from a conv's epilogue."""
-    xf = x.float()
-    dims = tuple(range(1, x.dim() - 1))
-    return torch.stack([xf.sum(dims), xf.square().sum(dims)], dim=1)
+    for a layer input that did not come from a conv's epilogue (kernel K14
+    on CUDA)."""
+    return spatial_moments(x)
 
 
 def shift_stats_for_temb(stats, temb, n_spatial: int):
@@ -111,7 +123,7 @@ def gn_conv3x3_plain(x, a, c, w, b, residual=None, want_stats=True,
     y = conv3x3_plain(v, w, bias)
     if residual is not None:
         y = y + residual
-    return y, (stats_of(y) if want_stats else None)
+    return y, (spatial_moments_plain(y) if want_stats else None)
 
 
 def upconv_stream_plain(x, w, b, want_stats=True):
@@ -121,11 +133,28 @@ def upconv_stream_plain(x, w, b, want_stats=True):
     kernel)."""
     up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     y = F.conv2d(up.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
-    y = y.permute(0, 2, 3, 1).float()
+    return _bias_stats_round(y, b, x.dtype, want_stats)
+
+
+def downconv_stream_plain(x, w, b, want_stats=True):
+    """3x3 stride-2 conv over x padded by one zero row below and one zero
+    column to the right, + b, with fp32 statistics of the output before its
+    rounding to x's dtype: (out (B,H/2,W/2,Cout), stats or None) (port of
+    _downconv_reference; in bf16 the conv rounds before the bias add, one
+    rounding more than the kernel)."""
+    xp = F.pad(x, (0, 0, 0, 1, 0, 1))
+    y = F.conv2d(xp.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=2)
+    return _bias_stats_round(y, b, x.dtype, want_stats)
+
+
+def _bias_stats_round(y_nchw, b, dtype, want_stats):
+    """The plain resampling convs' epilogue: + b in fp32, statistics of
+    that, then the rounding to `dtype`."""
+    y = y_nchw.permute(0, 2, 3, 1).float()
     if b is not None:
         y = y + b.float()
-    stats = stats_of(y) if want_stats else None
-    return y.to(x.dtype).contiguous(), stats
+    stats = spatial_moments_plain(y) if want_stats else None
+    return y.to(dtype).contiguous(), stats
 
 
 # --- kernels ---
@@ -267,4 +296,36 @@ def upconv_stream(x, w, b, taps, want_stats=True):
     _cuda.check("conv3x3", "dtp_upsample2x_conv3x3_stats", code)
     upconv_stream_launches.record((tuple(x.shape), (3, 3, cin, cout),
                                    bool(want_stats)))
+    return out, stats
+
+
+def downconv_stream(x, w, b, want_stats=True):
+    """The VAE encoder's level transition: 3x3 stride-2 conv with the
+    (0,1),(0,1) pad + b, and fp32 statistics of the pre-rounding output:
+    (out (B,H/2,W/2,Cout), stats or None); kernel K9 on CUDA."""
+    if x.device.type == "cpu":
+        return downconv_stream_plain(x, w, b, want_stats)
+    _check("downconv_stream", x, w, (3, 3), b)
+    B, H, W, cin = x.shape
+    cout = w.shape[-1]
+    if H < 2 or W < 2:
+        raise ValueError(f"downconv_stream: input {tuple(x.shape)} has no "
+                         "stride-2 output")
+    if b is not None and (b.shape != (cout,) or b.dtype != x.dtype):
+        raise ValueError(f"downconv_stream: bias {tuple(b.shape)} {b.dtype}")
+    out = torch.empty((B, H // 2, W // 2, cout), dtype=x.dtype,
+                      device=x.device)
+    bf16 = int(x.dtype == torch.bfloat16)
+    splits = _cuda.function("conv3x3", "dtp_downsample_conv3x3_splits",
+                            _SPLIT_ARGTYPES)(B, H, W, cin, cout, bf16)
+    partial, ws, stats = _workspaces(x, out, splits, want_stats,
+                                     (H // 2) * (W // 2))
+    fn = _cuda.function("conv3x3", "dtp_downsample_conv3x3_stats",
+                        _UP_ARGTYPES)
+    code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
+              _ptr(partial), _ptr(ws), _ptr(stats), B, H, W, cin, cout,
+              splits, int(want_stats), bf16, _cuda.stream_of(x))
+    _cuda.check("conv3x3", "dtp_downsample_conv3x3_stats", code)
+    downconv_stream_launches.record((tuple(x.shape), tuple(w.shape),
+                                     bool(want_stats)))
     return out, stats

@@ -37,8 +37,14 @@ def dilate_square(mask, pad):
     """Binary dilation of a (..., H, W, C) nonnegative mask by a pad x pad
     square; pad (int or 0-d tensor) <= 1 is a no-op. Returns a 0/1 mask of
     the same shape and dtype."""
-    pad = torch.clamp(torch.as_tensor(pad, dtype=torch.int64,
-                                      device=mask.device), min=1)
+    if isinstance(pad, torch.Tensor):
+        pad = torch.clamp(pad.to(device=mask.device, dtype=torch.int64),
+                          min=1)
+    else:
+        # a host integer stays on the host: copying it to the device would
+        # make the caller wait for the stream (a stroke session's stamps
+        # are enqueued without waiting)
+        pad = max(1, int(pad))
     out = _window_any_1d(mask, pad, dim=mask.dim() - 3)
     return _window_any_1d(out, pad, dim=mask.dim() - 2)
 

@@ -5,8 +5,14 @@ DDIM stamp path: `resolution`, `set_brush`, `generate_raw`, `generate`,
 `generate_u8` and `create_preview_brush_context`, with the same
 wire-settings parsing, so it answers the port's request handler
 (serving/wire.py) and its server (serving/server.py). A stamp runs at its
-canvas's size (256, 512 or 1024 px). Stroke sessions are not ported yet:
-their methods raise.
+canvas's size (256, 512 or 1024 px).
+
+Stroke sessions (`begin_session`, `stamp_at`, `erase_at`, `fetch_canvas`,
+`sync_session`, `end_session`; pipeline/session.py) keep the canvas on the
+device as a (H, W, 4) uint8 tensor, stamps of the model's resolution. Each
+STAMP_AT is dispatched eagerly; without pixels it returns before the stamp
+has run, and only fetch_canvas, sync_session and the pixel-returning
+requests wait for the device.
 
 The configuration's fused_* switches choose the UNet's and the VAE's
 serving legs: by default, as in the JAX package, the fused kernels (K1,
@@ -42,9 +48,16 @@ from ..serving.model_base import (
     crop_resize_square,
     ensure_float01,
     preview_brush_context,
+    validate_session_canvas,
 )
 from ..weights.random_init import init_pipeline
 from .inpaint import make_stamp_fn
+from .session import (
+    erase_keep,
+    overpaint_margin,
+    session_erase,
+    session_stamp,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -86,6 +99,8 @@ class TorchConditionalInpainter:
         self.patch_encoder = models["patch_encoder"]
         self._stamp_fns = {}
         self.request_counter = 0
+        self._session_canvas = None
+        self._erase_keep = None
         # neutral brush, so a stamp before set_brush is served
         self.set_brush(np.full((self._resolution, self._resolution, 3), 0.5,
                                np.float32))
@@ -143,6 +158,10 @@ class TorchConditionalInpainter:
                                    device=self.device)
         return enc_noise, init_latents
 
+    def _next_counter(self) -> int:
+        self.request_counter += 1
+        return self.request_counter
+
     def _run_stamp(self, canvas: np.ndarray, **settings):
         """One stamp; returns (raw_u8, composited_u8) as (H, W, 3) numpy."""
         if canvas.dtype == np.uint8:
@@ -155,8 +174,7 @@ class TorchConditionalInpainter:
         if brush.shape[1] != res:
             brush = torch.from_numpy(crop_resize_square(
                 self.image, res).astype(np.float32)[None]).to(self.device)
-        self.request_counter += 1
-        enc_noise, init_latents = self.draws(self.request_counter, res)
+        enc_noise, init_latents = self.draws(self._next_counter(), res)
         canvas_t = torch.from_numpy(np.array(canvas_u8))[None].to(self.device)
         raw, comp = self._stamp_fn(steps)(
             canvas_t, brush, self._cond, self._uncond, enc_noise,
@@ -183,14 +201,64 @@ class TorchConditionalInpainter:
         quadrant."""
         return preview_brush_context(brush_image, self._resolution)
 
-    # --- stroke sessions: not ported yet ---
+    # --- stroke sessions: the canvas on the device ---
+    # Every method that writes the canvas runs under inference_mode: the
+    # canvas is an inference tensor, which refuses in-place writes outside.
+
+    @torch.inference_mode()
+    def begin_session(self, canvas_u8: np.ndarray) -> None:
+        canvas_u8 = validate_session_canvas(canvas_u8, self._resolution)
+        self._session_canvas = torch.from_numpy(np.array(canvas_u8)).to(
+            self.device)
 
     def session_active(self) -> bool:
-        return False
+        return self._session_canvas is not None
 
-    def _no_sessions(self, *args, **kwargs):
-        raise NotImplementedError(
-            "stroke sessions are not ported to the PyTorch package yet")
+    @torch.inference_mode()
+    def stamp_at(self, x0: int, y0: int, return_pixels: bool = True,
+                 overpaint: bool = False, **settings):
+        """One stamp into the resident canvas with its window's top-left
+        corner at (x0, y0), clamped to fit; it takes the next request
+        counter, so its draws are those of the per-request path at that
+        counter. Returns the composited crop (res, res, 3) uint8 when
+        return_pixels, else None without waiting for the device."""
+        canvas = self._require_session()
+        steps, cfg_w, tg_w, tg_steps, pad = self._settings(settings)
+        res = self._resolution
+        margin = overpaint_margin(res) if overpaint else 0
+        enc_noise, init_latents = self.draws(self._next_counter(), res)
+        comp = session_stamp(self._stamp_fn(steps), canvas, self._brush,
+                             self._cond, self._uncond, enc_noise,
+                             init_latents, x0, y0, cfg_w, tg_w, tg_steps,
+                             pad, margin)
+        return comp.cpu().numpy() if return_pixels else None
 
-    begin_session = stamp_at = erase_at = fetch_canvas = sync_session = \
-        end_session = _no_sessions
+    @torch.inference_mode()
+    def erase_at(self, x0: int, y0: int, return_pixels: bool = True):
+        """Zero RGBA under the erase circle of the window at (x0, y0);
+        returns the window's RGB after it when return_pixels."""
+        canvas = self._require_session()
+        if self._erase_keep is None:
+            self._erase_keep = erase_keep(self._resolution, self.device)
+        crop = session_erase(canvas, self._erase_keep, x0, y0)
+        return crop.cpu().numpy() if return_pixels else None
+
+    def fetch_canvas(self) -> np.ndarray:
+        """Waits for every queued stamp and downloads the canvas (a copy,
+        also on the CPU)."""
+        return np.array(self._require_session().cpu())
+
+    def sync_session(self) -> None:
+        """Waits for every queued stamp, downloading nothing."""
+        canvas = self._require_session()
+        if canvas.device.type == "cuda":
+            torch.cuda.current_stream(canvas.device).synchronize()
+
+    def end_session(self) -> None:
+        self._session_canvas = None
+
+    def _require_session(self):
+        if self._session_canvas is None:
+            raise RuntimeError("no active stroke session (BEGIN_SESSION "
+                               "first)")
+        return self._session_canvas

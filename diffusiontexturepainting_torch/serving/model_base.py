@@ -56,3 +56,16 @@ def crop_resize_square(image: np.ndarray, width: int) -> np.ndarray:
     if image.dtype == np.uint8:
         return float01_to_uint8(out)
     return out.astype(image.dtype)
+
+
+def validate_session_canvas(canvas_u8: np.ndarray, res: int) -> np.ndarray:
+    """A stroke session's canvas: (H, W, 4) uint8 RGBA, at least res^2."""
+    canvas_u8 = np.asarray(canvas_u8)
+    if canvas_u8.dtype != np.uint8 or canvas_u8.ndim != 3 \
+            or canvas_u8.shape[2] != 4:
+        raise ValueError("session canvas must be (H, W, 4) uint8 RGBA")
+    if canvas_u8.shape[0] < res or canvas_u8.shape[1] < res:
+        raise ValueError(
+            f"session canvas {canvas_u8.shape[:2]} smaller than the "
+            f"stamp window {res}x{res}")
+    return canvas_u8

@@ -5,12 +5,19 @@ Byte for byte the layout of the JAX package's serving/server_io.py
 handlers equal), little-endian:
 
   request   [u8 type][u8 steps][u8 context_pad][u8 tg_steps][u16 width]
-            [f32 cfg_weight][f32 tg_weight] + image
-  response  [u8 type] + image
+            [f32 cfg_weight][f32 tg_weight] + payload
+  response  [u8 type] + payload
   image     [i32 width][i32 height][i32 channels][u8 pixels, HWC]
 
-`handle_request_bytes` answers NEW_BRUSH_IMAGE (a brush preview) and
-NEW_STAMP, in the order of the JAX package's serving/handler.py.
+Stroke sessions (types 16-23) carry after the settings header: an RGBA
+canvas image (BEGIN_SESSION), [i32 x0][i32 y0][u8 flags] (STAMP_AT and
+ERASE_AT; flag 1 return pixels, flag 2 overpaint) or nothing (FETCH_CANVAS,
+END_SESSION). Their replies: RETURN_ACK [u32 seq], RETURN_CANVAS + image,
+RETURN_STAMP + image, or RETURN_ERROR [u32 length][utf-8 message].
+
+`handle_request_bytes` answers NEW_BRUSH_IMAGE (a brush preview),
+NEW_STAMP and the session requests, in the order of the JAX package's
+serving/handler.py.
 """
 
 from __future__ import annotations
@@ -26,6 +33,12 @@ _TYPE = struct.Struct("<B")
 _SETTINGS = struct.Struct("<BBBHff")  # steps, context_pad, tg_steps, width,
 #                                       cfg_weight, tg_weight
 _IMAGE = struct.Struct("<iii")  # width, height, channels
+_COORDS = struct.Struct("<iiB")  # x0, y0, flags
+_U32 = struct.Struct("<I")
+
+COORDS_FLAG_RETURN_PIXELS = 1
+COORDS_FLAG_OVERPAINT = 2
+_ERROR_BYTES = 4096  # a RETURN_ERROR message is cut to this
 
 
 class RequestType(enum.IntEnum):
@@ -33,6 +46,18 @@ class RequestType(enum.IntEnum):
     NEW_STAMP = 2
     RETURN_PREVIEW = 3
     RETURN_STAMP = 4
+    BEGIN_SESSION = 16  # canvas -> RETURN_ACK 0
+    STAMP_AT = 17  # coords -> RETURN_STAMP, or RETURN_ACK without pixels
+    ERASE_AT = 18  # coords -> RETURN_STAMP, or RETURN_ACK without pixels
+    FETCH_CANVAS = 19  # -> RETURN_CANVAS
+    END_SESSION = 20  # -> RETURN_ACK
+    RETURN_ACK = 21
+    RETURN_CANVAS = 22
+    RETURN_ERROR = 23
+
+
+def is_session_request(kind: int) -> bool:
+    return RequestType.BEGIN_SESSION <= kind <= RequestType.END_SESSION
 
 
 def _image_bytes(image: np.ndarray) -> bytes:
@@ -49,26 +74,99 @@ def _image_at(raw: bytes, offset: int) -> np.ndarray:
                          offset=offset + _IMAGE.size).reshape(h, w, c)
 
 
-def encode_request(kind: RequestType, image: np.ndarray, steps: int = 20,
-                   width: int = 256, context_pad: int = 150,
-                   cfg_weight: float = 2.0, tg_weight: float = 0.0,
-                   tg_steps: int = 0) -> bytes:
-    """A full request: type, settings header, image."""
+def _header(kind: RequestType, steps: int = 20, width: int = 256,
+            context_pad: int = 150, cfg_weight: float = 2.0,
+            tg_weight: float = 0.0, tg_steps: int = 0) -> bytes:
+    """Type and settings header."""
     return (_TYPE.pack(kind)
             + _SETTINGS.pack(int(steps) & 0xFF, int(context_pad) & 0xFF,
                              int(tg_steps) & 0xFF, int(width) & 0xFFFF,
-                             float(cfg_weight), float(tg_weight))
-            + _image_bytes(image))
+                             float(cfg_weight), float(tg_weight)))
 
 
-def decode_request(raw: bytes):
-    """-> (type, settings dict, image view of `raw`)."""
+def encode_request(kind: RequestType, image: np.ndarray,
+                   **settings) -> bytes:
+    """A full request: type, settings header, image."""
+    return _header(kind, **settings) + _image_bytes(image)
+
+
+def _decode_header(raw: bytes):
+    """-> (type, settings dict, offset of the payload)."""
     (kind,) = _TYPE.unpack_from(raw, 0)
     steps, context_pad, tg_steps, width, cfg_weight, tg_weight = \
         _SETTINGS.unpack_from(raw, _TYPE.size)
     settings = dict(steps=steps, context_pad=context_pad, tg_steps=tg_steps,
                     width=width, cfg_weight=cfg_weight, tg_weight=tg_weight)
-    return kind, settings, _image_at(raw, _TYPE.size + _SETTINGS.size)
+    return kind, settings, _TYPE.size + _SETTINGS.size
+
+
+def decode_request(raw: bytes):
+    """-> (type, settings dict, image view of `raw`)."""
+    kind, settings, offset = _decode_header(raw)
+    return kind, settings, _image_at(raw, offset)
+
+
+# --- stroke sessions ---
+
+
+def encode_coords(x0: int, y0: int, return_pixels: bool = True,
+                  overpaint: bool = False) -> bytes:
+    flags = ((COORDS_FLAG_RETURN_PIXELS if return_pixels else 0)
+             | (COORDS_FLAG_OVERPAINT if overpaint else 0))
+    return _COORDS.pack(int(x0), int(y0), flags)
+
+
+def decode_coords(raw: bytes, offset: int) -> dict:
+    x0, y0, flags = _COORDS.unpack_from(raw, offset)
+    return dict(x0=x0, y0=y0,
+                return_pixels=bool(flags & COORDS_FLAG_RETURN_PIXELS),
+                overpaint=bool(flags & COORDS_FLAG_OVERPAINT))
+
+
+def encode_begin_session(canvas: np.ndarray, **settings) -> bytes:
+    return encode_request(RequestType.BEGIN_SESSION, canvas, **settings)
+
+
+def encode_stamp_at(x0: int, y0: int, return_pixels: bool = True,
+                    overpaint: bool = False, **settings) -> bytes:
+    return (_header(RequestType.STAMP_AT, **settings)
+            + encode_coords(x0, y0, return_pixels, overpaint))
+
+
+def encode_erase_at(x0: int, y0: int, return_pixels: bool = True) -> bytes:
+    return (_header(RequestType.ERASE_AT)
+            + encode_coords(x0, y0, return_pixels))
+
+
+def encode_fetch_canvas() -> bytes:
+    return _header(RequestType.FETCH_CANVAS)
+
+
+def encode_end_session() -> bytes:
+    return _header(RequestType.END_SESSION)
+
+
+def encode_ack(seq: int) -> bytes:
+    return _TYPE.pack(RequestType.RETURN_ACK) + _U32.pack(int(seq)
+                                                          & 0xFFFFFFFF)
+
+
+def decode_ack(raw: bytes) -> tuple[int, int]:
+    """-> (type, seq)."""
+    return _TYPE.unpack_from(raw, 0)[0], _U32.unpack_from(raw, _TYPE.size)[0]
+
+
+def encode_error(message: str) -> bytes:
+    data = str(message).encode("utf-8")[:_ERROR_BYTES]
+    return _TYPE.pack(RequestType.RETURN_ERROR) + _U32.pack(len(data)) + data
+
+
+def decode_error(raw: bytes) -> tuple[int, str]:
+    """-> (type, message)."""
+    (length,) = _U32.unpack_from(raw, _TYPE.size)
+    start = _TYPE.size + _U32.size
+    return (_TYPE.unpack_from(raw, 0)[0],
+            bytes(raw[start:start + length]).decode("utf-8", "replace"))
 
 
 def encode_response(kind: RequestType, image: np.ndarray) -> bytes:
@@ -80,8 +178,46 @@ def decode_response(raw: bytes):
     return _TYPE.unpack_from(raw, 0)[0], _image_at(raw, _TYPE.size)
 
 
+def _next_session_seq(model) -> int:
+    model._session_seq = getattr(model, "_session_seq", 0) + 1
+    return model._session_seq
+
+
+def handle_session_request(model, raw: bytes) -> bytes:
+    """One stroke-session request (is_session_request) -> its reply. A
+    STAMP_AT or ERASE_AT without pixels replies RETURN_ACK with the next
+    sequence number as soon as the model has dispatched it; BEGIN_SESSION
+    restarts the sequence at 0."""
+    R = RequestType
+    kind, settings, offset = _decode_header(raw)
+    if kind == R.BEGIN_SESSION:
+        model.begin_session(_image_at(raw, offset))
+        model._session_seq = 0
+        return encode_ack(0)
+    if kind in (R.STAMP_AT, R.ERASE_AT):
+        coords = decode_coords(raw, offset)
+        if kind == R.STAMP_AT:
+            crop = model.stamp_at(coords["x0"], coords["y0"],
+                                  return_pixels=coords["return_pixels"],
+                                  overpaint=coords["overpaint"], **settings)
+        else:
+            crop = model.erase_at(coords["x0"], coords["y0"],
+                                  return_pixels=coords["return_pixels"])
+        if coords["return_pixels"]:
+            return encode_response(R.RETURN_STAMP, np.asarray(crop))
+        return encode_ack(_next_session_seq(model))
+    if kind == R.FETCH_CANVAS:
+        return encode_response(R.RETURN_CANVAS, model.fetch_canvas())
+    if kind == R.END_SESSION:
+        model.end_session()
+        return encode_ack(_next_session_seq(model))
+    raise ValueError(f"request type {kind} is not a session request")
+
+
 def handle_request_bytes(model, raw: bytes) -> bytes:
     """Decode one request, run the model, return the encoded reply."""
+    if is_session_request(raw[0]):
+        return handle_session_request(model, raw)
     kind, settings, image = decode_request(raw)
     if kind == RequestType.NEW_BRUSH_IMAGE:
         model.set_brush(image[..., :3])

@@ -25,6 +25,10 @@ CASES = {
     "flash_attention_streaming": ((2, 1100, 320), (2, 1100, 320), 8),
     # views of one fused projection, hd off the 16-lane tiles
     "flash_attention_slotted": ((2, 384, 512), 4, 36),
+    # odd sizes: the stride-2 conv drops the last row and column
+    "downsample_conv3x3_stats": ((2, 7, 9, 24), (3, 3, 24, 136), True),
+    # channels off the 16-byte groups: the kernel's scalar path
+    "spatial_moments": ((2, 9, 7, 40),),
 }
 
 
@@ -74,3 +78,15 @@ def test_gn_conv_reads_a_weight_slice_in_place(dtype):
     assert (got.float() - want.float()).abs().max().item() <= rel * peak
     scale = want.float().abs().sum((1, 2)).max().item()
     assert (got_st - want_st).abs()[:, 0].max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 4, 4, 1280), (2, 64, 64, 128)])
+def test_spatial_moments_is_deterministic(shape):
+    """K14 reduces in a fixed order: two calls give the same bits."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import groupnorm
+
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    first = groupnorm.spatial_moments(x)
+    assert torch.equal(first, groupnorm.spatial_moments(x))

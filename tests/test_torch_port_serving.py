@@ -1,6 +1,7 @@
 """The port's serving model behind its own server and request handler
 (answering as the JAX package's handler does), and the rule that the port
-imports neither JAX, nor the JAX package, nor tornado."""
+imports neither JAX, nor the JAX package, nor tornado, nor Pillow (the
+card's machine has none of them)."""
 
 import json
 import subprocess
@@ -38,14 +39,14 @@ SETTINGS = dict(steps=4, width=RES, cfg_weight=2.0, tg_weight=1.0,
 
 def test_port_imports_without_jax():
     """Every module of the package imports in a fresh interpreter without
-    pulling in jax or any module of the JAX package."""
+    pulling in jax, any module of the JAX package, tornado or PIL."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import diffusiontexturepainting_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'diffusiontexturepainting_tpu', 'tornado')]\n"
+        "       ('jax', 'diffusiontexturepainting_tpu', 'tornado', 'PIL')]\n"
         "assert not bad, bad\n"
         "for m in ('serving.server', 'serving.run'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
@@ -186,8 +187,17 @@ def test_port_handler_matches_jax_handler(model):
 
 
 def test_sessions_raise_not_implemented(model):
+    """Session requests the model does not serve raise: a stamp, an erase
+    or a fetch with no session begun, and a canvas that is not (H, W, 4)
+    uint8 of at least the stamp's size."""
     assert not model.session_active()
-    with pytest.raises(NotImplementedError):
-        model.begin_session(np.zeros((RES, RES, 4), np.uint8))
-    with pytest.raises(NotImplementedError):
-        model.stamp_at(0, 0)
+    for call in (lambda: model.stamp_at(0, 0), lambda: model.erase_at(0, 0),
+                 model.fetch_canvas, model.sync_session):
+        with pytest.raises(RuntimeError, match="no active stroke session"):
+            call()
+    for bad in (np.zeros((RES, RES, 3), np.uint8),
+                np.zeros((RES - 1, 2 * RES, 4), np.uint8),
+                np.zeros((RES, RES, 4), np.float32)):
+        with pytest.raises(ValueError):
+            model.begin_session(bad)
+    assert not model.session_active()
