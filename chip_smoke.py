@@ -24,6 +24,17 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                legs only), built from the default model's state_dict, at
                4 DDIM steps; then the first stamps of the two
                configurations at equal steps, compared in u8;
+  5b. twin_inpad
+               the twin again with the port's _IN_PAD switch set (the
+               in-kernel-padding kernels K12a/b take every call of K7/K4),
+               as phase 4; its first stamp against the twin's;
+  5c. resnet_bodies
+               the 22 resnets of one UNet eval of the twin at 256^2 (batch
+               3, their inputs captured from the module legs), each as two
+               gn_silu_conv3x3 calls (K10), held against the module leg in
+               bf16 and fp32; and K11 (conv3x3_stream) as often as the twin
+               ran K7, at each of its K7 shapes that pass the JAX package's
+               streaming_plan shape test;
   6. server    the port's server (serving/server.py) on loopback around
                the default model: GET /health, then a NEW_BRUSH_IMAGE and a
                NEW_STAMP over a websocket, each reply byte-equal to the
@@ -112,6 +123,10 @@ SOURCES = {
     "flash_attention_slotted": "csrc/flash_attention.cu",
     "downsample_conv3x3_stats": "csrc/conv3x3.cu",
     "spatial_moments": "csrc/moments.cu",
+    "conv3x3_inpad": "csrc/conv_staged.cu",
+    "upsample2x_conv3x3_inpad": "csrc/conv_staged.cu",
+    "conv3x3_stream": "csrc/conv_staged.cu",
+    "gn_silu_conv3x3": "csrc/conv_staged.cu",
 }
 REPLACES = {
     "conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:162",
@@ -128,6 +143,11 @@ REPLACES = {
     "downsample_conv3x3_stats":
         "diffusiontexturepainting_tpu/ops/gn_conv_stream.py:1007",
     "spatial_moments": "diffusiontexturepainting_tpu/ops/groupnorm.py:42",
+    "conv3x3_inpad": "diffusiontexturepainting_tpu/ops/conv3x3.py:184",
+    "upsample2x_conv3x3_inpad":
+        "diffusiontexturepainting_tpu/ops/conv3x3.py:726",
+    "conv3x3_stream": "diffusiontexturepainting_tpu/ops/conv3x3.py:956",
+    "gn_silu_conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:486",
 }
 # What the library yardstick of a kernel computes, where it is not the
 # kernel's whole function.
@@ -141,7 +161,32 @@ LIBRARY_IS = {
 # The path each kernel's times are reported for; any other kernel: the
 # default path.
 REPORTED_ON = {"conv3x3": "twin", "flash_attention_streaming": "envelope",
-               "flash_attention_slotted": "slotted"}
+               "flash_attention_slotted": "slotted",
+               "conv3x3_inpad": "twin_inpad",
+               "upsample2x_conv3x3_inpad": "twin_inpad",
+               "conv3x3_stream": "resnet_bodies",
+               "gn_silu_conv3x3": "resnet_bodies"}
+# What a kernel's "ms" sums, where it is not one stamp of its path.
+MS_IS = {
+    "conv3x3_stream": "bf16 kernel time per stamp of the safe twin's K7 "
+                      "calls that pass streaming_plan's shape test, at "
+                      "256^2, summed over their shapes",
+    "gn_silu_conv3x3": "bf16 kernel time of the 22 resnet bodies of one "
+                       "UNet eval at 256^2 (batch 3), two calls each, "
+                       "summed over their shapes",
+}
+# The member of the conv family that computes the same function at the
+# same shapes, timed beside each staged-tile kernel.
+FAMILY_IS = {
+    "conv3x3_inpad": "K7 (conv3x3, _IN_PAD off)",
+    "conv3x3_stream": "K7 (conv3x3, _IN_PAD off)",
+    "upsample2x_conv3x3_inpad": "K4 (upsample2x_conv3x3, _IN_PAD off)",
+    "gn_silu_conv3x3": "K14 + gn_affine_from_stats + K1 (gn_conv_resident "
+                       "with the residual; the time embedding not added)",
+}
+# The JAX package's streaming_plan shape test (ops/conv3x3.py:942), without
+# its VMEM budget: H >= 8, W >= 2, Cin >= 16, Cout >= 128.
+STREAM_MIN = (8, 2, 16, 128)
 
 
 def log(*parts):
@@ -163,14 +208,24 @@ def counters():
             ff_geglu.ff_geglu_launches, attention.flash_streaming_launches,
             attention.flash_slotted_launches,
             gn_conv.downconv_stream_launches,
-            groupnorm.spatial_moments_launches]
+            groupnorm.spatial_moments_launches,
+            conv3x3.conv3x3_inpad_launches, conv3x3.upsample_inpad_launches,
+            conv3x3.conv3x3_stream_launches,
+            conv3x3.gn_silu_conv3x3_launches]
 
 
 def kernel_case(kind, shape_key, dtype, gen):
     """Seeded inputs at `shape_key`; returns zero-argument callables
-    (kernel, plain, library) over the same inputs, library being the one
-    PyTorch call that computes the same function, or None. The fused convs
-    return (out, statistics or None)."""
+    (kernel, plain, library, family) over the same inputs, library being
+    the one PyTorch call that computes the same function, or None, and
+    family the conv family's other kernel for the same function
+    (FAMILY_IS), or None. The fused convs return (out, statistics or
+    None)."""
+    case = _kernel_case(kind, shape_key, dtype, gen)
+    return case + (None,) * (4 - len(case))
+
+
+def _kernel_case(kind, shape_key, dtype, gen):
     import torch
     import torch.nn.functional as F
 
@@ -235,6 +290,24 @@ def kernel_case(kind, shape_key, dtype, gen):
     x = rnd(*x_shape)
     w = rnd(*w_shape, std=(9 * w_shape[2]) ** -0.5)
     b = rnd(w_shape[3], std=0.1)
+    if kind == "gn_silu_conv3x3":
+        has_temb, has_res, groups = shape_key[2:]
+        B, H, W, cin = x_shape
+        cout = w_shape[3]
+        x = rnd(*x_shape, mean=0.3)
+        scale, shift = rnd(cin, std=0.2, mean=1.0), rnd(cin, std=0.2)
+        t = rnd(B, cout) if has_temb else None
+        r = rnd(B, H, W, cout) if has_res else None
+
+        def family():
+            a, c = groupnorm.gn_affine_from_stats(
+                groupnorm.spatial_moments(x), scale, shift, groups, H * W)
+            return gn_conv.gn_conv_resident(x, a, c, w, b, r, False)[0]
+        return (lambda: conv3x3.gn_silu_conv3x3(x, scale, shift, w, b, t, r,
+                                                groups),
+                lambda: conv3x3.gn_silu_conv3x3_plain(x, scale, shift, w, b,
+                                                      t, r, groups),
+                None, family)
     if kind == "downsample_conv3x3_stats":
         stats = shape_key[2]
         # the yardstick pads outside the timed call
@@ -244,18 +317,24 @@ def kernel_case(kind, shape_key, dtype, gen):
         return (lambda: gn_conv.downconv_stream(x, w, b, stats),
                 lambda: gn_conv.downconv_stream_plain(x, w, b, stats),
                 lambda: F.conv2d(xp, wc, b, stride=2))
-    if kind == "conv3x3":
+    if kind in ("conv3x3", "conv3x3_inpad", "conv3x3_stream"):
         xc = x.permute(0, 3, 1, 2)  # channels-last memory, NCHW view
         wc = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        return (lambda: conv3x3.conv3x3(x, w, b),
-                lambda: conv3x3.conv3x3_plain(x, w, b),
-                lambda: F.conv2d(xc, wc, b, padding=1))
+        op = getattr(conv3x3, kind)
+        return (lambda: op(x, w, b), lambda: conv3x3.conv3x3_plain(x, w, b),
+                lambda: F.conv2d(xc, wc, b, padding=1),
+                None if kind == "conv3x3"
+                else lambda: conv3x3.conv3x3(x, w, b))
     # the modules fold the upsample weights once at load: outside the call
     taps = conv3x3.fold_upsample_weights(w)
     if kind == "upsample2x_conv3x3":
         return (lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps),
                 lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b), None)
+    if kind == "upsample2x_conv3x3_inpad":
+        return (lambda: conv3x3.upsample2x_conv3x3_inpad(x, w, b, taps),
+                lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b), None,
+                lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps))
     if kind == "upconv_stream":
         stats = shape_key[2]
         return (lambda: gn_conv.upconv_stream(x, w, b, taps, stats),
@@ -299,7 +378,8 @@ def work(kind, key, itemsize):
                 itemsize * (pixels * cin + 9 * cin * cout + cout
                             + out_pixels * cout)
                 + key[2] * 4 * 2 * x_shape[0] * cout)
-    if kind in ("upsample2x_conv3x3", "upconv_stream"):
+    if kind in ("upsample2x_conv3x3", "upsample2x_conv3x3_inpad",
+                "upconv_stream"):
         flops = 2 * 4 * pixels * 4 * cin * cout
         bytes_ = itemsize * (pixels * cin + 9 * cin * cout + cout
                              + 4 * pixels * cout)
@@ -308,8 +388,13 @@ def work(kind, key, itemsize):
         return flops, bytes_
     flops = 2 * pixels * 9 * cin * cout
     bytes_ = itemsize * (pixels * cin + 9 * cin * cout + pixels * cout)
-    if kind == "conv3x3":
+    if kind in ("conv3x3", "conv3x3_inpad", "conv3x3_stream"):
         return flops, bytes_ + itemsize * cout
+    if kind == "gn_silu_conv3x3":
+        has_temb, has_res = key[2:4]
+        return flops, bytes_ + itemsize * (cout + 2 * cin
+                                           + has_temb * x_shape[0] * cout
+                                           + has_res * pixels * cout)
     has_bias, has_res, stats, apply_gn = key[2:]
     bytes_ += itemsize * (has_bias * cout + has_res * pixels * cout
                           + apply_gn * 2 * x_shape[0] * cin)
@@ -349,10 +434,12 @@ def compare(kind, shape_key, dtype, gen, timed=False):
     """Kernel vs plain version on the same inputs; returns a dict of
     max_abs_err, tol, peak (max|plain|), err_over_tol (the worst of the
     output's and the statistics'), and kernel_ms / plain_ms / library_ms
-    (None where no PyTorch call computes the function) when `timed`."""
+    (None where no PyTorch call computes the function) and, for the staged
+    kernels, family_ms (FAMILY_IS) when `timed`."""
     import torch
 
-    kernel, plain, library = kernel_case(kind, shape_key, dtype, gen)
+    kernel, plain, library, family = kernel_case(kind, shape_key, dtype,
+                                                 gen)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got_st = want_st = None
@@ -403,6 +490,8 @@ def compare(kind, shape_key, dtype, gen, timed=False):
         p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
         out["kernel_ms"], out["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
         out["library_ms"] = None if library is None else cuda_ms(library)
+        if family is not None:
+            out["family_ms"] = cuda_ms(family)
     return out
 
 
@@ -442,9 +531,10 @@ def attention_launches(model, res, steps):
     return out
 
 
-def expected_per_stamp(model, res, steps):
+def expected_per_stamp(model, res, steps, in_pad=False):
     """Launches of each kernel in one stamp of `model`, from its
-    configuration."""
+    configuration; `in_pad`: under the _IN_PAD switch, K12a/b take K7's and
+    K4's calls."""
     c = model.config
     u, v = model.unet.cfg, model.vae_encoder.cfg
     n_u, n_v = len(u.block_out_channels), len(v.block_out_channels)
@@ -465,12 +555,17 @@ def expected_per_stamp(model, res, steps):
     # stem and mid block, the decoder's conv_in and mid block
     unet_moments = ((plain_resnets + 2 * skip_resnets) if fused_unet
                     else transformers if c.fused_unet_norm else 0)
+    convs = ((0 if fused_unet else steps * unet_convs)
+             + (0 if fused_enc else 2 * enc_resnets)
+             + (0 if fused_dec else 2 * dec_resnets))
+    upconvs = steps * (n_u - 1) + (0 if fused_dec else n_v - 1)
     return {
-        "conv3x3": (0 if fused_unet else steps * unet_convs)
-        + (0 if fused_enc else 2 * enc_resnets)
-        + (0 if fused_dec else 2 * dec_resnets),
-        "upsample2x_conv3x3": steps * (n_u - 1)
-        + (0 if fused_dec else n_v - 1),
+        "conv3x3": 0 if in_pad else convs,
+        "upsample2x_conv3x3": 0 if in_pad else upconvs,
+        "conv3x3_inpad": convs if in_pad else 0,
+        "upsample2x_conv3x3_inpad": upconvs if in_pad else 0,
+        "conv3x3_stream": 0,
+        "gn_silu_conv3x3": 0,
         "flash_attention": attn["flash_attention"],
         "gn_conv_resident": steps * (2 * plain_resnets + 3 * skip_resnets)
         if fused_unet else 0,
@@ -570,9 +665,10 @@ def run_path(label, model, steps, res=RES):
     return replies[0], launches, shapes, 5  # preview + 3 stamps + replay
 
 
-def check_counts(label, model, steps, launches, n_stamps, res=RES):
-    want = {k: n_stamps * v
-            for k, v in expected_per_stamp(model, res, steps).items()}
+def check_counts(label, model, steps, launches, n_stamps, res=RES,
+                 in_pad=False):
+    want = {k: n_stamps * v for k, v in
+            expected_per_stamp(model, res, steps, in_pad).items()}
     for name in want:
         log(f"{label} counts: {name}: {launches[name]} launches in "
             f"{n_stamps} stamps, expected {want[name]} "
@@ -832,6 +928,122 @@ def session_phase(model):
     return launches, shapes, len(SESSION_STAMPS)
 
 
+def resnet_bodies_phase(model, twin_shapes, twin_stamps):
+    """The 22 resnets of one UNet eval of `model` (the twin, module legs)
+    at RES: their inputs (x, the time embedding, an up block's skip) and
+    outputs captured from the module legs, then each body as two
+    gn_silu_conv3x3 calls (K10) with the counts set to 0 just before and
+    read just after; in the same window, conv3x3_stream (K11) as many
+    times per stamp as the twin ran K7 at each K7 shape that passes
+    STREAM_MIN. Each body is then held against the module leg, in bf16 and
+    in an fp32 copy. Returns (launches, shapes)."""
+    import copy
+
+    import torch
+
+    from diffusiontexturepainting_torch.models.layers import (
+        ResnetBlock,
+        resnet_gn_silu_conv,
+    )
+    from diffusiontexturepainting_torch.ops import conv3x3
+
+    unet, u = model.unet, model.unet.cfg
+    lat = RES // 8
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sample = torch.randn((3, lat, lat, u.in_channels), generator=gen,
+                         device="cuda")
+    ctx = torch.randn((3, 14, u.cross_attention_dim), generator=gen,
+                      device="cuda")
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, kwargs, out: calls.append((mod, args,
+                                                     kwargs.get("skip"),
+                                                     out)),
+        with_kwargs=True) for m in unet.modules()
+        if isinstance(m, ResnetBlock)]
+    try:
+        with torch.inference_mode():
+            unet(sample, 500.0, ctx)
+    finally:
+        for h in hooks:
+            h.remove()
+    want_bodies = 2 * len(u.block_out_channels) * u.layers_per_block + 2 \
+        + len(u.block_out_channels)
+    if len(calls) != want_bodies:
+        raise AssertionError(f"resnet_bodies: {len(calls)} resnets ran, "
+                             f"expected {want_bodies}")
+    selected = {key: n // twin_stamps for key, n in twin_shapes.items()
+                if all(d >= m for d, m in zip(
+                    (key[0][1], key[0][2], key[0][3], key[1][3]),
+                    STREAM_MIN))}
+    streams = []
+    for (xs, ws), n in sorted(selected.items()):
+        x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(ws, generator=gen, device="cuda")
+             * (9 * ws[2]) ** -0.5).bfloat16()
+        streams.append((x, w, torch.randn(ws[3], generator=gen,
+                                          device="cuda").bfloat16() * 0.1, n))
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    tic = time.perf_counter()
+    with torch.inference_mode():
+        bodies = [resnet_gn_silu_conv(m, a[0], a[1], skip)
+                  for m, a, skip, _ in calls]
+        firsts = [[conv3x3.conv3x3_stream(x, w, b) for _ in range(n)][0]
+                  for x, w, b, n in streams]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    shapes = {c.name: dict(c.shapes) for c in counters()}
+    want = {"gn_silu_conv3x3": 2 * len(calls),
+            "conv3x3_stream": sum(selected.values())}
+    for name, got in launches.items():
+        log(f"resnet_bodies counts: {name}: {got} launches, expected "
+            f"{want.get(name, 0)}")
+        if got != want.get(name, 0):
+            raise AssertionError(f"resnet_bodies: {name}: {got} launches, "
+                                 f"expected {want.get(name, 0)}")
+    log(f"resnet_bodies: {len(calls)} bodies and {len(streams)} K11 shapes "
+        f"in {secs * 1e3:.1f} ms wall")
+    for (x, w, b, _), got in zip(streams, firsts):
+        want_y = conv3x3.conv3x3_plain(x, w, b).float()
+        err = (got.float() - want_y).abs().max().item()
+        tol = TOL["bfloat16"] * want_y.abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"resnet_bodies: conv3x3_stream "
+                                 f"{tuple(x.shape)} err {err:.3e} > {tol:.3e}")
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    with torch.inference_mode():
+        for i, ((m, a, skip, out), got) in enumerate(zip(calls, bodies)):
+            m32 = copy.deepcopy(m).float()
+            up = lambda t: None if t is None else t.float()
+            x32, t32, s32 = up(a[0]), up(a[1]), up(skip)
+            pairs = {"bfloat16": (got, out),
+                     "float32": (resnet_gn_silu_conv(m32, x32, t32, s32),
+                                 m32(x32, t32, skip=s32))}
+            msg = []
+            for dt, (g, w_out) in pairs.items():
+                if g.shape != w_out.shape or not torch.isfinite(g).all():
+                    raise AssertionError(f"resnet_bodies: body {i}: "
+                                         f"{tuple(g.shape)}")
+                err = (g.float() - w_out.float()).abs().max().item()
+                tol = TOL[dt] * w_out.float().abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"resnet_bodies: body {i} {dt}: "
+                                         f"err {err:.3e} > tol {tol:.3e}")
+                worst[dt] = max(worst[dt], err / tol)
+                msg.append(f"{dt} err {err:.3e} (tol {tol:.3e})")
+            del m32
+            cin = a[0].shape[-1] + (0 if skip is None else skip.shape[-1])
+            log(f"resnet_bodies: body {i} {tuple(a[0].shape[:3])} "
+                f"{cin}->{out.shape[-1]}: " + "; ".join(msg)
+                + " against ResnetBlock.forward")
+    log(f"resnet_bodies: worst err/tol bf16 {worst['bfloat16']:.3f}, fp32 "
+        f"{worst['float32']:.3f}")
+    return launches, shapes
+
+
 def release():
     """Returns the memory of the models the caller dropped to the card."""
     import torch
@@ -882,6 +1094,8 @@ def kernels_phase(gen, paths):
                         lib_missing = True
                     else:
                         totals["library"] += count * r["library_ms"]
+                    if "family_ms" in r:
+                        totals["family"] += count * r["family_ms"]
                     lib = ("none" if r["library_ms"] is None
                            else f"{r['library_ms']:.4f} ms")
                     msg += (f"; {r['kernel_ms']:.4f} ms kernel, "
@@ -891,6 +1105,10 @@ def kernels_phase(gen, paths):
                 log(msg)
                 torch.cuda.empty_cache()
         n = run["stamps"]
+        if name in FAMILY_IS:
+            log(f"kernels: {name}: {totals['kernel'] / n:.4f} ms beside "
+                f"{FAMILY_IS[name]} {totals['family'] / n:.4f} ms at the same "
+                f"shapes and launches ({path} path)")
         record.append({
             "name": name, "route": "cuda",
             "source": "diffusiontexturepainting_torch/" + SOURCES[name],
@@ -908,9 +1126,12 @@ def kernels_phase(gen, paths):
                          if totals["operations"] >= totals["bytes"]
                          else "bytes"),
             "library_ms": None if lib_missing else totals["library"] / n,
-            "ms_is": f"bf16 kernel time per stamp of the {path} path "
-                     f"({run['res']}^2, {run['steps']} steps), summed over "
-                     "its shapes",
+            "ms_is": MS_IS.get(name, f"bf16 kernel time per stamp of the "
+                                     f"{path} path ({run['res']}^2, "
+                                     f"{run['steps']} steps), summed over "
+                                     "its shapes"),
+            **({"family_ms": totals["family"] / n,
+                "family_is": FAMILY_IS[name]} if name in FAMILY_IS else {}),
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
                else {})})
     return record
@@ -927,6 +1148,7 @@ def main() -> int:
         safe_twin_config,
         slotted_config,
     )
+    from diffusiontexturepainting_torch.ops import conv3x3 as conv3x3_mod
     from diffusiontexturepainting_torch.pipeline.torch_model import (
         TorchConditionalInpainter)
 
@@ -996,6 +1218,17 @@ def main() -> int:
         ("spatial_moments", ((2, 9, 7, 40),)),
         ("spatial_moments", ((1, 32, 32, 2560),)),
         ("spatial_moments", ((2, 1, 1, 8),)),
+        # the staged-tile mode: Cin 3 and 9 (one ragged channel chunk),
+        # odd H and W, a 1x1 image, Cout off the tile, a UNet 4x4 level
+        ("conv3x3_inpad", ((2, 5, 7, 3), (3, 3, 3, 40))),
+        ("conv3x3_inpad", ((1, 1, 1, 9), (3, 3, 9, 24))),
+        ("conv3x3_stream", ((1, 17, 9, 48), (3, 3, 48, 130))),
+        ("upsample2x_conv3x3_inpad", ((1, 6, 5, 48), (3, 3, 48, 40))),
+        ("upsample2x_conv3x3_inpad", ((3, 4, 4, 1280), (3, 3, 1280, 1280))),
+        ("gn_silu_conv3x3", ((2, 9, 10, 64), (3, 3, 64, 136), True, True,
+                             32)),
+        ("gn_silu_conv3x3", ((3, 4, 4, 2560), (3, 3, 2560, 1280), True,
+                             False, 32)),
     ]
     for kind, key in probes:
         dtypes = (torch.bfloat16, torch.float32) + (
@@ -1009,9 +1242,9 @@ def main() -> int:
 
     paths = {}
 
-    def drive(label, model, steps, res):
+    def drive(label, model, steps, res, in_pad=False):
         first, launches, shapes, n = run_path(label, model, steps, res)
-        check_counts(label, model, steps, launches, n, res)
+        check_counts(label, model, steps, launches, n, res, in_pad)
         paths[label] = dict(launches=launches, shapes=shapes, stamps=n,
                             steps=steps, res=res)
         return first
@@ -1033,6 +1266,22 @@ def main() -> int:
     twin_first = drive("twin", twin, TWIN_STEPS, RES)
     compare_stamps("twin", first_stamp_at(model, TWIN_STEPS), twin_first,
                    f"the default and the safe twin at {TWIN_STEPS} steps")
+
+    # the same requests at the same counters, the switch set as the JAX
+    # package's tests set it
+    twin.request_counter = 0
+    conv3x3_mod._IN_PAD = True
+    try:
+        inpad_first = drive("twin_inpad", twin, TWIN_STEPS, RES, in_pad=True)
+    finally:
+        conv3x3_mod._IN_PAD = False
+    compare_stamps("twin_inpad", inpad_first, twin_first,
+                   "the safe twin with _IN_PAD on and off")
+
+    launches, shapes = resnet_bodies_phase(
+        twin, paths["twin"]["shapes"]["conv3x3"], paths["twin"]["stamps"])
+    paths["resnet_bodies"] = dict(launches=launches, shapes=shapes, stamps=1,
+                                  steps=1, res=RES)
     del twin
     release()
 

@@ -27,14 +27,15 @@ from ..ops.attention import (
     flash_attention_slotted,
     slotted_self_attention_fits,
 )
-from ..ops.conv3x3 import conv3x3, fold_upsample_weights, upsample2x_conv3x3
-from ..ops.ff_geglu import ff_geglu
-from ..ops.gn_conv import (
-    gn_affine_from_stats,
-    gn_conv_resident,
-    shift_stats_for_temb,
-    stats_of,
+from ..ops.conv3x3 import (
+    conv3x3,
+    fold_upsample_weights,
+    gn_silu_conv3x3,
+    upsample2x_conv3x3,
 )
+from ..ops.ff_geglu import ff_geglu
+from ..ops.gn_conv import gn_conv_resident, shift_stats_for_temb, stats_of
+from ..ops.groupnorm import gn_affine_from_stats
 
 
 def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
@@ -385,6 +386,28 @@ class ResnetBlock(nn.Module):
         out, st = gn_conv_resident(h, a2, c2, self.conv2.weight,
                                    self.conv2.bias, res, return_stats)
         return (out, st) if return_stats else out
+
+
+def resnet_gn_silu_conv(block, x, temb=None, skip=None):
+    """A ResnetBlock's forward as two fused GroupNorm -> SiLU -> conv calls
+    (ops.conv3x3.gn_silu_conv3x3, kernel K10 on CUDA), each taking the
+    statistics of its own input: conv1 with the projected time embedding
+    added, conv2 with the shortcut as its residual; an up-path `skip` is
+    concatenated first. The block's own parameters; the arithmetic rounds
+    once per conv where the module leg rounds after each operation."""
+    if skip is not None:
+        x = torch.cat([x, skip], dim=-1)
+    t = None
+    if block.time_emb_proj is not None and temb is not None:
+        t = block.time_emb_proj(F.silu(temb))
+    n1, n2 = block.norm1, block.norm2
+    h = gn_silu_conv3x3(x, n1.weight, n1.bias, block.conv1.weight,
+                        block.conv1.bias, t, None, n1.num_groups, n1.eps)
+    sc = block.conv_shortcut
+    return gn_silu_conv3x3(h, n2.weight, n2.bias, block.conv2.weight,
+                           block.conv2.bias, None,
+                           sc(x) if sc is not None else x, n2.num_groups,
+                           n2.eps)
 
 
 class Downsample(nn.Module):

@@ -20,11 +20,11 @@ import torch.nn.functional as F
 from ..core.config import VAEConfig
 from ..ops.gn_conv import (
     downconv_stream,
-    gn_affine_from_stats,
     gn_conv_stream,
     stats_of,
     upconv_stream,
 )
+from ..ops.groupnorm import gn_affine_from_stats
 from .layers import (
     Attention,
     Conv1x1,

@@ -5,8 +5,8 @@ statistics, NHWC.
 Port of diffusiontexturepainting_tpu/ops/gn_conv_stream.py (and of
 ops/conv3x3.py gn_conv_resident, which computes the same function). Each
 conv emits the fp32 (sum, sumsq) per (batch, channel) of its output, so the
-next GroupNorm folds into a per-(B, C) affine (gn_affine_from_stats) with no
-pass of its own over the tensor:
+next GroupNorm folds into a per-(B, C) affine (groupnorm.gn_affine_from_stats)
+with no pass of its own over the tensor:
 
     h1, s1 = gn_conv(x,  affine(s_x), conv1)          # GN1 + SiLU + conv1
     y,  sy = gn_conv(h1, affine(s1),  conv2, res=x')  # GN2 + SiLU + conv2
@@ -36,7 +36,6 @@ kept). stats_of takes them of a tensor no conv produced, through kernel K14
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -57,31 +56,6 @@ _UP_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
 
 
 # --- GroupNorm statistics algebra (fp32) ---
-
-
-@functools.cache
-def group_matrix(channels: int, num_groups: int, device=None):
-    """(C, G) one-hot channel -> group matrix, fp32: a constant, built once
-    per (C, G, device), so a GroupNorm fold issues no operation for it."""
-    with torch.inference_mode(False):  # usable outside inference mode too
-        return torch.repeat_interleave(
-            torch.eye(num_groups, device=device), channels // num_groups,
-            dim=0)
-
-
-def gn_affine_from_stats(stats, scale, bias, num_groups: int,
-                         n_spatial: int, eps: float = 1e-5):
-    """Fold chained (sum, sumsq) statistics (B, 2, C) and the GroupNorm's
-    scale/bias into per-(B, C) fp32 a, c with GN(x)*scale + bias ==
-    x*a + c. n_spatial: the spatial elements the statistics summed over."""
-    c = stats.shape[-1]
-    gmat = group_matrix(c, num_groups, stats.device)
-    n = n_spatial * (c // num_groups)
-    mean_g = stats[:, 0, :] @ gmat / n
-    var_g = stats[:, 1, :] @ gmat / n - mean_g.square()
-    inv_g = torch.rsqrt(var_g + eps)
-    a = (inv_g @ gmat.t()) * scale.float()[None]
-    return a, bias.float()[None] - (mean_g @ gmat.t()) * a
 
 
 def stats_of(x):

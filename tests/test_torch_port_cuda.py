@@ -29,7 +29,14 @@ CASES = {
     "downsample_conv3x3_stats": ((2, 7, 9, 24), (3, 3, 24, 136), True),
     # channels off the 16-byte groups: the kernel's scalar path
     "spatial_moments": ((2, 9, 7, 40),),
+    # the staged-tile mode (csrc/conv_staged.cu)
+    "conv3x3_inpad": ((2, 12, 10, 96), (3, 3, 96, 136)),
+    "upsample2x_conv3x3_inpad": ((1, 5, 7, 64), (3, 3, 64, 72)),
+    "conv3x3_stream": ((1, 17, 9, 48), (3, 3, 48, 130)),
+    "gn_silu_conv3x3": ((2, 9, 10, 64), (3, 3, 64, 136), True, True, 32),
 }
+STAGED = ("conv3x3_inpad", "upsample2x_conv3x3_inpad", "conv3x3_stream",
+          "gn_silu_conv3x3")
 
 
 def _setup():
@@ -90,3 +97,99 @@ def test_spatial_moments_is_deterministic(shape):
     x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
     first = groupnorm.spatial_moments(x)
     assert torch.equal(first, groupnorm.spatial_moments(x))
+
+
+# Odd H and W, Cin 3, 9 and 48 (ragged channel chunks), a 1x1 image, Cout
+# off the 128- and 64-column tiles.
+RAGGED = [((1, 7, 5, 3), (3, 3, 3, 40)), ((2, 3, 9, 9), (3, 3, 9, 24)),
+          ((1, 1, 1, 48), (3, 3, 48, 130)), ((2, 11, 19, 48), (3, 3, 48, 8))]
+
+
+def _staged_key(kind, key):
+    return key + (True, True, 3) if kind == "gn_silu_conv3x3" else key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", RAGGED, ids=str)
+@pytest.mark.parametrize("kind", STAGED)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_staged_kernels_at_ragged_shapes(kind, key, dtype):
+    """The staged-tile kernels against their plain versions where the
+    window, the channel chunks and the Cout tile are ragged (K10 with 3
+    groups of Cin / 3 channels, temb and residual)."""
+    gen = _setup()
+    import chip_smoke
+
+    r = chip_smoke.compare(kind, _staged_key(kind, key),
+                           getattr(torch, dtype), gen)
+    assert r["err_over_tol"] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STAGED)
+def test_staged_kernels_are_deterministic(kind):
+    """No split-K and no atomics: two calls give the same bits."""
+    gen = _setup()
+    import chip_smoke
+
+    kernel = chip_smoke.kernel_case(kind, CASES[kind], torch.bfloat16,
+                                    gen)[0]
+    first = kernel()
+    assert torch.equal(first, kernel())
+
+
+@pytest.mark.cuda
+def test_in_pad_moves_launches_to_the_staged_kernels():
+    """With the port's _IN_PAD set, conv3x3 and upsample2x_conv3x3 launch
+    K12a/b and not K7/K4; the switch restored, K7/K4 again."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import conv3x3
+
+    x = torch.randn((2, 8, 8, 32), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((3, 3, 32, 64), generator=gen,
+                    device="cuda").bfloat16() * 0.05
+    b = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    taps = conv3x3.fold_upsample_weights(w)
+    counters = (conv3x3.conv3x3_launches, conv3x3.upsample_launches,
+                conv3x3.conv3x3_inpad_launches,
+                conv3x3.upsample_inpad_launches)
+    seen = []
+    for on in (True, False):
+        for c in counters:
+            c.reset()
+        conv3x3._IN_PAD = on
+        try:
+            conv3x3.conv3x3(x, w, b)
+            conv3x3.upsample2x_conv3x3(x, w, b, taps)
+        finally:
+            conv3x3._IN_PAD = False
+        seen.append([c.launches for c in counters])
+    assert seen == [[0, 0, 1, 1], [1, 1, 0, 0]]
+
+
+@pytest.mark.cuda
+def test_staged_entries_raise_and_never_fall_back():
+    """A CUDA tensor of a type, shape or layout the kernel does not take
+    raises; it never runs the plain version."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import conv3x3
+
+    x = torch.randn((1, 8, 8, 32), generator=gen, device="cuda")
+    w = torch.randn((3, 3, 32, 64), generator=gen, device="cuda")
+    b = torch.zeros(64, device="cuda")
+    s = torch.ones(32, device="cuda")
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_inpad(x.half(), w.half(), b.half())
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_stream(x, w[:, :, :16], b)
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_inpad(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError):
+        conv3x3.upsample2x_conv3x3_inpad(x, w, b, w)
+    with pytest.raises(ValueError):
+        conv3x3.gn_silu_conv3x3(x, s, s, w, b, num_groups=5)
+    with pytest.raises(ValueError):
+        conv3x3.gn_silu_conv3x3(x, s, s, w, b, temb=torch.zeros(
+            (2, 64), device="cuda"))
+    with pytest.raises(TypeError):
+        conv3x3.gn_silu_conv3x3(x, s.bfloat16(), s, w, b)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from diffusiontexturepainting_torch.ops import conv3x3 as t_conv
 from diffusiontexturepainting_torch.ops import ff_geglu as t_ff
 from diffusiontexturepainting_torch.ops import gn_conv as t_gn
+from diffusiontexturepainting_torch.ops import groupnorm as t_norm
 from diffusiontexturepainting_tpu.ops import conv3x3 as j_conv
 from diffusiontexturepainting_tpu.ops import ff_geglu as j_ff
 from diffusiontexturepainting_tpu.ops import gn_conv_stream as j_gn
@@ -153,7 +154,7 @@ def test_statistics_algebra_matches_jax():
                                rtol=1e-5, atol=1e-4)
     want_a, want_c = j_gn.gn_affine_from_stats(
         want_st, jnp.asarray(scale), jnp.asarray(bias), 8, 16, 1e-6)
-    a, c = t_gn.gn_affine_from_stats(st, *_t(scale, bias), 8, 16, 1e-6)
+    a, c = t_norm.gn_affine_from_stats(st, *_t(scale, bias), 8, 16, 1e-6)
     np.testing.assert_allclose(a.numpy(), np.asarray(want_a), rtol=1e-4,
                                atol=1e-6)
     np.testing.assert_allclose(c.numpy(), np.asarray(want_c), rtol=1e-4,
