@@ -36,9 +36,10 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                ran K7, at each of its K7 shapes that pass the JAX package's
                streaming_plan shape test;
   6. server    the port's server (serving/server.py) on loopback around
-               the default model: GET /health, then a NEW_BRUSH_IMAGE and a
-               NEW_STAMP over a websocket, each reply byte-equal to the
-               request handler's at the same request counter;
+               the default model: GET /health, then a NEW_BRUSH_IMAGE, a
+               NEW_BRUSH_PROMPT and a NEW_STAMP over a websocket, each reply
+               byte-equal to the request handler's at the same request
+               counter;
   6b. session  a stroke session on the default model at 256^2 / 4 steps
                through the request handler: BEGIN_SESSION on a 512^2
                canvas, four STAMP_ATs that return no pixels (one
@@ -58,6 +59,18 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   8. slotted   slotted_config() (head-slotted self-attention, K13) at
                512^2 / 4 steps, as phase 4; its first stamp against the
                default configuration's at 512^2 / 4, compared in u8;
+  9a. attn_arms
+               the softmax arms of the attention kernels (T2 no-max, T3
+               chunked, T5 unpadded no-max, T9 transposed P V;
+               csrc/attn_arms.cu) through the A/B entry point's functions
+               (diffusiontexturepainting_torch.tools.attn_variants) at the
+               1024^2 / 4 stamp's three UNet self-attention shapes, each
+               launched as often as that stamp launches K8/K2 there (20 a
+               shape), each output against the attention() route's; the
+               clamp probe (raw logits above 83: the clamped arms equal
+               their plain versions and differ from the exact softmax of K8,
+               which rounds q as the arms do; T3 equals it) and the underflow probe (every exp2 underflows:
+               zeros from the safe arms, no NaN);
   9. kernels   each kernel against its plain version at every shape any
                path launched it at, in bf16 and fp32 (TF32 off),
                statistics included; CUDA-event times of the kernel, its
@@ -127,7 +140,13 @@ SOURCES = {
     "upsample2x_conv3x3_inpad": "csrc/conv_staged.cu",
     "conv3x3_stream": "csrc/conv_staged.cu",
     "gn_silu_conv3x3": "csrc/conv_staged.cu",
+    "nomax_attention": "csrc/attn_arms.cu",
+    "chunked_attention": "csrc/attn_arms.cu",
+    "nomax_unpadded": "csrc/attn_arms.cu",
+    "pvt_attention": "csrc/attn_arms.cu",
 }
+ARMS = ("nomax_attention", "chunked_attention", "nomax_unpadded",
+        "pvt_attention")
 REPLACES = {
     "conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:162",
     "upsample2x_conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:761",
@@ -148,6 +167,10 @@ REPLACES = {
         "diffusiontexturepainting_tpu/ops/conv3x3.py:726",
     "conv3x3_stream": "diffusiontexturepainting_tpu/ops/conv3x3.py:956",
     "gn_silu_conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:486",
+    "nomax_attention": "tools/bench_attn_variants.py:99",
+    "chunked_attention": "tools/bench_attn_variants.py:70",
+    "nomax_unpadded": "tools/bench_attn_variants.py:257",
+    "pvt_attention": "tools/bench_attn_round4.py:60",
 }
 # What the library yardstick of a kernel computes, where it is not the
 # kernel's whole function.
@@ -157,6 +180,8 @@ LIBRARY_IS = {
         "no statistics",
     "spatial_moments": "torch.var_mean over H and W (correction 0), the "
                        "nearest one-call equivalent",
+    **{name: "SDPA: the exact row-max softmax; equal to the no-max arms "
+             "while raw logits < 83" for name in ARMS},
 }
 # The path each kernel's times are reported for; any other kernel: the
 # default path.
@@ -165,7 +190,8 @@ REPORTED_ON = {"conv3x3": "twin", "flash_attention_streaming": "envelope",
                "conv3x3_inpad": "twin_inpad",
                "upsample2x_conv3x3_inpad": "twin_inpad",
                "conv3x3_stream": "resnet_bodies",
-               "gn_silu_conv3x3": "resnet_bodies"}
+               "gn_silu_conv3x3": "resnet_bodies",
+               **{name: "attn_arms" for name in ARMS}}
 # What a kernel's "ms" sums, where it is not one stamp of its path.
 MS_IS = {
     "conv3x3_stream": "bf16 kernel time per stamp of the safe twin's K7 "
@@ -174,6 +200,8 @@ MS_IS = {
     "gn_silu_conv3x3": "bf16 kernel time of the 22 resnet bodies of one "
                        "UNet eval at 256^2 (batch 3), two calls each, "
                        "summed over their shapes",
+    **{name: "bf16 kernel time of the 60 UNet self-attentions of one "
+             "1024^2/4 stamp" for name in ARMS},
 }
 # The member of the conv family that computes the same function at the
 # same shapes, timed beside each staged-tile kernel.
@@ -183,7 +211,16 @@ FAMILY_IS = {
     "upsample2x_conv3x3_inpad": "K4 (upsample2x_conv3x3, _IN_PAD off)",
     "gn_silu_conv3x3": "K14 + gn_affine_from_stats + K1 (gn_conv_resident "
                        "with the residual; the time embedding not added)",
+    **{name: "K8 at (3, 16384, 320), K2 at the other two shapes (the "
+             "attention() route)" for name in ARMS},
 }
+# The arms' options as the attn_arms path runs them: each arm's row of the
+# A/B entry point (T2 in its safe form, T3 at 64-key chunks).
+ARM_PATH_ROWS = {"nomax_attention": "nomax-safe",
+                 "chunked_attention": "chunk64",
+                 "nomax_unpadded": "nomax-unpadded", "pvt_attention": "pvT"}
+# K8/K2 launches a 1024^2/4 stamp at each UNet self-attention shape
+ARM_LAUNCHES = 20
 # The JAX package's streaming_plan shape test (ops/conv3x3.py:942), without
 # its VMEM budget: H >= 8, W >= 2, Cin >= 16, Cout >= 128.
 STREAM_MIN = (8, 2, 16, 128)
@@ -196,13 +233,18 @@ def log(*parts):
 def counters():
     from diffusiontexturepainting_torch.ops import (
         attention,
+        attention_variants,
         conv3x3,
         ff_geglu,
         gn_conv,
         groupnorm,
     )
 
-    return [conv3x3.conv3x3_launches, conv3x3.upsample_launches,
+    return [attention_variants.nomax_launches,
+            attention_variants.chunked_launches,
+            attention_variants.nomax_unpadded_launches,
+            attention_variants.pvt_launches,
+            conv3x3.conv3x3_launches, conv3x3.upsample_launches,
             attention.flash_launches, gn_conv.gn_conv_resident_launches,
             gn_conv.gn_conv_stream_launches, gn_conv.upconv_stream_launches,
             ff_geglu.ff_geglu_launches, attention.flash_streaming_launches,
@@ -231,6 +273,7 @@ def _kernel_case(kind, shape_key, dtype, gen):
 
     from diffusiontexturepainting_torch.ops import (
         attention,
+        attention_variants,
         conv3x3,
         ff_geglu,
         gn_conv,
@@ -262,6 +305,18 @@ def _kernel_case(kind, shape_key, dtype, gen):
                     lambda: attention.plain_attention_streaming(q, k, v,
                                                                 heads))
         return pair + (sdpa(q, k, v, heads),)
+    if kind in ARMS:
+        q_shape, k_shape, heads, *opts = shape_key
+        q, k, v = rnd(*q_shape), rnd(*k_shape), rnd(*k_shape)
+        options = ({} if not opts else
+                   dict(safe=opts[0], bf16_p=opts[1])
+                   if kind == "nomax_attention"
+                   else dict(bk=opts[0], bf16_p=opts[1]))
+        wrapper, plain = attention_variants.ARMS[kind]
+        return (lambda: wrapper(q, k, v, heads, **options),
+                lambda: plain(q, k, v, heads, **options),
+                sdpa(q, k, v, heads),
+                lambda: attention.attention(q, k, v, heads))
     if kind == "flash_attention_slotted":
         (B, L, D), heads, hd = shape_key
         # one fused projection's output, zero pad lanes, split into views
@@ -357,8 +412,8 @@ def work(kind, key, itemsize):
     The upsample conv's operations are counted in the exact folded 4-tap
     form, its weight bytes as the 9-tap 3x3 kernel that the function
     needs (the folded 16-tap copy is the module's choice, not the work)."""
-    if kind in ("flash_attention", "flash_attention_streaming"):
-        (B, Lq, D), (_, Lk, _), _ = key
+    if kind in ("flash_attention", "flash_attention_streaming") + ARMS:
+        (B, Lq, D), (_, Lk, _), *_ = key
         return 4 * B * Lq * Lk * D, itemsize * 2 * B * (Lq + Lk) * D
     if kind == "flash_attention_slotted":
         (B, L, D), heads, hd = key
@@ -578,6 +633,8 @@ def expected_per_stamp(model, res, steps, in_pad=False):
         "downsample_conv3x3_stats": n_v - 1 if fused_enc else 0,
         "spatial_moments": steps * unet_moments + 2 * fused_enc
         + 2 * fused_dec,
+        # the softmax arms run on a path of their own (attn_arms)
+        **{name: 0 for name in ARMS},
     }
 
 
@@ -704,8 +761,8 @@ def compare_stamps(label, ours, theirs, what):
 
 def serve_phase(model):
     """The port's server on loopback around `model`: /health, then a brush
-    and a stamp over a websocket, each reply byte-equal to the request
-    handler's at the same request counter."""
+    image, a brush prompt and a stamp over a websocket, each reply
+    byte-equal to the request handler's at the same request counter."""
     import urllib.request
 
     from websockets.sync.client import connect
@@ -728,11 +785,17 @@ def serve_phase(model):
         brush, canvas = requests()
         with connect(f"ws://127.0.0.1:{port}/websocket/", max_size=None,
                      open_timeout=60) as ws:
-            for kind, image, want in (
-                    (R.NEW_BRUSH_IMAGE, brush, R.RETURN_PREVIEW),
-                    (R.NEW_STAMP, canvas, R.RETURN_STAMP)):
-                req = wire.encode_request(kind, image,
-                                          **settings(TWIN_STEPS))
+            s = settings(TWIN_STEPS)
+            for kind, req, want in (
+                    (R.NEW_BRUSH_IMAGE,
+                     wire.encode_request(R.NEW_BRUSH_IMAGE, brush, **s),
+                     R.RETURN_PREVIEW),
+                    (R.NEW_BRUSH_PROMPT,
+                     wire.encode_brush_prompt_request("mossy stone", **s),
+                     R.RETURN_PREVIEW),
+                    (R.NEW_STAMP, wire.encode_request(R.NEW_STAMP, canvas,
+                                                      **s),
+                     R.RETURN_STAMP)):
                 counter = model.request_counter
                 tic = time.perf_counter()
                 ws.send(req)
@@ -1044,6 +1107,104 @@ def resnet_bodies_phase(model, twin_shapes, twin_stamps):
     return launches, shapes
 
 
+def _err_tol(got, want, dtype_name="bfloat16"):
+    """(max|got - want|, the smoke's tolerance on want's peak)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, TOL[dtype_name] * want.float().abs().max().item()
+
+
+def attn_arms_phase(gen):
+    """The softmax arms through the A/B entry point's functions at the
+    1024^2/4 stamp's three UNet self-attention shapes, ARM_LAUNCHES calls of
+    each arm a shape, with the counts set to 0 just before and read just
+    after; each output against the attention() route's (K8/K2); then the
+    clamp and underflow probes. Returns (launches, shapes)."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import attention
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+    from diffusiontexturepainting_torch.tools import attn_variants as tool
+
+    bf16 = torch.bfloat16
+    shapes = tool.SHAPE_SETS["stamp"]
+    inputs = [tool.make_inputs(B, L, D, "variants", "cuda", bf16, gen)
+              for _, B, L, D, _ in shapes]
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    tic = time.perf_counter()
+    firsts = []
+    with torch.inference_mode():
+        for (_, _, _, _, heads), (q, k, v) in zip(shapes, inputs):
+            firsts.append({name: [tool.row_call(row, q, k, v, heads)
+                                  for _ in range(ARM_LAUNCHES)][0]
+                           for name, row in ARM_PATH_ROWS.items()})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    shapes_seen = {c.name: dict(c.shapes) for c in counters()}
+    for name, got in launches.items():
+        want = ARM_LAUNCHES * len(shapes) if name in ARMS else 0
+        log(f"attn_arms counts: {name}: {got} launches, expected {want}")
+        if got != want:
+            raise AssertionError(f"attn_arms: {name}: {got} launches, "
+                                 f"expected {want}")
+    log(f"attn_arms: {len(ARMS)} arms x {ARM_LAUNCHES} calls at "
+        f"{len(shapes)} shapes in {secs * 1e3:.1f} ms wall")
+    with torch.inference_mode():
+        for (label, _, _, _, heads), (q, k, v), outs in zip(shapes, inputs,
+                                                            firsts):
+            base = attention.attention(q, k, v, heads)
+            route = attention.attention_route(q.shape[1], k.shape[1],
+                                              q.shape[-1] // heads, bf16)
+            for name, got in outs.items():
+                err, tol = _err_tol(got, base)
+                if not torch.isfinite(got).all() or not err <= tol:
+                    raise AssertionError(f"attn_arms: {name} at {label}: "
+                                         f"err {err:.3e} > tol {tol:.3e} "
+                                         f"against {route}")
+                log(f"attn_arms: {name} ({ARM_PATH_ROWS[name]}) at {label} "
+                    f"{tuple(q.shape)}: max|diff| {err:.3e} against the "
+                    f"{route} route (tol {tol:.3e}); err/tol {err / tol:.3f}")
+        del inputs, firsts, base
+
+        # clamp: raw logits far above 83. The exact softmax is K8's here:
+        # it rounds the pre-scaled q to bf16 as the arms do, while K2
+        # scales fp32 logits, and at logits ~200 that rounding alone moves
+        # a peaked softmax by more than the tolerance
+        q, k, v = tool.make_inputs(2, 1024, 320, "clamp", "cuda", bf16, gen)
+        exact = attention.flash_attention_streaming(q, k, v, 8)
+        for name in ARMS:
+            row = ARM_PATH_ROWS[name]
+            got = tool.row_call(row, q, k, v, 8)
+            err, tol = _err_tol(got, tool.row_call(row, q, k, v, 8,
+                                                   plain=True))
+            off, tol_k2 = _err_tol(got, exact)
+            clamped = name != "chunked_attention"
+            if not err <= tol or clamped != (off > tol_k2):
+                raise AssertionError(
+                    f"attn_arms: clamp probe {name}: {err:.3e} from its "
+                    f"plain version (tol {tol:.3e}), {off:.3e} from K8's "
+                    f"exact softmax (tol {tol_k2:.3e})")
+            log(f"attn_arms: clamp probe (2, 1024, 320), raw logits > 83: "
+                f"{name} {err:.3e} from its plain version (tol {tol:.3e}), "
+                f"{off:.3e} from K8's exact softmax ("
+                + ("differs, as the clamp must" if clamped
+                   else "within tol, as the running max must") + ")")
+
+        # underflow: every base-2 logit far below shift - 126
+        q = torch.full((2, 1100, 320), 60.0, device="cuda", dtype=bf16)
+        v = torch.randn((2, 1100, 320), generator=gen, device="cuda").to(bf16)
+        for name in ("nomax_attention", "nomax_unpadded", "pvt_attention"):
+            got = tool.row_call(ARM_PATH_ROWS[name], q, -q, v, 8)
+            if not torch.equal(got, torch.zeros_like(got)):
+                raise AssertionError(f"attn_arms: underflow probe {name}: "
+                                     "not all zeros")
+        log("attn_arms: underflow probe (2, 1100, 320): nomax_attention "
+            "(safe), nomax_unpadded and pvt_attention give zeros, no NaN")
+    return launches, shapes_seen
+
+
 def release():
     """Returns the memory of the models the caller dropped to the card."""
     import torch
@@ -1229,6 +1390,19 @@ def main() -> int:
                              32)),
         ("gn_silu_conv3x3", ((3, 4, 4, 2560), (3, 3, 2560, 1280), True,
                              False, 32)),
+        # the softmax arms: head dims 40, 80, 160 (the kernel's register
+        # tiles), a ragged length, the options the attn_arms path does not
+        # run (T3's keys a multiple of its chunk)
+        ("nomax_attention", ((2, 1100, 320), (2, 1100, 320), 8, False,
+                             False)),
+        ("nomax_attention", ((2, 1100, 640), (2, 1100, 640), 8, True, True)),
+        ("chunked_attention", ((2, 1100, 640), (2, 1152, 640), 8, 128,
+                               False)),
+        ("chunked_attention", ((2, 1100, 320), (2, 1152, 320), 8, 64, True)),
+        ("nomax_unpadded", ((2, 1100, 320), (2, 1100, 320), 8)),
+        ("nomax_unpadded", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        ("pvt_attention", ((2, 1100, 320), (2, 1100, 320), 8)),
+        ("pvt_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
     ]
     for kind, key in probes:
         dtypes = (torch.bfloat16, torch.float32) + (
@@ -1317,6 +1491,11 @@ def main() -> int:
                    f"the default and the slotted configuration at "
                    f"{SLOTTED_RES}^2 / {FEW_STEPS} steps")
     del default512, weights
+    release()
+
+    launches, shapes = attn_arms_phase(gen)
+    paths["attn_arms"] = dict(launches=launches, shapes=shapes, stamps=1,
+                              steps=FEW_STEPS, res=ENVELOPE_RES)
     release()
 
     record = kernels_phase(gen, paths)

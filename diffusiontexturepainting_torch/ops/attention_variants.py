@@ -1,0 +1,277 @@
+"""The softmax arms of the attention kernels: (B, Lq, D) q against (B, Lk, D)
+k, v with D = num_heads * hd, returning (B, Lq, D).
+
+Port of the A/B variants in the JAX repository's tools/bench_attn_variants.py
+and tools/bench_attn_round4.py, named after them so each counterpart is
+found:
+
+  nomax_attention    T2 <- nomax_attention / _nomax_kernel
+  chunked_attention  T3 <- chunked_attention / _chunked_kernel
+  nomax_unpadded     T5 <- nomax_unpadded / _nomax_unpadded_kernel
+  pvt_attention      T9 <- pvt_attention / _pvt_kernel
+
+Each rounds where the TPU kernel rounds: q is multiplied by scale*log2(e) in
+fp32 and rounded to its dtype before Q K^T, so s is the fp32 base-2 logit;
+probabilities are rounded to v's dtype for P V (T9: kept fp32, v upcast),
+the row sum is fp32 and the division comes after P V, rounded once. Two
+flaws of the TPU wrappers are not copied: their `Lk // bk` drops the tail
+keys (here `bk` must divide Lk, or ValueError), and their `Lq // q_block`
+grid drops the tail queries (here every row is computed). The TPU tile
+knobs (q_block, the 128-lane head pad, VMEM residency) are not part of the
+functions and not ported.
+
+The kernels live in csrc/attn_arms.cu (register-resident, hd <= 160). A
+wrapper takes its plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises. `ops.attention.attention` and the
+served paths never call these.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _cuda
+from .attention import _LOG2E, _check_qkv, _merge_heads, _split_heads
+
+MAX_HEAD_DIM = 160  # the kernel's 16 x hd fp32 accumulator per warp
+DEFAULT_SHIFT = 32.0  # the JAX package's _NOMAX_SHIFT
+CHUNK_WIDTHS = (64, 128)  # T3's kernel: the chunk is its K/V tile
+
+nomax_launches = _cuda.LaunchCounter("nomax_attention")
+chunked_launches = _cuda.LaunchCounter("chunked_attention")
+nomax_unpadded_launches = _cuda.LaunchCounter("nomax_unpadded")
+pvt_launches = _cuda.LaunchCounter("pvt_attention")
+
+_HEAD = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_float,)
+_NOMAX_ARGTYPES = _HEAD + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
+_CHUNKED_ARGTYPES = _HEAD + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+_SHIFT_ARGTYPES = _HEAD + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+
+
+def _chunk(bk, lk: int) -> int:
+    """The chunk width: Lk for None, else a positive divisor of Lk."""
+    if bk is None:
+        return lk
+    if bk <= 0 or lk % bk:
+        raise ValueError(f"bk={bk} must divide Lk={lk} (the TPU wrapper's "
+                         "Lk // bk would drop the tail keys)")
+    return bk
+
+
+def _heads(q, k, v, num_heads):
+    """(scale * log2(e))-prescaled q, k and v as (B, H, L, hd)."""
+    hd = q.shape[-1] // num_heads
+    scale_log2 = hd**-0.5 * _LOG2E
+    qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
+    return (qh.float() * scale_log2).to(q.dtype), kh, vh
+
+
+def _query_blocks(qs, width: int, block_bytes: int):
+    """Query row ranges with at most `block_bytes` of (rows, width) fp32
+    scores over all heads."""
+    B, H, Lq, _ = qs.shape
+    rows = max(1, block_bytes // (4 * B * H * width))
+    return [(i, min(Lq, i + rows)) for i in range(0, Lq, rows)]
+
+
+# --- plain versions ---
+
+
+def plain_nomax_attention(q, k, v, num_heads: int, *,
+                          shift: float = DEFAULT_SHIFT, safe: bool = False,
+                          bf16_p: bool = False, bk: int | None = None,
+                          block_bytes: int = 1 << 30):
+    """T2's function. Per chunk of `bk` keys (all of Lk for None): s
+    clamped at shift + 88 when `safe`; p = exp2(s - shift) in fp32, or
+    exp2 of (s - shift) rounded to bf16 (a bf16 p) with `bf16_p`; l = sum p
+    in fp32 (+1e-30 when `safe`); o = (p in v's dtype) v accumulated in
+    fp32, / l. Without `safe`, logits above shift + 128 overflow to inf and
+    NaN, as on the TPU."""
+    qs, kh, vh = _heads(q, k, v, num_heads)
+    Lk = kh.shape[2]
+    bk = _chunk(bk, Lk)
+    kt, vf = kh.float().transpose(-1, -2), vh.float()
+    out = torch.empty(qs.shape, dtype=q.dtype, device=q.device)
+    for i0, i1 in _query_blocks(qs, Lk, block_bytes):
+        qb = qs[:, :, i0:i1].float()
+        l = acc = 0.0
+        for j in range(0, Lk, bk):
+            s = torch.matmul(qb, kt[..., j:j + bk])
+            if safe:
+                s = torch.clamp_max(s, shift + 88.0)
+            if bf16_p:
+                p = torch.exp2((s - shift).to(torch.bfloat16))
+            else:
+                p = torch.exp2(s - shift)
+            l = l + p.float().sum(-1, keepdim=True)
+            acc = acc + torch.matmul(p.to(vh.dtype).float(),
+                                     vf[:, :, j:j + bk])
+        if safe:
+            l = l + 1e-30
+        out[:, :, i0:i1] = (acc / l).to(q.dtype)
+    return _merge_heads(out)
+
+
+def plain_chunked_attention(q, k, v, num_heads: int, *, bk: int = 64,
+                            bf16_p: bool = False, block_bytes: int = 1 << 30):
+    """T3's function: the running max m (from -1e30) updated per chunk of
+    `bk` keys, m_new = max(m, rowmax(s_j)); p = exp2(s_j - m_new) in fp32,
+    or of its bf16 rounding with `bf16_p`; corr = exp2(m - m_new);
+    l = l * corr + sum p, acc = acc * corr + (p in v's dtype) v; o =
+    acc / l. Any `bk` dividing Lk."""
+    qs, kh, vh = _heads(q, k, v, num_heads)
+    Lk = kh.shape[2]
+    bk = _chunk(bk, Lk)
+    kt, vf = kh.float().transpose(-1, -2), vh.float()
+    out = torch.empty(qs.shape, dtype=q.dtype, device=q.device)
+    for i0, i1 in _query_blocks(qs, bk, block_bytes):
+        qb = qs[:, :, i0:i1].float()
+        m = torch.full(qb.shape[:-1] + (1,), -1e30, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qb.shape, device=q.device)
+        for j in range(0, Lk, bk):
+            s = torch.matmul(qb, kt[..., j:j + bk])
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            d = s - m_new
+            p = torch.exp2(d.to(torch.bfloat16) if bf16_p else d)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.float().sum(-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p.to(vh.dtype).float(),
+                                            vf[:, :, j:j + bk])
+            m = m_new
+        out[:, :, i0:i1] = (acc / l).to(q.dtype)
+    return _merge_heads(out)
+
+
+def plain_nomax_unpadded(q, k, v, num_heads: int, *,
+                         shift: float = DEFAULT_SHIFT,
+                         block_bytes: int = 1 << 30):
+    """T5's function: T2 with `safe` and an fp32 p (also the JAX package's
+    served K2 softmax, ops/flash_attention.py _attn_kernel nomax)."""
+    return plain_nomax_attention(q, k, v, num_heads, shift=shift, safe=True,
+                                 block_bytes=block_bytes)
+
+
+def plain_pvt_attention(q, k, v, num_heads: int, *,
+                        shift: float = DEFAULT_SHIFT,
+                        block_bytes: int = 1 << 30):
+    """T9's function: T5's s, clamp, p and l, but P V takes the fp32 p
+    against v upcast to fp32 (the TPU kernel's dot_general(v, e) promotes
+    v to e's type), computed as o^T = v^T p^T."""
+    qs, kh, vh = _heads(q, k, v, num_heads)
+    Lk = kh.shape[2]
+    kt, vt = kh.float().transpose(-1, -2), vh.float().transpose(-1, -2)
+    out = torch.empty(qs.shape, dtype=q.dtype, device=q.device)
+    for i0, i1 in _query_blocks(qs, Lk, block_bytes):
+        s = torch.matmul(qs[:, :, i0:i1].float(), kt)
+        e = torch.exp2(torch.clamp_max(s, shift + 88.0) - shift)
+        l = e.sum(-1, keepdim=True) + 1e-30
+        ot = torch.matmul(vt, e.transpose(-1, -2))  # (B, H, hd, rows)
+        out[:, :, i0:i1] = (ot.transpose(-1, -2) / l).to(q.dtype)
+    return _merge_heads(out)
+
+
+# --- kernels ---
+
+
+def _check(name, q, k, v, num_heads):
+    _check_qkv(name, q, k, v, num_heads)
+    if q.shape[-1] // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[-1] // num_heads} > "
+                         f"{MAX_HEAD_DIM} (the kernel keeps 16 x hd fp32 "
+                         "outputs per warp in registers)")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must be contiguous")
+    B, Lq, D = q.shape
+    hd = D // num_heads
+    out = torch.empty_like(q)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+            num_heads, Lq, k.shape[1], hd, float(hd**-0.5 * _LOG2E))
+    return out, head, int(q.dtype == torch.bfloat16)
+
+
+def _shape_key(q, k, num_heads, *options):
+    return (tuple(q.shape), tuple(k.shape), num_heads) + options
+
+
+def nomax_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT,
+                    safe: bool = False, bf16_p: bool = False,
+                    bk: int | None = None):
+    """T2: no-max attention; kernel on CUDA, plain_nomax_attention on CPU.
+    `bk` (a divisor of Lk) sets only the plain version's summation chunks;
+    the kernel sums over its own 64-key tiles."""
+    _chunk(bk, k.shape[1])
+    if q.device.type == "cpu":
+        return plain_nomax_attention(q, k, v, num_heads, shift=shift,
+                                     safe=safe, bf16_p=bf16_p, bk=bk)
+    name = "nomax_attention"
+    out, head, is_bf16 = _check(name, q, k, v, num_heads)
+    fn = _cuda.function("attn_arms", "dtp_nomax_attention", _NOMAX_ARGTYPES)
+    code = fn(*head, float(shift), int(safe), int(bf16_p), is_bf16,
+              _cuda.stream_of(q))
+    _cuda.check("attn_arms", "dtp_nomax_attention", code)
+    nomax_launches.record(_shape_key(q, k, num_heads, bool(safe),
+                                     bool(bf16_p)))
+    return out
+
+
+def chunked_attention(q, k, v, num_heads: int, *, bk: int = 64,
+                      bf16_p: bool = False):
+    """T3: online softmax over chunks of `bk` keys; kernel on CUDA (bk 64
+    or 128, its K/V tile), plain_chunked_attention on CPU (any divisor of
+    Lk)."""
+    _chunk(bk, k.shape[1])
+    if q.device.type == "cpu":
+        return plain_chunked_attention(q, k, v, num_heads, bk=bk,
+                                       bf16_p=bf16_p)
+    name = "chunked_attention"
+    out, head, is_bf16 = _check(name, q, k, v, num_heads)
+    if bk not in CHUNK_WIDTHS:
+        raise ValueError(f"{name}: the kernel's chunk is its K/V tile: bk "
+                         f"in {CHUNK_WIDTHS}, got {bk}")
+    fn = _cuda.function("attn_arms", "dtp_chunked_attention",
+                        _CHUNKED_ARGTYPES)
+    code = fn(*head, int(bk), int(bf16_p), is_bf16, _cuda.stream_of(q))
+    _cuda.check("attn_arms", "dtp_chunked_attention", code)
+    chunked_launches.record(_shape_key(q, k, num_heads, int(bk),
+                                       bool(bf16_p)))
+    return out
+
+
+def _shift_arm(name, symbol, counter, q, k, v, num_heads, shift):
+    out, head, is_bf16 = _check(name, q, k, v, num_heads)
+    fn = _cuda.function("attn_arms", symbol, _SHIFT_ARGTYPES)
+    code = fn(*head, float(shift), is_bf16, _cuda.stream_of(q))
+    _cuda.check("attn_arms", symbol, code)
+    counter.record(_shape_key(q, k, num_heads))
+    return out
+
+
+def nomax_unpadded(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
+    """T5: clamped no-max attention, P V over hd unpadded; kernel on CUDA,
+    plain_nomax_unpadded on CPU."""
+    if q.device.type == "cpu":
+        return plain_nomax_unpadded(q, k, v, num_heads, shift=shift)
+    return _shift_arm("nomax_unpadded", "dtp_nomax_unpadded",
+                      nomax_unpadded_launches, q, k, v, num_heads, shift)
+
+
+def pvt_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
+    """T9: T5's softmax with P V transposed and P in fp32; kernel on CUDA,
+    plain_pvt_attention on CPU."""
+    if q.device.type == "cpu":
+        return plain_pvt_attention(q, k, v, num_heads, shift=shift)
+    return _shift_arm("pvt_attention", "dtp_pvt_attention", pvt_launches, q,
+                      k, v, num_heads, shift)
+
+
+# name -> (wrapper, plain version), for the entry point and the smoke
+ARMS = {
+    "nomax_attention": (nomax_attention, plain_nomax_attention),
+    "chunked_attention": (chunked_attention, plain_chunked_attention),
+    "nomax_unpadded": (nomax_unpadded, plain_nomax_unpadded),
+    "pvt_attention": (pvt_attention, plain_pvt_attention),
+}

@@ -6,6 +6,8 @@ them equal on the same inputs): numpy HWC images, uint8 or float in [0, 1].
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 
@@ -56,6 +58,20 @@ def crop_resize_square(image: np.ndarray, width: int) -> np.ndarray:
     if image.dtype == np.uint8:
         return float01_to_uint8(out)
     return out.astype(image.dtype)
+
+
+def procedural_brush(prompt: str, size: int = 256) -> np.ndarray:
+    """A prompt's brush: (size, size, 3) uint8 colored noise over 8-pixel
+    blocks, seeded by the prompt's sha256 (not hash(), which is salted per
+    process), so the same prompt gives the same brush in every run. The
+    JAX package's client/nvcf_txt2img.py procedural_brush."""
+    seed = int.from_bytes(
+        hashlib.sha256(prompt.encode("utf-8")).digest()[:4], "little")
+    rng = np.random.default_rng(seed)
+    base = rng.random((size // 8, size // 8, 3))
+    img = np.kron(base, np.ones((8, 8, 1)))
+    img += 0.15 * rng.standard_normal((size, size, 3))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
 def validate_session_canvas(canvas_u8: np.ndarray, res: int) -> np.ndarray:

@@ -9,25 +9,32 @@ handlers equal), little-endian:
   response  [u8 type] + payload
   image     [i32 width][i32 height][i32 channels][u8 pixels, HWC]
 
+NEW_BRUSH_PROMPT (type 1) carries [u32 length][utf-8 prompt] after the
+settings header.
+
 Stroke sessions (types 16-23) carry after the settings header: an RGBA
 canvas image (BEGIN_SESSION), [i32 x0][i32 y0][u8 flags] (STAMP_AT and
 ERASE_AT; flag 1 return pixels, flag 2 overpaint) or nothing (FETCH_CANVAS,
 END_SESSION). Their replies: RETURN_ACK [u32 seq], RETURN_CANVAS + image,
 RETURN_STAMP + image, or RETURN_ERROR [u32 length][utf-8 message].
 
-`handle_request_bytes` answers NEW_BRUSH_IMAGE (a brush preview),
-NEW_STAMP and the session requests, in the order of the JAX package's
-serving/handler.py.
+`handle_request_bytes` answers NEW_BRUSH_PROMPT and NEW_BRUSH_IMAGE (a
+brush preview), NEW_STAMP and the session requests, in the order of the JAX
+package's serving/handler.py.
 """
 
 from __future__ import annotations
 
 import enum
+import logging
+import os
 import struct
 
 import numpy as np
 
-from .model_base import float01_to_uint8
+from .model_base import float01_to_uint8, procedural_brush
+
+logger = logging.getLogger(__name__)
 
 _TYPE = struct.Struct("<B")
 _SETTINGS = struct.Struct("<BBBHff")  # steps, context_pad, tg_steps, width,
@@ -43,6 +50,7 @@ _ERROR_BYTES = 4096  # a RETURN_ERROR message is cut to this
 
 class RequestType(enum.IntEnum):
     NEW_BRUSH_IMAGE = 0
+    NEW_BRUSH_PROMPT = 1  # [u32 length][utf-8 prompt] -> RETURN_PREVIEW
     NEW_STAMP = 2
     RETURN_PREVIEW = 3
     RETURN_STAMP = 4
@@ -104,6 +112,23 @@ def decode_request(raw: bytes):
     """-> (type, settings dict, image view of `raw`)."""
     kind, settings, offset = _decode_header(raw)
     return kind, settings, _image_at(raw, offset)
+
+
+def encode_prompt_payload(prompt: str) -> bytes:
+    data = prompt.encode("utf-8")
+    return _U32.pack(len(data)) + data
+
+
+def decode_prompt_payload(raw: bytes, offset: int = 0) -> str:
+    (length,) = _U32.unpack_from(raw, offset)
+    start = offset + _U32.size
+    return bytes(raw[start:start + length]).decode("utf-8")
+
+
+def encode_brush_prompt_request(prompt: str, **settings) -> bytes:
+    """A full NEW_BRUSH_PROMPT request: type, settings header, prompt."""
+    return (_header(RequestType.NEW_BRUSH_PROMPT, **settings)
+            + encode_prompt_payload(prompt))
 
 
 # --- stroke sessions ---
@@ -214,17 +239,44 @@ def handle_session_request(model, raw: bytes) -> bytes:
     raise ValueError(f"request type {kind} is not a session request")
 
 
+_nvcf_key_warned = False
+
+
+def brush_from_prompt(prompt: str, size: int) -> np.ndarray:
+    """The prompt's brush: always the procedural one. The JAX package asks
+    a hosted text-to-image service when DTP_NVCF_API_KEY is set and decodes
+    its reply with Pillow; the port has neither network nor Pillow, so it
+    warns once that it ignores the key."""
+    global _nvcf_key_warned
+    if os.environ.get("DTP_NVCF_API_KEY") and not _nvcf_key_warned:
+        _nvcf_key_warned = True
+        logger.warning("DTP_NVCF_API_KEY is set, but the port does not call "
+                       "the text-to-image service: NEW_BRUSH_PROMPT uses the "
+                       "procedural brush")
+    return procedural_brush(prompt, size=size)
+
+
+def _preview_reply(model, settings) -> bytes:
+    """RETURN_PREVIEW of the model's current brush."""
+    context = model.create_preview_brush_context(model.image)
+    result = model.generate(context, **settings)
+    return encode_response(RequestType.RETURN_PREVIEW,
+                           float01_to_uint8(result))
+
+
 def handle_request_bytes(model, raw: bytes) -> bytes:
     """Decode one request, run the model, return the encoded reply."""
+    if raw[0] == RequestType.NEW_BRUSH_PROMPT:
+        _, settings, offset = _decode_header(raw)
+        prompt = decode_prompt_payload(raw, offset)
+        model.set_brush(brush_from_prompt(prompt, model.resolution()))
+        return _preview_reply(model, settings)
     if is_session_request(raw[0]):
         return handle_session_request(model, raw)
     kind, settings, image = decode_request(raw)
     if kind == RequestType.NEW_BRUSH_IMAGE:
         model.set_brush(image[..., :3])
-        context = model.create_preview_brush_context(model.image)
-        result = model.generate(context, **settings)
-        return encode_response(RequestType.RETURN_PREVIEW,
-                               float01_to_uint8(result))
+        return _preview_reply(model, settings)
     if kind == RequestType.NEW_STAMP:
         return encode_response(RequestType.RETURN_STAMP,
                                model.generate_u8(image, **settings))

@@ -1,0 +1,222 @@
+"""A/B of the attention softmax arms at the UNet's self-attention shapes.
+
+    python -m diffusiontexturepainting_torch.tools.attn_variants
+    python -m diffusiontexturepainting_torch.tools.attn_variants \\
+        --shapes stamp --json-out attn_variants.json
+
+The port of the JAX repository's tools/bench_attn_variants.py and
+tools/bench_attn_round4.py main(). Rows at each shape:
+
+  base            the port's attention() route there (K2 or K8)
+  sdpa            torch's scaled_dot_product_attention (a yardstick)
+  nomax-safe, nomax, nomax/bf16p          T2 (nomax_attention)
+  chunk64, chunk128 and their /bf16p      T3 (chunked_attention)
+  nomax-unpadded                          T5 (nomax_unpadded)
+  pvT                                     T9 (pvt_attention)
+
+Each row gets its ms a call, its max|diff| against base and against its own
+plain version (ops/attention_variants.py), in bf16 (the tools' dtype).
+Timing: a chain of CALLS calls, each output fed back as the next q so that
+no call can be skipped (the tools' chain_time), timed with CUDA events, best
+of TRIES.
+
+Input sets (seeded torch.Generator): `variants` (q, k, v standard normal,
+every row timed), `round4` (k x 0.2, base and pvT timed) and `clamp` (q and
+k x 8: raw logits far above 83, where the clamped no-max arms leave the
+exact softmax; not timed), the last at the first shape only.
+
+Shapes: `tools` (the tools' unet L0 / L1 512px), `stamp` (the 1024^2 / 4
+stamp's three UNet self-attentions), `all` (both, the default) and `tiny`
+(for the CPU tests). On the CPU (--device cpu) the wrappers run their plain
+versions and nothing is timed. Without a card and without --device cpu it
+exits nonzero. Prints one line per row, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import attention as attn
+from ..ops import attention_variants as arms
+
+# (label, B, L, D, heads); self-attention, hd = D / heads
+SHAPE_SETS = {
+    "tools": [("unet L0 512px", 3, 4096, 320, 8),
+              ("unet L1 512px", 3, 1024, 640, 8)],
+    "stamp": [("1024^2 L0", 3, 16384, 320, 8),
+              ("1024^2 L1", 3, 4096, 640, 8),
+              ("1024^2 L2", 3, 1024, 1280, 8)],
+    "tiny": [("tiny hd40", 1, 256, 80, 2), ("tiny hd80", 2, 128, 160, 2)],
+}
+SHAPE_SETS["all"] = SHAPE_SETS["tools"] + SHAPE_SETS["stamp"]
+
+# row -> (arm, options)
+ARM_ROWS = {
+    "nomax-safe": ("nomax_attention", dict(safe=True)),
+    "nomax": ("nomax_attention", {}),
+    "nomax/bf16p": ("nomax_attention", dict(bf16_p=True)),
+    "chunk64": ("chunked_attention", dict(bk=64)),
+    "chunk64/bf16p": ("chunked_attention", dict(bk=64, bf16_p=True)),
+    "chunk128": ("chunked_attention", dict(bk=128)),
+    "chunk128/bf16p": ("chunked_attention", dict(bk=128, bf16_p=True)),
+    "nomax-unpadded": ("nomax_unpadded", {}),
+    "pvT": ("pvt_attention", {}),
+}
+ROWS = ("base", "sdpa") + tuple(ARM_ROWS)
+# the input sets and the rows each one times
+TIMED = {"variants": ROWS, "round4": ("base", "pvT"), "clamp": ()}
+CALLS, TRIES = 20, 4
+
+
+def make_inputs(B, L, D, input_set, device, dtype, gen):
+    """Seeded q, k, v of one input set, (B, L, D) each."""
+    def rnd():
+        return torch.randn((B, L, D), generator=gen, device=device)
+    q, k, v = rnd(), rnd(), rnd()
+    if input_set == "round4":
+        k = k * 0.2
+    elif input_set == "clamp":
+        q, k = q * 8.0, k * 8.0
+    return tuple(t.to(dtype) for t in (q, k, v))
+
+
+def _sdpa(q, k, v, heads):
+    qh, kh, vh = (attn._split_heads(t, heads) for t in (q, k, v))
+    return attn._merge_heads(F.scaled_dot_product_attention(qh, kh, vh))
+
+
+def base_plain(q, k, v, heads):
+    """The plain version of attention()'s route at this shape."""
+    route = attn.attention_route(q.shape[1], k.shape[1],
+                                 q.shape[-1] // heads, q.dtype)
+    if route == "streaming":
+        return attn.plain_attention_streaming(q, k, v, heads)
+    return attn.plain_attention(q, k, v, heads)
+
+
+def row_call(row, q, k, v, heads, plain=False):
+    """One call of a row's function (its plain version with `plain`;
+    None for sdpa, which has none)."""
+    if row == "base":
+        return (base_plain if plain else attn.attention)(q, k, v, heads)
+    if row == "sdpa":
+        return None if plain else _sdpa(q, k, v, heads)
+    arm, options = ARM_ROWS[row]
+    wrapper, plain_fn = arms.ARMS[arm]
+    return (plain_fn if plain else wrapper)(q, k, v, heads, **options)
+
+
+def chain_ms(row, q, k, v, heads, calls):
+    """Best of TRIES CUDA-event timings of a chain of `calls` calls, each
+    output the next call's q; ms a call."""
+    def chain():
+        x = q
+        for _ in range(calls):
+            x = row_call(row, x, k, v, heads)
+        return x
+    chain()
+    best = float("inf")
+    for _ in range(TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        chain()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    return best
+
+
+def max_diff(a, b):
+    """max|a - b|, or None where either is missing or not finite (T2
+    without `safe` overflows on the clamp set, as on the TPU)."""
+    if a is None or b is None:
+        return None
+    d = (a.float() - b.float()).abs().max().item()
+    return d if d == d and d != float("inf") else None
+
+
+def run_shape(label, B, L, D, heads, input_set, device, gen):
+    """Every row at one shape and input set -> list of records."""
+    q, k, v = make_inputs(B, L, D, input_set, device, torch.bfloat16, gen)
+    base = row_call("base", q, k, v, heads)
+    records = []
+    for row in ROWS:
+        got = base if row == "base" else row_call(row, q, k, v, heads)
+        want = row_call(row, q, k, v, heads, plain=True)
+        timed = device == "cuda" and row in TIMED[input_set]
+        records.append({
+            "shape": label, "B": B, "L": L, "D": D, "heads": heads,
+            "input_set": input_set, "row": row,
+            "route": attn.attention_route(L, L, D // heads, q.dtype),
+            "ms": chain_ms(row, q, k, v, heads, CALLS) if timed else None,
+            "max_abs_diff_base": max_diff(got, base),
+            "max_abs_diff_plain": max_diff(got, want),
+            "finite": bool(torch.isfinite(got).all()),
+        })
+        del got, want
+    return records
+
+
+def _fmt(x, spec):
+    return "-" if x is None else format(x, spec)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--shapes", default="all", choices=sorted(SHAPE_SETS))
+    ap.add_argument("--json-out", default=None,
+                    help="also write the JSON record to this file")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("attn_variants: no CUDA device (use --device cpu for the "
+              "plain versions)", file=sys.stderr)
+        return 1
+    card = None
+    if args.device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(f"device: {torch.cuda.get_device_name(0)} ({card})",
+              flush=True)
+    gen = torch.Generator(device=args.device).manual_seed(0)
+    shapes = SHAPE_SETS[args.shapes]
+    records = []
+    with torch.inference_mode():
+        for i, (label, B, L, D, heads) in enumerate(shapes):
+            for input_set in TIMED:
+                if input_set == "clamp" and i:
+                    continue
+                rows = run_shape(label, B, L, D, heads, input_set,
+                                 args.device, gen)
+                for r in rows:
+                    print(f"{label} {r['row']} [{input_set}, "
+                          f"{r['route']} route]: "
+                          f"{_fmt(r['ms'], '.4f')} ms/call, max|diff| vs "
+                          f"base {_fmt(r['max_abs_diff_base'], '.3e')}, "
+                          f"vs its plain version "
+                          f"{_fmt(r['max_abs_diff_plain'], '.3e')}",
+                          flush=True)
+                records += rows
+    record = {"device": (torch.cuda.get_device_name(0)
+                         if args.device == "cuda" else "cpu"),
+              "card": card, "calls": CALLS, "tries": TRIES,
+              "rows": records}
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(record, f)
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

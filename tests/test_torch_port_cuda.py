@@ -193,3 +193,63 @@ def test_staged_entries_raise_and_never_fall_back():
             (2, 64), device="cuda"))
     with pytest.raises(TypeError):
         conv3x3.gn_silu_conv3x3(x, s.bfloat16(), s, w, b)
+
+
+# The softmax arms (csrc/attn_arms.cu): head dims 40, 80 and 160 (the
+# kernel's three register tiles), a ragged length, each option. T3's chunk
+# must divide Lk, so its keys are 1152 against 1100 queries.
+ARM_KEYS = {
+    "nomax_attention": [(True, False), (False, False), (False, True)],
+    "chunked_attention": [(64, False), (128, False), (64, True)],
+    "nomax_unpadded": [()],
+    "pvt_attention": [()],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [40, 80, 160])
+@pytest.mark.parametrize("kind", list(ARM_KEYS))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_arms_match_plain(kind, hd, dtype):
+    """Each arm and option against its plain version at L 1100, 2 images
+    of 4 heads (tolerance as chip_smoke.py's)."""
+    gen = _setup()
+    import chip_smoke
+
+    lk = 1152 if kind == "chunked_attention" else 1100
+    for options in ARM_KEYS[kind]:
+        key = ((2, 1100, 4 * hd), (2, lk, 4 * hd), 4) + options
+        r = chip_smoke.compare(kind, key, getattr(torch, dtype), gen)
+        assert r["err_over_tol"] <= 1.0, (key, r)
+
+
+@pytest.mark.cuda
+def test_attention_arms_raise_and_never_fall_back():
+    """hd > 160, T3's bk outside {64, 128} or not dividing Lk, fp16 and
+    non-contiguous inputs raise; a CUDA call launches the kernel (its
+    count moves) and returns a CUDA tensor."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    x = torch.randn((1, 256, 2 * 168), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="160"):
+        av.nomax_unpadded(x, x, x, 2)
+    y = torch.randn((1, 256, 80), generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        av.chunked_attention(y, y, y, 2, bk=32)
+    with pytest.raises(ValueError):
+        av.chunked_attention(y, y, y, 2, bk=96)
+    with pytest.raises(TypeError):
+        av.pvt_attention(y.half(), y.half(), y.half(), 2)
+    z = y[:, ::2]  # rows two apart: not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        av.nomax_attention(z, z, z, 2)
+    for name, (wrapper, _) in av.ARMS.items():
+        counter = {"nomax_attention": av.nomax_launches,
+                   "chunked_attention": av.chunked_launches,
+                   "nomax_unpadded": av.nomax_unpadded_launches,
+                   "pvt_attention": av.pvt_launches}[name]
+        before = counter.launches
+        out = wrapper(y, y, y, 2)
+        torch.cuda.synchronize()
+        assert out.is_cuda and counter.launches == before + 1, name
