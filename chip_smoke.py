@@ -60,17 +60,29 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                512^2 / 4 steps, as phase 4; its first stamp against the
                default configuration's at 512^2 / 4, compared in u8;
   9a. attn_arms
-               the softmax arms of the attention kernels (T2 no-max, T3
-               chunked, T5 unpadded no-max, T9 transposed P V;
-               csrc/attn_arms.cu) through the A/B entry point's functions
-               (diffusiontexturepainting_torch.tools.attn_variants) at the
-               1024^2 / 4 stamp's three UNet self-attention shapes, each
+               seven arms of the attention kernels through the A/B entry
+               point's functions (diffusiontexturepainting_torch.tools.
+               attn_variants): the softmax arms T2 no-max, T3 chunked, T5
+               unpadded no-max (heads split by one copy pass) and T9
+               transposed P V (csrc/attn_arms.cu), and the head-layout arms
+               T6 (heads read in place, head-major blocks), T7 (all heads in
+               one block) and T8 (head fastest) (csrc/attn_layouts.cu), at
+               the 1024^2 / 4 stamp's three UNet self-attention shapes, each
                launched as often as that stamp launches K8/K2 there (20 a
                shape), each output against the attention() route's; the
                clamp probe (raw logits above 83: the clamped arms equal
                their plain versions and differ from the exact softmax of K8,
-               which rounds q as the arms do; T3 equals it) and the underflow probe (every exp2 underflows:
-               zeros from the safe arms, no NaN);
+               which rounds q as the arms do; T3 equals it) and the
+               underflow probe (every exp2 underflows: zeros from the safe
+               arms, no NaN);
+  9b. slotted_arm
+               the slotted-input arm T4 (slotted_kernel_call: the row-max
+               softmax with exp2 of bf16 logits over (B*h, L, 128) head
+               slots; csrc/attn_layouts.cu) at the slotted path's K13 shapes
+               (512^2 / 4: 4096 tokens at hd 40, 1024 at hd 80), each as
+               often as a stamp launches K13 there (20 a shape), the slots
+               split outside the counted calls; each output against its
+               plain version and against K13 on the same data;
   9. kernels   each kernel against its plain version at every shape any
                path launched it at, in bf16 and fp32 (TF32 off),
                statistics included; CUDA-event times of the kernel, its
@@ -144,9 +156,16 @@ SOURCES = {
     "chunked_attention": "csrc/attn_arms.cu",
     "nomax_unpadded": "csrc/attn_arms.cu",
     "pvt_attention": "csrc/attn_arms.cu",
+    "nomax_4d": "csrc/attn_layouts.cu",
+    "nomax_allheads": "csrc/attn_layouts.cu",
+    "nomax_laneslice": "csrc/attn_layouts.cu",
+    "slotted_kernel_call": "csrc/attn_layouts.cu",
 }
+# the arms of the attn_arms path (the softmax arms, then the head-layout
+# arms) and the slotted-input arm of the slotted_arm path
 ARMS = ("nomax_attention", "chunked_attention", "nomax_unpadded",
-        "pvt_attention")
+        "pvt_attention", "nomax_4d", "nomax_allheads", "nomax_laneslice")
+SLOTTED_ARM = "slotted_kernel_call"
 REPLACES = {
     "conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:162",
     "upsample2x_conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:761",
@@ -171,6 +190,11 @@ REPLACES = {
     "chunked_attention": "tools/bench_attn_variants.py:70",
     "nomax_unpadded": "tools/bench_attn_variants.py:257",
     "pvt_attention": "tools/bench_attn_round4.py:60",
+    # the pallas_call lines: T6's body is T5's kernel, T4's is K2's
+    "nomax_4d": "tools/bench_attn_variants.py:325",
+    "nomax_allheads": "tools/bench_attn_variants.py:379",
+    "nomax_laneslice": "tools/bench_attn_variants.py:426",
+    "slotted_kernel_call": "tools/bench_attn_variants.py:235",
 }
 # What the library yardstick of a kernel computes, where it is not the
 # kernel's whole function.
@@ -182,6 +206,8 @@ LIBRARY_IS = {
                        "nearest one-call equivalent",
     **{name: "SDPA: the exact row-max softmax; equal to the no-max arms "
              "while raw logits < 83" for name in ARMS},
+    SLOTTED_ARM: "SDPA over the (B*h, 1, L, 128) slots with T4's scale: "
+                 "the exact row-max softmax, p not rounded to bf16",
 }
 # The path each kernel's times are reported for; any other kernel: the
 # default path.
@@ -191,7 +217,8 @@ REPORTED_ON = {"conv3x3": "twin", "flash_attention_streaming": "envelope",
                "upsample2x_conv3x3_inpad": "twin_inpad",
                "conv3x3_stream": "resnet_bodies",
                "gn_silu_conv3x3": "resnet_bodies",
-               **{name: "attn_arms" for name in ARMS}}
+               **{name: "attn_arms" for name in ARMS},
+               SLOTTED_ARM: "slotted_arm"}
 # What a kernel's "ms" sums, where it is not one stamp of its path.
 MS_IS = {
     "conv3x3_stream": "bf16 kernel time per stamp of the safe twin's K7 "
@@ -202,6 +229,9 @@ MS_IS = {
                        "summed over their shapes",
     **{name: "bf16 kernel time of the 60 UNet self-attentions of one "
              "1024^2/4 stamp" for name in ARMS},
+    SLOTTED_ARM: "bf16 kernel time of the 40 slotted self-attentions of one "
+                 "512^2/4 stamp (K13's shapes), all 128 lanes of a slot "
+                 "read",
 }
 # The member of the conv family that computes the same function at the
 # same shapes, timed beside each staged-tile kernel.
@@ -213,12 +243,16 @@ FAMILY_IS = {
                        "with the residual; the time embedding not added)",
     **{name: "K8 at (3, 16384, 320), K2 at the other two shapes (the "
              "attention() route)" for name in ARMS},
+    SLOTTED_ARM: "K13 (flash_attention_slotted) on the same data in the "
+                 "(B, L, h*128) layout",
 }
 # The arms' options as the attn_arms path runs them: each arm's row of the
 # A/B entry point (T2 in its safe form, T3 at 64-key chunks).
 ARM_PATH_ROWS = {"nomax_attention": "nomax-safe",
                  "chunked_attention": "chunk64",
-                 "nomax_unpadded": "nomax-unpadded", "pvt_attention": "pvT"}
+                 "nomax_unpadded": "nomax-unpadded", "pvt_attention": "pvT",
+                 "nomax_4d": "nomax-4d", "nomax_allheads": "nomax-allheads",
+                 "nomax_laneslice": "nomax-laneslice"}
 # K8/K2 launches a 1024^2/4 stamp at each UNet self-attention shape
 ARM_LAUNCHES = 20
 # The JAX package's streaming_plan shape test (ops/conv3x3.py:942), without
@@ -240,10 +274,7 @@ def counters():
         groupnorm,
     )
 
-    return [attention_variants.nomax_launches,
-            attention_variants.chunked_launches,
-            attention_variants.nomax_unpadded_launches,
-            attention_variants.pvt_launches,
+    return [*attention_variants.LAUNCHES.values(),
             conv3x3.conv3x3_launches, conv3x3.upsample_launches,
             attention.flash_launches, gn_conv.gn_conv_resident_launches,
             gn_conv.gn_conv_stream_launches, gn_conv.upconv_stream_launches,
@@ -305,6 +336,31 @@ def _kernel_case(kind, shape_key, dtype, gen):
                     lambda: attention.plain_attention_streaming(q, k, v,
                                                                 heads))
         return pair + (sdpa(q, k, v, heads),)
+    if kind == SLOTTED_ARM:
+        # T4 over the (B*h, L, P) split of head-slotted data (the first hd
+        # lanes of each slot random, the rest zero); K13 reads the same
+        # data in the (B, L, h*P) layout where P is its 128-lane slot
+        (BH, L, P), (_, Lk, _), heads, hd, exp2_bf16 = shape_key
+        B = BH // heads
+
+        def slots(length):
+            x = torch.zeros((B, length, heads, P), dtype=dtype,
+                            device="cuda")
+            x[..., :hd] = rnd(B, length, heads, hd)
+            return x.view(B, length, heads * P)
+        qs, ks, vs = slots(L), slots(Lk), slots(Lk)
+        qh, kh, vh = (attention_variants.split_heads(t, heads)
+                      for t in (qs, ks, vs))
+        scale = hd**-0.5
+        return (lambda: attention_variants.slotted_kernel_call(
+                    qh, kh, vh, scale, exp2_bf16=exp2_bf16),
+                lambda: attention_variants.plain_slotted_kernel_call(
+                    qh, kh, vh, scale, exp2_bf16=exp2_bf16),
+                lambda: F.scaled_dot_product_attention(
+                    qh[:, None], kh[:, None], vh[:, None], scale=scale),
+                (lambda: attention.flash_attention_slotted(qs, ks, vs, heads,
+                                                           hd))
+                if P == attention.SLOT and L == Lk else None)
     if kind in ARMS:
         q_shape, k_shape, heads, *opts = shape_key
         q, k, v = rnd(*q_shape), rnd(*k_shape), rnd(*k_shape)
@@ -412,7 +468,9 @@ def work(kind, key, itemsize):
     The upsample conv's operations are counted in the exact folded 4-tap
     form, its weight bytes as the 9-tap 3x3 kernel that the function
     needs (the folded 16-tap copy is the module's choice, not the work)."""
-    if kind in ("flash_attention", "flash_attention_streaming") + ARMS:
+    if kind in ("flash_attention", "flash_attention_streaming", SLOTTED_ARM) \
+            + ARMS:
+        # T4: every lane of its (B*h, L, P) slots is its function's work
         (B, Lq, D), (_, Lk, _), *_ = key
         return 4 * B * Lq * Lk * D, itemsize * 2 * B * (Lq + Lk) * D
     if kind == "flash_attention_slotted":
@@ -521,6 +579,8 @@ def compare(kind, shape_key, dtype, gen, timed=False):
         pad = got.reshape(*got.shape[:2], D // 128, 128)[..., shape_key[2]:]
         if pad.any():
             raise AssertionError(f"{name}: nonzero pad lanes")
+    if kind == SLOTTED_ARM and got[..., shape_key[3]:].any():
+        raise AssertionError(f"{name}: nonzero pad lanes")
     if (got_st is None) != (want_st is None):
         raise AssertionError(f"{name}: statistics returned by one side only")
     if want_st is not None:
@@ -633,8 +693,8 @@ def expected_per_stamp(model, res, steps, in_pad=False):
         "downsample_conv3x3_stats": n_v - 1 if fused_enc else 0,
         "spatial_moments": steps * unet_moments + 2 * fused_enc
         + 2 * fused_dec,
-        # the softmax arms run on a path of their own (attn_arms)
-        **{name: 0 for name in ARMS},
+        # the arms run on paths of their own (attn_arms, slotted_arm)
+        **{name: 0 for name in ARMS + (SLOTTED_ARM,)},
     }
 
 
@@ -1195,13 +1255,81 @@ def attn_arms_phase(gen):
         # underflow: every base-2 logit far below shift - 126
         q = torch.full((2, 1100, 320), 60.0, device="cuda", dtype=bf16)
         v = torch.randn((2, 1100, 320), generator=gen, device="cuda").to(bf16)
-        for name in ("nomax_attention", "nomax_unpadded", "pvt_attention"):
+        safe = [name for name in ARMS if name != "chunked_attention"]
+        for name in safe:
             got = tool.row_call(ARM_PATH_ROWS[name], q, -q, v, 8)
             if not torch.equal(got, torch.zeros_like(got)):
                 raise AssertionError(f"attn_arms: underflow probe {name}: "
                                      "not all zeros")
-        log("attn_arms: underflow probe (2, 1100, 320): nomax_attention "
-            "(safe), nomax_unpadded and pvt_attention give zeros, no NaN")
+        log(f"attn_arms: underflow probe (2, 1100, 320): {', '.join(safe)} "
+            "(nomax_attention safe) give zeros, no NaN")
+    return launches, shapes_seen
+
+
+def slotted_arm_phase(gen, k13_shapes, stamps):
+    """T4 (slotted_kernel_call) at the slotted path's K13 shapes, each as
+    often as one stamp launches K13 there, on the (B*h, L, 128) split of
+    seeded head-slotted q, k, v (split outside the counted calls, as the
+    tool does), with the counts set to 0 just before and read just after;
+    each output against its plain version and against K13 on the same data
+    in the (B, L, h*128) layout. Returns (launches, shapes), T4's shape keys
+    with the heads and head dim its kernel case needs."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import attention
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+    from diffusiontexturepainting_torch.tools import attn_variants as tool
+
+    cases = []
+    for ((B, L, _), heads, hd), n in sorted(k13_shapes.items()):
+        slots = [tool.to_slots(torch.randn((B, L, heads * hd), generator=gen,
+                                           device="cuda").bfloat16(), heads)
+                 for _ in range(3)]
+        cases.append((heads, hd, n // stamps, slots,
+                      [av.split_heads(t, heads) for t in slots]))
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    tic = time.perf_counter()
+    with torch.inference_mode():
+        firsts = [[av.slotted_kernel_call(*split, hd**-0.5)
+                   for _ in range(calls)][0]
+                  for _, hd, calls, _, split in cases]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    shapes_seen = {c.name: dict(c.shapes) for c in counters()}
+    want = {SLOTTED_ARM: sum(case[2] for case in cases)}
+    for name, got in launches.items():
+        log(f"slotted_arm counts: {name}: {got} launches, expected "
+            f"{want.get(name, 0)}")
+        if got != want.get(name, 0):
+            raise AssertionError(f"slotted_arm: {name}: {got} launches, "
+                                 f"expected {want.get(name, 0)}")
+    log(f"slotted_arm: {SLOTTED_ARM} x {want[SLOTTED_ARM]} calls at "
+        f"{len(cases)} shapes in {secs * 1e3:.1f} ms wall")
+    with torch.inference_mode():
+        for (heads, hd, _, slots, split), got in zip(cases, firsts):
+            label = f"{tuple(split[0].shape)} hd {hd}"
+            plain = av.plain_slotted_kernel_call(*split, hd**-0.5)
+            err, tol = _err_tol(got, plain)
+            merged = av.merge_heads(got, slots[0].shape[0])
+            off, tol13 = _err_tol(merged, attention.flash_attention_slotted(
+                *slots, heads, hd))
+            if (not torch.isfinite(got).all() or not err <= tol
+                    or not off <= tol13):
+                raise AssertionError(
+                    f"slotted_arm: {label}: {err:.3e} from its plain version "
+                    f"(tol {tol:.3e}), {off:.3e} from K13 (tol {tol13:.3e})")
+            log(f"slotted_arm: {label}: max|diff| {err:.3e} against its "
+                f"plain version (tol {tol:.3e}; err/tol {err / tol:.3f}), "
+                f"{off:.3e} against K13 on the same data (tol {tol13:.3e}; "
+                f"err/tol {off / tol13:.3f})")
+    heads_of = {tuple(split[0].shape): (heads, hd)
+                for heads, hd, _, _, split in cases}
+    shapes_seen[SLOTTED_ARM] = {
+        (q, k, *heads_of[q], exp2): n
+        for (q, k, exp2), n in shapes_seen[SLOTTED_ARM].items()}
     return launches, shapes_seen
 
 
@@ -1403,6 +1531,17 @@ def main() -> int:
         ("nomax_unpadded", ((2, 1100, 1280), (2, 1100, 1280), 8)),
         ("pvt_attention", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("pvt_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        # the layout arms at each register tile and a ragged length; T4 at
+        # 128 lanes with fp32 logits (the option the slotted_arm path does
+        # not run), with P = hd (no pad lanes) and at the 160-lane tile
+        ("nomax_4d", ((2, 1100, 320), (2, 1100, 320), 8)),
+        ("nomax_allheads", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        ("nomax_laneslice", ((2, 1100, 640), (2, 1100, 640), 8)),
+        ("slotted_kernel_call", ((8, 1100, 128), (8, 1100, 128), 4, 40,
+                                 False)),
+        ("slotted_kernel_call", ((8, 1100, 80), (8, 1100, 80), 4, 80, True)),
+        ("slotted_kernel_call", ((4, 1100, 160), (4, 1100, 160), 2, 150,
+                                 True)),
     ]
     for kind, key in probes:
         dtypes = (torch.bfloat16, torch.float32) + (
@@ -1496,6 +1635,12 @@ def main() -> int:
     launches, shapes = attn_arms_phase(gen)
     paths["attn_arms"] = dict(launches=launches, shapes=shapes, stamps=1,
                               steps=FEW_STEPS, res=ENVELOPE_RES)
+    release()
+    launches, shapes = slotted_arm_phase(
+        gen, paths["slotted"]["shapes"]["flash_attention_slotted"],
+        paths["slotted"]["stamps"])
+    paths["slotted_arm"] = dict(launches=launches, shapes=shapes, stamps=1,
+                                steps=FEW_STEPS, res=SLOTTED_RES)
     release()
 
     record = kernels_phase(gen, paths)

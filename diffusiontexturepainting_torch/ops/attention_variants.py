@@ -1,29 +1,42 @@
-"""The softmax arms of the attention kernels: (B, Lq, D) q against (B, Lk, D)
-k, v with D = num_heads * hd, returning (B, Lq, D).
+"""The softmax and layout arms of the attention kernels: (B, Lq, D) q
+against (B, Lk, D) k, v with D = num_heads * hd, returning (B, Lq, D); T4
+takes heads already split and padded.
 
 Port of the A/B variants in the JAX repository's tools/bench_attn_variants.py
 and tools/bench_attn_round4.py, named after them so each counterpart is
 found:
 
-  nomax_attention    T2 <- nomax_attention / _nomax_kernel
-  chunked_attention  T3 <- chunked_attention / _chunked_kernel
-  nomax_unpadded     T5 <- nomax_unpadded / _nomax_unpadded_kernel
-  pvt_attention      T9 <- pvt_attention / _pvt_kernel
+  nomax_attention      T2 <- nomax_attention / _nomax_kernel
+  chunked_attention    T3 <- chunked_attention / _chunked_kernel
+  nomax_unpadded       T5 <- nomax_unpadded / _nomax_unpadded_kernel
+  pvt_attention        T9 <- pvt_attention / _pvt_kernel
+  nomax_4d             T6 <- nomax_4d (T5's kernel over (B, L, h, hd) views)
+  nomax_allheads       T7 <- nomax_allheads / _nomax_allheads_kernel
+  nomax_laneslice      T8 <- nomax_laneslice / _nomax_laneslice_kernel
+  slotted_kernel_call  T4 <- slotted_kernel_call (_attn_kernel, row max,
+                       over (B*h, L, 128) head slots)
+
+T5 to T8 compute one function; what differs is where the heads are split:
+by one copy pass outside the kernel (T5, as the TPU tool does), or inside
+it, with the blocks mapped head-major (T6), all heads in one block (T7) or
+head fastest (T8).
 
 Each rounds where the TPU kernel rounds: q is multiplied by scale*log2(e) in
 fp32 and rounded to its dtype before Q K^T, so s is the fp32 base-2 logit;
-probabilities are rounded to v's dtype for P V (T9: kept fp32, v upcast),
-the row sum is fp32 and the division comes after P V, rounded once. Two
-flaws of the TPU wrappers are not copied: their `Lk // bk` drops the tail
-keys (here `bk` must divide Lk, or ValueError), and their `Lq // q_block`
-grid drops the tail queries (here every row is computed). The TPU tile
-knobs (q_block, the 128-lane head pad, VMEM residency) are not part of the
-functions and not ported.
+probabilities are rounded to v's dtype for P V (T9: kept fp32, v upcast;
+T4 with exp2_bf16: bf16 whatever v's dtype), the row sum is fp32 and the
+division comes after P V, rounded once. Flaws of the TPU wrappers are not
+copied: their `Lk // bk` drops the tail keys (here `bk` must divide Lk, or
+ValueError), and their `Lq // q_block` grid drops the tail queries (T4's,
+unclamped, is empty below 512 queries): here every row is computed. The TPU
+tile knobs (q_block, the 128-lane head pad, VMEM residency) are not part of
+the functions and not ported.
 
-The kernels live in csrc/attn_arms.cu (register-resident, hd <= 160). A
-wrapper takes its plain version only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises. `ops.attention.attention` and the
-served paths never call these.
+The kernels live in csrc/attn_arms.cu (T2, T3, T5, T9) and
+csrc/attn_layouts.cu (T4, T6, T7, T8), one register-resident body
+(csrc/attn_arms.cuh, hd <= 160). A wrapper takes its plain version only for
+a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+`ops.attention.attention` and the served paths never call these.
 """
 
 from __future__ import annotations
@@ -33,7 +46,14 @@ import ctypes
 import torch
 
 from .. import _cuda
-from .attention import _LOG2E, _check_qkv, _merge_heads, _split_heads
+from .attention import (
+    _LOG2E,
+    _check_qkv,
+    _merge_heads,
+    _prescaled,
+    _softmax_pv,
+    _split_heads,
+)
 
 MAX_HEAD_DIM = 160  # the kernel's 16 x hd fp32 accumulator per warp
 DEFAULT_SHIFT = 32.0  # the JAX package's _NOMAX_SHIFT
@@ -43,12 +63,19 @@ nomax_launches = _cuda.LaunchCounter("nomax_attention")
 chunked_launches = _cuda.LaunchCounter("chunked_attention")
 nomax_unpadded_launches = _cuda.LaunchCounter("nomax_unpadded")
 pvt_launches = _cuda.LaunchCounter("pvt_attention")
+nomax_4d_launches = _cuda.LaunchCounter("nomax_4d")
+nomax_allheads_launches = _cuda.LaunchCounter("nomax_allheads")
+nomax_laneslice_launches = _cuda.LaunchCounter("nomax_laneslice")
+slotted_launches = _cuda.LaunchCounter("slotted_kernel_call")
 
 _HEAD = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_float,)
 _NOMAX_ARGTYPES = _HEAD + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 _CHUNKED_ARGTYPES = _HEAD + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 _SHIFT_ARGTYPES = _HEAD + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_SLOTTED_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+                     + (ctypes.c_float,) + (ctypes.c_int,) * 2
+                     + (ctypes.c_void_p,))
 
 
 def _chunk(bk, lk: int) -> int:
@@ -174,6 +201,42 @@ def plain_pvt_attention(q, k, v, num_heads: int, *,
     return _merge_heads(out)
 
 
+# T6, T7 and T8 compute T5's function; only the kernels' mapping of work to
+# blocks differs, so their plain versions are T5's under their own names.
+plain_nomax_4d = plain_nomax_unpadded
+plain_nomax_allheads = plain_nomax_unpadded
+plain_nomax_laneslice = plain_nomax_unpadded
+
+
+def plain_slotted_kernel_call(qh, kh, vh, scale: float, *,
+                              exp2_bf16: bool = True,
+                              block_bytes: int = 1 << 30):
+    """T4's function over (BH, Lq, P) q against (BH, Lk, P) k, v, every
+    lane read (zero pad lanes add nothing): q pre-scaled by
+    scale*log2(e) and rounded to its dtype; the row-max softmax in base 2,
+    exp2 of the bf16-rounded s - m (a bf16 p) with `exp2_bf16`, else of
+    the fp32 s - m; p rounded to v's dtype for P V, the row sum in fp32,
+    the division after P V. Returns (BH, Lq, P). This is K13's function
+    (ops.attention._softmax_pv) with one head an image."""
+    o = _softmax_pv(_prescaled(qh, scale)[:, None], kh[:, None], vh[:, None],
+                    exp2_bf16, block_bytes)
+    return o[:, 0].to(qh.dtype)
+
+
+def split_heads(x, num_heads: int):
+    """(B, L, h*hd) -> contiguous (B*h, L, hd): one copy pass (the TPU
+    tools' split transpose)."""
+    b, l, d = x.shape
+    return _split_heads(x, num_heads).reshape(b * num_heads, l,
+                                              d // num_heads).contiguous()
+
+
+def merge_heads(x, batch: int):
+    """(B*h, L, hd) -> contiguous (B, L, h*hd): one copy pass."""
+    bh, l, hd = x.shape
+    return _merge_heads(x.reshape(batch, bh // batch, l, hd))
+
+
 # --- kernels ---
 
 
@@ -185,12 +248,20 @@ def _check(name, q, k, v, num_heads):
                          "outputs per warp in registers)")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: q, k, v must be contiguous")
+
+
+def _launch(source, symbol, argtypes, q, k, v, out, num_heads, *options):
+    """Launches `symbol` of csrc/<source>.cu on (B, Lq, H*hd) q, out and
+    (B, Lk, H*hd) k, v with the head entries' leading arguments, then
+    `options`, the dtype flag and the stream."""
     B, Lq, D = q.shape
     hd = D // num_heads
-    out = torch.empty_like(q)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-            num_heads, Lq, k.shape[1], hd, float(hd**-0.5 * _LOG2E))
-    return out, head, int(q.dtype == torch.bfloat16)
+    fn = _cuda.function(source, symbol, argtypes)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              num_heads, Lq, k.shape[1], hd, float(hd**-0.5 * _LOG2E),
+              *options, int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+    _cuda.check(source, symbol, code)
+    return out
 
 
 def _shape_key(q, k, num_heads, *options):
@@ -207,12 +278,10 @@ def nomax_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT,
     if q.device.type == "cpu":
         return plain_nomax_attention(q, k, v, num_heads, shift=shift,
                                      safe=safe, bf16_p=bf16_p, bk=bk)
-    name = "nomax_attention"
-    out, head, is_bf16 = _check(name, q, k, v, num_heads)
-    fn = _cuda.function("attn_arms", "dtp_nomax_attention", _NOMAX_ARGTYPES)
-    code = fn(*head, float(shift), int(safe), int(bf16_p), is_bf16,
-              _cuda.stream_of(q))
-    _cuda.check("attn_arms", "dtp_nomax_attention", code)
+    _check("nomax_attention", q, k, v, num_heads)
+    out = _launch("attn_arms", "dtp_nomax_attention", _NOMAX_ARGTYPES, q, k,
+                  v, torch.empty_like(q), num_heads, float(shift), int(safe),
+                  int(bf16_p))
     nomax_launches.record(_shape_key(q, k, num_heads, bool(safe),
                                      bool(bf16_p)))
     return out
@@ -228,35 +297,40 @@ def chunked_attention(q, k, v, num_heads: int, *, bk: int = 64,
         return plain_chunked_attention(q, k, v, num_heads, bk=bk,
                                        bf16_p=bf16_p)
     name = "chunked_attention"
-    out, head, is_bf16 = _check(name, q, k, v, num_heads)
+    _check(name, q, k, v, num_heads)
     if bk not in CHUNK_WIDTHS:
         raise ValueError(f"{name}: the kernel's chunk is its K/V tile: bk "
                          f"in {CHUNK_WIDTHS}, got {bk}")
-    fn = _cuda.function("attn_arms", "dtp_chunked_attention",
-                        _CHUNKED_ARGTYPES)
-    code = fn(*head, int(bk), int(bf16_p), is_bf16, _cuda.stream_of(q))
-    _cuda.check("attn_arms", "dtp_chunked_attention", code)
+    out = _launch("attn_arms", "dtp_chunked_attention", _CHUNKED_ARGTYPES,
+                  q, k, v, torch.empty_like(q), num_heads, int(bk),
+                  int(bf16_p))
     chunked_launches.record(_shape_key(q, k, num_heads, int(bk),
                                        bool(bf16_p)))
     return out
 
 
-def _shift_arm(name, symbol, counter, q, k, v, num_heads, shift):
-    out, head, is_bf16 = _check(name, q, k, v, num_heads)
-    fn = _cuda.function("attn_arms", symbol, _SHIFT_ARGTYPES)
-    code = fn(*head, float(shift), is_bf16, _cuda.stream_of(q))
-    _cuda.check("attn_arms", symbol, code)
+def _shift_arm(name, source, counter, q, k, v, num_heads, shift):
+    """An entry with T5's arguments, reading (B, L, h*hd) in place."""
+    _check(name, q, k, v, num_heads)
+    out = _launch(source, f"dtp_{name}", _SHIFT_ARGTYPES, q, k, v,
+                  torch.empty_like(q), num_heads, float(shift))
     counter.record(_shape_key(q, k, num_heads))
     return out
 
 
 def nomax_unpadded(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
     """T5: clamped no-max attention, P V over hd unpadded; kernel on CUDA,
-    plain_nomax_unpadded on CPU."""
+    plain_nomax_unpadded on CPU. As the TPU tool does, the heads are split
+    into contiguous (B*h, L, hd) copies before the kernel (launched with
+    one head) and merged back after it; nomax_4d reads them in place."""
     if q.device.type == "cpu":
         return plain_nomax_unpadded(q, k, v, num_heads, shift=shift)
-    return _shift_arm("nomax_unpadded", "dtp_nomax_unpadded",
-                      nomax_unpadded_launches, q, k, v, num_heads, shift)
+    _check("nomax_unpadded", q, k, v, num_heads)
+    qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
+    out = _launch("attn_arms", "dtp_nomax_unpadded", _SHIFT_ARGTYPES, qh, kh,
+                  vh, torch.empty_like(qh), 1, float(shift))
+    nomax_unpadded_launches.record(_shape_key(q, k, num_heads))
+    return merge_heads(out, q.shape[0])
 
 
 def pvt_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
@@ -264,14 +338,77 @@ def pvt_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
     plain_pvt_attention on CPU."""
     if q.device.type == "cpu":
         return plain_pvt_attention(q, k, v, num_heads, shift=shift)
-    return _shift_arm("pvt_attention", "dtp_pvt_attention", pvt_launches, q,
-                      k, v, num_heads, shift)
+    return _shift_arm("pvt_attention", "attn_arms", pvt_launches, q, k, v,
+                      num_heads, shift)
 
 
-# name -> (wrapper, plain version), for the entry point and the smoke
+def nomax_4d(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
+    """T6: T5's function with the heads read in place from the (B, L, h,
+    hd) view, blocks ordered (b, h, q-block); kernel on CUDA,
+    plain_nomax_4d on CPU."""
+    if q.device.type == "cpu":
+        return plain_nomax_4d(q, k, v, num_heads, shift=shift)
+    return _shift_arm("nomax_4d", "attn_layouts", nomax_4d_launches, q, k, v,
+                      num_heads, shift)
+
+
+def nomax_allheads(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
+    """T7: T5's function with every head of a query tile in one block;
+    kernel on CUDA, plain_nomax_allheads on CPU."""
+    if q.device.type == "cpu":
+        return plain_nomax_allheads(q, k, v, num_heads, shift=shift)
+    return _shift_arm("nomax_allheads", "attn_layouts",
+                      nomax_allheads_launches, q, k, v, num_heads, shift)
+
+
+def nomax_laneslice(q, k, v, num_heads: int, *,
+                    shift: float = DEFAULT_SHIFT):
+    """T8: T5's function with blocks ordered (b, q-block, h), the head
+    fastest, each slicing its head's lanes from the packed rows; kernel on
+    CUDA, plain_nomax_laneslice on CPU."""
+    if q.device.type == "cpu":
+        return plain_nomax_laneslice(q, k, v, num_heads, shift=shift)
+    return _shift_arm("nomax_laneslice", "attn_layouts",
+                      nomax_laneslice_launches, q, k, v, num_heads, shift)
+
+
+def slotted_kernel_call(qh, kh, vh, scale: float, *, exp2_bf16: bool = True):
+    """T4: the row-max softmax over (BH, Lq, P) q against (BH, Lk, P) k, v,
+    heads already split and zero-padded (P <= 160, every lane read), with
+    the caller's scale (hd**-0.5 of the real head dim); returns (BH, Lq,
+    P). Kernel on CUDA, plain_slotted_kernel_call on CPU."""
+    if qh.device.type == "cpu":
+        return plain_slotted_kernel_call(qh, kh, vh, scale,
+                                         exp2_bf16=exp2_bf16)
+    name = "slotted_kernel_call"
+    _check(name, qh, kh, vh, 1)
+    BH, Lq, P = qh.shape
+    out = torch.empty_like(qh)
+    fn = _cuda.function("attn_layouts", "dtp_slotted_attention",
+                        _SLOTTED_ARGTYPES)
+    code = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+              BH, Lq, kh.shape[1], P, float(scale * _LOG2E), int(exp2_bf16),
+              int(qh.dtype == torch.bfloat16), _cuda.stream_of(qh))
+    _cuda.check("attn_layouts", "dtp_slotted_attention", code)
+    slotted_launches.record((tuple(qh.shape), tuple(kh.shape),
+                             bool(exp2_bf16)))
+    return out
+
+
+# name -> (wrapper, plain version), for the entry point and the smoke; the
+# (B, L, h*hd) arms take (q, k, v, num_heads), T4 (qh, kh, vh, scale)
 ARMS = {
     "nomax_attention": (nomax_attention, plain_nomax_attention),
     "chunked_attention": (chunked_attention, plain_chunked_attention),
     "nomax_unpadded": (nomax_unpadded, plain_nomax_unpadded),
     "pvt_attention": (pvt_attention, plain_pvt_attention),
+    "nomax_4d": (nomax_4d, plain_nomax_4d),
+    "nomax_allheads": (nomax_allheads, plain_nomax_allheads),
+    "nomax_laneslice": (nomax_laneslice, plain_nomax_laneslice),
+    "slotted_kernel_call": (slotted_kernel_call, plain_slotted_kernel_call),
 }
+# name -> its wrapper's launch counter
+LAUNCHES = {c.name: c for c in (
+    nomax_launches, chunked_launches, nomax_unpadded_launches, pvt_launches,
+    nomax_4d_launches, nomax_allheads_launches, nomax_laneslice_launches,
+    slotted_launches)}

@@ -11,14 +11,26 @@ tools/bench_attn_round4.py main(). Rows at each shape:
   sdpa            torch's scaled_dot_product_attention (a yardstick)
   nomax-safe, nomax, nomax/bf16p          T2 (nomax_attention)
   chunk64, chunk128 and their /bf16p      T3 (chunked_attention)
-  nomax-unpadded                          T5 (nomax_unpadded)
+  nomax-unpadded                          T5 (nomax_unpadded: heads split
+                                          by one copy pass, then merged)
   pvT                                     T9 (pvt_attention)
+  nomax-4d, nomax-allheads, nomax-laneslice
+                                          T6, T7, T8 (T5's function, heads
+                                          read in place)
+  base-slotted    K13 (flash_attention_slotted) over the (B, L, h*128)
+                  head-slotted layout of the same data
+  slotted-kernel, slotted-kernel/f32p     T4 (slotted_kernel_call, exp2 of
+                                          bf16 or fp32 logits) over
+                                          (B*h, L, 128) head slots
 
-Each row gets its ms a call, its max|diff| against base and against its own
-plain version (ops/attention_variants.py), in bf16 (the tools' dtype).
-Timing: a chain of CALLS calls, each output fed back as the next q so that
-no call can be skipped (the tools' chain_time), timed with CUDA events, best
-of TRIES.
+Each row gets its ms a call, its max|diff| against its yardstick (base; for
+T4, base-slotted) and against its own plain version
+(ops/attention_variants.py), in bf16 (the tools' dtype). The slotted rows'
+inputs are split and padded outside the timed chain, as the tool does, and
+their outputs cut back to (B, L, h*hd) before the diffs; they run where hd
+fits the 128-lane slot (not at hd 160). Timing: a chain of CALLS calls, each
+output fed back as the next q so that no call can be skipped (the tools'
+chain_time), timed with CUDA events, best of TRIES.
 
 Input sets (seeded torch.Generator): `variants` (q, k, v standard normal,
 every row timed), `round4` (k x 0.2, base and pvT timed) and `clamp` (q and
@@ -67,8 +79,15 @@ ARM_ROWS = {
     "chunk128/bf16p": ("chunked_attention", dict(bk=128, bf16_p=True)),
     "nomax-unpadded": ("nomax_unpadded", {}),
     "pvT": ("pvt_attention", {}),
+    "nomax-4d": ("nomax_4d", {}),
+    "nomax-allheads": ("nomax_allheads", {}),
+    "nomax-laneslice": ("nomax_laneslice", {}),
 }
-ROWS = ("base", "sdpa") + tuple(ARM_ROWS)
+# T4's rows -> options; they and base-slotted take the head-slotted layouts
+SLOTTED_ROWS = {"slotted-kernel": dict(exp2_bf16=True),
+                "slotted-kernel/f32p": dict(exp2_bf16=False)}
+ROWS = (("base", "sdpa") + tuple(ARM_ROWS) + ("base-slotted",)
+        + tuple(SLOTTED_ROWS))
 # the input sets and the rows each one times
 TIMED = {"variants": ROWS, "round4": ("base", "pvT"), "clamp": ()}
 CALLS, TRIES = 20, 4
@@ -100,9 +119,45 @@ def base_plain(q, k, v, heads):
     return attn.plain_attention(q, k, v, heads)
 
 
-def row_call(row, q, k, v, heads, plain=False):
-    """One call of a row's function (its plain version with `plain`;
-    None for sdpa, which has none)."""
+def layout(row):
+    """The inputs a row takes: 'proj' (B, L, h*hd), 'slots' (B, L, h*128:
+    each head's lanes first in its slot, zero pad lanes) or 'heads'
+    (B*h, L, 128: the slots split by head)."""
+    if row == "base-slotted":
+        return "slots"
+    return "heads" if row in SLOTTED_ROWS else "proj"
+
+
+def to_slots(x, heads):
+    """(B, L, h*hd) -> (B, L, h*128), zero pad lanes (K13's layout)."""
+    B, L, D = x.shape
+    out = x.new_zeros((B, L, heads, attn.SLOT))
+    out[..., :D // heads] = x.view(B, L, heads, D // heads)
+    return out.view(B, L, heads * attn.SLOT)
+
+
+def from_layout(x, lay, batch, heads, hd):
+    """A row's output in its layout -> (B, L, h*hd); None stays None."""
+    if x is None or lay == "proj":
+        return x
+    if lay == "heads":
+        x = arms.merge_heads(x, batch)
+    B, L, _ = x.shape
+    return x.view(B, L, heads, attn.SLOT)[..., :hd].reshape(B, L, heads * hd)
+
+
+def row_call(row, q, k, v, heads, plain=False, hd=None):
+    """One call of a row's function on inputs in its layout (its plain
+    version with `plain`; None for sdpa, which has none); `hd`, the real
+    head dim, for the slotted rows."""
+    if row == "base-slotted":
+        fn = (attn.plain_attention_slotted if plain
+              else attn.flash_attention_slotted)
+        return fn(q, k, v, heads, hd)
+    if row in SLOTTED_ROWS:
+        wrapper, plain_fn = arms.ARMS["slotted_kernel_call"]
+        return (plain_fn if plain else wrapper)(q, k, v, hd**-0.5,
+                                                **SLOTTED_ROWS[row])
     if row == "base":
         return (base_plain if plain else attn.attention)(q, k, v, heads)
     if row == "sdpa":
@@ -112,13 +167,13 @@ def row_call(row, q, k, v, heads, plain=False):
     return (plain_fn if plain else wrapper)(q, k, v, heads, **options)
 
 
-def chain_ms(row, q, k, v, heads, calls):
+def chain_ms(row, q, k, v, heads, calls, hd=None):
     """Best of TRIES CUDA-event timings of a chain of `calls` calls, each
     output the next call's q; ms a call."""
     def chain():
         x = q
         for _ in range(calls):
-            x = row_call(row, x, k, v, heads)
+            x = row_call(row, x, k, v, heads, hd=hd)
         return x
     chain()
     best = float("inf")
@@ -143,20 +198,40 @@ def max_diff(a, b):
 
 
 def run_shape(label, B, L, D, heads, input_set, device, gen):
-    """Every row at one shape and input set -> list of records."""
+    """Every row at one shape and input set -> list of records (the
+    slotted rows only where hd fits the slot)."""
     q, k, v = make_inputs(B, L, D, input_set, device, torch.bfloat16, gen)
-    base = row_call("base", q, k, v, heads)
+    hd = D // heads
+    inputs = {"proj": (q, k, v)}
+    if hd <= attn.SLOT:
+        inputs["slots"] = tuple(to_slots(t, heads) for t in (q, k, v))
+        inputs["heads"] = tuple(arms.split_heads(t, heads)
+                                for t in inputs["slots"])
+    yardsticks = {"base": row_call("base", q, k, v, heads)}
+    if "slots" in inputs:
+        yardsticks["base-slotted"] = from_layout(
+            row_call("base-slotted", *inputs["slots"], heads, hd=hd),
+            "slots", B, heads, hd)
     records = []
     for row in ROWS:
-        got = base if row == "base" else row_call(row, q, k, v, heads)
-        want = row_call(row, q, k, v, heads, plain=True)
+        lay = layout(row)
+        if lay not in inputs:
+            continue
+        ins = inputs[lay]
+        yard = "base-slotted" if row in SLOTTED_ROWS else "base"
+        got = (yardsticks[row] if row in yardsticks
+               else from_layout(row_call(row, *ins, heads, hd=hd), lay, B,
+                                heads, hd))
+        want = from_layout(row_call(row, *ins, heads, plain=True, hd=hd),
+                           lay, B, heads, hd)
         timed = device == "cuda" and row in TIMED[input_set]
         records.append({
             "shape": label, "B": B, "L": L, "D": D, "heads": heads,
             "input_set": input_set, "row": row,
-            "route": attn.attention_route(L, L, D // heads, q.dtype),
-            "ms": chain_ms(row, q, k, v, heads, CALLS) if timed else None,
-            "max_abs_diff_base": max_diff(got, base),
+            "route": attn.attention_route(L, L, hd, q.dtype),
+            "ms": chain_ms(row, *ins, heads, CALLS, hd=hd) if timed else None,
+            "base_row": yard,
+            "max_abs_diff_base": max_diff(got, yardsticks[yard]),
             "max_abs_diff_plain": max_diff(got, want),
             "finite": bool(torch.isfinite(got).all()),
         })
@@ -202,7 +277,8 @@ def main(argv=None) -> int:
                     print(f"{label} {r['row']} [{input_set}, "
                           f"{r['route']} route]: "
                           f"{_fmt(r['ms'], '.4f')} ms/call, max|diff| vs "
-                          f"base {_fmt(r['max_abs_diff_base'], '.3e')}, "
+                          f"{r['base_row']} "
+                          f"{_fmt(r['max_abs_diff_base'], '.3e')}, "
                           f"vs its plain version "
                           f"{_fmt(r['max_abs_diff_plain'], '.3e')}",
                           flush=True)

@@ -195,14 +195,18 @@ def test_staged_entries_raise_and_never_fall_back():
         conv3x3.gn_silu_conv3x3(x, s.bfloat16(), s, w, b)
 
 
-# The softmax arms (csrc/attn_arms.cu): head dims 40, 80 and 160 (the
-# kernel's three register tiles), a ragged length, each option. T3's chunk
-# must divide Lk, so its keys are 1152 against 1100 queries.
+# The softmax arms (csrc/attn_arms.cu) and the head-layout arms
+# (csrc/attn_layouts.cu): head dims 40, 80 and 160 (the kernel's three
+# register tiles), a ragged length, each option. T3's chunk must divide Lk,
+# so its keys are 1152 against 1100 queries.
 ARM_KEYS = {
     "nomax_attention": [(True, False), (False, False), (False, True)],
     "chunked_attention": [(64, False), (128, False), (64, True)],
     "nomax_unpadded": [()],
     "pvt_attention": [()],
+    "nomax_4d": [()],
+    "nomax_allheads": [()],
+    "nomax_laneslice": [()],
 }
 
 
@@ -245,11 +249,61 @@ def test_attention_arms_raise_and_never_fall_back():
     with pytest.raises(ValueError, match="contiguous"):
         av.nomax_attention(z, z, z, 2)
     for name, (wrapper, _) in av.ARMS.items():
-        counter = {"nomax_attention": av.nomax_launches,
-                   "chunked_attention": av.chunked_launches,
-                   "nomax_unpadded": av.nomax_unpadded_launches,
-                   "pvt_attention": av.pvt_launches}[name]
+        counter = av.LAUNCHES[name]
         before = counter.launches
-        out = wrapper(y, y, y, 2)
+        # T4's fourth argument is its scale; y is then (BH 1, L, P 80)
+        out = wrapper(y, y, y, 40**-0.5 if name == "slotted_kernel_call"
+                      else 2)
         torch.cuda.synchronize()
         assert out.is_cuda and counter.launches == before + 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp2_bf16", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_slotted_kernel_matches_plain(exp2_bf16, dtype):
+    """T4 over 128-lane slots (hd 40, zero pad lanes) at L 1100 (a ragged
+    last tile), 2 images of 4 heads, against its plain version (tolerance
+    as chip_smoke.py's; the pad lanes of the output zero)."""
+    gen = _setup()
+    import chip_smoke
+
+    key = ((8, 1100, 128), (8, 1100, 128), 4, 40, exp2_bf16)
+    r = chip_smoke.compare("slotted_kernel_call", key, getattr(torch, dtype),
+                           gen)
+    assert r["err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+def test_slotted_kernel_raises_and_never_falls_back():
+    """More than 160 lanes, fp16 and non-contiguous inputs raise."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    wide = torch.randn((2, 256, 168), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="160"):
+        av.slotted_kernel_call(wide, wide, wide, 40**-0.5)
+    x = torch.randn((2, 256, 128), generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        av.slotted_kernel_call(x.half(), x.half(), x.half(), 40**-0.5)
+    z = x[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        av.slotted_kernel_call(z, z, z, 40**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [40, 80, 160])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layout_arms_equal_t5_bit_for_bit(hd, dtype):
+    """T5 (heads split by a copy pass, one head a launch) and T6, T7, T8
+    (heads read in place, three block mappings) run the same tile code on
+    the same values: the same bits at L 1100, 2 images of 4 heads."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    q, k, v = (torch.randn((2, 1100, 4 * hd), generator=gen,
+                           device="cuda").to(getattr(torch, dtype))
+               for _ in range(3))
+    t5 = av.nomax_unpadded(q, k, v, 4)
+    for wrapper in (av.nomax_4d, av.nomax_allheads, av.nomax_laneslice):
+        assert torch.equal(wrapper(q, k, v, 4), t5), wrapper.__name__
