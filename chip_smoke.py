@@ -60,19 +60,21 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                512^2 / 4 steps, as phase 4; its first stamp against the
                default configuration's at 512^2 / 4, compared in u8;
   9a. attn_arms
-               seven arms of the attention kernels through the A/B entry
+               eight arms of the attention kernels through the A/B entry
                point's functions (diffusiontexturepainting_torch.tools.
                attn_variants): the softmax arms T2 no-max, T3 chunked, T5
                unpadded no-max (heads split by one copy pass) and T9
                transposed P V (csrc/attn_arms.cu), and the head-layout arms
                T6 (heads read in place, head-major blocks), T7 (all heads in
-               one block) and T8 (head fastest) (csrc/attn_layouts.cu), at
+               one block) and T8 (head fastest) (csrc/attn_layouts.cu), and
+               T1 (both products transposed, the exact row-max softmax;
+               csrc/attn_transposed.cu), at
                the 1024^2 / 4 stamp's three UNet self-attention shapes, each
                launched as often as that stamp launches K8/K2 there (20 a
                shape), each output against the attention() route's; the
                clamp probe (raw logits above 83: the clamped arms equal
                their plain versions and differ from the exact softmax of K8,
-               which rounds q as the arms do; T3 equals it) and the
+               which rounds q as the arms do; T3 and T1 equal it) and the
                underflow probe (every exp2 underflows: zeros from the safe
                arms, no NaN);
   9b. slotted_arm
@@ -83,6 +85,22 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                often as a stamp launches K13 there (20 a shape), the slots
                split outside the counted calls; each output against its
                plain version and against K13 on the same data;
+  9c. pv_product
+               T10 (pv_product: the P V product alone, PV_ITERS passes a
+               call; csrc/attn_transposed.cu) at the TPU tool's three
+               shapes (bq, Lk, hd) with bh 1, as e v and as (v^T e^T)^T,
+               one call each, each against its plain version, the two
+               orientations against each other;
+  9d. conv_arms
+               the conv arms (csrc/conv_arms.cu) at every shape at which
+               the default 256^2 / 20 stamp launches K5 with its prologue,
+               as often as one stamp launches K5 there: T12 (pipelined:
+               conv3x3_VALID(silu(pad(x)*a + c)) + b) on seeded images of
+               those shapes, against its plain version and, away from the
+               border, against K5; T11 (conv_window_taps) on the same
+               images cut into row windows of 8 rows with halo, each of its
+               four tap reads, against its plain version, `shifted` also
+               against K11 on the image;
   9. kernels   each kernel against its plain version at every shape any
                path launched it at, in bf16 and fp32 (TF32 off),
                statistics included; CUDA-event times of the kernel, its
@@ -160,12 +178,29 @@ SOURCES = {
     "nomax_allheads": "csrc/attn_layouts.cu",
     "nomax_laneslice": "csrc/attn_layouts.cu",
     "slotted_kernel_call": "csrc/attn_layouts.cu",
+    "sublane_attention": "csrc/attn_transposed.cu",
+    "pv_product": "csrc/attn_transposed.cu",
+    "conv_window_taps": "csrc/conv_arms.cu",
+    "pipelined": "csrc/conv_arms.cu",
 }
 # the arms of the attn_arms path (the softmax arms, then the head-layout
 # arms) and the slotted-input arm of the slotted_arm path
 ARMS = ("nomax_attention", "chunked_attention", "nomax_unpadded",
-        "pvt_attention", "nomax_4d", "nomax_allheads", "nomax_laneslice")
+        "pvt_attention", "nomax_4d", "nomax_allheads", "nomax_laneslice",
+        "sublane_attention")
 SLOTTED_ARM = "slotted_kernel_call"
+# the exact row-max arms: no clamp, no static shift
+EXACT_ARMS = ("chunked_attention", "sublane_attention")
+# T10 on the pv_product path; T11 and T12 on the conv_arms path
+PV, TAPS, PIPE = "pv_product", "conv_window_taps", "pipelined"
+# T10's passes a call in this script (the tool's minimum; its own counts,
+# about 300 GF a call, are the entry point's)
+PV_ITERS = 64
+# (bq, Lk, hd) of tools/bench_pv_transpose.py main(), bh 1
+PV_SHAPES = ((512, 4096, 40), (512, 1024, 80), (256, 256, 160))
+# T11's windows on the conv_arms path: rows of output a window
+TAPS_ROWS = 8
+TAP_READS = ("shifted", "unshifted", "rowflat", "jointw")
 REPLACES = {
     "conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:162",
     "upsample2x_conv3x3": "diffusiontexturepainting_tpu/ops/conv3x3.py:761",
@@ -195,6 +230,10 @@ REPLACES = {
     "nomax_allheads": "tools/bench_attn_variants.py:379",
     "nomax_laneslice": "tools/bench_attn_variants.py:426",
     "slotted_kernel_call": "tools/bench_attn_variants.py:235",
+    "sublane_attention": "tools/bench_attn_sublane.py:43",
+    "pv_product": "tools/bench_pv_transpose.py:34",
+    "conv_window_taps": "tools/bench_conv_shift_cost.py:41",
+    "pipelined": "tools/bench_stream_pipeline.py:47",
 }
 # What the library yardstick of a kernel computes, where it is not the
 # kernel's whole function.
@@ -206,6 +245,12 @@ LIBRARY_IS = {
                        "nearest one-call equivalent",
     **{name: "SDPA: the exact row-max softmax; equal to the no-max arms "
              "while raw logits < 83" for name in ARMS},
+    "sublane_attention": "SDPA: the exact row-max softmax, q and p not "
+                         "rounded to bf16",
+    PV: "one torch.baddbmm(out, e, v, beta=0, alpha=iters): the passes' sum "
+        "as one scaled product",
+    TAPS: "F.conv2d (VALID, channels-last) on the same windows, for the "
+          "`shifted` read only: the other three reads are not a conv",
     SLOTTED_ARM: "SDPA over the (B*h, 1, L, 128) slots with T4's scale: "
                  "the exact row-max softmax, p not rounded to bf16",
 }
@@ -218,7 +263,8 @@ REPORTED_ON = {"conv3x3": "twin", "flash_attention_streaming": "envelope",
                "conv3x3_stream": "resnet_bodies",
                "gn_silu_conv3x3": "resnet_bodies",
                **{name: "attn_arms" for name in ARMS},
-               SLOTTED_ARM: "slotted_arm"}
+               SLOTTED_ARM: "slotted_arm", PV: "pv_product",
+               TAPS: "conv_arms", PIPE: "conv_arms"}
 # What a kernel's "ms" sums, where it is not one stamp of its path.
 MS_IS = {
     "conv3x3_stream": "bf16 kernel time per stamp of the safe twin's K7 "
@@ -232,6 +278,13 @@ MS_IS = {
     SLOTTED_ARM: "bf16 kernel time of the 40 slotted self-attentions of one "
                  "512^2/4 stamp (K13's shapes), all 128 lanes of a slot "
                  "read",
+    PV: f"bf16 kernel time of six calls of {PV_ITERS} passes: the TPU "
+        "tool's three shapes at bh 1, both orientations",
+    TAPS: "bf16 kernel time of the four tap reads, each once per K5 launch "
+          "with a prologue of one default 256^2/20 stamp, on that launch's "
+          f"image cut into windows of {TAPS_ROWS} rows (reps 1)",
+    PIPE: "bf16 kernel time at the shapes and launches of one default "
+          "256^2/20 stamp's K5 calls with a prologue",
 }
 # The member of the conv family that computes the same function at the
 # same shapes, timed beside each staged-tile kernel.
@@ -245,6 +298,18 @@ FAMILY_IS = {
              "attention() route)" for name in ARMS},
     SLOTTED_ARM: "K13 (flash_attention_slotted) on the same data in the "
                  "(B, L, h*128) layout",
+    TAPS: "K11 (conv3x3_stream) on the image the windows were cut from, "
+          "for the `shifted` read only",
+    PIPE: "K5 (gn_conv_stream, statistics and residual off; its border "
+          "input is 0, T12's silu(c))",
+}
+# Kernels whose library and family calls exist for some of their shape
+# keys only (TAPS: the `shifted` read): their sums run over those keys.
+PARTIAL_YARDSTICKS = (TAPS,)
+# The option of a shape key by which a kernel's time is also reported.
+OPTION_OF = {
+    PV: lambda key: "v^T@e^T" if key[2] else "e@v",
+    TAPS: lambda key: key[2],
 }
 # The arms' options as the attn_arms path runs them: each arm's row of the
 # A/B entry point (T2 in its safe form, T3 at 64-key chunks).
@@ -252,7 +317,8 @@ ARM_PATH_ROWS = {"nomax_attention": "nomax-safe",
                  "chunked_attention": "chunk64",
                  "nomax_unpadded": "nomax-unpadded", "pvt_attention": "pvT",
                  "nomax_4d": "nomax-4d", "nomax_allheads": "nomax-allheads",
-                 "nomax_laneslice": "nomax-laneslice"}
+                 "nomax_laneslice": "nomax-laneslice",
+                 "sublane_attention": "sublane"}
 # K8/K2 launches a 1024^2/4 stamp at each UNet self-attention shape
 ARM_LAUNCHES = 20
 # The JAX package's streaming_plan shape test (ops/conv3x3.py:942), without
@@ -269,12 +335,14 @@ def counters():
         attention,
         attention_variants,
         conv3x3,
+        conv_variants,
         ff_geglu,
         gn_conv,
         groupnorm,
     )
 
     return [*attention_variants.LAUNCHES.values(),
+            *conv_variants.LAUNCHES.values(),
             conv3x3.conv3x3_launches, conv3x3.upsample_launches,
             attention.flash_launches, gn_conv.gn_conv_resident_launches,
             gn_conv.gn_conv_stream_launches, gn_conv.upconv_stream_launches,
@@ -306,6 +374,7 @@ def _kernel_case(kind, shape_key, dtype, gen):
         attention,
         attention_variants,
         conv3x3,
+        conv_variants,
         ff_geglu,
         gn_conv,
         groupnorm,
@@ -361,6 +430,54 @@ def _kernel_case(kind, shape_key, dtype, gen):
                 (lambda: attention.flash_attention_slotted(qs, ks, vs, heads,
                                                            hd))
                 if P == attention.SLOT and L == Lk else None)
+    if kind == PV:
+        # the tool's inputs: uniform [0, 1)
+        e_shape, v_shape, transposed, iters = shape_key
+        e = torch.rand(e_shape, generator=gen, device="cuda").to(dtype)
+        v = torch.rand(v_shape, generator=gen, device="cuda").to(dtype)
+        out = torch.empty((*e_shape[:2], v_shape[2]), dtype=dtype,
+                          device="cuda")
+        return (lambda: attention_variants.pv_product(
+                    e, v, transposed=transposed, iters=iters),
+                lambda: attention_variants.plain_pv_product(
+                    e, v, transposed=transposed, iters=iters),
+                lambda: torch.baddbmm(out, e, v, beta=0, alpha=iters))
+    if kind == TAPS:
+        # an image cut into row windows with halo, as a streamed conv
+        # would see them; `shifted` is then the SAME conv of the image
+        (nwin, rows, wp, cin), w_shape, read, W, reps = shape_key
+        n, h_t = w_shape[2], rows - 2
+        image = torch.rand((1, nwin * h_t, W, cin), generator=gen,
+                           device="cuda").to(dtype)
+        xwin = image_windows(image, h_t, wp)
+        w = (torch.rand((9, cin, n), generator=gen, device="cuda")
+             * 2 * (9 * cin) ** -0.5).to(dtype).view(w_shape)
+        is_conv = read == "shifted" and reps == 1
+        xc = xwin[:, :, :W + 2].permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        w33 = w.view(3, 3, cin, n)
+        wc = w33.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        zero = torch.zeros(n, dtype=dtype, device="cuda")
+        return (lambda: conv_variants.conv_window_taps(xwin, w, read, W=W,
+                                                       reps=reps),
+                lambda: conv_variants.plain_conv_window_taps(
+                    xwin, w, read, W=W, reps=reps),
+                (lambda: F.conv2d(xc, wc)) if is_conv else None,
+                (lambda: conv3x3.conv3x3_stream(image, w33, zero))
+                if is_conv else None)
+    if kind == PIPE:
+        x_shape, w_shape, has_bias = shape_key
+        B, cin, cout = x_shape[0], x_shape[3], w_shape[3]
+        x = rnd(*x_shape)
+        w = rnd(*w_shape, std=(9 * cin) ** -0.5)
+        a = rnd(B, cin, std=0.2, mean=1.0, dt=torch.float32)
+        c = rnd(B, cin, std=0.2, dt=torch.float32)
+        b = rnd(cout, std=0.1) if has_bias else None
+        return (lambda: conv_variants.pipelined(x, a, c, w, b),
+                lambda: conv_variants.plain_pipelined(x, a, c, w, b), None,
+                lambda: gn_conv.gn_conv_stream(x, a, c, w, b, None, False,
+                                               True)[0])
     if kind in ARMS:
         q_shape, k_shape, heads, *opts = shape_key
         q, k, v = rnd(*q_shape), rnd(*k_shape), rnd(*k_shape)
@@ -462,6 +579,24 @@ def _kernel_case(kind, shape_key, dtype, gen):
                                              apply_gn), None)
 
 
+def image_windows(image, h_t, wp):
+    """(1, H, W, C) -> (H / h_t, h_t + 2, wp, C): the image zero-padded by
+    one pixel (to width wp on the right) and cut into windows of h_t output
+    rows with their halo rows."""
+    import torch.nn.functional as F
+
+    W = image.shape[2]
+    xp = F.pad(image[0], (0, 0, 1, wp - W - 1, 1, 1))
+    return xp.unfold(0, h_t + 2, h_t).permute(0, 3, 1, 2).contiguous()
+
+
+def taps_key(nwin, h_t, W, cin, n, read, reps=1):
+    """T11's shape key: Wp = W + 2 rounded up to 8, as the TPU tool pads."""
+    wp = W + 2 + (-(W + 2)) % 8
+    w_shape = (3, 3 * cin, n) if read == "jointw" else (9, cin, n)
+    return ((nwin, h_t + 2, wp, cin), w_shape, read, W, reps)
+
+
 def work(kind, key, itemsize):
     """(operations, bytes) of one call: each input read once, each output
     written once; the operations of the function (multiply-adds as two).
@@ -476,6 +611,21 @@ def work(kind, key, itemsize):
     if kind == "flash_attention_slotted":
         (B, L, D), heads, hd = key
         return 4 * B * L * L * heads * hd, itemsize * 4 * B * L * D
+    if kind == PV:
+        (bh, bq, lk), (_, _, hd), _, iters = key
+        return (iters * 2 * bh * bq * lk * hd,
+                itemsize * bh * (bq * lk + lk * hd + bq * hd))
+    if kind == TAPS:
+        (nwin, rows, wp, cin), (_, _, n), _, W, reps = key
+        out = nwin * (rows - 2) * W * n
+        return (reps * 2 * out * 9 * cin,
+                itemsize * (nwin * rows * wp * cin + 9 * cin * n + out))
+    if kind == PIPE:
+        x_shape, (_, _, cin, cout), has_bias = key
+        pixels = math.prod(x_shape[:3])
+        return (2 * pixels * 9 * cin * cout,
+                itemsize * (pixels * cin + 9 * cin * cout + has_bias * cout
+                            + pixels * cout) + 4 * 2 * x_shape[0] * cin)
     if kind == "ff_geglu":
         t, c, inner = key
         return (6 * t * c * inner,
@@ -693,8 +843,9 @@ def expected_per_stamp(model, res, steps, in_pad=False):
         "downsample_conv3x3_stats": n_v - 1 if fused_enc else 0,
         "spatial_moments": steps * unet_moments + 2 * fused_enc
         + 2 * fused_dec,
-        # the arms run on paths of their own (attn_arms, slotted_arm)
-        **{name: 0 for name in ARMS + (SLOTTED_ARM,)},
+        # the arms run on paths of their own (attn_arms, slotted_arm,
+        # pv_product, conv_arms)
+        **{name: 0 for name in ARMS + (SLOTTED_ARM, PV, TAPS, PIPE)},
     }
 
 
@@ -1240,7 +1391,7 @@ def attn_arms_phase(gen):
             err, tol = _err_tol(got, tool.row_call(row, q, k, v, 8,
                                                    plain=True))
             off, tol_k2 = _err_tol(got, exact)
-            clamped = name != "chunked_attention"
+            clamped = name not in EXACT_ARMS
             if not err <= tol or clamped != (off > tol_k2):
                 raise AssertionError(
                     f"attn_arms: clamp probe {name}: {err:.3e} from its "
@@ -1255,7 +1406,7 @@ def attn_arms_phase(gen):
         # underflow: every base-2 logit far below shift - 126
         q = torch.full((2, 1100, 320), 60.0, device="cuda", dtype=bf16)
         v = torch.randn((2, 1100, 320), generator=gen, device="cuda").to(bf16)
-        safe = [name for name in ARMS if name != "chunked_attention"]
+        safe = [name for name in ARMS if name not in EXACT_ARMS]
         for name in safe:
             got = tool.row_call(ARM_PATH_ROWS[name], q, -q, v, 8)
             if not torch.equal(got, torch.zeros_like(got)):
@@ -1333,6 +1484,162 @@ def slotted_arm_phase(gen, k13_shapes, stamps):
     return launches, shapes_seen
 
 
+def pv_product_phase(gen):
+    """T10 at the TPU tool's three shapes (bh 1, the tool's uniform
+    inputs), PV_ITERS passes a call, as e v and as (v^T e^T)^T, one call
+    each, with the counts set to 0 just before and read just after; each
+    output against its plain version, the orientations against each other.
+    Returns (launches, shapes)."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    inputs = [(torch.rand((1, bq, lk), generator=gen,
+                          device="cuda").bfloat16(),
+               torch.rand((1, lk, hd), generator=gen,
+                          device="cuda").bfloat16())
+              for bq, lk, hd in PV_SHAPES]
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    tic = time.perf_counter()
+    with torch.inference_mode():
+        outs = [[av.pv_product(e, v, transposed=t, iters=PV_ITERS)
+                 for t in (False, True)] for e, v in inputs]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    shapes_seen = {c.name: dict(c.shapes) for c in counters()}
+    for name, got in launches.items():
+        want = 2 * len(PV_SHAPES) if name == PV else 0
+        log(f"pv_product counts: {name}: {got} launches, expected {want}")
+        if got != want:
+            raise AssertionError(f"pv_product: {name}: {got} launches, "
+                                 f"expected {want}")
+    log(f"pv_product: {launches[PV]} calls of {PV_ITERS} passes in "
+        f"{secs * 1e3:.1f} ms wall")
+    with torch.inference_mode():
+        for (bq, lk, hd), (e, v), (direct, flipped) in zip(PV_SHAPES, inputs,
+                                                           outs):
+            plain = av.plain_pv_product(e, v, iters=PV_ITERS)
+            msg = []
+            for label, got in (("e@v", direct), ("v^T@e^T", flipped)):
+                err, tol = _err_tol(got, plain)
+                if not torch.isfinite(got).all() or not err <= tol:
+                    raise AssertionError(
+                        f"pv_product: {label} at (bq {bq}, Lk {lk}, hd "
+                        f"{hd}): err {err:.3e} > tol {tol:.3e}")
+                msg.append(f"{label} max|diff| {err:.3e} (tol {tol:.3e}; "
+                           f"err/tol {err / tol:.3f})")
+            gap, _ = _err_tol(flipped, direct)
+            log(f"pv_product: (bq {bq}, Lk {lk}, hd {hd}) against the plain "
+                f"version: " + "; ".join(msg) + f"; the two orientations "
+                f"{gap:.3e} apart")
+    return launches, shapes_seen
+
+
+def conv_arms_phase(gen, k5_shapes, stamps):
+    """T12 and T11 at every shape at which one stamp of the default path
+    launches K5 with its prologue (`k5_shapes`: K5's shape keys and counts
+    over `stamps` stamps), as often as a stamp launches K5 there, with the
+    counts set to 0 just before and read just after. T12 runs on seeded
+    images of those shapes; T11's four tap reads run on the same images cut
+    into windows of TAPS_ROWS rows with halo. The first output of each is
+    held against its plain version; T12's also against K5 away from the
+    border, T11's `shifted` against K11 on the image. Returns (launches,
+    shapes)."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import conv3x3, gn_conv
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std + mean
+
+    def taps_w(w, read):
+        """(3, 3, Cin, N) as the read's weights: the same memory."""
+        cin, n = w.shape[2:]
+        return w.view(3, 3 * cin, n) if read == "jointw" else w.view(9, cin, n)
+
+    cases = []
+    for key, n in sorted(k5_shapes.items(), key=str):
+        x_shape, w_shape, has_bias, _, _, apply_gn = key
+        if not apply_gn:
+            continue
+        (B, H, W, cin), cout = x_shape, w_shape[3]
+        if H % TAPS_ROWS:
+            raise AssertionError(f"conv_arms: K5 image height {H} is not a "
+                                 f"multiple of {TAPS_ROWS}")
+        x = rnd(*x_shape).bfloat16()
+        w = rnd(*w_shape, std=(9 * cin) ** -0.5).bfloat16()
+        b = rnd(cout, std=0.1).bfloat16() if has_bias else None
+        a, c = rnd(B, cin, std=0.2, mean=1.0), rnd(B, cin, std=0.2)
+        wp = taps_key(1, TAPS_ROWS, W, cin, cout, "shifted")[0][2]
+        xwin = image_windows(x.reshape(1, B * H, W, cin), TAPS_ROWS, wp)
+        cases.append((n // stamps, (x, a, c, w, b), xwin))
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    tic = time.perf_counter()
+    with torch.inference_mode():
+        piped = [[cv.pipelined(*ins) for _ in range(n)][0]
+                 for n, ins, _ in cases]
+        taps = [{read: [cv.conv_window_taps(xwin, taps_w(ins[3], read), read,
+                                            W=ins[0].shape[2])
+                        for _ in range(n)][0]
+                 for read in TAP_READS} for n, ins, xwin in cases]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    shapes_seen = {c.name: dict(c.shapes) for c in counters()}
+    calls = sum(n for n, _, _ in cases)
+    want = {PIPE: calls, TAPS: len(TAP_READS) * calls}
+    for name, got in launches.items():
+        log(f"conv_arms counts: {name}: {got} launches, expected "
+            f"{want.get(name, 0)}")
+        if got != want.get(name, 0):
+            raise AssertionError(f"conv_arms: {name}: {got} launches, "
+                                 f"expected {want.get(name, 0)}")
+    log(f"conv_arms: {PIPE} x {calls} and {TAPS} x {want[TAPS]} calls at "
+        f"{len(cases)} K5 shapes in {secs * 1e3:.1f} ms wall")
+
+    def hold(label, got, ref, what):
+        err, tol = _err_tol(got, ref)
+        if not torch.isfinite(got).all() or not err <= tol:
+            raise AssertionError(f"conv_arms: {label}: err {err:.3e} > tol "
+                                 f"{tol:.3e} against {what}")
+        return f"{err:.3e} against {what} (err/tol {err / tol:.3f})"
+
+    with torch.inference_mode():
+        for (n, ins, xwin), got, by_read in zip(cases, piped, taps):
+            x, a, c, w, b = ins
+            B, H, W, cin = x.shape
+            label = f"{tuple(x.shape)}->{w.shape[3]} x{n}"
+            k5 = gn_conv.gn_conv_stream(x, a, c, w, b, None, False, True)[0]
+            log(f"conv_arms: {PIPE} {label}: max|diff| "
+                + hold(f"{PIPE} {label}", got,
+                       cv.plain_pipelined(x, a, c, w, b),
+                       "its plain version") + ", "
+                + hold(f"{PIPE} {label} interior", got[:, 1:-1, 1:-1],
+                       k5[:, 1:-1, 1:-1], "K5 away from the border"))
+            zero = torch.zeros(w.shape[3], dtype=x.dtype, device="cuda")
+            for read, out in by_read.items():
+                msg = hold(f"{TAPS} {read} {label}", out,
+                           cv.plain_conv_window_taps(xwin, taps_w(w, read),
+                                                     read, W=W),
+                           "its plain version")
+                if read == "shifted":
+                    msg += ", " + hold(
+                        f"{TAPS} shifted {label} as a conv",
+                        out.reshape(1, B * H, W, -1),
+                        conv3x3.conv3x3_stream(
+                            x.reshape(1, B * H, W, cin), w, zero),
+                        "K11 on the image")
+                log(f"conv_arms: {TAPS} {read} {tuple(xwin.shape)}: "
+                    f"max|diff| {msg}")
+    return launches, shapes_seen
+
+
 def release():
     """Returns the memory of the models the caller dropped to the card."""
     import torch
@@ -1359,6 +1666,7 @@ def kernels_phase(gen, paths):
         worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
         errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
         totals = Counter()
+        by_option = Counter()
         lib_missing = False
         for key in keys:
             count = counts.get(key, 0)
@@ -1376,11 +1684,14 @@ def kernels_phase(gen, paths):
                 if "kernel_ms" in r:
                     b_s, by = bound_s(name, key, "bfloat16")
                     totals["kernel"] += count * r["kernel_ms"]
+                    if name in OPTION_OF:
+                        by_option[OPTION_OF[name](key)] += (
+                            count * r["kernel_ms"])
                     totals["plain"] += count * r["plain_ms"]
                     totals["bound"] += count * b_s * 1e3
                     totals[by] += count * b_s * 1e3
                     if r["library_ms"] is None:
-                        lib_missing = True
+                        lib_missing |= name not in PARTIAL_YARDSTICKS
                     else:
                         totals["library"] += count * r["library_ms"]
                     if "family_ms" in r:
@@ -1421,6 +1732,8 @@ def kernels_phase(gen, paths):
                                      "its shapes"),
             **({"family_ms": totals["family"] / n,
                 "family_is": FAMILY_IS[name]} if name in FAMILY_IS else {}),
+            **({"ms_by_option": {k: v / n for k, v in by_option.items()}}
+               if by_option else {}),
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
                else {})})
     return record
@@ -1542,6 +1855,34 @@ def main() -> int:
         ("slotted_kernel_call", ((8, 1100, 80), (8, 1100, 80), 4, 80, True)),
         ("slotted_kernel_call", ((4, 1100, 160), (4, 1100, 160), 2, 150,
                                  True)),
+        # T1 at each register tile, a ragged length, keys != queries
+        ("sublane_attention", ((2, 1100, 320), (2, 1100, 320), 8)),
+        ("sublane_attention", ((2, 1100, 640), (2, 1000, 640), 8)),
+        ("sublane_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        # T10: bq off the 64-row slab, Lk off the 64-key step and off the
+        # 16-byte copies, hd off the n8 / m16 tiles, several bh
+        ("pv_product", ((3, 100, 1100), (3, 1100, 40), True, 3)),
+        ("pv_product", ((2, 200, 1096), (2, 1096, 72), False, 2)),
+        ("pv_product", ((2, 72, 200), (2, 200, 150), True, 2)),
+        ("pv_product", ((2, 72, 200), (2, 200, 150), False, 1)),
+        # T12 at the TPU tool's shapes, then odd H and W, Cin 3 and 40, Cout
+        # off the tile, a 1x1 image, no bias
+        ("pipelined", ((2, 512, 512, 128), (3, 3, 128, 128), True)),
+        ("pipelined", ((1, 512, 512, 128), (3, 3, 128, 128), True)),
+        ("pipelined", ((1, 256, 256, 256), (3, 3, 256, 256), True)),
+        ("pipelined", ((2, 5, 7, 3), (3, 3, 3, 40), True)),
+        ("pipelined", ((1, 9, 19, 40), (3, 3, 40, 130), False)),
+        ("pipelined", ((1, 1, 1, 9), (3, 3, 9, 24), True)),
+        # T11's four reads at the TPU tool's shapes (one window, reps 24),
+        # then odd H_T and W, Cin 3 and 40, N off the tile, several windows
+        *[("conv_window_taps", taps_key(1, h_t, W, cin, n, read, 24))
+          for h_t, W, cin, n in ((16, 128, 512, 128), (8, 256, 256, 256),
+                                 (8, 512, 128, 128))
+          for read in TAP_READS],
+        *[("conv_window_taps", taps_key(nwin, h_t, W, cin, n, read, reps))
+          for nwin, h_t, W, cin, n, reps in ((3, 5, 9, 3, 40, 3),
+                                             (2, 3, 19, 40, 130, 1))
+          for read in TAP_READS],
     ]
     for kind, key in probes:
         dtypes = (torch.bfloat16, torch.float32) + (
@@ -1641,6 +1982,16 @@ def main() -> int:
         paths["slotted"]["stamps"])
     paths["slotted_arm"] = dict(launches=launches, shapes=shapes, stamps=1,
                                 steps=FEW_STEPS, res=SLOTTED_RES)
+    release()
+
+    launches, shapes = pv_product_phase(gen)
+    paths["pv_product"] = dict(launches=launches, shapes=shapes, stamps=1,
+                               steps=0, res=0)
+    launches, shapes = conv_arms_phase(
+        gen, paths["default"]["shapes"]["gn_conv_stream"],
+        paths["default"]["stamps"])
+    paths["conv_arms"] = dict(launches=launches, shapes=shapes, stamps=1,
+                              steps=STEPS, res=RES)
     release()
 
     record = kernels_phase(gen, paths)

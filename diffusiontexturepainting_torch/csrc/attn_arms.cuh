@@ -107,30 +107,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
                                         uint32_t& r2, uint32_t& r3,
                                         const void* p) {
@@ -186,6 +162,62 @@ __device__ void stage_rows(bf16* dst, const bf16* src, long long stride,
       for (int e = 0; e < 8; ++e)
         d[e] = (gr < L && col + e < hd) ? src[gr * stride + col + e]
                                         : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// The block's kRows query rows from q0 on, multiplied by scale_log2 in fp32
+// and rounded to bf16, into a (kRows, LD) shared tile of HDP columns; rows
+// >= Lq and columns >= hd are zero.
+template <int HDP, int LD>
+__device__ void stage_q(bf16* Qs, const bf16* qb, long long D, int q0,
+                        const ArmArgs& a) {
+  constexpr int CPR = HDP / 8;
+  const int hd = a.hd;
+  for (int c = threadIdx.x; c < kRows * CPR; c += kThreads) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int gr = q0 + r;
+    float x[8];
+    if (a.vec && gr < a.Lq && col < hd) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(qb + gr * D + col);
+      const bf16* e8 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(e8[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        x[e] = (gr < a.Lq && col + e < hd)
+                   ? __bfloat162float(qb[gr * D + col + e])
+                   : 0.0f;
+    }
+    bf16* d = Qs + r * LD + col;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d[e] = __float2bfloat16(x[e] * a.scale_log2);
+  }
+}
+
+// Writes a warp's 16 staged output rows (LD apart, hd columns) to rows
+// row0.. of the (Lq, hd) output, rows D elements apart: 16-byte stores
+// when `vec`.
+template <int LD>
+__device__ __forceinline__ void store_warp_rows(bf16* ob, const bf16* stage,
+                                                long long D, int row0,
+                                                const ArmArgs& a, int lane) {
+  const int hd = a.hd;
+  if (a.vec) {
+    const int cpr = hd / 8;
+    for (int c = lane; c < 16 * cpr; c += 32) {
+      const int r = c / cpr, col = (c % cpr) * 8;
+      const int gr = row0 + r;
+      if (gr < a.Lq)
+        *reinterpret_cast<uint4*>(ob + gr * D + col) =
+            *reinterpret_cast<const uint4*>(stage + r * LD + col);
+    }
+  } else {
+    for (int c = lane; c < 16 * hd; c += 32) {
+      const int r = c / hd, col = c % hd;
+      const int gr = row0 + r;
+      if (gr < a.Lq) ob[gr * D + col] = stage[r * LD + col];
     }
   }
 }
@@ -246,29 +278,7 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
   // Q, pre-scaled and rounded to bf16, then the first tiles. Without the
   // overlap a copy group holds tile j of K and V; with it, K_{j+1} and V_j;
   // kRowmax's first pass copies K alone.
-  {
-    constexpr int CPR = HDP / 8;
-    for (int c = threadIdx.x; c < kRows * CPR; c += kThreads) {
-      const int r = c / CPR, col = (c % CPR) * 8;
-      const int gr = q0 + r;
-      float x[8];
-      if (a.vec && gr < a.Lq && col < hd) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(qb + gr * D + col);
-        const bf16* e8 = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(e8[e]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          x[e] = (gr < a.Lq && col + e < hd)
-                     ? __bfloat162float(qb[gr * D + col + e])
-                     : 0.0f;
-      }
-      bf16* d = Qs + r * LD + col;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = __float2bfloat16(x[e] * a.scale_log2);
-    }
-  }
+  stage_q<HDP, LD>(Qs, qb, D, q0, a);
   stage_rows<HDP, LD>(Ks, kb, D, 0, BK, Lk, hd, a.vec);
   if (!OVERLAP && ARM != kRowmax)
     stage_rows<HDP, LD>(Vs, vb, D, 0, BK, Lk, hd, a.vec);
@@ -545,22 +555,7 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
       }
   }
   __syncwarp();
-  if (a.vec) {
-    const int cpr = hd / 8;
-    for (int c = lane; c < 16 * cpr; c += 32) {
-      const int r = c / cpr, col = (c % cpr) * 8;
-      const int gr = q0 + w16 + r;
-      if (gr < a.Lq)
-        *reinterpret_cast<uint4*>(ob + gr * D + col) =
-            *reinterpret_cast<const uint4*>(stage + r * LD + col);
-    }
-  } else {
-    for (int c = lane; c < 16 * hd; c += 32) {
-      const int r = c / hd, col = c % hd;
-      const int gr = q0 + w16 + r;
-      if (gr < a.Lq) ob[gr * D + col] = stage[r * LD + col];
-    }
-  }
+  store_warp_rows<LD>(ob, stage, D, q0 + w16, a, lane);
 }
 
 // The (batch, head, first query row) of block `blk` under MAP, for query

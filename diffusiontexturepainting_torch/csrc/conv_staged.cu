@@ -60,7 +60,7 @@
 // small images and split-K come later.
 #include <type_traits>
 
-#include "gemm_tile.cuh"
+#include "conv_staged.cuh"
 
 namespace dtp {
 namespace {
@@ -68,21 +68,6 @@ namespace {
 enum StagedMode : int {
   kSame = 0,  // 3x3 SAME conv
   kUp = 1,    // nearest x2 + 3x3 conv, as four parity planes of 2x2 taps
-};
-
-// The output patch of a block (TH * TW == the tile's BM) and the window's
-// leading dimension: in bf16 LDW * 2 is a multiple of 32 bytes, so every
-// shifted fragment starts 256-bit aligned, as WMMA loads need; in fp32 the
-// rows keep the 16-byte alignment of the staging stores.
-template <typename T>
-struct Patch;
-template <>
-struct Patch<__nv_bfloat16> {
-  static constexpr int TH = 8, TW = 16, LDW = 48;
-};
-template <>
-struct Patch<float> {
-  static constexpr int TH = 4, TW = 16, LDW = 20;
 };
 
 constexpr int kMaxGroups = 128;
@@ -102,63 +87,6 @@ struct StagedArgs {
   int B, H, W, Cin, Cout, groups, tiles_y, tiles_x;
   bool vec_x, vec_w;
 };
-
-// One BK step of the bf16 tile from the window shifted by (dy, dx): warp
-// (wm, wn) owns patch rows 2*wm and 2*wm + 1, one 16-row fragment each.
-template <int WW, int LDW>
-__device__ __forceinline__ void staged_step(MathBF16& m,
-                                            const __nv_bfloat16* win,
-                                            const __nv_bfloat16* Bs, int tid,
-                                            int dy, int dx) {
-  using namespace nvcuda;
-  using TL = Tile<__nv_bfloat16>;
-  const int warp = tid >> 5, wm = warp & 3, wn = warp >> 2;
-#pragma unroll
-  for (int kk = 0; kk < TL::BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> fb[4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(
-          fa[i], win + ((wm * 2 + i + 1 + dy) * WW + 1 + dx) * LDW + kk, LDW);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::load_matrix_sync(fb[j], Bs + kk * TL::LDB + wn * 64 + j * 16,
-                             TL::LDB);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::mma_sync(m.acc[i][j], fa[i], fb[j], m.acc[i][j]);
-  }
-}
-
-// The fp32 twin: thread (tm, tn) owns tile rows 4*tm .. 4*tm + 3, which are
-// pixels 4*(tm & 3) .. + 3 of patch row tm >> 2.
-template <int WW, int LDW>
-__device__ __forceinline__ void staged_step(MathF32& m, const float* win,
-                                            const float* Bs, int tid, int dy,
-                                            int dx) {
-  using TL = Tile<float>;
-  const int tm = tid >> 4, tn = tid & 15;
-  const float* a0 =
-      win + (((tm >> 2) + 1 + dy) * WW + (tm & 3) * 4 + 1 + dx) * LDW;
-#pragma unroll
-  for (int k = 0; k < TL::BK; ++k) {
-    float a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = a0[i * LDW + k];
-    const float4 b =
-        *reinterpret_cast<const float4*>(Bs + k * TL::LDB + tn * 4);
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) m.acc[i][j] = fmaf(a[i], bv[j], m.acc[i][j]);
-  }
-}
 
 // Grid: x = image * patches, y = Cout tiles, z = parity plane (UP).
 template <typename T, int MODE>
@@ -279,7 +207,7 @@ staged_kernel(const StagedArgs<T> p) {
         load_chunk(Bs + r * TL::LDB + col, src, ok ? Cout - n : 0, p.vec_w);
       }
       __syncthreads();  // the window (first tap) and this tap's B are in
-      staged_step<WW, LDW>(math, win, Bs, tid, dy, dx);
+      staged_step<WW, LDW>(math, win, Bs, tid, 1, dy + 1, dx + 1);
       __syncthreads();  // before the next B or the next chunk's window
     }
   }

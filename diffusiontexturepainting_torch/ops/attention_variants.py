@@ -2,9 +2,9 @@
 against (B, Lk, D) k, v with D = num_heads * hd, returning (B, Lq, D); T4
 takes heads already split and padded.
 
-Port of the A/B variants in the JAX repository's tools/bench_attn_variants.py
-and tools/bench_attn_round4.py, named after them so each counterpart is
-found:
+Port of the A/B variants in the JAX repository's tools/bench_attn_variants.py,
+tools/bench_attn_round4.py, tools/bench_attn_sublane.py and
+tools/bench_pv_transpose.py, named after them so each counterpart is found:
 
   nomax_attention      T2 <- nomax_attention / _nomax_kernel
   chunked_attention    T3 <- chunked_attention / _chunked_kernel
@@ -15,6 +15,11 @@ found:
   nomax_laneslice      T8 <- nomax_laneslice / _nomax_laneslice_kernel
   slotted_kernel_call  T4 <- slotted_kernel_call (_attn_kernel, row max,
                        over (B*h, L, 128) head slots)
+  sublane_attention    T1 <- sublane_attention / _sublane_kernel (the exact
+                       row-max softmax, both products transposed)
+  pv_product           T10 <- bench_shape / _pv_kernel (the P V product
+                       alone, `iters` passes, in either orientation; over
+                       (bh, bq, Lk) e and (bh, Lk, hd) v, not an attention)
 
 T5 to T8 compute one function; what differs is where the heads are split:
 by one copy pass outside the kernel (T5, as the TPU tool does), or inside
@@ -32,9 +37,14 @@ unclamped, is empty below 512 queries): here every row is computed. The TPU
 tile knobs (q_block, the 128-lane head pad, VMEM residency) are not part of
 the functions and not ported.
 
-The kernels live in csrc/attn_arms.cu (T2, T3, T5, T9) and
+T1's TPU wrapper pads Lq to its query block and returns the padded rows (it
+raises on the final reshape where Lq is off the block); here every query
+length is computed.
+
+The kernels live in csrc/attn_arms.cu (T2, T3, T5, T9),
 csrc/attn_layouts.cu (T4, T6, T7, T8), one register-resident body
-(csrc/attn_arms.cuh, hd <= 160). A wrapper takes its plain version only for
+(csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1, T10, over
+the same header's primitives). A wrapper takes its plain version only for
 a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
 `ops.attention.attention` and the served paths never call these.
 """
@@ -67,12 +77,17 @@ nomax_4d_launches = _cuda.LaunchCounter("nomax_4d")
 nomax_allheads_launches = _cuda.LaunchCounter("nomax_allheads")
 nomax_laneslice_launches = _cuda.LaunchCounter("nomax_laneslice")
 slotted_launches = _cuda.LaunchCounter("slotted_kernel_call")
+sublane_launches = _cuda.LaunchCounter("sublane_attention")
+pv_product_launches = _cuda.LaunchCounter("pv_product")
 
 _HEAD = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_float,)
 _NOMAX_ARGTYPES = _HEAD + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 _CHUNKED_ARGTYPES = _HEAD + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 _SHIFT_ARGTYPES = _HEAD + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_SUBLANE_ARGTYPES = _HEAD + (ctypes.c_int, ctypes.c_void_p)
+_PV_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7
+                + (ctypes.c_void_p,))
 _SLOTTED_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
                      + (ctypes.c_float,) + (ctypes.c_int,) * 2
                      + (ctypes.c_void_p,))
@@ -221,6 +236,55 @@ def plain_slotted_kernel_call(qh, kh, vh, scale: float, *,
     o = _softmax_pv(_prescaled(qh, scale)[:, None], kh[:, None], vh[:, None],
                     exp2_bf16, block_bytes)
     return o[:, 0].to(qh.dtype)
+
+
+def plain_sublane_attention(q, k, v, num_heads: int, *,
+                            block_bytes: int = 1 << 30):
+    """T1's function, in its kernel's order: q pre-scaled by
+    scale*log2(e) and rounded to its dtype; s^T = k q^T (keys x queries)
+    in fp32; m and the sum over the keys; e = exp2(s^T - m) in fp32,
+    rounded to v's dtype for o^T = v^T e^T (fp32 accumulation); o^T / sum,
+    transposed back and rounded once."""
+    qs, kh, vh = _heads(q, k, v, num_heads)
+    kf, vt = kh.float(), vh.float().transpose(-1, -2)
+    out = torch.empty(qs.shape, dtype=q.dtype, device=q.device)
+    for i0, i1 in _query_blocks(qs, kh.shape[2], block_bytes):
+        st = torch.matmul(kf, qs[:, :, i0:i1].float().transpose(-1, -2))
+        e = torch.exp2(st - st.amax(-2, keepdim=True))
+        ot = torch.matmul(vt, e.to(vh.dtype).float())  # (B, H, hd, rows)
+        out[:, :, i0:i1] = (ot / e.sum(-2, keepdim=True)).transpose(
+            -1, -2).to(q.dtype)
+    return _merge_heads(out)
+
+
+def _check_pv(e, v, iters):
+    if e.dim() != 3 or v.dim() != 3 or v.shape[:2] != (e.shape[0],
+                                                       e.shape[2]):
+        raise ValueError(f"pv_product: e (bh, bq, Lk) against v (bh, Lk, "
+                         f"hd), got {tuple(e.shape)} and {tuple(v.shape)}")
+    if iters < 1:
+        raise ValueError(f"pv_product: iters={iters} must be at least 1")
+
+
+def plain_pv_product(e, v, *, transposed: bool = False, iters: int = 1):
+    """T10's function over (bh, bq, Lk) e and (bh, Lk, hd) v: `iters`
+    passes of the product e v, each accumulated in fp32 from zero, summed
+    one after the other in fp32 and rounded once to e's dtype: (bh, bq,
+    hd). `transposed` computes each pass as (v^T e^T)^T. Every pass gives
+    the same bits (the TPU tool's per-pass factor on v, 1 + i*1e-9 rounded
+    to v's dtype, is exactly 1 in bf16 and left out), so the product is
+    taken once here and added `iters` times."""
+    _check_pv(e, v, iters)
+    ef, vf = e.float(), v.float()
+    if transposed:
+        o = torch.matmul(vf.transpose(-1, -2),
+                         ef.transpose(-1, -2)).transpose(-1, -2)
+    else:
+        o = torch.matmul(ef, vf)
+    acc = torch.zeros_like(o)
+    for _ in range(iters):
+        acc += o
+    return acc.to(e.dtype).contiguous()
 
 
 def split_heads(x, num_heads: int):
@@ -395,6 +459,48 @@ def slotted_kernel_call(qh, kh, vh, scale: float, *, exp2_bf16: bool = True):
     return out
 
 
+def sublane_attention(q, k, v, num_heads: int):
+    """T1: the exact row-max softmax with both products transposed
+    (S^T = K Q^T, O^T = V^T E^T); kernel on CUDA,
+    plain_sublane_attention on CPU."""
+    if q.device.type == "cpu":
+        return plain_sublane_attention(q, k, v, num_heads)
+    _check("sublane_attention", q, k, v, num_heads)
+    out = _launch("attn_transposed", "dtp_sublane_attention",
+                  _SUBLANE_ARGTYPES, q, k, v, torch.empty_like(q), num_heads)
+    sublane_launches.record(_shape_key(q, k, num_heads))
+    return out
+
+
+def pv_product(e, v, *, transposed: bool = False, iters: int = 1):
+    """T10: `iters` passes of the product of (bh, bq, Lk) e and (bh, Lk,
+    hd) v, as e v or as (v^T e^T)^T, summed in fp32: (bh, bq, hd) in e's
+    dtype. Kernel on CUDA (hd <= 160), plain_pv_product on CPU."""
+    if e.device.type == "cpu":
+        return plain_pv_product(e, v, transposed=transposed, iters=iters)
+    _check_pv(e, v, iters)
+    name = "pv_product"
+    if e.dtype not in (torch.bfloat16, torch.float32) or v.dtype != e.dtype:
+        raise TypeError(f"{name}: e and v must share bf16 or fp32, got "
+                        f"{e.dtype} and {v.dtype}")
+    if v.shape[2] > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: hd {v.shape[2]} > {MAX_HEAD_DIM}")
+    if v.device != e.device or not (e.is_contiguous()
+                                    and v.is_contiguous()):
+        raise ValueError(f"{name}: e and v must be contiguous on {e.device}")
+    bh, bq, lk = e.shape
+    hd = v.shape[2]
+    out = torch.empty((bh, bq, hd), dtype=e.dtype, device=e.device)
+    fn = _cuda.function("attn_transposed", "dtp_pv_product", _PV_ARGTYPES)
+    code = fn(e.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bq, lk, hd,
+              int(iters), int(transposed), int(e.dtype == torch.bfloat16),
+              _cuda.stream_of(e))
+    _cuda.check("attn_transposed", "dtp_pv_product", code)
+    pv_product_launches.record((tuple(e.shape), tuple(v.shape),
+                                bool(transposed), int(iters)))
+    return out
+
+
 # name -> (wrapper, plain version), for the entry point and the smoke; the
 # (B, L, h*hd) arms take (q, k, v, num_heads), T4 (qh, kh, vh, scale)
 ARMS = {
@@ -406,9 +512,10 @@ ARMS = {
     "nomax_allheads": (nomax_allheads, plain_nomax_allheads),
     "nomax_laneslice": (nomax_laneslice, plain_nomax_laneslice),
     "slotted_kernel_call": (slotted_kernel_call, plain_slotted_kernel_call),
+    "sublane_attention": (sublane_attention, plain_sublane_attention),
 }
 # name -> its wrapper's launch counter
 LAUNCHES = {c.name: c for c in (
     nomax_launches, chunked_launches, nomax_unpadded_launches, pvt_launches,
     nomax_4d_launches, nomax_allheads_launches, nomax_laneslice_launches,
-    slotted_launches)}
+    slotted_launches, sublane_launches, pv_product_launches)}

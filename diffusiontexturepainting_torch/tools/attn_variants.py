@@ -17,6 +17,9 @@ tools/bench_attn_round4.py main(). Rows at each shape:
   nomax-4d, nomax-allheads, nomax-laneslice
                                           T6, T7, T8 (T5's function, heads
                                           read in place)
+  sublane                                 T1 (sublane_attention: the exact
+                                          row-max softmax, both products
+                                          transposed)
   base-slotted    K13 (flash_attention_slotted) over the (B, L, h*128)
                   head-slotted layout of the same data
   slotted-kernel, slotted-kernel/f32p     T4 (slotted_kernel_call, exp2 of
@@ -46,9 +49,6 @@ exits nonzero. Prints one line per row, then one JSON line.
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import sys
 
 import torch
@@ -56,6 +56,8 @@ import torch.nn.functional as F
 
 from ..ops import attention as attn
 from ..ops import attention_variants as arms
+from . import _common
+from ._common import CALLS, TRIES
 
 # (label, B, L, D, heads); self-attention, hd = D / heads
 SHAPE_SETS = {
@@ -82,6 +84,7 @@ ARM_ROWS = {
     "nomax-4d": ("nomax_4d", {}),
     "nomax-allheads": ("nomax_allheads", {}),
     "nomax-laneslice": ("nomax_laneslice", {}),
+    "sublane": ("sublane_attention", {}),
 }
 # T4's rows -> options; they and base-slotted take the head-slotted layouts
 SLOTTED_ROWS = {"slotted-kernel": dict(exp2_bf16=True),
@@ -90,7 +93,6 @@ ROWS = (("base", "sdpa") + tuple(ARM_ROWS) + ("base-slotted",)
         + tuple(SLOTTED_ROWS))
 # the input sets and the rows each one times
 TIMED = {"variants": ROWS, "round4": ("base", "pvT"), "clamp": ()}
-CALLS, TRIES = 20, 4
 
 
 def make_inputs(B, L, D, input_set, device, dtype, gen):
@@ -175,17 +177,7 @@ def chain_ms(row, q, k, v, heads, calls, hd=None):
         for _ in range(calls):
             x = row_call(row, x, k, v, heads, hd=hd)
         return x
-    chain()
-    best = float("inf")
-    for _ in range(TRIES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        chain()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / calls)
-    return best
+    return _common.event_ms(chain, 1, TRIES) / calls
 
 
 def max_diff(a, b):
@@ -239,33 +231,15 @@ def run_shape(label, B, L, D, heads, input_set, device, gen):
     return records
 
 
-def _fmt(x, spec):
-    return "-" if x is None else format(x, spec)
-
-
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--shapes", default="all", choices=sorted(SHAPE_SETS))
-    ap.add_argument("--json-out", default=None,
-                    help="also write the JSON record to this file")
-    args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("attn_variants: no CUDA device (use --device cpu for the "
-              "plain versions)", file=sys.stderr)
+    args = _common.parse_args(__doc__, SHAPE_SETS, "all", argv)
+    ok, card = _common.open_device(args, "attn_variants")
+    if not ok:
         return 1
-    card = None
-    if args.device == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-        print(f"device: {torch.cuda.get_device_name(0)} ({card})",
-              flush=True)
     gen = torch.Generator(device=args.device).manual_seed(0)
     shapes = SHAPE_SETS[args.shapes]
     records = []
+    fmt = _common.fmt
     with torch.inference_mode():
         for i, (label, B, L, D, heads) in enumerate(shapes):
             for input_set in TIMED:
@@ -276,22 +250,14 @@ def main(argv=None) -> int:
                 for r in rows:
                     print(f"{label} {r['row']} [{input_set}, "
                           f"{r['route']} route]: "
-                          f"{_fmt(r['ms'], '.4f')} ms/call, max|diff| vs "
+                          f"{fmt(r['ms'], '.4f')} ms/call, max|diff| vs "
                           f"{r['base_row']} "
-                          f"{_fmt(r['max_abs_diff_base'], '.3e')}, "
+                          f"{fmt(r['max_abs_diff_base'], '.3e')}, "
                           f"vs its plain version "
-                          f"{_fmt(r['max_abs_diff_plain'], '.3e')}",
+                          f"{fmt(r['max_abs_diff_plain'], '.3e')}",
                           flush=True)
                 records += rows
-    record = {"device": (torch.cuda.get_device_name(0)
-                         if args.device == "cuda" else "cpu"),
-              "card": card, "calls": CALLS, "tries": TRIES,
-              "rows": records}
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(record, f)
-    print(json.dumps(record), flush=True)
-    return 0
+    return _common.emit(args, card, records, calls=CALLS, tries=TRIES)
 
 
 if __name__ == "__main__":

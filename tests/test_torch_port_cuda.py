@@ -195,8 +195,9 @@ def test_staged_entries_raise_and_never_fall_back():
         conv3x3.gn_silu_conv3x3(x, s.bfloat16(), s, w, b)
 
 
-# The softmax arms (csrc/attn_arms.cu) and the head-layout arms
-# (csrc/attn_layouts.cu): head dims 40, 80 and 160 (the kernel's three
+# The softmax arms (csrc/attn_arms.cu), the head-layout arms
+# (csrc/attn_layouts.cu) and T1 (csrc/attn_transposed.cu): head dims 40, 80
+# and 160 (the kernel's three
 # register tiles), a ragged length, each option. T3's chunk must divide Lk,
 # so its keys are 1152 against 1100 queries.
 ARM_KEYS = {
@@ -207,6 +208,7 @@ ARM_KEYS = {
     "nomax_4d": [()],
     "nomax_allheads": [()],
     "nomax_laneslice": [()],
+    "sublane_attention": [()],
 }
 
 
@@ -307,3 +309,166 @@ def test_layout_arms_equal_t5_bit_for_bit(hd, dtype):
     t5 = av.nomax_unpadded(q, k, v, 4)
     for wrapper in (av.nomax_4d, av.nomax_allheads, av.nomax_laneslice):
         assert torch.equal(wrapper(q, k, v, 4), t5), wrapper.__name__
+
+
+# T10 (csrc/attn_transposed.cu): hd on and off the n8 / m16 tiles and the
+# 16-byte copies, bq off the 64-row slab, Lk off the 64-key step, 3 bh.
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [40, 80, 150, 160])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_pv_product_matches_plain(hd, transposed, dtype):
+    """Both orientations against the plain version at (bh 3, bq 100, Lk
+    1100 and 1096), 1 and 3 passes (tolerance as chip_smoke.py's)."""
+    gen = _setup()
+    import chip_smoke
+
+    for lk, iters in ((1100, 3), (1096, 1)):
+        key = ((3, 100, lk), (3, lk, hd), transposed, iters)
+        r = chip_smoke.compare("pv_product", key, getattr(torch, dtype), gen)
+        assert r["err_over_tol"] <= 1.0, (key, r)
+
+
+@pytest.mark.cuda
+def test_pv_product_orientations_agree_and_passes_add():
+    """e v and (v^T e^T)^T sum the same products in another order; `iters`
+    passes give `iters` times one pass, up to the output's rounding."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    e = torch.rand((2, 200, 1024), generator=gen, device="cuda").bfloat16()
+    v = torch.rand((2, 1024, 80), generator=gen, device="cuda").bfloat16()
+    one = av.pv_product(e, v).float()
+    flipped = av.pv_product(e, v, transposed=True).float()
+    assert (one - flipped).abs().max() <= 2.0**-7 * one.abs().max()
+    five = av.pv_product(e, v, iters=5).float()
+    assert (five - 5 * one).abs().max() <= 2.0**-6 * five.abs().max()
+
+
+@pytest.mark.cuda
+def test_transposed_arms_raise_and_never_fall_back():
+    """hd > 160, fp16, non-contiguous and mismatched operands raise; a CUDA
+    call launches the kernel (its count moves)."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    e = torch.rand((1, 64, 128), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="160"):
+        av.pv_product(e, torch.rand((1, 128, 168), device="cuda"))
+    with pytest.raises(TypeError):
+        av.pv_product(e.half(), torch.rand((1, 128, 40),
+                                           device="cuda").half())
+    with pytest.raises(ValueError, match="contiguous"):
+        av.pv_product(e, torch.rand((1, 40, 128),
+                                    device="cuda").transpose(1, 2))
+    with pytest.raises(ValueError):
+        av.pv_product(e, torch.rand((1, 120, 40), device="cuda"))
+    before = av.pv_product_launches.launches
+    out = av.pv_product(e, torch.rand((1, 128, 40), device="cuda"), iters=2)
+    torch.cuda.synchronize()
+    assert out.is_cuda and av.pv_product_launches.launches == before + 1
+
+
+# The conv arms (csrc/conv_arms.cu): T12 at RAGGED's shapes with and without
+# a bias; T11's four reads over 2 windows at TAPS_RAGGED's shapes, without
+# and with the loop carry.
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", RAGGED, ids=str)
+@pytest.mark.parametrize("has_bias", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_pipelined_matches_plain(key, has_bias, dtype):
+    gen = _setup()
+    import chip_smoke
+
+    r = chip_smoke.compare("pipelined", key + (has_bias,),
+                           getattr(torch, dtype), gen)
+    assert r["err_over_tol"] <= 1.0, r
+
+
+# (H_T, W, Cin, N): odd rows and widths, Cin 3, 9 and 48, N off the tiles
+# (no 1x1 window: `unshifted` reads only its zero pad pixel there)
+TAPS_RAGGED = [(7, 5, 3, 40), (3, 9, 9, 24), (2, 3, 48, 130),
+               (11, 19, 48, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TAPS_RAGGED, ids=str)
+@pytest.mark.parametrize("read", ["shifted", "unshifted", "rowflat",
+                                  "jointw"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_window_taps_match_plain(shape, read, dtype):
+    gen = _setup()
+    import chip_smoke
+
+    h_t, W, cin, n = shape
+    for reps in (1, 3):
+        taps = chip_smoke.taps_key(2, h_t, W, cin, n, read, reps)
+        r = chip_smoke.compare("conv_window_taps", taps,
+                               getattr(torch, dtype), gen)
+        assert r["err_over_tol"] <= 1.0, (taps, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pipelined", "conv_window_taps"])
+def test_conv_arms_are_deterministic(kind):
+    """No split-K and no atomics; T11's carry is a fixed-order block
+    reduction: two calls give the same bits."""
+    gen = _setup()
+    import chip_smoke
+
+    key = (((2, 12, 10, 96), (3, 3, 96, 136), True) if kind == "pipelined"
+           else chip_smoke.taps_key(3, 8, 40, 96, 136, "jointw", 3))
+    kernel = chip_smoke.kernel_case(kind, key, torch.bfloat16, gen)[0]
+    first = kernel()
+    assert torch.equal(first, kernel())
+
+
+@pytest.mark.cuda
+def test_pipelined_border_is_silu_of_c_on_the_card():
+    """x = 0, a = 0: every conv input, the pad ring included, is silu(c),
+    so every output is the full 9-tap sum, corners included."""
+    _setup()
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
+
+    cin, cout = 40, 24
+    x = torch.zeros((2, 9, 21, cin), device="cuda")
+    a = torch.zeros((2, cin), device="cuda")
+    c = torch.linspace(-2, 2, cin, device="cuda").repeat(2, 1)
+    w = torch.ones((3, 3, cin, cout), device="cuda")
+    got = cv.pipelined(x, a, c, w, None)
+    full = 9 * torch.nn.functional.silu(c[0]).sum().item()
+    assert torch.allclose(got, torch.full_like(got, full), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_conv_arms_raise_and_never_fall_back():
+    """A CUDA tensor of a type, shape or layout the kernels do not take
+    raises; a CUDA call launches the kernel (its count moves)."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
+
+    x = torch.randn((1, 8, 8, 32), generator=gen, device="cuda")
+    w = torch.randn((3, 3, 32, 64), generator=gen, device="cuda")
+    a = torch.ones((1, 32), device="cuda")
+    with pytest.raises(TypeError):
+        cv.pipelined(x.half(), a, a, w.half(), None)
+    with pytest.raises(ValueError):
+        cv.pipelined(x, a[:, :16], a, w, None)
+    with pytest.raises(ValueError):
+        cv.pipelined(x.transpose(1, 2), a, a, w, None)
+    xw = torch.randn((2, 10, 16, 32), generator=gen, device="cuda")
+    w9 = w.view(9, 32, 64)
+    with pytest.raises(TypeError):
+        cv.conv_window_taps(xw.bfloat16(), w9, "shifted", W=14)
+    with pytest.raises(ValueError):
+        cv.conv_window_taps(xw, w9, "jointw", W=14)
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv_window_taps(xw[:, :, ::2], w9, "shifted", W=6)
+    for counter, call in (
+            (cv.pipelined_launches, lambda: cv.pipelined(x, a, a, w, None)),
+            (cv.conv_window_taps_launches,
+             lambda: cv.conv_window_taps(xw, w9, "rowflat", W=14, reps=2))):
+        before = counter.launches
+        out = call()
+        torch.cuda.synchronize()
+        assert out.is_cuda and counter.launches == before + 1

@@ -48,7 +48,10 @@ def test_port_imports_without_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'diffusiontexturepainting_tpu', 'tornado', 'PIL')]\n"
         "assert not bad, bad\n"
-        "for m in ('serving.server', 'serving.run'):\n"
+        "for m in ('serving.server', 'serving.run', 'ops.conv_variants',\n"
+        "          'ops.attention_variants', 'tools.attn_variants',\n"
+        "          'tools.attn_sublane', 'tools.pv_transpose',\n"
+        "          'tools.conv_shift_cost', 'tools.stream_pipeline'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)
