@@ -6,12 +6,14 @@
 Phases, each printed on its own lines; any failure raises (nonzero exit):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc builds every kernel from csrc/, in parallel, seconds
-               printed;
+               printed; ptxas's registers and spills, none allowed in the
+               bf16 K8/K13 kernel (csrc/flash_attention_sm90.cu);
   3. probe     each kernel against its plain version at a few shapes,
-               the 16384-token streaming attentions (K8), the slotted
-               attentions of 256^2 and 512^2 (K13), and ragged and odd
-               shapes of the stride-2 downsample (K9) and the spatial
-               moments (K14) among them;
+               the 16384-token streaming attentions (K8) and a ragged
+               hd-512 one, the slotted attentions of 256^2 and 512^2 (K13),
+               and ragged and odd shapes of the stride-2 downsample (K9)
+               and the spatial moments (K14) among them; the bf16 K8/K13
+               refuse what TMA cannot describe (ValueError, no launch);
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -162,8 +164,9 @@ SOURCES = {
     "gn_conv_stream": "csrc/conv3x3.cu",
     "upconv_stream": "csrc/conv3x3.cu",
     "ff_geglu": "csrc/ff_geglu.cu",
-    "flash_attention_streaming": "csrc/flash_attention.cu",
-    "flash_attention_slotted": "csrc/flash_attention.cu",
+    # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
+    "flash_attention_streaming": "csrc/flash_attention_sm90.cu",
+    "flash_attention_slotted": "csrc/flash_attention_sm90.cu",
     "downsample_conv3x3_stats": "csrc/conv3x3.cu",
     "spatial_moments": "csrc/moments.cu",
     "conv3x3_inpad": "csrc/conv_staged.cu",
@@ -321,6 +324,8 @@ ARM_PATH_ROWS = {"nomax_attention": "nomax-safe",
                  "sublane_attention": "sublane"}
 # K8/K2 launches a 1024^2/4 stamp at each UNet self-attention shape
 ARM_LAUNCHES = 20
+# the source whose ptxas report must show no spill
+NO_SPILL = ("flash_attention_sm90",)
 # The JAX package's streaming_plan shape test (ops/conv3x3.py:942), without
 # its VMEM budget: H >= 8, W >= 2, Cin >= 16, Cout >= 128.
 STREAM_MIN = (8, 2, 16, 128)
@@ -1648,6 +1653,38 @@ def release():
     torch.cuda.empty_cache()
 
 
+def tma_refusal_probe(gen):
+    """The bf16 K8 and K13 (csrc/flash_attention_sm90.cu) refuse operands
+    TMA cannot describe with ValueError and launch nothing: K8 at hd 36 (a
+    72-byte head stride), K13 on views of a projection whose rows are 8
+    bytes off 16."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import attention
+
+    x = torch.randn((1, 256, 4 * 36), generator=gen,
+                    device="cuda").bfloat16()
+    qkv = torch.randn((1, 256, 3 * 1024 + 4), generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = (qkv[..., i * 1024:(i + 1) * 1024] for i in range(3))
+    calls = {"flash_attention_streaming (1, 256, 144), 4 heads":
+             lambda: attention.flash_attention_streaming(x, x, x, 4),
+             "flash_attention_slotted, rows 6152 bytes apart":
+             lambda: attention.flash_attention_slotted(q, k, v, 8, 40)}
+    counters = (attention.flash_streaming_launches,
+                attention.flash_slotted_launches)
+    before = [c.launches for c in counters]
+    for label, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f"probe: {label}: refused ({e})")
+        else:
+            raise AssertionError(f"probe: {label} was not refused")
+    if [c.launches for c in counters] != before:
+        raise AssertionError("probe: a refused call launched a kernel")
+
+
 def kernels_phase(gen, paths):
     """Every kernel at every shape of every path, both dtypes; timed at the
     shapes of the path it is reported for. Returns the JSON records."""
@@ -1768,6 +1805,10 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
+            if (name in NO_SPILL and "spill" in line
+                    and "0 bytes spill stores, 0 bytes spill loads"
+                    not in line):
+                raise AssertionError(f"build: {name} spills: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1801,6 +1842,7 @@ def main() -> int:
         ("flash_attention_streaming",
          ((1, 16384, 512), (1, 16384, 512), 1)),
         ("flash_attention_streaming", ((2, 1100, 640), (2, 1100, 640), 4)),
+        ("flash_attention_streaming", ((1, 1100, 512), (1, 1100, 512), 1)),
         # the slotted self-attentions of 256^2 and 512^2 (levels 0 and 1)
         ("flash_attention_slotted", ((3, 1024, 1024), 8, 40)),
         ("flash_attention_slotted", ((3, 256, 1024), 8, 80)),
@@ -1892,6 +1934,7 @@ def main() -> int:
             log(f"probe: {kind} {key} {str(dt)[6:]}: max_abs_err "
                 f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, max|plain| "
                 f"{r['peak']:.3e}); err/tol {r['err_over_tol']:.3f}")
+    tma_refusal_probe(gen)
     torch.cuda.empty_cache()
 
     paths = {}

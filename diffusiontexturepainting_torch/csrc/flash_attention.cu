@@ -1,6 +1,9 @@
 // Fused attention softmax(Q K^T * scale) V per head, online softmax over
 // K/V tiles in shared memory; the (Lq, Lk) score matrix is never written
-// to device memory. Three entries share the device code:
+// to device memory. Three entries share the device code; K8 and K13 take
+// fp32 only here (bf16 returns cudaErrorInvalidValue: their bf16 bodies
+// are flash_attention_sm90.cu's wgmma/TMA kernel, chosen by dtype in
+// ops/attention.py), K2 takes both:
 //
 //   dtp_flash_attention            K2 <- diffusiontexturepainting_tpu/ops/
 //       flash_attention.py flash_attention / _attn_kernel (whole K/V
@@ -40,8 +43,8 @@
 // block (two blocks an SM), so K/V tiles are reused 128 times from shared
 // memory; at hd 512 the output accumulator alone is 128 KB for 64 rows, so
 // K and V share one 16-row buffer and Q stays resident, which halves the
-// passes over the K/V panel against 32-row tiles. A register-resident
-// FA2/FA3 pipeline with wgmma is later work.
+// passes over the K/V panel against 32-row tiles. The register-resident
+// wgmma pipeline is flash_attention_sm90.cu (K8 and K13 in bf16).
 #include <mma.h>
 
 #include <cmath>
@@ -402,21 +405,16 @@ extern "C" cudaError_t dtp_flash_attention(const void* q, const void* k,
   return dtp::launch<float, 64, 32, false>(a, BH, s);
 }
 
-// K8: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd), contiguous;
-// hd <= 512; scale_log2 = scale * log2(e), applied to q before Q K^T.
+// K8 in fp32: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd),
+// contiguous; hd <= 512; scale_log2 = scale * log2(e), applied to q before
+// Q K^T.
 extern "C" cudaError_t dtp_flash_attention_streaming(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int Lq, int Lk, int hd, float scale_log2, int is_bf16, void* stream) {
   if (dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
+  // bf16 runs flash_attention_sm90.cu's wgmma kernel
+  if (is_bf16) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    auto a = dtp::projection_args<__nv_bfloat16>(q, k, v, out, B, H, Lq, Lk,
-                                                 hd, scale_log2);
-    a.prescale_q = true;
-    if (hd <= 64) return dtp::launch<__nv_bfloat16, 128, 64, false>(a, B, s);
-    if (hd <= 160) return dtp::launch<__nv_bfloat16, 64, 64, false>(a, B, s);
-    return dtp::launch<__nv_bfloat16, 64, 16, true>(a, B, s);
-  }
   auto a = dtp::projection_args<float>(q, k, v, out, B, H, Lq, Lk, hd,
                                        scale_log2);
   a.prescale_q = true;
@@ -425,9 +423,9 @@ extern "C" cudaError_t dtp_flash_attention_streaming(
   return dtp::launch<float, 32, 16, true>(a, B, s);
 }
 
-// K13: q, k, v (B,L,H*slot) with rows q_row / kv_row elements apart and
-// images q_batch / kv_batch apart (k and v share strides: views of one
-// fused projection); out (B,L,H*slot) contiguous. Head h reads lanes
+// K13 in fp32: q, k, v (B,L,H*slot) with rows q_row / kv_row elements
+// apart and images q_batch / kv_batch apart (k and v share strides: views
+// of one fused projection); out (B,L,H*slot) contiguous. Head h reads lanes
 // [h*slot, h*slot+hd) and writes its pad lanes zero. hd <= slot <= 512.
 extern "C" cudaError_t dtp_flash_attention_slotted(
     const void* q, const void* k, const void* v, void* out, int B, int H,
@@ -445,11 +443,8 @@ extern "C" cudaError_t dtp_flash_attention_slotted(
     a.prescale_q = a.two_pass = true;
     return a;
   };
-  if (is_bf16)
-    return dtp::launch<__nv_bfloat16, 64, 64, false>(
-        fill(dtp::make_args<__nv_bfloat16>(q, k, v, out, H, L, L, hd,
-                                           scale_log2)),
-        B, s);
+  // bf16 runs flash_attention_sm90.cu's wgmma kernel
+  if (is_bf16) return cudaErrorInvalidValue;
   return dtp::launch<float, 64, 32, false>(
       fill(dtp::make_args<float>(q, k, v, out, H, L, L, hd, scale_log2)), B,
       s);

@@ -16,12 +16,15 @@ kept so that each counter here maps to exactly one TPU kernel.
 and writes the head-slotted (B, L, heads*128) layout that models/layers.py
 Attention's slotted leg produces.
 
-Kernels live in csrc/flash_attention.cu. A wrapper takes its plain version
-only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
-raises. The TPU's K2 used a static-shift softmax; K2 here and its plain
-version compute the exact row-max softmax. K8's and K13's plain versions
-round where the TPU kernels round: q pre-scaled by scale*log2(e) and
-rounded to its dtype before Q K^T, and for K13 exp2 of bf16 logits.
+Kernels live in csrc/flash_attention.cu (K2; K8 and K13 in fp32) and
+csrc/flash_attention_sm90.cu (K8 and K13 in bf16: wgmma fed by TMA), the
+dtype choosing the source (`kernel_entry`). A wrapper takes its plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises. The TPU's K2 used a static-shift softmax; K2 here and
+its plain version compute the exact row-max softmax. K8's and K13's plain
+versions round where the TPU kernels round: q pre-scaled by
+scale*log2(e) and rounded to its dtype before Q K^T, and for K13 exp2 of
+bf16 logits.
 """
 
 from __future__ import annotations
@@ -50,6 +53,12 @@ _STREAM_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
 _SLOT_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
                   + (ctypes.c_longlong,) * 4
                   + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+# The bf16 bodies of K8 and K13 (csrc/flash_attention_sm90.cu) and the
+# shared memory a block may use on the H100.
+SM90_SOURCE = "flash_attention_sm90"
+SM90_STAGES = 2
+SMEM_LIMIT = 232448
 
 
 def _split_heads(x, num_heads):
@@ -102,6 +111,57 @@ def slotted_self_attention_fits(lq: int, lk: int, head_dim: int,
     if lq % bq:
         return False
     return 2 * lk * SLOT * 2 + bq * lk * 4 <= RESIDENT_BUDGET
+
+
+# --- the bf16 kernel's host plan (csrc/flash_attention_sm90.cu plan) ---
+
+
+def kernel_entry(kind: str, dtype) -> tuple[str, str]:
+    """(source, C symbol) a CUDA call of K8 (`kind` "streaming") or K13
+    ("slotted") launches: bf16 the wgmma/TMA kernel, fp32 the FMA twin."""
+    symbol = {"streaming": "dtp_flash_attention_streaming",
+              "slotted": "dtp_flash_attention_slotted"}[kind]
+    if dtype == torch.bfloat16:
+        return SM90_SOURCE, symbol + "_sm90"
+    return "flash_attention", symbol
+
+
+def sm90_plan(hd: int) -> dict:
+    """The bucket the bf16 kernel launches for head dim hd: Q K^T over kd
+    columns (kd/16 k16 steps, hd rounded up into {48, 80, 128, 256, 512}),
+    P V over nv columns an output slice (`slices` of them cover hd), bkv
+    keys a K/V tile, `consumers` warpgroups of 64 query rows, and its
+    dynamic shared memory: Q, K and V in whole 64-column swizzle atoms, K/V
+    in SM90_STAGES stages, the mbarriers and 1024 bytes of alignment."""
+    for kd, nv, bkv, consumers in ((48, 48, 128, 3), (80, 80, 128, 2),
+                                   (128, 128, 128, 2), (256, 256, 32, 1),
+                                   (512, 256, 32, 1)):
+        if hd <= kd:
+            break
+    k_atoms, v_atoms = -(-kd // 64), -(-nv // 64)
+    smem = (64 * consumers * 128 * k_atoms
+            + SM90_STAGES * bkv * 128 * (k_atoms + v_atoms)
+            + 8 * (1 + 3 * SM90_STAGES) + 1024)
+    return dict(kd=kd, nv=nv, bkv=bkv, consumers=consumers,
+                slices=-(-hd // nv), smem=smem)
+
+
+def tma_describable(t, head_stride: int) -> bool:
+    """Whether TMA can read `t` (B, L, ...) as (lanes, heads head_stride
+    elements apart, L rows, B images): a 16-byte-aligned base, contiguous
+    lanes, and head, row and image strides in whole 16 bytes (a stride over
+    a dimension of one is never stepped)."""
+    item = t.element_size()
+    strides = [head_stride] + [t.stride(d) for d in (1, 0) if t.shape[d] > 1]
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(st > 0 and st * item % 16 == 0 for st in strides))
+
+
+def _check_tma(name, head_stride, *tensors):
+    if not all(tma_describable(t, head_stride) for t in tensors):
+        raise ValueError(f"{name}: TMA needs 16-byte-aligned bases and "
+                         "head, row and image strides in whole 16 bytes "
+                         f"(heads {head_stride} elements apart)")
 
 
 # --- plain versions ---
@@ -237,7 +297,9 @@ def flash_attention_streaming(q, k, v, num_heads: int,
                               scale: float | None = None):
     """Streaming fused attention for long sequences, (B, Lq, D) x
     (B, Lk, D) -> (B, Lq, D): kernel K8 on CUDA, reading and writing the
-    projections in place; plain_attention_streaming on CPU."""
+    projections in place (bf16: csrc/flash_attention_sm90.cu, which needs
+    hd a multiple of 8 and 16-byte-aligned bases, else ValueError; fp32:
+    csrc/flash_attention.cu); plain_attention_streaming on CPU."""
     if q.device.type == "cpu":
         return plain_attention_streaming(q, k, v, num_heads, scale)
     _check_qkv("flash_attention_streaming", q, k, v, num_heads)
@@ -248,13 +310,15 @@ def flash_attention_streaming(q, k, v, num_heads: int,
     hd = D // num_heads
     if scale is None:
         scale = hd**-0.5
+    source, symbol = kernel_entry("streaming", q.dtype)
+    if source == SM90_SOURCE:
+        _check_tma("flash_attention_streaming", hd, q, k, v)
     out = torch.empty_like(q)
-    fn = _cuda.function("flash_attention", "dtp_flash_attention_streaming",
-                        _STREAM_ARGTYPES)
+    fn = _cuda.function(source, symbol, _STREAM_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
               num_heads, Lq, k.shape[1], hd, float(scale * _LOG2E),
               int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
-    _cuda.check("flash_attention", "dtp_flash_attention_streaming", code)
+    _cuda.check(source, symbol, code)
     flash_streaming_launches.record((tuple(q.shape), tuple(k.shape),
                                      num_heads))
     return out
@@ -266,7 +330,10 @@ def flash_attention_slotted(q, k, v, num_heads: int, head_dim: int,
     which may be views of one fused projection (rows any stride apart; k
     and v with equal strides). Returns (B, L, num_heads*128) with zero pad
     lanes. `head_dim` is the real head dim (the scale's and the lanes
-    read). Kernel K13 on CUDA, plain_attention_slotted on CPU."""
+    read). Kernel K13 on CUDA (bf16: csrc/flash_attention_sm90.cu, which
+    needs 16-byte-aligned bases and row and image strides in whole 16
+    bytes, else ValueError; fp32: csrc/flash_attention.cu),
+    plain_attention_slotted on CPU."""
     if q.device.type == "cpu":
         return plain_attention_slotted(q, k, v, num_heads, head_dim, scale)
     name = "flash_attention_slotted"
@@ -282,14 +349,16 @@ def flash_attention_slotted(q, k, v, num_heads: int, head_dim: int,
                          "strides")
     if scale is None:
         scale = head_dim**-0.5
+    source, symbol = kernel_entry("slotted", q.dtype)
+    if source == SM90_SOURCE:
+        _check_tma(name, SLOT, q, k, v)
     out = torch.empty((B, L, D), dtype=q.dtype, device=q.device)
-    fn = _cuda.function("flash_attention", "dtp_flash_attention_slotted",
-                        _SLOT_ARGTYPES)
+    fn = _cuda.function(source, symbol, _SLOT_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
               num_heads, L, head_dim, SLOT, q.stride(1), q.stride(0),
               k.stride(1), k.stride(0), float(scale * _LOG2E),
               int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
-    _cuda.check("flash_attention", "dtp_flash_attention_slotted", code)
+    _cuda.check(source, symbol, code)
     flash_slotted_launches.record((tuple(q.shape), num_heads, head_dim))
     return out
 

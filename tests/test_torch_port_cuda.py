@@ -291,6 +291,19 @@ def test_slotted_kernel_raises_and_never_falls_back():
     z = x[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         av.slotted_kernel_call(z, z, z, 40**-0.5)
+    # K13's bf16 entry (csrc/flash_attention_sm90.cu): a row stride off
+    # 16 bytes and fp16 raise before any launch
+    from diffusiontexturepainting_torch.ops import attention
+
+    qkv = torch.randn((2, 256, 3 * 512 + 4), generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = (qkv[..., i * 512:(i + 1) * 512] for i in range(3))
+    before = attention.flash_slotted_launches.launches
+    with pytest.raises(ValueError, match="TMA"):
+        attention.flash_attention_slotted(q, k, v, 4, 40)
+    with pytest.raises(TypeError):
+        attention.flash_attention_slotted(q.half(), k.half(), v.half(), 4, 40)
+    assert attention.flash_slotted_launches.launches == before
 
 
 @pytest.mark.cuda
@@ -472,3 +485,186 @@ def test_conv_arms_raise_and_never_fall_back():
         out = call()
         torch.cuda.synchronize()
         assert out.is_cuda and counter.launches == before + 1
+
+
+# The bf16 K8 and K13 (csrc/flash_attention_sm90.cu: wgmma fed by TMA) at
+# every head-dim bucket (hd 8 and 40 in the 48 bucket, 64 and 80 in 80,
+# 128, 160 in 256, 512 in two 256-column slices) and at ragged lengths:
+# one key, a tile's tail, a tile and one, several tiles and a tail.
+SM90_HDS = (8, 40, 64, 80, 128, 160, 512)
+SM90_LENGTHS = (1, 63, 129, 1100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", SM90_HDS)
+@pytest.mark.parametrize("length", SM90_LENGTHS)
+def test_sm90_streaming_matches_plain(hd, length):
+    """K8 in bf16 against plain_attention_streaming (chip_smoke's tolerance:
+    2^-5 of the plain output's largest magnitude)."""
+    gen = _setup()
+    import chip_smoke
+
+    heads = 1 if hd == 512 else 2
+    key = ((2, length, heads * hd), (2, length, heads * hd), heads)
+    r = chip_smoke.compare("flash_attention_streaming", key, torch.bfloat16,
+                           gen)
+    assert r["err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(129, 1100), (1100, 63), (2, 300)])
+def test_sm90_streaming_takes_any_lq_and_lk(lq, lk):
+    gen = _setup()
+    import chip_smoke
+
+    key = ((2, lq, 320), (2, lk, 320), 8)
+    r = chip_smoke.compare("flash_attention_streaming", key, torch.bfloat16,
+                           gen)
+    assert r["err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (8, 36, 40, 64, 80, 128))
+@pytest.mark.parametrize("length", SM90_LENGTHS)
+def test_sm90_slotted_matches_plain(hd, length):
+    """K13 in bf16 on views of one fused projection (zero pad lanes), the
+    output's pad lanes checked zero by compare."""
+    gen = _setup()
+    import chip_smoke
+
+    r = chip_smoke.compare("flash_attention_slotted",
+                           ((2, length, 4 * 128), 4, hd), torch.bfloat16, gen)
+    assert r["err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (36, 40, 80))
+def test_sm90_slotted_reads_only_the_real_lanes(hd):
+    """Pad lanes of q, k and v hold NaN: the kernel reads only the hd real
+    lanes (TMA describes them alone), so its output is finite, equal to
+    the plain version's within tolerance, and its pad lanes are zero."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention
+
+    B, L, H = 2, 700, 4
+    qkv = torch.full((B, L, 3, H, 128), float("nan"), dtype=torch.bfloat16,
+                     device="cuda")
+    qkv[..., :hd] = torch.randn((B, L, 3, H, hd), generator=gen,
+                                device="cuda").bfloat16()
+    q, k, v = qkv.view(B, L, 3 * H * 128).chunk(3, dim=-1)
+    got = attention.flash_attention_slotted(q, k, v, H, hd)
+    want = attention.plain_attention_slotted(q, k, v, H, hd)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not got.view(B, L, H, 128)[..., hd:].any()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0**-5 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_sm90_replays_bit_identically():
+    """The same inputs give the same bits (no atomics, a fixed order)."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention
+
+    q, k, v = (torch.randn((2, 1100, 320), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    a = attention.flash_attention_streaming(q, k, v, 8)
+    b = attention.flash_attention_streaming(q, k, v, 8)
+    w = torch.randn((1, 1100, 512), generator=gen, device="cuda").bfloat16()
+    c = attention.flash_attention_streaming(w, w, w, 1)
+    d = attention.flash_attention_streaming(w, w, w, 1)
+    qkv = torch.randn((2, 1100, 3 * 1024), generator=gen,
+                      device="cuda").bfloat16()
+    sq, sk, sv = qkv.chunk(3, dim=-1)
+    e = attention.flash_attention_slotted(sq, sk, sv, 8, 40)
+    f = attention.flash_attention_slotted(sq, sk, sv, 8, 40)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(e, f)
+
+
+@pytest.mark.cuda
+def test_sm90_refuses_what_tma_cannot_describe():
+    """bf16 K8 at hd 36 (a 72-byte head stride) or on a base 2 bytes off 16,
+    and K13 on a row stride off 16 bytes, raise ValueError and launch
+    nothing; fp32 K8 at hd 36 still runs the FMA twin."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention
+
+    x = torch.randn((2, 300, 4 * 36), generator=gen, device="cuda")
+    flat = torch.randn(1 + 2 * 300 * 320, generator=gen,
+                       device="cuda").bfloat16()
+    off = flat[1:].view(2, 300, 320)
+    qkv = torch.randn((2, 300, 3 * 1024 + 8 + 4), generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = (qkv[..., i * 1024:(i + 1) * 1024] for i in range(3))
+    counters = (attention.flash_streaming_launches,
+                attention.flash_slotted_launches)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="TMA"):
+        attention.flash_attention_streaming(x.bfloat16(), x.bfloat16(),
+                                            x.bfloat16(), 4)
+    with pytest.raises(ValueError, match="TMA"):
+        attention.flash_attention_streaming(off, off, off, 8)
+    with pytest.raises(ValueError, match="TMA"):
+        attention.flash_attention_slotted(q, k, v, 8, 40)
+    assert [c.launches for c in counters] == before
+    out = attention.flash_attention_streaming(x, x, x, 4)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_sm90_dtype_dispatch_and_launch_counters(monkeypatch):
+    """A bf16 call reaches the sm90 entry, an fp32 call the FMA twin's, and
+    each moves its wrapper's counter by one."""
+    gen = _setup()
+    from diffusiontexturepainting_torch import _cuda
+    from diffusiontexturepainting_torch.ops import attention
+
+    asked = []
+    real = _cuda.function
+
+    def spy(source, symbol, argtypes):
+        asked.append((source, symbol))
+        return real(source, symbol, argtypes)
+
+    monkeypatch.setattr(_cuda, "function", spy)
+    x = torch.randn((1, 300, 320), generator=gen, device="cuda")
+    qkv = torch.randn((1, 300, 3 * 1024), generator=gen, device="cuda")
+    for dt, source, suffix in ((torch.bfloat16, "flash_attention_sm90",
+                                "_sm90"),
+                               (torch.float32, "flash_attention", "")):
+        asked.clear()
+        before = (attention.flash_streaming_launches.launches,
+                  attention.flash_slotted_launches.launches)
+        attention.flash_attention_streaming(x.to(dt), x.to(dt), x.to(dt), 8)
+        sq, sk, sv = qkv.to(dt).chunk(3, dim=-1)
+        attention.flash_attention_slotted(sq, sk, sv, 8, 40)
+        torch.cuda.synchronize()
+        assert asked == [
+            (source, "dtp_flash_attention_streaming" + suffix),
+            (source, "dtp_flash_attention_slotted" + suffix)]
+        assert (attention.flash_streaming_launches.launches,
+                attention.flash_slotted_launches.launches) == (
+                    before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_sm90_plan_matches_the_library():
+    """ops/attention.py sm90_plan equals the built library's plan for every
+    hd in 1..512."""
+    _setup()
+    import ctypes
+
+    from diffusiontexturepainting_torch import _cuda
+    from diffusiontexturepainting_torch.ops import attention
+
+    fn = _cuda.library("flash_attention_sm90").dtp_flash_attention_sm90_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 6)()
+    for hd in range(1, 513):
+        assert fn(hd, out) == 0
+        p = attention.sm90_plan(hd)
+        assert list(out) == [p["kd"], p["nv"], p["bkv"], p["consumers"],
+                             p["slices"], p["smem"]], hd
