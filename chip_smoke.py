@@ -7,13 +7,17 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc builds every kernel from csrc/, in parallel, seconds
                printed; ptxas's registers and spills, none allowed in the
-               bf16 K8/K13 kernel (csrc/flash_attention_sm90.cu);
+               bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu) or the
+               bf16 K9 kernel (csrc/conv_sm90.cu);
   3. probe     each kernel against its plain version at a few shapes,
-               the 16384-token streaming attentions (K8) and a ragged
-               hd-512 one, the slotted attentions of 256^2 and 512^2 (K13),
-               and ragged and odd shapes of the stride-2 downsample (K9)
-               and the spatial moments (K14) among them; the bf16 K8/K13
-               refuse what TMA cannot describe (ValueError, no launch);
+               K2 at its four launched head dims (40, 80, 160, 512) and a
+               ragged length, the 16384-token streaming attentions (K8)
+               and a ragged hd-512 one, the slotted attentions of 256^2 and
+               512^2 (K13), K9 at the default stamp's three shapes and
+               ragged and odd ones (its output and statistics bit-identical
+               on replay), and the spatial moments (K14) among them; the
+               bf16 K2/K8/K13 and K9 refuse what TMA cannot describe
+               (ValueError, no launch);
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -108,7 +112,8 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                statistics included; CUDA-event times of the kernel, its
                plain version and the one PyTorch call that computes the
                same function where there is one, at the shapes of the path
-               it is reported for, beside its bound;
+               it is reported for, beside its bound (K2 and K9 also at the
+               envelope path's);
  10. no jax    the run imported neither JAX, nor the JAX package, nor
                tornado, nor PIL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -159,7 +164,8 @@ MAX_MEAN_DIFF = 8.0
 SOURCES = {
     "conv3x3": "csrc/conv3x3.cu",
     "upsample2x_conv3x3": "csrc/conv3x3.cu",
-    "flash_attention": "csrc/flash_attention.cu",
+    # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
+    "flash_attention": "csrc/flash_attention_sm90.cu",
     "gn_conv_resident": "csrc/conv3x3.cu",
     "gn_conv_stream": "csrc/conv3x3.cu",
     "upconv_stream": "csrc/conv3x3.cu",
@@ -167,7 +173,8 @@ SOURCES = {
     # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
     "flash_attention_streaming": "csrc/flash_attention_sm90.cu",
     "flash_attention_slotted": "csrc/flash_attention_sm90.cu",
-    "downsample_conv3x3_stats": "csrc/conv3x3.cu",
+    # bf16; fp32 runs conv3x3.cu
+    "downsample_conv3x3_stats": "csrc/conv_sm90.cu",
     "spatial_moments": "csrc/moments.cu",
     "conv3x3_inpad": "csrc/conv_staged.cu",
     "upsample2x_conv3x3_inpad": "csrc/conv_staged.cu",
@@ -324,8 +331,12 @@ ARM_PATH_ROWS = {"nomax_attention": "nomax-safe",
                  "sublane_attention": "sublane"}
 # K8/K2 launches a 1024^2/4 stamp at each UNet self-attention shape
 ARM_LAUNCHES = 20
-# the source whose ptxas report must show no spill
-NO_SPILL = ("flash_attention_sm90",)
+# the sources whose ptxas report must show no spill
+NO_SPILL = ("flash_attention_sm90", "conv_sm90")
+# Kernels also timed at a second path's shapes: K2 and K9 at the 1024^2
+# envelope's
+ALSO_REPORTED_ON = {"flash_attention": "envelope",
+                    "downsample_conv3x3_stats": "envelope"}
 # The JAX package's streaming_plan shape test (ops/conv3x3.py:942), without
 # its VMEM budget: H >= 8, W >= 2, Cin >= 16, Cout >= 128.
 STREAM_MIN = (8, 2, 16, 128)
@@ -402,8 +413,10 @@ def _kernel_case(kind, shape_key, dtype, gen):
         q_shape, k_shape, heads = shape_key
         q, k, v = rnd(*q_shape), rnd(*k_shape), rnd(*k_shape)
         if kind == "flash_attention":
+            # K2 computes K8's function
             pair = (lambda: attention.flash_attention(q, k, v, heads),
-                    lambda: attention.plain_attention(q, k, v, heads))
+                    lambda: attention.plain_attention_streaming(q, k, v,
+                                                                heads))
         else:
             pair = (lambda: attention.flash_attention_streaming(q, k, v,
                                                                 heads),
@@ -1384,10 +1397,10 @@ def attn_arms_phase(gen):
                     f"{route} route (tol {tol:.3e}); err/tol {err / tol:.3f}")
         del inputs, firsts, base
 
-        # clamp: raw logits far above 83. The exact softmax is K8's here:
-        # it rounds the pre-scaled q to bf16 as the arms do, while K2
-        # scales fp32 logits, and at logits ~200 that rounding alone moves
-        # a peaked softmax by more than the tolerance
+        # clamp: raw logits far above 83. The exact softmax is K8's (K2
+        # computes the same function): it rounds the pre-scaled q to bf16
+        # as the arms do; at logits ~200 scaling fp32 logits instead would
+        # alone move a peaked softmax by more than the tolerance
         q, k, v = tool.make_inputs(2, 1024, 320, "clamp", "cuda", bf16, gen)
         exact = attention.flash_attention_streaming(q, k, v, 8)
         for name in ARMS:
@@ -1654,25 +1667,44 @@ def release():
 
 
 def tma_refusal_probe(gen):
-    """The bf16 K8 and K13 (csrc/flash_attention_sm90.cu) refuse operands
-    TMA cannot describe with ValueError and launch nothing: K8 at hd 36 (a
-    72-byte head stride), K13 on views of a projection whose rows are 8
-    bytes off 16."""
+    """The bf16 K2, K8 and K13 (csrc/flash_attention_sm90.cu) and K9
+    (csrc/conv_sm90.cu) refuse operands TMA cannot describe with ValueError
+    and launch nothing: K2 and K8 at hd 36 (a 72-byte head stride), K13 on
+    views of a projection whose rows are 8 bytes off 16, K9 at Cin 20 and
+    at Cout 12 (rows of 40 and 24 bytes) and on an input 2 bytes off 16."""
     import torch
 
-    from diffusiontexturepainting_torch.ops import attention
+    from diffusiontexturepainting_torch.ops import attention, gn_conv
 
     x = torch.randn((1, 256, 4 * 36), generator=gen,
                     device="cuda").bfloat16()
     qkv = torch.randn((1, 256, 3 * 1024 + 4), generator=gen,
                       device="cuda").bfloat16()
     q, k, v = (qkv[..., i * 1024:(i + 1) * 1024] for i in range(3))
-    calls = {"flash_attention_streaming (1, 256, 144), 4 heads":
+    xc = torch.randn((1, 16, 16, 20), generator=gen, device="cuda").bfloat16()
+    wc = torch.randn((3, 3, 20, 16), generator=gen, device="cuda").bfloat16()
+    xd = torch.randn((1, 16, 16, 16), generator=gen, device="cuda").bfloat16()
+    wd = torch.randn((3, 3, 16, 12), generator=gen, device="cuda").bfloat16()
+    flat = torch.randn(1 + 16 * 16 * 16, generator=gen,
+                       device="cuda").bfloat16()
+    off = flat[1:].view(1, 16, 16, 16)
+    w16 = torch.randn((3, 3, 16, 16), generator=gen,
+                      device="cuda").bfloat16()
+    calls = {"flash_attention (1, 256, 144), 4 heads":
+             lambda: attention.flash_attention(x, x, x, 4),
+             "flash_attention_streaming (1, 256, 144), 4 heads":
              lambda: attention.flash_attention_streaming(x, x, x, 4),
              "flash_attention_slotted, rows 6152 bytes apart":
-             lambda: attention.flash_attention_slotted(q, k, v, 8, 40)}
-    counters = (attention.flash_streaming_launches,
-                attention.flash_slotted_launches)
+             lambda: attention.flash_attention_slotted(q, k, v, 8, 40),
+             "downconv_stream Cin 20":
+             lambda: gn_conv.downconv_stream(xc, wc, None),
+             "downconv_stream Cout 12":
+             lambda: gn_conv.downconv_stream(xd, wd, None),
+             "downconv_stream x 2 bytes off 16":
+             lambda: gn_conv.downconv_stream(off, w16, None)}
+    counters = (attention.flash_launches, attention.flash_streaming_launches,
+                attention.flash_slotted_launches,
+                gn_conv.downconv_stream_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -1683,6 +1715,30 @@ def tma_refusal_probe(gen):
             raise AssertionError(f"probe: {label} was not refused")
     if [c.launches for c in counters] != before:
         raise AssertionError("probe: a refused call launched a kernel")
+
+
+def downconv_replay_probe(gen):
+    """bf16 K9 at the default stamp's three shapes twice on the same
+    inputs: output and statistics bit-identical (a fixed reduction order,
+    no atomics)."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import gn_conv
+
+    for h, c in ((128, 128), (64, 256), (32, 512)):
+        x = torch.randn((2, 2 * h, 2 * h, c), generator=gen,
+                        device="cuda").bfloat16()
+        w = (torch.randn((3, 3, c, c), generator=gen, device="cuda")
+             * (9 * c) ** -0.5).bfloat16()
+        b = (torch.randn(c, generator=gen, device="cuda") * 0.1).bfloat16()
+        first, again = (gn_conv.downconv_stream(x, w, b) for _ in range(2))
+        torch.cuda.synchronize()
+        if not (torch.equal(first[0], again[0])
+                and torch.equal(first[1], again[1])):
+            raise AssertionError(f"probe: downconv_stream {tuple(x.shape)} "
+                                 "differs on replay")
+        log(f"probe: downconv_stream {tuple(x.shape)} x {tuple(w.shape)} "
+            "bf16: output and statistics bit-identical on replay")
 
 
 def kernels_phase(gen, paths):
@@ -1698,18 +1754,23 @@ def kernels_phase(gen, paths):
             raise AssertionError(f"kernels: {name} was not launched on the "
                                  f"{path} path")
         counts = run["shapes"][name]
+        also = ALSO_REPORTED_ON.get(name)
+        also_counts = paths[also]["shapes"][name] if also else {}
         keys = sorted(set().union(*(paths[p]["shapes"][name]
                                     for p in paths)), key=str)
         worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
         errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
         totals = Counter()
+        also_totals = Counter()
         by_option = Counter()
         lib_missing = False
         for key in keys:
             count = counts.get(key, 0)
+            also_count = also_counts.get(key, 0)
             for dt in errs:
                 r = compare(name, key, dt, gen,
-                            timed=dt == torch.bfloat16 and count > 0)
+                            timed=(dt == torch.bfloat16
+                                   and count + also_count > 0))
                 errs[dt] = max(errs[dt], r["max_abs_err"])
                 worst[dt] = max(worst[dt], r["err_over_tol"])
                 msg = (f"kernels: {name} {key} {str(dt)[6:]}: max_abs_err "
@@ -1720,6 +1781,11 @@ def kernels_phase(gen, paths):
                           if r.get("stats_checked") else ""))
                 if "kernel_ms" in r:
                     b_s, by = bound_s(name, key, "bfloat16")
+                    for field, ms in (("kernel", r["kernel_ms"]),
+                                      ("plain", r["plain_ms"]),
+                                      ("library", r["library_ms"] or 0.0),
+                                      ("bound", b_s * 1e3)):
+                        also_totals[field] += also_count * ms
                     totals["kernel"] += count * r["kernel_ms"]
                     if name in OPTION_OF:
                         by_option[OPTION_OF[name](key)] += (
@@ -1738,7 +1804,10 @@ def kernels_phase(gen, paths):
                     msg += (f"; {r['kernel_ms']:.4f} ms kernel, "
                             f"{r['plain_ms']:.4f} ms plain, library {lib}, "
                             f"bound {b_s * 1e3:.4f} ms ({by}), "
-                            f"x{count // run['stamps']} per stamp")
+                            f"x{count // run['stamps']} per stamp"
+                            + (f" ({path}), x"
+                               f"{also_count // paths[also]['stamps']} "
+                               f"({also})" if also else ""))
                 log(msg)
                 torch.cuda.empty_cache()
         n = run["stamps"]
@@ -1772,7 +1841,18 @@ def kernels_phase(gen, paths):
             **({"ms_by_option": {k: v / n for k, v in by_option.items()}}
                if by_option else {}),
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
-               else {})})
+               else {}),
+            **({also: {"launches": paths[also]["launches"][name],
+                       **{f"{f}_ms": also_totals[f] / paths[also]["stamps"]
+                          for f in ("kernel", "plain", "library",
+                                    "bound")}}} if also else {})})
+        if also:
+            na = paths[also]["stamps"]
+            log(f"kernels: {name} at the {also} path's shapes: "
+                f"{also_totals['kernel'] / na:.4f} ms a stamp, plain "
+                f"{also_totals['plain'] / na:.4f}, library "
+                f"{also_totals['library'] / na:.4f}, bound "
+                f"{also_totals['bound'] / na:.4f}")
     return record
 
 
@@ -1817,11 +1897,16 @@ def main() -> int:
         ("conv3x3", ((3, 32, 32, 320), (3, 3, 320, 320))),
         ("conv3x3", ((1, 64, 64, 512), (3, 3, 512, 256))),
         ("upsample2x_conv3x3", ((3, 8, 8, 1280), (3, 3, 1280, 1280))),
+        # K2 at its launched shapes: UNet level 0 and the VAE mid-blocks of
+        # 256^2 (hd 40, 512), levels 1 and 2 of 1024^2 (hd 80, 160); ragged
+        # lengths at hd 160 and 512
         ("flash_attention", ((3, 1024, 320), (3, 1024, 320), 8)),
         ("flash_attention", ((1, 1024, 512), (1, 1024, 512), 1)),
-        # head dims of the 512^2 operating point, and a ragged length
+        ("flash_attention", ((2, 1024, 512), (2, 1024, 512), 1)),
         ("flash_attention", ((3, 4096, 640), (3, 4096, 640), 8)),
+        ("flash_attention", ((3, 1024, 1280), (3, 1024, 1280), 8)),
         ("flash_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        ("flash_attention", ((1, 1100, 512), (1, 1100, 512), 1)),
         # images straddling statistics chunks, ragged widths and channels,
         # no bias / no prologue, split-K with statistics
         ("gn_conv_resident", ((3, 4, 4, 1280), (3, 3, 1280, 1280),
@@ -1847,8 +1932,12 @@ def main() -> int:
         ("flash_attention_slotted", ((3, 1024, 1024), 8, 40)),
         ("flash_attention_slotted", ((3, 256, 1024), 8, 80)),
         ("flash_attention_slotted", ((3, 4096, 1024), 8, 40)),
-        # the stride-2 downsample: odd sizes (the last row and column
-        # dropped), ragged channels, a single row band, no statistics
+        # the stride-2 downsample (K9): the default stamp's three calls,
+        # then odd sizes (the last row and column dropped), ragged
+        # channels, a single row band, no statistics
+        *[("downsample_conv3x3_stats", ((2, 2 * h, 2 * h, c), (3, 3, c, c),
+                                        True))
+          for h, c in ((128, 128), (64, 256), (32, 512))],
         ("downsample_conv3x3_stats", ((1, 18, 34, 48), (3, 3, 48, 40),
                                       True)),
         ("downsample_conv3x3_stats", ((2, 7, 9, 24), (3, 3, 24, 136),
@@ -1935,6 +2024,7 @@ def main() -> int:
                 f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, max|plain| "
                 f"{r['peak']:.3e}); err/tol {r['err_over_tol']:.3f}")
     tma_refusal_probe(gen)
+    downconv_replay_probe(gen)
     torch.cuda.empty_cache()
 
     paths = {}

@@ -16,7 +16,10 @@
 //                               _upconv_stream_kernel (K6)
 //   dtp_downsample_conv3x3_stats
 //                            <- gn_conv_stream.py _downconv_stream_pallas /
-//                               _downconv_kernel (K9)
+//                               _downconv_kernel (K9), in fp32 only: bf16
+//                               K9 is conv_sm90.cu's wgmma/TMA kernel
+//                               (dtype dispatch in ops/gn_conv.py), and this
+//                               entry returns cudaErrorInvalidValue for it
 //
 // What they compute:
 //   conv:  out[b,y,x,n] = bias[n] + sum_{di,dj,c} x[b,y+di-1,x+dj-1,c]
@@ -50,9 +53,8 @@
 // is never negative and reads zero only at H (the pad row) - no -1 offset.
 // No padded copy of the input is made. fp32 accumulation.
 //
-// K9 at the 256^2 stamp's encoder (M = 32768..2048 output pixels, K =
-// 9*128..9*512) is tensor-core work in the same tile; it is the DOWN mode
-// of the same kernel and shares its limits.
+// K9 (the DOWN mode) runs here in fp32 only, as the FMA twin of
+// conv_sm90.cu, which takes bf16 K9 with its statistics in the epilogue.
 //
 // What bounds it on the H100: at the UNet's shapes (M = 48..3072 pixels,
 // K up to 9*2560) it is tensor-core work on small M, so tile occupancy and
@@ -635,16 +637,18 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3_stats(
                                        want_stats, is_bf16, stream);
 }
 
-// K9: x (B,H,W,Cin) with H, W >= 2, w (3,3,Cin,Cout), bias (Cout,) or null,
-// out (B,H/2,W/2,Cout); workspaces as for dtp_gn_conv3x3 with the output's
-// (H/2)*(W/2) rows per image.
+// K9 in fp32: x (B,H,W,Cin) with H, W >= 2, w (3,3,Cin,Cout), bias (Cout,)
+// or null, out (B,H/2,W/2,Cout); workspaces as for dtp_gn_conv3x3 with the
+// output's (H/2)*(W/2) rows per image.
 extern "C" cudaError_t dtp_downsample_conv3x3_stats(
     const void* x, const void* w, const void* bias, void* out,
     void* partial, void* ws, void* stats, int B, int H, int W, int Cin,
     int Cout, int splits, int want_stats, int is_bf16, void* stream) {
-  return dtp::dispatch_fused<dtp::kDown>(x, nullptr, nullptr, w, bias,
-                                         nullptr, out, partial, ws, stats,
-                                         B, H, W, Cin, Cout,
-                                         (long long)Cin * Cout, splits,
-                                         want_stats, is_bf16, stream);
+  // bf16 runs conv_sm90.cu's wgmma kernel: no bf16 instantiation here
+  if (is_bf16 || dtp::bad_shape(dtp::kDown, B, H, W, Cin, Cout))
+    return cudaErrorInvalidValue;
+  return dtp::launch_fused<float, dtp::kDown>(
+      x, nullptr, nullptr, w, bias, nullptr, out, partial, ws, stats, B, H,
+      W, Cin, Cout, (long long)Cin * Cout, splits, want_stats != 0,
+      static_cast<cudaStream_t>(stream));
 }

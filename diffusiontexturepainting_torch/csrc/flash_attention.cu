@@ -1,23 +1,23 @@
-// Fused attention softmax(Q K^T * scale) V per head, online softmax over
-// K/V tiles in shared memory; the (Lq, Lk) score matrix is never written
-// to device memory. Three entries share the device code; K8 and K13 take
-// fp32 only here (bf16 returns cudaErrorInvalidValue: their bf16 bodies
-// are flash_attention_sm90.cu's wgmma/TMA kernel, chosen by dtype in
-// ops/attention.py), K2 takes both:
+// Fused attention softmax(Q K^T * scale) V per head in fp32, online softmax
+// over K/V tiles in shared memory; the (Lq, Lk) score matrix is never
+// written to device memory. The FMA twin of flash_attention_sm90.cu: K2,
+// K8 and K13 take fp32 only here (bf16 returns cudaErrorInvalidValue:
+// their bf16 body is flash_attention_sm90.cu's wgmma/TMA kernel, chosen by
+// dtype in ops/attention.py). Three entries share the device code:
 //
 //   dtp_flash_attention            K2 <- diffusiontexturepainting_tpu/ops/
 //       flash_attention.py flash_attention / _attn_kernel (whole K/V
 //       resident in VMEM, static-shift "nomax" softmax). Here the softmax is
 //       the exact running-max form (Milakov & Gimelshein online softmax),
-//       so the K/V panel need not be resident and any L works.
-//       Layout (BH, L, hd), the head split and merge are torch reshapes.
+//       so the K/V panel need not be resident and any L works; q is
+//       pre-scaled by scale*log2(e) and rounded to its type, as the TPU
+//       kernel does (_attn_kernel's qs), so K2 computes K8's function.
 //   dtp_flash_attention_streaming  K8 <- flash_attention.py
-//       flash_attention_streaming / _stream_kernel: the same online softmax
-//       for the sequences whose K/V panel overflows VMEM (16384 tokens at
-//       the 1024^2 point: UNet level 0 with hd 40 and BH 24, the VAE
-//       mid-block with hd 512 and BH 1-2). q is pre-scaled by
-//       scale*log2(e) and rounded to its type, as the TPU kernel does.
-//       Reads and writes the (B, L, heads*hd) projections in place.
+//       flash_attention_streaming / _stream_kernel: the same function for
+//       the sequences whose K/V panel overflows VMEM (16384 tokens at the
+//       1024^2 point: UNet level 0 with hd 40 and BH 24, the VAE mid-block
+//       with hd 512 and BH 1-2).
+//       K2 and K8 read and write the (B, L, heads*hd) projections in place.
 //   dtp_flash_attention_slotted    K13 <- flash_attention.py
 //       flash_attention_slotted / _attn_kernel(exp2_bf16=True): head h of
 //       the (B, L, heads*128) layout in lanes [h*128, h*128+hd); only the
@@ -32,38 +32,29 @@
 // (query tiles of each (batch, head) consecutive, so blocks running at
 // once share a head's K/V in L2).
 //
-// What bounds it on the H100: at 16384 tokens the work is 4*L^2*hd flops
-// a head (about 1 TFLOP for a UNet level-0 call), far above the bytes
-// (q, k, v, out read or written once: 0.13 GB), so the tensor cores bound
-// it. This version is not near that bound: one (BQ x hd) fp32 output
+// What bounds it on the H100: 4*L^2*hd flops a head, far above the bytes
+// (q, k, v, out read or written once), so the FP32 pipes at 67 TFLOP/s.
+// This version is not near that bound: one (BQ x hd) fp32 output
 // accumulator per block lives in shared memory and is reloaded around
 // every P V product, the softmax between the products is serial, and
-// there is no copy/compute overlap (bf16 WMMA via mma.sync; an fp32 FMA
-// twin). What the tiles do about it: at hd <= 64 K8 takes 128 query rows a
-// block (two blocks an SM), so K/V tiles are reused 128 times from shared
-// memory; at hd 512 the output accumulator alone is 128 KB for 64 rows, so
-// K and V share one 16-row buffer and Q stays resident, which halves the
-// passes over the K/V panel against 32-row tiles. The register-resident
-// wgmma pipeline is flash_attention_sm90.cu (K8 and K13 in bf16).
-#include <mma.h>
-
+// there is no copy/compute overlap. What the tiles do about it: at
+// hd <= 64 K8 takes 128 query rows a block, so K/V tiles are reused 128
+// times from shared memory; at hd 512 the output accumulator alone is
+// 128 KB for 64 rows, so K and V share one 16-row buffer and Q stays
+// resident, which halves the passes over the K/V panel against 32-row
+// tiles.
 #include <cmath>
 
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace dtp {
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 struct Pad;
-template <>
-struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
 template <>
 struct Pad<float> { static constexpr int value = 4; };
 
@@ -138,29 +129,6 @@ __device__ void load_rows(T* dst, const T* src, long long stride, int row0,
 
 // S (BQ x BKV, fp32) = Q K^T.
 template <int BQ, int BKV>
-__device__ void scores(const __nv_bfloat16* Qs, const __nv_bfloat16* Ks,
-                       float* Ss, int hdp, int ldh, int lds) {
-  const int warp = threadIdx.x >> 5;
-  constexpr int TJ = BKV / 16;
-  for (int t = warp; t < (BQ / 16) * TJ; t += kWarps) {
-    const int ti = t / TJ, tj = t % TJ;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int d0 = 0; d0 < hdp; d0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b;
-      wmma::load_matrix_sync(a, Qs + ti * 16 * ldh + d0, ldh);
-      wmma::load_matrix_sync(b, Ks + tj * 16 * ldh + d0, ldh);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(Ss + ti * 16 * lds + tj * 16, acc, lds,
-                            wmma::mem_row_major);
-  }
-}
-
-template <int BQ, int BKV>
 __device__ void scores(const float* Qs, const float* Ks, float* Ss, int hdp,
                        int ldh, int lds) {
   for (int idx = threadIdx.x; idx < BQ * BKV; idx += kThreads) {
@@ -174,31 +142,6 @@ __device__ void scores(const float* Qs, const float* Ks, float* Ss, int hdp,
 }
 
 // O (BQ x hdp, fp32, in shared memory) += P V.
-template <int BQ, int BKV>
-__device__ void accumulate_pv(const __nv_bfloat16* Ps,
-                              const __nv_bfloat16* Vs, float* Os, int hdp,
-                              int ldh, int ldo, int ldp) {
-  const int warp = threadIdx.x >> 5;
-  const int tc_n = hdp / 16;
-  for (int t = warp; t < (BQ / 16) * tc_n; t += kWarps) {
-    const int ti = t / tc_n, tc = t % tc_n;
-    float* o = Os + ti * 16 * ldo + tc * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, o, ldo, wmma::mem_row_major);
-#pragma unroll
-    for (int j0 = 0; j0 < BKV; j0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(a, Ps + ti * 16 * ldp + j0, ldp);
-      wmma::load_matrix_sync(b, Vs + j0 * ldh + tc * 16, ldh);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(o, acc, ldo, wmma::mem_row_major);
-  }
-}
-
 template <int BQ, int BKV>
 __device__ void accumulate_pv(const float* Ps, const float* Vs, float* Os,
                               int hdp, int ldh, int ldo, int ldp) {
@@ -384,25 +327,21 @@ bool bad(int B, int H, int Lq, int Lk, int hd) {
 }  // namespace
 }  // namespace dtp
 
-// K2: q (BH,Lq,hd), k and v (BH,Lk,hd), out (BH,Lq,hd); hd <= 512.
-extern "C" cudaError_t dtp_flash_attention(const void* q, const void* k,
-                                           const void* v, void* out, int BH,
-                                           int Lq, int Lk, int hd,
-                                           float scale, int is_bf16,
-                                           void* stream) {
-  if (dtp::bad(BH, 1, Lq, Lk, hd)) return cudaErrorInvalidValue;
+// K2 in fp32: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd),
+// contiguous; hd <= 512; scale_log2 = scale * log2(e), applied to q before
+// Q K^T (K8's function).
+extern "C" cudaError_t dtp_flash_attention(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int Lq, int Lk, int hd, float scale_log2, int is_bf16, void* stream) {
+  if (dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
+  // bf16 runs flash_attention_sm90.cu's wgmma kernel
+  if (is_bf16) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = hd > 160;
-  const float sl = scale * dtp::kLog2e;
-  if (is_bf16) {
-    auto a = dtp::projection_args<__nv_bfloat16>(q, k, v, out, BH, 1, Lq, Lk,
-                                                 hd, sl);
-    if (wide) return dtp::launch<__nv_bfloat16, 32, 32, false>(a, BH, s);
-    return dtp::launch<__nv_bfloat16, 64, 64, false>(a, BH, s);
-  }
-  auto a = dtp::projection_args<float>(q, k, v, out, BH, 1, Lq, Lk, hd, sl);
-  if (wide) return dtp::launch<float, 32, 16, false>(a, BH, s);
-  return dtp::launch<float, 64, 32, false>(a, BH, s);
+  auto a = dtp::projection_args<float>(q, k, v, out, B, H, Lq, Lk, hd,
+                                       scale_log2);
+  a.prescale_q = true;
+  if (hd > 160) return dtp::launch<float, 32, 16, false>(a, B, s);
+  return dtp::launch<float, 64, 32, false>(a, B, s);
 }
 
 // K8 in fp32: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd),

@@ -1,12 +1,17 @@
-// K8 and K13 in bf16 for Hopper (sm_90a): one warp-specialised kernel,
+// K2, K8 and K13 in bf16 for Hopper (sm_90a): one warp-specialised kernel,
 // Q K^T and P V both on wgmma, K/V tiles brought in by TMA.
 //
-//   dtp_flash_attention_streaming_sm90  K8 <- diffusiontexturepainting_tpu/
-//       ops/flash_attention.py flash_attention_streaming / _stream_kernel:
-//       softmax over base-2 logits per head, online (running max, alpha
-//       rescaling), q pre-scaled by scale*log2(e) and rounded to bf16 before
-//       Q K^T, the row sum in fp32, the division after P V. Reads and writes
-//       the (B, L, H*hd) projections in place; any Lq, Lk; hd <= 512.
+//   dtp_flash_attention_sm90            K2 <- diffusiontexturepainting_tpu/
+//       ops/flash_attention.py flash_attention / _attn_kernel, and
+//   dtp_flash_attention_streaming_sm90  K8 <- flash_attention_streaming /
+//       _stream_kernel: one function, softmax over base-2 logits per head,
+//       online (running max, alpha rescaling), q pre-scaled by
+//       scale*log2(e) and rounded to bf16 before Q K^T, the row sum in
+//       fp32, the division after P V (the TPU's K2 takes a static shift
+//       where this takes the running max; they agree within the nomax
+//       domain). Both read and write the (B, L, H*hd) projections in
+//       place; any Lq, Lk; hd <= 512. K2 serves the sequences of 1024 and
+//       4096 tokens, K8 those of 16384; a probe may name K2's bucket.
 //   dtp_flash_attention_slotted_sm90    K13 <- flash_attention.py
 //       flash_attention_slotted / _attn_kernel(exp2_bf16=True): head h of
 //       (B, L, H*slot) tensors in lanes [h*slot, h*slot+hd); q, k, v may be
@@ -17,21 +22,23 @@
 //       O / l. Only the hd real lanes are read; the pad lanes are written 0.
 //
 // Dispatch is by dtype in ops/attention.py: bf16 CUDA tensors come here and
-// nowhere else; fp32 stays on flash_attention.cu's FMA twin (as does K2).
+// nowhere else; fp32 stays on flash_attention.cu's FMA twin.
 //
 // What bounds it on the H100: 4*L^2*hd flops a head against bytes read and
 // written once, so the tensor cores: 1.04 ms for a 1024^2 stamp's UNet
 // level-0 self-attention (3 x 16384 tokens, 8 heads of 40). At hd 40 the
 // softmax between the products (one ex2 per score on 16 MUFU lanes an SM)
-// costs as much as the products themselves.
+// costs as much as the products themselves. At 1024 tokens (K2 at 256^2)
+// a call is a few microseconds of work, and filling the 132 SMs matters
+// as much as the tile.
 //
 // Design. A CTA is one producer warpgroup and NC consumer warpgroups of 64
 // query rows each: three at hd <= 48 (192 rows; setmaxnreg 24 / 160), two
-// at 49..128 (40 / 232), one above (no setmaxnreg: up to 255 registers for
+// at 49..160 (40 / 232), one above (no setmaxnreg: up to 255 registers for
 // a 256-column O). The more query rows a CTA holds, the fewer times each
 // K/V tile crosses from L2 (at hd 40 three warpgroups ran faster than two
-// on the card). The grid is head-major, (query tile, head, image x
-// slice), so the CTAs in flight share one head's K/V in L2.
+// on the card at 16384 tokens). The grid is head-major, (query tile, head,
+// image x slice), so the CTAs in flight share one head's K/V in L2.
 //   - Q: one TMA load per 64-column swizzle atom; the consumers scale their
 //     rows by scale*log2(e) and round to bf16 in place.
 //   - K, V: tiles of BKV keys in a ring of kStages stages with full/empty
@@ -54,30 +61,33 @@
 //   - Epilogue: O / l rounded to bf16, staged in the warpgroup's own Q rows
 //     (the 128-byte swizzle, no bank conflicts), then 16-byte stores of hd
 //     columns (K13: every lane of the slot, the pad lanes 0).
-// Head-dim buckets: hd rounds up to KD in {48, 80, 128, 256, 512}. Storage
-// is whole 64-column atoms: TMA describes each operand with hd as its
-// innermost dimension and the head stride next, so columns [hd, 64*k) arrive
-// as zeros and K13 never reads its slots' pad lanes; Q K^T issues only
-// KD/16 k16 steps (hd 40: three steps over a 64-column atom, the padding to
-// 64 costs shared memory but no products), P V runs N = min(KD, 256). Above
-// 256 (the VAE mid-block's hd 512) O is split into 256-column slices over a
-// grid dimension, each slice recomputing S over the full hd, with one
-// consumer warpgroup and 32-key tiles (64 KB of Q, 2 x 48 KB of K/V); the
-// 256 bucket runs the same way (two warpgroups at 232 registers spill).
+// Head-dim buckets (kBuckets): hd rounds up to KD in {48, 80, 128, 160,
+// 256, 512}. Storage is whole 64-column atoms: TMA describes each operand
+// with hd as its innermost dimension and the head stride next, so columns
+// [hd, 64*k) arrive as zeros and K13 never reads its slots' pad lanes;
+// Q K^T issues only KD/16 k16 steps (hd 40: three steps over a 64-column
+// atom, the padding to 64 costs shared memory but no products; hd 160: ten
+// steps over three atoms), P V runs N = min(KD, 256) (160 is a valid
+// wgmma N). The 160 bucket (K2 at the 1024^2 stamp's UNet level 2) runs
+// two warpgroups on 64-key tiles: against the 256 bucket it issues 0.63x
+// the products. Above 256 (the VAE mid-block's hd 512) O is split into
+// output slices over a grid dimension, each slice recomputing S over the
+// full hd, with one consumer warpgroup and 32-key tiles (64 KB of Q,
+// 2 x 48 KB of K/V); the 256 bucket runs the same way (two warpgroups at
+// 232 registers spill).
+// Grid fill (plan): at 1024 tokens the hd-40 grid of three warpgroups is
+// 6 x 24 = 144 CTAs, 1.09 waves of 132, so short grids take two
+// warpgroups (192 CTAs); the hd-512 grid of two slices is 16 x BH x 2 =
+// 32-64 CTAs, so short grids take four 128-column slices.
 // Not taken: FA3's ping-pong between consumer warpgroups (named barriers
 // ordering their wgmma issue, S_{j+1} = Q K^T issued beside P_j V_j, three
 // stages): on the card it barely moved hd 40 and spilled at hd 128 and
 // 256. The consumer warpgroups overlap as the warp schedulers interleave
 // them.
-//
-// A wait on an mbarrier that outlasts about 2^33 cycles traps: a phase
-// error shows as a launch failure instead of a hung card.
-#include <cuda.h>
-
 #include <cmath>
 #include <type_traits>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace dtp {
 namespace {
@@ -86,96 +96,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kStages = 2;
 constexpr int kAtom = 64;  // bf16 columns of one 128-byte swizzle atom
-constexpr long long kWaitCycles = 1ll << 33;
-
-// ---- PTX: mbarriers, TMA, wgmma ----
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the completion of the phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWaitCycles) __trap();
-}
-
-// One box of a 4-D tensor map (hd lanes, heads, rows, images) into shared
-// memory; completion is counted on `bar` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving register reads or writes across an
-// asynchronous wgmma: its operands are live until the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, the
-// leading byte offset (MN-major: the stride between 64-column atoms) and
-// the stride byte offset (1024: the stride between 8-row groups).
-__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
+constexpr int kSMs = 132;  // H100 SXM
 
 template <int N>
 struct Wgmma;
@@ -260,6 +181,34 @@ struct Wgmma<80> {
 };
 
 template <>
+struct Wgmma<64> {
+  // D (64 x 64, fp32) (+)= A (smem, K-major) * B (smem, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+
+template <>
 struct Wgmma<128> {
   // D (64 x 128, fp32) (+)= A (smem, K-major) * B (smem, K-major)
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
@@ -336,6 +285,53 @@ struct Wgmma<128> {
 };
 
 template <>
+struct Wgmma<160> {
+  // D (64 x 160, fp32) += A (registers) * B (smem, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[80],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79"
+        "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
 struct Wgmma<256> {
   // D (64 x 256, fp32) += A (registers) * B (smem, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[128],
@@ -404,19 +400,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- the plan of one bucket ----
@@ -740,41 +723,12 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
 
 // ---- host side ----
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime: the library
-// links no libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // An operand as TMA reads it: hd lanes innermost (columns past hd are
 // zero-filled), then H heads `head` elements apart, L rows, B images;
 // boxes of one 64-column atom by `rows` rows, 128-byte swizzle.
 bool tensor_map(CUtensorMap* map, const void* base, int hd, int H, int L,
                 int B, long long head, long long row, long long batch,
                 int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(L),
@@ -784,11 +738,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int hd, int H, int L,
                                  static_cast<cuuint64_t>(batch * 2)};
   const cuuint32_t box[4] = {kAtom, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_4d(map, base, dims, strides, box, unit);
 }
 
 // What TMA needs of an operand: a 16-byte-aligned base and strides in
@@ -799,23 +749,47 @@ bool describable(const void* p, long long head, long long row,
          head > 0 && row > 0 && batch > 0;
 }
 
-struct Bucket {
-  int kd, nv, bkv, nc, nslices, smem;
-};
+// The kernel's instantiations, {KD, NV, BKV, NC} (mirrored by
+// ops/attention.py SM90_BUCKETS). Head dims round up into 48, 80, 128,
+// 160, 256 and 512; 1 and 7 are the 48 and 512 buckets for grids that
+// would leave the card short of work (see plan).
+constexpr int kBuckets[][4] = {{48, 48, 128, 3},  {48, 48, 128, 2},
+                               {80, 80, 128, 2},  {128, 128, 128, 2},
+                               {160, 160, 64, 2}, {256, 256, 32, 1},
+                               {512, 256, 32, 1}, {512, 128, 32, 1}};
+constexpr int kNumBuckets = sizeof(kBuckets) / sizeof(kBuckets[0]);
 
-template <int KD, int NV, int BKV, int NC>
-Bucket bucket_of(int hd) {
-  using P = Plan<KD, NV, BKV, NC>;
-  return {KD, NV, BKV, NC, (hd + NV - 1) / NV, P::kSmem};
+// The bucket of head dim hd for lq query rows and bh (image, head) pairs
+// (mirrored by ops/attention.py sm90_bucket): at hd <= 48 two consumer
+// warpgroups instead of three where three would give less than two waves
+// of blocks; above 256, four 128-column output slices instead of two
+// where two would give less than one wave.
+int plan(int hd, int lq, int bh) {
+  if (hd <= 48)
+    return static_cast<long long>((lq + 191) / 192) * bh < 2 * kSMs ? 1 : 0;
+  if (hd <= 80) return 2;
+  if (hd <= 128) return 3;
+  if (hd <= 160) return 4;
+  if (hd <= 256) return 5;
+  return static_cast<long long>((lq + 63) / 64) * bh * 2 < kSMs ? 7 : 6;
 }
 
-// The bucket of head dim hd (mirrored by ops/attention.py sm90_plan).
-Bucket plan(int hd) {
-  if (hd <= 48) return bucket_of<48, 48, 128, 3>(hd);
-  if (hd <= 80) return bucket_of<80, 80, 128, 2>(hd);
-  if (hd <= 128) return bucket_of<128, 128, 128, 2>(hd);
-  if (hd <= 256) return bucket_of<256, 256, 32, 1>(hd);
-  return bucket_of<512, 256, 32, 1>(hd);
+template <int KD, int NV, int BKV, int NC>
+int smem_of() {
+  return Plan<KD, NV, BKV, NC>::kSmem;
+}
+
+int bucket_smem(int i) {
+  switch (i) {
+    case 0: return smem_of<48, 48, 128, 3>();
+    case 1: return smem_of<48, 48, 128, 2>();
+    case 2: return smem_of<80, 80, 128, 2>();
+    case 3: return smem_of<128, 128, 128, 2>();
+    case 4: return smem_of<160, 160, 64, 2>();
+    case 5: return smem_of<256, 256, 32, 1>();
+    case 6: return smem_of<512, 256, 32, 1>();
+    default: return smem_of<512, 128, 32, 1>();
+  }
 }
 
 template <int KD, int NV, int BKV, int NC, bool TWO_PASS>
@@ -834,13 +808,19 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // Strides in elements: q (and out) rows q_row apart, images q_batch apart;
 // k and v rows kv_row apart, images kv_batch apart; heads `head` apart.
+// `bucket` indexes kBuckets (-1: plan's); two passes take the buckets of
+// hd <= 128 only.
 cudaError_t run(const void* q, const void* k, const void* v, Sm90Args a,
                 int B, long long head, long long q_row, long long q_batch,
                 long long kv_row, long long kv_batch, bool two_pass,
-                cudaStream_t stream) {
+                int bucket, cudaStream_t stream) {
   if (B <= 0 || a.H <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.hd <= 0 ||
       a.hd > 512 || (two_pass && a.hd > 128) || B > 65535 ||
       a.H > 65535)
+    return cudaErrorInvalidValue;
+  if (bucket < 0) bucket = plan(a.hd, a.Lq, B * a.H);
+  if (bucket >= kNumBuckets || kBuckets[bucket][0] < a.hd ||
+      (two_pass && bucket > 3))
     return cudaErrorInvalidValue;
   // a stride over a dimension of one is never stepped: any valid value
   if (a.Lq == 1) q_row = a.H * head;
@@ -850,64 +830,92 @@ cudaError_t run(const void* q, const void* k, const void* v, Sm90Args a,
       !describable(k, head, kv_row, kv_batch) ||
       !describable(v, head, kv_row, kv_batch) || !aligned16(a.out))
     return cudaErrorInvalidValue;
-  const Bucket bk = plan(a.hd);
-  a.nslices = bk.nslices;
+  const int nv = kBuckets[bucket][1], bkv = kBuckets[bucket][2];
+  const int nc = kBuckets[bucket][3];
+  a.nslices = (a.hd + nv - 1) / nv;
   if (B * a.nslices > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, a.hd, a.H, a.Lq, B, head, q_row, q_batch,
-                  64 * bk.nc) ||
-      !tensor_map(&tk, k, a.hd, a.H, a.Lk, B, head, kv_row, kv_batch,
-                  bk.bkv) ||
-      !tensor_map(&tv, v, a.hd, a.H, a.Lk, B, head, kv_row, kv_batch,
-                  bk.bkv))
+                  64 * nc) ||
+      !tensor_map(&tk, k, a.hd, a.H, a.Lk, B, head, kv_row, kv_batch, bkv) ||
+      !tensor_map(&tv, v, a.hd, a.H, a.Lk, B, head, kv_row, kv_batch, bkv))
     return cudaErrorInvalidValue;
   if (two_pass) {
-    switch (bk.kd) {
-      case 48: return launch<48, 48, 128, 3, true>(tq, tk, tv, a, B, stream);
-      case 80: return launch<80, 80, 128, 2, true>(tq, tk, tv, a, B, stream);
+    switch (bucket) {
+      case 0: return launch<48, 48, 128, 3, true>(tq, tk, tv, a, B, stream);
+      case 1: return launch<48, 48, 128, 2, true>(tq, tk, tv, a, B, stream);
+      case 2: return launch<80, 80, 128, 2, true>(tq, tk, tv, a, B, stream);
       default:
         return launch<128, 128, 128, 2, true>(tq, tk, tv, a, B, stream);
     }
   }
-  switch (bk.kd) {
-    case 48: return launch<48, 48, 128, 3, false>(tq, tk, tv, a, B, stream);
-    case 80: return launch<80, 80, 128, 2, false>(tq, tk, tv, a, B, stream);
-    case 128:
+  switch (bucket) {
+    case 0: return launch<48, 48, 128, 3, false>(tq, tk, tv, a, B, stream);
+    case 1: return launch<48, 48, 128, 2, false>(tq, tk, tv, a, B, stream);
+    case 2: return launch<80, 80, 128, 2, false>(tq, tk, tv, a, B, stream);
+    case 3:
       return launch<128, 128, 128, 2, false>(tq, tk, tv, a, B, stream);
-    case 256: return launch<256, 256, 32, 1, false>(tq, tk, tv, a, B, stream);
-    default: return launch<512, 256, 32, 1, false>(tq, tk, tv, a, B, stream);
+    case 4: return launch<160, 160, 64, 2, false>(tq, tk, tv, a, B, stream);
+    case 5: return launch<256, 256, 32, 1, false>(tq, tk, tv, a, B, stream);
+    case 6: return launch<512, 256, 32, 1, false>(tq, tk, tv, a, B, stream);
+    default:
+      return launch<512, 128, 32, 1, false>(tq, tk, tv, a, B, stream);
   }
+}
+
+// K2 and K8 on the (B, L, H*hd) projections.
+cudaError_t run_projections(const void* q, const void* k, const void* v,
+                            void* out, int B, int H, int Lq, int Lk, int hd,
+                            float scale_log2, int bucket,
+                            cudaStream_t stream) {
+  Sm90Args a{};
+  a.out = static_cast<bf16*>(out);
+  const long long D = static_cast<long long>(H) * hd;
+  a.o_row = D, a.o_batch = Lq * D, a.o_head = hd;
+  a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd, a.out_cols = hd;
+  a.scale_log2 = scale_log2;
+  return run(q, k, v, a, B, hd, D, Lq * D, D, Lk * D, false, bucket, stream);
 }
 
 }  // namespace
 }  // namespace dtp
 
-// The bucket of head dim hd: {KD, NV, BKV, consumer warpgroups, output
-// slices, dynamic shared memory bytes} into out[6] (the tests hold
-// ops/attention.py sm90_plan against it).
-extern "C" int dtp_flash_attention_sm90_plan(int hd, int* out) {
-  if (hd <= 0 || hd > 512) return -1;
-  const dtp::Bucket b = dtp::plan(hd);
-  const int v[6] = {b.kd, b.nv, b.bkv, b.nc, b.nslices, b.smem};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
+// The bucket of head dim hd for lq query rows and bh (image, head) pairs:
+// {bucket index, KD, NV, BKV, consumer warpgroups, output slices, dynamic
+// shared memory bytes} into out[7] (the tests hold ops/attention.py
+// sm90_plan against it).
+extern "C" int dtp_flash_attention_sm90_plan(int hd, int lq, int bh,
+                                             int* out) {
+  if (hd <= 0 || hd > 512 || lq <= 0 || bh <= 0) return -1;
+  const int i = dtp::plan(hd, lq, bh);
+  const int* b = dtp::kBuckets[i];
+  const int v[7] = {i, b[0], b[1], b[2], b[3], (hd + b[1] - 1) / b[1],
+                    dtp::bucket_smem(i)};
+  for (int j = 0; j < 7; ++j) out[j] = v[j];
   return 0;
 }
 
-// K8: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd), contiguous bf16
+// K2: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd), contiguous bf16
 // (is_bf16 must be 1); hd <= 512 and a multiple of 8 (TMA's 16-byte head
-// stride); scale_log2 = scale * log2(e), applied to q before Q K^T.
+// stride); scale_log2 = scale * log2(e), applied to q before Q K^T (K8's
+// function). `bucket` indexes kBuckets, -1 for the plan's (a probe may
+// name any bucket at least hd deep).
+extern "C" cudaError_t dtp_flash_attention_sm90(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int Lq, int Lk, int hd, float scale_log2, int is_bf16, int bucket,
+    void* stream) {
+  if (!is_bf16) return cudaErrorInvalidValue;
+  return dtp::run_projections(q, k, v, out, B, H, Lq, Lk, hd, scale_log2,
+                              bucket, static_cast<cudaStream_t>(stream));
+}
+
+// K8: as K2, the bucket always the plan's.
 extern "C" cudaError_t dtp_flash_attention_streaming_sm90(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int Lq, int Lk, int hd, float scale_log2, int is_bf16, void* stream) {
   if (!is_bf16) return cudaErrorInvalidValue;
-  dtp::Sm90Args a{};
-  a.out = static_cast<dtp::bf16*>(out);
-  const long long D = static_cast<long long>(H) * hd;
-  a.o_row = D, a.o_batch = Lq * D, a.o_head = hd;
-  a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd, a.out_cols = hd;
-  a.scale_log2 = scale_log2;
-  return dtp::run(q, k, v, a, B, hd, D, Lq * D, D, Lk * D, false,
-                  static_cast<cudaStream_t>(stream));
+  return dtp::run_projections(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, -1,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K13: q, k, v (B,L,H*slot) bf16 with rows q_row / kv_row elements apart
@@ -928,5 +936,5 @@ extern "C" cudaError_t dtp_flash_attention_slotted_sm90(
   a.H = H, a.Lq = L, a.Lk = L, a.hd = hd, a.out_cols = slot;
   a.scale_log2 = scale_log2;
   return dtp::run(q, k, v, a, B, slot, q_row, q_batch, kv_row, kv_batch,
-                  true, static_cast<cudaStream_t>(stream));
+                  true, -1, static_cast<cudaStream_t>(stream));
 }

@@ -16,15 +16,18 @@ kept so that each counter here maps to exactly one TPU kernel.
 and writes the head-slotted (B, L, heads*128) layout that models/layers.py
 Attention's slotted leg produces.
 
-Kernels live in csrc/flash_attention.cu (K2; K8 and K13 in fp32) and
-csrc/flash_attention_sm90.cu (K8 and K13 in bf16: wgmma fed by TMA), the
-dtype choosing the source (`kernel_entry`). A wrapper takes its plain
-version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. The TPU's K2 used a static-shift softmax; K2 here and
-its plain version compute the exact row-max softmax. K8's and K13's plain
-versions round where the TPU kernels round: q pre-scaled by
-scale*log2(e) and rounded to its dtype before Q K^T, and for K13 exp2 of
-bf16 logits.
+Kernels live in csrc/flash_attention.cu (K2, K8 and K13 in fp32: an FMA
+twin) and csrc/flash_attention_sm90.cu (K2, K8 and K13 in bf16: wgmma fed
+by TMA), the dtype choosing the source (`kernel_entry`). A wrapper takes
+its plain version only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises. Every fused kernel rounds where the TPU
+kernels round: q pre-scaled by scale*log2(e) and rounded to its dtype
+before Q K^T, a base-2 softmax, probabilities rounded to v's dtype, the
+division after P V. K2 and K8 so compute one function, as in the JAX
+package (K2's plain version is K8's); the TPU's K2 took a static shift
+where both take the exact row max, which equals it within the nomax
+domain. K13 also takes exp2 of bf16 logits. plain_attention, the "plain"
+route, scales the fp32 scores instead, as the JAX xla_attention does.
 """
 
 from __future__ import annotations
@@ -46,20 +49,30 @@ flash_launches = _cuda.LaunchCounter("flash_attention")
 flash_streaming_launches = _cuda.LaunchCounter("flash_attention_streaming")
 flash_slotted_launches = _cuda.LaunchCounter("flash_attention_slotted")
 
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
-             + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _STREAM_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
                     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+# K2's bf16 entry takes a bucket index last (-1: the plan's)
+_RESIDENT_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                           + (ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p))
 _SLOT_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
                   + (ctypes.c_longlong,) * 4
                   + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
-# The bf16 bodies of K8 and K13 (csrc/flash_attention_sm90.cu) and the
+# The bf16 bodies of K2, K8 and K13 (csrc/flash_attention_sm90.cu) and the
 # shared memory a block may use on the H100.
 SM90_SOURCE = "flash_attention_sm90"
 SM90_STAGES = 2
 SMEM_LIMIT = 232448
-
+SM_COUNT = 132  # H100 SXM
+# (kd, nv, bkv, consumers) of each instantiation of the bf16 kernel, in the
+# order of the source's kBuckets
+SM90_BUCKETS = ((48, 48, 128, 3), (48, 48, 128, 2), (80, 80, 128, 2),
+                (128, 128, 128, 2), (160, 160, 64, 2), (256, 256, 32, 1),
+                (512, 256, 32, 1), (512, 128, 32, 1))
+_ENTRY_SYMBOLS = {"resident": "dtp_flash_attention",
+                  "streaming": "dtp_flash_attention_streaming",
+                  "slotted": "dtp_flash_attention_slotted"}
 
 def _split_heads(x, num_heads):
     b, l, d = x.shape
@@ -117,32 +130,46 @@ def slotted_self_attention_fits(lq: int, lk: int, head_dim: int,
 
 
 def kernel_entry(kind: str, dtype) -> tuple[str, str]:
-    """(source, C symbol) a CUDA call of K8 (`kind` "streaming") or K13
-    ("slotted") launches: bf16 the wgmma/TMA kernel, fp32 the FMA twin."""
-    symbol = {"streaming": "dtp_flash_attention_streaming",
-              "slotted": "dtp_flash_attention_slotted"}[kind]
+    """(source, C symbol) a CUDA call of K2 (`kind` "resident"), K8
+    ("streaming") or K13 ("slotted") launches: bf16 the wgmma/TMA kernel,
+    fp32 the FMA twin."""
+    symbol = _ENTRY_SYMBOLS[kind]
     if dtype == torch.bfloat16:
         return SM90_SOURCE, symbol + "_sm90"
     return "flash_attention", symbol
 
 
-def sm90_plan(hd: int) -> dict:
-    """The bucket the bf16 kernel launches for head dim hd: Q K^T over kd
-    columns (kd/16 k16 steps, hd rounded up into {48, 80, 128, 256, 512}),
-    P V over nv columns an output slice (`slices` of them cover hd), bkv
-    keys a K/V tile, `consumers` warpgroups of 64 query rows, and its
-    dynamic shared memory: Q, K and V in whole 64-column swizzle atoms, K/V
-    in SM90_STAGES stages, the mbarriers and 1024 bytes of alignment."""
-    for kd, nv, bkv, consumers in ((48, 48, 128, 3), (80, 80, 128, 2),
-                                   (128, 128, 128, 2), (256, 256, 32, 1),
-                                   (512, 256, 32, 1)):
+def sm90_bucket(hd: int, lq: int | None = None, bh: int | None = None) -> int:
+    """The index into SM90_BUCKETS the bf16 kernel launches for head dim
+    hd, lq query rows and bh (image, head) pairs (None: a long sequence):
+    hd rounded up into {48, 80, 128, 160, 256, 512}; where the default
+    bucket's grid would leave the card short of work (1024 tokens at
+    hd <= 48 or hd > 256), the bucket with more, smaller blocks."""
+    short = lq is not None and bh is not None
+    if hd <= 48:
+        return 1 if short and -(-lq // 192) * bh < 2 * SM_COUNT else 0
+    for i, kd in ((2, 80), (3, 128), (4, 160), (5, 256)):
         if hd <= kd:
-            break
+            return i
+    return 7 if short and -(-lq // 64) * bh * 2 < SM_COUNT else 6
+
+
+def sm90_plan(hd: int, lq: int | None = None, bh: int | None = None,
+              bucket: int | None = None) -> dict:
+    """The bucket the bf16 kernel launches (`bucket`, else sm90_bucket's):
+    Q K^T over kd columns (kd/16 k16 steps), P V over nv columns an output
+    slice (`slices` of them cover hd), bkv keys a K/V tile, `consumers`
+    warpgroups of 64 query rows, and its dynamic shared memory: Q, K and V
+    in whole 64-column swizzle atoms, K/V in SM90_STAGES stages, the
+    mbarriers and 1024 bytes of alignment."""
+    if bucket is None:
+        bucket = sm90_bucket(hd, lq, bh)
+    kd, nv, bkv, consumers = SM90_BUCKETS[bucket]
     k_atoms, v_atoms = -(-kd // 64), -(-nv // 64)
     smem = (64 * consumers * 128 * k_atoms
             + SM90_STAGES * bkv * 128 * (k_atoms + v_atoms)
             + 8 * (1 + 3 * SM90_STAGES) + 1024)
-    return dict(kd=kd, nv=nv, bkv=bkv, consumers=consumers,
+    return dict(bucket=bucket, kd=kd, nv=nv, bkv=bkv, consumers=consumers,
                 slices=-(-hd // nv), smem=smem)
 
 
@@ -266,31 +293,19 @@ def _check_qkv(name, q, k, v, num_heads):
                          f"{num_heads} heads")
 
 
-def flash_attention(q, k, v, num_heads: int, scale: float | None = None):
-    """Resident fused attention, (B, Lq, D) x (B, Lk, D) -> (B, Lq, D):
-    kernel K2 on CUDA, plain_attention on CPU."""
+def flash_attention(q, k, v, num_heads: int, scale: float | None = None,
+                    bucket: int | None = None):
+    """Resident fused attention, (B, Lq, D) x (B, Lk, D) -> (B, Lq, D),
+    K8's function (q pre-scaled and rounded): kernel K2 on CUDA, reading
+    and writing the projections in place (bf16: csrc/flash_attention_sm90.cu,
+    which needs hd a multiple of 8 and 16-byte-aligned bases, else
+    ValueError; `bucket` overrides its plan's SM90_BUCKETS index, for
+    probes; fp32: csrc/flash_attention.cu); plain_attention_streaming on
+    CPU."""
     if q.device.type == "cpu":
-        return plain_attention(q, k, v, num_heads, scale)
-    _check_qkv("flash_attention", q, k, v, num_heads)
-    B, Lq, D = q.shape
-    Lk = k.shape[1]
-    hd = D // num_heads
-    if scale is None:
-        scale = hd**-0.5
-
-    def heads(t, L):
-        return _split_heads(t, num_heads).reshape(B * num_heads, L, hd) \
-            .contiguous()
-
-    qh, kh, vh = heads(q, Lq), heads(k, Lk), heads(v, Lk)
-    out = torch.empty_like(qh)
-    fn = _cuda.function("flash_attention", "dtp_flash_attention", _ARGTYPES)
-    code = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-              B * num_heads, Lq, Lk, hd, float(scale),
-              int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
-    _cuda.check("flash_attention", "dtp_flash_attention", code)
-    flash_launches.record((tuple(q.shape), tuple(k.shape), num_heads))
-    return _merge_heads(out.reshape(B, num_heads, Lq, hd))
+        return plain_attention_streaming(q, k, v, num_heads, scale)
+    return _launch_projections("resident", flash_launches, q, k, v,
+                               num_heads, scale, bucket)
 
 
 def flash_attention_streaming(q, k, v, num_heads: int,
@@ -302,25 +317,37 @@ def flash_attention_streaming(q, k, v, num_heads: int,
     csrc/flash_attention.cu); plain_attention_streaming on CPU."""
     if q.device.type == "cpu":
         return plain_attention_streaming(q, k, v, num_heads, scale)
-    _check_qkv("flash_attention_streaming", q, k, v, num_heads)
+    return _launch_projections("streaming", flash_streaming_launches, q, k,
+                               v, num_heads, scale)
+
+
+def _launch_projections(kind, counter, q, k, v, num_heads, scale,
+                        bucket=None):
+    """K2 ("resident") or K8 ("streaming") on contiguous CUDA projections."""
+    name = {"resident": "flash_attention",
+            "streaming": "flash_attention_streaming"}[kind]
+    _check_qkv(name, q, k, v, num_heads)
     if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention_streaming: q, k, v must be "
-                         "contiguous")
+        raise ValueError(f"{name}: q, k, v must be contiguous")
     B, Lq, D = q.shape
     hd = D // num_heads
     if scale is None:
         scale = hd**-0.5
-    source, symbol = kernel_entry("streaming", q.dtype)
+    source, symbol = kernel_entry(kind, q.dtype)
+    args = [B, num_heads, Lq, k.shape[1], hd, float(scale * _LOG2E),
+            int(q.dtype == torch.bfloat16)]
+    argtypes = _STREAM_ARGTYPES
     if source == SM90_SOURCE:
-        _check_tma("flash_attention_streaming", hd, q, k, v)
+        _check_tma(name, hd, q, k, v)
+        if kind == "resident":
+            args.append(-1 if bucket is None else bucket)
+            argtypes = _RESIDENT_SM90_ARGTYPES
     out = torch.empty_like(q)
-    fn = _cuda.function(source, symbol, _STREAM_ARGTYPES)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-              num_heads, Lq, k.shape[1], hd, float(scale * _LOG2E),
-              int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+    fn = _cuda.function(source, symbol, argtypes)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              *args, _cuda.stream_of(q))
     _cuda.check(source, symbol, code)
-    flash_streaming_launches.record((tuple(q.shape), tuple(k.shape),
-                                     num_heads))
+    counter.record((tuple(q.shape), tuple(k.shape), num_heads))
     return out
 
 

@@ -24,8 +24,11 @@ launches the kernel or raises:
                     _upconv_stream_pallas / _upconv_stream_kernel)
   downconv_stream   kernel K9 (replaces gn_conv_stream.py
                     _downconv_stream_pallas / _downconv_kernel), the VAE
-                    encoder's level transitions; the conv family's stride-2
-                    mode
+                    encoder's level transitions: in bf16 a warp-specialised
+                    wgmma/TMA implicit GEMM with its statistics in the
+                    epilogue (csrc/conv_sm90.cu; operands TMA cannot
+                    describe raise ValueError), in fp32 the conv family's
+                    stride-2 mode (its FMA twin)
 
 Statistics are (B, 2, C) fp32: row 0 the sum, row 1 the sum of squares over
 the spatial axes (the TPU's 8-row padding is a sublane minimum and is not
@@ -53,6 +56,13 @@ _GN_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9
                 + (ctypes.c_void_p,))
 _UP_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
                 + (ctypes.c_void_p,))
+_DOWN_SM90_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
+                       + (ctypes.c_void_p,))
+
+# bf16 K9 (csrc/conv_sm90.cu) and what its plan reads of the H100
+DOWN_SM90_SOURCE = "conv_sm90"
+SM_COUNT = 132
+SMEM_LIMIT = 232448
 
 
 # --- GroupNorm statistics algebra (fp32) ---
@@ -129,6 +139,42 @@ def _bias_stats_round(y_nchw, b, dtype, want_stats):
         y = y + b.float()
     stats = spatial_moments_plain(y) if want_stats else None
     return y.to(dtype).contiguous(), stats
+
+
+# --- the bf16 K9's host plan (csrc/conv_sm90.cu plan) ---
+
+
+def downconv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
+                       consumers: int | None = None) -> dict:
+    """The tile bf16 K9 launches for x (B, H, W, cin) and cout output
+    channels: `consumers` warpgroups of 64 output pixels (4 rows of 16
+    columns each) by 128 channels, two unless that grid would leave more
+    than half of the SMs idle (or as forced); K steps of 64 input channels
+    over the 9 taps through `stages` stages of A and B; its dynamic shared
+    memory (the stages, the bf16 output staging, the per-warp statistics,
+    the mbarriers, 1024 bytes of alignment); the grid of n_tiles x m_tiles
+    CTAs, m_tiles = B x tiles_h x tiles_w."""
+    def of(nc):
+        rows, pix, stages = 4 * nc, 64 * nc, 4
+        smem = (stages * (pix * 128 + 64 * 128 * 2) + pix * 128 * 2
+                + 4 * nc * 2 * 128 * 4 + 8 * 2 * stages + 1024)
+        tiles_h, tiles_w = -(-(H // 2) // rows), -(-(W // 2) // 16)
+        return dict(consumers=nc, rows=rows, cols=16, bn=128, bk=64,
+                    stages=stages, smem=smem, tiles_h=tiles_h,
+                    tiles_w=tiles_w, m_tiles=B * tiles_h * tiles_w,
+                    n_tiles=-(-cout // 128), k_steps=9 * -(-cin // 64))
+    two = of(2)
+    if consumers == 2 or (consumers is None and
+                          2 * two["m_tiles"] * two["n_tiles"] >= SM_COUNT):
+        return two
+    return of(1)
+
+
+def downconv_tma_describable(x, w) -> bool:
+    """Whether TMA can read bf16 K9's operands: 16-byte-aligned bases and
+    Cin, Cout multiples of 8 (rows of whole 16 bytes)."""
+    return (x.shape[-1] % 8 == 0 and w.shape[-1] % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 # --- kernels ---
@@ -273,10 +319,13 @@ def upconv_stream(x, w, b, taps, want_stats=True):
     return out, stats
 
 
-def downconv_stream(x, w, b, want_stats=True):
+def downconv_stream(x, w, b, want_stats=True, consumers=None):
     """The VAE encoder's level transition: 3x3 stride-2 conv with the
     (0,1),(0,1) pad + b, and fp32 statistics of the pre-rounding output:
-    (out (B,H/2,W/2,Cout), stats or None); kernel K9 on CUDA."""
+    (out (B,H/2,W/2,Cout), stats or None); kernel K9 on CUDA (bf16:
+    csrc/conv_sm90.cu, which needs Cin and Cout multiples of 8 and
+    16-byte-aligned bases, else ValueError; `consumers` 1 or 2 forces its
+    tile, for probes; fp32: csrc/conv3x3.cu)."""
     if x.device.type == "cpu":
         return downconv_stream_plain(x, w, b, want_stats)
     _check("downconv_stream", x, w, (3, 3), b)
@@ -289,17 +338,37 @@ def downconv_stream(x, w, b, want_stats=True):
         raise ValueError(f"downconv_stream: bias {tuple(b.shape)} {b.dtype}")
     out = torch.empty((B, H // 2, W // 2, cout), dtype=x.dtype,
                       device=x.device)
-    bf16 = int(x.dtype == torch.bfloat16)
+    key = (tuple(x.shape), tuple(w.shape), bool(want_stats))
+    if x.dtype == torch.bfloat16:
+        if not downconv_tma_describable(x, w):
+            raise ValueError("downconv_stream: TMA needs Cin and Cout "
+                             "multiples of 8 and 16-byte-aligned bases, got "
+                             f"x {tuple(x.shape)}, w {tuple(w.shape)}")
+        stats = partial = None
+        if want_stats:
+            # one allocation: the (B, 2, Cout) sums, then the tile partials
+            plan = downconv_sm90_plan(B, H, W, cin, cout, consumers)
+            buf = torch.empty(2 * cout * (B + plan["m_tiles"]),
+                              dtype=torch.float32, device=x.device)
+            stats = buf[:2 * cout * B].view(B, 2, cout)
+            partial = buf[2 * cout * B:]
+        symbol = "dtp_downsample_conv3x3_stats_sm90"
+        fn = _cuda.function(DOWN_SM90_SOURCE, symbol, _DOWN_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
+                  _ptr(partial), _ptr(stats), B, H, W, cin, cout,
+                  int(want_stats), consumers or 0, _cuda.stream_of(x))
+        _cuda.check(DOWN_SM90_SOURCE, symbol, code)
+        downconv_stream_launches.record(key)
+        return out, stats
     splits = _cuda.function("conv3x3", "dtp_downsample_conv3x3_splits",
-                            _SPLIT_ARGTYPES)(B, H, W, cin, cout, bf16)
+                            _SPLIT_ARGTYPES)(B, H, W, cin, cout, 0)
     partial, ws, stats = _workspaces(x, out, splits, want_stats,
                                      (H // 2) * (W // 2))
     fn = _cuda.function("conv3x3", "dtp_downsample_conv3x3_stats",
                         _UP_ARGTYPES)
     code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
               _ptr(partial), _ptr(ws), _ptr(stats), B, H, W, cin, cout,
-              splits, int(want_stats), bf16, _cuda.stream_of(x))
+              splits, int(want_stats), 0, _cuda.stream_of(x))
     _cuda.check("conv3x3", "dtp_downsample_conv3x3_stats", code)
-    downconv_stream_launches.record((tuple(x.shape), tuple(w.shape),
-                                     bool(want_stats)))
+    downconv_stream_launches.record(key)
     return out, stats

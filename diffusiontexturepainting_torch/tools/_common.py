@@ -1,6 +1,7 @@
 """What the A/B entry points of this package share: the --device, --shapes
 and --json-out arguments, the refusal to time without a card, CUDA-event
-timing and the JSON record."""
+timing (of eager calls, and of the same calls replayed from a CUDA graph)
+and the JSON record."""
 
 from __future__ import annotations
 
@@ -57,6 +58,31 @@ def event_ms(fn, calls: int = CALLS, tries: int = TRIES) -> float:
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / calls)
+    return best
+
+
+def graph_ms(fn, calls: int = CALLS, tries: int = TRIES) -> float:
+    """Best of `tries` CUDA-event timings of one replay of a CUDA graph that
+    holds `calls` back-to-back calls of fn, after one warm-up call; ms a
+    call. The device's time alone: event_ms also counts the host's launch
+    cost, which is most of a call of a few tens of microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    del graph
     return best
 
 

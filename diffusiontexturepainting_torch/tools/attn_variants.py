@@ -116,9 +116,10 @@ def base_plain(q, k, v, heads):
     """The plain version of attention()'s route at this shape."""
     route = attn.attention_route(q.shape[1], k.shape[1],
                                  q.shape[-1] // heads, q.dtype)
-    if route == "streaming":
-        return attn.plain_attention_streaming(q, k, v, heads)
-    return attn.plain_attention(q, k, v, heads)
+    if route == "plain":
+        return attn.plain_attention(q, k, v, heads)
+    # K2 and K8 compute one function
+    return attn.plain_attention_streaming(q, k, v, heads)
 
 
 def layout(row):

@@ -1,7 +1,8 @@
-"""The host logic of the bf16 K8/K13 kernel (csrc/flash_attention_sm90.cu),
-which needs no card: the head-dim bucket and slice plan, the check that TMA
-can describe an operand, and the dtype dispatch between the wgmma kernel
-(bf16) and the FMA twin (fp32, csrc/flash_attention.cu).
+"""The host logic of the bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu),
+which needs no card: the head-dim bucket and slice plan with its grid-fill
+rule, the check that TMA can describe an operand, and the dtype dispatch
+between the wgmma kernel (bf16) and the FMA twin (fp32,
+csrc/flash_attention.cu).
 
 The kernel itself is held against its plain versions on the card
 (test_torch_port_cuda.py, chip_smoke.py); the plain versions against the
@@ -22,38 +23,73 @@ OLD_CU = _cuda.CSRC / "flash_attention.cu"
 
 
 @pytest.mark.parametrize("lo,hi", [(1, 48), (49, 80), (81, 128),
-                                   (129, 256), (257, 512)])
-def test_sm90_plan_covers_every_head_dim(lo, hi):
-    """Each hd of a bucket: Q K^T over whole k16 steps at least hd deep, P V
-    slices of whole n8 tiles that cover hd and no more slices than needed,
-    shared memory within the H100's 232,448 bytes a block; the buckets
-    change exactly at their bounds."""
-    plans = {hd: t_attn.sm90_plan(hd) for hd in range(lo, hi + 1)}
+                                   (129, 160), (161, 256), (257, 512)])
+@pytest.mark.parametrize("lq,bh", [(None, None), (16384, 24), (1024, 24),
+                                   (1024, 1), (1, 1)])
+def test_sm90_plan_covers_every_head_dim(lo, hi, lq, bh):
+    """Each hd of a bucket, for long and short grids: Q K^T over whole k16
+    steps at least hd deep, P V slices of whole n8 tiles that cover hd and
+    no more slices than needed, shared memory within the H100's 232,448
+    bytes a block; the buckets change exactly at their bounds."""
+    plans = {hd: t_attn.sm90_plan(hd, lq, bh) for hd in range(lo, hi + 1)}
     for hd, p in plans.items():
         assert p["kd"] >= hd and p["kd"] % 16 == 0, (hd, p)
         assert p["nv"] % 8 == 0 and p["nv"] <= p["kd"], (hd, p)
         assert (p["slices"] - 1) * p["nv"] < hd <= p["slices"] * p["nv"]
         assert p["bkv"] % 16 == 0 and p["consumers"] in (1, 2, 3)
         assert p["smem"] <= t_attn.SMEM_LIMIT, (hd, p)
-    assert len({tuple(sorted(p.items())) for p in plans.values()}) == 1
+        assert t_attn.SM90_BUCKETS[p["bucket"]] == (
+            p["kd"], p["nv"], p["bkv"], p["consumers"])
+    assert len({p["bucket"] for p in plans.values()}) == 1
     assert plans[hi]["kd"] == hi
 
 
+@pytest.mark.parametrize("hd,lq,bh,bucket", [
+    # K2 at 256^2 (UNet level 0, the VAE mid-blocks) and 1024^2 (levels 1
+    # and 2), K8 at 1024^2 (level 0, the VAE mid-blocks)
+    (40, 1024, 24, 1), (512, 1024, 2, 7), (512, 1024, 1, 7),
+    (80, 4096, 24, 2), (160, 1024, 24, 4),
+    (40, 16384, 24, 0), (512, 16384, 2, 6), (512, 16384, 1, 6)])
+def test_sm90_plan_of_the_served_shapes(hd, lq, bh, bucket):
+    """Short grids take the buckets with more, smaller blocks: two
+    consumer warpgroups at hd 40 and 1024 tokens (192 CTAs, not 144),
+    four 128-column slices at hd 512 (64-128 CTAs, not 32-64)."""
+    assert t_attn.sm90_bucket(hd, lq, bh) == bucket
+    p = t_attn.sm90_plan(hd, lq, bh)
+    ctas = -(-lq // (64 * p["consumers"])) * bh * p["slices"]
+    assert ctas >= t_attn.SM_COUNT // 4
+
+
 def test_sm90_plan_matches_the_source():
-    """sm90_plan mirrors the source's plan(): the same bucket bounds and
-    template arguments, in the same order."""
+    """SM90_BUCKETS mirrors the source's kBuckets, in order; sm90_bucket's
+    head-dim bounds and grid thresholds are the source plan()'s; each
+    case of run()'s dispatch launches its bucket's instantiation."""
     text = SM90_CU.read_text()
-    body = text[text.index("Bucket plan(int hd) {"):]
+    table = text[text.index("constexpr int kBuckets[][4] = {"):]
+    table = table[:table.index("};")]
+    rows = [tuple(map(int, r)) for r in
+            re.findall(r"\{(\d+), (\d+), (\d+), (\d+)\}", table)]
+    assert tuple(rows) == t_attn.SM90_BUCKETS
+    body = text[text.index("int plan(int hd, int lq, int bh) {"):]
     body = body[:body.index("\n}\n")]
-    rows = re.findall(r"(?:if \(hd <= (\d+)\) )?return bucket_of<(\d+), "
-                      r"(\d+), (\d+), (\d+)>\(hd\);", body)
-    assert len(rows) == 5
-    for bound, kd, nv, bkv, nc in rows:
-        hd = int(bound or 512)
-        p = t_attn.sm90_plan(hd)
-        assert (p["kd"], p["nv"], p["bkv"], p["consumers"]) == (
-            int(kd), int(nv), int(bkv), int(nc)), (hd, p)
+    bounds = [(int(b), int(i)) for b, i in
+              re.findall(r"if \(hd <= (\d+)\) return (\d+);", body)]
+    for bound, i in bounds:
+        assert t_attn.sm90_bucket(bound) == i
+        assert t_attn.sm90_bucket(bound + 1) != i
+    assert "(lq + 191) / 192) * bh < 2 * kSMs ? 1 : 0" in body
+    assert "(lq + 63) / 64) * bh * 2 < kSMs ? 7 : 6" in body
+    run = text[text.index("cudaError_t run(const void* q"):]
+    run = run[:run.index("\n}\n")]
+    single = run[run.rindex("switch (bucket) {"):]
+    cases = re.findall(r"(?:case (\d+)|default):\s*return launch<(\d+), "
+                       r"(\d+), (\d+), (\d+), false>", single)
+    assert len(cases) == len(t_attn.SM90_BUCKETS)
+    for i, (case, *args) in enumerate(cases):
+        assert case in (str(i), "")
+        assert tuple(map(int, args)) == t_attn.SM90_BUCKETS[i]
     assert f"kStages = {t_attn.SM90_STAGES};" in text
+    assert f"kSMs = {t_attn.SM_COUNT};" in text
 
 
 # the served shapes (batch, length, width, heads): K8 at UNet level 0 and
@@ -109,12 +145,16 @@ def test_tma_ignores_strides_of_unit_dimensions():
     assert not t_attn.tma_describable(y, t_attn.SLOT)
 
 
-@pytest.mark.parametrize("kind", ["streaming", "slotted"])
-def test_bf16_goes_to_the_wgmma_kernel_and_fp32_to_the_fma_twin(kind):
-    """bf16 CUDA calls name the sm90 entry of the new source, fp32 the old
-    entry; the new source is built with the others and defines both
-    entries; the old entries refuse bf16 (no second bf16 body)."""
-    symbol = f"dtp_flash_attention_{kind}"
+@pytest.mark.parametrize("kind,symbol", [
+    ("resident", "dtp_flash_attention"),
+    ("streaming", "dtp_flash_attention_streaming"),
+    ("slotted", "dtp_flash_attention_slotted")])
+def test_bf16_goes_to_the_wgmma_kernel_and_fp32_to_the_fma_twin(kind,
+                                                                symbol):
+    """bf16 CUDA calls of K2, K8 and K13 name the sm90 entry of the new
+    source, fp32 the old entry; the new source is built with the others
+    and defines the three entries; the old entries refuse bf16 (no second
+    bf16 body)."""
     assert t_attn.kernel_entry(kind, torch.bfloat16) == (
         "flash_attention_sm90", symbol + "_sm90")
     assert t_attn.kernel_entry(kind, torch.float32) == ("flash_attention",
@@ -126,6 +166,7 @@ def test_bf16_goes_to_the_wgmma_kernel_and_fp32_to_the_fma_twin(kind):
     entry = entry[:entry.index("\n}\n")]
     assert "if (is_bf16) return cudaErrorInvalidValue;" in entry
     assert "__nv_bfloat16" not in entry
+    assert "__nv_bfloat16" not in old and "wmma" not in old
 
 
 def test_wrappers_have_no_fallback():
@@ -133,3 +174,22 @@ def test_wrappers_have_no_fallback():
     launch in the attention wrappers."""
     src = Path(t_attn.__file__).read_text()
     assert "try:" not in src and "except" not in src
+
+
+def test_plans_entry_point_runs_on_cpu(capsys):
+    """tools/sm90_plans.py on the CPU: the plain versions, the plan's
+    bucket and tile a shape, nothing timed; without --device cpu and
+    without a card it refuses."""
+    import json
+
+    from diffusiontexturepainting_torch.tools import sm90_plans
+
+    assert sm90_plans.main(["--device", "cpu", "--shapes", "tiny"]) == 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert record["device"] == "cpu"
+    kernels = [r["kernel"] for r in record["rows"]]
+    assert kernels == ["K2", "K2", "K9"]
+    assert all(r["plan"] and r["ms"] is None and r["max_diff"] == 0.0
+               for r in record["rows"])
+    if not torch.cuda.is_available():
+        assert sm90_plans.main([]) == 1

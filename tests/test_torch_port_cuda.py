@@ -585,9 +585,9 @@ def test_sm90_replays_bit_identically():
 
 @pytest.mark.cuda
 def test_sm90_refuses_what_tma_cannot_describe():
-    """bf16 K8 at hd 36 (a 72-byte head stride) or on a base 2 bytes off 16,
-    and K13 on a row stride off 16 bytes, raise ValueError and launch
-    nothing; fp32 K8 at hd 36 still runs the FMA twin."""
+    """bf16 K8 and K2 at hd 36 (a 72-byte head stride), K8 on a base 2
+    bytes off 16, and K13 on a row stride off 16 bytes, raise ValueError
+    and launch nothing; fp32 K8 at hd 36 still runs the FMA twin."""
     gen = _setup()
     from diffusiontexturepainting_torch.ops import attention
 
@@ -599,11 +599,14 @@ def test_sm90_refuses_what_tma_cannot_describe():
                       device="cuda").bfloat16()
     q, k, v = (qkv[..., i * 1024:(i + 1) * 1024] for i in range(3))
     counters = (attention.flash_streaming_launches,
-                attention.flash_slotted_launches)
+                attention.flash_slotted_launches, attention.flash_launches)
     before = [c.launches for c in counters]
     with pytest.raises(ValueError, match="TMA"):
         attention.flash_attention_streaming(x.bfloat16(), x.bfloat16(),
                                             x.bfloat16(), 4)
+    with pytest.raises(ValueError, match="TMA"):
+        attention.flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(),
+                                  4)
     with pytest.raises(ValueError, match="TMA"):
         attention.flash_attention_streaming(off, off, off, 8)
     with pytest.raises(ValueError, match="TMA"):
@@ -637,23 +640,27 @@ def test_sm90_dtype_dispatch_and_launch_counters(monkeypatch):
                                (torch.float32, "flash_attention", "")):
         asked.clear()
         before = (attention.flash_streaming_launches.launches,
-                  attention.flash_slotted_launches.launches)
+                  attention.flash_slotted_launches.launches,
+                  attention.flash_launches.launches)
         attention.flash_attention_streaming(x.to(dt), x.to(dt), x.to(dt), 8)
         sq, sk, sv = qkv.to(dt).chunk(3, dim=-1)
         attention.flash_attention_slotted(sq, sk, sv, 8, 40)
+        attention.flash_attention(x.to(dt), x.to(dt), x.to(dt), 8)
         torch.cuda.synchronize()
         assert asked == [
             (source, "dtp_flash_attention_streaming" + suffix),
-            (source, "dtp_flash_attention_slotted" + suffix)]
+            (source, "dtp_flash_attention_slotted" + suffix),
+            (source, "dtp_flash_attention" + suffix)]
         assert (attention.flash_streaming_launches.launches,
-                attention.flash_slotted_launches.launches) == (
-                    before[0] + 1, before[1] + 1)
+                attention.flash_slotted_launches.launches,
+                attention.flash_launches.launches) == (
+                    before[0] + 1, before[1] + 1, before[2] + 1)
 
 
 @pytest.mark.cuda
 def test_sm90_plan_matches_the_library():
     """ops/attention.py sm90_plan equals the built library's plan for every
-    hd in 1..512."""
+    hd in 1..512, at long and short grids."""
     _setup()
     import ctypes
 
@@ -661,10 +668,155 @@ def test_sm90_plan_matches_the_library():
     from diffusiontexturepainting_torch.ops import attention
 
     fn = _cuda.library("flash_attention_sm90").dtp_flash_attention_sm90_plan
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    out = (ctypes.c_int * 6)()
-    for hd in range(1, 513):
-        assert fn(hd, out) == 0
-        p = attention.sm90_plan(hd)
-        assert list(out) == [p["kd"], p["nv"], p["bkv"], p["consumers"],
-                             p["slices"], p["smem"]], hd
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 7)()
+    for lq, bh in ((16384, 24), (1024, 24), (1024, 2), (4096, 3), (1, 1)):
+        for hd in range(1, 513):
+            assert fn(hd, lq, bh, out) == 0
+            p = attention.sm90_plan(hd, lq, bh)
+            assert list(out) == [p["bucket"], p["kd"], p["nv"], p["bkv"],
+                                 p["consumers"], p["slices"], p["smem"]]
+
+
+# bf16 K2 (the same body as K8, its grid-fill plan and the hd-160 bucket)
+# at every head-dim bucket and ragged lengths.
+K2_HDS = (8, 40, 64, 80, 128, 160, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", K2_HDS)
+@pytest.mark.parametrize("length", SM90_LENGTHS)
+def test_sm90_resident_matches_plain(hd, length):
+    """K2 in bf16 against its plain version, K8's (chip_smoke's
+    tolerance)."""
+    gen = _setup()
+    import chip_smoke
+
+    heads = 1 if hd == 512 else 2
+    key = ((2, length, heads * hd), (2, length, heads * hd), heads)
+    r = chip_smoke.compare("flash_attention", key, torch.bfloat16, gen)
+    assert r["err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (40, 160, 512))
+def test_sm90_every_bucket_computes_k2(hd):
+    """Every bucket at least hd deep gives K2's function (the probes'
+    overrides), and the bucket the plan picks equals the default call."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention
+
+    heads = 1 if hd == 512 else 4
+    q, k, v = (torch.randn((2, 1100, heads * hd), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    want = attention.plain_attention_streaming(q, k, v, heads)
+    tol = 2.0**-5 * want.float().abs().max().item()
+    plan = attention.sm90_plan(hd, 1100, 2 * heads)["bucket"]
+    default = attention.flash_attention(q, k, v, heads)
+    for i, (kd, *_) in enumerate(attention.SM90_BUCKETS):
+        if kd < hd:
+            continue
+        got = attention.flash_attention(q, k, v, heads, bucket=i)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (i, err, tol)
+        if i == plan:
+            assert torch.equal(got, default)
+
+
+# bf16 K9 (csrc/conv_sm90.cu) at the default stamp's three shapes and at
+# ragged ones: odd H and W, Cin and Cout off 64 and 128, one output pixel
+K9_KEYS = [((2, 256, 256, 128), (3, 3, 128, 128), True),
+           ((2, 128, 128, 256), (3, 3, 256, 256), True),
+           ((2, 64, 64, 512), (3, 3, 512, 512), True),
+           ((1, 18, 34, 48), (3, 3, 48, 40), True),
+           ((2, 7, 9, 24), (3, 3, 24, 136), True),
+           ((2, 2, 2, 16), (3, 3, 16, 8), True),
+           ((1, 33, 31, 200), (3, 3, 200, 264), True),
+           ((1, 32, 32, 256), (3, 3, 256, 256), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", K9_KEYS, ids=str)
+def test_sm90_downconv_matches_plain(key):
+    """bf16 K9 against its plain version, output and statistics
+    (chip_smoke's tolerance)."""
+    gen = _setup()
+    import chip_smoke
+
+    r = chip_smoke.compare("downsample_conv3x3_stats", key, torch.bfloat16,
+                           gen)
+    assert r["err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("consumers", [1, 2])
+def test_sm90_downconv_tiles_agree_and_replay(consumers):
+    """Both tiles (one or two consumer warpgroups) compute the same output
+    bits; each call's output and statistics are bit-identical on replay."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import gn_conv
+
+    x = torch.randn((2, 64, 66, 128), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((3, 3, 128, 256), generator=gen, device="cuda")
+         * 0.03).bfloat16()
+    b = torch.randn(256, generator=gen, device="cuda").bfloat16()
+    a1, s1 = gn_conv.downconv_stream(x, w, b, consumers=consumers)
+    a2, s2 = gn_conv.downconv_stream(x, w, b, consumers=consumers)
+    other, _ = gn_conv.downconv_stream(x, w, b, consumers=3 - consumers)
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a2) and torch.equal(s1, s2)
+    assert torch.equal(a1, other)
+
+
+@pytest.mark.cuda
+def test_sm90_downconv_refuses_what_tma_cannot_describe():
+    """bf16 K9 at Cin 20, Cout 12, or on a base 2 bytes off 16 raises
+    ValueError and launches nothing; fp32 at Cin 20 runs the FMA twin."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import gn_conv
+
+    x = torch.randn((1, 16, 16, 20), generator=gen, device="cuda")
+    w = torch.randn((3, 3, 20, 16), generator=gen, device="cuda")
+    w12 = torch.randn((3, 3, 16, 12), generator=gen, device="cuda").bfloat16()
+    flat = torch.randn(1 + 16 * 16 * 16, generator=gen,
+                       device="cuda").bfloat16()
+    off = flat[1:].view(1, 16, 16, 16)
+    w16 = torch.randn((3, 3, 16, 16), generator=gen, device="cuda").bfloat16()
+    before = gn_conv.downconv_stream_launches.launches
+    for call in (lambda: gn_conv.downconv_stream(x.bfloat16(), w.bfloat16(),
+                                                 None),
+                 lambda: gn_conv.downconv_stream(off.contiguous(), w12,
+                                                 None),
+                 lambda: gn_conv.downconv_stream(off, w16, None)):
+        with pytest.raises(ValueError, match="TMA"):
+            call()
+    assert gn_conv.downconv_stream_launches.launches == before
+    out, stats = gn_conv.downconv_stream(x, w, None)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(stats).all()
+
+
+@pytest.mark.cuda
+def test_sm90_downconv_plan_matches_the_library():
+    """ops/gn_conv.py downconv_sm90_plan equals the built library's plan at
+    the paths' shapes and ragged ones, forced tiles included."""
+    _setup()
+    import ctypes
+
+    from diffusiontexturepainting_torch import _cuda
+    from diffusiontexturepainting_torch.ops import gn_conv
+
+    fn = _cuda.library("conv_sm90").dtp_downsample_conv3x3_sm90_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 8)()
+    shapes = [(2, 2 * h, 2 * h, c, c) for h in (512, 256, 128, 64, 32)
+              for c in (128, 256, 512)]
+    shapes += [(1, 18, 34, 48, 40), (2, 7, 9, 24, 136), (2, 2, 2, 16, 8)]
+    for B, H, W, cin, cout in shapes:
+        for nc in (0, 1, 2):
+            assert fn(B, H, W, cin, cout, nc, out) == 0
+            p = gn_conv.downconv_sm90_plan(B, H, W, cin, cout, nc or None)
+            assert list(out) == [p["consumers"], p["rows"], p["stages"],
+                                 p["smem"], p["tiles_h"], p["tiles_w"],
+                                 p["m_tiles"], p["n_tiles"]]

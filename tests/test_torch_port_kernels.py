@@ -109,6 +109,28 @@ def test_flash_attention_matches_pallas(heads, hd):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("heads,hd", [(8, 40), (1, 512)])
+def test_flash_attention_rounds_q_as_pallas_in_bf16(heads, hd):
+    """bf16, L = 256, inputs 3 N(0, 1) so the base-2 logits are large: K2
+    pre-scales q by scale*log2(e) and rounds it to bf16 before Q K^T
+    (_attn_kernel's qs). The port in that order lands within two bf16 ulps
+    of the Pallas kernel's largest output (max) and a sixteenth of one
+    (mean); scaling the fp32 logits instead misses both by 1.3-2x."""
+    b, length, d = 1, 256, heads * hd
+    q, k, v = (_rand((b, length, d), s, 3.0) for s in (30, 31, 32))
+    with pltpu.force_tpu_interpret_mode():
+        want = flash_attention(*(jnp.asarray(x, dtype=jnp.bfloat16)
+                                 for x in (q, k, v)), heads)
+    want = np.asarray(want.astype(jnp.float32))
+    got = t_attn.flash_attention(*(torch.from_numpy(x).bfloat16()
+                                   for x in (q, k, v)), heads)
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    diff = np.abs(got.float().numpy() - want)
+    assert diff.max() <= 2 * ulp, (diff.max(), ulp)
+    assert diff.mean() <= ulp / 16, (diff.mean(), ulp)
+
+
 def test_attention_dispatch_rule():
     """The JAX package's rule: fused kernel only for Lq == Lk >= 1024 and
     head dim <= 512."""
