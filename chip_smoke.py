@@ -7,17 +7,21 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc builds every kernel from csrc/, in parallel, seconds
                printed; ptxas's registers and spills, none allowed in the
-               bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu) or the
-               bf16 K9 kernel (csrc/conv_sm90.cu);
+               bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu), the
+               bf16 K9 kernel (csrc/conv_sm90.cu) or the bf16 K1/K5 kernel
+               (csrc/gn_conv_sm90.cu);
   3. probe     each kernel against its plain version at a few shapes,
                K2 at its four launched head dims (40, 80, 160, 512) and a
                ragged length, the 16384-token streaming attentions (K8)
                and a ragged hd-512 one, the slotted attentions of 256^2 and
                512^2 (K13), K9 at the default stamp's three shapes and
-               ragged and odd ones (its output and statistics bit-identical
-               on replay), and the spatial moments (K14) among them; the
-               bf16 K2/K8/K13 and K9 refuse what TMA cannot describe
-               (ValueError, no launch);
+               ragged and odd ones, K1/K5 at ragged shapes (Cin 96 ->
+               Cout 40 on 4x4 images at batch 3, odd H and W, the VAE's
+               Cout 8 and 3 heads) and on the split concat conv's weight
+               halves read in place, and the spatial moments (K14) among
+               them; K9, K1/K5 and K14 bit-identical on replay, output and
+               statistics; the bf16 K2/K8/K13, K9 and K1/K5 refuse what TMA
+               cannot describe (ValueError, no launch);
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -111,9 +115,10 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                path launched it at, in bf16 and fp32 (TF32 off),
                statistics included; CUDA-event times of the kernel, its
                plain version and the one PyTorch call that computes the
-               same function where there is one, at the shapes of the path
-               it is reported for, beside its bound (K2 and K9 also at the
-               envelope path's);
+               same function where there is one (for K1/K5 and K9 the conv
+               alone), at the shapes of the path it is reported for, beside
+               its bound (K2, K9, K1, K5 and K14 also at the envelope
+               path's);
  10. no jax    the run imported neither JAX, nor the JAX package, nor
                tornado, nor PIL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -154,6 +159,14 @@ def settings(steps, res=RES):
 # of the sum of |y| (row 0) or of y^2 (row 1) over the pixels, the scale
 # that bounds their rounding error.
 TOL = {"bfloat16": 2.0**-5, "float16": 2.0**-5, "float32": 1e-4}
+# K1/K5's and K14's statistics are also held against those of the kernel's
+# own output, per (image, channel): only the fp32 order of summation may
+# differ there, so the bound is far below TOL's, a fraction of that entry's
+# sum of |y| (row 0) or of y^2 (row 1). The probes' images differ from one
+# another (per_image), so two images' statistics swapped inside a tile, or
+# one tile partial dropped (1/512 of an image at the 1024^2 VAE), exceed it.
+STATS_SELF_TOL = 2.0**-14
+STATS_SELF_KINDS = ("gn_conv_resident", "gn_conv_stream", "spatial_moments")
 # The first stamps of two configurations at equal steps: the same math
 # with other rounding points in bf16 (fused epilogues round once where the
 # module legs round twice; the slotted softmax rounds its logits to bf16),
@@ -166,8 +179,9 @@ SOURCES = {
     "upsample2x_conv3x3": "csrc/conv3x3.cu",
     # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
     "flash_attention": "csrc/flash_attention_sm90.cu",
-    "gn_conv_resident": "csrc/conv3x3.cu",
-    "gn_conv_stream": "csrc/conv3x3.cu",
+    # bf16; fp32 runs conv3x3.cu
+    "gn_conv_resident": "csrc/gn_conv_sm90.cu",
+    "gn_conv_stream": "csrc/gn_conv_sm90.cu",
     "upconv_stream": "csrc/conv3x3.cu",
     "ff_geglu": "csrc/ff_geglu.cu",
     # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
@@ -253,6 +267,9 @@ LIBRARY_IS = {
         "no statistics",
     "spatial_moments": "torch.var_mean over H and W (correction 0), the "
                        "nearest one-call equivalent",
+    **{name: "F.conv2d, channels-last, SAME: the conv alone: no prologue, "
+             "residual or statistics"
+       for name in ("gn_conv_resident", "gn_conv_stream")},
     **{name: "SDPA: the exact row-max softmax; equal to the no-max arms "
              "while raw logits < 83" for name in ARMS},
     "sublane_attention": "SDPA: the exact row-max softmax, q and p not "
@@ -331,12 +348,19 @@ ARM_PATH_ROWS = {"nomax_attention": "nomax-safe",
                  "sublane_attention": "sublane"}
 # K8/K2 launches a 1024^2/4 stamp at each UNet self-attention shape
 ARM_LAUNCHES = 20
+# Kernels whose device time (the calls replayed from a CUDA graph, the
+# host's launch cost left out) is also taken at their timed shapes, with
+# their library call's: the kernels this round of work redesigned last
+DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments")
 # the sources whose ptxas report must show no spill
-NO_SPILL = ("flash_attention_sm90", "conv_sm90")
-# Kernels also timed at a second path's shapes: K2 and K9 at the 1024^2
-# envelope's
+NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90")
+# Kernels also timed at a second path's shapes: K2, K9, K1, K5 and K14 at
+# the 1024^2 envelope's
 ALSO_REPORTED_ON = {"flash_attention": "envelope",
-                    "downsample_conv3x3_stats": "envelope"}
+                    "downsample_conv3x3_stats": "envelope",
+                    "gn_conv_resident": "envelope",
+                    "gn_conv_stream": "envelope",
+                    "spatial_moments": "envelope"}
 # The JAX package's streaming_plan shape test (ops/conv3x3.py:942), without
 # its VMEM budget: H >= 8, W >= 2, Cin >= 16, Cout >= 128.
 STREAM_MIN = (8, 2, 16, 128)
@@ -369,6 +393,28 @@ def counters():
             conv3x3.conv3x3_inpad_launches, conv3x3.upsample_inpad_launches,
             conv3x3.conv3x3_stream_launches,
             conv3x3.gn_silu_conv3x3_launches]
+
+
+def per_image(t, shift):
+    """t (B, ...) with image b scaled by 1 + b / 4 and shifted by b * shift,
+    in t's dtype: images whose statistics differ."""
+    import torch
+
+    k = torch.arange(t.shape[0], device=t.device, dtype=torch.float32)
+    k = k.view(-1, *(1,) * (t.dim() - 1))
+    return (t.float() * (1 + k / 4) + k * shift).to(t.dtype)
+
+
+def stats_self_err(y, stats):
+    """The largest |stats - the statistics of y| over (image, row, channel),
+    each entry's error over its own sum of |y| (row 0) or of y^2 (row 1)."""
+    import torch
+
+    yf = y.float()
+    dims = tuple(range(1, yf.dim() - 1))
+    want = torch.stack([yf.sum(dims), yf.square().sum(dims)], dim=1)
+    scale = torch.stack([yf.abs().sum(dims), yf.square().sum(dims)], dim=1)
+    return ((stats - want).abs() / scale.clamp_min(1e-30)).max().item()
 
 
 def kernel_case(kind, shape_key, dtype, gen):
@@ -494,8 +540,7 @@ def _kernel_case(kind, shape_key, dtype, gen):
         b = rnd(cout, std=0.1) if has_bias else None
         return (lambda: conv_variants.pipelined(x, a, c, w, b),
                 lambda: conv_variants.plain_pipelined(x, a, c, w, b), None,
-                lambda: gn_conv.gn_conv_stream(x, a, c, w, b, None, False,
-                                               True)[0])
+                lambda: k5_call(gn_conv, x, a, c, w, b))
     if kind in ARMS:
         q_shape, k_shape, heads, *opts = shape_key
         q, k, v = rnd(*q_shape), rnd(*k_shape), rnd(*k_shape)
@@ -528,7 +573,7 @@ def _kernel_case(kind, shape_key, dtype, gen):
                 None)
     if kind == "spatial_moments":
         # (x, moments): compare holds the moments as statistics of x
-        x = rnd(*shape_key[0], mean=0.5)
+        x = per_image(rnd(*shape_key[0], mean=0.5), 0.25)
         return (lambda: (x, groupnorm.spatial_moments(x)),
                 lambda: (x, groupnorm.spatial_moments_plain(x)),
                 lambda: torch.var_mean(x, dim=(1, 2), correction=0))
@@ -586,15 +631,33 @@ def _kernel_case(kind, shape_key, dtype, gen):
         return (lambda: gn_conv.upconv_stream(x, w, b, taps, stats),
                 lambda: gn_conv.upconv_stream_plain(x, w, b, stats), None)
     has_bias, has_res, stats, apply_gn = shape_key[2:]
-    B, cin = x_shape[0], x_shape[3]
+    B, cin, cout = x_shape[0], x_shape[3], w_shape[3]
+    x = per_image(x, 0.5)
     a = rnd(B, cin, std=0.2, mean=1.0, dt=torch.float32)
     c = rnd(B, cin, std=0.2, dt=torch.float32)
     b = b if has_bias else None
-    r = rnd(*x_shape[:3], w_shape[3]) if has_res else None
+    r = per_image(rnd(*x_shape[:3], cout), 0.25) if has_res else None
     op = getattr(gn_conv, kind)
-    return (lambda: op(x, a, c, w, b, r, stats, apply_gn),
+    # a head whose Cout is off 8 passes its weight zero-padded, as the VAE
+    # decoder does
+    wk, bk = gn_conv.pad_cout(w, b)
+    extra = dict(out_channels=cout) if wk is not w else {}
+    # the yardstick: the conv alone, channels-last
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return (lambda: op(x, a, c, wk, bk, r, stats, apply_gn, **extra),
             lambda: gn_conv.gn_conv3x3_plain(x, a, c, w, b, r, stats,
-                                             apply_gn), None)
+                                             apply_gn),
+            lambda: F.conv2d(xc, wc, b, padding=1))
+
+
+def k5_call(gn_conv, x, a, c, w, b):
+    """K5 with its prologue, no residual and no statistics, as the VAE calls
+    it: a weight whose Cout is off 8 zero-padded (pad_cout)."""
+    wk, bk = gn_conv.pad_cout(w, b)
+    extra = dict(out_channels=w.shape[-1]) if wk is not w else {}
+    return gn_conv.gn_conv_stream(x, a, c, wk, bk, None, False, True,
+                                  **extra)[0]
 
 
 def image_windows(image, h_t, wp):
@@ -767,6 +830,13 @@ def compare(kind, shape_key, dtype, gen, timed=False):
             if kind == "spatial_moments":  # the moments are the output
                 out["max_abs_err"] = max(out["max_abs_err"], e)
         out["stats_checked"] = True
+        if kind in STATS_SELF_KINDS:
+            e = stats_self_err(got, got_st)
+            if not e <= STATS_SELF_TOL:
+                raise AssertionError(f"{name}: statistics differ from those "
+                                     f"of its own output by {e:.3e} of the "
+                                     f"sums > {STATS_SELF_TOL:.3e}")
+            out["stats_self_err"] = e
     del got, want, got_st, want_st
     if timed:
         # plain, kernel, kernel, plain: drift hits both sides alike
@@ -775,6 +845,11 @@ def compare(kind, shape_key, dtype, gen, timed=False):
         out["library_ms"] = None if library is None else cuda_ms(library)
         if family is not None:
             out["family_ms"] = cuda_ms(family)
+        if kind in DEVICE_TIMED:
+            from diffusiontexturepainting_torch.tools._common import graph_ms
+
+            out["kernel_device_ms"] = graph_ms(kernel, calls=10, tries=3)
+            out["library_device_ms"] = graph_ms(library, calls=10, tries=3)
     return out
 
 
@@ -1633,7 +1708,7 @@ def conv_arms_phase(gen, k5_shapes, stamps):
             x, a, c, w, b = ins
             B, H, W, cin = x.shape
             label = f"{tuple(x.shape)}->{w.shape[3]} x{n}"
-            k5 = gn_conv.gn_conv_stream(x, a, c, w, b, None, False, True)[0]
+            k5 = k5_call(gn_conv, x, a, c, w, b)
             log(f"conv_arms: {PIPE} {label}: max|diff| "
                 + hold(f"{PIPE} {label}", got,
                        cv.plain_pipelined(x, a, c, w, b),
@@ -1667,11 +1742,13 @@ def release():
 
 
 def tma_refusal_probe(gen):
-    """The bf16 K2, K8 and K13 (csrc/flash_attention_sm90.cu) and K9
-    (csrc/conv_sm90.cu) refuse operands TMA cannot describe with ValueError
-    and launch nothing: K2 and K8 at hd 36 (a 72-byte head stride), K13 on
-    views of a projection whose rows are 8 bytes off 16, K9 at Cin 20 and
-    at Cout 12 (rows of 40 and 24 bytes) and on an input 2 bytes off 16."""
+    """The bf16 K2, K8 and K13 (csrc/flash_attention_sm90.cu), K9
+    (csrc/conv_sm90.cu) and K1/K5 (csrc/gn_conv_sm90.cu) refuse operands
+    TMA cannot describe with ValueError and launch nothing: K2 and K8 at
+    hd 36 (a 72-byte head stride), K13 on views of a projection whose rows
+    are 8 bytes off 16, K9 and K1/K5 at Cin 20 and at Cout 12 (rows of 40
+    and 24 bytes) and on an input 2 bytes off 16, K5 at Cout 3 without the
+    padded weight."""
     import torch
 
     from diffusiontexturepainting_torch.ops import attention, gn_conv
@@ -1690,6 +1767,10 @@ def tma_refusal_probe(gen):
     off = flat[1:].view(1, 16, 16, 16)
     w16 = torch.randn((3, 3, 16, 16), generator=gen,
                       device="cuda").bfloat16()
+    w3 = torch.randn((3, 3, 16, 3), generator=gen, device="cuda").bfloat16()
+    a20 = torch.rand((1, 20), generator=gen, device="cuda") + 0.5
+    c20 = torch.randn((1, 20), generator=gen, device="cuda")
+    a16, c16 = a20[:, :16].contiguous(), c20[:, :16].contiguous()
     calls = {"flash_attention (1, 256, 144), 4 heads":
              lambda: attention.flash_attention(x, x, x, 4),
              "flash_attention_streaming (1, 256, 144), 4 heads":
@@ -1701,10 +1782,21 @@ def tma_refusal_probe(gen):
              "downconv_stream Cout 12":
              lambda: gn_conv.downconv_stream(xd, wd, None),
              "downconv_stream x 2 bytes off 16":
-             lambda: gn_conv.downconv_stream(off, w16, None)}
+             lambda: gn_conv.downconv_stream(off, w16, None),
+             "gn_conv_resident Cin 20":
+             lambda: gn_conv.gn_conv_resident(xc, a20, c20, wc, None),
+             "gn_conv_stream Cout 12":
+             lambda: gn_conv.gn_conv_stream(xd, a16, c16, wd, None),
+             "gn_conv_stream Cout 3, unpadded":
+             lambda: gn_conv.gn_conv_stream(xd, a16, c16, w3, None, None,
+                                            False),
+             "gn_conv_resident x 2 bytes off 16":
+             lambda: gn_conv.gn_conv_resident(off, a16, c16, w16, None)}
     counters = (attention.flash_launches, attention.flash_streaming_launches,
                 attention.flash_slotted_launches,
-                gn_conv.downconv_stream_launches)
+                gn_conv.downconv_stream_launches,
+                gn_conv.gn_conv_resident_launches,
+                gn_conv.gn_conv_stream_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -1717,10 +1809,12 @@ def tma_refusal_probe(gen):
         raise AssertionError("probe: a refused call launched a kernel")
 
 
-def downconv_replay_probe(gen):
-    """bf16 K9 at the default stamp's three shapes twice on the same
-    inputs: output and statistics bit-identical (a fixed reduction order,
-    no atomics)."""
+def replay_probe(gen):
+    """bf16 K9 at the default stamp's three shapes, K1/K5 at a split-K, a
+    whole-image and a tiled shape, and K14 on K1/K5's inputs, each twice
+    on the same inputs: outputs and statistics bit-identical (fixed
+    reduction orders, no float atomics); K1/K5's and K14's statistics
+    also those of their own outputs (STATS_SELF_TOL)."""
     import torch
 
     from diffusiontexturepainting_torch.ops import gn_conv
@@ -1739,6 +1833,93 @@ def downconv_replay_probe(gen):
                                  "differs on replay")
         log(f"probe: downconv_stream {tuple(x.shape)} x {tuple(w.shape)} "
             "bf16: output and statistics bit-identical on replay")
+    from diffusiontexturepainting_torch.ops import groupnorm
+
+    for B, H, cin, cout in ((3, 4, 1280, 1280), (3, 8, 640, 1280),
+                            (3, 32, 320, 320), (2, 256, 128, 128)):
+        x = per_image(torch.randn((B, H, H, cin), generator=gen,
+                                  device="cuda"), 0.5).bfloat16()
+        w = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+             * (9 * cin) ** -0.5).bfloat16()
+        b = (torch.randn(cout, generator=gen, device="cuda") * 0.1).bfloat16()
+        a = torch.rand((B, cin), generator=gen, device="cuda") + 0.5
+        c = torch.randn((B, cin), generator=gen, device="cuda") * 0.2
+        r = per_image(torch.randn((B, H, H, cout), generator=gen,
+                                  device="cuda"), 0.25).bfloat16()
+        first, again = (gn_conv.gn_conv_resident(x, a, c, w, b, r)
+                        for _ in range(2))
+        m1, m2 = (groupnorm.spatial_moments(x) for _ in range(2))
+        torch.cuda.synchronize()
+        if not (torch.equal(first[0], again[0])
+                and torch.equal(first[1], again[1]) and torch.equal(m1, m2)):
+            raise AssertionError(f"probe: gn_conv_resident or "
+                                 f"spatial_moments {tuple(x.shape)} differs "
+                                 "on replay")
+        e = max(stats_self_err(*first), stats_self_err(x, m1))
+        if not e <= STATS_SELF_TOL:
+            raise AssertionError(f"probe: gn_conv_resident or "
+                                 f"spatial_moments {tuple(x.shape)}: "
+                                 f"statistics off their own outputs by "
+                                 f"{e:.3e} of the sums")
+        plan = gn_conv.gn_conv_sm90_plan(B, H, H, cin, cout)
+        log(f"probe: gn_conv_resident {tuple(x.shape)} x {tuple(w.shape)} "
+            f"bf16 ({plan['splits']} splits, {plan['tpi']} tiles an image) "
+            "and spatial_moments: output and statistics bit-identical on "
+            f"replay; statistics against their own outputs {e:.2e} of the "
+            "sums")
+
+
+def weight_slice_probe(gen):
+    """The split concat conv's two K1 calls on halves of one weight read in
+    place (w[:, :, :ca] and w[:, :, ca:]) at the UNet's up-path shapes,
+    against the plain version on contiguous copies, statistics included
+    (also against those of the output itself, STATS_SELF_TOL)."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import gn_conv
+
+    for B, H, ca, cs, cout in ((3, 4, 1280, 1280, 1280),
+                               (3, 8, 1280, 640, 1280),
+                               (3, 32, 640, 320, 320)):
+        x = per_image(torch.randn((B, H, H, ca + cs), generator=gen,
+                                  device="cuda"), 0.5).bfloat16()
+        w = (torch.randn((3, 3, ca + cs, cout), generator=gen, device="cuda")
+             * (9 * (ca + cs)) ** -0.5).bfloat16()
+        b = (torch.randn(cout, generator=gen, device="cuda") * 0.1).bfloat16()
+        a = torch.rand((B, ca + cs), generator=gen, device="cuda") + 0.5
+        c = torch.randn((B, ca + cs), generator=gen, device="cuda") * 0.2
+        xa, xs = x[..., :ca].contiguous(), x[..., ca:].contiguous()
+        h1, _ = gn_conv.gn_conv_resident(xa, a[:, :ca], c[:, :ca],
+                                         w[:, :, :ca], b, None, False)
+        h, st = gn_conv.gn_conv_resident(xs, a[:, ca:], c[:, ca:],
+                                         w[:, :, ca:], None, h1, True)
+        p1, _ = gn_conv.gn_conv3x3_plain(xa, a[:, :ca], c[:, :ca],
+                                         w[:, :, :ca].contiguous(), b, None,
+                                         False)
+        p, pst = gn_conv.gn_conv3x3_plain(xs, a[:, ca:], c[:, ca:],
+                                          w[:, :, ca:].contiguous(), None, p1)
+        err, tol = _err_tol(h, p)
+        yf = p.float()
+        worst = err / tol
+        for row, scale in enumerate((yf.abs().sum((1, 2)).max().item(),
+                                     yf.square().sum((1, 2)).max().item())):
+            e = (st[:, row] - pst[:, row]).abs().max().item()
+            worst = max(worst, e / (TOL["bfloat16"] * scale))
+        worst = max(worst, stats_self_err(h, st) / STATS_SELF_TOL)
+        if not worst <= 1.0:
+            raise AssertionError(f"probe: weight slices {(ca, cs, cout)}: "
+                                 f"err/tol {worst:.3f}")
+        log(f"probe: gn_conv_resident on w[:, :, :{ca}] and w[:, :, {ca}:] "
+            f"of (3, 3, {ca + cs}, {cout}) read in place, x {tuple(x.shape)} "
+            f"bf16: err/tol {worst:.3f} (output and statistics)")
+
+
+def self_note(r):
+    """The log's note of compare's statistics-against-own-output check."""
+    if "stats_self_err" not in r:
+        return ""
+    return (f"; statistics against its own output {r['stats_self_err']:.2e} "
+            f"of the sums (bound {STATS_SELF_TOL:.2e})")
 
 
 def kernels_phase(gen, paths):
@@ -1764,6 +1945,7 @@ def kernels_phase(gen, paths):
         also_totals = Counter()
         by_option = Counter()
         lib_missing = False
+        self_worst = 0.0
         for key in keys:
             count = counts.get(key, 0)
             also_count = also_counts.get(key, 0)
@@ -1773,12 +1955,14 @@ def kernels_phase(gen, paths):
                                    and count + also_count > 0))
                 errs[dt] = max(errs[dt], r["max_abs_err"])
                 worst[dt] = max(worst[dt], r["err_over_tol"])
+                self_worst = max(self_worst, r.get("stats_self_err", 0.0))
                 msg = (f"kernels: {name} {key} {str(dt)[6:]}: max_abs_err "
                        f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, "
                        f"max|plain| {r['peak']:.3e}); err/tol "
                        f"{r['err_over_tol']:.3f}"
                        + (" (output and statistics)"
-                          if r.get("stats_checked") else ""))
+                          if r.get("stats_checked") else "")
+                       + self_note(r))
                 if "kernel_ms" in r:
                     b_s, by = bound_s(name, key, "bfloat16")
                     for field, ms in (("kernel", r["kernel_ms"]),
@@ -1799,6 +1983,11 @@ def kernels_phase(gen, paths):
                         totals["library"] += count * r["library_ms"]
                     if "family_ms" in r:
                         totals["family"] += count * r["family_ms"]
+                    for field in ("kernel_device", "library_device"):
+                        if f"{field}_ms" in r:
+                            totals[field] += count * r[f"{field}_ms"]
+                            also_totals[field] += also_count * r[
+                                f"{field}_ms"]
                     lib = ("none" if r["library_ms"] is None
                            else f"{r['library_ms']:.4f} ms")
                     msg += (f"; {r['kernel_ms']:.4f} ms kernel, "
@@ -1838,14 +2027,29 @@ def kernels_phase(gen, paths):
                                      "its shapes"),
             **({"family_ms": totals["family"] / n,
                 "family_is": FAMILY_IS[name]} if name in FAMILY_IS else {}),
+            **({"stats_self_err": self_worst}
+               if name in STATS_SELF_KINDS else {}),
+            **({"device_ms": totals["kernel_device"] / n,
+                "library_device_ms": totals["library_device"] / n}
+               if name in DEVICE_TIMED else {}),
             **({"ms_by_option": {k: v / n for k, v in by_option.items()}}
                if by_option else {}),
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
                else {}),
             **({also: {"launches": paths[also]["launches"][name],
                        **{f"{f}_ms": also_totals[f] / paths[also]["stamps"]
-                          for f in ("kernel", "plain", "library",
-                                    "bound")}}} if also else {})})
+                          for f in ("kernel", "plain", "library", "bound")
+                          + (("kernel_device", "library_device")
+                             if name in DEVICE_TIMED else ())}}}
+               if also else {})})
+        if name in DEVICE_TIMED:
+            na = paths[also]["stamps"] if also else 1
+            log(f"kernels: {name} device time (CUDA-graph replays): "
+                f"{totals['kernel_device'] / n:.4f} ms a stamp, library "
+                f"{totals['library_device'] / n:.4f} ({path} path)"
+                + (f"; {also_totals['kernel_device'] / na:.4f}, library "
+                   f"{also_totals['library_device'] / na:.4f} ({also} path)"
+                   if also else ""))
         if also:
             na = paths[also]["stamps"]
             log(f"kernels: {name} at the {also} path's shapes: "
@@ -1917,6 +2121,18 @@ def main() -> int:
                             True, False, False, True)),
         ("gn_conv_stream", ((1, 16, 16, 64), (3, 3, 64, 128),
                             True, True, True, False)),
+        # bf16 K1/K5 (csrc/gn_conv_sm90.cu): Cin 96 -> Cout 40 on 4x4
+        # images at batch 3 (one tile, split K), odd H and W with Cout off
+        # the 128-channel tile, the VAE's heads (Cout 8; Cout 3 through the
+        # zero-padded weight, stored one element at a time)
+        ("gn_conv_resident", ((3, 4, 4, 96), (3, 3, 96, 40),
+                              True, True, True, True)),
+        ("gn_conv_stream", ((2, 33, 31, 64), (3, 3, 64, 136),
+                            True, True, True, True)),
+        ("gn_conv_stream", ((2, 32, 32, 512), (3, 3, 512, 8),
+                            True, False, False, True)),
+        ("gn_conv_stream", ((1, 64, 64, 128), (3, 3, 128, 3),
+                            True, False, False, True)),
         ("upconv_stream", ((1, 6, 5, 48), (3, 3, 48, 40), True)),
         ("ff_geglu", (100, 96, 384)),
         ("ff_geglu", (48, 1280, 5120)),
@@ -2022,9 +2238,11 @@ def main() -> int:
             r = compare(kind, key, dt, gen)
             log(f"probe: {kind} {key} {str(dt)[6:]}: max_abs_err "
                 f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, max|plain| "
-                f"{r['peak']:.3e}); err/tol {r['err_over_tol']:.3f}")
+                f"{r['peak']:.3e}); err/tol {r['err_over_tol']:.3f}"
+                + self_note(r))
     tma_refusal_probe(gen)
-    downconv_replay_probe(gen)
+    replay_probe(gen)
+    weight_slice_probe(gen)
     torch.cuda.empty_cache()
 
     paths = {}

@@ -10,7 +10,11 @@
 //   dtp_gn_conv3x3           <- conv3x3.py _gn_conv_resident_pallas /
 //                               _gn_res_kernel (K1) and gn_conv_stream.py
 //                               _stream_fused_pallas / _kernel (K5): one
-//                               function, resident or streamed on the TPU
+//                               function, resident or streamed on the TPU;
+//                               in fp32 only: bf16 K1/K5 is gn_conv_sm90.cu's
+//                               wgmma/TMA kernel (dtype dispatch in
+//                               ops/gn_conv.py gn_conv3x3), and this entry
+//                               returns cudaErrorInvalidValue for it
 //   dtp_upsample2x_conv3x3_stats
 //                            <- gn_conv_stream.py _upconv_stream_pallas /
 //                               _upconv_stream_kernel (K6)
@@ -53,8 +57,9 @@
 // is never negative and reads zero only at H (the pad row) - no -1 offset.
 // No padded copy of the input is made. fp32 accumulation.
 //
-// K9 (the DOWN mode) runs here in fp32 only, as the FMA twin of
-// conv_sm90.cu, which takes bf16 K9 with its statistics in the epilogue.
+// K9 (the DOWN mode) and K1/K5 (the SAME mode with a prologue) run here in
+// fp32 only, as the FMA twins of conv_sm90.cu and gn_conv_sm90.cu, which
+// take them in bf16 with their statistics in the epilogue.
 //
 // What bounds it on the H100: at the UNet's shapes (M = 48..3072 pixels,
 // K up to 9*2560) it is tensor-core work on small M, so tile occupancy and
@@ -601,11 +606,11 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3(const void* x, const void* w16,
                                  Cout, splits, is_bf16, stream);
 }
 
-// K1/K5: x (B,H,W,Cin); a, c (B,Cin) folded GroupNorm affine, or both null
-// for no prologue; w (3,3,Cin,Cout) with its 9 taps w_tap elements apart
+// K1/K5 in fp32: x (B,H,W,Cin); a, c (B,Cin) folded GroupNorm affine, or
+// both null for no prologue; w (3,3,Cin,Cout) with its 9 taps w_tap elements apart
 // (Cin*Cout, or more for a slice of a wider weight's input channels);
 // bias (Cout,) or null; residual
-// (B,H,W,Cout) or null; out (B,H,W,Cout); all of one type. partial:
+// (B,H,W,Cout) or null; out (B,H,W,Cout); all fp32. partial:
 // splits * B*H*W*Cout floats when splits > 1 or want_stats; ws:
 // dtp_stats_workspace_floats(B, H*W, Cout) floats and stats (B,2,Cout)
 // fp32 when want_stats.
@@ -617,10 +622,13 @@ extern "C" cudaError_t dtp_gn_conv3x3(const void* x, const void* a,
                                       int Cin, int Cout, int w_tap,
                                       int splits, int want_stats,
                                       int is_bf16, void* stream) {
-  return dtp::dispatch_fused<dtp::kSame>(x, a, c, w, bias, residual, out,
-                                         partial, ws, stats, B, H, W, Cin,
-                                         Cout, w_tap, splits, want_stats,
-                                         is_bf16, stream);
+  // bf16 runs gn_conv_sm90.cu's wgmma kernel: no bf16 instantiation here
+  if (is_bf16 || dtp::bad_shape(dtp::kSame, B, H, W, Cin, Cout))
+    return cudaErrorInvalidValue;
+  return dtp::launch_fused<float, dtp::kSame>(
+      x, a, c, w, bias, residual, out, partial, ws, stats, B, H, W, Cin,
+      Cout, w_tap, splits, want_stats != 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K6: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,) or null,

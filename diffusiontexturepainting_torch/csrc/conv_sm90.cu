@@ -51,7 +51,7 @@
 // Against conv3x3.cu's kDown: no fp32 round trip of the output, no finish
 // and reduce passes over it, partials of (tiles, 2, Cout) floats (4 MiB at
 // the 1024^2 envelope's largest call, where the old workspace was 256 MiB).
-#include "sm90.cuh"
+#include "conv_sm90.cuh"
 
 namespace dtp {
 namespace {
@@ -78,44 +78,6 @@ struct ConvPlan {
   // full[kStages], empty[kStages]; 1024 bytes of slack align the base
   static constexpr int kSmem = kBar + 8 * 2 * kStages + 1024;
   static_assert(kSmem <= 232448, "shared memory");
-};
-
-struct Wgmma128 {
-  // D (64 x 128, fp32) (+)= A (smem, K-major) * B (smem, MN-major)
-  static __device__ __forceinline__ void ss_t(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
 };
 
 struct DownArgs {
@@ -277,32 +239,6 @@ downconv_sm90(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-constexpr int kRedLanes = 8;  // tile partials a column is summed in
-
-// stats[b][row][n] = the sum over image b's tiles, in tile order, of
-// partial[tile][row][n]: lane y of a block takes tiles y, y + 8, ...,
-// then lane 0 adds the 8 lanes' sums in order.
-__global__ void __launch_bounds__(128 * kRedLanes)
-tile_stats_reduce(const float* __restrict__ partial,
-                  float* __restrict__ stats, int per_image, int Cout) {
-  __shared__ float part[kRedLanes][128];
-  const int b = blockIdx.y;
-  const int v = blockIdx.x * 128 + threadIdx.x;  // row * Cout + n
-  const bool ok = v < 2 * Cout;
-  float s = 0.0f;
-  if (ok)
-    for (int t = threadIdx.y; t < per_image; t += kRedLanes)
-      s += partial[(static_cast<long long>(b) * per_image + t) * 2 * Cout +
-                   v];
-  part[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && ok) {
-    float sum = 0.0f;
-    for (int y = 0; y < kRedLanes; ++y) sum += part[y][threadIdx.x];
-    stats[static_cast<long long>(b) * 2 * Cout + v] = sum;
-  }
-}
-
 struct DownPlan {
   int nc, rows, stages, smem, tiles_h, tiles_w, m_tiles, n_tiles;
 };
@@ -412,9 +348,7 @@ extern "C" cudaError_t dtp_downsample_conv3x3_stats_sm90(
   cudaError_t err = p.nc == 2 ? launch<2>(tx, tw, a, p, s)
                               : launch<1>(tx, tw, a, p, s);
   if (err != cudaSuccess || !want_stats) return err;
-  tile_stats_reduce<<<dim3((2 * Cout + 127) / 128, B), dim3(128, kRedLanes),
-                      0, s>>>(static_cast<const float*>(partial),
-                              static_cast<float*>(stats),
-                              p.tiles_h * p.tiles_w, Cout);
-  return cudaGetLastError();
+  return launch_tile_stats_reduce(static_cast<const float*>(partial),
+                                  static_cast<float*>(stats), B,
+                                  p.tiles_h * p.tiles_w, Cout, s);
 }

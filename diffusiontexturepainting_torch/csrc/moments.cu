@@ -12,24 +12,26 @@
 // What bounds it on the H100: bytes. It reads each element once and does 3
 // operations on it, at sizes from 3x4x4x1280 (the UNet's 4x4 level,
 // 120 KiB of bf16) to 2x1024x1024x128 (the 1024^2 encoder stem, 512 MiB).
-// One launch configuration does not serve both, so the row band a block
-// covers is planned from B, N and C:
+// The plan is chosen from the shape before the launch (and mirrored by
+// ops/groupnorm.py moments_plan, so the host makes one ctypes call):
 //   pass 1 (moments_band_kernel): one block per (row band, image, slice of
-//     up to 256 channel groups). A row's channels are cut into 16-byte
-//     groups (V elements) over the block's first `tpr` threads, so that
-//     neighbouring threads read neighbouring bytes; the block's other
-//     threads take the next rows (256 / tpr row lanes). Each thread keeps
-//     fp32 sums of its group over its rows; the block adds its row lanes
-//     in lane order in shared memory and writes the band's partial
-//     (sum, sumsq) per channel, zeros for a band past the last row.
+//     up to 256 channel groups), writing each band's partial;
 //   pass 2 (moments_reduce_kernel): one block per (image, 32 of the 2*C
 //     partial columns); 8 lanes each add every 8th band in band order,
 //     then a fixed tree adds the 8 lanes.
 // The bands are as many as give about eight blocks for each SM (the 512 MiB
 // stem streams at the memory rate), but no fewer than 4 rows for each row
-// lane of a band (the UNet's 16-row tensors get a few blocks each). No
-// atomics: every run gives the same bits, so replayed stamps stay
-// bit-identical.
+// lane of a band (the UNet's 16-row tensors get a few blocks each). A
+// one-launch design (8-block thread-block clusters adding their bands
+// through distributed shared memory) was measured and lost device time at
+// the UNet's shapes; see PERF.md.
+// In a block, a row's channels are cut into 16-byte groups (V elements)
+// over the block's first `tpr` threads, so that neighbouring threads read
+// neighbouring bytes; the block's other threads take the next rows
+// (256 / tpr row lanes). Each thread keeps fp32 sums of its group over its
+// rows; the block adds its row lanes in lane order. No atomics and no
+// counters: every run gives the same bits (a replayed stamp stays
+// bit-identical), and a launch shares nothing with another stream's.
 #include <cuda_fp16.h>
 
 #include "common.cuh"
@@ -61,16 +63,17 @@ __device__ __forceinline__ void load_group(const T* p, float (&v)[V]) {
   }
 }
 
-// partial[b][band][0|1][c]: the band's (sum, sumsq) of channel c of image b.
+// One row band of image blockIdx.y, channel groups from blockIdx.z * gpb,
+// into partial[b][band][0|1][c], the band's (sum, sumsq).
 template <typename T, int V>
 __global__ void __launch_bounds__(kMomentThreads)
 moments_band_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                    int N, int C, int rows_per_band) {
+                    int N, int C, int rows_per_band, int gpb) {
   __shared__ float red[kMomentThreads * 2 * V];
   const int G = C / V;  // channel groups of a row
-  const int g0 = blockIdx.z * kMomentThreads;
-  const int tpr = min(G - g0, kMomentThreads);  // threads per row
-  const int lanes = kMomentThreads / tpr;       // rows in flight
+  const int g0 = blockIdx.z * gpb;
+  const int tpr = min(G - g0, gpb);        // threads per row
+  const int lanes = kMomentThreads / tpr;  // rows in flight
   const int tid = threadIdx.x;
   const int lane = tid / tpr, g = g0 + tid % tpr;
   const int band = blockIdx.x, b = blockIdx.y, bands = gridDim.x;
@@ -99,23 +102,24 @@ moments_band_kernel(const T* __restrict__ x, float* __restrict__ partial,
     red[tid * 2 * V + V + e] = s2[e];
   }
   __syncthreads();
-  if (tid >= tpr) return;
-  // thread t adds row lanes 0, 1, ... of its group, in that order
+  if (tid < tpr) {
+    // thread t adds row lanes 0, 1, ... of its group, in that order
 #pragma unroll
-  for (int e = 0; e < V; ++e) s1[e] = s2[e] = 0.0f;
-  for (int l = 0; l < lanes; ++l) {
-    const float* r = red + (l * tpr + tid) * 2 * V;
+    for (int e = 0; e < V; ++e) s1[e] = s2[e] = 0.0f;
+    for (int l = 0; l < lanes; ++l) {
+      const float* r = red + (l * tpr + tid) * 2 * V;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        s1[e] += r[e];
+        s2[e] += r[V + e];
+      }
+    }
+    float* out = partial + ((size_t)b * bands + band) * 2 * C + (size_t)g * V;
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      s1[e] += r[e];
-      s2[e] += r[V + e];
+      out[e] = s1[e];
+      out[C + e] = s2[e];
     }
-  }
-  float* out = partial + ((size_t)b * bands + band) * 2 * C + (size_t)g * V;
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    out[e] = s1[e];
-    out[C + e] = s2[e];
   }
 }
 
@@ -144,80 +148,105 @@ moments_reduce_kernel(const float* __restrict__ partial,
   if (lane == 0 && col < cols) stats[(size_t)b * cols + col] = red[0][threadIdx.x];
 }
 
-// Row bands of one call (see the design note at the top). `itemsize` sizes
-// the 16-byte channel groups as the kernel cuts them when it vectorizes.
-int plan_bands(int B, int N, int C, int itemsize) {
-  const int V = 16 / itemsize;
+struct MomentsPlan {
+  int bands, gpb, slices;
+  long long partial_floats;
+};
+
+// The plan of one call (see the design note at the top); `vec`: the rows
+// are read as 16-byte groups of 16 / itemsize elements, else one element.
+MomentsPlan plan(int B, int N, int C, int itemsize, bool vec) {
+  MomentsPlan p{};
+  const int V = vec ? 16 / itemsize : 1;
   const int G = (C + V - 1) / V;
-  const int slices = (G + kMomentThreads - 1) / kMomentThreads;
-  const int tpr = G < kMomentThreads ? G : kMomentThreads;
-  const int lanes = kMomentThreads / tpr;
-  const long long per_band = (long long)B * slices;
+  p.gpb = G < kMomentThreads ? G : kMomentThreads;
+  p.slices = (G + p.gpb - 1) / p.gpb;
+  const int lanes = kMomentThreads / p.gpb;
+  const long long per_band = (long long)B * p.slices;
   long long bands = (8LL * kSMs + per_band - 1) / per_band;
   const long long most = N / (4LL * lanes);
   if (bands > most) bands = most;
-  return bands > 1 ? (int)bands : 1;
+  p.bands = bands > 1 ? (int)bands : 1;
+  p.partial_floats = (long long)B * p.bands * 2 * C;
+  return p;
 }
 
 template <typename T, int V>
 cudaError_t launch(const void* x, float* partial, float* stats, int B, int N,
-                   int C, int bands, cudaStream_t stream) {
-  const int G = C / V;
-  const int rows_per_band = (int)(((long long)N + bands - 1) / bands);
-  dim3 grid((unsigned)bands, (unsigned)B,
-            (unsigned)((G + kMomentThreads - 1) / kMomentThreads));
+                   int C, const MomentsPlan& p, cudaStream_t stream) {
+  const int rows_per_band = (int)(((long long)N + p.bands - 1) / p.bands);
+  const dim3 grid((unsigned)p.bands, (unsigned)B, (unsigned)p.slices);
   moments_band_kernel<T, V><<<grid, kMomentThreads, 0, stream>>>(
-      static_cast<const T*>(x), partial, N, C, rows_per_band);
+      static_cast<const T*>(x), partial, N, C, rows_per_band, p.gpb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 rgrid((unsigned)((2 * C + kReduceCols - 1) / kReduceCols),
              (unsigned)B);
   moments_reduce_kernel<<<rgrid, dim3(kReduceCols, kReduceLanes), 0,
-                          stream>>>(partial, stats, C, bands);
+                          stream>>>(partial, stats, C, p.bands);
   return cudaGetLastError();
+}
+
+template <typename T>
+bool vectorized(const void* x, int C) {
+  return C % (16 / sizeof(T)) == 0 && aligned16(x);
 }
 
 // 16-byte groups where every row starts 16-byte aligned, else one element.
 template <typename T>
 cudaError_t dispatch(const void* x, float* partial, float* stats, int B,
-                     int N, int C, int bands, cudaStream_t stream) {
+                     int N, int C, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  if (C % V == 0 && aligned16(x))
-    return launch<T, V>(x, partial, stats, B, N, C, bands, stream);
-  return launch<T, 1>(x, partial, stats, B, N, C, bands, stream);
+  const bool vec = vectorized<T>(x, C);
+  const MomentsPlan p = plan(B, N, C, sizeof(T), vec);
+  if (p.bands > 65535 || p.slices > 65535 || partial == nullptr)
+    return cudaErrorInvalidValue;
+  if (vec) return launch<T, V>(x, partial, stats, B, N, C, p, stream);
+  return launch<T, 1>(x, partial, stats, B, N, C, p, stream);
 }
 
 }  // namespace
 }  // namespace dtp
 
-// Row bands of a call over x (B, N, C) of `itemsize`-byte elements; the
-// caller passes them to dtp_spatial_moments with a workspace of
-// B * bands * 2 * C floats.
+// The plan of a call over x (B, N, C) of `itemsize`-byte elements read in
+// 16-byte groups when `vec` (C a multiple of 16 / itemsize, x 16-byte
+// aligned), into out[4]: {bands, channel groups a block, slices, partial
+// floats} (the tests hold ops/groupnorm.py moments_plan against it). -1 for
+// a shape no plan takes.
+extern "C" int dtp_moments_plan(int B, int N, int C, int itemsize, int vec,
+                                long long* out) {
+  if (B <= 0 || N <= 0 || C <= 0 || itemsize <= 0 || 16 % itemsize != 0)
+    return -1;
+  const dtp::MomentsPlan p = dtp::plan(B, N, C, itemsize, vec != 0);
+  const long long v[4] = {p.bands, p.gpb, p.slices, p.partial_floats};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The row bands of a call whose rows are read in 16-byte groups.
 extern "C" int dtp_moments_bands(int B, int N, int C, int itemsize) {
   if (B <= 0 || N <= 0 || C <= 0 || itemsize <= 0 || 16 % itemsize != 0)
     return 1;
-  return dtp::plan_bands(B, N, C, itemsize);
+  return dtp::plan(B, N, C, itemsize, C % (16 / itemsize) == 0).bands;
 }
 
-// K14: x (B, N, C) contiguous, dtype 0 fp32, 1 bf16, 2 fp16; partial
-// B * bands * 2 * C floats; stats (B, 2, C) fp32.
+// K14: x (B, N, C) contiguous, dtype 0 fp32, 1 bf16, 2 fp16; partial the
+// plan's partial floats; stats (B, 2, C) fp32.
 extern "C" cudaError_t dtp_spatial_moments(const void* x, void* partial,
                                            void* stats, int B, int N, int C,
-                                           int bands, int dtype,
-                                           void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || bands <= 0 || bands > 65535 ||
-      B > 65535 || partial == nullptr || stats == nullptr)
+                                           int dtype, void* stream) {
+  if (B <= 0 || N <= 0 || C <= 0 || B > 65535 || stats == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   float* st = static_cast<float*>(stats);
   switch (dtype) {
     case 0:
-      return dtp::dispatch<float>(x, p, st, B, N, C, bands, s);
+      return dtp::dispatch<float>(x, p, st, B, N, C, s);
     case 1:
-      return dtp::dispatch<__nv_bfloat16>(x, p, st, B, N, C, bands, s);
+      return dtp::dispatch<__nv_bfloat16>(x, p, st, B, N, C, s);
     case 2:
-      return dtp::dispatch<__half>(x, p, st, B, N, C, bands, s);
+      return dtp::dispatch<__half>(x, p, st, B, N, C, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -3,7 +3,8 @@
 Port of diffusiontexturepainting_tpu/models/vae.py: the module path and
 the fused serving path (fused_encode / fused_decode: every resnet conv and
 both output heads as chained GroupNorm-prologue / statistics-epilogue convs,
-kernel K5; the encoder's stride-2 downsamples with statistics, K9; the
+kernel K5, the decoder's 3-channel head through a zero-padded copy of its
+weight; the encoder's stride-2 downsamples with statistics, K9; the
 decoder's upsamples with statistics, K6; the other GroupNorm statistics,
 K14), chosen by
 `fused` on VAEEncoder / VAEDecoder over the same parameters. Names follow
@@ -21,6 +22,7 @@ from ..core.config import VAEConfig
 from ..ops.gn_conv import (
     downconv_stream,
     gn_conv_stream,
+    pad_cout,
     stats_of,
     upconv_stream,
 )
@@ -118,6 +120,23 @@ class _Decoder(nn.Module):
             self.up_blocks.append(_Level(resnets, up, "upsamplers"))
         self.conv_norm_out = GroupNorm32(g, rev[-1], eps=1e-6)
         self.conv_out = ConvNHWC(rev[-1], cfg.out_channels, 3, padding=1)
+        # the fused head's weight and bias zero-padded to a multiple of 8
+        # output channels (bf16 K5 reads the weight through TMA, whose rows
+        # are whole 16 bytes), made again after every load_state_dict
+        self.register_buffer("conv_out_w8", None, persistent=False)
+        self.register_buffer("conv_out_b8", None, persistent=False)
+        self._pad_head()
+        self.register_load_state_dict_post_hook(_Decoder._repad)
+
+    @torch.no_grad()
+    def _pad_head(self):
+        if self.conv_out.weight.shape[-1] % 8:
+            self.conv_out_w8, self.conv_out_b8 = pad_cout(
+                self.conv_out.weight.detach(), self.conv_out.bias.detach())
+
+    @staticmethod
+    def _repad(module, incompatible_keys):
+        module._pad_head()
 
     def forward(self, z):
         h = self.mid_block(self.conv_in(z))
@@ -248,12 +267,18 @@ def _fused_mid(mid, h, stats):
     return _fused_resnet(mid.resnets[1], h, stats_of(h))
 
 
-def _fused_norm_silu_conv(norm, conv, h, stats):
-    """conv_norm_out -> SiLU -> conv_out head, one fused conv."""
+def _fused_norm_silu_conv(norm, conv, h, stats, padded=(None, None)):
+    """conv_norm_out -> SiLU -> conv_out head, one fused conv; `padded`: the
+    head's weight and bias zero-padded past its Cout (the decoder's)."""
     a, c = gn_affine_from_stats(stats, norm.weight, norm.bias,
                                 norm.num_groups, h.shape[1] * h.shape[2],
                                 norm.eps)
-    out, _ = gn_conv_stream(h, a, c, conv.weight, conv.bias, None, False)
+    w8, b8 = padded
+    if w8 is None:
+        out, _ = gn_conv_stream(h, a, c, conv.weight, conv.bias, None, False)
+    else:
+        out, _ = gn_conv_stream(h, a, c, w8, b8, None, False,
+                                out_channels=conv.weight.shape[-1])
     return out
 
 
@@ -289,5 +314,6 @@ def fused_decode(vae: VAEDecoder, latents):
             up = level.upsamplers[0]
             h, stats = upconv_stream(h, up.conv.weight, up.conv.bias, up.taps,
                                      True)
-    h = _fused_norm_silu_conv(dec.conv_norm_out, dec.conv_out, h, stats)
+    h = _fused_norm_silu_conv(dec.conv_norm_out, dec.conv_out, h, stats,
+                              (dec.conv_out_w8, dec.conv_out_b8))
     return h.float()

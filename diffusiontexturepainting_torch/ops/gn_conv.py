@@ -11,15 +11,21 @@ with no pass of its own over the tensor:
     h1, s1 = gn_conv(x,  affine(s_x), conv1)          # GN1 + SiLU + conv1
     y,  sy = gn_conv(h1, affine(s1),  conv2, res=x')  # GN2 + SiLU + conv2
 
-Kernels (csrc/conv3x3.cu, the conv family's fused modes); a wrapper takes
-the plain version only for a tensor on the CPU, and for a CUDA tensor it
-launches the kernel or raises:
+Kernels (csrc/conv3x3.cu, the conv family's fused modes, and two sm_90a
+kernels); a wrapper takes the plain version only for a tensor on the CPU,
+and for a CUDA tensor it launches the kernel or raises:
 
   gn_conv_resident  kernel K1 (replaces conv3x3.py _gn_conv_resident_pallas /
                     _gn_res_kernel), the UNet's resnets
   gn_conv_stream    kernel K5 (replaces gn_conv_stream.py
                     _stream_fused_pallas / _kernel), the VAE's resnets and
-                    heads; the same CUDA mode as K1, counted apart
+                    heads; the same kernel as K1, counted apart. In bf16 a
+                    warp-specialised wgmma/TMA implicit GEMM with the
+                    prologue once per staged element and its statistics in
+                    the epilogue (csrc/gn_conv_sm90.cu; operands TMA cannot
+                    describe raise ValueError; a head whose Cout is off 8
+                    passes a zero-padded weight and `out_channels`), in fp32
+                    the conv family's fused mode (its FMA twin)
   upconv_stream     kernel K6 (replaces gn_conv_stream.py
                     _upconv_stream_pallas / _upconv_stream_kernel)
   downconv_stream   kernel K9 (replaces gn_conv_stream.py
@@ -39,6 +45,7 @@ kept). stats_of takes them of a tensor no conv produced, through kernel K14
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -54,13 +61,18 @@ downconv_stream_launches = _cuda.LaunchCounter("downsample_conv3x3_stats")
 
 _GN_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9
                 + (ctypes.c_void_p,))
+_GN_SM90_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
+                     + (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 3
+                     + (ctypes.c_void_p,))
 _UP_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
                 + (ctypes.c_void_p,))
 _DOWN_SM90_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
                        + (ctypes.c_void_p,))
 
-# bf16 K9 (csrc/conv_sm90.cu) and what its plan reads of the H100
+# bf16 K9 (csrc/conv_sm90.cu), bf16 K1/K5 (csrc/gn_conv_sm90.cu) and what
+# their plans read of the H100
 DOWN_SM90_SOURCE = "conv_sm90"
+GN_SM90_SOURCE = "gn_conv_sm90"
 SM_COUNT = 132
 SMEM_LIMIT = 232448
 
@@ -177,6 +189,100 @@ def downconv_tma_describable(x, w) -> bool:
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
+# --- the bf16 K1/K5's host plan (csrc/gn_conv_sm90.cu plan) ---
+
+GN_BN, GN_BK, GN_WIN_STAGES, GN_MAX_B_STAGES = 128, 64, 2, 8
+
+
+@functools.lru_cache(maxsize=None)
+def gn_conv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
+                      cs: int | None = None, want_stats: bool = True,
+                      consumers: int | None = None,
+                      splits: int | None = None) -> dict:
+    """The tile bf16 K1/K5 launches for x (B, H, W, cin) and a weight of
+    cout output channels, cs of them stored (cout when None): `consumers`
+    warpgroups of 64 output pixels, a tile of `nb` whole images of `rows`
+    x `tw` pixels (tw 4, 8 or 16 from W; rows a multiple of 16 / tw) where
+    they fit, else `rows` x `tw` of one image; by 128 channels. Two
+    consumers unless that grid would leave more than half of the SMs
+    idle; then K (ceil(cin/64) chunks of 64 channels x 9 taps) split into
+    runs of whole chunks over as many CTAs as fill the SMs once (or as
+    forced). Its dynamic shared memory: two staged input windows of
+    nb x (rows+2) x (tw+2) pixels x 64 channels and two buffers V of the
+    prologue's output (each rounded up to 1 KiB; the bf16 output staging
+    aliases them), `stages` B stages of 64 x 128 weights, the per-warp
+    statistics, the mbarriers and split flag, 1024 bytes of alignment.
+    `work_floats`: the one buffer beside the output: the (B, 2, cs)
+    statistics, the tile partials when an image spans tiles, the split
+    tiles and counters. Cached: the dict is shared, read it only."""
+    cs = cout if cs is None else cs
+
+    def of(nc):
+        pix = 64 * nc
+        tw = 4 if W <= 4 else 8 if W <= 8 else 16
+        if W <= tw and H * tw <= pix:
+            unit = 16 // tw
+            rows = -(-H // unit) * unit
+            nb = min(pix // (rows * tw), B)
+            tiles_h = tiles_w = 1
+            m_tiles = -(-B // nb)
+        else:
+            rows, nb = pix // tw, 1
+            tiles_h, tiles_w = -(-H // rows), -(-W // tw)
+            m_tiles = B * tiles_h * tiles_w
+        win_lines = nb * (rows + 2) * (tw + 2)
+        win_bytes = -(-win_lines * 128 // 1024) * 1024
+        region0 = max(4 * win_bytes, pix * GN_BN * 2)
+        fixed = (region0 + 4 * nc * 2 * GN_BN * 4
+                 + 8 * 2 * (GN_WIN_STAGES + GN_MAX_B_STAGES) + 16 + 1024)
+        b_bytes = GN_BK * GN_BN * 2
+        stages = min(GN_MAX_B_STAGES, (SMEM_LIMIT - fixed) // b_bytes)
+        return dict(consumers=nc, tw=tw, rows=rows, nb=nb,
+                    win_lines=win_lines, stages=stages,
+                    smem=fixed + stages * b_bytes,
+                    tiles_h=tiles_h, tiles_w=tiles_w,
+                    tpi=tiles_h * tiles_w, m_tiles=m_tiles,
+                    n_tiles=-(-cout // GN_BN), chunks=-(-cin // GN_BK),
+                    bn=GN_BN, bk=GN_BK)
+
+    p = of(2)
+    if not (consumers == 2 or (consumers is None and
+                               2 * p["m_tiles"] * p["n_tiles"] >= SM_COUNT)):
+        p = of(1)
+    ctas = p["m_tiles"] * p["n_tiles"]
+    s = splits if splits else (1 if ctas >= SM_COUNT else SM_COUNT // ctas)
+    s = min(s, p["chunks"])
+    per = -(-p["chunks"] // s)
+    p["per_split"], p["splits"] = per, -(-p["chunks"] // per)
+    p["work_floats"] = (
+        (2 * B * cs if want_stats else 0)
+        + (2 * B * p["tpi"] * cs if want_stats and p["tpi"] > 1 else 0)
+        + (ctas * p["splits"] * 64 * p["consumers"] * GN_BN + ctas
+           if p["splits"] > 1 else 0))
+    return p
+
+
+def gn_conv_tma_describable(x, w) -> bool:
+    """Whether TMA can read bf16 K1/K5's operands: Cin and the weight's
+    Cout multiples of 8 (rows of whole 16 bytes), 16-byte-aligned bases and
+    a tap stride of whole 16 bytes (a slice of a wider weight's input
+    channels included)."""
+    return (x.shape[-1] % 8 == 0 and w.shape[-1] % 8 == 0
+            and w.stride(1) % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def pad_cout(w, b):
+    """(w, b) with the output channels zero-padded to a multiple of 8: what
+    a head whose Cout TMA cannot describe (the VAE decoder's 3 channels)
+    hands bf16 K5, with out_channels = the real Cout."""
+    pad = -w.shape[-1] % 8
+    if not pad:
+        return w, b
+    w8 = F.pad(w, (0, pad))
+    return w8, (None if b is None else F.pad(b, (0, pad)))
+
+
 # --- kernels ---
 
 
@@ -225,69 +331,126 @@ def _workspaces(x, out, splits, want_stats, hw):
     return partial, ws, stats
 
 
-def gn_conv3x3(x, a, c, w, b, residual=None, want_stats=True,
-               apply_gn=True, counter=None):
-    """The fused conv (K1/K5's function): returns (out, stats or None).
+def _gn_conv3x3(x, a, c, w, b, residual=None, want_stats=True,
+                apply_gn=True, counter=None, out_channels=None,
+                consumers=None, splits=None):
+    """The fused conv (K1/K5's function) behind gn_conv_resident and
+    gn_conv_stream: returns (out, stats or None).
     x (B,H,W,Cin); a, c (B,Cin) fp32 folded GroupNorm affine (unused when
     apply_gn is False); w (3,3,Cin,Cout); b (Cout,) or None; residual
     (B,H,W,Cout) or None. w may be a slice w_full[:, :, lo:hi] of a wider
-    weight (the split concat conv); the kernel reads it in place. On CUDA
-    the launch is added to `counter`."""
+    weight (the split concat conv); the kernel reads it in place.
+    out_channels: w and b are zero-padded past the real Cout (pad_cout),
+    and the output, residual and statistics have out_channels channels.
+    On CUDA the launch is added to `counter`; bf16 runs
+    csrc/gn_conv_sm90.cu (`consumers` 1 or 2 and `splits` force its tile
+    and split of K: the tests and tools/sm90_plans.py call this entry
+    with them), fp32 csrc/conv3x3.cu."""
+    cs = w.shape[-1] if out_channels is None else out_channels
     if x.device.type == "cpu":
+        if out_channels is not None:
+            w, b = w[..., :cs], (None if b is None else b[:cs])
         return gn_conv3x3_plain(x, a, c, w, b, residual, want_stats,
                                 apply_gn)
+    _check("gn_conv3x3", x, w, (3, 3), b, residual, w_view=True)
+    B, H, W, cin = x.shape
+    cout = w.shape[-1]
+    key = _shape_key(x, w, b, residual, want_stats, apply_gn, out_channels)
+    if not 0 < cs <= cout or (b is not None and (b.shape != (cout,)
+                                                 or b.dtype != x.dtype)):
+        raise ValueError(f"gn_conv3x3: bias or out_channels {cs} do not fit "
+                         f"w {tuple(w.shape)} {x.dtype}")
+    if residual is not None and (residual.shape != (B, H, W, cs)
+                                 or residual.dtype != x.dtype):
+        raise ValueError(f"gn_conv3x3: residual {tuple(residual.shape)} "
+                         f"{residual.dtype} is not the output's "
+                         f"{(B, H, W, cs)} {x.dtype}")
+    if apply_gn:
+        for t in (a, c):
+            if t.shape != (B, cin) or t.device != x.device:
+                raise ValueError(f"gn_conv3x3: expected a, c {(B, cin)} on "
+                                 f"{x.device}, got {tuple(t.shape)}")
+    if x.dtype == torch.bfloat16:
+        if not gn_conv_tma_describable(x, w):
+            raise ValueError("gn_conv3x3: TMA needs Cin and Cout multiples "
+                             "of 8 and 16-byte-aligned bases, got x "
+                             f"{tuple(x.shape)}, w {tuple(w.shape)} strides "
+                             f"{w.stride()}")
+        if apply_gn:
+            a, c = (t if t.dtype == torch.float32 and t.stride(1) == 1
+                    else t.float().contiguous() for t in (a, c))
+        plan = gn_conv_sm90_plan(B, H, W, cin, cout, cs, want_stats,
+                                 consumers, splits)
+        out = torch.empty((B, H, W, cs), dtype=x.dtype, device=x.device)
+        # one allocation: the (B, 2, Cs) statistics first, then any tile
+        # partials, split tiles and counters
+        n = 2 * B * cs if want_stats else 0
+        stats = work = None
+        if plan["work_floats"] == n > 0:
+            stats = work = torch.empty((B, 2, cs), dtype=torch.float32,
+                                       device=x.device)
+        elif plan["work_floats"]:
+            work = torch.empty(plan["work_floats"], dtype=torch.float32,
+                               device=x.device)
+            stats = work[:n].view(B, 2, cs) if want_stats else None
+        symbol = "dtp_gn_conv3x3_sm90"
+        fn = _cuda.function(GN_SM90_SOURCE, symbol, _GN_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), _ptr(a) if apply_gn else None,
+                  _ptr(c) if apply_gn else None, w.data_ptr(), _ptr(b),
+                  _ptr(residual), out.data_ptr(), _ptr(work), B, H, W, cin,
+                  cout, cs, w.stride(1), a.stride(0) if apply_gn else 0,
+                  c.stride(0) if apply_gn else 0, int(want_stats),
+                  consumers or 0, splits or 0, _cuda.stream_of(x))
+        _cuda.check(GN_SM90_SOURCE, symbol, code)
+        if counter is not None:
+            counter.record(key)
+        return out, stats
     dt = x.dtype
+    if out_channels is not None:
+        w = w[..., :cs].contiguous()
+        b = None if b is None else b[:cs]
+        cout = cs
     if apply_gn:
         a = a.to(dt).contiguous()
         c = c.to(dt).contiguous()
     else:
         a = c = None
-    _check("gn_conv3x3", x, w, (3, 3), a, c, b, residual, w_view=True)
-    B, H, W, cin = x.shape
-    cout = w.shape[-1]
     out = torch.empty((B, H, W, cout), dtype=dt, device=x.device)
-    if residual is not None and residual.shape != out.shape:
-        raise ValueError(f"gn_conv3x3: residual {tuple(residual.shape)} is "
-                         f"not the output's {tuple(out.shape)}")
-    for t, shape in ((a, (B, cin)), (c, (B, cin)), (b, (cout,))):
-        if t is not None and (t.shape != shape or t.dtype != dt):
-            raise ValueError(f"gn_conv3x3: expected {shape} {dt}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    if residual is not None and residual.dtype != dt:
-        raise TypeError(f"gn_conv3x3: residual must be {dt}")
-    bf16 = int(dt == torch.bfloat16)
     splits = _cuda.function("conv3x3", "dtp_conv3x3_splits",
-                            _SPLIT_ARGTYPES)(B, H, W, cin, cout, bf16)
+                            _SPLIT_ARGTYPES)(B, H, W, cin, cout, 0)
     partial, ws, stats = _workspaces(x, out, splits, want_stats, H * W)
     fn = _cuda.function("conv3x3", "dtp_gn_conv3x3", _GN_ARGTYPES)
     code = fn(x.data_ptr(), _ptr(a), _ptr(c), w.data_ptr(), _ptr(b),
               _ptr(residual), out.data_ptr(), _ptr(partial), _ptr(ws),
               _ptr(stats), B, H, W, cin, cout, w.stride(1), splits,
-              int(want_stats), bf16,
-              _cuda.stream_of(x))
+              int(want_stats), 0, _cuda.stream_of(x))
     _cuda.check("conv3x3", "dtp_gn_conv3x3", code)
     if counter is not None:
-        counter.record(_shape_key(x, w, b, residual, want_stats, apply_gn))
+        counter.record(key)
     return out, stats
 
 
-def _shape_key(x, w, b, residual, want_stats, apply_gn):
-    return (tuple(x.shape), tuple(w.shape), b is not None,
-            residual is not None, bool(want_stats), bool(apply_gn))
+def _shape_key(x, w, b, residual, want_stats, apply_gn, out_channels=None):
+    """The function's shape: the weight as (3, 3, Cin, the real Cout)."""
+    w_shape = tuple(w.shape[:-1]) + (out_channels or w.shape[-1],)
+    return (tuple(x.shape), w_shape, b is not None, residual is not None,
+            bool(want_stats), bool(apply_gn))
 
 
 def gn_conv_resident(x, a, c, w, b, residual=None, want_stats=True,
-                     apply_gn=True):
+                     apply_gn=True, out_channels=None):
     """The UNet resnets' fused conv (kernel K1 on CUDA)."""
-    return gn_conv3x3(x, a, c, w, b, residual, want_stats, apply_gn,
-                      counter=gn_conv_resident_launches)
+    return _gn_conv3x3(x, a, c, w, b, residual, want_stats, apply_gn,
+                       gn_conv_resident_launches, out_channels)
 
 
 def gn_conv_stream(x, a, c, w, b, residual=None, want_stats=True,
-                   apply_gn=True):
-    """The VAE's fused conv (kernel K5 on CUDA; the same mode as K1)."""
-    return gn_conv3x3(x, a, c, w, b, residual, want_stats, apply_gn,
-                      counter=gn_conv_stream_launches)
+                   apply_gn=True, out_channels=None):
+    """The VAE's fused conv (kernel K5 on CUDA; the same kernel as K1).
+    out_channels: w and b are zero-padded past the real Cout (pad_cout),
+    as the VAE decoder's 3-channel head passes them."""
+    return _gn_conv3x3(x, a, c, w, b, residual, want_stats, apply_gn,
+                       gn_conv_stream_launches, out_channels)
 
 
 def upconv_stream(x, w, b, taps, want_stats=True):

@@ -9,12 +9,14 @@ gn_conv.stats_of for every GroupNorm whose input no conv epilogue produced
 (the UNet's resnet inputs and skips, the VAE's stem and mid blocks).
 
 Kernel (csrc/moments.cu): spatial_moments is kernel K14 (replaces
-groupnorm.py _stats_pallas / _stats_kernel), row bands reduced in a fixed
-order; the wrapper takes the plain version only for a tensor on the CPU,
-and for a CUDA tensor it launches the kernel or raises. The JAX package
-left its kernel unwired because it broke XLA's fusion of the GroupNorm
-apply with the reduce; here the apply already lives in the fused convs'
-prologue, so nothing is lost.
+groupnorm.py _stats_pallas / _stats_kernel): a band pass and a reduction
+pass that adds the row bands in a fixed order, planned by shape
+(moments_plan, the source's plan mirrored); one ctypes call and one
+allocation a call. The wrapper takes the plain version only for a tensor
+on the CPU, and for a CUDA tensor it launches the kernel or raises. The
+JAX package left its kernel unwired because it broke XLA's fusion of the
+GroupNorm apply with the reduce; here the apply already lives in the fused
+convs' prologue, so nothing is lost.
 """
 
 from __future__ import annotations
@@ -29,7 +31,28 @@ from .. import _cuda
 spatial_moments_launches = _cuda.LaunchCounter("spatial_moments")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+
+# csrc/moments.cu's plan constants (H100: 132 SMs)
+MOMENT_THREADS, SM_COUNT = 256, 132
+
+
+@functools.lru_cache(maxsize=None)
+def moments_plan(B: int, N: int, C: int, itemsize: int, vec: bool) -> dict:
+    """K14's plan for x (B, N, C) of `itemsize`-byte elements, its rows read
+    in 16-byte groups when `vec`: a band pass of up to 256 groups a block,
+    as many bands as give about eight blocks an SM but at least 4 rows a
+    row lane, then a reduction pass over `partial_floats` band partials.
+    Cached: the dict is shared, read it only."""
+    V = 16 // itemsize if vec else 1
+    G = -(-C // V)
+    gpb = min(G, MOMENT_THREADS)
+    slices = -(-G // gpb)
+    lanes = MOMENT_THREADS // gpb
+    bands = -(-8 * SM_COUNT // (B * slices))
+    bands = max(1, min(bands, N // (4 * lanes)))
+    return dict(bands=bands, gpb=gpb, slices=slices,
+                partial_floats=B * bands * 2 * C)
 
 
 def spatial_moments_plain(x):
@@ -62,14 +85,15 @@ def launch_moments(name, x):
         raise ValueError(f"{name}: a non-empty contiguous NHWC tensor, got "
                          f"{tuple(x.shape)} strides {x.stride()}")
     B, H, W, C = x.shape
-    bands = _cuda.function("moments", "dtp_moments_bands",
-                           (ctypes.c_int,) * 4)(B, H * W, C, x.element_size())
-    partial = torch.empty(B * bands * 2 * C, dtype=torch.float32,
-                          device=x.device)
-    stats = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
+    item = x.element_size()
+    vec = C % (16 // item) == 0 and x.data_ptr() % 16 == 0
+    extra = moments_plan(B, H * W, C, item, vec)["partial_floats"]
+    # one allocation: the (B, 2, C) statistics, then the band partials
+    buf = torch.empty(2 * B * C + extra, dtype=torch.float32, device=x.device)
+    stats, partial = buf[:2 * B * C].view(B, 2, C), buf[2 * B * C:]
     code = _cuda.function("moments", "dtp_spatial_moments", _ARGTYPES)(
         x.data_ptr(), partial.data_ptr(), stats.data_ptr(), B, H * W, C,
-        bands, _DTYPE_CODES[x.dtype], _cuda.stream_of(x))
+        _DTYPE_CODES[x.dtype], _cuda.stream_of(x))
     _cuda.check("moments", "dtp_spatial_moments", code)
     return stats
 

@@ -12,8 +12,10 @@ and prints, each beside the card's name and power limit:
     stamps): median, quartiles, min and max;
   - CUDA-event times of one UNet eval (the CFG batch of 3), one VAE encode
     (batch 2) and one VAE decode at the stamp's shapes;
-  - the host time to enqueue one UNet eval against its time to finish, and
-    the top-level PyTorch operations that eval issues;
+  - the host time to enqueue one UNet eval against its time to finish, the
+    top-level PyTorch operations that eval issues, and the Python functions
+    that took the most host time in it (cProfile, which slows every call:
+    compare trees, not absolute times);
   - one stamp under torch.profiler: its device kernel time, the device's
     busy share of that stamp's wall, and the kernels that took the most
     device time.
@@ -22,8 +24,11 @@ and prints, each beside the card's name and power limit:
 from __future__ import annotations
 
 import argparse
+import cProfile
+import pstats
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -120,6 +125,21 @@ def main(argv=None) -> None:
     top = [e for e in prof.events() if e.cpu_parent is None
            and e.name.startswith("aten::")]
     print(f"unet eval: {len(top)} top-level PyTorch operations issued")
+
+    host = cProfile.Profile()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        host.enable()
+        model.unet(sample, t, ctx)
+        host.disable()
+        torch.cuda.synchronize()
+    own = sorted(pstats.Stats(host).stats.items(), key=lambda kv: -kv[1][2])
+    print(f"unet eval under cProfile: {sum(v[2] for _, v in own) * 1e3:.2f} "
+          "ms of host time; the functions with the most of their own:")
+    for (file, line, name), (_, calls, tt, ct, _) in own[:args.top]:
+        where = f"{Path(file).name}:{line} " if line else ""
+        print(f"  {(where + name)[:70]:<70} {tt * 1e3:8.2f} ms own, "
+              f"{ct * 1e3:8.2f} ms with callees, x{calls}")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -15,12 +15,14 @@ import torch
 CALLS, TRIES = 20, 4
 
 
-def parse_args(doc: str, shape_sets, default: str, argv=None):
+def parse_args(doc: str, shape_sets, default: str, argv=None, extra=()):
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--shapes", default=default, choices=sorted(shape_sets))
     ap.add_argument("--json-out", default=None,
                     help="also write the JSON record to this file")
+    for flag, kw in extra:
+        ap.add_argument(flag, **kw)
     return ap.parse_args(argv)
 
 

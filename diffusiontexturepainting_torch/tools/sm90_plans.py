@@ -1,4 +1,4 @@
-"""A/B of the tile plans of the bf16 K2 and K9 kernels.
+"""A/B of the tile plans of the bf16 K2, K9 and K1/K5 kernels, and of K14's.
 
     python -m diffusiontexturepainting_torch.tools.sm90_plans
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
@@ -11,11 +11,18 @@ SM90_BUCKETS at least hd deep, SDPA beside; K9 (ops/gn_conv.py
 downconv_stream, csrc/conv_sm90.cu) at the default stamp's three calls at
 256^2 and at 1024^2 with one and two consumer warpgroups a tile,
 F.conv2d (channels-last, stride 2 on the input padded beforehand, no
-statistics) beside. Seeded normal inputs, bf16. Each row: ms a call (CUDA
+statistics) beside; K1/K5 (ops/gn_conv.py _gn_conv3x3, csrc/gn_conv_sm90.cu)
+at the served shapes of the default stamp at 256^2 and 1024^2 with one and
+two consumer warpgroups, each under its plan's split of K and without a
+split, F.conv2d (channels-last, SAME: the conv alone, no prologue, residual
+or statistics) beside; K14 (ops/groupnorm.py spatial_moments,
+csrc/moments.cu) at the shapes it is called at, torch.var_mean over H and W
+beside. Seeded normal inputs, bf16. Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph: the
 device's time alone), the CTAs of its grid, whether it is the plan's
-choice, max|diff| against the plain version (K9: also of its statistics). The yardsticks are timed only; the port never calls them.
+choice, max|diff| against the plain version (K9, K1/K5: also of their
+statistics). The yardsticks are timed only; the port never calls them.
 On the CPU (--device cpu) the plain versions run and nothing is timed.
 Without a card and without --device cpu it exits nonzero. Prints one line
 per row, then one JSON line.
@@ -26,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops import attention, gn_conv
+from ..ops import attention, gn_conv, groupnorm
 from . import _common
 
 # attention (B, L, D, heads, tag); downconv (B, H, W, Cin, Cout, tag)
@@ -42,11 +49,30 @@ SHAPE_SETS = {
                      (2, 64, 64, 512, 512, "256^2 level 2"),
                      (2, 1024, 1024, 128, 128, "1024^2 level 0"),
                      (2, 512, 512, 256, 256, "1024^2 level 1"),
-                     (2, 256, 256, 512, 512, "1024^2 level 2")]},
+                     (2, 256, 256, 512, 512, "1024^2 level 2")],
+        # (B, H, W, Cin, Cout, tag): K1 (UNet, batch 3), K5 (VAE)
+        "gn_conv": [(3, 32, 32, 320, 320, "256^2 UNet level 0"),
+                    (3, 16, 16, 640, 640, "256^2 UNet level 1"),
+                    (3, 8, 8, 1280, 1280, "256^2 UNet level 2"),
+                    (3, 4, 4, 1280, 1280, "256^2 UNet level 3"),
+                    (2, 256, 256, 128, 128, "256^2 VAE encoder level 0"),
+                    (1, 256, 256, 128, 128, "256^2 VAE decoder level 0"),
+                    (3, 128, 128, 320, 320, "1024^2 UNet level 0"),
+                    (3, 32, 32, 1280, 1280, "1024^2 UNet level 2"),
+                    (2, 1024, 1024, 128, 128, "1024^2 VAE encoder level 0")],
+        # (B, H, W, C, tag)
+        "moments": [(3, 4, 4, 1280, "256^2 UNet level 3"),
+                    (3, 32, 32, 640, "256^2 UNet up level 0"),
+                    (2, 32, 32, 512, "256^2 VAE mid block"),
+                    (2, 256, 256, 128, "256^2 VAE stem"),
+                    (3, 128, 128, 640, "1024^2 UNet up level 0"),
+                    (2, 1024, 1024, 128, "1024^2 VAE stem")]},
     "tiny": {
         "attention": [(1, 100, 80, 2, "tiny hd 40"),
                       (1, 70, 512, 1, "tiny hd 512")],
-        "downconv": [(1, 10, 12, 16, 24, "tiny")]},
+        "downconv": [(1, 10, 12, 16, 24, "tiny")],
+        "gn_conv": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
+        "moments": [(2, 5, 7, 40, "tiny")]},
 }
 
 
@@ -122,21 +148,101 @@ def _downconv_rows(shapes, gen, device, timed):
     return rows
 
 
+def _gn_conv_rows(shapes, gen, device, timed):
+    rows = []
+    for B, H, W, cin, cout, tag in shapes:
+        x = torch.randn((B, H, W, cin), generator=gen, device=device)
+        w = torch.randn((3, 3, cin, cout), generator=gen,
+                        device=device) * (9 * cin) ** -0.5
+        b = torch.randn(cout, generator=gen, device=device) * 0.1
+        r = torch.randn((B, H, W, cout), generator=gen, device=device)
+        a = torch.rand((B, cin), generator=gen, device=device) + 0.5
+        c = torch.randn((B, cin), generator=gen, device=device) * 0.2
+        x, w, b, r = x.bfloat16(), w.bfloat16(), b.bfloat16(), r.bfloat16()
+        want, want_st = gn_conv.gn_conv3x3_plain(x, a, c, w, b, r)
+        chosen = gn_conv.gn_conv_sm90_plan(B, H, W, cin, cout)
+        arms = [(chosen["consumers"], None)]
+        if timed:
+            arms = []
+            for nc in (1, 2):
+                p = gn_conv.gn_conv_sm90_plan(B, H, W, cin, cout,
+                                              consumers=nc)
+                arms += [(nc, None)] + ([(nc, 1)] if p["splits"] > 1 else [])
+        for nc, splits in arms:
+            p = gn_conv.gn_conv_sm90_plan(B, H, W, cin, cout, consumers=nc,
+                                          splits=splits)
+            call = (lambda nc=nc, splits=splits: gn_conv._gn_conv3x3(
+                x, a, c, w, b, r, consumers=nc, splits=splits))
+            got, st = call()
+            row = {"kernel": "K1/K5", "tag": tag,
+                   "shape": [B, H, W, cin, cout], "consumers": nc,
+                   "splits": p["splits"],
+                   "plan": (nc == chosen["consumers"]
+                            and p["splits"] == chosen["splits"]),
+                   "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
+                   "max_diff": _common.max_diff(got, want),
+                   "stats_max_diff": _common.max_diff(st, want_st),
+                   "ms": None, "device_ms": None}
+            if timed:
+                row.update(_times(call))
+            rows.append(row)
+        if timed:
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            rows.append({"kernel": "F.conv2d", "tag": tag,
+                         "shape": [B, H, W, cin, cout],
+                         **_times(lambda: F.conv2d(xc, wc, b, padding=1))})
+    return rows
+
+
+def _moments_rows(shapes, gen, device, timed):
+    rows = []
+    for B, H, W, C, tag in shapes:
+        x = (torch.randn((B, H, W, C), generator=gen, device=device)
+             + 0.5).bfloat16()
+        p = groupnorm.moments_plan(B, H * W, C, 2, C % 8 == 0)
+        got = groupnorm.spatial_moments(x)
+        row = {"kernel": "K14", "tag": tag, "shape": [B, H, W, C],
+               "bands": p["bands"],
+               "ctas": p["bands"] * B * p["slices"], "plan": True,
+               "max_diff": _common.max_diff(
+                   got, groupnorm.spatial_moments_plain(x)),
+               "ms": None, "device_ms": None}
+        if timed:
+            row.update(_times(lambda: groupnorm.spatial_moments(x)))
+        rows.append(row)
+        if timed:
+            rows.append({"kernel": "var_mean", "tag": tag,
+                         "shape": [B, H, W, C],
+                         **_times(lambda: torch.var_mean(
+                             x, dim=(1, 2), correction=0))})
+    return rows
+
+
 def main(argv=None) -> int:
-    args = _common.parse_args(__doc__, SHAPE_SETS, "stamp", argv)
+    args = _common.parse_args(
+        __doc__, SHAPE_SETS, "stamp", argv,
+        extra=[("--rows", dict(default="attention,downconv,gn_conv,moments",
+                               help="row groups to run, comma-separated"))])
     ok, card = _common.open_device(args, "sm90_plans")
     if not ok:
         return 1
     gen = torch.Generator(device=args.device).manual_seed(0)
     timed = args.device == "cuda"
     sets = SHAPE_SETS[args.shapes]
+    groups = {"attention": _attention_rows, "downconv": _downconv_rows,
+              "gn_conv": _gn_conv_rows, "moments": _moments_rows}
+    rows = []
     with torch.inference_mode():
-        rows = (_attention_rows(sets["attention"], gen, args.device, timed)
-                + _downconv_rows(sets["downconv"], gen, args.device, timed))
+        for name in args.rows.split(","):
+            rows += groups[name](sets[name], gen, args.device, timed)
     for r in rows:
         print(f"{r['kernel']:8s} {r['tag']:28s} "
               + (f"bucket {r['bucket']} " if "bucket" in r else "")
               + (f"consumers {r['consumers']} " if "consumers" in r else "")
+              + (f"splits {r['splits']} " if "splits" in r else "")
+              + (f"bands {r['bands']} " if "bands" in r else "")
               + (f"ctas {r['ctas']} " if "ctas" in r else "")
               + ("(plan) " if r.get("plan") else "")
               + f"{_common.fmt(r['ms'], '.4f')} ms, device "

@@ -178,8 +178,8 @@ def test_wrappers_have_no_fallback():
 
 def test_plans_entry_point_runs_on_cpu(capsys):
     """tools/sm90_plans.py on the CPU: the plain versions, the plan's
-    bucket and tile a shape, nothing timed; without --device cpu and
-    without a card it refuses."""
+    bucket and tile a shape (K2, K9, K1/K5, K14), nothing timed; without
+    --device cpu and without a card it refuses."""
     import json
 
     from diffusiontexturepainting_torch.tools import sm90_plans
@@ -188,7 +188,7 @@ def test_plans_entry_point_runs_on_cpu(capsys):
     record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert record["device"] == "cpu"
     kernels = [r["kernel"] for r in record["rows"]]
-    assert kernels == ["K2", "K2", "K9"]
+    assert kernels == ["K2", "K2", "K9", "K1/K5", "K1/K5", "K14"]
     assert all(r["plan"] and r["ms"] is None and r["max_diff"] == 0.0
                for r in record["rows"])
     if not torch.cuda.is_available():
