@@ -176,14 +176,16 @@ MAX_MEAN_DIFF = 8.0
 
 SOURCES = {
     "conv3x3": "csrc/conv3x3.cu",
-    "upsample2x_conv3x3": "csrc/conv3x3.cu",
+    # bf16 (the paths' and the timed type); fp32 runs conv3x3.cu
+    "upsample2x_conv3x3": "csrc/gn_conv_sm90.cu",
     # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
     "flash_attention": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs conv3x3.cu
     "gn_conv_resident": "csrc/gn_conv_sm90.cu",
     "gn_conv_stream": "csrc/gn_conv_sm90.cu",
     "upconv_stream": "csrc/conv3x3.cu",
-    "ff_geglu": "csrc/ff_geglu.cu",
+    # bf16; fp32 runs ff_geglu.cu
+    "ff_geglu": "csrc/ff_geglu_sm90.cu",
     # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
     "flash_attention_streaming": "csrc/flash_attention_sm90.cu",
     "flash_attention_slotted": "csrc/flash_attention_sm90.cu",
@@ -262,6 +264,13 @@ REPLACES = {
 # What the library yardstick of a kernel computes, where it is not the
 # kernel's whole function.
 LIBRARY_IS = {
+    **{name: "F.conv_transpose2d(x, W4, stride 2, padding 1), channels-last, "
+             "W4 (Cin, Cout, 4, 4) assembled from the 16 folded taps "
+             "(conv3x3.transposed_upsample_weight)"
+       for name in ("upsample2x_conv3x3", "upsample2x_conv3x3_inpad")},
+    "upconv_stream": "F.conv_transpose2d(x, W4, stride 2, padding 1), "
+                     "channels-last, W4 assembled from the folded taps; no "
+                     "statistics",
     "downsample_conv3x3_stats":
         "F.conv2d, channels-last, stride 2 on the input padded beforehand; "
         "no statistics",
@@ -330,6 +339,13 @@ FAMILY_IS = {
     PIPE: "K5 (gn_conv_stream, statistics and residual off; its border "
           "input is 0, T12's silu(c))",
 }
+# The PyTorch composition timed beside a kernel that no one PyTorch call
+# computes: not a library call, reported apart from library_ms.
+COMPOSITION_IS = {
+    "ff_geglu": "composition, not one call: F.linear(x, w0, b0) and "
+                "F.linear(h, w2, b2) in bf16, the GEGLU elementwise between "
+                "them (F.gelu in bf16) and the residual add",
+}
 # Kernels whose library and family calls exist for some of their shape
 # keys only (TAPS: the `shifted` read): their sums run over those keys.
 PARTIAL_YARDSTICKS = (TAPS,)
@@ -351,12 +367,16 @@ ARM_LAUNCHES = 20
 # Kernels whose device time (the calls replayed from a CUDA graph, the
 # host's launch cost left out) is also taken at their timed shapes, with
 # their library call's: the kernels this round of work redesigned last
-DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments")
+DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
+                "ff_geglu", "upsample2x_conv3x3")
 # the sources whose ptxas report must show no spill
-NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90")
+NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
+            "ff_geglu_sm90")
 # Kernels also timed at a second path's shapes: K2, K9, K1, K5 and K14 at
 # the 1024^2 envelope's
 ALSO_REPORTED_ON = {"flash_attention": "envelope",
+                    "ff_geglu": "envelope",
+                    "upsample2x_conv3x3": "envelope",
                     "downsample_conv3x3_stats": "envelope",
                     "gn_conv_resident": "envelope",
                     "gn_conv_stream": "envelope",
@@ -419,13 +439,14 @@ def stats_self_err(y, stats):
 
 def kernel_case(kind, shape_key, dtype, gen):
     """Seeded inputs at `shape_key`; returns zero-argument callables
-    (kernel, plain, library, family) over the same inputs, library being
-    the one PyTorch call that computes the same function, or None, and
-    family the conv family's other kernel for the same function
-    (FAMILY_IS), or None. The fused convs return (out, statistics or
-    None)."""
+    (kernel, plain, library, family, composition) over the same inputs,
+    library being the one PyTorch call that computes the same function, or
+    None, family the conv family's other kernel for the same function
+    (FAMILY_IS), or None, and composition the PyTorch ops computing it
+    where no one call does (COMPOSITION_IS), or None. The fused convs
+    return (out, statistics or None)."""
     case = _kernel_case(kind, shape_key, dtype, gen)
-    return case + (None,) * (4 - len(case))
+    return case + (None,) * (5 - len(case))
 
 
 def _kernel_case(kind, shape_key, dtype, gen):
@@ -568,9 +589,15 @@ def _kernel_case(kind, shape_key, dtype, gen):
         x, res = rnd(n, c), rnd(n, c)
         w0, b0 = rnd(2 * inner, c, std=c**-0.5), rnd(2 * inner, std=0.1)
         w2, b2 = rnd(c, inner, std=inner**-0.5), rnd(c, std=0.1)
+        inner_ = w2.shape[1]
+
+        def composition():
+            h = F.linear(x, w0, b0)
+            return F.linear(h[:, :inner_] * F.gelu(h[:, inner_:]), w2,
+                            b2) + res
         return (lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b2, res),
                 lambda: ff_geglu.ff_geglu_plain(x, w0, b0, w2, b2, res),
-                None)
+                None, None, composition)
     if kind == "spatial_moments":
         # (x, moments): compare holds the moments as statistics of x
         x = per_image(rnd(*shape_key[0], mean=0.5), 0.25)
@@ -617,19 +644,28 @@ def _kernel_case(kind, shape_key, dtype, gen):
                 lambda: F.conv2d(xc, wc, b, padding=1),
                 None if kind == "conv3x3"
                 else lambda: conv3x3.conv3x3(x, w, b))
-    # the modules fold the upsample weights once at load: outside the call
+    # the modules fold the upsample weights once at load: outside the call,
+    # as is the yardstick's 4x4 weight
     taps = conv3x3.fold_upsample_weights(w)
+    xc = x.permute(0, 3, 1, 2)
+    w4 = conv3x3.transposed_upsample_weight(taps).contiguous(
+        memory_format=torch.channels_last)
+
+    def transposed():
+        return F.conv_transpose2d(xc, w4, b, stride=2, padding=1)
     if kind == "upsample2x_conv3x3":
         return (lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps),
-                lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b), None)
+                lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b),
+                transposed)
     if kind == "upsample2x_conv3x3_inpad":
         return (lambda: conv3x3.upsample2x_conv3x3_inpad(x, w, b, taps),
-                lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b), None,
+                lambda: conv3x3.upsample2x_conv3x3_plain(x, w, b), transposed,
                 lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps))
     if kind == "upconv_stream":
         stats = shape_key[2]
         return (lambda: gn_conv.upconv_stream(x, w, b, taps, stats),
-                lambda: gn_conv.upconv_stream_plain(x, w, b, stats), None)
+                lambda: gn_conv.upconv_stream_plain(x, w, b, stats),
+                transposed)
     has_bias, has_res, stats, apply_gn = shape_key[2:]
     B, cin, cout = x_shape[0], x_shape[3], w_shape[3]
     x = per_image(x, 0.5)
@@ -782,8 +818,8 @@ def compare(kind, shape_key, dtype, gen, timed=False):
     kernels, family_ms (FAMILY_IS) when `timed`."""
     import torch
 
-    kernel, plain, library, family = kernel_case(kind, shape_key, dtype,
-                                                 gen)
+    kernel, plain, library, family, composition = kernel_case(
+        kind, shape_key, dtype, gen)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got_st = want_st = None
@@ -845,11 +881,17 @@ def compare(kind, shape_key, dtype, gen, timed=False):
         out["library_ms"] = None if library is None else cuda_ms(library)
         if family is not None:
             out["family_ms"] = cuda_ms(family)
+        if composition is not None:
+            out["composition_ms"] = cuda_ms(composition)
         if kind in DEVICE_TIMED:
             from diffusiontexturepainting_torch.tools._common import graph_ms
 
             out["kernel_device_ms"] = graph_ms(kernel, calls=10, tries=3)
-            out["library_device_ms"] = graph_ms(library, calls=10, tries=3)
+            for field, fn in (("library", library),
+                              ("composition", composition)):
+                if fn is not None:
+                    out[f"{field}_device_ms"] = graph_ms(fn, calls=10,
+                                                         tries=3)
     return out
 
 
@@ -1748,10 +1790,17 @@ def tma_refusal_probe(gen):
     hd 36 (a 72-byte head stride), K13 on views of a projection whose rows
     are 8 bytes off 16, K9 and K1/K5 at Cin 20 and at Cout 12 (rows of 40
     and 24 bytes) and on an input 2 bytes off 16, K5 at Cout 3 without the
-    padded weight."""
+    padded weight; K3 (csrc/ff_geglu_sm90.cu) at C 36, at inner 36 and on
+    an input 2 bytes off 16; K4 (csrc/gn_conv_sm90.cu's upsample mode) at
+    Cin 20, at Cout 12 and on an input 2 bytes off 16."""
     import torch
 
-    from diffusiontexturepainting_torch.ops import attention, gn_conv
+    from diffusiontexturepainting_torch.ops import (
+        attention,
+        conv3x3,
+        ff_geglu,
+        gn_conv,
+    )
 
     x = torch.randn((1, 256, 4 * 36), generator=gen,
                     device="cuda").bfloat16()
@@ -1771,6 +1820,21 @@ def tma_refusal_probe(gen):
     a20 = torch.rand((1, 20), generator=gen, device="cuda") + 0.5
     c20 = torch.randn((1, 20), generator=gen, device="cuda")
     a16, c16 = a20[:, :16].contiguous(), c20[:, :16].contiguous()
+
+    def ff(n, c, inner, offset=0):
+        t = torch.randn(offset + n * c, generator=gen, device="cuda")
+        x = t.bfloat16()[offset:].view(n, c)
+        w0, w2 = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                  for shape in ((2 * inner, c), (c, inner)))
+        b0 = torch.zeros(2 * inner, device="cuda").bfloat16()
+        return lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b0[:c].contiguous(),
+                                         x.contiguous())
+
+    def up(x, cout):
+        w = torch.randn((3, 3, x.shape[-1], cout), generator=gen,
+                        device="cuda").bfloat16()
+        taps = conv3x3.fold_upsample_weights(w)
+        return lambda: conv3x3.upsample2x_conv3x3(x, w, None, taps)
     calls = {"flash_attention (1, 256, 144), 4 heads":
              lambda: attention.flash_attention(x, x, x, 4),
              "flash_attention_streaming (1, 256, 144), 4 heads":
@@ -1791,12 +1855,19 @@ def tma_refusal_probe(gen):
              lambda: gn_conv.gn_conv_stream(xd, a16, c16, w3, None, None,
                                             False),
              "gn_conv_resident x 2 bytes off 16":
-             lambda: gn_conv.gn_conv_resident(off, a16, c16, w16, None)}
+             lambda: gn_conv.gn_conv_resident(off, a16, c16, w16, None),
+             "ff_geglu C 36": ff(64, 36, 128),
+             "ff_geglu inner 36": ff(64, 64, 36),
+             "ff_geglu x 2 bytes off 16": ff(64, 64, 128, offset=1),
+             "upsample2x_conv3x3 Cin 20": up(xc, 16),
+             "upsample2x_conv3x3 Cout 12": up(xd, 12),
+             "upsample2x_conv3x3 x 2 bytes off 16": up(off, 16)}
     counters = (attention.flash_launches, attention.flash_streaming_launches,
                 attention.flash_slotted_launches,
                 gn_conv.downconv_stream_launches,
                 gn_conv.gn_conv_resident_launches,
-                gn_conv.gn_conv_stream_launches)
+                gn_conv.gn_conv_stream_launches, ff_geglu.ff_geglu_launches,
+                conv3x3.upsample_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -1811,13 +1882,38 @@ def tma_refusal_probe(gen):
 
 def replay_probe(gen):
     """bf16 K9 at the default stamp's three shapes, K1/K5 at a split-K, a
-    whole-image and a tiled shape, and K14 on K1/K5's inputs, each twice
-    on the same inputs: outputs and statistics bit-identical (fixed
-    reduction orders, no float atomics); K1/K5's and K14's statistics
-    also those of their own outputs (STATS_SELF_TOL)."""
+    whole-image and a tiled shape, K14 on K1/K5's inputs, and K3 and K4 at
+    the default stamp's shapes whose K splits, each twice on the same
+    inputs: outputs and statistics bit-identical (fixed reduction orders,
+    no float atomics); K1/K5's and K14's statistics also those of their
+    own outputs (STATS_SELF_TOL)."""
     import torch
 
-    from diffusiontexturepainting_torch.ops import gn_conv
+    from diffusiontexturepainting_torch.ops import ff_geglu, gn_conv
+
+    for n, c, inner in ((768, 640, 2560), (192, 1280, 5120),
+                        (48, 1280, 5120)):
+        key = (n, c, inner)
+        kernel = kernel_case("ff_geglu", key, torch.bfloat16, gen)[0]
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"probe: ff_geglu {key} differs on replay")
+        splits = ff_geglu.ff_sm90_plan(*key)["down"]["splits"]
+        log(f"probe: ff_geglu {key} bf16 ({splits} splits): bit-identical "
+            "on replay")
+    for B, H, C in ((3, 4, 1280), (3, 8, 1280), (3, 16, 640)):
+        key = ((B, H, H, C), (3, 3, C, C))
+        kernel = kernel_case("upsample2x_conv3x3", key, torch.bfloat16,
+                             gen)[0]
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"probe: upsample2x_conv3x3 {key} differs "
+                                 "on replay")
+        splits = gn_conv.upconv_sm90_plan(B, H, H, C, C)["splits"]
+        log(f"probe: upsample2x_conv3x3 {key} bf16 ({splits} splits): "
+            "bit-identical on replay")
 
     for h, c in ((128, 128), (64, 256), (32, 512)):
         x = torch.randn((2, 2 * h, 2 * h, c), generator=gen,
@@ -1983,13 +2079,17 @@ def kernels_phase(gen, paths):
                         totals["library"] += count * r["library_ms"]
                     if "family_ms" in r:
                         totals["family"] += count * r["family_ms"]
-                    for field in ("kernel_device", "library_device"):
+                    for field in ("composition", "kernel_device",
+                                  "library_device", "composition_device"):
                         if f"{field}_ms" in r:
                             totals[field] += count * r[f"{field}_ms"]
                             also_totals[field] += also_count * r[
                                 f"{field}_ms"]
                     lib = ("none" if r["library_ms"] is None
                            else f"{r['library_ms']:.4f} ms")
+                    if "composition_ms" in r:
+                        lib += (f", composition "
+                                f"{r['composition_ms']:.4f} ms")
                     msg += (f"; {r['kernel_ms']:.4f} ms kernel, "
                             f"{r['plain_ms']:.4f} ms plain, library {lib}, "
                             f"bound {b_s * 1e3:.4f} ms ({by}), "
@@ -2000,6 +2100,7 @@ def kernels_phase(gen, paths):
                 log(msg)
                 torch.cuda.empty_cache()
         n = run["stamps"]
+        na = paths[also]["stamps"] if also else 1
         if name in FAMILY_IS:
             log(f"kernels: {name}: {totals['kernel'] / n:.4f} ms beside "
                 f"{FAMILY_IS[name]} {totals['family'] / n:.4f} ms at the same "
@@ -2030,32 +2131,41 @@ def kernels_phase(gen, paths):
             **({"stats_self_err": self_worst}
                if name in STATS_SELF_KINDS else {}),
             **({"device_ms": totals["kernel_device"] / n,
-                "library_device_ms": totals["library_device"] / n}
+                "library_device_ms": (None if lib_missing
+                                      else totals["library_device"] / n)}
                if name in DEVICE_TIMED else {}),
+            **({"composition_ms": totals["composition"] / n,
+                "composition_device_ms": totals["composition_device"] / n,
+                "composition_is": COMPOSITION_IS[name]}
+               if name in COMPOSITION_IS else {}),
             **({"ms_by_option": {k: v / n for k, v in by_option.items()}}
                if by_option else {}),
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
                else {}),
             **({also: {"launches": paths[also]["launches"][name],
-                       **{f"{f}_ms": also_totals[f] / paths[also]["stamps"]
+                       **{f"{f}_ms": (None if lib_missing and "library" in f
+                                      else also_totals[f] / na)
                           for f in ("kernel", "plain", "library", "bound")
                           + (("kernel_device", "library_device")
-                             if name in DEVICE_TIMED else ())}}}
+                             if name in DEVICE_TIMED else ())
+                          + (("composition", "composition_device")
+                             if name in COMPOSITION_IS else ())}}}
                if also else {})})
+        # the yardstick beside a kernel in the log: the library call, or
+        # the composition where no one call computes the function
+        yard = "composition" if name in COMPOSITION_IS else "library"
         if name in DEVICE_TIMED:
-            na = paths[also]["stamps"] if also else 1
             log(f"kernels: {name} device time (CUDA-graph replays): "
-                f"{totals['kernel_device'] / n:.4f} ms a stamp, library "
-                f"{totals['library_device'] / n:.4f} ({path} path)"
-                + (f"; {also_totals['kernel_device'] / na:.4f}, library "
-                   f"{also_totals['library_device'] / na:.4f} ({also} path)"
+                f"{totals['kernel_device'] / n:.4f} ms a stamp, {yard} "
+                f"{totals[yard + '_device'] / n:.4f} ({path} path)"
+                + (f"; {also_totals['kernel_device'] / na:.4f}, {yard} "
+                   f"{also_totals[yard + '_device'] / na:.4f} ({also} path)"
                    if also else ""))
         if also:
-            na = paths[also]["stamps"]
             log(f"kernels: {name} at the {also} path's shapes: "
                 f"{also_totals['kernel'] / na:.4f} ms a stamp, plain "
-                f"{also_totals['plain'] / na:.4f}, library "
-                f"{also_totals['library'] / na:.4f}, bound "
+                f"{also_totals['plain'] / na:.4f}, {yard} "
+                f"{also_totals[yard] / na:.4f}, bound "
                 f"{also_totals['bound'] / na:.4f}")
     return record
 
@@ -2100,7 +2210,15 @@ def main() -> int:
     probes = [
         ("conv3x3", ((3, 32, 32, 320), (3, 3, 320, 320))),
         ("conv3x3", ((1, 64, 64, 512), (3, 3, 512, 256))),
-        ("upsample2x_conv3x3", ((3, 8, 8, 1280), (3, 3, 1280, 1280))),
+        # K4 (bf16: csrc/gn_conv_sm90.cu's upsample mode) at its served
+        # shapes at 256^2, 512^2 and 1024^2, then ragged: Cin 64 -> Cout
+        # 72 on 5 x 7, odd H and W at batch 1, a 1x1 image
+        *[("upsample2x_conv3x3", ((3, h, h, c), (3, 3, c, c)))
+          for h, c in ((4, 1280), (8, 1280), (16, 640), (16, 1280),
+                       (32, 640), (32, 1280), (64, 640))],
+        ("upsample2x_conv3x3", ((1, 5, 7, 64), (3, 3, 64, 72))),
+        ("upsample2x_conv3x3", ((1, 9, 19, 40), (3, 3, 40, 136))),
+        ("upsample2x_conv3x3", ((2, 1, 1, 16), (3, 3, 16, 8))),
         # K2 at its launched shapes: UNet level 0 and the VAE mid-blocks of
         # 256^2 (hd 40, 512), levels 1 and 2 of 1024^2 (hd 80, 160); ragged
         # lengths at hd 160 and 512
@@ -2134,8 +2252,16 @@ def main() -> int:
         ("gn_conv_stream", ((1, 64, 64, 128), (3, 3, 128, 3),
                             True, False, False, True)),
         ("upconv_stream", ((1, 6, 5, 48), (3, 3, 48, 40), True)),
+        # K3 (bf16: csrc/ff_geglu_sm90.cu) at its served shapes (one UNet
+        # eval at 256^2, 512^2, 1024^2), then ragged: N 1, 37, 100, C 96,
+        # inner 384
+        *[("ff_geglu", (n, c, 4 * c))
+          for n, c in ((3072, 320), (768, 640), (192, 1280), (48, 1280),
+                       (12288, 320), (3072, 640), (49152, 320),
+                       (12288, 640), (3072, 1280), (768, 1280))],
         ("ff_geglu", (100, 96, 384)),
-        ("ff_geglu", (48, 1280, 5120)),
+        ("ff_geglu", (37, 64, 256)),
+        ("ff_geglu", (1, 96, 384)),
         # the 1024^2 envelope's 16384-token attentions (UNet level 0, VAE
         # mid block), and a ragged length
         ("flash_attention_streaming",

@@ -6,7 +6,11 @@
 // Replaces (TPU, diffusiontexturepainting_tpu/ops/):
 //   dtp_conv3x3              <- conv3x3.py _conv3x3_pallas / _conv_kernel (K7)
 //   dtp_upsample2x_conv3x3   <- conv3x3.py _upconv_pallas /
-//                               _upconv_kernel_padded (K4)
+//                               _upconv_kernel_padded (K4), in fp32 only:
+//                               bf16 K4 is gn_conv_sm90.cu's upsample mode
+//                               (dtype dispatch in ops/conv3x3.py
+//                               upsample2x_conv3x3), and this entry returns
+//                               cudaErrorInvalidValue for it
 //   dtp_gn_conv3x3           <- conv3x3.py _gn_conv_resident_pallas /
 //                               _gn_res_kernel (K1) and gn_conv_stream.py
 //                               _stream_fused_pallas / _kernel (K5): one
@@ -594,14 +598,16 @@ extern "C" cudaError_t dtp_conv3x3(const void* x, const void* w,
                                    Cout, splits, is_bf16, stream);
 }
 
-// x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,),
-// out (B,2H,2W,Cout), all of one type.
+// K4 in fp32: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,),
+// out (B,2H,2W,Cout), all fp32; is_bf16 must be 0 (bf16 K4 is
+// gn_conv_sm90.cu's).
 extern "C" cudaError_t dtp_upsample2x_conv3x3(const void* x, const void* w16,
                                               const void* bias, void* out,
                                               void* partial, int B, int H,
                                               int W, int Cin, int Cout,
                                               int splits, int is_bf16,
                                               void* stream) {
+  if (is_bf16) return cudaErrorInvalidValue;
   return dtp::dispatch<dtp::kUp>(x, w16, bias, out, partial, B, H, W, Cin,
                                  Cout, splits, is_bf16, stream);
 }

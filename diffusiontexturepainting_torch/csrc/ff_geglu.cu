@@ -4,9 +4,12 @@
 // over (N, C) tokens with inner = 4C.
 //
 // Replaces (TPU): diffusiontexturepainting_tpu/ops/ff_geglu.py
-//   _ff_geglu_pallas / _ff_kernel (K3). The Pallas kernel's default GELU is
-//   the tanh form (a TPU speed trade); this kernel computes the erf GELU of
-//   the module GEGLU and of the JAX package's _reference.
+//   _ff_geglu_pallas / _ff_kernel (K3), in fp32 only: bf16 K3 is
+//   ff_geglu_sm90.cu's two wgmma/TMA GEMMs (dispatch by dtype in
+//   ops/ff_geglu.py ff_geglu), and dtp_ff_geglu returns
+//   cudaErrorInvalidValue for it. The Pallas kernel's default GELU is the
+//   tanh form (a TPU speed trade); this kernel computes the erf GELU of the
+//   module GEGLU and of the JAX package's _reference.
 //
 // Weights are read in PyTorch's nn.Linear layout, (out, in), as the modules
 // hold them: w0 (2*inner, C) with the value rows first, then the gate rows;
@@ -30,8 +33,8 @@
 // UNet's 256^2 shapes (N = 48..3072 tokens) there are few token tiles, so
 // splitting inner across blocks is what fills the 132 SMs, and the fp32
 // partials (splits * N * C * 4 bytes, about 40 MB a call) are the extra
-// traffic that buys it. bf16 WMMA (mma.sync) with an fp32 FMA twin; no
-// pipelining. TMA + wgmma and a persistent schedule are later work.
+// traffic that buys it. The fp32 FMA path of the conv family's GEMM tile;
+// no pipelining.
 #include "gemm_tile.cuh"
 
 namespace dtp {
@@ -232,25 +235,24 @@ cudaError_t launch(const void* x, const void* w0, const void* b0,
 
 // Inner columns per block of a call; the caller passes an fp32 workspace of
 // ceil(inner / ic) * N * C floats.
+// (is_bf16 is kept for the binding and ignored: fp32 only.)
 extern "C" int dtp_ff_geglu_chunk(int N, int inner, int is_bf16) {
   if (N <= 0 || inner <= 0) return 128;
-  return is_bf16 ? dtp::plan_ic<__nv_bfloat16>(N, inner)
-                 : dtp::plan_ic<float>(N, inner);
+  return dtp::plan_ic<float>(N, inner);
 }
 
 // x (N,C), w0 (2*inner,C), b0 (2*inner,), w2 (C,inner), b2 (C,),
-// residual (N,C), out (N,C), all of one type: bf16 when is_bf16, else fp32.
+// residual (N,C), out (N,C), all fp32; is_bf16 must be 0 (bf16 K3 is
+// ff_geglu_sm90.cu's).
 extern "C" cudaError_t dtp_ff_geglu(const void* x, const void* w0,
                                     const void* b0, const void* w2,
                                     const void* b2, const void* residual,
                                     void* out, void* ws, int N, int C,
                                     int inner, int ic, int is_bf16,
                                     void* stream) {
-  if (N <= 0 || C <= 0 || inner <= 0) return cudaErrorInvalidValue;
+  if (is_bf16 || N <= 0 || C <= 0 || inner <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dtp::launch<__nv_bfloat16>(x, w0, b0, w2, b2, residual, out, ws,
-                                      N, C, inner, ic, s);
   return dtp::launch<float>(x, w0, b0, w2, b2, residual, out, ws, N, C,
                             inner, ic, s);
 }

@@ -67,6 +67,34 @@
 //     and stores 3). Where a tile holds whole images, its sums are the
 //     images' statistics; otherwise each tile writes a partial and a
 //     second kernel adds each image's tiles in tile order.
+//
+//   dtp_upsample2x_conv3x3_sm90  K4 <- ops/conv3x3.py _upconv_pallas /
+//       _upconv_kernel_padded: conv3x3(nearest_x2(x)) + bias, one rounding,
+//       as four parity planes (ry, rx) of 2x2 folded taps over the source:
+//         out[b,2y+ry,2x+rx,n] = round(bias[n] + sum_{ai,bi,c}
+//             x[b,y+ry+ai-1,x+rx+bi-1,c] taps[((ry*2+rx)*2+ai)*2+bi,c,n])
+//       with the module's taps (ops/conv3x3.py fold_upsample_weights); no
+//       prologue (v = x), residual or statistics. fp32 stays on
+//       conv3x3.cu's twin (dispatch by dtype in ops/conv3x3.py
+//       upsample2x_conv3x3).
+//   Design, on the K1/K5 body: a CTA takes 64 source pixels (the same
+//   tiles as one consumer warpgroup of K1/K5) by 128 output channels and
+//   all four planes: four warpgroups, one a plane, so the window is staged
+//   once per chunk for the four (and read straight from the TMA stage:
+//   without a prologue TMA's zeros are the conv's). A plane's tap (ai, bi)
+//   is the window shifted by (ry+ai, rx+bi) in {0,1,2}^2, the shifted
+//   ldmatrix reads into wgmma's register A of K1/K5. Four planes' fp32
+//   accumulators are half the register file, so the block has no producer
+//   warps (512 threads keep 128 registers a thread; with producer warps
+//   ptxas allowed 96 and it spilled): each warpgroup's lane 0 issues its
+//   own plane's weight stages (p, p + 4, ...) as its taps free them, thread
+//   0 the windows. Small grids split K in whole chunks as K1/K5 do. The
+//   epilogue stages the four planes' rounded tiles over the ring and stores
+//   16-byte rows, (2x, 2x+1) of a row next to each other. What bounds it:
+//   the operations at the 1024^2 UNet's levels; at the 256^2 UNet's 4x4
+//   and 8x8 levels the folded weights (16/9 of the 3x3 weights' bytes),
+//   which every SM has to help stream.
+//
 // Against conv3x3.cu's bf16 K1/K5: the prologue once per staged element
 // instead of once per tap and output tile, a pipelined K loop on wgmma
 // instead of load, sync, mma.sync, sync, and no fp32 round trip of the
@@ -85,6 +113,8 @@ constexpr int kMaxBStages = 8;
 constexpr int kBBytes = kAtom * kBN * 2;  // one tap's weights of a chunk
 constexpr int kSMs = 132;                 // H100 SXM
 constexpr int kSmemLimit = 232448;
+constexpr int kUpWG = 4;          // K4: a warpgroup a parity plane
+constexpr int kUpMaxStages = 12;  // K4's B stages, a multiple of kUpWG
 
 struct GnPlan {
   int nc, tw, rows, nb;   // a tile: nb images x rows x tw columns
@@ -492,6 +522,226 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
   }
 }
 
+// K4: warpgroup p computes parity plane (ry, rx) = (p / 2, p % 2) of the
+// same 64 source pixels; no producer warps (the header says why).
+template <int TW>
+__global__ void __launch_bounds__(128 * kUpWG, 1)
+upconv_sm90(const __grid_constant__ CUtensorMap tx,
+            const __grid_constant__ CUtensorMap tw, const GnArgs a) {
+  constexpr int kWinW = TW + 2;
+  constexpr int kCT = 128 * kUpWG;   // threads
+  constexpr int kRows = 64 * kUpWG;  // a tile's output rows: 64 a plane
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const int bar_off = a.region0 + a.stages * kBBytes;
+  auto win = [&](int s) { return base + s * a.win_bytes; };
+  const uint32_t bring = base + a.region0;
+  auto win_full = [&](int s) { return base + bar_off + 8 * s; };
+  auto win_empty = [&](int s) {
+    return base + bar_off + 8 * (kWinStages + s);
+  };
+  auto b_full = [&](int s) {
+    return base + bar_off + 8 * (2 * kWinStages + s);
+  };
+  int* const flag = reinterpret_cast<int*>(
+      gbase + bar_off + 8 * (2 * kWinStages + kUpMaxStages));
+
+  const int n0 = blockIdx.x * kBN;
+  const int mt = blockIdx.y, split = blockIdx.z;
+  int b0, i0 = 0, j0 = 0;
+  if (a.tpi == 1) {
+    b0 = mt * a.nb;  // whole images
+  } else {
+    b0 = mt / a.tpi;
+    const int timg = mt % a.tpi;
+    i0 = (timg / a.tiles_w) * a.rows;
+    j0 = (timg % a.tiles_w) * TW;
+  }
+  const int c_begin = split * a.per_split;
+  const int nch = min(a.per_split, a.chunks - c_begin);
+
+  const int ct = threadIdx.x;
+  const int wg = ct / 128;  // the parity plane
+  const int ry = wg >> 1, rx = wg & 1;
+  const int warp = (ct % 128) / 32, lane = ct % 32;
+  const int g = lane / 4, tq4 = lane % 4;
+  const bool issuer = warp == 0 && lane == 0;
+  // the plane's stages wg, wg + 4, ...: spw of them, tap i in the
+  // (i % spw)-th
+  const int spw = a.stages / kUpWG;
+  const int ntap = 4 * nch;
+
+  if (ct == 0) {
+    for (int s = 0; s < kWinStages; ++s) {
+      mbar_init(win_full(s), 1);
+      mbar_init(win_empty(s), kUpWG * 4);  // lane 0 of each warp
+    }
+    for (int s = 0; s < a.stages; ++s) mbar_init(b_full(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this plane's tap i: chunk i / 4, (ai, bi) = (t / 2, t % 2) for
+  // t = i % 4, taps[p * 4 + t]
+  auto issue_taps = [&](int i) {
+    const int s = wg + kUpWG * (i % spw);
+    const uint32_t dst = bring + s * kBBytes;
+    const int c0 = (c_begin + i / 4) * kAtom, tap = wg * 4 + i % 4;
+    mbar_expect_tx(b_full(s), kBBytes);
+    tma_load(dst, &tw, b_full(s), n0, c0, tap, 0);
+    tma_load(dst + kAtom * 128, &tw, b_full(s), n0 + kAtom, c0, tap, 0);
+  };
+  auto issue_window = [&](int k) {
+    const int s = k % kWinStages;
+    mbar_expect_tx(win_full(s), a.win_lines * 128);
+    tma_load(win(s), &tx, win_full(s), (c_begin + k) * kAtom, j0 - 1, i0 - 1,
+             b0);
+  };
+  if (ct == 0)
+    for (int k = 0; k < kWinStages && k < nch; ++k) issue_window(k);
+  if (issuer)
+    for (int i = 0; i < spw && i < ntap; ++i) issue_taps(i);
+
+  const int img_pix = a.rows * TW;
+  const int img_lines = (a.rows + 2) * kWinW;
+  // this lane's ldmatrix row: source pixel m, its window line at shift
+  // (ry, rx); the plane's taps (ai, bi) add (ai, bi) to it
+  int line0 = 0;
+  {
+    const int m = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int slot = m / img_pix, rem = m % img_pix;
+    if (slot < a.nb)
+      line0 = slot * img_lines + (rem / TW + ry) * kWinW + rem % TW + rx;
+  }
+  const int hi = lane >> 4;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  uint32_t afr[4][4];
+  int j = 0, ph = 0;  // the stage (wg + 4 j) and its phase of the next tap
+#pragma unroll 1
+  for (int k = 0; k < nch; ++k) {
+    const int ws = k % kWinStages;
+    // chunk k + 1's window, once every warp is done with chunk k - 1's
+    if (ct == 0 && k >= 1 && k + 1 < nch) {
+      mbar_wait(win_empty((k + 1) % kWinStages),
+                ((k - 1) / kWinStages) & 1);
+      issue_window(k + 1);
+    }
+    mbar_wait(win_full(ws), (k / kWinStages) & 1);
+#pragma unroll 1
+    for (int t = 0; t < 4; ++t) {
+      const int i = 4 * k + t;
+      const int bs = wg + kUpWG * j;
+      mbar_wait(b_full(bs), ph);
+      // the previous tap's products are done: its registers, and its
+      // stage takes the tap spw - 1 ahead once every warp is past it
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(afr);
+      if (i > 0 && i + spw - 1 < ntap) {
+        bar_sync(2 + wg, 128);
+        if (issuer) issue_taps(i + spw - 1);
+      }
+      const int L = line0 + (t >> 1) * kWinW + (t & 1);
+      const uint32_t row = win(ws) + L * 128;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4(afr[kk], row + (((2 * kk + hi) ^ (L & 7)) << 4));
+      wg_fence();
+      const uint32_t bt = bring + bs * kBBytes;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma128::rs_t(acc, afr[kk],
+                       desc128(bt + kk * 16 * 128, kAtom * 128));
+      wg_commit();
+      if (++j == spw) j = 0, ph ^= 1;
+    }
+    // the chunk's window has been read into registers
+    __syncwarp();
+    if (lane == 0) mbar_arrive(win_empty(ws));
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  fence_regs(afr);
+
+  // ---- split K: the last split of the tile adds all in split order ----
+  const long long tile_mn =
+      static_cast<long long>(mt) * gridDim.x + blockIdx.x;
+  if (a.splits > 1) {
+    float2* mine = reinterpret_cast<float2*>(
+        a.ws + (tile_mn * a.splits + split) * kRows * kBN);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      __stcg(mine + i * kCT + ct, make_float2(acc[2 * i], acc[2 * i + 1]));
+    __threadfence();
+    bar_sync(1, kCT);
+    if (ct == 0) *flag = atomicAdd(a.counters + tile_mn, 1);
+    bar_sync(1, kCT);
+    if (*flag != a.splits - 1) return;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+#pragma unroll 1
+    for (int s = 0; s < a.splits; ++s) {
+      const float2* part = reinterpret_cast<const float2*>(
+          a.ws + (tile_mn * a.splits + s) * kRows * kBN);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float2 v = __ldcg(part + i * kCT + ct);
+        acc[2 * i] += v.x;
+        acc[2 * i + 1] += v.y;
+      }
+    }
+  }
+
+  // ---- epilogue: + bias, one rounding; the four planes' bf16 tiles
+  // staged over the windows and the ring (rows of 128 channels, 16-byte
+  // chunks XOR-swizzled by row), then stored as 16-byte rows ----
+  uint8_t* const stage = gbase;
+  bar_sync(1, kCT);  // every warp's last ldmatrix and products are done
+  const int r0 = 16 * warp + g;
+  uint8_t* const st = stage + wg * 64 * kBN * 2;
+#pragma unroll
+  for (int i = 0; i < kBN / 8; ++i) {
+    const int n = 8 * i + 2 * tq4;
+    float bv0 = 0.0f, bv1 = 0.0f;
+    if (a.bias != nullptr) {
+      if (n0 + n < a.Cs) bv0 = __bfloat162float(a.bias[n0 + n]);
+      if (n0 + n + 1 < a.Cs) bv1 = __bfloat162float(a.bias[n0 + n + 1]);
+    }
+    *reinterpret_cast<uint32_t*>(st + r0 * kBN * 2 + ((i ^ g) * 16) +
+                                 4 * tq4) =
+        pack_bf16(acc[4 * i] + bv0, acc[4 * i + 1] + bv1);
+    *reinterpret_cast<uint32_t*>(st + (r0 + 8) * kBN * 2 + ((i ^ g) * 16) +
+                                 4 * tq4) =
+        pack_bf16(acc[4 * i + 2] + bv0, acc[4 * i + 3] + bv1);
+  }
+  bar_sync(1, kCT);
+  const int H2 = 2 * a.H, W2 = 2 * a.W;
+#pragma unroll 1
+  for (int v = ct; v < kRows * (kBN / 8); v += kCT) {
+    // channel chunk fastest, then rx, then the source pixel, then ry
+    const int c = v % (kBN / 8), prx = (v / (kBN / 8)) % 2;
+    const int p = (v / (2 * (kBN / 8))) % 64, pry = v / (128 * (kBN / 8));
+    const int n = n0 + 8 * c;
+    const int slot = p / img_pix, rem = p % img_pix;
+    const int b = b0 + slot, y = i0 + rem / TW, x = j0 + rem % TW;
+    if (slot >= a.nb || b >= a.B || y >= a.H || x >= a.W || n >= a.Cs)
+      continue;
+    const long long off =
+        ((static_cast<long long>(b) * H2 + 2 * y + pry) * W2 + 2 * x + prx) *
+            a.Cs + n;
+    *reinterpret_cast<uint4*>(a.out + off) =
+        *reinterpret_cast<const uint4*>(stage +
+                                        ((pry * 2 + prx) * 64 + p) * kBN * 2 +
+                                        ((c ^ (p & 7)) * 16));
+  }
+}
+
 GnPlan plan_of(int nc, int B, int H, int W, int Cin, int Cout) {
   GnPlan p{};
   const int pix = 64 * nc;
@@ -547,6 +797,27 @@ GnPlan plan(int B, int H, int W, int Cin, int Cout, int nc, int splits) {
   return p;
 }
 
+// K4's plan: K1/K5's one-warpgroup tile of 64 source pixels, two window
+// stages (no V buffers: no prologue), B stages a multiple of the four
+// planes; K split as plan() splits it. `splits` > 0 forces the split
+// (mirrored by ops/gn_conv.py upconv_sm90_plan).
+GnPlan up_plan(int B, int H, int W, int Cin, int Cout, int splits) {
+  GnPlan p = plan_of(1, B, H, W, Cin, Cout);
+  p.nc = kUpWG;  // the split tiles hold the four planes' 64 rows each
+  p.region0 = kWinStages * p.win_bytes;
+  const int fixed =
+      p.region0 + 8 * (2 * kWinStages + kUpMaxStages) + 16 + 1024;
+  p.stages = (kSmemLimit - fixed) / kBBytes / kUpWG * kUpWG;
+  if (p.stages > kUpMaxStages) p.stages = kUpMaxStages;
+  p.smem = fixed + p.stages * kBBytes;
+  const long long blocks = static_cast<long long>(p.m_tiles) * p.n_tiles;
+  long long s = splits > 0 ? splits : blocks >= kSMs ? 1 : kSMs / blocks;
+  if (s > p.chunks) s = p.chunks;
+  p.per_split = static_cast<int>((p.chunks + s - 1) / s);
+  p.splits = (p.chunks + p.per_split - 1) / p.per_split;
+  return p;
+}
+
 // The work buffer's floats: the statistics, the tile partials, the split
 // tiles, the split counters.
 struct WorkLayout {
@@ -588,6 +859,37 @@ cudaError_t launch_tw(const CUtensorMap& tx, const CUtensorMap& tw,
     default:
       return launch<16, NC>(tx, tw, a, p, stream);
   }
+}
+
+template <int TW>
+cudaError_t launch_up(const CUtensorMap& tx, const CUtensorMap& tw,
+                      const GnArgs& a, const GnPlan& p,
+                      cudaStream_t stream) {
+  auto kern = upconv_sm90<TW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(p.n_tiles, p.m_tiles, p.splits), 128 * kUpWG, p.smem,
+         stream>>>(tx, tw, a);
+  return cudaGetLastError();
+}
+
+// x viewed as (C, W, H, B) in boxes of one tile's window: 64 channels by
+// (tw + 2) x (rows + 2) pixels of nb images.
+bool window_map(CUtensorMap* map, const void* x, int B, int H, int W,
+                int Cin, const GnPlan& p) {
+  const cuuint64_t xd[4] = {static_cast<cuuint64_t>(Cin),
+                            static_cast<cuuint64_t>(W),
+                            static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint64_t xs[3] = {static_cast<cuuint64_t>(Cin) * 2,
+                            static_cast<cuuint64_t>(W) * Cin * 2,
+                            static_cast<cuuint64_t>(H) * W * Cin * 2};
+  const cuuint32_t xbox[4] = {kAtom, static_cast<cuuint32_t>(p.tw + 2),
+                              static_cast<cuuint32_t>(p.rows + 2),
+                              static_cast<cuuint32_t>(p.nb)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return tensor_map_4d(map, x, xd, xs, xbox, unit);
 }
 
 bool bad_shape(int B, int H, int W, int Cin, int Cout, int Cs) {
@@ -649,16 +951,6 @@ extern "C" cudaError_t dtp_gn_conv3x3_sm90(
     return cudaErrorInvalidValue;
   const WorkLayout wl = work_layout(p, B, Cs, want_stats != 0);
   if (wl.total > 0 && work == nullptr) return cudaErrorInvalidValue;
-  const cuuint64_t xd[4] = {static_cast<cuuint64_t>(Cin),
-                            static_cast<cuuint64_t>(W),
-                            static_cast<cuuint64_t>(H),
-                            static_cast<cuuint64_t>(B)};
-  const cuuint64_t xs[3] = {static_cast<cuuint64_t>(Cin) * 2,
-                            static_cast<cuuint64_t>(W) * Cin * 2,
-                            static_cast<cuuint64_t>(H) * W * Cin * 2};
-  const cuuint32_t xbox[4] = {kAtom, static_cast<cuuint32_t>(p.tw + 2),
-                              static_cast<cuuint32_t>(p.rows + 2),
-                              static_cast<cuuint32_t>(p.nb)};
   const cuuint64_t wd[4] = {static_cast<cuuint64_t>(Cout),
                             static_cast<cuuint64_t>(Cin), 9, 1};
   const cuuint64_t wsd[3] = {static_cast<cuuint64_t>(Cout) * 2,
@@ -667,7 +959,7 @@ extern "C" cudaError_t dtp_gn_conv3x3_sm90(
   const cuuint32_t wbox[4] = {kAtom, kAtom, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUtensorMap tx, tw;
-  if (!tensor_map_4d(&tx, x, xd, xs, xbox, unit) ||
+  if (!window_map(&tx, x, B, H, W, Cin, p) ||
       !tensor_map_4d(&tw, w, wd, wsd, wbox, unit))
     return cudaErrorInvalidValue;
   float* const wf = static_cast<float*>(work);
@@ -702,4 +994,81 @@ extern "C" cudaError_t dtp_gn_conv3x3_sm90(
                   : launch_tw<1>(tx, tw, args, p, s);
   if (err != cudaSuccess || args.partial == nullptr) return err;
   return launch_tile_stats_reduce(args.partial, args.stats, B, p.tpi, Cs, s);
+}
+
+// K4's plan into out[15]: {tile columns, tile rows, images a tile, window
+// lines, B stages, dynamic shared memory bytes, tiles down and across an
+// image, tiles an image, M tiles, N tiles, channel chunks, splits, chunks
+// a split, work buffer floats} (ops/gn_conv.py upconv_sm90_plan mirrors
+// it); `splits` as for the entry.
+extern "C" int dtp_upsample2x_conv3x3_sm90_plan(int B, int H, int W,
+                                                int Cin, int Cout,
+                                                int splits, long long* out) {
+  if (dtp::bad_shape(B, H, W, Cin, Cout, Cout) || splits < 0) return -1;
+  const dtp::GnPlan p = dtp::up_plan(B, H, W, Cin, Cout, splits);
+  const long long v[15] = {
+      p.tw,      p.rows,    p.nb,      p.win_lines, p.stages,
+      p.smem,    p.tiles_h, p.tiles_w, p.tpi,       p.m_tiles,
+      p.n_tiles, p.chunks,  p.splits,  p.per_split,
+      dtp::work_layout(p, B, Cout, false).total};
+  for (int i = 0; i < 15; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K4 in bf16: x (B,H,W,Cin); taps (16,Cin,Cout), the folded 2x2 taps of
+// the four planes; bias (Cout,) or null; out (B,2H,2W,Cout). Cin and Cout
+// multiples of 8, x, taps and out 16-byte aligned. `work`: the plan's work
+// floats, or null when it does not split; `splits` 0 for the plan's split
+// of K, > 0 to force one (probes).
+extern "C" cudaError_t dtp_upsample2x_conv3x3_sm90(
+    const void* x, const void* taps, const void* bias, void* out, void* work,
+    int B, int H, int W, int Cin, int Cout, int splits, void* stream) {
+  using namespace dtp;
+  if (bad_shape(B, H, W, Cin, Cout, Cout) || splits < 0 || !aligned16(x) ||
+      !aligned16(taps) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  const GnPlan p = up_plan(B, H, W, Cin, Cout, splits);
+  if (p.m_tiles > 65535 || p.n_tiles > 65535 || p.splits > 65535)
+    return cudaErrorInvalidValue;
+  const WorkLayout wl = work_layout(p, B, Cout, false);
+  if (wl.total > 0 && work == nullptr) return cudaErrorInvalidValue;
+  const cuuint64_t wd[4] = {static_cast<cuuint64_t>(Cout),
+                            static_cast<cuuint64_t>(Cin), 16, 1};
+  const cuuint64_t tap = static_cast<cuuint64_t>(Cin) * Cout * 2;
+  const cuuint64_t wsd[3] = {static_cast<cuuint64_t>(Cout) * 2, tap,
+                             tap * 16};
+  const cuuint32_t wbox[4] = {kAtom, kAtom, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUtensorMap tx, tw;
+  if (!window_map(&tx, x, B, H, W, Cin, p) ||
+      !tensor_map_4d(&tw, taps, wd, wsd, wbox, unit))
+    return cudaErrorInvalidValue;
+  float* const wf = static_cast<float*>(work);
+  GnArgs args{};
+  args.bias = static_cast<const bf16*>(bias);
+  args.out = static_cast<bf16*>(out);
+  args.ws = p.splits > 1 ? wf + wl.ws : nullptr;
+  args.counters =
+      p.splits > 1 ? reinterpret_cast<int*>(wf + wl.counters) : nullptr;
+  args.B = B, args.H = H, args.W = W, args.Cin = Cin, args.Cs = Cout;
+  args.rows = p.rows, args.nb = p.nb, args.tiles_w = p.tiles_w;
+  args.tpi = p.tpi, args.win_lines = p.win_lines;
+  args.win_bytes = p.win_bytes, args.region0 = p.region0;
+  args.stages = p.stages, args.per_split = p.per_split;
+  args.chunks = p.chunks, args.splits = p.splits;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.splits > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        args.counters, 0,
+        sizeof(int) * static_cast<size_t>(p.m_tiles) * p.n_tiles, s);
+    if (err != cudaSuccess) return err;
+  }
+  switch (p.tw) {
+    case 4:
+      return launch_up<4>(tx, tw, args, p, s);
+    case 8:
+      return launch_up<8>(tx, tw, args, p, s);
+    default:
+      return launch_up<16>(tx, tw, args, p, s);
+  }
 }

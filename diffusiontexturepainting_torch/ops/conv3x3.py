@@ -8,8 +8,12 @@ launches the kernel or raises.
 
   conv3x3             kernel K7 (csrc/conv3x3.cu; replaces _conv3x3_pallas
                       / _conv_kernel); with _IN_PAD, conv3x3_inpad
-  upsample2x_conv3x3  kernel K4 (csrc/conv3x3.cu; replaces _upconv_pallas /
-                      _upconv_kernel_padded); with _IN_PAD,
+  upsample2x_conv3x3  kernel K4 (replaces _upconv_pallas /
+                      _upconv_kernel_padded): in bf16 the four parity
+                      planes over one TMA-staged window on wgmma
+                      (csrc/gn_conv_sm90.cu's upsample mode; operands TMA
+                      cannot describe raise ValueError), in fp32
+                      csrc/conv3x3.cu; with _IN_PAD,
                       upsample2x_conv3x3_inpad
   conv3x3_inpad       kernel K12a (csrc/conv_staged.cu, the staged-tile SAME
                       mode; replaces _conv_kernel_inpad)
@@ -68,6 +72,8 @@ _STAGED_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
                     + (ctypes.c_void_p,))
 _GN_STAGED_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_float,)
                        + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
+_UP_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
+                     + (ctypes.c_void_p,))
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -102,6 +108,26 @@ def upsample2x_conv3x3_plain(x, w, b):
     """Nearest x2 upsample, then conv3x3_plain: (B,H,W,Cin) -> (B,2H,2W,Cout)."""
     up = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     return conv3x3_plain(up, w, b)
+
+
+# (parity, fold index) of each index k of the 4x4 transposed-conv kernel,
+# per axis: k = 0 (1, 1), 1 (0, 1), 2 (1, 0), 3 (0, 0)
+_TRANSPOSED_TAP = ((1, 1), (0, 1), (1, 0), (0, 0))
+
+
+def transposed_upsample_weight(taps):
+    """(16,Cin,Cout) folded taps -> the (Cin,Cout,4,4) weight W4 with
+    F.conv_transpose2d(x, W4, stride=2, padding=1) == conv3x3(nearest_x2(x))
+    (NCHW): output row 2y+ry reads source rows y-1, y (ry 0) or y, y+1
+    (ry 1), the transposed conv's kernel index k = 2(y - i) + ry + 1. The
+    one PyTorch call computing K4's (and, without statistics, K6's and
+    K12b's) function: a yardstick, which the port never calls."""
+    cin, cout = taps.shape[1:]
+    w4 = taps.new_empty((cin, cout, 4, 4))
+    for kh, (ry, ai) in enumerate(_TRANSPOSED_TAP):
+        for kw, (rx, bi) in enumerate(_TRANSPOSED_TAP):
+            w4[:, :, kh, kw] = taps[((ry * 2 + rx) * 2 + ai) * 2 + bi]
+    return w4
 
 
 def gn_silu_conv3x3_plain(x, scale, bias, w, b, temb=None, residual=None,
@@ -242,12 +268,36 @@ def upsample2x_conv3x3(x, w, b, taps):
         return upsample2x_conv3x3_plain(x, w, b)
     if _IN_PAD:
         return upsample2x_conv3x3_inpad(x, w, b, taps)
+    return _upsample2x_conv3x3(x, b, taps)
+
+
+def _upsample2x_conv3x3(x, b, taps, splits=None):
+    """K4 on CUDA (upsample2x_conv3x3 with _IN_PAD off); in bf16 `splits`
+    forces the sm90 kernel's split of K (the tests and tools/sm90_plans.py
+    call this entry with it)."""
     _check("upsample2x_conv3x3", x, taps, b, (16,))
     B, H, W, cin = x.shape
     cout = taps.shape[-1]
     out = torch.empty((B, 2 * H, 2 * W, cout), dtype=x.dtype,
                       device=x.device)
-    _launch("dtp_upsample2x_conv3x3", x, taps, b, out)
+    if x.dtype == torch.bfloat16:
+        from . import gn_conv
+
+        if not gn_conv.upconv_tma_describable(x, taps):
+            raise ValueError("upsample2x_conv3x3: TMA needs Cin and Cout "
+                             "multiples of 8 and 16-byte-aligned bases, got "
+                             f"x {tuple(x.shape)}, taps {tuple(taps.shape)}")
+        plan = gn_conv.upconv_sm90_plan(B, H, W, cin, cout, splits)
+        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
+                            device=x.device) if plan["work_floats"] else None)
+        symbol = "dtp_upsample2x_conv3x3_sm90"
+        fn = _cuda.function(gn_conv.GN_SM90_SOURCE, symbol, _UP_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), taps.data_ptr(), _ptr(b), out.data_ptr(),
+                  _ptr(work), B, H, W, cin, cout, splits or 0,
+                  _cuda.stream_of(x))
+        _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
+    else:
+        _launch("dtp_upsample2x_conv3x3", x, taps, b, out)
     upsample_launches.record((tuple(x.shape), (3, 3, cin, cout)))
     return out
 

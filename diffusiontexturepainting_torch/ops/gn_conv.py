@@ -36,6 +36,10 @@ and for a CUDA tensor it launches the kernel or raises:
                     describe raise ValueError), in fp32 the conv family's
                     stride-2 mode (its FMA twin)
 
+The bf16 K4 (ops/conv3x3.py upsample2x_conv3x3) runs the upsample mode of
+csrc/gn_conv_sm90.cu; its plan, upconv_sm90_plan, is here beside K1/K5's,
+with which it shares the tile geometry.
+
 Statistics are (B, 2, C) fp32: row 0 the sum, row 1 the sum of squares over
 the spatial axes (the TPU's 8-row padding is a sublane minimum and is not
 kept). stats_of takes them of a tensor no conv produced, through kernel K14
@@ -189,9 +193,48 @@ def downconv_tma_describable(x, w) -> bool:
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
-# --- the bf16 K1/K5's host plan (csrc/gn_conv_sm90.cu plan) ---
+# --- the bf16 K1/K5's and K4's host plans (csrc/gn_conv_sm90.cu plan,
+# up_plan) ---
 
 GN_BN, GN_BK, GN_WIN_STAGES, GN_MAX_B_STAGES = 128, 64, 2, 8
+GN_B_BYTES = GN_BK * GN_BN * 2  # one tap's weights of a chunk
+UP_PLANES, UP_MAX_B_STAGES = 4, 12
+
+
+def _gn_tile(B, H, W, cin, cout, nc):
+    """The geometry of a tile of 64 * nc pixels (the source's plan_of):
+    `nb` whole images of `rows` x `tw` pixels (tw 4, 8 or 16 from W; rows
+    a multiple of 16 / tw) where they fit, else `rows` x `tw` of one image;
+    its input window of nb x (rows+2) x (tw+2) lines of 64 channels; the
+    M x N grid by 128 channels; K in chunks of 64 channels."""
+    pix = 64 * nc
+    tw = 4 if W <= 4 else 8 if W <= 8 else 16
+    if W <= tw and H * tw <= pix:
+        unit = 16 // tw
+        rows = -(-H // unit) * unit
+        nb = min(pix // (rows * tw), B)
+        tiles_h = tiles_w = 1
+        m_tiles = -(-B // nb)
+    else:
+        rows, nb = pix // tw, 1
+        tiles_h, tiles_w = -(-H // rows), -(-W // tw)
+        m_tiles = B * tiles_h * tiles_w
+    win_lines = nb * (rows + 2) * (tw + 2)
+    return dict(tw=tw, rows=rows, nb=nb, win_lines=win_lines,
+                win_bytes=-(-win_lines * 128 // 1024) * 1024,
+                tiles_h=tiles_h, tiles_w=tiles_w, tpi=tiles_h * tiles_w,
+                m_tiles=m_tiles, n_tiles=-(-cout // GN_BN),
+                chunks=-(-cin // GN_BK), bn=GN_BN, bk=GN_BK)
+
+
+def _split(p, splits):
+    """K split into runs of whole chunks over as many CTAs as fill the SMs
+    once where the tiles do not (or as forced): sets per_split, splits."""
+    ctas = p["m_tiles"] * p["n_tiles"]
+    s = splits if splits else (1 if ctas >= SM_COUNT else SM_COUNT // ctas)
+    s = min(s, p["chunks"])
+    per = -(-p["chunks"] // s)
+    p["per_split"], p["splits"] = per, -(-p["chunks"] // per)
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,48 +261,60 @@ def gn_conv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
     cs = cout if cs is None else cs
 
     def of(nc):
-        pix = 64 * nc
-        tw = 4 if W <= 4 else 8 if W <= 8 else 16
-        if W <= tw and H * tw <= pix:
-            unit = 16 // tw
-            rows = -(-H // unit) * unit
-            nb = min(pix // (rows * tw), B)
-            tiles_h = tiles_w = 1
-            m_tiles = -(-B // nb)
-        else:
-            rows, nb = pix // tw, 1
-            tiles_h, tiles_w = -(-H // rows), -(-W // tw)
-            m_tiles = B * tiles_h * tiles_w
-        win_lines = nb * (rows + 2) * (tw + 2)
-        win_bytes = -(-win_lines * 128 // 1024) * 1024
-        region0 = max(4 * win_bytes, pix * GN_BN * 2)
+        t = _gn_tile(B, H, W, cin, cout, nc)
+        region0 = max(4 * t["win_bytes"], 64 * nc * GN_BN * 2)
         fixed = (region0 + 4 * nc * 2 * GN_BN * 4
                  + 8 * 2 * (GN_WIN_STAGES + GN_MAX_B_STAGES) + 16 + 1024)
-        b_bytes = GN_BK * GN_BN * 2
-        stages = min(GN_MAX_B_STAGES, (SMEM_LIMIT - fixed) // b_bytes)
-        return dict(consumers=nc, tw=tw, rows=rows, nb=nb,
-                    win_lines=win_lines, stages=stages,
-                    smem=fixed + stages * b_bytes,
-                    tiles_h=tiles_h, tiles_w=tiles_w,
-                    tpi=tiles_h * tiles_w, m_tiles=m_tiles,
-                    n_tiles=-(-cout // GN_BN), chunks=-(-cin // GN_BK),
-                    bn=GN_BN, bk=GN_BK)
+        stages = min(GN_MAX_B_STAGES, (SMEM_LIMIT - fixed) // GN_B_BYTES)
+        return dict(consumers=nc, **t, stages=stages,
+                    smem=fixed + stages * GN_B_BYTES)
 
     p = of(2)
     if not (consumers == 2 or (consumers is None and
                                2 * p["m_tiles"] * p["n_tiles"] >= SM_COUNT)):
         p = of(1)
+    _split(p, splits)
     ctas = p["m_tiles"] * p["n_tiles"]
-    s = splits if splits else (1 if ctas >= SM_COUNT else SM_COUNT // ctas)
-    s = min(s, p["chunks"])
-    per = -(-p["chunks"] // s)
-    p["per_split"], p["splits"] = per, -(-p["chunks"] // per)
     p["work_floats"] = (
         (2 * B * cs if want_stats else 0)
         + (2 * B * p["tpi"] * cs if want_stats and p["tpi"] > 1 else 0)
         + (ctas * p["splits"] * 64 * p["consumers"] * GN_BN + ctas
            if p["splits"] > 1 else 0))
     return p
+
+
+@functools.lru_cache(maxsize=None)
+def upconv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
+                     splits: int | None = None) -> dict:
+    """The tile bf16 K4 launches for the source x (B, H, W, cin) and cout
+    output channels: the tile of one K1/K5 consumer warpgroup (64 source
+    pixels; _gn_tile) by 128 channels, for all four parity planes, one
+    warpgroup a plane; two staged input windows (each rounded up to 1 KiB)
+    and `stages` B stages of 64 x 128 folded weights, a multiple of the
+    four planes, each plane's in turn (the bf16 output staging of 4 x 64 x
+    128 aliases them); the mbarriers and split flag, 1024 bytes of
+    alignment. K
+    (ceil(cin/64) chunks x 16 taps) split as K1/K5 split it (or as
+    forced). `work_floats`: the split tiles and counters, 0 without a
+    split. Cached: the dict is shared, read it only."""
+    p = dict(consumers=UP_PLANES, **_gn_tile(B, H, W, cin, cout, 1))
+    fixed = (GN_WIN_STAGES * p["win_bytes"]
+             + 8 * (2 * GN_WIN_STAGES + UP_MAX_B_STAGES) + 16 + 1024)
+    p["stages"] = min(UP_MAX_B_STAGES, (SMEM_LIMIT - fixed) // GN_B_BYTES
+                      // UP_PLANES * UP_PLANES)
+    p["smem"] = fixed + p["stages"] * GN_B_BYTES
+    _split(p, splits)
+    ctas = p["m_tiles"] * p["n_tiles"]
+    p["work_floats"] = (ctas * p["splits"] * 64 * UP_PLANES * GN_BN + ctas
+                        if p["splits"] > 1 else 0)
+    return p
+
+
+def upconv_tma_describable(x, taps) -> bool:
+    """Whether TMA can read bf16 K4's operands: Cin and Cout multiples of 8
+    (rows of whole 16 bytes) and 16-byte-aligned bases."""
+    return (x.shape[-1] % 8 == 0 and taps.shape[-1] % 8 == 0
+            and x.data_ptr() % 16 == 0 and taps.data_ptr() % 16 == 0)
 
 
 def gn_conv_tma_describable(x, w) -> bool:

@@ -1,6 +1,8 @@
-"""A/B of the tile plans of the bf16 K2, K9 and K1/K5 kernels, and of K14's.
+"""A/B of the tile plans of the bf16 K2, K9, K1/K5, K3 and K4 kernels, and
+of K14's.
 
     python -m diffusiontexturepainting_torch.tools.sm90_plans
+    python -m diffusiontexturepainting_torch.tools.sm90_plans --rows ff,upconv
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
         --device cpu --shapes tiny
 
@@ -17,6 +19,16 @@ two consumer warpgroups, each under its plan's split of K and without a
 split, F.conv2d (channels-last, SAME: the conv alone, no prologue, residual
 or statistics) beside; K14 (ops/groupnorm.py spatial_moments,
 csrc/moments.cu) at the shapes it is called at, torch.var_mean over H and W
+beside; with --rows ff,upconv (not in the default rows): K3
+(ops/ff_geglu.py _ff_geglu, csrc/ff_geglu_sm90.cu) at one UNet eval's
+feed-forward shapes at 256^2, 512^2 and 1024^2 with one and two consumer
+warpgroups, each under its plan's split of the second GEMM's K and without
+a split, beside the composition of two bf16 F.linear calls, the GEGLU
+elementwise and the residual add (not one call: no PyTorch call computes
+the function); K4 (ops/conv3x3.py _upsample2x_conv3x3, the upsample mode
+of csrc/gn_conv_sm90.cu) at the UNet's upsample shapes at the same points
+under its plan's split and without one, F.conv_transpose2d (stride 2,
+padding 1, channels-last) on the 4x4 weight assembled from the folded taps
 beside. Seeded normal inputs, bf16. Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph: the
@@ -33,7 +45,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops import attention, gn_conv, groupnorm
+from ..ops import attention, conv3x3, ff_geglu, gn_conv, groupnorm
 from . import _common
 
 # attention (B, L, D, heads, tag); downconv (B, H, W, Cin, Cout, tag)
@@ -66,13 +78,28 @@ SHAPE_SETS = {
                     (2, 32, 32, 512, "256^2 VAE mid block"),
                     (2, 256, 256, 128, "256^2 VAE stem"),
                     (3, 128, 128, 640, "1024^2 UNet up level 0"),
-                    (2, 1024, 1024, 128, "1024^2 VAE stem")]},
+                    (2, 1024, 1024, 128, "1024^2 VAE stem")],
+        # (N, C, inner, tag): one UNet eval's feed-forwards, batch 3
+        "ff": [(n, c, 4 * c, f"{res}^2 UNet {level}")
+               for res, n0 in ((256, 3072), (512, 12288), (1024, 49152))
+               for (n, c, level) in ((n0, 320, "level 0"),
+                                     (n0 // 4, 640, "level 1"),
+                                     (n0 // 16, 1280, "level 2"),
+                                     (n0 // 64, 1280, "mid block"))],
+        # (B, H, W, C, tag): the UNet's upsamplers' sources, batch 3
+        "upconv": [(3, h, h, c, f"{res}^2 UNet up {level}")
+                   for res, h0 in ((256, 4), (512, 8), (1024, 16))
+                   for (h, c, level) in ((h0, 1280, "level 3"),
+                                         (2 * h0, 1280, "level 2"),
+                                         (4 * h0, 640, "level 1"))]},
     "tiny": {
         "attention": [(1, 100, 80, 2, "tiny hd 40"),
                       (1, 70, 512, 1, "tiny hd 512")],
         "downconv": [(1, 10, 12, 16, 24, "tiny")],
         "gn_conv": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
-        "moments": [(2, 5, 7, 40, "tiny")]},
+        "moments": [(2, 5, 7, 40, "tiny")],
+        "ff": [(37, 64, 256, "tiny")],
+        "upconv": [(1, 5, 7, 16, "tiny"), (3, 4, 4, 24, "tiny 4x4")]},
 }
 
 
@@ -220,6 +247,96 @@ def _moments_rows(shapes, gen, device, timed):
     return rows
 
 
+def _ff_rows(shapes, gen, device, timed):
+    rows = []
+    for N, C, inner, tag in shapes:
+        x, res = (torch.randn((N, C), generator=gen, device=device)
+                  .bfloat16() for _ in range(2))
+        w0 = (torch.randn((2 * inner, C), generator=gen, device=device)
+              * C**-0.5).bfloat16()
+        w2 = (torch.randn((C, inner), generator=gen, device=device)
+              * inner**-0.5).bfloat16()
+        b0, b2 = ((torch.randn(n, generator=gen, device=device) * 0.1)
+                  .bfloat16() for n in (2 * inner, C))
+        want = ff_geglu.ff_geglu_plain(x, w0, b0, w2, b2, res)
+        chosen = ff_geglu.ff_sm90_plan(N, C, inner)
+        arms = [(None, None)]
+        if timed:
+            arms = []
+            for nc in (1, 2):
+                p = ff_geglu.ff_sm90_plan(N, C, inner, consumers=nc)
+                arms += [(nc, None)] + (
+                    [(nc, 1)] if p["down"]["splits"] > 1 else [])
+        for nc, splits in arms:
+            p = ff_geglu.ff_sm90_plan(N, C, inner, consumers=nc,
+                                      splits=splits)
+            call = (lambda nc=nc, splits=splits: ff_geglu._ff_geglu(
+                x, w0, b0, w2, b2, res, consumers=nc, splits=splits))
+            gate, down = p["gate"], p["down"]
+            row = {"kernel": "K3", "tag": tag, "shape": [N, C, inner],
+                   "consumers": [gate["consumers"], down["consumers"]],
+                   "splits": down["splits"],
+                   "plan": (gate["consumers"] == chosen["gate"]["consumers"]
+                            and down["consumers"]
+                            == chosen["down"]["consumers"]
+                            and down["splits"] == chosen["down"]["splits"]),
+                   "ctas": [gate["m_tiles"] * gate["i_tiles"],
+                            down["m_tiles"] * down["n_tiles"]
+                            * down["splits"]],
+                   "max_diff": _common.max_diff(call(), want),
+                   "ms": None, "device_ms": None}
+            if timed:
+                row.update(_times(call))
+            rows.append(row)
+        if timed:
+            def composition():
+                h = F.linear(x, w0, b0)
+                return F.linear(h[:, :inner] * F.gelu(h[:, inner:]), w2,
+                                b2) + res
+            rows.append({"kernel": "composition", "tag": tag,
+                         "shape": [N, C, inner],
+                         "note": "composition, not one call",
+                         **_times(composition)})
+    return rows
+
+
+def _upconv_rows(shapes, gen, device, timed):
+    rows = []
+    for B, H, W, C, tag in shapes:
+        x = torch.randn((B, H, W, C), generator=gen, device=device).bfloat16()
+        w = (torch.randn((3, 3, C, C), generator=gen, device=device)
+             * (9 * C) ** -0.5).bfloat16()
+        b = (torch.randn(C, generator=gen, device=device) * 0.1).bfloat16()
+        taps = conv3x3.fold_upsample_weights(w)
+        want = conv3x3.upsample2x_conv3x3_plain(x, w, b)
+        chosen = gn_conv.upconv_sm90_plan(B, H, W, C, C)
+        arms = [None] + ([1] if timed and chosen["splits"] > 1 else [])
+        for splits in arms:
+            p = gn_conv.upconv_sm90_plan(B, H, W, C, C, splits)
+            if device == "cpu":  # the wrapper's CPU route: the plain version
+                call = (lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps))
+            else:
+                call = (lambda splits=splits: conv3x3._upsample2x_conv3x3(
+                    x, b, taps, splits=splits))
+            row = {"kernel": "K4", "tag": tag, "shape": [B, H, W, C, C],
+                   "splits": p["splits"], "plan": splits is None,
+                   "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
+                   "max_diff": _common.max_diff(call(), want),
+                   "ms": None, "device_ms": None}
+            if timed:
+                row.update(_times(call))
+            rows.append(row)
+        if timed:
+            xc = x.permute(0, 3, 1, 2)
+            w4 = conv3x3.transposed_upsample_weight(taps).contiguous(
+                memory_format=torch.channels_last)
+            rows.append({"kernel": "F.conv_transpose2d", "tag": tag,
+                         "shape": [B, H, W, C, C],
+                         **_times(lambda: F.conv_transpose2d(
+                             xc, w4, b, stride=2, padding=1))})
+    return rows
+
+
 def main(argv=None) -> int:
     args = _common.parse_args(
         __doc__, SHAPE_SETS, "stamp", argv,
@@ -232,7 +349,8 @@ def main(argv=None) -> int:
     timed = args.device == "cuda"
     sets = SHAPE_SETS[args.shapes]
     groups = {"attention": _attention_rows, "downconv": _downconv_rows,
-              "gn_conv": _gn_conv_rows, "moments": _moments_rows}
+              "gn_conv": _gn_conv_rows, "moments": _moments_rows,
+              "ff": _ff_rows, "upconv": _upconv_rows}
     rows = []
     with torch.inference_mode():
         for name in args.rows.split(","):
