@@ -8,8 +8,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   2. build     nvcc builds every kernel from csrc/, in parallel, seconds
                printed; ptxas's registers and spills, none allowed in the
                bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu), the
-               bf16 K9 kernel (csrc/conv_sm90.cu) or the bf16 K1/K5 kernel
-               (csrc/gn_conv_sm90.cu);
+               bf16 K9 kernel (csrc/conv_sm90.cu), the bf16 K1/K5, K4, K6
+               and K7 kernels (csrc/gn_conv_sm90.cu) or the bf16 K3 kernel
+               (csrc/ff_geglu_sm90.cu);
   3. probe     each kernel against its plain version at a few shapes,
                K2 at its four launched head dims (40, 80, 160, 512) and a
                ragged length, the 16384-token streaming attentions (K8)
@@ -19,9 +20,12 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                Cout 40 on 4x4 images at batch 3, odd H and W, the VAE's
                Cout 8 and 3 heads) and on the split concat conv's weight
                halves read in place, and the spatial moments (K14) among
-               them; K9, K1/K5 and K14 bit-identical on replay, output and
-               statistics; the bf16 K2/K8/K13, K9 and K1/K5 refuse what TMA
-               cannot describe (ValueError, no launch);
+               them, K6 and K7 at ragged shapes; K9, K1/K5, K14, K6 and K7
+               bit-identical on replay, output and statistics; K6's
+               statistics also against its own fp32 output before the
+               rounding; the bf16 K2/K8/K13, K9, K1/K5, K3, K4, K6 and K7
+               refuse what TMA cannot describe (ValueError, no launch); the
+               fp32 entries of csrc/conv3x3.cu refuse bf16;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -117,8 +121,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                plain version and the one PyTorch call that computes the
                same function where there is one (for K1/K5 and K9 the conv
                alone), at the shapes of the path it is reported for, beside
-               its bound (K2, K9, K1, K5 and K14 also at the envelope
-               path's);
+               its bound (K2, K3, K4, K6, K9, K1, K5 and K14 also at the
+               envelope path's; K1/K5, K14, K3, K4, K6 and K7 also in
+               CUDA-graph device time);
  10. no jax    the run imported neither JAX, nor the JAX package, nor
                tornado, nor PIL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -167,6 +172,10 @@ TOL = {"bfloat16": 2.0**-5, "float16": 2.0**-5, "float32": 1e-4}
 # one tile partial dropped (1/512 of an image at the 1024^2 VAE), exceed it.
 STATS_SELF_TOL = 2.0**-14
 STATS_SELF_KINDS = ("gn_conv_resident", "gn_conv_stream", "spatial_moments")
+# K6 takes its statistics before the rounding: they are held, at the same
+# bound, against those of its own output in fp32 (the same folded bf16
+# taps, fp32 accumulation), which the kernel rounds once.
+STATS_PRE_KINDS = ("upconv_stream",)
 # The first stamps of two configurations at equal steps: the same math
 # with other rounding points in bf16 (fused epilogues round once where the
 # module legs round twice; the slotted softmax rounds its logits to bf16),
@@ -175,7 +184,8 @@ STATS_SELF_KINDS = ("gn_conv_resident", "gn_conv_stream", "spatial_moments")
 MAX_MEAN_DIFF = 8.0
 
 SOURCES = {
-    "conv3x3": "csrc/conv3x3.cu",
+    # bf16 (the paths' and the timed type); fp32 runs conv3x3.cu
+    "conv3x3": "csrc/gn_conv_sm90.cu",
     # bf16 (the paths' and the timed type); fp32 runs conv3x3.cu
     "upsample2x_conv3x3": "csrc/gn_conv_sm90.cu",
     # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
@@ -183,7 +193,7 @@ SOURCES = {
     # bf16; fp32 runs conv3x3.cu
     "gn_conv_resident": "csrc/gn_conv_sm90.cu",
     "gn_conv_stream": "csrc/gn_conv_sm90.cu",
-    "upconv_stream": "csrc/conv3x3.cu",
+    "upconv_stream": "csrc/gn_conv_sm90.cu",
     # bf16; fp32 runs ff_geglu.cu
     "ff_geglu": "csrc/ff_geglu_sm90.cu",
     # bf16 (the paths' and the timed type); fp32 runs flash_attention.cu
@@ -325,8 +335,10 @@ MS_IS = {
 # The member of the conv family that computes the same function at the
 # same shapes, timed beside each staged-tile kernel.
 FAMILY_IS = {
-    "conv3x3_inpad": "K7 (conv3x3, _IN_PAD off)",
-    "conv3x3_stream": "K7 (conv3x3, _IN_PAD off)",
+    "conv3x3_inpad": "K7 (conv3x3, _IN_PAD off: in bf16 the PLAIN mode of "
+                     "gn_conv_sm90.cu)",
+    "conv3x3_stream": "K7 (conv3x3, _IN_PAD off: in bf16 the PLAIN mode of "
+                      "gn_conv_sm90.cu)",
     "upsample2x_conv3x3_inpad": "K4 (upsample2x_conv3x3, _IN_PAD off)",
     "gn_silu_conv3x3": "K14 + gn_affine_from_stats + K1 (gn_conv_resident "
                        "with the residual; the time embedding not added)",
@@ -368,15 +380,16 @@ ARM_LAUNCHES = 20
 # host's launch cost left out) is also taken at their timed shapes, with
 # their library call's: the kernels this round of work redesigned last
 DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
-                "ff_geglu", "upsample2x_conv3x3")
+                "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3")
 # the sources whose ptxas report must show no spill
 NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
             "ff_geglu_sm90")
-# Kernels also timed at a second path's shapes: K2, K9, K1, K5 and K14 at
-# the 1024^2 envelope's
+# Kernels also timed at a second path's shapes: K2, K3, K4, K6, K9, K1, K5
+# and K14 at the 1024^2 envelope's
 ALSO_REPORTED_ON = {"flash_attention": "envelope",
                     "ff_geglu": "envelope",
                     "upsample2x_conv3x3": "envelope",
+                    "upconv_stream": "envelope",
                     "downsample_conv3x3_stats": "envelope",
                     "gn_conv_resident": "envelope",
                     "gn_conv_stream": "envelope",
@@ -439,14 +452,16 @@ def stats_self_err(y, stats):
 
 def kernel_case(kind, shape_key, dtype, gen):
     """Seeded inputs at `shape_key`; returns zero-argument callables
-    (kernel, plain, library, family, composition) over the same inputs,
-    library being the one PyTorch call that computes the same function, or
-    None, family the conv family's other kernel for the same function
-    (FAMILY_IS), or None, and composition the PyTorch ops computing it
-    where no one call does (COMPOSITION_IS), or None. The fused convs
-    return (out, statistics or None)."""
+    (kernel, plain, library, family, composition, pre) over the same
+    inputs, library being the one PyTorch call that computes the same
+    function, or None, family the conv family's other kernel for the same
+    function (FAMILY_IS), or None, composition the PyTorch ops computing it
+    where no one call does (COMPOSITION_IS), or None, and pre the kernel's
+    output before its rounding, in fp32, for the kinds whose statistics
+    are taken there (STATS_PRE_KINDS), or None. The fused convs return
+    (out, statistics or None)."""
     case = _kernel_case(kind, shape_key, dtype, gen)
-    return case + (None,) * (5 - len(case))
+    return case + (None,) * (6 - len(case))
 
 
 def _kernel_case(kind, shape_key, dtype, gen):
@@ -645,7 +660,10 @@ def _kernel_case(kind, shape_key, dtype, gen):
                 None if kind == "conv3x3"
                 else lambda: conv3x3.conv3x3(x, w, b))
     # the modules fold the upsample weights once at load: outside the call,
-    # as is the yardstick's 4x4 weight
+    # as is the yardstick's 4x4 weight; K6's images differ from one another
+    # (per_image), as the statistics probes' do
+    if kind == "upconv_stream":
+        x = per_image(x, 0.5)
     taps = conv3x3.fold_upsample_weights(w)
     xc = x.permute(0, 3, 1, 2)
     w4 = conv3x3.transposed_upsample_weight(taps).contiguous(
@@ -663,9 +681,13 @@ def _kernel_case(kind, shape_key, dtype, gen):
                 lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps))
     if kind == "upconv_stream":
         stats = shape_key[2]
+
+        def pre():
+            return F.conv_transpose2d(xc.float(), w4.float(), b.float(),
+                                      stride=2, padding=1).permute(0, 2, 3, 1)
         return (lambda: gn_conv.upconv_stream(x, w, b, taps, stats),
                 lambda: gn_conv.upconv_stream_plain(x, w, b, stats),
-                transposed)
+                transposed, None, None, pre)
     has_bias, has_res, stats, apply_gn = shape_key[2:]
     B, cin, cout = x_shape[0], x_shape[3], w_shape[3]
     x = per_image(x, 0.5)
@@ -818,7 +840,7 @@ def compare(kind, shape_key, dtype, gen, timed=False):
     kernels, family_ms (FAMILY_IS) when `timed`."""
     import torch
 
-    kernel, plain, library, family, composition = kernel_case(
+    kernel, plain, library, family, composition, pre = kernel_case(
         kind, shape_key, dtype, gen)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -866,8 +888,10 @@ def compare(kind, shape_key, dtype, gen, timed=False):
             if kind == "spatial_moments":  # the moments are the output
                 out["max_abs_err"] = max(out["max_abs_err"], e)
         out["stats_checked"] = True
-        if kind in STATS_SELF_KINDS:
-            e = stats_self_err(got, got_st)
+        if kind in STATS_SELF_KINDS or pre is not None:
+            own = got if pre is None else pre()
+            e = stats_self_err(own, got_st)
+            del own
             if not e <= STATS_SELF_TOL:
                 raise AssertionError(f"{name}: statistics differ from those "
                                      f"of its own output by {e:.3e} of the "
@@ -1791,8 +1815,10 @@ def tma_refusal_probe(gen):
     are 8 bytes off 16, K9 and K1/K5 at Cin 20 and at Cout 12 (rows of 40
     and 24 bytes) and on an input 2 bytes off 16, K5 at Cout 3 without the
     padded weight; K3 (csrc/ff_geglu_sm90.cu) at C 36, at inner 36 and on
-    an input 2 bytes off 16; K4 (csrc/gn_conv_sm90.cu's upsample mode) at
-    Cin 20, at Cout 12 and on an input 2 bytes off 16."""
+    an input 2 bytes off 16; K4, K6 and K7 (csrc/gn_conv_sm90.cu's upsample
+    and PLAIN modes) at Cin 20, at Cout 12 and on an input 2 bytes off 16.
+    Then csrc/conv3x3.cu's fp32 entries of K7, K4 and K6 called in bf16:
+    each returns cudaErrorInvalidValue, and its split plan -1."""
     import torch
 
     from diffusiontexturepainting_torch.ops import (
@@ -1830,10 +1856,12 @@ def tma_refusal_probe(gen):
         return lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b0[:c].contiguous(),
                                          x.contiguous())
 
-    def up(x, cout):
+    def up(x, cout, stats=False):
         w = torch.randn((3, 3, x.shape[-1], cout), generator=gen,
                         device="cuda").bfloat16()
         taps = conv3x3.fold_upsample_weights(w)
+        if stats:
+            return lambda: gn_conv.upconv_stream(x, w, None, taps)
         return lambda: conv3x3.upsample2x_conv3x3(x, w, None, taps)
     calls = {"flash_attention (1, 256, 144), 4 heads":
              lambda: attention.flash_attention(x, x, x, 4),
@@ -1861,13 +1889,21 @@ def tma_refusal_probe(gen):
              "ff_geglu x 2 bytes off 16": ff(64, 64, 128, offset=1),
              "upsample2x_conv3x3 Cin 20": up(xc, 16),
              "upsample2x_conv3x3 Cout 12": up(xd, 12),
-             "upsample2x_conv3x3 x 2 bytes off 16": up(off, 16)}
+             "upsample2x_conv3x3 x 2 bytes off 16": up(off, 16),
+             "upconv_stream Cin 20": up(xc, 16, True),
+             "upconv_stream Cout 12": up(xd, 12, True),
+             "upconv_stream x 2 bytes off 16": up(off, 16, True),
+             "conv3x3 Cin 20": lambda: conv3x3.conv3x3(xc, wc, None),
+             "conv3x3 Cout 12": lambda: conv3x3.conv3x3(xd, wd, None),
+             "conv3x3 x 2 bytes off 16":
+             lambda: conv3x3.conv3x3(off, w16, None)}
     counters = (attention.flash_launches, attention.flash_streaming_launches,
                 attention.flash_slotted_launches,
                 gn_conv.downconv_stream_launches,
                 gn_conv.gn_conv_resident_launches,
                 gn_conv.gn_conv_stream_launches, ff_geglu.ff_geglu_launches,
-                conv3x3.upsample_launches)
+                conv3x3.upsample_launches, gn_conv.upconv_stream_launches,
+                conv3x3.conv3x3_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -1878,16 +1914,48 @@ def tma_refusal_probe(gen):
             raise AssertionError(f"probe: {label} was not refused")
     if [c.launches for c in counters] != before:
         raise AssertionError("probe: a refused call launched a kernel")
+    # the fp32 twins' entries, called in bf16 on tensors that fit them
+    from diffusiontexturepainting_torch import _cuda
+
+    x8 = torch.randn((1, 8, 8, 16), generator=gen, device="cuda").bfloat16()
+    out = torch.empty((1, 16, 16, 16), dtype=torch.bfloat16, device="cuda")
+    stats = torch.empty((1, 2, 16), device="cuda")
+    ptrs = (x8.data_ptr(), w16.data_ptr(), w16.data_ptr(), out.data_ptr())
+    stream = _cuda.stream_of(x8)
+    codes = {
+        "dtp_conv3x3": _cuda.function("conv3x3", "dtp_conv3x3",
+                                      conv3x3._ARGTYPES)(
+            *ptrs, None, 1, 8, 8, 16, 16, 1, 1, stream),
+        "dtp_upsample2x_conv3x3": _cuda.function(
+            "conv3x3", "dtp_upsample2x_conv3x3", conv3x3._ARGTYPES)(
+            *ptrs, None, 1, 8, 8, 16, 16, 1, 1, stream),
+        "dtp_upsample2x_conv3x3_stats": _cuda.function(
+            "conv3x3", "dtp_upsample2x_conv3x3_stats", gn_conv._UP_ARGTYPES)(
+            *ptrs, stats.data_ptr(), stats.data_ptr(), stats.data_ptr(), 1,
+            8, 8, 16, 16, 1, 1, 1, stream)}
+    splits = {symbol: _cuda.function("conv3x3", f"{symbol}_splits",
+                                     conv3x3._SPLIT_ARGTYPES)(
+        1, 8, 8, 16, 16, 1)
+        for symbol in ("dtp_conv3x3", "dtp_upsample2x_conv3x3")}
+    torch.cuda.synchronize()
+    if set(codes.values()) != {1} or set(splits.values()) != {-1}:
+        raise AssertionError(f"probe: conv3x3.cu in bf16 gave {codes}, "
+                             f"split plans {splits}")
+    log(f"probe: conv3x3.cu's fp32 entries refuse bf16: {codes} "
+        "(cudaErrorInvalidValue), split plans -1")
 
 
 def replay_probe(gen):
     """bf16 K9 at the default stamp's three shapes, K1/K5 at a split-K, a
-    whole-image and a tiled shape, K14 on K1/K5's inputs, and K3 and K4 at
-    the default stamp's shapes whose K splits, each twice on the same
-    inputs: outputs and statistics bit-identical (fixed reduction orders,
-    no float atomics); K1/K5's and K14's statistics also those of their
-    own outputs (STATS_SELF_TOL)."""
+    whole-image and a tiled shape, K14 on K1/K5's inputs, K3 and K4 at the
+    default stamp's shapes whose K splits, K6 at the default stamp's three
+    shapes and a forced split, and K7 at three of the safe twin's split
+    shapes, each twice on the same inputs: outputs and statistics
+    bit-identical (fixed reduction orders, no float atomics); K1/K5's and
+    K14's statistics also those of their own outputs, K6's those of its
+    fp32 output before the rounding (STATS_SELF_TOL)."""
     import torch
+    import torch.nn.functional as F
 
     from diffusiontexturepainting_torch.ops import ff_geglu, gn_conv
 
@@ -1914,6 +1982,52 @@ def replay_probe(gen):
         splits = gn_conv.upconv_sm90_plan(B, H, H, C, C)["splits"]
         log(f"probe: upsample2x_conv3x3 {key} bf16 ({splits} splits): "
             "bit-identical on replay")
+    # K6 at the default 256^2 stamp's three sources (the first splits K),
+    # and forced to split where it does not
+    from diffusiontexturepainting_torch.ops import conv3x3
+
+    for B, H, C, forced in ((1, 32, 512, None), (1, 64, 512, None),
+                            (1, 128, 256, None), (2, 16, 256, 3)):
+        key = ((B, H, H, C), (3, 3, C, C), True)
+        x = per_image(torch.randn(key[0], generator=gen, device="cuda"),
+                      0.5).bfloat16()
+        w = (torch.randn(key[1], generator=gen, device="cuda")
+             * (9 * C) ** -0.5).bfloat16()
+        b = (torch.randn(C, generator=gen, device="cuda") * 0.1).bfloat16()
+        taps = conv3x3.fold_upsample_weights(w)
+        first, again = (gn_conv._upconv_stream(x, b, taps, True, forced)
+                        for _ in range(2))
+        w4 = conv3x3.transposed_upsample_weight(taps).float()
+        pre = F.conv_transpose2d(x.float().permute(0, 3, 1, 2), w4,
+                                 b.float(), stride=2,
+                                 padding=1).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        if not (torch.equal(first[0], again[0])
+                and torch.equal(first[1], again[1])):
+            raise AssertionError(f"probe: upconv_stream {key} differs on "
+                                 "replay")
+        e = stats_self_err(pre, first[1])
+        if not e <= STATS_SELF_TOL:
+            raise AssertionError(f"probe: upconv_stream {key}: statistics "
+                                 f"off its fp32 output by {e:.3e} of the "
+                                 "sums")
+        plan = gn_conv.upconv_sm90_plan(B, H, H, C, C, forced, True)
+        log(f"probe: upconv_stream {key} bf16 ({plan['splits']} splits, "
+            f"{plan['tpi']} tiles an image): output and statistics "
+            "bit-identical on replay; statistics against its fp32 output "
+            f"before the rounding {e:.2e} of the sums")
+    # K7 at the safe twin's split shapes
+    for B, H, cin, cout in ((3, 4, 2560, 1280), (3, 8, 2560, 1280),
+                            (3, 16, 1920, 640)):
+        key = ((B, H, H, cin), (3, 3, cin, cout))
+        kernel = kernel_case("conv3x3", key, torch.bfloat16, gen)[0]
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"probe: conv3x3 {key} differs on replay")
+        splits = gn_conv.same_sm90_plan(B, H, H, cin, cout)["splits"]
+        log(f"probe: conv3x3 {key} bf16 ({splits} splits): bit-identical "
+            "on replay")
 
     for h, c in ((128, 128), (64, 256), (32, 512)):
         x = torch.randn((2, 2 * h, 2 * h, c), generator=gen,
@@ -2129,7 +2243,7 @@ def kernels_phase(gen, paths):
             **({"family_ms": totals["family"] / n,
                 "family_is": FAMILY_IS[name]} if name in FAMILY_IS else {}),
             **({"stats_self_err": self_worst}
-               if name in STATS_SELF_KINDS else {}),
+               if name in STATS_SELF_KINDS + STATS_PRE_KINDS else {}),
             **({"device_ms": totals["kernel_device"] / n,
                 "library_device_ms": (None if lib_missing
                                       else totals["library_device"] / n)}
@@ -2196,9 +2310,12 @@ def main() -> int:
     secs = _cuda.build_all()
     log(f"build: {secs:.1f} s for {', '.join(_cuda.SOURCES)}")
     for name, report in _cuda.build_reports.items():
+        entry = ""  # the kernel (mangled name) ptxas reports on
         for line in report.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
             if "registers" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+                log(f"build: {name}: {entry}: {line.strip()}")
             if (name in NO_SPILL and "spill" in line
                     and "0 bytes spill stores, 0 bytes spill loads"
                     not in line):
@@ -2251,7 +2368,19 @@ def main() -> int:
                             True, False, False, True)),
         ("gn_conv_stream", ((1, 64, 64, 128), (3, 3, 128, 3),
                             True, False, False, True)),
+        # K6 (bf16: csrc/gn_conv_sm90.cu's upsample mode with statistics):
+        # ragged (Cin off 64, Cout off 128, odd H and W, one pixel, several
+        # images a tile, no statistics)
         ("upconv_stream", ((1, 6, 5, 48), (3, 3, 48, 40), True)),
+        ("upconv_stream", ((1, 9, 19, 40), (3, 3, 40, 136), True)),
+        ("upconv_stream", ((2, 1, 1, 16), (3, 3, 16, 8), True)),
+        ("upconv_stream", ((5, 3, 3, 8), (3, 3, 8, 16), True)),
+        ("upconv_stream", ((2, 17, 33, 24), (3, 3, 24, 40), False)),
+        # K7 (bf16: csrc/gn_conv_sm90.cu's PLAIN mode): ragged, as K6
+        ("conv3x3", ((2, 12, 10, 96), (3, 3, 96, 136))),
+        ("conv3x3", ((1, 9, 19, 40), (3, 3, 40, 136))),
+        ("conv3x3", ((2, 1, 1, 16), (3, 3, 16, 8))),
+        ("conv3x3", ((5, 3, 3, 8), (3, 3, 8, 16))),
         # K3 (bf16: csrc/ff_geglu_sm90.cu) at its served shapes (one UNet
         # eval at 256^2, 512^2, 1024^2), then ragged: N 1, 37, 100, C 96,
         # inner 384

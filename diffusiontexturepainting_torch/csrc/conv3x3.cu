@@ -1,33 +1,30 @@
-// The 3x3 convolution family, NHWC, as implicit GEMMs: the plain 3x3 SAME
-// conv, the fused nearest-x2 upsample + 3x3 conv, the stride-2 downsample
-// conv, and their fused modes with GroupNorm prologue, residual and
-// statistics epilogues.
+// The 3x3 convolution family in fp32, NHWC, as implicit GEMMs on FMA: the
+// plain 3x3 SAME conv, the fused nearest-x2 upsample + 3x3 conv, the
+// stride-2 downsample conv, and their fused modes with GroupNorm prologue,
+// residual and statistics epilogues. Every kernel here is the fp32 twin of
+// a bf16 wgmma/TMA kernel; each entry returns cudaErrorInvalidValue for
+// bf16 (the wrappers dispatch by dtype: ops/conv3x3.py, ops/gn_conv.py).
 //
-// Replaces (TPU, diffusiontexturepainting_tpu/ops/):
-//   dtp_conv3x3              <- conv3x3.py _conv3x3_pallas / _conv_kernel (K7)
+// Replaces (TPU, diffusiontexturepainting_tpu/ops/), in fp32:
+//   dtp_conv3x3              <- conv3x3.py _conv3x3_pallas / _conv_kernel
+//                               (K7); bf16: gn_conv_sm90.cu dtp_conv3x3_sm90
 //   dtp_upsample2x_conv3x3   <- conv3x3.py _upconv_pallas /
-//                               _upconv_kernel_padded (K4), in fp32 only:
-//                               bf16 K4 is gn_conv_sm90.cu's upsample mode
-//                               (dtype dispatch in ops/conv3x3.py
-//                               upsample2x_conv3x3), and this entry returns
-//                               cudaErrorInvalidValue for it
+//                               _upconv_kernel_padded (K4); bf16:
+//                               gn_conv_sm90.cu dtp_upsample2x_conv3x3_sm90
 //   dtp_gn_conv3x3           <- conv3x3.py _gn_conv_resident_pallas /
 //                               _gn_res_kernel (K1) and gn_conv_stream.py
 //                               _stream_fused_pallas / _kernel (K5): one
 //                               function, resident or streamed on the TPU;
-//                               in fp32 only: bf16 K1/K5 is gn_conv_sm90.cu's
-//                               wgmma/TMA kernel (dtype dispatch in
-//                               ops/gn_conv.py gn_conv3x3), and this entry
-//                               returns cudaErrorInvalidValue for it
+//                               bf16: gn_conv_sm90.cu dtp_gn_conv3x3_sm90
 //   dtp_upsample2x_conv3x3_stats
 //                            <- gn_conv_stream.py _upconv_stream_pallas /
-//                               _upconv_stream_kernel (K6)
+//                               _upconv_stream_kernel (K6); bf16:
+//                               gn_conv_sm90.cu
+//                               dtp_upsample2x_conv3x3_stats_sm90
 //   dtp_downsample_conv3x3_stats
 //                            <- gn_conv_stream.py _downconv_stream_pallas /
-//                               _downconv_kernel (K9), in fp32 only: bf16
-//                               K9 is conv_sm90.cu's wgmma/TMA kernel
-//                               (dtype dispatch in ops/gn_conv.py), and this
-//                               entry returns cudaErrorInvalidValue for it
+//                               _downconv_kernel (K9); bf16: conv_sm90.cu
+//                               dtp_downsample_conv3x3_stats_sm90
 //
 // What they compute:
 //   conv:  out[b,y,x,n] = bias[n] + sum_{di,dj,c} x[b,y+di-1,x+dj-1,c]
@@ -42,12 +39,11 @@
 //          results are written straight into the interleaved (B,2H,2W,Cout)
 //          output, so no plane tensor and no transpose exist.
 //   gn conv (K1/K5): the conv of v = silu(x*a[b,c] + c[b,c]) with a, c the
-//          folded GroupNorm affine (in the activation type); then
-//          y = round(acc + bias), y = round(y + residual), and optionally
-//          fp32 (sum, sumsq) of the final y per (b, n).
-//   upconv stats (K6): the upconv, with fp32 (sum, sumsq) per (b, n) of the
-//          fp32 output BEFORE its rounding (the TPU kernel's order; K1/K5
-//          take theirs after rounding and residual).
+//          folded GroupNorm affine; then y = acc + bias, y = y + residual,
+//          and optionally (sum, sumsq) of the final y per (b, n).
+//   upconv stats (K6): the upconv, with (sum, sumsq) per (b, n) of the
+//          output BEFORE its rounding (the TPU kernel's order; K1/K5 take
+//          theirs after rounding and residual).
 //   downconv stats (K9): the VAE encoder's level transition, a stride-2
 //          3x3 conv over x padded by one zero row below and one zero column
 //          to the right (diffusers' Downsample2D, pad (0,1),(0,1)):
@@ -59,39 +55,30 @@
 // GroupNorm mode they skip the prologue, since silu(0*a + c) != 0. SAME
 // and UP read row y+di-1 (zero for -1 and H); DOWN reads row 2i+di, which
 // is never negative and reads zero only at H (the pad row) - no -1 offset.
-// No padded copy of the input is made. fp32 accumulation.
+// No padded copy of the input is made.
 //
-// K9 (the DOWN mode) and K1/K5 (the SAME mode with a prologue) run here in
-// fp32 only, as the FMA twins of conv_sm90.cu and gn_conv_sm90.cu, which
-// take them in bf16 with their statistics in the epilogue.
-//
-// What bounds it on the H100: at the UNet's shapes (M = 48..3072 pixels,
-// K up to 9*2560) it is tensor-core work on small M, so tile occupancy and
-// the un-pipelined K loop (load, sync, mma, sync) bound it; at the VAE's
-// 256^2 levels (M up to 131072, K = 1152) the operand traffic through
-// shared memory does. This first version keeps one 128x128 output tile per
-// block with bf16 WMMA (mma.sync) on 8 warps and an fp32 FMA twin. Where
-// the output tiles alone would leave most of the 132 SMs idle (the UNet's
-// small levels), the K loop is split across blocks into an fp32 workspace
-// and reduced in a fixed order by a finish kernel.
+// Design: one 64x64 output tile per block of 256 threads, each a 4x4
+// register tile of FMAs (gemm_tile.cuh MathF32), fed 16-deep operand tiles
+// through shared memory (load, sync, FMA, sync). Where the output tiles
+// alone would leave most of the 132 SMs idle (the UNet's small levels), the
+// K loop is split across blocks into an fp32 workspace and reduced in a
+// fixed order by a finish kernel. What bounds it: the H100's fp32 FMA rate
+// (67 TFLOP/s); the fp32 twins serve the fp32 paths and the tests.
 //
 // The statistics are deterministic (no float atomics: a replayed stamp is
 // bit-identical, and the statistics feed every next GroupNorm). With
-// statistics the conv writes its fp32 sums to the workspace, and
+// statistics the conv writes its sums to the workspace, and
 // finish_stats_kernel runs the whole epilogue: each thread owns one output
-// channel of a chunk of rows, walks the rows in order (bias, rounding,
-// residual, store) and keeps per-image partial sums, since one chunk may
-// span several images at the UNet's 4x4 and 8x8 levels; stats_reduce_kernel
-// then adds each image's chunk partials in chunk order. The price is one
-// fp32 round trip of the output through device memory per conv with
-// statistics; folding the walk into the conv's own epilogue, and TMA +
-// wgmma pipelining, are later work.
+// channel of a chunk of rows, walks the rows in order (bias, residual,
+// store) and keeps per-image partial sums, since one chunk may span
+// several images at the UNet's 4x4 and 8x8 levels; stats_reduce_kernel
+// then adds each image's chunk partials in chunk order.
 //
 // Sizes: element offsets and the workspace's splits x outputs are size_t;
 // pixel and row counts are int, which holds the 1024^2 envelope's largest
 // call (the VAE encoder's (2,1024,1024,128) x 128: 2^21 rows, 2^28 outputs,
 // a 1 GiB fp32 workspace) with room; the grids stay within their limits
-// there (x: 2^14 row tiles or statistics chunks, z: 4 x splits).
+// there (x: 2^15 row tiles or statistics chunks, z: 4 x splits).
 #include "gemm_tile.cuh"
 
 namespace dtp {
@@ -154,7 +141,8 @@ __device__ __forceinline__ void load_chunk_gn(T* dst, const T* src,
 
 // kSame: 3x3 SAME conv. kUp: blockIdx.z is the parity plane of the
 // x2-upsampled output and w holds the 16 folded 2x2 taps. kDown: stride-2
-// taps over the (0,1)-padded input. H, W are the input's.
+// taps over the (0,1)-padded input. H, W are the input's. T, here and
+// below, is float: the entries instantiate nothing else.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const ConvArgs<T> p) {
@@ -280,8 +268,8 @@ conv_kernel(const ConvArgs<T> p) {
       y = from_float<T>(to_float(y) + to_float(p.residual[o]));
     p.out[o] = y;
   };
-  // The K loop ended on a barrier, so the A tile is free as the bf16
-  // epilogue's per-warp staging area (8 x 256 floats fit in it).
+  // The K loop ended on a barrier, so the A tile is free as the
+  // epilogue's scratch (MathF32 stores straight from its registers).
   math.epilogue(reinterpret_cast<float*>(As), tid, store);
 }
 
@@ -518,50 +506,19 @@ bool bad_shape(int mode, int B, int H, int W, int Cin, int Cout) {
          Cin <= 0 || Cout <= 0;
 }
 
+// bf16 has no plan here: -1 (the entries refuse it).
 template <int MODE>
 int splits_for(int B, int H, int W, int Cin, int Cout, int is_bf16) {
+  if (is_bf16) return -1;
   if (bad_shape(MODE, B, H, W, Cin, Cout)) return 1;
-  return is_bf16 ? plan_splits<__nv_bfloat16, MODE>(B, H, W, Cin, Cout)
-                 : plan_splits<float, MODE>(B, H, W, Cin, Cout);
-}
-
-template <int MODE>
-cudaError_t dispatch(const void* x, const void* w, const void* bias,
-                     void* out, void* partial, int B, int H, int W, int Cin,
-                     int Cout, int splits, int is_bf16, void* stream) {
-  if (bad_shape(MODE, B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16, MODE>(x, w, bias, out, partial, B, H, W,
-                                       Cin, Cout, splits, s);
-  return launch<float, MODE>(x, w, bias, out, partial, B, H, W, Cin, Cout,
-                             splits, s);
-}
-
-template <int MODE>
-cudaError_t dispatch_fused(const void* x, const void* a, const void* c,
-                           const void* w, const void* bias,
-                           const void* residual, void* out, void* partial,
-                           void* ws, void* stats, int B, int H, int W,
-                           int Cin, int Cout, long long w_tap, int splits,
-                           int want_stats, int is_bf16, void* stream) {
-  if (bad_shape(MODE, B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_fused<__nv_bfloat16, MODE>(x, a, c, w, bias, residual, out,
-                                             partial, ws, stats, B, H, W,
-                                             Cin, Cout, w_tap, splits,
-                                             want_stats != 0, s);
-  return launch_fused<float, MODE>(x, a, c, w, bias, residual, out, partial,
-                                   ws, stats, B, H, W, Cin, Cout, w_tap,
-                                   splits, want_stats != 0, s);
+  return plan_splits<float, MODE>(B, H, W, Cin, Cout);
 }
 
 }  // namespace
 }  // namespace dtp
 
-// The K split a call uses; with splits > 1 the caller passes an fp32
-// workspace of splits * (output elements) floats.
+// The K split an fp32 call uses; with splits > 1 the caller passes an fp32
+// workspace of splits * (output elements) floats. is_bf16: -1.
 extern "C" int dtp_conv3x3_splits(int B, int H, int W, int Cin, int Cout,
                                   int is_bf16) {
   return dtp::splits_for<dtp::kSame>(B, H, W, Cin, Cout, is_bf16);
@@ -587,15 +544,18 @@ extern "C" int dtp_stats_workspace_floats(int B, int hw, int Cout) {
          Cout;
 }
 
-// x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,), out (B,H,W,Cout), all of
-// one type: bf16 when is_bf16, else fp32.
+// K7 in fp32: x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,), out
+// (B,H,W,Cout), all fp32; is_bf16 must be 0 (bf16 K7 is gn_conv_sm90.cu's).
 extern "C" cudaError_t dtp_conv3x3(const void* x, const void* w,
                                    const void* bias, void* out,
                                    void* partial, int B, int H, int W,
                                    int Cin, int Cout, int splits,
                                    int is_bf16, void* stream) {
-  return dtp::dispatch<dtp::kSame>(x, w, bias, out, partial, B, H, W, Cin,
-                                   Cout, splits, is_bf16, stream);
+  if (is_bf16 || dtp::bad_shape(dtp::kSame, B, H, W, Cin, Cout))
+    return cudaErrorInvalidValue;
+  return dtp::launch<float, dtp::kSame>(x, w, bias, out, partial, B, H, W,
+                                        Cin, Cout, splits,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // K4 in fp32: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,),
@@ -608,8 +568,11 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3(const void* x, const void* w16,
                                               int splits, int is_bf16,
                                               void* stream) {
   if (is_bf16) return cudaErrorInvalidValue;
-  return dtp::dispatch<dtp::kUp>(x, w16, bias, out, partial, B, H, W, Cin,
-                                 Cout, splits, is_bf16, stream);
+  if (dtp::bad_shape(dtp::kUp, B, H, W, Cin, Cout))
+    return cudaErrorInvalidValue;
+  return dtp::launch<float, dtp::kUp>(x, w16, bias, out, partial, B, H, W,
+                                      Cin, Cout, splits,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // K1/K5 in fp32: x (B,H,W,Cin); a, c (B,Cin) folded GroupNorm affine, or
@@ -637,18 +600,20 @@ extern "C" cudaError_t dtp_gn_conv3x3(const void* x, const void* a,
       static_cast<cudaStream_t>(stream));
 }
 
-// K6: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,) or null,
-// out (B,2H,2W,Cout); workspaces as for dtp_gn_conv3x3 with the output's
-// 4*H*W rows per image.
+// K6 in fp32: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,)
+// or null, out (B,2H,2W,Cout); workspaces as for dtp_gn_conv3x3 with the
+// output's 4*H*W rows per image; is_bf16 must be 0 (bf16 K6 is
+// gn_conv_sm90.cu's).
 extern "C" cudaError_t dtp_upsample2x_conv3x3_stats(
     const void* x, const void* w16, const void* bias, void* out,
     void* partial, void* ws, void* stats, int B, int H, int W, int Cin,
     int Cout, int splits, int want_stats, int is_bf16, void* stream) {
-  return dtp::dispatch_fused<dtp::kUp>(x, nullptr, nullptr, w16, bias,
-                                       nullptr, out, partial, ws, stats, B,
-                                       H, W, Cin, Cout,
-                                       (long long)Cin * Cout, splits,
-                                       want_stats, is_bf16, stream);
+  if (is_bf16 || dtp::bad_shape(dtp::kUp, B, H, W, Cin, Cout))
+    return cudaErrorInvalidValue;
+  return dtp::launch_fused<float, dtp::kUp>(
+      x, nullptr, nullptr, w16, bias, nullptr, out, partial, ws, stats, B, H,
+      W, Cin, Cout, (long long)Cin * Cout, splits, want_stats != 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K9 in fp32: x (B,H,W,Cin) with H, W >= 2, w (3,3,Cin,Cout), bias (Cout,)

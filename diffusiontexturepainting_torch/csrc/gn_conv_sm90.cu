@@ -1,6 +1,7 @@
 // K1/K5 in bf16 for Hopper (sm_90a): GroupNorm -> SiLU -> 3x3 SAME conv
 // with bias, residual and statistics epilogues, as a warp-specialised
-// implicit GEMM, wgmma fed by TMA.
+// implicit GEMM, wgmma fed by TMA; and on the same body K4 and K6 (the x2
+// upsample conv, K6 with statistics) and K7 (the plain 3x3 conv).
 //
 //   dtp_gn_conv3x3_sm90  K1 <- diffusiontexturepainting_tpu/ops/conv3x3.py
 //       _gn_conv_resident_pallas / _gn_res_kernel, and K5 <- ops/
@@ -95,10 +96,38 @@
 //   and 8x8 levels the folded weights (16/9 of the 3x3 weights' bytes),
 //   which every SM has to help stream.
 //
-// Against conv3x3.cu's bf16 K1/K5: the prologue once per staged element
-// instead of once per tap and output tile, a pipelined K loop on wgmma
-// instead of load, sync, mma.sync, sync, and no fp32 round trip of the
-// output through finish_stats_kernel and stats_reduce_kernel.
+//   dtp_upsample2x_conv3x3_stats_sm90  K6 <- ops/gn_conv_stream.py
+//       _upconv_stream_pallas / _upconv_stream_kernel: K4's function and
+//       fp32 (sum, sumsq) per (b, n) over the 4*H*W output pixels of y
+//       BEFORE its rounding (the TPU kernel's order; K9 takes its
+//       statistics so too). K4's kernel with STATS: each plane's
+//       warpgroup reduces y one 8-column group of accumulators at a time,
+//       over a thread's two rows, then the warp's 8 row groups by
+//       shuffles, straight into shared memory past the staged tiles (no
+//       second array of sums stays live: 128 registers a thread); then the
+//       4 warps x 4 planes are added in that fixed order per image of the
+//       tile. An image spanning tiles gets one partial a tile, added in
+//       tile order by K1/K5's tile_stats_reduce; under a split of K the
+//       split that adds all splits takes the statistics. No float atomics.
+//       What bounds it: the operations (2 * 16 * Cin * Cout a source
+//       pixel) at the VAE decoder's 128^2 to 512^2 sources.
+//
+//   dtp_conv3x3_sm90  K7 <- ops/conv3x3.py _conv3x3_pallas / _conv_kernel:
+//       the 3x3 SAME conv + bias in fp32, one rounding; no prologue,
+//       residual or statistics. The K1/K5 kernel's PLAIN mode, with K1/K5's
+//       tile, consumer warpgroups and split of K: without a prologue TMA's
+//       out-of-bounds zeros are the conv's padding, so A is ldmatrix'ed
+//       straight from the TMA window stage, as K4 reads it; the V buffers
+//       and the consumers' per-chunk hand-over go, and their shared memory
+//       gives three window stages and up to 12 B stages. What bounds it:
+//       the operations at the UNet's 16^2 and 32^2 levels and the VAE's;
+//       the weight bytes at the 4x4 and 8x8 levels.
+//
+// Against conv3x3.cu's WMMA kernels (now their fp32 FMA twins): the
+// prologue once per staged element instead of once per tap and output
+// tile, a pipelined K loop on wgmma instead of load, sync, mma.sync, sync,
+// and no fp32 round trip of the output through finish_stats_kernel and
+// stats_reduce_kernel.
 #include "conv_sm90.cuh"
 
 namespace dtp {
@@ -115,6 +144,8 @@ constexpr int kSMs = 132;                 // H100 SXM
 constexpr int kSmemLimit = 232448;
 constexpr int kUpWG = 4;          // K4: a warpgroup a parity plane
 constexpr int kUpMaxStages = 12;  // K4's B stages, a multiple of kUpWG
+constexpr int kSameWinStages = 3;    // K7: input windows in flight
+constexpr int kSameMaxBStages = 12;  // K7's B stages
 
 struct GnPlan {
   int nc, tw, rows, nb;   // a tile: nb images x rows x tw columns
@@ -159,34 +190,35 @@ __device__ __forceinline__ uint32_t gn_silu2(uint32_t w, uint32_t ac0,
       silu_bf16(round_bf16(fmaf(hi_bf16(w), lo_bf16(ac1), hi_bf16(ac1)))));
 }
 
-template <int TW, int NC>
+// PLAIN: K7, no prologue, residual or statistics; A straight from the
+// window stages (kSameWinStages of them), no V buffers.
+template <int TW, int NC, bool PLAIN>
 __global__ void __launch_bounds__(128 * NC + 64, 1)
 gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
              const __grid_constant__ CUtensorMap tw, const GnArgs a) {
   constexpr int kPix = 64 * NC;
   constexpr int kWinW = TW + 2;
   constexpr int kCT = 128 * NC;  // consumer threads
+  constexpr int kWS = PLAIN ? kSameWinStages : kWinStages;
+  constexpr int kBS = PLAIN ? kSameMaxBStages : kMaxBStages;
+  constexpr int kRedBytes = PLAIN ? 0 : 4 * NC * 2 * kBN * 4;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
   const int red_off = a.region0 + a.stages * kBBytes;
-  const int bar_off = red_off + 4 * NC * 2 * kBN * 4;
+  const int bar_off = red_off + kRedBytes;
   auto win = [&](int s) { return base + s * a.win_bytes; };
   const uint32_t vbase = base + kWinStages * a.win_bytes;  // V[2]
   const uint32_t bring = base + a.region0;
   auto win_full = [&](int s) { return base + bar_off + 8 * s; };
-  auto win_empty = [&](int s) {
-    return base + bar_off + 8 * (kWinStages + s);
-  };
-  auto b_full = [&](int s) {
-    return base + bar_off + 8 * (2 * kWinStages + s);
-  };
+  auto win_empty = [&](int s) { return base + bar_off + 8 * (kWS + s); };
+  auto b_full = [&](int s) { return base + bar_off + 8 * (2 * kWS + s); };
   auto b_empty = [&](int s) {
-    return base + bar_off + 8 * (2 * kWinStages + kMaxBStages + s);
+    return base + bar_off + 8 * (2 * kWS + kBS + s);
   };
-  int* const flag = reinterpret_cast<int*>(
-      gbase + bar_off + 8 * 2 * (kWinStages + kMaxBStages));
+  int* const flag =
+      reinterpret_cast<int*>(gbase + bar_off + 8 * 2 * (kWS + kBS));
 
   const int n0 = blockIdx.x * kBN;
   const int mt = blockIdx.y, split = blockIdx.z;
@@ -203,7 +235,7 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
   const int nch = min(a.per_split, a.chunks - c_begin);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kWinStages; ++s) {
+    for (int s = 0; s < kWS; ++s) {
       mbar_init(win_full(s), 1);
       mbar_init(win_empty(s), NC * 4);  // lane 0 of each consumer warp
     }
@@ -239,8 +271,8 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
       const uint32_t win_tx = a.win_lines * 128;
 #pragma unroll 1
       for (int k = 0; k < nch; ++k) {
-        const int s = k % kWinStages;
-        mbar_wait(win_empty(s), ((k / kWinStages) & 1) ^ 1);
+        const int s = k % kWS;
+        mbar_wait(win_empty(s), ((k / kWS) & 1) ^ 1);
         mbar_expect_tx(win_full(s), win_tx);
         tma_load(win(s), &tx, win_full(s), (c_begin + k) * kAtom, j0 - 1,
                  i0 - 1, b0);
@@ -314,12 +346,15 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
   auto vbuf = [&](int k) { return vbase + (k & 1) * a.win_bytes; };
 
   // chunk 0's prologue alone; then chunk k + 1's in slices beside chunk k's
-  // taps, into the other V buffer
-  mbar_wait(win_full(0), 0);
-  transform(0, vbuf(0), c_begin, 0, 1);
-  __syncwarp();
-  if (lane == 0) mbar_arrive(win_empty(0));
-  bar_sync(1, kCT);  // V holds chunk 0
+  // taps, into the other V buffer. PLAIN reads each chunk's window stage
+  // itself and hands it back after its nine taps' loads.
+  if constexpr (!PLAIN) {
+    mbar_wait(win_full(0), 0);
+    transform(0, vbuf(0), c_begin, 0, 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(win_empty(0));
+    bar_sync(1, kCT);  // V holds chunk 0
+  }
 
   float acc[64];
 #pragma unroll
@@ -329,8 +364,12 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
 #pragma unroll 1
   for (int k = 0; k < nch; ++k) {
     const bool next = k + 1 < nch;
-    const int nws = (k + 1) % kWinStages;
-    if (next) mbar_wait(win_full(nws), ((k + 1) / kWinStages) & 1);
+    const int nws = (k + 1) % kWS;
+    if constexpr (PLAIN)
+      mbar_wait(win_full(k % kWS), (k / kWS) & 1);
+    else if (next)
+      mbar_wait(win_full(nws), ((k + 1) / kWS) & 1);
+    const uint32_t abuf = PLAIN ? win(k % kWS) : vbuf(k);
     // not unrolled: the taps' shifted addresses would all stay live
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
@@ -344,7 +383,7 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
         if (lane == 0) mbar_arrive(b_empty(prev));
       }
       const int L = line0 + (tap / 3) * kWinW + tap % 3;
-      const uint32_t row = vbuf(k) + L * 128;
+      const uint32_t row = abuf + L * 128;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         ldsm_x4(afr[kk], row + (((2 * kk + hi) ^ (L & 7)) << 4));
@@ -356,11 +395,16 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
                        desc128(bt + kk * 16 * 128, kAtom * 128));
       wg_commit();
       // a ninth of the next chunk's prologue while these products run
-      if (next) transform(nws, vbuf(k + 1), c_begin + k + 1, tap, 9);
+      if constexpr (!PLAIN)
+        if (next) transform(nws, vbuf(k + 1), c_begin + k + 1, tap, 9);
       prev = bs;
       if (++bs == a.stages) bs = 0, bph ^= 1;
     }
-    if (next) {
+    if constexpr (PLAIN) {
+      // the chunk's window has been read into registers
+      __syncwarp();
+      if (lane == 0) mbar_arrive(win_empty(k % kWS));
+    } else if (next) {
       __syncwarp();
       if (lane == 0) mbar_arrive(win_empty(nws));
       // the next V is complete, and every warp is done with this one
@@ -414,7 +458,7 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
   // the bf16 output tile, kPix rows of kBN channels, aliases the windows
   uint8_t* const stage = gbase;
   bar_sync(1, kCT);  // every warp's last ldmatrix of V is done
-  if (a.residual != nullptr) {
+  if (!PLAIN && a.residual != nullptr) {
 #pragma unroll 1
     for (int v = ct; v < kPix * (kBN / 8); v += kCT) {
       const int p = v / (kBN / 8), c = v % (kBN / 8), n = n0 + 8 * c;
@@ -459,7 +503,7 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
         st + r0 * kBN * 2 + ((i ^ g) * 16) + 4 * tq4);
     uint32_t* const p1 = reinterpret_cast<uint32_t*>(
         st + (r0 + 8) * kBN * 2 + ((i ^ g) * 16) + 4 * tq4);
-    if (a.residual != nullptr) {
+    if (!PLAIN && a.residual != nullptr) {
       const uint32_t ra = *p0, rb = *p1;
       v0 = round_bf16(v0 + lo_bf16(ra));
       v1 = round_bf16(v1 + hi_bf16(ra));
@@ -468,7 +512,7 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
     }
     *p0 = pack_bf16(v0, v1);
     *p1 = pack_bf16(v2, v3);
-    if (a.stats != nullptr) {
+    if (!PLAIN && a.stats != nullptr) {
       const float u0 = ok0 && okn0 ? v0 : 0.0f, u1 = ok0 && okn1 ? v1 : 0.0f;
       const float u2 = ok1 && okn0 ? v2 : 0.0f, u3 = ok1 && okn1 ? v3 : 0.0f;
       float s10 = u0 + u2, s11 = u1 + u3;
@@ -488,7 +532,7 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
     }
   }
   bar_sync(1, kCT);
-  if (a.stats != nullptr) {
+  if (!PLAIN && a.stats != nullptr) {
     // image slot k of the tile: the warps whose 16 rows it holds, in order
 #pragma unroll 1
     for (int v = ct; v < a.nb * 2 * kBN; v += kCT) {
@@ -523,8 +567,9 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
 }
 
 // K4: warpgroup p computes parity plane (ry, rx) = (p / 2, p % 2) of the
-// same 64 source pixels; no producer warps (the header says why).
-template <int TW>
+// same 64 source pixels; no producer warps (the header says why). STATS:
+// K6, the statistics of y before its rounding.
+template <int TW, bool STATS>
 __global__ void __launch_bounds__(128 * kUpWG, 1)
 upconv_sm90(const __grid_constant__ CUtensorMap tx,
             const __grid_constant__ CUtensorMap tw, const GnArgs a) {
@@ -550,12 +595,12 @@ upconv_sm90(const __grid_constant__ CUtensorMap tx,
 
   const int n0 = blockIdx.x * kBN;
   const int mt = blockIdx.y, split = blockIdx.z;
-  int b0, i0 = 0, j0 = 0;
+  int b0, i0 = 0, j0 = 0, timg = 0;
   if (a.tpi == 1) {
     b0 = mt * a.nb;  // whole images
   } else {
     b0 = mt / a.tpi;
-    const int timg = mt % a.tpi;
+    timg = mt % a.tpi;
     i0 = (timg / a.tiles_w) * a.rows;
     j0 = (timg % a.tiles_w) * TW;
   }
@@ -700,27 +745,76 @@ upconv_sm90(const __grid_constant__ CUtensorMap tx,
 
   // ---- epilogue: + bias, one rounding; the four planes' bf16 tiles
   // staged over the windows and the ring (rows of 128 channels, 16-byte
-  // chunks XOR-swizzled by row), then stored as 16-byte rows ----
+  // chunks XOR-swizzled by row), then stored as 16-byte rows. STATS: the
+  // (sum, sumsq) of the values before their rounding, each 8-column group
+  // added over the thread's two rows and the warp's 8 row groups, into
+  // per-warp sums past the staged tiles ----
   uint8_t* const stage = gbase;
   bar_sync(1, kCT);  // every warp's last ldmatrix and products are done
   const int r0 = 16 * warp + g;
   uint8_t* const st = stage + wg * 64 * kBN * 2;
+  float* const red = reinterpret_cast<float*>(gbase + kRows * kBN * 2);
+  // source pixel m of the tile lies in an image
+  auto inside = [&](int m) {
+    const int slot = m / img_pix, rem = m % img_pix;
+    return slot < a.nb && b0 + slot < a.B && i0 + rem / TW < a.H &&
+           j0 + rem % TW < a.W;
+  };
+  const bool ok0 = STATS && inside(r0), ok1 = STATS && inside(r0 + 8);
 #pragma unroll
   for (int i = 0; i < kBN / 8; ++i) {
     const int n = 8 * i + 2 * tq4;
+    const bool okn0 = n0 + n < a.Cs, okn1 = n0 + n + 1 < a.Cs;
     float bv0 = 0.0f, bv1 = 0.0f;
     if (a.bias != nullptr) {
-      if (n0 + n < a.Cs) bv0 = __bfloat162float(a.bias[n0 + n]);
-      if (n0 + n + 1 < a.Cs) bv1 = __bfloat162float(a.bias[n0 + n + 1]);
+      if (okn0) bv0 = __bfloat162float(a.bias[n0 + n]);
+      if (okn1) bv1 = __bfloat162float(a.bias[n0 + n + 1]);
     }
+    const float v0 = acc[4 * i] + bv0, v1 = acc[4 * i + 1] + bv1;
+    const float v2 = acc[4 * i + 2] + bv0, v3 = acc[4 * i + 3] + bv1;
     *reinterpret_cast<uint32_t*>(st + r0 * kBN * 2 + ((i ^ g) * 16) +
-                                 4 * tq4) =
-        pack_bf16(acc[4 * i] + bv0, acc[4 * i + 1] + bv1);
+                                 4 * tq4) = pack_bf16(v0, v1);
     *reinterpret_cast<uint32_t*>(st + (r0 + 8) * kBN * 2 + ((i ^ g) * 16) +
-                                 4 * tq4) =
-        pack_bf16(acc[4 * i + 2] + bv0, acc[4 * i + 3] + bv1);
+                                 4 * tq4) = pack_bf16(v2, v3);
+    if constexpr (STATS) {
+      const float u0 = ok0 && okn0 ? v0 : 0.0f, u1 = ok0 && okn1 ? v1 : 0.0f;
+      const float u2 = ok1 && okn0 ? v2 : 0.0f, u3 = ok1 && okn1 ? v3 : 0.0f;
+      float s10 = u0 + u2, s11 = u1 + u3;
+      float s20 = u0 * u0 + u2 * u2, s21 = u1 * u1 + u3 * u3;
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s10 += __shfl_xor_sync(0xffffffffu, s10, o);
+        s11 += __shfl_xor_sync(0xffffffffu, s11, o);
+        s20 += __shfl_xor_sync(0xffffffffu, s20, o);
+        s21 += __shfl_xor_sync(0xffffffffu, s21, o);
+      }
+      if (g == 0) {
+        float* rw = red + (wg * 4 + warp) * 2 * kBN;
+        rw[n] = s10, rw[n + 1] = s11;
+        rw[kBN + n] = s20, rw[kBN + n + 1] = s21;
+      }
+    }
   }
   bar_sync(1, kCT);
+  if constexpr (STATS) {
+    // image slot k of the tile: plane by plane, the warps whose 16 source
+    // rows it holds, in order
+#pragma unroll 1
+    for (int v = ct; v < a.nb * 2 * kBN; v += kCT) {
+      const int k = v / (2 * kBN), row = (v / kBN) % 2, n = v % kBN;
+      const int b = b0 + k;
+      if (b >= a.B || n0 + n >= a.Cs) continue;
+      float sum = 0.0f;
+      for (int w = 0; w < 4 * kUpWG; ++w)
+        if (16 * (w % 4) / img_pix == k) sum += red[(w * 2 + row) * kBN + n];
+      float* const dst =
+          a.tpi == 1
+              ? a.stats + static_cast<long long>(b) * 2 * a.Cs
+              : a.partial +
+                    (static_cast<long long>(b) * a.tpi + timg) * 2 * a.Cs;
+      dst[row * a.Cs + n0 + n] = sum;
+    }
+  }
   const int H2 = 2 * a.H, W2 = 2 * a.W;
 #pragma unroll 1
   for (int v = ct; v < kRows * (kBN / 8); v += kCT) {
@@ -818,6 +912,25 @@ GnPlan up_plan(int B, int H, int W, int Cin, int Cout, int splits) {
   return p;
 }
 
+// K7's plan: K1/K5's tile, consumer warpgroups and split of K (plan());
+// the shared memory of the two V buffers goes to a third window stage and
+// to B stages (mirrored by ops/gn_conv.py same_sm90_plan).
+GnPlan same_plan(int B, int H, int W, int Cin, int Cout, int nc,
+                 int splits) {
+  GnPlan p = plan(B, H, W, Cin, Cout, nc, splits);
+  // the windows, or the bf16 output staging that aliases them
+  const int staging = 64 * p.nc * kBN * 2;
+  p.region0 = kSameWinStages * p.win_bytes > staging
+                  ? kSameWinStages * p.win_bytes
+                  : staging;
+  const int fixed = p.region0 +
+                    8 * 2 * (kSameWinStages + kSameMaxBStages) + 16 + 1024;
+  p.stages = (kSmemLimit - fixed) / kBBytes;
+  if (p.stages > kSameMaxBStages) p.stages = kSameMaxBStages;
+  p.smem = fixed + p.stages * kBBytes;
+  return p;
+}
+
 // The work buffer's floats: the statistics, the tile partials, the split
 // tiles, the split counters.
 struct WorkLayout {
@@ -835,10 +948,16 @@ WorkLayout work_layout(const GnPlan& p, int B, int Cs, bool want_stats) {
   return w;
 }
 
-template <int TW, int NC>
+bool grid_fits(const GnPlan& p) {
+  return p.m_tiles <= 65535 && p.n_tiles <= 65535 && p.splits <= 65535;
+}
+
+template <int NC, bool PLAIN>
 cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw,
                    const GnArgs& a, const GnPlan& p, cudaStream_t stream) {
-  auto kern = gn_conv_sm90<TW, NC>;
+  auto kern = p.tw == 4   ? gn_conv_sm90<4, NC, PLAIN>
+              : p.tw == 8 ? gn_conv_sm90<8, NC, PLAIN>
+                          : gn_conv_sm90<16, NC, PLAIN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
@@ -847,25 +966,13 @@ cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw,
   return cudaGetLastError();
 }
 
-template <int NC>
-cudaError_t launch_tw(const CUtensorMap& tx, const CUtensorMap& tw,
-                      const GnArgs& a, const GnPlan& p,
-                      cudaStream_t stream) {
-  switch (p.tw) {
-    case 4:
-      return launch<4, NC>(tx, tw, a, p, stream);
-    case 8:
-      return launch<8, NC>(tx, tw, a, p, stream);
-    default:
-      return launch<16, NC>(tx, tw, a, p, stream);
-  }
-}
-
-template <int TW>
+template <bool STATS>
 cudaError_t launch_up(const CUtensorMap& tx, const CUtensorMap& tw,
                       const GnArgs& a, const GnPlan& p,
                       cudaStream_t stream) {
-  auto kern = upconv_sm90<TW>;
+  auto kern = p.tw == 4   ? upconv_sm90<4, STATS>
+              : p.tw == 8 ? upconv_sm90<8, STATS>
+                          : upconv_sm90<16, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
@@ -892,9 +999,92 @@ bool window_map(CUtensorMap* map, const void* x, int B, int H, int W,
   return tensor_map_4d(map, x, xd, xs, xbox, unit);
 }
 
+// w viewed as (Cout, Cin, taps) with its taps w_tap elements apart, in
+// boxes of 64 x 64 (two make a tap's 128-column B stage).
+bool weight_map(CUtensorMap* map, const void* w, int Cin, int Cout,
+                long long w_tap, int taps) {
+  const cuuint64_t wd[4] = {static_cast<cuuint64_t>(Cout),
+                            static_cast<cuuint64_t>(Cin),
+                            static_cast<cuuint64_t>(taps), 1};
+  const cuuint64_t wsd[3] = {static_cast<cuuint64_t>(Cout) * 2,
+                             static_cast<cuuint64_t>(w_tap) * 2,
+                             static_cast<cuuint64_t>(w_tap) * taps * 2};
+  const cuuint32_t wbox[4] = {kAtom, kAtom, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return tensor_map_4d(map, w, wd, wsd, wbox, unit);
+}
+
+// A launch's arguments beside the plan's: the statistics, tile partials,
+// split tiles and counters at their places in the work buffer `wf`; H, W
+// the input's.
+GnArgs args_of(const GnPlan& p, const WorkLayout& wl, float* wf,
+               bool want_stats, const void* bias, void* out, int B, int H,
+               int W, int Cin, int Cs) {
+  GnArgs args{};
+  args.bias = static_cast<const bf16*>(bias);
+  args.out = static_cast<bf16*>(out);
+  args.stats = want_stats ? wf + wl.stats : nullptr;
+  args.partial = want_stats && p.tpi > 1 ? wf + wl.partial : nullptr;
+  args.ws = p.splits > 1 ? wf + wl.ws : nullptr;
+  args.counters =
+      p.splits > 1 ? reinterpret_cast<int*>(wf + wl.counters) : nullptr;
+  args.B = B, args.H = H, args.W = W, args.Cin = Cin, args.Cs = Cs;
+  args.rows = p.rows, args.nb = p.nb, args.tiles_w = p.tiles_w;
+  args.tpi = p.tpi, args.win_lines = p.win_lines;
+  args.win_bytes = p.win_bytes, args.region0 = p.region0;
+  args.stages = p.stages, args.per_split = p.per_split;
+  args.chunks = p.chunks, args.splits = p.splits;
+  return args;
+}
+
+// The split counters zeroed (when the plan splits K), the kernel, then
+// each image's tile partials added in tile order (when an image spans
+// tiles and the call takes statistics).
+template <class Kernel>
+cudaError_t run(const GnPlan& p, const GnArgs& args, cudaStream_t s,
+                Kernel kernel) {
+  if (p.splits > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        args.counters, 0,
+        sizeof(int) * static_cast<size_t>(p.m_tiles) * p.n_tiles, s);
+    if (err != cudaSuccess) return err;
+  }
+  const cudaError_t err = kernel();
+  if (err != cudaSuccess || args.partial == nullptr) return err;
+  return launch_tile_stats_reduce(args.partial, args.stats, args.B, p.tpi,
+                                  args.Cs, s);
+}
+
 bool bad_shape(int B, int H, int W, int Cin, int Cout, int Cs) {
   return B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 ||
          Cout % 8 || Cs <= 0 || Cs > Cout;
+}
+
+// K4 (want_stats false) and K6: x (B,H,W,Cin); taps (16,Cin,Cout); bias
+// (Cout,) or null; out (B,2H,2W,Cout); work: the plan's work floats (the
+// statistics first, (B, 2, Cout)), or null when it needs none.
+cudaError_t upconv(const void* x, const void* taps, const void* bias,
+                   void* out, void* work, int B, int H, int W, int Cin,
+                   int Cout, bool want_stats, int splits,
+                   cudaStream_t stream) {
+  if (bad_shape(B, H, W, Cin, Cout, Cout) || splits < 0 || !aligned16(x) ||
+      !aligned16(taps) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  const GnPlan p = up_plan(B, H, W, Cin, Cout, splits);
+  if (!grid_fits(p)) return cudaErrorInvalidValue;
+  const WorkLayout wl = work_layout(p, B, Cout, want_stats);
+  if (wl.total > 0 && work == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!window_map(&tx, x, B, H, W, Cin, p) ||
+      !weight_map(&tw, taps, Cin, Cout, static_cast<long long>(Cin) * Cout,
+                  16))
+    return cudaErrorInvalidValue;
+  const GnArgs args = args_of(p, wl, static_cast<float*>(work), want_stats,
+                              bias, out, B, H, W, Cin, Cout);
+  return run(p, args, stream, [&] {
+    return want_stats ? launch_up<true>(tx, tw, args, p, stream)
+                      : launch_up<false>(tx, tw, args, p, stream);
+  });
 }
 
 }  // namespace
@@ -947,70 +1137,91 @@ extern "C" cudaError_t dtp_gn_conv3x3_sm90(
       ((a == nullptr) != (c == nullptr)))
     return cudaErrorInvalidValue;
   const GnPlan p = plan(B, H, W, Cin, Cout, nc, splits);
-  if (p.m_tiles > 65535 || p.n_tiles > 65535 || p.splits > 65535)
-    return cudaErrorInvalidValue;
+  if (!grid_fits(p)) return cudaErrorInvalidValue;
   const WorkLayout wl = work_layout(p, B, Cs, want_stats != 0);
   if (wl.total > 0 && work == nullptr) return cudaErrorInvalidValue;
-  const cuuint64_t wd[4] = {static_cast<cuuint64_t>(Cout),
-                            static_cast<cuuint64_t>(Cin), 9, 1};
-  const cuuint64_t wsd[3] = {static_cast<cuuint64_t>(Cout) * 2,
-                             static_cast<cuuint64_t>(w_tap) * 2,
-                             static_cast<cuuint64_t>(w_tap) * 9 * 2};
-  const cuuint32_t wbox[4] = {kAtom, kAtom, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUtensorMap tx, tw;
   if (!window_map(&tx, x, B, H, W, Cin, p) ||
-      !tensor_map_4d(&tw, w, wd, wsd, wbox, unit))
+      !weight_map(&tw, w, Cin, Cout, w_tap, 9))
     return cudaErrorInvalidValue;
-  float* const wf = static_cast<float*>(work);
-  GnArgs args{};
+  GnArgs args = args_of(p, wl, static_cast<float*>(work), want_stats != 0,
+                        bias, out, B, H, W, Cin, Cs);
   args.gn_a = static_cast<const float*>(a);
   args.gn_c = static_cast<const float*>(c);
   args.a_stride = a_stride, args.c_stride = c_stride;
-  args.bias = static_cast<const bf16*>(bias);
   args.residual = static_cast<const bf16*>(residual);
-  args.out = static_cast<bf16*>(out);
-  args.stats = want_stats ? wf + wl.stats : nullptr;
-  args.partial = want_stats && p.tpi > 1 ? wf + wl.partial : nullptr;
-  args.ws = p.splits > 1 ? wf + wl.ws : nullptr;
-  args.counters =
-      p.splits > 1 ? reinterpret_cast<int*>(wf + wl.counters) : nullptr;
-  args.B = B, args.H = H, args.W = W, args.Cin = Cin, args.Cs = Cs;
-  args.rows = p.rows, args.nb = p.nb, args.tiles_w = p.tiles_w;
-  args.tpi = p.tpi, args.win_lines = p.win_lines;
-  args.win_bytes = p.win_bytes, args.region0 = p.region0;
-  args.stages = p.stages, args.per_split = p.per_split;
-  args.chunks = p.chunks, args.splits = p.splits;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  if (p.splits > 1) {
-    err = cudaMemsetAsync(args.counters, 0,
-                          sizeof(int) * static_cast<size_t>(p.m_tiles) *
-                              p.n_tiles,
-                          s);
-    if (err != cudaSuccess) return err;
-  }
-  err = p.nc == 2 ? launch_tw<2>(tx, tw, args, p, s)
-                  : launch_tw<1>(tx, tw, args, p, s);
-  if (err != cudaSuccess || args.partial == nullptr) return err;
-  return launch_tile_stats_reduce(args.partial, args.stats, B, p.tpi, Cs, s);
+  return run(p, args, s, [&] {
+    return p.nc == 2 ? launch<2, false>(tx, tw, args, p, s)
+                     : launch<1, false>(tx, tw, args, p, s);
+  });
 }
 
-// K4's plan into out[15]: {tile columns, tile rows, images a tile, window
-// lines, B stages, dynamic shared memory bytes, tiles down and across an
-// image, tiles an image, M tiles, N tiles, channel chunks, splits, chunks
-// a split, work buffer floats} (ops/gn_conv.py upconv_sm90_plan mirrors
-// it); `splits` as for the entry.
+// K7's plan into out[16], the fields of dtp_gn_conv3x3_sm90_plan's (ops/
+// gn_conv.py same_sm90_plan mirrors it); `nc` and `splits` as for the
+// entry.
+extern "C" int dtp_conv3x3_sm90_plan(int B, int H, int W, int Cin, int Cout,
+                                     int nc, int splits, long long* out) {
+  if (dtp::bad_shape(B, H, W, Cin, Cout, Cout) || nc < 0 || nc > 2 ||
+      splits < 0)
+    return -1;
+  const dtp::GnPlan p = dtp::same_plan(B, H, W, Cin, Cout, nc, splits);
+  const long long v[16] = {
+      p.nc,      p.tw,      p.rows,    p.nb,      p.win_lines, p.stages,
+      p.smem,    p.tiles_h, p.tiles_w, p.tpi,     p.m_tiles,   p.n_tiles,
+      p.chunks,  p.splits,  p.per_split,
+      dtp::work_layout(p, B, Cout, false).total};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K7 in bf16: x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,) or null, out
+// (B,H,W,Cout). Cin and Cout multiples of 8, x, w and out 16-byte
+// aligned. `work`: the plan's work floats (the split tiles and counters),
+// or null when it does not split; `nc` and `splits` as for
+// dtp_gn_conv3x3_sm90.
+extern "C" cudaError_t dtp_conv3x3_sm90(const void* x, const void* w,
+                                        const void* bias, void* out,
+                                        void* work, int B, int H, int W,
+                                        int Cin, int Cout, int nc,
+                                        int splits, void* stream) {
+  using namespace dtp;
+  if (bad_shape(B, H, W, Cin, Cout, Cout) || nc < 0 || nc > 2 ||
+      splits < 0 || !aligned16(x) || !aligned16(w) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  const GnPlan p = same_plan(B, H, W, Cin, Cout, nc, splits);
+  if (!grid_fits(p)) return cudaErrorInvalidValue;
+  const WorkLayout wl = work_layout(p, B, Cout, false);
+  if (wl.total > 0 && work == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!window_map(&tx, x, B, H, W, Cin, p) ||
+      !weight_map(&tw, w, Cin, Cout, static_cast<long long>(Cin) * Cout, 9))
+    return cudaErrorInvalidValue;
+  const GnArgs args = args_of(p, wl, static_cast<float*>(work), false, bias,
+                              out, B, H, W, Cin, Cout);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run(p, args, s, [&] {
+    return p.nc == 2 ? launch<2, true>(tx, tw, args, p, s)
+                     : launch<1, true>(tx, tw, args, p, s);
+  });
+}
+
+// The plan of K4 (want_stats 0) or K6 into out[15]: {tile columns, tile
+// rows, images a tile, window lines, B stages, dynamic shared memory
+// bytes, tiles down and across an image, tiles an image, M tiles, N tiles,
+// channel chunks, splits, chunks a split, work buffer floats} (ops/
+// gn_conv.py upconv_sm90_plan mirrors it); `splits` as for the entries.
 extern "C" int dtp_upsample2x_conv3x3_sm90_plan(int B, int H, int W,
                                                 int Cin, int Cout,
-                                                int splits, long long* out) {
+                                                int want_stats, int splits,
+                                                long long* out) {
   if (dtp::bad_shape(B, H, W, Cin, Cout, Cout) || splits < 0) return -1;
   const dtp::GnPlan p = dtp::up_plan(B, H, W, Cin, Cout, splits);
   const long long v[15] = {
       p.tw,      p.rows,    p.nb,      p.win_lines, p.stages,
       p.smem,    p.tiles_h, p.tiles_w, p.tpi,       p.m_tiles,
       p.n_tiles, p.chunks,  p.splits,  p.per_split,
-      dtp::work_layout(p, B, Cout, false).total};
+      dtp::work_layout(p, B, Cout, want_stats != 0).total};
   for (int i = 0; i < 15; ++i) out[i] = v[i];
   return 0;
 }
@@ -1023,52 +1234,17 @@ extern "C" int dtp_upsample2x_conv3x3_sm90_plan(int B, int H, int W,
 extern "C" cudaError_t dtp_upsample2x_conv3x3_sm90(
     const void* x, const void* taps, const void* bias, void* out, void* work,
     int B, int H, int W, int Cin, int Cout, int splits, void* stream) {
-  using namespace dtp;
-  if (bad_shape(B, H, W, Cin, Cout, Cout) || splits < 0 || !aligned16(x) ||
-      !aligned16(taps) || !aligned16(out))
-    return cudaErrorInvalidValue;
-  const GnPlan p = up_plan(B, H, W, Cin, Cout, splits);
-  if (p.m_tiles > 65535 || p.n_tiles > 65535 || p.splits > 65535)
-    return cudaErrorInvalidValue;
-  const WorkLayout wl = work_layout(p, B, Cout, false);
-  if (wl.total > 0 && work == nullptr) return cudaErrorInvalidValue;
-  const cuuint64_t wd[4] = {static_cast<cuuint64_t>(Cout),
-                            static_cast<cuuint64_t>(Cin), 16, 1};
-  const cuuint64_t tap = static_cast<cuuint64_t>(Cin) * Cout * 2;
-  const cuuint64_t wsd[3] = {static_cast<cuuint64_t>(Cout) * 2, tap,
-                             tap * 16};
-  const cuuint32_t wbox[4] = {kAtom, kAtom, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUtensorMap tx, tw;
-  if (!window_map(&tx, x, B, H, W, Cin, p) ||
-      !tensor_map_4d(&tw, taps, wd, wsd, wbox, unit))
-    return cudaErrorInvalidValue;
-  float* const wf = static_cast<float*>(work);
-  GnArgs args{};
-  args.bias = static_cast<const bf16*>(bias);
-  args.out = static_cast<bf16*>(out);
-  args.ws = p.splits > 1 ? wf + wl.ws : nullptr;
-  args.counters =
-      p.splits > 1 ? reinterpret_cast<int*>(wf + wl.counters) : nullptr;
-  args.B = B, args.H = H, args.W = W, args.Cin = Cin, args.Cs = Cout;
-  args.rows = p.rows, args.nb = p.nb, args.tiles_w = p.tiles_w;
-  args.tpi = p.tpi, args.win_lines = p.win_lines;
-  args.win_bytes = p.win_bytes, args.region0 = p.region0;
-  args.stages = p.stages, args.per_split = p.per_split;
-  args.chunks = p.chunks, args.splits = p.splits;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.splits > 1) {
-    const cudaError_t err = cudaMemsetAsync(
-        args.counters, 0,
-        sizeof(int) * static_cast<size_t>(p.m_tiles) * p.n_tiles, s);
-    if (err != cudaSuccess) return err;
-  }
-  switch (p.tw) {
-    case 4:
-      return launch_up<4>(tx, tw, args, p, s);
-    case 8:
-      return launch_up<8>(tx, tw, args, p, s);
-    default:
-      return launch_up<16>(tx, tw, args, p, s);
-  }
+  return dtp::upconv(x, taps, bias, out, work, B, H, W, Cin, Cout, false,
+                     splits, static_cast<cudaStream_t>(stream));
+}
+
+// K6 in bf16: K4's operands, and with want_stats the fp32 (sum, sumsq) of
+// the pre-rounding output at the front of `work` as (B, 2, Cout).
+extern "C" cudaError_t dtp_upsample2x_conv3x3_stats_sm90(
+    const void* x, const void* taps, const void* bias, void* out, void* work,
+    int B, int H, int W, int Cin, int Cout, int want_stats, int splits,
+    void* stream) {
+  return dtp::upconv(x, taps, bias, out, work, B, H, W, Cin, Cout,
+                     want_stats != 0, splits,
+                     static_cast<cudaStream_t>(stream));
 }

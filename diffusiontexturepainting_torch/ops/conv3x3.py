@@ -6,8 +6,12 @@ written for Hopper and a plain PyTorch version beside it: a wrapper takes
 the plain version only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises.
 
-  conv3x3             kernel K7 (csrc/conv3x3.cu; replaces _conv3x3_pallas
-                      / _conv_kernel); with _IN_PAD, conv3x3_inpad
+  conv3x3             kernel K7 (replaces _conv3x3_pallas / _conv_kernel):
+                      in bf16 the PLAIN mode of csrc/gn_conv_sm90.cu's
+                      K1/K5 kernel (A read straight from the TMA-staged
+                      windows, wgmma; operands TMA cannot describe raise
+                      ValueError), in fp32 csrc/conv3x3.cu; with _IN_PAD,
+                      conv3x3_inpad
   upsample2x_conv3x3  kernel K4 (replaces _upconv_pallas /
                       _upconv_kernel_padded): in bf16 the four parity
                       planes over one TMA-staged window on wgmma
@@ -74,6 +78,8 @@ _GN_STAGED_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_float,)
                        + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
 _UP_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
                      + (ctypes.c_void_p,))
+_SAME_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
+                       + (ctypes.c_void_p,))
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -183,19 +189,18 @@ def _check(name, x, w, b, taps, optional=()):
 
 
 def _launch(symbol, x, w, b, out):
-    """Launch one conv entry point of csrc/conv3x3.cu on x's stream, with
-    the fp32 split-K workspace the kernel asks for."""
+    """Launch one fp32 conv entry point of csrc/conv3x3.cu on x's stream,
+    with the split-K workspace the kernel asks for."""
     B, H, W, cin = x.shape
     cout = out.shape[-1]
-    bf16 = int(x.dtype == torch.bfloat16)
     splits = _cuda.function("conv3x3", f"{symbol}_splits", _SPLIT_ARGTYPES)(
-        B, H, W, cin, cout, bf16)
+        B, H, W, cin, cout, 0)
     partial = (torch.empty(splits * out.numel(), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     fn = _cuda.function("conv3x3", symbol, _ARGTYPES)
     code = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
               None if partial is None else partial.data_ptr(), B, H, W, cin,
-              cout, splits, bf16, _cuda.stream_of(x))
+              cout, splits, 0, _cuda.stream_of(x))
     _cuda.check("conv3x3", symbol, code)
 
 
@@ -249,11 +254,36 @@ def conv3x3(x, w, b):
         return conv3x3_plain(x, w, b)
     if _IN_PAD:
         return conv3x3_inpad(x, w, b)
+    return _conv3x3(x, w, b)
+
+
+def _conv3x3(x, w, b, consumers=None, splits=None):
+    """K7 on CUDA (conv3x3 with _IN_PAD off); in bf16 `consumers` 1 or 2
+    and `splits` force the sm90 kernel's tile and split of K (the tests and
+    tools/sm90_plans.py call this entry with them)."""
     _check("conv3x3", x, w, b, (3, 3))
-    B, H, W, _ = x.shape
-    out = torch.empty((B, H, W, w.shape[-1]), dtype=x.dtype,
-                      device=x.device)
-    _launch("dtp_conv3x3", x, w, b, out)
+    B, H, W, cin = x.shape
+    cout = w.shape[-1]
+    out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        from . import gn_conv
+
+        if not gn_conv.upconv_tma_describable(x, w):
+            raise ValueError("conv3x3: TMA needs Cin and Cout multiples of "
+                             "8 and 16-byte-aligned bases, got x "
+                             f"{tuple(x.shape)}, w {tuple(w.shape)}")
+        plan = gn_conv.same_sm90_plan(B, H, W, cin, cout, consumers, splits)
+        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
+                            device=x.device) if plan["work_floats"] else None)
+        symbol = "dtp_conv3x3_sm90"
+        fn = _cuda.function(gn_conv.GN_SM90_SOURCE, symbol,
+                            _SAME_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
+                  _ptr(work), B, H, W, cin, cout, consumers or 0,
+                  splits or 0, _cuda.stream_of(x))
+        _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
+    else:
+        _launch("dtp_conv3x3", x, w, b, out)
     conv3x3_launches.record((tuple(x.shape), tuple(w.shape)))
     return out
 

@@ -11,34 +11,36 @@ with no pass of its own over the tensor:
     h1, s1 = gn_conv(x,  affine(s_x), conv1)          # GN1 + SiLU + conv1
     y,  sy = gn_conv(h1, affine(s1),  conv2, res=x')  # GN2 + SiLU + conv2
 
-Kernels (csrc/conv3x3.cu, the conv family's fused modes, and two sm_90a
-kernels); a wrapper takes the plain version only for a tensor on the CPU,
-and for a CUDA tensor it launches the kernel or raises:
+Kernels: in bf16 wgmma/TMA kernels for sm_90a, in fp32 the FMA twins of
+csrc/conv3x3.cu (whose entries refuse bf16); operands TMA cannot describe
+raise ValueError. A wrapper takes the plain version only for a tensor on
+the CPU, and for a CUDA tensor it launches the kernel or raises:
 
   gn_conv_resident  kernel K1 (replaces conv3x3.py _gn_conv_resident_pallas /
                     _gn_res_kernel), the UNet's resnets
   gn_conv_stream    kernel K5 (replaces gn_conv_stream.py
                     _stream_fused_pallas / _kernel), the VAE's resnets and
                     heads; the same kernel as K1, counted apart. In bf16 a
-                    warp-specialised wgmma/TMA implicit GEMM with the
-                    prologue once per staged element and its statistics in
-                    the epilogue (csrc/gn_conv_sm90.cu; operands TMA cannot
-                    describe raise ValueError; a head whose Cout is off 8
-                    passes a zero-padded weight and `out_channels`), in fp32
-                    the conv family's fused mode (its FMA twin)
+                    warp-specialised implicit GEMM with the prologue once
+                    per staged element and its statistics in the epilogue
+                    (csrc/gn_conv_sm90.cu dtp_gn_conv3x3_sm90; a head whose
+                    Cout is off 8 passes a zero-padded weight and
+                    `out_channels`)
   upconv_stream     kernel K6 (replaces gn_conv_stream.py
-                    _upconv_stream_pallas / _upconv_stream_kernel)
+                    _upconv_stream_pallas / _upconv_stream_kernel), the VAE
+                    decoder's upsamplers: in bf16 K4's four parity planes
+                    with the pre-rounding statistics in the epilogue
+                    (csrc/gn_conv_sm90.cu dtp_upsample2x_conv3x3_stats_sm90)
   downconv_stream   kernel K9 (replaces gn_conv_stream.py
                     _downconv_stream_pallas / _downconv_kernel), the VAE
-                    encoder's level transitions: in bf16 a warp-specialised
-                    wgmma/TMA implicit GEMM with its statistics in the
-                    epilogue (csrc/conv_sm90.cu; operands TMA cannot
-                    describe raise ValueError), in fp32 the conv family's
-                    stride-2 mode (its FMA twin)
+                    encoder's level transitions: in bf16 a stride-2 implicit
+                    GEMM with its statistics in the epilogue
+                    (csrc/conv_sm90.cu)
 
-The bf16 K4 (ops/conv3x3.py upsample2x_conv3x3) runs the upsample mode of
-csrc/gn_conv_sm90.cu; its plan, upconv_sm90_plan, is here beside K1/K5's,
-with which it shares the tile geometry.
+The bf16 K4 and K7 (ops/conv3x3.py upsample2x_conv3x3, conv3x3) run the
+upsample and PLAIN modes of csrc/gn_conv_sm90.cu; their plans,
+upconv_sm90_plan and same_sm90_plan, are here beside K1/K5's, whose tile
+geometry they share.
 
 Statistics are (B, 2, C) fp32: row 0 the sum, row 1 the sum of squares over
 the spatial axes (the TPU's 8-row padding is a sublane minimum and is not
@@ -72,6 +74,8 @@ _UP_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
                 + (ctypes.c_void_p,))
 _DOWN_SM90_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
                        + (ctypes.c_void_p,))
+_UP_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
+                     + (ctypes.c_void_p,))
 
 # bf16 K9 (csrc/conv_sm90.cu), bf16 K1/K5 (csrc/gn_conv_sm90.cu) and what
 # their plans read of the H100
@@ -193,12 +197,13 @@ def downconv_tma_describable(x, w) -> bool:
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
-# --- the bf16 K1/K5's and K4's host plans (csrc/gn_conv_sm90.cu plan,
-# up_plan) ---
+# --- the bf16 K1/K5's, K4's and K6's, and K7's host plans
+# (csrc/gn_conv_sm90.cu plan, up_plan, same_plan) ---
 
 GN_BN, GN_BK, GN_WIN_STAGES, GN_MAX_B_STAGES = 128, 64, 2, 8
 GN_B_BYTES = GN_BK * GN_BN * 2  # one tap's weights of a chunk
 UP_PLANES, UP_MAX_B_STAGES = 4, 12
+SAME_WIN_STAGES, SAME_MAX_B_STAGES = 3, 12
 
 
 def _gn_tile(B, H, W, cin, cout, nc):
@@ -274,29 +279,36 @@ def gn_conv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
                                2 * p["m_tiles"] * p["n_tiles"] >= SM_COUNT)):
         p = of(1)
     _split(p, splits)
-    ctas = p["m_tiles"] * p["n_tiles"]
-    p["work_floats"] = (
-        (2 * B * cs if want_stats else 0)
-        + (2 * B * p["tpi"] * cs if want_stats and p["tpi"] > 1 else 0)
-        + (ctas * p["splits"] * 64 * p["consumers"] * GN_BN + ctas
-           if p["splits"] > 1 else 0))
+    p["work_floats"] = _work_floats(p, B, cs, want_stats)
     return p
+
+
+def _work_floats(p, B, cs, want_stats):
+    """The one buffer beside the output (the source's work_layout): the
+    (B, 2, cs) statistics, the tile partials when an image spans tiles, the
+    split tiles (64 rows a consumer warpgroup or plane) and counters."""
+    ctas = p["m_tiles"] * p["n_tiles"]
+    return ((2 * B * cs if want_stats else 0)
+            + (2 * B * p["tpi"] * cs if want_stats and p["tpi"] > 1 else 0)
+            + (ctas * p["splits"] * 64 * p["consumers"] * GN_BN + ctas
+               if p["splits"] > 1 else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def upconv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
-                     splits: int | None = None) -> dict:
-    """The tile bf16 K4 launches for the source x (B, H, W, cin) and cout
-    output channels: the tile of one K1/K5 consumer warpgroup (64 source
-    pixels; _gn_tile) by 128 channels, for all four parity planes, one
-    warpgroup a plane; two staged input windows (each rounded up to 1 KiB)
-    and `stages` B stages of 64 x 128 folded weights, a multiple of the
-    four planes, each plane's in turn (the bf16 output staging of 4 x 64 x
-    128 aliases them); the mbarriers and split flag, 1024 bytes of
-    alignment. K
-    (ceil(cin/64) chunks x 16 taps) split as K1/K5 split it (or as
-    forced). `work_floats`: the split tiles and counters, 0 without a
-    split. Cached: the dict is shared, read it only."""
+                     splits: int | None = None,
+                     want_stats: bool = False) -> dict:
+    """The tile bf16 K4 and K6 launch for the source x (B, H, W, cin) and
+    cout output channels: the tile of one K1/K5 consumer warpgroup (64
+    source pixels; _gn_tile) by 128 channels, for all four parity planes,
+    one warpgroup a plane; two staged input windows (each rounded up to 1
+    KiB) and `stages` B stages of 64 x 128 folded weights, a multiple of
+    the four planes, each plane's in turn (the bf16 output staging of 4 x
+    64 x 128 and K6's per-warp sums after it alias them); the mbarriers and
+    split flag, 1024 bytes of alignment. K (ceil(cin/64) chunks x 16 taps)
+    split as K1/K5 split it (or as forced). `work_floats`: K6's (B, 2,
+    cout) statistics and tile partials when `want_stats`, then the split
+    tiles and counters. Cached: the dict is shared, read it only."""
     p = dict(consumers=UP_PLANES, **_gn_tile(B, H, W, cin, cout, 1))
     fixed = (GN_WIN_STAGES * p["win_bytes"]
              + 8 * (2 * GN_WIN_STAGES + UP_MAX_B_STAGES) + 16 + 1024)
@@ -304,15 +316,36 @@ def upconv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
                       // UP_PLANES * UP_PLANES)
     p["smem"] = fixed + p["stages"] * GN_B_BYTES
     _split(p, splits)
-    ctas = p["m_tiles"] * p["n_tiles"]
-    p["work_floats"] = (ctas * p["splits"] * 64 * UP_PLANES * GN_BN + ctas
-                        if p["splits"] > 1 else 0)
+    p["work_floats"] = _work_floats(p, B, cout, want_stats)
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def same_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
+                   consumers: int | None = None,
+                   splits: int | None = None) -> dict:
+    """The tile bf16 K7 launches for x (B, H, W, cin) and cout output
+    channels: K1/K5's tile, consumer warpgroups and split of K
+    (gn_conv_sm90_plan); no prologue, so no V buffers: three staged input
+    windows (or the bf16 output staging that aliases them, if larger) and
+    up to 12 B stages; the mbarriers and split flag, 1024 bytes of
+    alignment. `work_floats`: the split tiles and counters, 0 without a
+    split. Cached: the dict is shared, read it only."""
+    p = dict(gn_conv_sm90_plan(B, H, W, cin, cout, cout, False, consumers,
+                               splits))
+    region0 = max(SAME_WIN_STAGES * p["win_bytes"],
+                  64 * p["consumers"] * GN_BN * 2)
+    fixed = (region0 + 8 * 2 * (SAME_WIN_STAGES + SAME_MAX_B_STAGES) + 16
+             + 1024)
+    p["stages"] = min(SAME_MAX_B_STAGES, (SMEM_LIMIT - fixed) // GN_B_BYTES)
+    p["smem"] = fixed + p["stages"] * GN_B_BYTES
     return p
 
 
 def upconv_tma_describable(x, taps) -> bool:
-    """Whether TMA can read bf16 K4's operands: Cin and Cout multiples of 8
-    (rows of whole 16 bytes) and 16-byte-aligned bases."""
+    """Whether TMA can read bf16 K4's or K6's operands (or K7's, with its
+    3x3 weight for taps): Cin and Cout multiples of 8 (rows of whole 16
+    bytes) and 16-byte-aligned bases."""
     return (x.shape[-1] % 8 == 0 and taps.shape[-1] % 8 == 0
             and x.data_ptr() % 16 == 0 and taps.data_ptr() % 16 == 0)
 
@@ -515,6 +548,13 @@ def upconv_stream(x, w, b, taps, want_stats=True):
     conv3x3.fold_upsample_weights, by kernel K6 on CUDA."""
     if x.device.type == "cpu":
         return upconv_stream_plain(x, w, b, want_stats)
+    return _upconv_stream(x, b, taps, want_stats)
+
+
+def _upconv_stream(x, b, taps, want_stats=True, splits=None):
+    """K6 on CUDA: bf16 runs csrc/gn_conv_sm90.cu (`splits` forces its
+    split of K: the tests and tools/sm90_plans.py call this entry with it),
+    fp32 csrc/conv3x3.cu."""
     _check("upconv_stream", x, taps, (16,), b)
     B, H, W, cin = x.shape
     cout = taps.shape[-1]
@@ -522,18 +562,39 @@ def upconv_stream(x, w, b, taps, want_stats=True):
         raise ValueError(f"upconv_stream: bias {tuple(b.shape)} {b.dtype}")
     out = torch.empty((B, 2 * H, 2 * W, cout), dtype=x.dtype,
                       device=x.device)
-    bf16 = int(x.dtype == torch.bfloat16)
+    key = ((B, H, W, cin), (3, 3, cin, cout), bool(want_stats))
+    if x.dtype == torch.bfloat16:
+        if not upconv_tma_describable(x, taps):
+            raise ValueError("upconv_stream: TMA needs Cin and Cout "
+                             "multiples of 8 and 16-byte-aligned bases, got "
+                             f"x {tuple(x.shape)}, taps {tuple(taps.shape)}")
+        plan = upconv_sm90_plan(B, H, W, cin, cout, splits, bool(want_stats))
+        # one allocation: the (B, 2, Cout) statistics first, then any tile
+        # partials, split tiles and counters
+        stats = work = None
+        if plan["work_floats"]:
+            work = torch.empty(plan["work_floats"], dtype=torch.float32,
+                               device=x.device)
+            if want_stats:
+                stats = work[:2 * B * cout].view(B, 2, cout)
+        symbol = "dtp_upsample2x_conv3x3_stats_sm90"
+        fn = _cuda.function(GN_SM90_SOURCE, symbol, _UP_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), taps.data_ptr(), _ptr(b), out.data_ptr(),
+                  _ptr(work), B, H, W, cin, cout, int(want_stats),
+                  splits or 0, _cuda.stream_of(x))
+        _cuda.check(GN_SM90_SOURCE, symbol, code)
+        upconv_stream_launches.record(key)
+        return out, stats
     splits = _cuda.function("conv3x3", "dtp_upsample2x_conv3x3_splits",
-                            _SPLIT_ARGTYPES)(B, H, W, cin, cout, bf16)
+                            _SPLIT_ARGTYPES)(B, H, W, cin, cout, 0)
     partial, ws, stats = _workspaces(x, out, splits, want_stats, 4 * H * W)
     fn = _cuda.function("conv3x3", "dtp_upsample2x_conv3x3_stats",
                         _UP_ARGTYPES)
     code = fn(x.data_ptr(), taps.data_ptr(), _ptr(b), out.data_ptr(),
               _ptr(partial), _ptr(ws), _ptr(stats), B, H, W, cin, cout,
-              splits, int(want_stats), bf16, _cuda.stream_of(x))
+              splits, int(want_stats), 0, _cuda.stream_of(x))
     _cuda.check("conv3x3", "dtp_upsample2x_conv3x3_stats", code)
-    upconv_stream_launches.record((tuple(x.shape), (3, 3, cin, cout),
-                                   bool(want_stats)))
+    upconv_stream_launches.record(key)
     return out, stats
 
 

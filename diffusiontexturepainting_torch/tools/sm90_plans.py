@@ -1,8 +1,9 @@
-"""A/B of the tile plans of the bf16 K2, K9, K1/K5, K3 and K4 kernels, and
-of K14's.
+"""A/B of the tile plans of the bf16 K2, K9, K1/K5, K3, K4, K6 and K7
+kernels, and of K14's.
 
     python -m diffusiontexturepainting_torch.tools.sm90_plans
     python -m diffusiontexturepainting_torch.tools.sm90_plans --rows ff,upconv
+    python -m diffusiontexturepainting_torch.tools.sm90_plans --rows upstats,same
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
         --device cpu --shapes tiny
 
@@ -29,7 +30,16 @@ the function); K4 (ops/conv3x3.py _upsample2x_conv3x3, the upsample mode
 of csrc/gn_conv_sm90.cu) at the UNet's upsample shapes at the same points
 under its plan's split and without one, F.conv_transpose2d (stride 2,
 padding 1, channels-last) on the 4x4 weight assembled from the folded taps
-beside. Seeded normal inputs, bf16. Each row: ms a call (CUDA
+beside; with --rows upstats,same (not in the default rows either): K6
+(ops/gn_conv.py _upconv_stream, K4's kernel with the statistics in its
+epilogue) at the VAE decoder's upsamplers at 256^2, 512^2 and 1024^2 under
+its plan's split and without one, F.conv_transpose2d on the assembled
+weight beside (no statistics); K7 (ops/conv3x3.py _conv3x3, the PLAIN mode
+of csrc/gn_conv_sm90.cu) at every shape of the safe twin's 256^2 stamp
+under its plan and without a split, beside the K1/K5 kernel called with
+no prologue, residual or statistics (the same function through the V
+buffers: row "K1/K5 no prologue") and F.conv2d (channels-last, SAME).
+Seeded normal inputs, bf16. Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph: the
 device's time alone), the CTAs of its grid, whether it is the plan's
@@ -46,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention, conv3x3, ff_geglu, gn_conv, groupnorm
-from . import _common
+from . import _common, kernel_ab
 
 # attention (B, L, D, heads, tag); downconv (B, H, W, Cin, Cout, tag)
 SHAPE_SETS = {
@@ -91,7 +101,14 @@ SHAPE_SETS = {
                    for res, h0 in ((256, 4), (512, 8), (1024, 16))
                    for (h, c, level) in ((h0, 1280, "level 3"),
                                          (2 * h0, 1280, "level 2"),
-                                         (4 * h0, 640, "level 1"))]},
+                                         (4 * h0, 640, "level 1"))],
+        # (B, H, W, C, tag): the VAE decoder's upsamplers' sources, batch 1
+        "upstats": [(1, h, h, c, f"{res}^2 VAE up {level}")
+                    for res, h0 in ((256, 32), (512, 64), (1024, 128))
+                    for (h, c, level) in ((h0, 512, "0"), (2 * h0, 512, "1"),
+                                          (4 * h0, 256, "2"))],
+        # (B, H, W, Cin, Cout, tag): K7 at the safe twin's 256^2 stamp
+        "same": None},
     "tiny": {
         "attention": [(1, 100, 80, 2, "tiny hd 40"),
                       (1, 70, 512, 1, "tiny hd 512")],
@@ -99,8 +116,11 @@ SHAPE_SETS = {
         "gn_conv": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
         "moments": [(2, 5, 7, 40, "tiny")],
         "ff": [(37, 64, 256, "tiny")],
-        "upconv": [(1, 5, 7, 16, "tiny"), (3, 4, 4, 24, "tiny 4x4")]},
+        "upconv": [(1, 5, 7, 16, "tiny"), (3, 4, 4, 24, "tiny 4x4")],
+        "upstats": [(1, 5, 7, 16, "tiny"), (2, 9, 6, 24, "tiny 2 images")],
+        "same": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")]},
 }
+SHAPE_SETS["stamp"]["same"] = kernel_ab.TWIN_K7
 
 
 def _times(fn) -> dict:
@@ -337,6 +357,90 @@ def _upconv_rows(shapes, gen, device, timed):
     return rows
 
 
+def _upstats_rows(shapes, gen, device, timed):
+    rows = []
+    for B, H, W, C, tag in shapes:
+        x = torch.randn((B, H, W, C), generator=gen, device=device).bfloat16()
+        w = (torch.randn((3, 3, C, C), generator=gen, device=device)
+             * (9 * C) ** -0.5).bfloat16()
+        b = (torch.randn(C, generator=gen, device=device) * 0.1).bfloat16()
+        taps = conv3x3.fold_upsample_weights(w)
+        want, want_st = gn_conv.upconv_stream_plain(x, w, b)
+        chosen = gn_conv.upconv_sm90_plan(B, H, W, C, C, None, True)
+        arms = [None] + ([1] if timed and chosen["splits"] > 1 else [])
+        for splits in arms:
+            p = gn_conv.upconv_sm90_plan(B, H, W, C, C, splits, True)
+            if device == "cpu":  # the wrapper's CPU route: the plain version
+                call = (lambda: gn_conv.upconv_stream(x, w, b, taps))
+            else:
+                call = (lambda splits=splits: gn_conv._upconv_stream(
+                    x, b, taps, True, splits))
+            got, st = call()
+            rows.append({"kernel": "K6", "tag": tag, "shape": [B, H, W, C, C],
+                         "splits": p["splits"], "plan": splits is None,
+                         "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
+                         "max_diff": _common.max_diff(got, want),
+                         "stats_max_diff": _common.max_diff(st, want_st),
+                         **(_times(call) if timed
+                            else {"ms": None, "device_ms": None})})
+        if timed:
+            xc = x.permute(0, 3, 1, 2)
+            w4 = conv3x3.transposed_upsample_weight(taps).contiguous(
+                memory_format=torch.channels_last)
+            rows.append({"kernel": "F.conv_transpose2d", "tag": tag,
+                         "shape": [B, H, W, C, C],
+                         **_times(lambda: F.conv_transpose2d(
+                             xc, w4, b, stride=2, padding=1))})
+    return rows
+
+
+def _same_rows(shapes, gen, device, timed):
+    rows = []
+    for B, H, W, cin, cout, tag in shapes:
+        x = torch.randn((B, H, W, cin), generator=gen,
+                        device=device).bfloat16()
+        w = (torch.randn((3, 3, cin, cout), generator=gen, device=device)
+             * (9 * cin) ** -0.5).bfloat16()
+        b = (torch.randn(cout, generator=gen, device=device) * 0.1).bfloat16()
+        want = conv3x3.conv3x3_plain(x, w, b)
+        chosen = gn_conv.same_sm90_plan(B, H, W, cin, cout)
+        arms = [None] + ([1] if timed and chosen["splits"] > 1 else [])
+        for splits in arms:
+            p = gn_conv.same_sm90_plan(B, H, W, cin, cout, splits=splits)
+            if device == "cpu":  # the wrapper's CPU route: the plain version
+                call = (lambda: conv3x3.conv3x3(x, w, b))
+            else:
+                call = (lambda splits=splits: conv3x3._conv3x3(
+                    x, w, b, splits=splits))
+            rows.append({"kernel": "K7", "tag": tag,
+                         "shape": [B, H, W, cin, cout],
+                         "consumers": p["consumers"], "splits": p["splits"],
+                         "plan": splits is None,
+                         "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
+                         "max_diff": _common.max_diff(call(), want),
+                         **(_times(call) if timed
+                            else {"ms": None, "device_ms": None})})
+        if timed:
+            # the zero-code variant: K1/K5's kernel with no prologue,
+            # residual or statistics (its windows copied through V)
+            p = gn_conv.gn_conv_sm90_plan(B, H, W, cin, cout, cout, False)
+            call = (lambda: gn_conv._gn_conv3x3(x, None, None, w, b, None,
+                                                False, False)[0])
+            rows.append({"kernel": "K1/K5 no prologue", "tag": tag,
+                         "shape": [B, H, W, cin, cout],
+                         "consumers": p["consumers"], "splits": p["splits"],
+                         "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
+                         "max_diff": _common.max_diff(call(), want),
+                         **_times(call)})
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            rows.append({"kernel": "F.conv2d", "tag": tag,
+                         "shape": [B, H, W, cin, cout],
+                         **_times(lambda: F.conv2d(xc, wc, b, padding=1))})
+    return rows
+
+
 def main(argv=None) -> int:
     args = _common.parse_args(
         __doc__, SHAPE_SETS, "stamp", argv,
@@ -350,13 +454,14 @@ def main(argv=None) -> int:
     sets = SHAPE_SETS[args.shapes]
     groups = {"attention": _attention_rows, "downconv": _downconv_rows,
               "gn_conv": _gn_conv_rows, "moments": _moments_rows,
-              "ff": _ff_rows, "upconv": _upconv_rows}
+              "ff": _ff_rows, "upconv": _upconv_rows,
+              "upstats": _upstats_rows, "same": _same_rows}
     rows = []
     with torch.inference_mode():
         for name in args.rows.split(","):
             rows += groups[name](sets[name], gen, args.device, timed)
     for r in rows:
-        print(f"{r['kernel']:8s} {r['tag']:28s} "
+        print(f"{r['kernel']:18s} {r['tag']:28s} "
               + (f"bucket {r['bucket']} " if "bucket" in r else "")
               + (f"consumers {r['consumers']} " if "consumers" in r else "")
               + (f"splits {r['splits']} " if "splits" in r else "")

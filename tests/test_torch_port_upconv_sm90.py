@@ -378,13 +378,13 @@ def test_sm90_upconv_plan_matches_the_library():
     the served and ragged shapes, forced splits included."""
     _setup()
     fn = _cuda.library("gn_conv_sm90").dtp_upsample2x_conv3x3_sm90_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     out = (ctypes.c_longlong * 15)()
     fields = ("tw", "rows", "nb", "win_lines", "stages", "smem", "tiles_h",
               "tiles_w", "tpi", "m_tiles", "n_tiles", "chunks", "splits",
               "per_split", "work_floats")
     for B, H, W, cin, cout in SERVED + TWIN_VAE + RAGGED:
         for splits in (0, 1, 3):
-            assert fn(B, H, W, cin, cout, splits, out) == 0
+            assert fn(B, H, W, cin, cout, 0, splits, out) == 0
             p = gn_conv.upconv_sm90_plan(B, H, W, cin, cout, splits or None)
             assert list(out) == [p[f] for f in fields]
