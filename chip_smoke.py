@@ -9,8 +9,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                printed; ptxas's registers and spills, none allowed in the
                bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu), the
                bf16 K9 kernel (csrc/conv_sm90.cu), the bf16 K1/K5, K4, K6
-               and K7 kernels (csrc/gn_conv_sm90.cu) or the bf16 K3 kernel
-               (csrc/ff_geglu_sm90.cu);
+               and K7 kernels (csrc/gn_conv_sm90.cu), the bf16 K3 kernel
+               (csrc/ff_geglu_sm90.cu) or the bf16 T10 kernel
+               (csrc/pv_product_sm90.cu);
   3. probe     each kernel against its plain version at a few shapes,
                K2 at its four launched head dims (40, 80, 160, 512) and a
                ragged length, the 16384-token streaming attentions (K8)
@@ -23,9 +24,11 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                them, K6 and K7 at ragged shapes; K9, K1/K5, K14, K6 and K7
                bit-identical on replay, output and statistics; K6's
                statistics also against its own fp32 output before the
-               rounding; the bf16 K2/K8/K13, K9, K1/K5, K3, K4, K6 and K7
-               refuse what TMA cannot describe (ValueError, no launch); the
-               fp32 entries of csrc/conv3x3.cu refuse bf16;
+               rounding; T10 and T4 bit-identical on replay; the bf16
+               K2/K8/K13, K9, K1/K5, K3, K4, K6, K7, T10 and T4 refuse what
+               TMA cannot describe (ValueError, no launch); the fp32 entries
+               of csrc/conv3x3.cu, T10's (attn_transposed.cu) and T4's
+               (attn_layouts.cu) refuse bf16;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -94,14 +97,15 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   9b. slotted_arm
                the slotted-input arm T4 (slotted_kernel_call: the row-max
                softmax with exp2 of bf16 logits over (B*h, L, 128) head
-               slots; csrc/attn_layouts.cu) at the slotted path's K13 shapes
+               slots; bf16 on K13's two-pass kernel in
+               csrc/flash_attention_sm90.cu) at the slotted path's K13 shapes
                (512^2 / 4: 4096 tokens at hd 40, 1024 at hd 80), each as
                often as a stamp launches K13 there (20 a shape), the slots
                split outside the counted calls; each output against its
                plain version and against K13 on the same data;
   9c. pv_product
                T10 (pv_product: the P V product alone, PV_ITERS passes a
-               call; csrc/attn_transposed.cu) at the TPU tool's three
+               call; bf16 on csrc/pv_product_sm90.cu) at the TPU tool's three
                shapes (bq, Lk, hd) with bh 1, as e v and as (v^T e^T)^T,
                one call each, each against its plain version, the two
                orientations against each other;
@@ -122,8 +126,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                same function where there is one (for K1/K5 and K9 the conv
                alone), at the shapes of the path it is reported for, beside
                its bound (K2, K3, K4, K6, K9, K1, K5 and K14 also at the
-               envelope path's; K1/K5, K14, K3, K4, K6 and K7 also in
-               CUDA-graph device time);
+               envelope path's; K1/K5, K14, K3, K4, K6, K7, T4 and T10
+               also in CUDA-graph device time; T10 also beside a chain of
+               PV_ITERS torch.baddbmm calls, as many products);
  10. no jax    the run imported neither JAX, nor the JAX package, nor
                tornado, nor PIL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -213,9 +218,11 @@ SOURCES = {
     "nomax_4d": "csrc/attn_layouts.cu",
     "nomax_allheads": "csrc/attn_layouts.cu",
     "nomax_laneslice": "csrc/attn_layouts.cu",
-    "slotted_kernel_call": "csrc/attn_layouts.cu",
+    # bf16; fp32 runs attn_layouts.cu
+    "slotted_kernel_call": "csrc/flash_attention_sm90.cu",
     "sublane_attention": "csrc/attn_transposed.cu",
-    "pv_product": "csrc/attn_transposed.cu",
+    # bf16; fp32 runs attn_transposed.cu
+    "pv_product": "csrc/pv_product_sm90.cu",
     "conv_window_taps": "csrc/conv_arms.cu",
     "pipelined": "csrc/conv_arms.cu",
 }
@@ -352,8 +359,12 @@ FAMILY_IS = {
           "input is 0, T12's silu(c))",
 }
 # The PyTorch composition timed beside a kernel that no one PyTorch call
-# computes: not a library call, reported apart from library_ms.
+# computes, or (T10) beside the library call, the chain of calls that
+# issues as many products as the kernel: not a library call, reported apart
+# from library_ms.
 COMPOSITION_IS = {
+    PV: "note, not the library call: iters chained torch.baddbmm(acc, e, "
+        "v) calls, as many products as the kernel issues",
     "ff_geglu": "composition, not one call: F.linear(x, w0, b0) and "
                 "F.linear(h, w2, b2) in bf16, the GEGLU elementwise between "
                 "them (F.gelu in bf16) and the residual add",
@@ -380,10 +391,11 @@ ARM_LAUNCHES = 20
 # host's launch cost left out) is also taken at their timed shapes, with
 # their library call's: the kernels this round of work redesigned last
 DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
-                "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3")
+                "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3",
+                SLOTTED_ARM, PV)
 # the sources whose ptxas report must show no spill
 NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
-            "ff_geglu_sm90")
+            "ff_geglu_sm90", "pv_product_sm90")
 # Kernels also timed at a second path's shapes: K2, K3, K4, K6, K9, K1, K5
 # and K14 at the 1024^2 envelope's
 ALSO_REPORTED_ON = {"flash_attention": "envelope",
@@ -537,11 +549,18 @@ def _kernel_case(kind, shape_key, dtype, gen):
         v = torch.rand(v_shape, generator=gen, device="cuda").to(dtype)
         out = torch.empty((*e_shape[:2], v_shape[2]), dtype=dtype,
                           device="cuda")
+
+        def chain():
+            acc = torch.zeros_like(out)
+            for _ in range(iters):
+                acc = torch.baddbmm(acc, e, v)
+            return acc
         return (lambda: attention_variants.pv_product(
                     e, v, transposed=transposed, iters=iters),
                 lambda: attention_variants.plain_pv_product(
                     e, v, transposed=transposed, iters=iters),
-                lambda: torch.baddbmm(out, e, v, beta=0, alpha=iters))
+                lambda: torch.baddbmm(out, e, v, beta=0, alpha=iters),
+                None, chain)
     if kind == TAPS:
         # an image cut into row windows with halo, as a streamed conv
         # would see them; `shifted` is then the SAME conv of the image
@@ -1816,9 +1835,13 @@ def tma_refusal_probe(gen):
     and 24 bytes) and on an input 2 bytes off 16, K5 at Cout 3 without the
     padded weight; K3 (csrc/ff_geglu_sm90.cu) at C 36, at inner 36 and on
     an input 2 bytes off 16; K4, K6 and K7 (csrc/gn_conv_sm90.cu's upsample
-    and PLAIN modes) at Cin 20, at Cout 12 and on an input 2 bytes off 16.
-    Then csrc/conv3x3.cu's fp32 entries of K7, K4 and K6 called in bf16:
-    each returns cudaErrorInvalidValue, and its split plan -1."""
+    and PLAIN modes) at Cin 20, at Cout 12 and on an input 2 bytes off 16;
+    T10 (csrc/pv_product_sm90.cu) at Lk 1100, at hd 36 and on an e 2 bytes
+    off 16; T4 (csrc/flash_attention_sm90.cu's slotted mode) at P 36 and on
+    a q 2 bytes off 16. Then csrc/conv3x3.cu's fp32 entries of K7, K4 and
+    K6, attn_transposed.cu's T10 and attn_layouts.cu's T4 called in bf16:
+    each returns cudaErrorInvalidValue, and the conv entries' split plans
+    -1."""
     import torch
 
     from diffusiontexturepainting_torch.ops import (
@@ -1827,6 +1850,7 @@ def tma_refusal_probe(gen):
         ff_geglu,
         gn_conv,
     )
+    from diffusiontexturepainting_torch.ops import attention_variants as av
 
     x = torch.randn((1, 256, 4 * 36), generator=gen,
                     device="cuda").bfloat16()
@@ -1897,13 +1921,36 @@ def tma_refusal_probe(gen):
              "conv3x3 Cout 12": lambda: conv3x3.conv3x3(xd, wd, None),
              "conv3x3 x 2 bytes off 16":
              lambda: conv3x3.conv3x3(off, w16, None)}
+    e_flat = torch.rand(1 + 64 * 1096, generator=gen,
+                        device="cuda").bfloat16()
+    v_ok = torch.rand((1, 1096, 40), generator=gen, device="cuda").bfloat16()
+    e_ok = e_flat[:64 * 1096].view(1, 64, 1096)
+    e_1100 = torch.rand((1, 64, 1100), generator=gen,
+                        device="cuda").bfloat16()
+    v_1100 = torch.rand((1, 1100, 40), generator=gen,
+                        device="cuda").bfloat16()
+    v_36 = torch.rand((1, 1096, 36), generator=gen, device="cuda").bfloat16()
+    s_36 = torch.randn((2, 64, 36), generator=gen, device="cuda").bfloat16()
+    s_flat = torch.randn(1 + 2 * 64 * 128, generator=gen,
+                         device="cuda").bfloat16()
+    s_off = s_flat[1:].view(2, 64, 128)
+    calls.update({
+        "pv_product Lk 1100": lambda: av.pv_product(e_1100, v_1100),
+        "pv_product hd 36": lambda: av.pv_product(e_ok, v_36),
+        "pv_product e 2 bytes off 16":
+        lambda: av.pv_product(e_flat[1:].view(1, 64, 1096), v_ok),
+        "slotted_kernel_call P 36":
+        lambda: av.slotted_kernel_call(s_36, s_36, s_36, 0.1),
+        "slotted_kernel_call q 2 bytes off 16":
+        lambda: av.slotted_kernel_call(s_off, s_off, s_off, 0.1)})
     counters = (attention.flash_launches, attention.flash_streaming_launches,
                 attention.flash_slotted_launches,
                 gn_conv.downconv_stream_launches,
                 gn_conv.gn_conv_resident_launches,
                 gn_conv.gn_conv_stream_launches, ff_geglu.ff_geglu_launches,
                 conv3x3.upsample_launches, gn_conv.upconv_stream_launches,
-                conv3x3.conv3x3_launches)
+                conv3x3.conv3x3_launches, av.pv_product_launches,
+                av.slotted_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -1932,32 +1979,69 @@ def tma_refusal_probe(gen):
         "dtp_upsample2x_conv3x3_stats": _cuda.function(
             "conv3x3", "dtp_upsample2x_conv3x3_stats", gn_conv._UP_ARGTYPES)(
             *ptrs, stats.data_ptr(), stats.data_ptr(), stats.data_ptr(), 1,
-            8, 8, 16, 16, 1, 1, 1, stream)}
+            8, 8, 16, 16, 1, 1, 1, stream),
+        "dtp_pv_product": _cuda.function(
+            "attn_transposed", "dtp_pv_product", av._PV_ARGTYPES)(
+            e_ok.data_ptr(), v_ok.data_ptr(), out.data_ptr(), 1, 8, 8, 8, 1,
+            0, 1, stream),
+        "dtp_slotted_attention": _cuda.function(
+            "attn_layouts", "dtp_slotted_attention", av._SLOTTED_ARGTYPES)(
+            x8.data_ptr(), x8.data_ptr(), x8.data_ptr(), out.data_ptr(), 1,
+            8, 8, 16, 0.1, 1, 1, stream)}
     splits = {symbol: _cuda.function("conv3x3", f"{symbol}_splits",
                                      conv3x3._SPLIT_ARGTYPES)(
         1, 8, 8, 16, 16, 1)
         for symbol in ("dtp_conv3x3", "dtp_upsample2x_conv3x3")}
     torch.cuda.synchronize()
     if set(codes.values()) != {1} or set(splits.values()) != {-1}:
-        raise AssertionError(f"probe: conv3x3.cu in bf16 gave {codes}, "
+        raise AssertionError(f"probe: fp32 entries in bf16 gave {codes}, "
                              f"split plans {splits}")
-    log(f"probe: conv3x3.cu's fp32 entries refuse bf16: {codes} "
-        "(cudaErrorInvalidValue), split plans -1")
+    log(f"probe: conv3x3.cu's, attn_transposed.cu's T10 and attn_layouts.cu's "
+        f"T4 fp32 entries refuse bf16: {codes} (cudaErrorInvalidValue), "
+        "conv split plans -1")
 
 
 def replay_probe(gen):
     """bf16 K9 at the default stamp's three shapes, K1/K5 at a split-K, a
     whole-image and a tiled shape, K14 on K1/K5's inputs, K3 and K4 at the
     default stamp's shapes whose K splits, K6 at the default stamp's three
-    shapes and a forced split, and K7 at three of the safe twin's split
-    shapes, each twice on the same inputs: outputs and statistics
-    bit-identical (fixed reduction orders, no float atomics); K1/K5's and
-    K14's statistics also those of their own outputs, K6's those of its
-    fp32 output before the rounding (STATS_SELF_TOL)."""
+    shapes and a forced split, K7 at three of the safe twin's split
+    shapes, T10 at its tool's three shapes in both orientations (the
+    partials of many CTAs added by the last) and T4 at the slotted arm's
+    two shapes in both softmax flavours, each twice on the same inputs:
+    outputs and statistics bit-identical (fixed reduction orders, no float
+    atomics); K1/K5's and K14's statistics also those of their own
+    outputs, K6's those of its fp32 output before the rounding
+    (STATS_SELF_TOL)."""
     import torch
     import torch.nn.functional as F
 
+    from diffusiontexturepainting_torch.ops import attention_variants as av
     from diffusiontexturepainting_torch.ops import ff_geglu, gn_conv
+
+    for bq, lk, hd in PV_SHAPES:
+        for transposed in (False, True):
+            key = ((1, bq, lk), (1, lk, hd), transposed, PV_ITERS)
+            kernel = kernel_case(PV, key, torch.bfloat16, gen)[0]
+            first, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            if not torch.equal(first, again):
+                raise AssertionError(f"probe: {PV} {key} differs on replay")
+            plan = av.pv_sm90_plan(1, bq, lk, hd, PV_ITERS, transposed)
+            log(f"probe: {PV} {key} bf16 ({plan['ctas']} CTAs: "
+                f"{plan['tiles']} tiles x {plan['nk']} chunks of "
+                f"{plan['chunk']} keys x {plan['gc']}): bit-identical on "
+                "replay")
+    for L, hd in ((4096, 40), (1024, 80)):
+        for exp2_bf16 in (True, False):
+            key = ((24, L, 128), (24, L, 128), 8, hd, exp2_bf16)
+            kernel = kernel_case(SLOTTED_ARM, key, torch.bfloat16, gen)[0]
+            first, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            if not torch.equal(first, again):
+                raise AssertionError(f"probe: {SLOTTED_ARM} {key} differs "
+                                     "on replay")
+            log(f"probe: {SLOTTED_ARM} {key} bf16: bit-identical on replay")
 
     for n, c, inner in ((768, 640, 2560), (192, 1280, 5120),
                         (48, 1280, 5120)):
@@ -2267,7 +2351,8 @@ def kernels_phase(gen, paths):
                if also else {})})
         # the yardstick beside a kernel in the log: the library call, or
         # the composition where no one call computes the function
-        yard = "composition" if name in COMPOSITION_IS else "library"
+        yard = ("composition" if name in COMPOSITION_IS
+                and name not in LIBRARY_IS else "library")
         if name in DEVICE_TIMED:
             log(f"kernels: {name} device time (CUDA-graph replays): "
                 f"{totals['kernel_device'] / n:.4f} ms a stamp, {yard} "
@@ -2448,7 +2533,8 @@ def main() -> int:
         ("pvt_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
         # the layout arms at each register tile and a ragged length; T4 at
         # 128 lanes with fp32 logits (the option the slotted_arm path does
-        # not run), with P = hd (no pad lanes) and at the 160-lane tile
+        # not run), with P = hd (no pad lanes), at the 160-lane bucket in
+        # both flavours (keys != queries) and at 64 lanes
         ("nomax_4d", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("nomax_allheads", ((2, 1100, 1280), (2, 1100, 1280), 8)),
         ("nomax_laneslice", ((2, 1100, 640), (2, 1100, 640), 8)),
@@ -2457,16 +2543,29 @@ def main() -> int:
         ("slotted_kernel_call", ((8, 1100, 80), (8, 1100, 80), 4, 80, True)),
         ("slotted_kernel_call", ((4, 1100, 160), (4, 1100, 160), 2, 150,
                                  True)),
+        ("slotted_kernel_call", ((4, 300, 160), (4, 777, 160), 2, 160,
+                                 False)),
+        ("slotted_kernel_call", ((8, 300, 64), (8, 777, 64), 4, 64, True)),
         # T1 at each register tile, a ragged length, keys != queries
         ("sublane_attention", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("sublane_attention", ((2, 1100, 640), (2, 1000, 640), 8)),
         ("sublane_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
-        # T10: bq off the 64-row slab, Lk off the 64-key step and off the
-        # 16-byte copies, hd off the n8 / m16 tiles, several bh
-        ("pv_product", ((3, 100, 1100), (3, 1100, 40), True, 3)),
+        # T10: bq off the 64-row tile, Lk off every key chunk, hd off the
+        # wgmma N buckets and m64 tiles (bf16 needs Lk and hd multiples of
+        # 8: TMA's 16-byte rows), several bh
+        ("pv_product", ((3, 100, 1096), (3, 1096, 40), True, 3)),
         ("pv_product", ((2, 200, 1096), (2, 1096, 72), False, 2)),
-        ("pv_product", ((2, 72, 200), (2, 200, 150), True, 2)),
-        ("pv_product", ((2, 72, 200), (2, 200, 150), False, 1)),
+        ("pv_product", ((2, 72, 200), (2, 200, 152), True, 2)),
+        ("pv_product", ((2, 72, 200), (2, 200, 152), False, 1)),
+        ("pv_product", ((2, 130, 264), (2, 264, 8), False, 5)),
+        # fp32 T10 (the FMA twin, csrc/attn_transposed.cu) also where bf16's
+        # TMA cannot go: Lk 1100, hd 150
+        ("pv_product", ((3, 100, 1100), (3, 1100, 40), True, 3),
+         (torch.float32,)),
+        ("pv_product", ((2, 72, 200), (2, 200, 150), True, 2),
+         (torch.float32,)),
+        ("pv_product", ((2, 72, 200), (2, 200, 150), False, 1),
+         (torch.float32,)),
         # T12 at the TPU tool's shapes, then odd H and W, Cin 3 and 40, Cout
         # off the tile, a 1x1 image, no bias
         ("pipelined", ((2, 512, 512, 128), (3, 3, 128, 128), True)),
@@ -2486,8 +2585,8 @@ def main() -> int:
                                              (2, 3, 19, 40, 130, 1))
           for read in TAP_READS],
     ]
-    for kind, key in probes:
-        dtypes = (torch.bfloat16, torch.float32) + (
+    for kind, key, *only in probes:
+        dtypes = only[0] if only else (torch.bfloat16, torch.float32) + (
             (torch.float16,) if kind == "spatial_moments" else ())
         for dt in dtypes:
             r = compare(kind, key, dt, gen)

@@ -18,7 +18,8 @@
 //             O^T = V^T P^T with p split into bf16 hi + lo.
 //   kRowmax   the row-max softmax: two passes over K, the first for the
 //             exact row max m, the second for exp2(s - m) (of bf16-rounded
-//             s - m with `bf16_p`) and P V.
+//             s - m with `bf16_p`) and P V; the fp32 twin's only (T1 and
+//             T4 in fp32; bf16 T4 runs flash_attention_sm90.cu).
 //
 // The block-to-work mapping, a template parameter (MAP):
 //   kHeadMajor   one block per (batch, head, query tile), the query tiles
@@ -46,9 +47,9 @@
 // sums reduce over the 4 threads of a quad (shuffles 1, 2). kChunked starts
 // S_{j+1} = Q K_{j+1}^T before the softmax of S_j (K one tile ahead of V in
 // the copy pipeline, two S register tiles) where hd <= 80; at hd 160 the
-// second S tile would not fit beside O, so it runs serially. kRowmax's
-// first pass stages K alone. The output is staged through the warp's own Q
-// rows in shared memory and stored with 16-byte writes.
+// second S tile would not fit beside O, so it runs serially. The output is
+// staged through the warp's own Q rows in shared memory and stored with
+// 16-byte writes.
 //
 // fp32 inputs run an FMA twin, one thread per query row (speed not
 // measured: it exists for fp32 parity with the plain versions).
@@ -276,11 +277,11 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
   const int ntiles = (Lk + BK - 1) / BK;
 
   // Q, pre-scaled and rounded to bf16, then the first tiles. Without the
-  // overlap a copy group holds tile j of K and V; with it, K_{j+1} and V_j;
-  // kRowmax's first pass copies K alone.
+  // overlap a copy group holds tile j of K and V; with it, K_{j+1} and V_j.
+  static_assert(ARM != kRowmax, "the row-max arm runs in fp32 only");
   stage_q<HDP, LD>(Qs, qb, D, q0, a);
   stage_rows<HDP, LD>(Ks, kb, D, 0, BK, Lk, hd, a.vec);
-  if (!OVERLAP && ARM != kRowmax)
+  if (!OVERLAP)
     stage_rows<HDP, LD>(Vs, vb, D, 0, BK, Lk, hd, a.vec);
   cp_async_commit();
   if (OVERLAP) {
@@ -308,42 +309,10 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
 #pragma unroll
     for (int e = 0; e < 4; ++e) O[n][e] = 0.0f;
   float l[2] = {0.0f, 0.0f};
-  // kChunked's running max (the TPU kernel's init), kRowmax's row max
-  float m[2] = {ARM == kRowmax ? -INFINITY : -1e30f,
-                ARM == kRowmax ? -INFINITY : -1e30f};
+  float m[2] = {-1e30f, -1e30f};  // kChunked's running max (the TPU init)
   float S[NS][4];
   float Sn[OVERLAP ? NS : 1][4];
   if (OVERLAP) scores<NK, BK, LD>(S, qf, Ks, nk16, lane);
-
-  if (ARM == kRowmax) {
-    // pass 1: the row max of the same Q K^T tiles pass 2 recomputes bit
-    // for bit; K_{j+1} copies while S_j is computed
-    for (int j = 0; j < ntiles; ++j) {
-      cp_async_wait_all();
-      __syncthreads();
-      const int kv0 = j * BK;
-      if (j + 1 < ntiles)
-        stage_rows<HDP, LD>(Ks + ((j + 1) & 1) * BK * LD, kb, D, kv0 + BK,
-                            BK, Lk, hd, a.vec);
-      cp_async_commit();
-      scores<NK, BK, LD>(S, qf, Ks + (j & 1) * BK * LD, nk16, lane);
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kv0 + n * 8 + 2 * t + (e & 1) < Lk)
-            m[e >> 1] = fmaxf(m[e >> 1], S[n][e]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-    }
-    __syncthreads();  // every warp is done with the last K tile
-    stage_rows<HDP, LD>(Ks, kb, D, 0, BK, Lk, hd, a.vec);
-    stage_rows<HDP, LD>(Vs, vb, D, 0, BK, Lk, hd, a.vec);
-    cp_async_commit();
-  }
 
   for (int j = 0; j < ntiles; ++j) {
     cp_async_wait_all();
@@ -411,20 +380,6 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
         O[n][0] *= corr[0], O[n][1] *= corr[0];
         O[n][2] *= corr[1], O[n][3] *= corr[1];
       }
-    } else if (ARM == kRowmax) {
-      // against the row max of pass 1: every p <= 1, no rescaling
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = 0.0f;
-          if (kv0 + n * 8 + 2 * t + (e & 1) < Lk) {
-            const float d = S[n][e] - m[e >> 1];
-            p = a.bf16_p ? round_bf16(exp2f(round_bf16(d))) : exp2f(d);
-          }
-          l[e >> 1] += p;
-          S[n][e] = p;
-        }
     } else {
       // no max pass: a static shift (T2's options; T5 and T9 safe, fp32 p)
       const bool safe = ARM == kNomax ? a.safe : true;
@@ -738,23 +693,18 @@ cudaError_t launch_f32(ArmArgs a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// hd padded to one of the register tiles: 48 (hd 40), 80, 160, and for
-// kRowmax also 128 (the 128-lane head slots).
+// hd padded to one of the register tiles: 48 (hd 40), 80, 160.
 template <int ARM, int BK, int MAP = kHeadMajor>
 cudaError_t dispatch(ArmArgs a, bool is_bf16, cudaStream_t s) {
   // the fp32 twin's static-shift arms share one body
-  constexpr int F = ARM == kChunked || ARM == kRowmax ? ARM : kNomax;
+  constexpr int F = ARM == kChunked ? ARM : kNomax;
   if (is_bf16) {
     if (a.hd <= 48) return launch_bf16<48, BK, ARM, MAP>(a, s);
     if (a.hd <= 80) return launch_bf16<80, BK, ARM, MAP>(a, s);
-    if constexpr (ARM == kRowmax)
-      if (a.hd <= 128) return launch_bf16<128, BK, ARM, MAP>(a, s);
     return launch_bf16<160, BK, ARM, MAP>(a, s);
   }
   if (a.hd <= 48) return launch_f32<48, BK, F, MAP>(a, s);
   if (a.hd <= 80) return launch_f32<80, BK, F, MAP>(a, s);
-  if constexpr (ARM == kRowmax)
-    if (a.hd <= 128) return launch_f32<128, BK, F, MAP>(a, s);
   return launch_f32<160, BK, F, MAP>(a, s);
 }
 

@@ -23,19 +23,19 @@
 //       together. On the TPU the output block was revisited across h; here
 //       the question is the rasterization order against T6's.
 //
-// and the slotted-input arm:
+// and the slotted-input arm in fp32:
 //
 //   dtp_slotted_attention T4 <- bench_attn_variants.py slotted_kernel_call
 //       (:228, pallas_call :235) over ops/flash_attention.py _attn_kernel:
-//       the row-max softmax (kRowmax, two passes over K as K13's kernel
-//       takes them: the row max, then exp2 and P V) with exp2 of bf16
-//       logits (exp2_bf16, p bf16) or fp32 logits (p rounded to v's type
-//       for P V), the row sum in fp32, the division after P V. Its input is
-//       (B*h, L, P), heads already split and zero-padded to P <= 160 lanes,
-//       with an explicit scale: every lane is read, so at hd 40 and P 128 it
-//       does 3.2 times the products of K13, which reads the hd real lanes.
-//       Every query row is computed (the TPU tool's unclamped q-block grid
-//       left rows unwritten).
+//       the row-max softmax on the fp32 twin (kRowmax: two passes over K,
+//       the row max, then exp2 and P V) with exp2 of bf16 logits
+//       (exp2_bf16, p bf16) or of fp32 logits, the row sum in fp32, the
+//       division after P V. Its input is (B*h, L, P), heads already split
+//       and zero-padded to P <= 160 lanes, with an explicit scale: every
+//       lane is read. Every query row is computed (the TPU tool's unclamped
+//       q-block grid left rows unwritten). bf16 T4 runs K13's two-pass
+//       kernel in csrc/flash_attention_sm90.cu (dtp_slotted_attention_sm90);
+//       this entry refuses bf16.
 #include "attn_arms.cuh"
 
 namespace dtp {
@@ -88,19 +88,24 @@ extern "C" cudaError_t dtp_nomax_laneslice(const void* q, const void* k,
                                             stream);
 }
 
-// T4: q (BH,Lq,P), k and v (BH,Lk,P), out (BH,Lq,P), contiguous, bf16
-// (is_bf16) or fp32; P <= 160 lanes, all read; scale_log2 = scale *
-// log2(e) with the caller's scale; exp2_bf16: exp2 of bf16-rounded logits
-// and a bf16 p.
+// T4 in fp32: q (BH,Lq,P), k and v (BH,Lk,P), out (BH,Lq,P), contiguous;
+// P <= 160 lanes, all read; scale_log2 = scale * log2(e) with the caller's
+// scale; exp2_bf16: exp2 of bf16-rounded logits and a bf16 p. is_bf16 must
+// be 0: bf16 T4 is dtp_slotted_attention_sm90 (flash_attention_sm90.cu).
 extern "C" cudaError_t dtp_slotted_attention(const void* q, const void* k,
                                              const void* v, void* out,
                                              int BH, int Lq, int Lk, int P,
                                              float scale_log2, int exp2_bf16,
                                              int is_bf16, void* stream) {
-  if (dtp::bad(BH, 1, Lq, Lk, P)) return cudaErrorInvalidValue;
+  if (is_bf16 || dtp::bad(BH, 1, Lq, Lk, P)) return cudaErrorInvalidValue;
   auto a = dtp::make_args(q, k, v, out, BH, 1, Lq, Lk, P, scale_log2, 0.0f,
-                          is_bf16);
+                          false);
   a.bf16_p = exp2_bf16 != 0;
-  return dtp::dispatch<dtp::kRowmax, 64>(a, is_bf16,
-                                         static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using dtp::kHeadMajor;
+  using dtp::kRowmax;
+  if (P <= 48) return dtp::launch_f32<48, 64, kRowmax, kHeadMajor>(a, s);
+  if (P <= 80) return dtp::launch_f32<80, 64, kRowmax, kHeadMajor>(a, s);
+  if (P <= 128) return dtp::launch_f32<128, 64, kRowmax, kHeadMajor>(a, s);
+  return dtp::launch_f32<160, 64, kRowmax, kHeadMajor>(a, s);
 }

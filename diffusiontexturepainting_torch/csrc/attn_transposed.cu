@@ -12,12 +12,13 @@
 //       hd <= 160, every query length computed (the TPU wrapper pads Lq to
 //       its block and returns the padded rows).
 //   dtp_pv_product         T10 <- tools/bench_pv_transpose.py bench_shape /
-//       _pv_kernel (pallas_call :66): the P V product alone, `iters` times:
-//       out = T(sum_{i < iters} e v) with each pass's product accumulated in
-//       fp32 from zero and the passes summed in fp32, as e v or as
-//       (v^T e^T)^T. e (bh, bq, Lk), v (bh, Lk, hd), out (bh, bq, hd). The
-//       tool's perturbation of v per pass, (1 + i*1e-9) rounded to v's
-//       type, is exactly 1 in bf16 and is not part of the function here.
+//       _pv_kernel (pallas_call :66) in fp32: the P V product alone,
+//       `iters` times: out = sum_{i < iters} e v with each pass's product
+//       accumulated from zero and the passes summed, as e v or as
+//       (v^T e^T)^T. e (bh, bq, Lk), v (bh, Lk, hd), out (bh, bq, hd). bf16
+//       T10 runs csrc/pv_product_sm90.cu (a split wgmma/TMA GEMM whose
+//       operands stay in shared memory for all passes); this entry
+//       refuses bf16.
 //
 // T1, bf16: a block is 4 warps and 64 queries, a warp 16 queries: the N
 // axis (two n8 tiles) of both products. K rows are the A operand of
@@ -25,8 +26,8 @@
 // fragments, kept in registers. A thread then holds S^T at keys g, g+8 and
 // queries 2t, 2t+1 of each 16 x 8 tile, so the maximum and the sum over the
 // keys reduce over the tiles in the thread and over the eight g lanes
-// (shuffles 4, 8, 16), once per pass. Two passes over K, as kRowmax of
-// attn_arms.cuh takes them: the first for the exact max (K alone staged),
+// (shuffles 4, 8, 16), once per pass. Two passes over K, as K13's kernel
+// (flash_attention_sm90.cu) takes them: the first for the exact max (K alone staged),
 // the second recomputes S^T bit for bit and takes exp2(S^T - m), so e is
 // rounded once against the final max, as the TPU kernel rounds it. The C
 // fragment of S^T is not the B fragment of V^T E^T (which wants key pairs
@@ -38,27 +39,12 @@
 // fp32 inputs run attn_arms.cuh's FMA twin of the row-max softmax (one
 // thread a query row: a transposed product is a tensor-core notion).
 //
-// T10, bf16: a block is 4 warps and a 64-row slab of bq for one bh. On the
-// TPU e is VMEM-resident for all passes (4 MB at the tool's largest
-// shape); here it does not fit 227 KB of shared memory, so the 64 x 64 e
-// tile and the 64 x hd v tile of every step stream through two cp.async
-// stages on EVERY pass, from L2 after the first: the time measures the
-// product fed from L2, not from a resident operand. (A third stage, tried on
-// the card, changed the time of a step by under 1%: the copy is not what a
-// step waits for.) Re-staging each pass
-// is also what keeps the passes from being hoisted. As e v: A = e rows, B
-// = v by ldmatrix.trans over n8 tiles of hd itself (40 = 5 x 8). As
-// (v^T e^T)^T: A = v^T over m16 tiles (40 pads to 48), B = e^T straight
-// from the e rows, the result transposed on the store. Each pass
-// accumulates from zero and is added to the running fp32 sum, as the TPU
-// loop's acc + o. The fp32 twin is one thread an output element (the
-// orientation picks which index runs fastest across threads).
+// T10, fp32: one thread an output element (the orientation picks which
+// index runs fastest across threads).
 //
-// What bounds them on the H100: the tensor cores (T1 4*Lq*Lk*hd flops a
-// head; T10 2*bq*Lk*hd a pass against bq*Lk + Lk*hd + bq*hd elements moved
-// once). mma.sync reaches a fraction of the wgmma rate; the arms measure
-// the orientation of the products, not the product rate. With the tool's
-// bh = 1, T10 runs bq/64 blocks on 132 SMs: the caller chooses bh.
+// What bounds T1 on the H100: the tensor cores (4*Lq*Lk*hd flops a head).
+// mma.sync reaches a fraction of the wgmma rate; the arm measures the
+// orientation of the products, not the product rate.
 #include "attn_arms.cuh"
 
 namespace dtp {
@@ -280,8 +266,6 @@ cudaError_t launch_sublane(ArmArgs a, cudaStream_t s) {
 
 // --- T10 ---
 
-constexpr int kPvBK = 64;           // keys a step
-constexpr int kPvLDE = kPvBK + 8;   // the e tile's row pitch
 constexpr int kPvF32Threads = 256;
 
 struct PvArgs {
@@ -289,164 +273,7 @@ struct PvArgs {
   const void* v;
   void* out;
   int bh, bq, Lk, hd, iters;
-  bool vec_e, vec_v;  // 16-byte copies of e's and v's rows are aligned
 };
-
-// Columns [k0, k0 + 64) of rows [row0, row0 + 64) of the (bq, Lk) matrix e
-// into a (64, kPvLDE) shared tile; rows >= bq and columns >= Lk are zero.
-__device__ void stage_e(bf16* dst, const bf16* e, int row0, int k0, int bq,
-                        int Lk, bool vec) {
-  constexpr int CPR = kPvBK / 8;
-  for (int c = threadIdx.x; c < kRows * CPR; c += kThreads) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int gr = row0 + r, gc = k0 + col;
-    bf16* d = dst + r * kPvLDE + col;
-    if (vec) {
-      const bool ok = gr < bq && gc < Lk;
-      cp_async16(d, ok ? e + (long long)gr * Lk + gc : e, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        d[i] = (gr < bq && gc + i < Lk) ? e[(long long)gr * Lk + gc + i]
-                                        : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-template <int HDP, bool TRANSPOSED>
-__global__ void __launch_bounds__(kThreads)
-pv_kernel(const PvArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = HDP + 8;
-  constexpr int NO = HDP / 8;   // n8 tiles of e v, or 2 x m16 tiles of v^T e^T
-  constexpr int NM = HDP / 16;
-  bf16* Es = reinterpret_cast<bf16*>(smem);  // two stages of 64 x kPvLDE
-  bf16* Vs = Es + 2 * kRows * kPvLDE;        // two stages of 64 x LD
-
-  const int nq = (a.bq + kRows - 1) / kRows;
-  const long long bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x % nq) * kRows;
-  const bf16* eg = static_cast<const bf16*>(a.e) + bh * a.bq * a.Lk;
-  const bf16* vg = static_cast<const bf16*>(a.v) + bh * a.Lk * a.hd;
-  bf16* og = static_cast<bf16*>(a.out) + bh * a.bq * a.hd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, mat = lane >> 3;
-  const int w16 = warp * 16;
-  const int hd = a.hd, Lk = a.Lk;
-  const int no8 = (hd + 7) >> 3, nm16 = (hd + 15) >> 4;
-  const int ntiles = (Lk + kPvBK - 1) / kPvBK;
-  const long long steps = (long long)a.iters * ntiles;
-
-  float acc[NO][4], tot[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = tot[n][i] = 0.0f;
-
-  stage_e(Es, eg, q0, 0, a.bq, Lk, a.vec_e);
-  stage_rows<HDP, LD>(Vs, vg, hd, 0, kPvBK, Lk, hd, a.vec_v);
-  cp_async_commit();
-  int j = 0;  // the K tile of step s
-  for (long long s = 0; s < steps; ++s) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (s + 1 < steps) {
-      const int jn = j + 1 < ntiles ? j + 1 : 0;
-      const int buf = (int)((s + 1) & 1);
-      stage_e(Es + buf * kRows * kPvLDE, eg, q0, jn * kPvBK, a.bq, Lk,
-              a.vec_e);
-      stage_rows<HDP, LD>(Vs + buf * kPvBK * LD, vg, hd, jn * kPvBK, kPvBK,
-                          Lk, hd, a.vec_v);
-    }
-    cp_async_commit();
-    const bf16* Et = Es + (int)(s & 1) * kRows * kPvLDE;
-    const bf16* Vt = Vs + (int)(s & 1) * kPvBK * LD;
-#pragma unroll
-    for (int kk = 0; kk < kPvBK / 16; ++kk) {
-      if (TRANSPOSED) {
-        // (hd x 16 queries per warp) += v^T e^T: A = v^T by ldmatrix.trans,
-        // B = e^T, whose fragments are plain ldmatrix loads of the e rows
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3,
-                Et + (w16 + (mat >> 1) * 8 + (lane & 7)) * kPvLDE +
-                    (mat & 1) * 8 + kk * 16);
-        const bf16* vrow =
-            Vt + (kk * 16 + (mat >> 1) * 8 + (lane & 7)) * LD + (mat & 1) * 8;
-#pragma unroll
-        for (int mt = 0; mt < NM; ++mt) {
-          if (mt < nm16) {
-            uint32_t va[4];
-            ldsm_x4_t(va[0], va[1], va[2], va[3], vrow + mt * 16);
-            mma(acc[2 * mt], va, b0, b1);
-            mma(acc[2 * mt + 1], va, b2, b3);
-          }
-        }
-      } else {
-        // (16 queries per warp x hd) += e v over n8 tiles of hd itself
-        uint32_t ea[4];
-        ldsm_x4(ea[0], ea[1], ea[2], ea[3],
-                Et + (w16 + (mat & 1) * 8 + (lane & 7)) * kPvLDE + kk * 16 +
-                    (mat >> 1) * 8);
-        const bf16* vrow =
-            Vt + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
-#pragma unroll
-        for (int np = 0; np < NO / 2; ++np) {
-          if (2 * np + 1 < no8) {
-            uint32_t b0, b1, b2, b3;
-            ldsm_x4_t(b0, b1, b2, b3, vrow + np * 16);
-            mma(acc[2 * np], ea, b0, b1);
-            mma(acc[2 * np + 1], ea, b2, b3);
-          } else if (2 * np < no8) {
-            // the odd last n8 tile (hd 40: columns 32-39)
-            uint32_t b0, b1;
-            ldsm_x2_t(b0, b1,
-                      Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                               LD + np * 16);
-            mma(acc[2 * np], ea, b0, b1);
-          }
-        }
-      }
-    }
-    if (++j == ntiles) {
-      // the pass's product is complete: add it to the running sum
-      j = 0;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          tot[n][i] += acc[n][i];
-          acc[n][i] = 0.0f;
-        }
-    }
-  }
-
-  if (TRANSPOSED) {
-    // element i of tot[2*mt + nt]: column mt*16 + g + 8*(i>>1), query
-    // nt*8 + 2t + (i&1): transposed back on the store
-#pragma unroll
-    for (int mt = 0; mt < NM; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = mt * 16 + g + 8 * (i >> 1);
-          const int row = q0 + w16 + nt * 8 + 2 * t + (i & 1);
-          if (row < a.bq && col < hd)
-            og[(long long)row * hd + col] =
-                __float2bfloat16(tot[2 * mt + nt][i]);
-        }
-  } else {
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n * 8 + 2 * t + (i & 1);
-        const int row = q0 + w16 + g + 8 * (i >> 1);
-        if (row < a.bq && col < hd)
-          og[(long long)row * hd + col] = __float2bfloat16(tot[n][i]);
-      }
-  }
-}
 
 // fp32 twin: one thread an output element; as e v the head column runs
 // fastest across threads, as (v^T e^T)^T the query does. The compiler
@@ -475,32 +302,13 @@ pv_kernel_f32(const PvArgs a) {
   static_cast<float*>(a.out)[(bh * a.bq + q) * (long long)a.hd + c] = tot;
 }
 
-template <int HDP, bool TRANSPOSED>
-cudaError_t launch_pv(PvArgs a, cudaStream_t s) {
-  constexpr size_t bytes =
-      sizeof(bf16) * 2 * (kRows * kPvLDE + kPvBK * (HDP + 8));
-  auto kern = pv_kernel<HDP, TRANSPOSED>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)a.bh * ((a.bq + kRows - 1) / kRows);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kern<<<(unsigned)blocks, kThreads, bytes, s>>>(a);
-  return cudaGetLastError();
-}
-
 template <bool TRANSPOSED>
-cudaError_t dispatch_pv(PvArgs a, bool is_bf16, cudaStream_t s) {
-  if (!is_bf16) {
-    const long long blocks =
-        ((long long)a.bh * a.bq * a.hd + kPvF32Threads - 1) / kPvF32Threads;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    pv_kernel_f32<TRANSPOSED><<<(unsigned)blocks, kPvF32Threads, 0, s>>>(a);
-    return cudaGetLastError();
-  }
-  if (a.hd <= 48) return launch_pv<48, TRANSPOSED>(a, s);
-  if (a.hd <= 80) return launch_pv<80, TRANSPOSED>(a, s);
-  return launch_pv<160, TRANSPOSED>(a, s);
+cudaError_t launch_pv_f32(const PvArgs& a, cudaStream_t s) {
+  const long long blocks =
+      ((long long)a.bh * a.bq * a.hd + kPvF32Threads - 1) / kPvF32Threads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  pv_kernel_f32<TRANSPOSED><<<(unsigned)blocks, kPvF32Threads, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -530,22 +338,21 @@ extern "C" cudaError_t dtp_sublane_attention(const void* q, const void* k,
   return dtp::launch_sublane<160>(a, s);
 }
 
-// T10: e (bh,bq,Lk), v (bh,Lk,hd), out (bh,bq,hd), contiguous, bf16
-// (is_bf16) or fp32; hd <= 160; iters >= 1 passes, each the whole product,
-// summed in fp32; transposed: computed as (v^T e^T)^T.
+// T10 in fp32: e (bh,bq,Lk), v (bh,Lk,hd), out (bh,bq,hd), contiguous;
+// hd <= 160; iters >= 1 passes, each the whole product, summed in fp32;
+// transposed: computed as (v^T e^T)^T. is_bf16 must be 0: bf16 T10 is
+// dtp_pv_product_sm90 (csrc/pv_product_sm90.cu).
 extern "C" cudaError_t dtp_pv_product(const void* e, const void* v, void* out,
                                       int bh, int bq, int Lk, int hd,
                                       int iters, int transposed, int is_bf16,
                                       void* stream) {
-  if (bh <= 0 || bq <= 0 || Lk <= 0 || hd <= 0 || hd > dtp::kMaxHd ||
-      iters <= 0)
+  if (is_bf16 || bh <= 0 || bq <= 0 || Lk <= 0 || hd <= 0 ||
+      hd > dtp::kMaxHd || iters <= 0)
     return cudaErrorInvalidValue;
   dtp::PvArgs a{};
   a.e = e, a.v = v, a.out = out;
   a.bh = bh, a.bq = bq, a.Lk = Lk, a.hd = hd, a.iters = iters;
-  a.vec_e = is_bf16 && Lk % 8 == 0 && dtp::aligned16(e);
-  a.vec_v = is_bf16 && hd % 8 == 0 && dtp::aligned16(v);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (transposed) return dtp::dispatch_pv<true>(a, is_bf16 != 0, s);
-  return dtp::dispatch_pv<false>(a, is_bf16 != 0, s);
+  if (transposed) return dtp::launch_pv_f32<true>(a, s);
+  return dtp::launch_pv_f32<false>(a, s);
 }

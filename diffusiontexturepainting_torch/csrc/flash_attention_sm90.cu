@@ -20,9 +20,19 @@
 //       wgmma sequence (so S is the same bits and p <= 1 holds exactly) and
 //       computes p = bf16(exp2(bf16(s - m))), the fp32 sum of those p, and
 //       O / l. Only the hd real lanes are read; the pad lanes are written 0.
+//   dtp_slotted_attention_sm90          T4 <- tools/bench_attn_variants.py
+//       slotted_kernel_call (pallas_call :235 over _attn_kernel): K13's
+//       function on heads already split into (B*h, L, P) slots, P <= 160,
+//       every lane read, the caller's scale, any Lq and Lk: K13's two
+//       passes with H = 1 and hd = P (the bucket from P: 128 -> 128, 160 ->
+//       160, K2's two warpgroups on 64-key tiles). exp2_bf16 takes K13's
+//       pass 2; without it the last pass is kFixedMaxF32: p = exp2(s - m)
+//       in fp32, the row sum of those p, bf16(p) into P V. Both issue pass
+//       1's wgmma sequence again, so p <= 1 holds exactly in both.
 //
-// Dispatch is by dtype in ops/attention.py: bf16 CUDA tensors come here and
-// nowhere else; fp32 stays on flash_attention.cu's FMA twin.
+// Dispatch is by dtype in ops/attention.py (K2, K8, K13) and
+// ops/attention_variants.py (T4): bf16 CUDA tensors come here and nowhere
+// else; fp32 stays on flash_attention.cu's FMA twin (T4: attn_layouts.cu).
 //
 // What bounds it on the H100: 4*L^2*hd flops a head against bytes read and
 // written once, so the tensor cores: 1.04 ms for a 1024^2 stamp's UNet
@@ -441,7 +451,16 @@ struct Sm90Args {
   float scale_log2;
 };
 
-enum Mode : int { kOnline = 0, kMaxPass = 1, kFixedMax = 2 };
+// The softmax of a pass: online (running max, alpha rescaling); the max
+// pass; against the fixed row max, p = bf16(exp2(bf16(s - m))) (K13, T4 with
+// exp2_bf16) or p = exp2(s - m) in fp32, the row sum of the unrounded p
+// and bf16(p) into P V (T4 without).
+enum Mode : int {
+  kOnline = 0,
+  kMaxPass = 1,
+  kFixedMax = 2,
+  kFixedMaxF32 = 3
+};
 
 // S = Q K^T for one warpgroup: qa its Q rows, kt the K tile.
 template <int KD, int BKV, int NC>
@@ -473,12 +492,15 @@ __device__ __forceinline__ void pv(float (&o)[NV / 2],
   fence_regs(p);
 }
 
-template <int KD, int NV, int BKV, int NC, bool TWO_PASS>
+// LAST: the softmax of the last pass, kOnline for one pass, kFixedMax or
+// kFixedMaxF32 after a max pass.
+template <int KD, int NV, int BKV, int NC, int LAST>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
 attn_sm90(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, const Sm90Args a) {
   using P = Plan<KD, NV, BKV, NC>;
+  constexpr bool TWO_PASS = LAST != kOnline;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -637,13 +659,27 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
             o[4 * i + 2] *= alpha1;
             o[4 * i + 3] *= alpha1;
           }
-        } else {
+        } else if constexpr (MODE == kFixedMax) {
 #pragma unroll
           for (int i = 0; i < BKV / 8; ++i) {
             s[4 * i] = round_bf16(ex2(round_bf16(s[4 * i] - m0)));
             s[4 * i + 1] = round_bf16(ex2(round_bf16(s[4 * i + 1] - m0)));
             s[4 * i + 2] = round_bf16(ex2(round_bf16(s[4 * i + 2] - m1)));
             s[4 * i + 3] = round_bf16(ex2(round_bf16(s[4 * i + 3] - m1)));
+            sum0 += s[4 * i] + s[4 * i + 1];
+            sum1 += s[4 * i + 2] + s[4 * i + 3];
+          }
+          l0 += sum0;
+          l1 += sum1;
+        } else {
+          // kFixedMaxF32: the sum of the fp32 p; pack_bf16 rounds them for
+          // P V
+#pragma unroll
+          for (int i = 0; i < BKV / 8; ++i) {
+            s[4 * i] = ex2(s[4 * i] - m0);
+            s[4 * i + 1] = ex2(s[4 * i + 1] - m0);
+            s[4 * i + 2] = ex2(s[4 * i + 2] - m1);
+            s[4 * i + 3] = ex2(s[4 * i + 3] - m1);
             sum0 += s[4 * i] + s[4 * i + 1];
             sum1 += s[4 * i + 2] + s[4 * i + 3];
           }
@@ -678,7 +714,7 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
         m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
         m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
       }
-      pass(std::integral_constant<int, kFixedMax>{});
+      pass(std::integral_constant<int, LAST>{});
     } else {
       pass(std::integral_constant<int, kOnline>{});
     }
@@ -792,12 +828,12 @@ int bucket_smem(int i) {
   }
 }
 
-template <int KD, int NV, int BKV, int NC, bool TWO_PASS>
+template <int KD, int NV, int BKV, int NC, int LAST>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const Sm90Args& a, int B,
                    cudaStream_t stream) {
   using P = Plan<KD, NV, BKV, NC>;
-  auto kern = attn_sm90<KD, NV, BKV, NC, TWO_PASS>;
+  auto kern = attn_sm90<KD, NV, BKV, NC, LAST>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
@@ -806,21 +842,38 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
+// The two-pass buckets (hd <= 160) with the last pass's softmax LAST.
+template <int LAST>
+cudaError_t launch_two_pass(int bucket, const CUtensorMap& tq,
+                            const CUtensorMap& tk, const CUtensorMap& tv,
+                            const Sm90Args& a, int B, cudaStream_t stream) {
+  switch (bucket) {
+    case 0: return launch<48, 48, 128, 3, LAST>(tq, tk, tv, a, B, stream);
+    case 1: return launch<48, 48, 128, 2, LAST>(tq, tk, tv, a, B, stream);
+    case 2: return launch<80, 80, 128, 2, LAST>(tq, tk, tv, a, B, stream);
+    case 3: return launch<128, 128, 128, 2, LAST>(tq, tk, tv, a, B, stream);
+    default: return launch<160, 160, 64, 2, LAST>(tq, tk, tv, a, B, stream);
+  }
+}
+
 // Strides in elements: q (and out) rows q_row apart, images q_batch apart;
 // k and v rows kv_row apart, images kv_batch apart; heads `head` apart.
-// `bucket` indexes kBuckets (-1: plan's); two passes take the buckets of
-// hd <= 128 only.
+// `bucket` indexes kBuckets (-1: plan's). `last`: the softmax of the last
+// pass (Mode), kOnline for one pass; two passes take the buckets of
+// hd <= 160 only (one output slice).
 cudaError_t run(const void* q, const void* k, const void* v, Sm90Args a,
                 int B, long long head, long long q_row, long long q_batch,
-                long long kv_row, long long kv_batch, bool two_pass,
-                int bucket, cudaStream_t stream) {
+                long long kv_row, long long kv_batch, int last, int bucket,
+                cudaStream_t stream) {
+  const bool two_pass = last != kOnline;
   if (B <= 0 || a.H <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.hd <= 0 ||
-      a.hd > 512 || (two_pass && a.hd > 128) || B > 65535 ||
-      a.H > 65535)
+      a.hd > 512 || (two_pass && a.hd > 160) || B > 65535 ||
+      a.H > 65535 || (last != kOnline && last != kFixedMax &&
+                      last != kFixedMaxF32))
     return cudaErrorInvalidValue;
   if (bucket < 0) bucket = plan(a.hd, a.Lq, B * a.H);
   if (bucket >= kNumBuckets || kBuckets[bucket][0] < a.hd ||
-      (two_pass && bucket > 3))
+      (two_pass && bucket > 4))
     return cudaErrorInvalidValue;
   // a stride over a dimension of one is never stepped: any valid value
   if (a.Lq == 1) q_row = a.H * head;
@@ -840,26 +893,22 @@ cudaError_t run(const void* q, const void* k, const void* v, Sm90Args a,
       !tensor_map(&tk, k, a.hd, a.H, a.Lk, B, head, kv_row, kv_batch, bkv) ||
       !tensor_map(&tv, v, a.hd, a.H, a.Lk, B, head, kv_row, kv_batch, bkv))
     return cudaErrorInvalidValue;
-  if (two_pass) {
-    switch (bucket) {
-      case 0: return launch<48, 48, 128, 3, true>(tq, tk, tv, a, B, stream);
-      case 1: return launch<48, 48, 128, 2, true>(tq, tk, tv, a, B, stream);
-      case 2: return launch<80, 80, 128, 2, true>(tq, tk, tv, a, B, stream);
-      default:
-        return launch<128, 128, 128, 2, true>(tq, tk, tv, a, B, stream);
-    }
-  }
+  if (last == kFixedMax)
+    return launch_two_pass<kFixedMax>(bucket, tq, tk, tv, a, B, stream);
+  if (last == kFixedMaxF32)
+    return launch_two_pass<kFixedMaxF32>(bucket, tq, tk, tv, a, B, stream);
   switch (bucket) {
-    case 0: return launch<48, 48, 128, 3, false>(tq, tk, tv, a, B, stream);
-    case 1: return launch<48, 48, 128, 2, false>(tq, tk, tv, a, B, stream);
-    case 2: return launch<80, 80, 128, 2, false>(tq, tk, tv, a, B, stream);
+    case 0: return launch<48, 48, 128, 3, kOnline>(tq, tk, tv, a, B, stream);
+    case 1: return launch<48, 48, 128, 2, kOnline>(tq, tk, tv, a, B, stream);
+    case 2: return launch<80, 80, 128, 2, kOnline>(tq, tk, tv, a, B, stream);
     case 3:
-      return launch<128, 128, 128, 2, false>(tq, tk, tv, a, B, stream);
-    case 4: return launch<160, 160, 64, 2, false>(tq, tk, tv, a, B, stream);
-    case 5: return launch<256, 256, 32, 1, false>(tq, tk, tv, a, B, stream);
-    case 6: return launch<512, 256, 32, 1, false>(tq, tk, tv, a, B, stream);
+      return launch<128, 128, 128, 2, kOnline>(tq, tk, tv, a, B, stream);
+    case 4:
+      return launch<160, 160, 64, 2, kOnline>(tq, tk, tv, a, B, stream);
+    case 5: return launch<256, 256, 32, 1, kOnline>(tq, tk, tv, a, B, stream);
+    case 6: return launch<512, 256, 32, 1, kOnline>(tq, tk, tv, a, B, stream);
     default:
-      return launch<512, 128, 32, 1, false>(tq, tk, tv, a, B, stream);
+      return launch<512, 128, 32, 1, kOnline>(tq, tk, tv, a, B, stream);
   }
 }
 
@@ -874,7 +923,8 @@ cudaError_t run_projections(const void* q, const void* k, const void* v,
   a.o_row = D, a.o_batch = Lq * D, a.o_head = hd;
   a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd, a.out_cols = hd;
   a.scale_log2 = scale_log2;
-  return run(q, k, v, a, B, hd, D, Lq * D, D, Lk * D, false, bucket, stream);
+  return run(q, k, v, a, B, hd, D, Lq * D, D, Lk * D, kOnline, bucket,
+             stream);
 }
 
 }  // namespace
@@ -936,5 +986,27 @@ extern "C" cudaError_t dtp_flash_attention_slotted_sm90(
   a.H = H, a.Lq = L, a.Lk = L, a.hd = hd, a.out_cols = slot;
   a.scale_log2 = scale_log2;
   return dtp::run(q, k, v, a, B, slot, q_row, q_batch, kv_row, kv_batch,
-                  true, -1, static_cast<cudaStream_t>(stream));
+                  dtp::kFixedMax, -1, static_cast<cudaStream_t>(stream));
+}
+
+// T4: q (BH,Lq,P), k and v (BH,Lk,P), out (BH,Lq,P), contiguous bf16 (heads
+// already split into P-lane slots, every lane read and written); P <= 160
+// and a multiple of 8 (TMA's 16-byte rows); scale_log2 = scale * log2(e)
+// with the caller's scale. K13's two passes with H = 1 and hd = P; the
+// bucket from P; exp2_bf16: p = bf16(exp2(bf16(s - m))) as K13, else
+// p = exp2(s - m) in fp32 (kFixedMaxF32).
+extern "C" cudaError_t dtp_slotted_attention_sm90(
+    const void* q, const void* k, const void* v, void* out, int BH, int Lq,
+    int Lk, int P, float scale_log2, int exp2_bf16, void* stream) {
+  if (P <= 0 || P > 160 || P % 8 || Lq <= 0 || Lk <= 0)
+    return cudaErrorInvalidValue;
+  dtp::Sm90Args a{};
+  a.out = static_cast<dtp::bf16*>(out);
+  a.o_row = P, a.o_batch = static_cast<long long>(Lq) * P, a.o_head = P;
+  a.H = 1, a.Lq = Lq, a.Lk = Lk, a.hd = P, a.out_cols = P;
+  a.scale_log2 = scale_log2;
+  return dtp::run(q, k, v, a, BH, P, P, static_cast<long long>(Lq) * P, P,
+                  static_cast<long long>(Lk) * P,
+                  exp2_bf16 ? dtp::kFixedMax : dtp::kFixedMaxF32, -1,
+                  static_cast<cudaStream_t>(stream));
 }

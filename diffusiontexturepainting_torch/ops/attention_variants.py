@@ -42,11 +42,16 @@ raises on the final reshape where Lq is off the block); here every query
 length is computed.
 
 The kernels live in csrc/attn_arms.cu (T2, T3, T5, T9),
-csrc/attn_layouts.cu (T4, T6, T7, T8), one register-resident body
-(csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1, T10, over
-the same header's primitives). A wrapper takes its plain version only for
-a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-`ops.attention.attention` and the served paths never call these.
+csrc/attn_layouts.cu (T6, T7, T8, and T4 in fp32), one register-resident
+body (csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1, and
+T10 in fp32, over the same header's primitives). bf16 T4 runs K13's
+two-pass wgmma/TMA kernel (csrc/flash_attention_sm90.cu
+dtp_slotted_attention_sm90) and bf16 T10 a split wgmma/TMA GEMM whose
+operands stay in shared memory (csrc/pv_product_sm90.cu); both raise
+ValueError on operands TMA cannot describe. A wrapper takes its plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises. `ops.attention.attention` and the served paths never
+call these.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ import torch
 from .. import _cuda
 from .attention import (
     _LOG2E,
+    SM90_SOURCE,
+    SM_COUNT,
     _check_qkv,
     _merge_heads,
     _prescaled,
@@ -91,6 +98,17 @@ _PV_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7
 _SLOTTED_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
                      + (ctypes.c_float,) + (ctypes.c_int,) * 2
                      + (ctypes.c_void_p,))
+# bf16 T4 (K13's two-pass kernel): no dtype flag
+_SLOTTED_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+                          + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+# bf16 T10: e, v, out, work and its floats, then bh, bq, Lk, hd, iters,
+# transposed, chunk, CTAs a (tile, chunk), then the stream
+_PV_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+                     + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
+PV_SM90_SOURCE = "pv_product_sm90"
+# bf16 T10's key chunks (TMA's box rows are at most 256) and query tile
+PV_CHUNKS = (64, 128, 256)
+PV_ROWS = 64
 
 
 def _chunk(bk, lk: int) -> int:
@@ -264,6 +282,54 @@ def _check_pv(e, v, iters):
                          f"hd), got {tuple(e.shape)} and {tuple(v.shape)}")
     if iters < 1:
         raise ValueError(f"pv_product: iters={iters} must be at least 1")
+
+
+def pv_sm90_plan(bh: int, bq: int, lk: int, hd: int, iters: int,
+                 transposed: bool, chunk: int | None = None,
+                 ctas: int | None = None) -> dict:
+    """The split bf16 T10 launches (mirrors csrc/pv_product_sm90.cu plan):
+    `n_q` query tiles of 64 rows an image (`tiles` in all), the key chunk
+    halved from 256 while the (tile, chunk) grid stays within one wave of
+    the SMs (`chunk` keys, `nk` chunks), then `gc` CTAs a (tile, chunk)
+    splitting the passes, as many as fill the wave and at most one pass a
+    group, each CTA two pass groups (one a consumer warpgroup; `groups`
+    a (tile, chunk)). `nb`: wgmma's N (e v: hd rounded up into 40, 80,
+    160) or its m64 tiles of hd (transposed); `acc` fp32 accumulators a
+    thread; `smem` bytes: the e block (64 x chunk) and the v block's
+    64-column atoms, the mbarrier and flag, 1024 bytes of alignment.
+    `work_floats`: the partials (`ws_floats`: one a CTA, its two
+    warpgroups' totals added, by tile, chunk and CTA group, then 128
+    threads x acc) and one int counter a tile. `chunk` and `ctas` force
+    the choices."""
+    n_q = -(-bq // PV_ROWS)
+    tiles = bh * n_q
+    if chunk is None:
+        chunk = PV_CHUNKS[-1]
+        while chunk > PV_CHUNKS[0] and tiles * -(-lk // (chunk // 2)) \
+                <= SM_COUNT:
+            chunk //= 2
+    nk = -(-lk // chunk)
+    gc = ctas or max(1, min((iters + 1) // 2, SM_COUNT // (tiles * nk)))
+    if transposed:
+        nb = -(-hd // 64)
+        acc, v_atoms = 32 * nb, nb
+    else:
+        nb = 40 if hd <= 40 else 80 if hd <= 80 else 160
+        acc, v_atoms = nb // 2, -(-nb // 64)
+    ws = tiles * nk * gc * 128 * acc
+    return dict(n_q=n_q, chunk=chunk, nk=nk, gc=gc, groups=2 * gc, nb=nb,
+                acc=acc, smem=chunk * 128 * (1 + v_atoms) + 16 + 1024,
+                tiles=tiles, ctas=tiles * nk * gc, ws_floats=ws,
+                work_floats=ws + tiles)
+
+
+def pv_tma_describable(e, v) -> bool:
+    """Whether TMA can read bf16 T10's operands: contiguous, 16-byte
+    aligned bases, and e's and v's rows in whole 16 bytes (Lk and hd
+    multiples of 8)."""
+    return (e.is_contiguous() and v.is_contiguous()
+            and e.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+            and e.shape[2] % 8 == 0 and v.shape[2] % 8 == 0)
 
 
 def plain_pv_product(e, v, *, transposed: bool = False, iters: int = 1):
@@ -440,7 +506,11 @@ def slotted_kernel_call(qh, kh, vh, scale: float, *, exp2_bf16: bool = True):
     """T4: the row-max softmax over (BH, Lq, P) q against (BH, Lk, P) k, v,
     heads already split and zero-padded (P <= 160, every lane read), with
     the caller's scale (hd**-0.5 of the real head dim); returns (BH, Lq,
-    P). Kernel on CUDA, plain_slotted_kernel_call on CPU."""
+    P). Kernel on CUDA: bf16 K13's two-pass wgmma/TMA kernel with H = 1
+    and hd = P (csrc/flash_attention_sm90.cu dtp_slotted_attention_sm90,
+    its bucket ops.attention.sm90_plan(P, Lq, BH)'s; P a multiple of 8 and
+    16-byte-aligned bases, else ValueError), fp32 the FMA twin
+    (csrc/attn_layouts.cu). plain_slotted_kernel_call on CPU."""
     if qh.device.type == "cpu":
         return plain_slotted_kernel_call(qh, kh, vh, scale,
                                          exp2_bf16=exp2_bf16)
@@ -448,12 +518,20 @@ def slotted_kernel_call(qh, kh, vh, scale: float, *, exp2_bf16: bool = True):
     _check(name, qh, kh, vh, 1)
     BH, Lq, P = qh.shape
     out = torch.empty_like(qh)
-    fn = _cuda.function("attn_layouts", "dtp_slotted_attention",
-                        _SLOTTED_ARGTYPES)
-    code = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-              BH, Lq, kh.shape[1], P, float(scale * _LOG2E), int(exp2_bf16),
-              int(qh.dtype == torch.bfloat16), _cuda.stream_of(qh))
-    _cuda.check("attn_layouts", "dtp_slotted_attention", code)
+    args = (qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), BH,
+            Lq, kh.shape[1], P, float(scale * _LOG2E), int(exp2_bf16))
+    if qh.dtype == torch.bfloat16:
+        if P % 8 or any(t.data_ptr() % 16 for t in (qh, kh, vh)):
+            raise ValueError(f"{name}: TMA needs P a multiple of 8 and "
+                             f"16-byte-aligned bases, got P {P}")
+        source, symbol = SM90_SOURCE, "dtp_slotted_attention_sm90"
+        fn = _cuda.function(source, symbol, _SLOTTED_SM90_ARGTYPES)
+        code = fn(*args, _cuda.stream_of(qh))
+    else:
+        source, symbol = "attn_layouts", "dtp_slotted_attention"
+        fn = _cuda.function(source, symbol, _SLOTTED_ARGTYPES)
+        code = fn(*args, 0, _cuda.stream_of(qh))
+    _cuda.check(source, symbol, code)
     slotted_launches.record((tuple(qh.shape), tuple(kh.shape),
                              bool(exp2_bf16)))
     return out
@@ -475,9 +553,19 @@ def sublane_attention(q, k, v, num_heads: int):
 def pv_product(e, v, *, transposed: bool = False, iters: int = 1):
     """T10: `iters` passes of the product of (bh, bq, Lk) e and (bh, Lk,
     hd) v, as e v or as (v^T e^T)^T, summed in fp32: (bh, bq, hd) in e's
-    dtype. Kernel on CUDA (hd <= 160), plain_pv_product on CPU."""
+    dtype. Kernel on CUDA (hd <= 160): bf16 a split wgmma/TMA GEMM whose
+    operands stay in shared memory for all passes (csrc/pv_product_sm90.cu,
+    pv_sm90_plan; Lk and hd multiples of 8 and 16-byte-aligned bases, else
+    ValueError), fp32 the FMA twin (csrc/attn_transposed.cu).
+    plain_pv_product on CPU."""
     if e.device.type == "cpu":
         return plain_pv_product(e, v, transposed=transposed, iters=iters)
+    return _pv_product(e, v, transposed, iters)
+
+
+def _pv_product(e, v, transposed: bool, iters: int, chunk=None, ctas=None):
+    """pv_product on CUDA; `chunk` and `ctas` force bf16's split (probes:
+    pv_sm90_plan)."""
     _check_pv(e, v, iters)
     name = "pv_product"
     if e.dtype not in (torch.bfloat16, torch.float32) or v.dtype != e.dtype:
@@ -490,12 +578,25 @@ def pv_product(e, v, *, transposed: bool = False, iters: int = 1):
         raise ValueError(f"{name}: e and v must be contiguous on {e.device}")
     bh, bq, lk = e.shape
     hd = v.shape[2]
+    if e.dtype == torch.bfloat16 and not pv_tma_describable(e, v):
+        raise ValueError(f"{name}: TMA needs Lk and hd multiples of 8 and "
+                         f"16-byte-aligned bases, got Lk {lk}, hd {hd}")
     out = torch.empty((bh, bq, hd), dtype=e.dtype, device=e.device)
-    fn = _cuda.function("attn_transposed", "dtp_pv_product", _PV_ARGTYPES)
-    code = fn(e.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bq, lk, hd,
-              int(iters), int(transposed), int(e.dtype == torch.bfloat16),
-              _cuda.stream_of(e))
-    _cuda.check("attn_transposed", "dtp_pv_product", code)
+    if e.dtype == torch.bfloat16:
+        plan = pv_sm90_plan(bh, bq, lk, hd, iters, transposed, chunk, ctas)
+        work = torch.empty(plan["work_floats"], dtype=torch.float32,
+                           device=e.device)
+        source, symbol = PV_SM90_SOURCE, "dtp_pv_product_sm90"
+        fn = _cuda.function(source, symbol, _PV_SM90_ARGTYPES)
+        code = fn(e.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  work.data_ptr(), work.numel(), bh, bq, lk, hd, int(iters),
+                  int(transposed), chunk or 0, ctas or 0, _cuda.stream_of(e))
+    else:
+        source, symbol = "attn_transposed", "dtp_pv_product"
+        fn = _cuda.function(source, symbol, _PV_ARGTYPES)
+        code = fn(e.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bq, lk,
+                  hd, int(iters), int(transposed), 0, _cuda.stream_of(e))
+    _cuda.check(source, symbol, code)
     pv_product_launches.record((tuple(e.shape), tuple(v.shape),
                                 bool(transposed), int(iters)))
     return out

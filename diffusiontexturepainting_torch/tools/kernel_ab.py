@@ -1,5 +1,6 @@
 """Eager and CUDA-graph device time of the served K3, K4, K6 and K7
-wrappers at their served shapes, for comparing two checkouts on one card.
+wrappers at their served shapes, and of the T4 and T10 arms at their
+paths' shapes, for comparing two checkouts on one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
     PYTHONPATH=<another checkout> python \\
@@ -13,11 +14,15 @@ ops.conv3x3.upsample2x_conv3x3 (K4) at the UNet's upsample shapes at the
 same points, ops.gn_conv.upconv_stream (K6, statistics on) at the VAE
 decoder's three upsamplers at the same points (batch 1), and
 ops.conv3x3.conv3x3 (K7) at every shape the safe twin's 256^2 stamp runs
-it at (TWIN_K7). Seeded normal bf16 inputs. Each row: ms a call (CUDA events
-over back-to-back calls, best of 4: the host's launch cost included) and
-device_ms (the same calls replayed from a CUDA graph). Without a card it
-exits nonzero. Prints one line per row, then one JSON line naming the
-package's path.
+it at (TWIN_K7), ops.attention_variants.slotted_kernel_call (T4) at the
+slotted 512^2/4 stamp's two K13 shapes as (B*h, L, 128) slots (hd 40 and
+80 real lanes) in both softmax flavours, and
+ops.attention_variants.pv_product (T10) at the TPU tool's three shapes, bh
+1, 64 passes, both orientations (PV). Seeded normal bf16 inputs (T10: the
+tool's uniform ones). Each row: ms a call (CUDA events over back-to-back
+calls, best of 4: the host's launch cost included) and device_ms (the same
+calls replayed from a CUDA graph). Without a card it exits nonzero.
+Prints one line per row, then one JSON line naming the package's path.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ if __package__ in (None, ""):
 
 import diffusiontexturepainting_torch  # noqa: E402
 from diffusiontexturepainting_torch.ops import (  # noqa: E402
+    attention_variants,
     conv3x3,
     ff_geglu,
     gn_conv,
@@ -75,6 +81,11 @@ TWIN_K7 = [
       for h, cin, cout in ((32, 512, 512), (64, 512, 512), (128, 512, 256),
                            (128, 256, 256), (256, 256, 128),
                            (256, 128, 128))]]
+# (B*h, L, real lanes): T4 at the slotted 512^2/4 stamp's K13 shapes
+SLOTTED = [(24, 4096, 40), (24, 1024, 80)]
+# (bq, Lk, hd): T10 at the TPU tool's shapes, bh 1, PV_ITERS passes
+PV = [(512, 4096, 40), (512, 1024, 80), (256, 256, 160)]
+PV_ITERS = 64
 
 
 def _rows(gen):
@@ -113,6 +124,32 @@ def _rows(gen):
                      "shape": [B, H, W, cin, cout],
                      "ms": _common.event_ms(call),
                      "device_ms": _common.graph_ms(call)})
+    for BH, L, hd in SLOTTED:
+        q, k, v = (torch.zeros((BH, L, 128), device="cuda").bfloat16()
+                   for _ in range(3))
+        for t in (q, k, v):
+            t[..., :hd] = rnd(BH, L, hd)
+        for exp2_bf16 in (True, False):
+            call = lambda: attention_variants.slotted_kernel_call(
+                q, k, v, hd**-0.5, exp2_bf16=exp2_bf16)
+            rows.append({"kernel": "T4",
+                         "tag": f"slotted {L} hd {hd}"
+                                + ("" if exp2_bf16 else " f32p"),
+                         "shape": [BH, L, 128, hd, exp2_bf16],
+                         "ms": _common.event_ms(call),
+                         "device_ms": _common.graph_ms(call)})
+    for bq, lk, hd in PV:
+        e = torch.rand((1, bq, lk), generator=gen, device="cuda").bfloat16()
+        v = torch.rand((1, lk, hd), generator=gen, device="cuda").bfloat16()
+        for transposed in (False, True):
+            call = lambda: attention_variants.pv_product(
+                e, v, transposed=transposed, iters=PV_ITERS)
+            rows.append({"kernel": "T10",
+                         "tag": f"({bq}, {lk}, {hd}) "
+                                + ("v^T@e^T" if transposed else "e@v"),
+                         "shape": [1, bq, lk, hd, transposed, PV_ITERS],
+                         "ms": _common.event_ms(call),
+                         "device_ms": _common.graph_ms(call)})
     return rows
 
 

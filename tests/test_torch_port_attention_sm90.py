@@ -83,7 +83,7 @@ def test_sm90_plan_matches_the_source():
     run = run[:run.index("\n}\n")]
     single = run[run.rindex("switch (bucket) {"):]
     cases = re.findall(r"(?:case (\d+)|default):\s*return launch<(\d+), "
-                       r"(\d+), (\d+), (\d+), false>", single)
+                       r"(\d+), (\d+), (\d+), kOnline>", single)
     assert len(cases) == len(t_attn.SM90_BUCKETS)
     for i, (case, *args) in enumerate(cases):
         assert case in (str(i), "")

@@ -324,19 +324,32 @@ def test_layout_arms_equal_t5_bit_for_bit(hd, dtype):
         assert torch.equal(wrapper(q, k, v, 4), t5), wrapper.__name__
 
 
-# T10 (csrc/attn_transposed.cu): hd on and off the n8 / m16 tiles and the
-# 16-byte copies, bq off the 64-row slab, Lk off the 64-key step, 3 bh.
+# T10 (bf16: csrc/pv_product_sm90.cu, fp32: csrc/attn_transposed.cu): hd on
+# and off the wgmma N buckets and m64 tiles, bq off the 64-row tile, Lk off
+# every key chunk, 3 bh. bf16 needs Lk and hd multiples of 8 (TMA's 16-byte
+# rows): it runs Lk 1000 for 1100 and hd 152 for 150, and refuses those.
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [40, 80, 150, 160])
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_pv_product_matches_plain(hd, transposed, dtype):
     """Both orientations against the plain version at (bh 3, bq 100, Lk
-    1100 and 1096), 1 and 3 passes (tolerance as chip_smoke.py's)."""
+    1100 (bf16: 1000) and 1096), 1 and 3 passes (tolerance as
+    chip_smoke.py's)."""
     gen = _setup()
     import chip_smoke
+    from diffusiontexturepainting_torch.ops import attention_variants
 
-    for lk, iters in ((1100, 3), (1096, 1)):
+    ragged = 1100
+    if dtype == "bfloat16":
+        for lk, h in ((ragged, 40), (1096, hd)):
+            if lk % 8 or h % 8:
+                e = torch.rand((3, 100, lk), device="cuda").bfloat16()
+                v = torch.rand((3, lk, h), device="cuda").bfloat16()
+                with pytest.raises(ValueError, match="TMA"):
+                    attention_variants.pv_product(e, v)
+        ragged, hd = 1000, hd + (-hd) % 8
+    for lk, iters in ((ragged, 3), (1096, 1)):
         key = ((3, 100, lk), (3, lk, hd), transposed, iters)
         r = chip_smoke.compare("pv_product", key, getattr(torch, dtype), gen)
         assert r["err_over_tol"] <= 1.0, (key, r)
