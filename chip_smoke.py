@@ -21,14 +21,17 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                Cout 40 on 4x4 images at batch 3, odd H and W, the VAE's
                Cout 8 and 3 heads) and on the split concat conv's weight
                halves read in place, and the spatial moments (K14) among
-               them, K6 and K7 at ragged shapes; K9, K1/K5, K14, K6 and K7
+               them, K6 and K7 at ragged shapes, K12a and K11 at ragged
+               shapes TMA can describe (bf16) and at Cin 3 and 9 and Cout
+               130 (fp32); K9, K1/K5, K14, K6 and K7
                bit-identical on replay, output and statistics; K6's
                statistics also against its own fp32 output before the
                rounding; T10 and T4 bit-identical on replay; the bf16
-               K2/K8/K13, K9, K1/K5, K3, K4, K6, K7, T10 and T4 refuse what
-               TMA cannot describe (ValueError, no launch); the fp32 entries
-               of csrc/conv3x3.cu, T10's (attn_transposed.cu) and T4's
-               (attn_layouts.cu) refuse bf16;
+               K2/K8/K13, K9, K1/K5, K3, K4, K6, K7, K12a, K11, T10 and T4
+               refuse what TMA cannot describe (ValueError, no launch); the
+               fp32 entries of csrc/conv3x3.cu, conv_staged.cu's SAME
+               entry (fp32 K12a and K11), T10's (attn_transposed.cu) and
+               T4's (attn_layouts.cu) refuse bf16;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -43,15 +46,16 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                configurations at equal steps, compared in u8;
   5b. twin_inpad
                the twin again with the port's _IN_PAD switch set (the
-               in-kernel-padding kernels K12a/b take every call of K7/K4),
-               as phase 4; its first stamp against the twin's;
+               in-kernel-padding kernels K12a/b take every call of K7/K4;
+               bf16 K12a runs K7's kernel, counted apart), as phase 4;
+               its first stamp against the twin's;
   5c. resnet_bodies
                the 22 resnets of one UNet eval of the twin at 256^2 (batch
                3, their inputs captured from the module legs), each as two
                gn_silu_conv3x3 calls (K10), held against the module leg in
-               bf16 and fp32; and K11 (conv3x3_stream) as often as the twin
-               ran K7, at each of its K7 shapes that pass the JAX package's
-               streaming_plan shape test;
+               bf16 and fp32; and K11 (conv3x3_stream; in bf16 K7's kernel,
+               counted apart) as often as the twin ran K7, at each of its K7
+               shapes that pass the JAX package's streaming_plan shape test;
   6. server    the port's server (serving/server.py) on loopback around
                the default model: GET /health, then a NEW_BRUSH_IMAGE, a
                NEW_BRUSH_PROMPT and a NEW_STAMP over a websocket, each reply
@@ -127,8 +131,10 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                alone), at the shapes of the path it is reported for, beside
                its bound (K2, K3, K4, K6, K9, K1, K5 and K14 also at the
                envelope path's; K1/K5, K14, K3, K4, K6, K7, T4 and T10
-               also in CUDA-graph device time; T10 also beside a chain of
-               PV_ITERS torch.baddbmm calls, as many products);
+               also in CUDA-graph device time; K12a and K11 beside K7 at
+               the same shapes, equal to it bit for bit in bf16; T10 also
+               beside a chain of PV_ITERS torch.baddbmm calls, as many
+               products);
  10. no jax    the run imported neither JAX, nor the JAX package, nor
                tornado, nor PIL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -207,9 +213,11 @@ SOURCES = {
     # bf16; fp32 runs conv3x3.cu
     "downsample_conv3x3_stats": "csrc/conv_sm90.cu",
     "spatial_moments": "csrc/moments.cu",
-    "conv3x3_inpad": "csrc/conv_staged.cu",
+    # bf16 (the paths' and the timed type): K7's kernel, counted apart;
+    # fp32 runs conv_staged.cu
+    "conv3x3_inpad": "csrc/gn_conv_sm90.cu",
     "upsample2x_conv3x3_inpad": "csrc/conv_staged.cu",
-    "conv3x3_stream": "csrc/conv_staged.cu",
+    "conv3x3_stream": "csrc/gn_conv_sm90.cu",
     "gn_silu_conv3x3": "csrc/conv_staged.cu",
     "nomax_attention": "csrc/attn_arms.cu",
     "chunked_attention": "csrc/attn_arms.cu",
@@ -340,7 +348,7 @@ MS_IS = {
           "256^2/20 stamp's K5 calls with a prologue",
 }
 # The member of the conv family that computes the same function at the
-# same shapes, timed beside each staged-tile kernel.
+# same shapes, timed beside each kernel that has one.
 FAMILY_IS = {
     "conv3x3_inpad": "K7 (conv3x3, _IN_PAD off: in bf16 the PLAIN mode of "
                      "gn_conv_sm90.cu)",
@@ -353,7 +361,8 @@ FAMILY_IS = {
              "attention() route)" for name in ARMS},
     SLOTTED_ARM: "K13 (flash_attention_slotted) on the same data in the "
                  "(B, L, h*128) layout",
-    TAPS: "K11 (conv3x3_stream) on the image the windows were cut from, "
+    TAPS: "K11 (conv3x3_stream; a Cout off 8 zero-padded and dropped) on "
+          "the image the windows were cut from, "
           "for the `shifted` read only",
     PIPE: "K5 (gn_conv_stream, statistics and residual off; its border "
           "input is 0, T12's silu(c))",
@@ -392,7 +401,10 @@ ARM_LAUNCHES = 20
 # their library call's: the kernels this round of work redesigned last
 DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
                 "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3",
-                SLOTTED_ARM, PV)
+                "conv3x3_inpad", "conv3x3_stream", SLOTTED_ARM, PV)
+# Kernels whose family member (FAMILY_IS) runs the same launch in bf16:
+# their outputs must equal its bit for bit.
+FAMILY_EXACT = ("conv3x3_inpad", "conv3x3_stream")
 # the sources whose ptxas report must show no spill
 NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
             "ff_geglu_sm90", "pv_product_sm90")
@@ -577,13 +589,16 @@ def _kernel_case(kind, shape_key, dtype, gen):
         w33 = w.view(3, 3, cin, n)
         wc = w33.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        zero = torch.zeros(n, dtype=dtype, device="cuda")
+        # K11 with a weight whose Cout is off 8 zero-padded (bf16 K11
+        # refuses it), the padded channels dropped
+        wk, zero = gn_conv.pad_cout(
+            w33, torch.zeros(n, dtype=dtype, device="cuda"))
         return (lambda: conv_variants.conv_window_taps(xwin, w, read, W=W,
                                                        reps=reps),
                 lambda: conv_variants.plain_conv_window_taps(
                     xwin, w, read, W=W, reps=reps),
                 (lambda: F.conv2d(xc, wc)) if is_conv else None,
-                (lambda: conv3x3.conv3x3_stream(image, w33, zero))
+                (lambda: conv3x3.conv3x3_stream(image, wk, zero)[..., :n])
                 if is_conv else None)
     if kind == PIPE:
         x_shape, w_shape, has_bias = shape_key
@@ -855,8 +870,9 @@ def compare(kind, shape_key, dtype, gen, timed=False):
     """Kernel vs plain version on the same inputs; returns a dict of
     max_abs_err, tol, peak (max|plain|), err_over_tol (the worst of the
     output's and the statistics'), and kernel_ms / plain_ms / library_ms
-    (None where no PyTorch call computes the function) and, for the staged
-    kernels, family_ms (FAMILY_IS) when `timed`."""
+    (None where no PyTorch call computes the function) and, for the
+    kernels with a family member, family_ms (FAMILY_IS) when `timed`; for
+    FAMILY_EXACT in bf16, family_max_abs_diff (0, or it raises)."""
     import torch
 
     kernel, plain, library, family, composition, pre = kernel_case(
@@ -882,6 +898,12 @@ def compare(kind, shape_key, dtype, gen, timed=False):
                              f"{tol:.3e}")
     out = {"max_abs_err": err, "tol": tol, "peak": peak,
            "err_over_tol": err / tol}
+    if kind in FAMILY_EXACT and dtype == torch.bfloat16:
+        d = (got.float() - family().float()).abs().max().item()
+        if d != 0.0:
+            raise AssertionError(f"{name}: differs from its family member "
+                                 f"({FAMILY_IS[kind]}) by {d:.3e}")
+        out["family_max_abs_diff"] = d
     if kind == "flash_attention_slotted":
         D = shape_key[0][2]
         pad = got.reshape(*got.shape[:2], D // 128, 128)[..., shape_key[2]:]
@@ -1800,7 +1822,10 @@ def conv_arms_phase(gen, k5_shapes, stamps):
                        "its plain version") + ", "
                 + hold(f"{PIPE} {label} interior", got[:, 1:-1, 1:-1],
                        k5[:, 1:-1, 1:-1], "K5 away from the border"))
-            zero = torch.zeros(w.shape[3], dtype=x.dtype, device="cuda")
+            # K11 on the image, a weight whose Cout is off 8 (the VAE
+            # decoder's head) zero-padded as K5's is, the padding dropped
+            wk, zero = gn_conv.pad_cout(
+                w, torch.zeros(w.shape[3], dtype=x.dtype, device="cuda"))
             for read, out in by_read.items():
                 msg = hold(f"{TAPS} {read} {label}", out,
                            cv.plain_conv_window_taps(xwin, taps_w(w, read),
@@ -1811,7 +1836,8 @@ def conv_arms_phase(gen, k5_shapes, stamps):
                         f"{TAPS} shifted {label} as a conv",
                         out.reshape(1, B * H, W, -1),
                         conv3x3.conv3x3_stream(
-                            x.reshape(1, B * H, W, cin), w, zero),
+                            x.reshape(1, B * H, W, cin), wk,
+                            zero)[..., :w.shape[3]],
                         "K11 on the image")
                 log(f"conv_arms: {TAPS} {read} {tuple(xwin.shape)}: "
                     f"max|diff| {msg}")
@@ -1838,10 +1864,11 @@ def tma_refusal_probe(gen):
     and PLAIN modes) at Cin 20, at Cout 12 and on an input 2 bytes off 16;
     T10 (csrc/pv_product_sm90.cu) at Lk 1100, at hd 36 and on an e 2 bytes
     off 16; T4 (csrc/flash_attention_sm90.cu's slotted mode) at P 36 and on
-    a q 2 bytes off 16. Then csrc/conv3x3.cu's fp32 entries of K7, K4 and
-    K6, attn_transposed.cu's T10 and attn_layouts.cu's T4 called in bf16:
-    each returns cudaErrorInvalidValue, and the conv entries' split plans
-    -1."""
+    a q 2 bytes off 16; K12a and K11 (K7's kernel in bf16) at Cin 3, Cin 9
+    and Cout 130. Then csrc/conv3x3.cu's fp32 entries of K7, K4 and K6,
+    conv_staged.cu's SAME entry (fp32 K12a and K11), attn_transposed.cu's
+    T10 and attn_layouts.cu's T4 called in bf16: each returns
+    cudaErrorInvalidValue, and the conv entries' split plans -1."""
     import torch
 
     from diffusiontexturepainting_torch.ops import (
@@ -1921,6 +1948,17 @@ def tma_refusal_probe(gen):
              "conv3x3 Cout 12": lambda: conv3x3.conv3x3(xd, wd, None),
              "conv3x3 x 2 bytes off 16":
              lambda: conv3x3.conv3x3(off, w16, None)}
+    # bf16 K12a and K11 (K7's kernel) at the staged-tile edge rows that
+    # fp32 keeps: Cin 3, Cin 9, Cout 130
+    for op in (conv3x3.conv3x3_inpad, conv3x3.conv3x3_stream):
+        for xs, ws in (((2, 5, 7, 3), (3, 3, 3, 40)),
+                       ((1, 1, 1, 9), (3, 3, 9, 24)),
+                       ((1, 17, 9, 48), (3, 3, 48, 130))):
+            xr = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+            wr = torch.randn(ws, generator=gen, device="cuda").bfloat16()
+            what = f"Cout {ws[3]}" if ws[3] % 8 else f"Cin {ws[2]}"
+            calls[f"{op.__name__} {what}"] = (
+                lambda op=op, xr=xr, wr=wr: op(xr, wr, None))
     e_flat = torch.rand(1 + 64 * 1096, generator=gen,
                         device="cuda").bfloat16()
     v_ok = torch.rand((1, 1096, 40), generator=gen, device="cuda").bfloat16()
@@ -1949,7 +1987,8 @@ def tma_refusal_probe(gen):
                 gn_conv.gn_conv_resident_launches,
                 gn_conv.gn_conv_stream_launches, ff_geglu.ff_geglu_launches,
                 conv3x3.upsample_launches, gn_conv.upconv_stream_launches,
-                conv3x3.conv3x3_launches, av.pv_product_launches,
+                conv3x3.conv3x3_launches, conv3x3.conv3x3_inpad_launches,
+                conv3x3.conv3x3_stream_launches, av.pv_product_launches,
                 av.slotted_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
@@ -1976,6 +2015,9 @@ def tma_refusal_probe(gen):
         "dtp_upsample2x_conv3x3": _cuda.function(
             "conv3x3", "dtp_upsample2x_conv3x3", conv3x3._ARGTYPES)(
             *ptrs, None, 1, 8, 8, 16, 16, 1, 1, stream),
+        "dtp_conv3x3_staged": _cuda.function(
+            "conv_staged", "dtp_conv3x3_staged", conv3x3._STAGED_ARGTYPES)(
+            *ptrs, 1, 8, 8, 16, 16, 1, stream),
         "dtp_upsample2x_conv3x3_stats": _cuda.function(
             "conv3x3", "dtp_upsample2x_conv3x3_stats", gn_conv._UP_ARGTYPES)(
             *ptrs, stats.data_ptr(), stats.data_ptr(), stats.data_ptr(), 1,
@@ -1996,9 +2038,9 @@ def tma_refusal_probe(gen):
     if set(codes.values()) != {1} or set(splits.values()) != {-1}:
         raise AssertionError(f"probe: fp32 entries in bf16 gave {codes}, "
                              f"split plans {splits}")
-    log(f"probe: conv3x3.cu's, attn_transposed.cu's T10 and attn_layouts.cu's "
-        f"T4 fp32 entries refuse bf16: {codes} (cudaErrorInvalidValue), "
-        "conv split plans -1")
+    log(f"probe: conv3x3.cu's, conv_staged.cu's SAME, attn_transposed.cu's "
+        f"T10 and attn_layouts.cu's T4 fp32 entries refuse bf16: {codes} "
+        "(cudaErrorInvalidValue), conv split plans -1")
 
 
 def replay_probe(gen):
@@ -2006,9 +2048,10 @@ def replay_probe(gen):
     whole-image and a tiled shape, K14 on K1/K5's inputs, K3 and K4 at the
     default stamp's shapes whose K splits, K6 at the default stamp's three
     shapes and a forced split, K7 at three of the safe twin's split
-    shapes, T10 at its tool's three shapes in both orientations (the
-    partials of many CTAs added by the last) and T4 at the slotted arm's
-    two shapes in both softmax flavours, each twice on the same inputs:
+    shapes, K12a and K11 at one each, T10 at its tool's three shapes in
+    both orientations (the partials of many CTAs added by the last) and T4
+    at the slotted arm's two shapes in both softmax flavours, each twice
+    on the same inputs:
     outputs and statistics bit-identical (fixed reduction orders, no float
     atomics); K1/K5's and K14's statistics also those of their own
     outputs, K6's those of its fp32 output before the rounding
@@ -2112,6 +2155,17 @@ def replay_probe(gen):
         splits = gn_conv.same_sm90_plan(B, H, H, cin, cout)["splits"]
         log(f"probe: conv3x3 {key} bf16 ({splits} splits): bit-identical "
             "on replay")
+    # K12a and K11 (K7's launch) at a split shape of each one's path
+    for kind, key in (("conv3x3_inpad", ((3, 4, 4, 2560),
+                                         (3, 3, 2560, 1280))),
+                      ("conv3x3_stream", ((3, 8, 8, 2560),
+                                          (3, 3, 2560, 1280)))):
+        kernel = kernel_case(kind, key, torch.bfloat16, gen)[0]
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"probe: {kind} {key} differs on replay")
+        log(f"probe: {kind} {key} bf16: bit-identical on replay")
 
     for h, c in ((128, 128), (64, 256), (32, 512)):
         x = torch.randn((2, 2 * h, 2 * h, c), generator=gen,
@@ -2239,7 +2293,7 @@ def kernels_phase(gen, paths):
         also_totals = Counter()
         by_option = Counter()
         lib_missing = False
-        self_worst = 0.0
+        self_worst = family_diff = 0.0
         for key in keys:
             count = counts.get(key, 0)
             also_count = also_counts.get(key, 0)
@@ -2250,6 +2304,8 @@ def kernels_phase(gen, paths):
                 errs[dt] = max(errs[dt], r["max_abs_err"])
                 worst[dt] = max(worst[dt], r["err_over_tol"])
                 self_worst = max(self_worst, r.get("stats_self_err", 0.0))
+                family_diff = max(family_diff,
+                                  r.get("family_max_abs_diff", 0.0))
                 msg = (f"kernels: {name} {key} {str(dt)[6:]}: max_abs_err "
                        f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, "
                        f"max|plain| {r['peak']:.3e}); err/tol "
@@ -2302,7 +2358,9 @@ def kernels_phase(gen, paths):
         if name in FAMILY_IS:
             log(f"kernels: {name}: {totals['kernel'] / n:.4f} ms beside "
                 f"{FAMILY_IS[name]} {totals['family'] / n:.4f} ms at the same "
-                f"shapes and launches ({path} path)")
+                f"shapes and launches ({path} path)"
+                + (f"; bf16 max|{name} - family| {family_diff:.3e} at every "
+                   "shape" if name in FAMILY_EXACT else ""))
         record.append({
             "name": name, "route": "cuda",
             "source": "diffusiontexturepainting_torch/" + SOURCES[name],
@@ -2326,6 +2384,8 @@ def kernels_phase(gen, paths):
                                      "its shapes"),
             **({"family_ms": totals["family"] / n,
                 "family_is": FAMILY_IS[name]} if name in FAMILY_IS else {}),
+            **({"family_max_abs_diff": family_diff}
+               if name in FAMILY_EXACT else {}),
             **({"stats_self_err": self_worst}
                if name in STATS_SELF_KINDS + STATS_PRE_KINDS else {}),
             **({"device_ms": totals["kernel_device"] / n,
@@ -2507,11 +2567,22 @@ def main() -> int:
         ("spatial_moments", ((2, 9, 7, 40),)),
         ("spatial_moments", ((1, 32, 32, 2560),)),
         ("spatial_moments", ((2, 1, 1, 8),)),
-        # the staged-tile mode: Cin 3 and 9 (one ragged channel chunk),
-        # odd H and W, a 1x1 image, Cout off the tile, a UNet 4x4 level
-        ("conv3x3_inpad", ((2, 5, 7, 3), (3, 3, 3, 40))),
-        ("conv3x3_inpad", ((1, 1, 1, 9), (3, 3, 9, 24))),
-        ("conv3x3_stream", ((1, 17, 9, 48), (3, 3, 48, 130))),
+        # K12a and K11 in fp32 (the staged-tile FMA twin): Cin 3 and 9 (one
+        # ragged channel chunk), odd H and W, a 1x1 image, Cout off the
+        # tile (bf16 refuses these: tma_refusal_probe); in bf16 (K7's
+        # kernel) ragged shapes TMA can describe: odd H and W, a 1x1
+        # image, Cout 40 and 136
+        ("conv3x3_inpad", ((2, 5, 7, 3), (3, 3, 3, 40)), (torch.float32,)),
+        ("conv3x3_inpad", ((1, 1, 1, 9), (3, 3, 9, 24)), (torch.float32,)),
+        ("conv3x3_stream", ((1, 17, 9, 48), (3, 3, 48, 130)),
+         (torch.float32,)),
+        ("conv3x3_inpad", ((2, 5, 7, 8), (3, 3, 8, 40)), (torch.bfloat16,)),
+        ("conv3x3_inpad", ((1, 1, 1, 16), (3, 3, 16, 24)),
+         (torch.bfloat16,)),
+        ("conv3x3_stream", ((1, 17, 9, 48), (3, 3, 48, 136)),
+         (torch.bfloat16,)),
+        # the staged-tile UP and GN modes: odd H and W, Cout off the tile,
+        # a UNet 4x4 level
         ("upsample2x_conv3x3_inpad", ((1, 6, 5, 48), (3, 3, 48, 40))),
         ("upsample2x_conv3x3_inpad", ((3, 4, 4, 1280), (3, 3, 1280, 1280))),
         ("gn_silu_conv3x3", ((2, 9, 10, 64), (3, 3, 64, 136), True, True,

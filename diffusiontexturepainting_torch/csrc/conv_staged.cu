@@ -8,8 +8,14 @@
 //   dtp_conv3x3_staged             <- _conv_kernel_inpad (K12a), under the
 //                                     port's _IN_PAD switch, and
 //                                     _conv3x3_stream / _conv_stream_kernel
-//                                     (K11): the same function, counted
-//                                     apart by the wrappers
+//                                     (K11), in fp32 only: the FMA twin.
+//                                     In bf16 K12a and K11 run the PLAIN
+//                                     mode of csrc/gn_conv_sm90.cu (K7's
+//                                     kernel: TMA's out-of-bounds zeros are
+//                                     K12a's on-chip padding, its windows
+//                                     K11's streamed rows), and this entry
+//                                     refuses bf16: its SAME mode serves
+//                                     nothing in bf16 any more
 //   dtp_upsample2x_conv3x3_staged  <- _upconv_pallas / _upconv_kernel
 //                                     (K12b), under _IN_PAD
 //   dtp_gn_silu_conv3x3_staged     <- gn_silu_conv3x3 / _gn_conv_kernel
@@ -19,7 +25,7 @@
 // What they compute:
 //   SAME: out[b,y,x,n] = bias[n] + sum_{di,dj,c} v[b,y+di-1,x+dj-1,c]
 //                                                * w[di,dj,c,n]
-//         with v = x, or in the GroupNorm mode
+//         with v = x, or in the GroupNorm mode (GN)
 //         v = round_T(silu(x*a[b,c] + c[b,c])) computed in fp32 and zero
 //         outside the image (silu(0*a + c) != 0, so the border skips the
 //         prologue), where per group g of Cin/G channels
@@ -42,22 +48,22 @@
 // channels it copies the patch's halo window, (TH+2) x (TW+2) x BK, into
 // shared memory once, writing zeros where the window leaves the image:
 // SAME padding done on chip, the Hopper counterpart of K12's zero-bordered
-// VMEM scratch and of K11's row window with halo. The 9 taps (SAME) or the
-// plane's 4 folded taps (UP) then read their A operands from that window:
-// a tap is the window shifted by (dy, dx), and with TW = 16 one 16-row
-// WMMA fragment is one output row of the patch, 16 consecutive window
-// pixels LDW elements apart. The GroupNorm prologue runs once per staged
-// element, not once per tap. B (one tap's BK x BN weights) is loaded per
-// tap. bf16 WMMA (mma.sync) with fp32 accumulation, or the fp32 FMA twin
-// (csrc/gemm_tile.cuh). No split-K and no atomics: every run gives the
-// same bits.
+// VMEM scratch and of K11's row window with halo. The 9 taps (SAME, GN) or
+// the plane's 4 folded taps (UP) then read their A operands from that
+// window: a tap is the window shifted by (dy, dx), and with TW = 16 one
+// 16-row WMMA fragment is one output row of the patch, 16 consecutive
+// window pixels LDW elements apart. The GroupNorm prologue runs once per
+// staged element, not once per tap. B (one tap's BK x BN weights) is
+// loaded per tap. bf16 WMMA (mma.sync) with fp32 accumulation (UP and GN),
+// or the fp32 FMA twin (csrc/gemm_tile.cuh; all three modes). No split-K
+// and no atomics: every run gives the same bits.
 //
 // What bounds it on the H100: tensor-core work at the UNet's and VAE's
 // shapes (K = 9*Cin up to 23040), fed by an un-pipelined loop (stage,
 // sync, load B, sync, mma, sync); at the UNet's 4x4 and 8x8 levels a patch
 // is mostly outside the image, and with no split-K the small levels run
-// few blocks. Plain loads only; cp.async/TMA, wgmma, smaller patches for
-// small images and split-K come later.
+// few blocks. Plain loads only; K12b (UP) and K10 (GN) move onto the
+// sm90 bodies in their own redesigns.
 #include <type_traits>
 
 #include "conv_staged.cuh"
@@ -66,8 +72,9 @@ namespace dtp {
 namespace {
 
 enum StagedMode : int {
-  kSame = 0,  // 3x3 SAME conv
+  kSame = 0,  // 3x3 SAME conv (fp32 only)
   kUp = 1,    // nearest x2 + 3x3 conv, as four parity planes of 2x2 taps
+  kGn = 2,    // 3x3 SAME conv of the GroupNorm -> SiLU prologue's output
 };
 
 constexpr int kMaxGroups = 128;
@@ -77,7 +84,7 @@ struct StagedArgs {
   const T* x;          // (B, H, W, Cin)
   const T* w;          // SAME (9, Cin, Cout); UP (16, Cin, Cout)
   const T* bias;       // (Cout,) or null
-  const float* stats;  // (B, 2, Cin) fp32 sums of x and x^2, or null
+  const float* stats;  // (B, 2, Cin) fp32 sums of x and x^2 (GN)
   const T* gn_scale;   // (Cin,) with stats
   const T* gn_shift;   // (Cin,) with stats
   const T* temb;       // (B, Cout) or null
@@ -93,6 +100,7 @@ template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 staged_kernel(const StagedArgs<T> p) {
   constexpr bool UP = MODE == kUp;
+  constexpr bool gn = MODE == kGn;
   using TL = Tile<T>;
   using PT = Patch<T>;
   constexpr int TH = PT::TH, TW = PT::TW, LDW = PT::LDW;
@@ -125,11 +133,10 @@ staged_kernel(const StagedArgs<T> p) {
   const int n0 = blockIdx.y * TL::BN;
   const int plane = UP ? blockIdx.z : 0;
   const int ry = plane >> 1, rx = plane & 1;
-  const bool gn = p.stats != nullptr;
   const int cpg = gn ? Cin / p.groups : 1;
 
   // the image's group mean and 1/std, once per block
-  if (gn) {
+  if constexpr (gn) {
     const float n = (float)((long long)H * W * cpg);
     const float* s = p.stats + (size_t)b * 2 * Cin;
     for (int g = tid; g < p.groups; g += kThreads) {
@@ -149,7 +156,7 @@ staged_kernel(const StagedArgs<T> p) {
   math.init();
 
   for (int ci0 = 0; ci0 < Cin; ci0 += BK) {
-    if (gn) {
+    if constexpr (gn) {
       if (tid < BK) {
         const int c = ci0 + tid;
         float a = 0.0f, sh = 0.0f;
@@ -237,9 +244,10 @@ cudaError_t launch(StagedArgs<T> p, cudaStream_t stream) {
   if (p.B <= 0 || p.H <= 0 || p.W <= 0 || p.Cin <= 0 || p.Cout <= 0 ||
       p.x == nullptr || p.w == nullptr || p.out == nullptr)
     return cudaErrorInvalidValue;
-  if (p.stats != nullptr &&
-      (p.groups <= 0 || p.groups > kMaxGroups || p.Cin % p.groups != 0 ||
-       p.gn_scale == nullptr || p.gn_shift == nullptr))
+  if (MODE == kGn &&
+      (p.stats == nullptr || p.groups <= 0 || p.groups > kMaxGroups ||
+       p.Cin % p.groups != 0 || p.gn_scale == nullptr ||
+       p.gn_shift == nullptr))
     return cudaErrorInvalidValue;
   p.tiles_y = (p.H + PT::TH - 1) / PT::TH;
   p.tiles_x = (p.W + PT::TW - 1) / PT::TW;
@@ -277,15 +285,22 @@ cudaError_t dispatch(const void* x, const void* w, const void* bias,
     p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.groups = groups;
     return launch<T, MODE>(p, s);
   };
-  if (is_bf16) return fill(static_cast<__nv_bfloat16*>(nullptr));
+  if (is_bf16) {
+    // bf16 SAME is K7's kernel (csrc/gn_conv_sm90.cu): not instantiated
+    if constexpr (MODE == kSame)
+      return cudaErrorInvalidValue;
+    else
+      return fill(static_cast<__nv_bfloat16*>(nullptr));
+  }
   return fill(static_cast<float*>(nullptr));
 }
 
 }  // namespace
 }  // namespace dtp
 
-// K12a / K11: x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,),
-// out (B,H,W,Cout), all of one type: bf16 when is_bf16, else fp32.
+// K12a / K11 in fp32: x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,),
+// out (B,H,W,Cout), all fp32; is_bf16 returns cudaErrorInvalidValue (bf16
+// K12a and K11 run dtp_conv3x3_sm90 of csrc/gn_conv_sm90.cu).
 extern "C" cudaError_t dtp_conv3x3_staged(const void* x, const void* w,
                                           const void* bias, void* out, int B,
                                           int H, int W, int Cin, int Cout,
@@ -316,7 +331,7 @@ extern "C" cudaError_t dtp_gn_silu_conv3x3_staged(
     void* out, float eps, int B, int H, int W, int Cin, int Cout, int groups,
     int is_bf16, void* stream) {
   if (stats == nullptr) return cudaErrorInvalidValue;
-  return dtp::dispatch<dtp::kSame>(
+  return dtp::dispatch<dtp::kGn>(
       x, w, bias, static_cast<const float*>(stats), scale, shift, temb,
       residual, out, eps, B, H, W, Cin, Cout, groups, is_bf16, stream);
 }

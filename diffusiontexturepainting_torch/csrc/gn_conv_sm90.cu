@@ -114,14 +114,25 @@
 //
 //   dtp_conv3x3_sm90  K7 <- ops/conv3x3.py _conv3x3_pallas / _conv_kernel:
 //       the 3x3 SAME conv + bias in fp32, one rounding; no prologue,
-//       residual or statistics. The K1/K5 kernel's PLAIN mode, with K1/K5's
-//       tile, consumer warpgroups and split of K: without a prologue TMA's
-//       out-of-bounds zeros are the conv's padding, so A is ldmatrix'ed
-//       straight from the TMA window stage, as K4 reads it; the V buffers
-//       and the consumers' per-chunk hand-over go, and their shared memory
-//       gives three window stages and up to 12 B stages. What bounds it:
-//       the operations at the UNet's 16^2 and 32^2 levels and the VAE's;
-//       the weight bytes at the 4x4 and 8x8 levels.
+//       residual or statistics. Also K12a <- _conv_kernel_inpad (the same
+//       function under _IN_PAD, its zero border made in VMEM) and K11 <-
+//       _conv3x3_stream / _conv_stream_kernel (the same function over
+//       DMA'd windows of H_T + 2 rows): TMA's out-of-bounds zeros are
+//       K12a's on-chip padding and its windows K11's streamed rows, so the
+//       wrappers launch this entry and count apart. The K1/K5 kernel's
+//       PLAIN mode, with K1/K5's tile, consumer warpgroups and split of K,
+//       except where K1/K5's plan takes one consumer warpgroup to split K
+//       and two consumers can split deeper over as many CTAs with full
+//       tiles and at least 4 chunks a split (same_plan: the UNet's 16^2
+//       level at Cin >= 960); without a prologue TMA's out-of-bounds zeros
+//       are the conv's padding, so A is ldmatrix'ed straight from the TMA
+//       window stage, as K4 reads it; the V buffers and the consumers'
+//       per-chunk hand-over go, and their shared memory gives three window
+//       stages and up to 12 B stages. What bounds it: the operations at
+//       the UNet's 16^2 and 32^2 levels and the VAE's; the weight bytes at
+//       the 4x4 and 8x8 levels. A cluster mode (two CTAs on neighbouring M
+//       tiles, each B stage brought once to both by TMA multicast) was
+//       measured slower at every shape and removed.
 //
 // Against conv3x3.cu's WMMA kernels (now their fp32 FMA twins): the
 // prologue once per staged element instead of once per tap and output
@@ -146,6 +157,7 @@ constexpr int kUpWG = 4;          // K4: a warpgroup a parity plane
 constexpr int kUpMaxStages = 12;  // K4's B stages, a multiple of kUpWG
 constexpr int kSameWinStages = 3;    // K7: input windows in flight
 constexpr int kSameMaxBStages = 12;  // K7's B stages
+constexpr int kSameMinChunks = 4;    // K7: chunks a split of two consumers
 
 struct GnPlan {
   int nc, tw, rows, nb;   // a tile: nb images x rows x tw columns
@@ -912,12 +924,23 @@ GnPlan up_plan(int B, int H, int W, int Cin, int Cout, int splits) {
   return p;
 }
 
-// K7's plan: K1/K5's tile, consumer warpgroups and split of K (plan());
-// the shared memory of the two V buffers goes to a third window stage and
-// to B stages (mirrored by ops/gn_conv.py same_sm90_plan).
+// K7's plan: K1/K5's tile, consumer warpgroups and split of K (plan()),
+// but where that takes one consumer warpgroup to split K, two consumers
+// splitting deeper over as many CTAs where their tiles are full and each
+// split keeps at least kSameMinChunks chunks (the UNet's 16^2 level at
+// Cin >= 960: each B stage read for 128 pixels, not 64); the shared
+// memory of the two V buffers goes to a third window stage and to B
+// stages (mirrored by ops/gn_conv.py same_sm90_plan).
 GnPlan same_plan(int B, int H, int W, int Cin, int Cout, int nc,
                  int splits) {
   GnPlan p = plan(B, H, W, Cin, Cout, nc, splits);
+  if (nc == 0 && splits == 0 && p.nc == 1 && p.splits > 1) {
+    const GnPlan q = plan(B, H, W, Cin, Cout, 2, 0);
+    if (static_cast<long long>(q.m_tiles) * 128 ==
+            static_cast<long long>(B) * H * W &&
+        q.per_split >= kSameMinChunks)
+      p = q;
+  }
   // the windows, or the bf16 output staging that aliases them
   const int staging = 64 * p.nc * kBN * 2;
   p.region0 = kSameWinStages * p.win_bytes > staging

@@ -19,22 +19,29 @@ launches the kernel or raises.
                       cannot describe raise ValueError), in fp32
                       csrc/conv3x3.cu; with _IN_PAD,
                       upsample2x_conv3x3_inpad
-  conv3x3_inpad       kernel K12a (csrc/conv_staged.cu, the staged-tile SAME
-                      mode; replaces _conv_kernel_inpad)
+  conv3x3_inpad       kernel K12a (replaces _conv_kernel_inpad): K7's
+                      function and, in bf16, K7's launch, counted apart
+                      (TMA's out-of-bounds zeros are the on-chip padding);
+                      in fp32 csrc/conv_staged.cu's staged-tile FMA twin
   upsample2x_conv3x3_inpad
-                      kernel K12b (the staged-tile UP mode; replaces
-                      _upconv_kernel)
-  conv3x3_stream      kernel K11 (the staged-tile SAME mode, counted apart;
-                      replaces _conv3x3_stream / _conv_stream_kernel)
+                      kernel K12b (csrc/conv_staged.cu, the staged-tile UP
+                      mode; replaces _upconv_kernel)
+  conv3x3_stream      kernel K11 (replaces _conv3x3_stream /
+                      _conv_stream_kernel): as K12a, counted apart (TMA's
+                      windows are the streamed rows)
   gn_silu_conv3x3     kernel K10 (csrc/moments.cu's statistics pass, then
-                      the staged-tile SAME mode with its GroupNorm prologue;
-                      replaces gn_silu_conv3x3 / _gn_conv_kernel)
+                      the staged-tile GN mode, the SAME conv with its
+                      GroupNorm prologue; replaces gn_silu_conv3x3 /
+                      _gn_conv_kernel)
 
-The staged-tile mode stages each block's input window with its halo in
-shared memory once per channel chunk and reads all taps from there: the
-counterpart of the TPU kernels' VMEM padding (K12) and row window (K11).
-The TPU's VMEM budgets (the in-pad size gate, streaming_plan) do not apply:
-every shape goes to the kernel.
+The staged-tile modes stage each block's input window with its halo in
+shared memory once per channel chunk and read all taps from there; K7's
+PLAIN mode has TMA bring each chunk's window with its halo, zeros outside
+the image: both are the counterpart of the TPU kernels' VMEM padding (K12)
+and row window (K11). The TPU's VMEM budgets (the in-pad size gate,
+streaming_plan) do not apply: every shape goes to the kernel, and bf16
+K7, K12a and K11 refuse only what TMA cannot describe (Cin or Cout off a
+multiple of 8, a base off 16 bytes).
 
 Weights are HWIO (3, 3, Cin, Cout), as in the JAX package; the bias has the
 activations' dtype and is added in fp32. The upsample kernel takes the
@@ -45,6 +52,7 @@ does once at parameter load.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -218,32 +226,64 @@ def _launch_staged(symbol, x, w, b, out):
     _cuda.check("conv_staged", symbol, code)
 
 
-def _conv3x3_staged(name, x, w, b, counter):
+def _same_conv(name, x, w, b, counter, fp32, consumers=None, splits=None):
+    """One 3x3 SAME conv + bias of a CUDA tensor, counted on `counter`: in
+    bf16 dtp_conv3x3_sm90, the PLAIN mode of csrc/gn_conv_sm90.cu with the
+    plan of gn_conv.same_sm90_plan (`consumers` 1 or 2 and `splits` force
+    its tile and split of K); in fp32 `fp32(x, w, b, out)`, the caller's
+    FMA twin. K7, K12a and K11 compute this one function and share this
+    launch; operands TMA cannot describe raise ValueError before it."""
     _check(name, x, w, b, (3, 3))
-    B, H, W, _ = x.shape
-    out = torch.empty((B, H, W, w.shape[-1]), dtype=x.dtype,
-                      device=x.device)
-    _launch_staged("dtp_conv3x3_staged", x, w, b, out)
+    B, H, W, cin = x.shape
+    cout = w.shape[-1]
+    out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        from . import gn_conv
+
+        if not gn_conv.upconv_tma_describable(x, w):
+            raise ValueError(f"{name}: TMA needs Cin and Cout multiples of "
+                             "8 and 16-byte-aligned bases, got x "
+                             f"{tuple(x.shape)}, w {tuple(w.shape)}")
+        plan = gn_conv.same_sm90_plan(B, H, W, cin, cout, consumers, splits)
+        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
+                            device=x.device) if plan["work_floats"] else None)
+        symbol = "dtp_conv3x3_sm90"
+        fn = _cuda.function(gn_conv.GN_SM90_SOURCE, symbol,
+                            _SAME_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
+                  _ptr(work), B, H, W, cin, cout, consumers or 0,
+                  splits or 0, _cuda.stream_of(x))
+        _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
+    else:
+        fp32(x, w, b, out)
     counter.record((tuple(x.shape), tuple(w.shape)))
     return out
 
 
+# fp32 K12a and K11: the staged-tile FMA twin (csrc/conv_staged.cu)
+_staged_fp32 = functools.partial(_launch_staged, "dtp_conv3x3_staged")
+
+
 def conv3x3_inpad(x, w, b):
-    """conv3x3 with SAME padding done on chip (kernel K12a on CUDA: the
-    staged-tile mode), what conv3x3 runs under _IN_PAD."""
+    """conv3x3 with SAME padding done on chip (kernel K12a on CUDA), what
+    conv3x3 runs under _IN_PAD: in bf16 K7's launch, where TMA's
+    out-of-bounds zeros are the padding, counted apart; in fp32 the
+    staged-tile FMA twin of csrc/conv_staged.cu."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b)
-    return _conv3x3_staged("conv3x3_inpad", x, w, b, conv3x3_inpad_launches)
+    return _same_conv("conv3x3_inpad", x, w, b, conv3x3_inpad_launches,
+                      _staged_fp32)
 
 
 def conv3x3_stream(x, w, b):
     """conv3x3 through row windows with halo staged on chip (kernel K11 on
-    CUDA: the staged-tile mode, counted apart from K12a). No plan: the
-    TPU's streaming_plan is a VMEM budget."""
+    CUDA): in bf16 K7's launch, whose TMA windows are the streamed rows,
+    counted apart; in fp32 the staged-tile FMA twin. No plan of its own:
+    the TPU's streaming_plan is a VMEM budget."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b)
-    return _conv3x3_staged("conv3x3_stream", x, w, b,
-                           conv3x3_stream_launches)
+    return _same_conv("conv3x3_stream", x, w, b, conv3x3_stream_launches,
+                      _staged_fp32)
 
 
 def conv3x3(x, w, b):
@@ -261,31 +301,9 @@ def _conv3x3(x, w, b, consumers=None, splits=None):
     """K7 on CUDA (conv3x3 with _IN_PAD off); in bf16 `consumers` 1 or 2
     and `splits` force the sm90 kernel's tile and split of K (the tests and
     tools/sm90_plans.py call this entry with them)."""
-    _check("conv3x3", x, w, b, (3, 3))
-    B, H, W, cin = x.shape
-    cout = w.shape[-1]
-    out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
-        from . import gn_conv
-
-        if not gn_conv.upconv_tma_describable(x, w):
-            raise ValueError("conv3x3: TMA needs Cin and Cout multiples of "
-                             "8 and 16-byte-aligned bases, got x "
-                             f"{tuple(x.shape)}, w {tuple(w.shape)}")
-        plan = gn_conv.same_sm90_plan(B, H, W, cin, cout, consumers, splits)
-        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
-                            device=x.device) if plan["work_floats"] else None)
-        symbol = "dtp_conv3x3_sm90"
-        fn = _cuda.function(gn_conv.GN_SM90_SOURCE, symbol,
-                            _SAME_SM90_ARGTYPES)
-        code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
-                  _ptr(work), B, H, W, cin, cout, consumers or 0,
-                  splits or 0, _cuda.stream_of(x))
-        _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
-    else:
-        _launch("dtp_conv3x3", x, w, b, out)
-    conv3x3_launches.record((tuple(x.shape), tuple(w.shape)))
-    return out
+    return _same_conv("conv3x3", x, w, b, conv3x3_launches,
+                      functools.partial(_launch, "dtp_conv3x3"), consumers,
+                      splits)
 
 
 def upsample2x_conv3x3(x, w, b, taps):

@@ -203,7 +203,7 @@ def downconv_tma_describable(x, w) -> bool:
 GN_BN, GN_BK, GN_WIN_STAGES, GN_MAX_B_STAGES = 128, 64, 2, 8
 GN_B_BYTES = GN_BK * GN_BN * 2  # one tap's weights of a chunk
 UP_PLANES, UP_MAX_B_STAGES = 4, 12
-SAME_WIN_STAGES, SAME_MAX_B_STAGES = 3, 12
+SAME_WIN_STAGES, SAME_MAX_B_STAGES, SAME_MIN_CHUNKS = 3, 12, 4
 
 
 def _gn_tile(B, H, W, cin, cout, nc):
@@ -324,15 +324,26 @@ def upconv_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
 def same_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
                    consumers: int | None = None,
                    splits: int | None = None) -> dict:
-    """The tile bf16 K7 launches for x (B, H, W, cin) and cout output
-    channels: K1/K5's tile, consumer warpgroups and split of K
-    (gn_conv_sm90_plan); no prologue, so no V buffers: three staged input
-    windows (or the bf16 output staging that aliases them, if larger) and
-    up to 12 B stages; the mbarriers and split flag, 1024 bytes of
-    alignment. `work_floats`: the split tiles and counters, 0 without a
-    split. Cached: the dict is shared, read it only."""
-    p = dict(gn_conv_sm90_plan(B, H, W, cin, cout, cout, False, consumers,
-                               splits))
+    """The tile bf16 K7 (and K12a and K11, the same function) launches for
+    x (B, H, W, cin) and cout output channels: K1/K5's tile, consumer
+    warpgroups and split of K (gn_conv_sm90_plan), but where that takes one
+    consumer warpgroup to split K, two consumers splitting deeper over as
+    many CTAs where their tiles are full (M a multiple of their 128
+    pixels) and each split keeps at least SAME_MIN_CHUNKS chunks; no
+    prologue, so no V buffers: three staged input windows (or the bf16
+    output staging that aliases them, if larger) and up to 12 B stages; the
+    mbarriers and split flag, 1024 bytes of alignment. `work_floats`: the
+    split tiles and counters, 0 without a split. Cached: the dict is
+    shared, read it only."""
+    p = gn_conv_sm90_plan(B, H, W, cin, cout, cout, False, consumers,
+                          splits)
+    if consumers is None and splits is None and p["consumers"] == 1 \
+            and p["splits"] > 1:
+        q = gn_conv_sm90_plan(B, H, W, cin, cout, cout, False, 2)
+        if q["m_tiles"] * 128 == B * H * W \
+                and q["per_split"] >= SAME_MIN_CHUNKS:
+            p = q
+    p = dict(p)
     region0 = max(SAME_WIN_STAGES * p["win_bytes"],
                   64 * p["consumers"] * GN_BN * 2)
     fixed = (region0 + 8 * 2 * (SAME_WIN_STAGES + SAME_MAX_B_STAGES) + 16

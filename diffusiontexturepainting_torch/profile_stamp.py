@@ -2,12 +2,14 @@
 
     python -m diffusiontexturepainting_torch.profile_stamp \
         [--config default|safe_twin|slotted] [--resolution 256|512|1024]
-        [--steps 20] [--stamps 10]
+        [--steps 20] [--stamps 10] [--in-pad]
 
 Builds the full-width serving model (seeded random weights, bf16) in the
 default configuration (every fused switch on), the safe twin (module legs
 only) or the slotted one (default plus the head-slotted self-attention)
-and prints, each beside the card's name and power limit:
+and prints, each beside the card's name and power limit (with --in-pad,
+ops.conv3x3._IN_PAD set first: the in-kernel-padding kernels K12a/b take
+every call of K7/K4, as chip_smoke.py's twin_inpad path runs them):
   - the wall time of `--stamps` unprofiled stamps (after two warm-up
     stamps): median, quartiles, min and max;
   - CUDA-event times of one UNet eval (the CFG batch of 3), one VAE encode
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from .core.config import CONFIG_NAMES, pipeline_config
+from .ops import conv3x3
 from .pipeline.torch_model import TorchConditionalInpainter
 
 
@@ -59,13 +62,16 @@ def main(argv=None) -> None:
     parser.add_argument("--stamps", type=int, default=10)
     parser.add_argument("--top", type=int, default=25,
                         help="kernels listed from the profiled stamp")
+    parser.add_argument("--in-pad", action="store_true",
+                        help="set ops.conv3x3._IN_PAD (K12a/b for K7/K4)")
     args = parser.parse_args(argv)
     res = args.resolution
+    conv3x3._IN_PAD = args.in_pad
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    print(f"config: {args.config}")
+    print(f"config: {args.config}" + (", _IN_PAD set" if args.in_pad else ""))
     model = TorchConditionalInpainter(
         res, config=pipeline_config(args.config), device="cuda")
     rng = np.random.default_rng(0)

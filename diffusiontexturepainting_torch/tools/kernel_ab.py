@@ -1,5 +1,5 @@
-"""Eager and CUDA-graph device time of the served K3, K4, K6 and K7
-wrappers at their served shapes, and of the T4 and T10 arms at their
+"""Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a and
+K11 wrappers at their served shapes, and of the T4 and T10 arms at their
 paths' shapes, for comparing two checkouts on one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
@@ -14,7 +14,10 @@ ops.conv3x3.upsample2x_conv3x3 (K4) at the UNet's upsample shapes at the
 same points, ops.gn_conv.upconv_stream (K6, statistics on) at the VAE
 decoder's three upsamplers at the same points (batch 1), and
 ops.conv3x3.conv3x3 (K7) at every shape the safe twin's 256^2 stamp runs
-it at (TWIN_K7), ops.attention_variants.slotted_kernel_call (T4) at the
+it at (TWIN_K7), the same call with ops.conv3x3._IN_PAD set (K12a, as the
+twin_inpad path runs it) at the same shapes, ops.conv3x3.conv3x3_stream
+(K11) at those of them that pass streaming_plan's shape test (TWIN_K11),
+ops.attention_variants.slotted_kernel_call (T4) at the
 slotted 512^2/4 stamp's two K13 shapes as (B*h, L, 128) slots (hd 40 and
 80 real lanes) in both softmax flavours, and
 ops.attention_variants.pv_product (T10) at the TPU tool's three shapes, bh
@@ -81,6 +84,10 @@ TWIN_K7 = [
       for h, cin, cout in ((32, 512, 512), (64, 512, 512), (128, 512, 256),
                            (128, 256, 256), (256, 256, 128),
                            (256, 128, 128))]]
+# K11 at the twin's K7 shapes that pass the JAX package's streaming_plan
+# shape test (H >= 8, W >= 2, Cin >= 16, Cout >= 128): all but the 4x4 level
+TWIN_K11 = [s for s in TWIN_K7
+            if s[1] >= 8 and s[2] >= 2 and s[3] >= 16 and s[4] >= 128]
 # (B*h, L, real lanes): T4 at the slotted 512^2/4 stamp's K13 shapes
 SLOTTED = [(24, 4096, 40), (24, 1024, 80)]
 # (bq, Lk, hd): T10 at the TPU tool's shapes, bh 1, PV_ITERS passes
@@ -92,64 +99,69 @@ def _rows(gen):
     rows = []
     rnd = lambda *s, std=1.0: (torch.randn(s, generator=gen, device="cuda")
                                * std).bfloat16()
+
+    def row(kernel, tag, shape, call):
+        rows.append({"kernel": kernel, "tag": tag, "shape": shape,
+                     "ms": _common.event_ms(call),
+                     "device_ms": _common.graph_ms(call)})
+
     for N, C, inner, tag in FF:
         x, res = rnd(N, C), rnd(N, C)
         w0, b0 = rnd(2 * inner, C, std=C**-0.5), rnd(2 * inner, std=0.1)
         w2, b2 = rnd(C, inner, std=inner**-0.5), rnd(C, std=0.1)
-        call = lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b2, res)
-        rows.append({"kernel": "K3", "tag": tag, "shape": [N, C, inner],
-                     "ms": _common.event_ms(call),
-                     "device_ms": _common.graph_ms(call)})
+        row("K3", tag, [N, C, inner],
+            lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b2, res))
     for B, H, W, C, tag in UP:
         x = rnd(B, H, W, C)
         w, b = rnd(3, 3, C, C, std=(9 * C) ** -0.5), rnd(C, std=0.1)
         taps = conv3x3.fold_upsample_weights(w)
-        call = lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps)
-        rows.append({"kernel": "K4", "tag": tag, "shape": [B, H, W, C, C],
-                     "ms": _common.event_ms(call),
-                     "device_ms": _common.graph_ms(call)})
+        row("K4", tag, [B, H, W, C, C],
+            lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps))
     for B, H, W, C, tag in UPSTATS:
         x = rnd(B, H, W, C)
         w, b = rnd(3, 3, C, C, std=(9 * C) ** -0.5), rnd(C, std=0.1)
         taps = conv3x3.fold_upsample_weights(w)
-        call = lambda: gn_conv.upconv_stream(x, w, b, taps)
-        rows.append({"kernel": "K6", "tag": tag, "shape": [B, H, W, C, C],
-                     "ms": _common.event_ms(call),
-                     "device_ms": _common.graph_ms(call)})
-    for B, H, W, cin, cout, tag in TWIN_K7:
-        x = rnd(B, H, W, cin)
-        w, b = rnd(3, 3, cin, cout, std=(9 * cin) ** -0.5), rnd(cout, std=0.1)
-        call = lambda: conv3x3.conv3x3(x, w, b)
-        rows.append({"kernel": "K7", "tag": tag,
-                     "shape": [B, H, W, cin, cout],
-                     "ms": _common.event_ms(call),
-                     "device_ms": _common.graph_ms(call)})
+        row("K6", tag, [B, H, W, C, C],
+            lambda: gn_conv.upconv_stream(x, w, b, taps))
+    same = [(s, rnd(*s[:4]), rnd(3, 3, *s[3:5], std=(9 * s[3]) ** -0.5),
+             rnd(s[4], std=0.1)) for s in TWIN_K7]
+    # K7's rows in one run, then K12a's, then K11's: a row's time follows
+    # the card's load before it, so K7 (code both trees of an A/B share)
+    # is not timed right after a kernel that differs between them
+    for (B, H, W, cin, cout, tag), x, w, b in same:
+        row("K7", tag, [B, H, W, cin, cout],
+            lambda: conv3x3.conv3x3(x, w, b))
+    # K12a: conv3x3 as the twin_inpad path calls it, _IN_PAD set
+    conv3x3._IN_PAD = True
+    try:
+        for (B, H, W, cin, cout, tag), x, w, b in same:
+            row("K12a", tag, [B, H, W, cin, cout],
+                lambda: conv3x3.conv3x3(x, w, b))
+    finally:
+        conv3x3._IN_PAD = False
+    for s, x, w, b in same:
+        if s in TWIN_K11:
+            row("K11", s[5], list(s[:5]),
+                lambda: conv3x3.conv3x3_stream(x, w, b))
     for BH, L, hd in SLOTTED:
         q, k, v = (torch.zeros((BH, L, 128), device="cuda").bfloat16()
                    for _ in range(3))
         for t in (q, k, v):
             t[..., :hd] = rnd(BH, L, hd)
         for exp2_bf16 in (True, False):
-            call = lambda: attention_variants.slotted_kernel_call(
-                q, k, v, hd**-0.5, exp2_bf16=exp2_bf16)
-            rows.append({"kernel": "T4",
-                         "tag": f"slotted {L} hd {hd}"
-                                + ("" if exp2_bf16 else " f32p"),
-                         "shape": [BH, L, 128, hd, exp2_bf16],
-                         "ms": _common.event_ms(call),
-                         "device_ms": _common.graph_ms(call)})
+            row("T4", f"slotted {L} hd {hd}" + ("" if exp2_bf16 else " f32p"),
+                [BH, L, 128, hd, exp2_bf16],
+                lambda: attention_variants.slotted_kernel_call(
+                    q, k, v, hd**-0.5, exp2_bf16=exp2_bf16))
     for bq, lk, hd in PV:
         e = torch.rand((1, bq, lk), generator=gen, device="cuda").bfloat16()
         v = torch.rand((1, lk, hd), generator=gen, device="cuda").bfloat16()
         for transposed in (False, True):
-            call = lambda: attention_variants.pv_product(
-                e, v, transposed=transposed, iters=PV_ITERS)
-            rows.append({"kernel": "T10",
-                         "tag": f"({bq}, {lk}, {hd}) "
-                                + ("v^T@e^T" if transposed else "e@v"),
-                         "shape": [1, bq, lk, hd, transposed, PV_ITERS],
-                         "ms": _common.event_ms(call),
-                         "device_ms": _common.graph_ms(call)})
+            row("T10", f"({bq}, {lk}, {hd}) "
+                + ("v^T@e^T" if transposed else "e@v"),
+                [1, bq, lk, hd, transposed, PV_ITERS],
+                lambda: attention_variants.pv_product(
+                    e, v, transposed=transposed, iters=PV_ITERS))
     return rows
 
 

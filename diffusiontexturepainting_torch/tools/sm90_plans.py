@@ -1,9 +1,10 @@
 """A/B of the tile plans of the bf16 K2, K9, K1/K5, K3, K4, K6 and K7
-kernels, and of K14's.
+kernels (K7's also served as K12a and K11), and of K14's.
 
     python -m diffusiontexturepainting_torch.tools.sm90_plans
     python -m diffusiontexturepainting_torch.tools.sm90_plans --rows ff,upconv
-    python -m diffusiontexturepainting_torch.tools.sm90_plans --rows upstats,same
+    python -m diffusiontexturepainting_torch.tools.sm90_plans \\
+        --rows upstats,same,inpad,stream
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
         --device cpu --shapes tiny
 
@@ -30,15 +31,21 @@ the function); K4 (ops/conv3x3.py _upsample2x_conv3x3, the upsample mode
 of csrc/gn_conv_sm90.cu) at the UNet's upsample shapes at the same points
 under its plan's split and without one, F.conv_transpose2d (stride 2,
 padding 1, channels-last) on the 4x4 weight assembled from the folded taps
-beside; with --rows upstats,same (not in the default rows either): K6
-(ops/gn_conv.py _upconv_stream, K4's kernel with the statistics in its
-epilogue) at the VAE decoder's upsamplers at 256^2, 512^2 and 1024^2 under
-its plan's split and without one, F.conv_transpose2d on the assembled
-weight beside (no statistics); K7 (ops/conv3x3.py _conv3x3, the PLAIN mode
-of csrc/gn_conv_sm90.cu) at every shape of the safe twin's 256^2 stamp
-under its plan and without a split, beside the K1/K5 kernel called with
-no prologue, residual or statistics (the same function through the V
-buffers: row "K1/K5 no prologue") and F.conv2d (channels-last, SAME).
+beside; with --rows upstats,same,inpad,stream (not in the default rows
+either): K6 (ops/gn_conv.py _upconv_stream, K4's kernel with the
+statistics in its epilogue) at the VAE decoder's upsamplers at 256^2,
+512^2 and 1024^2 under its plan's split and without one,
+F.conv_transpose2d on the assembled weight beside (no statistics); K7
+(ops/conv3x3.py _conv3x3, the PLAIN mode of csrc/gn_conv_sm90.cu) at every
+shape of the safe twin's 256^2 stamp (kernel_ab.TWIN_K7: K12a's shape set,
+and K11's TWIN_K11 among it) under its plan and under every forced plan,
+one or two consumer warpgroups by every split of K the kernel can run,
+beside the K1/K5 kernel called with no prologue, residual or statistics
+(the same function through the V buffers: row "K1/K5 no prologue") and
+F.conv2d (channels-last, SAME); K12a (ops/conv3x3.py conv3x3_inpad) at
+TWIN_K7 and K11 (conv3x3_stream) at TWIN_K11 through the served wrappers
+under the plan, with max|diff| against K7 on the same inputs (0: one
+plan, one launch), F.conv2d beside.
 Seeded normal inputs, bf16. Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph: the
@@ -107,8 +114,9 @@ SHAPE_SETS = {
                     for res, h0 in ((256, 32), (512, 64), (1024, 128))
                     for (h, c, level) in ((h0, 512, "0"), (2 * h0, 512, "1"),
                                           (4 * h0, 256, "2"))],
-        # (B, H, W, Cin, Cout, tag): K7 at the safe twin's 256^2 stamp
-        "same": None},
+        # (B, H, W, Cin, Cout, tag): K7 and K12a at the safe twin's 256^2
+        # stamp, K11 at those of its shapes that pass streaming_plan's test
+        "same": None, "inpad": None, "stream": None},
     "tiny": {
         "attention": [(1, 100, 80, 2, "tiny hd 40"),
                       (1, 70, 512, 1, "tiny hd 512")],
@@ -118,9 +126,12 @@ SHAPE_SETS = {
         "ff": [(37, 64, 256, "tiny")],
         "upconv": [(1, 5, 7, 16, "tiny"), (3, 4, 4, 24, "tiny 4x4")],
         "upstats": [(1, 5, 7, 16, "tiny"), (2, 9, 6, 24, "tiny 2 images")],
-        "same": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")]},
+        "same": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
+        "inpad": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
+        "stream": [(1, 9, 10, 16, 128, "tiny")]},
 }
-SHAPE_SETS["stamp"]["same"] = kernel_ab.TWIN_K7
+SHAPE_SETS["stamp"].update(same=kernel_ab.TWIN_K7, inpad=kernel_ab.TWIN_K7,
+                           stream=kernel_ab.TWIN_K11)
 
 
 def _times(fn) -> dict:
@@ -394,28 +405,50 @@ def _upstats_rows(shapes, gen, device, timed):
     return rows
 
 
+def _split_choices(chunks):
+    """Every split of `chunks` channel chunks into runs of whole chunks
+    that the kernel can run, once each: the distinct ceil(chunks / per)."""
+    return sorted({-(-chunks // per) for per in range(1, chunks + 1)})
+
+
+def _same_inputs(B, H, W, cin, cout, gen, device):
+    x = torch.randn((B, H, W, cin), generator=gen, device=device).bfloat16()
+    w = (torch.randn((3, 3, cin, cout), generator=gen, device=device)
+         * (9 * cin) ** -0.5).bfloat16()
+    b = (torch.randn(cout, generator=gen, device=device) * 0.1).bfloat16()
+    return x, w, b
+
+
+def _conv2d_row(x, w, b, tag):
+    """F.conv2d (channels-last, SAME) on the same inputs, timed."""
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return {"kernel": "F.conv2d", "tag": tag, "shape": list(x.shape) + [
+        w.shape[-1]], **_times(lambda: F.conv2d(xc, wc, b, padding=1))}
+
+
 def _same_rows(shapes, gen, device, timed):
     rows = []
     for B, H, W, cin, cout, tag in shapes:
-        x = torch.randn((B, H, W, cin), generator=gen,
-                        device=device).bfloat16()
-        w = (torch.randn((3, 3, cin, cout), generator=gen, device=device)
-             * (9 * cin) ** -0.5).bfloat16()
-        b = (torch.randn(cout, generator=gen, device=device) * 0.1).bfloat16()
+        x, w, b = _same_inputs(B, H, W, cin, cout, gen, device)
         want = conv3x3.conv3x3_plain(x, w, b)
         chosen = gn_conv.same_sm90_plan(B, H, W, cin, cout)
-        arms = [None] + ([1] if timed and chosen["splits"] > 1 else [])
-        for splits in arms:
-            p = gn_conv.same_sm90_plan(B, H, W, cin, cout, splits=splits)
+        # the plan, then on the card every forced tile and split of K
+        arms = [(None, None)]
+        if timed:
+            arms += [(nc, s) for nc in (1, 2)
+                     for s in _split_choices(chosen["chunks"])]
+        for nc, splits in arms:
+            p = gn_conv.same_sm90_plan(B, H, W, cin, cout, nc, splits)
             if device == "cpu":  # the wrapper's CPU route: the plain version
                 call = (lambda: conv3x3.conv3x3(x, w, b))
             else:
-                call = (lambda splits=splits: conv3x3._conv3x3(
-                    x, w, b, splits=splits))
+                call = (lambda nc=nc, splits=splits: conv3x3._conv3x3(
+                    x, w, b, consumers=nc, splits=splits))
             rows.append({"kernel": "K7", "tag": tag,
                          "shape": [B, H, W, cin, cout],
                          "consumers": p["consumers"], "splits": p["splits"],
-                         "plan": splits is None,
+                         "plan": nc is None,
                          "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
                          "max_diff": _common.max_diff(call(), want),
                          **(_times(call) if timed
@@ -432,13 +465,38 @@ def _same_rows(shapes, gen, device, timed):
                          "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
                          "max_diff": _common.max_diff(call(), want),
                          **_times(call)})
-            xc = x.permute(0, 3, 1, 2)
-            wc = w.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-            rows.append({"kernel": "F.conv2d", "tag": tag,
-                         "shape": [B, H, W, cin, cout],
-                         **_times(lambda: F.conv2d(xc, wc, b, padding=1))})
+            rows.append(_conv2d_row(x, w, b, tag))
     return rows
+
+
+def _served_same_rows(kernel, op):
+    """Rows of a served wrapper of K7's function (K12a, K11) at its shape
+    set under the plan: max|diff| against the plain version and against
+    K7 (ops/conv3x3.py _conv3x3; 0 where both run one launch), F.conv2d
+    beside."""
+    def rows_of(shapes, gen, device, timed):
+        rows = []
+        for B, H, W, cin, cout, tag in shapes:
+            x, w, b = _same_inputs(B, H, W, cin, cout, gen, device)
+            p = gn_conv.same_sm90_plan(B, H, W, cin, cout)
+            call = lambda: op(x, w, b)
+            got = call()
+            k7 = (conv3x3.conv3x3_plain(x, w, b) if device == "cpu"
+                  else conv3x3._conv3x3(x, w, b))
+            rows.append({"kernel": kernel, "tag": tag,
+                         "shape": [B, H, W, cin, cout],
+                         "consumers": p["consumers"], "splits": p["splits"],
+                         "plan": True,
+                         "ctas": p["m_tiles"] * p["n_tiles"] * p["splits"],
+                         "max_diff": _common.max_diff(
+                             got, conv3x3.conv3x3_plain(x, w, b)),
+                         "k7_max_diff": _common.max_diff(got, k7),
+                         **(_times(call) if timed
+                            else {"ms": None, "device_ms": None})})
+            if timed:
+                rows.append(_conv2d_row(x, w, b, tag))
+        return rows
+    return rows_of
 
 
 def main(argv=None) -> int:
@@ -455,7 +513,9 @@ def main(argv=None) -> int:
     groups = {"attention": _attention_rows, "downconv": _downconv_rows,
               "gn_conv": _gn_conv_rows, "moments": _moments_rows,
               "ff": _ff_rows, "upconv": _upconv_rows,
-              "upstats": _upstats_rows, "same": _same_rows}
+              "upstats": _upstats_rows, "same": _same_rows,
+              "inpad": _served_same_rows("K12a", conv3x3.conv3x3_inpad),
+              "stream": _served_same_rows("K11", conv3x3.conv3x3_stream)}
     rows = []
     with torch.inference_mode():
         for name in args.rows.split(","):
@@ -471,7 +531,9 @@ def main(argv=None) -> int:
               + f"{_common.fmt(r['ms'], '.4f')} ms, device "
               + f"{_common.fmt(r['device_ms'], '.4f')} ms"
               + (f", max|diff| {r['max_diff']:.3e}" if "max_diff" in r
-                 else ""), flush=True)
+                 else "")
+              + (f", against K7 {r['k7_max_diff']:.3e}"
+                 if "k7_max_diff" in r else ""), flush=True)
     return _common.emit(args, card, rows)
 
 

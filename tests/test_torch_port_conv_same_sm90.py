@@ -100,20 +100,52 @@ def test_same_plan_covers_the_output_once(shape, consumers, splits):
                                 * 128 + ctas if p["splits"] > 1 else 0)
 
 
+# the twin's shapes where K1/K5's plan takes one consumer warpgroup to split
+# K and K7 takes two splitting deeper (full 128-pixel tiles, at least 4
+# chunks a split): the UNet's 16^2 level at Cin >= 960
+TWO_CONSUMERS = [(3, 16, 16, 960, 640), (3, 16, 16, 1280, 640),
+                 (3, 16, 16, 1920, 640)]
+
+
 @pytest.mark.parametrize("shape", TWIN + RAGGED, ids=str)
 def test_same_plan_keeps_the_k1k5_tile(shape):
-    """K7 keeps K1/K5's tile geometry, consumer-count rule and split of K;
-    only its shared memory differs: more B stages than K1/K5's at every
-    twin shape (no V buffers, no per-warp statistics)."""
+    """K7 keeps K1/K5's tile geometry, consumer-count rule and split of K,
+    except at TWO_CONSUMERS, where it is K1/K5's plan forced to two
+    consumers (its own split); only its shared memory differs: more B
+    stages than K1/K5's at every twin shape (no V buffers, no per-warp
+    statistics)."""
     B, H, W, cin, cout = shape
     p = gn_conv.same_sm90_plan(B, H, W, cin, cout)
-    q = gn_conv.gn_conv_sm90_plan(B, H, W, cin, cout, cout, False)
+    two = shape in TWO_CONSUMERS
+    q = gn_conv.gn_conv_sm90_plan(B, H, W, cin, cout, cout, False,
+                                  2 if two else None)
     for k in ("consumers", "tw", "rows", "nb", "win_lines", "tiles_h",
               "tiles_w", "tpi", "m_tiles", "n_tiles", "chunks", "splits",
               "per_split", "work_floats"):
         assert p[k] == q[k], k
+    if two:
+        one = gn_conv.gn_conv_sm90_plan(B, H, W, cin, cout, cout, False)
+        assert (one["consumers"], one["splits"]) == (1, 2)
+        assert (p["consumers"], p["splits"]) == (2, 4)
+        assert (p["m_tiles"] * p["n_tiles"] * p["splits"]
+                == one["m_tiles"] * one["n_tiles"] * one["splits"])
+        assert p["per_split"] >= gn_conv.SAME_MIN_CHUNKS
     if shape in TWIN:
         assert p["stages"] > q["stages"]
+
+
+def test_same_plan_takes_two_consumers_only_at_full_tiles():
+    """The two-consumer rule applies at TWO_CONSUMERS and at no other twin
+    or ragged shape: not at 16^2 Cin 320 and 640 (2 and 3 chunks a
+    split), 8^2 and 4^2 (tiles of 128 pixels over 64 or 48), nor where
+    forced."""
+    changed = [s for s in TWIN + RAGGED
+               if gn_conv.same_sm90_plan(*s)["consumers"]
+               != gn_conv.gn_conv_sm90_plan(*s, s[4], False)["consumers"]]
+    assert changed == TWO_CONSUMERS
+    for s in TWO_CONSUMERS:
+        assert gn_conv.same_sm90_plan(*s, consumers=1)["consumers"] == 1
+        assert gn_conv.same_sm90_plan(*s, splits=2)["consumers"] == 1
 
 
 @pytest.mark.parametrize("shape", TWIN, ids=str)
@@ -133,6 +165,11 @@ def test_same_plan_matches_the_source():
     for const in (f"kSameWinStages = {gn_conv.SAME_WIN_STAGES};",
                   f"kSameMaxBStages = {gn_conv.SAME_MAX_B_STAGES};",
                   "GnPlan p = plan(B, H, W, Cin, Cout, nc, splits);",
+                  f"kSameMinChunks = {gn_conv.SAME_MIN_CHUNKS};",
+                  "if (nc == 0 && splits == 0 && p.nc == 1 && p.splits > 1) {",
+                  "const GnPlan q = plan(B, H, W, Cin, Cout, 2, 0);",
+                  "static_cast<long long>(B) * H * W &&",
+                  "q.per_split >= kSameMinChunks)",
                   "const int staging = 64 * p.nc * kBN * 2;",
                   "8 * 2 * (kSameWinStages + kSameMaxBStages) + 16 + 1024;",
                   "p.stages = (kSmemLimit - fixed) / kBBytes;",
@@ -425,7 +462,8 @@ def test_sm90_conv3x3_refuses_what_tma_cannot_describe():
 @pytest.mark.cuda
 def test_sm90_same_plan_matches_the_library():
     """ops/gn_conv.py same_sm90_plan equals the built library's plan at the
-    twin and ragged shapes, forced tiles and splits included."""
+    twin and ragged shapes, forced tiles and splits included (the
+    two-consumer rule at TWO_CONSUMERS among them)."""
     _setup()
     fn = _cuda.library("gn_conv_sm90").dtp_conv3x3_sm90_plan
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -434,7 +472,7 @@ def test_sm90_same_plan_matches_the_library():
               "tiles_h", "tiles_w", "tpi", "m_tiles", "n_tiles", "chunks",
               "splits", "per_split", "work_floats")
     for B, H, W, cin, cout in TWIN + RAGGED:
-        for nc, splits in ((0, 0), (1, 1), (2, 3)):
+        for nc, splits in ((0, 0), (1, 1), (2, 3), (1, 0), (0, 2)):
             assert fn(B, H, W, cin, cout, nc, splits, out) == 0
             p = gn_conv.same_sm90_plan(B, H, W, cin, cout, nc or None,
                                        splits or None)

@@ -29,14 +29,25 @@ CASES = {
     "downsample_conv3x3_stats": ((2, 7, 9, 24), (3, 3, 24, 136), True),
     # channels off the 16-byte groups: the kernel's scalar path
     "spatial_moments": ((2, 9, 7, 40),),
-    # the staged-tile mode (csrc/conv_staged.cu)
+    # K12a and K11 (bf16: K7's launch on csrc/gn_conv_sm90.cu; fp32: the
+    # staged-tile FMA twin), K12b and K10 (csrc/conv_staged.cu)
     "conv3x3_inpad": ((2, 12, 10, 96), (3, 3, 96, 136)),
     "upsample2x_conv3x3_inpad": ((1, 5, 7, 64), (3, 3, 64, 72)),
     "conv3x3_stream": ((1, 17, 9, 48), (3, 3, 48, 130)),
     "gn_silu_conv3x3": ((2, 9, 10, 64), (3, 3, 64, 136), True, True, 32),
 }
+# bf16 cases where CASES' shape is one TMA cannot describe (bf16 K11
+# refuses Cout 130): the same ragged window with Cout 136
+BF16_CASES = {"conv3x3_stream": ((1, 17, 9, 48), (3, 3, 48, 136))}
 STAGED = ("conv3x3_inpad", "upsample2x_conv3x3_inpad", "conv3x3_stream",
           "gn_silu_conv3x3")
+# K7's function, in bf16 on K7's kernel
+SAME_SM90 = ("conv3x3_inpad", "conv3x3_stream")
+
+
+def _case(kind, dtype):
+    return (BF16_CASES.get(kind, CASES[kind]) if dtype == "bfloat16"
+            else CASES[kind])
 
 
 def _setup():
@@ -58,7 +69,8 @@ def test_cuda_kernel_matches_plain(kind, dtype):
     gen = _setup()
     import chip_smoke
 
-    r = chip_smoke.compare(kind, CASES[kind], getattr(torch, dtype), gen)
+    r = chip_smoke.compare(kind, _case(kind, dtype), getattr(torch, dtype),
+                           gen)
     assert r["err_over_tol"] <= 1.0
 
 
@@ -103,6 +115,19 @@ def test_spatial_moments_is_deterministic(shape):
 # off the 128- and 64-column tiles.
 RAGGED = [((1, 7, 5, 3), (3, 3, 3, 40)), ((2, 3, 9, 9), (3, 3, 9, 24)),
           ((1, 1, 1, 48), (3, 3, 48, 130)), ((2, 11, 19, 48), (3, 3, 48, 8))]
+# bf16 K12a and K11 refuse Cin 3 and 9 and Cout 130 (TMA's 16-byte rows:
+# test_staged_entries_raise_and_never_fall_back); the ragged shapes TMA
+# can describe take their place: odd H and W, a 1x1 image, Cout 40, 24,
+# 136 and 8 off the 128-column tile
+RAGGED_DESCRIBABLE = [((1, 7, 5, 8), (3, 3, 8, 40)),
+                      ((2, 3, 9, 16), (3, 3, 16, 24)),
+                      ((1, 1, 1, 48), (3, 3, 48, 136)),
+                      ((2, 11, 19, 48), (3, 3, 48, 8))]
+STAGED_RAGGED = [
+    (dtype, kind, key)
+    for dtype in ("bfloat16", "float32") for kind in STAGED
+    for key in (RAGGED_DESCRIBABLE
+                if dtype == "bfloat16" and kind in SAME_SM90 else RAGGED)]
 
 
 def _staged_key(kind, key):
@@ -110,13 +135,12 @@ def _staged_key(kind, key):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("key", RAGGED, ids=str)
-@pytest.mark.parametrize("kind", STAGED)
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype,kind,key", STAGED_RAGGED, ids=str)
 def test_staged_kernels_at_ragged_shapes(kind, key, dtype):
-    """The staged-tile kernels against their plain versions where the
-    window, the channel chunks and the Cout tile are ragged (K10 with 3
-    groups of Cin / 3 channels, temb and residual)."""
+    """The staged-tile kernels (fp32; bf16 K12b and K10) and bf16 K12a and
+    K11 (K7's kernel) against their plain versions where the window, the
+    channel chunks and the Cout tile are ragged (K10 with 3 groups of Cin
+    / 3 channels, temb and residual)."""
     gen = _setup()
     import chip_smoke
 
@@ -128,12 +152,14 @@ def test_staged_kernels_at_ragged_shapes(kind, key, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", STAGED)
 def test_staged_kernels_are_deterministic(kind):
-    """No split-K and no atomics: two calls give the same bits."""
+    """Two calls give the same bits: the staged-tile kernels have no
+    split-K and no atomics; bf16 K12a and K11 (K7's kernel) add their
+    splits in split order."""
     gen = _setup()
     import chip_smoke
 
-    kernel = chip_smoke.kernel_case(kind, CASES[kind], torch.bfloat16,
-                                    gen)[0]
+    kernel = chip_smoke.kernel_case(kind, _case(kind, "bfloat16"),
+                                    torch.bfloat16, gen)[0]
     first = kernel()
     assert torch.equal(first, kernel())
 
@@ -170,7 +196,9 @@ def test_in_pad_moves_launches_to_the_staged_kernels():
 @pytest.mark.cuda
 def test_staged_entries_raise_and_never_fall_back():
     """A CUDA tensor of a type, shape or layout the kernel does not take
-    raises; it never runs the plain version."""
+    raises; it never runs the plain version. bf16 K12a and K11 refuse
+    what TMA cannot describe and launch nothing; the staged-tile SAME
+    entry refuses bf16."""
     gen = _setup()
     from diffusiontexturepainting_torch.ops import conv3x3
 
@@ -193,6 +221,28 @@ def test_staged_entries_raise_and_never_fall_back():
             (2, 64), device="cuda"))
     with pytest.raises(TypeError):
         conv3x3.gn_silu_conv3x3(x, s.bfloat16(), s, w, b)
+    # bf16 K12a and K11 at Cin 3 and 9 and Cout 130 (rows TMA cannot
+    # describe): ValueError before any launch, on no counter
+    counters = (conv3x3.conv3x3_launches, conv3x3.conv3x3_inpad_launches,
+                conv3x3.conv3x3_stream_launches)
+    before = [c.launches for c in counters]
+    for op in (conv3x3.conv3x3_inpad, conv3x3.conv3x3_stream):
+        for (xs, ws) in RAGGED[:3]:
+            xb = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+            wb = torch.randn(ws, generator=gen, device="cuda").bfloat16()
+            with pytest.raises(ValueError, match="TMA"):
+                op(xb, wb, torch.zeros(ws[-1], dtype=torch.bfloat16,
+                                       device="cuda"))
+    assert [c.launches for c in counters] == before
+    # the staged-tile SAME entry refuses bf16 (cudaErrorInvalidValue)
+    from diffusiontexturepainting_torch import _cuda
+
+    xb, wb = x.bfloat16(), w.bfloat16()
+    ob = torch.empty((1, 8, 8, 64), dtype=torch.bfloat16, device="cuda")
+    fn = _cuda.function("conv_staged", "dtp_conv3x3_staged",
+                        conv3x3._STAGED_ARGTYPES)
+    assert fn(xb.data_ptr(), wb.data_ptr(), None, ob.data_ptr(), 1, 8, 8, 32,
+              64, 1, _cuda.stream_of(xb)) == 1
 
 
 # The softmax arms (csrc/attn_arms.cu), the head-layout arms
