@@ -10,8 +10,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu), the
                bf16 K9 kernel (csrc/conv_sm90.cu), the bf16 K1/K5, K4, K6
                and K7 kernels (csrc/gn_conv_sm90.cu), the bf16 K3 kernel
-               (csrc/ff_geglu_sm90.cu) or the bf16 T10 kernel
-               (csrc/pv_product_sm90.cu);
+               (csrc/ff_geglu_sm90.cu), the bf16 T10 kernel
+               (csrc/pv_product_sm90.cu) or the bf16 T11 kernel
+               (csrc/window_taps_sm90.cu);
   3. probe     each kernel against its plain version at a few shapes,
                K2 at its four launched head dims (40, 80, 160, 512) and a
                ragged length, the 16384-token streaming attentions (K8)
@@ -23,15 +24,19 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                halves read in place, and the spatial moments (K14) among
                them, K6 and K7 at ragged shapes, K12a and K11 at ragged
                shapes TMA can describe (bf16) and at Cin 3 and 9 and Cout
-               130 (fp32); K9, K1/K5, K14, K6 and K7
-               bit-identical on replay, output and statistics; K6's
+               130 (fp32), K12b at ragged shapes and a UNet 4x4 level,
+               T11's four reads at the TPU tool's shapes (reps 24) and at
+               ragged ones (Cin 3 in fp32 only); K9, K1/K5, K14, K6, K7,
+               K12b and T11 bit-identical on replay, output and
+               statistics; K6's
                statistics also against its own fp32 output before the
                rounding; T10 and T4 bit-identical on replay; the bf16
-               K2/K8/K13, K9, K1/K5, K3, K4, K6, K7, K12a, K11, T10 and T4
-               refuse what TMA cannot describe (ValueError, no launch); the
-               fp32 entries of csrc/conv3x3.cu, conv_staged.cu's SAME
-               entry (fp32 K12a and K11), T10's (attn_transposed.cu) and
-               T4's (attn_layouts.cu) refuse bf16;
+               K2/K8/K13, K9, K1/K5, K3, K4, K6, K7, K12a, K11, K12b, T10,
+               T4 and T11 refuse what TMA cannot describe (ValueError, no
+               launch); the fp32 entries of csrc/conv3x3.cu,
+               conv_staged.cu's SAME and UP entries (fp32 K12a, K11 and
+               K12b), T10's (attn_transposed.cu), T4's (attn_layouts.cu)
+               and T11's (conv_arms.cu) refuse bf16;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -47,8 +52,8 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   5b. twin_inpad
                the twin again with the port's _IN_PAD switch set (the
                in-kernel-padding kernels K12a/b take every call of K7/K4;
-               bf16 K12a runs K7's kernel, counted apart), as phase 4;
-               its first stamp against the twin's;
+               bf16 K12a runs K7's kernel and K12b K4's, counted apart),
+               as phase 4; its first stamp byte-equal to the twin's;
   5c. resnet_bodies
                the 22 resnets of one UNet eval of the twin at 256^2 (batch
                3, their inputs captured from the module legs), each as two
@@ -119,10 +124,11 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                as often as one stamp launches K5 there: T12 (pipelined:
                conv3x3_VALID(silu(pad(x)*a + c)) + b) on seeded images of
                those shapes, against its plain version and, away from the
-               border, against K5; T11 (conv_window_taps) on the same
-               images cut into row windows of 8 rows with halo, each of its
-               four tap reads, against its plain version, `shifted` also
-               against K11 on the image;
+               border, against K5; T11 (conv_window_taps; bf16 on
+               csrc/window_taps_sm90.cu) on the same images cut into row
+               windows of 8 rows with halo, each of its four tap reads,
+               against its plain version, `shifted` also against K11 on
+               the image;
   9. kernels   each kernel against its plain version at every shape any
                path launched it at, in bf16 and fp32 (TF32 off),
                statistics included; CUDA-event times of the kernel, its
@@ -130,9 +136,10 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                same function where there is one (for K1/K5 and K9 the conv
                alone), at the shapes of the path it is reported for, beside
                its bound (K2, K3, K4, K6, K9, K1, K5 and K14 also at the
-               envelope path's; K1/K5, K14, K3, K4, K6, K7, T4 and T10
-               also in CUDA-graph device time; K12a and K11 beside K7 at
-               the same shapes, equal to it bit for bit in bf16; T10 also
+               envelope path's; K1/K5, K14, K3, K4, K6, K7, K12a, K11,
+               K12b, T4, T10 and T11 also in CUDA-graph device time; K12a
+               and K11 beside K7 and K12b beside K4 at the same shapes,
+               equal to it bit for bit in bf16; T10 also
                beside a chain of PV_ITERS torch.baddbmm calls, as many
                products);
  10. no jax    the run imported neither JAX, nor the JAX package, nor
@@ -213,10 +220,10 @@ SOURCES = {
     # bf16; fp32 runs conv3x3.cu
     "downsample_conv3x3_stats": "csrc/conv_sm90.cu",
     "spatial_moments": "csrc/moments.cu",
-    # bf16 (the paths' and the timed type): K7's kernel, counted apart;
-    # fp32 runs conv_staged.cu
+    # bf16 (the paths' and the timed type): K7's kernel (K12b: K4's),
+    # counted apart; fp32 runs conv_staged.cu
     "conv3x3_inpad": "csrc/gn_conv_sm90.cu",
-    "upsample2x_conv3x3_inpad": "csrc/conv_staged.cu",
+    "upsample2x_conv3x3_inpad": "csrc/gn_conv_sm90.cu",
     "conv3x3_stream": "csrc/gn_conv_sm90.cu",
     "gn_silu_conv3x3": "csrc/conv_staged.cu",
     "nomax_attention": "csrc/attn_arms.cu",
@@ -231,7 +238,8 @@ SOURCES = {
     "sublane_attention": "csrc/attn_transposed.cu",
     # bf16; fp32 runs attn_transposed.cu
     "pv_product": "csrc/pv_product_sm90.cu",
-    "conv_window_taps": "csrc/conv_arms.cu",
+    # bf16; fp32 runs conv_arms.cu
+    "conv_window_taps": "csrc/window_taps_sm90.cu",
     "pipelined": "csrc/conv_arms.cu",
 }
 # the arms of the attn_arms path (the softmax arms, then the head-layout
@@ -354,7 +362,8 @@ FAMILY_IS = {
                      "gn_conv_sm90.cu)",
     "conv3x3_stream": "K7 (conv3x3, _IN_PAD off: in bf16 the PLAIN mode of "
                       "gn_conv_sm90.cu)",
-    "upsample2x_conv3x3_inpad": "K4 (upsample2x_conv3x3, _IN_PAD off)",
+    "upsample2x_conv3x3_inpad": "K4 (upsample2x_conv3x3, _IN_PAD off: in "
+                                "bf16 the upsample mode of gn_conv_sm90.cu)",
     "gn_silu_conv3x3": "K14 + gn_affine_from_stats + K1 (gn_conv_resident "
                        "with the residual; the time embedding not added)",
     **{name: "K8 at (3, 16384, 320), K2 at the other two shapes (the "
@@ -401,13 +410,15 @@ ARM_LAUNCHES = 20
 # their library call's: the kernels this round of work redesigned last
 DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
                 "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3",
-                "conv3x3_inpad", "conv3x3_stream", SLOTTED_ARM, PV)
+                "conv3x3_inpad", "conv3x3_stream",
+                "upsample2x_conv3x3_inpad", SLOTTED_ARM, PV, TAPS)
 # Kernels whose family member (FAMILY_IS) runs the same launch in bf16:
 # their outputs must equal its bit for bit.
-FAMILY_EXACT = ("conv3x3_inpad", "conv3x3_stream")
+FAMILY_EXACT = ("conv3x3_inpad", "conv3x3_stream",
+                "upsample2x_conv3x3_inpad")
 # the sources whose ptxas report must show no spill
 NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
-            "ff_geglu_sm90", "pv_product_sm90")
+            "ff_geglu_sm90", "pv_product_sm90", "window_taps_sm90")
 # Kernels also timed at a second path's shapes: K2, K3, K4, K6, K9, K1, K5
 # and K14 at the 1024^2 envelope's
 ALSO_REPORTED_ON = {"flash_attention": "envelope",
@@ -1159,12 +1170,16 @@ def first_stamp_at(model, steps, res=RES):
     return check_reply(reply, R.RETURN_STAMP, res, canvas)
 
 
-def compare_stamps(label, ours, theirs, what):
+def compare_stamps(label, ours, theirs, what, exact=False):
+    """The two first stamps within MAX_MEAN_DIFF u8 levels on average, or
+    byte-equal where `exact`."""
     diff = abs(ours.astype(int) - theirs.astype(int))
     log(f"{label}: first stamps of {what}: mean |diff| {diff.mean():.3f} u8 "
         f"levels, max {diff.max()}, {(diff == 0).mean():.4f} exact, "
         f"{(diff <= 4).mean():.4f} within 4, {(diff <= 16).mean():.4f} "
         "within 16")
+    if exact and diff.max() != 0:
+        raise AssertionError(f"{label}: {what} are not byte-equal")
     if not diff.mean() <= MAX_MEAN_DIFF:
         raise AssertionError(f"{label}: {what} differ by {diff.mean():.3f} "
                              "levels on average")
@@ -1534,6 +1549,7 @@ def attn_arms_phase(gen):
 
     from diffusiontexturepainting_torch.ops import attention
     from diffusiontexturepainting_torch.ops import attention_variants as av
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
     from diffusiontexturepainting_torch.tools import attn_variants as tool
 
     bf16 = torch.bfloat16
@@ -1629,6 +1645,7 @@ def slotted_arm_phase(gen, k13_shapes, stamps):
 
     from diffusiontexturepainting_torch.ops import attention
     from diffusiontexturepainting_torch.ops import attention_variants as av
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
     from diffusiontexturepainting_torch.tools import attn_variants as tool
 
     cases = []
@@ -1693,6 +1710,7 @@ def pv_product_phase(gen):
     import torch
 
     from diffusiontexturepainting_torch.ops import attention_variants as av
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
 
     inputs = [(torch.rand((1, bq, lk), generator=gen,
                           device="cuda").bfloat16(),
@@ -1865,10 +1883,13 @@ def tma_refusal_probe(gen):
     T10 (csrc/pv_product_sm90.cu) at Lk 1100, at hd 36 and on an e 2 bytes
     off 16; T4 (csrc/flash_attention_sm90.cu's slotted mode) at P 36 and on
     a q 2 bytes off 16; K12a and K11 (K7's kernel in bf16) at Cin 3, Cin 9
-    and Cout 130. Then csrc/conv3x3.cu's fp32 entries of K7, K4 and K6,
-    conv_staged.cu's SAME entry (fp32 K12a and K11), attn_transposed.cu's
-    T10 and attn_layouts.cu's T4 called in bf16: each returns
-    cudaErrorInvalidValue, and the conv entries' split plans -1."""
+    and Cout 130; K12b (K4's kernel in bf16) at Cin 20, at Cout 12 and on
+    an input 2 bytes off 16; T11 (csrc/window_taps_sm90.cu) at Cin 3 and on
+    windows 2 bytes off 16. Then csrc/conv3x3.cu's fp32 entries of K7, K4
+    and K6, conv_staged.cu's SAME and UP entries (fp32 K12a, K11 and K12b),
+    attn_transposed.cu's T10, attn_layouts.cu's T4 and conv_arms.cu's T11
+    called in bf16: each returns cudaErrorInvalidValue, and the conv
+    entries' split plans -1."""
     import torch
 
     from diffusiontexturepainting_torch.ops import (
@@ -1878,6 +1899,7 @@ def tma_refusal_probe(gen):
         gn_conv,
     )
     from diffusiontexturepainting_torch.ops import attention_variants as av
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
 
     x = torch.randn((1, 256, 4 * 36), generator=gen,
                     device="cuda").bfloat16()
@@ -1907,13 +1929,13 @@ def tma_refusal_probe(gen):
         return lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b0[:c].contiguous(),
                                          x.contiguous())
 
-    def up(x, cout, stats=False):
+    def up(x, cout, stats=False, op=conv3x3.upsample2x_conv3x3):
         w = torch.randn((3, 3, x.shape[-1], cout), generator=gen,
                         device="cuda").bfloat16()
         taps = conv3x3.fold_upsample_weights(w)
         if stats:
             return lambda: gn_conv.upconv_stream(x, w, None, taps)
-        return lambda: conv3x3.upsample2x_conv3x3(x, w, None, taps)
+        return lambda: op(x, w, None, taps)
     calls = {"flash_attention (1, 256, 144), 4 heads":
              lambda: attention.flash_attention(x, x, x, 4),
              "flash_attention_streaming (1, 256, 144), 4 heads":
@@ -1944,6 +1966,12 @@ def tma_refusal_probe(gen):
              "upconv_stream Cin 20": up(xc, 16, True),
              "upconv_stream Cout 12": up(xd, 12, True),
              "upconv_stream x 2 bytes off 16": up(off, 16, True),
+             "upsample2x_conv3x3_inpad Cin 20":
+             up(xc, 16, op=conv3x3.upsample2x_conv3x3_inpad),
+             "upsample2x_conv3x3_inpad Cout 12":
+             up(xd, 12, op=conv3x3.upsample2x_conv3x3_inpad),
+             "upsample2x_conv3x3_inpad x 2 bytes off 16":
+             up(off, 16, op=conv3x3.upsample2x_conv3x3_inpad),
              "conv3x3 Cin 20": lambda: conv3x3.conv3x3(xc, wc, None),
              "conv3x3 Cout 12": lambda: conv3x3.conv3x3(xd, wd, None),
              "conv3x3 x 2 bytes off 16":
@@ -1981,6 +2009,21 @@ def tma_refusal_probe(gen):
         lambda: av.slotted_kernel_call(s_36, s_36, s_36, 0.1),
         "slotted_kernel_call q 2 bytes off 16":
         lambda: av.slotted_kernel_call(s_off, s_off, s_off, 0.1)})
+    # bf16 T11 at Cin 3 (fp32 keeps it: the probes) and on windows 2 bytes
+    # off 16
+    x3 = torch.rand((3, 7, 16, 3), generator=gen, device="cuda").bfloat16()
+    w3t = torch.rand((9, 3, 40), generator=gen, device="cuda").bfloat16()
+    xw_flat = torch.rand(1 + 2 * 5 * 16 * 16, generator=gen,
+                         device="cuda").bfloat16()
+    xw_off = xw_flat[1:].view(2, 5, 16, 16)
+    w16t = torch.rand((9, 16, 24), generator=gen, device="cuda").bfloat16()
+    for read in TAP_READS:
+        calls[f"conv_window_taps {read} Cin 3"] = (
+            lambda read=read: cv.conv_window_taps(
+                x3, w3t.view(3, 9, 40) if read == "jointw" else w3t, read,
+                W=9, reps=3))
+    calls["conv_window_taps xwin 2 bytes off 16"] = (
+        lambda: cv.conv_window_taps(xw_off, w16t, "shifted", W=14))
     counters = (attention.flash_launches, attention.flash_streaming_launches,
                 attention.flash_slotted_launches,
                 gn_conv.downconv_stream_launches,
@@ -1988,8 +2031,9 @@ def tma_refusal_probe(gen):
                 gn_conv.gn_conv_stream_launches, ff_geglu.ff_geglu_launches,
                 conv3x3.upsample_launches, gn_conv.upconv_stream_launches,
                 conv3x3.conv3x3_launches, conv3x3.conv3x3_inpad_launches,
-                conv3x3.conv3x3_stream_launches, av.pv_product_launches,
-                av.slotted_launches)
+                conv3x3.conv3x3_stream_launches,
+                conv3x3.upsample_inpad_launches, av.pv_product_launches,
+                av.slotted_launches, cv.conv_window_taps_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -2018,6 +2062,13 @@ def tma_refusal_probe(gen):
         "dtp_conv3x3_staged": _cuda.function(
             "conv_staged", "dtp_conv3x3_staged", conv3x3._STAGED_ARGTYPES)(
             *ptrs, 1, 8, 8, 16, 16, 1, stream),
+        "dtp_upsample2x_conv3x3_staged": _cuda.function(
+            "conv_staged", "dtp_upsample2x_conv3x3_staged",
+            conv3x3._STAGED_ARGTYPES)(*ptrs, 1, 8, 8, 16, 16, 1, stream),
+        "dtp_conv_window_taps": _cuda.function(
+            "conv_arms", "dtp_conv_window_taps", cv._TAPS_ARGTYPES)(
+            x8.data_ptr(), w16.data_ptr(), out.data_ptr(), 1, 6, 4, 8, 16,
+            16, 0, 1, 1, stream),
         "dtp_upsample2x_conv3x3_stats": _cuda.function(
             "conv3x3", "dtp_upsample2x_conv3x3_stats", gn_conv._UP_ARGTYPES)(
             *ptrs, stats.data_ptr(), stats.data_ptr(), stats.data_ptr(), 1,
@@ -2038,9 +2089,10 @@ def tma_refusal_probe(gen):
     if set(codes.values()) != {1} or set(splits.values()) != {-1}:
         raise AssertionError(f"probe: fp32 entries in bf16 gave {codes}, "
                              f"split plans {splits}")
-    log(f"probe: conv3x3.cu's, conv_staged.cu's SAME, attn_transposed.cu's "
-        f"T10 and attn_layouts.cu's T4 fp32 entries refuse bf16: {codes} "
-        "(cudaErrorInvalidValue), conv split plans -1")
+    log(f"probe: conv3x3.cu's, conv_staged.cu's SAME and UP, "
+        f"attn_transposed.cu's T10, attn_layouts.cu's T4 and conv_arms.cu's "
+        f"T11 fp32 entries refuse bf16: {codes} (cudaErrorInvalidValue), "
+        "conv split plans -1")
 
 
 def replay_probe(gen):
@@ -2048,7 +2100,8 @@ def replay_probe(gen):
     whole-image and a tiled shape, K14 on K1/K5's inputs, K3 and K4 at the
     default stamp's shapes whose K splits, K6 at the default stamp's three
     shapes and a forced split, K7 at three of the safe twin's split
-    shapes, K12a and K11 at one each, T10 at its tool's three shapes in
+    shapes, K12a, K11 and K12b at one each, T11's four reads at its
+    tool's first shape, T10 at its tool's three shapes in
     both orientations (the partials of many CTAs added by the last) and T4
     at the slotted arm's two shapes in both softmax flavours, each twice
     on the same inputs:
@@ -2060,6 +2113,7 @@ def replay_probe(gen):
     import torch.nn.functional as F
 
     from diffusiontexturepainting_torch.ops import attention_variants as av
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
     from diffusiontexturepainting_torch.ops import ff_geglu, gn_conv
 
     for bq, lk, hd in PV_SHAPES:
@@ -2160,6 +2214,18 @@ def replay_probe(gen):
                                          (3, 3, 2560, 1280))),
                       ("conv3x3_stream", ((3, 8, 8, 2560),
                                           (3, 3, 2560, 1280)))):
+        kernel = kernel_case(kind, key, torch.bfloat16, gen)[0]
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"probe: {kind} {key} differs on replay")
+        log(f"probe: {kind} {key} bf16: bit-identical on replay")
+    # K12b (K4's launch) at the UNet's 4x4 level, whose K splits; T11's four
+    # reads at the TPU tool's first shape (one window, split K, the carry)
+    for kind, key in (("upsample2x_conv3x3_inpad",
+                       ((3, 4, 4, 1280), (3, 3, 1280, 1280))),
+                      *[(TAPS, taps_key(1, 16, 128, 512, 128, read, 24))
+                        for read in TAP_READS]):
         kernel = kernel_case(kind, key, torch.bfloat16, gen)[0]
         first, again = kernel(), kernel()
         torch.cuda.synchronize()
@@ -2292,6 +2358,7 @@ def kernels_phase(gen, paths):
         totals = Counter()
         also_totals = Counter()
         by_option = Counter()
+        device_by_option = Counter()
         lib_missing = False
         self_worst = family_diff = 0.0
         for key in keys:
@@ -2324,6 +2391,9 @@ def kernels_phase(gen, paths):
                     if name in OPTION_OF:
                         by_option[OPTION_OF[name](key)] += (
                             count * r["kernel_ms"])
+                        if "kernel_device_ms" in r:
+                            device_by_option[OPTION_OF[name](key)] += (
+                                count * r["kernel_device_ms"])
                     totals["plain"] += count * r["plain_ms"]
                     totals["bound"] += count * b_s * 1e3
                     totals[by] += count * b_s * 1e3
@@ -2398,6 +2468,9 @@ def kernels_phase(gen, paths):
                if name in COMPOSITION_IS else {}),
             **({"ms_by_option": {k: v / n for k, v in by_option.items()}}
                if by_option else {}),
+            **({"device_ms_by_option": {k: v / n for k, v in
+                                        device_by_option.items()}}
+               if device_by_option else {}),
             **({"library_is": LIBRARY_IS[name]} if name in LIBRARY_IS
                else {}),
             **({also: {"launches": paths[also]["launches"][name],
@@ -2419,7 +2492,9 @@ def kernels_phase(gen, paths):
                 f"{totals[yard + '_device'] / n:.4f} ({path} path)"
                 + (f"; {also_totals['kernel_device'] / na:.4f}, {yard} "
                    f"{also_totals[yard + '_device'] / na:.4f} ({also} path)"
-                   if also else ""))
+                   if also else "")
+                + "".join(f"; {k} {v / n:.4f}"
+                          for k, v in device_by_option.items()))
         if also:
             log(f"kernels: {name} at the {also} path's shapes: "
                 f"{also_totals['kernel'] / na:.4f} ms a stamp, plain "
@@ -2581,8 +2656,9 @@ def main() -> int:
          (torch.bfloat16,)),
         ("conv3x3_stream", ((1, 17, 9, 48), (3, 3, 48, 136)),
          (torch.bfloat16,)),
-        # the staged-tile UP and GN modes: odd H and W, Cout off the tile,
-        # a UNet 4x4 level
+        # K12b (bf16: K4's kernel; fp32: the staged-tile UP mode) and the
+        # staged-tile GN mode: odd H and W, Cout off the tile, a UNet 4x4
+        # level
         ("upsample2x_conv3x3_inpad", ((1, 6, 5, 48), (3, 3, 48, 40))),
         ("upsample2x_conv3x3_inpad", ((3, 4, 4, 1280), (3, 3, 1280, 1280))),
         ("gn_silu_conv3x3", ((2, 9, 10, 64), (3, 3, 64, 136), True, True,
@@ -2646,14 +2722,16 @@ def main() -> int:
         ("pipelined", ((1, 9, 19, 40), (3, 3, 40, 130), False)),
         ("pipelined", ((1, 1, 1, 9), (3, 3, 9, 24), True)),
         # T11's four reads at the TPU tool's shapes (one window, reps 24),
-        # then odd H_T and W, Cin 3 and 40, N off the tile, several windows
+        # then odd H_T and W, Cin 3 (fp32: bf16 refuses it,
+        # tma_refusal_probe) and 40, N off 8 and off the tile, several
+        # windows
         *[("conv_window_taps", taps_key(1, h_t, W, cin, n, read, 24))
           for h_t, W, cin, n in ((16, 128, 512, 128), (8, 256, 256, 256),
                                  (8, 512, 128, 128))
           for read in TAP_READS],
-        *[("conv_window_taps", taps_key(nwin, h_t, W, cin, n, read, reps))
-          for nwin, h_t, W, cin, n, reps in ((3, 5, 9, 3, 40, 3),
-                                             (2, 3, 19, 40, 130, 1))
+        *[("conv_window_taps", taps_key(3, 5, 9, 3, 40, read, 3),
+           (torch.float32,)) for read in TAP_READS],
+        *[("conv_window_taps", taps_key(2, 3, 19, 40, 130, read, 1))
           for read in TAP_READS],
     ]
     for kind, key, *only in probes:
@@ -2705,8 +2783,9 @@ def main() -> int:
         inpad_first = drive("twin_inpad", twin, TWIN_STEPS, RES, in_pad=True)
     finally:
         conv3x3_mod._IN_PAD = False
+    # bf16 K12a and K12b launch K7's and K4's kernels: nothing differs
     compare_stamps("twin_inpad", inpad_first, twin_first,
-                   "the safe twin with _IN_PAD on and off")
+                   "the safe twin with _IN_PAD on and off", exact=True)
 
     launches, shapes = resnet_bodies_phase(
         twin, paths["twin"]["shapes"]["conv3x3"], paths["twin"]["stamps"])

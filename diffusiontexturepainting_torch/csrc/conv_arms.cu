@@ -26,7 +26,10 @@
 //       issued before this chunk's MMAs.
 //
 //   dtp_conv_window_taps   T11 <- tools/bench_conv_shift_cost.py bench /
-//       _kernel (pallas_call :110): nine (Cin x N) products over one window
+//       _kernel (pallas_call :110), in fp32 only: the FMA twin. In bf16 T11
+//       runs csrc/window_taps_sm90.cu (one row-shifted wgmma/TMA GEMM for
+//       all four reads), and this entry refuses bf16. What it computes:
+//       nine (Cin x N) products over one window
 //       xwin (H_T + 2, Wp, Cin), Wp >= W + 2, -> (H_T, W, N), fp32
 //       accumulation, the tap's read one of four. With flat = xwin as
 //       ((H_T + 2) * Wp, Cin) rows, tap (di, dj), output (h, w):
@@ -61,8 +64,9 @@
 //       it reps - 1 times, one after the other as the tool's loop does, in
 //       the epilogue.
 //
-// bf16 WMMA (mma.sync) with fp32 accumulation, or the fp32 FMA twin. No
-// split-K, no atomics: every run gives the same bits.
+// T12: bf16 WMMA (mma.sync) with fp32 accumulation, or the fp32 FMA twin;
+// T11: the fp32 FMA twin. No split-K, no atomics: every run gives the same
+// bits.
 //
 // What bounds them on the H100: the tensor cores at the tools' shapes
 // (2 * 9 * Cin * N flops a pixel against Cin + N elements moved). The tap
@@ -304,16 +308,6 @@ struct TapShape {
   static constexpr size_t kBytes = sizeof(T) * (kWin + TL::BK * TL::LDB);
 };
 
-__device__ __forceinline__ void keep_alive(const MathBF16& m) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < m.acc[i][j].num_elements; ++e)
-        asm volatile("" ::"f"(m.acc[i][j].x[e]));
-}
-
 __device__ __forceinline__ void keep_alive(const MathF32& m) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -478,28 +472,25 @@ extern "C" cudaError_t dtp_gn_conv_pipelined(const void* x, const void* a,
   return fill(static_cast<float*>(nullptr));
 }
 
-// T11: xwin (nwin,H_T+2,Wp,Cin) with Wp >= W + 2, w (9,Cin,N) or jointw's
-// (3,3*Cin,N), out (nwin,H_T,W,N), all bf16 when is_bf16, else fp32; read:
-// 0 shifted, 1 unshifted, 2 rowflat, 3 jointw; reps >= 1 passes.
+// T11 in fp32: xwin (nwin,H_T+2,Wp,Cin) with Wp >= W + 2, w (9,Cin,N) or
+// jointw's (3,3*Cin,N), out (nwin,H_T,W,N), all fp32; read: 0 shifted, 1
+// unshifted, 2 rowflat, 3 jointw; reps >= 1 passes. is_bf16 returns
+// cudaErrorInvalidValue (bf16 T11 runs dtp_conv_window_taps_sm90 of
+// csrc/window_taps_sm90.cu).
 extern "C" cudaError_t dtp_conv_window_taps(const void* xwin, const void* w,
                                             void* out, int nwin, int H_T,
                                             int W, int Wp, int Cin, int N,
                                             int read, int reps, int is_bf16,
                                             void* stream) {
-  if (nwin <= 0 || H_T <= 0 || W <= 0 || Wp < W + 2 || Cin <= 0 || N <= 0 ||
-      reps <= 0 || xwin == nullptr || w == nullptr || out == nullptr)
+  if (is_bf16 || nwin <= 0 || H_T <= 0 || W <= 0 || Wp < W + 2 ||
+      Cin <= 0 || N <= 0 || reps <= 0 || xwin == nullptr || w == nullptr ||
+      out == nullptr)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto fill = [&](auto* tag) {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    dtp::TapArgs<T> p{};
-    p.xwin = static_cast<const T*>(xwin);
-    p.w = static_cast<const T*>(w);
-    p.out = static_cast<T*>(out);
-    p.nwin = nwin, p.H_T = H_T, p.W = W, p.Wp = Wp, p.Cin = Cin, p.N = N;
-    p.reps = reps;
-    return dtp::dispatch_taps<T>(p, read, s);
-  };
-  if (is_bf16) return fill(static_cast<__nv_bfloat16*>(nullptr));
-  return fill(static_cast<float*>(nullptr));
+  dtp::TapArgs<float> p{};
+  p.xwin = static_cast<const float*>(xwin);
+  p.w = static_cast<const float*>(w);
+  p.out = static_cast<float*>(out);
+  p.nwin = nwin, p.H_T = H_T, p.W = W, p.Wp = Wp, p.Cin = Cin, p.N = N;
+  p.reps = reps;
+  return dtp::dispatch_taps<float>(p, read, static_cast<cudaStream_t>(stream));
 }

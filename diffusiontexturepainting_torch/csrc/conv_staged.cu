@@ -17,7 +17,12 @@
 //                                     refuses bf16: its SAME mode serves
 //                                     nothing in bf16 any more
 //   dtp_upsample2x_conv3x3_staged  <- _upconv_pallas / _upconv_kernel
-//                                     (K12b), under _IN_PAD
+//                                     (K12b), under _IN_PAD, in fp32 only:
+//                                     the FMA twin. In bf16 K12b runs the
+//                                     upsample mode of csrc/gn_conv_sm90.cu
+//                                     (K4's kernel: TMA's out-of-bounds
+//                                     zeros are K12b's on-chip padding), and
+//                                     this entry refuses bf16
 //   dtp_gn_silu_conv3x3_staged     <- gn_silu_conv3x3 / _gn_conv_kernel
 //                                     (K10), after csrc/moments.cu's
 //                                     statistics pass over x
@@ -54,7 +59,7 @@
 // 16-row WMMA fragment is one output row of the patch, 16 consecutive
 // window pixels LDW elements apart. The GroupNorm prologue runs once per
 // staged element, not once per tap. B (one tap's BK x BN weights) is
-// loaded per tap. bf16 WMMA (mma.sync) with fp32 accumulation (UP and GN),
+// loaded per tap. bf16 WMMA (mma.sync) with fp32 accumulation (GN only),
 // or the fp32 FMA twin (csrc/gemm_tile.cuh; all three modes). No split-K
 // and no atomics: every run gives the same bits.
 //
@@ -62,8 +67,8 @@
 // shapes (K = 9*Cin up to 23040), fed by an un-pipelined loop (stage,
 // sync, load B, sync, mma, sync); at the UNet's 4x4 and 8x8 levels a patch
 // is mostly outside the image, and with no split-K the small levels run
-// few blocks. Plain loads only; K12b (UP) and K10 (GN) move onto the
-// sm90 bodies in their own redesigns.
+// few blocks. Plain loads only; K10 (GN) moves onto the sm90 body in its
+// own redesign.
 #include <type_traits>
 
 #include "conv_staged.cuh"
@@ -74,6 +79,7 @@ namespace {
 enum StagedMode : int {
   kSame = 0,  // 3x3 SAME conv (fp32 only)
   kUp = 1,    // nearest x2 + 3x3 conv, as four parity planes of 2x2 taps
+              // (fp32 only)
   kGn = 2,    // 3x3 SAME conv of the GroupNorm -> SiLU prologue's output
 };
 
@@ -286,8 +292,9 @@ cudaError_t dispatch(const void* x, const void* w, const void* bias,
     return launch<T, MODE>(p, s);
   };
   if (is_bf16) {
-    // bf16 SAME is K7's kernel (csrc/gn_conv_sm90.cu): not instantiated
-    if constexpr (MODE == kSame)
+    // bf16 SAME is K7's kernel and bf16 UP K4's (csrc/gn_conv_sm90.cu):
+    // not instantiated
+    if constexpr (MODE != kGn)
       return cudaErrorInvalidValue;
     else
       return fill(static_cast<__nv_bfloat16*>(nullptr));
@@ -310,8 +317,10 @@ extern "C" cudaError_t dtp_conv3x3_staged(const void* x, const void* w,
                                    Cout, 0, is_bf16, stream);
 }
 
-// K12b: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias (Cout,),
-// out (B,2H,2W,Cout), all of one type.
+// K12b in fp32: x (B,H,W,Cin), w16 (16,Cin,Cout) folded taps, bias
+// (Cout,), out (B,2H,2W,Cout), all fp32; is_bf16 returns
+// cudaErrorInvalidValue (bf16 K12b runs dtp_upsample2x_conv3x3_sm90 of
+// csrc/gn_conv_sm90.cu).
 extern "C" cudaError_t dtp_upsample2x_conv3x3_staged(
     const void* x, const void* w16, const void* bias, void* out, int B,
     int H, int W, int Cin, int Cout, int is_bf16, void* stream) {

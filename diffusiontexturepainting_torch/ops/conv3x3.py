@@ -24,8 +24,10 @@ launches the kernel or raises.
                       (TMA's out-of-bounds zeros are the on-chip padding);
                       in fp32 csrc/conv_staged.cu's staged-tile FMA twin
   upsample2x_conv3x3_inpad
-                      kernel K12b (csrc/conv_staged.cu, the staged-tile UP
-                      mode; replaces _upconv_kernel)
+                      kernel K12b (replaces _upconv_kernel): K4's function
+                      and, in bf16, K4's launch, counted apart (TMA's
+                      out-of-bounds zeros are the on-chip padding); in
+                      fp32 csrc/conv_staged.cu's staged-tile UP mode
   conv3x3_stream      kernel K11 (replaces _conv3x3_stream /
                       _conv_stream_kernel): as K12a, counted apart (TMA's
                       windows are the streamed rows)
@@ -36,12 +38,12 @@ launches the kernel or raises.
 
 The staged-tile modes stage each block's input window with its halo in
 shared memory once per channel chunk and read all taps from there; K7's
-PLAIN mode has TMA bring each chunk's window with its halo, zeros outside
-the image: both are the counterpart of the TPU kernels' VMEM padding (K12)
-and row window (K11). The TPU's VMEM budgets (the in-pad size gate,
-streaming_plan) do not apply: every shape goes to the kernel, and bf16
-K7, K12a and K11 refuse only what TMA cannot describe (Cin or Cout off a
-multiple of 8, a base off 16 bytes).
+PLAIN mode and K4's upsample mode have TMA bring each chunk's window with
+its halo, zeros outside the image: both are the counterpart of the TPU
+kernels' VMEM padding (K12) and row window (K11). The TPU's VMEM budgets
+(the in-pad size gate, streaming_plan) do not apply: every shape goes to
+the kernel, and bf16 K7, K4, K12a, K12b and K11 refuse only what TMA
+cannot describe (Cin or Cout off a multiple of 8, a base off 16 bytes).
 
 Weights are HWIO (3, 3, Cin, Cout), as in the JAX package; the bias has the
 activations' dtype and is added in fp32. The upsample kernel takes the
@@ -319,11 +321,15 @@ def upsample2x_conv3x3(x, w, b, taps):
     return _upsample2x_conv3x3(x, b, taps)
 
 
-def _upsample2x_conv3x3(x, b, taps, splits=None):
-    """K4 on CUDA (upsample2x_conv3x3 with _IN_PAD off); in bf16 `splits`
-    forces the sm90 kernel's split of K (the tests and tools/sm90_plans.py
-    call this entry with it)."""
-    _check("upsample2x_conv3x3", x, taps, b, (16,))
+def _upconv(name, x, b, taps, counter, fp32, splits=None):
+    """One nearest-x2 upsample + 3x3 conv + bias of a CUDA tensor over the
+    folded taps, counted on `counter`: in bf16 dtp_upsample2x_conv3x3_sm90,
+    the upsample mode of csrc/gn_conv_sm90.cu with the plan of
+    gn_conv.upconv_sm90_plan (`splits` forces its split of K); in fp32
+    `fp32(x, taps, b, out)`, the caller's FMA twin. K4 and K12b compute
+    this one function and share this launch; operands TMA cannot describe
+    raise ValueError before it."""
+    _check(name, x, taps, b, (16,))
     B, H, W, cin = x.shape
     cout = taps.shape[-1]
     out = torch.empty((B, 2 * H, 2 * W, cout), dtype=x.dtype,
@@ -332,9 +338,9 @@ def _upsample2x_conv3x3(x, b, taps, splits=None):
         from . import gn_conv
 
         if not gn_conv.upconv_tma_describable(x, taps):
-            raise ValueError("upsample2x_conv3x3: TMA needs Cin and Cout "
-                             "multiples of 8 and 16-byte-aligned bases, got "
-                             f"x {tuple(x.shape)}, taps {tuple(taps.shape)}")
+            raise ValueError(f"{name}: TMA needs Cin and Cout multiples of "
+                             "8 and 16-byte-aligned bases, got x "
+                             f"{tuple(x.shape)}, taps {tuple(taps.shape)}")
         plan = gn_conv.upconv_sm90_plan(B, H, W, cin, cout, splits)
         work = (torch.empty(plan["work_floats"], dtype=torch.float32,
                             device=x.device) if plan["work_floats"] else None)
@@ -345,25 +351,32 @@ def _upsample2x_conv3x3(x, b, taps, splits=None):
                   _cuda.stream_of(x))
         _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
     else:
-        _launch("dtp_upsample2x_conv3x3", x, taps, b, out)
-    upsample_launches.record((tuple(x.shape), (3, 3, cin, cout)))
+        fp32(x, taps, b, out)
+    counter.record((tuple(x.shape), (3, 3, cin, cout)))
     return out
+
+
+def _upsample2x_conv3x3(x, b, taps, splits=None):
+    """K4 on CUDA (upsample2x_conv3x3 with _IN_PAD off); in bf16 `splits`
+    forces the sm90 kernel's split of K (the tests and tools/sm90_plans.py
+    call this entry with it)."""
+    return _upconv("upsample2x_conv3x3", x, b, taps, upsample_launches,
+                   functools.partial(_launch, "dtp_upsample2x_conv3x3"),
+                   splits)
 
 
 def upsample2x_conv3x3_inpad(x, w, b, taps):
     """upsample2x_conv3x3 with SAME padding done on chip (kernel K12b on
-    CUDA: the staged-tile UP mode over the folded taps), what
-    upsample2x_conv3x3 runs under _IN_PAD."""
+    CUDA), what upsample2x_conv3x3 runs under _IN_PAD: in bf16 K4's launch,
+    where TMA's out-of-bounds zeros are the padding, counted apart; in
+    fp32 the staged-tile UP mode of csrc/conv_staged.cu over the folded
+    taps."""
     if x.device.type == "cpu":
         return upsample2x_conv3x3_plain(x, w, b)
-    _check("upsample2x_conv3x3_inpad", x, taps, b, (16,))
-    B, H, W, cin = x.shape
-    cout = taps.shape[-1]
-    out = torch.empty((B, 2 * H, 2 * W, cout), dtype=x.dtype,
-                      device=x.device)
-    _launch_staged("dtp_upsample2x_conv3x3_staged", x, taps, b, out)
-    upsample_inpad_launches.record((tuple(x.shape), (3, 3, cin, cout)))
-    return out
+    return _upconv("upsample2x_conv3x3_inpad", x, b, taps,
+                   upsample_inpad_launches,
+                   functools.partial(_launch_staged,
+                                     "dtp_upsample2x_conv3x3_staged"))
 
 
 def gn_silu_conv3x3(x, scale, bias, w, b, temb=None, residual=None,

@@ -24,10 +24,17 @@ always say:
     four add (reps - 1) * acc[0, 0, 0], the tool's loop carry, to every
     output element.
 
-The kernels live in csrc/conv_arms.cu, over the staged-window step shared
-with csrc/conv_staged.cu (csrc/conv_staged.cuh). A wrapper takes its plain
-version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. No model and no served path calls these.
+T12's kernels and fp32 T11's live in csrc/conv_arms.cu, over the
+staged-window step shared with csrc/conv_staged.cu (csrc/conv_staged.cuh).
+bf16 T11 runs csrc/window_taps_sm90.cu: with flat = a window as
+((H_T+2) * Wp, Cin) rows, every read is out_flat[p] = sum_tap
+flat[base(tap) + p] @ w[tap] at a pitch (W for rowflat, else Wp), one
+row-shifted wgmma/TMA GEMM whose A boxes TMA brings one a di and whose
+taps read them at row offset dj; an N off 8 is zero-padded here and the
+real columns stored, a Cin off 8 raises ValueError (TMA's 16-byte rows).
+A wrapper takes its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches the kernel or raises. No model and no served path
+calls these.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _cuda
+from . import gn_conv
 from .conv3x3 import _KERNEL_DTYPES, _ptr
 
 pipelined_launches = _cuda.LaunchCounter("pipelined")
@@ -52,6 +60,8 @@ _PIPE_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                   + (ctypes.c_void_p,))
 _TAPS_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9
                   + (ctypes.c_void_p,))
+_TAPS_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 11
+                       + (ctypes.c_void_p,))
 
 
 # --- plain versions ---
@@ -210,14 +220,32 @@ def pipelined(x, a, c, w, b):
     return out
 
 
+def taps_tma_describable(xwin, w) -> bool:
+    """Whether TMA can read bf16 T11's operands: Cin a multiple of 8
+    (rows of whole 16 bytes) and 16-byte-aligned bases (an N off 8 is
+    zero-padded by the wrapper)."""
+    return (xwin.shape[-1] % 8 == 0 and xwin.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0)
+
+
 def conv_window_taps(xwin, w, variant: str, *, W: int, reps: int = 1):
     """T11: the nine-tap product over resident windows with `variant`'s
-    tap read, `reps` passes; kernel on CUDA (dtp_conv_window_taps, the
-    carry added in its epilogue), plain_conv_window_taps on CPU. xwin
-    (nwin, H_T+2, Wp, Cin) with Wp >= W + 2; w (9, Cin, N), or (3, 3*Cin,
-    N) for `jointw`; returns (nwin, H_T, W, N)."""
+    tap read, `reps` passes; kernel on CUDA (bf16: dtp_conv_window_taps_sm90
+    of csrc/window_taps_sm90.cu; fp32: dtp_conv_window_taps of
+    csrc/conv_arms.cu; the carry added in the epilogue),
+    plain_conv_window_taps on CPU. xwin (nwin, H_T+2, Wp, Cin) with Wp >=
+    W + 2; w (9, Cin, N), or (3, 3*Cin, N) for `jointw`; returns (nwin,
+    H_T, W, N)."""
     if xwin.device.type == "cpu":
         return plain_conv_window_taps(xwin, w, variant, W=W, reps=reps)
+    return _conv_window_taps(xwin, w, variant, W=W, reps=reps)
+
+
+def _conv_window_taps(xwin, w, variant, *, W, reps=1, consumers=None,
+                      splits=None):
+    """T11 on CUDA; in bf16 `consumers` 1 or 2 and `splits` force the sm90
+    kernel's tile and split of K (the tests and tools/sm90_plans.py call
+    this entry with them)."""
     name = "conv_window_taps"
     _check_taps(xwin, w, variant, W, reps)
     if xwin.dtype not in _KERNEL_DTYPES or w.dtype != xwin.dtype:
@@ -228,11 +256,30 @@ def conv_window_taps(xwin, w, variant: str, *, W: int, reps: int = 1):
     n = w.shape[2]
     out = torch.empty((nwin, rows - 2, W, n), dtype=xwin.dtype,
                       device=xwin.device)
-    fn = _cuda.function("conv_arms", "dtp_conv_window_taps", _TAPS_ARGTYPES)
-    code = fn(xwin.data_ptr(), w.data_ptr(), out.data_ptr(), nwin, rows - 2,
-              W, Wp, cin, n, VARIANTS.index(variant), int(reps),
-              int(xwin.dtype == torch.bfloat16), _cuda.stream_of(xwin))
-    _cuda.check("conv_arms", "dtp_conv_window_taps", code)
+    if xwin.dtype == torch.bfloat16:
+        if not taps_tma_describable(xwin, w):
+            raise ValueError(f"{name}: TMA needs Cin a multiple of 8 and "
+                             "16-byte-aligned bases, got xwin "
+                             f"{tuple(xwin.shape)}, w {tuple(w.shape)}")
+        wk = F.pad(w, (0, -n % 8)) if n % 8 else w
+        plan = gn_conv.taps_sm90_plan(nwin, rows - 2, W, Wp, cin,
+                                      wk.shape[2], variant, consumers, splits)
+        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
+                            device=xwin.device)
+                if plan["work_floats"] else None)
+        source, symbol = gn_conv.TAPS_SM90_SOURCE, "dtp_conv_window_taps_sm90"
+        fn = _cuda.function(source, symbol, _TAPS_SM90_ARGTYPES)
+        code = fn(xwin.data_ptr(), wk.data_ptr(), out.data_ptr(), _ptr(work),
+                  nwin, rows - 2, W, Wp, cin, wk.shape[2], n,
+                  VARIANTS.index(variant), int(reps), consumers or 0,
+                  splits or 0, _cuda.stream_of(xwin))
+    else:
+        source, symbol = "conv_arms", "dtp_conv_window_taps"
+        fn = _cuda.function(source, symbol, _TAPS_ARGTYPES)
+        code = fn(xwin.data_ptr(), w.data_ptr(), out.data_ptr(), nwin,
+                  rows - 2, W, Wp, cin, n, VARIANTS.index(variant),
+                  int(reps), 0, _cuda.stream_of(xwin))
+    _cuda.check(source, symbol, code)
     conv_window_taps_launches.record((tuple(xwin.shape), tuple(w.shape),
                                       variant, int(W), int(reps)))
     return out

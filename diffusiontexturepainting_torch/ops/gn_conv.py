@@ -353,6 +353,67 @@ def same_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
     return p
 
 
+# bf16 T11 (csrc/window_taps_sm90.cu dtp_conv_window_taps_sm90: one
+# row-shifted wgmma/TMA GEMM for the four tap reads of
+# ops/conv_variants.py conv_window_taps) and its plan's constants
+TAPS_SM90_SOURCE = "window_taps_sm90"
+TAPS_A_STAGES, TAPS_MAX_B_STAGES, TAPS_TAIL = 2, 12, 48
+
+
+@functools.lru_cache(maxsize=None)
+def taps_sm90_plan(nwin: int, H_T: int, W: int, Wp: int, cin: int, n: int,
+                   read: str, consumers: int | None = None,
+                   splits: int | None = None) -> dict:
+    """The tile bf16 T11 launches for xwin (nwin, H_T+2, Wp, cin), an
+    n-column weight and the tap read `read` (the source's plan): `pitch`
+    (W for rowflat, else Wp); a tile of 64 * consumers outputs of one
+    window (tiles never cross a window), `tr` output rows of `tw` columns
+    (tw the narrowest power of two from 16 up that holds W, at most the
+    tile's pixels), h_tiles x x_tiles = tiles_win a window, by 128
+    channels; `consumers` 2 unless that grid would leave more than half of
+    the SMs idle, then K (ceil(cin/64) chunks x 9 taps) split into runs of
+    whole chunks over as many CTAs as fill the SMs once (or as forced).
+    Its dynamic shared memory: two A stages of tr segments x `nbox` TMA
+    boxes (3, one a di; 1 for unshifted) of box_rows = tw + 2 flat rows x
+    64 channels, each rounded up to 1 KiB (the bf16 output staging aliases
+    them), up to 12 B stages of 64 x 128 weights, the mbarriers, the split
+    flag and the carry's per-warp sums, 1024 bytes of alignment.
+    `work_floats`: the split tiles and counters, 0 without a split.
+    Cached: the dict is shared, read it only."""
+
+    def of(nc):
+        rows = 64 * nc
+        tw = 16
+        while tw < W and tw < rows:
+            tw *= 2
+        tr = rows // tw
+        h_tiles, x_tiles = -(-H_T // tr), -(-W // tw)
+        nbox = 1 if read == "unshifted" else 3
+        box_bytes = -(-(tw + 2) * 128 // 1024) * 1024
+        region0 = max(TAPS_A_STAGES * tr * nbox * box_bytes,
+                      rows * GN_BN * 2)
+        fixed = (region0 + 8 * 2 * (TAPS_A_STAGES + TAPS_MAX_B_STAGES)
+                 + TAPS_TAIL + 1024)
+        stages = min(TAPS_MAX_B_STAGES, (SMEM_LIMIT - fixed) // GN_B_BYTES)
+        return dict(consumers=nc, pitch=W if read == "rowflat" else Wp,
+                    tw=tw, tr=tr, h_tiles=h_tiles, x_tiles=x_tiles,
+                    tiles_win=h_tiles * x_tiles,
+                    m_tiles=nwin * h_tiles * x_tiles,
+                    n_tiles=-(-n // GN_BN), chunks=-(-cin // GN_BK),
+                    nbox=nbox, box_rows=tw + 2, box_bytes=box_bytes,
+                    stages=stages, smem=fixed + stages * GN_B_BYTES)
+
+    p = of(2)
+    if not (consumers == 2 or (consumers is None and
+                               2 * p["m_tiles"] * p["n_tiles"] >= SM_COUNT)):
+        p = of(1)
+    _split(p, splits)
+    ctas = p["m_tiles"] * p["n_tiles"]
+    p["work_floats"] = (ctas * p["splits"] * 64 * p["consumers"] * GN_BN
+                        + ctas if p["splits"] > 1 else 0)
+    return p
+
+
 def upconv_tma_describable(x, taps) -> bool:
     """Whether TMA can read bf16 K4's or K6's operands (or K7's, with its
     3x3 weight for taps): Cin and Cout multiples of 8 (rows of whole 16

@@ -1,6 +1,6 @@
-"""Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a and
-K11 wrappers at their served shapes, and of the T4 and T10 arms at their
-paths' shapes, for comparing two checkouts on one card.
+"""Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a,
+K11 and K12b wrappers at their served shapes, and of the T4, T10 and T11
+arms at their paths' shapes, for comparing two checkouts on one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
     PYTHONPATH=<another checkout> python \\
@@ -17,15 +17,26 @@ ops.conv3x3.conv3x3 (K7) at every shape the safe twin's 256^2 stamp runs
 it at (TWIN_K7), the same call with ops.conv3x3._IN_PAD set (K12a, as the
 twin_inpad path runs it) at the same shapes, ops.conv3x3.conv3x3_stream
 (K11) at those of them that pass streaming_plan's shape test (TWIN_K11),
+ops.conv3x3.upsample2x_conv3x3 at the safe twin's 256^2 K4 shapes
+(TWIN_K4) with _IN_PAD off (K4) and set (K12b, as the twin_inpad path
+runs it), F.conv_transpose2d on the assembled 4x4 weight beside,
 ops.attention_variants.slotted_kernel_call (T4) at the
 slotted 512^2/4 stamp's two K13 shapes as (B*h, L, 128) slots (hd 40 and
 80 real lanes) in both softmax flavours, and
 ops.attention_variants.pv_product (T10) at the TPU tool's three shapes, bh
-1, 64 passes, both orientations (PV). Seeded normal bf16 inputs (T10: the
-tool's uniform ones). Each row: ms a call (CUDA events over back-to-back
-calls, best of 4: the host's launch cost included) and device_ms (the same
-calls replayed from a CUDA graph). Without a card it exits nonzero.
-Prints one line per row, then one JSON line naming the package's path.
+1, 64 passes, both orientations (PV), and
+ops.conv_variants.conv_window_taps (T11), each of its four reads, at the
+conv_arms path's windows (TAPS_ARMS: the default 256^2/20 stamp's K5
+images with a prologue cut into windows of 8 rows, reps 1) and at the TPU
+tool's three shapes (TAPS_TOOL: one window, reps 24), F.conv2d (VALID,
+channels-last) on the same windows beside `shifted`. Seeded normal bf16
+inputs (T10, T11: the tools' uniform ones). Each row: ms a call (CUDA
+events over back-to-back calls, best of 4: the host's launch cost
+included) and device_ms (the same calls replayed from a CUDA graph); the
+K12b and T11 rows also their launches a stamp (`count`), and the run
+ends with each read's T11 sums over a conv_arms stamp. Without a card it
+exits nonzero. Prints one line per row, then one JSON line naming the
+package's path.
 """
 
 from __future__ import annotations
@@ -43,9 +54,12 @@ if __package__ in (None, ""):
     sys.path.append(str(Path(__file__).resolve().parents[2]))
 
 import diffusiontexturepainting_torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
 from diffusiontexturepainting_torch.ops import (  # noqa: E402
     attention_variants,
     conv3x3,
+    conv_variants,
     ff_geglu,
     gn_conv,
 )
@@ -88,6 +102,26 @@ TWIN_K7 = [
 # shape test (H >= 8, W >= 2, Cin >= 16, Cout >= 128): all but the 4x4 level
 TWIN_K11 = [s for s in TWIN_K7
             if s[1] >= 8 and s[2] >= 2 and s[3] >= 16 and s[4] >= 128]
+# (B, H, W, C, launches a stamp): K4 at the safe twin's 256^2/4 stamp (the
+# UNet's three upsamplers at batch 3, each step; the VAE decoder's three):
+# K12b's shapes on the twin_inpad path
+TWIN_K4 = [(3, 4, 4, 1280, 4), (3, 8, 8, 1280, 4), (3, 16, 16, 640, 4),
+           (1, 32, 32, 512, 1), (1, 64, 64, 512, 1), (1, 128, 128, 256, 1)]
+# (nwin, H_T, W, Cin, N, launches a stamp): T11 on the conv_arms path: the
+# default 256^2/20 stamp's K5 calls with a prologue (the VAE encoder's at
+# batch 2, the decoder's at 1), each image as (1, B*H, W, Cin) cut into
+# windows of 8 rows
+TAPS_ARMS = [(64, 8, 256, 128, 128, 4), (32, 8, 128, 128, 256, 1),
+             (32, 8, 128, 256, 256, 3), (16, 8, 64, 256, 512, 1),
+             (16, 8, 64, 512, 512, 3), (8, 8, 32, 512, 512, 8),
+             (8, 8, 32, 512, 8, 1), (4, 8, 32, 512, 512, 10),
+             (8, 8, 64, 512, 512, 6), (16, 8, 128, 512, 256, 1),
+             (16, 8, 128, 256, 256, 5), (32, 8, 256, 256, 128, 1),
+             (32, 8, 256, 128, 128, 5), (32, 8, 256, 128, 3, 1)]
+# (nwin, H_T, W, Cin, N, reps): T11 at the TPU tool's three shapes
+TAPS_TOOL = [(1, 16, 128, 512, 128, 24), (1, 8, 256, 256, 256, 24),
+             (1, 8, 512, 128, 128, 24)]
+TAP_READS = ("shifted", "unshifted", "rowflat", "jointw")
 # (B*h, L, real lanes): T4 at the slotted 512^2/4 stamp's K13 shapes
 SLOTTED = [(24, 4096, 40), (24, 1024, 80)]
 # (bq, Lk, hd): T10 at the TPU tool's shapes, bh 1, PV_ITERS passes
@@ -100,10 +134,11 @@ def _rows(gen):
     rnd = lambda *s, std=1.0: (torch.randn(s, generator=gen, device="cuda")
                                * std).bfloat16()
 
-    def row(kernel, tag, shape, call):
+    def row(kernel, tag, shape, call, count=None):
         rows.append({"kernel": kernel, "tag": tag, "shape": shape,
                      "ms": _common.event_ms(call),
-                     "device_ms": _common.graph_ms(call)})
+                     "device_ms": _common.graph_ms(call),
+                     **({} if count is None else {"count": count})})
 
     for N, C, inner, tag in FF:
         x, res = rnd(N, C), rnd(N, C)
@@ -143,6 +178,52 @@ def _rows(gen):
         if s in TWIN_K11:
             row("K11", s[5], list(s[:5]),
                 lambda: conv3x3.conv3x3_stream(x, w, b))
+    # K4 then K12b at the twin's K4 shapes (K4's rows first, as K7's),
+    # F.conv_transpose2d beside
+    ups = []
+    for B, H, W, C, count in TWIN_K4:
+        x = rnd(B, H, W, C)
+        w, b = rnd(3, 3, C, C, std=(9 * C) ** -0.5), rnd(C, std=0.1)
+        ups.append(((B, H, W, C, count), x, w, b,
+                    conv3x3.fold_upsample_weights(w)))
+    for (B, H, W, C, count), x, w, b, taps in ups:
+        row("K4", f"twin {H}^2 {C}", [B, H, W, C, C],
+            lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps), count)
+    conv3x3._IN_PAD = True
+    try:
+        for (B, H, W, C, count), x, w, b, taps in ups:
+            row("K12b", f"twin {H}^2 {C}", [B, H, W, C, C],
+                lambda: conv3x3.upsample2x_conv3x3(x, w, b, taps), count)
+    finally:
+        conv3x3._IN_PAD = False
+    for (B, H, W, C, count), x, w, b, taps in ups:
+        xc = x.permute(0, 3, 1, 2)
+        w4 = conv3x3.transposed_upsample_weight(taps).contiguous(
+            memory_format=torch.channels_last)
+        row("F.conv_transpose2d", f"twin {H}^2 {C}", [B, H, W, C, C],
+            lambda: F.conv_transpose2d(xc, w4, b, stride=2, padding=1),
+            count)
+    for nwin, h_t, W, cin, n, extra in TAPS_ARMS + TAPS_TOOL:
+        arms = (nwin, h_t, W, cin, n, extra) in TAPS_ARMS
+        reps, count = (1, extra) if arms else (extra, 1)
+        wp = W + 2 + (-(W + 2)) % 8
+        xwin = torch.rand((nwin, h_t + 2, wp, cin), generator=gen,
+                          device="cuda").bfloat16()
+        w9 = torch.rand((9, cin, n), generator=gen, device="cuda").bfloat16()
+        where = "conv_arms" if arms else "tool"
+        for read in TAP_READS:
+            wv = w9.view(3, 3 * cin, n) if read == "jointw" else w9
+            row("T11", f"{where} {read} {nwin}x{h_t}x{W}", [
+                nwin, h_t + 2, wp, cin, n, W, reps, read],
+                lambda: conv_variants.conv_window_taps(
+                    xwin, wv, read, W=W, reps=reps), count)
+        xc = xwin[:, :, :W + 2].permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        wc = w9.view(3, 3, cin, n).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row("F.conv2d", f"{where} shifted {nwin}x{h_t}x{W}",
+            [nwin, h_t + 2, wp, cin, n, W, 1, "shifted"],
+            lambda: F.conv2d(xc, wc), count)
     for BH, L, hd in SLOTTED:
         q, k, v = (torch.zeros((BH, L, 128), device="cuda").bfloat16()
                    for _ in range(3))
@@ -165,6 +246,23 @@ def _rows(gen):
     return rows
 
 
+def stamp_sums(rows):
+    """{name: (ms, device_ms)}: count-weighted sums of the rows that carry
+    launches a stamp: K4, K12b and F.conv_transpose2d over the twin's K4
+    shapes; each T11 read and F.conv2d over the conv_arms path's
+    windows."""
+    sums = {}
+    for r in rows:
+        if "count" not in r or r["tag"].startswith("tool"):
+            continue
+        name = r["kernel"] + ("" if r["kernel"] not in ("T11", "F.conv2d")
+                              else " " + r["tag"].split()[1])
+        ms, device_ms = sums.get(name, (0.0, 0.0))
+        sums[name] = (ms + r["count"] * r["ms"],
+                      device_ms + r["count"] * r["device_ms"])
+    return sums
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None)
@@ -185,8 +283,12 @@ def main(argv=None) -> int:
     for r in rows:
         print(f"{r['kernel']} {r['tag']:28s} {r['ms']:.4f} ms, device "
               f"{r['device_ms']:.4f} ms", flush=True)
+    stamp = stamp_sums(rows)
+    for name, (ms, device_ms) in stamp.items():
+        print(f"{name}: {ms:.4f} ms a stamp, device {device_ms:.4f} ms",
+              flush=True)
     record = {"device": torch.cuda.get_device_name(0), "card": card,
-              "package": package, "rows": rows}
+              "package": package, "rows": rows, "stamp": stamp}
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(record, f)

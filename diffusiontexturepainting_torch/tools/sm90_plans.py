@@ -1,10 +1,11 @@
-"""A/B of the tile plans of the bf16 K2, K9, K1/K5, K3, K4, K6 and K7
+"""A/B of the tile plans of the bf16 K2, K9, K1/K5, K3, K4, K6, K7 and T11
 kernels (K7's also served as K12a and K11), and of K14's.
 
     python -m diffusiontexturepainting_torch.tools.sm90_plans
     python -m diffusiontexturepainting_torch.tools.sm90_plans --rows ff,upconv
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
         --rows upstats,same,inpad,stream
+    python -m diffusiontexturepainting_torch.tools.sm90_plans --rows taps
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
         --device cpu --shapes tiny
 
@@ -45,7 +46,13 @@ beside the K1/K5 kernel called with no prologue, residual or statistics
 F.conv2d (channels-last, SAME); K12a (ops/conv3x3.py conv3x3_inpad) at
 TWIN_K7 and K11 (conv3x3_stream) at TWIN_K11 through the served wrappers
 under the plan, with max|diff| against K7 on the same inputs (0: one
-plan, one launch), F.conv2d beside.
+plan, one launch), F.conv2d beside; with --rows taps: T11 (ops/
+conv_variants.py _conv_window_taps, csrc/window_taps_sm90.cu) at the
+conv_arms path's windows (kernel_ab.TAPS_ARMS, reps 1) and the TPU tool's
+three shapes (kernel_ab.TAPS_TOOL, one window, reps 24), each read under
+its plan, and `shifted` under every forced tile (64 or 128 flat rows: one
+or two consumer warpgroups) by every split of K, F.conv2d (VALID,
+channels-last) on the same windows beside.
 Seeded normal inputs, bf16. Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph: the
@@ -62,7 +69,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops import attention, conv3x3, ff_geglu, gn_conv, groupnorm
+from ..ops import attention, conv3x3, conv_variants, ff_geglu, gn_conv
+from ..ops import groupnorm
 from . import _common, kernel_ab
 
 # attention (B, L, D, heads, tag); downconv (B, H, W, Cin, Cout, tag)
@@ -116,7 +124,9 @@ SHAPE_SETS = {
                                           (4 * h0, 256, "2"))],
         # (B, H, W, Cin, Cout, tag): K7 and K12a at the safe twin's 256^2
         # stamp, K11 at those of its shapes that pass streaming_plan's test
-        "same": None, "inpad": None, "stream": None},
+        "same": None, "inpad": None, "stream": None,
+        # (nwin, H_T, W, Cin, N, reps, tag): T11
+        "taps": None},
     "tiny": {
         "attention": [(1, 100, 80, 2, "tiny hd 40"),
                       (1, 70, 512, 1, "tiny hd 512")],
@@ -128,10 +138,17 @@ SHAPE_SETS = {
         "upstats": [(1, 5, 7, 16, "tiny"), (2, 9, 6, 24, "tiny 2 images")],
         "same": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
         "inpad": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
-        "stream": [(1, 9, 10, 16, 128, "tiny")]},
+        "stream": [(1, 9, 10, 16, 128, "tiny")],
+        "taps": [(2, 4, 10, 16, 8, 3, "tiny"),
+                 (1, 3, 7, 8, 24, 1, "tiny ragged")]},
 }
-SHAPE_SETS["stamp"].update(same=kernel_ab.TWIN_K7, inpad=kernel_ab.TWIN_K7,
-                           stream=kernel_ab.TWIN_K11)
+SHAPE_SETS["stamp"].update(
+    same=kernel_ab.TWIN_K7, inpad=kernel_ab.TWIN_K7,
+    stream=kernel_ab.TWIN_K11,
+    taps=[(nwin, h_t, W, cin, n, 1, f"conv_arms {nwin}x{h_t}x{W} x{count}")
+          for nwin, h_t, W, cin, n, count in kernel_ab.TAPS_ARMS]
+    + [(nwin, h_t, W, cin, n, reps, f"tool {h_t}x{W}x{cin}")
+       for nwin, h_t, W, cin, n, reps in kernel_ab.TAPS_TOOL])
 
 
 def _times(fn) -> dict:
@@ -499,6 +516,55 @@ def _served_same_rows(kernel, op):
     return rows_of
 
 
+def _taps_rows(shapes, gen, device, timed):
+    rows = []
+    cv = conv_variants
+    for nwin, h_t, W, cin, n, reps, tag in shapes:
+        wp = W + 2 + (-(W + 2)) % 8
+        xwin = torch.rand((nwin, h_t + 2, wp, cin), generator=gen,
+                          device=device).bfloat16()
+        w9 = torch.rand((9, cin, n), generator=gen, device=device).bfloat16()
+        for read in cv.VARIANTS:
+            wv = w9.view(3, 3 * cin, n) if read == "jointw" else w9
+            want = cv.plain_conv_window_taps(xwin, wv, read, W=W, reps=reps)
+            chosen = gn_conv.taps_sm90_plan(nwin, h_t, W, wp, cin, n, read)
+            # the plan, then on the card for `shifted` every forced tile
+            # and split of K
+            arms = [(None, None)]
+            if timed and read == "shifted":
+                arms += [(nc, s) for nc in (1, 2)
+                         for s in _split_choices(chosen["chunks"])]
+            for nc, splits in arms:
+                p = gn_conv.taps_sm90_plan(nwin, h_t, W, wp, cin, n, read,
+                                           nc, splits)
+                if device == "cpu":  # the wrapper's CPU route: plain
+                    call = (lambda: cv.conv_window_taps(xwin, wv, read, W=W,
+                                                        reps=reps))
+                else:
+                    call = (lambda nc=nc, splits=splits:
+                            cv._conv_window_taps(xwin, wv, read, W=W,
+                                                 reps=reps, consumers=nc,
+                                                 splits=splits))
+                rows.append({"kernel": "T11", "tag": f"{tag} {read}",
+                             "shape": [nwin, h_t, W, wp, cin, n, reps],
+                             "consumers": p["consumers"],
+                             "splits": p["splits"], "plan": nc is None,
+                             "ctas": p["m_tiles"] * p["n_tiles"]
+                             * p["splits"],
+                             "max_diff": _common.max_diff(call(), want),
+                             **(_times(call) if timed
+                                else {"ms": None, "device_ms": None})})
+        if timed:
+            xc = xwin[:, :, :W + 2].permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            wc = w9.view(3, 3, cin, n).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            rows.append({"kernel": "F.conv2d", "tag": f"{tag} shifted",
+                         "shape": [nwin, h_t, W, wp, cin, n, 1],
+                         **_times(lambda: F.conv2d(xc, wc))})
+    return rows
+
+
 def main(argv=None) -> int:
     args = _common.parse_args(
         __doc__, SHAPE_SETS, "stamp", argv,
@@ -515,7 +581,8 @@ def main(argv=None) -> int:
               "ff": _ff_rows, "upconv": _upconv_rows,
               "upstats": _upstats_rows, "same": _same_rows,
               "inpad": _served_same_rows("K12a", conv3x3.conv3x3_inpad),
-              "stream": _served_same_rows("K11", conv3x3.conv3x3_stream)}
+              "stream": _served_same_rows("K11", conv3x3.conv3x3_stream),
+              "taps": _taps_rows}
     rows = []
     with torch.inference_mode():
         for name in args.rows.split(","):

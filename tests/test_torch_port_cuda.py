@@ -30,7 +30,8 @@ CASES = {
     # channels off the 16-byte groups: the kernel's scalar path
     "spatial_moments": ((2, 9, 7, 40),),
     # K12a and K11 (bf16: K7's launch on csrc/gn_conv_sm90.cu; fp32: the
-    # staged-tile FMA twin), K12b and K10 (csrc/conv_staged.cu)
+    # staged-tile FMA twin), K12b (bf16: K4's launch; fp32: the staged-tile
+    # FMA twin) and K10 (csrc/conv_staged.cu)
     "conv3x3_inpad": ((2, 12, 10, 96), (3, 3, 96, 136)),
     "upsample2x_conv3x3_inpad": ((1, 5, 7, 64), (3, 3, 64, 72)),
     "conv3x3_stream": ((1, 17, 9, 48), (3, 3, 48, 130)),
@@ -43,6 +44,8 @@ STAGED = ("conv3x3_inpad", "upsample2x_conv3x3_inpad", "conv3x3_stream",
           "gn_silu_conv3x3")
 # K7's function, in bf16 on K7's kernel
 SAME_SM90 = ("conv3x3_inpad", "conv3x3_stream")
+# in bf16 on a TMA kernel: K12a and K11 (K7's) and K12b (K4's)
+TMA_BF16 = SAME_SM90 + ("upsample2x_conv3x3_inpad",)
 
 
 def _case(kind, dtype):
@@ -115,8 +118,9 @@ def test_spatial_moments_is_deterministic(shape):
 # off the 128- and 64-column tiles.
 RAGGED = [((1, 7, 5, 3), (3, 3, 3, 40)), ((2, 3, 9, 9), (3, 3, 9, 24)),
           ((1, 1, 1, 48), (3, 3, 48, 130)), ((2, 11, 19, 48), (3, 3, 48, 8))]
-# bf16 K12a and K11 refuse Cin 3 and 9 and Cout 130 (TMA's 16-byte rows:
-# test_staged_entries_raise_and_never_fall_back); the ragged shapes TMA
+# bf16 K12a, K11 and K12b refuse Cin 3 and 9 and Cout 130 (TMA's 16-byte
+# rows: test_staged_entries_raise_and_never_fall_back,
+# tests/test_torch_port_upconv_inpad_taps_sm90.py); the ragged shapes TMA
 # can describe take their place: odd H and W, a 1x1 image, Cout 40, 24,
 # 136 and 8 off the 128-column tile
 RAGGED_DESCRIBABLE = [((1, 7, 5, 8), (3, 3, 8, 40)),
@@ -127,7 +131,7 @@ STAGED_RAGGED = [
     (dtype, kind, key)
     for dtype in ("bfloat16", "float32") for kind in STAGED
     for key in (RAGGED_DESCRIBABLE
-                if dtype == "bfloat16" and kind in SAME_SM90 else RAGGED)]
+                if dtype == "bfloat16" and kind in TMA_BF16 else RAGGED)]
 
 
 def _staged_key(kind, key):
@@ -137,8 +141,9 @@ def _staged_key(kind, key):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kind,key", STAGED_RAGGED, ids=str)
 def test_staged_kernels_at_ragged_shapes(kind, key, dtype):
-    """The staged-tile kernels (fp32; bf16 K12b and K10) and bf16 K12a and
-    K11 (K7's kernel) against their plain versions where the window, the
+    """The staged-tile kernels (fp32; bf16 K10), bf16 K12a and K11 (K7's
+    kernel) and bf16 K12b (K4's) against their plain versions where the
+    window, the
     channel chunks and the Cout tile are ragged (K10 with 3 groups of Cin
     / 3 channels, temb and residual)."""
     gen = _setup()
@@ -198,7 +203,7 @@ def test_staged_entries_raise_and_never_fall_back():
     """A CUDA tensor of a type, shape or layout the kernel does not take
     raises; it never runs the plain version. bf16 K12a and K11 refuse
     what TMA cannot describe and launch nothing; the staged-tile SAME
-    entry refuses bf16."""
+    and UP entries refuse bf16."""
     gen = _setup()
     from diffusiontexturepainting_torch.ops import conv3x3
 
@@ -243,6 +248,13 @@ def test_staged_entries_raise_and_never_fall_back():
                         conv3x3._STAGED_ARGTYPES)
     assert fn(xb.data_ptr(), wb.data_ptr(), None, ob.data_ptr(), 1, 8, 8, 32,
               64, 1, _cuda.stream_of(xb)) == 1
+    # and so does the staged-tile UP entry (bf16 K12b is K4's kernel)
+    taps = torch.randn((16, 32, 64), generator=gen, device="cuda").bfloat16()
+    up = torch.empty((1, 16, 16, 64), dtype=torch.bfloat16, device="cuda")
+    fn = _cuda.function("conv_staged", "dtp_upsample2x_conv3x3_staged",
+                        conv3x3._STAGED_ARGTYPES)
+    assert fn(xb.data_ptr(), taps.data_ptr(), None, up.data_ptr(), 1, 8, 8,
+              32, 64, 1, _cuda.stream_of(xb)) == 1
 
 
 # The softmax arms (csrc/attn_arms.cu), the head-layout arms
@@ -465,6 +477,10 @@ def test_pipelined_matches_plain(key, has_bias, dtype):
 # (no 1x1 window: `unshifted` reads only its zero pad pixel there)
 TAPS_RAGGED = [(7, 5, 3, 40), (3, 9, 9, 24), (2, 3, 48, 130),
                (11, 19, 48, 8)]
+# bf16 T11 (csrc/window_taps_sm90.cu) refuses Cin off 8 (TMA's 16-byte
+# rows); the same windows at Cin 8 and 16 take their place
+TAPS_RAGGED_BF16 = [(7, 5, 8, 40), (3, 9, 16, 24), (2, 3, 48, 130),
+                    (11, 19, 48, 8)]
 
 
 @pytest.mark.cuda
@@ -476,6 +492,8 @@ def test_window_taps_match_plain(shape, read, dtype):
     gen = _setup()
     import chip_smoke
 
+    if dtype == "bfloat16":
+        shape = TAPS_RAGGED_BF16[TAPS_RAGGED.index(shape)]
     h_t, W, cin, n = shape
     for reps in (1, 3):
         taps = chip_smoke.taps_key(2, h_t, W, cin, n, read, reps)
