@@ -88,12 +88,16 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   9a. attn_arms
                eight arms of the attention kernels through the A/B entry
                point's functions (diffusiontexturepainting_torch.tools.
-               attn_variants): the softmax arms T2 no-max, T3 chunked, T5
-               unpadded no-max (heads split by one copy pass) and T9
-               transposed P V (csrc/attn_arms.cu), and the head-layout arms
-               T6 (heads read in place, head-major blocks), T7 (all heads in
-               one block) and T8 (head fastest) (csrc/attn_layouts.cu), and
-               T1 (both products transposed, the exact row-max softmax;
+               attn_variants): the softmax arms T2 no-max, T3 chunked and
+               T5 unpadded no-max (heads split by one copy pass)
+               (csrc/attn_arms.cu) and T9 (P V with the fp32 p; bf16 on
+               the one-pass mode of csrc/flash_attention_sm90.cu, p as
+               bf16 hi + lo), the head-layout arms T6 (heads read in place,
+               head-major blocks) and T8 (head fastest)
+               (csrc/attn_layouts.cu) and T7 (all heads in one block; bf16
+               on the one-pass all-heads mode of
+               csrc/flash_attention_sm90.cu), and T1 (both products
+               transposed, the exact row-max softmax;
                csrc/attn_transposed.cu), at
                the 1024^2 / 4 stamp's three UNet self-attention shapes, each
                launched as often as that stamp launches K8/K2 there (20 a
@@ -102,7 +106,10 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                their plain versions and differ from the exact softmax of K8,
                which rounds q as the arms do; T3 and T1 equal it) and the
                underflow probe (every exp2 underflows: zeros from the safe
-               arms, no NaN);
+               arms, no NaN); the P precision probe (T9's and T7's path
+               outputs at the hd-160 shape against float64 evaluations with
+               p unrounded and with bf16(p), rounded to bf16: T9 nearer the
+               first, T7 the second, each by P_PRECISION_MARGIN);
   9b. slotted_arm
                the slotted-input arm T4 (slotted_kernel_call: the row-max
                softmax with exp2 of bf16 logits over (B*h, L, 128) head
@@ -229,9 +236,11 @@ SOURCES = {
     "nomax_attention": "csrc/attn_arms.cu",
     "chunked_attention": "csrc/attn_arms.cu",
     "nomax_unpadded": "csrc/attn_arms.cu",
-    "pvt_attention": "csrc/attn_arms.cu",
+    # bf16; fp32 runs attn_arms.cu
+    "pvt_attention": "csrc/flash_attention_sm90.cu",
     "nomax_4d": "csrc/attn_layouts.cu",
-    "nomax_allheads": "csrc/attn_layouts.cu",
+    # bf16; fp32 runs attn_layouts.cu
+    "nomax_allheads": "csrc/flash_attention_sm90.cu",
     "nomax_laneslice": "csrc/attn_layouts.cu",
     # bf16; fp32 runs attn_layouts.cu
     "slotted_kernel_call": "csrc/flash_attention_sm90.cu",
@@ -250,6 +259,10 @@ ARMS = ("nomax_attention", "chunked_attention", "nomax_unpadded",
 SLOTTED_ARM = "slotted_kernel_call"
 # the exact row-max arms: no clamp, no static shift
 EXACT_ARMS = ("chunked_attention", "sublane_attention")
+# T9 (p unrounded into P V) and T7 (bf16(p)): each output's mean distance
+# to its own function's float64 evaluation times this is at most its
+# distance to the other's (the emulations read about 400 apart)
+P_PRECISION_MARGIN = 16.0
 # T10 on the pv_product path; T11 and T12 on the conv_arms path
 PV, TAPS, PIPE = "pv_product", "conv_window_taps", "pipelined"
 # T10's passes a call in this script (the tool's minimum; its own counts,
@@ -411,7 +424,8 @@ ARM_LAUNCHES = 20
 DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
                 "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3",
                 "conv3x3_inpad", "conv3x3_stream",
-                "upsample2x_conv3x3_inpad", SLOTTED_ARM, PV, TAPS)
+                "upsample2x_conv3x3_inpad", SLOTTED_ARM, PV, TAPS,
+                "nomax_allheads", "pvt_attention")
 # Kernels whose family member (FAMILY_IS) runs the same launch in bf16:
 # their outputs must equal its bit for bit.
 FAMILY_EXACT = ("conv3x3_inpad", "conv3x3_stream",
@@ -1539,11 +1553,36 @@ def _err_tol(got, want, dtype_name="bfloat16"):
     return err, TOL[dtype_name] * want.float().abs().max().item()
 
 
+def p_precision(got, q, k, v, heads, shift=32.0):
+    """mean |got - bf16(o)| over got's elements for two float64
+    evaluations o of the shifted softmax on got's bf16 inputs (q pre-scaled
+    and rounded as the kernels do; s clamped at shift + 88; l the unrounded
+    p's sum + 1e-30), a head at a time: p unrounded into P V (T9's
+    function), then bf16(p) (T7's). Returns (to_fp32_p, to_bf16_p)."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    qs, kh, vh = av._heads(q, k, v, heads)
+    hd = qs.shape[-1]
+    dist = [0.0, 0.0]
+    for h in range(heads):
+        s = qs[:, h].double() @ kh[:, h].double().transpose(-1, -2)
+        p = torch.exp2(torch.clamp_max(s, shift + 88.0) - shift)
+        l = p.sum(-1, keepdim=True) + 1e-30
+        g = got[..., h * hd:(h + 1) * hd].double()
+        for i, pp in enumerate((p, p.to(torch.bfloat16).double())):
+            o = ((pp @ vh[:, h].double()) / l).to(torch.bfloat16).double()
+            dist[i] += (g - o).abs().sum().item()
+    return dist[0] / got.numel(), dist[1] / got.numel()
+
+
 def attn_arms_phase(gen):
     """The softmax arms through the A/B entry point's functions at the
     1024^2/4 stamp's three UNet self-attention shapes, ARM_LAUNCHES calls of
     each arm a shape, with the counts set to 0 just before and read just
     after; each output against the attention() route's (K8/K2); then the
+    P precision probe on T9's and T7's outputs at the hd-160 shape, and the
     clamp and underflow probes. Returns (launches, shapes)."""
     import torch
 
@@ -1593,6 +1632,23 @@ def attn_arms_phase(gen):
                 log(f"attn_arms: {name} ({ARM_PATH_ROWS[name]}) at {label} "
                     f"{tuple(q.shape)}: max|diff| {err:.3e} against the "
                     f"{route} route (tol {tol:.3e}); err/tol {err / tol:.3f}")
+
+        # P precision: T9's p enters P V unrounded (hi + lo), T7's as
+        # bf16(p); within chip_smoke's tolerance the two are one function,
+        # so each is held nearer its own float64 evaluation
+        (label, _, _, _, heads), (q, k, v), outs = max(
+            zip(shapes, inputs, firsts), key=lambda c: c[0][3] // c[0][4])
+        for name, own in (("pvt_attention", 0), ("nomax_allheads", 1)):
+            dist = p_precision(outs[name], q, k, v, heads)
+            if not P_PRECISION_MARGIN * dist[own] <= dist[1 - own]:
+                raise AssertionError(
+                    f"attn_arms: P precision probe {name} at {label}: mean "
+                    f"|diff| {dist[0]:.3e} to the fp32-p evaluation, "
+                    f"{dist[1]:.3e} to the bf16-p one")
+            log(f"attn_arms: P precision probe {name} at {label} "
+                f"{tuple(q.shape)}: mean|diff| {dist[0]:.3e} to the fp32-p "
+                f"evaluation, {dist[1]:.3e} to the bf16-p one (its own "
+                f"{P_PRECISION_MARGIN:g}x nearer, as it must)")
         del inputs, firsts, base
 
         # clamp: raw logits far above 83. The exact softmax is K8's (K2
@@ -2009,6 +2065,19 @@ def tma_refusal_probe(gen):
         lambda: av.slotted_kernel_call(s_36, s_36, s_36, 0.1),
         "slotted_kernel_call q 2 bytes off 16":
         lambda: av.slotted_kernel_call(s_off, s_off, s_off, 0.1)})
+    # bf16 T7 and T9 (the one-pass modes of flash_attention_sm90.cu) at hd
+    # 36 and on a q 2 bytes off 16
+    h_36 = torch.randn((2, 64, 4 * 36), generator=gen,
+                       device="cuda").bfloat16()
+    h_flat = torch.randn(1 + 2 * 64 * 320, generator=gen,
+                         device="cuda").bfloat16()
+    h_off = h_flat[1:].view(2, 64, 320)
+    h_ok = h_flat[:2 * 64 * 320].view(2, 64, 320)
+    for name in ("nomax_allheads", "pvt_attention"):
+        arm = getattr(av, name)
+        calls[f"{name} hd 36"] = lambda arm=arm: arm(h_36, h_36, h_36, 4)
+        calls[f"{name} q 2 bytes off 16"] = (
+            lambda arm=arm: arm(h_off, h_ok, h_ok, 8))
     # bf16 T11 at Cin 3 (fp32 keeps it: the probes) and on windows 2 bytes
     # off 16
     x3 = torch.rand((3, 7, 16, 3), generator=gen, device="cuda").bfloat16()
@@ -2033,7 +2102,8 @@ def tma_refusal_probe(gen):
                 conv3x3.conv3x3_launches, conv3x3.conv3x3_inpad_launches,
                 conv3x3.conv3x3_stream_launches,
                 conv3x3.upsample_inpad_launches, av.pv_product_launches,
-                av.slotted_launches, cv.conv_window_taps_launches)
+                av.slotted_launches, cv.conv_window_taps_launches,
+                av.nomax_allheads_launches, av.pvt_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -2080,7 +2150,12 @@ def tma_refusal_probe(gen):
         "dtp_slotted_attention": _cuda.function(
             "attn_layouts", "dtp_slotted_attention", av._SLOTTED_ARGTYPES)(
             x8.data_ptr(), x8.data_ptr(), x8.data_ptr(), out.data_ptr(), 1,
-            8, 8, 16, 0.1, 1, 1, stream)}
+            8, 8, 16, 0.1, 1, 1, stream),
+        **{symbol: _cuda.function(source, symbol, av._SHIFT_ARGTYPES)(
+            x8.data_ptr(), x8.data_ptr(), x8.data_ptr(), out.data_ptr(), 1,
+            2, 8, 8, 8, 0.1, 32.0, 1, stream)
+           for source, symbol in (("attn_arms", "dtp_pvt_attention"),
+                                  ("attn_layouts", "dtp_nomax_allheads"))}}
     splits = {symbol: _cuda.function("conv3x3", f"{symbol}_splits",
                                      conv3x3._SPLIT_ARGTYPES)(
         1, 8, 8, 16, 16, 1)
@@ -2090,9 +2165,9 @@ def tma_refusal_probe(gen):
         raise AssertionError(f"probe: fp32 entries in bf16 gave {codes}, "
                              f"split plans {splits}")
     log(f"probe: conv3x3.cu's, conv_staged.cu's SAME and UP, "
-        f"attn_transposed.cu's T10, attn_layouts.cu's T4 and conv_arms.cu's "
-        f"T11 fp32 entries refuse bf16: {codes} (cudaErrorInvalidValue), "
-        "conv split plans -1")
+        f"attn_transposed.cu's T10, attn_layouts.cu's T4 and T7, "
+        f"attn_arms.cu's T9 and conv_arms.cu's T11 fp32 entries refuse "
+        f"bf16: {codes} (cudaErrorInvalidValue), conv split plans -1")
 
 
 def replay_probe(gen):
@@ -2102,9 +2177,10 @@ def replay_probe(gen):
     shapes and a forced split, K7 at three of the safe twin's split
     shapes, K12a, K11 and K12b at one each, T11's four reads at its
     tool's first shape, T10 at its tool's three shapes in
-    both orientations (the partials of many CTAs added by the last) and T4
+    both orientations (the partials of many CTAs added by the last), T4
     at the slotted arm's two shapes in both softmax flavours, each twice
-    on the same inputs:
+    on the same inputs, and T7 and T9 at the attn_arms path's three head
+    dims (ragged), twice and once more replayed from a CUDA graph:
     outputs and statistics bit-identical (fixed reduction orders, no float
     atomics); K1/K5's and K14's statistics also those of their own
     outputs, K6's those of its fp32 output before the rounding
@@ -2139,6 +2215,23 @@ def replay_probe(gen):
                 raise AssertionError(f"probe: {SLOTTED_ARM} {key} differs "
                                      "on replay")
             log(f"probe: {SLOTTED_ARM} {key} bf16: bit-identical on replay")
+    for name in ("nomax_allheads", "pvt_attention"):
+        for D in (320, 640, 1280):
+            key = ((2, 1100, D), (2, 1100, D), 8)
+            kernel = kernel_case(name, key, torch.bfloat16, gen)[0]
+            first, again = kernel(), kernel()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = kernel()
+            graph.replay()
+            torch.cuda.synchronize()
+            if not (torch.equal(first, again)
+                    and torch.equal(first, captured)):
+                raise AssertionError(f"probe: {name} {key} differs on "
+                                     "replay")
+            del graph
+            log(f"probe: {name} {key} bf16: bit-identical on replay and "
+                "from a CUDA graph")
 
     for n, c, inner in ((768, 640, 2560), (192, 1280, 5120),
                         (48, 1280, 5120)):
@@ -2678,12 +2771,15 @@ def main() -> int:
         ("nomax_unpadded", ((2, 1100, 1280), (2, 1100, 1280), 8)),
         ("pvt_attention", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("pvt_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        ("pvt_attention", ((2, 1100, 640), (2, 900, 640), 8)),
         # the layout arms at each register tile and a ragged length; T4 at
         # 128 lanes with fp32 logits (the option the slotted_arm path does
         # not run), with P = hd (no pad lanes), at the 160-lane bucket in
         # both flavours (keys != queries) and at 64 lanes
         ("nomax_4d", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("nomax_allheads", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        ("nomax_allheads", ((2, 1100, 320), (2, 1000, 320), 8)),
+        ("nomax_allheads", ((2, 1100, 640), (2, 1100, 640), 4)),
         ("nomax_laneslice", ((2, 1100, 640), (2, 1100, 640), 8)),
         ("slotted_kernel_call", ((8, 1100, 128), (8, 1100, 128), 4, 40,
                                  False)),

@@ -15,10 +15,11 @@
 //       wrapper splits the heads into contiguous (B*h, L, hd) copies first
 //       and launches it with one head, as the TPU tool does.
 //   dtp_pvt_attention     T9 <- tools/bench_attn_round4.py pvt_attention /
-//       _pvt_kernel: T5's softmax, P V computed transposed as
-//       O^T = V^T P^T with P in fp32 (the TPU kernel promotes v to p's
-//       fp32): p is split into bf16 hi + lo, two MMAs into one fp32
-//       accumulator, so p holds ~2^-16 relative.
+//       _pvt_kernel: T5's softmax with P V taking the fp32 p (the TPU
+//       kernel promotes v to p's fp32), in fp32 only: with fp32 v that is
+//       T5's fp32 twin. bf16 T9 runs csrc/flash_attention_sm90.cu
+//       (dtp_pvt_attention_sm90: one pass of the wgmma/TMA kernel, p as
+//       bf16 hi + lo into two products); this entry refuses bf16.
 //
 // Every entry maps blocks head-major (kHeadMajor).
 #include "attn_arms.cuh"
@@ -73,16 +74,16 @@ extern "C" cudaError_t dtp_nomax_unpadded(const void* q, const void* k,
                                            static_cast<cudaStream_t>(stream));
 }
 
-// T9: T5's softmax, O^T = V^T P^T with P in fp32.
+// T9 in fp32 (is_bf16 must be 0): T5's softmax, P V with the fp32 p.
 extern "C" cudaError_t dtp_pvt_attention(const void* q, const void* k,
                                          const void* v, void* out, int B,
                                          int H, int Lq, int Lk, int hd,
                                          float scale_log2, float shift,
                                          int is_bf16, void* stream) {
-  if (dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
+  if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
   auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                          is_bf16);
+                          false);
   a.safe = true;
-  return dtp::dispatch<dtp::kPvt, 64>(a, is_bf16,
-                                      static_cast<cudaStream_t>(stream));
+  return dtp::dispatch_f32<dtp::kNomax, 64>(
+      a, static_cast<cudaStream_t>(stream));
 }

@@ -14,8 +14,6 @@
 //   kUnpadded kNomax with `safe` and fp32 p fixed at compile time; P V
 //             over n8 tiles of hd itself (hd 40 = 5 x 8) instead of hd
 //             padded to 16.
-//   kPvt      kUnpadded's softmax, P V computed transposed as
-//             O^T = V^T P^T with p split into bf16 hi + lo.
 //   kRowmax   the row-max softmax: two passes over K, the first for the
 //             exact row max m, the second for exp2(s - m) (of bf16-rounded
 //             s - m with `bf16_p`) and P V; the fp32 twin's only (T1 and
@@ -30,11 +28,8 @@
 //                share its q and output rows' cache lines and every head's
 //                K/V rows in L2.
 //   kAllHeads    one block per (batch, query tile), looping over the H
-//                heads inside: Q is staged one head at a time (a 64-row
-//                all-heads panel at D 1280 is 160 KB, beside two K/V stages
-//                it would not fit in 227 KB), O lives in registers for one
-//                head at a time, and each head's output columns are written
-//                before the next head starts. The grid is H times smaller.
+//                heads inside, one query row a thread: the fp32 twin's
+//                (T7 in fp32; bf16 T7 runs flash_attention_sm90.cu).
 //
 // bf16 kernel: a block is 4 warps, each warp 16 query rows. K/V tiles of BK
 // keys are staged in shared memory by cp.async, double-buffered (the next
@@ -42,14 +37,13 @@
 // m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix. The accumulator
 // layout of m16n8k16 (a thread holds S[g][2t..2t+1] and S[g+8][2t..2t+1],
 // g = lane/4, t = lane%4) is the A-operand layout of the next m16n8k16, so P
-// goes from S's registers into P V without a trip through shared memory;
-// for kPvt the same registers are P^T's B fragments. Row maxima and row
-// sums reduce over the 4 threads of a quad (shuffles 1, 2). kChunked starts
-// S_{j+1} = Q K_{j+1}^T before the softmax of S_j (K one tile ahead of V in
-// the copy pipeline, two S register tiles) where hd <= 80; at hd 160 the
-// second S tile would not fit beside O, so it runs serially. The output is
-// staged through the warp's own Q rows in shared memory and stored with
-// 16-byte writes.
+// goes from S's registers into P V without a trip through shared memory.
+// Row maxima and row sums reduce over the 4 threads of a quad (shuffles 1,
+// 2). kChunked starts S_{j+1} = Q K_{j+1}^T before the softmax of S_j (K
+// one tile ahead of V in the copy pipeline, two S register tiles) where
+// hd <= 80; at hd 160 the second S tile would not fit beside O, so it runs
+// serially. The output is staged through the warp's own Q rows in shared
+// memory and stored with 16-byte writes.
 //
 // fp32 inputs run an FMA twin, one thread per query row (speed not
 // measured: it exists for fp32 parity with the plain versions).
@@ -81,7 +75,6 @@ enum Arm : int {
   kNomax = 0,
   kChunked = 1,
   kUnpadded = 2,
-  kPvt = 3,
   kRowmax = 4
 };
 enum Map : int { kHeadMajor = 0, kHeadFastest = 1, kAllHeads = 2 };
@@ -381,7 +374,7 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
         O[n][2] *= corr[1], O[n][3] *= corr[1];
       }
     } else {
-      // no max pass: a static shift (T2's options; T5 and T9 safe, fp32 p)
+      // no max pass: a static shift (T2's options; T5 safe, fp32 p)
       const bool safe = ARM == kNomax ? a.safe : true;
       const bool bf16_p = ARM == kNomax && a.bf16_p;
       const float cap = a.shift + 88.0f;
@@ -402,58 +395,27 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
     // --- P V ---
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      if (ARM == kPvt) {
-        // O^T (hd x 16 per warp) += V^T P^T. A = V^T from ldmatrix.trans of
-        // the V tile; B = P^T, whose fragments for query columns 0-7 and
-        // 8-15 are S's C registers of rows g and g+8. p = hi + lo in bf16.
-        uint32_t bh[2][2], bl[2][2];
+      const uint32_t pa[4] = {pack_bf16(S[2 * kk][0], S[2 * kk][1]),
+                              pack_bf16(S[2 * kk][2], S[2 * kk][3]),
+                              pack_bf16(S[2 * kk + 1][0], S[2 * kk + 1][1]),
+                              pack_bf16(S[2 * kk + 1][2], S[2 * kk + 1][3])};
+      const bf16* vrow =
+          Vt + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const float p0 = S[2 * kk + half][2 * nt];
-            const float p1 = S[2 * kk + half][2 * nt + 1];
-            const float h0 = round_bf16(p0), h1 = round_bf16(p1);
-            bh[nt][half] = pack_bf16(h0, h1);
-            bl[nt][half] = pack_bf16(p0 - h0, p1 - h1);
-          }
-        const bf16* vrow =
-            Vt + (kk * 16 + (mat >> 1) * 8 + (lane & 7)) * LD + (mat & 1) * 8;
-#pragma unroll
-        for (int mt = 0; mt < NK; ++mt) {
-          if (mt < nk16) {
-            uint32_t va[4];
-            ldsm_x4_t(va[0], va[1], va[2], va[3], vrow + mt * 16);
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              mma(O[2 * mt + nt], va, bh[nt][0], bh[nt][1]);
-              mma(O[2 * mt + nt], va, bl[nt][0], bl[nt][1]);
-            }
-          }
-        }
-      } else {
-        const uint32_t pa[4] = {pack_bf16(S[2 * kk][0], S[2 * kk][1]),
-                                pack_bf16(S[2 * kk][2], S[2 * kk][3]),
-                                pack_bf16(S[2 * kk + 1][0], S[2 * kk + 1][1]),
-                                pack_bf16(S[2 * kk + 1][2], S[2 * kk + 1][3])};
-        const bf16* vrow =
-            Vt + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
-#pragma unroll
-        for (int np = 0; np < NO / 2; ++np) {
-          if (2 * np + 1 < no8) {
-            uint32_t b0, b1, b2, b3;
-            ldsm_x4_t(b0, b1, b2, b3, vrow + np * 16);
-            mma(O[2 * np], pa, b0, b1);
-            mma(O[2 * np + 1], pa, b2, b3);
-          } else if (2 * np < no8) {
-            // kUnpadded's odd last n8 tile (hd 40: columns 32-39); lanes
-            // 16-31 repeat lanes 0-15's addresses, which x2 ignores
-            uint32_t b0, b1;
-            ldsm_x2_t(b0, b1,
-                      Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                               LD + np * 16);
-            mma(O[2 * np], pa, b0, b1);
-          }
+      for (int np = 0; np < NO / 2; ++np) {
+        if (2 * np + 1 < no8) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4_t(b0, b1, b2, b3, vrow + np * 16);
+          mma(O[2 * np], pa, b0, b1);
+          mma(O[2 * np + 1], pa, b2, b3);
+        } else if (2 * np < no8) {
+          // kUnpadded's odd last n8 tile (hd 40: columns 32-39); lanes
+          // 16-31 repeat lanes 0-15's addresses, which x2 ignores
+          uint32_t b0, b1;
+          ldsm_x2_t(b0, b1,
+                    Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                             LD + np * 16);
+          mma(O[2 * np], pa, b0, b1);
         }
       }
     }
@@ -471,44 +433,20 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (ARM == kUnpadded || ARM == kPvt || (ARM == kNomax && a.safe))
+    if (ARM == kUnpadded || (ARM == kNomax && a.safe))
       l[i] += 1e-30f;
   }
   __syncwarp();
   bf16* stage = Qs + w16 * LD;
-  if (ARM == kPvt) {
-    // O^T's element e of tile (mt, nt) is query nt*8 + 2t + (e&1), column
-    // mt*16 + g + 8*(e>>1). Its row sum lives in the row layout (rows g,
-    // g+8 of the quad of lane 4*row), so it is fetched per query column:
-    // rows 2t and 2t+1 from lanes 8t and 8t+4, slot 0 for queries 0-7 and
-    // slot 1 for queries 8-15.
-    float lq[2][2];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      lq[nt][0] = __shfl_sync(0xffffffffu, l[nt], 8 * t);
-      lq[nt][1] = __shfl_sync(0xffffffffu, l[nt], 8 * t + 4);
+  for (int n = 0; n < NO; ++n)
+    if (n < no8) {
+      *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(O[n][0] / l[0], O[n][1] / l[0]);
+      *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + n * 8 +
+                                         2 * t) =
+          __floats2bfloat162_rn(O[n][2] / l[1], O[n][3] / l[1]);
     }
-#pragma unroll
-    for (int mt = 0; mt < NK; ++mt)
-      if (mt < nk16)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            stage[(nt * 8 + 2 * t + (e & 1)) * LD + mt * 16 + g +
-                  8 * (e >> 1)] =
-                __float2bfloat16(O[2 * mt + nt][e] / lq[nt][e & 1]);
-  } else {
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      if (n < no8) {
-        *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + n * 8 + 2 * t) =
-            __floats2bfloat162_rn(O[n][0] / l[0], O[n][1] / l[0]);
-        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + n * 8 +
-                                           2 * t) =
-            __floats2bfloat162_rn(O[n][2] / l[1], O[n][3] / l[1]);
-      }
-  }
   __syncwarp();
   store_warp_rows<LD>(ob, stage, D, q0 + w16, a, lane);
 }
@@ -540,15 +478,9 @@ arms_kernel(const ArmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   long long b, h;
   int q0;
+  static_assert(MAP != kAllHeads, "bf16 T7 runs flash_attention_sm90.cu");
   block_work<MAP>(a, kRows, &b, &h, &q0);
-  if (MAP == kAllHeads) {
-    for (int hh = 0; hh < a.H; ++hh) {
-      if (hh) __syncthreads();  // the last head's tiles and stage are free
-      arm_tile<HDP, BK, ARM, OVERLAP>(a, smem, b, hh, q0);
-    }
-  } else {
-    arm_tile<HDP, BK, ARM, OVERLAP>(a, smem, b, h, q0);
-  }
+  arm_tile<HDP, BK, ARM, OVERLAP>(a, smem, b, h, q0);
 }
 
 // fp32 twin of one query row of one (b, h): its pre-scaled q in the
@@ -693,19 +625,24 @@ cudaError_t launch_f32(ArmArgs a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// hd padded to one of the register tiles: 48 (hd 40), 80, 160.
+// hd padded to one of the register tiles: 48 (hd 40), 80, 160. The fp32
+// twin alone: its static-shift arms share one body.
+template <int ARM, int BK, int MAP = kHeadMajor>
+cudaError_t dispatch_f32(ArmArgs a, cudaStream_t s) {
+  constexpr int F = ARM == kChunked ? ARM : kNomax;
+  if (a.hd <= 48) return launch_f32<48, BK, F, MAP>(a, s);
+  if (a.hd <= 80) return launch_f32<80, BK, F, MAP>(a, s);
+  return launch_f32<160, BK, F, MAP>(a, s);
+}
+
 template <int ARM, int BK, int MAP = kHeadMajor>
 cudaError_t dispatch(ArmArgs a, bool is_bf16, cudaStream_t s) {
-  // the fp32 twin's static-shift arms share one body
-  constexpr int F = ARM == kChunked ? ARM : kNomax;
   if (is_bf16) {
     if (a.hd <= 48) return launch_bf16<48, BK, ARM, MAP>(a, s);
     if (a.hd <= 80) return launch_bf16<80, BK, ARM, MAP>(a, s);
     return launch_bf16<160, BK, ARM, MAP>(a, s);
   }
-  if (a.hd <= 48) return launch_f32<48, BK, F, MAP>(a, s);
-  if (a.hd <= 80) return launch_f32<80, BK, F, MAP>(a, s);
-  return launch_f32<160, BK, F, MAP>(a, s);
+  return dispatch_f32<ARM, BK, MAP>(a, s);
 }
 
 ArmArgs make_args(const void* q, const void* k, const void* v, void* out,

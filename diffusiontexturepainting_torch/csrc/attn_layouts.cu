@@ -12,10 +12,11 @@
 //       blocks share one head's K/V in L2.
 //   dtp_nomax_allheads   T7 <- nomax_allheads / _nomax_allheads_kernel
 //       (:343, pallas_call :379): one block per (b, q-block), every head of
-//       it in a loop inside (kAllHeads): Q staged one head at a time, O in
-//       registers for one head at a time, each head's columns of the
-//       (rows, h*hd) output panel written before the next head starts. The
-//       TPU's q_block (256/512) was a tile knob: the tile here is 64 rows.
+//       it in a loop inside (kAllHeads), in fp32 only (one query row a
+//       thread). bf16 T7 runs csrc/flash_attention_sm90.cu
+//       (dtp_nomax_allheads_sm90: the wgmma/TMA kernel's one-pass shifted
+//       softmax with the heads looped inside a CTA); this entry refuses
+//       bf16.
 //   dtp_nomax_laneslice  T8 <- nomax_laneslice / _nomax_laneslice_kernel
 //       (:396, pallas_call :426): blocks in (b, q-block, h) order, the head
 //       fastest (kHeadFastest); each block slices its head's hd lanes from
@@ -58,7 +59,7 @@ cudaError_t layout_arm(const void* q, const void* k, const void* v,
 }  // namespace dtp
 
 // T6, T7, T8: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd),
-// contiguous, bf16 (is_bf16) or fp32; hd <= 160; scale_log2 = scale *
+// contiguous, bf16 (is_bf16; T6 and T8) or fp32; hd <= 160; scale_log2 = scale *
 // log2(e), applied to q before Q K^T; shift the static shift (clamp at
 // shift + 88).
 extern "C" cudaError_t dtp_nomax_4d(const void* q, const void* k,
@@ -69,13 +70,18 @@ extern "C" cudaError_t dtp_nomax_4d(const void* q, const void* k,
                                           scale_log2, shift, is_bf16, stream);
 }
 
+// T7 in fp32: is_bf16 must be 0.
 extern "C" cudaError_t dtp_nomax_allheads(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int H, int Lq, int Lk, int hd,
                                           float scale_log2, float shift,
                                           int is_bf16, void* stream) {
-  return dtp::layout_arm<dtp::kAllHeads>(q, k, v, out, B, H, Lq, Lk, hd,
-                                         scale_log2, shift, is_bf16, stream);
+  if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
+  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
+                          false);
+  a.safe = true;
+  return dtp::dispatch_f32<dtp::kUnpadded, 64, dtp::kAllHeads>(
+      a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t dtp_nomax_laneslice(const void* q, const void* k,

@@ -41,16 +41,18 @@ T1's TPU wrapper pads Lq to its query block and returns the padded rows (it
 raises on the final reshape where Lq is off the block); here every query
 length is computed.
 
-The kernels live in csrc/attn_arms.cu (T2, T3, T5, T9),
-csrc/attn_layouts.cu (T6, T7, T8, and T4 in fp32), one register-resident
+The kernels live in csrc/attn_arms.cu (T2, T3, T5, and T9 in fp32),
+csrc/attn_layouts.cu (T6, T8, and T4 and T7 in fp32), one register-resident
 body (csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1, and
 T10 in fp32, over the same header's primitives). bf16 T4 runs K13's
 two-pass wgmma/TMA kernel (csrc/flash_attention_sm90.cu
-dtp_slotted_attention_sm90) and bf16 T10 a split wgmma/TMA GEMM whose
-operands stay in shared memory (csrc/pv_product_sm90.cu); both raise
-ValueError on operands TMA cannot describe. A wrapper takes its plain
-version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. `ops.attention.attention` and the served paths never
+dtp_slotted_attention_sm90), bf16 T7 and T9 that kernel's one-pass
+shifted softmax (dtp_nomax_allheads_sm90: every head of a query tile in one
+CTA; dtp_pvt_attention_sm90: p as bf16 hi + lo into two products), and
+bf16 T10 a split wgmma/TMA GEMM whose operands stay in shared memory
+(csrc/pv_product_sm90.cu); each raises ValueError on operands TMA cannot
+describe. A wrapper takes its plain version only for a tensor on the CPU;
+for a CUDA tensor it launches the kernel or raises. `ops.attention.attention` and the served paths never
 call these.
 """
 
@@ -65,11 +67,14 @@ from .attention import (
     _LOG2E,
     SM90_SOURCE,
     SM_COUNT,
+    SMEM_LIMIT,
     _check_qkv,
+    _check_tma,
     _merge_heads,
     _prescaled,
     _softmax_pv,
     _split_heads,
+    sm90_plan,
 )
 
 MAX_HEAD_DIM = 160  # the kernel's 16 x hd fp32 accumulator per warp
@@ -106,6 +111,14 @@ _SLOTTED_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
 _PV_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
                      + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
 PV_SM90_SOURCE = "pv_product_sm90"
+# bf16 T7 and T9 (the wgmma/TMA kernel's one-pass shifted softmax): q, k,
+# v, out, B, H, Lq, Lk, hd, scale*log2(e) and the shift; T7 then its forced
+# consumer warpgroups (0: the plan's, -1: T9's head-major grid); the stream
+_SHIFT_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                        + (ctypes.c_float,) * 2)
+_PVT_SM90_ARGTYPES = _SHIFT_SM90_ARGTYPES + (ctypes.c_void_p,)
+_ALLHEADS_SM90_ARGTYPES = _SHIFT_SM90_ARGTYPES + (ctypes.c_int,
+                                                  ctypes.c_void_p)
 # bf16 T10's key chunks (TMA's box rows are at most 256) and query tile
 PV_CHUNKS = (64, 128, 256)
 PV_ROWS = 64
@@ -353,6 +366,38 @@ def plain_pv_product(e, v, *, transposed: bool = False, iters: int = 1):
     return acc.to(e.dtype).contiguous()
 
 
+def allheads_sm90_plan(hd: int, lq: int, batch: int,
+                       consumers: int | None = None) -> dict:
+    """bf16 T7's launch (mirrors csrc/flash_attention_sm90.cu
+    allheads_bucket, allheads_consumers and dtp_nomax_allheads_sm90_plan):
+    K2's long-sequence bucket for hd (`kd`, `nv`, `bkv`: 48, 80, 128 or
+    160), `consumers` warpgroups of 64 query rows a CTA on the all-heads
+    grid of `ctas` = batch * ceil(lq / (64 consumers)) CTAs, each looping
+    over every head (None: the fewest waves of CTAs over the SMs, ties to
+    fewer warpgroups; 1..3 at hd <= 48, 1..2 above), and the dynamic
+    shared memory: K2's (sm90_plan) with two Q buffers of `consumers`
+    warpgroups and their three more mbarriers."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"nomax_allheads: hd {hd} not in 1..{MAX_HEAD_DIM}")
+    most = 3 if hd <= 48 else 2
+
+    def ctas(nc):
+        return -(-lq // (64 * nc)) * batch
+    if consumers is None:
+        consumers = min(range(1, most + 1),
+                        key=lambda nc: (-(-ctas(nc) // SM_COUNT), nc))
+    elif not 1 <= consumers <= most:
+        raise ValueError(f"nomax_allheads: consumers {consumers} not in "
+                         f"1..{most} at hd {hd}")
+    k2 = sm90_plan(hd)
+    # K2's shared memory with its Q rows replaced by two buffers of
+    # `consumers` warpgroups, plus their three barriers
+    q_rows = 64 * 128 * -(-k2["kd"] // 64)
+    smem = k2["smem"] + (2 * consumers - k2["consumers"]) * q_rows + 8 * 3
+    return dict(kd=k2["kd"], nv=k2["nv"], bkv=k2["bkv"], consumers=consumers,
+                ctas=ctas(consumers), smem=smem)
+
+
 def split_heads(x, num_heads: int):
     """(B, L, h*hd) -> contiguous (B*h, L, hd): one copy pass (the TPU
     tools' split transpose)."""
@@ -463,11 +508,39 @@ def nomax_unpadded(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
     return merge_heads(out, q.shape[0])
 
 
+def _shift_sm90(name, counter, q, k, v, num_heads, shift, *options):
+    """bf16 T7 or T9 on the wgmma/TMA kernel (csrc/flash_attention_sm90.cu
+    dtp_<name>_sm90), reading (B, L, h*hd) in place: the one-pass shifted
+    softmax, `options` T7's forced consumers."""
+    _check(name, q, k, v, num_heads)
+    B, Lq, D = q.shape
+    hd = D // num_heads
+    _check_tma(name, hd, q, k, v)
+    symbol = f"dtp_{name}_sm90"
+    out = torch.empty_like(q)
+    fn = _cuda.function(SM90_SOURCE, symbol, _ALLHEADS_SM90_ARGTYPES
+                        if options else _PVT_SM90_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              num_heads, Lq, k.shape[1], hd, float(hd**-0.5 * _LOG2E),
+              float(shift), *options, _cuda.stream_of(q))
+    _cuda.check(SM90_SOURCE, symbol, code)
+    counter.record(_shape_key(q, k, num_heads))
+    return out
+
+
 def pvt_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
-    """T9: T5's softmax with P V transposed and P in fp32; kernel on CUDA,
+    """T9: T5's softmax with P in fp32 into P V. Kernel on CUDA: bf16 one
+    pass of the wgmma/TMA kernel, p as bf16 hi + lo into two products, the
+    head-major grid and K2's bucket for hd (csrc/flash_attention_sm90.cu
+    dtp_pvt_attention_sm90, its bucket ops.attention.sm90_plan(hd, Lq,
+    B*h)'s; hd a multiple of 8 and 16-byte-aligned bases, else ValueError),
+    fp32 the FMA twin (csrc/attn_arms.cu).
     plain_pvt_attention on CPU."""
     if q.device.type == "cpu":
         return plain_pvt_attention(q, k, v, num_heads, shift=shift)
+    if q.dtype == torch.bfloat16:
+        return _shift_sm90("pvt_attention", pvt_launches, q, k, v,
+                           num_heads, shift)
     return _shift_arm("pvt_attention", "attn_arms", pvt_launches, q, k, v,
                       num_heads, shift)
 
@@ -483,12 +556,32 @@ def nomax_4d(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
 
 
 def nomax_allheads(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
-    """T7: T5's function with every head of a query tile in one block;
-    kernel on CUDA, plain_nomax_allheads on CPU."""
+    """T7: T5's function with every head of a query tile in one block.
+    Kernel on CUDA: bf16 one pass of the wgmma/TMA kernel with the heads
+    looped inside a CTA (csrc/flash_attention_sm90.cu
+    dtp_nomax_allheads_sm90, plan allheads_sm90_plan; hd a multiple of 8
+    and 16-byte-aligned bases, else ValueError), fp32 the FMA twin
+    (csrc/attn_layouts.cu). plain_nomax_allheads on CPU."""
     if q.device.type == "cpu":
         return plain_nomax_allheads(q, k, v, num_heads, shift=shift)
-    return _shift_arm("nomax_allheads", "attn_layouts",
-                      nomax_allheads_launches, q, k, v, num_heads, shift)
+    return _nomax_allheads(q, k, v, num_heads, shift)
+
+
+def _nomax_allheads(q, k, v, num_heads, shift=DEFAULT_SHIFT,
+                    consumers=None, head_major=False):
+    """nomax_allheads on CUDA; `consumers` forces bf16's consumer
+    warpgroups (probes: allheads_sm90_plan); `head_major` runs bf16 T7 on
+    T9's head-major grid and bucket instead (probes: the grid's share of
+    T7 and T9's difference, apart from the second product's)."""
+    if q.dtype != torch.bfloat16:
+        return _shift_arm("nomax_allheads", "attn_layouts",
+                          nomax_allheads_launches, q, k, v, num_heads, shift)
+    hd = q.shape[-1] // num_heads
+    if consumers is not None and hd <= MAX_HEAD_DIM:
+        allheads_sm90_plan(hd, q.shape[1], q.shape[0], consumers)
+    return _shift_sm90("nomax_allheads", nomax_allheads_launches, q, k, v,
+                       num_heads, shift,
+                       -1 if head_major else consumers or 0)
 
 
 def nomax_laneslice(q, k, v, num_heads: int, *,

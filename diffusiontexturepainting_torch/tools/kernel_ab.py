@@ -1,6 +1,7 @@
 """Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a,
-K11 and K12b wrappers at their served shapes, and of the T4, T10 and T11
-arms at their paths' shapes, for comparing two checkouts on one card.
+K11, K12b, K8 and K2 wrappers at their served shapes, and of the T4, T10,
+T11, T7 and T9 arms at their paths' shapes, for comparing two checkouts on
+one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
     PYTHONPATH=<another checkout> python \\
@@ -20,7 +21,11 @@ twin_inpad path runs it) at the same shapes, ops.conv3x3.conv3x3_stream
 ops.conv3x3.upsample2x_conv3x3 at the safe twin's 256^2 K4 shapes
 (TWIN_K4) with _IN_PAD off (K4) and set (K12b, as the twin_inpad path
 runs it), F.conv_transpose2d on the assembled 4x4 weight beside,
-ops.attention_variants.slotted_kernel_call (T4) at the
+ops.attention.flash_attention_streaming (K8) and flash_attention (K2) at
+the 1024^2/4 stamp's three UNet self-attention shapes (ATTN: K8 at level
+0, K2 at levels 1 and 2, each 20 calls a stamp),
+ops.attention.flash_attention_slotted (K13) at the slotted 512^2/4 stamp's
+two K13 shapes, ops.attention_variants.slotted_kernel_call (T4) at the
 slotted 512^2/4 stamp's two K13 shapes as (B*h, L, 128) slots (hd 40 and
 80 real lanes) in both softmax flavours, and
 ops.attention_variants.pv_product (T10) at the TPU tool's three shapes, bh
@@ -29,12 +34,16 @@ ops.conv_variants.conv_window_taps (T11), each of its four reads, at the
 conv_arms path's windows (TAPS_ARMS: the default 256^2/20 stamp's K5
 images with a prologue cut into windows of 8 rows, reps 1) and at the TPU
 tool's three shapes (TAPS_TOOL: one window, reps 24), F.conv2d (VALID,
-channels-last) on the same windows beside `shifted`. Seeded normal bf16
-inputs (T10, T11: the tools' uniform ones). Each row: ms a call (CUDA
+channels-last) on the same windows beside `shifted`, and last, the kernels
+this tree may differ in, ops.attention_variants.nomax_allheads (T7) and
+pvt_attention (T9) at ATTN (the attn_arms path's shapes and calls), SDPA
+beside. Seeded normal bf16 inputs (T10, T11: the tools' uniform ones). Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
-included) and device_ms (the same calls replayed from a CUDA graph); the
+included), device_ms (the same calls replayed from a CUDA graph) and a
+digest of the output's bits (two checkouts' rows compare bit for bit); the
 K12b and T11 rows also their launches a stamp (`count`), and the run
-ends with each read's T11 sums over a conv_arms stamp. Without a card it
+ends with each read's T11 sums over a conv_arms stamp and the attention
+rows' sums over the attn_arms path. Without a card it
 exits nonzero. Prints one line per row, then one JSON line naming the
 package's path.
 """
@@ -42,6 +51,7 @@ package's path.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -57,6 +67,7 @@ import diffusiontexturepainting_torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from diffusiontexturepainting_torch.ops import (  # noqa: E402
+    attention,
     attention_variants,
     conv3x3,
     conv_variants,
@@ -124,6 +135,12 @@ TAPS_TOOL = [(1, 16, 128, 512, 128, 24), (1, 8, 256, 256, 256, 24),
 TAP_READS = ("shifted", "unshifted", "rowflat", "jointw")
 # (B*h, L, real lanes): T4 at the slotted 512^2/4 stamp's K13 shapes
 SLOTTED = [(24, 4096, 40), (24, 1024, 80)]
+# (B, L, D, heads, kernel, tag): the 1024^2/4 stamp's UNet self-attentions,
+# each 20 calls a stamp, with the route attention() takes there
+ATTN = [(3, 16384, 320, 8, "K8", "1024^2 L0"),
+        (3, 4096, 640, 8, "K2", "1024^2 L1"),
+        (3, 1024, 1280, 8, "K2", "1024^2 L2")]
+ATTN_CALLS = 20
 # (bq, Lk, hd): T10 at the TPU tool's shapes, bh 1, PV_ITERS passes
 PV = [(512, 4096, 40), (512, 1024, 80), (256, 256, 160)]
 PV_ITERS = 64
@@ -136,6 +153,7 @@ def _rows(gen):
 
     def row(kernel, tag, shape, call, count=None):
         rows.append({"kernel": kernel, "tag": tag, "shape": shape,
+                     "digest": digest(call()),
                      "ms": _common.event_ms(call),
                      "device_ms": _common.graph_ms(call),
                      **({} if count is None else {"count": count})})
@@ -224,11 +242,24 @@ def _rows(gen):
         row("F.conv2d", f"{where} shifted {nwin}x{h_t}x{W}",
             [nwin, h_t + 2, wp, cin, n, W, 1, "shifted"],
             lambda: F.conv2d(xc, wc), count)
+    attn = [(B, L, D, heads, name, tag,
+             *(rnd(B, L, D) for _ in range(3)))
+            for B, L, D, heads, name, tag in ATTN]
+    for B, L, D, heads, name, tag, q, k, v in attn:
+        fn = (attention.flash_attention_streaming if name == "K8"
+              else attention.flash_attention)
+        row(name, tag, [B, L, D, heads], lambda: fn(q, k, v, heads),
+            ATTN_CALLS)
     for BH, L, hd in SLOTTED:
         q, k, v = (torch.zeros((BH, L, 128), device="cuda").bfloat16()
                    for _ in range(3))
         for t in (q, k, v):
             t[..., :hd] = rnd(BH, L, hd)
+        # K13 on the same slots in the (B, L, h*128) layout, 8 heads
+        qm, km, vm = (attention_variants.merge_heads(t, BH // 8)
+                      for t in (q, k, v))
+        row("K13", f"slotted {L} hd {hd}", [BH // 8, L, 8 * 128, hd],
+            lambda: attention.flash_attention_slotted(qm, km, vm, 8, hd))
         for exp2_bf16 in (True, False):
             row("T4", f"slotted {L} hd {hd}" + ("" if exp2_bf16 else " f32p"),
                 [BH, L, 128, hd, exp2_bf16],
@@ -243,14 +274,33 @@ def _rows(gen):
                 [1, bq, lk, hd, transposed, PV_ITERS],
                 lambda: attention_variants.pv_product(
                     e, v, transposed=transposed, iters=PV_ITERS))
+    for name, arm in (("T7", attention_variants.nomax_allheads),
+                      ("T9", attention_variants.pvt_attention)):
+        for B, L, D, heads, _, tag, q, k, v in attn:
+            row(name, tag, [B, L, D, heads], lambda: arm(q, k, v, heads),
+                ATTN_CALLS)
+    for B, L, D, heads, _, tag, q, k, v in attn:
+        qh, kh, vh = (t.view(B, L, heads, D // heads).transpose(1, 2)
+                      for t in (q, k, v))
+        row("SDPA", tag, [B, L, D, heads],
+            lambda: F.scaled_dot_product_attention(qh, kh, vh), ATTN_CALLS)
     return rows
+
+
+def digest(out) -> str:
+    """A hash of the bits of a call's output (every tensor of a tuple)."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        if t is not None:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def stamp_sums(rows):
     """{name: (ms, device_ms)}: count-weighted sums of the rows that carry
     launches a stamp: K4, K12b and F.conv_transpose2d over the twin's K4
-    shapes; each T11 read and F.conv2d over the conv_arms path's
-    windows."""
+    shapes; each T11 read and F.conv2d over the conv_arms path's windows;
+    K8, K2, T7, T9 and SDPA over the attn_arms path."""
     sums = {}
     for r in rows:
         if "count" not in r or r["tag"].startswith("tool"):
@@ -282,7 +332,7 @@ def main(argv=None) -> int:
         rows = _rows(torch.Generator(device="cuda").manual_seed(0))
     for r in rows:
         print(f"{r['kernel']} {r['tag']:28s} {r['ms']:.4f} ms, device "
-              f"{r['device_ms']:.4f} ms", flush=True)
+              f"{r['device_ms']:.4f} ms, bits {r['digest']}", flush=True)
     stamp = stamp_sums(rows)
     for name, (ms, device_ms) in stamp.items():
         print(f"{name}: {ms:.4f} ms a stamp, device {device_ms:.4f} ms",

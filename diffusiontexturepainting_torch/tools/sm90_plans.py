@@ -1,11 +1,12 @@
-"""A/B of the tile plans of the bf16 K2, K9, K1/K5, K3, K4, K6, K7 and T11
-kernels (K7's also served as K12a and K11), and of K14's.
+"""A/B of the tile plans of the bf16 K2, K9, K1/K5, K3, K4, K6, K7, T11 and
+T7 kernels (K7's also served as K12a and K11), and of K14's.
 
     python -m diffusiontexturepainting_torch.tools.sm90_plans
     python -m diffusiontexturepainting_torch.tools.sm90_plans --rows ff,upconv
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
         --rows upstats,same,inpad,stream
     python -m diffusiontexturepainting_torch.tools.sm90_plans --rows taps
+    python -m diffusiontexturepainting_torch.tools.sm90_plans --rows arms
     python -m diffusiontexturepainting_torch.tools.sm90_plans \\
         --device cpu --shapes tiny
 
@@ -52,7 +53,15 @@ conv_arms path's windows (kernel_ab.TAPS_ARMS, reps 1) and the TPU tool's
 three shapes (kernel_ab.TAPS_TOOL, one window, reps 24), each read under
 its plan, and `shifted` under every forced tile (64 or 128 flat rows: one
 or two consumer warpgroups) by every split of K, F.conv2d (VALID,
-channels-last) on the same windows beside.
+channels-last) on the same windows beside; with --rows arms: T7 (ops/
+attention_variants.py _nomax_allheads, the all-heads mode of
+csrc/flash_attention_sm90.cu) at the attn_arms path's three shapes (the
+1024^2/4 stamp's UNet self-attentions) under its plan and every consumer
+warpgroup count the kernel offers at that hd, T9 (pvt_attention, the
+head-major one-pass mode with p as hi + lo) under its plan, T7 on T9's
+head-major grid and bucket (`T7 head-major`: T9 less its second product;
+with T7's plan rows it parts T7 and T9's difference into the grid's share
+and the split's), SDPA beside.
 Seeded normal inputs, bf16. Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph: the
@@ -69,7 +78,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops import attention, conv3x3, conv_variants, ff_geglu, gn_conv
+from ..ops import attention, attention_variants, conv3x3, conv_variants
+from ..ops import ff_geglu, gn_conv
 from ..ops import groupnorm
 from . import _common, kernel_ab
 
@@ -126,7 +136,10 @@ SHAPE_SETS = {
         # stamp, K11 at those of its shapes that pass streaming_plan's test
         "same": None, "inpad": None, "stream": None,
         # (nwin, H_T, W, Cin, N, reps, tag): T11
-        "taps": None},
+        "taps": None,
+        # (B, L, D, heads, tag): T7 and T9 on the attn_arms path
+        "arms": [(B, L, D, heads, tag) for B, L, D, heads, _, tag
+                 in kernel_ab.ATTN]},
     "tiny": {
         "attention": [(1, 100, 80, 2, "tiny hd 40"),
                       (1, 70, 512, 1, "tiny hd 512")],
@@ -140,7 +153,8 @@ SHAPE_SETS = {
         "inpad": [(3, 4, 4, 24, 16, "tiny 4x4"), (1, 9, 10, 16, 8, "tiny")],
         "stream": [(1, 9, 10, 16, 128, "tiny")],
         "taps": [(2, 4, 10, 16, 8, 3, "tiny"),
-                 (1, 3, 7, 8, 24, 1, "tiny ragged")]},
+                 (1, 3, 7, 8, 24, 1, "tiny ragged")],
+        "arms": [(1, 100, 80, 2, "tiny hd 40"), (2, 70, 160, 1, "tiny hd 160")]},
 }
 SHAPE_SETS["stamp"].update(
     same=kernel_ab.TWIN_K7, inpad=kernel_ab.TWIN_K7,
@@ -565,6 +579,56 @@ def _taps_rows(shapes, gen, device, timed):
     return rows
 
 
+def _arms_rows(shapes, gen, device, timed):
+    rows = []
+    av = attention_variants
+    for B, L, D, heads, tag in shapes:
+        hd = D // heads
+        q, k, v = (torch.randn((B, L, D), generator=gen, device=device)
+                   .bfloat16() for _ in range(3))
+        want = av.plain_nomax_allheads(q, k, v, heads)
+        chosen = av.allheads_sm90_plan(hd, L, B)
+        # the plan, then on the card every consumer count
+        arms = [None] + (list(range(1, 4 if hd <= 48 else 3)) if timed
+                         else [])
+        for nc in arms:
+            p = av.allheads_sm90_plan(hd, L, B, nc)
+            if device == "cpu":  # the wrapper's CPU route: plain
+                call = (lambda: av.nomax_allheads(q, k, v, heads))
+            else:
+                call = (lambda nc=nc: av._nomax_allheads(
+                    q, k, v, heads, consumers=nc))
+            rows.append({"kernel": "T7", "tag": tag,
+                         "shape": [B, L, D, heads],
+                         "consumers": p["consumers"], "ctas": p["ctas"],
+                         "plan": nc is None,
+                         "max_diff": _common.max_diff(call(), want),
+                         **(_times(call) if timed
+                            else {"ms": None, "device_ms": None})})
+        p = attention.sm90_plan(hd, L, B * heads)
+        head_major = [("T9", lambda: av.pvt_attention(q, k, v, heads),
+                       av.plain_pvt_attention(q, k, v, heads))]
+        if timed:
+            head_major.append(("T7 head-major", lambda: av._nomax_allheads(
+                q, k, v, heads, head_major=True), want))
+        for kernel, call, plain in head_major:
+            rows.append({"kernel": kernel, "tag": tag,
+                         "shape": [B, L, D, heads],
+                         "consumers": p["consumers"],
+                         "ctas": -(-L // (64 * p["consumers"])) * B * heads,
+                         "plan": kernel == "T9",
+                         "max_diff": _common.max_diff(call(), plain),
+                         **(_times(call) if timed
+                            else {"ms": None, "device_ms": None})})
+        if timed:
+            qh, kh, vh = (attention._split_heads(t, heads) for t in (q, k, v))
+            rows.append({"kernel": "SDPA", "tag": tag,
+                         "shape": [B, L, D, heads],
+                         **_times(lambda: F.scaled_dot_product_attention(
+                             qh, kh, vh))})
+    return rows
+
+
 def main(argv=None) -> int:
     args = _common.parse_args(
         __doc__, SHAPE_SETS, "stamp", argv,
@@ -582,7 +646,7 @@ def main(argv=None) -> int:
               "upstats": _upstats_rows, "same": _same_rows,
               "inpad": _served_same_rows("K12a", conv3x3.conv3x3_inpad),
               "stream": _served_same_rows("K11", conv3x3.conv3x3_stream),
-              "taps": _taps_rows}
+              "taps": _taps_rows, "arms": _arms_rows}
     rows = []
     with torch.inference_mode():
         for name in args.rows.split(","):
