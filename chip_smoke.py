@@ -88,20 +88,23 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   9a. attn_arms
                eight arms of the attention kernels through the A/B entry
                point's functions (diffusiontexturepainting_torch.tools.
-               attn_variants): the softmax arms T2 no-max, T3 chunked and
-               T5 unpadded no-max (heads split by one copy pass)
-               (csrc/attn_arms.cu) and T9 (P V with the fp32 p; bf16 on
-               the one-pass mode of csrc/flash_attention_sm90.cu, p as
-               bf16 hi + lo), the head-layout arms T6 (heads read in place,
-               head-major blocks) and T8 (head fastest)
-               (csrc/attn_layouts.cu) and T7 (all heads in one block; bf16
-               on the one-pass all-heads mode of
-               csrc/flash_attention_sm90.cu), and T1 (both products
-               transposed, the exact row-max softmax;
-               csrc/attn_transposed.cu), at
-               the 1024^2 / 4 stamp's three UNet self-attention shapes, each
-               launched as often as that stamp launches K8/K2 there (20 a
-               shape), each output against the attention() route's; the
+               attn_variants): the softmax arms T2 no-max and T5 unpadded
+               no-max (heads split by one copy pass) (csrc/attn_arms.cu),
+               T3 chunked at 64-key chunks (bf16 on the chunked mode of
+               csrc/flash_attention_sm90.cu: the max per 64-column half of
+               a 128-key tile, K2's own launch at hd 160) and T9 (P V with
+               the fp32 p; bf16 on the one-pass mode of
+               csrc/flash_attention_sm90.cu, p as bf16 hi + lo), the
+               head-layout arms T6 (heads read in place, head-major blocks)
+               and T8 (head fastest) (csrc/attn_layouts.cu) and T7 (all
+               heads in one block; bf16 on the one-pass all-heads mode of
+               csrc/flash_attention_sm90.cu), and T1 (the exact row-max
+               softmax; bf16 on the chunked mode in one chunk of every
+               key), at the 1024^2 / 4 stamp's three UNet self-attention
+               shapes, each launched as often as that stamp launches K8/K2
+               there (20 a shape), each output against the attention()
+               route's, and T3 at the route's K/V tile equal to it bit for
+               bit; the
                clamp probe (raw logits above 83: the clamped arms equal
                their plain versions and differ from the exact softmax of K8,
                which rounds q as the arms do; T3 and T1 equal it) and the
@@ -109,7 +112,12 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                arms, no NaN); the P precision probe (T9's and T7's path
                outputs at the hd-160 shape against float64 evaluations with
                p unrounded and with bf16(p), rounded to bf16: T9 nearer the
-               first, T7 the second, each by P_PRECISION_MARGIN);
+               first, T7 the second, each by P_PRECISION_MARGIN; at the hd-80
+               shape, T3 at chunk 1024 with each p, the path's T3 (chunk
+               64) and T1 against float64 evaluations of the running-max
+               softmax under each chunk and p: each output nearer its own
+               than the neighbours a kernel that mistook its chunk or its
+               p would compute, by the same margin);
   9b. slotted_arm
                the slotted-input arm T4 (slotted_kernel_call: the row-max
                softmax with exp2 of bf16 logits over (B*h, L, 128) head
@@ -234,7 +242,8 @@ SOURCES = {
     "conv3x3_stream": "csrc/gn_conv_sm90.cu",
     "gn_silu_conv3x3": "csrc/conv_staged.cu",
     "nomax_attention": "csrc/attn_arms.cu",
-    "chunked_attention": "csrc/attn_arms.cu",
+    # bf16; fp32 runs attn_arms.cu
+    "chunked_attention": "csrc/flash_attention_sm90.cu",
     "nomax_unpadded": "csrc/attn_arms.cu",
     # bf16; fp32 runs attn_arms.cu
     "pvt_attention": "csrc/flash_attention_sm90.cu",
@@ -244,7 +253,8 @@ SOURCES = {
     "nomax_laneslice": "csrc/attn_layouts.cu",
     # bf16; fp32 runs attn_layouts.cu
     "slotted_kernel_call": "csrc/flash_attention_sm90.cu",
-    "sublane_attention": "csrc/attn_transposed.cu",
+    # bf16; fp32 runs attn_transposed.cu
+    "sublane_attention": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_transposed.cu
     "pv_product": "csrc/pv_product_sm90.cu",
     # bf16; fp32 runs conv_arms.cu
@@ -259,10 +269,13 @@ ARMS = ("nomax_attention", "chunked_attention", "nomax_unpadded",
 SLOTTED_ARM = "slotted_kernel_call"
 # the exact row-max arms: no clamp, no static shift
 EXACT_ARMS = ("chunked_attention", "sublane_attention")
-# T9 (p unrounded into P V) and T7 (bf16(p)): each output's mean distance
-# to its own function's float64 evaluation times this is at most its
-# distance to the other's (the emulations read about 400 apart)
+# T9 (p unrounded into P V) and T7 (bf16(p)), and T3 and T1 (the chunk of
+# the running max, p's precision): each output's mean distance to its own
+# function's float64 evaluation times this is at most its distance to each
+# neighbour's (the emulations read about 400 apart for T9 and T7)
 P_PRECISION_MARGIN = 16.0
+# T3's chunk in the chunk probe: the TPU tool's default
+CHUNK_PROBE_BK = 1024
 # T10 on the pv_product path; T11 and T12 on the conv_arms path
 PV, TAPS, PIPE = "pv_product", "conv_window_taps", "pipelined"
 # T10's passes a call in this script (the tool's minimum; its own counts,
@@ -425,11 +438,13 @@ DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
                 "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3",
                 "conv3x3_inpad", "conv3x3_stream",
                 "upsample2x_conv3x3_inpad", SLOTTED_ARM, PV, TAPS,
-                "nomax_allheads", "pvt_attention")
+                "nomax_allheads", "pvt_attention", "sublane_attention",
+                "chunked_attention")
 # Kernels whose family member (FAMILY_IS) runs the same launch in bf16:
-# their outputs must equal its bit for bit.
+# their outputs must equal its bit for bit (T3 where its chunk is the K/V
+# tile of the bucket, with fp32 p: K8/K2's launch; family_exact).
 FAMILY_EXACT = ("conv3x3_inpad", "conv3x3_stream",
-                "upsample2x_conv3x3_inpad")
+                "upsample2x_conv3x3_inpad", "chunked_attention")
 # the sources whose ptxas report must show no spill
 NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
             "ff_geglu_sm90", "pv_product_sm90", "window_taps_sm90")
@@ -497,6 +512,21 @@ def stats_self_err(y, stats):
     want = torch.stack([yf.sum(dims), yf.square().sum(dims)], dim=1)
     scale = torch.stack([yf.abs().sum(dims), yf.square().sum(dims)], dim=1)
     return ((stats - want).abs() / scale.clamp_min(1e-30)).max().item()
+
+
+def family_exact(kind, shape_key):
+    """Whether a FAMILY_EXACT kernel runs its family member's launch at
+    `shape_key`: always, but for T3, which does where its chunk is a one-tile
+    chunk with fp32 p (chunked_sm90_plan's `online`)."""
+    if kind not in FAMILY_EXACT:
+        return False
+    if kind != "chunked_attention":
+        return True
+    from diffusiontexturepainting_torch.ops import attention_variants
+
+    (B, Lq, D), (_, Lk, _), heads, bk, bf16_p = shape_key
+    return attention_variants.chunked_sm90_plan(
+        D // heads, Lq, B * heads, Lk, bk, bf16_p)["online"]
 
 
 def kernel_case(kind, shape_key, dtype, gen):
@@ -644,10 +674,16 @@ def _kernel_case(kind, shape_key, dtype, gen):
                    if kind == "nomax_attention"
                    else dict(bk=opts[0], bf16_p=opts[1]))
         wrapper, plain = attention_variants.ARMS[kind]
+        # the family: K8 or K2 (one launch, the same bits) as attention()
+        # routes the call, K2 where it routes it to the plain matmuls
+        route = attention.attention_route(q_shape[1], k_shape[1],
+                                          q_shape[2] // heads, dtype)
+        base = (attention.flash_attention_streaming if route == "streaming"
+                else attention.flash_attention)
         return (lambda: wrapper(q, k, v, heads, **options),
                 lambda: plain(q, k, v, heads, **options),
                 sdpa(q, k, v, heads),
-                lambda: attention.attention(q, k, v, heads))
+                lambda: base(q, k, v, heads))
     if kind == "flash_attention_slotted":
         (B, L, D), heads, hd = shape_key
         # one fused projection's output, zero pad lanes, split into views
@@ -923,7 +959,7 @@ def compare(kind, shape_key, dtype, gen, timed=False):
                              f"{tol:.3e}")
     out = {"max_abs_err": err, "tol": tol, "peak": peak,
            "err_over_tol": err / tol}
-    if kind in FAMILY_EXACT and dtype == torch.bfloat16:
+    if family_exact(kind, shape_key) and dtype == torch.bfloat16:
         d = (got.float() - family().float()).abs().max().item()
         if d != 0.0:
             raise AssertionError(f"{name}: differs from its family member "
@@ -1577,6 +1613,75 @@ def p_precision(got, q, k, v, heads, shift=32.0):
     return dist[0] / got.numel(), dist[1] / got.numel()
 
 
+def chunk_precision(outs, q, k, v, heads, evals):
+    """mean |got - bf16(o)| over got's elements, for each got of `outs`
+    and each float64 evaluation o of `evals`, on the bf16 inputs (q
+    pre-scaled and rounded as the kernels do), a head at a time. An
+    evaluation (width, bf16_p) is the running-max softmax with m (from
+    -1e30) updated once per `width` keys (None: every key at once, the
+    exact row max): p = exp2(s - m), or bf16(exp2(bf16(s - m))) with
+    bf16_p; l the sum of those p and O the sum of bf16(p) v, both rescaled
+    by exp2(m - m_new) at each update; o = O / l. T3 at chunk bk is (bk,
+    bf16_p), the halves (64, bf16_p), T1 (None, False), K13's pass (None,
+    True). Returns dist[output][evaluation]."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    bf16, f64 = torch.bfloat16, torch.float64
+    qs, kh, vh = av._heads(q, k, v, heads)
+    hd, lk = qs.shape[-1], kh.shape[2]
+    dist = [[0.0] * len(evals) for _ in outs]
+    for h in range(heads):
+        s = qs[:, h].double() @ kh[:, h].double().transpose(-1, -2)
+        vd = vh[:, h].double()
+        for e, (width, bf16_p) in enumerate(evals):
+            w = width or lk
+            m = torch.full(s.shape[:-1] + (1,), -1e30, dtype=f64,
+                           device=s.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(s.shape[:-1] + (hd,), dtype=f64,
+                              device=s.device)
+            for j in range(0, lk, w):
+                sj = s[..., j:j + w]
+                m_new = torch.maximum(m, sj.amax(-1, keepdim=True))
+                d = sj - m_new
+                p = (torch.exp2(d.to(bf16).double()).to(bf16).double()
+                     if bf16_p else torch.exp2(d))
+                corr = torch.exp2(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.to(bf16).double() @ vd[:, j:j + w]
+                m = m_new
+            o = (acc / l).to(bf16).double()
+            for i, got in enumerate(outs):
+                g = got[..., h * hd:(h + 1) * hd].double()
+                dist[i][e] += (g - o).abs().sum().item()
+    return [[d / got.numel() for d in row] for row, got in zip(dist, outs)]
+
+
+def chunk_probe_cases(lk, bkv):
+    """The chunk probe's evaluations and, a case each, (T3's bk or None
+    for T1, bf16_p, its own evaluation's index, the neighbours' indices):
+    T3 at CHUNK_PROBE_BK with bf16 p against fp32 p, the tile's max and
+    one chunk of every key; with fp32 p the same the other way round; at
+    64 (the attn_arms path's chunk) against the tile's max and bf16 p; T1
+    against bf16 p (K13's arithmetic) and the tile's max. bkv: the K/V
+    tile at this shape, lk its keys (several chunks of CHUNK_PROBE_BK)."""
+    c = CHUNK_PROBE_BK
+    evals = [(c, True), (c, False), (bkv, True), (None, True), (bkv, False),
+             (None, False), (64, False), (64, True)]
+    at = {e: i for i, e in enumerate(evals)}
+    cases = [(c, True, at[c, True],
+              [at[c, False], at[bkv, True], at[None, True]]),
+             (c, False, at[c, False],
+              [at[c, True], at[bkv, False], at[None, False]]),
+             (64, False, at[64, False], [at[bkv, False], at[64, True]]),
+             (None, False, at[None, False], [at[None, True],
+                                            at[bkv, False]])]
+    assert lk % c == 0 and lk > c and bkv == 128
+    return evals, cases
+
+
 def attn_arms_phase(gen):
     """The softmax arms through the A/B entry point's functions at the
     1024^2/4 stamp's three UNet self-attention shapes, ARM_LAUNCHES calls of
@@ -1623,6 +1728,16 @@ def attn_arms_phase(gen):
             base = attention.attention(q, k, v, heads)
             route = attention.attention_route(q.shape[1], k.shape[1],
                                               q.shape[-1] // heads, bf16)
+            # T3 at the route's K/V tile with fp32 p is K8/K2's launch
+            bkv = attention.sm90_plan(q.shape[-1] // heads, q.shape[1],
+                                      q.shape[0] * heads)["bkv"]
+            if not torch.equal(av.chunked_attention(q, k, v, heads, bk=bkv),
+                               base):
+                raise AssertionError(f"attn_arms: chunked_attention bk {bkv} "
+                                     f"at {label} differs from the {route} "
+                                     "route's bits")
+            log(f"attn_arms: chunked_attention bk {bkv} (the {route} route's "
+                f"K/V tile) at {label}: equal to the route bit for bit")
             for name, got in outs.items():
                 err, tol = _err_tol(got, base)
                 if not torch.isfinite(got).all() or not err <= tol:
@@ -1649,7 +1764,41 @@ def attn_arms_phase(gen):
                 f"{tuple(q.shape)}: mean|diff| {dist[0]:.3e} to the fp32-p "
                 f"evaluation, {dist[1]:.3e} to the bf16-p one (its own "
                 f"{P_PRECISION_MARGIN:g}x nearer, as it must)")
-        del inputs, firsts, base
+
+        # T3's chunk and p, T1's p: within chip_smoke's tolerance T3 at any
+        # chunk with either p, the halves, K8/K2's online pass and T1 are
+        # one function, so each output is held nearer its own float64
+        # evaluation than each neighbour's, at the shortest shape with
+        # several chunks of CHUNK_PROBE_BK keys
+        (label, _, _, _, heads), (q, k, v), outs = min(
+            (c for c in zip(shapes, inputs, firsts)
+             if c[0][2] > CHUNK_PROBE_BK), key=lambda c: c[0][2])
+        hd = q.shape[-1] // heads
+        bkv = attention.sm90_plan(hd, q.shape[1], q.shape[0] * heads)["bkv"]
+        evals, cases = chunk_probe_cases(k.shape[1], bkv)
+        gots = [outs["sublane_attention"] if bk is None
+                else outs["chunked_attention"] if bk == 64
+                else av.chunked_attention(q, k, v, heads, bk=bk,
+                                          bf16_p=bf16_p)
+                for bk, bf16_p, _, _ in cases]
+        dists = chunk_precision(gots, q, k, v, heads, evals)
+        for (bk, bf16_p, own, others), dist in zip(cases, dists):
+            name = ("sublane_attention" if bk is None else
+                    f"chunked_attention bk {bk}" + (" bf16p" if bf16_p
+                                                    else ""))
+            near = {str(evals[i]): f"{dist[i]:.3e}" for i in others}
+            if not all(P_PRECISION_MARGIN * dist[own] <= dist[i]
+                       for i in others):
+                raise AssertionError(
+                    f"attn_arms: chunk probe {name} at {label}: mean |diff| "
+                    f"{dist[own]:.3e} to its own evaluation {evals[own]}, "
+                    f"to the neighbours {near}")
+            log(f"attn_arms: chunk probe {name} at {label} "
+                f"{tuple(q.shape)}: mean|diff| {dist[own]:.3e} to its own "
+                f"evaluation {evals[own]} (width, bf16 p), to the "
+                f"neighbours {near} (each {P_PRECISION_MARGIN:g}x farther, "
+                "as it must)")
+        del inputs, firsts, base, gots
 
         # clamp: raw logits far above 83. The exact softmax is K8's (K2
         # computes the same function): it rounds the pre-scaled q to bf16
@@ -2523,7 +2672,8 @@ def kernels_phase(gen, paths):
                 f"{FAMILY_IS[name]} {totals['family'] / n:.4f} ms at the same "
                 f"shapes and launches ({path} path)"
                 + (f"; bf16 max|{name} - family| {family_diff:.3e} at every "
-                   "shape" if name in FAMILY_EXACT else ""))
+                   "shape where it runs the family's launch"
+                   if name in FAMILY_EXACT else ""))
         record.append({
             "name": name, "route": "cuda",
             "source": "diffusiontexturepainting_torch/" + SOURCES[name],
@@ -2767,6 +2917,23 @@ def main() -> int:
         ("chunked_attention", ((2, 1100, 640), (2, 1152, 640), 8, 128,
                                False)),
         ("chunked_attention", ((2, 1100, 320), (2, 1152, 320), 8, 64, True)),
+        # bf16 T3 (fp32's twin takes 64 and 128 only): chunks of several
+        # tiles (384: three 128-key tiles at hd 80, six 64-key ones at hd
+        # 160), one chunk of every key (1152; 1100 over a ragged tile), and
+        # the TPU tool's chunks at its unet L0 and L1 512px shapes
+        *[("chunked_attention", ((2, 1100, d), (2, lk, d), 8, bk, bf16_p),
+           (torch.bfloat16,))
+          for d, lk, bk, bf16_p in ((640, 1152, 384, False),
+                                    (320, 1152, 384, True),
+                                    (1280, 1152, 384, True),
+                                    (1280, 1152, 1152, True),
+                                    (320, 1100, 1100, False),
+                                    (640, 1100, 1100, True))],
+        *[("chunked_attention", ((3, L, d), (3, L, d), 8, bk, bf16_p),
+           (torch.bfloat16,))
+          for L, d in ((4096, 320), (1024, 640))
+          for bk in (512, 1024, 2048) if not (L % bk or L == bk)
+          for bf16_p in (False, True)],
         ("nomax_unpadded", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("nomax_unpadded", ((2, 1100, 1280), (2, 1100, 1280), 8)),
         ("pvt_attention", ((2, 1100, 320), (2, 1100, 320), 8)),

@@ -7,8 +7,11 @@
 //       shift and no max pass; `safe` clamps s at shift + 88 and adds 1e-30
 //       to the row sum; `bf16_p` takes exp2 of bf16-rounded logits.
 //   dtp_chunked_attention T3 <- bench_attn_variants.py chunked_attention /
-//       _chunked_kernel: online softmax, the running max updated once per
-//       chunk of bk keys (bk = the K/V tile, 64 or 128).
+//       _chunked_kernel in fp32: online softmax, the running max updated
+//       once per chunk of bk keys (bk 64 or 128). bf16 T3 runs
+//       csrc/flash_attention_sm90.cu (dtp_chunked_attention_sm90: a max
+//       pass a chunk of the wgmma/TMA kernel, any chunk the TPU tool runs);
+//       this entry refuses bf16.
 //   dtp_nomax_unpadded    T5 <- bench_attn_variants.py nomax_unpadded /
 //       _nomax_unpadded_kernel: T2 with `safe` and fp32 p, P V over n8 tiles
 //       of hd itself (hd 40 = 5 x 8) instead of hd padded to 16. The
@@ -43,21 +46,23 @@ extern "C" cudaError_t dtp_nomax_attention(const void* q, const void* k,
                                         static_cast<cudaStream_t>(stream));
 }
 
-// T3: the running max per chunk of bk keys; bk in {64, 128} divides Lk.
+// T3 in fp32 (is_bf16 must be 0): the running max per chunk of bk keys;
+// bk in {64, 128} divides Lk.
 extern "C" cudaError_t dtp_chunked_attention(const void* q, const void* k,
                                              const void* v, void* out, int B,
                                              int H, int Lq, int Lk, int hd,
                                              float scale_log2, int bk,
                                              int bf16_p, int is_bf16,
                                              void* stream) {
-  if (dtp::bad(B, H, Lq, Lk, hd) || (bk != 64 && bk != 128) || Lk % bk)
+  if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd) || (bk != 64 && bk != 128) ||
+      Lk % bk)
     return cudaErrorInvalidValue;
   auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, 0.0f,
-                          is_bf16);
+                          false);
   a.bf16_p = bf16_p != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bk == 64) return dtp::dispatch<dtp::kChunked, 64>(a, is_bf16, s);
-  return dtp::dispatch<dtp::kChunked, 128>(a, is_bf16, s);
+  if (bk == 64) return dtp::dispatch_f32<dtp::kChunked, 64>(a, s);
+  return dtp::dispatch_f32<dtp::kChunked, 128>(a, s);
 }
 
 // T5: T2 with `safe`, fp32 p, P V over hd itself.

@@ -10,14 +10,16 @@
 //   kNomax    exp2(s - shift) with a static shift and no max pass; `safe`
 //             clamps s at shift + 88 and adds 1e-30 to the row sum;
 //             `bf16_p` takes exp2 of bf16-rounded logits.
-//   kChunked  online softmax, the running max updated once per K/V tile.
+//   kChunked  online softmax, the running max updated once per chunk of
+//             BK keys; the fp32 twin's only (T3 in fp32; bf16 T3 runs
+//             flash_attention_sm90.cu).
 //   kUnpadded kNomax with `safe` and fp32 p fixed at compile time; P V
 //             over n8 tiles of hd itself (hd 40 = 5 x 8) instead of hd
 //             padded to 16.
 //   kRowmax   the row-max softmax: two passes over K, the first for the
 //             exact row max m, the second for exp2(s - m) (of bf16-rounded
 //             s - m with `bf16_p`) and P V; the fp32 twin's only (T1 and
-//             T4 in fp32; bf16 T4 runs flash_attention_sm90.cu).
+//             T4 in fp32; bf16 T1 and T4 run flash_attention_sm90.cu).
 //
 // The block-to-work mapping, a template parameter (MAP):
 //   kHeadMajor   one block per (batch, head, query tile), the query tiles
@@ -38,12 +40,10 @@
 // layout of m16n8k16 (a thread holds S[g][2t..2t+1] and S[g+8][2t..2t+1],
 // g = lane/4, t = lane%4) is the A-operand layout of the next m16n8k16, so P
 // goes from S's registers into P V without a trip through shared memory.
-// Row maxima and row sums reduce over the 4 threads of a quad (shuffles 1,
-// 2). kChunked starts S_{j+1} = Q K_{j+1}^T before the softmax of S_j (K
-// one tile ahead of V in the copy pipeline, two S register tiles) where
-// hd <= 80; at hd 160 the second S tile would not fit beside O, so it runs
-// serially. The output is staged through the warp's own Q rows in shared
-// memory and stored with 16-byte writes.
+// Row sums reduce over the 4 threads of a quad (shuffles 1, 2). The output
+// is staged through the warp's own Q rows in shared memory and stored with
+// 16-byte writes. The bf16 kernel runs the static-shift arms only (kNomax,
+// kUnpadded).
 //
 // fp32 inputs run an FMA twin, one thread per query row (speed not
 // measured: it exists for fp32 parity with the plain versions).
@@ -243,7 +243,7 @@ __device__ __forceinline__ void scores(float (*S)[4], const uint32_t (*qf)[4],
 
 // One block's work on one (batch b, head h, query tile from q0): the whole
 // attention of its kRows query rows, the output written.
-template <int HDP, int BK, int ARM, bool OVERLAP>
+template <int HDP, int BK, int ARM>
 __device__ __forceinline__ void arm_tile(const ArmArgs& a,
                                          unsigned char* smem, long long b,
                                          long long h, int q0) {
@@ -269,23 +269,15 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
   const int no8 = ARM == kUnpadded ? (hd + 7) >> 3 : 2 * nk16;
   const int ntiles = (Lk + BK - 1) / BK;
 
-  // Q, pre-scaled and rounded to bf16, then the first tiles. Without the
-  // overlap a copy group holds tile j of K and V; with it, K_{j+1} and V_j.
-  static_assert(ARM != kRowmax, "the row-max arm runs in fp32 only");
+  // Q, pre-scaled and rounded to bf16, then the first tiles: a copy group
+  // holds tile j of K and V.
+  static_assert(ARM == kNomax || ARM == kUnpadded,
+                "the row-max and chunked arms run in fp32 only");
   stage_q<HDP, LD>(Qs, qb, D, q0, a);
   stage_rows<HDP, LD>(Ks, kb, D, 0, BK, Lk, hd, a.vec);
-  if (!OVERLAP)
-    stage_rows<HDP, LD>(Vs, vb, D, 0, BK, Lk, hd, a.vec);
+  stage_rows<HDP, LD>(Vs, vb, D, 0, BK, Lk, hd, a.vec);
   cp_async_commit();
-  if (OVERLAP) {
-    if (ntiles > 1)
-      stage_rows<HDP, LD>(Ks + BK * LD, kb, D, BK, BK, Lk, hd, a.vec);
-    stage_rows<HDP, LD>(Vs, vb, D, 0, BK, Lk, hd, a.vec);
-    cp_async_commit();
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait_all();
-  }
+  cp_async_wait_all();
   __syncthreads();
 
   uint32_t qf[NK][4];
@@ -302,79 +294,26 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
 #pragma unroll
     for (int e = 0; e < 4; ++e) O[n][e] = 0.0f;
   float l[2] = {0.0f, 0.0f};
-  float m[2] = {-1e30f, -1e30f};  // kChunked's running max (the TPU init)
   float S[NS][4];
-  float Sn[OVERLAP ? NS : 1][4];
-  if (OVERLAP) scores<NK, BK, LD>(S, qf, Ks, nk16, lane);
 
   for (int j = 0; j < ntiles; ++j) {
     cp_async_wait_all();
     __syncthreads();
     const int kv0 = j * BK;
-    if (OVERLAP) {
-      // K_{j+2} where K_j was, V_{j+1} where V_{j-1} was; then S_{j+1},
-      // whose MMAs run while this tile's softmax executes
-      if (j + 2 < ntiles)
-        stage_rows<HDP, LD>(Ks + (j & 1) * BK * LD, kb, D, kv0 + 2 * BK, BK,
-                            Lk, hd, a.vec);
-      if (j + 1 < ntiles)
-        stage_rows<HDP, LD>(Vs + ((j + 1) & 1) * BK * LD, vb, D, kv0 + BK,
-                            BK, Lk, hd, a.vec);
-      cp_async_commit();
-      if (j + 1 < ntiles)
-        scores<NK, BK, LD>(Sn, qf, Ks + ((j + 1) & 1) * BK * LD, nk16, lane);
-    } else {
-      if (j + 1 < ntiles) {
-        stage_rows<HDP, LD>(Ks + ((j + 1) & 1) * BK * LD, kb, D, kv0 + BK,
-                            BK, Lk, hd, a.vec);
-        stage_rows<HDP, LD>(Vs + ((j + 1) & 1) * BK * LD, vb, D, kv0 + BK,
-                            BK, Lk, hd, a.vec);
-      }
-      cp_async_commit();
-      scores<NK, BK, LD>(S, qf, Ks + (j & 1) * BK * LD, nk16, lane);
+    if (j + 1 < ntiles) {
+      stage_rows<HDP, LD>(Ks + ((j + 1) & 1) * BK * LD, kb, D, kv0 + BK, BK,
+                          Lk, hd, a.vec);
+      stage_rows<HDP, LD>(Vs + ((j + 1) & 1) * BK * LD, vb, D, kv0 + BK, BK,
+                          Lk, hd, a.vec);
     }
+    cp_async_commit();
+    scores<NK, BK, LD>(S, qf, Ks + (j & 1) * BK * LD, nk16, lane);
     const bf16* Vt = Vs + (j & 1) * BK * LD;
 
     // --- softmax on the C fragments: element e of tile n is row
-    // g + 8*(e>>1), key kv0 + 8n + 2t + (e&1) ---
-    if (ARM == kChunked) {
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kv0 + n * 8 + 2 * t + (e & 1) < Lk)
-            mx[e >> 1] = fmaxf(mx[e >> 1], S[n][e]);
-      float corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        corr[i] = exp2f(m[i] - m_new);
-        m[i] = m_new;
-      }
-      float psum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = 0.0f;
-          if (kv0 + n * 8 + 2 * t + (e & 1) < Lk)
-            p = a.bf16_p ? round_bf16(exp2f(round_bf16(S[n][e] - m[e >> 1])))
-                         : exp2f(S[n][e] - m[e >> 1]);
-          psum[e >> 1] += p;
-          S[n][e] = p;
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        O[n][0] *= corr[0], O[n][1] *= corr[0];
-        O[n][2] *= corr[1], O[n][3] *= corr[1];
-      }
-    } else {
-      // no max pass: a static shift (T2's options; T5 safe, fp32 p)
+    // g + 8*(e>>1), key kv0 + 8n + 2t + (e&1); no max pass: a static
+    // shift (T2's options; T5 safe, fp32 p) ---
+    {
       const bool safe = ARM == kNomax ? a.safe : true;
       const bool bf16_p = ARM == kNomax && a.bf16_p;
       const float cap = a.shift + 88.0f;
@@ -418,12 +357,6 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
           mma(O[2 * np], pa, b0, b1);
         }
       }
-    }
-    if (OVERLAP) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) S[n][e] = Sn[n][e];
     }
   }
 
@@ -472,7 +405,7 @@ __device__ __forceinline__ void block_work(const ArmArgs& a, int rows,
   *q0 = qt * rows;
 }
 
-template <int HDP, int BK, int ARM, bool OVERLAP, int MAP>
+template <int HDP, int BK, int ARM, int MAP>
 __global__ void __launch_bounds__(kThreads)
 arms_kernel(const ArmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -480,7 +413,7 @@ arms_kernel(const ArmArgs a) {
   int q0;
   static_assert(MAP != kAllHeads, "bf16 T7 runs flash_attention_sm90.cu");
   block_work<MAP>(a, kRows, &b, &h, &q0);
-  arm_tile<HDP, BK, ARM, OVERLAP>(a, smem, b, h, q0);
+  arm_tile<HDP, BK, ARM>(a, smem, b, h, q0);
 }
 
 // fp32 twin of one query row of one (b, h): its pre-scaled q in the
@@ -596,11 +529,8 @@ cudaError_t check_grid(const ArmArgs& a, int rows, long long* blocks) {
 
 template <int HDP, int BK, int ARM, int MAP>
 cudaError_t launch_bf16(ArmArgs a, cudaStream_t s) {
-  // T3 overlaps Q K^T of the next tile with this tile's softmax where the
-  // second S tile fits beside O in registers
-  constexpr bool OVERLAP = ARM == kChunked && HDP <= 80;
   constexpr size_t bytes = sizeof(bf16) * (HDP + 8) * (kRows + 4 * BK);
-  auto kern = arms_kernel<HDP, BK, ARM, OVERLAP, MAP>;
+  auto kern = arms_kernel<HDP, BK, ARM, MAP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;

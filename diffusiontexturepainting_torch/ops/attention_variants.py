@@ -41,12 +41,15 @@ T1's TPU wrapper pads Lq to its query block and returns the padded rows (it
 raises on the final reshape where Lq is off the block); here every query
 length is computed.
 
-The kernels live in csrc/attn_arms.cu (T2, T3, T5, and T9 in fp32),
+The kernels live in csrc/attn_arms.cu (T2, T5, and T3 and T9 in fp32),
 csrc/attn_layouts.cu (T6, T8, and T4 and T7 in fp32), one register-resident
-body (csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1, and
+body (csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1 and
 T10 in fp32, over the same header's primitives). bf16 T4 runs K13's
 two-pass wgmma/TMA kernel (csrc/flash_attention_sm90.cu
-dtp_slotted_attention_sm90), bf16 T7 and T9 that kernel's one-pass
+dtp_slotted_attention_sm90), bf16 T1 and T3 that kernel's chunked
+softmax (dtp_sublane_attention_sm90: the exact row max, one chunk of every
+key; dtp_chunked_attention_sm90: the running max per chunk of bk keys, a
+max pass over a chunk of several K/V tiles), bf16 T7 and T9 its one-pass
 shifted softmax (dtp_nomax_allheads_sm90: every head of a query tile in one
 CTA; dtp_pvt_attention_sm90: p as bf16 hi + lo into two products), and
 bf16 T10 a split wgmma/TMA GEMM whose operands stay in shared memory
@@ -66,6 +69,7 @@ from .. import _cuda
 from .attention import (
     _LOG2E,
     SM90_SOURCE,
+    SM90_STAGES,
     SM_COUNT,
     SMEM_LIMIT,
     _check_qkv,
@@ -79,7 +83,8 @@ from .attention import (
 
 MAX_HEAD_DIM = 160  # the kernel's 16 x hd fp32 accumulator per warp
 DEFAULT_SHIFT = 32.0  # the JAX package's _NOMAX_SHIFT
-CHUNK_WIDTHS = (64, 128)  # T3's kernel: the chunk is its K/V tile
+CHUNK_WIDTHS = (64, 128)  # fp32 T3's kernel: the chunk is its K/V tile
+DEFAULT_CHUNK = 1024  # the TPU tool's chunked_attention default bk
 
 nomax_launches = _cuda.LaunchCounter("nomax_attention")
 chunked_launches = _cuda.LaunchCounter("chunked_attention")
@@ -98,6 +103,10 @@ _NOMAX_ARGTYPES = _HEAD + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (
 _CHUNKED_ARGTYPES = _HEAD + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 _SHIFT_ARGTYPES = _HEAD + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 _SUBLANE_ARGTYPES = _HEAD + (ctypes.c_int, ctypes.c_void_p)
+# bf16 T1 and T3 (the wgmma/TMA kernel's chunked softmax): q, k, v, out, B,
+# H, Lq, Lk, hd, scale*log2(e); T3 then bk and bf16_p; the stream
+_SUBLANE_SM90_ARGTYPES = _HEAD + (ctypes.c_void_p,)
+_CHUNKED_SM90_ARGTYPES = _HEAD + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
 _PV_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7
                 + (ctypes.c_void_p,))
 _SLOTTED_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
@@ -188,8 +197,9 @@ def plain_nomax_attention(q, k, v, num_heads: int, *,
     return _merge_heads(out)
 
 
-def plain_chunked_attention(q, k, v, num_heads: int, *, bk: int = 64,
-                            bf16_p: bool = False, block_bytes: int = 1 << 30):
+def plain_chunked_attention(q, k, v, num_heads: int, *,
+                            bk: int = DEFAULT_CHUNK, bf16_p: bool = False,
+                            block_bytes: int = 1 << 30):
     """T3's function: the running max m (from -1e30) updated per chunk of
     `bk` keys, m_new = max(m, rowmax(s_j)); p = exp2(s_j - m_new) in fp32,
     or of its bf16 rounding with `bf16_p`; corr = exp2(m - m_new);
@@ -366,6 +376,59 @@ def plain_pv_product(e, v, *, transposed: bool = False, iters: int = 1):
     return acc.to(e.dtype).contiguous()
 
 
+def chunked_sm90_plan(hd: int, lq: int, bh: int, lk: int, bk: int,
+                      bf16_p: bool = False) -> dict:
+    """bf16 T3's launch (mirrors csrc/flash_attention_sm90.cu chunk_plan
+    and dtp_chunked_attention_sm90_plan): K2's bucket for hd, lq query rows
+    and bh (image, head) pairs (sm90_plan's `bucket`, `kd`, `nv`, `bkv`,
+    `consumers`), chunks of bk keys over lk keys: bk = lk (one chunk of
+    every K/V tile, the ragged last one masked), a multiple of the
+    bucket's bkv dividing lk, or 64 under a 128-key tile (lk a multiple of
+    64: at hd <= 80 its max per 64-column half of a tile, `halves`; at hd
+    81..128, where the halves run out of registers, the bucket on 64-key
+    tiles); any other bk raises ValueError.
+    `chunk_tiles` tiles a chunk, `passes` over K (2 where a
+    chunk holds several tiles: a max pass, then the pass against the
+    chunk's max), `smem` bytes (K2's, or its 64-key tiles'; a chunk of
+    several tiles adds O's stash, NV / 2 floats a consumer thread, where O
+    waits across each max pass), and `online`: a chunk of one tile with
+    fp32 p is K8/K2's own kOnline launch."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"chunked_attention: hd {hd} not in "
+                         f"1..{MAX_HEAD_DIM}")
+    p = sm90_plan(hd, lq, bh)
+    bkv, halves = p["bkv"], False
+    if bk == lk:
+        chunk_tiles = -(-lk // bkv)
+    elif bk > 0 and bk % bkv == 0 and lk % bk == 0:
+        chunk_tiles = bk // bkv
+    elif bk == 64 and bkv == 128 and lk % 64 == 0:
+        chunk_tiles = 1
+        if p["bucket"] == 3:
+            bkv = 64
+        else:
+            halves = True
+    else:
+        raise ValueError(
+            f"chunked_attention: bk {bk} is not Lk {lk}, a multiple of the "
+            f"kernel's {bkv}-key tile dividing Lk, or 64 under a 128-key "
+            "tile")
+    narrow = bkv != p["bkv"]
+    smem = p["smem"]
+    if chunk_tiles > 1:
+        smem += 4 * 128 * p["consumers"] * (p["nv"] // 2)
+    if narrow:
+        # the same bucket with K and V stages of 64 keys
+        atoms = -(-p["kd"] // 64) + -(-p["nv"] // 64)
+        smem -= SM90_STAGES * (p["bkv"] - bkv) * 128 * atoms
+    return dict(bucket=p["bucket"], kd=p["kd"], nv=p["nv"], bkv=bkv,
+                consumers=p["consumers"], chunk_tiles=chunk_tiles,
+                passes=2 if chunk_tiles > 1 else 1, halves=halves,
+                smem=smem,
+                online=chunk_tiles == 1 and not bf16_p and not halves
+                and not narrow)
+
+
 def allheads_sm90_plan(hd: int, lq: int, batch: int,
                        consumers: int | None = None) -> dict:
     """bf16 T7's launch (mirrors csrc/flash_attention_sm90.cu
@@ -462,25 +525,54 @@ def nomax_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT,
     return out
 
 
-def chunked_attention(q, k, v, num_heads: int, *, bk: int = 64,
+def chunked_attention(q, k, v, num_heads: int, *, bk: int = DEFAULT_CHUNK,
                       bf16_p: bool = False):
-    """T3: online softmax over chunks of `bk` keys; kernel on CUDA (bk 64
-    or 128, its K/V tile), plain_chunked_attention on CPU (any divisor of
-    Lk)."""
+    """T3: online softmax over chunks of `bk` keys (a divisor of Lk; the
+    TPU tool's default 1024). Kernel on CUDA: bf16 the wgmma/TMA kernel's
+    chunked softmax (csrc/flash_attention_sm90.cu
+    dtp_chunked_attention_sm90, plan chunked_sm90_plan: bk = Lk, a
+    multiple of its K/V tile dividing Lk, or 64 under a 128-key tile, else
+    ValueError; at bk = the tile with fp32 p, K8/K2's launch; hd a
+    multiple of 8 and 16-byte-aligned bases, else ValueError), fp32 the
+    FMA twin (csrc/attn_arms.cu, bk 64 or 128). plain_chunked_attention on
+    CPU (any divisor of Lk)."""
     _chunk(bk, k.shape[1])
     if q.device.type == "cpu":
         return plain_chunked_attention(q, k, v, num_heads, bk=bk,
                                        bf16_p=bf16_p)
     name = "chunked_attention"
     _check(name, q, k, v, num_heads)
-    if bk not in CHUNK_WIDTHS:
-        raise ValueError(f"{name}: the kernel's chunk is its K/V tile: bk "
-                         f"in {CHUNK_WIDTHS}, got {bk}")
-    out = _launch("attn_arms", "dtp_chunked_attention", _CHUNKED_ARGTYPES,
-                  q, k, v, torch.empty_like(q), num_heads, int(bk),
-                  int(bf16_p))
+    if q.dtype == torch.bfloat16:
+        B, Lq, D = q.shape
+        hd = D // num_heads
+        _check_tma(name, hd, q, k, v)
+        chunked_sm90_plan(hd, Lq, B * num_heads, k.shape[1], bk, bf16_p)
+        out = _sm90_arm("dtp_chunked_attention_sm90", _CHUNKED_SM90_ARGTYPES,
+                        q, k, v, num_heads, int(bk), int(bf16_p))
+    else:
+        if bk not in CHUNK_WIDTHS:
+            raise ValueError(f"{name}: fp32's chunk is its K/V tile: bk in "
+                             f"{CHUNK_WIDTHS}, got {bk}")
+        out = _launch("attn_arms", "dtp_chunked_attention",
+                      _CHUNKED_ARGTYPES, q, k, v, torch.empty_like(q),
+                      num_heads, int(bk), int(bf16_p))
     chunked_launches.record(_shape_key(q, k, num_heads, int(bk),
                                        bool(bf16_p)))
+    return out
+
+
+def _sm90_arm(symbol, argtypes, q, k, v, num_heads, *options):
+    """Launches `symbol` of the wgmma/TMA attention source on (B, Lq,
+    H*hd) q, out and (B, Lk, H*hd) k, v with T1's leading arguments, then
+    `options` and the stream."""
+    B, Lq, D = q.shape
+    hd = D // num_heads
+    out = torch.empty_like(q)
+    fn = _cuda.function(SM90_SOURCE, symbol, argtypes)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              num_heads, Lq, k.shape[1], hd, float(hd**-0.5 * _LOG2E),
+              *options, _cuda.stream_of(q))
+    _cuda.check(SM90_SOURCE, symbol, code)
     return out
 
 
@@ -513,17 +605,10 @@ def _shift_sm90(name, counter, q, k, v, num_heads, shift, *options):
     dtp_<name>_sm90), reading (B, L, h*hd) in place: the one-pass shifted
     softmax, `options` T7's forced consumers."""
     _check(name, q, k, v, num_heads)
-    B, Lq, D = q.shape
-    hd = D // num_heads
-    _check_tma(name, hd, q, k, v)
-    symbol = f"dtp_{name}_sm90"
-    out = torch.empty_like(q)
-    fn = _cuda.function(SM90_SOURCE, symbol, _ALLHEADS_SM90_ARGTYPES
-                        if options else _PVT_SM90_ARGTYPES)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-              num_heads, Lq, k.shape[1], hd, float(hd**-0.5 * _LOG2E),
-              float(shift), *options, _cuda.stream_of(q))
-    _cuda.check(SM90_SOURCE, symbol, code)
+    _check_tma(name, q.shape[-1] // num_heads, q, k, v)
+    out = _sm90_arm(f"dtp_{name}_sm90", _ALLHEADS_SM90_ARGTYPES if options
+                    else _PVT_SM90_ARGTYPES, q, k, v, num_heads,
+                    float(shift), *options)
     counter.record(_shape_key(q, k, num_heads))
     return out
 
@@ -631,14 +716,25 @@ def slotted_kernel_call(qh, kh, vh, scale: float, *, exp2_bf16: bool = True):
 
 
 def sublane_attention(q, k, v, num_heads: int):
-    """T1: the exact row-max softmax with both products transposed
-    (S^T = K Q^T, O^T = V^T E^T); kernel on CUDA,
-    plain_sublane_attention on CPU."""
+    """T1: the exact row-max softmax (the TPU kernel took both products
+    transposed, S^T = K Q^T, O^T = V^T E^T). Kernel on CUDA: bf16 the
+    wgmma/TMA kernel's chunked softmax in one chunk of every key, products
+    untransposed (csrc/flash_attention_sm90.cu dtp_sublane_attention_sm90,
+    its bucket ops.attention.sm90_plan(hd, Lq, B*h)'s; hd a multiple of 8
+    and 16-byte-aligned bases, else ValueError), fp32 the FMA twin
+    (csrc/attn_transposed.cu). plain_sublane_attention on CPU."""
     if q.device.type == "cpu":
         return plain_sublane_attention(q, k, v, num_heads)
-    _check("sublane_attention", q, k, v, num_heads)
-    out = _launch("attn_transposed", "dtp_sublane_attention",
-                  _SUBLANE_ARGTYPES, q, k, v, torch.empty_like(q), num_heads)
+    name = "sublane_attention"
+    _check(name, q, k, v, num_heads)
+    if q.dtype == torch.bfloat16:
+        _check_tma(name, q.shape[-1] // num_heads, q, k, v)
+        out = _sm90_arm("dtp_sublane_attention_sm90", _SUBLANE_SM90_ARGTYPES,
+                        q, k, v, num_heads)
+    else:
+        out = _launch("attn_transposed", "dtp_sublane_attention",
+                      _SUBLANE_ARGTYPES, q, k, v, torch.empty_like(q),
+                      num_heads)
     sublane_launches.record(_shape_key(q, k, num_heads))
     return out
 

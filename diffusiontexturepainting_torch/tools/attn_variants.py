@@ -10,7 +10,12 @@ tools/bench_attn_round4.py main(). Rows at each shape:
   base            the port's attention() route there (K2 or K8)
   sdpa            torch's scaled_dot_product_attention (a yardstick)
   nomax-safe, nomax, nomax/bf16p          T2 (nomax_attention)
-  chunk64, chunk128 and their /bf16p      T3 (chunked_attention)
+  chunk64, chunk128 and their /bf16p      T3 (chunked_attention) at the
+                                          port's 64- and 128-key chunks
+  chunk512, chunk1024, chunk2048 and their /bf16p
+                                          T3 at the TPU tool's chunks, where
+                                          the chunk divides L and is not L
+                                          (the tool's rule)
   nomax-unpadded                          T5 (nomax_unpadded: heads split
                                           by one copy pass, then merged)
   pvT                                     T9 (pvt_attention)
@@ -66,7 +71,9 @@ SHAPE_SETS = {
     "stamp": [("1024^2 L0", 3, 16384, 320, 8),
               ("1024^2 L1", 3, 4096, 640, 8),
               ("1024^2 L2", 3, 1024, 1280, 8)],
-    "tiny": [("tiny hd40", 1, 256, 80, 2), ("tiny hd80", 2, 128, 160, 2)],
+    "tiny": [("tiny hd40", 1, 256, 80, 2), ("tiny hd80", 2, 128, 160, 2),
+             # 1024 keys: chunk512 and its /bf16p under the tool's rule
+             ("tiny 1024", 1, 1024, 80, 2)],
 }
 SHAPE_SETS["all"] = SHAPE_SETS["tools"] + SHAPE_SETS["stamp"]
 
@@ -79,6 +86,9 @@ ARM_ROWS = {
     "chunk64/bf16p": ("chunked_attention", dict(bk=64, bf16_p=True)),
     "chunk128": ("chunked_attention", dict(bk=128)),
     "chunk128/bf16p": ("chunked_attention", dict(bk=128, bf16_p=True)),
+    **{f"chunk{bk}{tag}": ("chunked_attention", dict(bk=bk, bf16_p=bf16_p))
+       for bk in (512, 1024, 2048)
+       for tag, bf16_p in (("", False), ("/bf16p", True))},
     "nomax-unpadded": ("nomax_unpadded", {}),
     "pvT": ("pvt_attention", {}),
     "nomax-4d": ("nomax_4d", {}),
@@ -120,6 +130,13 @@ def base_plain(q, k, v, heads):
         return attn.plain_attention(q, k, v, heads)
     # K2 and K8 compute one function
     return attn.plain_attention_streaming(q, k, v, heads)
+
+
+def applies(row, L):
+    """Whether a row runs at L keys: T3's chunks the TPU tool times only
+    where they divide L and are not L."""
+    bk = ARM_ROWS.get(row, (None, {}))[1].get("bk")
+    return bk is None or bk <= 128 or not (L % bk or L == bk)
 
 
 def layout(row):
@@ -192,7 +209,8 @@ def max_diff(a, b):
 
 def run_shape(label, B, L, D, heads, input_set, device, gen):
     """Every row at one shape and input set -> list of records (the
-    slotted rows only where hd fits the slot)."""
+    slotted rows only where hd fits the slot, T3's tool chunks where
+    `applies`)."""
     q, k, v = make_inputs(B, L, D, input_set, device, torch.bfloat16, gen)
     hd = D // heads
     inputs = {"proj": (q, k, v)}
@@ -208,7 +226,7 @@ def run_shape(label, B, L, D, heads, input_set, device, gen):
     records = []
     for row in ROWS:
         lay = layout(row)
-        if lay not in inputs:
+        if lay not in inputs or not applies(row, L):
             continue
         ins = inputs[lay]
         yard = "base-slotted" if row in SLOTTED_ROWS else "base"

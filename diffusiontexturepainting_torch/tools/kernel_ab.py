@@ -1,7 +1,7 @@
 """Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a,
 K11, K12b, K8 and K2 wrappers at their served shapes, and of the T4, T10,
-T11, T7 and T9 arms at their paths' shapes, for comparing two checkouts on
-one card.
+T11, T7, T9, T1 and T3 arms at their paths' shapes, for comparing two
+checkouts on one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
     PYTHONPATH=<another checkout> python \\
@@ -35,9 +35,12 @@ conv_arms path's windows (TAPS_ARMS: the default 256^2/20 stamp's K5
 images with a prologue cut into windows of 8 rows, reps 1) and at the TPU
 tool's three shapes (TAPS_TOOL: one window, reps 24), F.conv2d (VALID,
 channels-last) on the same windows beside `shifted`, and last, the kernels
-this tree may differ in, ops.attention_variants.nomax_allheads (T7) and
-pvt_attention (T9) at ATTN (the attn_arms path's shapes and calls), SDPA
-beside. Seeded normal bf16 inputs (T10, T11: the tools' uniform ones). Each row: ms a call (CUDA
+this tree may differ in, ops.attention_variants.nomax_allheads (T7),
+pvt_attention (T9), sublane_attention (T1) and chunked_attention (T3) at
+chunks of 64 and 128 keys, then of 1024 keys with fp32 and bf16 p (a tree
+whose wrapper lacks chunked_sm90_plan, whose kernel takes chunks of 64 and
+128 keys only, prints that it skips them) at ATTN (the attn_arms path's
+shapes and calls), SDPA beside. Seeded normal bf16 inputs (T10, T11: the tools' uniform ones). Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph) and a
 digest of the output's bits (two checkouts' rows compare bit for bit); the
@@ -141,6 +144,8 @@ ATTN = [(3, 16384, 320, 8, "K8", "1024^2 L0"),
         (3, 4096, 640, 8, "K2", "1024^2 L1"),
         (3, 1024, 1280, 8, "K2", "1024^2 L2")]
 ATTN_CALLS = 20
+# (bk, bf16_p): T3's chunks at ATTN
+CHUNKS = [(64, False), (128, False), (1024, False), (1024, True)]
 # (bq, Lk, hd): T10 at the TPU tool's shapes, bh 1, PV_ITERS passes
 PV = [(512, 4096, 40), (512, 1024, 80), (256, 256, 160)]
 PV_ITERS = 64
@@ -275,10 +280,23 @@ def _rows(gen):
                 lambda: attention_variants.pv_product(
                     e, v, transposed=transposed, iters=PV_ITERS))
     for name, arm in (("T7", attention_variants.nomax_allheads),
-                      ("T9", attention_variants.pvt_attention)):
+                      ("T9", attention_variants.pvt_attention),
+                      ("T1", attention_variants.sublane_attention)):
         for B, L, D, heads, _, tag, q, k, v in attn:
             row(name, tag, [B, L, D, heads], lambda: arm(q, k, v, heads),
                 ATTN_CALLS)
+    # T3: the chunks both kernels take, then the TPU tool's default chunk
+    wide = hasattr(attention_variants, "chunked_sm90_plan")
+    for bk, bf16_p in CHUNKS:
+        name = f"T3 chunk{bk}" + ("/bf16p" if bf16_p else "")
+        if bk > 128 and not wide:
+            print(f"{name}: skipped, this tree's kernel takes chunks of 64 "
+                  "and 128 keys only", flush=True)
+            continue
+        for B, L, D, heads, _, tag, q, k, v in attn:
+            row(name, tag, [B, L, D, heads, bk, bf16_p],
+                lambda: attention_variants.chunked_attention(
+                    q, k, v, heads, bk=bk, bf16_p=bf16_p), ATTN_CALLS)
     for B, L, D, heads, _, tag, q, k, v in attn:
         qh, kh, vh = (t.view(B, L, heads, D // heads).transpose(1, 2)
                       for t in (q, k, v))
@@ -300,7 +318,7 @@ def stamp_sums(rows):
     """{name: (ms, device_ms)}: count-weighted sums of the rows that carry
     launches a stamp: K4, K12b and F.conv_transpose2d over the twin's K4
     shapes; each T11 read and F.conv2d over the conv_arms path's windows;
-    K8, K2, T7, T9 and SDPA over the attn_arms path."""
+    K8, K2, T7, T9, T1, each T3 chunk and SDPA over the attn_arms path."""
     sums = {}
     for r in rows:
         if "count" not in r or r["tag"].startswith("tool"):

@@ -61,7 +61,11 @@ warpgroup count the kernel offers at that hd, T9 (pvt_attention, the
 head-major one-pass mode with p as hi + lo) under its plan, T7 on T9's
 head-major grid and bucket (`T7 head-major`: T9 less its second product;
 with T7's plan rows it parts T7 and T9's difference into the grid's share
-and the split's), SDPA beside.
+and the split's), T1 (sublane_attention: the chunked mode in one chunk of
+every key), T3 (chunked_attention) at chunks of 64, 128 and 1024 keys and
+1024 with bf16 p (`T3 chunk64`, ...), the attention() route's K8 or K2 on
+the same data (`K8/K2`: T3's family, which it equals bit for bit where the
+chunk is the route's K/V tile with fp32 p), SDPA beside.
 Seeded normal inputs, bf16. Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph: the
@@ -154,7 +158,8 @@ SHAPE_SETS = {
         "stream": [(1, 9, 10, 16, 128, "tiny")],
         "taps": [(2, 4, 10, 16, 8, 3, "tiny"),
                  (1, 3, 7, 8, 24, 1, "tiny ragged")],
-        "arms": [(1, 100, 80, 2, "tiny hd 40"), (2, 70, 160, 1, "tiny hd 160")]},
+        "arms": [(1, 100, 80, 2, "tiny hd 40"), (2, 70, 160, 1, "tiny hd 160"),
+                 (1, 128, 80, 2, "tiny 128 keys")]},
 }
 SHAPE_SETS["stamp"].update(
     same=kernel_ab.TWIN_K7, inpad=kernel_ab.TWIN_K7,
@@ -620,12 +625,48 @@ def _arms_rows(shapes, gen, device, timed):
                          "max_diff": _common.max_diff(call(), plain),
                          **(_times(call) if timed
                             else {"ms": None, "device_ms": None})})
+        rows += _exact_rows(B, L, D, heads, tag, q, k, v, timed)
         if timed:
             qh, kh, vh = (attention._split_heads(t, heads) for t in (q, k, v))
             rows.append({"kernel": "SDPA", "tag": tag,
                          "shape": [B, L, D, heads],
                          **_times(lambda: F.scaled_dot_product_attention(
                              qh, kh, vh))})
+    return rows
+
+
+# T3's rows: (tag, bk, bf16_p)
+CHUNK_ROWS = [("chunk64", 64, False), ("chunk128", 128, False),
+              ("chunk1024", 1024, False), ("chunk1024/bf16p", 1024, True)]
+
+
+def _exact_rows(B, L, D, heads, tag, q, k, v, timed):
+    """T1, T3 under CHUNK_ROWS where the chunk divides L, and the
+    attention() route's K8 or K2 on the same data."""
+    av = attention_variants
+    hd = D // heads
+    route = attention.attention_route(L, L, hd, q.dtype)
+    base = (attention.flash_attention_streaming if route == "streaming"
+            else attention.flash_attention)
+    calls = [("K8/K2", lambda: base(q, k, v, heads),
+              attention.plain_attention_streaming(q, k, v, heads), {}),
+             ("T1", lambda: av.sublane_attention(q, k, v, heads),
+              av.plain_sublane_attention(q, k, v, heads), {})]
+    for name, bk, bf16_p in CHUNK_ROWS:
+        if L % bk:
+            continue
+        p = av.chunked_sm90_plan(hd, L, B * heads, L, bk, bf16_p)
+        call = (lambda bk=bk, bf16_p=bf16_p: av.chunked_attention(
+            q, k, v, heads, bk=bk, bf16_p=bf16_p))
+        calls.append((f"T3 {name}", call, av.plain_chunked_attention(
+            q, k, v, heads, bk=bk, bf16_p=bf16_p),
+            {f: p[f] for f in ("bkv", "chunk_tiles", "passes")}))
+    rows = []
+    for kernel, call, plain, plan in calls:
+        rows.append({"kernel": kernel, "tag": tag, "shape": [B, L, D, heads],
+                     **plan, "max_diff": _common.max_diff(call(), plain),
+                     **(_times(call) if timed
+                        else {"ms": None, "device_ms": None})})
     return rows
 
 
@@ -658,6 +699,8 @@ def main(argv=None) -> int:
               + (f"splits {r['splits']} " if "splits" in r else "")
               + (f"bands {r['bands']} " if "bands" in r else "")
               + (f"ctas {r['ctas']} " if "ctas" in r else "")
+              + (f"bkv {r['bkv']} tiles a chunk {r['chunk_tiles']} "
+                 if "chunk_tiles" in r else "")
               + ("(plan) " if r.get("plan") else "")
               + f"{_common.fmt(r['ms'], '.4f')} ms, device "
               + f"{_common.fmt(r['device_ms'], '.4f')} ms"

@@ -231,14 +231,16 @@ def test_slotted_is_k13s_function(exp2_bf16):
 def test_entry_point_skips_slotted_rows_beyond_the_slot():
     """At hd 160 neither K13 nor T4 (P = 256 > 160) applies: run_shape
     gives every other row and no slotted one; at hd 80 the T4 rows diff
-    against K13 (base-slotted)."""
+    against K13 (base-slotted). At 128 keys T3's tool chunks (512 and up)
+    do not apply either (the tool's rule)."""
     gen = torch.Generator().manual_seed(0)
     rows = tool.run_shape("hd160", 1, 128, 320, 2, "variants", "cpu", gen)
     got = [r["row"] for r in rows]
-    assert got == [r for r in tool.ROWS if tool.layout(r) == "proj"]
+    assert got == [r for r in tool.ROWS
+                   if tool.layout(r) == "proj" and tool.applies(r, 128)]
     rows = tool.run_shape("hd80", 1, 128, 160, 2, "variants", "cpu", gen)
     by_row = {r["row"]: r for r in rows}
-    assert list(by_row) == list(tool.ROWS)
+    assert list(by_row) == [r for r in tool.ROWS if tool.applies(r, 128)]
     for row in tool.SLOTTED_ROWS:
         assert by_row[row]["base_row"] == "base-slotted"
         assert by_row[row]["max_abs_diff_base"] < 0.02

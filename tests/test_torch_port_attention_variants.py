@@ -295,11 +295,14 @@ def test_entry_point_rows_on_cpu(capsys):
     record = json.loads(out[-1])
     assert record["device"] == "cpu"
     rows = {(r["shape"], r["row"]) for r in record["rows"]}
-    for label, *_ in tool.SHAPE_SETS["tiny"]:
+    for label, _, L, *_ in tool.SHAPE_SETS["tiny"]:
         for row in tool.ROWS:
-            assert (label, row) in rows
+            # T3's tool chunks (512 and up) under the tool's rule: none
+            # divides a tiny L and differs from it
+            assert ((label, row) in rows) == tool.applies(row, L)
             assert any(line.startswith(f"{label} {row} ")
-                       for line in out[:-1]), (label, row)
+                       for line in out[:-1]) == tool.applies(row, L), (
+                label, row)
     for r in record["rows"]:
         assert r["ms"] is None  # no device, no time
         if r["row"] not in ("base", "sdpa") and r["finite"]:

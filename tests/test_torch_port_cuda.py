@@ -257,14 +257,20 @@ def test_staged_entries_raise_and_never_fall_back():
               32, 64, 1, _cuda.stream_of(xb)) == 1
 
 
-# The softmax arms (csrc/attn_arms.cu), the head-layout arms
-# (csrc/attn_layouts.cu) and T1 (csrc/attn_transposed.cu): head dims 40, 80
-# and 160 (the kernel's three
-# register tiles), a ragged length, each option. T3's chunk must divide Lk,
-# so its keys are 1152 against 1100 queries.
+# The softmax arms (csrc/attn_arms.cu; bf16 T3 and T9 on
+# csrc/flash_attention_sm90.cu), the head-layout arms
+# (csrc/attn_layouts.cu) and T1 (bf16: flash_attention_sm90.cu; fp32:
+# csrc/attn_transposed.cu): head dims 40, 80 and 160 (the register tiles
+# of the fp32 twins and three buckets of the wgmma kernel), a ragged
+# length, each option. T3's chunk must divide Lk, so its keys are 1152
+# against 1100 queries (CHUNK_LK: but for bk = Lk = 1100, one chunk over a
+# ragged tile); chunks above 128 keys are bf16's alone (fp32's twin takes
+# 64 and 128).
 ARM_KEYS = {
     "nomax_attention": [(True, False), (False, False), (False, True)],
-    "chunked_attention": [(64, False), (128, False), (64, True)],
+    "chunked_attention": [(64, False), (128, False), (64, True),
+                          (384, False), (384, True), (1152, False),
+                          (1100, True)],
     "nomax_unpadded": [()],
     "pvt_attention": [()],
     "nomax_4d": [()],
@@ -272,6 +278,7 @@ ARM_KEYS = {
     "nomax_laneslice": [()],
     "sublane_attention": [()],
 }
+CHUNK_LK = {1100: 1100}
 
 
 @pytest.mark.cuda
@@ -284,8 +291,14 @@ def test_attention_arms_match_plain(kind, hd, dtype):
     gen = _setup()
     import chip_smoke
 
-    lk = 1152 if kind == "chunked_attention" else 1100
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
     for options in ARM_KEYS[kind]:
+        lk = 1100
+        if kind == "chunked_attention":
+            lk = CHUNK_LK.get(options[0], 1152)
+            if dtype == "float32" and options[0] not in av.CHUNK_WIDTHS:
+                continue
         key = ((2, 1100, 4 * hd), (2, lk, 4 * hd), 4) + options
         r = chip_smoke.compare(kind, key, getattr(torch, dtype), gen)
         assert r["err_over_tol"] <= 1.0, (key, r)
@@ -315,11 +328,121 @@ def test_attention_arms_raise_and_never_fall_back():
     for name, (wrapper, _) in av.ARMS.items():
         counter = av.LAUNCHES[name]
         before = counter.launches
-        # T4's fourth argument is its scale; y is then (BH 1, L, P 80)
+        # T4's fourth argument is its scale; y is then (BH 1, L, P 80); fp32
+        # T3 takes chunks of 64 or 128 keys (its default, the TPU tool's
+        # 1024, does not divide 256 keys either)
         out = wrapper(y, y, y, 40**-0.5 if name == "slotted_kernel_call"
-                      else 2)
+                      else 2, **(dict(bk=64) if name == "chunked_attention"
+                                 else {}))
         torch.cuda.synchronize()
         assert out.is_cuda and counter.launches == before + 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 4096, 320, 8), (3, 1024, 640, 8),
+                                   (2, 1152, 1280, 8)], ids=str)
+def test_chunked_at_the_tile_equals_k8_k2(shape):
+    """bf16 T3 with fp32 p at a chunk of the bucket's K/V tile (128 keys at
+    hd 40 and 80, 64 at hd 160) launches K8/K2's kernel: its output equals
+    flash_attention's and flash_attention_streaming's bit for bit; its own
+    counter moves, K2's and K8's do not."""
+    gen = _setup()
+    from diffusiontexturepainting_torch.ops import attention
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    B, L, D, heads = shape
+    hd = D // heads
+    q, k, v = (torch.randn((B, L, D), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    bkv = attention.sm90_plan(hd, L, B * heads)["bkv"]
+    assert av.chunked_sm90_plan(hd, L, B * heads, L, bkv)["online"]
+    counts = [c.launches for c in (av.chunked_launches,
+                                   attention.flash_launches,
+                                   attention.flash_streaming_launches)]
+    got = av.chunked_attention(q, k, v, heads, bk=bkv)
+    after = [c.launches for c in (av.chunked_launches,
+                                  attention.flash_launches,
+                                  attention.flash_streaming_launches)]
+    k2 = attention.flash_attention(q, k, v, heads)
+    k8 = attention.flash_attention_streaming(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert after == [counts[0] + 1, counts[1], counts[2]]
+    assert torch.equal(got, k2) and torch.equal(got, k8)
+
+
+@pytest.mark.cuda
+def test_chunked_sm90_plan_matches_the_library():
+    """ops/attention_variants.py chunked_sm90_plan equals the built
+    library's dtp_chunked_attention_sm90_plan for every hd a multiple of 8
+    up to 160, the attn_arms path's lengths and ragged ones, short and long
+    grids, chunks of one tile, of several, of every key, of 64 under a
+    128-key tile, both p; both refuse the same chunks."""
+    _setup()
+    import ctypes
+
+    from diffusiontexturepainting_torch import _cuda
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    fn = _cuda.function("flash_attention_sm90",
+                        "dtp_chunked_attention_sm90_plan",
+                        (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+    out = (ctypes.c_int * 6)()
+    for hd in range(8, 161, 8):
+        for lq, bh in ((16384, 24), (4096, 24), (1024, 24), (1100, 8),
+                       (1024, 2)):
+            for lk in (lq, 1152, 1088):
+                for bk in (32, 64, 96, 128, 256, 384, 512, 1024, 1100,
+                           1152, 2048, lk):
+                    for bf16_p in (0, 1):
+                        code = fn(hd, lq, bh, lk, bk, bf16_p,
+                                  ctypes.addressof(out))
+                        try:
+                            p = av.chunked_sm90_plan(hd, lq, bh, lk, bk,
+                                                     bool(bf16_p))
+                        except ValueError:
+                            assert code == -1, (hd, lq, bh, lk, bk)
+                            continue
+                        assert code == 0, (hd, lq, bh, lk, bk)
+                        assert list(out) == [
+                            p["bucket"], p["bkv"], p["chunk_tiles"],
+                            p["passes"], p["smem"], int(p["online"])], (
+                            hd, lq, bh, lk, bk, bf16_p)
+    assert fn(168, 1024, 1, 1024, 1024, 0, ctypes.addressof(out)) == -1
+
+
+@pytest.mark.cuda
+def test_fp32_t1_t3_stay_on_the_twins():
+    """fp32 T1 and T3 run the FMA twins (attn_transposed.cu, attn_arms.cu;
+    T3 at chunks of 64 or 128 keys, any other raising ValueError before a
+    launch) against their plain versions; the twins' entries return
+    cudaErrorInvalidValue for bf16."""
+    gen = _setup()
+    from diffusiontexturepainting_torch import _cuda
+    from diffusiontexturepainting_torch.ops import attention_variants as av
+
+    x = torch.randn((2, 256, 320), generator=gen, device="cuda")
+    for got, want in (
+            (av.sublane_attention(x, x, x, 8),
+             av.plain_sublane_attention(x, x, x, 8)),
+            (av.chunked_attention(x, x, x, 8, bk=128),
+             av.plain_chunked_attention(x, x, x, 8, bk=128))):
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-4
+    before = av.chunked_launches.launches
+    with pytest.raises(ValueError, match="fp32"):
+        av.chunked_attention(x, x, x, 8, bk=256)
+    assert av.chunked_launches.launches == before
+    y = x.bfloat16()
+    out = torch.empty_like(y)
+    ptrs = (y.data_ptr(), y.data_ptr(), y.data_ptr(), out.data_ptr())
+    sub = _cuda.function("attn_transposed", "dtp_sublane_attention",
+                         av._SUBLANE_ARGTYPES)
+    assert sub(*ptrs, 2, 8, 256, 256, 40, 0.2, 1, _cuda.stream_of(y)) == 1
+    chk = _cuda.function("attn_arms", "dtp_chunked_attention",
+                         av._CHUNKED_ARGTYPES)
+    # 1: cudaErrorInvalidValue
+    assert chk(*ptrs, 2, 8, 256, 256, 40, 0.2, 64, 0, 1,
+               _cuda.stream_of(y)) == 1
 
 
 @pytest.mark.cuda
