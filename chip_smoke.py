@@ -30,13 +30,15 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                K12b and T11 bit-identical on replay, output and
                statistics; K6's
                statistics also against its own fp32 output before the
-               rounding; T10 and T4 bit-identical on replay; the bf16
-               K2/K8/K13, K9, K1/K5, K3, K4, K6, K7, K12a, K11, K12b, T10,
-               T4 and T11 refuse what TMA cannot describe (ValueError, no
-               launch); the fp32 entries of csrc/conv3x3.cu,
-               conv_staged.cu's SAME and UP entries (fp32 K12a, K11 and
-               K12b), T10's (attn_transposed.cu), T4's (attn_layouts.cu)
-               and T11's (conv_arms.cu) refuse bf16;
+               rounding; T10, T4, T7, T9, T5 and T2 bit-identical on
+               replay; the bf16 K2/K8/K13, K9, K1/K5, K3, K4, K6, K7,
+               K12a, K11, K12b, T10, T4, T7, T9, T2, T5 and T11 refuse what
+               TMA cannot describe (ValueError, no launch); the fp32
+               entries of csrc/conv3x3.cu, conv_staged.cu's SAME and UP
+               entries (fp32 K12a, K11 and K12b), T10's
+               (attn_transposed.cu), T4's and T7's (attn_layouts.cu), T2's,
+               T5's and T9's (attn_arms.cu) and T11's (conv_arms.cu) refuse
+               bf16;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -88,8 +90,10 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   9a. attn_arms
                eight arms of the attention kernels through the A/B entry
                point's functions (diffusiontexturepainting_torch.tools.
-               attn_variants): the softmax arms T2 no-max and T5 unpadded
-               no-max (heads split by one copy pass) (csrc/attn_arms.cu),
+               attn_variants): the softmax arms T2 no-max (safe) and T5
+               unpadded no-max (heads split by one copy pass) (bf16 on the
+               one-pass mode of csrc/flash_attention_sm90.cu against the
+               static shift, head-major; T5 T2's launch on the copies),
                T3 chunked at 64-key chunks (bf16 on the chunked mode of
                csrc/flash_attention_sm90.cu: the max per 64-column half of
                a 128-key tile, K2's own launch at hd 160) and T9 (P V with
@@ -104,15 +108,21 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                shapes, each launched as often as that stamp launches K8/K2
                there (20 a shape), each output against the attention()
                route's, and T3 at the route's K/V tile equal to it bit for
-               bit; the
+               bit, T5 equal to T2 and T2 to T7 on T9's head-major grid bit
+               for bit; the
                clamp probe (raw logits above 83: the clamped arms equal
                their plain versions and differ from the exact softmax of K8,
                which rounds q as the arms do; T3 and T1 equal it) and the
                underflow probe (every exp2 underflows: zeros from the safe
-               arms, no NaN); the P precision probe (T9's and T7's path
-               outputs at the hd-160 shape against float64 evaluations with
-               p unrounded and with bf16(p), rounded to bf16: T9 nearer the
-               first, T7 the second, each by P_PRECISION_MARGIN; at the hd-80
+               arms, no NaN); the overflow probe (base-2 logits above
+               shift + 128 in some query rows: T2 unclamped, with either p,
+               non-finite in exactly the rows and heads its plain version
+               is, T2 safe and T5 finite); the P precision probe (T9's,
+               T7's and T2's path outputs and T2 with bf16 p at the hd-160
+               shape against float64 evaluations with p unrounded, with
+               bf16(p) and with bf16(exp2(bf16(s - shift))), rounded to
+               bf16: T9 nearer the first, T7 and T2 the second, T2's bf16 p
+               the third, each by P_PRECISION_MARGIN; at the hd-80
                shape, T3 at chunk 1024 with each p, the path's T3 (chunk
                64) and T1 against float64 evaluations of the running-max
                softmax under each chunk and p: each output nearer its own
@@ -241,10 +251,12 @@ SOURCES = {
     "upsample2x_conv3x3_inpad": "csrc/gn_conv_sm90.cu",
     "conv3x3_stream": "csrc/gn_conv_sm90.cu",
     "gn_silu_conv3x3": "csrc/conv_staged.cu",
-    "nomax_attention": "csrc/attn_arms.cu",
+    # bf16; fp32 runs attn_arms.cu
+    "nomax_attention": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_arms.cu
     "chunked_attention": "csrc/flash_attention_sm90.cu",
-    "nomax_unpadded": "csrc/attn_arms.cu",
+    # bf16; fp32 runs attn_arms.cu
+    "nomax_unpadded": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_arms.cu
     "pvt_attention": "csrc/flash_attention_sm90.cu",
     "nomax_4d": "csrc/attn_layouts.cu",
@@ -269,11 +281,15 @@ ARMS = ("nomax_attention", "chunked_attention", "nomax_unpadded",
 SLOTTED_ARM = "slotted_kernel_call"
 # the exact row-max arms: no clamp, no static shift
 EXACT_ARMS = ("chunked_attention", "sublane_attention")
-# T9 (p unrounded into P V) and T7 (bf16(p)), and T3 and T1 (the chunk of
-# the running max, p's precision): each output's mean distance to its own
-# function's float64 evaluation times this is at most its distance to each
+# T9 (p unrounded into P V), T7 and T2 (bf16(p)) and T2 with bf16 p
+# (bf16(exp2(bf16(s - shift)))), and T3 and T1 (the chunk of the running
+# max, p's precision): each output's mean distance to its own function's
+# float64 evaluation times this is at most its distance to each
 # neighbour's (the emulations read about 400 apart for T9 and T7)
 P_PRECISION_MARGIN = 16.0
+# The overflow probe's query rows whose base-2 logits pass shift + 128:
+# every OVERFLOW_EVERY-th, q there OVERFLOW_GAIN times its own key row
+OVERFLOW_EVERY, OVERFLOW_GAIN = 7, 64.0
 # T3's chunk in the chunk probe: the TPU tool's default
 CHUNK_PROBE_BK = 1024
 # T10 on the pv_product path; T11 and T12 on the conv_arms path
@@ -439,7 +455,7 @@ DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
                 "conv3x3_inpad", "conv3x3_stream",
                 "upsample2x_conv3x3_inpad", SLOTTED_ARM, PV, TAPS,
                 "nomax_allheads", "pvt_attention", "sublane_attention",
-                "chunked_attention")
+                "chunked_attention", "nomax_attention", "nomax_unpadded")
 # Kernels whose family member (FAMILY_IS) runs the same launch in bf16:
 # their outputs must equal its bit for bit (T3 where its chunk is the K/V
 # tile of the bucket, with fp32 p: K8/K2's launch; family_exact).
@@ -1590,27 +1606,58 @@ def _err_tol(got, want, dtype_name="bfloat16"):
 
 
 def p_precision(got, q, k, v, heads, shift=32.0):
-    """mean |got - bf16(o)| over got's elements for two float64
+    """mean |got - bf16(o)| over got's elements for three float64
     evaluations o of the shifted softmax on got's bf16 inputs (q pre-scaled
-    and rounded as the kernels do; s clamped at shift + 88; l the unrounded
-    p's sum + 1e-30), a head at a time: p unrounded into P V (T9's
-    function), then bf16(p) (T7's). Returns (to_fp32_p, to_bf16_p)."""
+    and rounded as the kernels do; s clamped at shift + 88), a head at a
+    time: p unrounded into P V (T9's function), then bf16(p) (T7's and
+    T2's), both with l the unrounded p's sum + 1e-30; then p =
+    bf16(exp2(bf16(s - shift))) into P V with l the sum of those p + 1e-30
+    (T2's with bf16 p). Returns (to_fp32_p, to_bf16_p, to_bf16_exp2)."""
     import torch
 
     from diffusiontexturepainting_torch.ops import attention_variants as av
 
+    bf16 = torch.bfloat16
     qs, kh, vh = av._heads(q, k, v, heads)
     hd = qs.shape[-1]
-    dist = [0.0, 0.0]
+    dist = [0.0, 0.0, 0.0]
     for h in range(heads):
         s = qs[:, h].double() @ kh[:, h].double().transpose(-1, -2)
-        p = torch.exp2(torch.clamp_max(s, shift + 88.0) - shift)
+        d = torch.clamp_max(s, shift + 88.0) - shift
+        p = torch.exp2(d)
         l = p.sum(-1, keepdim=True) + 1e-30
+        pb = torch.exp2(d.to(bf16).double()).to(bf16).double()
         g = got[..., h * hd:(h + 1) * hd].double()
-        for i, pp in enumerate((p, p.to(torch.bfloat16).double())):
-            o = ((pp @ vh[:, h].double()) / l).to(torch.bfloat16).double()
+        for i, (pp, ll) in enumerate(((p, l), (p.to(bf16).double(), l),
+                                      (pb, pb.sum(-1, keepdim=True)
+                                       + 1e-30))):
+            o = ((pp @ vh[:, h].double()) / ll).to(bf16).double()
             dist[i] += (g - o).abs().sum().item()
-    return dist[0] / got.numel(), dist[1] / got.numel()
+    return tuple(x / got.numel() for x in dist)
+
+
+def overflow_inputs(B, L, D, gen, device="cuda"):
+    """bf16 q, k, v (B, L, D) and the query rows `hot`: standard normal but
+    in every OVERFLOW_EVERY-th query row, where q is OVERFLOW_GAIN times
+    the key row of the same index. There each head's base-2 logit against
+    that key is at least ~170 for any head dim (|k|^2 of about hd times
+    hd^-0.5 log2(e) times the gain), above shift + 128 = 160, so T2 without
+    its clamp overflows; elsewhere the logits stay within about 8 of 0."""
+    import torch
+
+    q, k, v = (torch.randn((B, L, D), generator=gen, device=device)
+               for _ in range(3))
+    hot = torch.zeros(L, dtype=torch.bool, device=device)
+    hot[::OVERFLOW_EVERY] = True
+    q[:, hot] = OVERFLOW_GAIN * k[:, hot]
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), hot
+
+
+def nonfinite_heads(out, heads):
+    """(B, L, heads) bool: the (image, row, head) whose output holds a
+    value that is not finite."""
+    B, L, D = out.shape
+    return (~out.isfinite()).view(B, L, heads, D // heads).any(-1)
 
 
 def chunk_precision(outs, q, k, v, heads, evals):
@@ -1686,9 +1733,11 @@ def attn_arms_phase(gen):
     """The softmax arms through the A/B entry point's functions at the
     1024^2/4 stamp's three UNet self-attention shapes, ARM_LAUNCHES calls of
     each arm a shape, with the counts set to 0 just before and read just
-    after; each output against the attention() route's (K8/K2); then the
-    P precision probe on T9's and T7's outputs at the hd-160 shape, and the
-    clamp and underflow probes. Returns (launches, shapes)."""
+    after; each output against the attention() route's (K8/K2), T5 and T2
+    bit for bit against T2 and T7 on T9's head-major grid; then the P
+    precision probe on T9's, T7's and T2's outputs and T2 with bf16 p at
+    the hd-160 shape, the chunk probe, and the clamp, underflow and
+    overflow probes. Returns (launches, shapes)."""
     import torch
 
     from diffusiontexturepainting_torch.ops import attention
@@ -1738,6 +1787,20 @@ def attn_arms_phase(gen):
                                      "route's bits")
             log(f"attn_arms: chunked_attention bk {bkv} (the {route} route's "
                 f"K/V tile) at {label}: equal to the route bit for bit")
+            # T5 is T2's safe launch on the split heads (one head, B*h
+            # images, the same bucket), and T2's that of T7's head-major
+            # probe
+            t2 = outs["nomax_attention"]
+            if not (torch.equal(outs["nomax_unpadded"], t2) and torch.equal(
+                    av._nomax_allheads(q, k, v, heads, head_major=True),
+                    t2)):
+                raise AssertionError(
+                    f"attn_arms: at {label} nomax_unpadded, nomax_attention "
+                    "(safe) and nomax_allheads on the head-major grid are "
+                    "not one launch's bits")
+            log(f"attn_arms: nomax_unpadded at {label} equal to "
+                "nomax_attention (safe) bit for bit, and nomax_attention to "
+                "nomax_allheads on T9's head-major grid")
             for name, got in outs.items():
                 err, tol = _err_tol(got, base)
                 if not torch.isfinite(got).all() or not err <= tol:
@@ -1748,22 +1811,31 @@ def attn_arms_phase(gen):
                     f"{tuple(q.shape)}: max|diff| {err:.3e} against the "
                     f"{route} route (tol {tol:.3e}); err/tol {err / tol:.3f}")
 
-        # P precision: T9's p enters P V unrounded (hi + lo), T7's as
-        # bf16(p); within chip_smoke's tolerance the two are one function,
-        # so each is held nearer its own float64 evaluation
+        # P precision: T9's p enters P V unrounded (hi + lo), T7's and T2's
+        # as bf16(p), T2's bf16 p is bf16(exp2(bf16(s - shift))); within
+        # chip_smoke's tolerance they are one function, so each is held
+        # nearer its own float64 evaluation than the other p's
         (label, _, _, _, heads), (q, k, v), outs = max(
             zip(shapes, inputs, firsts), key=lambda c: c[0][3] // c[0][4])
-        for name, own in (("pvt_attention", 0), ("nomax_allheads", 1)):
-            dist = p_precision(outs[name], q, k, v, heads)
-            if not P_PRECISION_MARGIN * dist[own] <= dist[1 - own]:
+        evals = ("fp32-p", "bf16-p", "bf16-exp2")
+        t2_bf16p = tool.row_call("nomax/bf16p", q, k, v, heads)
+        for name, got, own, other in (
+                ("pvt_attention", outs["pvt_attention"], 0, 1),
+                ("nomax_allheads", outs["nomax_allheads"], 1, 0),
+                ("nomax_attention", outs["nomax_attention"], 1, 2),
+                ("nomax_attention bf16p", t2_bf16p, 2, 1)):
+            dist = p_precision(got, q, k, v, heads)
+            near = ", ".join(f"{dist[i]:.3e} to the {e} evaluation"
+                             for i, e in enumerate(evals))
+            if not P_PRECISION_MARGIN * dist[own] <= dist[other]:
                 raise AssertionError(
                     f"attn_arms: P precision probe {name} at {label}: mean "
-                    f"|diff| {dist[0]:.3e} to the fp32-p evaluation, "
-                    f"{dist[1]:.3e} to the bf16-p one")
+                    f"|diff| {near}")
             log(f"attn_arms: P precision probe {name} at {label} "
-                f"{tuple(q.shape)}: mean|diff| {dist[0]:.3e} to the fp32-p "
-                f"evaluation, {dist[1]:.3e} to the bf16-p one (its own "
-                f"{P_PRECISION_MARGIN:g}x nearer, as it must)")
+                f"{tuple(q.shape)}: mean|diff| {near} (its own, "
+                f"{evals[own]}, {P_PRECISION_MARGIN:g}x nearer than "
+                f"{evals[other]}, as it must)")
+        del t2_bf16p
 
         # T3's chunk and p, T1's p: within chip_smoke's tolerance T3 at any
         # chunk with either p, the halves, K8/K2's online pass and T1 are
@@ -1835,6 +1907,34 @@ def attn_arms_phase(gen):
                                      "not all zeros")
         log(f"attn_arms: underflow probe (2, 1100, 320): {', '.join(safe)} "
             "(nomax_attention safe) give zeros, no NaN")
+
+        # overflow: base-2 logits above shift + 128 in the hot rows. T2
+        # without its clamp overflows there as on the TPU (p = +inf, l =
+        # +inf, a NaN row), with fp32 or bf16 p; its clamped forms do not
+        q, k, v, hot = overflow_inputs(2, 1100, 320, gen)
+        for row in ("nomax", "nomax/bf16p"):
+            got = nonfinite_heads(tool.row_call(row, q, k, v, 8), 8)
+            want = nonfinite_heads(tool.row_call(row, q, k, v, 8,
+                                                 plain=True), 8)
+            if not (torch.equal(got, want) and want.any()
+                    and not want[:, ~hot].any()):
+                raise AssertionError(
+                    f"attn_arms: overflow probe {row}: {int(got.sum())} "
+                    f"non-finite (image, row, head), the plain version "
+                    f"{int(want.sum())}, {int(got.ne(want).sum())} apart")
+            log(f"attn_arms: overflow probe (2, 1100, 320) {row}: "
+                f"{int(got.sum())} of {got.numel()} (image, row, head) "
+                "non-finite, exactly the plain version's, all in the hot "
+                "rows")
+        for row in ("nomax-safe", "nomax-unpadded"):
+            got = tool.row_call(row, q, k, v, 8)
+            err, tol = _err_tol(got, tool.row_call(row, q, k, v, 8,
+                                                   plain=True))
+            if not (torch.isfinite(got).all() and err <= tol):
+                raise AssertionError(f"attn_arms: overflow probe {row}: "
+                                     f"non-finite or {err:.3e} > {tol:.3e}")
+            log(f"attn_arms: overflow probe (2, 1100, 320) {row}: finite, "
+                f"{err:.3e} from its plain version (tol {tol:.3e})")
     return launches, shapes_seen
 
 
@@ -2214,15 +2314,16 @@ def tma_refusal_probe(gen):
         lambda: av.slotted_kernel_call(s_36, s_36, s_36, 0.1),
         "slotted_kernel_call q 2 bytes off 16":
         lambda: av.slotted_kernel_call(s_off, s_off, s_off, 0.1)})
-    # bf16 T7 and T9 (the one-pass modes of flash_attention_sm90.cu) at hd
-    # 36 and on a q 2 bytes off 16
+    # bf16 T2, T5, T7 and T9 (the one-pass modes of flash_attention_sm90.cu)
+    # at hd 36 and on a q 2 bytes off 16 (T5 before its copies of the heads)
     h_36 = torch.randn((2, 64, 4 * 36), generator=gen,
                        device="cuda").bfloat16()
     h_flat = torch.randn(1 + 2 * 64 * 320, generator=gen,
                          device="cuda").bfloat16()
     h_off = h_flat[1:].view(2, 64, 320)
     h_ok = h_flat[:2 * 64 * 320].view(2, 64, 320)
-    for name in ("nomax_allheads", "pvt_attention"):
+    for name in ("nomax_allheads", "pvt_attention", "nomax_attention",
+                 "nomax_unpadded"):
         arm = getattr(av, name)
         calls[f"{name} hd 36"] = lambda arm=arm: arm(h_36, h_36, h_36, 4)
         calls[f"{name} q 2 bytes off 16"] = (
@@ -2252,7 +2353,8 @@ def tma_refusal_probe(gen):
                 conv3x3.conv3x3_stream_launches,
                 conv3x3.upsample_inpad_launches, av.pv_product_launches,
                 av.slotted_launches, cv.conv_window_taps_launches,
-                av.nomax_allheads_launches, av.pvt_launches)
+                av.nomax_allheads_launches, av.pvt_launches,
+                av.nomax_launches, av.nomax_unpadded_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -2304,7 +2406,12 @@ def tma_refusal_probe(gen):
             x8.data_ptr(), x8.data_ptr(), x8.data_ptr(), out.data_ptr(), 1,
             2, 8, 8, 8, 0.1, 32.0, 1, stream)
            for source, symbol in (("attn_arms", "dtp_pvt_attention"),
-                                  ("attn_layouts", "dtp_nomax_allheads"))}}
+                                  ("attn_layouts", "dtp_nomax_allheads"),
+                                  ("attn_arms", "dtp_nomax_unpadded"))},
+        "dtp_nomax_attention": _cuda.function(
+            "attn_arms", "dtp_nomax_attention", av._NOMAX_ARGTYPES)(
+            x8.data_ptr(), x8.data_ptr(), x8.data_ptr(), out.data_ptr(), 1,
+            2, 8, 8, 8, 0.1, 32.0, 1, 0, 1, stream)}
     splits = {symbol: _cuda.function("conv3x3", f"{symbol}_splits",
                                      conv3x3._SPLIT_ARGTYPES)(
         1, 8, 8, 16, 16, 1)
@@ -2315,8 +2422,9 @@ def tma_refusal_probe(gen):
                              f"split plans {splits}")
     log(f"probe: conv3x3.cu's, conv_staged.cu's SAME and UP, "
         f"attn_transposed.cu's T10, attn_layouts.cu's T4 and T7, "
-        f"attn_arms.cu's T9 and conv_arms.cu's T11 fp32 entries refuse "
-        f"bf16: {codes} (cudaErrorInvalidValue), conv split plans -1")
+        f"attn_arms.cu's T2, T5 and T9 and conv_arms.cu's T11 fp32 entries "
+        f"refuse bf16: {codes} (cudaErrorInvalidValue), conv split plans "
+        "-1")
 
 
 def replay_probe(gen):
@@ -2328,8 +2436,9 @@ def replay_probe(gen):
     tool's first shape, T10 at its tool's three shapes in
     both orientations (the partials of many CTAs added by the last), T4
     at the slotted arm's two shapes in both softmax flavours, each twice
-    on the same inputs, and T7 and T9 at the attn_arms path's three head
-    dims (ragged), twice and once more replayed from a CUDA graph:
+    on the same inputs, and T7, T9, T5 and T2 (safe, unclamped, bf16 p) at
+    the attn_arms path's three head dims (ragged), twice and once more
+    replayed from a CUDA graph:
     outputs and statistics bit-identical (fixed reduction orders, no float
     atomics); K1/K5's and K14's statistics also those of their own
     outputs, K6's those of its fp32 output before the rounding
@@ -2364,9 +2473,12 @@ def replay_probe(gen):
                 raise AssertionError(f"probe: {SLOTTED_ARM} {key} differs "
                                      "on replay")
             log(f"probe: {SLOTTED_ARM} {key} bf16: bit-identical on replay")
-    for name in ("nomax_allheads", "pvt_attention"):
+    for name, opts in (("nomax_allheads", ()), ("pvt_attention", ()),
+                       ("nomax_unpadded", ()),
+                       *[("nomax_attention", o) for o in
+                         ((True, False), (False, False), (False, True))]):
         for D in (320, 640, 1280):
-            key = ((2, 1100, D), (2, 1100, D), 8)
+            key = ((2, 1100, D), (2, 1100, D), 8) + opts
             kernel = kernel_case(name, key, torch.bfloat16, gen)[0]
             first, again = kernel(), kernel()
             graph = torch.cuda.CUDAGraph()
@@ -2914,6 +3026,12 @@ def main() -> int:
         ("nomax_attention", ((2, 1100, 320), (2, 1100, 320), 8, False,
                              False)),
         ("nomax_attention", ((2, 1100, 640), (2, 1100, 640), 8, True, True)),
+        # bf16 T2 (flash_attention_sm90.cu, head-major): keys != queries,
+        # each p at hd 160
+        ("nomax_attention", ((2, 1100, 1280), (2, 1000, 1280), 8, False,
+                             True)),
+        ("nomax_attention", ((2, 1100, 1280), (2, 900, 1280), 8, True,
+                             False)),
         ("chunked_attention", ((2, 1100, 640), (2, 1152, 640), 8, 128,
                                False)),
         ("chunked_attention", ((2, 1100, 320), (2, 1152, 320), 8, 64, True)),
@@ -2936,6 +3054,7 @@ def main() -> int:
           for bf16_p in (False, True)],
         ("nomax_unpadded", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("nomax_unpadded", ((2, 1100, 1280), (2, 1100, 1280), 8)),
+        ("nomax_unpadded", ((2, 1100, 640), (2, 900, 640), 8)),
         ("pvt_attention", ((2, 1100, 320), (2, 1100, 320), 8)),
         ("pvt_attention", ((2, 1100, 1280), (2, 1100, 1280), 8)),
         ("pvt_attention", ((2, 1100, 640), (2, 900, 640), 8)),

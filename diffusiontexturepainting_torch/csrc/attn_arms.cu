@@ -1,11 +1,14 @@
-// The softmax arms of the attention kernels: four A/B variants of K8/K2,
-// four C entries over the register-resident kernel of attn_arms.cuh (its
-// design, bounds and fp32 twin are described there):
+// The softmax arms of the attention kernels in fp32: four A/B variants of
+// K8/K2, four C entries over the FMA twin of attn_arms.cuh (its design and
+// bounds are described there). Every arm runs in bf16 on
+// csrc/flash_attention_sm90.cu, and every entry here refuses bf16:
 //
 //   dtp_nomax_attention   T2 <- tools/bench_attn_variants.py
 //       nomax_attention / _nomax_kernel: p = exp2(s - shift) with a static
 //       shift and no max pass; `safe` clamps s at shift + 88 and adds 1e-30
-//       to the row sum; `bf16_p` takes exp2 of bf16-rounded logits.
+//       to the row sum; `bf16_p` takes exp2 of bf16-rounded logits. bf16 T2
+//       runs dtp_nomax_attention_sm90 (one pass of the wgmma/TMA kernel
+//       against the static shift, head-major).
 //   dtp_chunked_attention T3 <- bench_attn_variants.py chunked_attention /
 //       _chunked_kernel in fp32: online softmax, the running max updated
 //       once per chunk of bk keys (bk 64 or 128). bf16 T3 runs
@@ -13,10 +16,10 @@
 //       pass a chunk of the wgmma/TMA kernel, any chunk the TPU tool runs);
 //       this entry refuses bf16.
 //   dtp_nomax_unpadded    T5 <- bench_attn_variants.py nomax_unpadded /
-//       _nomax_unpadded_kernel: T2 with `safe` and fp32 p, P V over n8 tiles
-//       of hd itself (hd 40 = 5 x 8) instead of hd padded to 16. The
-//       wrapper splits the heads into contiguous (B*h, L, hd) copies first
-//       and launches it with one head, as the TPU tool does.
+//       _nomax_unpadded_kernel: T2 with `safe` and fp32 p. The wrapper
+//       splits the heads into contiguous (B*h, L, hd) copies first and
+//       launches it with one head, as the TPU tool does; bf16 T5 runs
+//       dtp_nomax_unpadded_sm90 (T2's safe launch) on those copies.
 //   dtp_pvt_attention     T9 <- tools/bench_attn_round4.py pvt_attention /
 //       _pvt_kernel: T5's softmax with P V taking the fp32 p (the TPU
 //       kernel promotes v to p's fp32), in fp32 only: with fp32 v that is
@@ -28,26 +31,26 @@
 #include "attn_arms.cuh"
 
 // Every entry: q (B,Lq,H*hd), k and v (B,Lk,H*hd), out (B,Lq,H*hd),
-// contiguous, bf16 (is_bf16) or fp32; hd <= 160; scale_log2 = scale *
+// contiguous fp32 (is_bf16 must be 0); hd <= 160; scale_log2 = scale *
 // log2(e), applied to q before Q K^T.
 
-// T2: exp2(s - shift), `safe` and `bf16_p` as in the TPU kernel.
+// T2 in fp32: exp2(s - shift), `safe` and `bf16_p` as in the TPU kernel.
 extern "C" cudaError_t dtp_nomax_attention(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int H, int Lq, int Lk, int hd,
                                            float scale_log2, float shift,
                                            int safe, int bf16_p, int is_bf16,
                                            void* stream) {
-  if (dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
+  if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
   auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                          is_bf16);
+                          false);
   a.safe = safe != 0, a.bf16_p = bf16_p != 0;
-  return dtp::dispatch<dtp::kNomax, 64>(a, is_bf16,
-                                        static_cast<cudaStream_t>(stream));
+  return dtp::dispatch_f32<dtp::kNomax, 64>(
+      a, static_cast<cudaStream_t>(stream));
 }
 
-// T3 in fp32 (is_bf16 must be 0): the running max per chunk of bk keys;
-// bk in {64, 128} divides Lk.
+// T3 in fp32: the running max per chunk of bk keys; bk in {64, 128}
+// divides Lk.
 extern "C" cudaError_t dtp_chunked_attention(const void* q, const void* k,
                                              const void* v, void* out, int B,
                                              int H, int Lq, int Lk, int hd,
@@ -65,21 +68,21 @@ extern "C" cudaError_t dtp_chunked_attention(const void* q, const void* k,
   return dtp::dispatch_f32<dtp::kChunked, 128>(a, s);
 }
 
-// T5: T2 with `safe`, fp32 p, P V over hd itself.
+// T5 in fp32: T2 with `safe`.
 extern "C" cudaError_t dtp_nomax_unpadded(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int H, int Lq, int Lk, int hd,
                                           float scale_log2, float shift,
                                           int is_bf16, void* stream) {
-  if (dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
+  if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
   auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                          is_bf16);
+                          false);
   a.safe = true;
-  return dtp::dispatch<dtp::kUnpadded, 64>(a, is_bf16,
-                                           static_cast<cudaStream_t>(stream));
+  return dtp::dispatch_f32<dtp::kUnpadded, 64>(
+      a, static_cast<cudaStream_t>(stream));
 }
 
-// T9 in fp32 (is_bf16 must be 0): T5's softmax, P V with the fp32 p.
+// T9 in fp32: T5's softmax, P V with the fp32 p.
 extern "C" cudaError_t dtp_pvt_attention(const void* q, const void* k,
                                          const void* v, void* out, int B,
                                          int H, int Lq, int Lk, int hd,

@@ -1,5 +1,6 @@
-// The register-resident body shared by the softmax arms (attn_arms.cu) and
-// the layout arms (attn_layouts.cu): one templated kernel, FA2-style.
+// The register-resident body of the layout arms T6 and T8 in bf16
+// (attn_layouts.cu) and the FMA twin of every arm in fp32 (attn_arms.cu,
+// attn_layouts.cu, attn_transposed.cu): one templated kernel, FA2-style.
 //
 // Every arm pre-scales q by scale*log2(e) and rounds it to its type before
 // Q K^T, so s is the fp32 base-2 logit. Layout: (B, L, H*hd) tensors read
@@ -9,13 +10,15 @@
 // The softmax, a template parameter (ARM):
 //   kNomax    exp2(s - shift) with a static shift and no max pass; `safe`
 //             clamps s at shift + 88 and adds 1e-30 to the row sum;
-//             `bf16_p` takes exp2 of bf16-rounded logits.
+//             `bf16_p` takes exp2 of bf16-rounded logits; the fp32 twin's
+//             only (T2 in fp32; bf16 T2 runs flash_attention_sm90.cu).
 //   kChunked  online softmax, the running max updated once per chunk of
 //             BK keys; the fp32 twin's only (T3 in fp32; bf16 T3 runs
 //             flash_attention_sm90.cu).
 //   kUnpadded kNomax with `safe` and fp32 p fixed at compile time; P V
 //             over n8 tiles of hd itself (hd 40 = 5 x 8) instead of hd
-//             padded to 16.
+//             padded to 16: T6 and T8 in bf16 (bf16 T5 runs
+//             flash_attention_sm90.cu on its copies of the heads).
 //   kRowmax   the row-max softmax: two passes over K, the first for the
 //             exact row max m, the second for exp2(s - m) (of bf16-rounded
 //             s - m with `bf16_p`) and P V; the fp32 twin's only (T1 and
@@ -42,8 +45,7 @@
 // goes from S's registers into P V without a trip through shared memory.
 // Row sums reduce over the 4 threads of a quad (shuffles 1, 2). The output
 // is staged through the warp's own Q rows in shared memory and stored with
-// 16-byte writes. The bf16 kernel runs the static-shift arms only (kNomax,
-// kUnpadded).
+// 16-byte writes. The bf16 kernel runs kUnpadded only.
 //
 // fp32 inputs run an FMA twin, one thread per query row (speed not
 // measured: it exists for fp32 parity with the plain versions).
@@ -265,14 +267,15 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
   const int w16 = warp * 16;
   const int hd = a.hd, Lk = a.Lk;
   const int nk16 = (hd + 15) >> 4;
-  // n8 tiles of P V: hd padded to 16, or (kUnpadded) hd itself
-  const int no8 = ARM == kUnpadded ? (hd + 7) >> 3 : 2 * nk16;
+  // n8 tiles of P V: hd itself
+  const int no8 = (hd + 7) >> 3;
   const int ntiles = (Lk + BK - 1) / BK;
 
   // Q, pre-scaled and rounded to bf16, then the first tiles: a copy group
   // holds tile j of K and V.
-  static_assert(ARM == kNomax || ARM == kUnpadded,
-                "the row-max and chunked arms run in fp32 only");
+  static_assert(ARM == kUnpadded,
+                "T6 and T8 only: the other arms run in fp32 here, in bf16 "
+                "on flash_attention_sm90.cu");
   stage_q<HDP, LD>(Qs, qb, D, q0, a);
   stage_rows<HDP, LD>(Ks, kb, D, 0, BK, Lk, hd, a.vec);
   stage_rows<HDP, LD>(Vs, vb, D, 0, BK, Lk, hd, a.vec);
@@ -312,20 +315,16 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
 
     // --- softmax on the C fragments: element e of tile n is row
     // g + 8*(e>>1), key kv0 + 8n + 2t + (e&1); no max pass: a static
-    // shift (T2's options; T5 safe, fp32 p) ---
+    // shift, s clamped at shift + 88, fp32 p ---
     {
-      const bool safe = ARM == kNomax ? a.safe : true;
-      const bool bf16_p = ARM == kNomax && a.bf16_p;
       const float cap = a.shift + 88.0f;
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float p = 0.0f;
-          if (kv0 + n * 8 + 2 * t + (e & 1) < Lk) {
-            const float d = (safe ? fminf(S[n][e], cap) : S[n][e]) - a.shift;
-            p = bf16_p ? round_bf16(exp2f(round_bf16(d))) : exp2f(d);
-          }
+          if (kv0 + n * 8 + 2 * t + (e & 1) < Lk)
+            p = exp2f(fminf(S[n][e], cap) - a.shift);
           l[e >> 1] += p;
           S[n][e] = p;
         }
@@ -348,7 +347,7 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
           mma(O[2 * np], pa, b0, b1);
           mma(O[2 * np + 1], pa, b2, b3);
         } else if (2 * np < no8) {
-          // kUnpadded's odd last n8 tile (hd 40: columns 32-39); lanes
+          // the odd last n8 tile (hd 40: columns 32-39); lanes
           // 16-31 repeat lanes 0-15's addresses, which x2 ignores
           uint32_t b0, b1;
           ldsm_x2_t(b0, b1,
@@ -366,8 +365,7 @@ __device__ __forceinline__ void arm_tile(const ArmArgs& a,
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (ARM == kUnpadded || (ARM == kNomax && a.safe))
-      l[i] += 1e-30f;
+    l[i] += 1e-30f;
   }
   __syncwarp();
   bf16* stage = Qs + w16 * LD;

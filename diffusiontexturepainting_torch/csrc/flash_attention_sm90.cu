@@ -1,4 +1,4 @@
-// K2, K8, K13 and the T1, T3, T4, T7 and T9 arms in bf16 for Hopper
+// K2, K8, K13 and the T1, T2, T3, T4, T5, T7 and T9 arms in bf16 for Hopper
 // (sm_90a): one warp-specialised kernel, Q K^T and P V both on wgmma, K/V
 // tiles brought in by TMA.
 //
@@ -67,6 +67,22 @@
 //       O^T = V^T E^T because hd 40 filled 31% of its MXU's lanes; a
 //       register-A P V has no such waste, so the orientation is not kept.
 //       The head-major grid and K2's bucket for hd.
+//   dtp_nomax_attention_sm90            T2 <- tools/bench_attn_variants.py
+//       nomax_attention / _nomax_kernel (pallas_call :157): the one pass
+//       against the static shift on T9's head-major grid and K2's bucket,
+//       bf16(p) into P V (kShift). `safe` clamps s at shift + 88 and adds
+//       1e-30 to l; without it neither (the clamp +inf, the epsilon 0: both
+//       are run-time fields, one instantiation), and
+//       s - shift above 128 gives p = +inf and NaN rows, as on the TPU.
+//       `bf16_p`: p = bf16(exp2(bf16(min(s, cap) - shift))), l the fp32 sum
+//       of those p (kShift | kBf16P; the first rounding in integer
+//       operations, the second two at a time into P V's operand).
+//   dtp_nomax_unpadded_sm90             T5 <- bench_attn_variants.py
+//       nomax_unpadded / _nomax_unpadded_kernel (pallas_call :293): T2's
+//       safe launch with fp32 p on the wrapper's contiguous (B*h, L, hd)
+//       copies of the heads, H = 1 (rows hd * 2 bytes apart: 80, 160, 320
+//       at hd 40, 80, 160, all whole 16 bytes). The bucket is T2's (plan
+//       sees the same B*H), so the bits are T2's.
 //   dtp_nomax_allheads_sm90             T7 <- tools/bench_attn_variants.py
 //       nomax_allheads / _nomax_allheads_kernel (pallas_call :379): the same
 //       one pass with bf16(p) into P V (kShift), every head of a query tile
@@ -84,9 +100,9 @@
 //       K2's long-sequence bucket for hd.
 //
 // Dispatch is by dtype in ops/attention.py (K2, K8, K13) and
-// ops/attention_variants.py (T1, T3, T4, T7, T9): bf16 CUDA tensors come
-// here and nowhere else; fp32 stays on flash_attention.cu's FMA twin (T4
-// and T7: attn_layouts.cu, T3 and T9: attn_arms.cu, T1:
+// ops/attention_variants.py (T1, T2, T3, T4, T5, T7, T9): bf16 CUDA tensors
+// come here and nowhere else; fp32 stays on flash_attention.cu's FMA twin
+// (T4 and T7: attn_layouts.cu, T2, T3, T5 and T9: attn_arms.cu, T1:
 // attn_transposed.cu).
 //
 // What bounds it on the H100: 4*L^2*hd flops a head against bytes read and
@@ -529,6 +545,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// x rounded to the nearest bf16 (ties to even) in fp32: cvt.rn's bits for
+// every x but NaN, in integer operations, off the pipe that ex2 and the
+// conversions share.
+__device__ __forceinline__ float round_bf16_int(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+}
+
 // ---- the plan of one bucket ----
 
 // KD: the Q K^T depth (KD/16 k16 steps); NV: the P V width of one output
@@ -576,6 +600,8 @@ struct Sm90Args {
   int nslices;   // output slices of NV columns
   float scale_log2;
   float shift;   // kShift, kShiftSplitP: the static shift
+  float clamp;   // head-major kShift: s clamped at shift + clamp, 88 or +inf
+  float eps;     // and l's epsilon, 1e-30 or 0 (+inf and 0: T2 unclamped)
   int chunk_tiles;  // kChunked: K/V tiles a chunk
 };
 
@@ -585,11 +611,13 @@ struct Sm90Args {
 // fp32, the row sum of the unrounded p and bf16(p) into P V (T4 without,
 // T1); against the static shift, s clamped at shift + 88, p = exp2(s -
 // shift) in fp32, the row sum of the unrounded p + 1e-30, and bf16(p) into
-// P V (T7) or p as bf16 hi + lo (T9). T3's: online with the max taken per
-// 64-column half of a 128-key tile (kHalves: 64-key chunks); the fixed max
-// per chunk of a.chunk_tiles tiles, each after a max pass over the chunk
-// (kChunked). kBf16P, or-ed into kOnline, kHalves or kChunked (T3's
-// bf16_p): p = bf16(exp2(bf16(s - m))), as kFixedMax's.
+// P V (T2, T5, T7) or p as bf16 hi + lo (T9); T2 without `safe` runs it
+// with the clamp +inf and the epsilon 0 (a.clamp, a.eps). T3's: online
+// with the max taken per 64-column half of a 128-key tile (kHalves: 64-key
+// chunks); the fixed max per chunk of a.chunk_tiles tiles, each after a
+// max pass over the chunk (kChunked). kBf16P, or-ed into kOnline, kHalves
+// or kChunked (T3's bf16_p) or kShift (T2's): p = bf16(exp2(bf16(s - m))),
+// as kFixedMax's, with the shift for m.
 enum Mode : int {
   kOnline = 0,
   kMaxPass = 1,
@@ -765,8 +793,8 @@ __device__ __forceinline__ void pv_split(float (&o)[NV / 2],
   fence_regs(lo);
 }
 
-// LAST: the softmax of the last pass, kOnline, kHalves (either with
-// kBf16P), kShift or kShiftSplitP for one pass; kFixedMax or kFixedMaxF32
+// LAST: the softmax of the last pass, kOnline, kHalves, kShift (each with
+// kBf16P or not) or kShiftSplitP for one pass; kFixedMax or kFixedMaxF32
 // after a max pass over every tile (one chunk), kChunked (with kBf16P or
 // not) the same per chunk of a.chunk_tiles tiles. AH: every head of the
 // query tile in this CTA, in turn.
@@ -779,8 +807,15 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
   constexpr bool CHUNKED = MULTI || LAST == kFixedMax || LAST == kFixedMaxF32;
   using P = Plan<KD, NV, BKV, NC, AH, MULTI>;
   constexpr int NQ = P::kQBufs;
-  constexpr bool SHIFT = LAST == kShift || LAST == kShiftSplitP;
-  static_assert(!AH || LAST == kShift, "the all-heads grid is T7's");
+  constexpr bool SHIFT = policy_of(LAST) == kShift || LAST == kShiftSplitP;
+  static_assert(!AH || policy_of(LAST) == kShift,
+                "the all-heads grid is T7's");
+  // The head-major kShift (T2, T5) reads its clamp above the shift and its
+  // epsilon from a.clamp and a.eps, so that T2's safe and unclamped forms
+  // share one instantiation; T7 and T9 keep the constants 88 and 1e-30,
+  // their code unchanged: read from the fields, ptxas scheduled them anew
+  // and T7 or T9 ran 2-4% slower at L0 on the card (PERF.md)
+  constexpr bool FIELDS = policy_of(LAST) == kShift && !AH;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -988,14 +1023,38 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
             m0 = fmaxf(m0, fmaxf(s[4 * i], s[4 * i + 1]));
             m1 = fmaxf(m1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
           }
-        } else if constexpr (MODE == kShift || MODE == kShiftSplitP) {
+        } else if constexpr (policy_of(MODE) == kShift ||
+                             MODE == kShiftSplitP) {
           // one pass, no max; a masked -inf gives ex2(-inf) = 0. At the
-          // clamp p reaches 2^88, so l stays below 2^103 over 16384 keys
+          // clamp (shift + 88) p reaches 2^88, so l stays below 2^103 over
+          // 16384 keys; unclamped (a.clamp +inf) s - shift above 128 gives
+          // p = +inf, l = +inf and a NaN row, as on the TPU
           float sum0 = 0.0f, sum1 = 0.0f;
-          const float cap = a.shift + 88.0f;
+          const float cap = a.shift + (FIELDS ? a.clamp : 88.0f);
+          if constexpr (BF16P) {
+            // T2's bf16 p: exp2 of the difference rounded in integer
+            // operations, rounded two at a time by cvt into P V's operand
+            // and unpacked for the sum (both roundings by cvt, one value
+            // at a time, cost T2 twice its fp32-p time on the card;
+            // PERF.md)
 #pragma unroll
-          for (int i = 0; i < BKV / 2; ++i)
-            s[i] = ex2(fminf(s[i], cap) - a.shift);
+            for (int k = 0; k < BKV / 16; ++k)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const float x = ex2(round_bf16_int(
+                    fminf(s[8 * k + 2 * r], cap) - a.shift));
+                const float y = ex2(round_bf16_int(
+                    fminf(s[8 * k + 2 * r + 1], cap) - a.shift));
+                const uint32_t h2 = pack_bf16(x, y);
+                pa[k][r] = h2;
+                s[8 * k + 2 * r] = __uint_as_float(h2 << 16);
+                s[8 * k + 2 * r + 1] = __uint_as_float(h2 & 0xffff0000u);
+              }
+          } else {
+#pragma unroll
+            for (int i = 0; i < BKV / 2; ++i)
+              s[i] = ex2(fminf(s[i], cap) - a.shift);
+          }
 #pragma unroll
           for (int i = 0; i < BKV / 8; ++i) {
             sum0 += s[4 * i] + s[4 * i + 1];
@@ -1015,7 +1074,7 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
                 pl[k][r] = pack_bf16(x - __uint_as_float(h2 << 16),
                                      y - __uint_as_float(h2 & 0xffff0000u));
               }
-          } else {
+          } else if constexpr (!BF16P) {
 #pragma unroll
             for (int k = 0; k < BKV / 16; ++k) {
               pa[k][0] = pack_bf16(s[8 * k], s[8 * k + 1]);
@@ -1114,9 +1173,11 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
       if constexpr (SHIFT) {
-        // with every p 0 (all logits below shift - 126), O / 1e-30 = 0
-        l0 += 1e-30f;
-        l1 += 1e-30f;
+        // with every p 0 (all logits below shift - 126), O / 1e-30 = 0;
+        // unclamped, a.eps is 0 and such a row 0 / 0, as on the TPU
+        const float eps = FIELDS ? a.eps : 1e-30f;
+        l0 += eps;
+        l1 += eps;
       }
       const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
       uint8_t* const stage = gbase + qbuf + wg * 64 * 128;
@@ -1249,7 +1310,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // The buckets of hd <= 160 (one output slice) with the last pass's softmax
 // LAST: the chunked modes, and the head-major one pass (kShiftSplitP,
-// kShift).
+// kShift with or without kBf16P).
 template <int LAST>
 cudaError_t launch_two_pass(int bucket, const CUtensorMap& tq,
                             const CUtensorMap& tk, const CUtensorMap& tv,
@@ -1482,19 +1543,24 @@ auto allheads_visit(int hd, int nc, F&& f) {
   }
 }
 
-// T7 and T9 on contiguous (B, L, H*hd) projections: the shifted softmax
-// in one pass, hd <= 160. `mode` kShiftSplitP (T9): the head-major grid and
-// K2's bucket. kShift (T7): the all-heads grid, allheads_bucket's KD, NV,
-// BKV, two Q buffers and `consumers` warpgroups (0: allheads_consumers;
-// -1: T9's grid and bucket instead, the probe that parts the grid's share
-// of T7 and T9's difference from the second product's).
+// T2, T5, T7 and T9 on contiguous (B, L, H*hd) projections: the shifted
+// softmax in one pass, hd <= 160. `mode` kShiftSplitP (T9) and kShift |
+// kBf16P (T2's bf16 p): the head-major grid and K2's bucket. kShift: the
+// same with `consumers` -1 (T2, T5; T7's probe that parts the grid's share
+// of T7 and T9's difference from the second product's), else T7's
+// all-heads grid, allheads_bucket's KD, NV, BKV, two Q buffers and
+// `consumers` warpgroups (0: allheads_consumers). `safe`: s clamped at
+// shift + 88 and 1e-30 added to l; else neither (T2 unclamped).
 cudaError_t run_shift(const void* q, const void* k, const void* v, void* out,
                       int B, int H, int Lq, int Lk, int hd, float scale_log2,
-                      float shift, int mode, int consumers,
+                      float shift, int mode, int consumers, bool safe,
                       cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || hd <= 0 || hd > 160 ||
       B > 65535 || H > 65535 || !std::isfinite(shift) || consumers < -1 ||
-      consumers > (hd <= 48 ? 3 : 2) || (mode != kShift && consumers))
+      consumers > (hd <= 48 ? 3 : 2) ||
+      !(mode == kShift || mode == kShiftSplitP ||
+        mode == (kShift | kBf16P)) ||
+      (mode != kShift && consumers > 0))
     return cudaErrorInvalidValue;
   const bool all_heads = mode == kShift && consumers >= 0;
   Sm90Args a{};
@@ -1503,6 +1569,8 @@ cudaError_t run_shift(const void* q, const void* k, const void* v, void* out,
   a.o_row = D, a.o_batch = Lq * D, a.o_head = hd;
   a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd, a.out_cols = hd, a.nslices = 1;
   a.scale_log2 = scale_log2, a.shift = shift;
+  a.clamp = safe ? 88.0f : INFINITY;
+  a.eps = safe ? 1e-30f : 0.0f;
   const int bucket = all_heads ? allheads_bucket(hd) : plan(hd, Lq, B * H);
   const int nc = !all_heads ? kBuckets[bucket][3]
                  : consumers ? consumers
@@ -1513,6 +1581,9 @@ cudaError_t run_shift(const void* q, const void* k, const void* v, void* out,
     return cudaErrorInvalidValue;
   if (mode == kShiftSplitP)
     return launch_two_pass<kShiftSplitP>(bucket, tq, tk, tv, a, B, stream);
+  if (mode != kShift)
+    return launch_two_pass<kShift | kBf16P>(bucket, tq, tk, tv, a, B,
+                                            stream);
   if (!all_heads)
     return launch_two_pass<kShift>(bucket, tq, tk, tv, a, B, stream);
   return allheads_visit(hd, nc, [&](auto c) {
@@ -1673,7 +1744,30 @@ extern "C" cudaError_t dtp_pvt_attention_sm90(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int Lq, int Lk, int hd, float scale_log2, float shift, void* stream) {
   return dtp::run_shift(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                        dtp::kShiftSplitP, 0,
+                        dtp::kShiftSplitP, 0, true,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// T2: T9's arguments, then `safe` (s clamped at shift + 88, 1e-30 added to
+// l; else neither, so s - shift above 128 overflows as on the TPU) and
+// `bf16_p` (p = bf16(exp2(bf16(min(s, cap) - shift))), l their sum); bf16(p)
+// into P V; the head-major grid and K2's bucket.
+extern "C" cudaError_t dtp_nomax_attention_sm90(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int Lq, int Lk, int hd, float scale_log2, float shift, int safe,
+    int bf16_p, void* stream) {
+  return dtp::run_shift(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
+                        bf16_p ? dtp::kShift | dtp::kBf16P : dtp::kShift, -1,
+                        safe != 0, static_cast<cudaStream_t>(stream));
+}
+
+// T5: T9's arguments on the (B*h, L, hd) copies of the heads, passed as B
+// = B*h images of H = 1 head: T2's safe launch with fp32 p.
+extern "C" cudaError_t dtp_nomax_unpadded_sm90(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int Lq, int Lk, int hd, float scale_log2, float shift, void* stream) {
+  return dtp::run_shift(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
+                        dtp::kShift, -1, true,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -1685,7 +1779,7 @@ extern "C" cudaError_t dtp_nomax_allheads_sm90(
     int Lq, int Lk, int hd, float scale_log2, float shift, int consumers,
     void* stream) {
   return dtp::run_shift(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                        dtp::kShift, consumers,
+                        dtp::kShift, consumers, true,
                         static_cast<cudaStream_t>(stream));
 }
 

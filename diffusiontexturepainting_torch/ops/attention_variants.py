@@ -41,7 +41,7 @@ T1's TPU wrapper pads Lq to its query block and returns the padded rows (it
 raises on the final reshape where Lq is off the block); here every query
 length is computed.
 
-The kernels live in csrc/attn_arms.cu (T2, T5, and T3 and T9 in fp32),
+The kernels live in csrc/attn_arms.cu (T2, T3, T5 and T9 in fp32),
 csrc/attn_layouts.cu (T6, T8, and T4 and T7 in fp32), one register-resident
 body (csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1 and
 T10 in fp32, over the same header's primitives). bf16 T4 runs K13's
@@ -49,12 +49,14 @@ two-pass wgmma/TMA kernel (csrc/flash_attention_sm90.cu
 dtp_slotted_attention_sm90), bf16 T1 and T3 that kernel's chunked
 softmax (dtp_sublane_attention_sm90: the exact row max, one chunk of every
 key; dtp_chunked_attention_sm90: the running max per chunk of bk keys, a
-max pass over a chunk of several K/V tiles), bf16 T7 and T9 its one-pass
-shifted softmax (dtp_nomax_allheads_sm90: every head of a query tile in one
-CTA; dtp_pvt_attention_sm90: p as bf16 hi + lo into two products), and
-bf16 T10 a split wgmma/TMA GEMM whose operands stay in shared memory
-(csrc/pv_product_sm90.cu); each raises ValueError on operands TMA cannot
-describe. A wrapper takes its plain version only for a tensor on the CPU;
+max pass over a chunk of several K/V tiles), bf16 T2, T5, T7 and T9 its
+one-pass shifted softmax (dtp_nomax_attention_sm90: head-major, with or
+without the clamp and with an fp32 or bf16 p; dtp_nomax_unpadded_sm90: T2's
+safe launch on the split heads; dtp_nomax_allheads_sm90: every head of a
+query tile in one CTA; dtp_pvt_attention_sm90: p as bf16 hi + lo into two
+products), and bf16 T10 a split wgmma/TMA GEMM whose operands stay in
+shared memory (csrc/pv_product_sm90.cu); each raises ValueError on
+operands TMA cannot describe. A wrapper takes its plain version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises. `ops.attention.attention` and the served paths never
 call these.
 """
@@ -120,12 +122,15 @@ _SLOTTED_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
 _PV_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
                      + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
 PV_SM90_SOURCE = "pv_product_sm90"
-# bf16 T7 and T9 (the wgmma/TMA kernel's one-pass shifted softmax): q, k,
-# v, out, B, H, Lq, Lk, hd, scale*log2(e) and the shift; T7 then its forced
-# consumer warpgroups (0: the plan's, -1: T9's head-major grid); the stream
+# bf16 T2, T5, T7 and T9 (the wgmma/TMA kernel's one-pass shifted
+# softmax): q, k, v, out, B, H, Lq, Lk, hd, scale*log2(e) and the shift; T2
+# then safe and bf16_p, T7 its forced consumer warpgroups (0: the plan's,
+# -1: T9's head-major grid); the stream. T5 takes T9's.
 _SHIFT_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
                         + (ctypes.c_float,) * 2)
 _PVT_SM90_ARGTYPES = _SHIFT_SM90_ARGTYPES + (ctypes.c_void_p,)
+_NOMAX_SM90_ARGTYPES = _SHIFT_SM90_ARGTYPES + (ctypes.c_int,) * 2 + (
+    ctypes.c_void_p,)
 _ALLHEADS_SM90_ARGTYPES = _SHIFT_SM90_ARGTYPES + (ctypes.c_int,
                                                   ctypes.c_void_p)
 # bf16 T10's key chunks (TMA's box rows are at most 256) and query tile
@@ -509,17 +514,30 @@ def _shape_key(q, k, num_heads, *options):
 def nomax_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT,
                     safe: bool = False, bf16_p: bool = False,
                     bk: int | None = None):
-    """T2: no-max attention; kernel on CUDA, plain_nomax_attention on CPU.
-    `bk` (a divisor of Lk) sets only the plain version's summation chunks;
-    the kernel sums over its own 64-key tiles."""
+    """T2: no-max attention. Kernel on CUDA: bf16 one pass of the wgmma/TMA
+    kernel against the static shift, the head-major grid and K2's bucket
+    for hd (csrc/flash_attention_sm90.cu dtp_nomax_attention_sm90: `safe`
+    the clamp at shift + 88 and l + 1e-30, else neither; `bf16_p` p =
+    bf16(exp2(bf16(s - shift))); hd a multiple of 8 and 16-byte-aligned
+    bases, else ValueError), fp32 the FMA twin (csrc/attn_arms.cu).
+    plain_nomax_attention on CPU. `bk` (a divisor of Lk) sets only the
+    plain version's summation chunks; the kernels sum over their own K/V
+    tiles."""
     _chunk(bk, k.shape[1])
     if q.device.type == "cpu":
         return plain_nomax_attention(q, k, v, num_heads, shift=shift,
                                      safe=safe, bf16_p=bf16_p, bk=bk)
-    _check("nomax_attention", q, k, v, num_heads)
-    out = _launch("attn_arms", "dtp_nomax_attention", _NOMAX_ARGTYPES, q, k,
-                  v, torch.empty_like(q), num_heads, float(shift), int(safe),
-                  int(bf16_p))
+    name = "nomax_attention"
+    _check(name, q, k, v, num_heads)
+    if q.dtype == torch.bfloat16:
+        _check_tma(name, q.shape[-1] // num_heads, q, k, v)
+        out = _sm90_arm("dtp_nomax_attention_sm90", _NOMAX_SM90_ARGTYPES, q,
+                        k, v, num_heads, float(shift), int(safe),
+                        int(bf16_p))
+    else:
+        out = _launch("attn_arms", "dtp_nomax_attention", _NOMAX_ARGTYPES,
+                      q, k, v, torch.empty_like(q), num_heads, float(shift),
+                      int(safe), int(bf16_p))
     nomax_launches.record(_shape_key(q, k, num_heads, bool(safe),
                                      bool(bf16_p)))
     return out
@@ -589,13 +607,26 @@ def nomax_unpadded(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
     """T5: clamped no-max attention, P V over hd unpadded; kernel on CUDA,
     plain_nomax_unpadded on CPU. As the TPU tool does, the heads are split
     into contiguous (B*h, L, hd) copies before the kernel (launched with
-    one head) and merged back after it; nomax_4d reads them in place."""
+    one head) and merged back after it; nomax_4d reads them in place.
+    bf16: T2's safe launch with fp32 p on the copies
+    (csrc/flash_attention_sm90.cu dtp_nomax_unpadded_sm90; its bucket
+    ops.attention.sm90_plan(hd, Lq, B*h)'s, so its bits are T2's; hd a
+    multiple of 8 and 16-byte-aligned bases, else ValueError, as for T2);
+    fp32 the FMA twin (csrc/attn_arms.cu)."""
     if q.device.type == "cpu":
         return plain_nomax_unpadded(q, k, v, num_heads, shift=shift)
-    _check("nomax_unpadded", q, k, v, num_heads)
+    name = "nomax_unpadded"
+    _check(name, q, k, v, num_heads)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma(name, q.shape[-1] // num_heads, q, k, v)
     qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
-    out = _launch("attn_arms", "dtp_nomax_unpadded", _SHIFT_ARGTYPES, qh, kh,
-                  vh, torch.empty_like(qh), 1, float(shift))
+    if bf16:
+        out = _sm90_arm("dtp_nomax_unpadded_sm90", _PVT_SM90_ARGTYPES, qh,
+                        kh, vh, 1, float(shift))
+    else:
+        out = _launch("attn_arms", "dtp_nomax_unpadded", _SHIFT_ARGTYPES,
+                      qh, kh, vh, torch.empty_like(qh), 1, float(shift))
     nomax_unpadded_launches.record(_shape_key(q, k, num_heads))
     return merge_heads(out, q.shape[0])
 

@@ -1,7 +1,7 @@
 """Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a,
 K11, K12b, K8 and K2 wrappers at their served shapes, and of the T4, T10,
-T11, T7, T9, T1 and T3 arms at their paths' shapes, for comparing two
-checkouts on one card.
+T11, T7, T9, T1, T3, T2 and T5 arms at their paths' shapes, for comparing
+two checkouts on one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
     PYTHONPATH=<another checkout> python \\
@@ -34,13 +34,17 @@ ops.conv_variants.conv_window_taps (T11), each of its four reads, at the
 conv_arms path's windows (TAPS_ARMS: the default 256^2/20 stamp's K5
 images with a prologue cut into windows of 8 rows, reps 1) and at the TPU
 tool's three shapes (TAPS_TOOL: one window, reps 24), F.conv2d (VALID,
-channels-last) on the same windows beside `shifted`, and last, the kernels
-this tree may differ in, ops.attention_variants.nomax_allheads (T7),
-pvt_attention (T9), sublane_attention (T1) and chunked_attention (T3) at
-chunks of 64 and 128 keys, then of 1024 keys with fp32 and bf16 p (a tree
-whose wrapper lacks chunked_sm90_plan, whose kernel takes chunks of 64 and
-128 keys only, prints that it skips them) at ATTN (the attn_arms path's
-shapes and calls), SDPA beside. Seeded normal bf16 inputs (T10, T11: the tools' uniform ones). Each row: ms a call (CUDA
+channels-last) on the same windows beside `shifted`, then
+ops.attention_variants.nomax_allheads (T7), pvt_attention (T9),
+sublane_attention (T1) and chunked_attention (T3) at chunks of 64 and 128
+keys, then of 1024 keys with fp32 and bf16 p (a tree whose wrapper lacks
+chunked_sm90_plan, whose kernel takes chunks of 64 and 128 keys only,
+prints that it skips them) at ATTN (the attn_arms path's shapes and
+calls), SDPA beside, and last, the kernels this tree may differ in,
+nomax_attention (T2) in the entry point's three forms (`T2 safe`, the
+attn_arms path's; `T2`, unclamped; `T2/bf16p`) and nomax_unpadded (T5, its
+copies of the heads included) at ATTN. Seeded normal bf16 inputs (T10,
+T11: the tools' uniform ones). Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph) and a
 digest of the output's bits (two checkouts' rows compare bit for bit); the
@@ -146,6 +150,9 @@ ATTN = [(3, 16384, 320, 8, "K8", "1024^2 L0"),
 ATTN_CALLS = 20
 # (bk, bf16_p): T3's chunks at ATTN
 CHUNKS = [(64, False), (128, False), (1024, False), (1024, True)]
+# (row, safe, bf16_p): T2's forms at ATTN, the attn_arms path's first
+NOMAX = [("T2 safe", True, False), ("T2", False, False),
+         ("T2/bf16p", False, True)]
 # (bq, Lk, hd): T10 at the TPU tool's shapes, bh 1, PV_ITERS passes
 PV = [(512, 4096, 40), (512, 1024, 80), (256, 256, 160)]
 PV_ITERS = 64
@@ -302,6 +309,15 @@ def _rows(gen):
                       for t in (q, k, v))
         row("SDPA", tag, [B, L, D, heads],
             lambda: F.scaled_dot_product_attention(qh, kh, vh), ATTN_CALLS)
+    for name, safe, bf16_p in NOMAX:
+        for B, L, D, heads, _, tag, q, k, v in attn:
+            row(name, tag, [B, L, D, heads, safe, bf16_p],
+                lambda: attention_variants.nomax_attention(
+                    q, k, v, heads, safe=safe, bf16_p=bf16_p), ATTN_CALLS)
+    for B, L, D, heads, _, tag, q, k, v in attn:
+        row("T5", tag, [B, L, D, heads],
+            lambda: attention_variants.nomax_unpadded(q, k, v, heads),
+            ATTN_CALLS)
     return rows
 
 
@@ -318,7 +334,8 @@ def stamp_sums(rows):
     """{name: (ms, device_ms)}: count-weighted sums of the rows that carry
     launches a stamp: K4, K12b and F.conv_transpose2d over the twin's K4
     shapes; each T11 read and F.conv2d over the conv_arms path's windows;
-    K8, K2, T7, T9, T1, each T3 chunk and SDPA over the attn_arms path."""
+    K8, K2, T7, T9, T1, each T3 chunk, SDPA, each T2 form and T5 over the
+    attn_arms path."""
     sums = {}
     for r in rows:
         if "count" not in r or r["tag"].startswith("tool"):

@@ -3,11 +3,15 @@ softmax of the wgmma/TMA attention kernel (csrc/flash_attention_sm90.cu
 dtp_nomax_allheads_sm90, dtp_pvt_attention_sm90): s clamped at shift + 88,
 p = exp2(s - shift) in fp32, the row sum of the unrounded p + 1e-30; T7
 puts bf16(p) into P V with every head of a query tile in one CTA, T9 puts
-p in as bf16 hi + lo (two products) on the head-major grid.
+p in as bf16 hi + lo (two products) on the head-major grid. The dispatch,
+refusal, replay and plain-version tests cover T2 (nomax_attention) and T5
+(nomax_unpadded) on the same kernel's head-major one pass too; their
+emulations and probes are in test_torch_port_nomax_sm90.py.
 
 On the CPU, the host logic that needs no card: the dtype dispatch between
 the sm90 entries (bf16) and the FMA twins (fp32: csrc/attn_layouts.cu,
-csrc/attn_arms.cu) through a patched `_cuda.function`, refusals of what TMA
+csrc/attn_arms.cu) through a patched `_cuda.function` (T5's copies of the
+heads patched too), refusals of what TMA
 cannot describe, the old entries' refusal of bf16 in their source, T7's
 plan (consumer warpgroups by the waves of its all-heads grid; every query
 row of every head covered once by the grid and the head loop), and torch
@@ -16,8 +20,8 @@ emulations of the kernels' tile arithmetic (T7: query tiles of 64, 128 or
 into bf16 hi + lo) held against the TPU tools in interpret mode.
 
 Marked `cuda` (skipped without a card; on the card: python -m pytest -m
-cuda --noconftest tests/test_torch_port_arms_sm90.py): both against their
-plain versions at hd 40, 80 and 160, L 1100 and 2 images of 4 heads, T7
+cuda --noconftest tests/test_torch_port_arms_sm90.py): each against its
+plain version at hd 40, 80 and 160, L 1100 and 2 images of 4 heads, T7
 under every consumer count, replays bit-identical (eagerly and from a CUDA
 graph), refusals that launch nothing, the old entries refusing bf16, the
 C plan equal to its Python mirror.
@@ -85,10 +89,20 @@ def _fake_cuda(monkeypatch):
             return 0
         return call
 
+    def split_heads(x, heads):
+        b, l, d = x.shape
+        return _FakeCuda((b * heads, l, d // heads), x.dtype)
+
+    def merge_heads(x, batch):
+        bh, l, hd = x.shape
+        return _FakeCuda((batch, l, bh // batch * hd), x.dtype)
+
     monkeypatch.setattr(_cuda, "function", function)
     monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
     monkeypatch.setattr(torch, "empty_like",
                         lambda t: _FakeCuda(t.shape, t.dtype))
+    monkeypatch.setattr(arms, "split_heads", split_heads)
+    monkeypatch.setattr(arms, "merge_heads", merge_heads)
     return calls
 
 
@@ -96,7 +110,21 @@ WRAPPERS = {"nomax_allheads": (arms.nomax_allheads,
                                arms.nomax_allheads_launches,
                                "attn_layouts"),
             "pvt_attention": (arms.pvt_attention, arms.pvt_launches,
-                              "attn_arms")}
+                              "attn_arms"),
+            "nomax_attention": (arms.nomax_attention, arms.nomax_launches,
+                                "attn_arms"),
+            "nomax_unpadded": (arms.nomax_unpadded,
+                               arms.nomax_unpadded_launches, "attn_arms")}
+# name -> (B and H as the entry gets them for 3 images of 8 heads, the
+# bf16 entry's arguments after the shift, the fp32 twin's after the shift
+# and before the stream): T5 launches its (B*h, L, hd) copies as one head;
+# T2's options (safe, bf16_p) are off by default
+ENTRY_ARGS = {"nomax_allheads": ((3, 8), (0,), (0,)),
+              "pvt_attention": ((3, 8), (), (0,)),
+              "nomax_attention": ((3, 8), (0, 0), (0, 0, 0)),
+              "nomax_unpadded": ((24, 1), (), (0,))}
+# the fp32 twins' argument types
+TWIN_ARGTYPES = {"nomax_attention": arms._NOMAX_ARGTYPES}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -104,11 +132,13 @@ WRAPPERS = {"nomax_allheads": (arms.nomax_allheads,
 def test_dtype_dispatch(monkeypatch, name, dtype):
     """A bf16 CUDA call reaches dtp_<name>_sm90 of the wgmma/TMA source
     with B, H, Lq, Lk, hd, scale*log2(e) and the shift (T7: then 0, the
-    plan's consumers); an fp32 call the FMA
-    twin's entry with is_bf16 0; each moves the counter by one, and the
-    wrappers have no fallback."""
+    plan's consumers; T2: then safe and bf16_p); an fp32 call the FMA
+    twin's entry with is_bf16 0 (T2: after safe and bf16_p); T5 passes its
+    split heads as B*h images of one head; each moves the counter by one,
+    and the wrappers have no fallback."""
     calls = _fake_cuda(monkeypatch)
     wrapper, counter, twin = WRAPPERS[name]
+    (B, H), bf16_extra, fp32_extra = ENTRY_ARGS[name]
     q = _FakeCuda((3, 1024, 1280), dtype)
     k = _FakeCuda((3, 900, 1280), dtype)
     before = counter.launches
@@ -116,17 +146,16 @@ def test_dtype_dispatch(monkeypatch, name, dtype):
     assert tuple(out.shape) == (3, 1024, 1280)
     assert counter.launches == before + 1
     (source, symbol, args), = calls
-    assert args[4:9] == (3, 8, 1024, 900, 160)
+    assert args[4:9] == (B, H, 1024, 900, 160)
+    assert args[9] == pytest.approx(160**-0.5 * LOG2E)
+    assert args[10] == 30.0
     if dtype == torch.bfloat16:
         assert (source, symbol) == ("flash_attention_sm90",
                                     f"dtp_{name}_sm90")
-        assert args[9] == pytest.approx(160**-0.5 * LOG2E)
-        assert args[10] == 30.0
-        assert args[11:-1] == ((0,) if name == "nomax_allheads" else ())
+        assert args[11:-1] == bf16_extra
     else:
         assert (source, symbol) == (twin, f"dtp_{name}")
-        assert args[9] == pytest.approx(160**-0.5 * LOG2E)
-        assert args[10:12] == (30.0, 0)  # the shift, is_bf16
+        assert args[11:-1] == fp32_extra  # the options, then is_bf16
     assert f'extern "C" cudaError_t dtp_{name}_sm90(' in SM90_CU.read_text()
     src = Path(arms.__file__).read_text()
     assert "try:" not in src and "except" not in src
@@ -163,11 +192,17 @@ def test_forced_consumers_out_of_range_raise(monkeypatch):
 @pytest.mark.parametrize("name,source", [("dtp_nomax_allheads",
                                           "attn_layouts.cu"),
                                          ("dtp_pvt_attention",
+                                          "attn_arms.cu"),
+                                         ("dtp_nomax_attention",
+                                          "attn_arms.cu"),
+                                         ("dtp_nomax_unpadded",
                                           "attn_arms.cu")])
 def test_old_entries_refuse_bf16(name, source):
     """The FMA twins' entries return cudaErrorInvalidValue for bf16 and
     launch the fp32 body only; the register-resident bf16 body lost its
-    transposed P V (kPvt) and its all-heads loop, which no entry reaches."""
+    transposed P V (kPvt), its all-heads loop and T2's options (the
+    unclamped and bf16-p softmax, P V over hd padded to 16), which no entry
+    reaches: it runs T6's and T8's kUnpadded alone."""
     text = (_cuda.CSRC / source).read_text()
     entry = text[text.index(f'extern "C" cudaError_t {name}('):]
     entry = entry[:entry.index("\n}\n")]
@@ -176,16 +211,28 @@ def test_old_entries_refuse_bf16(name, source):
     header = (_cuda.CSRC / "attn_arms.cuh").read_text()
     assert "kPvt" not in header
     assert 'static_assert(MAP != kAllHeads, "bf16 T7 runs' in header
+    assert "static_assert(ARM == kUnpadded," in header
+    bf16_body = header[:header.index("// fp32 twin of one query row")]
+    assert "a.bf16_p" not in bf16_body and "a.safe" not in bf16_body
 
 
 def test_sm90_source_modes():
-    """The two one-pass modes and the all-heads grid in the source: the
-    clamp, the 1e-30, the hi + lo split into two products, the Q buffers'
-    empty barriers."""
+    """The one-pass modes and the all-heads grid in the source: the clamp
+    and the epsilon as run-time fields (shift + 88 and 1e-30, or +inf and
+    0 for T2 unclamped), T2's bf16 p (kShift | kBf16P, head-major), the hi
+    + lo split into two products, the Q buffers' empty barriers."""
     text = SM90_CU.read_text()
     for frag in ("kShift = 4", "kShiftSplitP = 5",
                  "s[i] = ex2(fminf(s[i], cap) - a.shift);",
-                 "l0 += 1e-30f;", "pv_split<NV, BKV>(o, pa, pl,",
+                 "const float cap = a.shift + (FIELDS ? a.clamp : 88.0f);",
+                 "constexpr bool FIELDS = policy_of(LAST) == kShift && !AH;",
+                 "const float x = ex2(round_bf16_int(",
+                 "a.clamp = safe ? 88.0f : INFINITY;",
+                 "a.eps = safe ? 1e-30f : 0.0f;",
+                 "const float eps = FIELDS ? a.eps : 1e-30f;",
+                 "constexpr bool SHIFT = policy_of(LAST) == kShift ||",
+                 "launch_two_pass<kShift | kBf16P>(bucket",
+                 "pv_split<NV, BKV>(o, pa, pl,",
                  "Wgmma<NV>::rs(o, lo[t], d, 1);",
                  "launch_two_pass<kShiftSplitP>(bucket",
                  "launch_two_pass<kShift>(bucket",
@@ -506,8 +553,9 @@ def test_sm90_replays_bit_identical(name):
 @pytest.mark.parametrize("name", list(WRAPPERS))
 def test_sm90_refusals_launch_nothing(name):
     """bf16 at hd 36 and on a q 2 bytes off 16 raises ValueError and
-    launches nothing; the old entry returns cudaErrorInvalidValue for bf16;
-    fp32 at hd 36 runs the twin against its plain version."""
+    launches nothing (T5 before its copies of the heads); the old entry
+    returns cudaErrorInvalidValue for bf16; fp32 at hd 36 runs the twin
+    against its plain version."""
     gen = _setup()
     wrapper, counter, twin = WRAPPERS[name]
     before = counter.launches
@@ -522,9 +570,11 @@ def test_sm90_refusals_launch_nothing(name):
     assert counter.launches == before
     y = torch.randn((2, 64, 320), generator=gen, device="cuda").bfloat16()
     out = torch.empty_like(y)
-    fn = _cuda.function(twin, f"dtp_{name}", arms._SHIFT_ARGTYPES)
+    fn = _cuda.function(twin, f"dtp_{name}",
+                        TWIN_ARGTYPES.get(name, arms._SHIFT_ARGTYPES))
     code = fn(y.data_ptr(), y.data_ptr(), y.data_ptr(), out.data_ptr(), 2,
-              8, 64, 64, 40, 0.1, 32.0, 1, _cuda.stream_of(y))
+              8, 64, 64, 40, 0.1, 32.0, *ENTRY_ARGS[name][2][:-1], 1,
+              _cuda.stream_of(y))
     assert code == 1  # cudaErrorInvalidValue
     xf = x.float()
     got = wrapper(xf, xf, xf, 4)

@@ -179,7 +179,7 @@ def test_old_entries_refuse_bf16(name, source):
     assert "movmatrix" not in (_cuda.CSRC / "attn_transposed.cu").read_text()
     header = (_cuda.CSRC / "attn_arms.cuh").read_text()
     assert "OVERLAP" not in header
-    assert "static_assert(ARM == kNomax || ARM == kUnpadded," in header
+    assert "static_assert(ARM == kUnpadded," in header
 
 
 def test_sm90_source_modes():

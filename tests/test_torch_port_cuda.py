@@ -257,7 +257,7 @@ def test_staged_entries_raise_and_never_fall_back():
               32, 64, 1, _cuda.stream_of(xb)) == 1
 
 
-# The softmax arms (csrc/attn_arms.cu; bf16 T3 and T9 on
+# The softmax arms (csrc/attn_arms.cu; bf16 T2, T3, T5 and T9 on
 # csrc/flash_attention_sm90.cu), the head-layout arms
 # (csrc/attn_layouts.cu) and T1 (bf16: flash_attention_sm90.cu; fp32:
 # csrc/attn_transposed.cu): head dims 40, 80 and 160 (the register tiles
@@ -495,30 +495,33 @@ def test_slotted_kernel_raises_and_never_falls_back():
 @pytest.mark.parametrize("hd", [40, 80, 160])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_layout_arms_equal_t5_bit_for_bit(hd, dtype):
-    """T5 (heads split by a copy pass, one head a launch) and T6, T8 (heads
-    read in place, two block mappings) run the same tile code on the same
-    values: the same bits at L 1100, 2 images of 4 heads. In fp32 T7 (all
-    heads in one block) runs that code too and gives the same bits; in
-    bf16 it runs the wgmma/TMA kernel's one-pass mode
-    (csrc/flash_attention_sm90.cu), another summation order, and is held
-    against its plain version at chip_smoke.py's tolerance."""
+    """In fp32, T5 (heads split by a copy pass, one head a launch), T6, T8
+    (heads read in place, two block mappings) and T7 (all heads in one
+    block) run the same FMA tile code on the same values: the same bits at
+    L 1100, 2 images of 4 heads. In bf16 T6 and T8 still share the
+    register-resident tile code and give one another's bits, while T5 runs
+    T2's launch of the wgmma/TMA kernel's one-pass mode on its copies and
+    T7 that mode over all heads (csrc/flash_attention_sm90.cu), other
+    summation orders: those two are held against the plain version at
+    chip_smoke.py's tolerance."""
     gen = _setup()
     from diffusiontexturepainting_torch.ops import attention_variants as av
 
     q, k, v = (torch.randn((2, 1100, 4 * hd), generator=gen,
                            device="cuda").to(getattr(torch, dtype))
                for _ in range(3))
-    t5 = av.nomax_unpadded(q, k, v, 4)
-    same = [av.nomax_4d, av.nomax_laneslice]
+    t6 = av.nomax_4d(q, k, v, 4)
+    same = [av.nomax_laneslice]
     if dtype == "float32":
-        same.append(av.nomax_allheads)
+        same += [av.nomax_unpadded, av.nomax_allheads]
     for wrapper in same:
-        assert torch.equal(wrapper(q, k, v, 4), t5), wrapper.__name__
+        assert torch.equal(wrapper(q, k, v, 4), t6), wrapper.__name__
     if dtype == "bfloat16":
-        got = av.nomax_allheads(q, k, v, 4).float()
         want = av.plain_nomax_allheads(q, k, v, 4).float()
         tol = 2.0**-5 * want.abs().max().item()
-        assert (got - want).abs().max().item() <= tol
+        for wrapper in (av.nomax_unpadded, av.nomax_allheads):
+            got = wrapper(q, k, v, 4).float()
+            assert (got - want).abs().max().item() <= tol, wrapper.__name__
 
 
 # T10 (bf16: csrc/pv_product_sm90.cu, fp32: csrc/attn_transposed.cu): hd on
