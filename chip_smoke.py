@@ -30,15 +30,15 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                K12b and T11 bit-identical on replay, output and
                statistics; K6's
                statistics also against its own fp32 output before the
-               rounding; T10, T4, T7, T9, T5 and T2 bit-identical on
-               replay; the bf16 K2/K8/K13, K9, K1/K5, K3, K4, K6, K7,
-               K12a, K11, K12b, T10, T4, T7, T9, T2, T5 and T11 refuse what
-               TMA cannot describe (ValueError, no launch); the fp32
-               entries of csrc/conv3x3.cu, conv_staged.cu's SAME and UP
-               entries (fp32 K12a, K11 and K12b), T10's
-               (attn_transposed.cu), T4's and T7's (attn_layouts.cu), T2's,
-               T5's and T9's (attn_arms.cu) and T11's (conv_arms.cu) refuse
-               bf16;
+               rounding; T10, T4, T7, T9, T5, T2, T6 and T8 bit-identical
+               on replay; the bf16 K2/K8/K13, K9, K1/K5, K3, K4, K6, K7,
+               K12a, K11, K12b, T10, T4, T7, T9, T2, T5, T6, T8 and T11
+               refuse what TMA cannot describe (ValueError, no launch); the
+               fp32 entries of csrc/conv3x3.cu, conv_staged.cu's SAME and
+               UP entries (fp32 K12a, K11 and K12b), T10's
+               (attn_transposed.cu), T4's, T6's, T7's and T8's
+               (attn_layouts.cu), T2's, T5's and T9's (attn_arms.cu) and
+               T11's (conv_arms.cu) refuse bf16;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -99,17 +99,18 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                a 128-key tile, K2's own launch at hd 160) and T9 (P V with
                the fp32 p; bf16 on the one-pass mode of
                csrc/flash_attention_sm90.cu, p as bf16 hi + lo), the
-               head-layout arms T6 (heads read in place, head-major blocks)
-               and T8 (head fastest) (csrc/attn_layouts.cu) and T7 (all
-               heads in one block; bf16 on the one-pass all-heads mode of
+               head-layout arms T6 (heads read in place, head-major blocks:
+               bf16 T2's safe launch) and T8 (head fastest: bf16 that launch
+               on the head-fastest grid) and T7 (all heads in one block;
+               bf16 on the one-pass all-heads mode of
                csrc/flash_attention_sm90.cu), and T1 (the exact row-max
                softmax; bf16 on the chunked mode in one chunk of every
                key), at the 1024^2 / 4 stamp's three UNet self-attention
                shapes, each launched as often as that stamp launches K8/K2
                there (20 a shape), each output against the attention()
                route's, and T3 at the route's K/V tile equal to it bit for
-               bit, T5 equal to T2 and T2 to T7 on T9's head-major grid bit
-               for bit; the
+               bit, T5, T6 and T8 equal to T2 and T2 to T7 on T9's
+               head-major grid bit for bit; the
                clamp probe (raw logits above 83: the clamped arms equal
                their plain versions and differ from the exact softmax of K8,
                which rounds q as the arms do; T3 and T1 equal it) and the
@@ -175,6 +176,7 @@ the per-kernel JSON record.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -259,10 +261,12 @@ SOURCES = {
     "nomax_unpadded": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_arms.cu
     "pvt_attention": "csrc/flash_attention_sm90.cu",
-    "nomax_4d": "csrc/attn_layouts.cu",
+    # bf16; fp32 runs attn_layouts.cu
+    "nomax_4d": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_layouts.cu
     "nomax_allheads": "csrc/flash_attention_sm90.cu",
-    "nomax_laneslice": "csrc/attn_layouts.cu",
+    # bf16; fp32 runs attn_layouts.cu
+    "nomax_laneslice": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_layouts.cu
     "slotted_kernel_call": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_transposed.cu
@@ -279,6 +283,9 @@ ARMS = ("nomax_attention", "chunked_attention", "nomax_unpadded",
         "pvt_attention", "nomax_4d", "nomax_allheads", "nomax_laneslice",
         "sublane_attention")
 SLOTTED_ARM = "slotted_kernel_call"
+# the arms that read the heads in place on T2-safe's launch in bf16: T6 on
+# its head-major grid, T8 on the head-fastest one
+IN_PLACE_ARMS = ("nomax_4d", "nomax_laneslice")
 # the exact row-max arms: no clamp, no static shift
 EXACT_ARMS = ("chunked_attention", "sublane_attention")
 # T9 (p unrounded into P V), T7 and T2 (bf16(p)) and T2 with bf16 p
@@ -409,7 +416,13 @@ FAMILY_IS = {
     "gn_silu_conv3x3": "K14 + gn_affine_from_stats + K1 (gn_conv_resident "
                        "with the residual; the time embedding not added)",
     **{name: "K8 at (3, 16384, 320), K2 at the other two shapes (the "
-             "attention() route)" for name in ARMS},
+             "attention() route)" for name in ARMS
+       if name not in IN_PLACE_ARMS},
+    "nomax_4d": "T2 safe (nomax_attention, safe=True: in bf16 the same "
+                "launch of flash_attention_sm90.cu's one-pass mode)",
+    "nomax_laneslice": "T2 safe (nomax_attention, safe=True: in bf16 the "
+                       "same CTAs of flash_attention_sm90.cu's one-pass "
+                       "mode on the head-major grid)",
     SLOTTED_ARM: "K13 (flash_attention_slotted) on the same data in the "
                  "(B, L, h*128) layout",
     TAPS: "K11 (conv3x3_stream; a Cout off 8 zero-padded and dropped) on "
@@ -455,12 +468,15 @@ DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
                 "conv3x3_inpad", "conv3x3_stream",
                 "upsample2x_conv3x3_inpad", SLOTTED_ARM, PV, TAPS,
                 "nomax_allheads", "pvt_attention", "sublane_attention",
-                "chunked_attention", "nomax_attention", "nomax_unpadded")
-# Kernels whose family member (FAMILY_IS) runs the same launch in bf16:
-# their outputs must equal its bit for bit (T3 where its chunk is the K/V
-# tile of the bucket, with fp32 p: K8/K2's launch; family_exact).
+                "chunked_attention", "nomax_attention", "nomax_unpadded",
+                *IN_PLACE_ARMS)
+# Kernels whose family member (FAMILY_IS) runs the same launch in bf16
+# (T8: the same CTAs on another grid): their outputs must equal its bit for
+# bit (T3 where its chunk is the K/V tile of the bucket, with fp32 p:
+# K8/K2's launch; family_exact).
 FAMILY_EXACT = ("conv3x3_inpad", "conv3x3_stream",
-                "upsample2x_conv3x3_inpad", "chunked_attention")
+                "upsample2x_conv3x3_inpad", "chunked_attention",
+                *IN_PLACE_ARMS)
 # the sources whose ptxas report must show no spill
 NO_SPILL = ("flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
             "ff_geglu_sm90", "pv_product_sm90", "window_taps_sm90")
@@ -690,12 +706,16 @@ def _kernel_case(kind, shape_key, dtype, gen):
                    if kind == "nomax_attention"
                    else dict(bk=opts[0], bf16_p=opts[1]))
         wrapper, plain = attention_variants.ARMS[kind]
-        # the family: K8 or K2 (one launch, the same bits) as attention()
-        # routes the call, K2 where it routes it to the plain matmuls
+        # the family: T2 safe for the in-place arms; else K8 or K2 (one
+        # launch, the same bits) as attention() routes the call, K2 where
+        # it routes it to the plain matmuls
         route = attention.attention_route(q_shape[1], k_shape[1],
                                           q_shape[2] // heads, dtype)
         base = (attention.flash_attention_streaming if route == "streaming"
                 else attention.flash_attention)
+        if kind in IN_PLACE_ARMS:
+            base = functools.partial(attention_variants.nomax_attention,
+                                     safe=True)
         return (lambda: wrapper(q, k, v, heads, **options),
                 lambda: plain(q, k, v, heads, **options),
                 sdpa(q, k, v, heads),
@@ -1788,17 +1808,20 @@ def attn_arms_phase(gen):
             log(f"attn_arms: chunked_attention bk {bkv} (the {route} route's "
                 f"K/V tile) at {label}: equal to the route bit for bit")
             # T5 is T2's safe launch on the split heads (one head, B*h
-            # images, the same bucket), and T2's that of T7's head-major
-            # probe
+            # images, the same bucket), T6 that launch on the heads in
+            # place, T8 T6's CTAs on the head-fastest grid, and T2's launch
+            # that of T7's head-major probe
             t2 = outs["nomax_attention"]
-            if not (torch.equal(outs["nomax_unpadded"], t2) and torch.equal(
-                    av._nomax_allheads(q, k, v, heads, head_major=True),
-                    t2)):
+            same = ("nomax_unpadded",) + IN_PLACE_ARMS
+            if not (all(torch.equal(outs[name], t2) for name in same)
+                    and torch.equal(av._nomax_allheads(q, k, v, heads,
+                                                       head_major=True),
+                                    t2)):
                 raise AssertionError(
-                    f"attn_arms: at {label} nomax_unpadded, nomax_attention "
-                    "(safe) and nomax_allheads on the head-major grid are "
-                    "not one launch's bits")
-            log(f"attn_arms: nomax_unpadded at {label} equal to "
+                    f"attn_arms: at {label} {', '.join(same)}, "
+                    "nomax_attention (safe) and nomax_allheads on the "
+                    "head-major grid are not one launch's bits")
+            log(f"attn_arms: {', '.join(same)} at {label} equal to "
                 "nomax_attention (safe) bit for bit, and nomax_attention to "
                 "nomax_allheads on T9's head-major grid")
             for name, got in outs.items():
@@ -2314,7 +2337,7 @@ def tma_refusal_probe(gen):
         lambda: av.slotted_kernel_call(s_36, s_36, s_36, 0.1),
         "slotted_kernel_call q 2 bytes off 16":
         lambda: av.slotted_kernel_call(s_off, s_off, s_off, 0.1)})
-    # bf16 T2, T5, T7 and T9 (the one-pass modes of flash_attention_sm90.cu)
+    # bf16 T2 and T5 to T9 (the one-pass modes of flash_attention_sm90.cu)
     # at hd 36 and on a q 2 bytes off 16 (T5 before its copies of the heads)
     h_36 = torch.randn((2, 64, 4 * 36), generator=gen,
                        device="cuda").bfloat16()
@@ -2323,7 +2346,7 @@ def tma_refusal_probe(gen):
     h_off = h_flat[1:].view(2, 64, 320)
     h_ok = h_flat[:2 * 64 * 320].view(2, 64, 320)
     for name in ("nomax_allheads", "pvt_attention", "nomax_attention",
-                 "nomax_unpadded"):
+                 "nomax_unpadded", *IN_PLACE_ARMS):
         arm = getattr(av, name)
         calls[f"{name} hd 36"] = lambda arm=arm: arm(h_36, h_36, h_36, 4)
         calls[f"{name} q 2 bytes off 16"] = (
@@ -2354,7 +2377,8 @@ def tma_refusal_probe(gen):
                 conv3x3.upsample_inpad_launches, av.pv_product_launches,
                 av.slotted_launches, cv.conv_window_taps_launches,
                 av.nomax_allheads_launches, av.pvt_launches,
-                av.nomax_launches, av.nomax_unpadded_launches)
+                av.nomax_launches, av.nomax_unpadded_launches,
+                av.nomax_4d_launches, av.nomax_laneslice_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -2407,7 +2431,9 @@ def tma_refusal_probe(gen):
             2, 8, 8, 8, 0.1, 32.0, 1, stream)
            for source, symbol in (("attn_arms", "dtp_pvt_attention"),
                                   ("attn_layouts", "dtp_nomax_allheads"),
-                                  ("attn_arms", "dtp_nomax_unpadded"))},
+                                  ("attn_arms", "dtp_nomax_unpadded"),
+                                  ("attn_layouts", "dtp_nomax_4d"),
+                                  ("attn_layouts", "dtp_nomax_laneslice"))},
         "dtp_nomax_attention": _cuda.function(
             "attn_arms", "dtp_nomax_attention", av._NOMAX_ARGTYPES)(
             x8.data_ptr(), x8.data_ptr(), x8.data_ptr(), out.data_ptr(), 1,
@@ -2421,7 +2447,7 @@ def tma_refusal_probe(gen):
         raise AssertionError(f"probe: fp32 entries in bf16 gave {codes}, "
                              f"split plans {splits}")
     log(f"probe: conv3x3.cu's, conv_staged.cu's SAME and UP, "
-        f"attn_transposed.cu's T10, attn_layouts.cu's T4 and T7, "
+        f"attn_transposed.cu's T10, attn_layouts.cu's T4, T6, T7 and T8, "
         f"attn_arms.cu's T2, T5 and T9 and conv_arms.cu's T11 fp32 entries "
         f"refuse bf16: {codes} (cudaErrorInvalidValue), conv split plans "
         "-1")
@@ -2436,9 +2462,9 @@ def replay_probe(gen):
     tool's first shape, T10 at its tool's three shapes in
     both orientations (the partials of many CTAs added by the last), T4
     at the slotted arm's two shapes in both softmax flavours, each twice
-    on the same inputs, and T7, T9, T5 and T2 (safe, unclamped, bf16 p) at
-    the attn_arms path's three head dims (ragged), twice and once more
-    replayed from a CUDA graph:
+    on the same inputs, and T7, T9, T5, T2 (safe, unclamped, bf16 p), T6
+    and T8 at the attn_arms path's three head dims (ragged), twice and once
+    more replayed from a CUDA graph:
     outputs and statistics bit-identical (fixed reduction orders, no float
     atomics); K1/K5's and K14's statistics also those of their own
     outputs, K6's those of its fp32 output before the rounding
@@ -2475,6 +2501,7 @@ def replay_probe(gen):
             log(f"probe: {SLOTTED_ARM} {key} bf16: bit-identical on replay")
     for name, opts in (("nomax_allheads", ()), ("pvt_attention", ()),
                        ("nomax_unpadded", ()),
+                       *[(name, ()) for name in IN_PLACE_ARMS],
                        *[("nomax_attention", o) for o in
                          ((True, False), (False, False), (False, True))]):
         for D in (320, 640, 1280):
@@ -3063,10 +3090,12 @@ def main() -> int:
         # not run), with P = hd (no pad lanes), at the 160-lane bucket in
         # both flavours (keys != queries) and at 64 lanes
         ("nomax_4d", ((2, 1100, 320), (2, 1100, 320), 8)),
+        ("nomax_4d", ((2, 1100, 1280), (2, 900, 1280), 8)),
         ("nomax_allheads", ((2, 1100, 1280), (2, 1100, 1280), 8)),
         ("nomax_allheads", ((2, 1100, 320), (2, 1000, 320), 8)),
         ("nomax_allheads", ((2, 1100, 640), (2, 1100, 640), 4)),
         ("nomax_laneslice", ((2, 1100, 640), (2, 1100, 640), 8)),
+        ("nomax_laneslice", ((2, 1100, 320), (2, 1000, 320), 8)),
         ("slotted_kernel_call", ((8, 1100, 128), (8, 1100, 128), 4, 40,
                                  False)),
         ("slotted_kernel_call", ((8, 1100, 80), (8, 1100, 80), 4, 80, True)),

@@ -42,8 +42,7 @@ extern "C" cudaError_t dtp_nomax_attention(const void* q, const void* k,
                                            int safe, int bf16_p, int is_bf16,
                                            void* stream) {
   if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
-  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                          false);
+  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift);
   a.safe = safe != 0, a.bf16_p = bf16_p != 0;
   return dtp::dispatch_f32<dtp::kNomax, 64>(
       a, static_cast<cudaStream_t>(stream));
@@ -60,8 +59,7 @@ extern "C" cudaError_t dtp_chunked_attention(const void* q, const void* k,
   if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd) || (bk != 64 && bk != 128) ||
       Lk % bk)
     return cudaErrorInvalidValue;
-  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, 0.0f,
-                          false);
+  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, 0.0f);
   a.bf16_p = bf16_p != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bk == 64) return dtp::dispatch_f32<dtp::kChunked, 64>(a, s);
@@ -75,10 +73,9 @@ extern "C" cudaError_t dtp_nomax_unpadded(const void* q, const void* k,
                                           float scale_log2, float shift,
                                           int is_bf16, void* stream) {
   if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
-  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                          false);
+  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift);
   a.safe = true;
-  return dtp::dispatch_f32<dtp::kUnpadded, 64>(
+  return dtp::dispatch_f32<dtp::kNomax, 64>(
       a, static_cast<cudaStream_t>(stream));
 }
 
@@ -89,8 +86,7 @@ extern "C" cudaError_t dtp_pvt_attention(const void* q, const void* k,
                                          float scale_log2, float shift,
                                          int is_bf16, void* stream) {
   if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
-  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
-                          false);
+  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift);
   a.safe = true;
   return dtp::dispatch_f32<dtp::kNomax, 64>(
       a, static_cast<cudaStream_t>(stream));

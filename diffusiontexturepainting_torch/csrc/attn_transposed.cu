@@ -92,8 +92,7 @@ extern "C" cudaError_t dtp_sublane_attention(const void* q, const void* k,
                                              float scale_log2, int is_bf16,
                                              void* stream) {
   if (is_bf16 || dtp::bad(B, H, Lq, Lk, hd)) return cudaErrorInvalidValue;
-  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, 0.0f,
-                          false);
+  auto a = dtp::make_args(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, 0.0f);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 48)
     return dtp::launch_f32<48, 64, dtp::kRowmax, dtp::kHeadMajor>(a, s);

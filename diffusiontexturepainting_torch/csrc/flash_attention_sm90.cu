@@ -1,4 +1,4 @@
-// K2, K8, K13 and the T1, T2, T3, T4, T5, T7 and T9 arms in bf16 for Hopper
+// K2, K8, K13 and the T1 to T9 arms in bf16 for Hopper
 // (sm_90a): one warp-specialised kernel, Q K^T and P V both on wgmma, K/V
 // tiles brought in by TMA.
 //
@@ -83,6 +83,18 @@
 //       copies of the heads, H = 1 (rows hd * 2 bytes apart: 80, 160, 320
 //       at hd 40, 80, 160, all whole 16 bytes). The bucket is T2's (plan
 //       sees the same B*H), so the bits are T2's.
+//   dtp_nomax_4d_sm90                   T6 <- bench_attn_variants.py
+//       nomax_4d (pallas_call :325 over _nomax_unpadded_kernel): T5's
+//       function with the heads read in place from the (B, L, h*hd) rows,
+//       blocks (b, h, q-block): T2's safe launch itself, its bits.
+//   dtp_nomax_laneslice_sm90            T8 <- bench_attn_variants.py
+//       nomax_laneslice / _nomax_laneslice_kernel (pallas_call :426): the
+//       same CTA body, bucket and tensor maps on a head-fastest grid (head,
+//       query tile, image) (kShift | kGridHeadFastest): the H CTAs of a query
+//       tile launch together and share the packed rows' 128-byte lines in
+//       L2 (80-byte head slices at hd 40). Each CTA computes the (b, h, tile)
+//       it would under T6's grid in the same key order, so the bits are
+//       T6's. The order is what T8's TPU tool asked of the grid.
 //   dtp_nomax_allheads_sm90             T7 <- tools/bench_attn_variants.py
 //       nomax_allheads / _nomax_allheads_kernel (pallas_call :379): the same
 //       one pass with bf16(p) into P V (kShift), every head of a query tile
@@ -100,9 +112,9 @@
 //       K2's long-sequence bucket for hd.
 //
 // Dispatch is by dtype in ops/attention.py (K2, K8, K13) and
-// ops/attention_variants.py (T1, T2, T3, T4, T5, T7, T9): bf16 CUDA tensors
-// come here and nowhere else; fp32 stays on flash_attention.cu's FMA twin
-// (T4 and T7: attn_layouts.cu, T2, T3, T5 and T9: attn_arms.cu, T1:
+// ops/attention_variants.py (T1 to T9): bf16 CUDA tensors come here and
+// nowhere else; fp32 stays on flash_attention.cu's FMA twin (T4, T6, T7
+// and T8: attn_layouts.cu, T2, T3, T5 and T9: attn_arms.cu, T1:
 // attn_transposed.cu).
 //
 // What bounds it on the H100: 4*L^2*hd flops a head against bytes read and
@@ -617,7 +629,8 @@ struct Sm90Args {
 // chunks); the fixed max per chunk of a.chunk_tiles tiles, each after a
 // max pass over the chunk (kChunked). kBf16P, or-ed into kOnline, kHalves
 // or kChunked (T3's bf16_p) or kShift (T2's): p = bf16(exp2(bf16(s - m))),
-// as kFixedMax's, with the shift for m.
+// as kFixedMax's, with the shift for m. kGridHeadFastest, or-ed into the
+// head-major kShift (T8): the grid's head and query-tile axes swapped.
 enum Mode : int {
   kOnline = 0,
   kMaxPass = 1,
@@ -627,12 +640,13 @@ enum Mode : int {
   kShiftSplitP = 5,
   kHalves = 6,
   kChunked = 7,
-  kBf16P = 8
+  kBf16P = 8,
+  kGridHeadFastest = 16
 };
 
-// The max policy of a mode, p's precision apart.
+// The max policy of a mode, p's precision and the grid's order apart.
 __host__ __device__ constexpr int policy_of(int mode) {
-  return mode & ~kBf16P;
+  return mode & ~(kBf16P | kGridHeadFastest);
 }
 // p = bf16(exp2(bf16(s - m))), l the sum of those p.
 __host__ __device__ constexpr bool bf16_p_of(int mode) {
@@ -797,7 +811,8 @@ __device__ __forceinline__ void pv_split(float (&o)[NV / 2],
 // kBf16P or not) or kShiftSplitP for one pass; kFixedMax or kFixedMaxF32
 // after a max pass over every tile (one chunk), kChunked (with kBf16P or
 // not) the same per chunk of a.chunk_tiles tiles. AH: every head of the
-// query tile in this CTA, in turn.
+// query tile in this CTA, in turn. kGridHeadFastest in LAST: the head in
+// blockIdx.x and the query tile in blockIdx.y.
 template <int KD, int NV, int BKV, int NC, int LAST, bool AH = false>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
 attn_sm90(const __grid_constant__ CUtensorMap tq,
@@ -810,11 +825,15 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
   constexpr bool SHIFT = policy_of(LAST) == kShift || LAST == kShiftSplitP;
   static_assert(!AH || policy_of(LAST) == kShift,
                 "the all-heads grid is T7's");
-  // The head-major kShift (T2, T5) reads its clamp above the shift and its
-  // epsilon from a.clamp and a.eps, so that T2's safe and unclamped forms
-  // share one instantiation; T7 and T9 keep the constants 88 and 1e-30,
-  // their code unchanged: read from the fields, ptxas scheduled them anew
-  // and T7 or T9 ran 2-4% slower at L0 on the card (PERF.md)
+  constexpr bool HF = (LAST & kGridHeadFastest) != 0;
+  static_assert(!HF || (!AH && policy_of(LAST) == kShift),
+                "the head-fastest grid is T8's");
+  // The head-major kShift (T2, T5, T6; T8 on its grid) reads its clamp
+  // above the shift and its epsilon from a.clamp and a.eps, so that T2's
+  // safe and unclamped forms share one instantiation; T7 and T9 keep the
+  // constants 88 and 1e-30, their code unchanged: read from the fields,
+  // ptxas scheduled them anew and T7 or T9 ran 2-4% slower at L0 on the
+  // card (PERF.md)
   constexpr bool FIELDS = policy_of(LAST) == kShift && !AH;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -834,10 +853,13 @@ attn_sm90(const __grid_constant__ CUtensorMap tq,
     return q_full + 8 * (3 * kStages + NQ + qb);
   };
 
-  const int q0 = blockIdx.x * P::kQRows;
+  const int q0 = (HF ? blockIdx.y : blockIdx.x) * P::kQRows;
   // the heads this CTA computes: all of them in turn (AH), else blockIdx.y
+  // (blockIdx.x on the head-fastest grid)
   const int nheads = AH ? a.H : 1;
-  auto head = [&](int hi) { return AH ? hi : static_cast<int>(blockIdx.y); };
+  auto head = [&](int hi) {
+    return AH ? hi : static_cast<int>(HF ? blockIdx.x : blockIdx.y);
+  };
   const int b = blockIdx.z / a.nslices, slice = blockIdx.z % a.nslices;
   const int ntiles = (a.Lk + BKV - 1) / BKV;
 
@@ -1291,26 +1313,30 @@ int bucket_smem(int i) {
   }
 }
 
-// The grid: (query tile, head, image x slice), or with AH (query tile, 1,
-// image), the CTA looping over the heads.
+// The grid: (query tile, head, image x slice), with AH (query tile, 1,
+// image), the CTA looping over the heads, or with kGridHeadFastest in LAST
+// (head, query tile, image).
 template <int KD, int NV, int BKV, int NC, int LAST, bool AH = false>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const Sm90Args& a, int B,
                    cudaStream_t stream) {
   using P = Plan<KD, NV, BKV, NC, AH, policy_of(LAST) == kChunked>;
   auto kern = attn_sm90<KD, NV, BKV, NC, LAST, AH>;
+  const unsigned tiles = (a.Lq + P::kQRows - 1) / P::kQRows;
+  constexpr bool HF = (LAST & kGridHeadFastest) != 0;
+  if (HF && tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Lq + P::kQRows - 1) / P::kQRows, AH ? 1 : a.H,
-                  B * a.nslices);
+  const dim3 grid = HF ? dim3(a.H, tiles, B * a.nslices)
+                       : dim3(tiles, AH ? 1 : a.H, B * a.nslices);
   kern<<<grid, P::kThreads, P::kSmem, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
 // The buckets of hd <= 160 (one output slice) with the last pass's softmax
 // LAST: the chunked modes, and the head-major one pass (kShiftSplitP,
-// kShift with or without kBf16P).
+// kShift with kBf16P, kGridHeadFastest or neither).
 template <int LAST>
 cudaError_t launch_two_pass(int bucket, const CUtensorMap& tq,
                             const CUtensorMap& tk, const CUtensorMap& tv,
@@ -1543,13 +1569,14 @@ auto allheads_visit(int hd, int nc, F&& f) {
   }
 }
 
-// T2, T5, T7 and T9 on contiguous (B, L, H*hd) projections: the shifted
+// T2, T5 to T7 and T9 on contiguous (B, L, H*hd) projections: the shifted
 // softmax in one pass, hd <= 160. `mode` kShiftSplitP (T9) and kShift |
-// kBf16P (T2's bf16 p): the head-major grid and K2's bucket. kShift: the
-// same with `consumers` -1 (T2, T5; T7's probe that parts the grid's share
-// of T7 and T9's difference from the second product's), else T7's
-// all-heads grid, allheads_bucket's KD, NV, BKV, two Q buffers and
-// `consumers` warpgroups (0: allheads_consumers). `safe`: s clamped at
+// kBf16P (T2's bf16 p): the head-major grid and K2's bucket; kShift |
+// kGridHeadFastest (T8): the same on the head-fastest grid. kShift: the
+// head-major grid with `consumers` -1 (T2, T5, T6; T7's probe that parts
+// the grid's share of T7 and T9's difference from the second product's),
+// else T7's all-heads grid, allheads_bucket's KD, NV, BKV, two Q buffers
+// and `consumers` warpgroups (0: allheads_consumers). `safe`: s clamped at
 // shift + 88 and 1e-30 added to l; else neither (T2 unclamped).
 cudaError_t run_shift(const void* q, const void* k, const void* v, void* out,
                       int B, int H, int Lq, int Lk, int hd, float scale_log2,
@@ -1559,7 +1586,7 @@ cudaError_t run_shift(const void* q, const void* k, const void* v, void* out,
       B > 65535 || H > 65535 || !std::isfinite(shift) || consumers < -1 ||
       consumers > (hd <= 48 ? 3 : 2) ||
       !(mode == kShift || mode == kShiftSplitP ||
-        mode == (kShift | kBf16P)) ||
+        mode == (kShift | kBf16P) || mode == (kShift | kGridHeadFastest)) ||
       (mode != kShift && consumers > 0))
     return cudaErrorInvalidValue;
   const bool all_heads = mode == kShift && consumers >= 0;
@@ -1581,9 +1608,12 @@ cudaError_t run_shift(const void* q, const void* k, const void* v, void* out,
     return cudaErrorInvalidValue;
   if (mode == kShiftSplitP)
     return launch_two_pass<kShiftSplitP>(bucket, tq, tk, tv, a, B, stream);
-  if (mode != kShift)
+  if (mode == (kShift | kBf16P))
     return launch_two_pass<kShift | kBf16P>(bucket, tq, tk, tv, a, B,
                                             stream);
+  if (mode == (kShift | kGridHeadFastest))
+    return launch_two_pass<kShift | kGridHeadFastest>(bucket, tq, tk, tv, a,
+                                                      B, stream);
   if (!all_heads)
     return launch_two_pass<kShift>(bucket, tq, tk, tv, a, B, stream);
   return allheads_visit(hd, nc, [&](auto c) {
@@ -1768,6 +1798,25 @@ extern "C" cudaError_t dtp_nomax_unpadded_sm90(
     int Lq, int Lk, int hd, float scale_log2, float shift, void* stream) {
   return dtp::run_shift(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
                         dtp::kShift, -1, true,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// T6: T9's arguments, the heads read in place: T2's safe launch with fp32
+// p (the head-major grid, K2's bucket), on its own entry.
+extern "C" cudaError_t dtp_nomax_4d_sm90(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int Lq, int Lk, int hd, float scale_log2, float shift, void* stream) {
+  return dtp::run_shift(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
+                        dtp::kShift, -1, true,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// T8: T6's launch on the head-fastest grid (head, query tile, image).
+extern "C" cudaError_t dtp_nomax_laneslice_sm90(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int Lq, int Lk, int hd, float scale_log2, float shift, void* stream) {
+  return dtp::run_shift(q, k, v, out, B, H, Lq, Lk, hd, scale_log2, shift,
+                        dtp::kShift | dtp::kGridHeadFastest, -1, true,
                         static_cast<cudaStream_t>(stream));
 }
 

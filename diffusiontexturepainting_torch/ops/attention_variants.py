@@ -41,22 +41,23 @@ T1's TPU wrapper pads Lq to its query block and returns the padded rows (it
 raises on the final reshape where Lq is off the block); here every query
 length is computed.
 
-The kernels live in csrc/attn_arms.cu (T2, T3, T5 and T9 in fp32),
-csrc/attn_layouts.cu (T6, T8, and T4 and T7 in fp32), one register-resident
-body (csrc/attn_arms.cuh, hd <= 160), and csrc/attn_transposed.cu (T1 and
-T10 in fp32, over the same header's primitives). bf16 T4 runs K13's
+In fp32 the kernels are FMA twins over one body (csrc/attn_arms.cuh, hd <=
+160): csrc/attn_arms.cu (T2, T3, T5, T9), csrc/attn_layouts.cu (T4, T6,
+T7, T8) and csrc/attn_transposed.cu (T1, T10). In bf16, T4 runs K13's
 two-pass wgmma/TMA kernel (csrc/flash_attention_sm90.cu
-dtp_slotted_attention_sm90), bf16 T1 and T3 that kernel's chunked
-softmax (dtp_sublane_attention_sm90: the exact row max, one chunk of every
-key; dtp_chunked_attention_sm90: the running max per chunk of bk keys, a
-max pass over a chunk of several K/V tiles), bf16 T2, T5, T7 and T9 its
-one-pass shifted softmax (dtp_nomax_attention_sm90: head-major, with or
-without the clamp and with an fp32 or bf16 p; dtp_nomax_unpadded_sm90: T2's
-safe launch on the split heads; dtp_nomax_allheads_sm90: every head of a
-query tile in one CTA; dtp_pvt_attention_sm90: p as bf16 hi + lo into two
-products), and bf16 T10 a split wgmma/TMA GEMM whose operands stay in
-shared memory (csrc/pv_product_sm90.cu); each raises ValueError on
-operands TMA cannot describe. A wrapper takes its plain version only for a tensor on the CPU;
+dtp_slotted_attention_sm90), T1 and T3 that kernel's chunked softmax
+(dtp_sublane_attention_sm90: the exact row max, one chunk of every key;
+dtp_chunked_attention_sm90: the running max per chunk of bk keys, a max
+pass over a chunk of several K/V tiles), T2 and T5 to T9 its one-pass
+shifted softmax (dtp_nomax_attention_sm90: head-major, with or without the
+clamp and with an fp32 or bf16 p; dtp_nomax_unpadded_sm90 and
+dtp_nomax_4d_sm90: T2's safe launch on the split heads and on the heads in
+place; dtp_nomax_laneslice_sm90: that launch on a head-fastest grid;
+dtp_nomax_allheads_sm90: every head of a query tile in one CTA;
+dtp_pvt_attention_sm90: p as bf16 hi + lo into two products), and T10 a
+split wgmma/TMA GEMM whose operands stay in shared memory
+(csrc/pv_product_sm90.cu); each raises ValueError on operands TMA cannot
+describe. A wrapper takes its plain version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises. `ops.attention.attention` and the served paths never
 call these.
 """
@@ -83,7 +84,9 @@ from .attention import (
     sm90_plan,
 )
 
-MAX_HEAD_DIM = 160  # the kernel's 16 x hd fp32 accumulator per warp
+# the arms' kernels: the wgmma/TMA kernel's buckets of hd <= 160 with one
+# output slice, the fp32 twin's row tiles
+MAX_HEAD_DIM = 160
 DEFAULT_SHIFT = 32.0  # the JAX package's _NOMAX_SHIFT
 CHUNK_WIDTHS = (64, 128)  # fp32 T3's kernel: the chunk is its K/V tile
 DEFAULT_CHUNK = 1024  # the TPU tool's chunked_attention default bk
@@ -122,10 +125,10 @@ _SLOTTED_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
 _PV_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
                      + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
 PV_SM90_SOURCE = "pv_product_sm90"
-# bf16 T2, T5, T7 and T9 (the wgmma/TMA kernel's one-pass shifted
-# softmax): q, k, v, out, B, H, Lq, Lk, hd, scale*log2(e) and the shift; T2
-# then safe and bf16_p, T7 its forced consumer warpgroups (0: the plan's,
-# -1: T9's head-major grid); the stream. T5 takes T9's.
+# bf16 T2 and T5 to T9 (the wgmma/TMA kernel's one-pass shifted softmax):
+# q, k, v, out, B, H, Lq, Lk, hd, scale*log2(e) and the shift; T2 then safe
+# and bf16_p, T7 its forced consumer warpgroups (0: the plan's, -1: T9's
+# head-major grid); the stream. T5, T6 and T8 take T9's.
 _SHIFT_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
                         + (ctypes.c_float,) * 2)
 _PVT_SM90_ARGTYPES = _SHIFT_SM90_ARGTYPES + (ctypes.c_void_p,)
@@ -487,8 +490,8 @@ def _check(name, q, k, v, num_heads):
     _check_qkv(name, q, k, v, num_heads)
     if q.shape[-1] // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {q.shape[-1] // num_heads} > "
-                         f"{MAX_HEAD_DIM} (the kernel keeps 16 x hd fp32 "
-                         "outputs per warp in registers)")
+                         f"{MAX_HEAD_DIM} (the arms' kernels keep one "
+                         "output slice in registers)")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: q, k, v must be contiguous")
 
@@ -632,9 +635,10 @@ def nomax_unpadded(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
 
 
 def _shift_sm90(name, counter, q, k, v, num_heads, shift, *options):
-    """bf16 T7 or T9 on the wgmma/TMA kernel (csrc/flash_attention_sm90.cu
-    dtp_<name>_sm90), reading (B, L, h*hd) in place: the one-pass shifted
-    softmax, `options` T7's forced consumers."""
+    """bf16 T6, T7, T8 or T9 on the wgmma/TMA kernel
+    (csrc/flash_attention_sm90.cu dtp_<name>_sm90), reading (B, L, h*hd)
+    in place: the one-pass shifted softmax, `options` T7's forced
+    consumers."""
     _check(name, q, k, v, num_heads)
     _check_tma(name, q.shape[-1] // num_heads, q, k, v)
     out = _sm90_arm(f"dtp_{name}_sm90", _ALLHEADS_SM90_ARGTYPES if options
@@ -663,10 +667,17 @@ def pvt_attention(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
 
 def nomax_4d(q, k, v, num_heads: int, *, shift: float = DEFAULT_SHIFT):
     """T6: T5's function with the heads read in place from the (B, L, h,
-    hd) view, blocks ordered (b, h, q-block); kernel on CUDA,
-    plain_nomax_4d on CPU."""
+    hd) view, blocks ordered (b, h, q-block). Kernel on CUDA: bf16 T2's
+    safe launch of the wgmma/TMA kernel, the head-major grid and K2's
+    bucket for hd, its bits (csrc/flash_attention_sm90.cu
+    dtp_nomax_4d_sm90; hd a multiple of 8 and 16-byte-aligned bases, else
+    ValueError), fp32 the FMA twin (csrc/attn_layouts.cu). plain_nomax_4d
+    on CPU."""
     if q.device.type == "cpu":
         return plain_nomax_4d(q, k, v, num_heads, shift=shift)
+    if q.dtype == torch.bfloat16:
+        return _shift_sm90("nomax_4d", nomax_4d_launches, q, k, v,
+                           num_heads, shift)
     return _shift_arm("nomax_4d", "attn_layouts", nomax_4d_launches, q, k, v,
                       num_heads, shift)
 
@@ -703,10 +714,17 @@ def _nomax_allheads(q, k, v, num_heads, shift=DEFAULT_SHIFT,
 def nomax_laneslice(q, k, v, num_heads: int, *,
                     shift: float = DEFAULT_SHIFT):
     """T8: T5's function with blocks ordered (b, q-block, h), the head
-    fastest, each slicing its head's lanes from the packed rows; kernel on
-    CUDA, plain_nomax_laneslice on CPU."""
+    fastest, each slicing its head's lanes from the packed rows. Kernel on
+    CUDA: bf16 T6's launch on a head-fastest grid (csrc/
+    flash_attention_sm90.cu dtp_nomax_laneslice_sm90: the head in
+    blockIdx.x, the query tile in blockIdx.y; T6's bits; hd a multiple of 8
+    and 16-byte-aligned bases, else ValueError), fp32 the FMA twin
+    (csrc/attn_layouts.cu). plain_nomax_laneslice on CPU."""
     if q.device.type == "cpu":
         return plain_nomax_laneslice(q, k, v, num_heads, shift=shift)
+    if q.dtype == torch.bfloat16:
+        return _shift_sm90("nomax_laneslice", nomax_laneslice_launches, q, k,
+                           v, num_heads, shift)
     return _shift_arm("nomax_laneslice", "attn_layouts",
                       nomax_laneslice_launches, q, k, v, num_heads, shift)
 

@@ -1,7 +1,7 @@
 """Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a,
 K11, K12b, K8 and K2 wrappers at their served shapes, and of the T4, T10,
-T11, T7, T9, T1, T3, T2 and T5 arms at their paths' shapes, for comparing
-two checkouts on one card.
+T11, T7, T9, T1, T3, T2, T5, T6 and T8 arms at their paths' shapes, for
+comparing two checkouts on one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
     PYTHONPATH=<another checkout> python \\
@@ -40,10 +40,11 @@ sublane_attention (T1) and chunked_attention (T3) at chunks of 64 and 128
 keys, then of 1024 keys with fp32 and bf16 p (a tree whose wrapper lacks
 chunked_sm90_plan, whose kernel takes chunks of 64 and 128 keys only,
 prints that it skips them) at ATTN (the attn_arms path's shapes and
-calls), SDPA beside, and last, the kernels this tree may differ in,
-nomax_attention (T2) in the entry point's three forms (`T2 safe`, the
-attn_arms path's; `T2`, unclamped; `T2/bf16p`) and nomax_unpadded (T5, its
-copies of the heads included) at ATTN. Seeded normal bf16 inputs (T10,
+calls), SDPA beside, nomax_attention (T2) in the entry point's three forms
+(`T2 safe`, the attn_arms path's; `T2`, unclamped; `T2/bf16p`) and
+nomax_unpadded (T5, its copies of the heads included), and last, the
+kernels this tree may differ in, nomax_4d (T6) and nomax_laneslice (T8)
+at ATTN. Seeded normal bf16 inputs (T10,
 T11: the tools' uniform ones). Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph) and a
@@ -314,10 +315,12 @@ def _rows(gen):
             row(name, tag, [B, L, D, heads, safe, bf16_p],
                 lambda: attention_variants.nomax_attention(
                     q, k, v, heads, safe=safe, bf16_p=bf16_p), ATTN_CALLS)
-    for B, L, D, heads, _, tag, q, k, v in attn:
-        row("T5", tag, [B, L, D, heads],
-            lambda: attention_variants.nomax_unpadded(q, k, v, heads),
-            ATTN_CALLS)
+    for name, arm in (("T5", attention_variants.nomax_unpadded),
+                      ("T6", attention_variants.nomax_4d),
+                      ("T8", attention_variants.nomax_laneslice)):
+        for B, L, D, heads, _, tag, q, k, v in attn:
+            row(name, tag, [B, L, D, heads], lambda: arm(q, k, v, heads),
+                ATTN_CALLS)
     return rows
 
 
@@ -334,8 +337,8 @@ def stamp_sums(rows):
     """{name: (ms, device_ms)}: count-weighted sums of the rows that carry
     launches a stamp: K4, K12b and F.conv_transpose2d over the twin's K4
     shapes; each T11 read and F.conv2d over the conv_arms path's windows;
-    K8, K2, T7, T9, T1, each T3 chunk, SDPA, each T2 form and T5 over the
-    attn_arms path."""
+    K8, K2, T7, T9, T1, each T3 chunk, SDPA, each T2 form, T5, T6 and T8
+    over the attn_arms path."""
     sums = {}
     for r in rows:
         if "count" not in r or r["tag"].startswith("tool"):

@@ -4,15 +4,17 @@ dtp_nomax_allheads_sm90, dtp_pvt_attention_sm90): s clamped at shift + 88,
 p = exp2(s - shift) in fp32, the row sum of the unrounded p + 1e-30; T7
 puts bf16(p) into P V with every head of a query tile in one CTA, T9 puts
 p in as bf16 hi + lo (two products) on the head-major grid. The dispatch,
-refusal, replay and plain-version tests cover T2 (nomax_attention) and T5
-(nomax_unpadded) on the same kernel's head-major one pass too; their
-emulations and probes are in test_torch_port_nomax_sm90.py.
+refusal, replay and plain-version tests cover T2 (nomax_attention), T5
+(nomax_unpadded), T6 (nomax_4d) and T8 (nomax_laneslice) on the same
+kernel's head-major one pass too; their emulations and probes are in
+test_torch_port_nomax_sm90.py and test_torch_port_layouts_sm90.py.
 
 On the CPU, the host logic that needs no card: the dtype dispatch between
 the sm90 entries (bf16) and the FMA twins (fp32: csrc/attn_layouts.cu,
 csrc/attn_arms.cu) through a patched `_cuda.function` (T5's copies of the
 heads patched too), refusals of what TMA
-cannot describe, the old entries' refusal of bf16 in their source, T7's
+cannot describe, the old entries' refusal of bf16 in their source (and no
+bf16 kernel left in csrc/attn_arms.cuh), T7's
 plan (consumer warpgroups by the waves of its all-heads grid; every query
 row of every head covered once by the grid and the head loop), and torch
 emulations of the kernels' tile arithmetic (T7: query tiles of 64, 128 or
@@ -114,7 +116,12 @@ WRAPPERS = {"nomax_allheads": (arms.nomax_allheads,
             "nomax_attention": (arms.nomax_attention, arms.nomax_launches,
                                 "attn_arms"),
             "nomax_unpadded": (arms.nomax_unpadded,
-                               arms.nomax_unpadded_launches, "attn_arms")}
+                               arms.nomax_unpadded_launches, "attn_arms"),
+            "nomax_4d": (arms.nomax_4d, arms.nomax_4d_launches,
+                         "attn_layouts"),
+            "nomax_laneslice": (arms.nomax_laneslice,
+                                arms.nomax_laneslice_launches,
+                                "attn_layouts")}
 # name -> (B and H as the entry gets them for 3 images of 8 heads, the
 # bf16 entry's arguments after the shift, the fp32 twin's after the shift
 # and before the stream): T5 launches its (B*h, L, hd) copies as one head;
@@ -122,7 +129,9 @@ WRAPPERS = {"nomax_allheads": (arms.nomax_allheads,
 ENTRY_ARGS = {"nomax_allheads": ((3, 8), (0,), (0,)),
               "pvt_attention": ((3, 8), (), (0,)),
               "nomax_attention": ((3, 8), (0, 0), (0, 0, 0)),
-              "nomax_unpadded": ((24, 1), (), (0,))}
+              "nomax_unpadded": ((24, 1), (), (0,)),
+              "nomax_4d": ((3, 8), (), (0,)),
+              "nomax_laneslice": ((3, 8), (), (0,))}
 # the fp32 twins' argument types
 TWIN_ARGTYPES = {"nomax_attention": arms._NOMAX_ARGTYPES}
 
@@ -196,24 +205,24 @@ def test_forced_consumers_out_of_range_raise(monkeypatch):
                                          ("dtp_nomax_attention",
                                           "attn_arms.cu"),
                                          ("dtp_nomax_unpadded",
-                                          "attn_arms.cu")])
+                                          "attn_arms.cu"),
+                                         ("dtp_nomax_4d", "attn_layouts.cu"),
+                                         ("dtp_nomax_laneslice",
+                                          "attn_layouts.cu")])
 def test_old_entries_refuse_bf16(name, source):
     """The FMA twins' entries return cudaErrorInvalidValue for bf16 and
-    launch the fp32 body only; the register-resident bf16 body lost its
-    transposed P V (kPvt), its all-heads loop and T2's options (the
-    unclamped and bf16-p softmax, P V over hd padded to 16), which no entry
-    reaches: it runs T6's and T8's kUnpadded alone."""
+    launch the fp32 body only; csrc/attn_arms.cuh holds no bf16 kernel:
+    no mma.sync or ldmatrix, no bf16 arms_kernel, no bf16 operands."""
     text = (_cuda.CSRC / source).read_text()
     entry = text[text.index(f'extern "C" cudaError_t {name}('):]
     entry = entry[:entry.index("\n}\n")]
     assert "if (is_bf16 || dtp::bad(" in entry
     assert "dispatch_f32<" in entry and "dispatch<" not in entry
     header = (_cuda.CSRC / "attn_arms.cuh").read_text()
-    assert "kPvt" not in header
-    assert 'static_assert(MAP != kAllHeads, "bf16 T7 runs' in header
-    assert "static_assert(ARM == kUnpadded," in header
-    bf16_body = header[:header.index("// fp32 twin of one query row")]
-    assert "a.bf16_p" not in bf16_body and "a.safe" not in bf16_body
+    for gone in ("kPvt", "mma.sync", "ldmatrix", "arms_kernel(",
+                 "launch_bf16", "__nv_bfloat16", "kUnpadded"):
+        assert gone not in header, gone
+    assert "arms_kernel_f32(" in header
 
 
 def test_sm90_source_modes():

@@ -169,7 +169,7 @@ def test_old_entries_refuse_bf16(name, source):
     """The FMA twins' entries return cudaErrorInvalidValue for bf16 and
     launch the fp32 body only; the mma.sync bf16 body of T1 (movmatrix
     transposes) and the bf16 chunked body of attn_arms.cuh (its Q K^T one
-    tile ahead) are gone."""
+    tile ahead) are gone, as is every bf16 kernel of that header."""
     text = (_cuda.CSRC / source).read_text()
     entry = text[text.index(f'extern "C" cudaError_t {name}('):]
     entry = entry[:entry.index("\n}\n")]
@@ -179,7 +179,7 @@ def test_old_entries_refuse_bf16(name, source):
     assert "movmatrix" not in (_cuda.CSRC / "attn_transposed.cu").read_text()
     header = (_cuda.CSRC / "attn_arms.cuh").read_text()
     assert "OVERLAP" not in header
-    assert "static_assert(ARM == kUnpadded," in header
+    assert "mma.sync" not in header and "arms_kernel(" not in header
 
 
 def test_sm90_source_modes():
