@@ -8,8 +8,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   2. build     nvcc builds every kernel from csrc/, in parallel, seconds
                printed; ptxas's registers and spills, none allowed in the
                bf16 K2/K8/K13 kernel (csrc/flash_attention_sm90.cu), the
-               bf16 K9 kernel (csrc/conv_sm90.cu), the bf16 K1/K5, K4, K6
-               and K7 kernels (csrc/gn_conv_sm90.cu), the bf16 K3 kernel
+               bf16 K9 kernel (csrc/conv_sm90.cu), the bf16 K1/K5, K4, K6,
+               K7, K10 and T12 kernels (csrc/gn_conv_sm90.cu), the bf16 K3
+               kernel
                (csrc/ff_geglu_sm90.cu), the bf16 T10 kernel
                (csrc/pv_product_sm90.cu) or the bf16 T11 kernel
                (csrc/window_taps_sm90.cu);
@@ -25,20 +26,25 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                them, K6 and K7 at ragged shapes, K12a and K11 at ragged
                shapes TMA can describe (bf16) and at Cin 3 and 9 and Cout
                130 (fp32), K12b at ragged shapes and a UNet 4x4 level,
-               T11's four reads at the TPU tool's shapes (reps 24) and at
-               ragged ones (Cin 3 in fp32 only); K9, K1/K5, K14, K6, K7,
-               K12b and T11 bit-identical on replay, output and
-               statistics; K6's
+               K10 and T12 (bf16: the affine mode of csrc/gn_conv_sm90.cu)
+               at odd H and W, Cin 8 and 40, Cout 130, a 1x1 image, several
+               images a tile (K10: the 4x4 level at batch 3 with temb; T12
+               also without bias), Cin 3 and 9 in fp32 only, T12 at the TPU
+               tool's shapes, T11's four reads at the TPU tool's shapes
+               (reps 24) and at ragged ones (Cin 3 in fp32 only); K9,
+               K1/K5, K14, K6, K7, K12b, K10, T12 (under the plan's and a
+               forced split of K) and T11 bit-identical on replay, output
+               and statistics; K6's
                statistics also against its own fp32 output before the
                rounding; T10, T4, T7, T9, T5, T2, T6 and T8 bit-identical
                on replay; the bf16 K2/K8/K13, K9, K1/K5, K3, K4, K6, K7,
-               K12a, K11, K12b, T10, T4, T7, T9, T2, T5, T6, T8 and T11
-               refuse what TMA cannot describe (ValueError, no launch); the
-               fp32 entries of csrc/conv3x3.cu, conv_staged.cu's SAME and
-               UP entries (fp32 K12a, K11 and K12b), T10's
+               K12a, K11, K12b, K10, T10, T4, T7, T9, T2, T5, T6, T8, T11
+               and T12 refuse what TMA cannot describe (ValueError, no
+               launch); the fp32 entries of csrc/conv3x3.cu, conv_staged.cu's
+               SAME, UP and GN entries (fp32 K12a, K11, K12b and K10), T10's
                (attn_transposed.cu), T4's, T6's, T7's and T8's
                (attn_layouts.cu), T2's, T5's and T9's (attn_arms.cu) and
-               T11's (conv_arms.cu) refuse bf16;
+               T11's and T12's (conv_arms.cu) refuse bf16;
   4. default   the served configuration (PipelineConfig(): every fused
                switch on): full-width SD-1.5 (seeded random weights, bf16)
                at 256^2 / 20 DDIM steps: one NEW_BRUSH_IMAGE and three
@@ -59,8 +65,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
   5c. resnet_bodies
                the 22 resnets of one UNet eval of the twin at 256^2 (batch
                3, their inputs captured from the module legs), each as two
-               gn_silu_conv3x3 calls (K10), held against the module leg in
-               bf16 and fp32; and K11 (conv3x3_stream; in bf16 K7's kernel,
+               gn_silu_conv3x3 calls (K10; in bf16 K14's sums, then the
+               affine mode of csrc/gn_conv_sm90.cu), held against the module
+               leg in bf16 and fp32; and K11 (conv3x3_stream; in bf16 K7's kernel,
                counted apart) as often as the twin ran K7, at each of its K7
                shapes that pass the JAX package's streaming_plan shape test;
   6. server    the port's server (serving/server.py) on loopback around
@@ -145,10 +152,11 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                one call each, each against its plain version, the two
                orientations against each other;
   9d. conv_arms
-               the conv arms (csrc/conv_arms.cu) at every shape at which
-               the default 256^2 / 20 stamp launches K5 with its prologue,
-               as often as one stamp launches K5 there: T12 (pipelined:
-               conv3x3_VALID(silu(pad(x)*a + c)) + b) on seeded images of
+               the conv arms at every shape at which the default 256^2 /
+               20 stamp launches K5 with its prologue, as often as one
+               stamp launches K5 there: T12 (pipelined:
+               conv3x3_VALID(silu(pad(x)*a + c)) + b; bf16 on the affine
+               mode of csrc/gn_conv_sm90.cu) on seeded images of
                those shapes, against its plain version and, away from the
                border, against K5; T11 (conv_window_taps; bf16 on
                csrc/window_taps_sm90.cu) on the same images cut into row
@@ -163,7 +171,8 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                alone), at the shapes of the path it is reported for, beside
                its bound (K2, K3, K4, K6, K9, K1, K5 and K14 also at the
                envelope path's; K1/K5, K14, K3, K4, K6, K7, K12a, K11,
-               K12b, T4, T10 and T11 also in CUDA-graph device time; K12a
+               K12b, K10, T4, T10, T11, T12 and the attention arms also in
+               CUDA-graph device time, with their family member's; K12a
                and K11 beside K7 and K12b beside K4 at the same shapes,
                equal to it bit for bit in bf16; T10 also
                beside a chain of PV_ITERS torch.baddbmm calls, as many
@@ -252,7 +261,8 @@ SOURCES = {
     "conv3x3_inpad": "csrc/gn_conv_sm90.cu",
     "upsample2x_conv3x3_inpad": "csrc/gn_conv_sm90.cu",
     "conv3x3_stream": "csrc/gn_conv_sm90.cu",
-    "gn_silu_conv3x3": "csrc/conv_staged.cu",
+    # bf16: K14's sums, then the affine mode; fp32 runs conv_staged.cu
+    "gn_silu_conv3x3": "csrc/gn_conv_sm90.cu",
     # bf16; fp32 runs attn_arms.cu
     "nomax_attention": "csrc/flash_attention_sm90.cu",
     # bf16; fp32 runs attn_arms.cu
@@ -275,7 +285,8 @@ SOURCES = {
     "pv_product": "csrc/pv_product_sm90.cu",
     # bf16; fp32 runs conv_arms.cu
     "conv_window_taps": "csrc/window_taps_sm90.cu",
-    "pipelined": "csrc/conv_arms.cu",
+    # bf16 (the affine mode); fp32 runs conv_arms.cu
+    "pipelined": "csrc/gn_conv_sm90.cu",
 }
 # the arms of the attn_arms path (the softmax arms, then the head-layout
 # arms) and the slotted-input arm of the slotted_arm path
@@ -462,14 +473,15 @@ ARM_PATH_ROWS = {"nomax_attention": "nomax-safe",
 ARM_LAUNCHES = 20
 # Kernels whose device time (the calls replayed from a CUDA graph, the
 # host's launch cost left out) is also taken at their timed shapes, with
-# their library call's: the kernels this round of work redesigned last
+# their library call's and their family member's: the kernels this round
+# of work redesigned
 DEVICE_TIMED = ("gn_conv_resident", "gn_conv_stream", "spatial_moments",
                 "ff_geglu", "upsample2x_conv3x3", "upconv_stream", "conv3x3",
                 "conv3x3_inpad", "conv3x3_stream",
                 "upsample2x_conv3x3_inpad", SLOTTED_ARM, PV, TAPS,
                 "nomax_allheads", "pvt_attention", "sublane_attention",
                 "chunked_attention", "nomax_attention", "nomax_unpadded",
-                *IN_PLACE_ARMS)
+                *IN_PLACE_ARMS, "gn_silu_conv3x3", PIPE)
 # Kernels whose family member (FAMILY_IS) runs the same launch in bf16
 # (T8: the same CTAs on another grid): their outputs must equal its bit for
 # bit (T3 where its chunk is the K/V tile of the bucket, with fp32 p:
@@ -1050,7 +1062,8 @@ def compare(kind, shape_key, dtype, gen, timed=False):
 
             out["kernel_device_ms"] = graph_ms(kernel, calls=10, tries=3)
             for field, fn in (("library", library),
-                              ("composition", composition)):
+                              ("composition", composition),
+                              ("family", family)):
                 if fn is not None:
                     out[f"{field}_device_ms"] = graph_ms(fn, calls=10,
                                                          tries=3)
@@ -2213,11 +2226,13 @@ def tma_refusal_probe(gen):
     a q 2 bytes off 16; K12a and K11 (K7's kernel in bf16) at Cin 3, Cin 9
     and Cout 130; K12b (K4's kernel in bf16) at Cin 20, at Cout 12 and on
     an input 2 bytes off 16; T11 (csrc/window_taps_sm90.cu) at Cin 3 and on
-    windows 2 bytes off 16. Then csrc/conv3x3.cu's fp32 entries of K7, K4
-    and K6, conv_staged.cu's SAME and UP entries (fp32 K12a, K11 and K12b),
-    attn_transposed.cu's T10, attn_layouts.cu's T4 and conv_arms.cu's T11
-    called in bf16: each returns cudaErrorInvalidValue, and the conv
-    entries' split plans -1."""
+    windows 2 bytes off 16; K10 and T12 (csrc/gn_conv_sm90.cu's affine
+    mode) at Cin 3, Cin 9 and Cin 20 and on an input 2 bytes off 16, K10
+    also on a residual 2 bytes off 16. Then csrc/conv3x3.cu's fp32 entries
+    of K7, K4 and K6, conv_staged.cu's SAME, UP and GN entries (fp32 K12a,
+    K11, K12b and K10), attn_transposed.cu's T10, attn_layouts.cu's T4 and
+    conv_arms.cu's T11 and T12 called in bf16: each returns
+    cudaErrorInvalidValue, and the conv entries' split plans -1."""
     import torch
 
     from diffusiontexturepainting_torch.ops import (
@@ -2366,6 +2381,35 @@ def tma_refusal_probe(gen):
                 W=9, reps=3))
     calls["conv_window_taps xwin 2 bytes off 16"] = (
         lambda: cv.conv_window_taps(xw_off, w16t, "shifted", W=14))
+    # bf16 K10 and T12 (the affine mode) at Cin 3, 9 and 20 (fp32 keeps
+    # them: the probes) and on inputs 2 bytes off 16
+    for cin in (3, 9, 20):
+        xa = torch.randn((2, 5, 7, cin), generator=gen,
+                         device="cuda").bfloat16()
+        wa = torch.randn((3, 3, cin, 40), generator=gen,
+                         device="cuda").bfloat16()
+        sa = torch.ones(cin, device="cuda").bfloat16()
+        aa = torch.ones((2, cin), device="cuda")
+        calls[f"gn_silu_conv3x3 Cin {cin}"] = (
+            lambda xa=xa, wa=wa, sa=sa, cin=cin: conv3x3.gn_silu_conv3x3(
+                xa, sa, sa, wa, None, num_groups=cin // (4 if cin == 20
+                                                         else 3)))
+        calls[f"pipelined Cin {cin}"] = (
+            lambda xa=xa, wa=wa, aa=aa: cv.pipelined(xa, aa, aa, wa, None))
+    r_flat = torch.randn(1 + 16 * 16 * 16, generator=gen,
+                         device="cuda").bfloat16()
+    s16 = torch.ones(16, device="cuda").bfloat16()
+    a1 = torch.ones((1, 16), device="cuda")
+    calls.update({
+        "gn_silu_conv3x3 x 2 bytes off 16":
+        lambda: conv3x3.gn_silu_conv3x3(off, s16, s16, w16, None,
+                                        num_groups=4),
+        "gn_silu_conv3x3 residual 2 bytes off 16":
+        lambda: conv3x3.gn_silu_conv3x3(
+            off.contiguous(), s16, s16, w16, None, None,
+            r_flat[1:].view(1, 16, 16, 16), 4),
+        "pipelined x 2 bytes off 16":
+        lambda: cv.pipelined(off, a1, a1, w16, None)})
     counters = (attention.flash_launches, attention.flash_streaming_launches,
                 attention.flash_slotted_launches,
                 gn_conv.downconv_stream_launches,
@@ -2378,7 +2422,8 @@ def tma_refusal_probe(gen):
                 av.slotted_launches, cv.conv_window_taps_launches,
                 av.nomax_allheads_launches, av.pvt_launches,
                 av.nomax_launches, av.nomax_unpadded_launches,
-                av.nomax_4d_launches, av.nomax_laneslice_launches)
+                av.nomax_4d_launches, av.nomax_laneslice_launches,
+                conv3x3.gn_silu_conv3x3_launches, cv.pipelined_launches)
     before = [c.launches for c in counters]
     for label, call in calls.items():
         try:
@@ -2414,6 +2459,16 @@ def tma_refusal_probe(gen):
             "conv_arms", "dtp_conv_window_taps", cv._TAPS_ARGTYPES)(
             x8.data_ptr(), w16.data_ptr(), out.data_ptr(), 1, 6, 4, 8, 16,
             16, 0, 1, 1, stream),
+        "dtp_gn_silu_conv3x3_staged": _cuda.function(
+            "conv_staged", "dtp_gn_silu_conv3x3_staged",
+            conv3x3._GN_STAGED_ARGTYPES)(
+            x8.data_ptr(), stats.data_ptr(), s16.data_ptr(), s16.data_ptr(),
+            w16.data_ptr(), None, None, None, out.data_ptr(), 1e-5, 1, 8, 8,
+            16, 16, 4, 1, stream),
+        "dtp_gn_conv_pipelined": _cuda.function(
+            "conv_arms", "dtp_gn_conv_pipelined", cv._PIPE_ARGTYPES)(
+            x8.data_ptr(), a1.data_ptr(), a1.data_ptr(), w16.data_ptr(),
+            None, out.data_ptr(), 1, 8, 8, 16, 16, 1, stream),
         "dtp_upsample2x_conv3x3_stats": _cuda.function(
             "conv3x3", "dtp_upsample2x_conv3x3_stats", gn_conv._UP_ARGTYPES)(
             *ptrs, stats.data_ptr(), stats.data_ptr(), stats.data_ptr(), 1,
@@ -2446,11 +2501,11 @@ def tma_refusal_probe(gen):
     if set(codes.values()) != {1} or set(splits.values()) != {-1}:
         raise AssertionError(f"probe: fp32 entries in bf16 gave {codes}, "
                              f"split plans {splits}")
-    log(f"probe: conv3x3.cu's, conv_staged.cu's SAME and UP, "
+    log(f"probe: conv3x3.cu's, conv_staged.cu's SAME, UP and GN, "
         f"attn_transposed.cu's T10, attn_layouts.cu's T4, T6, T7 and T8, "
-        f"attn_arms.cu's T2, T5 and T9 and conv_arms.cu's T11 fp32 entries "
-        f"refuse bf16: {codes} (cudaErrorInvalidValue), conv split plans "
-        "-1")
+        f"attn_arms.cu's T2, T5 and T9 and conv_arms.cu's T11 and T12 fp32 "
+        f"entries refuse bf16: {codes} (cudaErrorInvalidValue), conv split "
+        "plans -1")
 
 
 def replay_probe(gen):
@@ -2662,6 +2717,53 @@ def replay_probe(gen):
             "and spatial_moments: output and statistics bit-identical on "
             f"replay; statistics against their own outputs {e:.2e} of the "
             "sums")
+    affine_replay_probe(gen)
+
+
+def affine_replay_probe(gen):
+    """bf16 K10 (temb and residual) at the UNet's 4x4 and 16x16 levels and
+    T12 at a conv_arms shape and a ragged one, each twice under the plan's
+    split of K and twice under a forced split of 3: bit-identical on
+    replay, and the two splits within TOL of each other (the epilogue runs
+    once, after the ordered sum of the splits)."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import conv3x3
+    from diffusiontexturepainting_torch.ops import conv_variants as cv
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    for kind, (B, H, W, cin, cout) in (
+            ("gn_silu_conv3x3", (3, 4, 4, 2560, 1280)),
+            ("gn_silu_conv3x3", (3, 16, 16, 960, 640)),
+            (PIPE, (2, 64, 64, 256, 512)), (PIPE, (1, 9, 19, 200, 130))):
+        x = (rnd(B, H, W, cin) + 0.3).bfloat16()
+        w = rnd(3, 3, cin, cout, std=(9 * cin) ** -0.5).bfloat16()
+        b = rnd(cout, std=0.1).bfloat16()
+        if kind == PIPE:
+            a, c = rnd(B, cin, std=0.2) + 1, rnd(B, cin, std=0.2)
+            op = lambda **kw: cv._pipelined(x, a, c, w, b, **kw)
+        else:
+            sc, sh = (rnd(cin, std=0.2) + 1).bfloat16(), rnd(
+                cin, std=0.2).bfloat16()
+            t, r = rnd(B, cout).bfloat16(), rnd(B, H, W, cout).bfloat16()
+            op = lambda **kw: conv3x3._gn_silu_conv3x3(
+                x, sc, sh, w, b, t, r, 32, 1e-5, **kw)
+        planned = [op() for _ in range(2)]
+        forced = [op(splits=3) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not (torch.equal(*planned) and torch.equal(*forced)):
+            raise AssertionError(f"probe: {kind} {(B, H, W, cin, cout)} "
+                                 "differs on replay")
+        err, tol = _err_tol(forced[0], planned[0])
+        if not err <= tol:
+            raise AssertionError(f"probe: {kind} {(B, H, W, cin, cout)}: "
+                                 f"split 3 against the plan's {err:.3e} > "
+                                 f"{tol:.3e}")
+        log(f"probe: {kind} {(B, H, W, cin, cout)} bf16: bit-identical on "
+            f"replay under the plan's split and under 3 splits; the two "
+            f"{err:.3e} apart (tol {tol:.3e})")
 
 
 def weight_slice_probe(gen):
@@ -2785,7 +2887,8 @@ def kernels_phase(gen, paths):
                     if "family_ms" in r:
                         totals["family"] += count * r["family_ms"]
                     for field in ("composition", "kernel_device",
-                                  "library_device", "composition_device"):
+                                  "library_device", "composition_device",
+                                  "family_device"):
                         if f"{field}_ms" in r:
                             totals[field] += count * r[f"{field}_ms"]
                             also_totals[field] += also_count * r[
@@ -2836,6 +2939,8 @@ def kernels_phase(gen, paths):
                                      "its shapes"),
             **({"family_ms": totals["family"] / n,
                 "family_is": FAMILY_IS[name]} if name in FAMILY_IS else {}),
+            **({"family_device_ms": totals["family_device"] / n}
+               if name in FAMILY_IS and name in DEVICE_TIMED else {}),
             **({"family_max_abs_diff": family_diff}
                if name in FAMILY_EXACT else {}),
             **({"stats_self_err": self_worst}
@@ -2875,6 +2980,8 @@ def kernels_phase(gen, paths):
                 + (f"; {also_totals['kernel_device'] / na:.4f}, {yard} "
                    f"{also_totals[yard + '_device'] / na:.4f} ({also} path)"
                    if also else "")
+                + (f"; family {totals['family_device'] / n:.4f}"
+                   if name in FAMILY_IS else "")
                 + "".join(f"; {k} {v / n:.4f}"
                           for k, v in device_by_option.items()))
         if also:
@@ -3038,15 +3145,27 @@ def main() -> int:
          (torch.bfloat16,)),
         ("conv3x3_stream", ((1, 17, 9, 48), (3, 3, 48, 136)),
          (torch.bfloat16,)),
-        # K12b (bf16: K4's kernel; fp32: the staged-tile UP mode) and the
-        # staged-tile GN mode: odd H and W, Cout off the tile, a UNet 4x4
-        # level
+        # K12b (bf16: K4's kernel; fp32: the staged-tile UP mode): odd H
+        # and W, Cout off the tile, a UNet 4x4 level
         ("upsample2x_conv3x3_inpad", ((1, 6, 5, 48), (3, 3, 48, 40))),
         ("upsample2x_conv3x3_inpad", ((3, 4, 4, 1280), (3, 3, 1280, 1280))),
+        # K10 (bf16: the affine mode of csrc/gn_conv_sm90.cu; fp32: the
+        # staged-tile GN mode): odd H and W with Cout off the tile, the 4x4
+        # level at batch 3 with temb (three images a tile, K split), Cin 40
+        # with Cout 130 (padded to 136, 130 stored) and groups of 5, Cin 8,
+        # a 1x1 image, several images a tile with groups of 3; Cin 3 in
+        # fp32 only (bf16 refuses it: tma_refusal_probe)
         ("gn_silu_conv3x3", ((2, 9, 10, 64), (3, 3, 64, 136), True, True,
                              32)),
         ("gn_silu_conv3x3", ((3, 4, 4, 2560), (3, 3, 2560, 1280), True,
                              False, 32)),
+        ("gn_silu_conv3x3", ((2, 5, 7, 40), (3, 3, 40, 130), True, True, 8)),
+        ("gn_silu_conv3x3", ((1, 9, 19, 8), (3, 3, 8, 24), False, False,
+                             2)),
+        ("gn_silu_conv3x3", ((2, 1, 1, 16), (3, 3, 16, 24), False, True, 4)),
+        ("gn_silu_conv3x3", ((3, 4, 4, 96), (3, 3, 96, 40), True, True, 32)),
+        ("gn_silu_conv3x3", ((2, 5, 7, 3), (3, 3, 3, 40), True, True, 3),
+         (torch.float32,)),
         # the softmax arms: head dims 40, 80, 160 (the kernel's register
         # tiles), a ragged length, the options the attn_arms path does not
         # run (T3's keys a multiple of its chunk)
@@ -3124,14 +3243,20 @@ def main() -> int:
          (torch.float32,)),
         ("pv_product", ((2, 72, 200), (2, 200, 150), False, 1),
          (torch.float32,)),
-        # T12 at the TPU tool's shapes, then odd H and W, Cin 3 and 40, Cout
-        # off the tile, a 1x1 image, no bias
+        # T12 at the TPU tool's shapes, then (bf16: the affine mode of
+        # csrc/gn_conv_sm90.cu) odd H and W, Cin 8 and 40, Cout 130
+        # (padded to 136, 130 stored), a 1x1 image, several images a tile,
+        # no bias; Cin 3 and 9 in fp32 only (bf16 refuses them:
+        # tma_refusal_probe)
         ("pipelined", ((2, 512, 512, 128), (3, 3, 128, 128), True)),
         ("pipelined", ((1, 512, 512, 128), (3, 3, 128, 128), True)),
         ("pipelined", ((1, 256, 256, 256), (3, 3, 256, 256), True)),
-        ("pipelined", ((2, 5, 7, 3), (3, 3, 3, 40), True)),
+        ("pipelined", ((2, 5, 7, 8), (3, 3, 8, 40), True)),
         ("pipelined", ((1, 9, 19, 40), (3, 3, 40, 130), False)),
-        ("pipelined", ((1, 1, 1, 9), (3, 3, 9, 24), True)),
+        ("pipelined", ((2, 1, 1, 16), (3, 3, 16, 24), True)),
+        ("pipelined", ((5, 3, 3, 8), (3, 3, 8, 16), False)),
+        ("pipelined", ((2, 5, 7, 3), (3, 3, 3, 40), True), (torch.float32,)),
+        ("pipelined", ((1, 1, 1, 9), (3, 3, 9, 24), True), (torch.float32,)),
         # T11's four reads at the TPU tool's shapes (one window, reps 24),
         # then odd H_T and W, Cin 3 (fp32: bf16 refuses it,
         # tma_refusal_probe) and 40, N off 8 and off the tile, several

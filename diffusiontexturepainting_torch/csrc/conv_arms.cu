@@ -3,7 +3,10 @@
 // conv_staged.cuh (its patch, window pitch and block GEMM).
 //
 //   dtp_gn_conv_pipelined  T12 <- tools/bench_stream_pipeline.py pipelined /
-//       _pipe_kernel (pallas_call :126). What it computes, NHWC:
+//       _pipe_kernel (pallas_call :126), in fp32 only: the FMA twin. In
+//       bf16 T12 runs the affine mode of csrc/gn_conv_sm90.cu (the K1/K5
+//       body, its prologue on TMA's zeros too), and this entry refuses
+//       bf16. What it computes, NHWC:
 //         out = conv3x3_VALID(y) + bias,
 //         y   = round_T(silu(xp * a[b, c] + c[b, c])) in fp32,
 //       where xp is x zero-padded FIRST (one row above and below, one column
@@ -64,17 +67,13 @@
 //       it reps - 1 times, one after the other as the tool's loop does, in
 //       the epilogue.
 //
-// T12: bf16 WMMA (mma.sync) with fp32 accumulation, or the fp32 FMA twin;
-// T11: the fp32 FMA twin. No split-K, no atomics: every run gives the same
-// bits.
+// Both: the fp32 FMA twin. No split-K, no atomics: every run gives the
+// same bits.
 //
-// What bounds them on the H100: the tensor cores at the tools' shapes
+// What bounds them on the H100: the fp32 FMA rate at the tools' shapes
 // (2 * 9 * Cin * N flops a pixel against Cin + N elements moved). The tap
-// loop is conv_staged.cu's (B per tap behind two barriers), so T12's time
-// beside K10's staged tile is the price or gain of the pipelined prologue,
-// and T11's four reads differ only in shared-memory addressing.
-#include <type_traits>
-
+// loop is conv_staged.cu's (B per tap behind two barriers), and T11's four
+// reads differ only in shared-memory addressing.
 #include "conv_staged.cuh"
 
 namespace dtp {
@@ -234,8 +233,6 @@ pipelined_kernel(const PipeArgs<T> p) {
     if (p.bias != nullptr) v += to_float(p.bias[n]);
     p.out[(((size_t)b * H + y) * W + xq) * Cout + n] = from_float<T>(v);
   };
-  // the K loop ended on a barrier: the windows are free as the bf16
-  // epilogue's per-warp staging area
   math.epilogue(reinterpret_cast<float*>(win), tid, store);
 }
 
@@ -447,29 +444,26 @@ cudaError_t dispatch_taps(TapArgs<T> p, int read, cudaStream_t s) {
 }  // namespace
 }  // namespace dtp
 
-// T12: x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,) or null, out
-// (B,H,W,Cout), all bf16 when is_bf16, else fp32; a, c (B,Cin) fp32.
+// T12 in fp32: x (B,H,W,Cin), w (3,3,Cin,Cout), bias (Cout,) or null, out
+// (B,H,W,Cout), all fp32; a, c (B,Cin) fp32. is_bf16 returns
+// cudaErrorInvalidValue (bf16 T12 runs dtp_gn_conv_pipelined_sm90 of
+// csrc/gn_conv_sm90.cu).
 extern "C" cudaError_t dtp_gn_conv_pipelined(const void* x, const void* a,
                                              const void* c, const void* w,
                                              const void* bias, void* out,
                                              int B, int H, int W, int Cin,
                                              int Cout, int is_bf16,
                                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto fill = [&](auto* tag) {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    dtp::PipeArgs<T> p{};
-    p.x = static_cast<const T*>(x);
-    p.a = static_cast<const float*>(a);
-    p.c = static_cast<const float*>(c);
-    p.w = static_cast<const T*>(w);
-    p.bias = static_cast<const T*>(bias);
-    p.out = static_cast<T*>(out);
-    p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout;
-    return dtp::launch_pipelined<T>(p, s);
-  };
-  if (is_bf16) return fill(static_cast<__nv_bfloat16*>(nullptr));
-  return fill(static_cast<float*>(nullptr));
+  if (is_bf16) return cudaErrorInvalidValue;
+  dtp::PipeArgs<float> p{};
+  p.x = static_cast<const float*>(x);
+  p.a = static_cast<const float*>(a);
+  p.c = static_cast<const float*>(c);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<float*>(out);
+  p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout;
+  return dtp::launch_pipelined<float>(p, static_cast<cudaStream_t>(stream));
 }
 
 // T11 in fp32: xwin (nwin,H_T+2,Wp,Cin) with Wp >= W + 2, w (9,Cin,N) or

@@ -25,7 +25,12 @@
 //                                     this entry refuses bf16
 //   dtp_gn_silu_conv3x3_staged     <- gn_silu_conv3x3 / _gn_conv_kernel
 //                                     (K10), after csrc/moments.cu's
-//                                     statistics pass over x
+//                                     statistics pass over x, in fp32
+//                                     only: the FMA twin. In bf16 K10 runs
+//                                     the affine mode of csrc/
+//                                     gn_conv_sm90.cu (the fold in the CTA,
+//                                     one rounding), and this entry refuses
+//                                     bf16
 //
 // What they compute:
 //   SAME: out[b,y,x,n] = bias[n] + sum_{di,dj,c} v[b,y+di-1,x+dj-1,c]
@@ -48,29 +53,23 @@
 //         the source patch.
 //
 // The design: a block owns a TH x TW patch of one image's output pixels
-// (8 x 16 = 128 GEMM rows in bf16, 4 x 16 = 64 in fp32) and one Cout tile
+// (4 x 16 = 64 GEMM rows) and one Cout tile
 // of BN columns (and, in UP, one parity plane). For each chunk of BK input
 // channels it copies the patch's halo window, (TH+2) x (TW+2) x BK, into
 // shared memory once, writing zeros where the window leaves the image:
 // SAME padding done on chip, the Hopper counterpart of K12's zero-bordered
 // VMEM scratch and of K11's row window with halo. The 9 taps (SAME, GN) or
 // the plane's 4 folded taps (UP) then read their A operands from that
-// window: a tap is the window shifted by (dy, dx), and with TW = 16 one
-// 16-row WMMA fragment is one output row of the patch, 16 consecutive
-// window pixels LDW elements apart. The GroupNorm prologue runs once per
-// staged element, not once per tap. B (one tap's BK x BN weights) is
-// loaded per tap. bf16 WMMA (mma.sync) with fp32 accumulation (GN only),
-// or the fp32 FMA twin (csrc/gemm_tile.cuh; all three modes). No split-K
-// and no atomics: every run gives the same bits.
+// window: a tap is the window shifted by (dy, dx). The GroupNorm prologue
+// runs once per staged element, not once per tap. B (one tap's BK x BN
+// weights) is loaded per tap. The fp32 FMA tile (csrc/gemm_tile.cuh). No
+// split-K and no atomics: every run gives the same bits.
 //
-// What bounds it on the H100: tensor-core work at the UNet's and VAE's
+// What bounds it on the H100: the fp32 FMA rate at the UNet's and VAE's
 // shapes (K = 9*Cin up to 23040), fed by an un-pipelined loop (stage,
-// sync, load B, sync, mma, sync); at the UNet's 4x4 and 8x8 levels a patch
+// sync, load B, sync, FMA, sync); at the UNet's 4x4 and 8x8 levels a patch
 // is mostly outside the image, and with no split-K the small levels run
-// few blocks. Plain loads only; K10 (GN) moves onto the sm90 body in its
-// own redesign.
-#include <type_traits>
-
+// few blocks. Plain loads only: the twins of the bf16 wgmma/TMA kernels.
 #include "conv_staged.cuh"
 
 namespace dtp {
@@ -120,10 +119,8 @@ staged_kernel(const StagedArgs<T> p) {
   constexpr int kTaps = UP ? 4 : 9;
   static_assert(TH * TW == TL::BM, "one patch per tile");
   static_assert(B_CHUNKS * kThreads == BK * B_CPR, "B tile split");
-  // bf16: 32-byte rows for WMMA's shifted fragments; fp32: 16-byte stores
-  static_assert(LDW >= BK && (LDW * sizeof(T)) % (sizeof(T) == 2 ? 32 : 16)
-                    == 0, "window rows");
-  static_assert(sizeof(T) * WH * WW * LDW >= kThreads * 32, "epilogue");
+  // 16-byte rows for the staging stores
+  static_assert(LDW >= BK && (LDW * sizeof(T)) % 16 == 0, "window rows");
 
   __shared__ __align__(128) T win[WH * WW * LDW];
   __shared__ __align__(128) T Bs[BK * TL::LDB];
@@ -237,8 +234,6 @@ staged_kernel(const StagedArgs<T> p) {
     if (p.residual != nullptr) v += to_float(p.residual[o]);
     p.out[o] = from_float<T>(v);
   };
-  // the K loop ended on a barrier: the window is free as the bf16
-  // epilogue's per-warp staging area
   math.epilogue(reinterpret_cast<float*>(win), tid, store);
 }
 
@@ -274,32 +269,22 @@ cudaError_t dispatch(const void* x, const void* w, const void* bias,
                      const void* residual, void* out, float eps, int B, int H,
                      int W, int Cin, int Cout, int groups, int is_bf16,
                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto fill = [&](auto* tag) {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    StagedArgs<T> p{};
-    p.x = static_cast<const T*>(x);
-    p.w = static_cast<const T*>(w);
-    p.bias = static_cast<const T*>(bias);
-    p.stats = stats;
-    p.gn_scale = static_cast<const T*>(gn_scale);
-    p.gn_shift = static_cast<const T*>(gn_shift);
-    p.temb = static_cast<const T*>(temb);
-    p.residual = static_cast<const T*>(residual);
-    p.out = static_cast<T*>(out);
-    p.eps = eps;
-    p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.groups = groups;
-    return launch<T, MODE>(p, s);
-  };
-  if (is_bf16) {
-    // bf16 SAME is K7's kernel and bf16 UP K4's (csrc/gn_conv_sm90.cu):
-    // not instantiated
-    if constexpr (MODE != kGn)
-      return cudaErrorInvalidValue;
-    else
-      return fill(static_cast<__nv_bfloat16*>(nullptr));
-  }
-  return fill(static_cast<float*>(nullptr));
+  // bf16 SAME is K7's kernel, bf16 UP K4's and bf16 GN K10's
+  // (csrc/gn_conv_sm90.cu): not instantiated
+  if (is_bf16) return cudaErrorInvalidValue;
+  StagedArgs<float> p{};
+  p.x = static_cast<const float*>(x);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.stats = stats;
+  p.gn_scale = static_cast<const float*>(gn_scale);
+  p.gn_shift = static_cast<const float*>(gn_shift);
+  p.temb = static_cast<const float*>(temb);
+  p.residual = static_cast<const float*>(residual);
+  p.out = static_cast<float*>(out);
+  p.eps = eps;
+  p.B = B, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.groups = groups;
+  return launch<float, MODE>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -329,11 +314,12 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3_staged(
                                  Cout, 0, is_bf16, stream);
 }
 
-// K10's conv: x (B,H,W,Cin); stats (B,2,Cin) fp32 sums of x and x^2 over
-// H, W (csrc/moments.cu); scale, shift (Cin,) the GroupNorm's affine with
-// `groups` groups (Cin % groups == 0, at most 128); w (3,3,Cin,Cout);
+// K10's conv in fp32: x (B,H,W,Cin); stats (B,2,Cin) sums of x and x^2
+// over H, W (csrc/moments.cu); scale, shift (Cin,) the GroupNorm's affine
+// with `groups` groups (Cin % groups == 0, at most 128); w (3,3,Cin,Cout);
 // bias (Cout,) or null; temb (B,Cout) or null; residual (B,H,W,Cout) or
-// null; out (B,H,W,Cout); every tensor but stats of one type.
+// null; out (B,H,W,Cout); all fp32. is_bf16 returns cudaErrorInvalidValue
+// (bf16 K10 runs dtp_gn_silu_conv3x3_sm90 of csrc/gn_conv_sm90.cu).
 extern "C" cudaError_t dtp_gn_silu_conv3x3_staged(
     const void* x, const void* stats, const void* scale, const void* shift,
     const void* w, const void* bias, const void* temb, const void* residual,

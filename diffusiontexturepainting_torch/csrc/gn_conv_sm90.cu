@@ -134,6 +134,49 @@
 //       tiles, each B stage brought once to both by TMA multicast) was
 //       measured slower at every shape and removed.
 //
+//   dtp_gn_silu_conv3x3_sm90  K10 <- ops/conv3x3.py gn_silu_conv3x3 /
+//       _gn_conv_pallas / _gn_conv_kernel (after csrc/moments.cu's fp32
+//       sums S1, S2 of x per (image, channel)):
+//         per group g of Cin/G channels, n = H*W*Cin/G: mean = S1_g/n,
+//           inv = rsqrt(S2_g/n - mean^2 + eps), a = inv*scale[c],
+//           c = shift[c] - mean*a, all fp32
+//         v = round(silu(x*a + c)), the affine and the SiLU in fp32, inside
+//             the image; 0 outside (the border skips the prologue)
+//         y = round(acc + bias[n] + temb[b,n] + residual[b,y,x,n]), the
+//             sum in fp32, one rounding; no statistics
+//       fp32 stays on conv_staged.cu's FMA twin.
+//   dtp_gn_conv_pipelined_sm90  T12 <- tools/bench_stream_pipeline.py
+//       pipelined / _pipe_kernel: the VALID conv of silu(pad(x)*a + c) + b,
+//       a, c (B, Cin) fp32 given; v = round(silu(x*a + c)) in fp32 on every
+//       window pixel, the zero padding included (its border is silu(c));
+//       y = round(acc + bias[n]), one rounding. fp32 stays on conv_arms.cu.
+//   Design: one affine mode of the K1/K5 kernel, compile-time bits of its
+//   template (AFF; 0 for K1/K5 and K7), instantiated by the two entries
+//   only; the kernel tests the bits in if constexpr conditions and keeps
+//   the mode's work in the Affine helper, built where it is used, so the
+//   other instantiations compile to their parent's SASS instruction for
+//   instruction (tools/sass_diff.py): kF32Affine (a, c, the affine and the SiLU in fp32, v rounded
+//   once), kMask (K10: 0 outside the image; without it, T12, the prologue
+//   runs on TMA's out-of-bounds zeros, which are zeros of x, and gives
+//   silu(c) there), kFold (K10: a, c folded in the CTA) and kOneRound (the
+//   epilogue above). fp32 a, c would double K1/K5's bf16 pairs in
+//   registers, so the consumers keep them in shared memory: a table of
+//   the 64 channels of a chunk by the tile's image slots, two buffers,
+//   chunk k + 2's filled beside chunk k's taps and published by the
+//   per-chunk barrier that hands the V buffers over; each prologue line
+//   reads its slot's 8 channels as four 16-byte loads. K10 first folds
+//   the group means and inverse deviations of the groups its chunks
+//   touch, for each image slot, into shared memory (the per-warp sums'
+//   place: no statistics here), then each table entry per channel, so a
+//   group that crosses 8-channel loads or 64-channel chunks is folded per
+//   channel: two launches with K14's, no fold launch, no host sync. The
+//   epilogue takes each warp's image slot for temb (a warp's 16 rows lie
+//   in one image), after the ordered sum of the splits under split K.
+//   What bounds them: as K1/K5 at the same shapes (K10 at the UNet's 256^2
+//   levels, where the 4x4 and 8x8 levels are weight-bound and split K; T12
+//   at the VAE's, the tensor cores), plus one fp32 division a staged
+//   element in the prologue.
+//
 // Against conv3x3.cu's WMMA kernels (now their fp32 FMA twins): the
 // prologue once per staged element instead of once per tap and output
 // tile, a pipelined K loop on wgmma instead of load, sync, mma.sync, sync,
@@ -158,6 +201,30 @@ constexpr int kUpMaxStages = 12;  // K4's B stages, a multiple of kUpWG
 constexpr int kSameWinStages = 3;    // K7: input windows in flight
 constexpr int kSameMaxBStages = 12;  // K7's B stages
 constexpr int kSameMinChunks = 4;    // K7: chunks a split of two consumers
+constexpr int kMaxGroups = 128;      // K10's GroupNorm groups
+
+// The affine modes' bits (gn_conv_sm90's AFF; the header says what each
+// does) and the two instantiated: K10's and T12's
+constexpr int kF32Affine = 1;
+constexpr int kMask = 2;
+constexpr int kFold = 4;
+constexpr int kOneRound = 8;
+constexpr int kK10 = kF32Affine | kMask | kFold | kOneRound;
+constexpr int kT12 = kF32Affine | kOneRound;
+// Whether the mode `aff` has `bit`. The kernel asks this in its if
+// constexpr conditions rather than keeping the answers in local constants:
+// locals the other modes do not use perturbed their machine code.
+__host__ __device__ constexpr bool has(int aff, int bit) {
+  return (aff & bit) != 0;
+}
+
+// The affine modes' shared-memory tables, in the place of the per-warp
+// statistics: a, c of a chunk's 64 channels for each of the up to 4 * nc
+// image slots of a tile, two buffers; with kFold after them each slot's
+// group means and inverse deviations.
+__host__ __device__ constexpr int affine_table_bytes(int nc, bool fold) {
+  return 4 * nc * (2 * 2 * kAtom + (fold ? 2 * kMaxGroups : 0)) * 4;
+}
 
 struct GnPlan {
   int nc, tw, rows, nb;   // a tile: nb images x rows x tw columns
@@ -180,6 +247,13 @@ struct GnArgs {
   int B, H, W, Cin, Cs;
   int rows, nb, tiles_w, tpi, win_lines, win_bytes, region0, stages;
   int per_split, chunks, splits;
+  // the affine modes
+  const float* gn_stats;  // K10: (B, 2, Cin) fp32 sums of x and x^2
+  const bf16* gn_scale;   // K10: the GroupNorm's (Cin,) scale and shift
+  const bf16* gn_shift;
+  const bf16* temb;  // K10: (B, Cs) or null
+  float eps;
+  int groups;
 };
 
 __device__ __forceinline__ float silu_bf16(float t) {
@@ -193,6 +267,18 @@ __device__ __forceinline__ float hi_bf16(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
+// The affine modes' prologue: the SiLU expression of the fp32 twins
+// (conv_staged.cu, conv_arms.cu), in fp32
+__device__ __forceinline__ float silu_f32(float x, float a, float c) {
+  const float t = fmaf(x, a, c);
+  return t / (1.0f + __expf(-t));
+}
+__device__ __forceinline__ uint32_t silu2_f32(uint32_t w, float a0, float c0,
+                                              float a1, float c1) {
+  return pack_bf16(silu_f32(lo_bf16(w), a0, c0),
+                   silu_f32(hi_bf16(w), a1, c1));
+}
+
 // Two bf16 of x through the prologue, as conv3x3.cu load_chunk_gn rounds;
 // ac0, ac1: each channel's (a, c) rounded to bf16, a in the low half.
 __device__ __forceinline__ uint32_t gn_silu2(uint32_t w, uint32_t ac0,
@@ -202,9 +288,126 @@ __device__ __forceinline__ uint32_t gn_silu2(uint32_t w, uint32_t ac0,
       silu_bf16(round_bf16(fmaf(hi_bf16(w), lo_bf16(ac1), hi_bf16(ac1)))));
 }
 
+// The affine modes' work of one consumer thread (ct) of a CTA whose tile
+// starts at image b0, row i0, column j0 and whose split starts at chunk
+// c_begin; `smem` is the tables' region: ctab[buffer][slot][a, c][64
+// channels], the split's chunk k in buffer k & 1, then with kFold
+// gtab[slot][mean, inv][group]. Built where it is used, so that the
+// kernels of the other modes hold none of it.
+template <int TW, int NC, int AFF>
+struct Affine {
+  static constexpr int kCT = 128 * NC;
+  static constexpr int kSlots = 4 * NC;  // image slots a tile can hold
+  static constexpr int kWinW = TW + 2;
+  const GnArgs& a;
+  uint8_t* smem;
+  int ct, b0, i0, j0, c_begin;
+
+  __device__ float* ctab(int k) const {
+    return reinterpret_cast<float*>(smem) + (k & 1) * kSlots * 2 * kAtom;
+  }
+  __device__ float* gtab() const { return ctab(0) + 2 * kSlots * 2 * kAtom; }
+
+  // kFold: each image slot's means and inverse deviations of the groups
+  // the split's nch chunks touch, from the fp32 sums (conv_staged.cu's
+  // fold)
+  __device__ void fold(int nch) const {
+    const int cpg = a.Cin / a.groups;
+    const int g_lo = c_begin * kAtom / cpg;
+    const int ng = (min(a.Cin, (c_begin + nch) * kAtom) - 1) / cpg - g_lo + 1;
+    const float n =
+        static_cast<float>(static_cast<long long>(a.H) * a.W * cpg);
+    float* const g = gtab();
+#pragma unroll 1
+    for (int v = ct; v < a.nb * ng; v += kCT) {
+      const int slot = v / ng, grp = g_lo + v % ng, b = b0 + slot;
+      float mean = 0.0f, inv = 0.0f;
+      if (b < a.B) {
+        const float* s = a.gn_stats + static_cast<long long>(b) * 2 * a.Cin;
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
+          s1 += __ldg(s + c);
+          s2 += __ldg(s + a.Cin + c);
+        }
+        mean = s1 / n;
+        inv = rsqrtf(s2 / n - mean * mean + a.eps);
+      }
+      g[slot * 2 * kMaxGroups + grp] = mean;
+      g[slot * 2 * kMaxGroups + kMaxGroups + grp] = inv;
+    }
+  }
+
+  // a, c of the split's chunk k for every image slot, per channel (a
+  // group may cross the 8-channel loads and the 64-channel chunks); 0 past
+  // Cin and for slots past the batch
+  __device__ void fill(int k) const {
+    float* const t = ctab(k);
+    const int c0 = (c_begin + k) * kAtom;
+#pragma unroll 1
+    for (int v = ct; v < a.nb * kAtom; v += kCT) {
+      const int slot = v / kAtom, e = v % kAtom, ch = c0 + e, b = b0 + slot;
+      float av = 0.0f, cv = 0.0f;
+      if (b < a.B && ch < a.Cin) {
+        if constexpr (has(AFF, kFold)) {
+          const float* gs = gtab() + slot * 2 * kMaxGroups;
+          const int grp = ch / (a.Cin / a.groups);
+          av = gs[kMaxGroups + grp] * __bfloat162float(a.gn_scale[ch]);
+          cv = __bfloat162float(a.gn_shift[ch]) - gs[grp] * av;
+        } else {
+          av = __ldg(a.gn_a + b * a.a_stride + ch);
+          cv = __ldg(a.gn_c + b * a.c_stride + ch);
+        }
+      }
+      t[slot * 2 * kAtom + e] = av;
+      t[slot * 2 * kAtom + kAtom + e] = cv;
+    }
+  }
+
+  // K1/K5's transform walk (its lines and 16-byte groups, `part` of
+  // `parts`) from the window `src` into the V buffer `dst` with the fp32
+  // prologue from chunk k's table; kMask: 0 outside the image, else every
+  // line, TMA's zeros included
+  __device__ void transform(const uint8_t* src, uint8_t* dst, int k,
+                            int part, int parts) const {
+    const int q = ct & 7;
+    const int img_lines = (a.rows + 2) * kWinW;
+    const float* tk = ctab(k) + 8 * q;
+#pragma unroll 1
+    for (int L = (ct >> 3) + part * (kCT / 8); L < a.win_lines;
+         L += parts * (kCT / 8)) {
+      int slot = 0, rem = L;
+      if (a.nb > 1) {
+        slot = L / img_lines;
+        rem = L - slot * img_lines;
+      }
+      const uint32_t off = L * 128 + ((q ^ (L & 7)) << 4);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      bool inside = true;
+      if constexpr (has(AFF, kMask)) {
+        const int y = i0 - 1 + rem / kWinW, x = j0 - 1 + rem % kWinW;
+        inside = b0 + slot < a.B && y >= 0 && y < a.H && x >= 0 && x < a.W;
+      }
+      if (inside) {
+        const float* t = tk + slot * 2 * kAtom;
+        v = *reinterpret_cast<const uint4*>(src + off);
+        const float4 a0 = *reinterpret_cast<const float4*>(t);
+        const float4 c0 = *reinterpret_cast<const float4*>(t + kAtom);
+        v.x = silu2_f32(v.x, a0.x, c0.x, a0.y, c0.y);
+        v.y = silu2_f32(v.y, a0.z, c0.z, a0.w, c0.w);
+        const float4 a1 = *reinterpret_cast<const float4*>(t + 4);
+        const float4 c1 = *reinterpret_cast<const float4*>(t + kAtom + 4);
+        v.z = silu2_f32(v.z, a1.x, c1.x, a1.y, c1.y);
+        v.w = silu2_f32(v.w, a1.z, c1.z, a1.w, c1.w);
+      }
+      *reinterpret_cast<uint4*>(dst + off) = v;
+    }
+  }
+};
+
 // PLAIN: K7, no prologue, residual or statistics; A straight from the
-// window stages (kSameWinStages of them), no V buffers.
-template <int TW, int NC, bool PLAIN>
+// window stages (kSameWinStages of them), no V buffers. AFF: the affine
+// modes' bits (K10, T12), 0 otherwise.
+template <int TW, int NC, bool PLAIN, int AFF = 0>
 __global__ void __launch_bounds__(128 * NC + 64, 1)
 gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
              const __grid_constant__ CUtensorMap tw, const GnArgs a) {
@@ -213,7 +416,11 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
   constexpr int kCT = 128 * NC;  // consumer threads
   constexpr int kWS = PLAIN ? kSameWinStages : kWinStages;
   constexpr int kBS = PLAIN ? kSameMaxBStages : kMaxBStages;
-  constexpr int kRedBytes = PLAIN ? 0 : 4 * NC * 2 * kBN * 4;
+  // the per-warp statistics, or the affine modes' tables
+  constexpr int kRedBytes =
+      PLAIN                    ? 0
+      : has(AFF, kF32Affine) ? affine_table_bytes(NC, has(AFF, kFold))
+                             : 4 * NC * 2 * kBN * 4;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -359,8 +566,23 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
 
   // chunk 0's prologue alone; then chunk k + 1's in slices beside chunk k's
   // taps, into the other V buffer. PLAIN reads each chunk's window stage
-  // itself and hands it back after its nine taps' loads.
-  if constexpr (!PLAIN) {
+  // itself and hands it back after its nine taps' loads. F32: the tables
+  // of chunks 0 and 1 first, chunk k + 2's beside chunk k's taps.
+  if constexpr (has(AFF, kF32Affine)) {
+    const Affine<TW, NC, AFF> f{a, gbase + red_off, ct, b0, i0, j0, c_begin};
+    if constexpr (has(AFF, kFold)) {
+      f.fold(nch);
+      bar_sync(1, kCT);
+    }
+    f.fill(0);
+    if (nch > 1) f.fill(1);
+    bar_sync(1, kCT);
+    mbar_wait(win_full(0), 0);
+    f.transform(gbase + (win(0) - base), gbase + (vbuf(0) - base), 0, 0, 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(win_empty(0));
+    bar_sync(1, kCT);  // V holds chunk 0
+  } else if constexpr (!PLAIN) {
     mbar_wait(win_full(0), 0);
     transform(0, vbuf(0), c_begin, 0, 1);
     __syncwarp();
@@ -407,8 +629,14 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
                        desc128(bt + kk * 16 * 128, kAtom * 128));
       wg_commit();
       // a ninth of the next chunk's prologue while these products run
-      if constexpr (!PLAIN)
+      if constexpr (has(AFF, kF32Affine)) {
+        if (next)
+          Affine<TW, NC, AFF>{a, gbase + red_off, ct, b0, i0, j0, c_begin}
+              .transform(gbase + (win(nws) - base),
+                         gbase + (vbuf(k + 1) - base), k + 1, tap, 9);
+      } else if constexpr (!PLAIN) {
         if (next) transform(nws, vbuf(k + 1), c_begin + k + 1, tap, 9);
+      }
       prev = bs;
       if (++bs == a.stages) bs = 0, bph ^= 1;
     }
@@ -419,6 +647,11 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
     } else if (next) {
       __syncwarp();
       if (lane == 0) mbar_arrive(win_empty(nws));
+      // chunk k's table is free: chunk k + 2's, published by the barrier
+      if constexpr (has(AFF, kF32Affine))
+        if (k + 2 < nch)
+          Affine<TW, NC, AFF>{a, gbase + red_off, ct, b0, i0, j0, c_begin}
+              .fill(k + 2);
       // the next V is complete, and every warp is done with this one
       bar_sync(1, kCT);
     }
@@ -506,6 +739,32 @@ gn_conv_sm90(const __grid_constant__ CUtensorMap tx,
     if (a.bias != nullptr) {
       if (okn0) bv0 = __bfloat162float(a.bias[n0 + n]);
       if (okn1) bv1 = __bfloat162float(a.bias[n0 + n + 1]);
+    }
+    if constexpr (has(AFF, kOneRound)) {
+      // acc + bias [+ temb of the image this warp's 16 rows lie in]
+      // [+ residual] in fp32, one rounding
+      float t0 = 0.0f, t1 = 0.0f;
+      const int slot = (wg * 64 + 16 * warp) / img_pix;
+      if (a.temb != nullptr && slot < a.nb && b0 + slot < a.B) {
+        const bf16* trow =
+            a.temb + static_cast<long long>(b0 + slot) * a.Cs + n0;
+        if (okn0) t0 = __bfloat162float(trow[n]);
+        if (okn1) t1 = __bfloat162float(trow[n + 1]);
+      }
+      float v0 = acc[4 * i] + bv0 + t0, v1 = acc[4 * i + 1] + bv1 + t1;
+      float v2 = acc[4 * i + 2] + bv0 + t0, v3 = acc[4 * i + 3] + bv1 + t1;
+      uint32_t* const p0 = reinterpret_cast<uint32_t*>(
+          st + r0 * kBN * 2 + ((i ^ g) * 16) + 4 * tq4);
+      uint32_t* const p1 = reinterpret_cast<uint32_t*>(
+          st + (r0 + 8) * kBN * 2 + ((i ^ g) * 16) + 4 * tq4);
+      if (a.residual != nullptr) {
+        const uint32_t ra = *p0, rb = *p1;
+        v0 += lo_bf16(ra), v1 += hi_bf16(ra);
+        v2 += lo_bf16(rb), v3 += hi_bf16(rb);
+      }
+      *p0 = pack_bf16(v0, v1);
+      *p1 = pack_bf16(v2, v3);
+      continue;
     }
     float v0 = round_bf16(acc[4 * i] + bv0);
     float v1 = round_bf16(acc[4 * i + 1] + bv1);
@@ -954,6 +1213,21 @@ GnPlan same_plan(int B, int H, int W, int Cin, int Cout, int nc,
   return p;
 }
 
+// The affine modes' plan (K10 with `fold`, T12 without): K1/K5's tile,
+// consumer warpgroups and split of K (plan()), the per-warp statistics'
+// shared memory given to the tables (mirrored by ops/gn_conv.py
+// gn_silu_sm90_plan and pipelined_sm90_plan).
+GnPlan affine_plan(int B, int H, int W, int Cin, int Cout, int nc,
+                   int splits, bool fold) {
+  GnPlan p = plan(B, H, W, Cin, Cout, nc, splits);
+  const int fixed = p.region0 + affine_table_bytes(p.nc, fold) +
+                    8 * 2 * (kWinStages + kMaxBStages) + 16 + 1024;
+  p.stages = (kSmemLimit - fixed) / kBBytes;
+  if (p.stages > kMaxBStages) p.stages = kMaxBStages;
+  p.smem = fixed + p.stages * kBBytes;
+  return p;
+}
+
 // The work buffer's floats: the statistics, the tile partials, the split
 // tiles, the split counters.
 struct WorkLayout {
@@ -975,12 +1249,12 @@ bool grid_fits(const GnPlan& p) {
   return p.m_tiles <= 65535 && p.n_tiles <= 65535 && p.splits <= 65535;
 }
 
-template <int NC, bool PLAIN>
+template <int NC, bool PLAIN, int AFF = 0>
 cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw,
                    const GnArgs& a, const GnPlan& p, cudaStream_t stream) {
-  auto kern = p.tw == 4   ? gn_conv_sm90<4, NC, PLAIN>
-              : p.tw == 8 ? gn_conv_sm90<8, NC, PLAIN>
-                          : gn_conv_sm90<16, NC, PLAIN>;
+  auto kern = p.tw == 4   ? gn_conv_sm90<4, NC, PLAIN, AFF>
+              : p.tw == 8 ? gn_conv_sm90<8, NC, PLAIN, AFF>
+                          : gn_conv_sm90<16, NC, PLAIN, AFF>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
@@ -1081,6 +1355,47 @@ cudaError_t run(const GnPlan& p, const GnArgs& args, cudaStream_t s,
 bool bad_shape(int B, int H, int W, int Cin, int Cout, int Cs) {
   return B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 ||
          Cout % 8 || Cs <= 0 || Cs > Cout;
+}
+
+// An affine plan's 16 fields as dtp_gn_conv3x3_sm90_plan reports a plan's,
+// its work buffer floats (no statistics) last.
+void affine_plan_fields(const GnPlan& p, int B, int Cs, long long* out) {
+  const long long v[16] = {
+      p.nc,     p.tw,      p.rows,    p.nb,        p.win_lines, p.stages,
+      p.smem,   p.tiles_h, p.tiles_w, p.tpi,       p.m_tiles,   p.n_tiles,
+      p.chunks, p.splits,  p.per_split,
+      work_layout(p, B, Cs, false).total};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
+}
+
+// K10 (AFF kK10) and T12 (kT12): an affine mode's launch, no statistics;
+// `mode(args)` sets the mode's own operands.
+template <int AFF, class Mode>
+cudaError_t affine_conv(const void* x, const void* w, const void* bias,
+                        const void* residual, void* out, void* work, int B,
+                        int H, int W, int Cin, int Cout, int Cs, int nc,
+                        int splits, cudaStream_t s, Mode mode) {
+  if (bad_shape(B, H, W, Cin, Cout, Cs) || nc < 0 || nc > 2 || splits < 0 ||
+      !aligned16(x) || !aligned16(w) || !aligned16(out) ||
+      (residual != nullptr && !aligned16(residual)))
+    return cudaErrorInvalidValue;
+  const GnPlan p =
+      affine_plan(B, H, W, Cin, Cout, nc, splits, has(AFF, kFold));
+  if (!grid_fits(p)) return cudaErrorInvalidValue;
+  const WorkLayout wl = work_layout(p, B, Cs, false);
+  if (wl.total > 0 && work == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!window_map(&tx, x, B, H, W, Cin, p) ||
+      !weight_map(&tw, w, Cin, Cout, static_cast<long long>(Cin) * Cout, 9))
+    return cudaErrorInvalidValue;
+  GnArgs args = args_of(p, wl, static_cast<float*>(work), false, bias, out,
+                        B, H, W, Cin, Cs);
+  args.residual = static_cast<const bf16*>(residual);
+  mode(args);
+  return run(p, args, s, [&] {
+    return p.nc == 2 ? launch<2, false, AFF>(tx, tw, args, p, s)
+                     : launch<1, false, AFF>(tx, tw, args, p, s);
+  });
 }
 
 // K4 (want_stats false) and K6: x (B,H,W,Cin); taps (16,Cin,Cout); bias
@@ -1270,4 +1585,79 @@ extern "C" cudaError_t dtp_upsample2x_conv3x3_stats_sm90(
   return dtp::upconv(x, taps, bias, out, work, B, H, W, Cin, Cout,
                      want_stats != 0, splits,
                      static_cast<cudaStream_t>(stream));
+}
+
+// The plans of K10 (dtp_gn_silu_conv3x3_sm90_plan) and T12
+// (dtp_gn_conv_pipelined_sm90_plan) into out[16], the fields of
+// dtp_gn_conv3x3_sm90_plan's (ops/gn_conv.py gn_silu_sm90_plan and
+// pipelined_sm90_plan mirror them); `nc` and `splits` as for the entries.
+extern "C" int dtp_gn_silu_conv3x3_sm90_plan(int B, int H, int W, int Cin,
+                                             int Cout, int Cs, int nc,
+                                             int splits, long long* out) {
+  if (dtp::bad_shape(B, H, W, Cin, Cout, Cs) || nc < 0 || nc > 2 ||
+      splits < 0)
+    return -1;
+  dtp::affine_plan_fields(
+      dtp::affine_plan(B, H, W, Cin, Cout, nc, splits, true), B, Cs, out);
+  return 0;
+}
+
+extern "C" int dtp_gn_conv_pipelined_sm90_plan(int B, int H, int W, int Cin,
+                                               int Cout, int Cs, int nc,
+                                               int splits, long long* out) {
+  if (dtp::bad_shape(B, H, W, Cin, Cout, Cs) || nc < 0 || nc > 2 ||
+      splits < 0)
+    return -1;
+  dtp::affine_plan_fields(
+      dtp::affine_plan(B, H, W, Cin, Cout, nc, splits, false), B, Cs, out);
+  return 0;
+}
+
+// K10 in bf16: x (B,H,W,Cin); stats (B,2,Cin) fp32 sums of x and x^2 over
+// H, W (csrc/moments.cu); scale, shift (Cin,) the GroupNorm's affine with
+// `groups` groups (Cin % groups == 0, at most 128); w (3,3,Cin,Cout); bias
+// (>= Cs,) or null; temb (B,Cs) or null; residual (B,H,W,Cs) or null; out
+// (B,H,W,Cs), Cs <= Cout the channels stored (a zero-padded weight's real
+// ones). Cin and Cout multiples of 8; x, w, out and residual 16-byte
+// aligned. `work`: the plan's work floats (the split tiles and counters),
+// or null when it does not split; `nc` and `splits` as for
+// dtp_gn_conv3x3_sm90.
+extern "C" cudaError_t dtp_gn_silu_conv3x3_sm90(
+    const void* x, const void* stats, const void* scale, const void* shift,
+    const void* w, const void* bias, const void* temb, const void* residual,
+    void* out, void* work, float eps, int B, int H, int W, int Cin, int Cout,
+    int Cs, int groups, int nc, int splits, void* stream) {
+  using namespace dtp;
+  if (groups <= 0 || groups > kMaxGroups || Cin % groups ||
+      stats == nullptr || scale == nullptr || shift == nullptr)
+    return cudaErrorInvalidValue;
+  return affine_conv<kK10>(
+      x, w, bias, residual, out, work, B, H, W, Cin, Cout, Cs, nc, splits,
+      static_cast<cudaStream_t>(stream), [&](GnArgs& a) {
+        a.gn_stats = static_cast<const float*>(stats);
+        a.gn_scale = static_cast<const bf16*>(scale);
+        a.gn_shift = static_cast<const bf16*>(shift);
+        a.temb = static_cast<const bf16*>(temb);
+        a.eps = eps;
+        a.groups = groups;
+      });
+}
+
+// T12 in bf16: x (B,H,W,Cin); a, c (B,Cin) fp32, contiguous; w
+// (3,3,Cin,Cout); bias (>= Cs,) or null; out (B,H,W,Cs), Cs <= Cout as for
+// K10. Cin and Cout multiples of 8; x, w and out 16-byte aligned. `work`,
+// `nc` and `splits` as for dtp_gn_silu_conv3x3_sm90.
+extern "C" cudaError_t dtp_gn_conv_pipelined_sm90(
+    const void* x, const void* a, const void* c, const void* w,
+    const void* bias, void* out, void* work, int B, int H, int W, int Cin,
+    int Cout, int Cs, int nc, int splits, void* stream) {
+  using namespace dtp;
+  if (a == nullptr || c == nullptr) return cudaErrorInvalidValue;
+  return affine_conv<kT12>(
+      x, w, bias, nullptr, out, work, B, H, W, Cin, Cout, Cs, nc, splits,
+      static_cast<cudaStream_t>(stream), [&](GnArgs& g) {
+        g.gn_a = static_cast<const float*>(a);
+        g.gn_c = static_cast<const float*>(c);
+        g.a_stride = g.c_stride = Cin;
+      });
 }

@@ -31,10 +31,15 @@ launches the kernel or raises.
   conv3x3_stream      kernel K11 (replaces _conv3x3_stream /
                       _conv_stream_kernel): as K12a, counted apart (TMA's
                       windows are the streamed rows)
-  gn_silu_conv3x3     kernel K10 (csrc/moments.cu's statistics pass, then
-                      the staged-tile GN mode, the SAME conv with its
-                      GroupNorm prologue; replaces gn_silu_conv3x3 /
-                      _gn_conv_kernel)
+  gn_silu_conv3x3     kernel K10 (replaces gn_silu_conv3x3 /
+                      _gn_conv_kernel): csrc/moments.cu's statistics pass,
+                      then in bf16 the affine mode of csrc/gn_conv_sm90.cu's
+                      K1/K5 kernel (the GroupNorm folded in the CTA, the
+                      prologue and the epilogue in fp32, one rounding each;
+                      operands TMA cannot describe raise ValueError, a
+                      Cout off 8 is zero-padded and the real channels
+                      stored), in fp32 csrc/conv_staged.cu's staged-tile GN
+                      mode
 
 The staged-tile modes stage each block's input window with its halo in
 shared memory once per channel chunk and read all taps from there; K7's
@@ -86,6 +91,8 @@ _STAGED_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
                     + (ctypes.c_void_p,))
 _GN_STAGED_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_float,)
                        + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
+_GN_SILU_SM90_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_float,)
+                          + (ctypes.c_int,) * 9 + (ctypes.c_void_p,))
 _UP_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
                      + (ctypes.c_void_p,))
 _SAME_SM90_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
@@ -384,12 +391,23 @@ def gn_silu_conv3x3(x, scale, bias, w, b, temb=None, residual=None,
     """GroupNorm(scale, bias) -> SiLU -> 3x3 SAME conv(w, b) [+ temb
     (B, Cout)] [+ residual (B, H, W, Cout)], NHWC, with the GroupNorm's
     statistics taken of x itself (kernel K10 on CUDA: csrc/moments.cu's
-    fp32 sums of x, then the staged-tile conv, which folds them with scale
-    and bias into its prologue; two launches, no host sync). scale, bias:
-    (Cin,); b may be None. The arithmetic is gn_silu_conv3x3_plain's."""
+    fp32 sums of x, then the conv, which folds them with scale and bias
+    into its prologue; two launches, no host sync). scale, bias: (Cin,); b
+    may be None. The arithmetic is gn_silu_conv3x3_plain's."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, scale, bias, w, b, temb, residual,
                                      num_groups, eps)
+    return _gn_silu_conv3x3(x, scale, bias, w, b, temb, residual,
+                            num_groups, eps)
+
+
+def _gn_silu_conv3x3(x, scale, bias, w, b, temb=None, residual=None,
+                     num_groups=32, eps=1e-5, consumers=None, splits=None):
+    """K10 on CUDA: in bf16 dtp_gn_silu_conv3x3_sm90, the affine mode of
+    csrc/gn_conv_sm90.cu with the plan of gn_conv.gn_silu_sm90_plan
+    (`consumers` 1 or 2 and `splits` force its tile and split of K: the
+    tests and tools call this entry with them); in fp32
+    dtp_gn_silu_conv3x3_staged, the staged-tile FMA twin."""
     name = "gn_silu_conv3x3"
     if x.dim() != 4 or scale is None or bias is None:
         raise ValueError(f"{name}: an NHWC x {tuple(x.shape)} and the "
@@ -402,15 +420,36 @@ def gn_silu_conv3x3(x, scale, bias, w, b, temb=None, residual=None,
     if not 0 < num_groups <= 128 or cin % num_groups:
         raise ValueError(f"{name}: {cin} channels in {num_groups} groups "
                          "(at most 128, dividing the channels)")
-    stats = launch_moments(name, x)
     out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
-    fn = _cuda.function("conv_staged", "dtp_gn_silu_conv3x3_staged",
-                        _GN_STAGED_ARGTYPES)
-    code = fn(x.data_ptr(), stats.data_ptr(), scale.data_ptr(),
-              bias.data_ptr(), w.data_ptr(), _ptr(b), _ptr(temb),
-              _ptr(residual), out.data_ptr(), float(eps), B, H, W, cin, cout,
-              num_groups, int(x.dtype == torch.bfloat16), _cuda.stream_of(x))
-    _cuda.check("conv_staged", "dtp_gn_silu_conv3x3_staged", code)
+    if x.dtype == torch.bfloat16:
+        from . import gn_conv
+
+        if not gn_conv.affine_tma_describable(x, w, residual):
+            raise ValueError(f"{name}: TMA needs Cin a multiple of 8 and "
+                             "16-byte-aligned bases, got x "
+                             f"{tuple(x.shape)}, w {tuple(w.shape)}")
+    stats = launch_moments(name, x)
+    if x.dtype == torch.bfloat16:
+        wk, bk = gn_conv.pad_cout(w, b)
+        plan = gn_conv.gn_silu_sm90_plan(B, H, W, cin, wk.shape[-1], cout,
+                                         consumers, splits)
+        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
+                            device=x.device) if plan["work_floats"] else None)
+        source, symbol = gn_conv.GN_SM90_SOURCE, "dtp_gn_silu_conv3x3_sm90"
+        fn = _cuda.function(source, symbol, _GN_SILU_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), stats.data_ptr(), scale.data_ptr(),
+                  bias.data_ptr(), wk.data_ptr(), _ptr(bk), _ptr(temb),
+                  _ptr(residual), out.data_ptr(), _ptr(work), float(eps), B,
+                  H, W, cin, wk.shape[-1], cout, num_groups, consumers or 0,
+                  splits or 0, _cuda.stream_of(x))
+    else:
+        source, symbol = "conv_staged", "dtp_gn_silu_conv3x3_staged"
+        fn = _cuda.function(source, symbol, _GN_STAGED_ARGTYPES)
+        code = fn(x.data_ptr(), stats.data_ptr(), scale.data_ptr(),
+                  bias.data_ptr(), w.data_ptr(), _ptr(b), _ptr(temb),
+                  _ptr(residual), out.data_ptr(), float(eps), B, H, W, cin,
+                  cout, num_groups, 0, _cuda.stream_of(x))
+    _cuda.check(source, symbol, code)
     gn_silu_conv3x3_launches.record((tuple(x.shape), tuple(w.shape),
                                      temb is not None, residual is not None,
                                      num_groups))

@@ -24,9 +24,15 @@ always say:
     four add (reps - 1) * acc[0, 0, 0], the tool's loop carry, to every
     output element.
 
-T12's kernels and fp32 T11's live in csrc/conv_arms.cu, over the
+fp32 T12's and fp32 T11's kernels live in csrc/conv_arms.cu, over the
 staged-window step shared with csrc/conv_staged.cu (csrc/conv_staged.cuh).
-bf16 T11 runs csrc/window_taps_sm90.cu: with flat = a window as
+bf16 T12 runs the affine mode of csrc/gn_conv_sm90.cu's K1/K5 kernel
+(dtp_gn_conv_pipelined_sm90): the prologue silu(x*a + c) in fp32 on every
+staged window pixel, TMA's out-of-bounds zeros included, which are T12's
+zero padding of x, so the border is silu(c); the conv + b in fp32, one
+rounding; a Cout off 8 zero-padded here and the real columns stored, a
+Cin off 8 or a base off 16 bytes refused with ValueError (TMA's 16-byte
+rows). bf16 T11 runs csrc/window_taps_sm90.cu: with flat = a window as
 ((H_T+2) * Wp, Cin) rows, every read is out_flat[p] = sum_tap
 flat[base(tap) + p] @ w[tap] at a pitch (W for rowflat, else Wp), one
 row-shifted wgmma/TMA GEMM whose A boxes TMA brings one a di and whose
@@ -58,6 +64,8 @@ VARIANTS = ("shifted", "unshifted", "rowflat", "jointw")
 
 _PIPE_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                   + (ctypes.c_void_p,))
+_PIPE_SM90_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
+                       + (ctypes.c_void_p,))
 _TAPS_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9
                   + (ctypes.c_void_p,))
 _TAPS_SM90_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 11
@@ -184,13 +192,21 @@ def _check_operands(name, x, *others):
 
 
 def pipelined(x, a, c, w, b):
-    """T12: conv3x3_VALID(silu(pad(x)*a + c)) + b; kernel on CUDA
-    (dtp_gn_conv_pipelined: the next channel chunk's copy and prologue are
-    issued before this chunk's taps), plain_pipelined on CPU. x
-    (B,H,W,Cin); a, c (B,Cin), taken as fp32; w (3,3,Cin,Cout); b (Cout,)
-    or None."""
+    """T12: conv3x3_VALID(silu(pad(x)*a + c)) + b; kernel on CUDA,
+    plain_pipelined on CPU. x (B,H,W,Cin); a, c (B,Cin), taken as fp32; w
+    (3,3,Cin,Cout); b (Cout,) or None."""
     if x.device.type == "cpu":
         return plain_pipelined(x, a, c, w, b)
+    return _pipelined(x, a, c, w, b)
+
+
+def _pipelined(x, a, c, w, b, consumers=None, splits=None):
+    """T12 on CUDA: in bf16 dtp_gn_conv_pipelined_sm90, the affine mode of
+    csrc/gn_conv_sm90.cu with the plan of gn_conv.pipelined_sm90_plan
+    (`consumers` 1 or 2 and `splits` force its tile and split of K: the
+    tests and tools call this entry with them); in fp32
+    dtp_gn_conv_pipelined of csrc/conv_arms.cu (the next channel chunk's
+    copy and prologue issued before this chunk's taps)."""
     name = "pipelined"
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (
             3, 3, x.shape[3]):
@@ -210,11 +226,29 @@ def pipelined(x, a, c, w, b):
     c = c.float().contiguous()
     _check_operands(name, x, a, c, w, b)
     out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
-    fn = _cuda.function("conv_arms", "dtp_gn_conv_pipelined", _PIPE_ARGTYPES)
-    code = fn(x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
-              _ptr(b), out.data_ptr(), B, H, W, cin, cout,
-              int(x.dtype == torch.bfloat16), _cuda.stream_of(x))
-    _cuda.check("conv_arms", "dtp_gn_conv_pipelined", code)
+    if x.dtype == torch.bfloat16:
+        if not gn_conv.affine_tma_describable(x, w):
+            raise ValueError(f"{name}: TMA needs Cin a multiple of 8 and "
+                             "16-byte-aligned bases, got x "
+                             f"{tuple(x.shape)}, w {tuple(w.shape)}")
+        wk, bk = gn_conv.pad_cout(w, b)
+        plan = gn_conv.pipelined_sm90_plan(B, H, W, cin, wk.shape[3], cout,
+                                           consumers, splits)
+        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
+                            device=x.device) if plan["work_floats"] else None)
+        source, symbol = gn_conv.GN_SM90_SOURCE, "dtp_gn_conv_pipelined_sm90"
+        fn = _cuda.function(source, symbol, _PIPE_SM90_ARGTYPES)
+        code = fn(x.data_ptr(), a.data_ptr(), c.data_ptr(), wk.data_ptr(),
+                  _ptr(bk), out.data_ptr(), _ptr(work), B, H, W, cin,
+                  wk.shape[3], cout, consumers or 0, splits or 0,
+                  _cuda.stream_of(x))
+    else:
+        source, symbol = "conv_arms", "dtp_gn_conv_pipelined"
+        fn = _cuda.function(source, symbol, _PIPE_ARGTYPES)
+        code = fn(x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
+                  _ptr(b), out.data_ptr(), B, H, W, cin, cout, 0,
+                  _cuda.stream_of(x))
+    _cuda.check(source, symbol, code)
     pipelined_launches.record((tuple(x.shape), tuple(w.shape),
                                b is not None))
     return out

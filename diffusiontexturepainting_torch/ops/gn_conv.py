@@ -38,9 +38,11 @@ the CPU, and for a CUDA tensor it launches the kernel or raises:
                     (csrc/conv_sm90.cu)
 
 The bf16 K4 and K7 (ops/conv3x3.py upsample2x_conv3x3, conv3x3) run the
-upsample and PLAIN modes of csrc/gn_conv_sm90.cu; their plans,
-upconv_sm90_plan and same_sm90_plan, are here beside K1/K5's, whose tile
-geometry they share.
+upsample and PLAIN modes of csrc/gn_conv_sm90.cu, and the bf16 K10 and T12
+(ops/conv3x3.py gn_silu_conv3x3, ops/conv_variants.py pipelined) its
+affine mode; their plans, upconv_sm90_plan, same_sm90_plan,
+gn_silu_sm90_plan and pipelined_sm90_plan, are here beside K1/K5's, whose
+tile geometry they share.
 
 Statistics are (B, 2, C) fp32: row 0 the sum, row 1 the sum of squares over
 the spatial axes (the TPU's 8-row padding is a sublane minimum and is not
@@ -353,6 +355,54 @@ def same_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
     return p
 
 
+# the affine mode's tables (csrc/gn_conv_sm90.cu affine_table_bytes): a, c
+# of a chunk's 64 channels for each of up to 4 * consumers image slots, two
+# buffers; K10's group means and inverse deviations of up to 128 groups a
+# slot after them
+AFFINE_MAX_GROUPS = 128
+
+
+def affine_table_bytes(consumers: int, fold: bool) -> int:
+    return 4 * consumers * (2 * 2 * GN_BK
+                            + (2 * AFFINE_MAX_GROUPS if fold else 0)) * 4
+
+
+def _affine_plan(B, H, W, cin, cout, cs, fold, consumers, splits):
+    """The affine mode's plan (the source's affine_plan): K1/K5's tile,
+    consumer warpgroups and split of K, the per-warp statistics' shared
+    memory given to the tables; no statistics, so `work_floats` is the
+    split tiles and counters, 0 without a split."""
+    p = dict(gn_conv_sm90_plan(B, H, W, cin, cout, cs, False, consumers,
+                               splits))
+    region0 = max(4 * p["win_bytes"], 64 * p["consumers"] * GN_BN * 2)
+    fixed = (region0 + affine_table_bytes(p["consumers"], fold)
+             + 8 * 2 * (GN_WIN_STAGES + GN_MAX_B_STAGES) + 16 + 1024)
+    p["stages"] = min(GN_MAX_B_STAGES, (SMEM_LIMIT - fixed) // GN_B_BYTES)
+    p["smem"] = fixed + p["stages"] * GN_B_BYTES
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def gn_silu_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
+                      cs: int | None = None, consumers: int | None = None,
+                      splits: int | None = None) -> dict:
+    """The tile bf16 K10 (ops/conv3x3.py gn_silu_conv3x3) launches for x
+    (B, H, W, cin) and a weight of cout output channels, cs of them stored
+    (cout when None): K1/K5's (gn_conv_sm90_plan, as forced), its shared
+    memory with the a, c tables and the group table in the place of the
+    per-warp statistics. Cached: the dict is shared, read it only."""
+    return _affine_plan(B, H, W, cin, cout, cs, True, consumers, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def pipelined_sm90_plan(B: int, H: int, W: int, cin: int, cout: int,
+                        cs: int | None = None, consumers: int | None = None,
+                        splits: int | None = None) -> dict:
+    """The tile bf16 T12 (ops/conv_variants.py pipelined) launches: K10's
+    without the group table. Cached: the dict is shared, read it only."""
+    return _affine_plan(B, H, W, cin, cout, cs, False, consumers, splits)
+
+
 # bf16 T11 (csrc/window_taps_sm90.cu dtp_conv_window_taps_sm90: one
 # row-shifted wgmma/TMA GEMM for the four tap reads of
 # ops/conv_variants.py conv_window_taps) and its plan's constants
@@ -430,6 +480,15 @@ def gn_conv_tma_describable(x, w) -> bool:
     return (x.shape[-1] % 8 == 0 and w.shape[-1] % 8 == 0
             and w.stride(1) % 8 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def affine_tma_describable(x, w, residual=None) -> bool:
+    """Whether TMA can read bf16 K10's or T12's operands: Cin a multiple
+    of 8 (rows of whole 16 bytes) and 16-byte-aligned bases of x, w and the
+    residual (a Cout off 8 is zero-padded by the wrapper, pad_cout)."""
+    return (x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0
+            and (residual is None or residual.data_ptr() % 16 == 0))
 
 
 def pad_cout(w, b):

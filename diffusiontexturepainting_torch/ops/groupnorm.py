@@ -121,3 +121,26 @@ def gn_affine_from_stats(stats, scale, bias, num_groups: int,
     inv_g = torch.rsqrt(var_g + eps)
     a = (inv_g @ gmat.t()) * scale.float()[None]
     return a, bias.float()[None] - (mean_g @ gmat.t()) * a
+
+
+def gn_fold_per_channel(stats, scale, bias, num_groups: int, n_spatial: int,
+                        eps: float = 1e-5):
+    """gn_affine_from_stats's a, c (B, C) in fp32 as bf16 K10 folds them in
+    its CTA (csrc/gn_conv_sm90.cu; conv_staged.cu's fp32 twin alike), the
+    port's mirror of that arithmetic: per group of C/G channels, S1 and S2
+    summed channel by channel in order, n = n_spatial * C/G, mean = S1/n,
+    inv = rsqrt(S2/n - mean^2 + eps); then per channel a = inv * scale[c],
+    c = bias[c] - mean * a. A group may cross the kernel's 8-channel loads
+    and 64-channel chunks: each channel takes its own group's."""
+    B, _, C = stats.shape
+    cpg = C // num_groups
+    st = stats.float().reshape(B, 2, num_groups, cpg)
+    s1 = s2 = st.new_zeros((B, num_groups))
+    for j in range(cpg):
+        s1 = s1 + st[:, 0, :, j]
+        s2 = s2 + st[:, 1, :, j]
+    n = float(n_spatial * cpg)
+    mean = s1 / n
+    inv = torch.rsqrt(s2 / n - mean * mean + eps)
+    a = inv.repeat_interleave(cpg, dim=1) * scale.float()[None]
+    return a, bias.float()[None] - mean.repeat_interleave(cpg, dim=1) * a

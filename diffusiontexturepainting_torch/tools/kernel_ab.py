@@ -1,7 +1,7 @@
-"""Eager and CUDA-graph device time of the served K3, K4, K6, K7, K12a,
-K11, K12b, K8 and K2 wrappers at their served shapes, and of the T4, T10,
-T11, T7, T9, T1, T3, T2, T5, T6 and T8 arms at their paths' shapes, for
-comparing two checkouts on one card.
+"""Eager and CUDA-graph device time of the served K3, K1, K5, K4, K6, K7,
+K12a, K11, K12b, K8 and K2 wrappers at their served shapes, of the T4, T10,
+T11, T7, T9, T1, T3, T2, T5, T6 and T8 arms and of K10 and T12 at their
+paths' shapes, for comparing two checkouts on one card.
 
     python diffusiontexturepainting_torch/tools/kernel_ab.py --json-out A.json
     PYTHONPATH=<another checkout> python \\
@@ -11,6 +11,10 @@ Run by path, the script imports the package found first on PYTHONPATH (or
 its own checkout's), so the same script times another checkout's kernels
 through the wrappers both share: ops.ff_geglu.ff_geglu (K3) at one UNet
 eval's feed-forward shapes at 256^2, 512^2 and 1024^2,
+ops.gn_conv.gn_conv_resident (K1, statistics on) at K10's resnet shapes
+(RESNET_K10: conv1 without, conv2 with the residual) and
+ops.gn_conv.gn_conv_stream (K5, no residual or statistics) at T12's
+(CONV_ARMS), the kernels K10 and T12 share their body with,
 ops.conv3x3.upsample2x_conv3x3 (K4) at the UNet's upsample shapes at the
 same points, ops.gn_conv.upconv_stream (K6, statistics on) at the VAE
 decoder's three upsamplers at the same points (batch 1), and
@@ -42,16 +46,22 @@ chunked_sm90_plan, whose kernel takes chunks of 64 and 128 keys only,
 prints that it skips them) at ATTN (the attn_arms path's shapes and
 calls), SDPA beside, nomax_attention (T2) in the entry point's three forms
 (`T2 safe`, the attn_arms path's; `T2`, unclamped; `T2/bf16p`) and
-nomax_unpadded (T5, its copies of the heads included), and last, the
-kernels this tree may differ in, nomax_4d (T6) and nomax_laneslice (T8)
-at ATTN. Seeded normal bf16 inputs (T10,
+nomax_unpadded (T5, its copies of the heads included), nomax_4d (T6) and
+nomax_laneslice (T8) at ATTN, and last, the kernels this tree may differ
+in: ops.conv3x3.gn_silu_conv3x3 (K10) at the resnet_bodies path's 44
+calls (RESNET_K10: one UNet eval's 22 resnet bodies at 256^2, batch 3,
+conv1 with temb and conv2 with the residual, 32 groups) and
+ops.conv_variants.pipelined (T12) at the conv_arms path's 50 calls
+(CONV_ARMS: the default 256^2/20 stamp's K5 launches with a prologue).
+Seeded normal bf16 inputs (T10,
 T11: the tools' uniform ones). Each row: ms a call (CUDA
 events over back-to-back calls, best of 4: the host's launch cost
 included), device_ms (the same calls replayed from a CUDA graph) and a
 digest of the output's bits (two checkouts' rows compare bit for bit); the
 K12b and T11 rows also their launches a stamp (`count`), and the run
-ends with each read's T11 sums over a conv_arms stamp and the attention
-rows' sums over the attn_arms path. Without a card it
+ends with each read's T11 sums over a conv_arms stamp, the attention
+rows' sums over the attn_arms path, K10's over the resnet_bodies path and
+T12's over the conv_arms path. Without a card it
 exits nonzero. Prints one line per row, then one JSON line naming the
 package's path.
 """
@@ -137,6 +147,23 @@ TAPS_ARMS = [(64, 8, 256, 128, 128, 4), (32, 8, 128, 128, 256, 1),
              (8, 8, 64, 512, 512, 6), (16, 8, 128, 512, 256, 1),
              (16, 8, 128, 256, 256, 5), (32, 8, 256, 256, 128, 1),
              (32, 8, 256, 128, 128, 5), (32, 8, 256, 128, 3, 1)]
+# (B, H, W, Cin, Cout, launches a path): T12 on the conv_arms path, the
+# images TAPS_ARMS cuts into windows (B from the windows' rows)
+CONV_ARMS = [(nwin * h_t // W, W, W, cin, n, count)
+             for nwin, h_t, W, cin, n, count in TAPS_ARMS]
+# (H, Cin, Cout, temb, residual, launches a path): K10 on the
+# resnet_bodies path, one UNet eval's 22 resnet bodies at 256^2 (batch 3,
+# latent 32): conv1 with the time embedding, conv2 with the residual
+RESNET_K10 = [
+    (32, 320, 320, True, False, 2), (32, 960, 320, True, False, 1),
+    (32, 640, 320, True, False, 2), (16, 320, 640, True, False, 1),
+    (16, 640, 640, True, False, 1), (16, 1920, 640, True, False, 1),
+    (16, 1280, 640, True, False, 1), (16, 960, 640, True, False, 1),
+    (8, 640, 1280, True, False, 1), (8, 1280, 1280, True, False, 1),
+    (8, 2560, 1280, True, False, 2), (8, 1920, 1280, True, False, 1),
+    (4, 1280, 1280, True, False, 4), (4, 2560, 1280, True, False, 3),
+    (32, 320, 320, False, True, 5), (16, 640, 640, False, True, 5),
+    (8, 1280, 1280, False, True, 5), (4, 1280, 1280, False, True, 7)]
 # (nwin, H_T, W, Cin, N, reps): T11 at the TPU tool's three shapes
 TAPS_TOOL = [(1, 16, 128, 512, 128, 24), (1, 8, 256, 256, 256, 24),
              (1, 8, 512, 128, 128, 24)]
@@ -177,6 +204,28 @@ def _rows(gen):
         w2, b2 = rnd(C, inner, std=inner**-0.5), rnd(C, std=0.1)
         row("K3", tag, [N, C, inner],
             lambda: ff_geglu.ff_geglu(x, w0, b0, w2, b2, res))
+    for H, cin, cout, _, has_res, _ in RESNET_K10:
+        x = rnd(3, H, H, cin)
+        a = torch.randn((3, cin), generator=gen, device="cuda") * 0.2 + 1
+        c = torch.randn((3, cin), generator=gen, device="cuda") * 0.2
+        w, b = rnd(3, 3, cin, cout, std=(9 * cin) ** -0.5), rnd(cout,
+                                                                 std=0.1)
+        r = rnd(3, H, H, cout) if has_res else None
+        row("K1", f"{H}^2 {cin}->{cout}" + (" res" if has_res else ""),
+            [3, H, H, cin, cout],
+            lambda: gn_conv.gn_conv_resident(x, a, c, w, b, r, True))
+    for B, H, W, cin, cout, _ in CONV_ARMS:
+        x = rnd(B, H, W, cin)
+        a = torch.randn((B, cin), generator=gen, device="cuda") * 0.2 + 1
+        c = torch.randn((B, cin), generator=gen, device="cuda") * 0.2
+        w, b = rnd(3, 3, cin, cout, std=(9 * cin) ** -0.5), rnd(cout,
+                                                                 std=0.1)
+        wk, bk = gn_conv.pad_cout(w, b)
+        extra = dict(out_channels=cout) if wk is not w else {}
+        row("K5", f"conv_arms {B}x{H}x{W} {cin}->{cout}",
+            [B, H, W, cin, cout],
+            lambda: gn_conv.gn_conv_stream(x, a, c, wk, bk, None, False,
+                                           True, **extra))
     for B, H, W, C, tag in UP:
         x = rnd(B, H, W, C)
         w, b = rnd(3, 3, C, C, std=(9 * C) ** -0.5), rnd(C, std=0.1)
@@ -321,6 +370,26 @@ def _rows(gen):
         for B, L, D, heads, _, tag, q, k, v in attn:
             row(name, tag, [B, L, D, heads], lambda: arm(q, k, v, heads),
                 ATTN_CALLS)
+    for H, cin, cout, has_temb, has_res, count in RESNET_K10:
+        x = rnd(3, H, H, cin) + 0.3
+        scale, shift = rnd(cin, std=0.2) + 1, rnd(cin, std=0.2)
+        w, b = rnd(3, 3, cin, cout, std=(9 * cin) ** -0.5), rnd(cout,
+                                                                 std=0.1)
+        t = rnd(3, cout) if has_temb else None
+        r = rnd(3, H, H, cout) if has_res else None
+        row("K10", f"{H}^2 {cin}->{cout}" + (" temb" if has_temb else "")
+            + (" res" if has_res else ""), [3, H, H, cin, cout],
+            lambda: conv3x3.gn_silu_conv3x3(x, scale, shift, w, b, t, r, 32),
+            count)
+    for B, H, W, cin, cout, count in CONV_ARMS:
+        x = rnd(B, H, W, cin)
+        w, b = rnd(3, 3, cin, cout, std=(9 * cin) ** -0.5), rnd(cout,
+                                                                 std=0.1)
+        a = torch.randn((B, cin), generator=gen, device="cuda") * 0.2 + 1
+        c = torch.randn((B, cin), generator=gen, device="cuda") * 0.2
+        row("T12", f"conv_arms {B}x{H}x{W} {cin}->{cout}",
+            [B, H, W, cin, cout],
+            lambda: conv_variants.pipelined(x, a, c, w, b), count)
     return rows
 
 
@@ -338,7 +407,8 @@ def stamp_sums(rows):
     launches a stamp: K4, K12b and F.conv_transpose2d over the twin's K4
     shapes; each T11 read and F.conv2d over the conv_arms path's windows;
     K8, K2, T7, T9, T1, each T3 chunk, SDPA, each T2 form, T5, T6 and T8
-    over the attn_arms path."""
+    over the attn_arms path; K10 over the resnet_bodies path; T12 over the
+    conv_arms path."""
     sums = {}
     for r in rows:
         if "count" not in r or r["tag"].startswith("tool"):

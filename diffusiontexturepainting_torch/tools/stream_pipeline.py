@@ -10,8 +10,9 @@ the VAE's Cout-128 / 256 shapes (B, H, W, Cin -> Cout), the tool's seeded
 inputs (x standard normal, a near 1, c near 0, w x 0.04), bf16, the rows
 
   ship   K5 (ops/gn_conv.py gn_conv_stream, statistics and residual off)
-  piped  T12 (ops/conv_variants.py pipelined: the next channel chunk's
-         copy and prologue issued before this chunk's taps)
+  piped  T12 (ops/conv_variants.py pipelined: in bf16 the affine mode of
+         the K1/K5 kernel, csrc/gn_conv_sm90.cu, its fp32 prologue on every
+         window pixel, TMA's zeros included)
 
 with ms a call (CUDA events over 20 back-to-back calls, best of 4), TF/s,
 and the interior max|diff| of the two on rows [8:-8], as the tool prints it

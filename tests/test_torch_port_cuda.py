@@ -31,7 +31,8 @@ CASES = {
     "spatial_moments": ((2, 9, 7, 40),),
     # K12a and K11 (bf16: K7's launch on csrc/gn_conv_sm90.cu; fp32: the
     # staged-tile FMA twin), K12b (bf16: K4's launch; fp32: the staged-tile
-    # FMA twin) and K10 (csrc/conv_staged.cu)
+    # FMA twin) and K10 (bf16: the affine mode of csrc/gn_conv_sm90.cu;
+    # fp32: the staged-tile FMA twin)
     "conv3x3_inpad": ((2, 12, 10, 96), (3, 3, 96, 136)),
     "upsample2x_conv3x3_inpad": ((1, 5, 7, 64), (3, 3, 64, 72)),
     "conv3x3_stream": ((1, 17, 9, 48), (3, 3, 48, 130)),
@@ -44,8 +45,9 @@ STAGED = ("conv3x3_inpad", "upsample2x_conv3x3_inpad", "conv3x3_stream",
           "gn_silu_conv3x3")
 # K7's function, in bf16 on K7's kernel
 SAME_SM90 = ("conv3x3_inpad", "conv3x3_stream")
-# in bf16 on a TMA kernel: K12a and K11 (K7's) and K12b (K4's)
-TMA_BF16 = SAME_SM90 + ("upsample2x_conv3x3_inpad",)
+# in bf16 on a TMA kernel: K12a and K11 (K7's), K12b (K4's) and K10 (the
+# affine mode of K1/K5's)
+TMA_BF16 = SAME_SM90 + ("upsample2x_conv3x3_inpad", "gn_silu_conv3x3")
 
 
 def _case(kind, dtype):
@@ -118,11 +120,13 @@ def test_spatial_moments_is_deterministic(shape):
 # off the 128- and 64-column tiles.
 RAGGED = [((1, 7, 5, 3), (3, 3, 3, 40)), ((2, 3, 9, 9), (3, 3, 9, 24)),
           ((1, 1, 1, 48), (3, 3, 48, 130)), ((2, 11, 19, 48), (3, 3, 48, 8))]
-# bf16 K12a, K11 and K12b refuse Cin 3 and 9 and Cout 130 (TMA's 16-byte
-# rows: test_staged_entries_raise_and_never_fall_back,
-# tests/test_torch_port_upconv_inpad_taps_sm90.py); the ragged shapes TMA
-# can describe take their place: odd H and W, a 1x1 image, Cout 40, 24,
-# 136 and 8 off the 128-column tile
+# bf16 K12a, K11 and K12b refuse Cin 3 and 9 and Cout 130, bf16 K10 and
+# T12 Cin 3 and 9 (TMA's 16-byte rows:
+# test_staged_entries_raise_and_never_fall_back,
+# tests/test_torch_port_upconv_inpad_taps_sm90.py,
+# tests/test_torch_port_affine_sm90.py); the ragged shapes TMA can describe
+# take their place: odd H and W, a 1x1 image, Cout 40, 24, 136 and 8 off
+# the 128-column tile
 RAGGED_DESCRIBABLE = [((1, 7, 5, 8), (3, 3, 8, 40)),
                       ((2, 3, 9, 16), (3, 3, 16, 24)),
                       ((1, 1, 1, 48), (3, 3, 48, 136)),
@@ -135,17 +139,20 @@ STAGED_RAGGED = [
 
 
 def _staged_key(kind, key):
-    return key + (True, True, 3) if kind == "gn_silu_conv3x3" else key
+    """K10's key: temb, residual and 3 groups (4 where 3 do not divide
+    Cin)."""
+    if kind != "gn_silu_conv3x3":
+        return key
+    return key + (True, True, 3 if key[0][3] % 3 == 0 else 4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kind,key", STAGED_RAGGED, ids=str)
 def test_staged_kernels_at_ragged_shapes(kind, key, dtype):
-    """The staged-tile kernels (fp32; bf16 K10), bf16 K12a and K11 (K7's
-    kernel) and bf16 K12b (K4's) against their plain versions where the
-    window, the
-    channel chunks and the Cout tile are ragged (K10 with 3 groups of Cin
-    / 3 channels, temb and residual)."""
+    """The staged-tile kernels (fp32), bf16 K12a and K11 (K7's kernel),
+    bf16 K12b (K4's) and bf16 K10 (the affine mode) against their plain
+    versions where the window, the channel chunks and the Cout tile are
+    ragged (K10 with 3 or 4 groups, temb and residual)."""
     gen = _setup()
     import chip_smoke
 
@@ -158,8 +165,8 @@ def test_staged_kernels_at_ragged_shapes(kind, key, dtype):
 @pytest.mark.parametrize("kind", STAGED)
 def test_staged_kernels_are_deterministic(kind):
     """Two calls give the same bits: the staged-tile kernels have no
-    split-K and no atomics; bf16 K12a and K11 (K7's kernel) add their
-    splits in split order."""
+    split-K and no atomics; bf16 K12a and K11 (K7's kernel) and K10 (the
+    affine mode) add their splits in split order."""
     gen = _setup()
     import chip_smoke
 
@@ -596,17 +603,19 @@ def test_transposed_arms_raise_and_never_fall_back():
     assert out.is_cuda and av.pv_product_launches.launches == before + 1
 
 
-# The conv arms (csrc/conv_arms.cu): T12 at RAGGED's shapes with and without
-# a bias; T11's four reads over 2 windows at TAPS_RAGGED's shapes, without
-# and with the loop carry.
+# The conv arms: T12 (bf16: the affine mode of csrc/gn_conv_sm90.cu; fp32:
+# csrc/conv_arms.cu) at RAGGED's shapes (bf16: RAGGED_DESCRIBABLE's) with
+# and without a bias; T11's four reads over 2 windows at TAPS_RAGGED's
+# shapes, without and with the loop carry.
 @pytest.mark.cuda
-@pytest.mark.parametrize("key", RAGGED, ids=str)
+@pytest.mark.parametrize("index", range(len(RAGGED)))
 @pytest.mark.parametrize("has_bias", [True, False])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_pipelined_matches_plain(key, has_bias, dtype):
+def test_pipelined_matches_plain(index, has_bias, dtype):
     gen = _setup()
     import chip_smoke
 
+    key = (RAGGED_DESCRIBABLE if dtype == "bfloat16" else RAGGED)[index]
     r = chip_smoke.compare("pipelined", key + (has_bias,),
                            getattr(torch, dtype), gen)
     assert r["err_over_tol"] <= 1.0, r

@@ -162,9 +162,9 @@ def test_in_pad_routes_conv3x3_to_k12a(monkeypatch):
 def test_bf16_refuses_what_tma_cannot_describe(monkeypatch, kind, shape):
     """bf16 K12a and K11 at Cin 3, Cin 9 and Cout 130 raise ValueError
     before any launch and move no counter; fp32 runs the staged twin
-    there. The staged SAME and UP entries refuse bf16 and instantiate no
-    bf16 SAME or UP kernel: its one bf16 kernel is K10's GN mode (bf16
-    K12b runs K4's kernel)."""
+    there. The staged SAME, UP and GN entries refuse bf16 and instantiate
+    no bf16 kernel (bf16 K12b runs K4's kernel, bf16 K10 the affine mode
+    of csrc/gn_conv_sm90.cu)."""
     calls = _patch(monkeypatch)
     op, _ = WRAPPERS[kind]
     B, H, W, cin, cout = shape
@@ -179,8 +179,8 @@ def test_bf16_refuses_what_tma_cannot_describe(monkeypatch, kind, shape):
        _fake((cout,), torch.float32))
     assert [c[1] for c in calls] == ["dtp_conv3x3_staged"]
     src = STAGED_CU.read_text()
-    assert ("if constexpr (MODE != kGn)\n"
-            "      return cudaErrorInvalidValue;") in src
+    assert "  if (is_bf16) return cudaErrorInvalidValue;\n" \
+        "  StagedArgs<float> p{};" in src and "__nv_bfloat16" not in src
     assert "dispatch<dtp::kGn>" in src and "constexpr bool gn = MODE == kGn;" \
         in src
 

@@ -216,7 +216,7 @@ def test_k12b_bf16_refuses_what_tma_cannot_describe(monkeypatch, shape):
         _FakeCuda((16, cin, cout), torch.float32))
     assert [c[1] for c in calls] == ["dtp_upsample2x_conv3x3_staged"]
     src = (_cuda.CSRC / "conv_staged.cu").read_text()
-    assert "if constexpr (MODE != kGn)" in src
+    assert "if (is_bf16) return cudaErrorInvalidValue;" in src
 
 
 # --- T11 on the CPU ---
