@@ -88,6 +88,38 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                the same bytes over the server's websocket, every reply
                byte-equal, with RETURN_ERROR for a STAMP_AT before
                BEGIN_SESSION and for a second connection's BEGIN_SESSION;
+  6c. schedulers
+               the default configuration with each of the other schedulers
+               (DPM++, EulerA, LMS, PNDM), built from the default model's
+               state_dict: one 256^2 / 20 NEW_STAMP through the request
+               handler, the reply checked, the kernels' launches against
+               the configuration at the scheduler's model calls (PNDM 21),
+               the stamp against the safe twin's with the same scheduler at
+               the same request counter, compared in u8; EulerA's twice at
+               one counter, byte-equal;
+  6d. checkpoint
+               the default model saved in the JAX package's npz format to
+               a temporary directory (weights/loader.py; its bytes and
+               seconds), a model built from it: every state_dict entry bit
+               for bit and a NEW_STAMP byte-equal at the same request
+               counter; a model seeded otherwise, reload_params from it:
+               the same bytes; then the entry point as a user starts it,
+               in processes of its own: `serving.run --checkpoint_dir DIR
+               --scheduler EulerA --warmup-points 256x20`, the same seeded
+               weights with --no-warmup and no checkpoint, each one's first
+               NEW_STAMP (over the websocket of the first, over POST
+               /inpaint of the second) byte-equal, walls side by side, and
+               a --mock server with no card visible; every process stopped;
+               the directory removed;
+  6e. run_flags
+               servers assembled by serving/run.py build_server on
+               loopback: a cold one (--no-warmup) and a warmed one
+               (--warmup-points 256x4,512x4: the warm-up seconds), each
+               one's first NEW_STAMP over HTTP POST /inpaint, walls side by
+               side, byte-equal; POST /inpaint byte-equal to the request
+               handler, 400 for BEGIN_SESSION; --debug_dir's files;
+               --profile-dir's trace of a websocket NEW_STAMP naming the
+               port's kernels (namespace dtp) among its CUDA events;
   7. envelope  the default configuration at 1024^2 / 4 DDIM steps (the
                engine envelope: 16384-token attention through K8), as
                phase 4, with its peak device memory;
@@ -197,6 +229,7 @@ from collections import Counter
 
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
+CARD = [""]  # the card's name and power limit, as CARD_QUERY prints them
 RES, STEPS, TWIN_STEPS = 256, 20, 4
 ENVELOPE_RES, SLOTTED_RES, FEW_STEPS = 1024, 512, 4
 # Published peaks of one H100 SXM (dense): the bounds of the kernels' work
@@ -1109,7 +1142,9 @@ def attention_launches(model, res, steps):
 def expected_per_stamp(model, res, steps, in_pad=False):
     """Launches of each kernel in one stamp of `model`, from its
     configuration; `in_pad`: under the _IN_PAD switch, K12a/b take K7's and
-    K4's calls."""
+    K4's calls. The UNet runs once a model call of the configuration's
+    scheduler at `steps` (PNDM: steps + 1)."""
+    steps = model._stamp_fn(steps).scheduler.num_iterations()
     c = model.config
     u, v = model.unet.cfg, model.vae_encoder.cfg
     n_u, n_v = len(u.block_out_channels), len(v.block_out_channels)
@@ -1514,6 +1549,403 @@ def session_phase(model):
         + " ms; every reply byte-equal to wire.handle_request_bytes")
     log(f"session: phase done in {time.perf_counter() - t_phase:.1f} s")
     return launches, shapes, len(SESSION_STAMPS)
+
+
+SCHEDULERS = ("DPM++", "EulerA", "LMS", "PNDM")
+
+
+def scheduler_phase(weights):
+    """For each of SCHEDULERS, the default configuration and its safe twin
+    with that scheduler, built from `weights`: one 256^2 / STEPS NEW_STAMP
+    of each at request counter 2 through the request handler, the
+    default's launches checked at the scheduler's model calls; EulerA's
+    stamp again at the same counter, byte-equal. Returns {name: wall s}."""
+    import dataclasses
+
+    import torch
+
+    from diffusiontexturepainting_torch.core.config import (
+        PipelineConfig,
+        safe_twin_config,
+    )
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+    from diffusiontexturepainting_torch.serving import wire
+
+    R, handle = wire.RequestType, wire.handle_request_bytes
+    brush, canvas = requests()
+    req = wire.encode_request(R.NEW_STAMP, canvas, **settings(STEPS))
+    walls = {}
+    for name in SCHEDULERS:
+        config = dataclasses.replace(PipelineConfig(), scheduler=name)
+        model = TorchConditionalInpainter(RES, config=config, device="cuda",
+                                          weights=weights)
+        model.set_brush(brush)
+        sched = model._stamp_fn(STEPS).scheduler
+        torch.cuda.synchronize()
+        for c in counters():
+            c.reset()
+        model.request_counter = 1
+        tic = time.perf_counter()
+        reply = handle(model, req)
+        walls[name] = time.perf_counter() - tic
+        torch.cuda.synchronize()
+        launches = {c.name: c.launches for c in counters()}
+        stamp = check_reply(reply, R.RETURN_STAMP, RES, canvas)
+        log(f"schedulers: {name}: {sched.num_iterations()} model calls, "
+            f"NEW_STAMP {walls[name] * 1e3:.1f} ms wall ({RES}^2, {STEPS} "
+            f"steps, {model.dtype}; {CARD[0]})")
+        check_counts(f"schedulers {name}", model, STEPS, launches, 1)
+        if sched.stochastic:
+            model.request_counter = 1
+            if handle(model, req) != reply:
+                raise AssertionError(f"schedulers: {name}: the same request "
+                                     "counter gave other bytes")
+            log(f"schedulers: {name}: the stamp again at the same request "
+                "counter (its step noise drawn again): byte-equal")
+        del model
+        twin = TorchConditionalInpainter(RES, config=safe_twin_config(config),
+                                         device="cuda", weights=weights)
+        twin.set_brush(brush)
+        twin.request_counter = 1
+        twin_stamp = check_reply(handle(twin, req), R.RETURN_STAMP, RES,
+                                 canvas)
+        compare_stamps(f"schedulers {name}", stamp, twin_stamp,
+                       f"the default and the safe twin with {name} at "
+                       f"{STEPS} steps")
+        del twin
+        release()
+    return walls
+
+
+def checkpoint_phase(model):
+    """`model` saved in the JAX package's format; a model built from the
+    checkpoint and one seeded otherwise reloaded from it, each against
+    `model`: state_dicts bit for bit, NEW_STAMP bytes at one counter."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+    from diffusiontexturepainting_torch.serving import wire
+    from diffusiontexturepainting_torch.weights.loader import (
+        save_pipeline_params)
+
+    R, handle = wire.RequestType, wire.handle_request_bytes
+    brush, canvas = requests()
+    req = wire.encode_request(R.NEW_STAMP, canvas, **settings(FEW_STEPS))
+
+    def first_reply(m):
+        m.set_brush(brush)
+        m.request_counter = 1
+        return handle(m, req)
+
+    want = first_reply(model)
+    directory = tempfile.mkdtemp(prefix="dtp_checkpoint_")
+    try:
+        tic = time.perf_counter()
+        nbytes = save_pipeline_params(directory, model.state_dicts())
+        save_s = time.perf_counter() - tic
+        on_disk = sum(os.path.getsize(os.path.join(directory, f))
+                      for f in os.listdir(directory))
+        log(f"checkpoint: saved {nbytes} bytes of float32 arrays "
+            f"({on_disk} on disk, {len(os.listdir(directory))} npz) in "
+            f"{save_s:.1f} s")
+        loaded = TorchConditionalInpainter(RES, device="cuda",
+                                           checkpoint_dir=directory)
+        log(f"checkpoint: a model built from it in "
+            f"{loaded.init_seconds:.1f} s")
+        ours, theirs = model.state_dicts(), loaded.state_dicts()
+        for name, sd in ours.items():
+            for k, v in sd.items():
+                if not torch.equal(theirs[name][k], v):
+                    raise AssertionError(f"checkpoint: {name}.{k} differs "
+                                         "after the bf16 -> fp32 -> bf16 "
+                                         "round trip")
+        if first_reply(loaded) != want:
+            raise AssertionError("checkpoint: the loaded model's stamp "
+                                 "differs")
+        del loaded
+        log(f"checkpoint: every state_dict entry bit for bit; NEW_STAMP "
+            f"({RES}^2, {FEW_STEPS} steps) byte-equal at the same request "
+            "counter")
+        other = TorchConditionalInpainter(RES, device="cuda",
+                                          weights_seed=1)
+        if first_reply(other) == want:
+            raise AssertionError("checkpoint: a model seeded otherwise "
+                                 "gave the same stamp")
+        tic = time.perf_counter()
+        other.reload_params(directory)
+        reload_s = time.perf_counter() - tic
+        if first_reply(other) != want:
+            raise AssertionError("checkpoint: reload_params gave another "
+                                 "stamp")
+        log(f"checkpoint: reload_params into a model seeded otherwise in "
+            f"{reload_s:.1f} s; its NEW_STAMP byte-equal ({CARD[0]})")
+        del other
+        release()
+        cli_phase(directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    release()
+    return dict(bytes=nbytes, save_s=save_s, reload_s=reload_s)
+
+
+def cli_phase(directory):
+    """The entry point as a user starts it, in processes of its own:
+    `python -m diffusiontexturepainting_torch.serving.run --checkpoint_dir
+    DIR --scheduler EulerA --warmup-points 256x20` (DIR holding the seeded
+    random weights), the same without the checkpoint and with --no-warmup
+    (cold, the same weights), and `--mock` with no card visible. Each
+    torch server's first NEW_STAMP, over the websocket of the first and
+    over POST /inpaint of the second: byte-equal, walls side by side. Every
+    process is stopped before this returns."""
+    import os
+    import socket
+    import urllib.request
+
+    import numpy as np
+    from websockets.sync.client import connect
+
+    from diffusiontexturepainting_torch.serving import wire
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def health(port, proc, deadline):
+        while time.perf_counter() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"cli: the server on {port} exited "
+                                     f"with {proc.returncode}")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/health", timeout=5) as r:
+                    return json.loads(r.read())
+            except OSError:
+                time.sleep(0.5)
+        raise AssertionError(f"cli: no /health on {port} in time")
+
+    R = wire.RequestType
+    _, canvas = requests()
+    req = wire.encode_request(R.NEW_STAMP, canvas, **settings(STEPS))
+    root = os.path.dirname(os.path.abspath(__file__))
+    entry = [sys.executable, "-m", "diffusiontexturepainting_torch.serving.run",
+             "--host", "127.0.0.1"]
+    flags = [["--checkpoint_dir", directory, "--scheduler", "EulerA",
+              "--warmup-points", f"{RES}x{STEPS}"],
+             ["--scheduler", "EulerA", "--no-warmup"],
+             ["--mock"]]
+    want_info = ["torch-sd15-inpaint default EulerA",
+                 "torch-sd15-inpaint default EulerA (random weights)", "mock"]
+    procs, logs = [], []
+    try:
+        ports = [free_port() for _ in flags]
+        tic = time.perf_counter()
+        for k, port in enumerate(ports):
+            env = dict(os.environ)
+            if flags[k] == ["--mock"]:
+                env["CUDA_VISIBLE_DEVICES"] = ""
+            logs.append(open(os.path.join(directory, f"cli{k}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                entry + ["--port", str(port)] + flags[k], cwd=root, env=env,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        infos = [health(p, proc, tic + 600)["model"]
+                 for p, proc in zip(ports, procs)]
+        ready = time.perf_counter() - tic
+        if infos != want_info:
+            raise AssertionError(f"cli: /health said {infos}")
+        with connect(f"ws://127.0.0.1:{ports[0]}/websocket/", max_size=None,
+                     open_timeout=60) as ws:
+            t0 = time.perf_counter()
+            ws.send(req)
+            warmed = ws.recv(timeout=600)
+            warmed_s = time.perf_counter() - t0
+        check_reply(warmed, R.RETURN_STAMP, RES, canvas)
+        t0 = time.perf_counter()
+        status, cold = Served.post_to(ports[1], req)
+        cold_s = time.perf_counter() - t0
+        if status != 200 or cold != warmed:
+            raise AssertionError(f"cli: the cold server's POST /inpaint "
+                                 f"({status}) differs from the warmed "
+                                 "server's websocket reply")
+        status, mocked = Served.post_to(ports[2], wire.encode_request(
+            R.NEW_STAMP, np.zeros((RES, RES, 4), np.uint8)))
+        if status != 200 or mocked[0] != R.RETURN_STAMP:
+            raise AssertionError(f"cli: the mock answered {status}")
+        log(f"cli: `serving.run --checkpoint_dir DIR --scheduler EulerA "
+            f"--warmup-points {RES}x{STEPS}`, `serving.run --scheduler "
+            "EulerA --no-warmup` (the same seeded weights) and `serving.run "
+            f"--mock` (no card visible) answered /health {ready:.1f} s after "
+            f"they were started; the first NEW_STAMP ({RES}^2, {STEPS} "
+            f"steps, EulerA) of each torch server, fresh processes with the "
+            f"kernels built on disk: warmed over the websocket "
+            f"{warmed_s * 1e3:.1f} ms, cold over POST /inpaint "
+            f"{cold_s * 1e3:.1f} ms wall, byte-equal; the mock's reply over "
+            f"POST {len(mocked)} bytes ({CARD[0]})")
+    except Exception:
+        for f in logs:
+            f.seek(0)
+            log(f"cli: {f.name}: " + f.read()[-3000:])
+        raise
+    finally:
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        for f in logs:
+            f.close()
+
+
+class Served:
+    """A server of serving/run.py build_server(argv) in a thread."""
+
+    def __init__(self, argv):
+        from diffusiontexturepainting_torch.serving.run import build_server
+
+        self.server = build_server(["--host", "127.0.0.1", "--port", "0"]
+                                   + argv)
+        self.model = self.server.model
+        self.port = self.server.socket.getsockname()[1]
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def post(self, body):
+        return Served.post_to(self.port, body)
+
+    @staticmethod
+    def post_to(port, body):
+        """(status, body) of an HTTP POST /inpaint to the local `port`."""
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/inpaint", body=body)
+        resp = conn.getresponse()
+        out = resp.status, resp.read()
+        conn.close()
+        return out
+
+    def close(self):
+        self.server.shutdown()
+        self.thread.join(timeout=60)
+        del self.model, self.server
+        release()
+
+
+def run_flags_phase():
+    """Servers assembled by run.py's build_server: cold against warmed
+    first stamps, POST /inpaint against the handler, --debug_dir and
+    --profile-dir."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from websockets.sync.client import connect
+
+    from diffusiontexturepainting_torch.serving import wire
+    from diffusiontexturepainting_torch.serving.server import (
+        SESSION_OVER_HTTP)
+
+    R = wire.RequestType
+    brush, canvas = requests()
+    stamp_req = wire.encode_request(R.NEW_STAMP, canvas,
+                                    **settings(FEW_STEPS))
+    firsts, walls = {}, {}
+    for label, argv in (("cold", ["--no-warmup"]),
+                        ("warmed", ["--warmup-points", "256x4,512x4"])):
+        served = Served(argv)
+        try:
+            startup = ", ".join(f"{k} {v:.2f} s"
+                                for k, v in served.server.startup.items())
+            log(f"run_flags: {label} server built: {startup}")
+            tic = time.perf_counter()
+            status, firsts[label] = served.post(stamp_req)
+            walls[label] = time.perf_counter() - tic
+            if status != 200:
+                raise AssertionError(f"run_flags: {label}: POST /inpaint "
+                                     f"answered {status}")
+            check_reply(firsts[label], R.RETURN_STAMP, RES, canvas)
+        finally:
+            served.close()
+    if firsts["cold"] != firsts["warmed"]:
+        raise AssertionError("run_flags: the warmed server's first stamp "
+                             "differs from the cold server's")
+    log(f"run_flags: first NEW_STAMP over POST /inpaint ({RES}^2, "
+        f"{FEW_STEPS} steps): cold {walls['cold'] * 1e3:.1f} ms, warmed "
+        f"{walls['warmed'] * 1e3:.1f} ms wall, byte-equal ({CARD[0]}; one "
+        "process, the kernels already built)")
+
+    scratch = tempfile.mkdtemp(prefix="dtp_run_flags_")
+    debug_dir = os.path.join(scratch, "debug")
+    profile_dir = os.path.join(scratch, "profile")
+    served = Served(["--no-warmup", "--debug_dir", debug_dir,
+                     "--profile-dir", profile_dir])
+    try:
+        model = served.model
+        for raw in (wire.encode_request(R.NEW_BRUSH_IMAGE, brush,
+                                        **settings(FEW_STEPS)), stamp_req):
+            counter = model.request_counter
+            status, body = served.post(raw)
+            model.request_counter = counter
+            if status != 200 or body != wire.handle_request_bytes(model,
+                                                                  raw):
+                raise AssertionError(f"run_flags: POST /inpaint type {raw[0]}"
+                                     f" ({status}) differs from the handler")
+        status, body = served.post(wire.encode_begin_session(
+            np.zeros((RES, RES, 4), np.uint8)))
+        if status != 400 or json.loads(body) != {"error": SESSION_OVER_HTTP}:
+            raise AssertionError(f"run_flags: BEGIN_SESSION over POST: "
+                                 f"{status} {body[:200]!r}")
+        log("run_flags: POST /inpaint NEW_BRUSH_IMAGE and NEW_STAMP "
+            "byte-equal to wire.handle_request_bytes at the same request "
+            f"counter; BEGIN_SESSION -> 400 {body.decode()}")
+        dumped = sorted(f.split("_", 1)[1] for f in os.listdir(debug_dir))
+        if dumped != ["brush_brush.npy", "stamp_canvas.npy",
+                      "stamp_result.npy"]:
+            raise AssertionError(f"run_flags: --debug_dir holds {dumped}")
+        log(f"run_flags: --debug_dir: {sorted(os.listdir(debug_dir))}")
+        # one step: the profiler's cost grows with the events traced
+        with connect(f"ws://127.0.0.1:{served.port}/websocket/",
+                     max_size=None, open_timeout=60) as ws:
+            tic = time.perf_counter()
+            ws.send(wire.encode_request(R.NEW_STAMP, canvas, **settings(1)))
+            check_reply(ws.recv(timeout=600), R.RETURN_STAMP, RES, canvas)
+            traced_s = time.perf_counter() - tic
+        traces = os.listdir(profile_dir)
+        if len(traces) != 1:
+            raise AssertionError(f"run_flags: --profile-dir holds {traces}")
+        trace = os.path.join(profile_dir, traces[0])
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = Counter(e["name"] for e in events
+                          if e.get("cat") == "kernel")
+        # the port's kernels live in namespace dtp (csrc/*.cu): "dtp::" in
+        # a demangled name, "3dtp" in a mangled one
+        ours = {k: n for k, n in kernels.items()
+                if "dtp::" in k or "3dtp" in k}
+        if not ours:
+            raise AssertionError("run_flags: the trace names no dtp:: kernel"
+                                 f" among {len(kernels)}: "
+                                 + ", ".join(sorted(kernels)[:8]))
+        log(f"run_flags: --profile-dir: {traces[0]}, "
+            f"{os.path.getsize(trace)} bytes, the traced NEW_STAMP (1 step) "
+            f"{traced_s * 1e3:.1f} ms wall; {sum(kernels.values())} kernel "
+            f"events, {sum(ours.values())} of the port's: "
+            + ", ".join(f"{k[:60]} x{n}" for k, n in sorted(ours.items())))
+    finally:
+        served.close()
+        shutil.rmtree(scratch, ignore_errors=True)
+    return walls
 
 
 def resnet_bodies_phase(model, twin_shapes, twin_stamps):
@@ -3011,6 +3443,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = subprocess.run(CARD_QUERY, capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
+    CARD[0] = card
     log(card)
     log(f"device: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
@@ -3335,8 +3768,17 @@ def main() -> int:
     check_counts("session", model, FEW_STEPS, launches, n)
     paths["session"] = dict(launches=launches, shapes=shapes, stamps=n,
                             steps=FEW_STEPS, res=RES)
+    tic = time.perf_counter()
+    scheduler_phase(weights)
+    log(f"schedulers: phase done in {time.perf_counter() - tic:.1f} s")
+    tic = time.perf_counter()
+    checkpoint_phase(model)
+    log(f"checkpoint: phase done in {time.perf_counter() - tic:.1f} s")
     del model
     release()
+    tic = time.perf_counter()
+    run_flags_phase()
+    log(f"run_flags: phase done in {time.perf_counter() - tic:.1f} s")
 
     envelope = TorchConditionalInpainter(resolution=ENVELOPE_RES,
                                          device="cuda", weights=weights)

@@ -93,6 +93,7 @@ class PatchEncoderConfig:
 class PipelineConfig:
     """Serving defaults: the client's settings when a request omits them."""
 
+    scheduler: str = "DDIM"  # a name of schedulers.available_schedulers()
     denoising_steps: int = 20
     guidance_scale: float = 2.0
     texture_guidance_scale: float = 1.0

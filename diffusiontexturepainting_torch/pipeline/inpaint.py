@@ -1,15 +1,19 @@
 """The inpainting stamp: u8 canvas in, u8 stamp out.
 
 Port of diffusiontexturepainting_tpu/pipeline/inpaint.py make_stamp_fn and
-make_preview_fn, exact DDIM path (no DeepCache, no f32 final step):
+make_preview_fn, exact path (no DeepCache, no f32 final step), for any
+scheduler of the registry (schedulers/__init__.py):
 
     canvas u8 -> normalize/split -> context dilation (prefix sums)
     -> one batch-2 VAE encode (both branches)
-    -> DDIM loop (CFG triple-batch UNet + dual-guidance combine)
+    -> denoise loop (CFG triple-batch UNet on the scheduler's scaled input
+       + dual-guidance combine + scheduler step)
     -> VAE decode -> [0,1] -> alpha composite -> u8 (truncating)
 
 The random draws are inputs: `enc_noise` (the VAE posterior sample of both
-branches) and `init_latents`; DDIM with eta = 0 draws nothing per step.
+branches), `init_latents` and, for a stochastic scheduler (EulerA),
+`step_noise`, one standard normal of the latents' shape per model call.
+DDIM, DPM-Solver, LMS and PNDM draw nothing per step.
 """
 
 from __future__ import annotations
@@ -19,21 +23,29 @@ import torch
 from ..models.vae import sample_latents
 from ..ops.morphology import add_extra_context
 from ..ops.resize import nearest_downsample
-from ..schedulers.ddim import DDIMScheduler
+from ..schedulers import make_scheduler
 
 
 def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
-                  vae_scaling: float = 0.18215):
+                  vae_scaling: float = 0.18215,
+                  scheduler_name: str = "DDIM"):
     """Returns stamp(canvas_u8 (1,H,W,4) uint8, brush (1,H,W,3) in [0,1],
     cond (1,L,D), uncond (1,L,D), enc_noise (2,H/8,W/8,4),
     init_latents (1,H/8,W/8,4), cfg_weight, tg_weight, tg_steps,
-    context_pad) -> (raw_u8 (H,W,3), composited_u8 (H,W,3))."""
-    scheduler = DDIMScheduler().set_timesteps(num_steps)
-    timesteps = scheduler.scan_rows()["timestep"]
+    context_pad, step_noise=None (n_iters,1,H/8,W/8,4), or None where the
+    scheduler is not stochastic) -> (raw_u8 (H,W,3), composited_u8
+    (H,W,3)). n_iters = stamp.scheduler.num_iterations() (PNDM: steps +
+    1); texture guidance is active while the call index is below
+    tg_steps."""
+    scheduler = make_scheduler(scheduler_name).set_timesteps(num_steps)
+    rows = scheduler.rows()
 
     @torch.inference_mode()
     def stamp(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
-              cfg_weight, tg_weight, tg_steps, context_pad):
+              cfg_weight, tg_weight, tg_steps, context_pad, step_noise=None):
+        if scheduler.stochastic and step_noise is None:
+            raise ValueError(f"{scheduler_name} is stochastic: the stamp "
+                             "needs its step_noise")
         canvas = canvas_u8.float() / 255.0
         images = canvas[..., :3] * 2.0 - 1.0
         mask = canvas[..., 3:4]
@@ -53,21 +65,27 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
                                dim=0)
 
         latents = init_latents.float() * scheduler.init_noise_sigma
-        for i in range(scheduler.num_iterations()):
+        state = scheduler.init_state(latents)
+        for i, row in enumerate(rows):
             tg_scale = float(tg_weight) if i < int(tg_steps) else 0.0
-            unet_in = torch.cat([torch.cat([latents] * 3, dim=0), mask_lat,
-                                 masked_latents], dim=-1)
-            t = torch.full((3,), float(timesteps[i]), device=latents.device)
+            lat_in = scheduler.scale_model_input(
+                torch.cat([latents] * 3, dim=0), row)
+            unet_in = torch.cat([lat_in, mask_lat, masked_latents], dim=-1)
+            t = torch.full((3,), float(row["timestep"]),
+                           device=latents.device)
             eps_u, eps_c, eps_tg = unet(unet_in, t, embeddings).chunk(3)
             eps = (eps_u + float(cfg_weight) * (eps_c - eps_u)
                    + tg_scale * (eps_tg - eps_c))
-            latents = scheduler.step(eps, latents, i)
+            noise = (step_noise[i].float() if scheduler.stochastic
+                     else None)
+            latents, state = scheduler.step(eps, latents, row, state, noise)
 
         decoded = vae_decoder(latents / vae_scaling)
         result = torch.clamp(decoded / 2.0 + 0.5, 0.0, 1.0)
         composited = canvas[..., :3] * mask + result * (1.0 - mask)
         return _to_u8(result[0]), _to_u8(composited[0])
 
+    stamp.scheduler = scheduler
     return stamp
 
 
@@ -89,15 +107,16 @@ def preview_canvas_u8(brush):
 
 
 def make_preview_fn(unet, vae_encoder, vae_decoder, num_steps: int,
-                    vae_scaling: float = 0.18215):
+                    vae_scaling: float = 0.18215,
+                    scheduler_name: str = "DDIM"):
     """Brush preview: the stamp on preview_canvas_u8(brush)."""
     stamp = make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps,
-                          vae_scaling)
+                          vae_scaling, scheduler_name)
 
     def preview(brush, cond, uncond, enc_noise, init_latents, cfg_weight,
-                tg_weight, tg_steps, context_pad):
+                tg_weight, tg_steps, context_pad, step_noise=None):
         return stamp(preview_canvas_u8(brush), brush, cond, uncond,
                      enc_noise, init_latents, cfg_weight, tg_weight,
-                     tg_steps, context_pad)
+                     tg_steps, context_pad, step_noise)
 
     return preview

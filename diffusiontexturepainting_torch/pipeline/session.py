@@ -32,7 +32,6 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import torch
 
 STAMP_EDGE_MARGIN = 1
 ERASE_CIRCLE_MARGIN = 2
@@ -107,11 +106,12 @@ def edge_slices(res: int, margin: int = STAMP_EDGE_MARGIN):
 
 def session_stamp(stamp, canvas, brush, cond, uncond, enc_noise,
                   init_latents, x0: int, y0: int, cfg_weight, tg_weight,
-                  tg_steps, context_pad, margin: int = 0):
+                  tg_steps, context_pad, margin: int = 0, step_noise=None):
     """One stamp into the resident `canvas` (H, W, 4) uint8, in place;
     returns the composited crop (res, res, 3) uint8 on the device. `stamp`
-    is inpaint.make_stamp_fn's function, res the brush's size; margin > 0
-    clears the crop's centre first (overpaint)."""
+    is inpaint.make_stamp_fn's function (any scheduler; `step_noise` its
+    per-step draws), res the brush's size; margin > 0 clears the crop's
+    centre first (overpaint)."""
     height, width = canvas.shape[:2]
     res = brush.shape[1]
     x, y = clamped_corner(x0, y0, res, width, height)
@@ -121,7 +121,7 @@ def session_stamp(stamp, canvas, brush, cond, uncond, enc_noise,
         crop[margin:res - margin, margin:res - margin] = 0
     _, comp = stamp(crop[None], brush, cond, uncond, enc_noise,
                     init_latents, cfg_weight, tg_weight, tg_steps,
-                    context_pad)
+                    context_pad, step_noise)
     rows, cols = edge_slices(res)
     window[rows, cols, :3] = comp[rows, cols]
     window[rows, cols, 3] = 255
@@ -141,8 +141,11 @@ def session_erase(canvas, keep, x0: int, y0: int):
     return window[..., :3].clone()
 
 
-def erase_keep(res: int, device) -> torch.Tensor:
-    """session_erase's `keep` operand of a res^2 window."""
+def erase_keep(res: int, device):
+    """session_erase's `keep` operand of a res^2 window (a uint8 tensor on
+    `device`)."""
+    import torch
+
     return torch.from_numpy(~circle_mask(res)).to(torch.uint8)[..., None] \
         .to(device)
 

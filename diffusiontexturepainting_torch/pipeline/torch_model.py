@@ -1,11 +1,18 @@
 """TorchConditionalInpainter: the serving model of the port.
 
-Port of diffusiontexturepainting_tpu/pipeline/tpu_model.py for the exact
-DDIM stamp path: `resolution`, `set_brush`, `generate_raw`, `generate`,
-`generate_u8` and `create_preview_brush_context`, with the same
-wire-settings parsing, so it answers the port's request handler
-(serving/wire.py) and its server (serving/server.py). A stamp runs at its
-canvas's size (256, 512 or 1024 px).
+Port of diffusiontexturepainting_tpu/pipeline/tpu_model.py: `resolution`,
+`set_brush`, `generate_raw`, `generate`, `generate_u8` and
+`create_preview_brush_context`, with the same wire-settings parsing, so it
+answers the port's request handler (serving/wire.py) and its server
+(serving/server.py). A stamp runs at its canvas's size (256, 512 or 1024
+px), with the configuration's scheduler (any name of
+schedulers.available_schedulers(); DDIM by default).
+
+Weights: seeded random ones, a state_dict per component (`weights`), or a
+checkpoint in the JAX package's format (`checkpoint_dir`,
+weights/loader.py); `reload_params` swaps in another checkpoint while
+serving. `warmup` builds the kernels and runs one stamp per operating
+point, so a server's first painter does not pay them.
 
 Stroke sessions (`begin_session`, `stamp_at`, `erase_at`, `fetch_canvas`,
 `sync_session`, `end_session`; pipeline/session.py) keep the canvas on the
@@ -21,7 +28,8 @@ head-slotted self-attention (K13, slotted_config()); with all of them
 False, the module legs ("safe twin"). All take the same state_dict.
 
 Random draws: request n (the model's request counter) draws its VAE
-posterior noise and initial latents from a torch.Generator seeded with
+posterior noise, its initial latents and, for a stochastic scheduler, its
+per-step noise, in that order, from a torch.Generator seeded with
 (config.seed, n), so a request is reproducible from its counter.
 """
 
@@ -45,12 +53,13 @@ from ..core.config import (
 )
 from ..models.patch_encoder import encode_brush_image
 from ..serving.model_base import (
+    ConditionalInpainterBase,
     crop_resize_square,
     ensure_float01,
-    preview_brush_context,
     validate_session_canvas,
 )
-from ..weights.random_init import init_pipeline
+from ..weights.loader import load_pipeline_params
+from ..weights.random_init import build_pipeline, load_weights
 from .inpaint import make_stamp_fn
 from .session import (
     erase_keep,
@@ -62,21 +71,28 @@ from .session import (
 logger = logging.getLogger(__name__)
 
 
-class TorchConditionalInpainter:
+class TorchConditionalInpainter(ConditionalInpainterBase):
     def __init__(self, resolution: int = 256,
                  config: PipelineConfig | None = None,
                  device: str | torch.device = "cuda", tiny: bool = False,
-                 weights: dict | None = None):
-        """Seeded random weights (no checkpoint loading yet), or `weights`
-        (a state_dict per component, as state_dicts() returns), built on
-        `device` and cast once to bf16 on CUDA (fp32 on the CPU, as the JAX
-        package serves bf16 on a TPU only). `tiny` uses the JAX package's
-        tiny_*_config() models."""
+                 weights: dict | None = None,
+                 checkpoint_dir: str | None = None, weights_seed: int = 0):
+        """Weights from `checkpoint_dir` (the JAX package's npz format;
+        components it lacks get seeded random ones), or `weights` (a
+        state_dict per component, as state_dicts() returns), else seeded
+        random weights (`weights_seed`), built on `device` and cast once
+        to bf16 on CUDA (fp32 on the CPU, as the JAX package serves bf16 on
+        a TPU only). `tiny` uses the JAX package's tiny_*_config()
+        models. Nothing is warmed here: see warmup()."""
+        if weights is not None and checkpoint_dir:
+            raise ValueError("give weights or checkpoint_dir, not both")
         self._resolution = int(resolution)
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
         self.dtype = (torch.bfloat16 if self.device.type == "cuda"
                       else torch.float32)
+        self.weights_seed = int(weights_seed)
+        self.build_seconds = None  # the kernels' build, timed by warmup()
         if tiny:
             cfgs = (tiny_unet_config(), tiny_vae_config(),
                     tiny_patch_encoder_config())
@@ -88,10 +104,12 @@ class TorchConditionalInpainter:
                                    fused_norm=c.fused_unet_norm,
                                    fused_attn=c.fused_unet_attn)
         tic = time.perf_counter()
-        models = init_pipeline(
+        models = build_pipeline(
             ucfg, *cfgs[1:], device=self.device, dtype=self.dtype,
-            fused_vae=(c.fused_vae_encoder, c.fused_vae_decoder),
-            weights=weights)
+            fused_vae=(c.fused_vae_encoder, c.fused_vae_decoder))
+        if checkpoint_dir:
+            weights = load_pipeline_params(checkpoint_dir, models)
+        load_weights(models, weights, self.weights_seed)
         self.init_seconds = time.perf_counter() - tic
         self.unet = models["unet"]
         self.vae_encoder = models["vae_encoder"]
@@ -105,11 +123,51 @@ class TorchConditionalInpainter:
         self.set_brush(np.full((self._resolution, self._resolution, 3), 0.5,
                                np.float32))
 
+    def reload_params(self, checkpoint_dir: str) -> None:
+        """Swap in the weights of `checkpoint_dir` (components it lacks
+        get the seeded random ones), then re-encode the current brush.
+        Every component is read and validated before any weight is copied,
+        so a checkpoint that fails leaves the old weights serving;
+        load_state_dict's hooks rebuild the derived buffers (the slotted
+        q/k/v, the upsamplers' folded taps, the decoder's padded head)."""
+        models = {name: getattr(self, name) for name in self._COMPONENTS}
+        weights = load_pipeline_params(checkpoint_dir, models)
+        if self._session_canvas is not None:
+            self.sync_session()  # queued stamps read the old weights
+        load_weights(models, weights, self.weights_seed)
+        self.set_brush(self.image)
+
+    def warmup(self, points=None) -> dict:
+        """Build the kernels (on CUDA), then run one stamp on a blank
+        canvas per (resolution, steps) of `points` (default: the model's
+        resolution at the configuration's steps); returns {(resolution,
+        steps): seconds}, each stamp synchronized. The request counter is
+        put back, so the first request after a warm-up draws what it would
+        have drawn without one."""
+        if self.device.type == "cuda":
+            from .. import _cuda
+
+            self.build_seconds = _cuda.build_all()
+        points = points or [(self._resolution, self.config.denoising_steps)]
+        counter = self.request_counter
+        out = {}
+        try:
+            for res, steps in points:
+                tic = time.perf_counter()
+                self._run_stamp(np.zeros((res, res, 4), np.uint8),
+                                steps=steps)
+                out[(int(res), int(steps))] = time.perf_counter() - tic
+        finally:
+            self.request_counter = counter
+        return out
+
+    _COMPONENTS = ("unet", "vae_encoder", "vae_decoder", "patch_encoder")
+
     def state_dicts(self) -> dict:
-        """Each component's state_dict, for another model's `weights`."""
+        """Each component's state_dict, for another model's `weights` or
+        weights/loader.py save_pipeline_params."""
         return {name: getattr(self, name).state_dict()
-                for name in ("unet", "vae_encoder", "vae_decoder",
-                             "patch_encoder")}
+                for name in self._COMPONENTS}
 
     # --- the serving model contract ---
 
@@ -138,16 +196,22 @@ class TorchConditionalInpainter:
                 int(settings.get("context_pad", c.context_pad)))
 
     def _stamp_fn(self, steps: int):
-        fn = self._stamp_fns.get(steps)
+        """The stamp function of (the configuration's scheduler, steps)."""
+        key = (self.config.scheduler, int(steps))
+        fn = self._stamp_fns.get(key)
         if fn is None:
             fn = make_stamp_fn(self.unet, self.vae_encoder, self.vae_decoder,
-                               steps, self.vae_encoder.cfg.scaling_factor)
-            self._stamp_fns[steps] = fn
+                               steps, self.vae_encoder.cfg.scaling_factor,
+                               self.config.scheduler)
+            self._stamp_fns[key] = fn
         return fn
 
-    def draws(self, counter: int, res: int):
-        """(enc_noise, init_latents) of request `counter` at canvas size
-        `res`, from a generator seeded with (config.seed, counter)."""
+    def draws(self, counter: int, res: int, steps: int | None = None):
+        """(enc_noise, init_latents, step_noise) of request `counter` at
+        canvas size `res`, from a generator seeded with (config.seed,
+        counter); step_noise, drawn after the others, is (n_iters, 1,
+        res/8, res/8, 4) where the scheduler is stochastic at `steps`
+        (default: the configuration's), else None."""
         gen = torch.Generator(device=self.device).manual_seed(
             (int(self.config.seed) << 32) | (int(counter) & 0xFFFFFFFF))
         lat = res // 8
@@ -156,7 +220,13 @@ class TorchConditionalInpainter:
                                 device=self.device)
         init_latents = torch.randn((1,) + shape, generator=gen,
                                    device=self.device)
-        return enc_noise, init_latents
+        sched = self._stamp_fn(self.config.denoising_steps if steps is None
+                               else steps).scheduler
+        step_noise = None
+        if sched.stochastic:
+            step_noise = torch.randn((sched.num_iterations(), 1) + shape,
+                                     generator=gen, device=self.device)
+        return enc_noise, init_latents, step_noise
 
     def _next_counter(self) -> int:
         self.request_counter += 1
@@ -174,11 +244,12 @@ class TorchConditionalInpainter:
         if brush.shape[1] != res:
             brush = torch.from_numpy(crop_resize_square(
                 self.image, res).astype(np.float32)[None]).to(self.device)
-        enc_noise, init_latents = self.draws(self._next_counter(), res)
+        enc_noise, init_latents, step_noise = self.draws(
+            self._next_counter(), res, steps)
         canvas_t = torch.from_numpy(np.array(canvas_u8))[None].to(self.device)
         raw, comp = self._stamp_fn(steps)(
             canvas_t, brush, self._cond, self._uncond, enc_noise,
-            init_latents, cfg_w, tg_w, tg_steps, pad)
+            init_latents, cfg_w, tg_w, tg_steps, pad, step_noise)
         return raw.cpu().numpy(), comp.cpu().numpy()
 
     def generate_raw(self, canvas: np.ndarray, **settings) -> np.ndarray:
@@ -195,11 +266,6 @@ class TorchConditionalInpainter:
         """uint8 in, uint8 out: the websocket server's fast path."""
         _, comp_u8 = self._run_stamp(canvas_u8, **settings)
         return comp_u8
-
-    def create_preview_brush_context(self, brush_image: np.ndarray):
-        """The brush preview's canvas: the brush known in the top-left
-        quadrant."""
-        return preview_brush_context(brush_image, self._resolution)
 
     # --- stroke sessions: the canvas on the device ---
     # Every method that writes the canvas runs under inference_mode: the
@@ -226,11 +292,12 @@ class TorchConditionalInpainter:
         steps, cfg_w, tg_w, tg_steps, pad = self._settings(settings)
         res = self._resolution
         margin = overpaint_margin(res) if overpaint else 0
-        enc_noise, init_latents = self.draws(self._next_counter(), res)
+        enc_noise, init_latents, step_noise = self.draws(
+            self._next_counter(), res, steps)
         comp = session_stamp(self._stamp_fn(steps), canvas, self._brush,
                              self._cond, self._uncond, enc_noise,
                              init_latents, x0, y0, cfg_w, tg_w, tg_steps,
-                             pad, margin)
+                             pad, margin, step_noise)
         return comp.cpu().numpy() if return_pixels else None
 
     @torch.inference_mode()

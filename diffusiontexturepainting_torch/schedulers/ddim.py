@@ -1,41 +1,29 @@
-"""DDIM scheduler (eta = 0) with precomputed per-step tables.
+"""DDIM scheduler (eta = 0), the serving default.
 
-Port of diffusiontexturepainting_tpu/schedulers/base.py + ddim.py, whose
-modules import jax: the tables are rebuilt here in float64 numpy
-(scaled-linear betas, steps_offset=1, set_alpha_to_one=False, "leading"
-spacing) and rounded to float32 at the end, as the JAX package does;
-`step` is torch math on float32 coefficients.
+Port of diffusiontexturepainting_tpu/schedulers/ddim.py: scaled-linear
+betas, steps_offset=1, set_alpha_to_one=False, "leading" spacing, epsilon
+prediction. Its eta = 0 update coefficients are evaluated once on the host
+in float32, in the order the JAX package's step evaluates them on its
+float32 rows, and ride in each row beside the JAX package's four tables.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .base import (
+    Scheduler,
+    alphas_cumprod_from_betas,
+    leading_timesteps,
+    scaled_linear_betas,
+)
 
-def scaled_linear_betas(num_train_timesteps: int = 1000,
-                        beta_start: float = 0.0001,
-                        beta_end: float = 0.02) -> np.ndarray:
-    """float64 betas = linspace(sqrt(beta_start), sqrt(beta_end), N)^2."""
-    return np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps,
-                       dtype=np.float64) ** 2
-
-
-def alphas_cumprod_from_betas(betas: np.ndarray) -> np.ndarray:
-    return np.cumprod(1.0 - betas.astype(np.float64), axis=0)
+# the host-evaluated coefficients each row carries besides scan_rows()
+_COEFFS = ("sqrt_beta", "sqrt_alpha", "sqrt_alpha_prev", "sqrt_dir")
 
 
-def leading_timesteps(num_train_timesteps: int, num_inference_steps: int,
-                      steps_offset: int = 1) -> np.ndarray:
-    """Descending inference timesteps: round(i * N/n) + steps_offset."""
-    step_ratio = num_train_timesteps // num_inference_steps
-    timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1]
-    return timesteps.astype(np.int64) + steps_offset
-
-
-class DDIMScheduler:
+class DDIMScheduler(Scheduler):
     """Deterministic (eta = 0) DDIM with epsilon prediction."""
-
-    init_noise_sigma = 1.0
 
     def __init__(self, num_train_timesteps: int = 1000,
                  beta_start: float = 0.0001, beta_end: float = 0.02,
@@ -68,10 +56,10 @@ class DDIMScheduler:
         # eta = 0 update coefficients, evaluated in float32 as the JAX
         # package's step does on its float32 rows
         one = np.float32(1.0)
-        self._sqrt_beta = np.sqrt(one - self.alpha_prod)
-        self._sqrt_alpha = np.sqrt(self.alpha_prod)
-        self._sqrt_alpha_prev = np.sqrt(self.alpha_prod_prev)
-        self._sqrt_dir = np.sqrt(one - self.alpha_prod_prev)
+        self.sqrt_beta = np.sqrt(one - self.alpha_prod)
+        self.sqrt_alpha = np.sqrt(self.alpha_prod)
+        self.sqrt_alpha_prev = np.sqrt(self.alpha_prod_prev)
+        self.sqrt_dir = np.sqrt(one - self.alpha_prod_prev)
         return self
 
     def scan_rows(self) -> dict:
@@ -83,12 +71,16 @@ class DDIMScheduler:
             "variance": self.variance,
         }
 
-    def num_iterations(self) -> int:
-        return len(self.timesteps)
+    def rows(self) -> list:
+        rows = super().rows()
+        for i, row in enumerate(rows):
+            row.update({k: getattr(self, k)[i] for k in _COEFFS})
+        return rows
 
-    def step(self, model_output, sample, i: int):
-        """x_{t-1} from predicted noise `model_output` at step index i."""
-        pred_x0 = (sample - float(self._sqrt_beta[i]) * model_output) \
-            / float(self._sqrt_alpha[i])
-        pred_dir = float(self._sqrt_dir[i]) * model_output
-        return float(self._sqrt_alpha_prev[i]) * pred_x0 + pred_dir
+    def step(self, model_output, sample, row, state=None, noise=None):
+        """x_{t-1} from the predicted noise; the state is unused."""
+        pred_x0 = (sample - float(row["sqrt_beta"]) * model_output) \
+            / float(row["sqrt_alpha"])
+        pred_dir = float(row["sqrt_dir"]) * model_output
+        prev = float(row["sqrt_alpha_prev"]) * pred_x0 + pred_dir
+        return prev, (state if state is not None else {})

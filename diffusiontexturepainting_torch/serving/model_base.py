@@ -1,14 +1,114 @@
-"""Host-side image helpers of the serving model contract.
+"""The serving model contract and its host-side image helpers.
 
-The same functions as the JAX package's serving/model_base.py (tests hold
-them equal on the same inputs): numpy HWC images, uint8 or float in [0, 1].
+The same class and functions as the JAX package's serving/model_base.py
+(tests hold them equal on the same inputs): numpy HWC images, uint8 or
+float in [0, 1]. ConditionalInpainterBase gives a model that implements
+resolution / set_brush / generate_raw the host composite, the brush
+preview's canvas and stroke sessions on a host canvas (the mock,
+client/mock_model.py, serves through it); TorchConditionalInpainter keeps
+its canvas on the device instead.
 """
 
 from __future__ import annotations
 
 import hashlib
+from abc import ABC, abstractmethod
 
 import numpy as np
+
+
+class ConditionalInpainterBase(ABC):
+    """Contract every inpainter (torch, mock) implements."""
+
+    @abstractmethod
+    def resolution(self) -> int:
+        """Internal canvas resolution of the model (square)."""
+
+    @abstractmethod
+    def set_brush(self, image: np.ndarray) -> None:
+        """The brush: (H, W, 3) uint8 or float32 [0, 1] texture image."""
+
+    @abstractmethod
+    def generate_raw(self, canvas: np.ndarray, **settings) -> np.ndarray:
+        """(H, W, 4) float32 [0, 1] canvas (A = painted) -> (H, W, 3)
+        float32 [0, 1] new content, known areas possibly repainted."""
+
+    def generate(self, canvas: np.ndarray, **settings) -> np.ndarray:
+        """generate_raw composited over the canvas: canvas_rgb * alpha +
+        result * (1 - alpha)."""
+        result = self.generate_raw(canvas, **settings)
+        alpha = canvas[..., 3:4].astype(np.float32)
+        return (canvas[..., :3].astype(np.float32) * alpha
+                + result[..., :3] * (1.0 - alpha))
+
+    def create_preview_brush_context(self, brush_image: np.ndarray):
+        """The brush preview's canvas: the brush known in the top-left
+        quadrant."""
+        return preview_brush_context(brush_image, self.resolution())
+
+    # --- stroke sessions on a host canvas (pipeline/session.py documents
+    # the protocol): each STAMP_AT crops a res^2 window, inpaints it
+    # through `generate` and writes the composite and alpha 255 back
+    # inside the stamp edge mask
+
+    def begin_session(self, canvas_u8: np.ndarray) -> None:
+        canvas_u8 = validate_session_canvas(canvas_u8, self.resolution())
+        self._session_canvas = canvas_u8.copy()
+
+    def session_active(self) -> bool:
+        return getattr(self, "_session_canvas", None) is not None
+
+    def stamp_at(self, x0: int, y0: int, return_pixels: bool = True,
+                 overpaint: bool = False, **settings):
+        """One stamp into the canvas with its window at (x0, y0), clamped
+        to fit; the composited res^2 crop as uint8 RGB when
+        return_pixels, else None."""
+        from ..pipeline.session import overpaint_margin, STAMP_EDGE_MARGIN
+
+        canvas = self._require_session()
+        res = self.resolution()
+        y0 = int(np.clip(y0, 0, canvas.shape[0] - res))
+        x0 = int(np.clip(x0, 0, canvas.shape[1] - res))
+        crop = ensure_float01(canvas[y0:y0 + res, x0:x0 + res])
+        if overpaint:
+            m = overpaint_margin(res)
+            crop[m:res - m, m:res - m, 3] = 0.0
+            crop[..., :3] *= crop[..., 3:4]
+        comp_u8 = float01_to_uint8(self.generate(crop, **settings))
+        m = STAMP_EDGE_MARGIN
+        window = canvas[y0:y0 + res, x0:x0 + res]
+        window[m:res - m, m:res - m, :3] = comp_u8[m:res - m, m:res - m]
+        window[m:res - m, m:res - m, 3] = 255
+        return comp_u8 if return_pixels else None
+
+    def erase_at(self, x0: int, y0: int, return_pixels: bool = True):
+        """Zero RGBA under the erase circle of the window at (x0, y0)."""
+        from ..pipeline.session import circle_mask
+
+        canvas = self._require_session()
+        res = self.resolution()
+        y0 = int(np.clip(y0, 0, canvas.shape[0] - res))
+        x0 = int(np.clip(x0, 0, canvas.shape[1] - res))
+        window = canvas[y0:y0 + res, x0:x0 + res]
+        window[circle_mask(res)] = 0
+        return window[..., :3].copy() if return_pixels else None
+
+    def fetch_canvas(self) -> np.ndarray:
+        return self._require_session().copy()
+
+    def sync_session(self) -> None:
+        """Stamps are synchronous here: nothing to wait for."""
+        self._require_session()
+
+    def end_session(self) -> None:
+        self._session_canvas = None
+
+    def _require_session(self) -> np.ndarray:
+        canvas = getattr(self, "_session_canvas", None)
+        if canvas is None:
+            raise RuntimeError("no active stroke session (BEGIN_SESSION "
+                               "first)")
+        return canvas
 
 
 def ensure_float01(image: np.ndarray) -> np.ndarray:

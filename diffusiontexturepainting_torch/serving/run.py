@@ -1,49 +1,196 @@
 """Inference server entry point of the port.
 
-Builds TorchConditionalInpainter on the GPU (seeded random weights, bf16)
-and serves it through serving/server.py (binary websocket protocol at
-/websocket/, GET /health):
+Builds the serving model and serves it through serving/server.py (binary
+websocket protocol at /websocket/, HTTP POST /inpaint with the same bytes,
+GET /health), with the JAX package's single-chip flags
+(diffusiontexturepainting_tpu/serving/run.py):
 
     python -m diffusiontexturepainting_torch.serving.run --port 6060 \
-        --resolution 256 --config default
+        --resolution 256 --config default --scheduler DDIM \
+        --checkpoint_dir DIR --warmup-points 256x20,512x4
+    python -m diffusiontexturepainting_torch.serving.run --mock  # no card
 
 --resolution is the model's size (256, 512 or 1024 px; each stamp runs at
 its canvas's size); --config picks the serving legs: default (the fused
 kernels), safe_twin (module legs only) or slotted (default plus the
-head-slotted self-attention).
+head-slotted self-attention). At startup the server builds the kernels and
+runs one stamp per --warmup-points operating point (default: the model's
+resolution at 20 steps), unless --no-warmup; --session-canvas WxH also
+runs a stroke session on such a canvas. --device cpu --tiny serves the
+tiny test models on the CPU.
+
+Not served yet (ROADMAP.md Queue 1): DeepCache (a third --warmup-points
+field, --deep-cache-interval), --f32-final-step / --f32-components, --mesh
+and --max-batch.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
+import time
 
 from ..core.config import CONFIG_NAMES, pipeline_config
 
 logger = logging.getLogger(__name__)
 
+SCHEDULER_CHOICES = ("DDIM", "DPM", "DPM++", "EulerA", "LMS", "LMSD", "PNDM")
 
-def run_main(argv=None):
+
+def parse_warmup_points(text: str) -> list:
+    """'256x20,512x4' -> [(256, 20), (512, 4)]. A third field (the JAX
+    package's DeepCache interval) is refused: DeepCache is not ported yet
+    (ROADMAP.md Queue 1 item 6)."""
+    points = []
+    for item in text.split(","):
+        fields = item.strip().lower().split("x")
+        if len(fields) == 3:
+            raise ValueError(
+                f"--warmup-points {item!r}: the third field (a DeepCache "
+                "interval) is not served: DeepCache is not ported yet "
+                "(ROADMAP.md Queue 1 item 6)")
+        if len(fields) != 2:
+            raise ValueError(f"--warmup-points {item!r}: expected "
+                             "RESOLUTIONxSTEPS")
+        res, steps = (int(v) for v in fields)
+        points.append((res, steps))
+    return points
+
+
+def _warmup_points(text: str) -> list:
+    try:
+        return parse_warmup_points(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+
+
+def parse_canvas(text: str) -> tuple:
+    """'1024x768' (width x height) -> (1024, 768)."""
+    w, h = (int(v) for v in text.lower().split("x"))
+    return w, h
+
+
+def warm_session(model, width: int, height: int, warmup_points=None) -> float:
+    """A stroke session on a blank width x height canvas: for the default
+    step count and each of `warmup_points`', one STAMP_AT with pixels and
+    one without, then fetch_canvas and end_session (the JAX package's
+    _warm_session; the port has no stroke buckets, so there is no flush to
+    warm). The request counter is put back. Returns the seconds."""
+    import numpy as np
+
+    tic = time.perf_counter()
+    counter = model.request_counter
+    steps_list = [None] + sorted({int(p[1]) for p in (warmup_points or [])})
+    try:
+        model.begin_session(np.zeros((height, width, 4), np.uint8))
+        for s in steps_list:
+            kw = {} if s is None else {"steps": s}
+            model.stamp_at(0, 0, return_pixels=True, **kw)
+            model.stamp_at(0, 0, return_pixels=False, **kw)
+        model.fetch_canvas()
+        model.end_session()
+    finally:
+        model.request_counter = counter
+    return time.perf_counter() - tic
+
+
+def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="texture inpainting server (PyTorch + CUDA port)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=6060)
     parser.add_argument("--resolution", type=int, default=256,
-                        choices=(256, 512, 1024))
+                        help="the model's size in px (256, 512 or 1024 at "
+                             "full width)")
     parser.add_argument("--config", default="default", choices=CONFIG_NAMES)
-    args = parser.parse_args(argv)
+    parser.add_argument("--mock", action="store_true",
+                        help="serve the mock model (no torch model, no "
+                             "card)")
+    parser.add_argument("--checkpoint_dir", default=None,
+                        help="weights in the JAX package's npz format "
+                             "(seeded random weights when omitted)")
+    parser.add_argument("--scheduler", default=None,
+                        choices=SCHEDULER_CHOICES,
+                        help="sampler (default: the configuration's, DDIM)")
+    parser.add_argument("--debug_dir", default=None,
+                        help="save each request's images here as .npy")
+    parser.add_argument("--profile-dir", default=None,
+                        help="diagnostic only: a torch.profiler trace of "
+                             "each request here (Chrome JSON), the first 32 "
+                             "of the process")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="skip the kernel build and warm-up stamps at "
+                             "startup")
+    parser.add_argument("--warmup-points", type=_warmup_points, default=None,
+                        help="comma list of RESOLUTIONxSTEPS operating "
+                             "points to warm at startup, e.g. "
+                             "'256x20,512x4' (default: --resolution at the "
+                             "configuration's steps)")
+    parser.add_argument("--session-canvas", type=parse_canvas, default=None,
+                        help="warm a stroke session on a canvas of this "
+                             "size at startup, e.g. 1024x1024 (width x "
+                             "height)")
+    parser.add_argument("--device", default="cuda",
+                        help="the model's device (cpu for debugging)")
+    parser.add_argument("--tiny", action="store_true",
+                        help="the tiny test models (debugging on the CPU)")
+    return parser
 
-    from ..pipeline.torch_model import TorchConditionalInpainter
+
+def build_server(argv=None):
+    """run.py's whole assembly, from its arguments to a bound server
+    (serve_forever() serves it); the server also carries `model`,
+    `model_info` and `startup` (seconds of each warm-up)."""
+    args = make_parser().parse_args(argv)
     from .server import create_server
 
+    startup = {}
+    if args.mock:
+        from ..client.mock_model import MockConditionalInpainter
+
+        model = MockConditionalInpainter(args.resolution)
+        info = "mock"
+    else:
+        from ..pipeline.torch_model import TorchConditionalInpainter
+
+        config = pipeline_config(args.config)
+        if args.scheduler:
+            config = dataclasses.replace(config, scheduler=args.scheduler)
+        if not args.checkpoint_dir:
+            logger.warning("No --checkpoint_dir given - using seeded random "
+                           "weights (latency-correct, visually "
+                           "meaningless).")
+        model = TorchConditionalInpainter(
+            args.resolution, config=config, device=args.device,
+            tiny=args.tiny, checkpoint_dir=args.checkpoint_dir)
+        startup["model"] = model.init_seconds
+        info = (f"torch-sd15-inpaint {args.config} {config.scheduler}"
+                + ("" if args.checkpoint_dir else " (random weights)"))
+        if not args.no_warmup:
+            for (res, steps), secs in model.warmup(
+                    args.warmup_points).items():
+                startup[f"{res}x{steps}"] = secs
+                logger.info("warm-up %dx%d: %.1f s", res, steps, secs)
+            if model.build_seconds is not None:
+                startup["build"] = model.build_seconds
+    if args.session_canvas:
+        w, h = args.session_canvas
+        startup["session"] = warm_session(model, w, h, args.warmup_points)
+    server = create_server(model, args.host, args.port, model_info=info,
+                           debug_dir=args.debug_dir,
+                           profile_dir=args.profile_dir)
+    server.startup = startup
+    return server
+
+
+def run_main(argv=None):
     logging.basicConfig(level=logging.INFO)
-    model = TorchConditionalInpainter(args.resolution,
-                                      config=pipeline_config(args.config),
-                                      device="cuda")
-    server = create_server(model, args.host, args.port,
-                           model_info=f"torch-sd15-inpaint {args.config} "
-                                      "(random weights)")
-    logger.info("Serving on ws://%s:%d/websocket/", args.host, args.port)
+    server = build_server(argv)
+    host, port = server.socket.getsockname()[:2]
+    logger.info("Serving %s on ws://%s:%d/websocket/ (POST "
+                "http://%s:%d/inpaint)", server.model_info, host, port,
+                host, port)
     server.serve_forever()
 
 

@@ -15,8 +15,15 @@ the connection that began it, and another connection's session frames get
 RETURN_ERROR while it is active; a closing connection ends the session it
 holds.
 
-HTTP POST /inpaint is not served: the `websockets` server parses GET
-requests only.
+HTTP POST /inpaint on the same port (the JAX package's
+InpaintHTTPHandler): the binary request in the body, the binary reply
+back as application/octet-stream, byte-equal to the websocket's at the
+same request counter; session types get 400 (sessions belong to a
+websocket connection), and a request that fails gets 400 {"error": ...}.
+The `websockets` server parses GET requests only, so each accepted
+connection's first bytes are peeked (MSG_PEEK): a `POST ` is read and
+answered here and the connection closed; anything else goes to the
+websocket server untouched, reading the same bytes.
 
     server = create_server(model, "127.0.0.1", 6060)
     server.serve_forever()        # server.shutdown() from another thread
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import json
 import logging
+import socket
 import threading
 from http import HTTPStatus
 
@@ -45,15 +53,80 @@ logger = logging.getLogger(__name__)
 
 WEBSOCKET_PATH = "/websocket/"
 HEALTH_PATH = "/health"
+INPAINT_PATH = "/inpaint"
 # Tornado's default message limit: a 1024^2 RGBA canvas (4 MiB plus a
 # 23-byte header) fits with room to spare.
 MAX_MESSAGE_BYTES = 10 * 1024 * 1024
+MAX_HEADER_BYTES = 64 * 1024
+# seconds a connection may take to send its first bytes, or a POST's
+# headers and body
+HTTP_TIMEOUT = 60.0
+SESSION_OVER_HTTP = ("stroke-session requests require the websocket "
+                     "transport (sessions are connection-scoped)")
+
+
+def _http_reply(sock, status: HTTPStatus, body: bytes,
+                content_type: str) -> None:
+    head = (f"HTTP/1.1 {status.value} {status.phrase}\r\n"
+            f"Content-Type: {content_type}\r\n"
+            f"Content-Length: {len(body)}\r\n"
+            "Connection: close\r\n\r\n").encode("latin-1")
+    sock.sendall(head + body)
+
+
+def _json_reply(sock, status: HTTPStatus, obj) -> None:
+    _http_reply(sock, status, json.dumps(obj).encode(),
+                "application/json; charset=UTF-8")
+
+
+def _read_post(sock):
+    """(path, body) of an HTTP POST whose first bytes are waiting on
+    `sock`, or an HTTPStatus where it cannot be served."""
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        if len(buf) > MAX_HEADER_BYTES:
+            return HTTPStatus.REQUEST_HEADER_FIELDS_TOO_LARGE
+        chunk = sock.recv(65536)
+        if not chunk:
+            return HTTPStatus.BAD_REQUEST
+        buf += chunk
+    head, body = buf.split(b"\r\n\r\n", 1)
+    lines = head.decode("latin-1").split("\r\n")
+    parts = lines[0].split(" ")
+    if len(parts) != 3:
+        return HTTPStatus.BAD_REQUEST
+    headers = {}
+    for line in lines[1:]:
+        name, _, value = line.partition(":")
+        headers[name.strip().lower()] = value.strip()
+    if "chunked" in headers.get("transfer-encoding", "").lower():
+        return HTTPStatus.LENGTH_REQUIRED
+    try:
+        length = int(headers.get("content-length", "0"))
+    except ValueError:
+        return HTTPStatus.BAD_REQUEST
+    if length < 0:
+        return HTTPStatus.BAD_REQUEST
+    if length > MAX_MESSAGE_BYTES:
+        return HTTPStatus.REQUEST_ENTITY_TOO_LARGE
+    if headers.get("expect", "").lower() == "100-continue":
+        sock.sendall(b"HTTP/1.1 100 Continue\r\n\r\n")
+    while len(body) < length:
+        chunk = sock.recv(min(1 << 20, length - len(body)))
+        if not chunk:
+            return HTTPStatus.BAD_REQUEST
+        body += chunk
+    return parts[1].split("?", 1)[0], body[:length]
 
 
 def create_server(model, host: str = "0.0.0.0", port: int = 6060,
-                  model_info: str | None = None):
+                  model_info: str | None = None,
+                  debug_dir: str | None = None,
+                  profile_dir: str | None = None):
     """A bound websockets Server around `model` (port 0: any free port,
-    `server.socket.getsockname()` tells which); serve_forever() runs it."""
+    `server.socket.getsockname()` tells which); serve_forever() runs it.
+    debug_dir, profile_dir: wire.handle_request_bytes's diagnostics (the
+    POST endpoint, as the JAX package's, passes debug_dir only)."""
     info = model_info or type(model).__name__
     lock = threading.Lock()
     owner = [None]  # the connection that holds the model's session
@@ -109,13 +182,64 @@ def create_server(model, host: str = "0.0.0.0", port: int = 6060,
                         if message and is_session_request(message[0]):
                             reply = session_reply(connection, message)
                         else:
-                            reply = handle_request_bytes(model, message)
+                            reply = handle_request_bytes(
+                                model, message, debug_dir=debug_dir,
+                                profile_dir=profile_dir)
                     connection.send(reply)
                 except Exception:  # noqa: BLE001 - a bad frame keeps it
                     logger.exception("failed to handle an incoming message")
         finally:
             release(connection)
 
-    return serve(handler, host, port, process_request=process_request,
-                 max_size=MAX_MESSAGE_BYTES, compression=None,
-                 ping_interval=None)
+    def serve_post(sock):
+        """One HTTP POST /inpaint on `sock`, answered; the caller closes
+        the socket."""
+        got = _read_post(sock)
+        if isinstance(got, HTTPStatus):
+            _json_reply(sock, got, {"error": got.phrase})
+            return
+        path, body = got
+        if path != INPAINT_PATH:
+            _json_reply(sock, HTTPStatus.NOT_FOUND, {"error": "Not Found"})
+            return
+        if body and is_session_request(body[0]):
+            _json_reply(sock, HTTPStatus.BAD_REQUEST,
+                        {"error": SESSION_OVER_HTTP})
+            return
+        try:
+            with lock:
+                reply = handle_request_bytes(model, body,
+                                             debug_dir=debug_dir)
+        except Exception as e:  # noqa: BLE001 - report protocol errors
+            logger.exception("POST %s failed", INPAINT_PATH)
+            _json_reply(sock, HTTPStatus.BAD_REQUEST, {"error": str(e)})
+            return
+        _http_reply(sock, HTTPStatus.OK, bytes(reply),
+                    "application/octet-stream")
+
+    server = serve(handler, host, port, process_request=process_request,
+                   max_size=MAX_MESSAGE_BYTES, compression=None,
+                   ping_interval=None)
+    websocket_connection = server.handler
+
+    def connection(sock, addr):
+        """Route an accepted connection by its first five bytes."""
+        try:
+            sock.settimeout(HTTP_TIMEOUT)
+            first = sock.recv(5, socket.MSG_PEEK | socket.MSG_WAITALL)
+            if first == b"POST ":
+                try:
+                    serve_post(sock)
+                finally:
+                    sock.close()
+                return
+            sock.settimeout(None)
+        except OSError:
+            sock.close()
+            return
+        websocket_connection(sock, addr)
+
+    server.handler = connection
+    server.model = model
+    server.model_info = info
+    return server

@@ -20,7 +20,11 @@ RETURN_STAMP + image, or RETURN_ERROR [u32 length][utf-8 message].
 
 `handle_request_bytes` answers NEW_BRUSH_PROMPT and NEW_BRUSH_IMAGE (a
 brush preview), NEW_STAMP and the session requests, in the order of the JAX
-package's serving/handler.py.
+package's serving/handler.py, with its two diagnostics: `debug_dir` saves
+each request's images as `{time:.3f}_{tag}_{name}.npy` (tags brush_prompt,
+brush, stamp), and `profile_dir` writes a torch.profiler trace of each
+request there (CPU and, on a card, CUDA activity; Chrome JSON), the first
+PROFILE_TRACE_CAP requests of a process only.
 """
 
 from __future__ import annotations
@@ -29,10 +33,11 @@ import enum
 import logging
 import os
 import struct
+import time
 
 import numpy as np
 
-from .model_base import float01_to_uint8, procedural_brush
+from .model_base import ensure_float01, float01_to_uint8, procedural_brush
 
 logger = logging.getLogger(__name__)
 
@@ -264,21 +269,73 @@ def _preview_reply(model, settings) -> bytes:
                            float01_to_uint8(result))
 
 
-def handle_request_bytes(model, raw: bytes) -> bytes:
+def _debug_dump(debug_dir, tag, **arrays):
+    """Save a request's images for offline inspection."""
+    if not debug_dir:
+        return
+    os.makedirs(debug_dir, exist_ok=True)
+    stamp = f"{time.time():.3f}"
+    for name, arr in arrays.items():
+        np.save(os.path.join(debug_dir, f"{stamp}_{tag}_{name}.npy"), arr)
+
+
+# the most requests a process traces under profile_dir (a trace costs the
+# request's latency and disk): then one warning, and no more traces
+PROFILE_TRACE_CAP = 32
+_profile_traces = 0
+
+
+def _traced(profile_dir, fn):
+    """fn() under a torch.profiler trace written to profile_dir as
+    Chrome JSON, `{time:.3f}_{n:02d}.trace.json`."""
+    global _profile_traces
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _profile_traces += 1
+    if _profile_traces == PROFILE_TRACE_CAP:
+        logger.warning("profile_dir: trace cap (%d) reached - further "
+                       "requests will not be traced", PROFILE_TRACE_CAP)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        reply = fn()
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"{time.time():.3f}_{_profile_traces:02d}.trace.json"))
+    return reply
+
+
+def handle_request_bytes(model, raw: bytes, debug_dir: str | None = None,
+                         profile_dir: str | None = None) -> bytes:
     """Decode one request, run the model, return the encoded reply."""
+    if profile_dir and _profile_traces < PROFILE_TRACE_CAP:
+        return _traced(profile_dir, lambda: handle_request_bytes(
+            model, raw, debug_dir=debug_dir))
     if raw[0] == RequestType.NEW_BRUSH_PROMPT:
         _, settings, offset = _decode_header(raw)
         prompt = decode_prompt_payload(raw, offset)
-        model.set_brush(brush_from_prompt(prompt, model.resolution()))
+        brush = brush_from_prompt(prompt, model.resolution())
+        model.set_brush(ensure_float01(brush))
+        _debug_dump(debug_dir, "brush_prompt", brush=brush)
         return _preview_reply(model, settings)
     if is_session_request(raw[0]):
         return handle_session_request(model, raw)
     kind, settings, image = decode_request(raw)
     if kind == RequestType.NEW_BRUSH_IMAGE:
-        model.set_brush(image[..., :3])
+        model.set_brush(ensure_float01(image[..., :3]))
+        _debug_dump(debug_dir, "brush", brush=image)
         return _preview_reply(model, settings)
     if kind == RequestType.NEW_STAMP:
-        return encode_response(RequestType.RETURN_STAMP,
-                               model.generate_u8(image, **settings))
+        # the uint8 fast path where the model has one (the torch model);
+        # the mock goes through generate
+        if hasattr(model, "generate_u8"):
+            result = model.generate_u8(image, **settings)
+        else:
+            result = float01_to_uint8(
+                model.generate(ensure_float01(image), **settings))
+        _debug_dump(debug_dir, "stamp", canvas=image, result=result)
+        return encode_response(RequestType.RETURN_STAMP, result)
     raise NotImplementedError(f"request type {kind} is not served by the "
                               "port")

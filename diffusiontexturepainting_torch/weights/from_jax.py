@@ -1,11 +1,13 @@
-"""JAX-package parameter trees -> this package's (diffusers-named) state_dicts.
+"""JAX-package parameter trees <-> this package's (diffusers-named) state_dicts.
 
-The inverse of diffusiontexturepainting_tpu/weights/convert.py
-(convert_unet, convert_vae_encoder, convert_vae_decoder,
-convert_patch_encoder): paths are renamed back to diffusers / Hugging Face
-names. Conv kernels keep their (kH, kW, Cin, Cout) layout, which the port's
-convs use too; Dense kernels (in, out) become nn.Linear's (out, in). Input
-leaves are numpy arrays, never jax arrays.
+`state_dict_from_jax` is the inverse of
+diffusiontexturepainting_tpu/weights/convert.py (convert_unet,
+convert_vae_encoder, convert_vae_decoder, convert_patch_encoder): paths
+are renamed back to diffusers / Hugging Face names. Conv kernels keep their
+(kH, kW, Cin, Cout) layout, which the port's convs use too; Dense kernels
+(in, out) become nn.Linear's (out, in). `jax_tree_from_state_dict` goes
+back, so the port writes checkpoints the JAX package loads
+(weights/loader.py). Leaves are numpy arrays, never jax arrays.
 """
 
 from __future__ import annotations
@@ -110,3 +112,107 @@ def state_dict_from_jax(component: str, tree) -> Dict[str, torch.Tensor]:
         sd[torch_name(component, path)] = torch.from_numpy(
             np.ascontiguousarray(a))
     return sd
+
+
+# diffusers owner names (the part before .weight / .bias) -> JAX paths,
+# '.'-separated until the end (torch_name's rules read backwards)
+_BLOCK_INVERSE = [
+    (r"transformer_blocks\.(\d+)", r"transformer_blocks_\1"),
+    (r"(attn[12])\.to_out\.0$", r"\1.to_out"),
+    (r"ff\.net\.0\.proj$", "ff.net_0.proj"),
+    (r"ff\.net\.2$", "ff.net_2"),
+]
+_VAE_MID_INVERSE = [
+    (r"^mid_block\.resnets\.(\d+)", r"mid.resnet_\1"),
+    (r"^mid_block\.attentions\.0\.group_norm$", "mid.attn_norm"),
+    (r"^mid_block\.attentions\.0\.to_out\.0$", "mid.attn.to_out"),
+    (r"^mid_block\.attentions\.0\.", "mid.attn."),
+]
+_INVERSE = {
+    "unet": [
+        (r"^(down|up)_blocks\.(\d+)\.resnets\.(\d+)", r"\1_\2_resnet_\3"),
+        (r"^(down|up)_blocks\.(\d+)\.attentions\.(\d+)", r"\1_\2_attn_\3"),
+        (r"^down_blocks\.(\d+)\.downsamplers\.0", r"down_\1_downsample"),
+        (r"^up_blocks\.(\d+)\.upsamplers\.0", r"up_\1_upsample"),
+        (r"^mid_block\.resnets\.(\d+)", r"mid_resnet_\1"),
+        (r"^mid_block\.attentions\.0", "mid_attn"),
+        (r"^time_embedding\.linear_(\d+)", r"time_embedding_linear_\1"),
+    ] + _BLOCK_INVERSE,
+    "vae_encoder": [
+        (r"^encoder\.", ""),
+        (r"^down_blocks\.(\d+)\.resnets\.(\d+)", r"down_\1_resnet_\2"),
+        (r"^down_blocks\.(\d+)\.downsamplers\.0", r"down_\1_downsample"),
+    ] + _VAE_MID_INVERSE,
+    "vae_decoder": [
+        (r"^decoder\.", ""),
+        (r"^up_blocks\.(\d+)\.resnets\.(\d+)", r"up_\1_resnet_\2"),
+        (r"^up_blocks\.(\d+)\.upsamplers\.0", r"up_\1_upsample"),
+    ] + _VAE_MID_INVERSE,
+    "patch_encoder": [
+        (r"^([lms])_patch_encoder_layers\.(\d+)", r"\1_block_\2"),
+        (r"ff\.net\.0\.proj$", "ff.net_0"),
+        (r"^clip\.vision_model\.embeddings\.patch_embedding$",
+         "clip.patch_embedding"),
+        (r"^clip\.vision_model\.pre_layrnorm$", "clip.pre_layernorm"),
+        (r"^clip\.vision_model\.post_layernorm$", "clip.post_layernorm"),
+        (r"^clip\.vision_model\.encoder\.layers\.(\d+)\.(self_attn|mlp)\.",
+         r"clip.layer_\1."),
+        (r"^clip\.vision_model\.encoder\.layers\.(\d+)", r"clip.layer_\1"),
+    ] + _BLOCK_INVERSE,
+}
+# leaves that are no layer's .weight / .bias
+_PLAIN_LEAVES = {
+    "clip.vision_model.embeddings.class_embedding": "clip/class_embedding",
+    "clip.vision_model.embeddings.position_embedding.weight":
+        "clip/position_embedding",
+    "uncond_vector": "uncond_vector",
+}
+
+
+def jax_path(component: str, name: str, norm: bool) -> str:
+    """A state_dict name -> its JAX parameter path; `norm`: the name is a
+    normalization layer's (its weight 1-D), whose JAX scale sits under the
+    GroupNorm32 / LayerNorm32 wrapper's `norm` level except in CLIP and the
+    patch encoder's final LayerNorm. Raises ValueError where torch_name
+    does not map the path back to `name`."""
+    if name in _PLAIN_LEAVES:
+        path = _PLAIN_LEAVES[name]
+    else:
+        owner, leaf = name.rsplit(".", 1)
+        p = owner
+        for pat, rep in _INVERSE[component]:
+            p = re.sub(pat, rep, p)
+        p = p.replace(".", "/")
+        if norm:
+            bare = component == "patch_encoder" and (
+                owner.startswith("clip.") or owner == "final_layer_norm")
+            path = p + ("/" if bare else "/norm/") + (
+                "scale" if leaf == "weight" else leaf)
+        else:
+            path = p + "/" + ("kernel" if leaf == "weight" else leaf)
+    if torch_name(component, path) != name:
+        raise ValueError(f"{component}: no JAX path maps to {name!r} "
+                         f"(tried {path!r})")
+    return path
+
+
+def jax_tree_from_state_dict(component: str, sd) -> dict:
+    """A port state_dict -> the JAX package's nested parameter tree of
+    float32 numpy arrays (nn.Linear's (out, in) back to Dense (in, out))."""
+    if component not in _INVERSE:
+        raise ValueError(f"unknown component {component!r}")
+    norms = {k.rsplit(".", 1)[0] for k, v in sd.items()
+             if k.endswith(".weight") and v.dim() == 1}
+    tree = {}
+    for name, t in sd.items():
+        path = jax_path(component, name,
+                        "." in name and name.rsplit(".", 1)[0] in norms)
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if path.endswith("kernel") and a.ndim == 2:
+            a = a.T
+        node = tree
+        parts = path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.ascontiguousarray(a)
+    return tree

@@ -48,15 +48,12 @@ def random_state_dict(module: nn.Module, generator: torch.Generator) -> dict:
     return sd
 
 
-def init_pipeline(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
-                  patch_cfg: PatchEncoderConfig, device, dtype,
-                  seed: int = 0, fused_vae: tuple = (False, False),
-                  weights: dict | None = None) -> dict:
-    """Build the four components on `device` in `dtype`, then load seeded
-    random weights into them (load_state_dict casts them to `dtype`), or
-    `weights`, a state_dict per component. fused_vae: the (encoder,
-    decoder) execution legs; the parameters are the same either way."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+def build_pipeline(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
+                   patch_cfg: PatchEncoderConfig, device, dtype,
+                   fused_vae: tuple = (False, False)) -> dict:
+    """The four components on `device` in `dtype`, in eval mode, their
+    weights not yet set. fused_vae: the (encoder, decoder) execution legs;
+    the parameters are the same either way."""
     with torch.device(device):
         models = {
             "unet": UNet2DCondition(unet_cfg),
@@ -64,8 +61,27 @@ def init_pipeline(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
             "vae_decoder": VAEDecoder(vae_cfg, fused=fused_vae[1]),
             "patch_encoder": ConditionPatchEncoder(patch_cfg),
         }
-    for name, m in models.items():
+    for m in models.values():
         m.to(dtype).eval().requires_grad_(False)
-        m.load_state_dict(weights[name] if weights is not None
-                          else random_state_dict(m, gen))
     return models
+
+
+def load_weights(models: dict, weights: dict | None = None,
+                 seed: int = 0) -> None:
+    """Load `weights` (a state_dict per component; load_state_dict casts
+    them to each module's dtype) into `models`; a component that `weights`
+    lacks gets the seeded random weights, the values it has in a model
+    whose every component is random (the generator walks the components
+    in order, drawing for given ones too where a later one is random)."""
+    weights = weights or {}
+    names = list(models)
+    random_upto = max((i for i, n in enumerate(names) if n not in weights),
+                      default=-1)
+    gen = None
+    for i, (name, m) in enumerate(models.items()):
+        if i <= random_upto:
+            if gen is None:
+                device = next(m.parameters()).device
+                gen = torch.Generator(device=device).manual_seed(seed)
+            sd = random_state_dict(m, gen)
+        m.load_state_dict(weights[name] if name in weights else sd)

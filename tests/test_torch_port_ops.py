@@ -42,8 +42,8 @@ def test_ddim_trajectory_matches(n):
     ref = JaxDDIM().set_timesteps(n)
     rows = ref.scan_rows()
     xt, xj = torch.from_numpy(x0), jnp.asarray(x0)
-    for i in range(n):
-        xt = ours.step(torch.from_numpy(eps[i]), xt, i)
+    for i, our_row in enumerate(ours.rows()):
+        xt, _ = ours.step(torch.from_numpy(eps[i]), xt, our_row, {})
         row = {k: jnp.asarray(v[i]) for k, v in rows.items()}
         xj, _ = ref.step(jnp.asarray(eps[i]), xj, row)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5,

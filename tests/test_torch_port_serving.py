@@ -51,7 +51,11 @@ def test_port_imports_without_jax():
         "for m in ('serving.server', 'serving.run', 'ops.conv_variants',\n"
         "          'ops.attention_variants', 'tools.attn_variants',\n"
         "          'tools.attn_sublane', 'tools.pv_transpose',\n"
-        "          'tools.conv_shift_cost', 'tools.stream_pipeline'):\n"
+        "          'tools.conv_shift_cost', 'tools.stream_pipeline',\n"
+        "          'client.mock_model', 'weights.loader',\n"
+        "          'schedulers.base', 'schedulers.ddim',\n"
+        "          'schedulers.dpm_solver', 'schedulers.euler_ancestral',\n"
+        "          'schedulers.lms', 'schedulers.pndm'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)
