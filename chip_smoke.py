@@ -111,7 +111,27 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                /inpaint of the second) byte-equal, walls side by side, and
                a --mock server with no card visible; every process stopped;
                the directory removed;
-  6e. run_flags
+  6e. deep_cache
+               DeepCache at full width through the request handler, as
+               phase 4 (the replay bit-identical, replies checked, each
+               kernel's launches against the stamp's schedule of full and
+               shallow model calls): interval 2 on the default model at
+               256^2 / 20 steps, the FSSF pattern on a default model at
+               512^2 / 4; each first stamp's mean and max u8 distance to
+               the exact schedule's, a full and a shallow UNet eval's ms;
+               a stroke session under FSSF at 256^2 / 4 (the session's
+               requests), its fetched canvas byte-equal to the host oracle;
+  6f. f32      --f32-final-step at 256^2 / 20 (the last model call on the
+               fp32 module legs over the bf16 weights upcast) and
+               --f32-components unet at 256^2 / 4, as phase 4 with the fp32
+               twins' launches (K7, K4, K2; K1, K3, K14, K4, K2) checked
+               apart from the bf16 ones; each first stamp's distance to the
+               all-fp32-UNet stamp beside the bf16 stamp's, at 20 and 4
+               steps; then `serving.run --deep-cache-interval 2
+               --f32-final-step --warmup-points 256x20x2` in a process of
+               its own, its first websocket reply byte-equal to the
+               in-process model's;
+  6g. run_flags
                servers assembled by serving/run.py build_server on
                loopback: a cold one (--no-warmup) and a warmed one
                (--warmup-points 256x4,512x4: the warm-up seconds), each
@@ -1103,95 +1123,153 @@ def compare(kind, shape_key, dtype, gen, timed=False):
     return out
 
 
-def attention_launches(model, res, steps):
-    """Launches of K2, K8 and K13 in one stamp of `model` at `res`, from its
-    configuration and the routing rules: the UNet's self-attentions per
-    eval and level, and the VAE's two mid-block attentions (encoder and
-    decoder, at the latent size). Cross-attention (14 tokens) is plain."""
+def unet_eval_launches(ucfg, lat, dtype, kind="full"):
+    """Launches of each kernel in one UNet eval (the CFG batch of 3) of
+    configuration `ucfg` in `dtype` at latent size `lat`: kind "full" (the
+    whole UNet: forward, forward_full) or "shallow" (forward_shallow: the
+    outermost down level's resnets and transformers, the outermost up
+    level's and the head, against the cache). Self-attention goes to K2,
+    K8 or K13 by the routing rules; cross-attention (14 tokens) is plain."""
     from diffusiontexturepainting_torch.ops.attention import (
         attention_route,
         slotted_self_attention_fits,
     )
 
-    u, v = model.unet.cfg, model.vae_encoder.cfg
-    lat = res // 8
+    n_u, L = len(ucfg.block_out_channels), ucfg.layers_per_block
+    fused = ucfg.fused_resnet
+    out = Counter()
+    if kind == "full":
+        plain, skip = n_u * L + 2, n_u * (L + 1)  # down path and mid; up
+        # (level, self-attentions there): each level's transformers, the
+        # mid block's at the deepest level
+        sites = [(i, 2 * L + 1) for i in range(n_u) if ucfg.attn_down[i]]
+        sites.append((n_u - 1, 1))
+        out["upsample2x_conv3x3"] = n_u - 1
+    else:
+        plain, skip = L, L + 1
+        sites = [(0, 2 * L + 1)] if ucfg.attn_down[0] else []
+    transformers = sum(calls for _, calls in sites)
+    out["conv3x3"] = 0 if fused else 2 * (plain + skip)
+    # an up-path resnet's un-concatenated input: three K1 calls, two
+    # statistics passes
+    out["gn_conv_resident"] = 2 * plain + 3 * skip if fused else 0
+    out["ff_geglu"] = transformers if ucfg.fused_ff else 0
+    # statistics passes: each fused resnet's input parts, or, where the
+    # transformers fold their GroupNorm without a resnet's statistics,
+    # each transformer's input
+    out["spatial_moments"] = (plain + 2 * skip if fused else transformers
+                              if ucfg.fused_norm else 0)
     kernel = {"flash": "flash_attention",
               "streaming": "flash_attention_streaming", "plain": None}
-    out = Counter()
-
-    def site(length, channels, heads, calls, slotted):
-        hd = channels // heads
-        if slotted and slotted_self_attention_fits(length, length, hd):
+    for level, calls in sites:
+        length = (lat >> level) ** 2
+        hd = ucfg.block_out_channels[level] // ucfg.num_attention_heads
+        if ucfg.fused_attn and slotted_self_attention_fits(length, length,
+                                                           hd):
             out["flash_attention_slotted"] += calls
-            return
-        name = kernel[attention_route(length, length, hd, model.dtype)]
+            continue
+        name = kernel[attention_route(length, length, hd, dtype)]
         if name:
             out[name] += calls
-    heads, L = u.num_attention_heads, u.layers_per_block
-    for i, ch in enumerate(u.block_out_channels):
-        if u.attn_down[i]:
-            site((lat >> i) ** 2, ch, heads, steps * (2 * L + 1),
-                 u.fused_attn)
-    n = len(u.block_out_channels) - 1
-    site((lat >> n) ** 2, u.block_out_channels[-1], heads, steps,
-         u.fused_attn)
-    site(lat * lat, v.block_out_channels[-1], 1, 2, False)
     return out
 
 
-def expected_per_stamp(model, res, steps, in_pad=False):
-    """Launches of each kernel in one stamp of `model`, from its
-    configuration; `in_pad`: under the _IN_PAD switch, K12a/b take K7's and
-    K4's calls. The UNet runs once a model call of the configuration's
-    scheduler at `steps` (PNDM: steps + 1)."""
-    steps = model._stamp_fn(steps).scheduler.num_iterations()
-    c = model.config
-    u, v = model.unet.cfg, model.vae_encoder.cfg
-    n_u, n_v = len(u.block_out_channels), len(v.block_out_channels)
-    L, Lv = u.layers_per_block, v.layers_per_block
-    plain_resnets = n_u * L + 2          # down path and mid: no skip
-    skip_resnets = n_u * (L + 1)         # up path: skip un-concatenated
-    transformers = sum(u.attn_down) * (2 * L + 1) + 1
-    enc_resnets, dec_resnets = n_v * Lv + 2, n_v * (Lv + 1) + 2
-    fused_unet, fused_enc, fused_dec = (c.fused_unet_resnet,
-                                        c.fused_vae_encoder,
-                                        c.fused_vae_decoder)
-    unet_convs = 2 * (plain_resnets + skip_resnets)
-    attn = attention_launches(model, res, steps)
-    # statistics passes (stats_of) per UNet eval: each fused resnet's input,
-    # both parts of an up-path resnet's un-concatenated input, and, where
-    # the transformers fold their GroupNorm but the resnets do not hand
-    # them statistics, each transformer's input; per VAE: the encoder's
-    # stem and mid block, the decoder's conv_in and mid block
-    unet_moments = ((plain_resnets + 2 * skip_resnets) if fused_unet
-                    else transformers if c.fused_unet_norm else 0)
-    convs = ((0 if fused_unet else steps * unet_convs)
-             + (0 if fused_enc else 2 * enc_resnets)
-             + (0 if fused_dec else 2 * dec_resnets))
-    upconvs = steps * (n_u - 1) + (0 if fused_dec else n_v - 1)
-    return {
-        "conv3x3": 0 if in_pad else convs,
-        "upsample2x_conv3x3": 0 if in_pad else upconvs,
-        "conv3x3_inpad": convs if in_pad else 0,
-        "upsample2x_conv3x3_inpad": upconvs if in_pad else 0,
-        "conv3x3_stream": 0,
-        "gn_silu_conv3x3": 0,
-        "flash_attention": attn["flash_attention"],
-        "gn_conv_resident": steps * (2 * plain_resnets + 3 * skip_resnets)
-        if fused_unet else 0,
-        "ff_geglu": steps * transformers if c.fused_unet_ff else 0,
-        "gn_conv_stream": (2 * enc_resnets + 1 if fused_enc else 0)
-        + (2 * dec_resnets + 1 if fused_dec else 0),
-        "upconv_stream": n_v - 1 if fused_dec else 0,
-        "flash_attention_streaming": attn["flash_attention_streaming"],
-        "flash_attention_slotted": attn["flash_attention_slotted"],
-        "downsample_conv3x3_stats": n_v - 1 if fused_enc else 0,
-        "spatial_moments": steps * unet_moments + 2 * fused_enc
-        + 2 * fused_dec,
-        # the arms run on paths of their own (attn_arms, slotted_arm,
-        # pv_product, conv_arms)
-        **{name: 0 for name in ARMS + (SLOTTED_ARM, PV, TAPS, PIPE)},
-    }
+def vae_launches(config, vcfg, lat, part, dtype):
+    """Launches of each kernel in one VAE encode (`part` "encoder", batch
+    2) or decode ("decoder") of a stamp at latent size `lat`, with the
+    configuration's legs, in `dtype`."""
+    from diffusiontexturepainting_torch.ops.attention import attention_route
+
+    n_v, Lv = len(vcfg.block_out_channels), vcfg.layers_per_block
+    out = Counter()
+    if part == "encoder":
+        resnets, fused = n_v * Lv + 2, config.fused_vae_encoder
+        if fused:
+            out["downsample_conv3x3_stats"] = n_v - 1
+    else:
+        resnets, fused = n_v * (Lv + 1) + 2, config.fused_vae_decoder
+        out["upconv_stream" if fused else "upsample2x_conv3x3"] = n_v - 1
+    if fused:  # the stem or conv_in, then two GN-convs a resnet
+        out["gn_conv_stream"] = 2 * resnets + 1
+        out["spatial_moments"] = 2  # the stem and the mid block
+    else:
+        out["conv3x3"] = 2 * resnets
+    # the mid block's attention, one head at the latent size
+    route = attention_route(lat * lat, lat * lat, vcfg.block_out_channels[-1],
+                            dtype)
+    if route != "plain":
+        out["flash_attention" if route == "flash"
+            else "flash_attention_streaming"] += 1
+    return out
+
+
+def _dtype_name(module):
+    return str(next(module.parameters()).dtype).removeprefix("torch.")
+
+
+def expected_launches(model, res, steps):
+    """{(kernel, dtype name): launches} of one stamp of `model` at `res`
+    and `steps`, from its configuration and the schedule of its stamp
+    function (stamp.schedule: the scheduler's model calls, PNDM steps + 1,
+    each exact or full, shallow, or the f32 final step's eval on
+    final_unet), plus the VAE encode and decode in their dtypes."""
+    import torch
+
+    lat = res // 8
+    u_dt = next(model.unet.parameters()).dtype
+    parts = []
+    for kind in model._stamp_fn(steps).schedule:
+        if kind == "final":
+            parts.append((unet_eval_launches(model.final_unet.cfg, lat,
+                                             torch.float32), "float32"))
+        else:
+            parts.append((unet_eval_launches(
+                model.unet.cfg, lat, u_dt,
+                "shallow" if kind == "shallow" else "full"),
+                str(u_dt).removeprefix("torch.")))
+    for part in ("encoder", "decoder"):
+        vae = getattr(model, f"vae_{part}")
+        parts.append((vae_launches(model.config, vae.cfg, lat, part,
+                                   next(vae.parameters()).dtype),
+                      _dtype_name(vae)))
+    out = Counter()
+    for counts, dt in parts:
+        for name, n in counts.items():
+            out[name, dt] += n
+    return out
+
+
+def attention_launches(model, res, steps):
+    """Launches of K2, K8 and K13 in one stamp of `model` at `res` whose
+    UNet runs `steps` full evals, all in model.dtype: the UNet's
+    self-attentions per eval and level, and the VAE's two mid-block
+    attentions (encoder and decoder, at the latent size)."""
+    lat = res // 8
+    out = Counter()
+    counts = [(unet_eval_launches(model.unet.cfg, lat, model.dtype), steps)]
+    counts += [(vae_launches(model.config, model.vae_encoder.cfg, lat, part,
+                             model.dtype), 1)
+               for part in ("encoder", "decoder")]
+    for c, times in counts:
+        for name, n in c.items():
+            if name.startswith("flash") and n:
+                out[name] += n * times
+    return out
+
+
+def expected_per_stamp(model, res, steps, in_pad=False, dtype=None):
+    """Launches of each kernel in one stamp of `model` (expected_launches),
+    of every dtype or of `dtype` ("float32": the FMA twins) alone; `in_pad`:
+    under the _IN_PAD switch, K12a/b take K7's and K4's calls."""
+    out = {name: 0 for name in SOURCES}
+    for (name, dt), n in expected_launches(model, res, steps).items():
+        if dtype is None or dt == dtype:
+            out[name] += n
+    if in_pad:
+        out["conv3x3_inpad"] += out.pop("conv3x3")
+        out["upsample2x_conv3x3_inpad"] += out.pop("upsample2x_conv3x3")
+        out["conv3x3"] = out["upsample2x_conv3x3"] = 0
+    return out
 
 
 def check_reply(reply, want_type, res=RES, canvas=None):
@@ -1279,16 +1357,33 @@ def run_path(label, model, steps, res=RES):
 
 
 def check_counts(label, model, steps, launches, n_stamps, res=RES,
-                 in_pad=False):
+                 in_pad=False, dtypes=None):
+    """Each kernel's launches in `n_stamps` stamps against
+    expected_per_stamp; with `dtypes` ({kernel: {dtype name: launches}}),
+    the fp32 launches (the FMA twins) against its fp32 part too."""
     want = {k: n_stamps * v for k, v in
             expected_per_stamp(model, res, steps, in_pad).items()}
+    want32 = {k: n_stamps * v for k, v in
+              expected_per_stamp(model, res, steps, in_pad,
+                                 "float32").items()}
     for name in want:
+        got32 = None if dtypes is None else dtypes[name].get("float32", 0)
         log(f"{label} counts: {name}: {launches[name]} launches in "
             f"{n_stamps} stamps, expected {want[name]} "
-            f"({want[name] // n_stamps} per stamp)")
+            f"({want[name] // n_stamps} per stamp)"
+            + ("" if got32 is None else
+               f"; fp32 {got32}, expected {want32[name]}"))
         if launches[name] != want[name]:
             raise AssertionError(f"{label}: {name}: {launches[name]} "
                                  f"launches, expected {want[name]}")
+        if got32 is not None and got32 != want32[name]:
+            raise AssertionError(f"{label}: {name}: {got32} fp32 launches, "
+                                 f"expected {want32[name]}")
+
+
+def launch_dtypes():
+    """{kernel: {dtype name: launches}} since the counters' last reset."""
+    return {c.name: dict(c.dtypes) for c in counters()}
 
 
 def first_stamp_at(model, steps, res=RES):
@@ -1304,9 +1399,10 @@ def first_stamp_at(model, steps, res=RES):
     return check_reply(reply, R.RETURN_STAMP, res, canvas)
 
 
-def compare_stamps(label, ours, theirs, what, exact=False):
-    """The two first stamps within MAX_MEAN_DIFF u8 levels on average, or
-    byte-equal where `exact`."""
+def compare_stamps(label, ours, theirs, what, exact=False,
+                   bound=MAX_MEAN_DIFF):
+    """The two first stamps within `bound` u8 levels on average (None: no
+    bound, a distance printed), or byte-equal where `exact`."""
     diff = abs(ours.astype(int) - theirs.astype(int))
     log(f"{label}: first stamps of {what}: mean |diff| {diff.mean():.3f} u8 "
         f"levels, max {diff.max()}, {(diff == 0).mean():.4f} exact, "
@@ -1314,9 +1410,10 @@ def compare_stamps(label, ours, theirs, what, exact=False):
         "within 16")
     if exact and diff.max() != 0:
         raise AssertionError(f"{label}: {what} are not byte-equal")
-    if not diff.mean() <= MAX_MEAN_DIFF:
+    if bound is not None and not diff.mean() <= bound:
         raise AssertionError(f"{label}: {what} differ by {diff.mean():.3f} "
                              "levels on average")
+    return diff
 
 
 def serve_phase(model):
@@ -1694,6 +1791,48 @@ def checkpoint_phase(model):
     return dict(bytes=nbytes, save_s=save_s, reload_s=reload_s)
 
 
+RUN_ENTRY = [sys.executable, "-m",
+             "diffusiontexturepainting_torch.serving.run", "--host",
+             "127.0.0.1"]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def health(port, proc, deadline):
+    """The /health JSON of the server process `proc` on `port`, polled
+    until time.perf_counter() passes `deadline`."""
+    import urllib.request
+
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"cli: the server on {port} exited "
+                                 f"with {proc.returncode}")
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/health", timeout=5) as r:
+                return json.loads(r.read())
+        except OSError:
+            time.sleep(0.5)
+    raise AssertionError(f"cli: no /health on {port} in time")
+
+
+def stop(procs):
+    for proc in procs:
+        proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
 def cli_phase(directory):
     """The entry point as a user starts it, in processes of its own:
     `python -m diffusiontexturepainting_torch.serving.run --checkpoint_dir
@@ -1704,38 +1843,16 @@ def cli_phase(directory):
     over POST /inpaint of the second: byte-equal, walls side by side. Every
     process is stopped before this returns."""
     import os
-    import socket
-    import urllib.request
 
     import numpy as np
     from websockets.sync.client import connect
 
     from diffusiontexturepainting_torch.serving import wire
 
-    def free_port():
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            return sock.getsockname()[1]
-
-    def health(port, proc, deadline):
-        while time.perf_counter() < deadline:
-            if proc.poll() is not None:
-                raise AssertionError(f"cli: the server on {port} exited "
-                                     f"with {proc.returncode}")
-            try:
-                with urllib.request.urlopen(
-                        f"http://127.0.0.1:{port}/health", timeout=5) as r:
-                    return json.loads(r.read())
-            except OSError:
-                time.sleep(0.5)
-        raise AssertionError(f"cli: no /health on {port} in time")
-
     R = wire.RequestType
     _, canvas = requests()
     req = wire.encode_request(R.NEW_STAMP, canvas, **settings(STEPS))
     root = os.path.dirname(os.path.abspath(__file__))
-    entry = [sys.executable, "-m", "diffusiontexturepainting_torch.serving.run",
-             "--host", "127.0.0.1"]
     flags = [["--checkpoint_dir", directory, "--scheduler", "EulerA",
               "--warmup-points", f"{RES}x{STEPS}"],
              ["--scheduler", "EulerA", "--no-warmup"],
@@ -1752,7 +1869,8 @@ def cli_phase(directory):
                 env["CUDA_VISIBLE_DEVICES"] = ""
             logs.append(open(os.path.join(directory, f"cli{k}.log"), "w+"))
             procs.append(subprocess.Popen(
-                entry + ["--port", str(port)] + flags[k], cwd=root, env=env,
+                RUN_ENTRY + ["--port", str(port)] + flags[k], cwd=root,
+                env=env,
                 stdout=logs[-1], stderr=subprocess.STDOUT))
         infos = [health(p, proc, tic + 600)["model"]
                  for p, proc in zip(ports, procs)]
@@ -1793,14 +1911,7 @@ def cli_phase(directory):
             log(f"cli: {f.name}: " + f.read()[-3000:])
         raise
     finally:
-        for proc in procs:
-            proc.terminate()
-        for proc in procs:
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
+        stop(procs)
         for f in logs:
             f.close()
 
@@ -1946,6 +2057,224 @@ def run_flags_phase():
         served.close()
         shutil.rmtree(scratch, ignore_errors=True)
     return walls
+
+
+def unet_eval_ms(model, res, kind):
+    """CUDA-event ms of one UNet eval of `model` at `res` (the CFG batch of
+    3, t 500, seeded inputs): "full" (forward_full), "shallow"
+    (forward_shallow on that eval's cache) or "final" (final_unet, fp32)."""
+    import torch
+
+    lat = res // 8
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.inference_mode():
+        x = torch.randn((3, lat, lat, 9), generator=gen, device="cuda")
+        t = torch.full((3,), 500.0, device="cuda")
+        ctx = torch.randn((3, 14, model.unet.cfg.cross_attention_dim),
+                          generator=gen, device="cuda")
+        _, cache = model.unet.forward_full(x, t, ctx)
+        fn = {"full": lambda: model.unet.forward_full(x, t, ctx),
+              "shallow": lambda: model.unet.forward_shallow(x, t, ctx,
+                                                            cache),
+              "final": lambda: model.final_unet(x, t, ctx)}[kind]
+        return cuda_ms(fn, budget_s=1.0)
+
+
+def deep_cache_session(model):
+    """The session's requests (session_requests: STAMP_ATs, one with
+    pixels, an erase, FETCH_CANVAS) through the request handler at the
+    model's operating point; the fetched canvas byte-equal to the host
+    oracle, whose per-request stamps run the same schedule at the same
+    counters. Returns (launches, shapes, dtypes, stamps)."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.serving import wire
+
+    canvas, reqs = session_requests()
+    counter = model.request_counter
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    tic = time.perf_counter()
+    replies = [wire.handle_request_bytes(model, raw) for raw in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    shapes = {c.name: dict(c.shapes) for c in counters()}
+    dtypes = launch_dtypes()
+    fetched = wire.decode_response(replies[-2])[1]
+    want, _, _ = session_oracle(model, canvas, counter + 1)
+    model.request_counter = counter + len(SESSION_STAMPS)
+    if not np.array_equal(fetched, want):
+        raise AssertionError(f"deep_cache: the session's canvas differs from"
+                             f" the host oracle in "
+                             f"{int((fetched != want).sum())} bytes")
+    log(f"deep_cache: a stroke session ({len(SESSION_STAMPS)} STAMP_ATs, "
+        f"an erase, FETCH_CANVAS) under DeepCache "
+        f"{model.config.deep_cache_interval} at {RES}^2 / {FEW_STEPS} steps "
+        f"in {wall * 1e3:.1f} ms; the fetched {canvas.shape} canvas "
+        "byte-equal to the host oracle")
+    return launches, shapes, dtypes, len(SESSION_STAMPS)
+
+
+def deep_cache_phase(model, weights, drive, paths):
+    """DeepCache through the request handler at full width: interval 2 on
+    the default model at 256^2 / 20 (set_deep_cache), the FSSF pattern on a
+    default model at 512^2 / 4 built from `weights`; each path as phase 4
+    (replay bit-identical, replies checked, launches against the schedule),
+    its first stamp's distance to the exact one, a full and a shallow UNet
+    eval's ms; then an FSSF stroke session on the 256^2 model."""
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+
+    brush, _ = requests()
+
+    def point(label, m, steps, res, spec):
+        m.set_brush(brush)
+        m.set_deep_cache(1)
+        exact = first_stamp_at(m, steps, res)
+        m.set_deep_cache(spec)
+        m.request_counter = 0  # run_path's counters start from 0
+        first = drive(label, m, steps, res)
+        log(f"{label}: model calls of a stamp: "
+            + " ".join(m._stamp_fn(steps).schedule))
+        compare_stamps(label, first, exact, f"DeepCache {spec} and the "
+                       f"exact schedule at {res}^2 / {steps} steps",
+                       bound=None)
+        full, shallow = (unet_eval_ms(m, res, k) for k in ("full",
+                                                           "shallow"))
+        log(f"{label}: UNet eval at {res}^2 (batch 3): full "
+            f"{full:.2f} ms, shallow {shallow:.2f} ms (CUDA events, eager; "
+            f"{CARD[0]})")
+
+    tic = time.perf_counter()
+    try:
+        point("deep_cache", model, STEPS, RES, 2)
+        model.set_deep_cache("FSSF")
+        launches, shapes, dtypes, n = deep_cache_session(model)
+        check_counts("deep_cache_session", model, FEW_STEPS, launches, n,
+                     dtypes=dtypes)
+        paths["deep_cache_session"] = dict(
+            launches=launches, shapes=shapes, dtypes=dtypes, stamps=n,
+            steps=FEW_STEPS, res=RES)
+    finally:
+        model.set_deep_cache(1)
+    m512 = TorchConditionalInpainter(SLOTTED_RES, device="cuda",
+                                     weights=weights)
+    point("deep_cache_fssf", m512, FEW_STEPS, SLOTTED_RES, "FSSF")
+    del m512
+    release()
+    log(f"deep_cache: phase done in {time.perf_counter() - tic:.1f} s")
+
+
+def f32_phase(model, weights, drive):
+    """The f32 operating points at full width: --f32-final-step at 256^2
+    / 20 and --f32-components unet at 256^2 / 4, each as phase 4 with the
+    fp32 twins' launches checked apart; each first stamp's distance to the
+    all-fp32-UNet stamp beside the bf16 stamp's; the final fp32 eval's ms;
+    then serving.run with --deep-cache-interval 2 --f32-final-step
+    --warmup-points 256x20x2 in a process of its own, its first websocket
+    reply byte-equal to the in-process model's."""
+    import torch
+
+    from diffusiontexturepainting_torch.core.config import PipelineConfig
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+
+    tic = time.perf_counter()
+    brush, _ = requests()
+    final = TorchConditionalInpainter(
+        RES, config=PipelineConfig(f32_final_step=True), device="cuda",
+        weights=weights)
+    final_first = drive("f32_final_step", final, STEPS, RES)
+    f32unet = TorchConditionalInpainter(
+        RES, device="cuda", weights=weights,
+        dtype_overrides={"unet": torch.float32})
+    f32_first = drive("f32_unet", f32unet, FEW_STEPS, RES)
+    log(f"f32: UNet eval at {RES}^2 (batch 3): bf16 full "
+        f"{unet_eval_ms(model, RES, 'full'):.2f} ms, fp32 final step "
+        f"{unet_eval_ms(final, RES, 'final'):.2f} ms, fp32 UNet "
+        f"{unet_eval_ms(f32unet, RES, 'full'):.2f} ms (CUDA events, eager; "
+        f"{CARD[0]})")
+    refs = {FEW_STEPS: f32_first}
+    f32unet.set_brush(brush)
+    refs[STEPS] = first_stamp_at(f32unet, STEPS)
+    del f32unet
+    release()
+    for steps in (STEPS, FEW_STEPS):
+        for m in (model, final):
+            m.set_brush(brush)
+        ours = {"bf16": first_stamp_at(model, steps),
+                "f32 final step": (final_first if steps == STEPS
+                                   else first_stamp_at(final, steps))}
+        for what, stamp in ours.items():
+            compare_stamps("f32", stamp, refs[steps], f"the {what} stamp "
+                           f"and the all-fp32-UNet stamp at {RES}^2 / "
+                           f"{steps} steps", bound=None)
+    cli_operating_point(final)
+    del final
+    release()
+    log(f"f32: phase done in {time.perf_counter() - tic:.1f} s")
+
+
+def cli_operating_point(model):
+    """`serving.run --deep-cache-interval 2 --f32-final-step
+    --warmup-points 256x20x2` in a process of its own (the seeded random
+    weights `model` was built from); its first NEW_STAMP over the websocket
+    byte-equal to `model`'s (f32_final_step, DeepCache 2 set, the neutral
+    brush) at the same request counter. The process is stopped before this
+    returns."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from websockets.sync.client import connect
+
+    from diffusiontexturepainting_torch.serving import wire
+
+    R = wire.RequestType
+    _, canvas = requests()
+    req = wire.encode_request(R.NEW_STAMP, canvas, **settings(STEPS))
+    flags = ["--deep-cache-interval", "2", "--f32-final-step",
+             "--warmup-points", f"{RES}x{STEPS}x2"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    logf = tempfile.TemporaryFile("w+")
+    tic = time.perf_counter()
+    proc = subprocess.Popen(RUN_ENTRY + ["--port", str(port)] + flags,
+                            cwd=root, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        info = health(port, proc, tic + 600)["model"]
+        ready = time.perf_counter() - tic
+        with connect(f"ws://127.0.0.1:{port}/websocket/", max_size=None,
+                     open_timeout=60) as ws:
+            t0 = time.perf_counter()
+            ws.send(req)
+            got = ws.recv(timeout=600)
+            wall = time.perf_counter() - t0
+        check_reply(got, R.RETURN_STAMP, RES, canvas)
+        model.set_deep_cache(2)
+        model.set_brush(np.full((RES, RES, 3), 0.5, np.float32))
+        model.request_counter = 0
+        want = wire.handle_request_bytes(model, req)
+        if got != want:
+            raise AssertionError("cli: the serving.run process's reply "
+                                 "differs from the in-process model's")
+        log(f"cli: `serving.run {' '.join(flags)}` ({info}) answered "
+            f"/health {ready:.1f} s after it was started; its first "
+            f"NEW_STAMP ({RES}^2, {STEPS} steps: "
+            + " ".join(model._stamp_fn(STEPS).schedule)
+            + f") over the websocket {wall * 1e3:.1f} ms wall, byte-equal "
+            f"to the in-process model's ({CARD[0]})")
+    except Exception:
+        logf.seek(0)
+        log("cli: serving.run log: " + logf.read()[-3000:])
+        raise
+    finally:
+        stop([proc])
+        logf.close()
+        model.set_deep_cache(1)
 
 
 def resnet_bodies_phase(model, twin_shapes, twin_stamps):
@@ -3355,6 +3684,10 @@ def kernels_phase(gen, paths):
             "launches": run["launches"][name],
             "launches_by_path": {p: paths[p]["launches"][name]
                                  for p in paths},
+            # the FMA twins' share, where a path launched any
+            "fp32_launches_by_path": {
+                p: paths[p]["dtypes"][name]["float32"] for p in paths
+                if paths[p].get("dtypes", {}).get(name, {}).get("float32")},
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_fp32": errs[torch.float32],
             "max_err_over_tol": worst[torch.bfloat16],
@@ -3721,9 +4054,10 @@ def main() -> int:
 
     def drive(label, model, steps, res, in_pad=False):
         first, launches, shapes, n = run_path(label, model, steps, res)
-        check_counts(label, model, steps, launches, n, res, in_pad)
-        paths[label] = dict(launches=launches, shapes=shapes, stamps=n,
-                            steps=steps, res=res)
+        dtypes = launch_dtypes()
+        check_counts(label, model, steps, launches, n, res, in_pad, dtypes)
+        paths[label] = dict(launches=launches, shapes=shapes, dtypes=dtypes,
+                            stamps=n, steps=steps, res=res)
         return first
 
     log("default: requests routed through diffusiontexturepainting_torch."
@@ -3774,6 +4108,8 @@ def main() -> int:
     tic = time.perf_counter()
     checkpoint_phase(model)
     log(f"checkpoint: phase done in {time.perf_counter() - tic:.1f} s")
+    deep_cache_phase(model, weights, drive, paths)
+    f32_phase(model, weights, drive)
     del model
     release()
     tic = time.perf_counter()

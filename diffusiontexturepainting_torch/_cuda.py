@@ -38,20 +38,25 @@ build_reports: dict[str, str] = {}
 
 
 class LaunchCounter:
-    """Counts a wrapper's kernel launches, in all and by shape."""
+    """Counts a wrapper's kernel launches, in all, by shape and by the
+    dtype of the launch ("bfloat16", "float32": which source ran)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
         self.shapes: Counter = Counter()
+        self.dtypes: Counter = Counter()
 
-    def record(self, shape_key) -> None:
+    def record(self, shape_key, dtype=None) -> None:
         self.launches += 1
         self.shapes[shape_key] += 1
+        if dtype is not None:
+            self.dtypes[str(dtype).removeprefix("torch.")] += 1
 
     def reset(self) -> None:
         self.launches = 0
         self.shapes = Counter()
+        self.dtypes = Counter()
 
 
 def _nvcc() -> str:

@@ -3,7 +3,8 @@
 The same values, under the same names, as the JAX package's core/config.py
 (tests/test_torch_port_wire.py holds every field here equal to its
 counterpart there). The fused execution switches are kept, with the JAX
-package's defaults; the port runs the exact DDIM path only.
+package's defaults, and so are the operating points: DeepCache by interval
+or by pattern (`parse_deep_cache_spec`) and the f32 final step.
 """
 
 from __future__ import annotations
@@ -100,6 +101,17 @@ class PipelineConfig:
     texture_guidance_steps: int = 20
     context_pad: int = 150
     seed: int = 42
+    # DeepCache: the full UNet every `deep_cache_interval`-th model call, the
+    # outermost level against the cached deep feature in between (1: off,
+    # exact). A uniform interval applies to requests of at least
+    # deep_cache_min_steps steps; an 'F'/'S' pattern such as 'FSSF' pins
+    # each model call, applies exactly where the scheduler's model calls
+    # number its length (PNDM: steps + 1) and bypasses the gate.
+    deep_cache_interval: int | str = 1
+    deep_cache_min_steps: int = 8
+    # The final model call's UNet eval in fp32 (the module legs over the
+    # serving weights, upcast); the other calls as configured.
+    f32_final_step: bool = False
     # Fused execution, the default as in the JAX package: the VAE as chained
     # GroupNorm-conv kernels (K5, K6), the UNet's resnets (K1), feed-forwards
     # (K3) and folded Transformer2D norms. All False is the "safe twin":
@@ -112,6 +124,27 @@ class PipelineConfig:
     # Head-slotted UNet self-attention (kernel K13), off by default as in
     # the JAX package.
     fused_unet_attn: bool = False
+
+
+def parse_deep_cache_spec(value):
+    """A DeepCache spec from an int or from text: an interval >= 1, or an
+    'F'/'S' pattern starting with 'F' (upper-cased). Raises ValueError
+    otherwise, an interval below 1 included, which the JAX package's parser
+    accepts and then serves as 1. Whether a pattern's length matches a
+    scheduler is the stamp function's check."""
+    text = str(value).strip()
+    if isinstance(value, int) or text.lstrip("+-").isdigit():
+        interval = value if isinstance(value, int) else int(text)
+        if interval < 1 or isinstance(value, bool):
+            raise ValueError(f"DeepCache interval {value!r}: must be an "
+                             "int >= 1 (1 is off)")
+        return interval
+    pattern = text.upper()
+    if not pattern or set(pattern) - {"F", "S"} or pattern[0] != "F":
+        raise ValueError(
+            f"DeepCache spec {value!r}: expected an int interval >= 1 or an "
+            "'F'/'S' pattern starting with 'F'")
+    return pattern
 
 
 def safe_twin_config(config: PipelineConfig = PipelineConfig()
@@ -131,6 +164,8 @@ def slotted_config(config: PipelineConfig = PipelineConfig()
 
 
 CONFIG_NAMES = ("default", "safe_twin", "slotted")
+# the serving model's components, the names --f32-components takes
+COMPONENTS = ("unet", "vae_encoder", "vae_decoder", "patch_encoder")
 
 
 def pipeline_config(name: str) -> PipelineConfig:

@@ -1,7 +1,10 @@
 """SD-1.5 inpainting UNet (9-channel input), NHWC.
 
-Port of diffusiontexturepainting_tpu/models/unet.py (`__call__` only; the
-DeepCache forwards come later). Submodule names follow diffusers'
+Port of diffusiontexturepainting_tpu/models/unet.py: `forward` (the JAX
+`__call__`) and the DeepCache forwards under the JAX names, `forward_full`
+(the noise and the cache, the last upsample's output) and `forward_shallow`
+(the outermost level against a cache), built from the same pieces
+(`_temb`, `_level0`, `_level_last_up`). Submodule names follow diffusers'
 UNet2DConditionModel, so the state_dict converts with
 weights/convert.py convert_unet. UNetConfig's fused_resnet / fused_ff /
 fused_norm / fused_attn choose the serving legs of the resnets and
@@ -121,23 +124,53 @@ class UNet2DCondition(nn.Module):
         h = resnet(h, temb, skip=skip)
         return attn(h, ctx) if attn is not None else h
 
+    def _temb(self, timestep, batch, device):
+        """The projected time embedding of (B,) or scalar timesteps."""
+        cfg = self.cfg
+        t = torch.as_tensor(timestep, dtype=torch.float32,
+                            device=device).reshape(-1)
+        t = t.expand(batch) if t.shape[0] != batch else t
+        temb = timestep_embedding(t, cfg.block_out_channels[0],
+                                  cfg.flip_sin_to_cos, cfg.freq_shift)
+        return self.time_embedding(temb.to(self.conv_in.weight.dtype))
+
+    def _level0(self, sample, temb, ctx):
+        """conv_in and the outermost down level's resnets and transformers
+        (not its downsample): (h, skips), what the shallow forward shares
+        with the full one."""
+        h = self.conv_in(sample.to(self.conv_in.weight.dtype))
+        skips = [h]
+        level = self.down_blocks[0]
+        for j, res in enumerate(level.resnets):
+            h = self._res_attn(res, _attn(level, j), h, temb, ctx)
+            skips.append(h)
+        return h, skips
+
+    def _level_last_up(self, h, skips, temb, ctx):
+        """The outermost up level and the output head: (B, H, W, 4) fp32."""
+        level = self.up_blocks[-1]
+        for j, res in enumerate(level.resnets):
+            h = self._res_attn(res, _attn(level, j), h, temb, ctx,
+                               skip=skips.pop())
+        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return h.float()
+
     def forward(self, sample, timestep, encoder_hidden_states):
         """(B, H, W, 9), t (scalar or (B,)), (B, L, D) -> (B, H, W, 4)
         predicted noise in fp32."""
-        cfg = self.cfg
-        dt = self.conv_in.weight.dtype
-        ctx = encoder_hidden_states.to(dt)
-        b = sample.shape[0]
-        t = torch.as_tensor(timestep, dtype=torch.float32,
-                            device=sample.device).reshape(-1)
-        t = t.expand(b) if t.shape[0] != b else t
-        temb = timestep_embedding(t, cfg.block_out_channels[0],
-                                  cfg.flip_sin_to_cos, cfg.freq_shift)
-        temb = self.time_embedding(temb.to(dt))
+        return self.forward_full(sample, timestep, encoder_hidden_states)[0]
 
-        h = self.conv_in(sample.to(dt))
-        skips = [h]
-        for level in self.down_blocks:
+    def forward_full(self, sample, timestep, encoder_hidden_states):
+        """forward's noise and the DeepCache feature: the tensor entering
+        the outermost up level (the last upsample's output, (B, H, W,
+        block_out_channels[-2]) in the module's dtype)."""
+        ctx = encoder_hidden_states.to(self.conv_in.weight.dtype)
+        temb = self._temb(timestep, sample.shape[0], sample.device)
+        h, skips = self._level0(sample, temb, ctx)
+        if hasattr(self.down_blocks[0], "downsamplers"):
+            h = self.down_blocks[0].downsamplers[0](h)
+            skips.append(h)
+        for level in self.down_blocks[1:]:
             for j, res in enumerate(level.resnets):
                 h = self._res_attn(res, _attn(level, j), h, temb, ctx)
                 skips.append(h)
@@ -149,15 +182,23 @@ class UNet2DCondition(nn.Module):
         h = self._res_attn(mid.resnets[0], mid.attentions[0], h, temb, ctx)
         h = mid.resnets[1](h, temb)
 
-        for level in self.up_blocks:
+        for level in self.up_blocks[:-1]:
             for j, res in enumerate(level.resnets):
                 h = self._res_attn(res, _attn(level, j), h, temb, ctx,
                                    skip=skips.pop())
-            if hasattr(level, "upsamplers"):
-                h = level.upsamplers[0](h)
+            h = level.upsamplers[0](h)
+        return self._level_last_up(h, skips, temb, ctx), h
 
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return h.float()
+    def forward_shallow(self, sample, timestep, encoder_hidden_states,
+                        cache):
+        """DeepCache's cached forward: only the outermost level, with
+        `cache` (forward_full's second output) in place of everything
+        deeper."""
+        ctx = encoder_hidden_states.to(self.conv_in.weight.dtype)
+        temb = self._temb(timestep, sample.shape[0], sample.device)
+        _, skips = self._level0(sample, temb, ctx)
+        return self._level_last_up(cache.to(self.conv_in.weight.dtype),
+                                   skips, temb, ctx)
 
 
 def _attn(level, j):

@@ -347,7 +347,7 @@ def _launch_projections(kind, counter, q, k, v, num_heads, scale,
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               *args, _cuda.stream_of(q))
     _cuda.check(source, symbol, code)
-    counter.record((tuple(q.shape), tuple(k.shape), num_heads))
+    counter.record((tuple(q.shape), tuple(k.shape), num_heads), q.dtype)
     return out
 
 
@@ -386,7 +386,8 @@ def flash_attention_slotted(q, k, v, num_heads: int, head_dim: int,
               k.stride(1), k.stride(0), float(scale * _LOG2E),
               int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
     _cuda.check(source, symbol, code)
-    flash_slotted_launches.record((tuple(q.shape), num_heads, head_dim))
+    flash_slotted_launches.record((tuple(q.shape), num_heads, head_dim),
+                                  q.dtype)
     return out
 
 

@@ -265,7 +265,7 @@ def _same_conv(name, x, w, b, counter, fp32, consumers=None, splits=None):
         _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
     else:
         fp32(x, w, b, out)
-    counter.record((tuple(x.shape), tuple(w.shape)))
+    counter.record((tuple(x.shape), tuple(w.shape)), x.dtype)
     return out
 
 
@@ -359,7 +359,7 @@ def _upconv(name, x, b, taps, counter, fp32, splits=None):
         _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
     else:
         fp32(x, taps, b, out)
-    counter.record((tuple(x.shape), (3, 3, cin, cout)))
+    counter.record((tuple(x.shape), (3, 3, cin, cout)), x.dtype)
     return out
 
 

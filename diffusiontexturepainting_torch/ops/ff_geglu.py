@@ -152,7 +152,7 @@ def _ff_geglu(x, w0, b0, w2, b2, residual, consumers=None, splits=None):
                   work.data_ptr(), N, C, inner, consumers or 0, splits or 0,
                   _cuda.stream_of(x))
         _cuda.check(SM90_SOURCE, symbol, code)
-        ff_geglu_launches.record((N, C, inner))
+        ff_geglu_launches.record((N, C, inner), x.dtype)
         return out
     # fp32: the FMA twin, its inner chunks' fp32 partials added in order
     ic = _cuda.function("ff_geglu", "dtp_ff_geglu_chunk",
@@ -165,5 +165,5 @@ def _ff_geglu(x, w0, b0, w2, b2, residual, consumers=None, splits=None):
               b2.data_ptr(), residual.data_ptr(), out.data_ptr(),
               ws.data_ptr(), N, C, inner, ic, 0, _cuda.stream_of(x))
     _cuda.check("ff_geglu", "dtp_ff_geglu", code)
-    ff_geglu_launches.record((N, C, inner))
+    ff_geglu_launches.record((N, C, inner), x.dtype)
     return out

@@ -622,7 +622,7 @@ def _gn_conv3x3(x, a, c, w, b, residual=None, want_stats=True,
                   consumers or 0, splits or 0, _cuda.stream_of(x))
         _cuda.check(GN_SM90_SOURCE, symbol, code)
         if counter is not None:
-            counter.record(key)
+            counter.record(key, x.dtype)
         return out, stats
     dt = x.dtype
     if out_channels is not None:
@@ -645,7 +645,7 @@ def _gn_conv3x3(x, a, c, w, b, residual=None, want_stats=True,
               int(want_stats), 0, _cuda.stream_of(x))
     _cuda.check("conv3x3", "dtp_gn_conv3x3", code)
     if counter is not None:
-        counter.record(key)
+        counter.record(key, x.dtype)
     return out, stats
 
 
@@ -714,7 +714,7 @@ def _upconv_stream(x, b, taps, want_stats=True, splits=None):
                   _ptr(work), B, H, W, cin, cout, int(want_stats),
                   splits or 0, _cuda.stream_of(x))
         _cuda.check(GN_SM90_SOURCE, symbol, code)
-        upconv_stream_launches.record(key)
+        upconv_stream_launches.record(key, x.dtype)
         return out, stats
     splits = _cuda.function("conv3x3", "dtp_upsample2x_conv3x3_splits",
                             _SPLIT_ARGTYPES)(B, H, W, cin, cout, 0)
@@ -725,7 +725,7 @@ def _upconv_stream(x, b, taps, want_stats=True, splits=None):
               _ptr(partial), _ptr(ws), _ptr(stats), B, H, W, cin, cout,
               splits, int(want_stats), 0, _cuda.stream_of(x))
     _cuda.check("conv3x3", "dtp_upsample2x_conv3x3_stats", code)
-    upconv_stream_launches.record(key)
+    upconv_stream_launches.record(key, x.dtype)
     return out, stats
 
 
@@ -768,7 +768,7 @@ def downconv_stream(x, w, b, want_stats=True, consumers=None):
                   _ptr(partial), _ptr(stats), B, H, W, cin, cout,
                   int(want_stats), consumers or 0, _cuda.stream_of(x))
         _cuda.check(DOWN_SM90_SOURCE, symbol, code)
-        downconv_stream_launches.record(key)
+        downconv_stream_launches.record(key, x.dtype)
         return out, stats
     splits = _cuda.function("conv3x3", "dtp_downsample_conv3x3_splits",
                             _SPLIT_ARGTYPES)(B, H, W, cin, cout, 0)
@@ -780,5 +780,5 @@ def downconv_stream(x, w, b, want_stats=True, consumers=None):
               _ptr(partial), _ptr(ws), _ptr(stats), B, H, W, cin, cout,
               splits, int(want_stats), 0, _cuda.stream_of(x))
     _cuda.check("conv3x3", "dtp_downsample_conv3x3_stats", code)
-    downconv_stream_launches.record(key)
+    downconv_stream_launches.record(key, x.dtype)
     return out, stats

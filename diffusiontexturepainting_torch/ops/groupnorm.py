@@ -68,7 +68,7 @@ def spatial_moments(x):
     if x.device.type == "cpu":
         return spatial_moments_plain(x)
     stats = launch_moments("spatial_moments", x)
-    spatial_moments_launches.record((tuple(x.shape),))
+    spatial_moments_launches.record((tuple(x.shape),), x.dtype)
     return stats
 
 

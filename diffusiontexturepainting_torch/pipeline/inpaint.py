@@ -1,14 +1,22 @@
 """The inpainting stamp: u8 canvas in, u8 stamp out.
 
 Port of diffusiontexturepainting_tpu/pipeline/inpaint.py make_stamp_fn and
-make_preview_fn, exact path (no DeepCache, no f32 final step), for any
-scheduler of the registry (schedulers/__init__.py):
+make_preview_fn, for any scheduler of the registry (schedulers/__init__.py)
+and at any operating point of the JAX package (DeepCache by interval or by
+pattern, the f32 final step):
 
     canvas u8 -> normalize/split -> context dilation (prefix sums)
     -> one batch-2 VAE encode (both branches)
     -> denoise loop (CFG triple-batch UNet on the scheduler's scaled input
        + dual-guidance combine + scheduler step)
     -> VAE decode -> [0,1] -> alpha composite -> u8 (truncating)
+
+The loop runs eagerly, one model call after another, each of the kind the
+host schedule `model_call_schedule` gives it: "exact" (the UNet's forward),
+"full" (forward_full, which also caches the deep feature), "shallow"
+(forward_shallow against the latest cache) or "final" (the fp32 UNet of the
+f32 final step, which caches nothing). The JAX package groups the same
+schedule into scan bodies, which an eager loop does not need.
 
 The random draws are inputs: `enc_noise` (the VAE posterior sample of both
 branches), `init_latents` and, for a stochastic scheduler (EulerA),
@@ -18,6 +26,8 @@ DDIM, DPM-Solver, LMS and PNDM draw nothing per step.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..models.vae import sample_latents
@@ -26,9 +36,69 @@ from ..ops.resize import nearest_downsample
 from ..schedulers import make_scheduler
 
 
+MODEL_CALL_KINDS = ("exact", "full", "shallow", "final")
+
+
+def model_call_schedule(deep_cache_interval, n_iters: int,
+                        final_step_f32: bool = False) -> tuple:
+    """The kind of each of a stamp's n_iters model calls (MODEL_CALL_KINDS).
+    An int interval p: call s is full where s % p == 0, else shallow (p 1:
+    every call exact). A pattern: 'F' full, 'S' shallow; it must match
+    n_iters and start with 'F' (a shallow call reads the latest cache).
+    final_step_f32: the last call is the fp32 eval, forced full where the
+    interval would make it shallow; a pattern must end in 'F' for it.
+    Raises ValueError as the JAX package's _cache_flags and make_stamp_fn
+    do (pipeline/inpaint.py:79-147)."""
+    if isinstance(deep_cache_interval, int):
+        if deep_cache_interval < 1:
+            raise ValueError(f"DeepCache interval {deep_cache_interval}: "
+                             "must be >= 1")
+        p = deep_cache_interval
+        kinds = ["exact" if p == 1 else "shallow" if s % p else "full"
+                 for s in range(n_iters)]
+    else:
+        pattern = str(deep_cache_interval).upper()
+        if set(pattern) - {"F", "S"}:
+            raise ValueError(f"deep-cache pattern {pattern!r}: only 'F'/'S'")
+        if len(pattern) != n_iters:
+            raise ValueError(f"deep-cache pattern {pattern!r} length "
+                             f"{len(pattern)} != scheduler iterations "
+                             f"{n_iters}")
+        if pattern[0] != "F":
+            raise ValueError(f"deep-cache pattern {pattern!r} must start "
+                             "with 'F' (a shallow step consumes the latest "
+                             "cache)")
+        if final_step_f32 and pattern[-1] == "S":
+            raise ValueError("final_step_f32 requires the final step to be "
+                             "a full ('F') eval, not a shallow one")
+        kinds = ["full" if c == "F" else "shallow" for c in pattern]
+    if final_step_f32:
+        kinds[-1] = "final"
+    return tuple(kinds)
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """fp32 convolutions and matmuls of the library in IEEE fp32 inside: no
+    TF32 in cuDNN (whose default allows it) nor in cuBLAS (PyTorch's
+    default already refuses it there); both settings are put back after.
+    bf16 work is untouched."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
 def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
                   vae_scaling: float = 0.18215,
-                  scheduler_name: str = "DDIM"):
+                  scheduler_name: str = "DDIM", deep_cache_interval=1,
+                  final_step_f32: bool = False, unet_full=None,
+                  unet_shallow=None, unet_final=None):
     """Returns stamp(canvas_u8 (1,H,W,4) uint8, brush (1,H,W,3) in [0,1],
     cond (1,L,D), uncond (1,L,D), enc_noise (2,H/8,W/8,4),
     init_latents (1,H/8,W/8,4), cfg_weight, tg_weight, tg_steps,
@@ -36,9 +106,33 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
     scheduler is not stochastic) -> (raw_u8 (H,W,3), composited_u8
     (H,W,3)). n_iters = stamp.scheduler.num_iterations() (PNDM: steps +
     1); texture guidance is active while the call index is below
-    tg_steps."""
+    tg_steps.
+
+    deep_cache_interval and final_step_f32 give stamp.schedule
+    (model_call_schedule). unet_full(sample, t, ctx) -> (eps, cache) and
+    unet_shallow(sample, t, ctx, cache) -> eps default to the UNet's
+    forward_full and forward_shallow; unet_final(sample, t, ctx) -> eps,
+    the fp32 eval, is needed where final_step_f32. The whole stamp runs
+    under ieee_fp32()."""
     scheduler = make_scheduler(scheduler_name).set_timesteps(num_steps)
     rows = scheduler.rows()
+    schedule = model_call_schedule(deep_cache_interval,
+                                   scheduler.num_iterations(), final_step_f32)
+    if "full" in schedule:
+        unet_full = unet_full or unet.forward_full
+        unet_shallow = unet_shallow or unet.forward_shallow
+    if final_step_f32 and unet_final is None:
+        raise ValueError("final_step_f32 requires unet_final")
+
+    def model_call(kind, unet_in, t, embeddings, cache):
+        """(eps, the cache after this call)."""
+        if kind == "exact":
+            return unet(unet_in, t, embeddings), cache
+        if kind == "full":
+            return unet_full(unet_in, t, embeddings)
+        if kind == "shallow":
+            return unet_shallow(unet_in, t, embeddings, cache), cache
+        return unet_final(unet_in, t, embeddings), cache
 
     @torch.inference_mode()
     def stamp(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
@@ -46,6 +140,13 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         if scheduler.stochastic and step_noise is None:
             raise ValueError(f"{scheduler_name} is stochastic: the stamp "
                              "needs its step_noise")
+        with ieee_fp32():
+            return body(canvas_u8, brush, cond, uncond, enc_noise,
+                        init_latents, cfg_weight, tg_weight, tg_steps,
+                        context_pad, step_noise)
+
+    def body(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
+             cfg_weight, tg_weight, tg_steps, context_pad, step_noise):
         canvas = canvas_u8.float() / 255.0
         images = canvas[..., :3] * 2.0 - 1.0
         mask = canvas[..., 3:4]
@@ -66,14 +167,16 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
 
         latents = init_latents.float() * scheduler.init_noise_sigma
         state = scheduler.init_state(latents)
-        for i, row in enumerate(rows):
+        cache = None
+        for i, (row, kind) in enumerate(zip(rows, schedule)):
             tg_scale = float(tg_weight) if i < int(tg_steps) else 0.0
             lat_in = scheduler.scale_model_input(
                 torch.cat([latents] * 3, dim=0), row)
             unet_in = torch.cat([lat_in, mask_lat, masked_latents], dim=-1)
             t = torch.full((3,), float(row["timestep"]),
                            device=latents.device)
-            eps_u, eps_c, eps_tg = unet(unet_in, t, embeddings).chunk(3)
+            out, cache = model_call(kind, unet_in, t, embeddings, cache)
+            eps_u, eps_c, eps_tg = out.chunk(3)
             eps = (eps_u + float(cfg_weight) * (eps_c - eps_u)
                    + tg_scale * (eps_tg - eps_c))
             noise = (step_noise[i].float() if scheduler.stochastic
@@ -86,6 +189,7 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         return _to_u8(result[0]), _to_u8(composited[0])
 
     stamp.scheduler = scheduler
+    stamp.schedule = schedule
     return stamp
 
 

@@ -27,6 +27,16 @@ K3, K5, K6) with plain-layout attention; fused_unet_attn adds the
 head-slotted self-attention (K13, slotted_config()); with all of them
 False, the module legs ("safe twin"). All take the same state_dict.
 
+Operating points, as the JAX model's: DeepCache (deep_cache_interval, an
+interval gated by deep_cache_min_steps or an 'F'/'S' pattern that applies
+at its own scheduler iteration count; `set_deep_cache` switches it),
+f32_final_step (the last model call on `final_unet`, the module legs in
+fp32 over the serving UNet's weights upcast, a second module kept beside
+the bf16 one and refreshed by reload_params), and `dtype_overrides`
+(components computed, and their weights kept, in another dtype: the
+--f32-components flag). A stamp function is cached per scheduler, step
+count, DeepCache spec and f32 final step, every static knob of a stamp.
+
 Random draws: request n (the model's request counter) draws its VAE
 posterior noise, its initial latents and, for a stochastic scheduler, its
 per-step noise, in that order, from a torch.Generator seeded with
@@ -43,15 +53,19 @@ import numpy as np
 import torch
 
 from ..core.config import (
+    COMPONENTS,
     PatchEncoderConfig,
     PipelineConfig,
     UNetConfig,
     VAEConfig,
+    parse_deep_cache_spec,
     tiny_patch_encoder_config,
     tiny_unet_config,
     tiny_vae_config,
 )
 from ..models.patch_encoder import encode_brush_image
+from ..models.unet import UNet2DCondition
+from ..schedulers import make_scheduler
 from ..serving.model_base import (
     ConditionalInpainterBase,
     crop_resize_square,
@@ -60,7 +74,7 @@ from ..serving.model_base import (
 )
 from ..weights.loader import load_pipeline_params
 from ..weights.random_init import build_pipeline, load_weights
-from .inpaint import make_stamp_fn
+from .inpaint import ieee_fp32, make_stamp_fn
 from .session import (
     erase_keep,
     overpaint_margin,
@@ -76,21 +90,25 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                  config: PipelineConfig | None = None,
                  device: str | torch.device = "cuda", tiny: bool = False,
                  weights: dict | None = None,
-                 checkpoint_dir: str | None = None, weights_seed: int = 0):
+                 checkpoint_dir: str | None = None, weights_seed: int = 0,
+                 dtype_overrides: dict | None = None):
         """Weights from `checkpoint_dir` (the JAX package's npz format;
         components it lacks get seeded random ones), or `weights` (a
         state_dict per component, as state_dicts() returns), else seeded
         random weights (`weights_seed`), built on `device` and cast once
         to bf16 on CUDA (fp32 on the CPU, as the JAX package serves bf16 on
-        a TPU only). `tiny` uses the JAX package's tiny_*_config()
-        models. Nothing is warmed here: see warmup()."""
+        a TPU only). `dtype_overrides` ({"unet": torch.float32}) computes
+        the components it names in their own dtype, their weights kept in
+        it (the source values for fp32). `tiny` uses the JAX package's
+        tiny_*_config() models. Nothing is warmed here: see warmup()."""
         if weights is not None and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
         self._resolution = int(resolution)
-        self.config = config or PipelineConfig()
+        self.config = self._validate_deep_cache(config or PipelineConfig())
         self.device = torch.device(device)
         self.dtype = (torch.bfloat16 if self.device.type == "cuda"
                       else torch.float32)
+        self.dtype_overrides = dict(dtype_overrides or {})
         self.weights_seed = int(weights_seed)
         self.build_seconds = None  # the kernels' build, timed by warmup()
         if tiny:
@@ -106,16 +124,29 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         tic = time.perf_counter()
         models = build_pipeline(
             ucfg, *cfgs[1:], device=self.device, dtype=self.dtype,
-            fused_vae=(c.fused_vae_encoder, c.fused_vae_decoder))
+            fused_vae=(c.fused_vae_encoder, c.fused_vae_decoder),
+            dtype_overrides=self.dtype_overrides)
         if checkpoint_dir:
             weights = load_pipeline_params(checkpoint_dir, models)
         load_weights(models, weights, self.weights_seed)
-        self.init_seconds = time.perf_counter() - tic
         self.unet = models["unet"]
         self.vae_encoder = models["vae_encoder"]
         self.vae_decoder = models["vae_decoder"]
         self.patch_encoder = models["patch_encoder"]
+        # the f32 final step's UNet: the module legs in fp32 (the JAX
+        # package's safe configuration) over the serving weights, upcast
+        self.final_unet = None
+        if c.f32_final_step:
+            safe = dataclasses.replace(ucfg, fused_resnet=False,
+                                       fused_ff=False, fused_norm=False,
+                                       fused_attn=False)
+            with torch.device(self.device):
+                self.final_unet = UNet2DCondition(safe)
+            self.final_unet.to(torch.float32).eval().requires_grad_(False)
+            self._refresh_final_unet()
+        self.init_seconds = time.perf_counter() - tic
         self._stamp_fns = {}
+        self._schedulers = {}
         self.request_counter = 0
         self._session_canvas = None
         self._erase_keep = None
@@ -123,27 +154,39 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         self.set_brush(np.full((self._resolution, self._resolution, 3), 0.5,
                                np.float32))
 
+    @torch.no_grad()
+    def _refresh_final_unet(self) -> None:
+        """final_unet's weights := the serving UNet's, upcast to fp32 (its
+        load hooks refold the upsample taps)."""
+        if self.final_unet is not None:
+            self.final_unet.load_state_dict(self.unet.state_dict())
+
     def reload_params(self, checkpoint_dir: str) -> None:
         """Swap in the weights of `checkpoint_dir` (components it lacks
-        get the seeded random ones), then re-encode the current brush.
-        Every component is read and validated before any weight is copied,
-        so a checkpoint that fails leaves the old weights serving;
-        load_state_dict's hooks rebuild the derived buffers (the slotted
-        q/k/v, the upsamplers' folded taps, the decoder's padded head)."""
+        get the seeded random ones), refresh the f32 final step's UNet,
+        then re-encode the current brush. Every component is read and
+        validated before any weight is copied, so a checkpoint that fails
+        leaves the old weights serving; load_state_dict's hooks rebuild the
+        derived buffers (the slotted q/k/v, the upsamplers' folded taps, the
+        decoder's padded head)."""
         models = {name: getattr(self, name) for name in self._COMPONENTS}
         weights = load_pipeline_params(checkpoint_dir, models)
         if self._session_canvas is not None:
             self.sync_session()  # queued stamps read the old weights
         load_weights(models, weights, self.weights_seed)
+        self._refresh_final_unet()
         self.set_brush(self.image)
 
     def warmup(self, points=None) -> dict:
         """Build the kernels (on CUDA), then run one stamp on a blank
-        canvas per (resolution, steps) of `points` (default: the model's
-        resolution at the configuration's steps); returns {(resolution,
-        steps): seconds}, each stamp synchronized. The request counter is
-        put back, so the first request after a warm-up draws what it would
-        have drawn without one."""
+        canvas per (resolution, steps[, DeepCache spec]) of `points`
+        (default: the model's resolution at the configuration's steps; the
+        spec, where given, instead of the configuration's for that step
+        count); returns {point: seconds} keyed (resolution, steps) or
+        (resolution, steps, spec) as the point was given, each stamp
+        synchronized. The request counter is put back, so the first
+        request after a warm-up draws what it would have drawn without
+        one."""
         if self.device.type == "cuda":
             from .. import _cuda
 
@@ -152,16 +195,73 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         counter = self.request_counter
         out = {}
         try:
-            for res, steps in points:
+            for point in points:
+                res, steps = int(point[0]), int(point[1])
+                key = (res, steps)
+                interval = None
+                if len(point) > 2:
+                    interval = parse_deep_cache_spec(point[2])
+                    key += (interval,)
                 tic = time.perf_counter()
                 self._run_stamp(np.zeros((res, res, 4), np.uint8),
-                                steps=steps)
-                out[(int(res), int(steps))] = time.perf_counter() - tic
+                                interval=interval, steps=steps)
+                out[key] = time.perf_counter() - tic
         finally:
             self.request_counter = counter
         return out
 
-    _COMPONENTS = ("unet", "vae_encoder", "vae_decoder", "patch_encoder")
+    # --- operating points (the JAX model's tpu_model.py:413-460) ---
+
+    @staticmethod
+    def _validate_deep_cache(config: PipelineConfig) -> PipelineConfig:
+        """`config` with its DeepCache spec parsed (ValueError for an
+        interval below 1 or a malformed pattern), refused where every
+        request it applies to would fail: f32_final_step needs the
+        pattern's last call full. Checked at construction and at
+        set_deep_cache."""
+        spec = parse_deep_cache_spec(config.deep_cache_interval)
+        if (config.f32_final_step and isinstance(spec, str)
+                and spec.endswith("S")):
+            raise ValueError(
+                f"--f32-final-step requires an 'F'-terminated DeepCache "
+                f"pattern (the final eval must be full to promote it); "
+                f"got {config.deep_cache_interval!r}")
+        if spec == config.deep_cache_interval:
+            return config
+        return dataclasses.replace(config, deep_cache_interval=spec)
+
+    def set_deep_cache(self, interval, min_steps: int | None = None) -> None:
+        """Switch the DeepCache operating point; the stamp functions are
+        cached per spec, so switching back rebuilds nothing."""
+        kw = dict(deep_cache_interval=interval)
+        if min_steps is not None:
+            kw["deep_cache_min_steps"] = int(min_steps)
+        self.config = self._validate_deep_cache(
+            dataclasses.replace(self.config, **kw))
+
+    def _scheduler(self, steps: int):
+        """The configuration's scheduler set to `steps` (cached)."""
+        key = (self.config.scheduler, int(steps))
+        sched = self._schedulers.get(key)
+        if sched is None:
+            sched = make_scheduler(key[0]).set_timesteps(key[1])
+            self._schedulers[key] = sched
+        return sched
+
+    def _cache_interval(self, steps: int):
+        """The DeepCache spec of a request of `steps` steps: 1 (exact), an
+        interval (where steps >= deep_cache_min_steps) or a pattern (where
+        the scheduler's model calls number its length: a pattern is an
+        explicit opt-in at that point and bypasses the gate)."""
+        dci = self.config.deep_cache_interval
+        if isinstance(dci, str):
+            n_iters = self._scheduler(steps).num_iterations()
+            return dci if len(dci) == n_iters else 1
+        if steps < self.config.deep_cache_min_steps:
+            return 1
+        return dci
+
+    _COMPONENTS = COMPONENTS
 
     def state_dicts(self) -> dict:
         """Each component's state_dict, for another model's `weights` or
@@ -182,8 +282,9 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         self.image = crop_resize_square(image, self._resolution).astype(
             np.float32)
         self._brush = torch.from_numpy(self.image[None]).to(self.device)
-        self._cond, self._uncond = encode_brush_image(self.patch_encoder,
-                                                      self._brush)
+        with ieee_fp32():
+            self._cond, self._uncond = encode_brush_image(self.patch_encoder,
+                                                          self._brush)
 
     def _settings(self, settings):
         c = self.config
@@ -195,14 +296,22 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                 int(settings.get("tg_steps", c.texture_guidance_steps)),
                 int(settings.get("context_pad", c.context_pad)))
 
-    def _stamp_fn(self, steps: int):
-        """The stamp function of (the configuration's scheduler, steps)."""
-        key = (self.config.scheduler, int(steps))
+    def _stamp_fn(self, steps: int, interval=None):
+        """The stamp function of (the configuration's scheduler, steps, the
+        DeepCache spec: `interval`, else the configuration's at `steps`,
+        and the f32 final step), built once per key."""
+        steps = int(steps)
+        if interval is None:
+            interval = self._cache_interval(steps)
+        c = self.config
+        key = (c.scheduler, steps, interval, c.f32_final_step)
         fn = self._stamp_fns.get(key)
         if fn is None:
             fn = make_stamp_fn(self.unet, self.vae_encoder, self.vae_decoder,
                                steps, self.vae_encoder.cfg.scaling_factor,
-                               self.config.scheduler)
+                               c.scheduler, deep_cache_interval=interval,
+                               final_step_f32=c.f32_final_step,
+                               unet_final=self.final_unet)
             self._stamp_fns[key] = fn
         return fn
 
@@ -220,8 +329,8 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                                 device=self.device)
         init_latents = torch.randn((1,) + shape, generator=gen,
                                    device=self.device)
-        sched = self._stamp_fn(self.config.denoising_steps if steps is None
-                               else steps).scheduler
+        sched = self._scheduler(self.config.denoising_steps if steps is None
+                                else steps)
         step_noise = None
         if sched.stochastic:
             step_noise = torch.randn((sched.num_iterations(), 1) + shape,
@@ -232,8 +341,10 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         self.request_counter += 1
         return self.request_counter
 
-    def _run_stamp(self, canvas: np.ndarray, **settings):
-        """One stamp; returns (raw_u8, composited_u8) as (H, W, 3) numpy."""
+    def _run_stamp(self, canvas: np.ndarray, interval=None, **settings):
+        """One stamp (at the DeepCache spec `interval` where given, else
+        the configuration's); returns (raw_u8, composited_u8) as (H, W, 3)
+        numpy."""
         if canvas.dtype == np.uint8:
             canvas_u8 = canvas
         else:
@@ -247,7 +358,7 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         enc_noise, init_latents, step_noise = self.draws(
             self._next_counter(), res, steps)
         canvas_t = torch.from_numpy(np.array(canvas_u8))[None].to(self.device)
-        raw, comp = self._stamp_fn(steps)(
+        raw, comp = self._stamp_fn(steps, interval)(
             canvas_t, brush, self._cond, self._uncond, enc_noise,
             init_latents, cfg_w, tg_w, tg_steps, pad, step_noise)
         return raw.cpu().numpy(), comp.cpu().numpy()

@@ -3,17 +3,23 @@
     python -m diffusiontexturepainting_torch.profile_stamp \
         [--config default|safe_twin|slotted] [--resolution 256|512|1024]
         [--steps 20] [--stamps 10] [--in-pad]
+        [--deep-cache-interval 2|FSSF] [--f32-final-step]
 
 Builds the full-width serving model (seeded random weights, bf16) in the
 default configuration (every fused switch on), the safe twin (module legs
 only) or the slotted one (default plus the head-slotted self-attention)
 and prints, each beside the card's name and power limit (with --in-pad,
 ops.conv3x3._IN_PAD set first: the in-kernel-padding kernels K12a/b take
-every call of K7/K4, as chip_smoke.py's twin_inpad path runs them):
+every call of K7/K4, as chip_smoke.py's twin_inpad path runs them; with
+--deep-cache-interval, DeepCache at that interval or pattern, applied at
+any step count (deep_cache_min_steps 1); with --f32-final-step, the last
+model call on the fp32 UNet; the stamp's schedule of model calls is
+printed):
   - the wall time of `--stamps` unprofiled stamps (after two warm-up
     stamps): median, quartiles, min and max;
   - CUDA-event times of one UNet eval (the CFG batch of 3), one VAE encode
-    (batch 2) and one VAE decode at the stamp's shapes;
+    (batch 2) and one VAE decode at the stamp's shapes, and of one shallow
+    eval and one fp32 final eval where the stamp has them;
   - the host time to enqueue one UNet eval against its time to finish, the
     top-level PyTorch operations that eval issues, and the Python functions
     that took the most host time in it (cProfile, which slows every call:
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import dataclasses
 import pstats
 import subprocess
 import time
@@ -35,7 +42,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .core.config import CONFIG_NAMES, pipeline_config
+from .core.config import (
+    CONFIG_NAMES,
+    parse_deep_cache_spec,
+    pipeline_config,
+)
 from .ops import conv3x3
 from .pipeline.torch_model import TorchConditionalInpainter
 
@@ -64,6 +75,9 @@ def main(argv=None) -> None:
                         help="kernels listed from the profiled stamp")
     parser.add_argument("--in-pad", action="store_true",
                         help="set ops.conv3x3._IN_PAD (K12a/b for K7/K4)")
+    parser.add_argument("--deep-cache-interval", type=parse_deep_cache_spec,
+                        default=1, help="DeepCache interval or pattern")
+    parser.add_argument("--f32-final-step", action="store_true")
     args = parser.parse_args(argv)
     res = args.resolution
     conv3x3._IN_PAD = args.in_pad
@@ -72,8 +86,15 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     print(f"config: {args.config}" + (", _IN_PAD set" if args.in_pad else ""))
-    model = TorchConditionalInpainter(
-        res, config=pipeline_config(args.config), device="cuda")
+    config = dataclasses.replace(
+        pipeline_config(args.config),
+        deep_cache_interval=args.deep_cache_interval, deep_cache_min_steps=1,
+        f32_final_step=args.f32_final_step)
+    model = TorchConditionalInpainter(res, config=config, device="cuda")
+    schedule = model._stamp_fn(args.steps).schedule
+    print(f"model calls: {' '.join(schedule)} (DeepCache "
+          f"{args.deep_cache_interval!r}, f32 final step "
+          f"{args.f32_final_step})")
     rng = np.random.default_rng(0)
     model.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
     canvas = np.zeros((res, res, 4), np.uint8)
@@ -113,6 +134,15 @@ def main(argv=None) -> None:
               f"{cuda_ms(lambda: model.vae_encoder(images)):.2f} ms")
         print(f"vae decode (batch 1): "
               f"{cuda_ms(lambda: model.vae_decoder(z)):.2f} ms")
+        if "shallow" in schedule:
+            _, cache = model.unet.forward_full(sample, t, ctx)
+            shallow = cuda_ms(lambda: model.unet.forward_shallow(
+                sample, t, ctx, cache))
+            print(f"shallow unet eval: {shallow:.2f} ms")
+        if "final" in schedule:
+            print(f"fp32 final unet eval: "
+                  f"{cuda_ms(lambda: model.final_unet(sample, t, ctx)):.2f}"
+                  " ms")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model.unet(sample, t, ctx)

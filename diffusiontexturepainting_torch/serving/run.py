@@ -8,6 +8,8 @@ GET /health), with the JAX package's single-chip flags
     python -m diffusiontexturepainting_torch.serving.run --port 6060 \
         --resolution 256 --config default --scheduler DDIM \
         --checkpoint_dir DIR --warmup-points 256x20,512x4
+    python -m diffusiontexturepainting_torch.serving.run \
+        --deep-cache-interval 2 --f32-final-step --warmup-points 256x20x2
     python -m diffusiontexturepainting_torch.serving.run --mock  # no card
 
 --resolution is the model's size (256, 512 or 1024 px; each stamp runs at
@@ -19,9 +21,13 @@ resolution at 20 steps), unless --no-warmup; --session-canvas WxH also
 runs a stroke session on such a canvas. --device cpu --tiny serves the
 tiny test models on the CPU.
 
-Not served yet (ROADMAP.md Queue 1): DeepCache (a third --warmup-points
-field, --deep-cache-interval), --f32-final-step / --f32-components, --mesh
-and --max-batch.
+The operating points: --deep-cache-interval (an int >= 1, the full UNet
+every that many model calls from deep_cache_min_steps steps on, or an
+'F'/'S' pattern such as FSSF, which applies where the scheduler's model
+calls number its length), a --warmup-points point's third field (the
+DeepCache spec it warms), --f32-final-step (the last model call's UNet in
+fp32) and --f32-components (the named components computed in fp32).
+--mesh and --max-batch (several chips, request batching) are not served.
 """
 
 from __future__ import annotations
@@ -31,7 +37,12 @@ import dataclasses
 import logging
 import time
 
-from ..core.config import CONFIG_NAMES, pipeline_config
+from ..core.config import (
+    COMPONENTS,
+    CONFIG_NAMES,
+    parse_deep_cache_spec,
+    pipeline_config,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -39,30 +50,42 @@ SCHEDULER_CHOICES = ("DDIM", "DPM", "DPM++", "EulerA", "LMS", "LMSD", "PNDM")
 
 
 def parse_warmup_points(text: str) -> list:
-    """'256x20,512x4' -> [(256, 20), (512, 4)]. A third field (the JAX
-    package's DeepCache interval) is refused: DeepCache is not ported yet
-    (ROADMAP.md Queue 1 item 6)."""
+    """'256x20,512x4x2,512x4xFSSF' -> [(256, 20), (512, 4, 2), (512, 4,
+    'FSSF')]: RESOLUTIONxSTEPS[xDEEPCACHE], the third field a DeepCache
+    spec (parse_deep_cache_spec)."""
     points = []
     for item in text.split(","):
         fields = item.strip().lower().split("x")
-        if len(fields) == 3:
-            raise ValueError(
-                f"--warmup-points {item!r}: the third field (a DeepCache "
-                "interval) is not served: DeepCache is not ported yet "
-                "(ROADMAP.md Queue 1 item 6)")
-        if len(fields) != 2:
+        if len(fields) not in (2, 3):
             raise ValueError(f"--warmup-points {item!r}: expected "
-                             "RESOLUTIONxSTEPS")
-        res, steps = (int(v) for v in fields)
-        points.append((res, steps))
+                             "RESOLUTIONxSTEPS[xDEEPCACHE]")
+        point = (int(fields[0]), int(fields[1]))
+        if len(fields) == 3:
+            point += (parse_deep_cache_spec(fields[2]),)
+        points.append(point)
     return points
 
 
-def _warmup_points(text: str) -> list:
-    try:
-        return parse_warmup_points(text)
-    except ValueError as e:
-        raise argparse.ArgumentTypeError(str(e)) from None
+def parse_f32_components(text: str) -> list:
+    """'unet,vae_decoder' -> ['unet', 'vae_decoder']; a name outside
+    COMPONENTS raises ValueError, as the JAX server refuses it."""
+    names = [s.strip() for s in text.split(",") if s.strip()]
+    bad = set(names) - set(COMPONENTS)
+    if bad:
+        raise ValueError(f"unknown --f32-components {sorted(bad)}; choose "
+                         f"from {sorted(COMPONENTS)}")
+    return names
+
+
+def _arg_type(parse):
+    """argparse type from a parser that raises ValueError."""
+    def convert(text):
+        try:
+            return parse(text)
+        except ValueError as e:
+            raise argparse.ArgumentTypeError(str(e)) from None
+    convert.__name__ = parse.__name__
+    return convert
 
 
 def parse_canvas(text: str) -> tuple:
@@ -122,11 +145,30 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-warmup", action="store_true",
                         help="skip the kernel build and warm-up stamps at "
                              "startup")
-    parser.add_argument("--warmup-points", type=_warmup_points, default=None,
-                        help="comma list of RESOLUTIONxSTEPS operating "
-                             "points to warm at startup, e.g. "
-                             "'256x20,512x4' (default: --resolution at the "
-                             "configuration's steps)")
+    parser.add_argument("--warmup-points",
+                        type=_arg_type(parse_warmup_points), default=None,
+                        help="comma list of RESOLUTIONxSTEPS[xDEEPCACHE] "
+                             "operating points to warm at startup, e.g. "
+                             "'256x20,512x4' or '256x20x2' (default: "
+                             "--resolution at the configuration's steps)")
+    parser.add_argument("--deep-cache-interval",
+                        type=_arg_type(parse_deep_cache_spec), default=None,
+                        help="DeepCache: an int >= 1 (the full UNet every "
+                             "that many model calls, the outermost level "
+                             "against the cache in between, for requests of "
+                             "at least 8 steps; 1 is off) or an F/S pattern "
+                             "starting with F, e.g. FSSF (applies only where "
+                             "the scheduler's model calls number its "
+                             "length)")
+    parser.add_argument("--f32-final-step", action="store_true",
+                        help="compute the last model call's UNet eval in "
+                             "fp32 (the module legs over the serving "
+                             "weights, upcast)")
+    parser.add_argument("--f32-components",
+                        type=_arg_type(parse_f32_components), default=None,
+                        help="comma list of components computed, and their "
+                             "weights kept, in fp32: "
+                             + ", ".join(COMPONENTS))
     parser.add_argument("--session-canvas", type=parse_canvas, default=None,
                         help="warm a stroke session on a canvas of this "
                              "size at startup, e.g. 1024x1024 (width x "
@@ -157,21 +199,32 @@ def build_server(argv=None):
         config = pipeline_config(args.config)
         if args.scheduler:
             config = dataclasses.replace(config, scheduler=args.scheduler)
+        if args.deep_cache_interval is not None:
+            config = dataclasses.replace(
+                config, deep_cache_interval=args.deep_cache_interval)
+        if args.f32_final_step:
+            config = dataclasses.replace(config, f32_final_step=True)
+        overrides = None
+        if args.f32_components:
+            import torch
+
+            overrides = {name: torch.float32 for name in args.f32_components}
         if not args.checkpoint_dir:
             logger.warning("No --checkpoint_dir given - using seeded random "
                            "weights (latency-correct, visually "
                            "meaningless).")
         model = TorchConditionalInpainter(
             args.resolution, config=config, device=args.device,
-            tiny=args.tiny, checkpoint_dir=args.checkpoint_dir)
+            tiny=args.tiny, checkpoint_dir=args.checkpoint_dir,
+            dtype_overrides=overrides)
         startup["model"] = model.init_seconds
         info = (f"torch-sd15-inpaint {args.config} {config.scheduler}"
                 + ("" if args.checkpoint_dir else " (random weights)"))
         if not args.no_warmup:
-            for (res, steps), secs in model.warmup(
-                    args.warmup_points).items():
-                startup[f"{res}x{steps}"] = secs
-                logger.info("warm-up %dx%d: %.1f s", res, steps, secs)
+            for point, secs in model.warmup(args.warmup_points).items():
+                name = "x".join(str(v) for v in point)
+                startup[name] = secs
+                logger.info("warm-up %s: %.1f s", name, secs)
             if model.build_seconds is not None:
                 startup["build"] = model.build_seconds
     if args.session_canvas:

@@ -50,10 +50,15 @@ def random_state_dict(module: nn.Module, generator: torch.Generator) -> dict:
 
 def build_pipeline(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
                    patch_cfg: PatchEncoderConfig, device, dtype,
-                   fused_vae: tuple = (False, False)) -> dict:
-    """The four components on `device` in `dtype`, in eval mode, their
-    weights not yet set. fused_vae: the (encoder, decoder) execution legs;
-    the parameters are the same either way."""
+                   fused_vae: tuple = (False, False),
+                   dtype_overrides: dict | None = None) -> dict:
+    """The four components on `device`, in eval mode, their weights not yet
+    set: each in `dtype` unless `dtype_overrides` names it ({"unet":
+    torch.float32}: the JAX package's dtype_overrides). A component keeps
+    its weights in its own dtype, so an fp32 one holds the source values
+    and a bf16 one their rounding. fused_vae: the (encoder, decoder)
+    execution legs; the parameters are the same either way."""
+    overrides = dict(dtype_overrides or {})
     with torch.device(device):
         models = {
             "unet": UNet2DCondition(unet_cfg),
@@ -61,8 +66,12 @@ def build_pipeline(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
             "vae_decoder": VAEDecoder(vae_cfg, fused=fused_vae[1]),
             "patch_encoder": ConditionPatchEncoder(patch_cfg),
         }
-    for m in models.values():
-        m.to(dtype).eval().requires_grad_(False)
+    unknown = set(overrides) - set(models)
+    if unknown:
+        raise ValueError(f"unknown components {sorted(unknown)}; choose "
+                         f"from {sorted(models)}")
+    for name, m in models.items():
+        m.to(overrides.get(name, dtype)).eval().requires_grad_(False)
     return models
 
 

@@ -11,9 +11,10 @@ POST /inpaint on the websocket's port (serving/server.py).
 - --debug_dir: the JAX handler's file names ({time:.3f}_{tag}_{name}.npy).
 - --profile-dir: Chrome JSON traces, capped at PROFILE_TRACE_CAP a process
   with one warning.
-- --warmup-points / --session-canvas / --no-warmup: the parsing (a
-  DeepCache third field refused), the warm-ups run, the request counter
-  put back: a warmed server's first reply equals a cold server's.
+- --warmup-points / --session-canvas / --no-warmup: the parsing (a third
+  field is a DeepCache spec, an interval >= 1 or a pattern), the warm-ups
+  run, the request counter put back: a warmed server's first reply equals
+  a cold server's.
 - --checkpoint_dir and --scheduler: the weights and the scheduler served;
   /health says "(random weights)" only without a checkpoint.
 """
@@ -303,12 +304,17 @@ def test_scheduler_choices_are_the_registrys():
 def test_warmup_points_parsing():
     assert t_run.parse_warmup_points("256x20,512x4") == [(256, 20), (512, 4)]
     assert t_run.parse_warmup_points("1024X4") == [(1024, 4)]
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        t_run.parse_warmup_points("256x20,512x4x2")
+    assert t_run.parse_warmup_points("256x20,512x4x2,512x4xfssf") == [
+        (256, 20), (512, 4, 2), (512, 4, "FSSF")]
+    for bad in ("512x4x0", "512x4x-1", "512x4xSF"):
+        with pytest.raises(ValueError, match="DeepCache"):
+            t_run.parse_warmup_points(bad)
     with pytest.raises(ValueError, match="RESOLUTIONxSTEPS"):
         t_run.parse_warmup_points("256")
+    with pytest.raises(ValueError, match="RESOLUTIONxSTEPS"):
+        t_run.parse_warmup_points("256x4x2x2")
     with pytest.raises(SystemExit):
-        t_run.make_parser().parse_args(["--warmup-points", "512x4x2"])
+        t_run.make_parser().parse_args(["--warmup-points", "512x4x0"])
     with pytest.raises(SystemExit):
         t_run.make_parser().parse_args(["--scheduler", "Heun"])
     assert t_run.parse_canvas("1024x768") == (1024, 768)
