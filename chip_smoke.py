@@ -140,6 +140,24 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                handler, 400 for BEGIN_SESSION; --debug_dir's files;
                --profile-dir's trace of a websocket NEW_STAMP naming the
                port's kernels (namespace dtp) among its CUDA events;
+  6h. train    training (training/train.py) at full SD-1.5 width, random
+               frozen towers, bf16: 8 seeded 512^2 textures written with
+               the port's PNG writer; main() for 4 steps at 256^2, batch 2,
+               checkpoints at 2 and 4, then resumed from the latest to 6:
+               the logged loss and grad_norm finite, every LoRA up factor
+               non-zero at step 2 and 6, no serving kernel launched (the
+               step runs in ops.conv3x3.conv_impl("plain"), the JAX
+               trainer's design); the validation grid (a DDIM-20 stamp on
+               the merged weights) called directly: its shape, its result
+               panel not flat, K7, K4 and K2 launched; the export served a
+               NEW_STAMP through the request handler, checked as phase 4;
+               a tiny fp32 step on the card (no TF32, cuDNN deterministic)
+               against the CPU: loss and grad_norm within rtol 1e-4, the
+               trainables within rtol 1e-4 / atol 1e-6 but for at most
+               0.5% of elements (Adam's eps regime), each within lr / 2;
+               one step's s/step, samples/s, host batch prep seconds and
+               peak memory at batch 2 and at the JAX default 32 (or the
+               largest batch below it that fits), on 32 textures;
   7. envelope  the default configuration at 1024^2 / 4 DDIM steps (the
                engine envelope: 16384-token attention through K8), as
                phase 4, with its peak device memory;
@@ -252,6 +270,8 @@ CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
 CARD = [""]  # the card's name and power limit, as CARD_QUERY prints them
 RES, STEPS, TWIN_STEPS = 256, 20, 4
 ENVELOPE_RES, SLOTTED_RES, FEW_STEPS = 1024, 512, 4
+# train.main's steps at batch 32 in the train phase's end-to-end run
+E2E_STEPS = 6
 # Published peaks of one H100 SXM (dense): the bounds of the kernels' work
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -2964,6 +2984,321 @@ def conv_arms_phase(gen, k5_shapes, stamps):
     return launches, shapes_seen
 
 
+def procedural_texture(i, size):
+    """A seeded (size, size, 3) uint8 texture: three interfering sinusoid
+    fields at texture i's own frequencies, plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + i)
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32)
+    f = rng.uniform(0.02, 0.2, (3, 2))
+    ph = rng.uniform(0, 6.3, 3)
+    base = np.stack([128 + 90 * np.sin(x * f[c, 0] + ph[c])
+                     * np.cos(y * f[c, 1] - ph[c]) for c in range(3)], -1)
+    noise = rng.normal(0, 12, base.shape)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def train_args(tex, out, *extra, batch=2):
+    return ["--images_path", tex, "--output_dir", out, "--resolution",
+            str(RES), "--train_batch_size", str(batch),
+            "--checkpointing_steps", "2", "--mixed_precision", "bf16",
+            "--validation_epochs", "0", "--log_every", "1", "--device",
+            "cuda", *extra]
+
+
+def train_main(label, argv):
+    """training.train.main(argv) in this process: (export dir, its step
+    records, seconds); every serving counter held still across it, every
+    step's loss and grad_norm finite."""
+    from diffusiontexturepainting_torch.training import train
+
+    before = {c.name: c.launches for c in counters()}
+    tic = time.perf_counter()
+    export, steps = train.main(argv)
+    secs = time.perf_counter() - tic
+    after = {c.name: c.launches for c in counters()}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if moved:
+        raise AssertionError(f"train: {label}: serving kernels launched "
+                             f"during the train steps: {moved}")
+    for h in steps:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"train: {label}: step {h}")
+        log(f"train: {label}: step {h['step']} loss {h['loss']:.5f} "
+            f"grad_norm {h['grad_norm']:.5f}")
+    return export, steps, secs
+
+
+def up_factors_nonzero(ckpt_dir, step):
+    """Every LoRA up factor of checkpoint `step` has a non-zero entry."""
+    import os
+
+    import torch
+
+    state = torch.load(os.path.join(ckpt_dir, str(step), "state.pt"),
+                       map_location="cpu", weights_only=True)
+    ups = {k: v for k, v in state["params"].items() if k.endswith("/up")}
+    zero = [k for k, v in ups.items() if not bool(v.abs().max() > 0)]
+    if not ups or zero:
+        raise AssertionError(f"train: checkpoint {step}: {len(zero)} of "
+                             f"{len(ups)} LoRA up factors are zero")
+    return len(ups)
+
+
+def time_train_steps(trainer, dataset, batch_size, reps=2):
+    """One batch prepared on this thread, one warm step, then `reps` timed
+    steps on it: (host batch prep s, [step s], peak bytes). Running out of
+    memory fails the phase."""
+    import torch
+
+    from diffusiontexturepainting_torch.training.trainer import (
+        batch_to_device)
+
+    it = dataset.batches(batch_size)
+    tic = time.perf_counter()
+    host = next(it)
+    prep_s = time.perf_counter() - tic
+    batch = batch_to_device(host, "cuda")
+    try:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(reps):
+            tic = time.perf_counter()
+            m = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - tic)
+        if not (math.isfinite(float(m["loss"]))
+                and math.isfinite(float(m["grad_norm"]))):
+            raise AssertionError(f"train: batch {batch_size}: not finite")
+        return prep_s, times, torch.cuda.max_memory_allocated()
+    finally:
+        del batch
+        release()
+
+
+def tiny_step_card_vs_cpu():
+    """One fp32 step of the tiny models on the card (no TF32 in cuDNN or
+    matmul, cuDNN deterministic: set here, the previous settings restored
+    after) and on the CPU, from the same weights, factors, batch and
+    draws: (loss, grad_norm) of each, the trainables' largest difference
+    and the share outside rtol 1e-4 / atol 1e-6."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.models.lora import init_lora_params
+    from diffusiontexturepainting_torch.training import train, trainer as tr
+    from diffusiontexturepainting_torch.weights.random_init import (
+        complete_weights)
+
+    cfg = tr.TrainConfig(resolution=64, seed=3)
+    built = {d: train.build_models(True, d, torch.float32)
+             for d in ("cpu", "cuda")}
+    weights = {n: {k: v.cpu() for k, v in sd.items()} for n, sd in
+               complete_weights(built["cpu"], None, 3).items()}
+    lora = init_lora_params(built["cpu"]["unet"], cfg.lora_rank,
+                            torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    image = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    mask = (rng.random((2, 64, 64, 1)) < 0.4).astype(np.float32)
+    s = built["cpu"]["patch_encoder"].cfg.clip.image_size
+    batch = {"image": image, "mask": mask, "masked_image": image * (1 - mask),
+             "cond_patches": rng.standard_normal((2, 14, s, s, 3)).astype(
+                 np.float32), "drop_cond": np.array([0.0, 1.0], np.float32)}
+    draws = tr.make_draws(2, (8, 8), cfg.num_train_timesteps,
+                          torch.Generator().manual_seed(5), "cpu")
+    out = {}
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = (True, False,
+                                                                False)
+    try:
+        for dev, models in built.items():
+            for name, m in models.items():
+                m.load_state_dict(weights[name])
+            t = tr.Trainer(cfg, models, weights, dev, torch.float32,
+                           lora={n: {k: v.to(dev) for k, v in f.items()}
+                                 for n, f in lora.items()})
+            m = t.train_step(tr.batch_to_device(batch, dev),
+                             {k: v.to(dev) for k, v in draws.items()})
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        {k: v.detach().cpu() for k, v in t.params.items()})
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
+    worst, loose, total = 0.0, 0, 0
+    for k, want in out["cpu"][2].items():
+        diff = (out["cuda"][2][k] - want).abs()
+        worst = max(worst, float(diff.max()))
+        loose += int((diff > 1e-6 + 1e-4 * want.abs()).sum())
+        total += want.numel()
+    return out["cuda"][:2], out["cpu"][:2], worst, loose, total, cfg
+
+
+def train_phase():
+    """Training at full SD-1.5 width on the card (random frozen towers,
+    bf16): a folder of textures written with the port's PNG writer,
+    training.train.main for 4 steps with checkpoints, resumed from the
+    latest to step 6, the serving counters still throughout; the validation
+    grid on the resumed weights (its stamp's kernels launched); the export
+    served through the request handler; a tiny fp32 step against the CPU;
+    the step's time and memory at batch 2 and 32, and train.main's
+    samples/s at 32 over E2E_STEPS steps. Returns the numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+    from diffusiontexturepainting_torch.serving import wire
+    from diffusiontexturepainting_torch.training import image_io, train
+    from diffusiontexturepainting_torch.training.dataset import (
+        AugmentedTextures)
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dtp_train_")
+    try:
+        tex, out = os.path.join(root, "textures"), os.path.join(root, "run")
+        os.makedirs(tex)
+        for i in range(8):
+            image_io.write_png(os.path.join(tex, f"tex{i}.png"),
+                               procedural_texture(i, 512))
+        decode_s = {}
+        for kind in (0, None):  # unfiltered, and each row's filter picked
+            data = image_io.encode_png(procedural_texture(0, 512), kind)
+            tic = time.perf_counter()
+            for _ in range(5):
+                image_io.decode_png(data)
+            decode_s[kind] = (time.perf_counter() - tic) / 5
+        log(f"train: PNG decode of a 512^2 RGB texture on the host: "
+            f"{1e3 * decode_s[None]:.1f} ms with the writer's adaptive "
+            f"filters (as the textures here), {1e3 * decode_s[0]:.1f} ms "
+            "unfiltered")
+        _, steps, secs = train_main("4 steps", train_args(
+            tex, out, "--max_train_steps", "4"))
+        if [h["step"] for h in steps] != [1, 2, 3, 4]:
+            raise AssertionError(f"train: steps {steps}")
+        ckpt = os.path.join(out, "checkpoints")
+        n_up = up_factors_nonzero(ckpt, 2)
+        log(f"train: 4 steps at full width, {RES}^2, batch 2, bf16 in "
+            f"{secs:.1f} s with checkpoints 2 and 4 and the export; all "
+            f"{n_up} LoRA up factors non-zero at step 2; serving counters "
+            "still")
+        export, steps, secs = train_main("resumed", train_args(
+            tex, out, "--max_train_steps", "6", "--resume_from_checkpoint",
+            "latest"))
+        if [h["step"] for h in steps] != [5, 6]:
+            raise AssertionError(f"train: resumed run's steps {steps}")
+        if train.checkpoint_steps(ckpt) != [2, 4, 6]:
+            raise AssertionError(f"train: checkpoints "
+                                 f"{train.checkpoint_steps(ckpt)}")
+        up_factors_nonzero(ckpt, 6)
+        log(f"train: resumed from step 4 to 6 in {secs:.1f} s; checkpoints "
+            f"{train.checkpoint_steps(ckpt)}")
+
+        # (c) the validation grid on the resumed weights, called directly
+        args = train.build_argparser().parse_args(train_args(
+            tex, out, "--resume_from_checkpoint", "latest"))
+        run = train.prepare(args)
+        if run.trainer.step != 6:
+            raise AssertionError(f"train: prepare resumed at "
+                                 f"{run.trainer.step}")
+        for c in counters():
+            c.reset()
+        tic = time.perf_counter()
+        grid = train._validation_grid(6, run.trainer, run.models,
+                                      run.dataset)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - tic
+        launched = {c.name: c.launches for c in counters() if c.launches}
+        if grid.shape != (RES, 4 * RES, 3) or grid.dtype != np.uint8:
+            raise AssertionError(f"train: grid {grid.shape} {grid.dtype}")
+        if grid[:, 3 * RES:].std() < 1.0:
+            raise AssertionError("train: the grid's result panel is flat")
+        for name in ("conv3x3", "upsample2x_conv3x3", "flash_attention"):
+            if not launched.get(name):
+                raise AssertionError(f"train: the validation stamp launched "
+                                     f"no {name}: {launched}")
+        log(f"train: validation grid {grid.shape} uint8 in {val_s:.1f} s "
+            f"(DDIM 20 at {RES}^2); launches {launched}")
+
+        # (f) one step's time and memory at batch 2 and the JAX default 32
+        # (which fits: 25 GiB of 80), and train.main end to end at 32: the
+        # prefetch thread preparing batches while the steps run, a log
+        # line (and its read of the loss) every step. A dataset of 32
+        # textures, the first 8 those trained on.
+        card = CARD[0]
+        timing = {}
+        many = os.path.join(root, "textures32")
+        shutil.copytree(tex, many)
+        for i in range(8, 32):
+            image_io.write_png(os.path.join(many, f"tex{i}.png"),
+                               procedural_texture(i, 512))
+        data32 = AugmentedTextures(many, size=RES, seed=0)
+        for bs in (2, 32):
+            prep_s, times, peak = timing[bs] = time_train_steps(
+                run.trainer, data32, bs)
+            step_s = min(times)
+            log(f"train: batch {bs} at {RES}^2, full width, bf16: "
+                f"{step_s:.3f} s/step (of "
+                f"{', '.join(f'{t:.3f}' for t in times)}), "
+                f"{bs / step_s:.2f} samples/s, host batch prep "
+                f"{prep_s:.2f} s, peak {peak / 2**30:.2f} GiB ({card})")
+        del run
+        release()
+        _, steps, secs = train_main("end to end", train_args(
+            many, os.path.join(root, "run32"), "--max_train_steps",
+            str(E2E_STEPS), "--checkpointing_steps", "500", batch=32))
+        ends = [h["time"] for h in steps]
+        window = ends[-1] - ends[0]
+        timing["end_to_end"] = (len(ends) - 1) * 32 / window
+        log(f"train: end to end, train.main at batch 32, {RES}^2, full "
+            f"width, bf16: steps 2-{E2E_STEPS} in {window:.2f} s (each "
+            f"{', '.join(f'{b - a:.2f}' for a, b in zip(ends, ends[1:]))}"
+            f" s), {timing['end_to_end']:.2f} samples/s; main {secs:.1f} "
+            f"s with the build, the first batch and the export ({card})")
+
+        # (d) the export served through the request handler
+        R, handle = wire.RequestType, wire.handle_request_bytes
+        tic = time.perf_counter()
+        served = TorchConditionalInpainter(RES, device="cuda",
+                                           checkpoint_dir=export)
+        brush, canvas = requests()
+        check_reply(handle(served, wire.encode_request(
+            R.NEW_BRUSH_IMAGE, brush, **settings(FEW_STEPS))),
+            R.RETURN_PREVIEW)
+        check_reply(handle(served, wire.encode_request(
+            R.NEW_STAMP, canvas, **settings(FEW_STEPS))), R.RETURN_STAMP,
+            canvas=canvas)
+        log(f"train: the export served a {RES}^2 / {FEW_STEPS}-step "
+            f"NEW_STAMP through the request handler "
+            f"({time.perf_counter() - tic:.1f} s with the load)")
+        del served
+        release()
+
+        # (e) a tiny fp32 step on the card against the CPU
+        card_m, cpu_m, worst, loose, total, cfg = tiny_step_card_vs_cpu()
+        log(f"train: tiny fp32 step: card loss {card_m[0]:.7f} grad_norm "
+            f"{card_m[1]:.7f}; CPU {cpu_m[0]:.7f} / {cpu_m[1]:.7f}; "
+            f"trainables max|diff| {worst:.3e}, {loose} of {total} outside "
+            "rtol 1e-4 / atol 1e-6")
+        for a, b, what in zip(card_m, cpu_m, ("loss", "grad_norm")):
+            if abs(a - b) > 1e-6 + 1e-4 * abs(b):
+                raise AssertionError(f"train: tiny fp32 {what} {a} on the "
+                                     f"card, {b} on the CPU")
+        if worst > 0.5 * cfg.learning_rate or loose > 5e-3 * total:
+            raise AssertionError(f"train: tiny fp32 trainables differ: "
+                                 f"max {worst}, {loose} of {total}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"train: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return timing
+
+
 def release():
     """Returns the memory of the models the caller dropped to the card."""
     import torch
@@ -4115,6 +4450,7 @@ def main() -> int:
     tic = time.perf_counter()
     run_flags_phase()
     log(f"run_flags: phase done in {time.perf_counter() - tic:.1f} s")
+    train_phase()
 
     envelope = TorchConditionalInpainter(resolution=ENVELOPE_RES,
                                          device="cuda", weights=weights)

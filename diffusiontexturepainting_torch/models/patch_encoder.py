@@ -109,16 +109,26 @@ class ConditionPatchEncoder(nn.Module):
         # fp32 codes, kept out of the buffers so a dtype cast leaves them
         self._pos_emb = build_pos_emb(cfg)
 
-    def forward(self, image_patches):
+    def clip_tokens(self, image_patches):
+        """The frozen CLIP tower's pooled token of every patch:
+        (B, total, H, W, 3) -> (B * total, hid)."""
+        flat = image_patches.reshape((-1,) + image_patches.shape[2:])
+        return self.clip(flat)
+
+    def forward(self, image_patches, clip_tokens=None):
         """(B, total, H, W, 3) CLIP-normalized patches -> (cond tokens
-        (B, total, cross_dim) fp32, uncond vector (1, total, cross_dim))."""
+        (B, total, cross_dim) fp32, uncond vector (1, total, cross_dim)).
+        `clip_tokens`: clip_tokens(image_patches), computed by the caller
+        (the trainer runs the frozen tower under no_grad); image_patches is
+        then not read. The head computes in the dtype of its transformer
+        blocks; the final LayerNorm and proj_out in fp32."""
         cfg = self.cfg
-        b = image_patches.shape[0]
-        flat = image_patches.reshape((b * cfg.total_patches,)
-                                     + image_patches.shape[2:])
-        tokens = self.clip(flat).reshape(b, cfg.total_patches, cfg.hid_size)
+        if clip_tokens is None:
+            clip_tokens = self.clip_tokens(image_patches)
+        tokens = clip_tokens.reshape(-1, cfg.total_patches, cfg.hid_size)
         pos = torch.from_numpy(self._pos_emb).to(tokens.device)
-        tokens = (tokens + pos[None]).to(self.uncond_vector.dtype)
+        dtype = self.l_patch_encoder_layers[0].attn1.to_q.weight.dtype
+        tokens = (tokens + pos[None]).to(dtype)
         groups = torch.split(tokens, list(cfg.num_patches), dim=1)
         outs = []
         for g, name in zip(groups, STACK_NAMES):

@@ -20,7 +20,8 @@ Kernels live in csrc/flash_attention.cu (K2, K8 and K13 in fp32: an FMA
 twin) and csrc/flash_attention_sm90.cu (K2, K8 and K13 in bf16: wgmma fed
 by TMA), the dtype choosing the source (`kernel_entry`). A wrapper takes
 its plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises. Every fused kernel rounds where the TPU
+launches the kernel or raises. Inside the trainer's scope
+(conv3x3.conv_impl("plain")) `attention` is plain_attention. Every fused kernel rounds where the TPU
 kernels round: q pre-scaled by scale*log2(e) and rounded to its dtype
 before Q K^T, a base-2 softmax, probabilities rounded to v's dtype, the
 division after P V. K2 and K8 so compute one function, as in the JAX
@@ -37,6 +38,7 @@ import ctypes
 import torch
 
 from .. import _cuda
+from .conv3x3 import current_impl
 
 FLASH_MIN_Q_LEN = 1024
 MAX_FLASH_HEAD_DIM = 512
@@ -392,7 +394,12 @@ def flash_attention_slotted(q, k, v, num_heads: int, head_dim: int,
 
 
 def attention(q, k, v, num_heads: int, scale: float | None = None):
-    """Dispatching attention entry point used by all models."""
+    """Dispatching attention entry point used by all models. Inside the
+    trainer's scope (ops/conv3x3.py conv_impl("plain"), the JAX package's
+    conv_impl("xla"), which turns its flash route off) every call is
+    plain_attention, the JAX xla_attention, on any device."""
+    if current_impl() == "plain":
+        return plain_attention(q, k, v, num_heads, scale)
     route = attention_route(q.shape[1], k.shape[1], q.shape[-1] // num_heads,
                             q.dtype)
     if route == "flash":

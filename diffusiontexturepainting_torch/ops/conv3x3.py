@@ -3,8 +3,9 @@ fused GroupNorm -> SiLU -> 3x3 convolution, NHWC.
 
 Port of diffusiontexturepainting_tpu/ops/conv3x3.py. Each op has a kernel
 written for Hopper and a plain PyTorch version beside it: a wrapper takes
-the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+the plain version only for a tensor on the CPU or inside the trainer's
+scope, conv_impl("plain"); otherwise, for a CUDA tensor, it launches the
+kernel or raises.
 
   conv3x3             kernel K7 (replaces _conv3x3_pallas / _conv_kernel):
                       in bf16 the PLAIN mode of csrc/gn_conv_sm90.cu's
@@ -58,6 +59,7 @@ does once at parameter load.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import functools
 
@@ -83,6 +85,56 @@ gn_silu_conv3x3_launches = _cuda.LaunchCounter("gn_silu_conv3x3")
 # time; off by default, as there. It changes only the CUDA route: on the
 # CPU both settings run the plain versions.
 _IN_PAD = False
+
+# The trainer's scope (the JAX package's conv_impl("xla"), ops/conv3x3.py
+# there): inside conv_impl("plain") every wrapper of this module and of
+# gn_conv.py, and attention(), takes its plain version for a CUDA tensor
+# too, so a training step differentiates plain PyTorch ops with their
+# native autograd and launches no kernel (none of them has a backward).
+# This is the JAX trainer's own design, not a fallback: serving never
+# enters the scope (its stamp and brush encode raise inside it,
+# require_kernels), and outside it a CUDA tensor launches its kernel or
+# raises as before. A ContextVar, so the scope is per thread and a serving
+# thread is never affected.
+_IMPL = contextvars.ContextVar("conv_impl", default=None)
+
+
+def current_impl():
+    """The scoped dispatch override: None (each wrapper's own rule) or
+    "plain"."""
+    return _IMPL.get()
+
+
+class conv_impl:
+    """`with conv_impl(impl):` a scope in which the kernel wrappers take
+    their plain versions (`impl` "plain") or their own rule (None); the
+    previous setting comes back on leaving it, however it is left. Nothing
+    inside counts as a launch."""
+
+    def __init__(self, impl):
+        if impl not in (None, "plain"):
+            raise ValueError(f"conv_impl: {impl!r} is not None or 'plain'")
+        self.impl = impl
+
+    def __enter__(self):
+        self._token = _IMPL.set(self.impl)
+
+    def __exit__(self, *exc_info):
+        _IMPL.reset(self._token)
+
+
+def require_kernels(caller: str) -> None:
+    """Raises inside conv_impl("plain"): a served path (`caller`) runs its
+    kernels, so the trainer's scope must never reach it."""
+    if _IMPL.get() == "plain":
+        raise RuntimeError(f"{caller}: called inside conv_impl('plain'), the "
+                           "training step's scope; serving runs its kernels")
+
+
+def plain_route(x) -> bool:
+    """Whether a wrapper takes its plain version: x on the CPU, or inside
+    conv_impl("plain")."""
+    return x.device.type == "cpu" or _IMPL.get() == "plain"
 
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
              + (ctypes.c_void_p,))
@@ -278,7 +330,7 @@ def conv3x3_inpad(x, w, b):
     conv3x3 runs under _IN_PAD: in bf16 K7's launch, where TMA's
     out-of-bounds zeros are the padding, counted apart; in fp32 the
     staged-tile FMA twin of csrc/conv_staged.cu."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return conv3x3_plain(x, w, b)
     return _same_conv("conv3x3_inpad", x, w, b, conv3x3_inpad_launches,
                       _staged_fp32)
@@ -289,7 +341,7 @@ def conv3x3_stream(x, w, b):
     CUDA): in bf16 K7's launch, whose TMA windows are the streamed rows,
     counted apart; in fp32 the staged-tile FMA twin. No plan of its own:
     the TPU's streaming_plan is a VMEM budget."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return conv3x3_plain(x, w, b)
     return _same_conv("conv3x3_stream", x, w, b, conv3x3_stream_launches,
                       _staged_fp32)
@@ -299,7 +351,7 @@ def conv3x3(x, w, b):
     """3x3 stride-1 SAME conv, NHWC, fp32 accumulation, bias added in fp32,
     one rounding to x's dtype (kernel K7 on CUDA, or K12a under _IN_PAD;
     conv3x3_plain on CPU)."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return conv3x3_plain(x, w, b)
     if _IN_PAD:
         return conv3x3_inpad(x, w, b)
@@ -321,7 +373,7 @@ def upsample2x_conv3x3(x, w, b, taps):
     w: (3,3,Cin,Cout), read by the plain repeat + conv on CPU; taps: the
     same weights through fold_upsample_weights, read by kernel K4 (K12b
     under _IN_PAD) on CUDA."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return upsample2x_conv3x3_plain(x, w, b)
     if _IN_PAD:
         return upsample2x_conv3x3_inpad(x, w, b, taps)
@@ -378,7 +430,7 @@ def upsample2x_conv3x3_inpad(x, w, b, taps):
     where TMA's out-of-bounds zeros are the padding, counted apart; in
     fp32 the staged-tile UP mode of csrc/conv_staged.cu over the folded
     taps."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return upsample2x_conv3x3_plain(x, w, b)
     return _upconv("upsample2x_conv3x3_inpad", x, b, taps,
                    upsample_inpad_launches,
@@ -394,7 +446,7 @@ def gn_silu_conv3x3(x, scale, bias, w, b, temb=None, residual=None,
     fp32 sums of x, then the conv, which folds them with scale and bias
     into its prologue; two launches, no host sync). scale, bias: (Cin,); b
     may be None. The arithmetic is gn_silu_conv3x3_plain's."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return gn_silu_conv3x3_plain(x, scale, bias, w, b, temb, residual,
                                      num_groups, eps)
     return _gn_silu_conv3x3(x, scale, bias, w, b, temb, residual,

@@ -59,7 +59,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import _cuda
-from .conv3x3 import _KERNEL_DTYPES, _SPLIT_ARGTYPES, conv3x3_plain
+from .conv3x3 import (
+    _KERNEL_DTYPES,
+    _SPLIT_ARGTYPES,
+    conv3x3_plain,
+    plain_route,
+)
 from .groupnorm import spatial_moments, spatial_moments_plain
 
 gn_conv_resident_launches = _cuda.LaunchCounter("gn_conv_resident")
@@ -566,7 +571,7 @@ def _gn_conv3x3(x, a, c, w, b, residual=None, want_stats=True,
     and split of K: the tests and tools/sm90_plans.py call this entry
     with them), fp32 csrc/conv3x3.cu."""
     cs = w.shape[-1] if out_channels is None else out_channels
-    if x.device.type == "cpu":
+    if plain_route(x):
         if out_channels is not None:
             w, b = w[..., :cs], (None if b is None else b[:cs])
         return gn_conv3x3_plain(x, a, c, w, b, residual, want_stats,
@@ -677,7 +682,7 @@ def upconv_stream(x, w, b, taps, want_stats=True):
     output: (out (B,2H,2W,Cout), stats or None). w (3,3,Cin,Cout) is read
     by the plain version on CPU; taps, the same weights through
     conv3x3.fold_upsample_weights, by kernel K6 on CUDA."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return upconv_stream_plain(x, w, b, want_stats)
     return _upconv_stream(x, b, taps, want_stats)
 
@@ -736,7 +741,7 @@ def downconv_stream(x, w, b, want_stats=True, consumers=None):
     csrc/conv_sm90.cu, which needs Cin and Cout multiples of 8 and
     16-byte-aligned bases, else ValueError; `consumers` 1 or 2 forces its
     tile, for probes; fp32: csrc/conv3x3.cu)."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         return downconv_stream_plain(x, w, b, want_stats)
     _check("downconv_stream", x, w, (3, 3), b)
     B, H, W, cin = x.shape

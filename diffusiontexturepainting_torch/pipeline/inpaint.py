@@ -31,6 +31,7 @@ import contextlib
 import torch
 
 from ..models.vae import sample_latents
+from ..ops.conv3x3 import require_kernels
 from ..ops.morphology import add_extra_context
 from ..ops.resize import nearest_downsample
 from ..schedulers import make_scheduler
@@ -137,6 +138,7 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
     @torch.inference_mode()
     def stamp(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
               cfg_weight, tg_weight, tg_steps, context_pad, step_noise=None):
+        require_kernels("stamp")
         if scheduler.stochastic and step_noise is None:
             raise ValueError(f"{scheduler_name} is stochastic: the stamp "
                              "needs its step_noise")

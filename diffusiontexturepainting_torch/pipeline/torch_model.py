@@ -65,6 +65,7 @@ from ..core.config import (
 )
 from ..models.patch_encoder import encode_brush_image
 from ..models.unet import UNet2DCondition
+from ..ops.conv3x3 import require_kernels
 from ..schedulers import make_scheduler
 from ..serving.model_base import (
     ConditionalInpainterBase,
@@ -278,6 +279,7 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
     def set_brush(self, image: np.ndarray) -> None:
         """Crop/resize the brush to the model resolution and encode it into
         (cond, uncond) cross-attention tokens."""
+        require_kernels("set_brush")
         image = ensure_float01(image)[..., :3]
         self.image = crop_resize_square(image, self._resolution).astype(
             np.float32)

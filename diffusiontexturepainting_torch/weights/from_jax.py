@@ -7,7 +7,9 @@ are renamed back to diffusers / Hugging Face names. Conv kernels keep their
 (kH, kW, Cin, Cout) layout, which the port's convs use too; Dense kernels
 (in, out) become nn.Linear's (out, in). `jax_tree_from_state_dict` goes
 back, so the port writes checkpoints the JAX package loads
-(weights/loader.py). Leaves are numpy arrays, never jax arrays.
+(weights/loader.py). `lora_from_jax` and `lora_to_jax` rename the LoRA
+factors (models/lora.py) both ways. Leaves are numpy arrays, never jax
+arrays.
 """
 
 from __future__ import annotations
@@ -216,3 +218,29 @@ def jax_tree_from_state_dict(component: str, sd) -> dict:
             node = node.setdefault(part, {})
         node[parts[-1]] = np.ascontiguousarray(a)
     return tree
+
+
+def lora_from_jax(tree) -> dict:
+    """The JAX package's LoRA factors ({'down_0_attn_0/transformer_blocks_0/
+    attn1/to_q': {'down': (r, in), 'up': (out, r)}}) -> the port's
+    ({'down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q': ...},
+    fp32 tensors). The factors' layouts are the same on both sides."""
+    out = {}
+    for path, factors in tree.items():
+        name = torch_name("unet", f"{path}/kernel").removesuffix(".weight")
+        out[name] = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                     for k, v in factors.items()}
+    return out
+
+
+def lora_to_jax(lora) -> dict:
+    """The port's LoRA factors -> the JAX package's tree of fp32 numpy
+    arrays (lora_from_jax's inverse)."""
+    out = {}
+    for name, factors in lora.items():
+        path = jax_path("unet", f"{name}.weight", False)
+        out[path.removesuffix("/kernel")] = {
+            k: np.ascontiguousarray(v.detach().to("cpu", torch.float32)
+                                    .numpy())
+            for k, v in factors.items()}
+    return out

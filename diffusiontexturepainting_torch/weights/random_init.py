@@ -75,22 +75,33 @@ def build_pipeline(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
     return models
 
 
-def load_weights(models: dict, weights: dict | None = None,
-                 seed: int = 0) -> None:
-    """Load `weights` (a state_dict per component; load_state_dict casts
-    them to each module's dtype) into `models`; a component that `weights`
-    lacks gets the seeded random weights, the values it has in a model
-    whose every component is random (the generator walks the components
-    in order, drawing for given ones too where a later one is random)."""
+def complete_weights(models: dict, weights: dict | None = None,
+                     seed: int = 0) -> dict:
+    """{name: state_dict} for every component of `models`: `weights`' where
+    it has one, else the seeded random fp32 weights on the module's device,
+    the values the component has in a model whose every component is
+    random (the generator walks the components in order, drawing for given
+    ones too where a later one is random)."""
     weights = weights or {}
     names = list(models)
     random_upto = max((i for i, n in enumerate(names) if n not in weights),
                       default=-1)
     gen = None
+    out = {}
     for i, (name, m) in enumerate(models.items()):
         if i <= random_upto:
             if gen is None:
                 device = next(m.parameters()).device
                 gen = torch.Generator(device=device).manual_seed(seed)
             sd = random_state_dict(m, gen)
-        m.load_state_dict(weights[name] if name in weights else sd)
+        out[name] = weights[name] if name in weights else sd
+    return out
+
+
+def load_weights(models: dict, weights: dict | None = None,
+                 seed: int = 0) -> None:
+    """Load `weights` (a state_dict per component; load_state_dict casts
+    them to each module's dtype) into `models`; a component that `weights`
+    lacks gets the seeded random weights (complete_weights)."""
+    for name, sd in complete_weights(models, weights, seed).items():
+        models[name].load_state_dict(sd)

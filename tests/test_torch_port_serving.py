@@ -56,7 +56,8 @@ def test_port_imports_without_jax():
         "          'schedulers.base', 'schedulers.ddim',\n"
         "          'schedulers.dpm_solver', 'schedulers.euler_ancestral',\n"
         "          'schedulers.lms', 'schedulers.pndm',\n"
-        "          'tools.check_fidelity', 'tools.deepcache_split'):\n"
+        "          'tools.check_fidelity', 'tools.deepcache_split',\n"
+        "          'training.train', 'models.lora'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)
