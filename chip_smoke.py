@@ -158,6 +158,25 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                one step's s/step, samples/s, host batch prep seconds and
                peak memory at batch 2 and at the JAX default 32 (or the
                largest batch below it that fits), on 32 textures;
+  6i. batched  concurrent painters (--mesh data=1 --max-batch 4) on the
+               default model: one batch of 4 requests of mixed settings and
+               brushes at 256^2 / 20 and at 1024^2 / 4 through the service
+               (serving/parallel_model.py), each kernel's launches against
+               one stamp's plus the launches a split over the batch added
+               (LaunchCounter.split: the encoder's 1024^2 K5 calls at batch
+               8 overflow the grid's y limit), each request's mean and max
+               u8 distance to itself alone (within SELF_MEAN_DIFF and
+               SELF_MAX_DIFF) with the painted region byte-equal, and a
+               planted mix-up of the slots' settings that those limits
+               must catch; the batch's wall and peak memory, the split K5
+               shape against its plain version; then `serving.run --mesh
+               data=1 --max-batch 4` (the default 3 ms window) in a
+               process of its own: stamps/s at 1, 2 and 4 concurrent
+               clients at 256^2 / 20 and 512^2 / 4, each client painting
+               for THROUGHPUT_SECONDS or THROUGHPUT_STAMPS stamps, with
+               the batches' sizes from /health (batches above 1 required
+               with 2 and 4 clients), two concurrent stroke sessions each
+               byte-equal to its own host oracle;
   7. envelope  the default configuration at 1024^2 / 4 DDIM steps (the
                engine envelope: 16384-token attention through K8), as
                phase 4, with its peak device memory;
@@ -2077,6 +2096,341 @@ def run_flags_phase():
         served.close()
         shutil.rmtree(scratch, ignore_errors=True)
     return walls
+
+
+# The batched phase (`--mesh data=1 --max-batch 4`): four requests of
+# mixed settings, (cfg_weight, tg_weight, tg_steps as a share of the steps,
+# context_pad, painted rows as a share of the canvas), each with its own
+# brush, as one batch at each of BATCH_POINTS; then a serving.run process
+# at its default window with 1, 2 and 4 concurrent clients at each of
+# THROUGHPUT_POINTS, each client sending NEW_STAMPs in a row until it has
+# THROUGHPUT_STAMPS replies or THROUGHPUT_SECONDS have passed, and two
+# concurrent stroke sessions.
+BATCH = 4
+BATCH_SETTINGS = [(2.0, 1.0, 1.0, 150, 0.25), (3.0, 0.5, 0.5, 40, 0.375),
+                  (1.5, 0.0, 0.0, 0, 0.125), (2.5, 1.0, 0.25, 300, 0.5)]
+BATCH_POINTS = ((RES, STEPS), (ENVELOPE_RES, FEW_STEPS))
+THROUGHPUT_POINTS = ((RES, STEPS), (SLOTTED_RES, FEW_STEPS))
+THROUGHPUT_CLIENTS = (1, 2, 4)
+THROUGHPUT_STAMPS = 30
+THROUGHPUT_SECONDS = 20.0
+# A batched request against itself alone (the kernels' plans follow the
+# batch, so bf16 sums in another order): at most SELF_MEAN_DIFF u8 levels
+# on average and SELF_MAX_DIFF at any pixel. Sound batches read 0.32-0.59
+# and max 4-8 on an H100 (PERF.md); a request given its neighbour's
+# settings must break one of the two (the smoke plants that each run).
+SELF_MEAN_DIFF = 2.0
+SELF_MAX_DIFF = 32
+# the per-request settings a planted mix-up moves one slot along
+SLOT_SETTINGS = ("cfg_weight", "tg_weight", "tg_steps", "context_pad")
+BATCHED_STROKES = [[(0, 0, False), (96, 40, True), (300, 200, False)],
+                   [(256, 256, False), (40, 300, False), (500, -8, True)]]
+
+
+def batched_payloads(svc, sessions, res, steps):
+    """One NEW_STAMP payload of each session at BATCH_SETTINGS, as the
+    service's submit builds it, with the next counters."""
+    import numpy as np
+
+    rng = np.random.default_rng(res)
+    out = []
+    for s, (cfg, tgw, tgs, pad, rows) in zip(sessions, BATCH_SETTINGS):
+        canvas = np.zeros((res, res, 4), np.uint8)
+        n = int(rows * res)
+        canvas[:n, :, :3] = rng.integers(0, 256, (n, res, 3))
+        canvas[:n, :, 3] = 255
+        steps_, cfg_w, tg_w, tg_steps, pad = svc.base._settings(dict(
+            steps=steps, cfg_weight=cfg, tg_weight=tgw,
+            tg_steps=int(tgs * steps), context_pad=pad))
+        out.append(dict(canvas=canvas, image=s.image, brush=s._brush,
+                        cond=s._cond, uncond=s._uncond,
+                        counter=svc.next_counter(), cfg_weight=cfg_w,
+                        tg_weight=tg_w, tg_steps=tg_steps, context_pad=pad))
+    return out
+
+
+def batched_phase(model):
+    """The default model's batched stamps (serving/parallel_model.py, one
+    batch of BATCH at each of BATCH_POINTS): each kernel's launches in one
+    batch against one stamp's (expected_per_stamp) plus the launches a
+    split over the batch added (LaunchCounter.split), each request's mean
+    and max |diff| against itself alone (a batch of one at its counter)
+    within SELF_MEAN_DIFF and SELF_MAX_DIFF with the painted region
+    byte-equal, and at 256^2 the planted mix-up those limits must catch
+    (planted_mixup); the wall of the batch and of the four alone, peak
+    memory; the split K5 shape against its plain version.
+    Then the server process (batched_serving_process). Returns the 256^2
+    batch's (launches, shapes)."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.serving.parallel_model import (
+        make_parallel_service)
+
+    svc = make_parallel_service(RES, "data=1", max_batch=BATCH, model=model)
+    rng = np.random.default_rng(7)
+    sessions = [svc.new_session() for _ in range(BATCH)]
+    for s in sessions:
+        s.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+    result = None
+    for res, steps in BATCH_POINTS:
+        label = f"batched {res}^2/{steps}"
+        payloads = batched_payloads(svc, sessions, res, steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters():
+            c.reset()
+        tic = time.perf_counter()
+        batch = svc._run_batch((res, steps), payloads)
+        wall = time.perf_counter() - tic
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {c.name: c.launches for c in counters()}
+        split = {c.name: c.split for c in counters()}
+        shapes = {c.name: dict(c.shapes) for c in counters()}
+        want = expected_per_stamp(model, res, steps)
+        for name in want:
+            if launches[name] != want[name] + split[name]:
+                raise AssertionError(
+                    f"{label}: {name}: {launches[name]} launches, one "
+                    f"stamp's {want[name]} + {split[name]} split")
+        log(f"{label}: one batch of {BATCH} launched each kernel as often "
+            f"as one stamp: " + ", ".join(
+                f"{n} {launches[n]}" + (f" (= {want[n]} + {split[n]} "
+                                        "split over the batch)"
+                                        if split[n] else "")
+                for n in want if launches[n]))
+        solo_wall, alone = 0.0, []
+        for k, (p, got) in enumerate(zip(payloads, batch)):
+            tic = time.perf_counter()
+            alone.append(svc._run_batch((res, steps), [p])[0])
+            solo_wall += time.perf_counter() - tic
+            painted = p["canvas"][..., 3] == 255
+            diff = np.abs(got.astype(int) - alone[k].astype(int))
+            log(f"{label}: request {k} (cfg {p['cfg_weight']}, tg "
+                f"{p['tg_weight']} for {p['tg_steps']} calls, pad "
+                f"{p['context_pad']}): against itself alone mean |diff| "
+                f"{diff.mean():.4f} u8 levels, max {diff.max()}, "
+                f"{(diff == 0).mean():.4f} exact; painted region "
+                f"{'byte-equal' if not diff[painted].any() else 'DIFFERS'}")
+            if diff[painted].any():
+                raise AssertionError(f"{label}: request {k}'s painted "
+                                     "region differs from itself alone")
+            if not (diff.mean() <= SELF_MEAN_DIFF
+                    and diff.max() <= SELF_MAX_DIFF):
+                raise AssertionError(
+                    f"{label}: request {k} is {diff.mean():.3f} levels "
+                    f"(max {diff.max()}) from itself alone, above "
+                    f"{SELF_MEAN_DIFF} (max {SELF_MAX_DIFF})")
+            check_reply(wire_reply(got), RETURN_STAMP, res, p["canvas"])
+        if (res, steps) == (RES, STEPS):
+            planted_mixup(svc, (res, steps), label, payloads, alone)
+        log(f"{label}: batch wall {wall * 1e3:.1f} ms, the {BATCH} requests "
+            f"alone {solo_wall * 1e3:.1f} ms ({BATCH / wall:.3f} against "
+            f"{BATCH / solo_wall:.3f} stamps/s); peak device memory of the "
+            f"batch {peak:.2f} GiB ({CARD[0]})")
+        if split["gn_conv_stream"]:
+            key = max(shapes["gn_conv_stream"], key=lambda k: math.prod(
+                k[0]))
+            r = compare("gn_conv_stream", key, torch.bfloat16,
+                        torch.Generator(device="cuda").manual_seed(1))
+            log(f"{label}: K5 at {key} (split over the batch): max_abs_err "
+                f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}); err/tol "
+                f"{r['err_over_tol']:.3f}" + self_note(r))
+        if result is None:
+            result = launches, shapes
+        del batch
+        release()
+    svc.worker.shutdown()
+    return result
+
+
+def planted_mixup(svc, key, label, payloads, alone):
+    """The batch again with each slot given its neighbour's settings
+    (SLOT_SETTINGS), as a batch that crossed them between slots would
+    compute: each request against itself alone must break SELF_MEAN_DIFF
+    or SELF_MAX_DIFF, or those limits could not see such a fault."""
+    import numpy as np
+
+    crossed = [dict(p, **{k: payloads[(i + 1) % len(payloads)][k]
+                          for k in SLOT_SETTINGS})
+               for i, p in enumerate(payloads)]
+    for k, (got, want) in enumerate(zip(svc._run_batch(key, crossed),
+                                        alone)):
+        diff = np.abs(got.astype(int) - want.astype(int))
+        caught = (diff.mean() > SELF_MEAN_DIFF
+                  or diff.max() > SELF_MAX_DIFF)
+        log(f"{label}: planted mix-up, request {k} with request "
+            f"{(k + 1) % len(payloads)}'s settings: against itself alone "
+            f"mean |diff| {diff.mean():.4f} u8 levels, max {diff.max()}: "
+            + ("caught" if caught else "NOT CAUGHT"))
+        if not caught:
+            raise AssertionError(f"{label}: the limits {SELF_MEAN_DIFF} / "
+                                 f"{SELF_MAX_DIFF} miss request {k}'s "
+                                 "planted mix-up")
+
+
+RETURN_STAMP = 4  # wire.RequestType.RETURN_STAMP
+
+
+def wire_reply(stamp):
+    """A RETURN_STAMP reply of `stamp`, for check_reply."""
+    from diffusiontexturepainting_torch.serving import wire
+
+    return wire.encode_response(RETURN_STAMP, stamp)
+
+
+def batched_serving_process():
+    """`serving.run --mesh data=1 --max-batch 4` (its default window) in a
+    process of its own: 1, 2 and 4 concurrent clients at each of
+    THROUGHPUT_POINTS, each with its own brush, sending NEW_STAMPs in a row
+    until it has THROUGHPUT_STAMPS replies or THROUGHPUT_SECONDS have
+    passed: stamps/s, beside it the NEW_STAMP batches' sizes and their
+    mean wait for peers from /health (previews left out; batches above 1
+    required with 2 and 4 clients); two concurrent stroke
+    sessions on 512^2 canvases, every STAMP_AT returning its pixels, each
+    fetched canvas byte-equal to its own host oracle built from those
+    pixels. The process is stopped before this returns."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from websockets.sync.client import connect
+
+    from diffusiontexturepainting_torch.pipeline import session
+    from diffusiontexturepainting_torch.serving import wire
+
+    R = wire.RequestType
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    logf = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        RUN_ENTRY + ["--port", str(port), "--mesh", "data=1", "--max-batch",
+                     str(BATCH), "--warmup-points",
+                     ",".join(f"{r}x{s}" for r, s in THROUGHPUT_POINTS)],
+        cwd=root, stdout=logf, stderr=subprocess.STDOUT)
+    url = f"ws://127.0.0.1:{port}/websocket/"
+
+    def clients(n, fn, action=None):
+        out, errors = [None] * n, []
+        barrier = threading.Barrier(n, action=action)
+
+        def go(i):
+            try:
+                with connect(url, max_size=None, open_timeout=60) as ws:
+                    out[i] = fn(i, ws, barrier)
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+                barrier.abort()
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors:
+            raise errors[0]
+        return out
+
+    try:
+        tic = time.perf_counter()
+        info = health(port, proc, tic + 600)
+        log(f"batched: `serving.run --mesh data=1 --max-batch {BATCH}` "
+            f"answered /health in {time.perf_counter() - tic:.1f} s: "
+            f"{info}")
+        for res, steps in THROUGHPUT_POINTS:
+            for n in THROUGHPUT_CLIENTS:
+                before = []  # /health once every preview is done
+                canvases = [requests(res)[1] for _ in range(n)]
+
+                def paint(i, ws, barrier):
+                    rng = np.random.default_rng(100 + i)
+                    ws.send(wire.encode_request(
+                        R.NEW_BRUSH_IMAGE, rng.integers(
+                            0, 256, (300, 400, 3), dtype=np.uint8),
+                        **settings(steps, res)))
+                    # the preview is the model's resolution's
+                    check_reply(ws.recv(timeout=600), R.RETURN_PREVIEW, RES)
+                    barrier.wait(timeout=600)
+                    t0 = time.perf_counter()
+                    done = 0
+                    while (done < THROUGHPUT_STAMPS and time.perf_counter()
+                           - t0 < THROUGHPUT_SECONDS):
+                        ws.send(wire.encode_request(
+                            R.NEW_STAMP, canvases[i],
+                            **settings(steps, res)))
+                        check_reply(ws.recv(timeout=600), R.RETURN_STAMP,
+                                    res, canvases[i])
+                        done += 1
+                    return t0, time.perf_counter(), done
+
+                spans = clients(n, paint, lambda: before.append(health(
+                    port, proc, time.perf_counter() + 60)))
+                wall = (max(e for _, e, _ in spans)
+                        - min(s for s, _, _ in spans))
+                stamps = sum(d for _, _, d in spans)
+                after = health(port, proc, time.perf_counter() + 60)
+                sizes = {k: v - before[0]["batches"].get(k, 0)
+                         for k, v in after["batches"].items()
+                         if v - before[0]["batches"].get(k, 0)}
+                waits = {k: after["batch_waits"][k]
+                         - before[0]["batch_waits"][k]
+                         for k in ("batches", "ms")}
+                log(f"batched: {res}^2/{steps}, {n} concurrent client(s), "
+                    f"NEW_STAMPs {[d for _, _, d in spans]}: "
+                    f"{stamps / wall:.3f} stamps/s ({wall:.3f} s wall); "
+                    f"batches by requests {sizes}, each waiting "
+                    f"{waits['ms'] / max(waits['batches'], 1):.1f} ms for "
+                    f"peers on average ({CARD[0]})")
+                if n > 1 and not any(int(k) > 1 for k in sizes):
+                    raise AssertionError(f"batched: {n} concurrent clients "
+                                         "never shared a batch")
+        canvas = np.zeros((SESSION_CANVAS, SESSION_CANVAS, 4), np.uint8)
+        canvas[:SESSION_CANVAS // 4, :, :3] = 90
+        canvas[:SESSION_CANVAS // 4, :, 3] = 255
+
+        def stroke(i, ws, barrier):
+            def ask(req):
+                ws.send(req)
+                return ws.recv(timeout=600)
+
+            s = settings(FEW_STEPS)
+            rng = np.random.default_rng(200 + i)
+            check_reply(ask(wire.encode_request(
+                R.NEW_BRUSH_IMAGE, rng.integers(0, 256, (RES, RES, 3),
+                                                dtype=np.uint8), **s)),
+                R.RETURN_PREVIEW, RES)
+            if wire.decode_ack(ask(wire.encode_begin_session(
+                    canvas, **s))) != (R.RETURN_ACK, 0):
+                raise AssertionError("batched: BEGIN_SESSION not acked")
+            barrier.wait(timeout=600)
+            oracle = canvas
+            for x0, y0, op in BATCHED_STROKES[i]:
+                crop = check_reply(ask(wire.encode_stamp_at(
+                    x0, y0, True, op, **s)), R.RETURN_STAMP, RES)
+                oracle = session.host_stamp_update(oracle, crop, x0, y0)
+            ask(wire.encode_erase_at(100, 100, False))
+            oracle = session.host_erase_update(oracle, RES, 100, 100)
+            kind, fetched = wire.decode_response(
+                ask(wire.encode_fetch_canvas()))
+            ask(wire.encode_end_session())
+            return kind, np.array(fetched), oracle
+
+        for k, (kind, fetched, oracle) in enumerate(clients(2, stroke)):
+            if kind != R.RETURN_CANVAS or not np.array_equal(fetched,
+                                                             oracle):
+                raise AssertionError(f"batched: session {k}'s canvas "
+                                     "differs from its host oracle")
+        log("batched: two concurrent stroke sessions on "
+            f"{SESSION_CANVAS}^2 canvases ({len(BATCHED_STROKES[0])} "
+            "STAMP_ATs and an ERASE_AT each): each fetched canvas "
+            "byte-equal to its own host oracle")
+    except Exception:
+        logf.seek(0)
+        log("batched: server log: " + logf.read()[-3000:])
+        raise
+    finally:
+        stop([proc])
+        logf.close()
 
 
 def unet_eval_ms(model, res, kind):
@@ -4445,8 +4799,14 @@ def main() -> int:
     log(f"checkpoint: phase done in {time.perf_counter() - tic:.1f} s")
     deep_cache_phase(model, weights, drive, paths)
     f32_phase(model, weights, drive)
+    tic = time.perf_counter()
+    launches, shapes = batched_phase(model)
+    paths["batched"] = dict(launches=launches, shapes=shapes, stamps=1,
+                            steps=STEPS, res=RES)
     del model
     release()
+    batched_serving_process()
+    log(f"batched: phase done in {time.perf_counter() - tic:.1f} s")
     tic = time.perf_counter()
     run_flags_phase()
     log(f"run_flags: phase done in {time.perf_counter() - tic:.1f} s")

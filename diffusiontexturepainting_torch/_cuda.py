@@ -39,24 +39,77 @@ build_reports: dict[str, str] = {}
 
 class LaunchCounter:
     """Counts a wrapper's kernel launches, in all, by shape and by the
-    dtype of the launch ("bfloat16", "float32": which source ran)."""
+    dtype of the launch ("bfloat16", "float32": which source ran); `split`
+    counts apart the launches beyond a call's first, where a call's batch
+    ran in several launches (batch_runs)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.split = 0
         self.shapes: Counter = Counter()
         self.dtypes: Counter = Counter()
 
-    def record(self, shape_key, dtype=None) -> None:
+    def record(self, shape_key, dtype=None, split: bool = False) -> None:
         self.launches += 1
+        self.split += bool(split)
         self.shapes[shape_key] += 1
         if dtype is not None:
             self.dtypes[str(dtype).removeprefix("torch.")] += 1
 
     def reset(self) -> None:
         self.launches = 0
+        self.split = 0
         self.shapes = Counter()
         self.dtypes = Counter()
+
+
+# the most blocks of a grid's y and z dimensions
+GRID_LIMIT = 65535
+
+
+def batch_runs(B: int, m_tiles_of) -> list:
+    """[(b0, b1), ...]: a batch of B images in as few launches as keep each
+    launch's m_tiles_of(images) within GRID_LIMIT (the kernels' tile index
+    is gridDim.y), in runs that differ by at most one image; [(0, B)] where
+    one launch holds them all."""
+    if m_tiles_of(B) <= GRID_LIMIT:
+        return [(0, B)]
+    most = B - 1
+    while most > 1 and m_tiles_of(most) > GRID_LIMIT:
+        most -= 1
+    if m_tiles_of(most) > GRID_LIMIT:
+        raise ValueError(f"one image needs {m_tiles_of(1)} tiles, above "
+                         f"the grid's {GRID_LIMIT}")
+    n = -(-B // most)
+    bounds = [B * k // n for k in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def launch_by_runs(B: int, m_tiles_of, launch, counter, key, dtype):
+    """launch(b0, n) once for each run of whole images batch_runs gives,
+    each launch counted on `counter` (if any), those past the first as
+    split. Returns what the launches returned (a run's statistics or None),
+    joined along the batch."""
+    got = []
+    for k, (b0, b1) in enumerate(batch_runs(B, m_tiles_of)):
+        got.append(launch(b0, b1 - b0))
+        if counter is not None:
+            counter.record(key, dtype, split=k > 0)
+    if len(got) == 1 or got[0] is None:
+        return got[0]
+    import torch
+
+    return torch.cat(got)
+
+
+def offset_ptr(t, b0: int):
+    """The address of image b0 of a batch-major tensor (None for None)."""
+    if t is None:
+        return None
+    if b0 == 0:
+        return t.data_ptr()
+    return t.data_ptr() + b0 * t.stride(0) * t.element_size()
 
 
 def _nvcc() -> str:

@@ -305,20 +305,34 @@ def _same_conv(name, x, w, b, counter, fp32, consumers=None, splits=None):
             raise ValueError(f"{name}: TMA needs Cin and Cout multiples of "
                              "8 and 16-byte-aligned bases, got x "
                              f"{tuple(x.shape)}, w {tuple(w.shape)}")
-        plan = gn_conv.same_sm90_plan(B, H, W, cin, cout, consumers, splits)
-        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
-                            device=x.device) if plan["work_floats"] else None)
         symbol = "dtp_conv3x3_sm90"
         fn = _cuda.function(gn_conv.GN_SM90_SOURCE, symbol,
                             _SAME_SM90_ARGTYPES)
-        code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
-                  _ptr(work), B, H, W, cin, cout, consumers or 0,
-                  splits or 0, _cuda.stream_of(x))
-        _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
-    else:
-        fp32(x, w, b, out)
+        plan_of = lambda n: gn_conv.same_sm90_plan(n, H, W, cin, cout,
+                                                   consumers, splits)
+
+        def launch(b0, n):
+            work = _work(plan_of(n), x.device)
+            code = fn(_cuda.offset_ptr(x, b0), w.data_ptr(), _ptr(b),
+                      _cuda.offset_ptr(out, b0), _ptr(work), n, H, W, cin,
+                      cout, consumers or 0, splits or 0, _cuda.stream_of(x))
+            _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
+
+        # a batch whose tiles overflow the grid runs as several launches
+        _cuda.launch_by_runs(B, lambda n: plan_of(n)["m_tiles"], launch,
+                             counter, (tuple(x.shape), tuple(w.shape)),
+                             x.dtype)
+        return out
+    fp32(x, w, b, out)
     counter.record((tuple(x.shape), tuple(w.shape)), x.dtype)
     return out
+
+
+def _work(plan, device):
+    """The sm90 PLAIN and upsample modes' work buffer (split tiles and
+    counters), None where the plan needs none."""
+    return (torch.empty(plan["work_floats"], dtype=torch.float32,
+                        device=device) if plan["work_floats"] else None)
 
 
 # fp32 K12a and K11: the staged-tile FMA twin (csrc/conv_staged.cu)
@@ -400,17 +414,24 @@ def _upconv(name, x, b, taps, counter, fp32, splits=None):
             raise ValueError(f"{name}: TMA needs Cin and Cout multiples of "
                              "8 and 16-byte-aligned bases, got x "
                              f"{tuple(x.shape)}, taps {tuple(taps.shape)}")
-        plan = gn_conv.upconv_sm90_plan(B, H, W, cin, cout, splits)
-        work = (torch.empty(plan["work_floats"], dtype=torch.float32,
-                            device=x.device) if plan["work_floats"] else None)
         symbol = "dtp_upsample2x_conv3x3_sm90"
         fn = _cuda.function(gn_conv.GN_SM90_SOURCE, symbol, _UP_SM90_ARGTYPES)
-        code = fn(x.data_ptr(), taps.data_ptr(), _ptr(b), out.data_ptr(),
-                  _ptr(work), B, H, W, cin, cout, splits or 0,
-                  _cuda.stream_of(x))
-        _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
-    else:
-        fp32(x, taps, b, out)
+        plan_of = lambda n: gn_conv.upconv_sm90_plan(n, H, W, cin, cout,
+                                                     splits)
+
+        def launch(b0, n):
+            work = _work(plan_of(n), x.device)
+            code = fn(_cuda.offset_ptr(x, b0), taps.data_ptr(), _ptr(b),
+                      _cuda.offset_ptr(out, b0), _ptr(work), n, H, W, cin,
+                      cout, splits or 0, _cuda.stream_of(x))
+            _cuda.check(gn_conv.GN_SM90_SOURCE, symbol, code)
+
+        # a batch whose tiles overflow the grid runs as several launches
+        _cuda.launch_by_runs(B, lambda n: plan_of(n)["m_tiles"], launch,
+                             counter, (tuple(x.shape), (3, 3, cin, cout)),
+                             x.dtype)
+        return out
+    fp32(x, taps, b, out)
     counter.record((tuple(x.shape), (3, 3, cin, cout)), x.dtype)
     return out
 

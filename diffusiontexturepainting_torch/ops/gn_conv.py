@@ -603,31 +603,28 @@ def _gn_conv3x3(x, a, c, w, b, residual=None, want_stats=True,
         if apply_gn:
             a, c = (t if t.dtype == torch.float32 and t.stride(1) == 1
                     else t.float().contiguous() for t in (a, c))
-        plan = gn_conv_sm90_plan(B, H, W, cin, cout, cs, want_stats,
-                                 consumers, splits)
+        plan_of = lambda n: gn_conv_sm90_plan(n, H, W, cin, cout, cs,
+                                              want_stats, consumers, splits)
         out = torch.empty((B, H, W, cs), dtype=x.dtype, device=x.device)
-        # one allocation: the (B, 2, Cs) statistics first, then any tile
-        # partials, split tiles and counters
-        n = 2 * B * cs if want_stats else 0
-        stats = work = None
-        if plan["work_floats"] == n > 0:
-            stats = work = torch.empty((B, 2, cs), dtype=torch.float32,
-                                       device=x.device)
-        elif plan["work_floats"]:
-            work = torch.empty(plan["work_floats"], dtype=torch.float32,
-                               device=x.device)
-            stats = work[:n].view(B, 2, cs) if want_stats else None
         symbol = "dtp_gn_conv3x3_sm90"
         fn = _cuda.function(GN_SM90_SOURCE, symbol, _GN_SM90_ARGTYPES)
-        code = fn(x.data_ptr(), _ptr(a) if apply_gn else None,
-                  _ptr(c) if apply_gn else None, w.data_ptr(), _ptr(b),
-                  _ptr(residual), out.data_ptr(), _ptr(work), B, H, W, cin,
-                  cout, cs, w.stride(1), a.stride(0) if apply_gn else 0,
-                  c.stride(0) if apply_gn else 0, int(want_stats),
-                  consumers or 0, splits or 0, _cuda.stream_of(x))
-        _cuda.check(GN_SM90_SOURCE, symbol, code)
-        if counter is not None:
-            counter.record(key, x.dtype)
+
+        def launch(b0, n):
+            work, stats = _gn_work(plan_of(n), n, cs, want_stats, x.device)
+            at = lambda t: _cuda.offset_ptr(t, b0)
+            code = fn(at(x), at(a) if apply_gn else None,
+                      at(c) if apply_gn else None, w.data_ptr(), _ptr(b),
+                      at(residual), at(out), _ptr(work), n, H, W, cin, cout,
+                      cs, w.stride(1), a.stride(0) if apply_gn else 0,
+                      c.stride(0) if apply_gn else 0, int(want_stats),
+                      consumers or 0, splits or 0, _cuda.stream_of(x))
+            _cuda.check(GN_SM90_SOURCE, symbol, code)
+            return stats
+
+        # a batch whose tiles overflow the grid's y dimension runs as
+        # several launches, each on a run of whole images
+        stats = _cuda.launch_by_runs(B, lambda n: plan_of(n)["m_tiles"],
+                                     launch, counter, key, x.dtype)
         return out, stats
     dt = x.dtype
     if out_channels is not None:
@@ -652,6 +649,21 @@ def _gn_conv3x3(x, a, c, w, b, residual=None, want_stats=True,
     if counter is not None:
         counter.record(key, x.dtype)
     return out, stats
+
+
+def _gn_work(plan, B, cs, want_stats, device):
+    """(work, stats): K1/K5's one allocation for a launch on B images, the
+    (B, 2, cs) statistics first, then any tile partials, split tiles and
+    counters; stats a view of it, or None."""
+    n = 2 * B * cs if want_stats else 0
+    if plan["work_floats"] == n > 0:
+        stats = torch.empty((B, 2, cs), dtype=torch.float32, device=device)
+        return stats, stats
+    if not plan["work_floats"]:
+        return None, None
+    work = torch.empty(plan["work_floats"], dtype=torch.float32,
+                       device=device)
+    return work, (work[:n].view(B, 2, cs) if want_stats else None)
 
 
 def _shape_key(x, w, b, residual, want_stats, apply_gn, out_channels=None):
@@ -704,22 +716,30 @@ def _upconv_stream(x, b, taps, want_stats=True, splits=None):
             raise ValueError("upconv_stream: TMA needs Cin and Cout "
                              "multiples of 8 and 16-byte-aligned bases, got "
                              f"x {tuple(x.shape)}, taps {tuple(taps.shape)}")
-        plan = upconv_sm90_plan(B, H, W, cin, cout, splits, bool(want_stats))
-        # one allocation: the (B, 2, Cout) statistics first, then any tile
-        # partials, split tiles and counters
-        stats = work = None
-        if plan["work_floats"]:
-            work = torch.empty(plan["work_floats"], dtype=torch.float32,
-                               device=x.device)
-            if want_stats:
-                stats = work[:2 * B * cout].view(B, 2, cout)
+        plan_of = lambda n: upconv_sm90_plan(n, H, W, cin, cout, splits,
+                                             bool(want_stats))
         symbol = "dtp_upsample2x_conv3x3_stats_sm90"
         fn = _cuda.function(GN_SM90_SOURCE, symbol, _UP_SM90_ARGTYPES)
-        code = fn(x.data_ptr(), taps.data_ptr(), _ptr(b), out.data_ptr(),
-                  _ptr(work), B, H, W, cin, cout, int(want_stats),
-                  splits or 0, _cuda.stream_of(x))
-        _cuda.check(GN_SM90_SOURCE, symbol, code)
-        upconv_stream_launches.record(key, x.dtype)
+
+        def launch(b0, n):
+            # one allocation: the (n, 2, Cout) statistics first, then any
+            # tile partials, split tiles and counters
+            work = stats = None
+            if plan_of(n)["work_floats"]:
+                work = torch.empty(plan_of(n)["work_floats"],
+                                   dtype=torch.float32, device=x.device)
+                if want_stats:
+                    stats = work[:2 * n * cout].view(n, 2, cout)
+            code = fn(_cuda.offset_ptr(x, b0), taps.data_ptr(), _ptr(b),
+                      _cuda.offset_ptr(out, b0), _ptr(work), n, H, W, cin,
+                      cout, int(want_stats), splits or 0, _cuda.stream_of(x))
+            _cuda.check(GN_SM90_SOURCE, symbol, code)
+            return stats
+
+        # a batch whose tiles overflow the grid runs as several launches
+        stats = _cuda.launch_by_runs(B, lambda n: plan_of(n)["m_tiles"],
+                                     launch, upconv_stream_launches, key,
+                                     x.dtype)
         return out, stats
     splits = _cuda.function("conv3x3", "dtp_upsample2x_conv3x3_splits",
                             _SPLIT_ARGTYPES)(B, H, W, cin, cout, 0)
@@ -759,21 +779,30 @@ def downconv_stream(x, w, b, want_stats=True, consumers=None):
             raise ValueError("downconv_stream: TMA needs Cin and Cout "
                              "multiples of 8 and 16-byte-aligned bases, got "
                              f"x {tuple(x.shape)}, w {tuple(w.shape)}")
-        stats = partial = None
-        if want_stats:
-            # one allocation: the (B, 2, Cout) sums, then the tile partials
-            plan = downconv_sm90_plan(B, H, W, cin, cout, consumers)
-            buf = torch.empty(2 * cout * (B + plan["m_tiles"]),
-                              dtype=torch.float32, device=x.device)
-            stats = buf[:2 * cout * B].view(B, 2, cout)
-            partial = buf[2 * cout * B:]
         symbol = "dtp_downsample_conv3x3_stats_sm90"
         fn = _cuda.function(DOWN_SM90_SOURCE, symbol, _DOWN_SM90_ARGTYPES)
-        code = fn(x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
-                  _ptr(partial), _ptr(stats), B, H, W, cin, cout,
-                  int(want_stats), consumers or 0, _cuda.stream_of(x))
-        _cuda.check(DOWN_SM90_SOURCE, symbol, code)
-        downconv_stream_launches.record(key, x.dtype)
+        m_tiles = lambda n: downconv_sm90_plan(n, H, W, cin, cout,
+                                               consumers)["m_tiles"]
+
+        def launch(b0, n):
+            stats = partial = None
+            if want_stats:
+                # one allocation: the (n, 2, Cout) sums, then the tile
+                # partials
+                buf = torch.empty(2 * cout * (n + m_tiles(n)),
+                                  dtype=torch.float32, device=x.device)
+                stats = buf[:2 * cout * n].view(n, 2, cout)
+                partial = buf[2 * cout * n:]
+            code = fn(_cuda.offset_ptr(x, b0), w.data_ptr(), _ptr(b),
+                      _cuda.offset_ptr(out, b0), _ptr(partial), _ptr(stats),
+                      n, H, W, cin, cout, int(want_stats), consumers or 0,
+                      _cuda.stream_of(x))
+            _cuda.check(DOWN_SM90_SOURCE, symbol, code)
+            return stats
+
+        # a batch whose tiles overflow the grid runs as several launches
+        stats = _cuda.launch_by_runs(B, m_tiles, launch,
+                                     downconv_stream_launches, key, x.dtype)
         return out, stats
     splits = _cuda.function("conv3x3", "dtp_downsample_conv3x3_splits",
                             _SPLIT_ARGTYPES)(B, H, W, cin, cout, 0)

@@ -22,6 +22,13 @@ The random draws are inputs: `enc_noise` (the VAE posterior sample of both
 branches), `init_latents` and, for a stochastic scheduler (EulerA),
 `step_noise`, one standard normal of the latents' shape per model call.
 DDIM, DPM-Solver, LMS and PNDM draw nothing per step.
+
+`stamp.batched` runs B stamps as one (the counterpart of the JAX package's
+jax.vmap of its stamp, parallel/serving.py): each request its own canvas,
+brush, cond/uncond, draws and settings (cfg_weight, tg_weight, tg_steps,
+context_pad, one value a request); the VAE encode at batch 2B, the UNet at
+3B, branch-major [uncond x B, cond x B, cond x B], the decode at B. At
+B = 1 it runs the ops of the single stamp, which is batched()[0].
 """
 
 from __future__ import annotations
@@ -114,7 +121,8 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
     unet_shallow(sample, t, ctx, cache) -> eps default to the UNet's
     forward_full and forward_shallow; unet_final(sample, t, ctx) -> eps,
     the fp32 eval, is needed where final_step_f32. The whole stamp runs
-    under ieee_fp32()."""
+    under ieee_fp32(). stamp.batched(...) takes B requests at once (its
+    docstring); stamp(...) is its B = 1 case, batched(...)[0]."""
     scheduler = make_scheduler(scheduler_name).set_timesteps(num_steps)
     rows = scheduler.rows()
     schedule = model_call_schedule(deep_cache_interval,
@@ -136,8 +144,15 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         return unet_final(unet_in, t, embeddings), cache
 
     @torch.inference_mode()
-    def stamp(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
-              cfg_weight, tg_weight, tg_steps, context_pad, step_noise=None):
+    def batched(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
+                cfg_weight, tg_weight, tg_steps, context_pad,
+                step_noise=None):
+        """B stamps: canvas_u8 (B,H,W,4), brush (B,H,W,3), cond and uncond
+        (B,L,D), enc_noise (2B,H/8,W/8,4) branch-major (every request's
+        masked-image draw, then every request's context draw),
+        init_latents (B,H/8,W/8,4), step_noise (n_iters,B,H/8,W/8,4) or
+        None; each setting a host number (every request's) or a sequence
+        of B. Returns (raw_u8, composited_u8), each (B,H,W,3)."""
         require_kernels("stamp")
         if scheduler.stochastic and step_noise is None:
             raise ValueError(f"{scheduler_name} is stochastic: the stamp "
@@ -147,15 +162,40 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
                         init_latents, cfg_weight, tg_weight, tg_steps,
                         context_pad, step_noise)
 
+    def stamp(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
+              cfg_weight, tg_weight, tg_steps, context_pad, step_noise=None):
+        raw, comp = batched(canvas_u8, brush, cond, uncond, enc_noise,
+                            init_latents, cfg_weight, tg_weight, tg_steps,
+                            context_pad, step_noise)
+        return raw[0], comp[0]
+
+    def guidance(B, cfg_weight, tg_weight, tg_steps, device):
+        """(cfg, [the texture-guidance scale of each model call]): host
+        floats at B = 1, else (B,1,1,1) fp32 tensors on `device`; call i's
+        scale is tg_weight where i < tg_steps, else 0 (JAX
+        pipeline/inpaint.py:200)."""
+        cfg, tgw, tgs = (per_request(v, B) for v in (cfg_weight, tg_weight,
+                                                    tg_steps))
+        scales = [[float(w) if i < int(s) else 0.0 for w, s in zip(tgw, tgs)]
+                  for i in range(len(rows))]
+        if B == 1:
+            return float(cfg[0]), [row[0] for row in scales]
+        as_tensor = lambda v: torch.tensor(v, dtype=torch.float32).view(
+            -1, B, 1, 1, 1).to(device)
+        return as_tensor([float(c) for c in cfg])[0], list(as_tensor(scales))
+
     def body(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
              cfg_weight, tg_weight, tg_steps, context_pad, step_noise):
+        B = canvas_u8.shape[0]
         canvas = canvas_u8.float() / 255.0
         images = canvas[..., :3] * 2.0 - 1.0
         mask = canvas[..., 3:4]
         masked_images = images * mask
 
+        pads = per_request(context_pad, B)
         ctx_masked, ctx_mask = add_extra_context(
-            brush.float() * 2.0 - 1.0, masked_images, mask, context_pad)
+            brush.float() * 2.0 - 1.0, masked_images, mask,
+            pads[0] if len(set(pads)) == 1 else pads)
         # UNet convention: 1 = generate here
         m_lat = nearest_downsample(1.0 - mask, 8)
         cm_lat = nearest_downsample(1.0 - ctx_mask, 8)
@@ -163,24 +203,25 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
 
         moments = vae_encoder(torch.cat([masked_images, ctx_masked], dim=0))
         lat = sample_latents(moments, enc_noise) * vae_scaling
-        masked_latents = torch.cat([lat[:1], lat[:1], lat[1:]], dim=0)
+        masked_latents = torch.cat([lat[:B], lat[:B], lat[B:]], dim=0)
         embeddings = torch.cat([uncond.float(), cond.float(), cond.float()],
                                dim=0)
+        cfg, tg_scales = guidance(B, cfg_weight, tg_weight, tg_steps,
+                                  canvas.device)
 
         latents = init_latents.float() * scheduler.init_noise_sigma
         state = scheduler.init_state(latents)
         cache = None
         for i, (row, kind) in enumerate(zip(rows, schedule)):
-            tg_scale = float(tg_weight) if i < int(tg_steps) else 0.0
             lat_in = scheduler.scale_model_input(
                 torch.cat([latents] * 3, dim=0), row)
             unet_in = torch.cat([lat_in, mask_lat, masked_latents], dim=-1)
-            t = torch.full((3,), float(row["timestep"]),
+            t = torch.full((3 * B,), float(row["timestep"]),
                            device=latents.device)
             out, cache = model_call(kind, unet_in, t, embeddings, cache)
             eps_u, eps_c, eps_tg = out.chunk(3)
-            eps = (eps_u + float(cfg_weight) * (eps_c - eps_u)
-                   + tg_scale * (eps_tg - eps_c))
+            eps = (eps_u + cfg * (eps_c - eps_u)
+                   + tg_scales[i] * (eps_tg - eps_c))
             noise = (step_noise[i].float() if scheduler.stochastic
                      else None)
             latents, state = scheduler.step(eps, latents, row, state, noise)
@@ -188,11 +229,26 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         decoded = vae_decoder(latents / vae_scaling)
         result = torch.clamp(decoded / 2.0 + 0.5, 0.0, 1.0)
         composited = canvas[..., :3] * mask + result * (1.0 - mask)
-        return _to_u8(result[0]), _to_u8(composited[0])
+        return _to_u8(result), _to_u8(composited)
 
+    stamp.batched = batched
     stamp.scheduler = scheduler
     stamp.schedule = schedule
     return stamp
+
+
+def per_request(value, B: int) -> list:
+    """A stamp setting as B host values: a number is every request's, a
+    sequence (a list, a numpy array, a CPU tensor) must hold B."""
+    if isinstance(value, torch.Tensor):
+        value = value.tolist()
+    if hasattr(value, "__len__"):
+        values = list(value)
+        if len(values) != B:
+            raise ValueError(f"a setting of {len(values)} values for a "
+                             f"batch of {B}")
+        return values
+    return [value] * B
 
 
 def _to_u8(x):

@@ -275,18 +275,25 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
     def resolution(self) -> int:
         return self._resolution
 
-    @torch.inference_mode()
     def set_brush(self, image: np.ndarray) -> None:
         """Crop/resize the brush to the model resolution and encode it into
         (cond, uncond) cross-attention tokens."""
         require_kernels("set_brush")
-        image = ensure_float01(image)[..., :3]
-        self.image = crop_resize_square(image, self._resolution).astype(
-            np.float32)
-        self._brush = torch.from_numpy(self.image[None]).to(self.device)
+        self.image, self._brush, self._cond, self._uncond = \
+            self.encode_brush(image)
+
+    @torch.inference_mode()
+    def encode_brush(self, image: np.ndarray):
+        """(image, brush, cond, uncond) of a brush image, the model's own
+        brush untouched: the (res, res, 3) float32 crop, it as a (1, res,
+        res, 3) tensor on the device, and its cross-attention tokens."""
+        require_kernels("set_brush")
+        image = crop_resize_square(ensure_float01(image)[..., :3],
+                                   self._resolution).astype(np.float32)
+        brush = torch.from_numpy(image[None]).to(self.device)
         with ieee_fp32():
-            self._cond, self._uncond = encode_brush_image(self.patch_encoder,
-                                                          self._brush)
+            cond, uncond = encode_brush_image(self.patch_encoder, brush)
+        return image, brush, cond, uncond
 
     def _settings(self, settings):
         c = self.config
@@ -401,16 +408,24 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         counter, so its draws are those of the per-request path at that
         counter. Returns the composited crop (res, res, 3) uint8 when
         return_pixels, else None without waiting for the device."""
-        canvas = self._require_session()
+        return self.stamp_into(self._require_session(), self._brush,
+                               self._cond, self._uncond,
+                               self._next_counter(), x0, y0, return_pixels,
+                               overpaint, settings)
+
+    @torch.inference_mode()
+    def stamp_into(self, canvas, brush, cond, uncond, counter: int, x0: int,
+                   y0: int, return_pixels: bool, overpaint: bool,
+                   settings: dict):
+        """stamp_at's work on any resident canvas, brush and request
+        counter (a connection of the batching service keeps its own)."""
         steps, cfg_w, tg_w, tg_steps, pad = self._settings(settings)
         res = self._resolution
         margin = overpaint_margin(res) if overpaint else 0
-        enc_noise, init_latents, step_noise = self.draws(
-            self._next_counter(), res, steps)
-        comp = session_stamp(self._stamp_fn(steps), canvas, self._brush,
-                             self._cond, self._uncond, enc_noise,
-                             init_latents, x0, y0, cfg_w, tg_w, tg_steps,
-                             pad, margin, step_noise)
+        enc_noise, init_latents, step_noise = self.draws(counter, res, steps)
+        comp = session_stamp(self._stamp_fn(steps), canvas, brush, cond,
+                             uncond, enc_noise, init_latents, x0, y0, cfg_w,
+                             tg_w, tg_steps, pad, margin, step_noise)
         return comp.cpu().numpy() if return_pixels else None
 
     @torch.inference_mode()

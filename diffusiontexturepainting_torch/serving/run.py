@@ -27,7 +27,24 @@ every that many model calls from deep_cache_min_steps steps on, or an
 calls number its length), a --warmup-points point's third field (the
 DeepCache spec it warms), --f32-final-step (the last model call's UNet in
 fp32) and --f32-components (the named components computed in fp32).
---mesh and --max-batch (several chips, request batching) are not served.
+
+Concurrent painters on one card, as the JAX server's --mesh data=1
+--max-batch N (serving/parallel_model.py):
+
+    python -m diffusiontexturepainting_torch.serving.run --mesh data=1 \
+        --max-batch 4 --batch-window-ms 3
+
+Each connection gets its own brush and stroke session; concurrent
+connections' NEW_STAMPs run as one batched stamp of up to --max-batch
+(default: the data axis) requests, each with its own settings: those that
+arrived while the card was busy, and those that arrive within
+--batch-window-ms (3.0) of the card coming to them, or within 50 ms for a
+painter of the last batch (serving/parallel_model.py RETURN_MS). Refused
+with ValueError, as the JAX server refuses them: --mock with --mesh,
+--max-batch above 1 without --mesh, a max batch off a multiple of the data
+axis, a data axis above the devices present; and, not served by the port
+yet (ROADMAP.md Queue 1 item 11), --mesh model=N and a data axis above 1.
+--profile-dir does not combine with --mesh.
 """
 
 from __future__ import annotations
@@ -173,6 +190,17 @@ def make_parser() -> argparse.ArgumentParser:
                         help="warm a stroke session on a canvas of this "
                              "size at startup, e.g. 1024x1024 (width x "
                              "height)")
+    parser.add_argument("--mesh", default=None,
+                        help="serve concurrent painters through request "
+                             "batching: 'data=1' (one card; data > 1 and "
+                             "model=N are not served yet)")
+    parser.add_argument("--max-batch", type=int, default=None,
+                        help="with --mesh: batch up to this many "
+                             "concurrent stamps (a multiple of the data "
+                             "axis; default the data axis)")
+    parser.add_argument("--batch-window-ms", type=float, default=3.0,
+                        help="with --mesh: how long a batch waits for "
+                             "peers once the card is free for it")
     parser.add_argument("--device", default="cuda",
                         help="the model's device (cpu for debugging)")
     parser.add_argument("--tiny", action="store_true",
@@ -187,6 +215,22 @@ def build_server(argv=None):
     args = make_parser().parse_args(argv)
     from .server import create_server
 
+    if args.mesh and args.mock:
+        raise ValueError("--mock cannot combine with --mesh (the mesh "
+                         "paths build the real pipeline)")
+    if args.max_batch and args.max_batch > 1 and not args.mesh:
+        raise ValueError("--max-batch requires --mesh data=N (use --mesh "
+                         "data=1 for single-card request batching); "
+                         "without a mesh it would be silently ignored")
+    if args.mesh and args.profile_dir:
+        raise ValueError("--profile-dir traces one request at a time; it "
+                         "cannot combine with --mesh")
+    mesh = None
+    if args.mesh:
+        from ..parallel.mesh import make_data_mesh
+
+        # before the model is built: a refused mesh fails at once
+        mesh = make_data_mesh(args.mesh, args.device)
     startup = {}
     if args.mock:
         from ..client.mock_model import MockConditionalInpainter
@@ -219,6 +263,7 @@ def build_server(argv=None):
             dtype_overrides=overrides)
         startup["model"] = model.init_seconds
         info = (f"torch-sd15-inpaint {args.config} {config.scheduler}"
+                + (f" mesh[{args.mesh}]" if mesh else "")
                 + ("" if args.checkpoint_dir else " (random weights)"))
         if not args.no_warmup:
             for point, secs in model.warmup(args.warmup_points).items():
@@ -227,12 +272,19 @@ def build_server(argv=None):
                 logger.info("warm-up %s: %.1f s", name, secs)
             if model.build_seconds is not None:
                 startup["build"] = model.build_seconds
+    service = None
+    if mesh:
+        from .parallel_model import ParallelInpainterService
+
+        service = ParallelInpainterService(model, mesh,
+                                           window_ms=args.batch_window_ms,
+                                           max_batch=args.max_batch)
     if args.session_canvas:
         w, h = args.session_canvas
         startup["session"] = warm_session(model, w, h, args.warmup_points)
     server = create_server(model, args.host, args.port, model_info=info,
                            debug_dir=args.debug_dir,
-                           profile_dir=args.profile_dir)
+                           profile_dir=args.profile_dir, service=service)
     server.startup = startup
     return server
 

@@ -27,6 +27,17 @@ websocket server untouched, reading the same bytes.
 
     server = create_server(model, "127.0.0.1", 6060)
     server.serve_forever()        # server.shutdown() from another thread
+
+With a `service` (serving/parallel_model.py ParallelInpainterService, the
+server of `--mesh data=1 --max-batch N`), the JAX handler's service branch:
+each connection gets its own SessionModel (its brush, its stroke session),
+and its requests run without the server's lock, so stamps of concurrent
+connections meet in the service's batches. A session frame still gets a
+reply, RETURN_ERROR when it fails; there is no ownership to enforce, as
+each connection has its own canvas. POST /inpaint is not served there
+(404, as the JAX package's mesh application has no such route), and
+/health also reports the mesh, the largest batch, the batches run so far
+by their number of requests and how long they waited for peers.
 """
 
 from __future__ import annotations
@@ -122,19 +133,29 @@ def _read_post(sock):
 def create_server(model, host: str = "0.0.0.0", port: int = 6060,
                   model_info: str | None = None,
                   debug_dir: str | None = None,
-                  profile_dir: str | None = None):
+                  profile_dir: str | None = None, service=None):
     """A bound websockets Server around `model` (port 0: any free port,
     `server.socket.getsockname()` tells which); serve_forever() runs it.
     debug_dir, profile_dir: wire.handle_request_bytes's diagnostics (the
-    POST endpoint, as the JAX package's, passes debug_dir only)."""
-    info = model_info or type(model).__name__
+    POST endpoint, as the JAX package's, passes debug_dir only). With a
+    `service`, each connection is served by service.new_session() (model
+    may be None; profile_dir is not taken: run.py refuses it there)."""
+    info = model_info or type(service.base if service else model).__name__
     lock = threading.Lock()
     owner = [None]  # the connection that holds the model's session
+
+    def health():
+        out = {"status": "ok", "model": info}
+        if service is not None:
+            out.update(mesh=service.mesh.spec, max_batch=service.max_batch,
+                       batches=service.batch_counts(),
+                       batch_waits=service.batch_waits())
+        return out
 
     def process_request(connection, request):
         path = request.path.split("?", 1)[0]
         if path == HEALTH_PATH:
-            body = json.dumps({"status": "ok", "model": info}).encode()
+            body = json.dumps(health()).encode()
             return Response(HTTPStatus.OK, "OK", Headers([
                 ("Content-Type", "application/json; charset=UTF-8"),
                 ("Content-Length", str(len(body)))]), body)
@@ -171,7 +192,32 @@ def create_server(model, host: str = "0.0.0.0", port: int = 6060,
             except Exception:  # noqa: BLE001 - teardown must not raise
                 logger.exception("failed to end the session on close")
 
+    def service_reply(session, message):
+        """The reply to a frame of a service's connection, outside the
+        lock; a session frame's failure is a RETURN_ERROR reply."""
+        if not (message and is_session_request(message[0])):
+            return handle_request_bytes(session, message,
+                                        debug_dir=debug_dir)
+        try:
+            return handle_session_request(session, message)
+        except Exception as e:  # noqa: BLE001 - reply, never silence
+            logger.exception("session request failed")
+            return encode_error(f"{type(e).__name__}: {e}")
+
+    def service_handler(connection):
+        session = service.new_session()
+        for message in connection:
+            try:
+                if not isinstance(message, bytes):
+                    raise NotImplementedError("text messages are not "
+                                              "handled")
+                connection.send(service_reply(session, message))
+            except Exception:  # noqa: BLE001 - a bad frame keeps it
+                logger.exception("failed to handle an incoming message")
+
     def handler(connection):
+        if service is not None:
+            return service_handler(connection)
         try:
             for message in connection:
                 try:
@@ -199,7 +245,7 @@ def create_server(model, host: str = "0.0.0.0", port: int = 6060,
             _json_reply(sock, got, {"error": got.phrase})
             return
         path, body = got
-        if path != INPAINT_PATH:
+        if path != INPAINT_PATH or service is not None:
             _json_reply(sock, HTTPStatus.NOT_FOUND, {"error": "Not Found"})
             return
         if body and is_session_request(body[0]):
@@ -241,5 +287,6 @@ def create_server(model, host: str = "0.0.0.0", port: int = 6060,
 
     server.handler = connection
     server.model = model
+    server.service = service
     server.model_info = info
     return server

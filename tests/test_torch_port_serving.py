@@ -57,7 +57,8 @@ def test_port_imports_without_jax():
         "          'schedulers.dpm_solver', 'schedulers.euler_ancestral',\n"
         "          'schedulers.lms', 'schedulers.pndm',\n"
         "          'tools.check_fidelity', 'tools.deepcache_split',\n"
-        "          'training.train', 'models.lora'):\n"
+        "          'training.train', 'models.lora', 'parallel.mesh',\n"
+        "          'parallel.serving', 'serving.parallel_model'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)
