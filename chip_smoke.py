@@ -88,6 +88,27 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                the same bytes over the server's websocket, every reply
                byte-equal, with RETURN_ERROR for a STAMP_AT before
                BEGIN_SESSION and for a second connection's BEGIN_SESSION;
+  6b2. engine  the engine (core/engine.py), through which every phase
+               here serves its stamps, session stamps, batches and brush
+               encodes (a CUDA graph a point, captured at its first call or
+               warm-up and replayed; the counters add a capture's launches
+               at each replay): at each ENGINE_POINTS point (the default
+               model at 256^2/20, 512^2/4, 1024^2/4, DeepCache 2 at
+               256^2/20, FSSF at 512^2/4; the safe twin, the f32 final
+               step and EulerA at 256^2/4) the warm-up's capture seconds
+               and pool bytes, served stamps (replays) alternated with the
+               eager stamp function (eager_stamps), wall median and
+               quartiles of each, one replay's device ms, each busy share,
+               the first stamp after the warm-up against the later ones;
+               three requests of changing cfg, tg, tg_steps, pad, brush and
+               counter through the one program, each byte-equal to the
+               eager stamp on its arguments, their launches
+               expected_per_stamp each; batches of 1 to 4 at 256^2/20
+               through the service against the eager stamp.batched, byte
+               for byte; a session's STAMP_AT acks, eager beside graph,
+               both canvases byte-equal to the host oracle. The checkpoint
+               phase holds a program captured before reload_params against
+               the reloaded weights;
   6c. schedulers
                the default configuration with each of the other schedulers
                (DPM++, EulerA, LMS, PNDM), built from the default model's
@@ -168,7 +189,8 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                u8 distance to itself alone (within SELF_MEAN_DIFF and
                SELF_MAX_DIFF) with the painted region byte-equal, and a
                planted mix-up of the slots' settings that those limits
-               must catch; the batch's wall and peak memory, the split K5
+               must catch; the batch's wall and peak memory (the batch's
+               and a lone request's programs captured first), the split K5
                shape against its plain version; then `serving.run --mesh
                data=1 --max-batch 4` (the default 3 ms window) in a
                process of its own: stamps/s at 1, 2 and 4 concurrent
@@ -283,6 +305,7 @@ import sys
 import threading
 import time
 from collections import Counter
+from contextlib import nullcontext
 
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
@@ -1813,6 +1836,10 @@ def checkpoint_phase(model):
         if first_reply(other) == want:
             raise AssertionError("checkpoint: a model seeded otherwise "
                                  "gave the same stamp")
+        # the stamp above captured its program on the seed-1 weights
+        fn = other._stamp_fn(FEW_STEPS)
+        prog = other.engine.programs[fn.program_key(RES, 1)]
+        replays = prog.replays
         tic = time.perf_counter()
         other.reload_params(directory)
         reload_s = time.perf_counter() - tic
@@ -1821,6 +1848,16 @@ def checkpoint_phase(model):
                                  "stamp")
         log(f"checkpoint: reload_params into a model seeded otherwise in "
             f"{reload_s:.1f} s; its NEW_STAMP byte-equal ({CARD[0]})")
+        if (other.engine.programs[fn.program_key(RES, 1)] is not prog
+                or prog.replays != replays + 1):
+            raise AssertionError("engine: the stamp after reload_params was "
+                                 "not a replay of the program captured "
+                                 "before it")
+        args = engine_stamp_args(other, RES, FEW_STEPS, 5, ENGINE_REQUESTS[1])
+        graph_against_eager("reload", fn(*args), fn.eager(*args))
+        log("engine: reload_params kept the program captured on the old "
+            "weights; its replay byte-equal to the model built from the "
+            "checkpoint and to the eager stamp of the reloaded weights")
         del other
         release()
         cli_phase(directory)
@@ -2015,8 +2052,10 @@ def run_flags_phase():
                         ("warmed", ["--warmup-points", "256x4,512x4"])):
         served = Served(argv)
         try:
-            startup = ", ".join(f"{k} {v:.2f} s"
-                                for k, v in served.server.startup.items())
+            startup = ", ".join(
+                f"{k} {v / 2**30:.2f} GiB" if k.endswith("pool_bytes")
+                else f"{k} {v:.2f} s"
+                for k, v in served.server.startup.items())
             log(f"run_flags: {label} server built: {startup}")
             tic = time.perf_counter()
             status, firsts[label] = served.post(stamp_req)
@@ -2176,6 +2215,10 @@ def batched_phase(model):
     for res, steps in BATCH_POINTS:
         label = f"batched {res}^2/{steps}"
         payloads = batched_payloads(svc, sessions, res, steps)
+        # the batch's and a lone request's programs captured (and their
+        # launches not counted) before the timed run
+        svc._run_batch((res, steps), payloads)
+        svc._run_batch((res, steps), payloads[:1])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in counters():
@@ -2284,9 +2327,11 @@ def batched_serving_process():
     process of its own: 1, 2 and 4 concurrent clients at each of
     THROUGHPUT_POINTS, each with its own brush, sending NEW_STAMPs in a row
     until it has THROUGHPUT_STAMPS replies or THROUGHPUT_SECONDS have
-    passed: stamps/s, beside it the NEW_STAMP batches' sizes and their
-    mean wait for peers from /health (previews left out; batches above 1
-    required with 2 and 4 clients); two concurrent stroke
+    passed, after one untimed stamp of every client together (which
+    captures the batch size's program): stamps/s, beside it the NEW_STAMP
+    batches' sizes and their mean wait for peers from /health (previews
+    and the untimed stamps left out; batches above 1 required with 2 and 4
+    clients); two concurrent stroke
     sessions on 512^2 canvases, every STAMP_AT returning its pixels, each
     fetched canvas byte-equal to its own host oracle built from those
     pixels. The process is stopped before this returns."""
@@ -2339,7 +2384,7 @@ def batched_serving_process():
             f"{info}")
         for res, steps in THROUGHPUT_POINTS:
             for n in THROUGHPUT_CLIENTS:
-                before = []  # /health once every preview is done
+                before = []  # /health at each barrier: the last is read
                 canvases = [requests(res)[1] for _ in range(n)]
 
                 def paint(i, ws, barrier):
@@ -2350,6 +2395,13 @@ def batched_serving_process():
                         **settings(steps, res)))
                     # the preview is the model's resolution's
                     check_reply(ws.recv(timeout=600), R.RETURN_PREVIEW, RES)
+                    # one stamp of every client together, untimed: the
+                    # batch size's program is captured at its first batch
+                    barrier.wait(timeout=600)
+                    ws.send(wire.encode_request(
+                        R.NEW_STAMP, canvases[i], **settings(steps, res)))
+                    check_reply(ws.recv(timeout=600), R.RETURN_STAMP, res,
+                                canvases[i])
                     barrier.wait(timeout=600)
                     t0 = time.perf_counter()
                     done = 0
@@ -2369,11 +2421,11 @@ def batched_serving_process():
                         - min(s for s, _, _ in spans))
                 stamps = sum(d for _, _, d in spans)
                 after = health(port, proc, time.perf_counter() + 60)
-                sizes = {k: v - before[0]["batches"].get(k, 0)
+                sizes = {k: v - before[-1]["batches"].get(k, 0)
                          for k, v in after["batches"].items()
-                         if v - before[0]["batches"].get(k, 0)}
+                         if v - before[-1]["batches"].get(k, 0)}
                 waits = {k: after["batch_waits"][k]
-                         - before[0]["batch_waits"][k]
+                         - before[-1]["batch_waits"][k]
                          for k in ("batches", "ms")}
                 log(f"batched: {res}^2/{steps}, {n} concurrent client(s), "
                     f"NEW_STAMPs {[d for _, _, d in spans]}: "
@@ -2431,6 +2483,304 @@ def batched_serving_process():
     finally:
         stop([proc])
         logf.close()
+
+
+# The engine phase: each served point's captured program against the eager
+# stamp function, (label, configuration, resolution, steps, DeepCache spec)
+ENGINE_POINTS = (
+    ("default 256^2/20", "default", RES, STEPS, None),
+    ("default 512^2/4", "default", SLOTTED_RES, FEW_STEPS, None),
+    ("default 1024^2/4", "default", ENVELOPE_RES, FEW_STEPS, None),
+    ("DeepCache 2 256^2/20", "default", RES, STEPS, 2),
+    ("FSSF 512^2/4", "default", SLOTTED_RES, FEW_STEPS, "FSSF"),
+    ("safe twin 256^2/4", "twin", RES, FEW_STEPS, None),
+    ("f32 final step 256^2/4", "f32_final", RES, FEW_STEPS, None),
+    ("EulerA 256^2/4", "EulerA", RES, FEW_STEPS, None),
+)
+# three requests in a row through one program: (cfg, tg_weight, the share
+# of the steps under texture guidance, context pad, brush seed)
+ENGINE_REQUESTS = [(2.0, 1.0, 1.0, 150, 0), (3.5, 0.5, 0.5, 9, 1),
+                   (1.25, 0.0, 0.0, 1, 2)]
+# timed stamps of each path (eager, graph) at each point, alternated
+ENGINE_STAMPS = 7
+
+
+def engine_model(kind, weights):
+    """A full-width model of the engine phase's configuration `kind`, from
+    the default model's state_dict."""
+    import dataclasses
+
+    from diffusiontexturepainting_torch.core.config import (
+        PipelineConfig,
+        safe_twin_config,
+    )
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+
+    config = {"twin": safe_twin_config(),
+              "f32_final": dataclasses.replace(PipelineConfig(),
+                                               f32_final_step=True),
+              "EulerA": dataclasses.replace(PipelineConfig(),
+                                            scheduler="EulerA")}[kind]
+    return TorchConditionalInpainter(RES, config=config, device="cuda",
+                                     weights=weights)
+
+
+def engine_stamp_args(model, res, steps, counter, request):
+    """The stamp function's arguments of `request` (ENGINE_REQUESTS) at
+    `counter`, the brush of its seed set on the model first."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.serving.model_base import (
+        crop_resize_square)
+
+    cfg, tgw, tgf, pad, seed = request
+    rng = np.random.default_rng(100 + seed)
+    model.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+    brush = model._brush
+    if res != model.resolution():
+        brush = torch.from_numpy(crop_resize_square(
+            model.image, res).astype(np.float32)[None]).cuda()
+    canvas = np.zeros((1, res, res, 4), np.uint8)
+    n = res // (3 + seed)
+    canvas[:, :n, :, :3] = rng.integers(0, 256, (1, n, res, 3))
+    canvas[:, :n, :, 3] = 255
+    enc, init, step = model.draws(counter, res, steps)
+    return (torch.from_numpy(canvas).cuda(), brush, model._cond,
+            model._uncond, enc, init, cfg, tgw, int(tgf * steps), pad, step)
+
+
+def graph_against_eager(label, got, want):
+    """A replay's (raw, composited) byte-equal to the eager stamp's: the
+    same kernels and plans on the same arguments."""
+    import numpy as np
+
+    for what, g, w in zip(("raw", "composited"), got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if not np.array_equal(g, w):
+            diff = np.abs(g.astype(int) - w.astype(int))
+            raise AssertionError(
+                f"engine: {label}: {what} replay against eager: mean "
+                f"|diff| {diff.mean():.4f}, max {diff.max()}: not "
+                "byte-equal")
+
+
+def engine_point(label, model, res, steps):
+    """One point: warm-up (its capture's seconds and pool bytes), timed
+    served stamps (graph) alternated with the eager stamp function, one
+    replay's device ms, three requests of changing settings, brushes and
+    counters through the one program, each against the eager stamp on the
+    same arguments, and their launches against expected_per_stamp."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.profile_stamp import (
+        eager_stamps,
+        replay_ms,
+    )
+
+    counter = model.request_counter
+    point = (res, steps)
+    warm = model.warmup([point])[point]
+    fn = model._stamp_fn(steps)
+    captured = model.engine.captures[fn.program_key(res, 1)]
+    prog = model.engine.programs[fn.program_key(res, 1)]
+    _, canvas = requests(res)
+    s = settings(steps, res)
+
+    def timed():
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        model.generate_u8(canvas, **s)
+        return (time.perf_counter() - tic) * 1e3
+
+    first = timed()
+    walls = {"eager": [], "graph": []}
+    for _ in range(ENGINE_STAMPS + 1):  # the first pair warms the eager path
+        with eager_stamps(model):
+            walls["eager"].append(timed())
+        walls["graph"].append(timed())
+    walls = {k: v[1:] for k, v in walls.items()}
+    device = replay_ms(prog)
+    model.request_counter = counter
+    q = {k: np.percentile(v, [25, 50, 75]) for k, v in walls.items()}
+    log(f"engine: {label}: warm-up {warm:.2f} s; the program's eager pass "
+        f"and capture {captured['seconds']:.2f} s (at its first call: "
+        + ("this warm-up" if point in model.warmup_captures else "earlier")
+        + f"), the pool {captured['pool_bytes'] / 2**30:.2f} GiB reserved "
+        "after it; stamp wall ms "
+        + "; ".join(f"{k} median {m:.1f} (p25 {a:.1f}, p75 {b:.1f}), busy "
+                    f"{device / m:.3f}" for k, (a, m, b) in q.items())
+        + f"; one replay {device:.2f} ms of device time; the first stamp "
+        f"after the warm-up {first:.1f} ms against the later ones' median "
+        f"{q['graph'][1]:.1f} ({CARD[0]})")
+
+    cases = [engine_stamp_args(model, res, steps, counter + 1 + k, r)
+             for k, r in enumerate(ENGINE_REQUESTS)]
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    replays = prog.replays
+    got = [fn(*args) for args in cases]
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches for c in counters()}
+    if prog.replays != replays + len(cases):
+        raise AssertionError(f"engine: {label}: the requests did not "
+                             "replay the point's program")
+    check_counts(f"engine {label}", model, steps, launches, len(cases), res,
+                 dtypes=launch_dtypes())
+    for args, g in zip(cases, got):
+        graph_against_eager(label, g, fn.eager(*args))
+    if all(np.array_equal(got[0][1].cpu(), g[1].cpu()) for g in got[1:]):
+        raise AssertionError(f"engine: {label}: three requests gave one "
+                             "stamp")
+    log(f"engine: {label}: three requests (cfg, tg_weight, tg_steps, pad, "
+        "brush, counter changed) through one program, each byte-equal to "
+        "the eager stamp function on its arguments")
+    return dict(label=label, capture_s=captured["seconds"],
+                pool_bytes=captured["pool_bytes"],
+                eager_ms=float(q["eager"][1]), graph_ms=float(q["graph"][1]),
+                device_ms=device, first_ms=first)
+
+
+def engine_batches(model):
+    """B = 1..4 at 256^2/20 through the service (_run_batch, on its
+    worker's function), each batch's program captured at its first batch,
+    against the same batch through the eager stamp.batched; each batch's
+    launches against one stamp's plus the split ones."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.serving.parallel_model import (
+        make_parallel_service)
+
+    svc = make_parallel_service(RES, "data=1", max_batch=BATCH, model=model)
+    rng = np.random.default_rng(11)
+    sessions = [svc.new_session() for _ in range(BATCH)]
+    for sess in sessions:
+        sess.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+    key = (RES, STEPS)
+    fn = model._stamp_fn(STEPS)
+    try:
+        for B in range(1, BATCH + 1):
+            payloads = batched_payloads(svc, sessions[:B], RES, STEPS)
+            torch.cuda.synchronize()
+            for c in counters():
+                c.reset()
+            tic = time.perf_counter()
+            got = svc._run_batch(key, payloads)
+            first = time.perf_counter() - tic
+            launches = {c.name: c.launches for c in counters()}
+            split = {c.name: c.split for c in counters()}
+            want = expected_per_stamp(model, RES, STEPS)
+            bad = [n for n in want if launches[n] != want[n] + split[n]]
+            if bad:
+                raise AssertionError(f"engine: batch of {B}: launches of "
+                                     f"{bad} off one stamp's")
+            tic = time.perf_counter()
+            svc._run_batch(key, payloads)
+            replay = time.perf_counter() - tic
+            svc.engine.stamp_fn = lambda steps: model._stamp_fn(steps).eager
+            try:
+                tic = time.perf_counter()
+                eager = svc._run_batch(key, payloads)
+                eager_s = time.perf_counter() - tic
+            finally:
+                del svc.engine.stamp_fn
+            for k, (g, w) in enumerate(zip(got, eager)):
+                if not np.array_equal(g, w):
+                    diff = np.abs(g.astype(int) - w.astype(int))
+                    raise AssertionError(
+                        f"engine: batch of {B}, request {k}: replay against "
+                        f"eager mean |diff| {diff.mean():.4f}, max "
+                        f"{diff.max()}")
+            captured = model.engine.captures[fn.program_key(RES, B)]
+            log(f"engine: batch of {B} at {RES}^2/{STEPS} through the "
+                f"service: every request byte-equal to the eager "
+                f"stamp.batched; launches one stamp's; capture "
+                f"{captured['seconds']:.2f} s, pool "
+                f"{captured['pool_bytes'] / 2**30:.2f} GiB; wall with the "
+                f"capture {first * 1e3:.1f} ms, replayed {replay * 1e3:.1f} "
+                f"ms, eager {eager_s * 1e3:.1f} ms ({CARD[0]})")
+    finally:
+        svc.worker.shutdown()
+
+
+def engine_session(model):
+    """The session phase's requests through the handler twice at the same
+    counters, served by the engine and under eager_stamps: the STAMP_ATs
+    without pixels enqueued with host syncs made an error, their ack ms
+    side by side; both fetched canvases byte-equal to the host oracle."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.profile_stamp import eager_stamps
+    from diffusiontexturepainting_torch.serving import wire
+
+    handle = wire.handle_request_bytes
+    canvas, reqs = session_requests()
+    n_free = sum(not px for _, _, px, _ in SESSION_STAMPS)
+    counter = model.request_counter
+    model._stamp_fn(FEW_STEPS)
+    acks, fetched = {}, {}
+    for path in ("eager", "graph", "eager", "graph"):
+        model.request_counter = counter
+        ctx = eager_stamps(model) if path == "eager" else nullcontext()
+        with ctx:
+            handle(model, reqs[0])
+            torch.cuda.synchronize()
+            times = []
+            for raw in reqs[1:1 + n_free]:
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    handle(model, raw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                times.append((time.perf_counter() - t0) * 1e3)
+            replies = [handle(model, raw) for raw in reqs[1 + n_free:]]
+        acks.setdefault(path, []).extend(times)
+        fetched[path] = wire.decode_response(replies[-2])[1]
+    want, _, _ = session_oracle(model, canvas, counter + 1)
+    model.request_counter = counter + len(SESSION_STAMPS)
+    for path, got in fetched.items():
+        if not np.array_equal(got, want):
+            raise AssertionError(f"engine: the {path} session's canvas "
+                                 "differs from the host oracle")
+    log("engine: session STAMP_AT acks without pixels (two strokes each), "
+        + "; ".join(f"{p} " + ", ".join(f"{a:.1f}" for a in v) + " ms "
+                    f"(median {np.median(v):.1f})" for p, v in acks.items())
+        + f"; both canvases byte-equal to the host oracle ({CARD[0]})")
+    return {p: float(np.median(v)) for p, v in acks.items()}
+
+
+def engine_phase(model, weights):
+    """The engine (core/engine.py) on the card: every ENGINE_POINTS point
+    (engine_point), batches of 1 to 4 (engine_batches), a session's acks
+    (engine_session); the reload is checked in checkpoint_phase, where the
+    checkpoint is."""
+    t_phase = time.perf_counter()
+    rows = []
+    for label, kind, res, steps, spec in ENGINE_POINTS:
+        if kind == "default":
+            m = model
+            m.set_deep_cache(spec or 1)
+        else:
+            m = engine_model(kind, weights)
+        try:
+            rows.append(engine_point(label, m, res, steps))
+        finally:
+            if m is model:
+                m.set_deep_cache(1)
+            else:
+                del m
+                release()
+    engine_batches(model)
+    acks = engine_session(model)
+    log("engine: summary " + json.dumps(dict(points=rows, session_ack_ms=acks,
+                                             card=CARD[0])))
+    log(f"engine: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def unet_eval_ms(model, res, kind):
@@ -4791,6 +5141,7 @@ def main() -> int:
     check_counts("session", model, FEW_STEPS, launches, n)
     paths["session"] = dict(launches=launches, shapes=shapes, stamps=n,
                             steps=FEW_STEPS, res=RES)
+    engine_phase(model, weights)
     tic = time.perf_counter()
     scheduler_phase(weights)
     log(f"schedulers: phase done in {time.perf_counter() - tic:.1f} s")

@@ -41,7 +41,11 @@ class LaunchCounter:
     """Counts a wrapper's kernel launches, in all, by shape and by the
     dtype of the launch ("bfloat16", "float32": which source ran); `split`
     counts apart the launches beyond a call's first, where a call's batch
-    ran in several launches (batch_runs)."""
+    ran in several launches (batch_runs). Every counter made is in
+    `LaunchCounter.all`: a CUDA graph's replay calls no wrapper, so
+    core/engine.py adds what its capture counted (snapshot, add)."""
+
+    all: list = []
 
     def __init__(self, name: str):
         self.name = name
@@ -49,6 +53,28 @@ class LaunchCounter:
         self.split = 0
         self.shapes: Counter = Counter()
         self.dtypes: Counter = Counter()
+        LaunchCounter.all.append(self)
+
+    def snapshot(self) -> tuple:
+        return (self.launches, self.split, Counter(self.shapes),
+                Counter(self.dtypes))
+
+    def restore(self, snap: tuple) -> None:
+        self.launches, self.split = snap[0], snap[1]
+        self.shapes, self.dtypes = Counter(snap[2]), Counter(snap[3])
+
+    def add(self, delta: tuple) -> None:
+        """Adds a (launches, split, shapes, dtypes) delta, as recorded
+        between two snapshots."""
+        self.launches += delta[0]
+        self.split += delta[1]
+        self.shapes.update(delta[2])
+        self.dtypes.update(delta[3])
+
+    def since(self, snap: tuple) -> tuple:
+        """The delta of the counts since `snap`."""
+        return (self.launches - snap[0], self.split - snap[1],
+                self.shapes - snap[2], self.dtypes - snap[3])
 
     def record(self, shape_key, dtype=None, split: bool = False) -> None:
         self.launches += 1

@@ -207,8 +207,10 @@ class Attention(nn.Module):
 
     @staticmethod
     def _reslot(module, incompatible_keys):
+        # in place: a captured CUDA graph (core/engine.py) reads these
+        # buffers at their addresses
         for name, t in module._slot_weights().items():
-            setattr(module, name, t)
+            getattr(module, name).copy_(t)
 
     def forward(self, x, context=None):
         if (self.slotted and context is None and x.dim() == 3
@@ -429,8 +431,8 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """Nearest x2 + 3x3 conv through ops.upsample2x_conv3x3 (kernel K4 on
     CUDA). The kernel's 16 folded taps are a buffer, folded from the conv
-    weight at construction and again after every load_state_dict; load
-    weights in the dtype the module runs in."""
+    weight at construction and again, in place, after every
+    load_state_dict; load weights in the dtype the module runs in."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -444,7 +446,10 @@ class Upsample(nn.Module):
 
     @staticmethod
     def _refold(module, incompatible_keys):
-        module.taps = module._fold()
+        # in place: a captured CUDA graph (core/engine.py) reads the taps at
+        # their address
+        with torch.no_grad():
+            module.taps.copy_(module._fold())
 
     def forward(self, x):
         return upsample2x_conv3x3(x, self.conv.weight, self.conv.bias,

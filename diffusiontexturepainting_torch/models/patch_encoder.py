@@ -28,6 +28,7 @@ from ..core.config import (
     CLIP_IMAGE_STD,
     PatchEncoderConfig,
 )
+from ..ops.constants import device_constant
 from ..ops.resize import resize2d
 from .clip_vit import CLIPVisionModel
 from .layers import BasicTransformerBlock, LayerNorm32
@@ -64,10 +65,8 @@ def build_pos_emb(cfg: PatchEncoderConfig) -> np.ndarray:
 
 def clip_normalize(images):
     """(..., H, W, 3) in [0, 1] -> CLIP-normalized."""
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=images.dtype,
-                        device=images.device)
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=images.dtype,
-                       device=images.device)
+    mean = device_constant(CLIP_IMAGE_MEAN, images.device, images.dtype)
+    std = device_constant(CLIP_IMAGE_STD, images.device, images.dtype)
     return (images - mean) / std
 
 
@@ -126,7 +125,7 @@ class ConditionPatchEncoder(nn.Module):
         if clip_tokens is None:
             clip_tokens = self.clip_tokens(image_patches)
         tokens = clip_tokens.reshape(-1, cfg.total_patches, cfg.hid_size)
-        pos = torch.from_numpy(self._pos_emb).to(tokens.device)
+        pos = device_constant(self._pos_emb, tokens.device)
         dtype = self.l_patch_encoder_layers[0].attn1.to_q.weight.dtype
         tokens = (tokens + pos[None]).to(dtype)
         groups = torch.split(tokens, list(cfg.num_patches), dim=1)

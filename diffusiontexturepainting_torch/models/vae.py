@@ -122,7 +122,9 @@ class _Decoder(nn.Module):
         self.conv_out = ConvNHWC(rev[-1], cfg.out_channels, 3, padding=1)
         # the fused head's weight and bias zero-padded to a multiple of 8
         # output channels (bf16 K5 reads the weight through TMA, whose rows
-        # are whole 16 bytes), made again after every load_state_dict
+        # are whole 16 bytes), made again, in place, after every
+        # load_state_dict (a captured CUDA graph reads them at their
+        # addresses: core/engine.py)
         self.register_buffer("conv_out_w8", None, persistent=False)
         self.register_buffer("conv_out_b8", None, persistent=False)
         self._pad_head()
@@ -131,8 +133,13 @@ class _Decoder(nn.Module):
     @torch.no_grad()
     def _pad_head(self):
         if self.conv_out.weight.shape[-1] % 8:
-            self.conv_out_w8, self.conv_out_b8 = pad_cout(
-                self.conv_out.weight.detach(), self.conv_out.bias.detach())
+            w8, b8 = pad_cout(self.conv_out.weight.detach(),
+                              self.conv_out.bias.detach())
+            if self.conv_out_w8 is None:
+                self.conv_out_w8, self.conv_out_b8 = w8, b8
+            else:
+                self.conv_out_w8.copy_(w8)
+                self.conv_out_b8.copy_(b8)
 
     @staticmethod
     def _repad(module, incompatible_keys):

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from .constants import device_constant
+
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
     """Keys cubic convolution kernel (torch uses a=-0.75)."""
@@ -79,10 +81,10 @@ def resize2d(img, out_h: int, out_w: int, mode: str = "bilinear",
     h, w = img.shape[-3], img.shape[-2]
     if mode == "nearest":
         align_corners = False
-    wh = torch.tensor(_resize_matrix(h, out_h, mode, align_corners),
-                      dtype=img.dtype, device=img.device)
-    ww = torch.tensor(_resize_matrix(w, out_w, mode, align_corners),
-                      dtype=img.dtype, device=img.device)
+    wh = device_constant(_resize_matrix(h, out_h, mode, align_corners),
+                         img.device, img.dtype)
+    ww = device_constant(_resize_matrix(w, out_w, mode, align_corners),
+                         img.device, img.dtype)
     out = torch.einsum("oh,...hwc->...owc", wh, img)
     return torch.einsum("pw,...owc->...opc", ww, out)
 

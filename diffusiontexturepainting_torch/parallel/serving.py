@@ -6,7 +6,10 @@ cond/uncond, draws and settings (cfg_weight, tg_weight, tg_steps,
 context_pad), runs as one stamp program (pipeline/inpaint.py
 stamp.batched: the VAE encode at 2B, the UNet at 3B, the decode at B), at
 the serving model's operating point (its scheduler, DeepCache spec and f32
-final step) and on the legs its configuration picks. The JAX package traces
+final step) and on the legs its configuration picks. The program is the
+model's engine's (core/engine.py): on CUDA a CUDA graph per batch size,
+captured at the first batch of that size, as the JAX package compiles its
+batched program at its first batch, and replayed after. The JAX package traces
 its batched program from the safe twin because Pallas could not lower the
 vmap; the port's kernels take a batch, so the default configuration's
 batch runs the fused kernels.
@@ -26,9 +29,10 @@ class ParallelStampEngine:
 
     def stamp_fn(self, steps: int):
         """The stamp function of `steps` at the model's operating point: the
-        model's own, built once per (scheduler, steps, DeepCache spec, f32
-        final step) and shared with its solo stamps; it does not depend on
-        the resolution. Every caller runs on the service's one worker."""
+        model's own engine Stamp, built once per (scheduler, steps,
+        DeepCache spec, f32 final step) and shared with its solo stamps; its
+        programs are per resolution and batch size. Every caller runs on
+        the service's one worker."""
         return self.model._stamp_fn(steps)
 
     def stamp_batch(self, canvases_u8, brushes, conds, unconds, enc_noise,

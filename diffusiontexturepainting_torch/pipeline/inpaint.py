@@ -11,12 +11,17 @@ pattern, the f32 final step):
        + dual-guidance combine + scheduler step)
     -> VAE decode -> [0,1] -> alpha composite -> u8 (truncating)
 
-The loop runs eagerly, one model call after another, each of the kind the
+The loop is Python, one model call after another, each of the kind the
 host schedule `model_call_schedule` gives it: "exact" (the UNet's forward),
 "full" (forward_full, which also caches the deep feature), "shallow"
 (forward_shallow against the latest cache) or "final" (the fp32 UNet of the
 f32 final step, which caches nothing). The JAX package groups the same
-schedule into scan bodies, which an eager loop does not need.
+schedule into scan bodies. Called directly, the function runs eagerly; the
+serving model captures it once per operating point as a CUDA graph and
+replays that (core/engine.py). So `stamp.run`, the body the graph holds,
+reads every request value from the device: the four settings are (B,)
+tensors, the texture-guidance scale of each call is computed from them on
+the device, the context pad dilates through the per-image tensor path.
 
 The random draws are inputs: `enc_noise` (the VAE posterior sample of both
 branches), `init_latents` and, for a stochastic scheduler (EulerA),
@@ -28,7 +33,9 @@ jax.vmap of its stamp, parallel/serving.py): each request its own canvas,
 brush, cond/uncond, draws and settings (cfg_weight, tg_weight, tg_steps,
 context_pad, one value a request); the VAE encode at batch 2B, the UNet at
 3B, branch-major [uncond x B, cond x B, cond x B], the decode at B. At
-B = 1 it runs the ops of the single stamp, which is batched()[0].
+B = 1 it runs the ops of the single stamp, which is batched()[0]. Host
+settings reach the device by fill_ (setting_tensor), never by a copy from
+host memory, so a stroke session's stamp is enqueued without waiting.
 """
 
 from __future__ import annotations
@@ -122,7 +129,8 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
     forward_full and forward_shallow; unet_final(sample, t, ctx) -> eps,
     the fp32 eval, is needed where final_step_f32. The whole stamp runs
     under ieee_fp32(). stamp.batched(...) takes B requests at once (its
-    docstring); stamp(...) is its B = 1 case, batched(...)[0]."""
+    docstring); stamp(...) is its B = 1 case, batched(...)[0];
+    stamp.run(...) is batched with the settings as (B,) device tensors."""
     scheduler = make_scheduler(scheduler_name).set_timesteps(num_steps)
     rows = scheduler.rows()
     schedule = model_call_schedule(deep_cache_interval,
@@ -144,6 +152,21 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         return unet_final(unet_in, t, embeddings), cache
 
     @torch.inference_mode()
+    def run(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
+            cfg_weight, tg_weight, tg_steps, context_pad, step_noise=None):
+        """batched() with every setting a (B,) tensor on the canvas's
+        device (cfg_weight and tg_weight float32, tg_steps and context_pad
+        int64): nothing of a request is read on the host, so a captured
+        CUDA graph of it serves any request (core/engine.py)."""
+        require_kernels("stamp")
+        if scheduler.stochastic and step_noise is None:
+            raise ValueError(f"{scheduler_name} is stochastic: the stamp "
+                             "needs its step_noise")
+        with ieee_fp32():
+            return body(canvas_u8, brush, cond, uncond, enc_noise,
+                        init_latents, cfg_weight, tg_weight, tg_steps,
+                        context_pad, step_noise)
+
     def batched(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
                 cfg_weight, tg_weight, tg_steps, context_pad,
                 step_noise=None):
@@ -154,13 +177,12 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         None; each setting a host number (every request's) or a sequence
         of B. Returns (raw_u8, composited_u8), each (B,H,W,3)."""
         require_kernels("stamp")
-        if scheduler.stochastic and step_noise is None:
-            raise ValueError(f"{scheduler_name} is stochastic: the stamp "
-                             "needs its step_noise")
-        with ieee_fp32():
-            return body(canvas_u8, brush, cond, uncond, enc_noise,
-                        init_latents, cfg_weight, tg_weight, tg_steps,
-                        context_pad, step_noise)
+        B, dev = canvas_u8.shape[0], canvas_u8.device
+        settings = [setting_tensor(v, B, dt, dev) for v, dt in
+                    zip((cfg_weight, tg_weight, tg_steps, context_pad),
+                        SETTING_DTYPES)]
+        return run(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
+                   *settings, step_noise)
 
     def stamp(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
               cfg_weight, tg_weight, tg_steps, context_pad, step_noise=None):
@@ -168,21 +190,6 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
                             init_latents, cfg_weight, tg_weight, tg_steps,
                             context_pad, step_noise)
         return raw[0], comp[0]
-
-    def guidance(B, cfg_weight, tg_weight, tg_steps, device):
-        """(cfg, [the texture-guidance scale of each model call]): host
-        floats at B = 1, else (B,1,1,1) fp32 tensors on `device`; call i's
-        scale is tg_weight where i < tg_steps, else 0 (JAX
-        pipeline/inpaint.py:200)."""
-        cfg, tgw, tgs = (per_request(v, B) for v in (cfg_weight, tg_weight,
-                                                    tg_steps))
-        scales = [[float(w) if i < int(s) else 0.0 for w, s in zip(tgw, tgs)]
-                  for i in range(len(rows))]
-        if B == 1:
-            return float(cfg[0]), [row[0] for row in scales]
-        as_tensor = lambda v: torch.tensor(v, dtype=torch.float32).view(
-            -1, B, 1, 1, 1).to(device)
-        return as_tensor([float(c) for c in cfg])[0], list(as_tensor(scales))
 
     def body(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
              cfg_weight, tg_weight, tg_steps, context_pad, step_noise):
@@ -192,10 +199,8 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         mask = canvas[..., 3:4]
         masked_images = images * mask
 
-        pads = per_request(context_pad, B)
         ctx_masked, ctx_mask = add_extra_context(
-            brush.float() * 2.0 - 1.0, masked_images, mask,
-            pads[0] if len(set(pads)) == 1 else pads)
+            brush.float() * 2.0 - 1.0, masked_images, mask, context_pad)
         # UNet convention: 1 = generate here
         m_lat = nearest_downsample(1.0 - mask, 8)
         cm_lat = nearest_downsample(1.0 - ctx_mask, 8)
@@ -206,8 +211,11 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         masked_latents = torch.cat([lat[:B], lat[:B], lat[B:]], dim=0)
         embeddings = torch.cat([uncond.float(), cond.float(), cond.float()],
                                dim=0)
-        cfg, tg_scales = guidance(B, cfg_weight, tg_weight, tg_steps,
-                                  canvas.device)
+        # call i's texture-guidance scale is tg_weight where i < tg_steps,
+        # else 0 (JAX pipeline/inpaint.py:200), computed on the device
+        cfg = cfg_weight.view(B, 1, 1, 1)
+        tgw = tg_weight.view(B, 1, 1, 1)
+        tgs = tg_steps.view(B, 1, 1, 1)
 
         latents = init_latents.float() * scheduler.init_noise_sigma
         state = scheduler.init_state(latents)
@@ -220,8 +228,9 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
                            device=latents.device)
             out, cache = model_call(kind, unet_in, t, embeddings, cache)
             eps_u, eps_c, eps_tg = out.chunk(3)
+            tg_scale = torch.where(tgs > i, tgw, 0.0)
             eps = (eps_u + cfg * (eps_c - eps_u)
-                   + tg_scales[i] * (eps_tg - eps_c))
+                   + tg_scale * (eps_tg - eps_c))
             noise = (step_noise[i].float() if scheduler.stochastic
                      else None)
             latents, state = scheduler.step(eps, latents, row, state, noise)
@@ -232,9 +241,14 @@ def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,
         return _to_u8(result), _to_u8(composited)
 
     stamp.batched = batched
+    stamp.run = run
     stamp.scheduler = scheduler
     stamp.schedule = schedule
     return stamp
+
+
+# the dtypes of run()'s settings: cfg_weight, tg_weight, tg_steps, context_pad
+SETTING_DTYPES = (torch.float32, torch.float32, torch.int64, torch.int64)
 
 
 def per_request(value, B: int) -> list:
@@ -249,6 +263,22 @@ def per_request(value, B: int) -> list:
                              f"batch of {B}")
         return values
     return [value] * B
+
+
+def fill_values(out, values) -> None:
+    """out (B,) := values, B host numbers, one fill_ a value: each value
+    travels as a kernel argument, so no copy from host memory waits for
+    the stream."""
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+
+
+def setting_tensor(value, B: int, dtype, device):
+    """A stamp setting (per_request's host values) as run() takes it, a
+    (B,) `dtype` tensor on `device`."""
+    out = torch.empty(B, dtype=dtype, device=device)
+    fill_values(out, per_request(value, B))
+    return out
 
 
 def _to_u8(x):

@@ -13,13 +13,16 @@ small request, two coordinates and the settings:
                           window, inside the 1-px stamp edge mask
     ERASE_AT(x0, y0)  ->  zero RGBA under a filled circle in the window
 
-The canvas is updated in place (the JAX package donates its buffer). Each
-stamp is dispatched eagerly on the canvas's stream, so consecutive stamps
-chain on the device in request order and nothing returns to the host until
-the caller downloads; the JAX package's lax.scan stroke programs and flush
-buckets answer XLA dispatch and round-trip costs that eager PyTorch does
-not have. Coordinates are host integers, clamped on the host, so no step
-reads a device value back.
+The canvas is updated in place (the JAX package donates its buffer). The
+window's position is a host value, so the crop and the write-back run
+eagerly on the device around the stamp; the serving model's stamp is its
+engine's program (core/engine.py), which copies the crop into its canvas
+buffer on the device and replays its CUDA graph. All of it is enqueued on
+the canvas's stream, so consecutive stamps chain on the device in request
+order and nothing returns to the host until the caller downloads; the JAX
+package's lax.scan stroke programs and flush buckets answer dispatch and
+round-trip costs that one replay a stamp does not have. Coordinates are
+host integers, clamped on the host, so no step reads a device value back.
 
 Constants follow the painting client (client/painter.py of the JAX
 package): STAMP_EDGE_MARGIN, the overpaint margin 37/256 of the stamp, and
@@ -109,9 +112,9 @@ def session_stamp(stamp, canvas, brush, cond, uncond, enc_noise,
                   tg_steps, context_pad, margin: int = 0, step_noise=None):
     """One stamp into the resident `canvas` (H, W, 4) uint8, in place;
     returns the composited crop (res, res, 3) uint8 on the device. `stamp`
-    is inpaint.make_stamp_fn's function (any scheduler; `step_noise` its
-    per-step draws), res the brush's size; margin > 0 clears the crop's
-    centre first (overpaint)."""
+    is inpaint.make_stamp_fn's function or the engine's Stamp around it
+    (any scheduler; `step_noise` its per-step draws), res the brush's size;
+    margin > 0 clears the crop's centre first (overpaint)."""
     height, width = canvas.shape[:2]
     res = brush.shape[1]
     x, y = clamped_corner(x0, y0, res, width, height)

@@ -11,15 +11,23 @@ schedulers.available_schedulers(); DDIM by default).
 Weights: seeded random ones, a state_dict per component (`weights`), or a
 checkpoint in the JAX package's format (`checkpoint_dir`,
 weights/loader.py); `reload_params` swaps in another checkpoint while
-serving. `warmup` builds the kernels and runs one stamp per operating
-point, so a server's first painter does not pay them.
+serving. `warmup` builds the kernels and captures one stamp program per
+operating point, so a server's first painter does not pay them.
+
+Every stamp, session stamp, batch and brush encode is served by the
+model's engine (core/engine.py): on CUDA one CUDA graph per (scheduler,
+resolution, steps, DeepCache spec, f32 final step, batch size), captured
+at its first call and replayed; the brush encode one a resolution. On the
+CPU the engine runs the same functions eagerly. The eager stamp functions
+stay reachable as `_stamp_fn(steps).eager`.
 
 Stroke sessions (`begin_session`, `stamp_at`, `erase_at`, `fetch_canvas`,
 `sync_session`, `end_session`; pipeline/session.py) keep the canvas on the
 device as a (H, W, 4) uint8 tensor, stamps of the model's resolution. Each
-STAMP_AT is dispatched eagerly; without pixels it returns before the stamp
-has run, and only fetch_canvas, sync_session and the pixel-returning
-requests wait for the device.
+STAMP_AT crops on the device, replays its program and writes back, all
+enqueued; without pixels it returns before the stamp has run, and only
+fetch_canvas, sync_session and the pixel-returning requests wait for the
+device.
 
 The configuration's fused_* switches choose the UNet's and the VAE's
 serving legs: by default, as in the JAX package, the fused kernels (K1,
@@ -35,7 +43,8 @@ fp32 over the serving UNet's weights upcast, a second module kept beside
 the bf16 one and refreshed by reload_params), and `dtype_overrides`
 (components computed, and their weights kept, in another dtype: the
 --f32-components flag). A stamp function is cached per scheduler, step
-count, DeepCache spec and f32 final step, every static knob of a stamp.
+count, DeepCache spec and f32 final step, every static knob of a stamp;
+its programs per resolution and batch size in the engine.
 
 Random draws: request n (the model's request counter) draws its VAE
 posterior noise, its initial latents and, for a stochastic scheduler, its
@@ -52,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.engine import Engine, Stamp
 from ..core.config import (
     COMPONENTS,
     PatchEncoderConfig,
@@ -146,6 +156,9 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
             self.final_unet.to(torch.float32).eval().requires_grad_(False)
             self._refresh_final_unet()
         self.init_seconds = time.perf_counter() - tic
+        self.engine = Engine(self.device)
+        # {warm-up point: its program's capture record}: engine.captures
+        self.warmup_captures = {}
         self._stamp_fns = {}
         self._schedulers = {}
         self.request_counter = 0
@@ -169,7 +182,9 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         validated before any weight is copied, so a checkpoint that fails
         leaves the old weights serving; load_state_dict's hooks rebuild the
         derived buffers (the slotted q/k/v, the upsamplers' folded taps, the
-        decoder's padded head)."""
+        decoder's padded head). Every weight is copied into its tensor, so
+        the engine's captured programs are kept and read the new values, as
+        the JAX engine keeps its compiled programs."""
         models = {name: getattr(self, name) for name in self._COMPONENTS}
         weights = load_pipeline_params(checkpoint_dir, models)
         if self._session_canvas is not None:
@@ -183,11 +198,14 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         canvas per (resolution, steps[, DeepCache spec]) of `points`
         (default: the model's resolution at the configuration's steps; the
         spec, where given, instead of the configuration's for that step
-        count); returns {point: seconds} keyed (resolution, steps) or
-        (resolution, steps, spec) as the point was given, each stamp
-        synchronized. The request counter is put back, so the first
-        request after a warm-up draws what it would have drawn without
-        one."""
+        count), which captures its program on CUDA (Engine.warmup of the
+        JAX package); returns {point: seconds, capture included} keyed
+        (resolution, steps) or (resolution, steps, spec) as the point was
+        given, each stamp synchronized. `warmup_captures[point]` holds the
+        capture's seconds and the pool's bytes after it, where this warm-up
+        captured the point's program. The request
+        counter is put back, so the first request after a warm-up draws
+        what it would have drawn without one."""
         if self.device.type == "cuda":
             from .. import _cuda
 
@@ -203,10 +221,14 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                 if len(point) > 2:
                     interval = parse_deep_cache_spec(point[2])
                     key += (interval,)
+                prog = self._stamp_fn(steps, interval).program_key(res, 1)
+                captured = prog in self.engine.captures
                 tic = time.perf_counter()
                 self._run_stamp(np.zeros((res, res, 4), np.uint8),
                                 interval=interval, steps=steps)
                 out[key] = time.perf_counter() - tic
+                if not captured and prog in self.engine.captures:
+                    self.warmup_captures[key] = self.engine.captures[prog]
         finally:
             self.request_counter = counter
         return out
@@ -232,8 +254,9 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         return dataclasses.replace(config, deep_cache_interval=spec)
 
     def set_deep_cache(self, interval, min_steps: int | None = None) -> None:
-        """Switch the DeepCache operating point; the stamp functions are
-        cached per spec, so switching back rebuilds nothing."""
+        """Switch the DeepCache operating point; the stamp functions and
+        their captured programs are kept per spec, so switching back
+        rebuilds nothing."""
         kw = dict(deep_cache_interval=interval)
         if min_steps is not None:
             kw["deep_cache_min_steps"] = int(min_steps)
@@ -285,15 +308,21 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
     @torch.inference_mode()
     def encode_brush(self, image: np.ndarray):
         """(image, brush, cond, uncond) of a brush image, the model's own
-        brush untouched: the (res, res, 3) float32 crop, it as a (1, res,
-        res, 3) tensor on the device, and its cross-attention tokens."""
+        brush untouched: the (res, res, 3) float32 crop (made on the host),
+        it as a (1, res, res, 3) tensor on the device, and its
+        cross-attention tokens, from the engine's brush program of the
+        resolution (the JAX model's jit of encode_brush_image)."""
         require_kernels("set_brush")
         image = crop_resize_square(ensure_float01(image)[..., :3],
                                    self._resolution).astype(np.float32)
         brush = torch.from_numpy(image[None]).to(self.device)
-        with ieee_fp32():
-            cond, uncond = encode_brush_image(self.patch_encoder, brush)
+        cond, uncond = self.engine.program(
+            ("brush", self._resolution), self._encode_brush)(brush)
         return image, brush, cond, uncond
+
+    def _encode_brush(self, brush):
+        with ieee_fp32():
+            return encode_brush_image(self.patch_encoder, brush)
 
     def _settings(self, settings):
         c = self.config
@@ -306,9 +335,10 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                 int(settings.get("context_pad", c.context_pad)))
 
     def _stamp_fn(self, steps: int, interval=None):
-        """The stamp function of (the configuration's scheduler, steps, the
-        DeepCache spec: `interval`, else the configuration's at `steps`,
-        and the f32 final step), built once per key."""
+        """The served stamp function of (the configuration's scheduler,
+        steps, the DeepCache spec: `interval`, else the configuration's at
+        `steps`, and the f32 final step), built once per key: the engine's
+        core.engine.Stamp around make_stamp_fn's function (`.eager`)."""
         steps = int(steps)
         if interval is None:
             interval = self._cache_interval(steps)
@@ -321,7 +351,7 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                                c.scheduler, deep_cache_interval=interval,
                                final_step_f32=c.f32_final_step,
                                unet_final=self.final_unet)
-            self._stamp_fns[key] = fn
+            fn = self._stamp_fns[key] = Stamp(self.engine, fn, key)
         return fn
 
     def draws(self, counter: int, res: int, steps: int | None = None):

@@ -15,8 +15,15 @@ every call of K7/K4, as chip_smoke.py's twin_inpad path runs them; with
 any step count (deep_cache_min_steps 1); with --f32-final-step, the last
 model call on the fp32 UNet; the stamp's schedule of model calls is
 printed):
-  - the wall time of `--stamps` unprofiled stamps (after two warm-up
-    stamps): median, quartiles, min and max;
+  - the served stamp (model.generate_u8, a replay of the engine's CUDA
+    graph of the point, core/engine.py) beside the eager stamp function at
+    the same point (the model's stamp functions swapped for their `.eager`
+    while it runs: eager_stamps): the capture's seconds and the engine
+    pool's bytes, the wall time of `--stamps` unprofiled stamps of each
+    (after two warm-up stamps): median, quartiles, min and max; the first
+    served stamp after the warm-up beside the later ones; one replay's
+    CUDA-event time (the device's time for the stamp's kernels, with no
+    host gap) and each path's busy share of its median wall;
   - CUDA-event times of one UNet eval (the CFG batch of 3), one VAE encode
     (batch 2) and one VAE decode at the stamp's shapes, and of one shallow
     eval and one fp32 final eval where the stamp has them;
@@ -24,14 +31,15 @@ printed):
     top-level PyTorch operations that eval issues, and the Python functions
     that took the most host time in it (cProfile, which slows every call:
     compare trees, not absolute times);
-  - one stamp under torch.profiler: its device kernel time, the device's
-    busy share of that stamp's wall, and the kernels that took the most
-    device time.
+  - one stamp of each path under torch.profiler: its device kernel time,
+    the device's busy share of that stamp's wall, and the kernels that
+    took the most device time.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import dataclasses
 import pstats
@@ -62,6 +70,41 @@ def cuda_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def eager_stamps(model):
+    """Inside, the model serves its per-request and session stamps through
+    the eager stamp functions (each cached Stamp's `.eager`), for a
+    measurement beside the engine's replays; its engine is untouched, and
+    the served functions come back on leaving."""
+    saved = dict(model._stamp_fns)
+    model._stamp_fns.update({k: fn.eager for k, fn in saved.items()})
+    try:
+        yield
+    finally:
+        model._stamp_fns.update(saved)
+
+
+def percentiles(walls) -> str:
+    p25, p50, p75 = np.percentile(walls, [25, 50, 75])
+    return (f"median {p50:.1f} p25 {p25:.1f} p75 {p75:.1f} "
+            f"min {min(walls):.1f} max {max(walls):.1f}")
+
+
+def replay_ms(program, iters: int = 3) -> float:
+    """The median CUDA-event time of one replay of a captured program: the
+    device's time for its kernels, launched with no host gap."""
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        program.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def main(argv=None) -> None:
@@ -106,18 +149,36 @@ def main(argv=None) -> None:
     def stamp():
         model.generate_u8(canvas, **settings)
 
-    for _ in range(2):
-        stamp()
-    walls = []
-    for _ in range(args.stamps):
+    def timed():
         torch.cuda.synchronize()
         tic = time.perf_counter()
         stamp()
-        walls.append((time.perf_counter() - tic) * 1e3)
-    p25, p50, p75 = np.percentile(walls, [25, 50, 75])
-    print(f"stamp wall ms ({res}^2, {args.steps} steps, {model.dtype}, "
-          f"n={args.stamps}): median {p50:.1f} p25 {p25:.1f} p75 {p75:.1f} "
-          f"min {min(walls):.1f} max {max(walls):.1f}")
+        return (time.perf_counter() - tic) * 1e3
+
+    counter = model.request_counter
+    warm = model.warmup([(res, args.steps)])[(res, args.steps)]
+    key = model._stamp_fn(args.steps).program_key(res, 1)
+    captured = model.engine.captures[key]
+    print(f"served program {key}: warm-up {warm:.2f} s, of which the eager "
+          f"pass and the capture {captured['seconds']:.2f} s; engine pool "
+          f"{captured['pool_bytes'] / 2**30:.2f} GiB reserved")
+    first = timed()
+    stamp()
+    walls = {"graph": [timed() for _ in range(args.stamps)]}
+    with eager_stamps(model):
+        for _ in range(2):
+            stamp()
+        walls["eager"] = [timed() for _ in range(args.stamps)]
+    model.request_counter = counter
+    p50 = float(np.median(walls["graph"]))
+    device = replay_ms(model.engine.programs[key])
+    for path, w in walls.items():
+        print(f"stamp wall ms, {path} ({res}^2, {args.steps} steps, "
+              f"{model.dtype}, n={args.stamps}): {percentiles(w)}; busy "
+              f"share {device / np.median(w):.3f}")
+    print(f"one replay: {device:.2f} ms of device time (CUDA events); the "
+          f"first served stamp after the warm-up {first:.1f} ms against "
+          f"the later ones' median {p50:.1f}")
 
     lat = res // 8
     dev, dt = model.device, model.dtype
@@ -177,21 +238,27 @@ def main(argv=None) -> None:
         print(f"  {(where + name)[:70]:<70} {tt * 1e3:8.2f} ms own, "
               f"{ct * 1e3:8.2f} ms with callees, x{calls}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        stamp()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - tic) * 1e3
-    rows = [k for k in prof.key_averages() if k.device_type.name == "CUDA"]
-    device_ms = sum(k.self_device_time_total for k in rows) / 1e3
-    print(f"profiled stamp: wall {wall:.1f} ms, device kernel time "
-          f"{device_ms:.1f} ms, busy share {device_ms / wall:.3f} of the "
-          f"profiled wall, {device_ms / p50:.3f} of the unprofiled median")
-    for k in sorted(rows, key=lambda k: -k.self_device_time_total)[:args.top]:
-        print(f"  {k.key[:90]:<90} {k.self_device_time_total / 1e3:8.2f} ms "
-              f"x{k.count}")
+    for path, ctx in (("graph", contextlib.nullcontext()),
+                      ("eager", eager_stamps(model))):
+        with ctx, profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            stamp()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - tic) * 1e3
+        rows = [k for k in prof.key_averages()
+                if k.device_type.name == "CUDA"]
+        device_ms = sum(k.self_device_time_total for k in rows) / 1e3
+        median = float(np.median(walls[path]))
+        print(f"profiled stamp, {path}: wall {wall:.1f} ms, device kernel "
+              f"time {device_ms:.1f} ms, busy share {device_ms / wall:.3f} "
+              f"of the profiled wall, {device_ms / median:.3f} of the "
+              "unprofiled median")
+        for k in sorted(rows,
+                        key=lambda k: -k.self_device_time_total)[:args.top]:
+            print(f"  {k.key[:90]:<90} {k.self_device_time_total / 1e3:8.2f}"
+                  f" ms x{k.count}")
 
 
 if __name__ == "__main__":

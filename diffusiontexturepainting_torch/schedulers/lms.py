@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.constants import device_constant
 from .base import (
     Scheduler,
     alphas_cumprod_from_betas,
@@ -94,7 +95,6 @@ class LMSDiscreteScheduler(Scheduler):
                        + sample / float(sigma**2 + 1.0))
         derivative = (sample - pred_x0) / float(sigma)
         derivs = torch.cat([derivative[None], state["derivs"][:-1]], dim=0)
-        coeffs = torch.from_numpy(np.asarray(row["coeffs"])).to(
-            derivs.device)
+        coeffs = device_constant(row["coeffs"], derivs.device)
         prev = sample + torch.tensordot(coeffs, derivs, dims=1)
         return prev, {"derivs": derivs}

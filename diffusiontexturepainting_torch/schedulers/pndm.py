@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.constants import device_constant
 from .base import Scheduler, alphas_cumprod_from_betas, scaled_linear_betas
 
 
@@ -119,7 +120,7 @@ class PNDMScheduler(Scheduler):
 
         w = np.asarray(row["w"])
         eff = float(w[0]) * model_output + torch.tensordot(
-            torch.from_numpy(w[1:].copy()).to(ets.device), ets, dims=1)
+            device_constant(w[1:], ets.device), ets, dims=1)
 
         # the cached sample replaces the sample BEFORE the v-prediction
         # conversion, as the reference's repeated call does

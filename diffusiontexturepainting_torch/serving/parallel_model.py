@@ -4,8 +4,8 @@ Port of the JAX package's serving/parallel_model.py for `--mesh data=1
 --max-batch N`, on threads rather than asyncio (the port's server is
 websockets.sync: a thread a connection). Stamps from concurrent websocket
 connections are micro-batched and run as one batched stamp program
-(parallel/serving.py ParallelStampEngine), each request with its own
-settings; a lone request still runs alone after `window_ms`. Unlike the
+(parallel/serving.py ParallelStampEngine; on CUDA the replay of a CUDA graph
+per batch size, core/engine.py), each request with its own settings; a lone request still runs alone after `window_ms`. Unlike the
 JAX dispatcher, which hands a batch to the device when its window ends, a
 batch here is taken when the device is free for it, and waits longer
 (RETURN_MS) for a painter of the last batch: painters who each send their

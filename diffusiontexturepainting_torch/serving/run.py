@@ -16,10 +16,12 @@ GET /health), with the JAX package's single-chip flags
 its canvas's size); --config picks the serving legs: default (the fused
 kernels), safe_twin (module legs only) or slotted (default plus the
 head-slotted self-attention). At startup the server builds the kernels and
-runs one stamp per --warmup-points operating point (default: the model's
-resolution at 20 steps), unless --no-warmup; --session-canvas WxH also
-runs a stroke session on such a canvas. --device cpu --tiny serves the
-tiny test models on the CPU.
+captures one stamp program (a CUDA graph, core/engine.py) per
+--warmup-points operating point (default: the model's resolution at 20
+steps), unless --no-warmup; --session-canvas WxH also runs a stroke
+session on such a canvas, which captures the points' session stamps where
+they differ. --device cpu --tiny serves the tiny test models on the CPU
+(no graphs there: the engine runs eagerly).
 
 The operating points: --deep-cache-interval (an int >= 1, the full UNet
 every that many model calls from deep_cache_min_steps steps on, or an
@@ -211,7 +213,9 @@ def make_parser() -> argparse.ArgumentParser:
 def build_server(argv=None):
     """run.py's whole assembly, from its arguments to a bound server
     (serve_forever() serves it); the server also carries `model`,
-    `model_info` and `startup` (seconds of each warm-up)."""
+    `model_info` and `startup` (seconds of each warm-up; on CUDA also each
+    point's capture seconds, "<point> capture", and the engine pool's
+    reserved bytes after it, "<point> pool_bytes")."""
     args = make_parser().parse_args(argv)
     from .server import create_server
 
@@ -270,6 +274,10 @@ def build_server(argv=None):
                 name = "x".join(str(v) for v in point)
                 startup[name] = secs
                 logger.info("warm-up %s: %.1f s", name, secs)
+                captured = model.warmup_captures.get(point)
+                if captured:
+                    startup[f"{name} capture"] = captured["seconds"]
+                    startup[f"{name} pool_bytes"] = captured["pool_bytes"]
             if model.build_seconds is not None:
                 startup["build"] = model.build_seconds
     service = None

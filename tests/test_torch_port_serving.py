@@ -58,7 +58,8 @@ def test_port_imports_without_jax():
         "          'schedulers.lms', 'schedulers.pndm',\n"
         "          'tools.check_fidelity', 'tools.deepcache_split',\n"
         "          'training.train', 'models.lora', 'parallel.mesh',\n"
-        "          'parallel.serving', 'serving.parallel_model'):\n"
+        "          'parallel.serving', 'serving.parallel_model',\n"
+        "          'core.engine', 'ops.constants'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)
