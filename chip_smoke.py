@@ -74,7 +74,9 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                the default model: GET /health, then a NEW_BRUSH_IMAGE, a
                NEW_BRUSH_PROMPT and a NEW_STAMP over a websocket, each reply
                byte-equal to the request handler's at the same request
-               counter;
+               counter; then the model's StageTimer table (utils/
+               profiling.py: brush-encode, stamp xN, stamp u8 xN; wall and
+               device ms a stage);
   6b. session  a stroke session on the default model at 256^2 / 4 steps
                through the request handler: BEGIN_SESSION on a 512^2
                canvas, four STAMP_ATs that return no pixels (one
@@ -132,6 +134,24 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                /inpaint of the second) byte-equal, walls side by side, and
                a --mock server with no card visible; every process stopped;
                the directory removed;
+  6d2. convert the reference's released artifacts written from the default
+               model's weights (the UNet as a diffusers-named .bin, the VAE
+               as an AutoencoderKL .safetensors of F16 tensors in the old
+               attention names, a seeded rank-4 attn-procs LoRA over every
+               UNet attention projection, image_encoder.pth with an
+               OpenAI-named CLIP tower, a seeded CLIPTextModel-named text
+               tower in fp16), converted by `python -m
+               diffusiontexturepainting_torch.weights.convert` in a process
+               of its own (seconds and bytes a component); a model seeded
+               otherwise reload_params from the result: every state_dict
+               entry bit for bit the written weights after their float32 /
+               F16 round trip with the LoRA merged, a NEW_STAMP (256^2 / 4)
+               byte-equal to a model given those weights directly and
+               unlike the base model's, the default path's launches; the
+               text tower from load_text_encoder, bit for bit, through
+               encode_prompt in bf16 on the card against fp32 on the CPU
+               (TEXT_MAX_ERR, TEXT_MEAN_ERR); the phase within
+               CONVERT_MAX_S;
   6e. deep_cache
                DeepCache at full width through the request handler, as
                phase 4 (the replay bit-identical, replies checked, each
@@ -1865,6 +1885,356 @@ def checkpoint_phase(model):
         shutil.rmtree(directory, ignore_errors=True)
     release()
     return dict(bytes=nbytes, save_s=save_s, reload_s=reload_s)
+
+
+# --- the reference's released artifacts, written from the port's
+# state_dicts: the convert phase's inputs (tests/test_torch_port_convert.py
+# builds its files with the same functions) ---
+
+CONVERT_LORA_RANK = 4
+CONVERT_LORA_SCALE = 0.75
+CONVERT_MAX_S = 120.0  # the convert phase's time, files and models included
+# the text tower in bf16 on the card against its fp32 evaluation on the CPU
+# (the last hidden state, LayerNorm'd: about unit scale)
+TEXT_MAX_ERR = 0.25
+TEXT_MEAN_ERR = 0.03
+VAE_OLD_ATTENTION = (("to_q", "query"), ("to_k", "key"), ("to_v", "value"),
+                     ("to_out.0", "proj_attn"))
+
+
+def torch_layout(sd):
+    """A port state_dict in torch's layouts, fp32 on the CPU: conv weights
+    (kH, kW, Cin, Cout) -> (Cout, Cin, kH, kW)."""
+    return {k: (v.permute(3, 2, 0, 1) if v.dim() == 4 else v).float().cpu()
+            .contiguous() for k, v in sd.items()}
+
+
+def autoencoder_kl(encoder_sd, decoder_sd, old_attention=False):
+    """The VAE's halves as one diffusers AutoencoderKL state_dict;
+    `old_attention`: the mid-block attentions under the older names
+    (query, key, value, proj_attn)."""
+    sd = {**torch_layout(encoder_sd), **torch_layout(decoder_sd)}
+    if old_attention:
+        for k in list(sd):
+            for new, old in VAE_OLD_ATTENTION:
+                part = f".attentions.0.{new}."
+                if part in k:
+                    sd[k.replace(part, f".attentions.0.{old}.")] = sd.pop(k)
+    return sd
+
+
+def openai_visual(tower, prefix="clip.visual"):
+    """The port's CLIP tower (vision_model.*, torch layouts) under OpenAI
+    CLIP's visual names, q, k and v as one in_proj."""
+    import torch
+
+    v = "vision_model."
+    out = {f"{prefix}.class_embedding": tower[v + "embeddings.class_embedding"],
+           f"{prefix}.positional_embedding":
+               tower[v + "embeddings.position_embedding.weight"],
+           f"{prefix}.conv1.weight":
+               tower[v + "embeddings.patch_embedding.weight"]}
+    layers = {int(k.split(".")[3]) for k in tower
+              if k.startswith(v + "encoder.layers.")}
+    for part in ("weight", "bias"):
+        out[f"{prefix}.ln_pre.{part}"] = tower[f"{v}pre_layrnorm.{part}"]
+        out[f"{prefix}.ln_post.{part}"] = tower[f"{v}post_layernorm.{part}"]
+        for i in sorted(layers):
+            src = f"{v}encoder.layers.{i}."
+            dst = f"{prefix}.transformer.resblocks.{i}."
+            out[f"{dst}attn.in_proj_{part}"] = torch.cat(
+                [tower[f"{src}self_attn.{p}.{part}"]
+                 for p in ("q_proj", "k_proj", "v_proj")])
+            for a, b in (("self_attn.out_proj", "attn.out_proj"),
+                         ("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"),
+                         ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj")):
+                out[f"{dst}{b}.{part}"] = tower[f"{src}{a}.{part}"]
+    return out
+
+
+def image_encoder_file(patch_sd, clip="openai"):
+    """image_encoder.pth's state_dict from the port's patch encoder, its CLIP
+    tower in OpenAI naming (with keys the converter does not read: the
+    visual projection and logit_scale), in Hugging Face naming ("hf": the
+    pre-LayerNorm as pre_layrnorm, "hf_layernorm": as pre_layernorm), or
+    left out (None)."""
+    import torch
+
+    sd = torch_layout(patch_sd)
+    tower = {k[len("clip."):]: sd.pop(k) for k in list(sd)
+             if k.startswith("clip.")}
+    if clip == "openai":
+        sd.update(openai_visual(tower))
+        hidden = tower["vision_model.post_layernorm.weight"].shape[0]
+        sd["clip.visual.proj"] = torch.full((hidden, 8), 0.5)
+        sd["clip.logit_scale"] = torch.tensor(4.6052)
+    elif clip in ("hf", "hf_layernorm"):
+        for k, t in tower.items():
+            if clip == "hf_layernorm":
+                k = k.replace("pre_layrnorm", "pre_layernorm")
+            sd["clip." + k] = t
+    elif clip is not None:
+        raise ValueError(clip)
+    return sd
+
+
+def lora_attn_procs(unet_sd, rank, seed):
+    """A seeded diffusers attn-procs LoRA over every attention projection of
+    the UNet (attn1 and attn2; to_q, to_k, to_v, to_out): down (rank, in)
+    ~ N(0, 1) / rank, up (out, rank) ~ N(0, 0.02^2)."""
+    import re
+
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, w in unet_sd.items():
+        m = re.match(r"(.*\.attn[12])\.(to_[qkv]|to_out)(\.0)?\.weight$", k)
+        if m is None:
+            continue
+        pre = f"{m.group(1)}.processor.{m.group(2)}_lora."
+        out[pre + "down.weight"] = torch.randn(
+            (rank, w.shape[1]), generator=gen) / rank
+        out[pre + "up.weight"] = torch.randn((w.shape[0], rank),
+                                             generator=gen) * 0.02
+    return out
+
+
+def text_encoder_file(text_sd):
+    """A Hugging Face CLIPTextModel state_dict from the port's text tower,
+    with the position_ids buffer older transformers versions save (the
+    converter does not read it)."""
+    import torch
+
+    sd = torch_layout(text_sd)
+    n = sd["text_model.embeddings.position_embedding.weight"].shape[0]
+    sd["text_model.embeddings.position_ids"] = torch.arange(n)[None]
+    return sd
+
+
+def write_safetensors(path, sd, dtype):
+    """`sd` as a .safetensors file of F16 or F32 tensors: an 8-byte
+    little-endian header length, the JSON header, the little-endian data."""
+    import struct
+
+    import torch
+
+    kind, le = {torch.float16: ("F16", "<f2"),
+                torch.float32: ("F32", "<f4")}[dtype]
+    header, blobs, offset = {}, [], 0
+    for k, v in sd.items():
+        b = v.to(dtype).contiguous().numpy().astype(le).tobytes()
+        header[k] = {"dtype": kind, "shape": list(v.shape),
+                     "data_offsets": [offset, offset + len(b)]}
+        blobs.append(b)
+        offset += len(b)
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+def text_ids(rng, cfg, n=2):
+    """(n, max_length) seeded token ids: BOS, random tokens, EOS padding."""
+    ids = rng.integers(0, cfg.vocab_size - 2, (n, cfg.max_length))
+    ids[:, 0] = cfg.bos_token_id
+    ids[:, 20:] = cfg.eos_token_id
+    return ids
+
+
+def convert_phase(model):
+    """The reference's artifacts written from `model`'s weights (a .bin UNet,
+    an F16 .safetensors VAE in the old attention names, a rank-4 attn-procs
+    LoRA, image_encoder.pth with an OpenAI-named CLIP tower, a seeded
+    CLIPTextModel-named text tower in fp16), converted by `python -m
+    diffusiontexturepainting_torch.weights.convert` in a process of its own;
+    a model seeded otherwise reload_params from the result: every
+    state_dict entry bit for bit the written weights after their float32 /
+    F16 round trip with the LoRA merged (numpy, fp32, as the converter
+    computes it), a NEW_STAMP byte-equal to a model given those weights
+    directly, the default path's launches; the text tower from
+    load_text_encoder on the card in bf16 against the CPU in fp32."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.core.config import (
+        COMPONENTS,
+        CLIPTextConfig,
+    )
+    from diffusiontexturepainting_torch.models.clip_text import (
+        CLIPTextEncoder,
+        encode_prompt,
+    )
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+    from diffusiontexturepainting_torch.serving import wire
+    from diffusiontexturepainting_torch.weights.loader import (
+        load_text_encoder)
+    from diffusiontexturepainting_torch.weights.random_init import (
+        random_state_dict)
+
+    phase_tic = time.perf_counter()
+    R, handle = wire.RequestType, wire.handle_request_bytes
+    brush, canvas = requests()
+    req = wire.encode_request(R.NEW_STAMP, canvas, **settings(FEW_STEPS))
+    root = tempfile.mkdtemp(prefix="dtp_convert_")
+    src, out = os.path.join(root, "reference"), os.path.join(root, "ckpt")
+    os.makedirs(src)
+    try:
+        sds = model.state_dicts()
+        tcfg = CLIPTextConfig()
+        text = CLIPTextEncoder(tcfg).eval()
+        text_sd = random_state_dict(text, torch.Generator().manual_seed(5))
+        lora = lora_attn_procs(sds["unet"], CONVERT_LORA_RANK, seed=0)
+        files = {"unet": "unet.bin", "vae": "vae.safetensors",
+                 "lora": "pytorch_lora_weights.bin",
+                 "image-encoder": "image_encoder.pth",
+                 "text-encoder": "text_encoder.bin"}
+        paths = {k: os.path.join(src, f) for k, f in files.items()}
+        tic = time.perf_counter()
+        torch.save(torch_layout(sds["unet"]), paths["unet"])
+        torch.save(lora, paths["lora"])
+        write_safetensors(paths["vae"], autoencoder_kl(
+            sds["vae_encoder"], sds["vae_decoder"], old_attention=True),
+            torch.float16)
+        torch.save(image_encoder_file(sds["patch_encoder"], "openai"),
+                   paths["image-encoder"])
+        torch.save({k: v.half() if v.is_floating_point() else v
+                    for k, v in text_encoder_file(text_sd).items()},
+                   paths["text-encoder"])
+        log(f"convert: wrote the reference's artifacts in "
+            f"{time.perf_counter() - tic:.1f} s: " + ", ".join(
+                f"{f} {os.path.getsize(paths[k])} bytes"
+                for k, f in files.items()))
+
+        # what the files hold, as the converter reads them back (float32),
+        # the LoRA merged in fp32 numpy
+        f16 = lambda sd: {k: v.float().half().float().cpu()
+                          for k, v in sd.items()}
+        want = {"unet": {k: v.float().cpu() for k, v in sds["unet"].items()},
+                "vae_encoder": f16(sds["vae_encoder"]),
+                "vae_decoder": f16(sds["vae_decoder"]),
+                "patch_encoder": {k: v.float().cpu()
+                                  for k, v in sds["patch_encoder"].items()}}
+        for k in [k for k in lora if k.endswith(".down.weight")]:
+            block, target = k[:-len(".down.weight")].split(".processor.")
+            name = f"{block}.{target[:-len('_lora')]}"
+            name += ".0.weight" if name.endswith("to_out") else ".weight"
+            up = lora[k.replace(".down.", ".up.")].numpy()
+            delta = (up @ lora[k].numpy()).astype(np.float32)
+            want["unet"][name] = torch.from_numpy(
+                want["unet"][name].numpy() + CONVERT_LORA_SCALE * delta)
+        want_text = f16(text_sd)
+
+        cmd = [sys.executable, "-m",
+               "diffusiontexturepainting_torch.weights.convert",
+               "--unet", paths["unet"], "--vae", paths["vae"],
+               "--lora", paths["lora"], "--lora-scale",
+               str(CONVERT_LORA_SCALE), "--image-encoder",
+               paths["image-encoder"], "--text-encoder",
+               paths["text-encoder"], "--out", out]
+        tic = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        convert_s = time.perf_counter() - tic
+        if proc.returncode != 0:
+            raise AssertionError(f"convert: the converter exited with "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        for line in proc.stdout.splitlines():
+            log(f"convert: {line}")
+        log(f"convert: the converter process took {convert_s:.1f} s "
+            f"({CARD[0]})")
+        missing = [n for n in COMPONENTS + ("text_encoder",)
+                   if not os.path.exists(os.path.join(out, f"{n}.npz"))]
+        if missing:
+            raise AssertionError(f"convert: no {missing} in {out}")
+        shutil.rmtree(src)
+
+        served = TorchConditionalInpainter(RES, device="cuda",
+                                           weights_seed=2)
+        tic = time.perf_counter()
+        served.reload_params(out)
+        reload_s = time.perf_counter() - tic
+        got = served.state_dicts()
+        for name in COMPONENTS:
+            if set(got[name]) != set(want[name]):
+                raise AssertionError(f"convert: {name}'s names differ")
+            for k, v in got[name].items():
+                if not torch.equal(v.cpu(), want[name][k].to(v.dtype)):
+                    raise AssertionError(f"convert: {name}.{k} is not the "
+                                         "written weight")
+        log(f"convert: reload_params in {reload_s:.1f} s; every state_dict "
+            "entry bit for bit the written weights (float32 / F16 round "
+            f"trip, LoRA rank {CONVERT_LORA_RANK} x {CONVERT_LORA_SCALE} "
+            f"merged into {len(lora) // 2} projections)")
+        direct = TorchConditionalInpainter(RES, device="cuda", weights=want)
+
+        def first_reply(m, count=False):
+            m.set_brush(brush)
+            m.request_counter = 1
+            torch.cuda.synchronize()
+            for c in counters():
+                c.reset()
+            reply = handle(m, req)
+            torch.cuda.synchronize()
+            return reply, {c.name: c.launches for c in counters()}
+
+        reply, launches = first_reply(served)
+        check_reply(reply, R.RETURN_STAMP, RES, canvas)
+        check_counts("convert", served, FEW_STEPS, launches, 1)
+        if first_reply(direct)[0] != reply:
+            raise AssertionError("convert: the converted model's NEW_STAMP "
+                                 "differs from the directly loaded one's")
+        if first_reply(model)[0] == reply:
+            raise AssertionError("convert: the merged LoRA left the stamp "
+                                 "as the base model's")
+        log(f"convert: NEW_STAMP ({RES}^2, {FEW_STEPS} steps) byte-equal to "
+            "a model given the expected weights directly; not the base "
+            "model's (the LoRA merged)")
+        del served, direct, got
+        release()
+
+        sd = load_text_encoder(out, module=text)
+        for k, v in sd.items():
+            if not torch.equal(v, want_text[k]):
+                raise AssertionError(f"convert: text_encoder {k} is not the "
+                                     "written weight")
+        text.load_state_dict(sd)
+        card = CLIPTextEncoder(tcfg).to("cuda", torch.bfloat16).eval()
+        card.load_state_dict(sd)
+        rng = np.random.default_rng(0)
+        prompt, negative = text_ids(rng, tcfg), text_ids(rng, tcfg, 1)
+        tic = time.perf_counter()
+        emb = encode_prompt(card, prompt, negative)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - tic) * 1e3
+        ref = encode_prompt(text, prompt, negative, dtype=torch.float32)
+        err = (emb.float().cpu() - ref).abs()
+        log(f"convert: text tower (load_text_encoder, every entry bit for "
+            f"bit): encode_prompt {tuple(emb.shape)} {emb.dtype} on the card "
+            f"in {card_ms:.1f} ms against fp32 on the CPU: max |err| "
+            f"{err.max():.4f} (tol {TEXT_MAX_ERR}), mean {err.mean():.5f} "
+            f"(tol {TEXT_MEAN_ERR})")
+        if not (torch.isfinite(emb).all() and err.max() <= TEXT_MAX_ERR
+                and err.mean() <= TEXT_MEAN_ERR):
+            raise AssertionError("convert: the text tower on the card is "
+                                 "off its CPU evaluation")
+        del card
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    phase_s = time.perf_counter() - phase_tic
+    log(f"convert: phase done in {phase_s:.1f} s (limit {CONVERT_MAX_S:.0f} "
+        f"s; {CARD[0]})")
+    if phase_s > CONVERT_MAX_S:
+        raise AssertionError(f"convert: the phase took {phase_s:.1f} s")
+    return dict(convert_s=convert_s, reload_s=reload_s, phase_s=phase_s)
 
 
 RUN_ENTRY = [sys.executable, "-m",
@@ -5137,6 +5507,10 @@ def main() -> int:
     release()
 
     serve_phase(model)
+    log(f"timer: the default model's StageTimer after the serve phase "
+        f"({CARD[0]}):")
+    for line in model.timer.summary().splitlines():
+        log(f"timer: {line}")
     launches, shapes, n = session_phase(model)
     check_counts("session", model, FEW_STEPS, launches, n)
     paths["session"] = dict(launches=launches, shapes=shapes, stamps=n,
@@ -5148,6 +5522,7 @@ def main() -> int:
     tic = time.perf_counter()
     checkpoint_phase(model)
     log(f"checkpoint: phase done in {time.perf_counter() - tic:.1f} s")
+    convert_phase(model)
     deep_cache_phase(model, weights, drive, paths)
     f32_phase(model, weights, drive)
     tic = time.perf_counter()
@@ -5219,7 +5594,7 @@ def main() -> int:
         raise AssertionError(f"the run imported {loaded}")
     log("no jax: neither jax, nor diffusiontexturepainting_tpu, nor tornado, "
         "nor PIL in sys.modules")
-    log(f"done in {time.perf_counter() - t_start:.1f} s")
+    log(f"done in {time.perf_counter() - t_start:.1f} s ({CARD[0]})")
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,6 +75,24 @@ class CLIPVisionConfig:
 
 
 @dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP ViT-L/14 text tower (SD-1.5's text encoder): on no request path
+    of the server (the brush's patch encoder conditions the UNet), kept for
+    text-conditioned use of the same weights; see models/clip_text.py."""
+
+    vocab_size: int = 49408
+    max_length: int = 77
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    layer_norm_eps: float = 1e-5
+    # openai/clip-vit-large-patch14 token ids (SD-1.5 tokenizer)
+    bos_token_id: int = 49406
+    eos_token_id: int = 49407
+
+
+@dataclass(frozen=True)
 class PatchEncoderConfig:
     """ConditionPatchEncoder: the brush's multi-scale CLIP patch tokens."""
 

@@ -21,6 +21,23 @@ def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
+def causal_attention(q, k, v, num_heads: int):
+    """Attention under a causal mask in plain PyTorch ops, the JAX
+    package's _causal_attention (plain XLA there too: the text tower's
+    77-token sequences run no kernel): fp32 scores and softmax, the
+    probabilities rounded to the input dtype, the product accumulated in
+    fp32, the result in the input dtype."""
+    b, n, d = q.shape
+    hd = d // num_heads
+    split = lambda t: t.reshape(b, n, num_heads, hd).transpose(1, 2).float()
+    qh, kh, vh = split(q), split(k), split(v)
+    scores = (qh @ kh.transpose(-1, -2)) * hd**-0.5
+    mask = torch.full((n, n), float("-inf"), device=q.device).triu(1)
+    probs = torch.softmax(scores + mask, dim=-1).to(q.dtype).float()
+    out = probs @ vh
+    return out.transpose(1, 2).reshape(b, n, d).to(q.dtype)
+
+
 class _Embeddings(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig):
         super().__init__()
@@ -48,9 +65,13 @@ class _MLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    """A pre-LN CLIP layer; `causal`: the text tower's, whose attention is
+    causal_attention."""
+
+    def __init__(self, cfg: CLIPVisionConfig, causal: bool = False):
         super().__init__()
         self.num_heads = cfg.num_heads
+        self.causal = causal
         self.layer_norm1 = LayerNorm32(cfg.hidden_size, cfg.layer_norm_eps)
         self.self_attn = _SelfAttention(cfg.hidden_size)
         self.layer_norm2 = LayerNorm32(cfg.hidden_size, cfg.layer_norm_eps)
@@ -59,8 +80,8 @@ class CLIPEncoderLayer(nn.Module):
     def forward(self, x):
         sa = self.self_attn
         h = self.layer_norm1(x)
-        a = attention(sa.q_proj(h), sa.k_proj(h), sa.v_proj(h),
-                      self.num_heads)
+        attend = causal_attention if self.causal else attention
+        a = attend(sa.q_proj(h), sa.k_proj(h), sa.v_proj(h), self.num_heads)
         x = x + sa.out_proj(a)
         h = quick_gelu(self.mlp.fc1(self.layer_norm2(x)))
         return x + self.mlp.fc2(h)

@@ -83,6 +83,7 @@ from ..serving.model_base import (
     ensure_float01,
     validate_session_canvas,
 )
+from ..utils.profiling import StageTimer
 from ..weights.loader import load_pipeline_params
 from ..weights.random_init import build_pipeline, load_weights
 from .inpaint import ieee_fp32, make_stamp_fn
@@ -102,7 +103,8 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                  device: str | torch.device = "cuda", tiny: bool = False,
                  weights: dict | None = None,
                  checkpoint_dir: str | None = None, weights_seed: int = 0,
-                 dtype_overrides: dict | None = None):
+                 dtype_overrides: dict | None = None,
+                 verbose_timing: bool = True):
         """Weights from `checkpoint_dir` (the JAX package's npz format;
         components it lacks get seeded random ones), or `weights` (a
         state_dict per component, as state_dicts() returns), else seeded
@@ -111,7 +113,10 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         a TPU only). `dtype_overrides` ({"unet": torch.float32}) computes
         the components it names in their own dtype, their weights kept in
         it (the source values for fp32). `tiny` uses the JAX package's
-        tiny_*_config() models. Nothing is warmed here: see warmup()."""
+        tiny_*_config() models. `verbose_timing`: the per-stage table in
+        `timer` (utils/profiling.py StageTimer: brush-encode, stamp xN,
+        session stamp xN; wall and, on CUDA, device ms), as the JAX model
+        keeps it. Nothing is warmed here: see warmup()."""
         if weights is not None and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
         self._resolution = int(resolution)
@@ -157,6 +162,7 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
             self._refresh_final_unet()
         self.init_seconds = time.perf_counter() - tic
         self.engine = Engine(self.device)
+        self.timer = StageTimer(enabled=verbose_timing, device=self.device)
         # {warm-up point: its program's capture record}: engine.captures
         self.warmup_captures = {}
         self._stamp_fns = {}
@@ -316,8 +322,9 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         image = crop_resize_square(ensure_float01(image)[..., :3],
                                    self._resolution).astype(np.float32)
         brush = torch.from_numpy(image[None]).to(self.device)
-        cond, uncond = self.engine.program(
-            ("brush", self._resolution), self._encode_brush)(brush)
+        with self.timer.stage("brush-encode"):
+            cond, uncond = self.engine.program(
+                ("brush", self._resolution), self._encode_brush)(brush)
         return image, brush, cond, uncond
 
     def _encode_brush(self, brush):
@@ -402,19 +409,25 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
             init_latents, cfg_w, tg_w, tg_steps, pad, step_noise)
         return raw.cpu().numpy(), comp.cpu().numpy()
 
+    def _steps(self, settings) -> int:
+        return int(settings.get("steps", self.config.denoising_steps))
+
     def generate_raw(self, canvas: np.ndarray, **settings) -> np.ndarray:
-        raw_u8, _ = self._run_stamp(canvas, **settings)
+        with self.timer.stage(f"stamp raw x{self._steps(settings)}"):
+            raw_u8, _ = self._run_stamp(canvas, **settings)
         return raw_u8.astype(np.float32) / 255.0
 
     def generate(self, canvas: np.ndarray, **settings) -> np.ndarray:
         """Composited on the device, like the JAX model (the same math as
         the host composite canvas * alpha + result * (1 - alpha))."""
-        _, comp_u8 = self._run_stamp(canvas, **settings)
+        with self.timer.stage(f"stamp x{self._steps(settings)}"):
+            _, comp_u8 = self._run_stamp(canvas, **settings)
         return comp_u8.astype(np.float32) / 255.0
 
     def generate_u8(self, canvas_u8: np.ndarray, **settings) -> np.ndarray:
         """uint8 in, uint8 out: the websocket server's fast path."""
-        _, comp_u8 = self._run_stamp(canvas_u8, **settings)
+        with self.timer.stage(f"stamp u8 x{self._steps(settings)}"):
+            _, comp_u8 = self._run_stamp(canvas_u8, **settings)
         return comp_u8
 
     # --- stroke sessions: the canvas on the device ---
@@ -453,10 +466,12 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         res = self._resolution
         margin = overpaint_margin(res) if overpaint else 0
         enc_noise, init_latents, step_noise = self.draws(counter, res, steps)
-        comp = session_stamp(self._stamp_fn(steps), canvas, brush, cond,
-                             uncond, enc_noise, init_latents, x0, y0, cfg_w,
-                             tg_w, tg_steps, pad, margin, step_noise)
-        return comp.cpu().numpy() if return_pixels else None
+        with self.timer.stage(f"session stamp x{steps}"):
+            comp = session_stamp(self._stamp_fn(steps), canvas, brush, cond,
+                                 uncond, enc_noise, init_latents, x0, y0,
+                                 cfg_w, tg_w, tg_steps, pad, margin,
+                                 step_noise)
+            return comp.cpu().numpy() if return_pixels else None
 
     @torch.inference_mode()
     def erase_at(self, x0: int, y0: int, return_pixels: bool = True):

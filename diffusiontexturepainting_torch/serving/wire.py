@@ -289,22 +289,15 @@ def _traced(profile_dir, fn):
     """fn() under a torch.profiler trace written to profile_dir as
     Chrome JSON, `{time:.3f}_{n:02d}.trace.json`."""
     global _profile_traces
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from ..utils.profiling import device_trace
 
     _profile_traces += 1
     if _profile_traces == PROFILE_TRACE_CAP:
         logger.warning("profile_dir: trace cap (%d) reached - further "
                        "requests will not be traced", PROFILE_TRACE_CAP)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        reply = fn()
-    prof.export_chrome_trace(os.path.join(
-        profile_dir, f"{time.time():.3f}_{_profile_traces:02d}.trace.json"))
-    return reply
+    with device_trace(profile_dir, f"{time.time():.3f}_"
+                      f"{_profile_traces:02d}.trace.json"):
+        return fn()
 
 
 def handle_request_bytes(model, raw: bytes, debug_dir: str | None = None,

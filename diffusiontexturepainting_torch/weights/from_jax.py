@@ -2,14 +2,14 @@
 
 `state_dict_from_jax` is the inverse of
 diffusiontexturepainting_tpu/weights/convert.py (convert_unet,
-convert_vae_encoder, convert_vae_decoder, convert_patch_encoder): paths
-are renamed back to diffusers / Hugging Face names. Conv kernels keep their
-(kH, kW, Cin, Cout) layout, which the port's convs use too; Dense kernels
-(in, out) become nn.Linear's (out, in). `jax_tree_from_state_dict` goes
-back, so the port writes checkpoints the JAX package loads
-(weights/loader.py). `lora_from_jax` and `lora_to_jax` rename the LoRA
-factors (models/lora.py) both ways. Leaves are numpy arrays, never jax
-arrays.
+convert_vae_encoder, convert_vae_decoder, convert_patch_encoder,
+convert_clip_text): paths are renamed back to diffusers / Hugging Face
+names. Conv kernels keep their (kH, kW, Cin, Cout) layout, which the
+port's convs use too; Dense kernels (in, out) become nn.Linear's (out,
+in). `jax_tree_from_state_dict` goes back, so the port writes checkpoints
+the JAX package loads (weights/loader.py). `lora_from_jax` and
+`lora_to_jax` rename the LoRA factors (models/lora.py) both ways. Leaves
+are numpy arrays, never jax arrays.
 """
 
 from __future__ import annotations
@@ -68,6 +68,15 @@ _RULES = {
         (r"^clip/layer_(\d+)/", r"clip.vision_model.encoder.layers.\1."),
         (r"^clip/post_layernorm/", "clip.vision_model.post_layernorm."),
     ] + _BLOCK_RULES,
+    "text_encoder": [
+        (r"^(token|position)_embedding$",
+         r"text_model.embeddings.\1_embedding.weight"),
+        (r"^layer_(\d+)/([qkv]_proj|out_proj)/",
+         r"text_model.encoder.layers.\1.self_attn.\2."),
+        (r"^layer_(\d+)/(fc[12])/", r"text_model.encoder.layers.\1.mlp.\2."),
+        (r"^layer_(\d+)/", r"text_model.encoder.layers.\1."),
+        (r"^final_layer_norm/", "text_model.final_layer_norm."),
+    ],
 }
 
 # VAE mid block (both halves): mid/{resnet_k, attn_norm, attn/to_*}
@@ -102,7 +111,8 @@ def torch_name(component: str, path: str) -> str:
 
 
 def state_dict_from_jax(component: str, tree) -> Dict[str, torch.Tensor]:
-    """component in {'unet', 'vae_encoder', 'vae_decoder', 'patch_encoder'};
+    """component in {'unet', 'vae_encoder', 'vae_decoder', 'patch_encoder',
+    'text_encoder'};
     tree: nested dict of numpy arrays (a JAX package parameter tree)."""
     if component not in _RULES:
         raise ValueError(f"unknown component {component!r}")
@@ -161,6 +171,12 @@ _INVERSE = {
          r"clip.layer_\1."),
         (r"^clip\.vision_model\.encoder\.layers\.(\d+)", r"clip.layer_\1"),
     ] + _BLOCK_INVERSE,
+    "text_encoder": [
+        (r"^text_model\.encoder\.layers\.(\d+)\.(self_attn|mlp)\.",
+         r"layer_\1."),
+        (r"^text_model\.encoder\.layers\.(\d+)", r"layer_\1"),
+        (r"^text_model\.final_layer_norm$", "final_layer_norm"),
+    ],
 }
 # leaves that are no layer's .weight / .bias
 _PLAIN_LEAVES = {
@@ -168,15 +184,17 @@ _PLAIN_LEAVES = {
     "clip.vision_model.embeddings.position_embedding.weight":
         "clip/position_embedding",
     "uncond_vector": "uncond_vector",
+    "text_model.embeddings.token_embedding.weight": "token_embedding",
+    "text_model.embeddings.position_embedding.weight": "position_embedding",
 }
 
 
 def jax_path(component: str, name: str, norm: bool) -> str:
     """A state_dict name -> its JAX parameter path; `norm`: the name is a
     normalization layer's (its weight 1-D), whose JAX scale sits under the
-    GroupNorm32 / LayerNorm32 wrapper's `norm` level except in CLIP and the
-    patch encoder's final LayerNorm. Raises ValueError where torch_name
-    does not map the path back to `name`."""
+    GroupNorm32 / LayerNorm32 wrapper's `norm` level except in CLIP (both
+    towers) and the patch encoder's final LayerNorm. Raises ValueError
+    where torch_name does not map the path back to `name`."""
     if name in _PLAIN_LEAVES:
         path = _PLAIN_LEAVES[name]
     else:
@@ -186,8 +204,10 @@ def jax_path(component: str, name: str, norm: bool) -> str:
             p = re.sub(pat, rep, p)
         p = p.replace(".", "/")
         if norm:
-            bare = component == "patch_encoder" and (
-                owner.startswith("clip.") or owner == "final_layer_norm")
+            bare = component == "text_encoder" or (
+                component == "patch_encoder" and (
+                    owner.startswith("clip.")
+                    or owner == "final_layer_norm"))
             path = p + ("/" if bare else "/norm/") + (
                 "scale" if leaf == "weight" else leaf)
         else:

@@ -5,6 +5,7 @@ only). A checkpoint directory holds one `.npz` per component, keys the
 '/'-joined flax parameter paths:
 
     unet.npz  vae_encoder.npz  vae_decoder.npz  patch_encoder.npz
+    text_encoder.npz  (optional; load_text_encoder)
 
 Loading maps each component through from_jax.state_dict_from_jax and
 validates it against the module's persistent state_dict (names, then
@@ -111,6 +112,31 @@ def validate_state_dict(name: str, sd: dict, module: torch.nn.Module):
                              f"expected {tuple(ref[k].shape)}")
 
 
+def _read_component(path: str, name: str) -> dict:
+    try:
+        return state_dict_from_jax(name, load_component(path))
+    except (OSError, ValueError, KeyError, EOFError,
+            zipfile.BadZipFile) as e:  # a truncated or corrupt npz
+        raise ValueError(f"checkpoint {path} for {name} is unreadable: "
+                         f"{type(e).__name__}: {e}") from e
+
+
+def load_text_encoder(checkpoint_dir: str, module=None):
+    """The CLIP text tower's fp32 CPU state_dict from `text_encoder.npz`
+    (weights/convert.py --text-encoder), or None where the file is absent:
+    no request path of the server needs it (models/clip_text.py). Given
+    `module` (a CLIPTextEncoder), names and shapes are validated against
+    it as every other component's are."""
+    path = component_path(checkpoint_dir, "text_encoder")
+    if not os.path.exists(path):
+        return None
+    sd = _read_component(path, "text_encoder")
+    if module is not None:
+        validate_state_dict("text_encoder", sd, module)
+    logger.info("loaded text_encoder from %s", path)
+    return sd
+
+
 def load_pipeline_params(checkpoint_dir: str, modules: dict) -> dict:
     """{name: fp32 CPU state_dict, validated against modules[name]} for
     each component whose file is in `checkpoint_dir`; a component whose
@@ -123,12 +149,7 @@ def load_pipeline_params(checkpoint_dir: str, modules: dict) -> dict:
             logger.warning("%s missing from %s - using random init", name,
                            path)
             continue
-        try:
-            sd = state_dict_from_jax(name, load_component(path))
-        except (OSError, ValueError, KeyError, EOFError,
-                zipfile.BadZipFile) as e:  # a truncated or corrupt npz
-            raise ValueError(f"checkpoint {path} for {name} is unreadable: "
-                             f"{type(e).__name__}: {e}") from e
+        sd = _read_component(path, name)
         validate_state_dict(name, sd, modules[name])
         out[name] = sd
         logger.info("loaded %s from %s", name, path)

@@ -39,14 +39,16 @@ SETTINGS = dict(steps=4, width=RES, cfg_weight=2.0, tg_weight=1.0,
 
 def test_port_imports_without_jax():
     """Every module of the package imports in a fresh interpreter without
-    pulling in jax, any module of the JAX package, tornado or PIL."""
+    pulling in jax, any module of the JAX package, tornado, PIL,
+    safetensors or transformers."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import diffusiontexturepainting_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'diffusiontexturepainting_tpu', 'tornado', 'PIL')]\n"
+        "       ('jax', 'diffusiontexturepainting_tpu', 'tornado', 'PIL',\n"
+        "        'safetensors', 'transformers')]\n"
         "assert not bad, bad\n"
         "for m in ('serving.server', 'serving.run', 'ops.conv_variants',\n"
         "          'ops.attention_variants', 'tools.attn_variants',\n"
@@ -59,7 +61,8 @@ def test_port_imports_without_jax():
         "          'tools.check_fidelity', 'tools.deepcache_split',\n"
         "          'training.train', 'models.lora', 'parallel.mesh',\n"
         "          'parallel.serving', 'serving.parallel_model',\n"
-        "          'core.engine', 'ops.constants'):\n"
+        "          'core.engine', 'ops.constants', 'weights.convert',\n"
+        "          'models.clip_text', 'utils.profiling'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)

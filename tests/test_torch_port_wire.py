@@ -82,7 +82,8 @@ def test_image_helpers_match_model_base(shape, width, dtype):
 
 
 @pytest.mark.parametrize("name", ["UNetConfig", "VAEConfig",
-                                  "CLIPVisionConfig", "PatchEncoderConfig",
+                                  "CLIPVisionConfig", "CLIPTextConfig",
+                                  "PatchEncoderConfig",
                                   "PipelineConfig", "tiny_unet_config",
                                   "tiny_vae_config", "tiny_clip_config",
                                   "tiny_patch_encoder_config"])
