@@ -152,6 +152,28 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                encode_prompt in bf16 on the card against fp32 on the CPU
                (TEXT_MAX_ERR, TEXT_MEAN_ERR); the phase within
                CONVERT_MAX_S;
+  6d3. client  the painting client (client/) on the default model: a UV
+               sphere of 65,024 faces (256 longitudes x 128 bands, one UV
+               atlas) through the port's save_obj / load_obj; the
+               rasterizer's kernel (csrc/raster.cu) against rasterize_plain
+               on the arguments of a TexturePainter stamp's 256^2 view and
+               its 1024^2 back-projection at three brush positions, one
+               across the UV seam: face_idx and the features byte-equal,
+               kernel and plain CUDA-event ms beside the bound; then a
+               full-width 256^2/20 TexturePainter stroke (six BrushStroke
+               stamps, an Overpaint and an Erase stamp, an undo), each
+               update painting texels and leaving the rest byte-equal,
+               Erase leaving zeros, the undo restoring the texture
+               byte-equal, the model's launches against 7 stamps and the
+               rasterizer's 2 a stamp (counted from 0), render / generate /
+               backproject / update ms a stamp; then the port's server in
+               this process, 2 TexturePainter stamps over the port's
+               WebsocketConditionalInpainter (a NEW_BRUSH_IMAGE, then a
+               NEW_STAMP whose painted region comes back within a level)
+               and a CanvasStrokePainter stroke of 8 STAMP_ATs without
+               waiting and one FETCH_CANVAS, the canvas byte-equal outside
+               the stamps, the painted band within a level, the stamped
+               region painted; the phase's seconds;
   6e. deep_cache
                DeepCache at full width through the request handler, as
                phase 4 (the replay bit-identical, replies checked, each
@@ -311,7 +333,8 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
  10. no jax    the run imported neither JAX, nor the JAX package, nor
                tornado, nor PIL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON record.
+the per-kernel JSON record: the 27 kernels of the pallas_call sites, then
+the rasterizer (csrc/raster.cu, the client phase's; no pallas_call).
 """
 
 from __future__ import annotations
@@ -2235,6 +2258,455 @@ def convert_phase(model):
     if phase_s > CONVERT_MAX_S:
         raise AssertionError(f"convert: the phase took {phase_s:.1f} s")
     return dict(convert_s=convert_s, reload_s=reload_s, phase_s=phase_s)
+
+
+# The client phase: the painting client (client/) on the card at the size
+# users paint: a UV sphere of CLIENT_SPHERE (longitudes, latitude bands),
+# 65,024 faces, painted into a CLIENT_TEX^2 texture with a brush of
+# half-width CLIENT_RADIUS (the sphere's radius 1); the rasterizer's three
+# brush positions (hit = normal), the first across the UV seam (longitude
+# 0, the +x side)
+CLIENT_SPHERE = (256, 128)
+CLIENT_TEX = 1024
+CLIENT_RADIUS = 0.25
+CLIENT_POSITIONS = ((1.0, 0.0, 0.0), (0.3, 0.5, 0.81), (-0.6, -0.2, -0.77))
+# the stroke: CLIENT_STAMPS stamps along the equator from longitude
+# CLIENT_START (radians), each move a chord of CLIENT_STEP_OVER radii (one
+# stamp a move)
+CLIENT_STAMPS, CLIENT_START, CLIENT_STEP_OVER = 6, -0.6, 1.02
+# the canvas stroke: a session canvas (H, W) with a painted band, 8
+# STAMP_ATs at two a radius along a row
+CLIENT_CANVAS = (384, 768)
+CLIENT_BAND = 96
+CLIENT_CANVAS_STAMPS = 8
+# csrc/raster.cu's operations a covered pixel (centre, three edge
+# functions, three divisions, z), for the operations side of its bound
+RASTER_OPS_A_PIXEL = 31
+
+
+def client_sphere(directory):
+    """The UV sphere written with the port's save_obj and read back with
+    load_obj."""
+    import os
+
+    from diffusiontexturepainting_torch.client import mesh_io
+
+    path = os.path.join(directory, "sphere.obj")
+    mesh_io.save_obj(path, mesh_io.make_uv_sphere(*CLIENT_SPHERE))
+    mesh = mesh_io.load_obj(path)
+    want = 2 * CLIENT_SPHERE[0] * (CLIENT_SPHERE[1] - 1)
+    if mesh.faces.shape != (want, 3):
+        raise AssertionError(f"client: the sphere has {mesh.faces.shape} "
+                             f"faces, expected {want}")
+    return mesh, os.path.getsize(path)
+
+
+def raster_bound(args, face_idx):
+    """(seconds, by) of one rasterize call, from what this call's data
+    needs: the mask (F bytes); the xy corners of every face the mask keeps
+    (a face must be read to learn that it is degenerate); the z corners of
+    the kept faces that are finite and not degenerate; the features of the
+    faces that own a pixel; each output written once (H x W x (C + 1)
+    4-byte values). The kernel's 64-bit keys are its own scratch and not
+    counted. Against RASTER_OPS_A_PIXEL fp32 operations a covered pixel."""
+    import torch
+
+    from diffusiontexturepainting_torch.ops import raster
+
+    height, width, feats, _, fvi, valid = args
+    F, _, C = feats.shape
+    mask = (torch.ones(F, dtype=torch.bool, device=fvi.device)
+            if valid is None else valid.to(torch.bool))
+    live = mask & (raster.face_areas(fvi).abs() >= raster.MIN_AREA) \
+        & torch.isfinite(fvi).flatten(1).all(dim=1)
+    owners = torch.unique(face_idx[face_idx >= 0]).numel()
+    bytes_ = ((F if valid is not None else 0) + int(mask.sum()) * 3 * 2 * 4
+              + int(live.sum()) * 3 * 4 + owners * 3 * C * 4
+              + height * width * (C + 1) * 4)
+    ops = RASTER_OPS_A_PIXEL * int((face_idx >= 0).sum())
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, ops / PEAK_FLOPS["float32"]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def captured_rasterize(fn):
+    """fn() with client/render.py's rasterize calls recorded: returns
+    (fn's result, [the calls' arguments])."""
+    from diffusiontexturepainting_torch.client import render
+
+    calls, inner = [], render.rasterize
+
+    def recording(*args):
+        calls.append(args)
+        return inner(*args)
+
+    render.rasterize = recording
+    try:
+        return fn(), calls
+    finally:
+        render.rasterize = inner
+
+
+def raster_against_plain(painter):
+    """The kernel against rasterize_plain on the arguments the painter's
+    stamp render and back-projection give it at CLIENT_POSITIONS: face_idx
+    and the features byte-equal; each one's CUDA-event ms, and the bound.
+    Returns a dict of the per-stamp means and the worst differences."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.client import render
+    from diffusiontexturepainting_torch.ops import raster
+
+    sums = Counter()
+    for k, p in enumerate(CLIENT_POSITIONS):
+        hit = np.asarray(p, np.float32) / np.linalg.norm(p)
+        cam = painter.make_camera(hit, hit, None, CLIENT_RADIUS)
+
+        def stamp_geometry():
+            res = render.render_view(cam, painter.mesh,
+                                     texture=painter.texture)
+            stamp = torch.ones(res["face_idx"].shape + (4,), device="cuda")
+            return render.backproject_texture(painter.mesh, res["proj_mesh"],
+                                              res["face_idx"], stamp,
+                                              painter.texture_width)
+
+        _, calls = captured_rasterize(stamp_geometry)
+        if len(calls) != 2:
+            raise AssertionError(f"client: {len(calls)} rasterize calls at "
+                                 f"position {k}, expected 2")
+        for what, args in zip(("view", "backprojection"), calls):
+            out, idx = raster.rasterize(*args)
+            pout, pidx = raster.rasterize_plain(*args)
+            torch.cuda.synchronize()
+            mismatch = int((idx != pidx).sum())
+            err = (out - pout).abs().max().item()
+            bits = torch.equal(out.view(torch.int32), pout.view(torch.int32))
+            log(f"client: rasterize {what} at position {k} "
+                f"({args[0]}x{args[1]}, {args[2].shape[0]} faces, "
+                f"{int(args[5].sum())} valid, {int((idx >= 0).sum())} "
+                f"pixels covered): face_idx mismatches {mismatch}, features "
+                f"max|kernel - plain| {err:.3e}, bit-equal {bits}")
+            if mismatch or not bits:
+                raise AssertionError(f"client: the rasterize kernel differs "
+                                     f"from rasterize_plain ({what}, "
+                                     f"position {k}): {mismatch} face_idx, "
+                                     f"features {err:.3e}")
+            ms = cuda_ms(lambda: raster.rasterize(*args))
+            pms = cuda_ms(lambda: raster.rasterize_plain(*args), max_iters=3)
+            b_s, by = raster_bound(args, idx)
+            log(f"client: rasterize {what} at position {k}: {ms:.4f} ms "
+                f"kernel, {pms:.4f} ms plain, bound {b_s * 1e3:.4f} ms "
+                f"({by}) ({CARD[0]})")
+            sums[f"{what}_ms"] += ms / len(CLIENT_POSITIONS)
+            sums[f"{what}_plain_ms"] += pms / len(CLIENT_POSITIONS)
+            sums[f"{what}_bound_ms"] += b_s * 1e3 / len(CLIENT_POSITIONS)
+            sums[f"by_{by}"] += b_s
+            sums["max_abs_err"] = max(sums["max_abs_err"], err)
+    return sums
+
+
+def check_update(painter, before, update, mode):
+    """One stamp's texture update: texels painted (alpha > 0), every other
+    texel byte-equal to `before`; Erase leaves zeros, the others the update
+    clipped to 1."""
+    import torch
+
+    mask = update[..., 3:4] > 0
+    painted = int(mask.sum())
+    if not painted:
+        raise AssertionError(f"client: a {mode} stamp painted no texel")
+    keep = ~mask.expand_as(before)
+    if not torch.equal(painter.texture[keep], before[keep]):
+        raise AssertionError(f"client: a {mode} stamp changed texels "
+                             "outside its update")
+    want = (torch.zeros_like(before) if mode == "ERASE"
+            else update.clamp(max=1.0))
+    inside = mask.expand_as(before)
+    if not torch.equal(painter.texture[inside], want[inside]):
+        raise AssertionError(f"client: a {mode} stamp's texels are not its "
+                             "update")
+    return painted
+
+
+def client_stroke(painter):
+    """CLIENT_STAMPS stamps of a BrushStroke along the equator, one
+    Overpaint stamp and one Erase stamp on it, then an undo; each update
+    checked (check_update). Returns the stamps' count."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.client.brush import BrushStroke
+    from diffusiontexturepainting_torch.client.painter import BrushMode
+
+    modes = []
+    inner = painter.stamp
+
+    def checked(hit, normal, prev_point=None, radius=None):
+        before = painter.texture.clone()
+        update = inner(hit, normal, prev_point=prev_point, radius=radius)
+        modes.append(painter.mode.name)
+        n = check_update(painter, before, update, painter.mode.name)
+        log(f"client: stamp {len(modes)} ({painter.mode.name}): {n} texels "
+            "updated, the rest byte-equal")
+        return update
+
+    painter.stamp = checked
+    try:
+        # chord c = 2 sin(a / 2) on the unit sphere: one stamp a move
+        step = 2 * math.asin(min(1.0, CLIENT_STEP_OVER * CLIENT_RADIUS / 2))
+        points = []
+        for k in range(CLIENT_STAMPS):
+            a = CLIENT_START + k * step
+            points.append(np.array([math.cos(a), 0.0, math.sin(a)],
+                                   np.float32))
+        stroke = BrushStroke(painter, radius=CLIENT_RADIUS)
+        stroke.begin(points[0], points[0])
+        for p in points[1:]:
+            if stroke.move(p, p) != 1:
+                raise AssertionError("client: a stroke move emitted other "
+                                     "than one stamp")
+        stroke.end()
+        mid = points[CLIENT_STAMPS // 2]
+        painter.mode = BrushMode.OVERPAINT
+        painter.begin_stroke()
+        painter.stamp(mid, mid, prev_point=points[0], radius=CLIENT_RADIUS)
+        painter.mode = BrushMode.ERASE
+        before_erase = painter.texture.clone()
+        painter.begin_stroke()
+        painter.stamp(mid, mid, prev_point=points[0], radius=CLIENT_RADIUS)
+        if not painter.undo() or not torch.equal(painter.texture,
+                                                 before_erase):
+            raise AssertionError("client: undo did not restore the texture "
+                                 "from before the Erase stamp")
+        log("client: undo restored the texture byte-equal")
+        painter.mode = BrushMode.INPAINT
+    finally:
+        painter.stamp = inner
+    want = ["INPAINT"] * CLIENT_STAMPS + ["OVERPAINT", "ERASE"]
+    if modes != want:
+        raise AssertionError(f"client: stamps {modes}, expected {want}")
+    return len(modes)
+
+
+def timer_line(timer, stages):
+    """'stage wall ms (device ms)' means of a StageTimer's stages."""
+    import statistics
+
+    device = timer.device_records()
+    return ", ".join(
+        f"{s} {statistics.fmean(timer.records[s]):.1f} ms wall"
+        + (f" ({statistics.fmean(device[s]):.1f} device)" if s in device
+           else "") for s in stages)
+
+
+def websocket_client(model, mesh, texture, brush):
+    """The port's server in this process around `model`: 2 TexturePainter
+    stamps over WebsocketConditionalInpainter (the first sends the deferred
+    NEW_BRUSH_IMAGE, the second a NEW_STAMP whose painted region must come
+    back within a level), then a CanvasStrokePainter stroke of
+    CLIENT_CANVAS_STAMPS STAMP_ATs without waiting and one fetch. Returns
+    the rasterize launches of the 2 stamps, counted from 0 just before
+    them."""
+    import numpy as np
+
+    from diffusiontexturepainting_torch.client.canvas_painter import (
+        CanvasStrokePainter)
+    from diffusiontexturepainting_torch.client.painter import TexturePainter
+    from diffusiontexturepainting_torch.client.websocket_model import (
+        WebsocketConditionalInpainter)
+    from diffusiontexturepainting_torch.ops import raster
+    from diffusiontexturepainting_torch.serving import wire
+    from diffusiontexturepainting_torch.serving.model_base import (
+        float01_to_uint8)
+    from diffusiontexturepainting_torch.serving.server import create_server
+
+    server = create_server(model, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.socket.getsockname()[1]
+        client = WebsocketConditionalInpainter(
+            f"ws://127.0.0.1:{port}/websocket/", resolution=RES)
+        client.set_brush(brush)
+        sent, replies = [], []
+        send, generate_raw = client.ws.send, client.generate_raw
+
+        def recording_send(frame):
+            sent.append(wire.RequestType(frame[0]).name)
+            send(frame)
+
+        def recording(canvas, **s):
+            raw = generate_raw(canvas, **s)
+            replies.append((canvas, raw))
+            return raw
+
+        client.ws.send, client.generate_raw = recording_send, recording
+        painter = TexturePainter(client, mesh, texture_width=CLIENT_TEX,
+                                 texture=texture, device="cuda")
+        raster.rasterize_launches.reset()
+        for a in (-0.3, -0.3 + CLIENT_RADIUS):
+            hit = np.array([np.cos(a), 0.0, np.sin(a)], np.float32)
+            before = painter.texture.clone()
+            update = painter.stamp(hit, hit, radius=CLIENT_RADIUS)
+            check_update(painter, before, update, "INPAINT")
+        launches = raster.rasterize_launches.launches
+        if sent != ["NEW_BRUSH_IMAGE", "NEW_STAMP"] or len(replies) != 2:
+            raise AssertionError(f"client: the websocket stamps sent {sent}, "
+                                 "not a NEW_BRUSH_IMAGE, then a NEW_STAMP")
+        canvas, raw = replies[1]
+        canvas_u8 = float01_to_uint8(canvas)
+        painted = canvas_u8[..., 3] == 255
+        got = float01_to_uint8(raw)
+        diff = np.abs(got[painted].astype(int)
+                      - canvas_u8[..., :3][painted].astype(int)).max(
+                          initial=0)
+        log(f"client: websocket TexturePainter: 2 stamps, the NEW_STAMP's "
+            f"painted region ({int(painted.sum())} pixels) within {diff} "
+            f"levels; {timer_line(painter.timer, ('render', 'generate', 'backproject', 'update'))}")
+        if diff > 1 or not painted.any():
+            raise AssertionError(f"client: the painted region came back "
+                                 f"{diff} levels off")
+
+        H, W = CLIENT_CANVAS
+        start = np.zeros((H, W, 4), np.uint8)
+        start[:CLIENT_BAND, :, :3], start[:CLIENT_BAND, :, 3] = 64, 255
+        cp = CanvasStrokePainter(client, canvas=start, stamps_per_radius=2)
+        step = RES / 4  # the radius over two stamps a radius
+        x, y = RES * 0.625, H / 2
+        tic = time.perf_counter()
+        n = cp.begin_stroke(x, y)
+        n += cp.move(x + step * (CLIENT_CANVAS_STAMPS - 1) + 1, y)
+        cp.end_stroke()
+        enqueued = time.perf_counter() - tic
+        final = cp.texture  # FETCH_CANVAS: synchronizes the stroke
+        wall = time.perf_counter() - tic
+        cp.close()
+        client.close()
+        if n != CLIENT_CANVAS_STAMPS:
+            raise AssertionError(f"client: the canvas stroke fired {n} "
+                                 "stamps")
+        # the stamps' windows: rows y0.., columns x0..x1 (they overlap);
+        # each writes inside its 1-pixel edge mask, so their union's
+        # interior is painted and the rest of the canvas untouched
+        y0, x0 = int(y) - RES // 2, int(x) - RES // 2
+        x1 = int(x + step * (CLIENT_CANVAS_STAMPS - 1)) + RES // 2
+        outside = np.ones((H, W), bool)
+        outside[y0:y0 + RES, x0:x1] = False
+        window = np.zeros((H, W), bool)
+        window[y0 + 1:y0 + RES - 1, x0 + 1:x1 - 1] = True
+        if not np.array_equal(final[outside], start[outside]):
+            raise AssertionError("client: the canvas changed outside the "
+                                 "stamps")
+        band = window.copy()
+        band[CLIENT_BAND:] = False
+        drift = np.abs(final[band].astype(int) - start[band]).max(initial=0)
+        fresh = window.copy()
+        fresh[:CLIENT_BAND] = False
+        if drift > 1 or not (final[fresh][:, 3] == 255).all() \
+                or final[fresh][:, :3].std() < 1.0:
+            raise AssertionError(f"client: the canvas stroke: painted band "
+                                 f"{drift} levels off, or the stamped "
+                                 "region not painted")
+        log(f"client: CanvasStrokePainter over the websocket: "
+            f"{CLIENT_CANVAS_STAMPS} STAMP_ATs enqueued in "
+            f"{enqueued * 1e3:.1f} ms, the stroke with its FETCH_CANVAS "
+            f"{wall * 1e3:.1f} ms wall ({H}x{W} canvas, {RES}^2/{STEPS}); "
+            f"painted band within {drift} levels, the stamped region "
+            f"painted, the rest byte-equal ({CARD[0]})")
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    return launches
+
+
+def client_phase(model):
+    """The painting client on the card (client/): the rasterizer's kernel
+    against its plain version at the painter's shapes on a 65,024-face UV
+    sphere; a full-width TexturePainter stroke (BrushStroke, then Overpaint,
+    Erase and undo) over `model`, every update checked, the model's and the
+    rasterizer's launches counted from 0; then over the loopback websocket
+    (websocket_client). Returns the rasterizer's kernels-line record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from diffusiontexturepainting_torch.client.painter import TexturePainter
+    from diffusiontexturepainting_torch.ops import raster
+
+    phase_tic = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dtp_client_")
+    try:
+        mesh, obj_bytes = client_sphere(root)
+    finally:
+        shutil.rmtree(root)
+    log(f"client: UV sphere {CLIENT_SPHERE[0]} x {CLIENT_SPHERE[1]}: "
+        f"{mesh.faces.shape[0]} faces, {mesh.vertices.shape[0]} vertices, "
+        f"through save_obj / load_obj ({obj_bytes} bytes) in "
+        f"{time.perf_counter() - phase_tic:.1f} s")
+    brush = requests()[0]
+    model.set_brush(brush)
+    painter = TexturePainter(model, mesh, texture_width=CLIENT_TEX,
+                             device="cuda")
+    sums = raster_against_plain(painter)
+
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    raster.rasterize_launches.reset()
+    painter.timer.records.clear()
+    tic = time.perf_counter()
+    stamps = client_stroke(painter)
+    torch.cuda.synchronize()
+    stroke_s = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    check_counts("client", model, STEPS, launches, stamps - 1)
+    raster_launches = raster.rasterize_launches.launches
+    if raster_launches != 2 * stamps:
+        raise AssertionError(f"client: rasterize launched "
+                             f"{raster_launches} times in {stamps} stamps, "
+                             f"expected {2 * stamps}")
+    log(f"client: TexturePainter at {RES}^2/{STEPS} on {CLIENT_TEX}^2: "
+        f"{stamps} stamps in {stroke_s:.2f} s; per stamp "
+        f"{timer_line(painter.timer, ('render', 'generate', 'backproject', 'update'))}"
+        f"; rasterize {raster_launches} launches ({CARD[0]})")
+
+    ws_launches = websocket_client(model, mesh, painter.texture, brush)
+    if ws_launches != 4:
+        raise AssertionError(f"client: rasterize launched {ws_launches} "
+                             "times in the 2 websocket stamps, expected 4")
+    log(f"client: rasterize {ws_launches} launches in the 2 websocket "
+        "stamps (counted from 0)")
+    phase_s = time.perf_counter() - phase_tic
+    log(f"client: phase done in {phase_s:.1f} s ({CARD[0]})")
+    return {
+        "name": "rasterize", "route": "cuda",
+        "source": "diffusiontexturepainting_torch/csrc/raster.cu",
+        "replaces": "diffusiontexturepainting_tpu/ops/raster.py:24",
+        "replaces_is": "no pallas_call: the JAX client's dense XLA "
+                       "rasterize, and kaolin's CUDA rasterizer in the "
+                       "reference client",
+        "path": "client", "launches": raster_launches,
+        "launches_by_path": {"client": raster_launches,
+                             "client_ws": ws_launches},
+        "max_abs_err": float(sums["max_abs_err"]), "face_idx_mismatches": 0,
+        "ms": sums["view_ms"] + sums["backprojection_ms"],
+        "plain_ms": sums["view_plain_ms"] + sums["backprojection_plain_ms"],
+        "bound_ms": sums["view_bound_ms"] + sums["backprojection_bound_ms"],
+        "bound_by": ("operations" if sums["by_operations"]
+                     > sums["by_bytes"] else "bytes"),
+        "library_ms": None,
+        "ms_is": f"kernel time a stamp: the {RES}^2 view and the "
+                 f"{CLIENT_TEX}^2 back-projection on the {mesh.faces.shape[0]}"
+                 f"-face sphere, the mean over {len(CLIENT_POSITIONS)} brush "
+                 "positions",
+        "ms_by_pass": {k: sums[f"{k}_ms"] for k in ("view",
+                                                    "backprojection")},
+        "plain_ms_by_pass": {k: sums[f"{k}_plain_ms"]
+                             for k in ("view", "backprojection")},
+        "phase_s": phase_s}
 
 
 RUN_ENTRY = [sys.executable, "-m",
@@ -5523,6 +5995,7 @@ def main() -> int:
     checkpoint_phase(model)
     log(f"checkpoint: phase done in {time.perf_counter() - tic:.1f} s")
     convert_phase(model)
+    client_record = client_phase(model)
     deep_cache_phase(model, weights, drive, paths)
     f32_phase(model, weights, drive)
     tic = time.perf_counter()
@@ -5585,7 +6058,7 @@ def main() -> int:
                               steps=STEPS, res=RES)
     release()
 
-    record = kernels_phase(gen, paths)
+    record = kernels_phase(gen, paths) + [client_record]
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "diffusiontexturepainting_tpu", "tornado",

@@ -26,7 +26,7 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("conv3x3", "flash_attention", "ff_geglu", "moments",
            "conv_staged", "attn_arms", "attn_layouts", "attn_transposed",
            "conv_arms", "flash_attention_sm90", "conv_sm90", "gn_conv_sm90",
-           "ff_geglu_sm90", "pv_product_sm90", "window_taps_sm90")
+           "ff_geglu_sm90", "pv_product_sm90", "window_taps_sm90", "raster")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -186,6 +186,12 @@ def decode_ack(raw: bytes) -> tuple[int, int]:
     return _TYPE.unpack_from(raw, 0)[0], _U32.unpack_from(raw, _TYPE.size)[0]
 
 
+class ServerError(RuntimeError):
+    """A RETURN_ERROR reply from the server (a session request failed), as
+    the JAX package's server_io.ServerError; the port's websocket client
+    (client/websocket_model.py) raises it."""
+
+
 def encode_error(message: str) -> bytes:
     data = str(message).encode("utf-8")[:_ERROR_BYTES]
     return _TYPE.pack(RequestType.RETURN_ERROR) + _U32.pack(len(data)) + data

@@ -62,10 +62,34 @@ def test_port_imports_without_jax():
         "          'training.train', 'models.lora', 'parallel.mesh',\n"
         "          'parallel.serving', 'serving.parallel_model',\n"
         "          'core.engine', 'ops.constants', 'weights.convert',\n"
-        "          'models.clip_text', 'utils.profiling'):\n"
+        "          'models.clip_text', 'utils.profiling', 'ops.raster',\n"
+        "          'client.render', 'client.mesh_io', 'client.painter',\n"
+        "          'client.brush', 'client.history',\n"
+        "          'client.websocket_model', 'client.canvas_painter',\n"
+        "          'client.library', 'utils.textures', 'utils.async_save',\n"
+        "          'utils.settings'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=PKG.parent)
+
+
+def test_client_imports_with_jax_and_pil_blocked():
+    """The websocket client and the model library (and the painter they
+    serve) import, and the library's mock builds, with jax, PIL and the
+    JAX package made unimportable: the card's machine has none of them."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'PIL', 'diffusiontexturepainting_tpu', 'tornado'):\n"
+        "    sys.modules[m] = None\n"
+        "import diffusiontexturepainting_torch.client.websocket_model as w\n"
+        "import diffusiontexturepainting_torch.client.library as lib\n"
+        "import diffusiontexturepainting_torch.client.painter\n"
+        "import diffusiontexturepainting_torch.client.canvas_painter\n"
+        "assert lib.load_model('Mock').resolution() == 256\n"
+        "assert issubclass(w.wire.ServerError, RuntimeError)\n")
+    proc = subprocess.run([sys.executable, "-c", code], timeout=300,
+                          cwd=PKG.parent, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_port_sources_have_no_jax_import():
