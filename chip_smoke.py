@@ -219,8 +219,24 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                trainables within rtol 1e-4 / atol 1e-6 but for at most
                0.5% of elements (Adam's eps regime), each within lr / 2;
                one step's s/step, samples/s, host batch prep seconds and
-               peak memory at batch 2 and at the JAX default 32 (or the
-               largest batch below it that fits), on 32 textures;
+               peak memory at batch 2, and train.main's samples/s end to
+               end at the JAX default 32, on 32 textures; the
+               committed JPEG fixtures (tests/fixtures/jpeg) decoded on the
+               host, each to its manifest's sha256 of Pillow's decode, the
+               640^2 baseline and progressive ones timed, and copied beside
+               the PNG textures, so that main() trains on both kinds (the
+               reads counted by kind);
+  6h2. ddp     data-parallel training: main() with --mesh_data 2 at full
+               width, 256^2, bf16, global batch 4, 2 steps, a checkpoint at
+               2, then the export; on one card the two ranks share cuda:0
+               over gloo, on two or more each has its own card over NCCL
+               (logged); the ranks' trainables bitwise equal (their sha256,
+               all-gathered), one export and one checkpoint set, written by
+               rank 0, no serving kernel launched in a rank; against the
+               same argv with --mesh_data 1: each step's loss and grad_norm
+               within DDP_LOSS_RTOL / DDP_GNORM_RTOL, the trainables within
+               DDP_MAX_LR lr and at most DDP_FLIP_SHARE of them beyond
+               lr / 2;
   6i. batched  concurrent painters (--mesh data=1 --max-batch 4) on the
                default model: one batch of 4 requests of mixed settings and
                brushes at 256^2 / 20 and at 1024^2 / 4 through the service
@@ -355,8 +371,9 @@ CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
 CARD = [""]  # the card's name and power limit, as CARD_QUERY prints them
 RES, STEPS, TWIN_STEPS = 256, 20, 4
 ENVELOPE_RES, SLOTTED_RES, FEW_STEPS = 1024, 512, 4
-# train.main's steps at batch 32 in the train phase's end-to-end run
-E2E_STEPS = 6
+# train.main's steps at batch 32 in the train phase's end-to-end run (3:
+# the samples/s of steps 2-3; 6 before the ddp phase joined the smoke)
+E2E_STEPS = 3
 # Published peaks of one H100 SXM (dense): the bounds of the kernels' work
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -4545,12 +4562,60 @@ def procedural_texture(i, size):
     return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
-def train_args(tex, out, *extra, batch=2):
+def train_args(tex, out, *extra, batch=2, mesh=1):
     return ["--images_path", tex, "--output_dir", out, "--resolution",
             str(RES), "--train_batch_size", str(batch),
             "--checkpointing_steps", "2", "--mixed_precision", "bf16",
             "--validation_epochs", "0", "--log_every", "1", "--device",
-            "cuda", *extra]
+            "cuda", "--mesh_data", str(mesh), *extra]
+
+
+# the JPEG fixtures (Pillow-written; tests/test_torch_port_jpeg.py holds
+# their manifest to Pillow) and the two whose decode the train phase times
+JPEG_FIXTURES = ("tests", "fixtures", "jpeg")
+JPEG_TIMED = ("baseline_420_640.jpg", "progressive_640.jpg")
+JPEG_REPS = 3
+
+
+def jpeg_fixtures():
+    """(directory, manifest) of the committed JPEG fixtures."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(here, *JPEG_FIXTURES)
+    with open(os.path.join(directory, "manifest.json")) as f:
+        return directory, json.load(f)
+
+
+def check_jpeg_fixtures(tex):
+    """Decodes every JPEG fixture on the host, holds the sha256 of each
+    result to the manifest's (Pillow's decode) and copies the files into
+    `tex`; returns {name: best decode ms} (JPEG_REPS runs of the timed
+    ones, one of the others)."""
+    import hashlib
+    import os
+    import shutil
+
+    from diffusiontexturepainting_torch.training import image_io
+
+    directory, manifest = jpeg_fixtures()
+    decode_ms = {}
+    for name, want in sorted(manifest.items()):
+        with open(os.path.join(directory, name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(JPEG_REPS if name in JPEG_TIMED else 1):
+            tic = time.perf_counter()
+            rgb = image_io.decode_image(data)
+            times.append(time.perf_counter() - tic)
+        digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+        if digest != want["sha256"] or list(rgb.shape) != want["shape"]:
+            raise AssertionError(f"train: JPEG {name}: {rgb.shape} sha256 "
+                                 f"{digest}, the manifest (Pillow) "
+                                 f"{want['shape']} {want['sha256']}")
+        decode_ms[name] = 1e3 * min(times)
+        shutil.copy(os.path.join(directory, name), os.path.join(tex, name))
+    return decode_ms
 
 
 def train_main(label, argv):
@@ -4689,8 +4754,8 @@ def train_phase():
     latest to step 6, the serving counters still throughout; the validation
     grid on the resumed weights (its stamp's kernels launched); the export
     served through the request handler; a tiny fp32 step against the CPU;
-    the step's time and memory at batch 2 and 32, and train.main's
-    samples/s at 32 over E2E_STEPS steps. Returns the numbers."""
+    the step's time and memory at batch 2, and train.main's samples/s at
+    32 over E2E_STEPS steps. Returns the numbers."""
     import os
     import shutil
     import tempfile
@@ -4724,19 +4789,42 @@ def train_phase():
             f"{1e3 * decode_s[None]:.1f} ms with the writer's adaptive "
             f"filters (as the textures here), {1e3 * decode_s[0]:.1f} ms "
             "unfiltered")
-        _, steps, secs = train_main("4 steps", train_args(
-            tex, out, "--max_train_steps", "4"))
-        if [h["step"] for h in steps] != [1, 2, 3, 4]:
-            raise AssertionError(f"train: steps {steps}")
-        ckpt = os.path.join(out, "checkpoints")
-        n_up = up_factors_nonzero(ckpt, 2)
-        log(f"train: 4 steps at full width, {RES}^2, batch 2, bf16 in "
-            f"{secs:.1f} s with checkpoints 2 and 4 and the export; all "
-            f"{n_up} LoRA up factors non-zero at step 2; serving counters "
-            "still")
-        export, steps, secs = train_main("resumed", train_args(
-            tex, out, "--max_train_steps", "6", "--resume_from_checkpoint",
-            "latest"))
+        jpeg_ms = check_jpeg_fixtures(tex)
+        log(f"train: every JPEG fixture decoded on the host to its "
+            f"manifest's sha256 (Pillow's decode), ms: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in jpeg_ms.items())
+            + f"; the 640^2 4:2:0 baseline {jpeg_ms[JPEG_TIMED[0]]:.1f} ms "
+            f"and progressive {jpeg_ms[JPEG_TIMED[1]]:.1f} ms (best of "
+            f"{JPEG_REPS}), beside the PNG's above ({CARD[0]})")
+        # the textures read while main trains, by extension
+        reads = Counter()
+        read = image_io.read_image_rgb
+
+        def counted_read(path):
+            reads[os.path.splitext(str(path))[1].lower()] += 1
+            return read(path)
+
+        image_io.read_image_rgb = counted_read
+        try:
+            _, steps, secs = train_main("4 steps", train_args(
+                tex, out, "--max_train_steps", "4"))
+            if [h["step"] for h in steps] != [1, 2, 3, 4]:
+                raise AssertionError(f"train: steps {steps}")
+            ckpt = os.path.join(out, "checkpoints")
+            n_up = up_factors_nonzero(ckpt, 2)
+            log(f"train: 4 steps at full width, {RES}^2, batch 2, bf16 in "
+                f"{secs:.1f} s with checkpoints 2 and 4 and the export; all "
+                f"{n_up} LoRA up factors non-zero at step 2; serving "
+                "counters still")
+            export, steps, secs = train_main("resumed", train_args(
+                tex, out, "--max_train_steps", "6",
+                "--resume_from_checkpoint", "latest"))
+        finally:
+            image_io.read_image_rgb = read
+        if not reads[".jpg"] or not reads[".png"]:
+            raise AssertionError(f"train: textures read by kind: "
+                                 f"{dict(reads)}; JPEG and PNG expected")
+        log(f"train: textures read while training, by kind: {dict(reads)}")
         if [h["step"] for h in steps] != [5, 6]:
             raise AssertionError(f"train: resumed run's steps {steps}")
         if train.checkpoint_steps(ckpt) != [2, 4, 6]:
@@ -4772,8 +4860,8 @@ def train_phase():
         log(f"train: validation grid {grid.shape} uint8 in {val_s:.1f} s "
             f"(DDIM 20 at {RES}^2); launches {launched}")
 
-        # (f) one step's time and memory at batch 2 and the JAX default 32
-        # (which fits: 25 GiB of 80), and train.main end to end at 32: the
+        # (f) one step's time and memory at batch 2, and train.main end to
+        # end at the JAX default 32 (which fits: 25 GiB of 80): the
         # prefetch thread preparing batches while the steps run, a log
         # line (and its read of the loss) every step. A dataset of 32
         # textures, the first 8 those trained on.
@@ -4785,15 +4873,14 @@ def train_phase():
             image_io.write_png(os.path.join(many, f"tex{i}.png"),
                                procedural_texture(i, 512))
         data32 = AugmentedTextures(many, size=RES, seed=0)
-        for bs in (2, 32):
-            prep_s, times, peak = timing[bs] = time_train_steps(
-                run.trainer, data32, bs)
-            step_s = min(times)
-            log(f"train: batch {bs} at {RES}^2, full width, bf16: "
-                f"{step_s:.3f} s/step (of "
-                f"{', '.join(f'{t:.3f}' for t in times)}), "
-                f"{bs / step_s:.2f} samples/s, host batch prep "
-                f"{prep_s:.2f} s, peak {peak / 2**30:.2f} GiB ({card})")
+        prep_s, times, peak = timing[2] = time_train_steps(
+            run.trainer, data32, 2)
+        step_s = min(times)
+        log(f"train: batch 2 at {RES}^2, full width, bf16: "
+            f"{step_s:.3f} s/step (of "
+            f"{', '.join(f'{t:.3f}' for t in times)}), "
+            f"{2 / step_s:.2f} samples/s, host batch prep "
+            f"{prep_s:.2f} s, peak {peak / 2**30:.2f} GiB ({card})")
         del run
         release()
         _, steps, secs = train_main("end to end", train_args(
@@ -4843,6 +4930,143 @@ def train_phase():
         shutil.rmtree(root, ignore_errors=True)
     log(f"train: phase done in {time.perf_counter() - t_phase:.1f} s")
     return timing
+
+
+# the ddp phase: train.main --mesh_data 2 at full width, 256^2, bf16, a
+# global batch of DDP_BATCH for DDP_STEPS steps, against --mesh_data 1.
+# In bf16 the two runs' UNet evaluations (batch 4 against 2 + 2) round
+# differently, so each step's loss is held within DDP_LOSS_RTOL and its
+# grad_norm within DDP_GNORM_RTOL; Adam's update of an element is at most
+# about lr in size (|m_hat| / sqrt(v_hat) <= 1.0015 over two steps), so
+# after DDP_STEPS steps no element may differ by more than DDP_MAX_LR lr,
+# and at most DDP_FLIP_SHARE of the elements by more than lr / 2 (the
+# elements whose gradient is near zero, where the rounding can flip an
+# update's sign).
+DDP_STEPS, DDP_BATCH = 2, 4
+DDP_LOSS_RTOL, DDP_GNORM_RTOL = 2e-2, 5e-2
+DDP_MAX_LR = 2 * DDP_STEPS * 1.0015
+DDP_FLIP_SHARE = 0.05
+DDP_TIMEOUT = 480  # seconds the two ranks may take before they are killed
+
+
+def ddp_phase(ranks=2):
+    """Data-parallel training on the card: training.train.main with
+    --mesh_data `ranks` (on one card the ranks share cuda:0 over gloo; on
+    as many cards as ranks each rank has its own card over NCCL), then the
+    same argv with --mesh_data 1; returns the numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from diffusiontexturepainting_torch.training import image_io, train
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dtp_ddp_")
+    cards = torch.cuda.device_count()
+    backend = "gloo" if cards < ranks else None
+    case = (f"gloo, {ranks} ranks sharing {cards} card(s)" if cards < ranks
+            else f"NCCL, a card a rank ({cards} visible)")
+    try:
+        tex = os.path.join(root, "textures")
+        os.makedirs(tex)
+        for i in range(4):
+            image_io.write_png(os.path.join(tex, f"tex{i}.png"),
+                               procedural_texture(i, 512))
+        check_jpeg_fixtures(tex)
+        steps = ["--max_train_steps", str(DDP_STEPS)]
+        two, one = os.path.join(root, "two"), os.path.join(root, "one")
+        before = {c.name: c.launches for c in counters()}
+        report = {}
+        tic = time.perf_counter()
+        _, hist2 = train.main(train_args(tex, two, *steps, batch=DDP_BATCH,
+                                         mesh=ranks),
+                              backend=backend, timeout=DDP_TIMEOUT,
+                              report=report)
+        secs2 = time.perf_counter() - tic
+        if {c.name: c.launches for c in counters()} != before:
+            raise AssertionError("ddp: serving counters moved here")
+        reports = report["ranks"]
+        log(f"ddp: --mesh_data {ranks} ran {case}: "
+            + "; ".join(f"rank {r['rank']} on {r['device']} over "
+                        f"{r['backend']}" for r in reports))
+        digests = {d for r in reports for d in r["digests"]}
+        if [r["rank"] for r in reports] != list(range(ranks)) or len(
+                digests) != 1 or any(len(r["digests"]) != ranks
+                                     for r in reports):
+            raise AssertionError(f"ddp: the ranks' trainables differ: "
+                                 f"{reports}")
+        moved = [r["launches"] for r in reports if r["launches"]]
+        if moved:
+            raise AssertionError(f"ddp: serving kernels launched in the "
+                                 f"ranks: {moved}")
+        if [r["exported"] for r in reports] != [True] + [False] * (
+                ranks - 1) or [r["checkpoints"] for r in reports] != [
+                    [DDP_STEPS]] + [[]] * (ranks - 1):
+            raise AssertionError(f"ddp: writers {reports}")
+        exports = [x for x in os.listdir(two) if x.startswith("export")]
+        npz = sorted(os.listdir(os.path.join(two, "export")))
+        if exports != ["export"] or len(npz) != 4 or train.checkpoint_steps(
+                os.path.join(two, "checkpoints")) != [DDP_STEPS]:
+            raise AssertionError(f"ddp: outputs {exports} {npz}")
+        for h in hist2:
+            if not (math.isfinite(h["loss"]) and
+                    math.isfinite(h["grad_norm"])):
+                raise AssertionError(f"ddp: step {h}")
+        log(f"ddp: {ranks} ranks, {DDP_STEPS} steps at full width, {RES}^2, "
+            f"global batch {DDP_BATCH}, bf16 in {secs2:.1f} s with the "
+            f"spawn, the builds, checkpoint {DDP_STEPS} and the export; "
+            f"the ranks' trainables bitwise equal (sha256 "
+            f"{next(iter(digests))[:16]}..., all-gathered); one export "
+            f"({', '.join(npz)}), written by rank 0 alone; no serving "
+            f"kernel launched in either rank ({CARD[0]})")
+
+        _, hist1, secs1 = train_main("ddp reference, one rank", train_args(
+            tex, one, *steps, batch=DDP_BATCH, mesh=1))
+        for a, b in zip(hist1, hist2):
+            log(f"ddp: step {a['step']}: loss {b['loss']:.6f} on {ranks} "
+                f"ranks, "
+                f"{a['loss']:.6f} on 1; grad_norm {b['grad_norm']:.6f} / "
+                f"{a['grad_norm']:.6f}")
+            if abs(b["loss"] - a["loss"]) > DDP_LOSS_RTOL * abs(a["loss"]) \
+                    or abs(b["grad_norm"] - a["grad_norm"]) > (
+                        DDP_GNORM_RTOL * abs(a["grad_norm"])):
+                raise AssertionError(f"ddp: step {a['step']}: {ranks} "
+                                     f"ranks {b}, 1 rank {a}")
+        states = [torch.load(os.path.join(d, "checkpoints", str(DDP_STEPS),
+                                          train.CHECKPOINT_FILE),
+                             map_location="cpu", weights_only=True)
+                  for d in (two, one)]
+        lr = train.build_argparser().parse_args(
+            train_args(tex, one)).learning_rate
+        worst, flips, total = 0.0, 0, 0
+        for k, want in states[1]["params"].items():
+            diff = (states[0]["params"][k] - want).abs()
+            worst = max(worst, float(diff.max()))
+            flips += int((diff > 0.5 * lr).sum())
+            total += want.numel()
+        walls = [[b["time"] - a["time"] for a, b in zip(h, h[1:])]
+                 for h in (hist2, hist1)]
+        log(f"ddp: trainables after {DDP_STEPS} steps, {ranks} ranks "
+            f"against 1: "
+            f"max|diff| {worst:.3e} ({worst / lr:.3f} lr), {flips} of "
+            f"{total} ({flips / total:.5f}) beyond lr/2; one rank "
+            f"{secs1:.1f} s; a step after the first "
+            f"{', '.join(f'{w:.3f}' for w in walls[0])} s on {ranks} "
+            f"ranks, "
+            f"{', '.join(f'{w:.3f}' for w in walls[1])} s on 1 "
+            f"({CARD[0]})")
+        if worst > DDP_MAX_LR * lr + 1e-7 or flips > DDP_FLIP_SHARE * total:
+            raise AssertionError(f"ddp: {ranks} ranks against 1: max {worst}, "
+                                 f"{flips} of {total} beyond lr/2")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"ddp: phase done in {secs:.1f} s")
+    return {"case": case, "ranks_s": secs2, "one_rank_s": secs1,
+            "max_diff": worst, "flip_share": flips / total,
+            "step_walls": walls}
 
 
 def release():
@@ -6010,6 +6234,8 @@ def main() -> int:
     run_flags_phase()
     log(f"run_flags: phase done in {time.perf_counter() - tic:.1f} s")
     train_phase()
+    release()
+    ddp_phase()
 
     envelope = TorchConditionalInpainter(resolution=ENVELOPE_RES,
                                          device="cuda", weights=weights)

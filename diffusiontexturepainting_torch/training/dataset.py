@@ -13,8 +13,8 @@ there and here.
 
 Batches come out NHWC float32 with the mask already inverted to the UNet
 convention (1 = generate), matching the reference collate_fn
-(train_texture_inpaint_lora.py:519-527). PNG only for now: a JPEG file is
-listed but raises ValueError when a sample reads it.
+(train_texture_inpaint_lora.py:519-527). Images are PNG or JPEG, read by
+content (image_io.read_image_rgb), as Pillow reads them.
 """
 
 from __future__ import annotations
@@ -195,7 +195,8 @@ class AugmentedTextures:
         }
 
     def batches(self, batch_size: int, steps: Optional[int] = None,
-                shuffle: bool = True, start: int = 0) -> Iterator[dict]:
+                shuffle: bool = True, start: int = 0,
+                shard: Optional[tuple] = None) -> Iterator[dict]:
         """Infinite (or `steps`-bounded) iterator of stacked NHWC batches.
 
         The stream is a pure function of (self.seed, batch index): every
@@ -203,10 +204,20 @@ class AugmentedTextures:
         global batch counter, so `start=N` resumes the exact sequence the
         original run saw from its N-th batch without paying for the skipped
         batches.
+
+        shard=(rank, world): `batch_size` is the global batch, and rank r
+        builds only its samples j in [r * B / N, (r + 1) * B / N), each
+        from its own Random(f"{seed}-b{b}-s{j}"), so the ranks' batches,
+        concatenated in rank order, are the unsharded batch.
         """
         n = len(self.files)
         if n < batch_size:
             raise ValueError(f"dataset ({n}) smaller than batch {batch_size}")
+        rank, world = shard or (0, 1)
+        if batch_size % world:
+            raise ValueError(f"batch {batch_size} does not divide over "
+                             f"{world} ranks")
+        per_rank = batch_size // world
         per_epoch = n // batch_size
         b = start
         while steps is None or b - start < steps:
@@ -218,6 +229,7 @@ class AugmentedTextures:
             samples = [
                 self.sample(i, _random.Random(f"{self.seed}-b{b}-s{j}"))
                 for j, i in enumerate(idxs)
+                if rank * per_rank <= j < (rank + 1) * per_rank
             ]
             yield {k_: np.stack([smp[k_] for smp in samples])
                    for k_ in samples[0] if k_ != "cond_image"}

@@ -5,10 +5,11 @@ the JAX package's dataset and mask generator use of it (training/
 dataset.py, training/mask_generator.py there), on (H, W, C) uint8 arrays,
 with Pillow's arithmetic:
 
-  read_image_rgb   PNG decode (8-bit colour types 0, 2, 4 and 6; type 3
-                   at 1, 2, 4 or 8 bits) and convert("RGB"), which drops
-                   alpha; interlaced and 16-bit PNG and JPEG raise
-                   ValueError
+  read_image_rgb   Image.open(...).convert("RGB"): the decoder chosen by
+                   the file's first bytes, as Image.open chooses it; PNG
+                   (8-bit colour types 0, 2, 4 and 6; type 3 at 1, 2, 4
+                   or 8 bits; Adam7-interlaced or not; 16-bit PNG raises
+                   ValueError) with alpha dropped, or JPEG (jpeg.py)
   write_png        an 8-bit PNG writer (gray, RGB or RGBA), each row's
                    filter chosen as libpng chooses it
   resize_bilinear  Image.resize(BILINEAR): the triangle filter's support
@@ -31,16 +32,20 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 import struct
 import zlib
 
 import numpy as np
 
+from . import jpeg
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples a pixel of each colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's 8-bit resampling fixed point
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 # --- PNG ---
@@ -138,6 +143,19 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(raw: bytes, width: int, height: int, depth: int,
+             channels: int) -> np.ndarray:
+    """One (reduced) image's filtered scanlines -> (height, width,
+    channels) uint8 samples, palette indices unpacked."""
+    stride = (width * channels * depth + 7) // 8
+    rows = _unfilter(raw, height, stride, max(1, channels * depth // 8))
+    if depth < 8:  # palette indices packed big-endian into each byte
+        bits = np.unpackbits(rows, axis=1)[:, :width * depth]
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        rows = (bits.reshape(height, width, depth) * weights).sum(-1)
+    return rows.reshape(height, width, channels).astype(np.uint8, copy=False)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """A PNG file's bytes -> (H, W, 3) uint8, Pillow's
     Image.open(...).convert("RGB") of it."""
@@ -154,22 +172,28 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
     width, height, depth, colour, _, _, interlace = header
-    if interlace:
-        raise ValueError("PNG: interlaced images are not supported")
+    if interlace > 1:
+        raise ValueError(f"PNG: unknown interlace method {interlace}")
     if colour not in _CHANNELS:
         raise ValueError(f"PNG: unknown colour type {colour}")
     if depth != 8 and not (colour == 3 and depth in (1, 2, 4)):
         raise ValueError(f"PNG: {depth}-bit samples of colour type {colour} "
                          "are not supported (8-bit only; palette 1-8 bit)")
     channels = _CHANNELS[colour]
-    stride = (width * channels * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, stride,
-                     max(1, channels * depth // 8))
-    if depth < 8:  # palette indices packed big-endian into each byte
-        bits = np.unpackbits(rows, axis=1)[:, :width * depth]
-        weights = 1 << np.arange(depth - 1, -1, -1)
-        rows = (bits.reshape(height, width, depth) * weights).sum(-1)
-    pixels = rows.reshape(height, width, channels)
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        pixels = _samples(raw, width, height, depth, channels)
+    else:  # Adam7: seven reduced images, each filtered on its own
+        pixels = np.zeros((height, width, channels), np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no bytes, not even filters
+            size = ph * ((pw * channels * depth + 7) // 8 + 1)
+            pixels[y0::dy, x0::dx] = _samples(raw[pos:pos + size], pw, ph,
+                                              depth, channels)
+            pos += size
     if colour == 3:
         if palette is None:
             raise ValueError("PNG: palette image without a PLTE chunk")
@@ -181,18 +205,25 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(pixels[..., :3])
 
 
+def decode_image(data: bytes) -> np.ndarray:
+    """An image file's bytes -> (H, W, 3) uint8 RGB, the decoder chosen by
+    content as Image.open chooses it: JPEG (FF D8 FF) or PNG (its
+    signature); anything else raises ValueError."""
+    if data.startswith(b"\xff\xd8\xff"):
+        return jpeg.decode_jpeg(data)
+    if data.startswith(_PNG_SIGNATURE):
+        return decode_png(data)
+    raise ValueError("neither a JPEG nor a PNG file")
+
+
 def read_image_rgb(path) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB. PNG only: a JPEG raises
-    ValueError naming the file (its decoder is not ported yet)."""
-    ext = os.path.splitext(str(path))[1].lower()
-    if ext in (".jpg", ".jpeg"):
-        raise ValueError(f"{path}: JPEG decoding is not ported yet; convert "
-                         "the texture to PNG")
+    """An image file -> (H, W, 3) uint8 RGB (decode_image); every decoder
+    error is raised as ValueError naming the file."""
     with open(path, "rb") as f:
         data = f.read()
     try:
-        return decode_png(data)
-    except ValueError as e:
+        return decode_image(data)
+    except Exception as e:  # noqa: BLE001 - zlib, struct, ... errors too
         raise ValueError(f"{path}: {e}") from e
 
 

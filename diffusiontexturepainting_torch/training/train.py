@@ -1,7 +1,7 @@
 """Training entry point: LoRA + patch-encoder finetune on texture folders.
 
-Port of diffusiontexturepainting_tpu/training/train.py for one process on
-one device (the card unless --device cpu): the same flags and defaults,
+Port of diffusiontexturepainting_tpu/training/train.py (on the card unless
+--device cpu): the same flags and defaults,
 the frozen towers seeded at random or read from --pretrained_dir (the JAX
 package's npz format, weights/loader.py), a background batch prefetch,
 checkpoints with bounded retention and resume ("latest" or a step), a
@@ -17,9 +17,21 @@ temporary directory and renamed into place. The data stream is a pure
 function of (seed, batch index) and the step's draws of (seed, step), so a
 resumed run continues as the unbroken one would have.
 
-Data-parallel and mesh training (--mesh_data or --mesh_model above 1) and
-the multi-host flags (--coordinator, --num_processes, --process_id) are
-not ported yet: each raises SystemExit.
+Data-parallel training, as the JAX trainer's `data` mesh axis:
+--mesh_data N ranks over all processes (default: every visible card of
+every process; 1 under --device cpu), --train_batch_size the global batch,
+which N must divide. One `train` process starts its N / --num_processes
+local ranks as spawned processes (parallel/launch.py), local rank i on
+cuda:i with global rank --process_id * N / --num_processes + i; the ranks
+meet at tcp://--coordinator (host:port; a file of their own where one
+process runs them all), the counterpart of jax.distributed.initialize.
+Each rank prepares its own rows of every batch (dataset.batches(shard=)),
+and the trainer averages the gradients over the ranks (trainer.py); rank 0
+alone writes checkpoints (a barrier on each side), tensorboard, wandb, the
+validation grid and the export, and every rank resumes from the same
+checkpoint. NCCL carries the collectives between cards and gloo on the
+CPU; main(..., backend="gloo") lets ranks share a card. Model-parallel
+training (--mesh_model above 1) is not ported yet and raises SystemExit.
 
 Usage:
     python -m diffusiontexturepainting_torch.training.train \\
@@ -29,6 +41,12 @@ Usage:
     python -m diffusiontexturepainting_torch.training.train --device cpu \\
         --tiny --resolution 64 --train_batch_size 2 --max_train_steps 4 \\
         --images_path DIR --output_dir OUT
+    # two gloo ranks on the CPU; eight cards of one host over NCCL; two
+    # hosts of eight cards (the same command on each, --process_id 0 / 1)
+    ... --device cpu --tiny --mesh_data 2 --train_batch_size 4
+    ... --mesh_data 8
+    ... --mesh_data 16 --num_processes 2 --process_id 0 \\
+        --coordinator HOST0:29500
 """
 
 from __future__ import annotations
@@ -114,21 +132,26 @@ def build_argparser():
                         "0 disables epoch-based validation")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="not ported yet: above 1 raises")
+                   help="data-parallel ranks over all processes (default: "
+                        "every visible card; 1 on the CPU)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="not ported yet: above 1 raises")
+                   help="model-parallel axis: not ported yet, above 1 "
+                        "raises")
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--tiny", action="store_true", help="tiny model (tests)")
     p.add_argument("--mixed_precision", choices=["bf16", "fp32"], default=None,
                    help="compute dtype (params stay f32); default bf16 on "
                         "CUDA, fp32 elsewhere")
     p.add_argument("--log_every", type=int, default=10)
+    # multi-host bring-up: the analog of `accelerate launch`'s process-group
+    # init (reference train...py:343-349 / --local_rank)
     p.add_argument("--coordinator", default=None,
-                   help="multi-host training: not ported yet, raises")
+                   help="host:port where the ranks meet (rank 0 serves it); "
+                        "needed with --num_processes above 1")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="multi-host training: not ported yet, raises")
+                   help="training processes over all hosts (default 1)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="multi-host training: not ported yet, raises")
+                   help="this process's index among them (default 0)")
     p.add_argument("--wandb", action="store_true",
                    help="also log metrics to Weights & Biases (reference "
                         "train...py:286-294; tensorboard stays on)")
@@ -138,16 +161,35 @@ def build_argparser():
     return p
 
 
-def _refuse_multi_device(args) -> None:
-    if (args.mesh_data or 1) > 1 or args.mesh_model > 1:
+MODEL_AXIS = "ROADMAP.md Queue 1 item 11"
+
+
+def data_axis(args, backend: str | None = None):
+    """The data axis the flags ask for (parallel/mesh.plan_data_axis), or
+    SystemExit naming what cannot run: --mesh_model above 1, a global
+    batch the ranks do not divide, several processes without a
+    coordinator, ranks the devices cannot hold."""
+    from ..parallel.mesh import plan_data_axis
+
+    if args.mesh_model > 1:
         raise SystemExit(
-            f"--mesh_data {args.mesh_data} / --mesh_model {args.mesh_model}: "
-            "data-parallel and mesh training are not ported yet (one process "
-            "on one device only)")
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag}: multi-host training is not ported "
-                             "yet (one process on one device only)")
+            f"--mesh_model {args.mesh_model}: model-parallel (mesh) training "
+            f"is not ported yet ({MODEL_AXIS}); use --mesh_data")
+    if (args.num_processes or 1) > 1 and not args.coordinator:
+        raise SystemExit(f"--num_processes {args.num_processes} needs "
+                         "--coordinator host:port")
+    device_type = torch.device(args.device).type
+    count = torch.cuda.device_count() if device_type == "cuda" else 1
+    try:
+        axis = plan_data_axis(args.mesh_data, args.num_processes,
+                              args.process_id, device_type, count, backend)
+    except ValueError as e:
+        raise SystemExit(f"--mesh_data {args.mesh_data}: {e}") from None
+    if args.train_batch_size % axis.world:
+        raise SystemExit(
+            f"--train_batch_size {args.train_batch_size} is the global "
+            f"batch: {axis.world} data ranks must divide it")
+    return axis
 
 
 def build_models(tiny: bool, device, dtype):
@@ -208,18 +250,20 @@ def resolve_resume(ckpt_dir: str, which: str):
     return step if step in steps else None
 
 
-def prepare(args) -> SimpleNamespace:
-    """Everything main() trains with, from its parsed arguments: the
+def prepare(args, rank=None) -> SimpleNamespace:
+    """Everything a rank trains with, from the parsed arguments: the
     models (frozen weights loaded, cast once), the fp32 host weights, the
     Trainer (resumed where --resume_from_checkpoint finds a checkpoint),
-    the dataset and the checkpoint directory."""
-    _refuse_multi_device(args)
+    the dataset and the checkpoint directory. `rank` (a DataRank) is a
+    lone rank on --device by default."""
+    from ..parallel.mesh import DataRank
     from ..weights.loader import load_pipeline_params
     from ..weights.random_init import complete_weights
     from .dataset import AugmentedTextures
     from .trainer import Trainer, TrainConfig
 
-    device = torch.device(args.device)
+    rank = rank or DataRank(0, 1, 0, args.device)
+    device = torch.device(rank.device)
     dtype = {None: (torch.bfloat16 if device.type == "cuda"
                     else torch.float32),
              "bf16": torch.bfloat16, "fp32": torch.float32}[
@@ -246,10 +290,12 @@ def prepare(args) -> SimpleNamespace:
     # fp32 host copies: the merge base of the export, the head's masters
     weights = {name: {k: v.detach().to("cpu", torch.float32)
                       for k, v in sd.items()} for name, sd in weights.items()}
-    trainer = Trainer(cfg, models, weights, device, dtype)
+    trainer = Trainer(cfg, models, weights, device, dtype,
+                      shard=rank.shard)
 
     ckpt_dir = os.path.abspath(os.path.join(args.output_dir, "checkpoints"))
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if rank.is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
     if args.resume_from_checkpoint:
         step = resolve_resume(ckpt_dir, args.resume_from_checkpoint)
         if step is not None:
@@ -271,31 +317,131 @@ def prepare(args) -> SimpleNamespace:
         num_patches=pcfg.num_patches, seed=args.seed)
     logger.info("dataset: %d images", len(dataset))
     return SimpleNamespace(trainer=trainer, models=models, weights=weights,
-                           dataset=dataset, ckpt_dir=ckpt_dir)
+                           dataset=dataset, ckpt_dir=ckpt_dir, rank=rank)
 
 
-def main(argv=None):
+def main(argv=None, *, backend: str | None = None,
+         timeout: float | None = None, report: dict | None = None):
     """Train as the flags say; returns (the export directory, one record a
     step: {"step", "loss", "grad_norm", "time"}), "time" the
     time.perf_counter() reading when the step's host work was done (after
-    its log line, whose read of the loss waits for the device)."""
+    its log line, whose read of the loss waits for the device; before its
+    checkpoint and validation grid); the loss and grad_norm are the global
+    batch's.
+
+    With more than one data rank the ranks run as spawned processes and
+    the records are local rank 0's. backend="gloo" lets ranks share a card
+    (NCCL, the default on cards, refuses that); `timeout` (seconds) stops
+    every rank and raises where they are not done by then. `report`, a
+    dict, receives "ranks": each local rank's {"rank", "world", "device",
+    "backend", "launches" (its serving-kernel launch counts), "digests"
+    (every rank's sha256 of its trainables, all-gathered; none for one
+    rank), "checkpoints"
+    (the steps it saved), "exported" (whether it wrote the export)}."""
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    axis = data_axis(args, backend)
+    if axis.world == 1:
+        from ..parallel.mesh import DataRank
+
+        results = [_train(args, DataRank(0, 1, 0, args.device))]
+    else:
+        import tempfile
+
+        from ..parallel.launch import run_local_ranks
+
+        # one process holds every rank: they meet at a file of their own
+        local = None if args.coordinator else tempfile.mkdtemp(
+            prefix="dtp_rendezvous_")
+        coordinator = args.coordinator or "file://" + os.path.join(
+            local, "store")
+        threads = max(1, torch.get_num_threads() // axis.local)
+        logger.info("data axis: %d ranks over %d processes, %d here, %s",
+                    axis.world, axis.processes, axis.local, axis.backend)
+        try:
+            results = run_local_ranks(
+                _rank_main, [(args, axis, i, coordinator, threads)
+                             for i in range(axis.local)], timeout=timeout)
+        finally:
+            if local:
+                shutil.rmtree(local, ignore_errors=True)
+    if report is not None:
+        report["ranks"] = [r[2] for r in results]
+    return results[0][:2]
+
+
+def _rank_main(args, axis, local_rank, coordinator, threads):
+    """One spawned rank: its torch threads capped, the process group
+    joined, _train run, the group left."""
+    torch.set_num_threads(threads)
+    logging.basicConfig(level=logging.INFO, format=(
+        f"[rank {axis.process_id * axis.local + local_rank}] "
+        "%(levelname)s:%(name)s:%(message)s"))
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+
+    rank = init_distributed(coordinator, axis.processes, axis.process_id,
+                            data=axis.world, local_rank=local_rank,
+                            device_type=axis.device_type,
+                            backend=axis.backend)
+    try:
+        return _train(args, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _barrier(rank) -> None:
+    if rank.world > 1:
+        import torch.distributed as dist
+
+        if rank.backend == "nccl":
+            dist.barrier(device_ids=[torch.device(rank.device).index])
+        else:
+            dist.barrier()
+
+
+def _digests(trainer, rank) -> list:
+    """Every rank's sha256 of its trainables (names sorted), gathered;
+    none for a lone rank."""
+    if rank.world == 1:
+        return []
+    import hashlib
+
+    import torch.distributed as dist
+
+    h = hashlib.sha256()
+    for k in sorted(trainer.params):
+        h.update(trainer.params[k].detach().cpu().numpy().tobytes())
+    mine = h.hexdigest()
+
+    out = [None] * rank.world
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def _train(args, rank):
+    """One rank's run: (export dir, step records, its report)."""
+    from .._cuda import LaunchCounter
     from ..weights.loader import save_pipeline_params
     from .trainer import batch_to_device
 
-    run = prepare(args)
+    run = prepare(args, rank)
     trainer, models, dataset = run.trainer, run.models, run.dataset
     device, start_step = trainer.device, trainer.step
+    main_rank = rank.is_main
+    launched = {c.name: c.launches for c in LaunchCounter.all}
 
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    writer = None
+    if main_rank:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(args.output_dir, "logs"))
-    except Exception:  # tensorboard not installed
-        writer = None
+            writer = SummaryWriter(os.path.join(args.output_dir, "logs"))
+        except Exception:  # tensorboard not installed
+            writer = None
     wandb_run = None
-    if args.wandb:
+    if args.wandb and main_rank:
         try:
             import wandb
 
@@ -309,18 +455,18 @@ def main(argv=None):
     # patch resizes, the mask) with the device's step
     it = _prefetch(dataset.batches(
         args.train_batch_size, steps=max(0, args.max_train_steps - start_step),
-        start=start_step))
+        start=start_step, shard=rank.shard))
     steps_per_epoch = max(1, len(dataset) // args.train_batch_size)
     val_every = args.validation_steps or (
         args.validation_epochs * steps_per_epoch
         if args.validation_epochs > 0 else 0)
     t_last = time.time()
-    history = []
+    history, saved = [], []
     for step in range(start_step, args.max_train_steps):
         batch = batch_to_device(next(it), device)
         metrics = trainer.train_step(batch)
 
-        if (step + 1) % args.log_every == 0:
+        if main_rank and (step + 1) % args.log_every == 0:
             loss = float(metrics["loss"])
             gnorm = float(metrics["grad_norm"])
             dt = (time.time() - t_last) / args.log_every
@@ -334,27 +480,43 @@ def main(argv=None):
                     writer.add_scalar(k, v, step + 1)
             if wandb_run:
                 wandb_run.log(scalars, step=step + 1)
-
-        if (step + 1) % args.checkpointing_steps == 0:
-            save_checkpoint(run.ckpt_dir, trainer,
-                            args.checkpoints_total_limit)
-            logger.info("saved checkpoint at step %d", step + 1)
-
-        if val_every and (step + 1) % val_every == 0:
-            _log_validation(writer, step + 1, trainer, models, dataset)
         history.append({"step": step + 1, "time": time.perf_counter(),
                         **metrics})
 
+        if (step + 1) % args.checkpointing_steps == 0:
+            _barrier(rank)
+            if main_rank:
+                save_checkpoint(run.ckpt_dir, trainer,
+                                args.checkpoints_total_limit)
+                saved.append(step + 1)
+                logger.info("saved checkpoint at step %d", step + 1)
+            _barrier(rank)
+
+        if main_rank and val_every and (step + 1) % val_every == 0:
+            _log_validation(writer, step + 1, trainer, models, dataset)
+
+    digests = _digests(trainer, rank)
+    if len(set(digests)) > 1:
+        raise RuntimeError(f"the data ranks' trainables differ: {digests}")
     export_dir = os.path.join(args.output_dir, "export")
-    save_pipeline_params(export_dir, trainer.export_state_dicts(run.weights))
-    logger.info("exported serving checkpoint to %s", export_dir)
+    if main_rank:
+        save_pipeline_params(export_dir,
+                             trainer.export_state_dicts(run.weights))
+        logger.info("exported serving checkpoint to %s", export_dir)
+    _barrier(rank)
     if wandb_run:
         wandb_run.finish()
     if writer:
         writer.close()
+    report = {"rank": rank.rank, "world": rank.world, "device": rank.device,
+              "backend": rank.backend, "digests": digests,
+              "checkpoints": saved, "exported": main_rank,
+              "launches": {c.name: c.launches - launched.get(c.name, 0)
+                           for c in LaunchCounter.all
+                           if c.launches != launched.get(c.name, 0)}}
     return export_dir, [{**h, "loss": float(h["loss"]),
                          "grad_norm": float(h["grad_norm"])}
-                        for h in history]
+                        for h in history], report
 
 
 def validation_sample(dataset) -> dict:

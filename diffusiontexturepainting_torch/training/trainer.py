@@ -1,7 +1,7 @@
 """LoRA + patch-encoder finetuning: the loss, the optimizer, the train step.
 
-Port of diffusiontexturepainting_tpu/training/trainer.py, one process, one
-device. The training semantics are the JAX package's
+Port of diffusiontexturepainting_tpu/training/trainer.py, on one device or
+as one rank of a data axis. The training semantics are the JAX package's
 (train_texture_inpaint_lora.py:640-715 of the reference):
   - frozen: the SD UNet base, the VAE encoder, CLIP; trainable: LoRA
     factors (rank 4 on every attention projection) and the patch-encoder
@@ -40,6 +40,16 @@ Every random draw of a step is an input (`draws`): the two VAE posterior
 samples' noise, the noise, the offset noise and the timesteps; by default
 they come from a torch.Generator seeded with (seed, step), so a resumed
 run draws what the unbroken one drew.
+
+Data-parallel (shard=(rank, world), the JAX step under a `data` mesh axis
+with its batch sharded): each rank holds B / N rows of the global batch B,
+draws the whole global batch's draws and keeps its own rows, so the union
+of the ranks' draws is the one-process draws. At each micro-step the loss
+and the trainables' gradients are averaged over the ranks in one
+all-reduce before the optimizer sees them (the mean of equal-size shard
+means is the global-batch mean), so the clip, the accumulation and Adam
+run on the same inputs on every rank and the trainables stay bitwise
+equal across ranks; the step's loss and grad_norm are the global ones.
 """
 
 from __future__ import annotations
@@ -235,8 +245,10 @@ class Trainer:
     from a generator seeded with cfg.seed."""
 
     def __init__(self, cfg: TrainConfig, models: dict, weights: dict,
-                 device, dtype=torch.float32, lora: dict | None = None):
+                 device, dtype=torch.float32, lora: dict | None = None,
+                 shard: tuple | None = None):
         self.cfg, self.device, self.dtype = cfg, torch.device(device), dtype
+        self.rank, self.world = shard or (0, 1)
         self.unet = models["unet"]
         self.vae_encoder = models["vae_encoder"]
         self.patch_encoder = models["patch_encoder"]
@@ -344,11 +356,17 @@ class Trainer:
         return per_sample.mean()
 
     def draws(self, batch: dict) -> dict:
-        """The default draws of the current micro-step."""
+        """The default draws of the current micro-step: the global batch's,
+        this rank's rows of them."""
         b, h, w = batch["image"].shape[:3]
-        return make_draws(b, (h // 8, w // 8), self.cfg.num_train_timesteps,
-                          step_generator(self.cfg.seed, self.step,
-                                         self.device), self.device)
+        draws = make_draws(b * self.world, (h // 8, w // 8),
+                           self.cfg.num_train_timesteps,
+                           step_generator(self.cfg.seed, self.step,
+                                          self.device), self.device)
+        if self.world == 1:
+            return draws
+        lo = self.rank * b
+        return {k: v[lo:lo + b] for k, v in draws.items()}
 
     def value_and_grad(self, batch: dict, draws: dict | None = None):
         """(loss, {name: gradient}) of the current micro-step, inside the
@@ -365,6 +383,8 @@ class Trainer:
         update. Returns {"loss", "grad_norm" (before the clip)} as device
         scalars."""
         loss, grads = self.value_and_grad(batch, draws)
+        if self.world > 1:
+            loss, grads = all_reduce_mean(loss, grads, self.world)
         self.optimizer.step(self.params, grads)
         self.step += 1
         return {"loss": loss, "grad_norm": global_norm(grads)}
@@ -398,6 +418,27 @@ class Trainer:
         head = {k: v.detach().cpu() for k, v in self.head().items()}
         out["patch_encoder"] = {**weights["patch_encoder"], **head}
         return out
+
+
+def all_reduce_mean(loss: torch.Tensor, grads: dict, world: int):
+    """(loss, grads) averaged over the `world` ranks of the default process
+    group, in one all-reduce of the flattened fp32 values (gloo reduces
+    host memory: a card's buffer goes through the host)."""
+    import torch.distributed as dist
+
+    names = list(grads)
+    flat = torch.cat([loss.detach().reshape(1).float()]
+                     + [grads[n].reshape(-1).float() for n in names])
+    via_host = flat.device.type != "cpu" and dist.get_backend() == "gloo"
+    buf = flat.cpu() if via_host else flat
+    dist.all_reduce(buf)
+    flat = (buf.to(flat.device) if via_host else buf) / world
+    out, at = {}, 1
+    for n in names:
+        g = grads[n]
+        out[n] = flat[at:at + g.numel()].view(g.shape)
+        at += g.numel()
+    return flat[0], out
 
 
 def batch_to_device(batch: dict, device) -> dict:

@@ -59,7 +59,8 @@ def test_port_imports_without_jax():
         "          'schedulers.dpm_solver', 'schedulers.euler_ancestral',\n"
         "          'schedulers.lms', 'schedulers.pndm',\n"
         "          'tools.check_fidelity', 'tools.deepcache_split',\n"
-        "          'training.train', 'models.lora', 'parallel.mesh',\n"
+        "          'training.train', 'training.jpeg', 'training.image_io',\n"
+        "          'models.lora', 'parallel.mesh', 'parallel.launch',\n"
         "          'parallel.serving', 'serving.parallel_model',\n"
         "          'core.engine', 'ops.constants', 'weights.convert',\n"
         "          'models.clip_text', 'utils.profiling', 'ops.raster',\n"

@@ -4,8 +4,10 @@ package's training/dataset.py and mask_generator.py, on the CPU.
 
 - PNG decode is bit-equal to Pillow's Image.open(...).convert("RGB") for
   the five colour types (8-bit L, RGB, palette, LA, RGBA, and a palette at
-  4 bits); the port's writer round-trips through Pillow; interlaced and
-  16-bit files and JPEGs raise ValueError.
+  4 bits); the port's writer round-trips through Pillow; 16-bit files, a
+  non-interlaced stream flagged Adam7 and a JPEG given to the PNG decoder
+  raise ValueError (Adam7 files: tests/test_torch_port_png_interlace.py;
+  JPEG: tests/test_torch_port_jpeg.py).
 - Resize, rotate and blur stay within 1 u8 level of Pillow's on at least
   99% of pixels (PIL_SHARE; `python -m tests.test_torch_port_train_data`
   prints the measured shares, which the three copy Pillow's fixed-point
@@ -87,21 +89,22 @@ def test_png_writer_round_trips(channels, tmp_path):
 
 
 def test_png_refusals(tmp_path):
-    # Pillow writes no Adam7 file: the port's own, its IHDR flag set
+    # the port's own non-interlaced stream with its IHDR's Adam7 flag set:
+    # its bytes do not fill the seven passes
     plain = image_io.encode_png(IMG)
     width, height = IMG.shape[1], IMG.shape[0]
     ihdr = image_io._chunk(b"IHDR", struct.pack(">IIBBBBB", width, height,
                                                 8, 2, 0, 0, 1))
     adam7 = plain[:8] + ihdr + plain[8 + len(ihdr):]
-    with pytest.raises(ValueError, match="interlaced"):
+    with pytest.raises(ValueError, match="PNG"):
         image_io.decode_png(adam7)
     wide = Image.fromarray((IMG[..., 0].astype(np.uint16) * 257))
     with pytest.raises(ValueError, match="16-bit"):
         image_io.decode_png(png_bytes(wide))
     jpg = tmp_path / "t.JPG"
     Image.fromarray(IMG).save(jpg, "JPEG")
-    with pytest.raises(ValueError, match="JPEG decoding is not ported"):
-        image_io.read_image_rgb(jpg)
+    with pytest.raises(ValueError, match="not a PNG"):
+        image_io.decode_png(jpg.read_bytes())
     with pytest.raises(ValueError, match="not a PNG"):
         image_io.decode_png(b"GIF89a")
 
@@ -290,17 +293,32 @@ def test_batches_replay_from_start(texture_dir):
 
 
 def test_find_images_lists_jpeg_and_reading_it_raises(tmp_path):
+    """Both packages list the same files; a JPEG sample reads the image
+    Pillow reads (the JAX dataset's sample on it is the port's within
+    the resize tolerance); a truncated JPEG raises naming the file."""
     image_io.write_png(tmp_path / "a.png", IMG)
     Image.fromarray(IMG).save(tmp_path / "b.jpg", "JPEG")
-    Image.fromarray(IMG).save(tmp_path / "c.jpeg", "JPEG")
+    whole = io.BytesIO()
+    Image.fromarray(IMG).save(whole, "JPEG", quality=95)
+    (tmp_path / "c.jpeg").write_bytes(whole.getvalue()[:2000])
     want = [str(p) for p in j_data.find_images(str(tmp_path))]
     assert [str(p) for p in t_data.find_images(str(tmp_path))] == want
     assert len(want) == 3
     td = t_data.AugmentedTextures(str(tmp_path), size=32, cond_size=32,
                                   seed=0)
+    jd = j_data.AugmentedTextures(str(tmp_path), size=32, cond_size=32,
+                                  seed=0)
     jpg = [i for i, p in enumerate(td.files) if p.suffix == ".jpg"][0]
-    with pytest.raises(ValueError, match="b.jpg: JPEG"):
-        td.sample(jpg, random.Random(0))
+    np.testing.assert_array_equal(
+        image_io.read_image_rgb(td.files[jpg]),
+        np.asarray(Image.open(td.files[jpg]).convert("RGB")))
+    got, ref = td.sample(jpg, random.Random(0)), jd.sample(jpg,
+                                                           random.Random(0))
+    assert (np.abs(got["image"] - ref["image"]) <= 2 / 255 + 1e-6).mean() \
+        >= PIL_SHARE
+    cut = [i for i, p in enumerate(td.files) if p.suffix == ".jpeg"][0]
+    with pytest.raises(ValueError, match="c.jpeg: JPEG"):
+        td.sample(cut, random.Random(0))
 
 
 def measured_shares() -> dict:

@@ -12,7 +12,11 @@ train.py main) on the CPU at the tiny models (--tiny --resolution 64
   unet carries the LoRA merged in fp32 and the patch encoder the trained
   head; a DDIM stamp the port serves from it equals the JAX stamp program
   on the same export within the stamp tests' tolerance.
-- The multi-device flags raise SystemExit.
+- The flags that cannot run raise SystemExit naming the cause: a model
+  axis (--mesh_model 2), a global batch the data ranks do not divide, data
+  ranks that do not divide over the processes, several processes without
+  a coordinator, a process id out of range (data-parallel runs:
+  tests/test_torch_port_train_ddp.py).
 """
 
 import os
@@ -214,13 +218,16 @@ def test_export_merges_the_lora_in_fp32(runs, textures, tmp_path):
             assert torch.equal(exported[k], v), k
 
 
-@pytest.mark.parametrize("flags", [
-    ("--mesh_data", "2"), ("--mesh_model", "2"),
-    ("--coordinator", "localhost:1234"), ("--num_processes", "2"),
-    ("--process_id", "0"),
+@pytest.mark.parametrize("flags, match", [
+    (("--mesh_data", "3"), "global batch: 3 data ranks must divide it"),
+    (("--mesh_model", "2"), "model-parallel.*not ported yet.*item 11"),
+    (("--coordinator", "localhost:1234", "--num_processes", "2",
+      "--mesh_data", "3"), "do not divide over 2 processes"),
+    (("--num_processes", "2"), "needs --coordinator"),
+    (("--process_id", "1"), "process id 1 of 1"),
 ])
-def test_multi_device_flags_raise(textures, tmp_path, flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
+def test_multi_device_flags_raise(textures, tmp_path, flags, match):
+    with pytest.raises(SystemExit, match=match):
         train.main(argv(textures, tmp_path, "--max_train_steps", "1",
                         *flags))
 
