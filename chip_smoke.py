@@ -53,6 +53,16 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                that must be bit-identical, each reply checked; then each
                kernel's launches in that run against the count derived from
                the configuration;
+  4b. cfg     --mesh model=3 (parallel/cfg_shard.py): the default
+               configuration with its UNet's three guidance branches on
+               three cards (cuda:0 three times on a one-card machine, the
+               case logged), through the handler as the default path
+               (256^2 / 20, a replay byte-equal), then a DeepCache-2 stamp
+               and a 256^2 / 4 session STAMP_AT: each byte-equal to the
+               same stamp with its UNet evaluated a branch at a time on
+               cuda:0, each within SELF_MEAN_DIFF / SELF_MAX_DIFF of the
+               ordinary model's, each kernel launched as three batch-1
+               UNet evals a model call give; both models' stamp walls;
   5. twin      the same for the "safe twin" (every fused switch off, module
                legs only), built from the default model's state_dict, at
                4 DDIM steps; then the first stamps of the two
@@ -236,7 +246,12 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                same argv with --mesh_data 1: each step's loss and grad_norm
                within DDP_LOSS_RTOL / DDP_GNORM_RTOL, the trainables within
                DDP_MAX_LR lr and at most DDP_FLIP_SHARE of them beyond
-               lr / 2;
+               lr / 2; then model_axis: the one-rank argv with
+               --mesh_model 2 (two ranks, the frozen towers sharded over
+               them: gloo sharing cuda:0, or NCCL on two cards), each
+               step's loss and grad_norm, the trainables and the export
+               bitwise equal to the one-rank run's, each rank's frozen
+               tower bytes at rest and peak memory;
   6i. batched  concurrent painters (--mesh data=1 --max-batch 4) on the
                default model: one batch of 4 requests of mixed settings and
                brushes at 256^2 / 20 and at 1024^2 / 4 through the service
@@ -257,6 +272,14 @@ Phases, each printed on its own lines; any failure raises (nonzero exit):
                the batches' sizes from /health (batches above 1 required
                with 2 and 4 clients), two concurrent stroke sessions each
                byte-equal to its own host oracle;
+  6j. data_mesh
+               --mesh data=2 on two cards (cuda:0 twice on a one-card
+               machine, logged): the batched phase's batch of 4 at 256^2 /
+               20 as two shares of 2, each request byte-equal to its pair
+               batched on one card, each kernel launched as two batches of
+               two; two stroke sessions pinned to the two slots painting
+               three STAMP_ATs each at once from two threads, each canvas
+               byte-equal to its stamps replayed one at a time on cuda:0;
   7. envelope  the default configuration at 1024^2 / 4 DDIM steps (the
                engine envelope: 16384-token attention through K8), as
                phase 4, with its peak device memory;
@@ -4618,15 +4641,15 @@ def check_jpeg_fixtures(tex):
     return decode_ms
 
 
-def train_main(label, argv):
+def train_main(label, argv, report=None):
     """training.train.main(argv) in this process: (export dir, its step
     records, seconds); every serving counter held still across it, every
-    step's loss and grad_norm finite."""
+    step's loss and grad_norm finite. `report`: main's."""
     from diffusiontexturepainting_torch.training import train
 
     before = {c.name: c.launches for c in counters()}
     tic = time.perf_counter()
-    export, steps = train.main(argv)
+    export, steps = train.main(argv, report=report)
     secs = time.perf_counter() - tic
     after = {c.name: c.launches for c in counters()}
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -5022,8 +5045,9 @@ def ddp_phase(ranks=2):
             f"({', '.join(npz)}), written by rank 0 alone; no serving "
             f"kernel launched in either rank ({CARD[0]})")
 
+        report1 = {}
         _, hist1, secs1 = train_main("ddp reference, one rank", train_args(
-            tex, one, *steps, batch=DDP_BATCH, mesh=1))
+            tex, one, *steps, batch=DDP_BATCH, mesh=1), report=report1)
         for a, b in zip(hist1, hist2):
             log(f"ddp: step {a['step']}: loss {b['loss']:.6f} on {ranks} "
                 f"ranks, "
@@ -5060,13 +5084,381 @@ def ddp_phase(ranks=2):
         if worst > DDP_MAX_LR * lr + 1e-7 or flips > DDP_FLIP_SHARE * total:
             raise AssertionError(f"ddp: {ranks} ranks against 1: max {worst}, "
                                  f"{flips} of {total} beyond lr/2")
+        model_axis = model_axis_run(tex, root, steps, one, hist1, report1)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     secs = time.perf_counter() - t_phase
     log(f"ddp: phase done in {secs:.1f} s")
     return {"case": case, "ranks_s": secs2, "one_rank_s": secs1,
             "max_diff": worst, "flip_share": flips / total,
-            "step_walls": walls}
+            "step_walls": walls, "model_axis": model_axis}
+
+
+# --- the multi-card paths (parallel/): each on distinct cards where the
+# machine has them, else on cuda:0 repeated, the case logged
+
+
+def mesh_cards(n):
+    """(n devices, the case): cuda:0 .. cuda:n-1 where n cards are
+    visible, else cuda:0 n times."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards >= n:
+        return [f"cuda:{i}" for i in range(n)], f"{n} distinct cards"
+    return ["cuda:0"] * n, (f"cuda:0 repeated {n} times ({cards} card(s) "
+                            "visible)")
+
+
+def cfg_expected(model, res, steps):
+    """{kernel: launches} of one CFG-sharded stamp of `model`: each model
+    call three batch-1 UNet evals (a branch a card), the VAE encode and
+    decode once (expected_launches counts a call's batch-3 eval once)."""
+    lat = res // 8
+    vae = Counter()
+    for part in ("encoder", "decoder"):
+        m = getattr(model, f"vae_{part}")
+        vae.update(vae_launches(model.config, m.cfg, lat, part,
+                                next(m.parameters()).dtype))
+    out = {name: 0 for name in SOURCES}
+    for (name, _), n in expected_launches(model, res, steps).items():
+        out[name] += n
+    return {name: 3 * (n - vae[name]) + vae[name]
+            for name, n in out.items()}
+
+
+def branchwise(fn):
+    """fn (a UNet call on the CFG triple batch) a branch at a time, each
+    at batch 1, eagerly on fn's card: the cfg phase's oracle."""
+    import torch
+
+    def call(sample, t, ctx, *cache):
+        B = sample.shape[0] // 3
+        outs = [fn(sample[i * B:(i + 1) * B], t[i * B:(i + 1) * B],
+                   ctx[i * B:(i + 1) * B], *(c[i] for c in cache))
+                for i in range(3)]
+        if isinstance(outs[0], tuple):
+            return (torch.cat([o[0] for o in outs]),
+                    tuple(o[1] for o in outs))
+        return torch.cat(outs)
+
+    return call
+
+
+def cfg_oracle(model, res, steps, counter, interval=1, canvas=None):
+    """The composited stamp `model` serves at request `counter` on
+    `canvas` (run_path's by default), its UNet evaluated a branch at a
+    time on the lead card, eagerly, no launch counted."""
+    import torch
+
+    from diffusiontexturepainting_torch._cuda import LaunchCounter
+    from diffusiontexturepainting_torch.pipeline.inpaint import make_stamp_fn
+
+    u = model.unet
+    stamp = make_stamp_fn(branchwise(u), model.vae_encoder,
+                          model.vae_decoder, steps,
+                          model.vae_encoder.cfg.scaling_factor,
+                          model.config.scheduler,
+                          deep_cache_interval=interval,
+                          unet_full=branchwise(u.forward_full),
+                          unet_shallow=branchwise(u.forward_shallow))
+    if canvas is None:
+        canvas = requests(res)[1]
+    s = settings(steps, res)
+    enc, init, noise = model.draws(counter, res, steps)
+    with LaunchCounter.diverted():
+        _, comp = stamp(torch.from_numpy(canvas)[None].to(model.device),
+                        model._brush, model._cond, model._uncond, enc, init,
+                        s["cfg_weight"], s["tg_weight"], s["tg_steps"],
+                        s["context_pad"], noise)
+    return comp.cpu().numpy()
+
+
+def check_cfg_counts(label, model, res, steps, launches, n):
+    want = cfg_expected(model, res, steps)
+    for name, per in want.items():
+        if launches[name] != n * per:
+            raise AssertionError(f"{label}: {name}: {launches[name]} "
+                                 f"launches in {n} stamps, three batch-1 "
+                                 f"UNets a call give {n * per}")
+    log(f"{label}: each kernel launched as three batch-1 UNet evals a "
+        f"model call and one VAE encode and decode give, in {n} stamps: "
+        + ", ".join(f"{k} {launches[k]}" for k in want if launches[k]))
+
+
+def against_ordinary(label, got, ordinary, what):
+    diff = abs(got.astype(int) - ordinary.astype(int))
+    log(f"{label}: against {what}: mean |diff| {diff.mean():.4f} u8 "
+        f"levels, max {diff.max()}, {(diff == 0).mean():.4f} exact")
+    if not (diff.mean() <= SELF_MEAN_DIFF and diff.max() <= SELF_MAX_DIFF):
+        raise AssertionError(f"{label}: {diff.mean():.3f} levels (max "
+                             f"{diff.max()}) from {what}, above "
+                             f"{SELF_MEAN_DIFF} (max {SELF_MAX_DIFF})")
+
+
+def cfg_phase(weights, ordinary, ordinary_first):
+    """--mesh model=3 (parallel/cfg_shard.py) at full width: the model on
+    three cards (or cuda:0 three times), through the handler at 256^2/20
+    (run_path: a brush, three stamps, a replay byte-equal), a DeepCache-2
+    stamp at 256^2/20 and a session STAMP_AT at 256^2/4. Each stamp is
+    byte-equal to the same stamp with its UNet evaluated a branch at a time
+    on cuda:0 (cfg_oracle), within SELF_MEAN_DIFF / SELF_MAX_DIFF of the
+    ordinary model's (`ordinary`, the default path's model, and its first
+    stamp), and each kernel's launches are three batch-1 UNet evals a
+    model call (cfg_expected). Returns the handler run's path record."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.parallel.mesh import make_cfg_mesh
+    from diffusiontexturepainting_torch.pipeline.torch_model import (
+        TorchConditionalInpainter)
+
+    t_phase = time.perf_counter()
+    devices, case = mesh_cards(3)
+    model = TorchConditionalInpainter(
+        resolution=RES, device="cuda", weights=weights,
+        cfg_mesh=make_cfg_mesh(3, devices))
+    log(f"cfg: --mesh model=3 on {case}: branches on {devices}, "
+        f"{len(model.cfg_unets.replicas)} UNet replica(s); built in "
+        f"{model.init_seconds:.1f} s")
+    first, path_launches, shapes, n = run_path("cfg", model, STEPS, RES)
+    check_cfg_counts("cfg", model, RES, STEPS, path_launches, n)
+    want = cfg_oracle(model, RES, STEPS, 2)
+    compare_stamps("cfg", first, want, "the CFG-sharded model and its UNet "
+                   "a branch at a time on cuda:0", exact=True)
+    against_ordinary("cfg", first, ordinary_first,
+                     "the ordinary model's first stamp")
+    for kind, engine in model.cfg_unets.engines.items():
+        log(f"cfg: {kind}: branch programs "
+            + ", ".join(sorted({k[1] for k in engine.programs
+                                if k[0] == "cfg"})))
+
+    # DeepCache 2 at 256^2/20
+    spec = model.config.deep_cache_interval
+    for m in (model, ordinary):
+        m.set_deep_cache(2)
+    try:
+        first_stamp_at(model, STEPS)  # captures full and shallow
+        for c in counters():
+            c.reset()
+        got = first_stamp_at(model, STEPS)
+        launches = {c.name: c.launches for c in counters()}
+        check_cfg_counts("cfg DeepCache 2", model, RES, STEPS, launches, 1)
+        compare_stamps("cfg DeepCache 2", got,
+                       cfg_oracle(model, RES, STEPS, 2, interval=2),
+                       "the CFG-sharded model and its UNet a branch at a "
+                       "time", exact=True)
+        against_ordinary("cfg DeepCache 2", got,
+                         first_stamp_at(ordinary, STEPS),
+                         "the ordinary model at DeepCache 2")
+    finally:
+        for m in (model, ordinary):
+            m.set_deep_cache(spec)
+
+    # a session STAMP_AT at 256^2/4
+    blank = np.zeros((RES, 2 * RES, 4), np.uint8)
+    crops = []
+    for m in (model, ordinary):
+        m.begin_session(blank)
+        m.request_counter = 40
+        for c in counters():
+            c.reset()
+        crops.append(m.stamp_at(0, 0, return_pixels=True,
+                                **settings(FEW_STEPS)))
+        if m is model:
+            check_cfg_counts("cfg session", model, RES, FEW_STEPS,
+                             {c.name: c.launches for c in counters()}, 1)
+        m.end_session()
+    compare_stamps("cfg session", crops[0],
+                   cfg_oracle(model, RES, FEW_STEPS, 41,
+                              canvas=blank[:, :RES].copy()),
+                   "a session STAMP_AT and its UNet a branch at a time",
+                   exact=True)
+    against_ordinary("cfg session", crops[0], crops[1],
+                     "the ordinary model's STAMP_AT")
+    walls = {}
+    for name, m in (("cfg", model), ("one card", ordinary)):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(3):
+            first_stamp_at(m, STEPS)
+        walls[name] = (time.perf_counter() - tic) / 3 * 1e3
+    log(f"cfg: a 256^2/20 stamp through the handler, {walls['cfg']:.1f} "
+        f"ms wall on {case}, {walls['one card']:.1f} ms on one card "
+        f"({CARD[0]})")
+    del model
+    release()
+    log(f"cfg: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=path_launches, shapes=shapes, stamps=n,
+                steps=STEPS, res=RES)
+
+
+def data_mesh_phase(model):
+    """--mesh data=2 (serving/parallel_model.py) on two cards (or cuda:0
+    twice): the batched phase's batch of four at 256^2/20 as two shares of
+    two, each byte-equal to that pair batched on one card, each kernel
+    launched as two batches of two launch it; then two stroke sessions,
+    pinned to the two slots, painting at once from two threads, each
+    canvas byte-equal to its stamps replayed one at a time on the model at
+    their counters."""
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.serving.parallel_model import (
+        make_parallel_service)
+
+    t_phase = time.perf_counter()
+    devices, case = mesh_cards(2)
+    one = make_parallel_service(RES, "data=1", max_batch=BATCH, model=model)
+    two = make_parallel_service(RES, "data=2", max_batch=BATCH, model=model,
+                                devices=devices)
+    rng = np.random.default_rng(7)
+    sessions = [one.new_session() for _ in range(BATCH)]
+    for s in sessions:
+        s.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+    payloads = batched_payloads(one, sessions, RES, STEPS)
+    key = (RES, STEPS)
+    two._run_batch(key, payloads)  # each card's batch-of-2 program
+    torch.cuda.synchronize()
+    for c in counters():
+        c.reset()
+    tic = time.perf_counter()
+    got = two._run_batch(key, payloads)
+    wall = time.perf_counter() - tic
+    launches = {c.name: c.launches for c in counters()}
+    split = {c.name: c.split for c in counters()}
+    per = expected_per_stamp(model, RES, STEPS)
+    for name, n in per.items():
+        if launches[name] != 2 * n + split[name]:
+            raise AssertionError(f"data_mesh: {name}: {launches[name]} "
+                                 f"launches, two shares give {2 * n} + "
+                                 f"{split[name]} split")
+    tic = time.perf_counter()
+    want = one._run_batch(key, payloads[:2]) + one._run_batch(key,
+                                                              payloads[2:])
+    wall_one = time.perf_counter() - tic
+    for k, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"data_mesh: request {k} of the 2 + 2 "
+                                 "batch differs from its pair on one card")
+    log(f"data_mesh: --mesh data=2 on {case}: a batch of {BATCH} at "
+        f"{RES}^2/{STEPS} as shares {[str(d) for d, _, _ in two.shares(BATCH)]}"
+        f", each request byte-equal to its pair batched on one card; each "
+        f"kernel launched as two batches of two; {wall * 1e3:.1f} ms wall "
+        f"against {wall_one * 1e3:.1f} ms for the two pairs one after the "
+        f"other on cuda:0 ({CARD[0]})")
+
+    painters = [two.new_session() for _ in range(2)]
+    for s in painters:
+        s.set_brush(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+        s.begin_session(np.zeros((RES, 2 * RES, 4), np.uint8))
+    stroke = [(0, 0), (RES // 2, 0), (RES, 0)]
+    errors = []
+
+    def paint(s):
+        try:
+            for x, y in stroke:
+                s.stamp_at(x, y, return_pixels=False, **settings(FEW_STEPS))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=paint, args=(s,)) for s in painters]
+    tic = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    canvases = [s.fetch_canvas() for s in painters]
+    wall = time.perf_counter() - tic
+    if errors:
+        raise errors[0]
+    for s, canvas in zip(painters, canvases):
+        brush, cond, uncond = (t.to(model.device) for t in (
+            s._brush, s._cond, s._uncond))
+        with torch.inference_mode():
+            mine = torch.zeros((RES, 2 * RES, 4), dtype=torch.uint8,
+                               device=model.device)
+            for (x, y), counter in zip(stroke, s.stamp_counters):
+                model.stamp_into(mine, brush, cond, uncond, counter, x, y,
+                                 False, False, settings(FEW_STEPS))
+        if not np.array_equal(canvas, mine.cpu().numpy()):
+            raise AssertionError(f"data_mesh: the session on slot {s.slot} "
+                                 f"({s.device}) differs from its stamps "
+                                 "replayed one at a time")
+    log(f"data_mesh: two sessions on slots {[s.slot for s in painters]} "
+        f"({[str(s.device) for s in painters]}) painted {len(stroke)} "
+        f"STAMP_ATs each at once in {wall * 1e3:.1f} ms; each canvas "
+        f"byte-equal to its stamps replayed one at a time on cuda:0")
+    for svc in (one, two):
+        for w in set(svc.workers.values()) | {svc.dispatcher._executor}:
+            w.shutdown()
+    release()
+    log(f"data_mesh: phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def model_axis_run(tex, root, steps, one, hist1, report1):
+    """--mesh_data 1 --mesh_model 2 (training/train.py, parallel/mesh.py
+    ModelShards) beside the ddp phase's one-rank run (`one`, its step
+    records and report): two ranks (gloo sharing the card, or NCCL on two
+    cards), every step's loss and grad_norm, the checkpoint's trainables
+    and the export bitwise equal to the one-rank run's; each rank's frozen
+    tower bytes at rest and its peak."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from diffusiontexturepainting_torch.training import train
+
+    cards = torch.cuda.device_count()
+    backend = "gloo" if cards < 2 else None
+    case = ("gloo, 2 ranks sharing cuda:0" if cards < 2
+            else "NCCL, a card a rank")
+    out = os.path.join(root, "model2")
+    report = {}
+    tic = time.perf_counter()
+    _, hist = train.main(train_args(tex, out, *steps, batch=DDP_BATCH,
+                                    mesh=1) + ["--mesh_model", "2"],
+                         backend=backend, timeout=DDP_TIMEOUT, report=report)
+    secs = time.perf_counter() - tic
+    ranks = report["ranks"]
+    if [(r["data_index"], r["model_index"]) for r in ranks] != [(0, 0),
+                                                               (0, 1)]:
+        raise AssertionError(f"model_axis: ranks {ranks}")
+    for a, b in zip(hist1, hist):
+        if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
+            raise AssertionError(f"model_axis: step {a['step']}: "
+                                 f"{b} against one rank's {a}")
+    step = train.checkpoint_steps(os.path.join(one, "checkpoints"))[-1]
+    states = [torch.load(os.path.join(d, "checkpoints", str(step),
+                                      train.CHECKPOINT_FILE),
+                         map_location="cpu", weights_only=True)
+              for d in (out, one)]
+    for k, v in states[1]["params"].items():
+        if not torch.equal(states[0]["params"][k], v):
+            raise AssertionError(f"model_axis: trainable {k} differs from "
+                                 "the one-rank run's")
+    for comp in ("unet", "patch_encoder"):
+        a, b = (np.load(os.path.join(d, "export", f"{comp}.npz"))
+                for d in (out, one))
+        if sorted(a) != sorted(b) or any(a[k].tobytes() != b[k].tobytes()
+                                         for k in a):
+            raise AssertionError(f"model_axis: export {comp} differs")
+    whole = report1["ranks"][0]
+    log(f"model_axis: --mesh_data 1 --mesh_model 2 ran {case} in "
+        f"{secs:.1f} s: {len(hist)} steps' loss and grad_norm, the "
+        f"trainables and the export bitwise equal to the one-rank run's; "
+        f"frozen towers at rest a rank "
+        + ", ".join(f"{r['frozen_bytes'] / 2**30:.3f}" for r in ranks)
+        + f" GiB against {whole['frozen_bytes'] / 2**30:.3f} GiB on one "
+        f"rank; peak device memory a rank "
+        + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in ranks)
+        + f" GiB against {whole['peak_bytes'] / 2**30:.2f} GiB "
+        f"(on a shared card the peak is the process's) ({CARD[0]})")
+    return {"case": case, "seconds": secs,
+            "frozen_bytes": [r["frozen_bytes"] for r in ranks],
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "one_rank": (whole["frozen_bytes"], whole["peak_bytes"])}
 
 
 def release():
@@ -6172,8 +6564,9 @@ def main() -> int:
         f"width, random weights, {model.dtype}, {model.config}); unet "
         f"{sum(p.numel() for p in model.unet.parameters()) / 1e6:.1f}M "
         "params")
-    drive("default", model, STEPS, RES)
+    default_first = drive("default", model, STEPS, RES)
     weights = model.state_dicts()
+    paths["cfg"] = cfg_phase(weights, model, default_first)
 
     twin = TorchConditionalInpainter(resolution=RES, config=safe_twin_config(),
                                      device="cuda", weights=weights)
@@ -6226,6 +6619,7 @@ def main() -> int:
     launches, shapes = batched_phase(model)
     paths["batched"] = dict(launches=launches, shapes=shapes, stamps=1,
                             steps=STEPS, res=RES)
+    data_mesh_phase(model)
     del model
     release()
     batched_serving_process()

@@ -9,6 +9,7 @@ imports on machines without CUDA, and only a CUDA tensor reaches a kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -43,9 +44,18 @@ class LaunchCounter:
     counts apart the launches beyond a call's first, where a call's batch
     ran in several launches (batch_runs). Every counter made is in
     `LaunchCounter.all`: a CUDA graph's replay calls no wrapper, so
-    core/engine.py adds what its capture counted (snapshot, add)."""
+    core/engine.py adds what its capture counted (add).
+
+    Several threads may launch at once (a worker a card,
+    serving/parallel_model.py): every update takes the class's lock, and a
+    thread inside `LaunchCounter.diverted()` counts its launches into that
+    block's own record instead of the counters, so a capture on one card
+    counts what it launched and nothing that another thread launched
+    meanwhile."""
 
     all: list = []
+    _lock = threading.Lock()
+    _local = threading.local()
 
     def __init__(self, name: str):
         self.name = name
@@ -56,38 +66,58 @@ class LaunchCounter:
         LaunchCounter.all.append(self)
 
     def snapshot(self) -> tuple:
-        return (self.launches, self.split, Counter(self.shapes),
-                Counter(self.dtypes))
-
-    def restore(self, snap: tuple) -> None:
-        self.launches, self.split = snap[0], snap[1]
-        self.shapes, self.dtypes = Counter(snap[2]), Counter(snap[3])
+        with LaunchCounter._lock:
+            return (self.launches, self.split, Counter(self.shapes),
+                    Counter(self.dtypes))
 
     def add(self, delta: tuple) -> None:
-        """Adds a (launches, split, shapes, dtypes) delta, as recorded
-        between two snapshots."""
-        self.launches += delta[0]
-        self.split += delta[1]
-        self.shapes.update(delta[2])
-        self.dtypes.update(delta[3])
-
-    def since(self, snap: tuple) -> tuple:
-        """The delta of the counts since `snap`."""
-        return (self.launches - snap[0], self.split - snap[1],
-                self.shapes - snap[2], self.dtypes - snap[3])
+        """Adds a (launches, split, shapes, dtypes) delta, as a diverted()
+        block recorded it."""
+        with LaunchCounter._lock:
+            self.launches += delta[0]
+            self.split += delta[1]
+            self.shapes.update(delta[2])
+            self.dtypes.update(delta[3])
 
     def record(self, shape_key, dtype=None, split: bool = False) -> None:
-        self.launches += 1
-        self.split += bool(split)
-        self.shapes[shape_key] += 1
-        if dtype is not None:
-            self.dtypes[str(dtype).removeprefix("torch.")] += 1
+        dtype = None if dtype is None else str(dtype).removeprefix("torch.")
+        sink = getattr(LaunchCounter._local, "sink", None)
+        if sink is not None:
+            rec = sink.setdefault(self, [0, 0, Counter(), Counter()])
+            rec[0] += 1
+            rec[1] += bool(split)
+            rec[2][shape_key] += 1
+            if dtype is not None:
+                rec[3][dtype] += 1
+            return
+        with LaunchCounter._lock:
+            self.launches += 1
+            self.split += bool(split)
+            self.shapes[shape_key] += 1
+            if dtype is not None:
+                self.dtypes[dtype] += 1
 
     def reset(self) -> None:
-        self.launches = 0
-        self.split = 0
-        self.shapes = Counter()
-        self.dtypes = Counter()
+        with LaunchCounter._lock:
+            self.launches = 0
+            self.split = 0
+            self.shapes = Counter()
+            self.dtypes = Counter()
+
+    @staticmethod
+    @contextlib.contextmanager
+    def diverted():
+        """Inside, this thread's launches are counted into the yielded
+        dict, {counter: [launches, split, shapes, dtypes]}, and not on the
+        counters (blocks nest: an inner one hides its launches from the
+        outer)."""
+        local = LaunchCounter._local
+        outer = getattr(local, "sink", None)
+        local.sink = {}
+        try:
+            yield local.sink
+        finally:
+            local.sink = outer
 
 
 # the most blocks of a grid's y and z dimensions
@@ -203,14 +233,40 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+class LaunchStream(int):
+    """A CUDA stream handle (the int a C entry takes) that also names the
+    device whose stream it is (`device`, a torch.device)."""
+
+
+def _on_its_device(fn):
+    """fn (a C entry) run under the device of the LaunchStream among its
+    arguments, where one is: an entry sets its kernel's attributes and
+    launches on the calling thread's current device, which need not be the
+    tensors' (a worker a card, parallel/cfg_shard.py)."""
+
+    @functools.wraps(fn)
+    def call(*args):
+        stream = next((a for a in reversed(args)
+                       if isinstance(a, LaunchStream)), None)
+        if stream is None:
+            return fn(*args)
+        import torch
+
+        with torch.cuda.device(stream.device):
+            return fn(*args)
+
+    return call
+
+
 @functools.cache
 def function(source: str, symbol: str, argtypes: tuple):
     """The C entry point `symbol` of csrc/<source>.cu, returning a
-    cudaError_t as int."""
+    cudaError_t as int; a call that passes a stream_of() handle runs on
+    that stream's device (_on_its_device)."""
     fn = getattr(library(source), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = list(argtypes)
-    return fn
+    return _on_its_device(fn)
 
 
 def check(source: str, symbol: str, code: int) -> None:
@@ -219,7 +275,11 @@ def check(source: str, symbol: str, code: int) -> None:
         raise RuntimeError(f"{symbol} failed: CUDA error {code} ({msg})")
 
 
-def stream_of(t) -> int:
+def stream_of(t) -> LaunchStream:
+    """The current stream of t's device, as the handle a C entry takes; the
+    entry then runs on that device (function)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    stream = LaunchStream(torch.cuda.current_stream(t.device).cuda_stream)
+    stream.device = t.device
+    return stream

@@ -34,20 +34,22 @@ parameters (a capture records the served weights' addresses).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from collections import Counter, namedtuple
+from collections import namedtuple
 
 import torch
 
 from .._cuda import LaunchCounter
 from ..pipeline.inpaint import SETTING_DTYPES, fill_values, per_request
 
+# held while a program is captured: one capture at a time in the process
+_CAPTURE_LOCK = threading.Lock()
+
 # A program input given as host numbers: a (len(values),) buffer of
 # `dtype`, written by fill_ (pipeline/inpaint.py fill_values).
 HostValues = namedtuple("HostValues", "values dtype")
-
-_NO_COUNTS = (0, 0, Counter(), Counter())
 
 
 def _buffer(arg, device):
@@ -81,10 +83,12 @@ class Program:
     """fn(*buffers) -> tuple of tensors, over static buffers; captured at
     its first call on CUDA, run eagerly on the CPU."""
 
-    def __init__(self, engine: "Engine", key: tuple, fn):
+    def __init__(self, engine: "Engine", key: tuple, fn,
+                 graphed: bool = True):
         self.engine = engine
         self.key = key
         self.fn = fn
+        self.graphed = graphed
         self.inputs = None
         self.outputs = None
         self.graph = None
@@ -95,7 +99,7 @@ class Program:
         """The outputs of fn on `args` (tensors, HostValues or None, the
         same shapes and dtypes at every call), each a tensor of its own."""
         e = self.engine
-        with e.lock, torch.inference_mode():
+        with e.lock, torch.inference_mode(), e.on_device():
             if self.inputs is None:
                 self.inputs = [_buffer(a, e.device) for a in args]
             if len(args) != len(self.inputs):
@@ -103,7 +107,7 @@ class Program:
                                  f"{len(self.inputs)}")
             for i, (buf, arg) in enumerate(zip(self.inputs, args)):
                 _fill(buf, arg, i)
-            if e.device.type != "cuda":
+            if e.device.type != "cuda" or not self.graphed:
                 return tuple(self.fn(*self.inputs))
             if self.graph is None:
                 self._capture()
@@ -117,36 +121,33 @@ class Program:
         """One eager pass on a side stream (PyTorch's warm-up before a
         capture: lazy initializations, the kernels' builds, the device
         constants), then the capture into the engine's pool. Neither pass
-        counts as served launches: the counters are put back, and what the
-        capture counted is added at every replay."""
+        counts as served launches: this thread's launches are diverted
+        (LaunchCounter.diverted), and what the capture counted is added at
+        every replay; another thread's launches meanwhile count as
+        usual."""
         e = self.engine
-        before = {c: c.snapshot() for c in LaunchCounter.all}
-
-        def put_back():
-            for c in LaunchCounter.all:
-                c.restore(before.get(c, _NO_COUNTS))
-
         tic = time.perf_counter()
         stream = torch.cuda.current_stream(e.device)
         side = torch.cuda.Stream(e.device)
         side.wait_stream(stream)
-        try:
+        with LaunchCounter.diverted():
             with torch.cuda.stream(side):
                 self.fn(*self.inputs)
-            stream.wait_stream(side)
-            put_back()
-            graph = torch.cuda.CUDAGraph()
-            # thread_local: the server's other threads may allocate or
-            # synchronize meanwhile; kernels launch on the current stream
-            # (_cuda.stream_of), the capture's inside this block
-            with torch.cuda.graph(graph, pool=e.pool,
-                                  capture_error_mode="thread_local"):
-                outputs = tuple(self.fn(*self.inputs))
-            self.deltas = [(c, c.since(before.get(c, _NO_COUNTS)))
-                           for c in LaunchCounter.all]
-            self.deltas = [(c, d) for c, d in self.deltas if d[0]]
-        finally:
-            put_back()
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # one capture at a time in the process (PyTorch's rule), each on a
+        # stream of the engine's own card (torch.cuda.graph's default
+        # stream is made once, on whichever card was current then);
+        # thread_local: the server's other threads (a worker a card, the
+        # connections' threads) may allocate or synchronize meanwhile;
+        # kernels launch on the current stream (_cuda.stream_of), the
+        # capture's inside this block
+        with _CAPTURE_LOCK, LaunchCounter.diverted() as counted, \
+                torch.cuda.graph(graph, pool=e.pool,
+                                 stream=e.capture_stream,
+                                 capture_error_mode="thread_local"):
+            outputs = tuple(self.fn(*self.inputs))
+        self.deltas = [(c, tuple(d)) for c, d in counted.items() if d[0]]
         self.graph, self.outputs = graph, outputs
         e.captures[self.key] = {"seconds": time.perf_counter() - tic,
                                 "pool_bytes": e.pool_bytes()}
@@ -174,22 +175,34 @@ class Engine:
         # {program key: {"seconds": the eager pass and the capture,
         # "pool_bytes": the pool's reserved bytes after it}}
         self.captures: dict = {}
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if self.device.type == "cuda" else None)
+        self.pool = self.capture_stream = None
+        if self.device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            self.capture_stream = torch.cuda.Stream(self.device)
 
-    def program(self, key: tuple, fn) -> Program:
+    def program(self, key: tuple, fn, graphed: bool = True) -> Program:
         """The program of `key` (built around fn at its first request).
         ops.conv3x3._IN_PAD, a module switch a capture bakes in (the
         in-kernel-padding kernels take K7's and K4's calls), is part of
-        the key."""
+        the key. graphed=False: a program that runs eagerly on its
+        buffers on CUDA too (a stamp whose UNet calls replay programs of
+        other cards, parallel/cfg_shard.py)."""
         from ..ops import conv3x3
 
         key = tuple(key) + (("_IN_PAD",) if conv3x3._IN_PAD else ())
         with self.lock:
             prog = self.programs.get(key)
             if prog is None:
-                prog = self.programs[key] = Program(self, key, fn)
+                prog = self.programs[key] = Program(self, key, fn, graphed)
             return prog
+
+    def on_device(self):
+        """The engine's card as the thread's current device (a capture, a
+        replay and a kernel's attributes follow the current device), or
+        nothing on the CPU."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.device)
 
     def pool_bytes(self) -> int:
         """The bytes the programs' pool reserves on the device."""
@@ -204,12 +217,16 @@ class Stamp:
     f32 final step) is fn's. The call signatures of make_stamp_fn's stamp
     (stamp(...), B = 1, and .batched(...)), its `schedule` and
     `scheduler`; `eager` is the function itself, which runs without the
-    engine."""
+    engine. graphed=False: the programs run eagerly on their buffers (the
+    CFG-sharded stamp, whose UNet calls are programs of their own cards).
+    """
 
-    def __init__(self, engine: Engine, fn, key: tuple):
+    def __init__(self, engine: Engine, fn, key: tuple,
+                 graphed: bool = True):
         self.engine = engine
         self.eager = fn
         self.key = tuple(key)
+        self.graphed = graphed
         self.schedule = fn.schedule
         self.scheduler = fn.scheduler
 
@@ -228,7 +245,8 @@ class Stamp:
         settings = [HostValues(per_request(v, B), dtype) for v, dtype in
                     zip((cfg_weight, tg_weight, tg_steps, context_pad),
                         SETTING_DTYPES)]
-        prog = self.engine.program(self.program_key(res, B), self.eager.run)
+        prog = self.engine.program(self.program_key(res, B), self.eager.run,
+                                   self.graphed)
         return prog(canvas_u8, brush, cond, uncond, enc_noise, init_latents,
                     *settings, step_noise)
 

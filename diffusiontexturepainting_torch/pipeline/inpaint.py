@@ -41,6 +41,7 @@ host memory, so a stroke session's stamp is enqueued without waiting.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -92,21 +93,34 @@ def model_call_schedule(deep_cache_interval, n_iters: int,
     return tuple(kinds)
 
 
+_IEEE = {"depth": 0, "saved": None}
+_IEEE_LOCK = threading.Lock()
+
+
 @contextlib.contextmanager
 def ieee_fp32():
     """fp32 convolutions and matmuls of the library in IEEE fp32 inside: no
     TF32 in cuDNN (whose default allows it) nor in cuBLAS (PyTorch's
     default already refuses it there); both settings are put back after.
-    bf16 work is untouched."""
+    bf16 work is untouched. The settings are the process's: where threads
+    overlap in it (a worker a card), the first one in sets them and the
+    last one out puts them back."""
     cudnn = torch.backends.cudnn
-    saved = cudnn.allow_tf32, torch.get_float32_matmul_precision()
-    cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    with _IEEE_LOCK:
+        if _IEEE["depth"] == 0:
+            _IEEE["saved"] = (cudnn.allow_tf32,
+                              torch.get_float32_matmul_precision())
+            cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+        _IEEE["depth"] += 1
     try:
         yield
     finally:
-        cudnn.allow_tf32 = saved[0]
-        torch.set_float32_matmul_precision(saved[1])
+        with _IEEE_LOCK:
+            _IEEE["depth"] -= 1
+            if _IEEE["depth"] == 0:
+                cudnn.allow_tf32 = _IEEE["saved"][0]
+                torch.set_float32_matmul_precision(_IEEE["saved"][1])
 
 
 def make_stamp_fn(unet, vae_encoder, vae_decoder, num_steps: int,

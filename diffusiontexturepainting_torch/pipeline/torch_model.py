@@ -104,7 +104,7 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
                  weights: dict | None = None,
                  checkpoint_dir: str | None = None, weights_seed: int = 0,
                  dtype_overrides: dict | None = None,
-                 verbose_timing: bool = True):
+                 verbose_timing: bool = True, cfg_mesh=None):
         """Weights from `checkpoint_dir` (the JAX package's npz format;
         components it lacks get seeded random ones), or `weights` (a
         state_dict per component, as state_dicts() returns), else seeded
@@ -116,16 +116,25 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         tiny_*_config() models. `verbose_timing`: the per-stage table in
         `timer` (utils/profiling.py StageTimer: brush-encode, stamp xN,
         session stamp xN; wall and, on CUDA, device ms), as the JAX model
-        keeps it. Nothing is warmed here: see warmup()."""
+        keeps it. `cfg_mesh` (parallel/mesh.py CfgMesh, --mesh model=3):
+        the UNet's guidance branches a device each (parallel/cfg_shard.py),
+        everything else on the mesh's first device, which is the model's
+        device. Nothing is warmed here: see warmup()."""
         if weights is not None and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
         self._resolution = int(resolution)
         self.config = self._validate_deep_cache(config or PipelineConfig())
+        self.cfg_mesh = cfg_mesh
+        if cfg_mesh is not None:
+            device = cfg_mesh.devices[0]
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.dtype = (torch.bfloat16 if self.device.type == "cuda"
                       else torch.float32)
         self.dtype_overrides = dict(dtype_overrides or {})
         self.weights_seed = int(weights_seed)
+        self.tiny = bool(tiny)
         self.build_seconds = None  # the kernels' build, timed by warmup()
         if tiny:
             cfgs = (tiny_unet_config(), tiny_vae_config(),
@@ -151,17 +160,18 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         self.patch_encoder = models["patch_encoder"]
         # the f32 final step's UNet: the module legs in fp32 (the JAX
         # package's safe configuration) over the serving weights, upcast
-        self.final_unet = None
-        if c.f32_final_step:
-            safe = dataclasses.replace(ucfg, fused_resnet=False,
-                                       fused_ff=False, fused_norm=False,
-                                       fused_attn=False)
-            with torch.device(self.device):
-                self.final_unet = UNet2DCondition(safe)
-            self.final_unet.to(torch.float32).eval().requires_grad_(False)
-            self._refresh_final_unet()
-        self.init_seconds = time.perf_counter() - tic
+        self._ucfg = ucfg
+        self.final_unet = self._final_unet_on(self.device)
+        self._refresh_final_unet()
         self.engine = Engine(self.device)
+        self.cfg_unets = None
+        if cfg_mesh is not None:
+            from ..parallel.cfg_shard import CfgShardedUNets
+
+            self.cfg_unets = CfgShardedUNets(
+                cfg_mesh, self.unet, self.final_unet, self.engine,
+                self._unets_on)
+        self.init_seconds = time.perf_counter() - tic
         self.timer = StageTimer(enabled=verbose_timing, device=self.device)
         # {warm-up point: its program's capture record}: engine.captures
         self.warmup_captures = {}
@@ -173,6 +183,39 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         # neutral brush, so a stamp before set_brush is served
         self.set_brush(np.full((self._resolution, self._resolution, 3), 0.5,
                                np.float32))
+
+    def replica_on(self, device) -> "TorchConditionalInpainter":
+        """A model of this one's configuration, dtypes and weights (copied)
+        on `device`, with its own engine: a card of the data mesh
+        (serving/parallel_model.py params_on)."""
+        return TorchConditionalInpainter(
+            self._resolution, config=self.config, device=device,
+            tiny=self.tiny, weights=self.state_dicts(),
+            weights_seed=self.weights_seed,
+            dtype_overrides=self.dtype_overrides,
+            verbose_timing=self.timer.enabled)
+
+    def _final_unet_on(self, device):
+        """The f32 final step's UNet on `device` (None without the f32
+        final step): the module legs in fp32 (the JAX package's safe
+        configuration), weights not yet set."""
+        if not self.config.f32_final_step:
+            return None
+        safe = dataclasses.replace(self._ucfg, fused_resnet=False,
+                                   fused_ff=False, fused_norm=False,
+                                   fused_attn=False)
+        with torch.device(device):
+            unet = UNet2DCondition(safe)
+        return unet.to(torch.float32).eval().requires_grad_(False)
+
+    def _unets_on(self, device):
+        """(UNet, f32 final step's UNet or None) on another device of the
+        CFG mesh, built as this model's, weights not yet set."""
+        with torch.device(device):
+            unet = UNet2DCondition(self._ucfg)
+        dtype = self.dtype_overrides.get("unet", self.dtype)
+        unet.to(dtype).eval().requires_grad_(False)
+        return unet, self._final_unet_on(device)
 
     @torch.no_grad()
     def _refresh_final_unet(self) -> None:
@@ -197,6 +240,8 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
             self.sync_session()  # queued stamps read the old weights
         load_weights(models, weights, self.weights_seed)
         self._refresh_final_unet()
+        if self.cfg_unets is not None:
+            self.cfg_unets.refresh()
         self.set_brush(self.image)
 
     def warmup(self, points=None) -> dict:
@@ -353,12 +398,28 @@ class TorchConditionalInpainter(ConditionalInpainterBase):
         key = (c.scheduler, steps, interval, c.f32_final_step)
         fn = self._stamp_fns.get(key)
         if fn is None:
-            fn = make_stamp_fn(self.unet, self.vae_encoder, self.vae_decoder,
-                               steps, self.vae_encoder.cfg.scaling_factor,
-                               c.scheduler, deep_cache_interval=interval,
-                               final_step_f32=c.f32_final_step,
-                               unet_final=self.final_unet)
-            fn = self._stamp_fns[key] = Stamp(self.engine, fn, key)
+            scaling = self.vae_encoder.cfg.scaling_factor
+            sharded = self.cfg_unets
+            if sharded is None:
+                fn = make_stamp_fn(self.unet, self.vae_encoder,
+                                   self.vae_decoder, steps, scaling,
+                                   c.scheduler, deep_cache_interval=interval,
+                                   final_step_f32=c.f32_final_step,
+                                   unet_final=self.final_unet)
+            else:
+                fn = make_stamp_fn(
+                    sharded.unet,
+                    sharded.lead_program("vae_encoder", self.vae_encoder),
+                    sharded.lead_program("vae_decoder", self.vae_decoder),
+                    steps, scaling, c.scheduler,
+                    deep_cache_interval=interval,
+                    final_step_f32=c.f32_final_step,
+                    unet_full=sharded.unet_full,
+                    unet_shallow=sharded.unet_shallow,
+                    unet_final=(sharded.unet_final if c.f32_final_step
+                                else None))
+            fn = self._stamp_fns[key] = Stamp(self.engine, fn, key,
+                                              graphed=sharded is None)
         return fn
 
     def draws(self, counter: int, res: int, steps: int | None = None):

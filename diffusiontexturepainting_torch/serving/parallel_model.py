@@ -1,29 +1,43 @@
-"""Concurrent painters on one device: request batching for the port's server.
+"""Concurrent painters on one or more devices: the port's `--mesh data=N`.
 
-Port of the JAX package's serving/parallel_model.py for `--mesh data=1
---max-batch N`, on threads rather than asyncio (the port's server is
-websockets.sync: a thread a connection). Stamps from concurrent websocket
-connections are micro-batched and run as one batched stamp program
-(parallel/serving.py ParallelStampEngine; on CUDA the replay of a CUDA graph
-per batch size, core/engine.py), each request with its own settings; a lone request still runs alone after `window_ms`. Unlike the
-JAX dispatcher, which hands a batch to the device when its window ends, a
-batch here is taken when the device is free for it, and waits longer
-(RETURN_MS) for a painter of the last batch: painters who each send their
-next stamp on their reply then share batches instead of taking turns.
+Port of the JAX package's serving/parallel_model.py, on threads rather
+than asyncio (the port's server is websockets.sync: a thread a
+connection). Stamps from concurrent websocket connections are
+micro-batched; a batch of up to `max_batch` requests is split into
+contiguous shares, one a device of the data mesh, which run at once, each
+as one batched stamp program of its device's model (parallel/serving.py
+ParallelStampEngine; on CUDA the replay of a CUDA graph per batch size,
+core/engine.py), each request with its own settings; the replies go out
+when every share is done. A lone request still runs alone after
+`window_ms`. Unlike the JAX dispatcher, which hands a batch to the device
+when its window ends, a batch here is taken when the mesh is free for it,
+and waits longer (RETURN_MS) for a painter of the last batch: painters who
+each send their next stamp on their reply then share batches instead of
+taking turns. Shares are not padded to the JAX package's power-of-two
+buckets: a partial batch runs at its own size.
+
+Stroke sessions are pinned round-robin to the mesh's devices
+(acquire_session_slot, the JAX service's acquire_session_device), as the
+JAX service pins them: a session's canvas and brush live on its device,
+and its STAMP_ATs replay that device's programs. A device holds one model replica (params_on), shared by every
+session pinned there and by the batches' shares on it; the first device's
+is the base model itself, so nothing is held twice. Each distinct device
+has its own worker thread, which runs all of that device's work in order:
+sessions pinned to different cards run at the same time.
 
 Pieces:
-  ParallelInpainterService  the shared state: the base model's weights,
-                            the engine, the request counter, one worker
-                            thread for all device work
+  ParallelInpainterService  the shared state: the base model, a replica
+                            and a worker a device, the request counter
   SessionModel              one connection's view: its own brush and its
                             own stroke session (the model surface
                             serving/wire.py answers)
   _BatchDispatcher          the micro-batcher (collect -> run on the
-                            worker -> scatter results)
+                            mesh -> scatter results)
 
 Draws: the service's locked counter gives each request its number, and a
-request draws what TorchConditionalInpainter.draws gives at that number, so
-its stamp in a batch is the stamp it would get alone at that counter (up to
+request draws what TorchConditionalInpainter.draws gives at that number on
+its device (the generator's stream does not depend on the card), so its
+stamp in a batch is the stamp it would get alone at that counter (up to
 the kernels' summation order, which may follow the batch: PERF.md).
 """
 
@@ -134,8 +148,9 @@ class _BatchDispatcher:
 class SessionModel:
     """One websocket connection's view of the shared service: its own brush
     (encoded by the base model's patch encoder) and its own stroke session
-    (a resident canvas); its stamps batch with other connections'. The
-    model surface serving/wire.py answers."""
+    (a resident canvas on the device the service pins it to); its stamps
+    batch with other connections'. The model surface serving/wire.py
+    answers."""
 
     def __init__(self, service: "ParallelInpainterService"):
         self.service = service
@@ -143,6 +158,10 @@ class SessionModel:
         self.image = base.image
         self._brush, self._cond, self._uncond = (base._brush, base._cond,
                                                  base._uncond)
+        # the session's slot of the mesh and its device, pinned at its
+        # first BEGIN_SESSION
+        self.slot = self.device = None
+        self._on_device = None  # (brush, cond, uncond) there
         self._session_canvas = None
         self._erase_keep = None
         # the request counter of each STAMP_AT since BEGIN_SESSION (its
@@ -155,6 +174,7 @@ class SessionModel:
     def set_brush(self, image: np.ndarray) -> None:
         self.image, self._brush, self._cond, self._uncond = \
             self.service.run(self.service.base.encode_brush, image)
+        self._on_device = None
 
     def create_preview_brush_context(self, brush_image):
         return ConditionalInpainterBase.create_preview_brush_context(
@@ -171,16 +191,21 @@ class SessionModel:
             np.float32) / 255.0
 
     # --- the stroke session: sequential by nature, so not batched; each
-    # request runs on the service's worker, which owns the device
+    # request runs on the worker of the session's device
 
     def begin_session(self, canvas_u8: np.ndarray) -> None:
         canvas_u8 = validate_session_canvas(canvas_u8, self.resolution())
-        self.service.run(self._begin, np.array(canvas_u8))
+        if self.device is None:
+            self.slot = self.service.acquire_session_slot()
+            self.device = self.service.devices[self.slot]
+        self._run(self._begin, np.array(canvas_u8))
+
+    def _run(self, fn, *args):
+        return self.service.run_on(self.device, fn, *args)
 
     @torch.inference_mode()
     def _begin(self, canvas_u8):
-        self._session_canvas = torch.from_numpy(canvas_u8).to(
-            self.service.base.device)
+        self._session_canvas = torch.from_numpy(canvas_u8).to(self.device)
         self.stamp_counters = []
 
     def session_active(self) -> bool:
@@ -188,22 +213,25 @@ class SessionModel:
 
     def stamp_at(self, x0: int, y0: int, return_pixels: bool = True,
                  overpaint: bool = False, **settings):
-        """The base model's stamp_at on this connection's canvas and
-        brush, with the service's next counter."""
+        """The stamp_at of the session's device's model on this
+        connection's canvas and brush, with the service's next counter."""
         self._require_session()
-        return self.service.run(self._stamp_at, x0, y0, return_pixels,
-                                overpaint, settings)
+        return self._run(self._stamp_at, x0, y0, return_pixels, overpaint,
+                         settings)
 
     def _stamp_at(self, x0, y0, return_pixels, overpaint, settings):
         counter = self.service.next_counter()
         self.stamp_counters.append(counter)
-        return self.service.base.stamp_into(
-            self._require_session(), self._brush, self._cond, self._uncond,
-            counter, x0, y0, return_pixels, overpaint, settings)
+        if self._on_device is None:
+            self._on_device = tuple(t.to(self.device) for t in (
+                self._brush, self._cond, self._uncond))
+        return self.service.params_on(self.device).stamp_into(
+            self._require_session(), *self._on_device, counter, x0, y0,
+            return_pixels, overpaint, settings)
 
     def erase_at(self, x0: int, y0: int, return_pixels: bool = True):
         self._require_session()
-        return self.service.run(self._erase_at, x0, y0, return_pixels)
+        return self._run(self._erase_at, x0, y0, return_pixels)
 
     @torch.inference_mode()
     def _erase_at(self, x0, y0, return_pixels):
@@ -217,8 +245,7 @@ class SessionModel:
         """Waits for the connection's queued stamps and downloads its
         canvas (a copy)."""
         self._require_session()
-        return self.service.run(
-            lambda: np.array(self._require_session().cpu()))
+        return self._run(lambda: np.array(self._require_session().cpu()))
 
     def end_session(self) -> None:
         self._session_canvas = None
@@ -231,15 +258,18 @@ class SessionModel:
 
 
 class ParallelInpainterService:
-    """The shared serving state on one device. `base` is a
-    TorchConditionalInpainter (weights, patch encoder, configuration,
-    draws); stamps run through a ParallelStampEngine, in batches of at
-    most `max_batch` (default: the data axis), a partial batch at its own
-    size (the JAX package pads it to a power of 2 so that jit traces few
-    shapes; the port's kernels take any batch). All device work, batches
-    and session requests alike, runs on one worker thread, as the JAX
-    dispatcher's one executor worker: the kernels' launch counters and
-    workspaces were written for one caller."""
+    """The shared serving state over the devices of a data mesh. `base` is
+    a TorchConditionalInpainter on the mesh's first device (weights, patch
+    encoder, configuration, draws); stamps run through a
+    ParallelStampEngine a device, in batches of at most `max_batch`
+    (default: the data axis), split into contiguous shares, one a device,
+    a partial batch at its own size (the JAX package pads it to a power of
+    2 so that jit traces few shapes; the port's kernels take any batch).
+    Each distinct device has one worker thread, which runs all of its
+    device's work (shares and session requests): the launch counters are
+    exact under several workers (_cuda.LaunchCounter), and each device has
+    its own replica, engine and workspaces. With one device the batches
+    run on its worker, as the JAX dispatcher's one executor worker."""
 
     def __init__(self, base, mesh, window_ms: float = 3.0,
                  max_batch: int | None = None):
@@ -247,18 +277,33 @@ class ParallelInpainterService:
 
         self.base = base
         self.mesh = mesh
-        self.engine = ParallelStampEngine(base)
+        self.devices = [torch.device(d) for d in
+                        (mesh.devices or [base.device] * mesh.data)]
+        if self.devices[0] != base.device:
+            raise ValueError(f"the base model is on {base.device}, the "
+                             f"mesh's first device is {self.devices[0]}")
         max_batch = max_batch or mesh.data
         if max_batch % mesh.data:
             raise ValueError(f"max_batch {max_batch} must be a multiple of "
                              f"the mesh data axis {mesh.data}")
         self.max_batch = max_batch
-        self.worker = ThreadPoolExecutor(max_workers=1,
-                                         thread_name_prefix="device")
-        self.dispatcher = _BatchDispatcher(self._run_batch, max_batch,
-                                           window_ms, self.worker)
-        self._counter = 0
         self._lock = threading.Lock()
+        self._replicas = {base.device: base}
+        self.engines = {base.device: ParallelStampEngine(base)}
+        self.engine = self.engines[base.device]
+        self.workers = {}
+        for dev in self.devices:
+            if dev not in self.workers:
+                self.workers[dev] = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix=f"device-{dev}")
+        self.worker = self.workers[base.device]
+        batches = (self.worker if len(self.devices) == 1 else
+                   ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="batches"))
+        self.dispatcher = _BatchDispatcher(self._run_batch, max_batch,
+                                           window_ms, batches)
+        self._counter = 0
+        self._session_rr = 0
         # batches run, by their number of requests
         self.batch_sizes = Counter()
 
@@ -280,10 +325,40 @@ class ParallelInpainterService:
             self._counter += 1
             return self._counter
 
+    def acquire_session_slot(self) -> int:
+        """The slot of the mesh (an index of `devices`, which may repeat a
+        device) for a new stroke session, round-robin."""
+        with self._lock:
+            slot = self._session_rr % len(self.devices)
+            self._session_rr += 1
+        return slot
+
+
+    def params_on(self, device):
+        """The model replica on `device`: one a device, shared by every
+        session pinned there and every share run there (the base model on
+        its own device), built at its first use under the lock, so two
+        painters landing on one card never build two. It serves the base
+        model's configuration (its operating point)."""
+        device = torch.device(device)
+        with self._lock:
+            model = self._replicas.get(device)
+            if model is None:
+                from ..parallel.serving import ParallelStampEngine
+
+                model = self._replicas[device] = self.base.replica_on(device)
+                self.engines[device] = ParallelStampEngine(model)
+            model.config = self.base.config
+            return model
+
     def run(self, fn, *args):
-        """fn(*args) on the device's worker; its result, or its exception
-        raised here."""
-        return self.worker.submit(fn, *args).result()
+        """fn(*args) on the base device's worker; its result, or its
+        exception raised here."""
+        return self.run_on(self.base.device, fn, *args)
+
+    def run_on(self, device, fn, *args):
+        """fn(*args) on the worker of `device`."""
+        return self.workers[torch.device(device)].submit(fn, *args).result()
 
     def submit(self, session: SessionModel, canvas_u8, settings):
         """One NEW_STAMP of `session`, batched: the composited (H, W, 3)
@@ -300,26 +375,45 @@ class ParallelInpainterService:
                        context_pad=pad)
         return self.dispatcher.submit((res, steps), payload, session)
 
-    def _brush_at(self, payload, res: int):
-        """A request's brush as a (1, res, res, 3) tensor on the device."""
-        if res == payload["brush"].shape[1]:
-            return payload["brush"]
-        img = crop_resize_square(payload["image"], res).astype(np.float32)
-        return torch.from_numpy(img[None]).to(self.base.device)
+    def shares(self, n: int) -> list:
+        """[(device, lo, hi)]: a batch of n requests in contiguous shares
+        of at most ceil(n / devices), one a device in mesh order."""
+        per = -(-n // len(self.devices))
+        return [(dev, lo, min(n, lo + per)) for dev, lo in
+                zip(self.devices, range(0, n, per))]
 
     def _run_batch(self, key, payloads):
-        """One batch on the worker, each request's draws at its counter;
-        returns the composited stamps."""
-        res, steps = key
+        """One batch over the mesh: each share on its device's worker, all
+        at once; returns the composited stamps in order."""
         self.batch_sizes[len(payloads)] += 1
-        d = [self.base.draws(p["counter"], res, steps) for p in payloads]
-        stack = lambda f: torch.cat([f(p) for p in payloads])
+        shares = self.shares(len(payloads))
+        if len(self.devices) == 1:  # on the device's own worker already
+            return self._run_share(self.devices[0], key, payloads)
+        futures = [self.workers[dev].submit(self._run_share, dev, key,
+                                            payloads[lo:hi])
+                   for dev, lo, hi in shares]
+        return [out for f in futures for out in f.result()]
+
+    def _brush_at(self, payload, res: int, device):
+        """A request's brush as a (1, res, res, 3) tensor on `device`."""
+        if res == payload["brush"].shape[1]:
+            return payload["brush"].to(device)
+        img = crop_resize_square(payload["image"], res).astype(np.float32)
+        return torch.from_numpy(img[None]).to(device)
+
+    def _run_share(self, device, key, payloads):
+        """A share on `device`'s model, each request's draws at its
+        counter; returns the composited stamps."""
+        res, steps = key
+        model = self.params_on(device)
+        d = [model.draws(p["counter"], res, steps) for p in payloads]
+        stack = lambda f: torch.cat([f(p).to(device) for p in payloads])
         step_noise = None
         if d[0][2] is not None:
             step_noise = torch.stack([s[:, 0] for _, _, s in d])
-        _, comp = self.engine.stamp_batch(
+        _, comp = self.engines[device].stamp_batch(
             np.stack([p["canvas"] for p in payloads]),
-            stack(lambda p: self._brush_at(p, res)),
+            stack(lambda p: self._brush_at(p, res, device)),
             stack(lambda p: p["cond"]),
             stack(lambda p: p["uncond"]),
             torch.stack([e for e, _, _ in d]),
@@ -336,21 +430,24 @@ def make_parallel_service(resolution: int, mesh_spec: str,
                           checkpoint_dir: str | None = None,
                           window_ms: float = 3.0, tiny: bool = False,
                           max_batch: int | None = None, config=None,
-                          dtype_overrides=None, device="cuda", model=None):
-    """The service of a CLI mesh spec ('data=1'), as the JAX package builds
-    it: the base model (or `model`, already built) on `device`, the mesh's
-    checks (parallel/mesh.py make_data_mesh), max_batch a multiple of the
-    data axis. `config` and `dtype_overrides` carry the operating point
-    (--scheduler, --deep-cache-interval, --f32-final-step,
+                          dtype_overrides=None, device="cuda", model=None,
+                          devices=None):
+    """The service of a CLI mesh spec ('data=N'), as the JAX package builds
+    it: the mesh's checks (parallel/mesh.py make_data_mesh, over `devices`
+    where given, else every device of `device`'s kind), the base model (or
+    `model`, already built) on the mesh's first device, max_batch a
+    multiple of the data axis. `config` and `dtype_overrides` carry the
+    operating point (--scheduler, --deep-cache-interval, --f32-final-step,
     --f32-components) into the batched stamps."""
     from ..parallel.mesh import make_data_mesh
 
-    mesh = make_data_mesh(mesh_spec, device if model is None else model.device)
+    mesh = make_data_mesh(mesh_spec, device if model is None
+                          else model.device, devices)
     if model is None:
         from ..pipeline.torch_model import TorchConditionalInpainter
 
         model = TorchConditionalInpainter(
-            resolution, config=config, device=device, tiny=tiny,
+            resolution, config=config, device=mesh.devices[0], tiny=tiny,
             checkpoint_dir=checkpoint_dir, dtype_overrides=dtype_overrides)
     return ParallelInpainterService(model, mesh, window_ms=window_ms,
                                     max_batch=max_batch)

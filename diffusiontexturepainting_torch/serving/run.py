@@ -41,12 +41,25 @@ connections' NEW_STAMPs run as one batched stamp of up to --max-batch
 (default: the data axis) requests, each with its own settings: those that
 arrived while the card was busy, and those that arrive within
 --batch-window-ms (3.0) of the card coming to them, or within 50 ms for a
-painter of the last batch (serving/parallel_model.py RETURN_MS). Refused
-with ValueError, as the JAX server refuses them: --mock with --mesh,
---max-batch above 1 without --mesh, a max batch off a multiple of the data
-axis, a data axis above the devices present; and, not served by the port
-yet (ROADMAP.md Queue 1 item 11), --mesh model=N and a data axis above 1.
---profile-dir does not combine with --mesh.
+painter of the last batch (serving/parallel_model.py RETURN_MS).
+
+Several cards, as the JAX server's meshes (parallel/mesh.py):
+
+    python -m diffusiontexturepainting_torch.serving.run --mesh data=4
+    python -m diffusiontexturepainting_torch.serving.run --mesh model=3
+
+--mesh data=N splits each batch into contiguous shares, one a card, run
+at once, and pins each stroke session to a card, round-robin, with one
+model replica a card (--session-canvas warms one session a card). --mesh
+model=3 serves one painter with the UNet's three guidance branches a card
+each (parallel/cfg_shard.py), on the ordinary path. The mesh's devices
+are the machine's cards, cuda:0 first; build_server(argv, devices=[...])
+takes an explicit list instead, which may repeat a device (the tests use
+["cpu", "cpu"]). Refused with ValueError, as the JAX server refuses them:
+--mock with --mesh, --max-batch above 1 without --mesh, a max batch off a
+multiple of the data axis, a data axis above the devices present,
+model=N with another axis, with --max-batch, above the devices present or
+other than 3. --profile-dir does not combine with --mesh.
 """
 
 from __future__ import annotations
@@ -118,11 +131,12 @@ def warm_session(model, width: int, height: int, warmup_points=None) -> float:
     step count and each of `warmup_points`', one STAMP_AT with pixels and
     one without, then fetch_canvas and end_session (the JAX package's
     _warm_session; the port has no stroke buckets, so there is no flush to
-    warm). The request counter is put back. Returns the seconds."""
+    warm). A model's request counter is put back (a service's session
+    draws from the service's: warm_sessions). Returns the seconds."""
     import numpy as np
 
     tic = time.perf_counter()
-    counter = model.request_counter
+    counter = getattr(model, "request_counter", None)
     steps_list = [None] + sorted({int(p[1]) for p in (warmup_points or [])})
     try:
         model.begin_session(np.zeros((height, width, 4), np.uint8))
@@ -133,7 +147,25 @@ def warm_session(model, width: int, height: int, warmup_points=None) -> float:
         model.fetch_canvas()
         model.end_session()
     finally:
-        model.request_counter = counter
+        if counter is not None:
+            model.request_counter = counter
+    return time.perf_counter() - tic
+
+
+def warm_sessions(service, width: int, height: int,
+                  warmup_points=None) -> float:
+    """warm_session on one session a device of `service`'s data mesh (the
+    JAX package's warm-up of one session a chip: sessions are pinned
+    round-robin, so each lands on the next device); the service's request
+    counter is put back. Returns the seconds."""
+    tic = time.perf_counter()
+    counter = service._counter
+    try:
+        for _ in service.devices:
+            warm_session(service.new_session(), width, height,
+                         warmup_points)
+    finally:
+        service._counter = counter
     return time.perf_counter() - tic
 
 
@@ -193,9 +225,11 @@ def make_parser() -> argparse.ArgumentParser:
                              "size at startup, e.g. 1024x1024 (width x "
                              "height)")
     parser.add_argument("--mesh", default=None,
-                        help="serve concurrent painters through request "
-                             "batching: 'data=1' (one card; data > 1 and "
-                             "model=N are not served yet)")
+                        help="'data=N': concurrent painters' stamps "
+                             "batched and sharded over N cards, sessions "
+                             "pinned a card each ('data=1': request "
+                             "batching on one card); 'model=3': one "
+                             "painter's guidance branches a card each")
     parser.add_argument("--max-batch", type=int, default=None,
                         help="with --mesh: batch up to this many "
                              "concurrent stamps (a multiple of the data "
@@ -210,12 +244,13 @@ def make_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def build_server(argv=None):
+def build_server(argv=None, devices=None):
     """run.py's whole assembly, from its arguments to a bound server
     (serve_forever() serves it); the server also carries `model`,
     `model_info` and `startup` (seconds of each warm-up; on CUDA also each
     point's capture seconds, "<point> capture", and the engine pool's
-    reserved bytes after it, "<point> pool_bytes")."""
+    reserved bytes after it, "<point> pool_bytes"). `devices`: the mesh's
+    devices (parallel/mesh.py mesh_devices; default every card)."""
     args = make_parser().parse_args(argv)
     from .server import create_server
 
@@ -229,12 +264,17 @@ def build_server(argv=None):
     if args.mesh and args.profile_dir:
         raise ValueError("--profile-dir traces one request at a time; it "
                          "cannot combine with --mesh")
-    mesh = None
+    mesh = cfg_mesh = None
     if args.mesh:
-        from ..parallel.mesh import make_data_mesh
+        from ..parallel.mesh import CfgMesh, make_serving_mesh
 
         # before the model is built: a refused mesh fails at once
-        mesh = make_data_mesh(args.mesh, args.device)
+        mesh = make_serving_mesh(args.mesh, args.device, devices,
+                                 args.max_batch)
+        if isinstance(mesh, CfgMesh):
+            # one painter on three cards: the ordinary path, its model's
+            # UNet sharded (the JAX server falls through the same way)
+            cfg_mesh, mesh = mesh, None
     startup = {}
     if args.mock:
         from ..client.mock_model import MockConditionalInpainter
@@ -262,24 +302,15 @@ def build_server(argv=None):
                            "weights (latency-correct, visually "
                            "meaningless).")
         model = TorchConditionalInpainter(
-            args.resolution, config=config, device=args.device,
+            args.resolution, config=config,
+            device=mesh.devices[0] if mesh else args.device,
             tiny=args.tiny, checkpoint_dir=args.checkpoint_dir,
-            dtype_overrides=overrides)
+            dtype_overrides=overrides, cfg_mesh=cfg_mesh)
         startup["model"] = model.init_seconds
         info = (f"torch-sd15-inpaint {args.config} {config.scheduler}"
                 + (f" mesh[{args.mesh}]" if mesh else "")
+                + (f" cfg-sharded[{cfg_mesh.spec}]" if cfg_mesh else "")
                 + ("" if args.checkpoint_dir else " (random weights)"))
-        if not args.no_warmup:
-            for point, secs in model.warmup(args.warmup_points).items():
-                name = "x".join(str(v) for v in point)
-                startup[name] = secs
-                logger.info("warm-up %s: %.1f s", name, secs)
-                captured = model.warmup_captures.get(point)
-                if captured:
-                    startup[f"{name} capture"] = captured["seconds"]
-                    startup[f"{name} pool_bytes"] = captured["pool_bytes"]
-            if model.build_seconds is not None:
-                startup["build"] = model.build_seconds
     service = None
     if mesh:
         from .parallel_model import ParallelInpainterService
@@ -287,9 +318,29 @@ def build_server(argv=None):
         service = ParallelInpainterService(model, mesh,
                                            window_ms=args.batch_window_ms,
                                            max_batch=args.max_batch)
+    # the base model, then each other card's replica of a data mesh
+    models = [model] if not args.mock else []
+    if service is not None:
+        models += [service.params_on(d) for d in dict.fromkeys(
+            service.devices) if d != model.device]
+    for m in models if not args.no_warmup else ():
+        prefix = "" if m is model else f"{m.device} "
+        for point, secs in m.warmup(args.warmup_points).items():
+            name = prefix + "x".join(str(v) for v in point)
+            startup[name] = secs
+            logger.info("warm-up %s: %.1f s", name, secs)
+            captured = m.warmup_captures.get(point)
+            if captured:
+                startup[f"{name} capture"] = captured["seconds"]
+                startup[f"{name} pool_bytes"] = captured["pool_bytes"]
+        if m is model and model.build_seconds is not None:
+            startup["build"] = model.build_seconds
     if args.session_canvas:
         w, h = args.session_canvas
-        startup["session"] = warm_session(model, w, h, args.warmup_points)
+        startup["session"] = (
+            warm_sessions(service, w, h, args.warmup_points)
+            if service is not None and len(service.devices) > 1
+            else warm_session(model, w, h, args.warmup_points))
     server = create_server(model, args.host, args.port, model_info=info,
                            debug_dir=args.debug_dir,
                            profile_dir=args.profile_dir, service=service)

@@ -37,7 +37,9 @@ reply, RETURN_ERROR when it fails; there is no ownership to enforce, as
 each connection has its own canvas. POST /inpaint is not served there
 (404, as the JAX package's mesh application has no such route), and
 /health also reports the mesh, the largest batch, the batches run so far
-by their number of requests and how long they waited for peers.
+by their number of requests and how long they waited for peers. /health
+reports the mesh and its devices for a CFG-sharded model too (`--mesh
+model=3`, whose model has a `cfg_mesh`).
 """
 
 from __future__ import annotations
@@ -147,9 +149,14 @@ def create_server(model, host: str = "0.0.0.0", port: int = 6060,
     def health():
         out = {"status": "ok", "model": info}
         if service is not None:
-            out.update(mesh=service.mesh.spec, max_batch=service.max_batch,
+            out.update(mesh=service.mesh.spec,
+                       devices=[str(d) for d in service.devices],
+                       max_batch=service.max_batch,
                        batches=service.batch_counts(),
                        batch_waits=service.batch_waits())
+        elif getattr(model, "cfg_mesh", None) is not None:
+            out.update(mesh=model.cfg_mesh.spec,
+                       devices=list(model.cfg_mesh.devices))
         return out
 
     def process_request(connection, request):

@@ -30,8 +30,19 @@ and the trainer averages the gradients over the ranks (trainer.py); rank 0
 alone writes checkpoints (a barrier on each side), tensorboard, wandb, the
 validation grid and the export, and every rank resumes from the same
 checkpoint. NCCL carries the collectives between cards and gloo on the
-CPU; main(..., backend="gloo") lets ranks share a card. Model-parallel
-training (--mesh_model above 1) is not ported yet and raises SystemExit.
+CPU; main(..., backend="gloo") lets ranks share a card.
+
+Model-parallel training, as the JAX trainer's (data, model) mesh:
+--mesh_model M makes --mesh_data x M ranks, rank r at (data index, model
+index) = divmod(r, M). The M ranks of a model group prepare the same rows
+and draws (their shard is the data index); each holds every frozen leaf of
+the UNet, the VAE encoder and CLIP that the JAX param_spec shards (the
+JAX leaf's output-channel dim divides by M and is at least 2M) as its
+slice of that dim, gathered where the tower runs (parallel/mesh.py
+ModelShards, training/trainer.py); gradients are averaged over the data
+group only. Rank 0 alone writes checkpoints and the export (from the fp32
+host weights, which are whole) and makes the validation grid (its towers
+made whole from the same host weights, with no collective).
 
 Usage:
     python -m diffusiontexturepainting_torch.training.train \\
@@ -42,9 +53,11 @@ Usage:
         --tiny --resolution 64 --train_batch_size 2 --max_train_steps 4 \\
         --images_path DIR --output_dir OUT
     # two gloo ranks on the CPU; eight cards of one host over NCCL; two
-    # hosts of eight cards (the same command on each, --process_id 0 / 1)
+    # hosts of eight cards (the same command on each, --process_id 0 / 1);
+    # four cards as two data groups of two model ranks
     ... --device cpu --tiny --mesh_data 2 --train_batch_size 4
     ... --mesh_data 8
+    ... --mesh_data 2 --mesh_model 2
     ... --mesh_data 16 --num_processes 2 --process_id 0 \\
         --coordinator HOST0:29500
 """
@@ -135,8 +148,8 @@ def build_argparser():
                    help="data-parallel ranks over all processes (default: "
                         "every visible card; 1 on the CPU)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="model-parallel axis: not ported yet, above 1 "
-                        "raises")
+                   help="model-parallel axis: the frozen towers' weights "
+                        "sharded over this many ranks a data group")
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--tiny", action="store_true", help="tiny model (tests)")
     p.add_argument("--mixed_precision", choices=["bf16", "fp32"], default=None,
@@ -161,20 +174,14 @@ def build_argparser():
     return p
 
 
-MODEL_AXIS = "ROADMAP.md Queue 1 item 11"
-
-
 def data_axis(args, backend: str | None = None):
-    """The data axis the flags ask for (parallel/mesh.plan_data_axis), or
-    SystemExit naming what cannot run: --mesh_model above 1, a global
-    batch the ranks do not divide, several processes without a
-    coordinator, ranks the devices cannot hold."""
+    """The (data, model) mesh the flags ask for
+    (parallel/mesh.plan_data_axis), or SystemExit naming what cannot run:
+    a model axis below 1, a global batch the data ranks do not divide,
+    several processes without a coordinator, ranks the devices cannot
+    hold."""
     from ..parallel.mesh import plan_data_axis
 
-    if args.mesh_model > 1:
-        raise SystemExit(
-            f"--mesh_model {args.mesh_model}: model-parallel (mesh) training "
-            f"is not ported yet ({MODEL_AXIS}); use --mesh_data")
     if (args.num_processes or 1) > 1 and not args.coordinator:
         raise SystemExit(f"--num_processes {args.num_processes} needs "
                          "--coordinator host:port")
@@ -182,13 +189,17 @@ def data_axis(args, backend: str | None = None):
     count = torch.cuda.device_count() if device_type == "cuda" else 1
     try:
         axis = plan_data_axis(args.mesh_data, args.num_processes,
-                              args.process_id, device_type, count, backend)
+                              args.process_id, device_type, count, backend,
+                              args.mesh_model)
     except ValueError as e:
-        raise SystemExit(f"--mesh_data {args.mesh_data}: {e}") from None
-    if args.train_batch_size % axis.world:
+        flags = f"--mesh_data {args.mesh_data}"
+        if args.mesh_model != 1:
+            flags += f" --mesh_model {args.mesh_model}"
+        raise SystemExit(f"{flags}: {e}") from None
+    if args.train_batch_size % axis.data:
         raise SystemExit(
             f"--train_batch_size {args.train_batch_size} is the global "
-            f"batch: {axis.world} data ranks must divide it")
+            f"batch: {axis.data} data ranks must divide it")
     return axis
 
 
@@ -290,8 +301,22 @@ def prepare(args, rank=None) -> SimpleNamespace:
     # fp32 host copies: the merge base of the export, the head's masters
     weights = {name: {k: v.detach().to("cpu", torch.float32)
                       for k, v in sd.items()} for name, sd in weights.items()}
+    data_group = model_group = None
+    if rank.model > 1:
+        from ..parallel.mesh import mesh_groups
+
+        data_group, model_group = mesh_groups(rank)
     trainer = Trainer(cfg, models, weights, device, dtype,
-                      shard=rank.shard)
+                      shard=rank.shard, data_group=data_group)
+    if rank.model > 1:
+        from ..parallel.mesh import ModelShards
+
+        # after the trainer's LoRA factors took the projections' shapes
+        trainer.shards = ModelShards(
+            {name: models[name] for name in
+             ("unet", "vae_encoder", "patch_encoder")},
+            rank.model_index, rank.model, model_group, rank.backend,
+            rank.data_index * rank.model)
 
     ckpt_dir = os.path.abspath(os.path.join(args.output_dir, "checkpoints"))
     if rank.is_main:
@@ -356,8 +381,9 @@ def main(argv=None, *, backend: str | None = None,
         coordinator = args.coordinator or "file://" + os.path.join(
             local, "store")
         threads = max(1, torch.get_num_threads() // axis.local)
-        logger.info("data axis: %d ranks over %d processes, %d here, %s",
-                    axis.world, axis.processes, axis.local, axis.backend)
+        logger.info("mesh: %d ranks (data %d x model %d) over %d "
+                    "processes, %d here, %s", axis.world, axis.data,
+                    axis.model, axis.processes, axis.local, axis.backend)
         try:
             results = run_local_ranks(
                 _rank_main, [(args, axis, i, coordinator, threads)
@@ -382,9 +408,9 @@ def _rank_main(args, axis, local_rank, coordinator, threads):
     from ..parallel.mesh import init_distributed
 
     rank = init_distributed(coordinator, axis.processes, axis.process_id,
-                            data=axis.world, local_rank=local_rank,
+                            data=axis.data, local_rank=local_rank,
                             device_type=axis.device_type,
-                            backend=axis.backend)
+                            backend=axis.backend, model=axis.model)
     try:
         return _train(args, rank)
     finally:
@@ -510,6 +536,11 @@ def _train(args, rank):
         writer.close()
     report = {"rank": rank.rank, "world": rank.world, "device": rank.device,
               "backend": rank.backend, "digests": digests,
+              "model": rank.model, "data_index": rank.data_index,
+              "model_index": rank.model_index,
+              "frozen_bytes": _frozen_bytes(trainer),
+              "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                             if device.type == "cuda" else None),
               "checkpoints": saved, "exported": main_rank,
               "launches": {c.name: c.launches - launched.get(c.name, 0)
                            for c in LaunchCounter.all
@@ -517,6 +548,17 @@ def _train(args, rank):
     return export_dir, [{**h, "loss": float(h["loss"]),
                          "grad_norm": float(h["grad_norm"])}
                         for h in history], report
+
+
+def _frozen_bytes(trainer) -> int:
+    """The device bytes of the frozen towers' parameters this rank holds at
+    rest (the UNet, the VAE encoder, CLIP; shards under a model axis)."""
+    if trainer.shards is not None:
+        return trainer.shards.resting_bytes()
+    towers = [trainer.unet.parameters(), trainer.vae_encoder.parameters(),
+              (p for n, p in trainer.patch_encoder.named_parameters()
+               if n.startswith("clip."))]
+    return sum(p.numel() * p.element_size() for ps in towers for p in ps)
 
 
 def validation_sample(dataset) -> dict:
@@ -537,8 +579,9 @@ def _validation_grid(step, trainer, models, dataset) -> np.ndarray:
     from ..pipeline.inpaint import make_stamp_fn
 
     device = trainer.device
-    with torch.no_grad():
-        merged = trainer.unet_overrides()
+    with torch.no_grad(), trainer.on_host(), \
+            trainer.tower("vae_encoder"):
+        merged = {**trainer.frozen_unet(), **trainer.unet_overrides()}
         unet = models["unet"]
 
         def unet_fn(sample, t, ctx):

@@ -50,10 +50,24 @@ all-reduce before the optimizer sees them (the mean of equal-size shard
 means is the global-batch mean), so the clip, the accumulation and Adam
 run on the same inputs on every rank and the trainables stay bitwise
 equal across ranks; the step's loss and grad_norm are the global ones.
+
+Model axis (the JAX step under a (data, model) mesh, --mesh_model M):
+`shard` is then (data index, data size), the same for the M ranks of a
+model group, which prepare the same rows and draws; `data_group` is the
+data group the gradients are averaged over; `shards` (parallel/mesh.py
+ModelShards, set once the trainables exist) holds the frozen towers' leaves
+sharded over the model group.
+Each tower's leaves are all-gathered where the tower runs: the two VAE
+encodes and the CLIP tokens under no_grad, the UNet's (but for the
+attention projections, which the merged LoRA overrides supply) into the
+functional call, where autograd keeps them until the backward. The
+gathered values are the leaves' own bytes, so the step is the data-only
+step bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -246,9 +260,12 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, models: dict, weights: dict,
                  device, dtype=torch.float32, lora: dict | None = None,
-                 shard: tuple | None = None):
+                 shard: tuple | None = None, data_group=None):
         self.cfg, self.device, self.dtype = cfg, torch.device(device), dtype
         self.rank, self.world = shard or (0, 1)
+        self.data_group = data_group
+        self.shards = None  # a model axis sets them (train.py prepare)
+        self.host_weights = weights
         self.unet = models["unet"]
         self.vae_encoder = models["vae_encoder"]
         self.patch_encoder = models["patch_encoder"]
@@ -301,10 +318,31 @@ class Trainer:
         return {k: v if k.startswith(_FP32_HEAD) else v.to(self.dtype)
                 for k, v in self.head().items()}
 
+    def tower(self, component: str):
+        """A block in which the frozen tower `component` holds its full
+        weights (ModelShards.full; nothing without a model axis)."""
+        if self.shards is None:
+            return contextlib.nullcontext()
+        return self.shards.full(component)
+
+    def frozen_unet(self) -> dict:
+        """The UNet's gathered leaves but for those unet_overrides
+        supplies (nothing without a model axis)."""
+        if self.shards is None:
+            return {}
+        return self.shards.gather("unet", skip=set(self.proj_base))
+
+    def on_host(self):
+        """A block in which the towers are made whole from the host
+        weights, with no collective (a rank alone: the validation grid)."""
+        if self.shards is None:
+            return contextlib.nullcontext()
+        return self.shards.from_host(self.host_weights)
+
     def encode_patches(self, cond_patches):
         """(cond (B, total, D) fp32, uncond (1, total, D) fp32) with the
         current head; CLIP under no_grad."""
-        with torch.no_grad():
+        with torch.no_grad(), self.tower("patch_encoder"):
             tokens = self.patch_encoder.clip_tokens(cond_patches)
         return functional_call(self.patch_encoder, self.head_overrides(),
                                (None,), {"clip_tokens": tokens})
@@ -319,7 +357,7 @@ class Trainer:
         generate; masked_image (B, H, W, 3); cond_patches (B, P, S, S, 3)
         CLIP-normalized; drop_cond (B,) 0/1. draws: make_draws's."""
         cfg = self.cfg
-        with torch.no_grad():
+        with torch.no_grad(), self.tower("vae_encoder"):
             moments = self.vae_encoder(batch["image"])
             m_moments = self.vae_encoder(batch["masked_image"])
         latents = sample_latents(moments, draws["latent_noise"]) \
@@ -340,7 +378,8 @@ class Trainer:
         drop = batch["drop_cond"].reshape(b, 1, 1).float()
         ehs = (1.0 - drop) * cond + drop * uncond.expand_as(cond)
 
-        pred = functional_call(self.unet, self.unet_overrides(),
+        pred = functional_call(self.unet, {**self.frozen_unet(),
+                                           **self.unet_overrides()},
                                (unet_in, t.float(), ehs))
         if cfg.prediction_type == "epsilon":
             target = noise
@@ -384,7 +423,14 @@ class Trainer:
         scalars."""
         loss, grads = self.value_and_grad(batch, draws)
         if self.world > 1:
-            loss, grads = all_reduce_mean(loss, grads, self.world)
+            loss, grads = all_reduce_mean(loss, grads, self.world,
+                                          self.data_group)
+        if self.shards is not None:
+            # the model group's ranks computed the same gradients; a
+            # kernel free to sum in any order (a backward's atomics) may
+            # round them apart, so all take its first rank's
+            loss, grads = share_grads(loss, grads, self.shards.lead,
+                                      self.shards.group)
         self.optimizer.step(self.params, grads)
         self.step += 1
         return {"loss": loss, "grad_norm": global_norm(grads)}
@@ -420,19 +466,42 @@ class Trainer:
         return out
 
 
-def all_reduce_mean(loss: torch.Tensor, grads: dict, world: int):
-    """(loss, grads) averaged over the `world` ranks of the default process
-    group, in one all-reduce of the flattened fp32 values (gloo reduces
-    host memory: a card's buffer goes through the host)."""
+def all_reduce_mean(loss: torch.Tensor, grads: dict, world: int,
+                    group=None):
+    """(loss, grads) averaged over the `world` ranks of `group` (default:
+    the default process group), in one all-reduce of the flattened fp32
+    values (gloo reduces host memory: a card's buffer goes through the
+    host)."""
+    import torch.distributed as dist
+
+    return _collective(loss, grads, lambda buf: dist.all_reduce(
+        buf, group=group), group, world)
+
+
+def share_grads(loss: torch.Tensor, grads: dict, src: int, group):
+    """(loss, grads) of global rank `src`, broadcast over `group` in one
+    collective of the flattened fp32 values."""
+    import torch.distributed as dist
+
+    return _collective(loss, grads, lambda buf: dist.broadcast(
+        buf, src=src, group=group), group)
+
+
+def _collective(loss, grads, op, group, divide: int = 1):
+    """op(buffer) on the flattened fp32 (loss, grads), through the host
+    under gloo, then divided by `divide` and split back."""
     import torch.distributed as dist
 
     names = list(grads)
     flat = torch.cat([loss.detach().reshape(1).float()]
                      + [grads[n].reshape(-1).float() for n in names])
-    via_host = flat.device.type != "cpu" and dist.get_backend() == "gloo"
+    via_host = (flat.device.type != "cpu"
+                and dist.get_backend(group) == "gloo")
     buf = flat.cpu() if via_host else flat
-    dist.all_reduce(buf)
-    flat = (buf.to(flat.device) if via_host else buf) / world
+    op(buf)
+    flat = buf.to(flat.device) if via_host else buf
+    if divide != 1:
+        flat = flat / divide
     out, at = {}, 1
     for n in names:
         g = grads[n]

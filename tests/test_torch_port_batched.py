@@ -458,20 +458,21 @@ def test_service_counter_is_thread_safe():
 
 def test_mesh_spec():
     assert parse_mesh_spec("data=1", 1) == {"data": 1}
-    assert parse_mesh_spec("model=3", 2) == {"model": 3, "data": 2}
+    assert parse_mesh_spec("model=3", 2) == {"model": 3}
     for bad in ("data", "data=x", "data=0", "=2"):
         with pytest.raises(ValueError):
             parse_mesh_spec(bad, 1)
-    assert make_data_mesh("data=1", "cpu") == DataMesh("data=1", 1)
+    assert make_data_mesh("data=1", "cpu") == DataMesh("data=1", 1,
+                                                      ("cpu",))
 
 
 @pytest.mark.parametrize("argv,match", [
     (["--mock", "--mesh", "data=1"], "--mock cannot combine with --mesh"),
     (["--max-batch", "4"], "--max-batch requires --mesh"),
-    (["--mesh", "model=3"], "item 11"),
+    (["--mesh", "model=3"], "mesh model=3 but only 1 devices"),
     (["--mesh", "data=2"], "only 1 devices"),
-    (["--mesh", "data=2"], "item 11"),
-    (["--mesh", "data=1,model=3"], "item 11"),
+    (["--mesh", "data=1,pipe=2"], "unsupported mesh axes for serving"),
+    (["--mesh", "data=1,model=3"], "--mesh model=N cannot combine with"),
     (["--mesh", "data=1", "--profile-dir", "x"], "--profile-dir"),
 ])
 def test_run_refuses(argv, match):
@@ -488,7 +489,8 @@ def test_run_serves_the_mesh():
                            "0"])
     try:
         s = server.service
-        assert s.max_batch == 4 and s.mesh == DataMesh("data=1", 1)
+        assert s.max_batch == 4 and s.mesh == DataMesh("data=1", 1,
+                                                       ("cpu",))
         assert s.dispatcher.window_ms == 7.0 and s.base is server.model
         assert "mesh[data=1]" in server.model_info
     finally:

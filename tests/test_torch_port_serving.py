@@ -61,7 +61,8 @@ def test_port_imports_without_jax():
         "          'tools.check_fidelity', 'tools.deepcache_split',\n"
         "          'training.train', 'training.jpeg', 'training.image_io',\n"
         "          'models.lora', 'parallel.mesh', 'parallel.launch',\n"
-        "          'parallel.serving', 'serving.parallel_model',\n"
+        "          'parallel.serving', 'parallel.cfg_shard',\n"
+        "          'parallel.dryrun', 'serving.parallel_model',\n"
         "          'core.engine', 'ops.constants', 'weights.convert',\n"
         "          'models.clip_text', 'utils.profiling', 'ops.raster',\n"
         "          'client.render', 'client.mesh_io', 'client.painter',\n"

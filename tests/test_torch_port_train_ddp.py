@@ -222,7 +222,7 @@ def test_launcher_timeout_kills_the_ranks():
 
 
 @pytest.mark.parametrize("flags, match", [
-    (("--mesh_model", "2"), "--mesh_model 2: model-parallel.*item 11"),
+    (("--mesh_model", "0"), "--mesh_model 0: a model axis of 0 ranks"),
     (("--mesh_data", "3"), "global batch: 3 data ranks must divide it"),
     (("--mesh_data", "3", "--num_processes", "2", "--coordinator",
       "127.0.0.1:1"), "do not divide over 2 processes"),

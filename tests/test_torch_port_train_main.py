@@ -12,11 +12,12 @@ train.py main) on the CPU at the tiny models (--tiny --resolution 64
   unet carries the LoRA merged in fp32 and the patch encoder the trained
   head; a DDIM stamp the port serves from it equals the JAX stamp program
   on the same export within the stamp tests' tolerance.
-- The flags that cannot run raise SystemExit naming the cause: a model
-  axis (--mesh_model 2), a global batch the data ranks do not divide, data
-  ranks that do not divide over the processes, several processes without
-  a coordinator, a process id out of range (data-parallel runs:
-  tests/test_torch_port_train_ddp.py).
+- The flags that cannot run raise SystemExit naming the cause: a global
+  batch the data ranks do not divide, data (or data x model) ranks that do
+  not divide over the processes, several processes without a
+  coordinator, a process id out of range (data-parallel runs:
+  tests/test_torch_port_train_ddp.py; model-parallel runs:
+  tests/test_torch_port_train_model_axis.py).
 """
 
 import os
@@ -220,7 +221,9 @@ def test_export_merges_the_lora_in_fp32(runs, textures, tmp_path):
 
 @pytest.mark.parametrize("flags, match", [
     (("--mesh_data", "3"), "global batch: 3 data ranks must divide it"),
-    (("--mesh_model", "2"), "model-parallel.*not ported yet.*item 11"),
+    (("--coordinator", "localhost:1234", "--num_processes", "4",
+      "--mesh_data", "3", "--mesh_model", "2"),
+     r"6 ranks \(3 data x 2 model\) do not divide over 4 processes"),
     (("--coordinator", "localhost:1234", "--num_processes", "2",
       "--mesh_data", "3"), "do not divide over 2 processes"),
     (("--num_processes", "2"), "needs --coordinator"),
